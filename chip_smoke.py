@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: int8 ResNet-50, b8, 224^2.
+"""Smoke run of the PyTorch/CUDA port on one GPU: int8 ResNet-50, b8 224^2
+fused (the run path) and b1 224^2 unfused (the trace path).
 
     python3 chip_smoke.py
 
@@ -19,7 +20,18 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      same input, the softmax output with a stated tolerance, and the median
      latency and images/s are printed;
   6. device time per request by kernel (torch.profiler) and the device's
-     busy share of the median latency.
+     busy share of the median latency;
+  7. the trace path, K4: ResNet-50 b1 224^2 quantized and left unfused; one
+     forward of TorchExecutor(fuse=False, device="cuda") with all 232 nodes
+     captured is recorded call by call, and every K4 call (qgemm_raw,
+     qconv_raw) is held == against its plain version and timed as in phase 4;
+     every captured integer node is held == against the CPU plain path;
+  8. trace emission: the launch counts are set to 0, TraceEmitter(
+     backend="torch", device="cuda").emit_to writes the b1 224^2 trace (one
+     warm call, five timed), the counts are read (both K4 modes must have
+     launched), the trace is held record by record against the CPU plain
+     path's trace (integer records byte-equal, float records allclose), its
+     CRCs checked natively and every record re-executed by verify_trace.
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.
@@ -29,9 +41,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -44,6 +58,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak, same source
 SOFTMAX_RTOL, SOFTMAX_ATOL = 1e-5, 1e-8
 
+FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-6  # float trace records (tests/test_trace.py's rule)
+TRACE_BATCH = 1
+TRACE_TIMED = 5
+
 KERNELS = {
     "qgemm_rq": ("tachikoma_tpu_torch/csrc/qgemm_rq.cu",
                  "tachikoma_tpu/ops/pallas/matmul_int8.py:33"),
@@ -51,7 +69,13 @@ KERNELS = {
                  "tachikoma_tpu/ops/pallas/conv_flat.py:68"),
     "qconv_rq_res": ("tachikoma_tpu_torch/csrc/qconv_rq.cu",
                      "tachikoma_tpu/ops/pallas/conv_flat.py:1285"),
+    "qgemm_raw": ("tachikoma_tpu_torch/csrc/qgemm_raw.cu",
+                  "tachikoma_tpu/ops/pallas/matmul_int8.py:61"),
+    "qconv_raw": ("tachikoma_tpu_torch/csrc/qgemm_raw.cu",
+                  "tachikoma_tpu/ops/pallas/conv_flat.py:68"),
 }
+RUN_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res")
+TRACE_KERNELS = ("qgemm_raw", "qconv_raw")
 
 
 def say(*a):
@@ -108,12 +132,13 @@ def eager_ms(fn, reps=3) -> float:
 
 @contextlib.contextmanager
 def recording(calls: list):
-    """Record every call of the three kernel wrappers (name, args, kwargs)."""
+    """Record every call of the kernel wrappers (name, args, kwargs)."""
     from tachikoma_tpu_torch.ops.kernels import conv, matmul_int8
 
     saved = []
     for mod, attr in ((matmul_int8, "qgemm_rq"), (conv, "qgemm_rq"),
-                      (conv, "qconv_rq"), (conv, "qconv_rq_res")):
+                      (conv, "qconv_rq"), (conv, "qconv_rq_res"),
+                      (matmul_int8, "qgemm_raw"), (conv, "qgemm_raw"), (conv, "qconv_raw")):
         fn = getattr(mod, attr)
 
         def rec(*a, _fn=fn, _name=attr, **k):
@@ -134,9 +159,11 @@ def work(name, a, k) -> tuple[int, int, str]:
     once, each output written once."""
     x, w = a[0], a[1]
     cout = w.shape[-1]
-    if name == "qgemm_rq":
+    raw = name.endswith("_raw")
+    out_b, vec_b = (4, 4) if raw else (1, 12)  # output bytes, per-channel vector bytes
+    if name in ("qgemm_rq", "qgemm_raw"):
         m, kk = x.shape
-        return (m * kk + kk * cout + m * cout + 12 * cout, 2 * m * kk * cout,
+        return (m * kk + kk * cout + out_b * m * cout + vec_b * cout, 2 * m * kk * cout,
                 f"M={m} K={kk} N={cout}")
     kh, kw, cin, _ = w.shape
     sh, sw = k.get("strides", (1, 1))
@@ -144,19 +171,24 @@ def work(name, a, k) -> tuple[int, int, str]:
     n, h, wd, _ = x.shape
     oh, ow = (h + pt + pb - kh) // sh + 1, (wd + pl + pr - kw) // sw + 1
     out = n * oh * ow * cout
-    nbytes = x.numel() + w.numel() + out + 12 * cout + (out if name == "qconv_rq_res" else 0)
+    nbytes = (x.numel() + w.numel() + out_b * out + vec_b * cout
+              + (out if name == "qconv_rq_res" else 0))
     return (nbytes, 2 * out * kh * kw * cin,
             f"{n}x{h}x{wd}x{cin} k{kh} s{sh} -> {cout}")
 
 
 def library_call(name, a, k):
-    """One PyTorch call of the same shape (used only as a yardstick)."""
+    """One PyTorch call of the same shape (used only as a yardstick), or None
+    where there is none: K4's GEMM mode takes only torch._int_mm, which
+    computes its function exactly and refuses M <= 16."""
     x, w = a[0], a[1]
-    if name == "qgemm_rq":
+    if name in ("qgemm_rq", "qgemm_raw"):
         m, kk = x.shape
         n = w.shape[1]
         if m > 16 and kk % 8 == 0 and n % 8 == 0:
             return lambda: torch._int_mm(x, w)
+        if name == "qgemm_raw":
+            return None
         x16, w16 = x.half(), w.half()
         return lambda: x16 @ w16
     pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
@@ -167,38 +199,50 @@ def library_call(name, a, k):
     return lambda: torch.nn.functional.conv2d(x16, w16, stride=stride, padding=(pt, pl))
 
 
-def check_kernels(calls: list) -> dict:
+def check_kernels(calls: list, names) -> dict:
+    """Hold every recorded call of the kernels `names` == against its plain
+    version, time it, and sum per kernel."""
     from tachikoma_tpu_torch.ops.kernels import conv, matmul_int8
 
     impl = {"qgemm_rq": (matmul_int8.qgemm_rq, matmul_int8.qgemm_rq_plain),
             "qconv_rq": (conv.qconv_rq, conv.qconv_rq_plain),
-            "qconv_rq_res": (conv.qconv_rq_res, conv.qconv_rq_res_plain)}
+            "qconv_rq_res": (conv.qconv_rq_res, conv.qconv_rq_res_plain),
+            "qgemm_raw": (matmul_int8.qgemm_raw, matmul_int8.qgemm_raw_plain),
+            "qconv_raw": (conv.qconv_raw, conv.qconv_raw_plain)}
     per_call, totals = [], {}
     for name, a, k in calls:
         fn, plain = impl[name]
         got, want = fn(*a, **k), plain(*a, **k)
         torch.cuda.synchronize()
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
         assert torch.equal(got, want), f"{name} != plain on {work(name, a, k)[2]}: max |err| {err}"
         nbytes, ops, label = work(name, a, k)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+        lib = library_call(name, a, k)
         rec = dict(kernel=name, shape=label, bytes=nbytes, ops=ops,
                    ms=graph_ms(lambda: fn(*a, **k)),
                    plain_ms=eager_ms(lambda: plain(*a, **k)),
-                   library_ms=graph_ms(library_call(name, a, k)),
+                   library_ms=graph_ms(lib) if lib is not None else None,
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    max_abs_err=err)
         per_call.append(rec)
-    for name in KERNELS:
+
+    def fmt(v, width, digits):
+        return f"{v:{width}.{digits}f}" if v is not None else f"{'-':>{width}s}"
+
+    for name in names:
         recs = [r for r in per_call if r["kernel"] == name]
         assert recs, f"the main path made no call of {name}"
         by_bytes = sum(r["bound_ms"] for r in recs if r["bound_by"] == "bytes")
         t = dict(calls=len(recs), max_abs_err=max(r["max_abs_err"] for r in recs),
                  bound_by="bytes" if 2 * by_bytes >= sum(r["bound_ms"] for r in recs)
                  else "operations")
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        for key in ("ms", "plain_ms", "bound_ms"):
             t[key] = sum(r[key] for r in recs)
+        libs = [r["library_ms"] for r in recs if r["library_ms"] is not None]
+        t["library_ms"] = sum(libs) if libs else None
+        t["library_calls"] = len(libs)
         totals[name] = t
         phase(f"{name} ({KERNELS[name][0]}): {len(recs)} calls per forward, all == plain")
         say(f"{'shape':38s} {'calls':>5s} {'ms':>9s} {'bound_ms':>9s} {'by':>10s} "
@@ -207,9 +251,10 @@ def check_kernels(calls: list) -> dict:
         for shape, count in shapes.items():
             r = next(r for r in recs if r["shape"] == shape)
             say(f"{shape:38s} {count:5d} {r['ms']:9.4f} {r['bound_ms']:9.4f} "
-                f"{r['bound_by']:>10s} {r['plain_ms']:9.3f} {r['library_ms']:10.4f}")
+                f"{r['bound_by']:>10s} {r['plain_ms']:9.3f} {fmt(r['library_ms'], 10, 4)}")
         say(f"{'per forward':38s} {len(recs):5d} {t['ms']:9.4f} {t['bound_ms']:9.4f} "
-            f"{t['bound_by']:>10s} {t['plain_ms']:9.3f} {t['library_ms']:10.4f}")
+            f"{t['bound_by']:>10s} {t['plain_ms']:9.3f} {fmt(t['library_ms'], 10, 4)}"
+            f"  (library over {len(libs)} of {len(recs)} calls)")
     return totals
 
 
@@ -236,6 +281,146 @@ def profile_requests(ex, requests, median_ms: float) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         say(f"  {e.self_device_time_total / 1e3 / len(requests):9.4f} ms  "
             f"{e.count // len(requests):4d}x  {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# the trace path (phases 7 and 8)
+# ---------------------------------------------------------------------------
+
+def filesystem_type(path: str) -> str:
+    """The type of the filesystem that holds `path` (tmpfs, ext4, ...), as
+    `stat -f` gives it: the trace seconds depend on it."""
+    out = subprocess.run(["stat", "-f", "-c", "%T", path], capture_output=True, text=True)
+    return out.stdout.strip() or "unknown"
+
+
+def compare_traces(path: str, ref_path: str) -> tuple[int, int]:
+    """Hold the trace at `path` record by record against `ref_path`: same
+    header, names, op ids and attrs; integer records byte-equal, float
+    records allclose.  Returns (records, integer records)."""
+    from tachikoma_tpu_torch.trace.format import TraceReader, op_id
+
+    with open(path, "rb") as f, open(ref_path, "rb") as g:
+        got, want = TraceReader(f), TraceReader(g)
+    assert got.graph_hash == want.graph_hash and len(got) == len(want) and got.meta == want.meta
+    n_int = 0
+    for a, b in zip(got, want):
+        assert (a.node_id, a.name, a.op_name, a.attrs) == (b.node_id, b.name, b.op_name, b.attrs)
+        assert op_id(a.op_name) == op_id(b.op_name)
+        if a.output.to_array().dtype.kind in "iu":
+            assert a.encode() == b.encode(), f"trace record {a.name} differs from the CPU's"
+            n_int += 1
+        else:
+            for ta, tb in zip(a.tensors, b.tensors):
+                assert ta.role == tb.role and ta.shape == tb.shape
+                np.testing.assert_allclose(ta.to_array(), tb.to_array(), rtol=FLOAT_RTOL,
+                                           atol=FLOAT_ATOL, err_msg=a.name)
+    return len(got), n_int
+
+
+def trace_path() -> tuple[dict, dict]:
+    """Phases 7 and 8; returns K4's per-kernel totals (phase 7) and launch
+    counts (phase 8, the trace path's run)."""
+    from tachikoma_tpu_torch.models.vision import resnet
+    from tachikoma_tpu_torch.ops.kernels import _lib
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.trace.emitter import TraceEmitter, verify_trace
+    from tachikoma_tpu_torch.trace.native import native_verify
+
+    phase(f"7. trace path, K4: int8 ResNet-50 b{TRACE_BATCH} {IMAGE}^2 unfused on the card")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    calib = rng.standard_normal((TRACE_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    q = quantize(resnet(50, batch_size=TRACE_BATCH, image_size=IMAGE, seed=SEED), [calib])
+    x = rng.standard_normal((TRACE_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    names = computational_nodes(q)
+    ops = Counter(q[n].op for n in names)
+    say(f"build + calibrate + quantize {time.perf_counter() - t0:.2f} s (host)")
+    say(f"unfused graph: {len(names)} computational nodes: "
+        + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
+    ex = TorchExecutor(q, capture=names, device="cuda", fuse=False)
+    for name in TRACE_KERNELS:
+        _lib.LAUNCHES[name] = 0
+    calls: list = []
+    with recording(calls):
+        outs = [o.cpu().numpy() for o in ex.run_device(x)]
+    for name in TRACE_KERNELS:
+        assert _lib.LAUNCHES[name] > 0, f"the unfused forward launched {name} no time"
+    say("K4 calls per forward: " + ", ".join(
+        f"{name} {_lib.LAUNCHES[name]}" for name in TRACE_KERNELS)
+        + f" ({ops['qnn.conv2d']} qnn.conv2d + {ops['qnn.dense']} qnn.dense)")
+    assert len(calls) == ops["qnn.conv2d"] + ops["qnn.dense"]
+    totals = check_kernels(calls, TRACE_KERNELS)
+    plain = TorchExecutor(q, capture=names, device="cpu", fuse=False).run(x)
+    n_int = 0
+    for nm, a, b in zip(names, outs, plain):
+        assert a.shape == b.shape and a.dtype == b.dtype, nm
+        if a.dtype.kind in "iu":
+            assert (a == b).all(), f"{nm} ({q[nm].op}) != plain path"
+            n_int += 1
+        else:
+            assert np.isfinite(a).all(), nm
+            np.testing.assert_allclose(a, b, rtol=FLOAT_RTOL, atol=FLOAT_ATOL, err_msg=nm)
+    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; "
+        f"float nodes within rtol {FLOAT_RTOL} atol {FLOAT_ATOL}")
+
+    phase(f"8. trace emission: TraceEmitter(backend='torch', device='cuda').emit_to, "
+          f"1 warm + {TRACE_TIMED} timed")
+    tdir = tempfile.gettempdir()
+    path = os.path.join(tdir, f"tk_chip_smoke_{os.getpid()}.bin")
+    ref_path = os.path.join(tdir, f"tk_chip_smoke_{os.getpid()}_cpu.bin")
+    meta = {"model": f"resnet50_b{TRACE_BATCH}_{IMAGE}"}
+    try:
+        em = TraceEmitter(q, backend="torch", device="cuda", meta=meta)
+        for name in TRACE_KERNELS:
+            _lib.LAUNCHES[name] = 0
+        n_records = em.emit_to(x, path)
+        times, timings = [], []
+        for _ in range(TRACE_TIMED):
+            t0 = time.perf_counter()
+            em.emit_to(x, path)
+            times.append(time.perf_counter() - t0)
+            timings.append(dict(em.last_timings))
+        launches = {name: _lib.LAUNCHES[name] for name in TRACE_KERNELS}
+        for name, n in launches.items():
+            assert n > 0, f"the trace path launched {name} no time"
+            say(f"{name}: {n} launches in {TRACE_TIMED + 1} traces")
+        nbytes = os.path.getsize(path)
+        med = statistics.median(times)
+
+        def median_of(key):
+            return statistics.median(t[key] for t in timings)
+
+        say(f"trace dir {tdir} ({filesystem_type(tdir)}); writer {timings[-1]['writer']}")
+        say(f"records {n_records}, bytes {nbytes}, fetched bytes {timings[-1]['fetched_bytes']}")
+        say(f"median s: trace {med:.4f}, dispatch {median_of('dispatch_s'):.4f}, "
+            f"fetch wait {median_of('fetch_s'):.4f}, serialize {median_of('serialize_s'):.4f}")
+        say("trace s, all: " + " ".join(f"{v:.4f}" for v in times))
+        say(f"records/s {n_records / med:.1f}, traces/s {1 / med:.3f}, "
+            f"MB/s {nbytes / med / 1e6:.1f}")
+        say("last trace, per group: fetch wait s "
+            + " ".join(f"{v:.4f}" for v in timings[-1]["group_waits"]) + "; walk s "
+            + " ".join(f"{v:.4f}" for v in timings[-1]["group_walks"]))
+
+        t0 = time.perf_counter()
+        TraceEmitter(q, backend="torch", device="cpu", meta=meta).emit_to(x, ref_path)
+        t1 = time.perf_counter()
+        n, n_int = compare_traces(path, ref_path)
+        say(f"CPU plain trace {t1 - t0:.2f} s; card trace == CPU trace: {n} records, "
+            f"{n_int} integer byte-equal, {n - n_int} float within rtol {FLOAT_RTOL} "
+            f"atol {FLOAT_ATOL} ({time.perf_counter() - t1:.2f} s)")
+        assert native_verify(path) == n_records
+        t0 = time.perf_counter()
+        res = verify_trace(path, q)
+        assert res["verified"] == res["records"] == n_records, res["mismatches"][:5]
+        say(f"CRCs ok (native); verify_trace: {res['verified']}/{res['records']} records "
+            f"verified by the numpy oracle in {time.perf_counter() - t0:.2f} s")
+    finally:
+        for p in (path, ref_path):
+            if os.path.exists(p):
+                os.unlink(p)
+    return totals, launches
 
 
 # ---------------------------------------------------------------------------
@@ -293,10 +478,10 @@ def main() -> int:
     with recording(calls):
         ex.run_device(requests[0])
     torch.cuda.synchronize()
-    totals = check_kernels(calls)
+    totals = check_kernels(calls, RUN_KERNELS)
 
     phase(f"5. main path: {REQUESTS} requests through TorchExecutor(device='cuda')")
-    for name in KERNELS:
+    for name in RUN_KERNELS:
         _lib.LAUNCHES[name] = 0
     lat = []
     first = None
@@ -307,7 +492,7 @@ def main() -> int:
         lat.append((time.perf_counter() - t0) * 1e3)
         if first is None:
             first = [o.cpu().numpy() for o in outs]
-    launches = {name: _lib.LAUNCHES[name] for name in KERNELS}
+    launches = {name: _lib.LAUNCHES[name] for name in RUN_KERNELS}
     for name, n in launches.items():
         assert n > 0, f"the main path launched {name} no time"
         say(f"{name}: {n} launches, {n // REQUESTS} per forward")
@@ -334,6 +519,10 @@ def main() -> int:
 
     phase("6. device time of the main path (torch.profiler, 3 requests)")
     profile_requests(ex, requests[:3], med)
+
+    trace_totals, trace_launches = trace_path()
+    totals.update(trace_totals)
+    launches.update(trace_launches)
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

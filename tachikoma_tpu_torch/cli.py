@@ -1,0 +1,225 @@
+"""Command-line interface of the port (port of `tachikoma_tpu/cli.py`).
+
+  quantize  — build a zoo ResNet (or read a graph .json), calibrate, write the
+              integer graph JSON
+  run       — execute a graph (TorchExecutor or the numpy oracle), print outputs
+  trace     — emit a tachikoma-standard trace binary for given inputs
+  verify    — CRC + semantic verification of a trace binary
+  info      — show a graph (ops, shapes, hash)
+
+Usage: python -m tachikoma_tpu_torch.cli <subcommand> [args]
+
+`--device` defaults to "cuda" and never falls back to the CPU; pass
+`--device cpu` to run the kernels' plain PyTorch versions.  Graph files are
+`.json`; the zoo is resnet18 / resnet34 / resnet50.  Other zoo models, model
+file formats and the JAX package's other subcommands are not ported yet and
+exit with the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from collections import Counter
+
+import numpy as np
+
+ZOO = ("resnet18", "resnet34", "resnet50")
+NOT_PORTED = {
+    "profile": "runtime/profiler.py, ROADMAP Queue 1 item 8",
+    "compile": "runtime/artifact.py, ROADMAP Queue 1 item 8",
+    "evaluate": "quantize/evaluate.py and accuracy.py, ROADMAP Queue 1 item 11",
+    "bench": "the port's benchmark, ROADMAP Queue 1 item 3",
+    "tune": "tune/, ROADMAP Queue 1 item 15",
+}
+
+
+def _load_graph(path: str):
+    from .ir.graph import Graph
+
+    if not path.endswith(".json"):
+        raise SystemExit(f"{path}: only graph .json files are ported yet; the model "
+                         "frontends wait for ROADMAP Queue 1 item 12")
+    with open(path) as f:
+        return Graph.from_json(f.read())
+
+
+def _zoo(name: str, batch: int, image: int | None):
+    from .models.vision import resnet
+
+    if name.lower() not in ZOO:
+        raise SystemExit(f"zoo model {name!r} is not ported yet (the port has {ZOO}; the "
+                         "others wait for ROADMAP Queue 1 item 10)")
+    return resnet(int(name[6:]), batch_size=batch, image_size=image or 224)
+
+
+def _rand_inputs(graph, seed=0):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for n in graph.inputs:
+        if n.dtype.startswith("int"):
+            out[n.name] = rng.integers(0, 100, n.shape).astype(n.dtype)
+        else:
+            out[n.name] = rng.standard_normal(n.shape).astype(n.dtype)
+    return out
+
+
+def _load_inputs(args, graph):
+    if getattr(args, "input", None):
+        data = np.load(args.input)
+        if hasattr(data, "files"):
+            return {k: data[k] for k in data.files}
+        return {graph.inputs[0].name: data}
+    return _rand_inputs(graph)
+
+
+def cmd_quantize(args):
+    from .quantize.config import QConfig
+    from .quantize.quantizer import quantize
+
+    if args.model.endswith(".json") or os.path.isfile(args.model):
+        g = _load_graph(args.model)
+    else:
+        g = _zoo(args.model, args.batch, args.image_size)
+    if args.calib_data:
+        data = np.load(args.calib_data)
+        batches = [{k: data[k] for k in data.files}] if hasattr(data, "files") else [data]
+    else:
+        batches = [_rand_inputs(g, seed=i) for i in range(args.calib_batches)]
+    qg = quantize(g, batches, QConfig(calibrate_mode=args.calibrate_mode))
+    with open(args.output, "w") as f:
+        f.write(qg.to_json())
+    print(f"wrote {args.output}: {len(qg)} nodes, hash {qg.structural_hash()[:16]}")
+
+
+def cmd_run(args):
+    g = _load_graph(args.graph)
+    inputs = _load_inputs(args, g)
+    if args.backend == "oracle":
+        from .runtime.interpreter import run_graph
+
+        outs = run_graph(g, inputs)
+    else:
+        from .runtime.executor import TorchExecutor
+
+        outs = TorchExecutor(g, fuse=not args.no_fuse, device=args.device).run(inputs)
+    for name, o in zip(g.outputs, outs):
+        print(f"{name}: {o.dtype}{list(o.shape)}")
+        with np.printoptions(threshold=20, precision=4):
+            print(o)
+    if args.output:
+        np.savez(args.output, **dict(zip(g.outputs, outs)))
+
+
+def cmd_trace(args):
+    g = _load_graph(args.graph)
+    inputs = _load_inputs(args, g)
+    meta = {"model": args.graph}
+    if args.native:
+        from .trace.native import emit_trace_native
+
+        if args.require_integer:
+            from .trace.emitter import TraceEmitter
+
+            TraceEmitter(g, backend="oracle", require_integer=True)
+        n = emit_trace_native(g, inputs, args.output, backend=args.backend,
+                              device=args.device, meta=meta)
+    else:
+        from .trace.emitter import emit_trace
+
+        n = emit_trace(g, inputs, path=args.output, backend=args.backend, device=args.device,
+                       meta=meta, require_integer=args.require_integer)
+    print(f"wrote {args.output}: {n} records, {os.path.getsize(args.output)} bytes")
+
+
+def cmd_verify(args):
+    from .trace.emitter import verify_trace
+
+    graph = _load_graph(args.graph) if args.graph else None
+    if args.crc_only:
+        from .trace.native import native_available, native_verify
+
+        if native_available():
+            print(f"CRC OK: {native_verify(args.trace)} records")
+            return
+    res = verify_trace(args.trace, graph)
+    ok = res["verified"] == res["records"]
+    print(f"verified {res['verified']}/{res['records']} records")
+    for name, why in res["mismatches"][:20]:
+        print(f"  MISMATCH {name}: {why}")
+    sys.exit(0 if ok else 1)
+
+
+def cmd_info(args):
+    g = _load_graph(args.graph)
+    print(f"graph {g.name}: {len(g)} nodes, hash {g.structural_hash()[:16]}")
+    print(f"inputs : {[(n.name, n.dtype, n.shape) for n in g.inputs]}")
+    print(f"outputs: {[(o, g[o].dtype, g[o].shape) for o in g.outputs]}")
+    for op, c in Counter(n.op for n in g.nodes).most_common():
+        print(f"  {op:<24} {c}")
+
+
+def cmd_not_ported(args):
+    raise SystemExit(f"{args.cmd}: not ported yet ({NOT_PORTED[args.cmd]})")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="tachikoma_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    q = sub.add_parser("quantize", help="calibrate + quantize a model to an integer graph")
+    q.add_argument("model", help=f"zoo name ({'/'.join(ZOO)}) or graph .json")
+    q.add_argument("-o", "--output", required=True)
+    q.add_argument("--batch", type=int, default=1)
+    q.add_argument("--image-size", type=int, default=None)
+    q.add_argument("--calib-data", help=".npz of calibration inputs")
+    q.add_argument("--calib-batches", type=int, default=2)
+    q.add_argument("--calibrate-mode", default="max",
+                   choices=["max", "minmax", "percentile", "kl"])
+    q.set_defaults(fn=cmd_quantize)
+
+    r = sub.add_parser("run", help="execute a graph")
+    r.add_argument("graph")
+    r.add_argument("--backend", default="torch", choices=["torch", "oracle"])
+    r.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    r.add_argument("--input", help=".npy/.npz input file (random if omitted)")
+    r.add_argument("-o", "--output", help="save outputs to .npz")
+    r.add_argument("--no-fuse", action="store_true")
+    r.set_defaults(fn=cmd_run)
+
+    t = sub.add_parser("trace", help="emit a tachikoma-standard trace binary")
+    t.add_argument("graph")
+    t.add_argument("-o", "--output", required=True)
+    t.add_argument("--backend", default="torch", choices=["torch", "oracle"])
+    t.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    t.add_argument("--input", help=".npy/.npz input file")
+    t.add_argument("--native", action="store_true",
+                   help="write record by record with the C++ writer")
+    t.add_argument("--require-integer", action="store_true",
+                   help="reject graphs with float computational records: "
+                        "every record then carries the bitwise == guarantee")
+    t.set_defaults(fn=cmd_trace)
+
+    v = sub.add_parser("verify", help="verify a trace binary")
+    v.add_argument("trace")
+    v.add_argument("--graph", help="graph .json to check the hash against")
+    v.add_argument("--crc-only", action="store_true")
+    v.set_defaults(fn=cmd_verify)
+
+    i = sub.add_parser("info", help="describe a graph")
+    i.add_argument("graph")
+    i.set_defaults(fn=cmd_info)
+
+    for name, where in NOT_PORTED.items():
+        n = sub.add_parser(name, help=f"not ported yet ({where})")
+        n.add_argument("rest", nargs=argparse.REMAINDER)
+        n.set_defaults(fn=cmd_not_ported)
+
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

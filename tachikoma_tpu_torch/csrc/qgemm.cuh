@@ -1,5 +1,5 @@
 // Int8 implicit-GEMM kernel with the exact requantize epilogue: the body of
-// K1 (qgemm_rq.cu), K2 and K3 (qconv_rq.cu).
+// K1 (qgemm_rq.cu), K2 and K3 (qconv_rq.cu), and K4 (qgemm_raw.cu).
 //
 // out[m, n] = epilogue(sum_k A[m, k] * B[k, n]) with int8 operands and an
 // int32 accumulator on the tensor cores (mma.sync m16n8k32 s8.s8.s32).
@@ -12,6 +12,8 @@
 //     seen as (KH*KW*CIN, COUT).  The loader transposes 4x4 byte blocks so
 //     that shared memory holds B as [n][k], the layout the mma takes.
 //   * RES = true (K3): the epilogue then applies the fused residual qnn.add.
+//   * RAW = true (K4): no requantize; the epilogue stores acc + bias[n] as
+//     int32 (wraparound) to an int32 output.
 //
 // Design, simple and right first: 64x64x64 block tiles, four warps of 32x32,
 // one shared-memory stage with the next tile prefetched into registers.  Rows
@@ -116,10 +118,11 @@ __device__ __forceinline__ uint32_t b_word(const int8_t* __restrict__ w, int k, 
   return v;
 }
 
-template <bool IM2COL, bool RES>
+// `out` is int8 (M, N), or int32 (M, N) when RAW.
+template <bool IM2COL, bool RES, bool RAW>
 __global__ void __launch_bounds__(NTHREADS)
     qgemm_rq_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                    int8_t* __restrict__ out, const int8_t* __restrict__ residual, Requant rq,
+                    void* __restrict__ out, const int8_t* __restrict__ residual, Requant rq,
                     ResAdd ra, Geo g) {
   __shared__ __align__(16) int8_t As[BM * SROW];
   __shared__ __align__(16) int8_t Bs[BN * SROW];
@@ -239,9 +242,13 @@ __global__ void __launch_bounds__(NTHREADS)
         const int col = n0 + wn + nt * 8 + tig * 2 + (i & 1);
         if (row < g.M && col < g.cout) {
           const long long o = (long long)row * g.cout + col;
-          int32_t v = requantize_channel(acc[mt][nt][i], col, rq);
-          if (RES) v = residual_add(v, residual[o], ra);
-          out[o] = (int8_t)v;
+          if constexpr (RAW) {
+            static_cast<int32_t*>(out)[o] = wrap_add(acc[mt][nt][i], rq.bias[col]);
+          } else {
+            int32_t v = requantize_channel(acc[mt][nt][i], col, rq);
+            if (RES) v = residual_add(v, residual[o], ra);
+            static_cast<int8_t*>(out)[o] = (int8_t)v;
+          }
         }
       }
 }
@@ -269,9 +276,10 @@ inline Geo make_geo(const int32_t* p) {
   return g;
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError().
-template <bool IM2COL, bool RES>
-int launch_qgemm_rq(const int8_t* x, const int8_t* w, int8_t* out, const int8_t* residual,
+// Launches the kernel on `stream` and returns cudaGetLastError().  With RAW,
+// `mult` and `shift` are not read.
+template <bool IM2COL, bool RES, bool RAW = false>
+int launch_qgemm_rq(const int8_t* x, const int8_t* w, void* out, const int8_t* residual,
                     const int32_t* bias, const int32_t* mult, const int32_t* shift,
                     const int32_t* p, void* stream) {
   const Geo g = make_geo(p);
@@ -294,7 +302,7 @@ int launch_qgemm_rq(const int8_t* x, const int8_t* w, int8_t* out, const int8_t*
   }
   if (g.M > 0 && g.cout > 0) {
     const dim3 grid((g.M + BM - 1) / BM, (g.cout + BN - 1) / BN);
-    qgemm_rq_kernel<IM2COL, RES>
+    qgemm_rq_kernel<IM2COL, RES, RAW>
         <<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(x, w, out, residual, rq, ra, g);
   }
   return (int)cudaGetLastError();

@@ -7,8 +7,12 @@ the conv entries of the int8 path (port of
     zero point.
   * `qconv_rq_res` (K3) wraps `tk_qconv_rq_res`: the same conv, whose epilogue
     then applies the fused residual `qnn.add`.
-  * `qconv2d_flat`: 1x1 convs go to K1 as a GEMM (`_conv1x1_matmul`), every
-    other kernel size, the 7x7 s2 stem included, to K2.
+  * `qconv_raw` (K4, conv mode) wraps `csrc/qgemm_raw.cu tk_qconv_raw`: the
+    same conv storing the int32 accumulator plus bias, no requantize (the
+    `fuse=False` branch of the TPU kernel).
+  * `qconv2d_flat`: 1x1 convs go to K1 (or, without a multiplier, K4's GEMM
+    mode) as a GEMM (`_conv1x1_matmul`), every other kernel size, the 7x7 s2
+    stem included, to K2 (or K4's conv mode).
   * `qconv2d_flat_chain` / `qconv2d_flat_block_stack` run a chain or a stack
     of residual blocks stage by stage: the last stage of each residual block
     launches K3, the others K1 (1x1) or K2.
@@ -25,7 +29,7 @@ import torch
 
 from ._lib import LAUNCHES, check_cuda_operands, launch
 from .matmul_int8 import (_TONEAREST, as_int8, as_int32_vector, fold_input_zero_point,
-                          qgemm_rq)
+                          qgemm_raw, qgemm_rq)
 from .requantize import channel_vector, epilogue_plain, plan_res_add, res_add_plain
 
 
@@ -103,6 +107,36 @@ def qconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), i
     return out
 
 
+def qconv_raw_plain(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0),
+                    izp=0) -> torch.Tensor:
+    """Plain PyTorch version of K4's conv mode."""
+    acc = conv_acc_plain(x, w, strides, padding, izp)
+    return (acc.to(torch.int64) + bias.to(torch.int64)).to(torch.int32)
+
+
+def qconv_raw(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0) -> torch.Tensor:
+    """K4, conv mode: the int32 accumulator of qnn.conv2d, sum (x_pad - izp) *
+    w, plus bias in int32 wraparound.  x int8 NHWC, w int8 HWIO, bias int32
+    (COUT,); padding (top, left, bottom, right) -> int32 NHWC."""
+    if x.device.type == "cpu":
+        return qconv_raw_plain(x, w, bias, strides=strides, padding=padding, izp=izp)
+    if x.device.type != "cuda":
+        raise ValueError(f"qconv_raw: no kernel for device {x.device}")
+    oh, ow = _out_hw(x.shape, w.shape, strides, padding)
+    kh, kw, cin, cout = w.shape
+    check_cuda_operands("qconv_raw", x.device, x=(x, torch.int8, (*x.shape[:3], cin)),
+                        w=(w, torch.int8, (kh, kw, cin, cout)),
+                        bias=(bias, torch.int32, (cout,)))
+    if x.ndim != 4 or min(oh, ow) <= 0:
+        raise ValueError(f"qconv_raw: bad geometry {tuple(x.shape)} * {tuple(w.shape)}")
+    out = torch.empty((x.shape[0], oh, ow, cout), dtype=torch.int32, device=x.device)
+    bias = fold_input_zero_point(bias, w, izp)
+    launch("tk_qconv_raw", [x, w, out, bias],
+           _conv_params(x, w, out, strides, padding, izp, 0, 0, "UPWARD", 0, 0))
+    LAUNCHES["qconv_raw"] += 1
+    return out
+
+
 def qconv_rq_res_plain(x, w, bias, mult, shift, residual, res_params, *, padding=(0, 0, 0, 0),
                        izp=0, rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127):
     """Plain PyTorch version of K3."""
@@ -145,7 +179,8 @@ def qconv_rq_res(x, w, bias, mult, shift, residual, res_params: dict, *,
 
 def _conv1x1_matmul(x, w, bias, mult, shift, strides, padding, izp, rq_izp, out_zp,
                     rounding, qmin, qmax):
-    """1x1 conv == GEMM on K1; padding (with izp) and stride subsample first."""
+    """1x1 conv == GEMM on K1 (on K4 when `mult` is None); padding (with izp)
+    and stride subsample first."""
     pt, pl, pb, pr = padding
     if any(padding):
         x = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb), value=int(izp))
@@ -153,9 +188,13 @@ def _conv1x1_matmul(x, w, bias, mult, shift, strides, padding, izp, rq_izp, out_
         x = x[:, ::strides[0], ::strides[1], :]
     n, oh, ow, cin = x.shape
     cout = w.shape[-1]
-    out = qgemm_rq(x.reshape(n * oh * ow, cin), w.reshape(cin, cout),
-                   fold_input_zero_point(bias, w, izp), mult, shift, rq_izp=rq_izp,
-                   out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax)
+    x2, w2 = x.reshape(n * oh * ow, cin).contiguous(), w.reshape(cin, cout)
+    bias = fold_input_zero_point(bias, w, izp)
+    if mult is None:
+        out = qgemm_raw(x2, w2, bias)
+    else:
+        out = qgemm_rq(x2, w2, bias, mult, shift, rq_izp=rq_izp, out_zp=out_zp,
+                       rounding=rounding, qmin=qmin, qmax=qmax)
     return out.reshape(n, oh, ow, cout)
 
 
@@ -164,20 +203,27 @@ def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1)
                  rq_input_zero_point: int = 0, out_zp: int = 0, rounding: str = "UPWARD",
                  out_dtype: str = "int8", qmin: int = -128, qmax: int = 127):
     """NHWC int8 conv with the fused exact requantize: x (N,H,W,CIN) int8,
-    w (KH,KW,CIN,COUT) int8, groups 1; 1x1 -> K1, any other size -> K2."""
+    w (KH,KW,CIN,COUT) int8, groups 1; 1x1 -> K1, any other size -> K2.
+    Without a multiplier: the int32 accumulator of sum (x_pad - izp) * w plus
+    bias (the unfused qnn.conv2d + bias), on K4's GEMM or conv mode."""
     if groups != 1:
-        raise NotImplementedError("grouped and depthwise convs are not ported yet")
-    if multiplier is None:
-        raise NotImplementedError("the raw int32 accumulator variant is not ported yet")
-    if out_dtype != "int8":
+        raise NotImplementedError("grouped and depthwise convs are not ported yet "
+                                  "(ROADMAP Queue 2 item 6, _flat_dw_kernel)")
+    if multiplier is not None and out_dtype != "int8":
         raise NotImplementedError(f"qconv2d_flat: out_dtype {out_dtype} is not ported yet")
     dev = x.device
     w = as_int8(w, dev)
     cout = w.shape[-1]
     b = as_int32_vector(bias, cout, dev)
+    strides, padding = tuple(strides), tuple(padding)
+    if multiplier is None:
+        if w.shape[0] == 1 and w.shape[1] == 1:
+            return _conv1x1_matmul(x, w, b, None, None, strides, padding, input_zero_point,
+                                   0, 0, "UPWARD", 0, 0)
+        return qconv_raw(x.contiguous(), w, b, strides=strides, padding=padding,
+                         izp=input_zero_point)
     m = channel_vector(multiplier, cout, dev)
     s = channel_vector(shift, cout, dev)
-    strides, padding = tuple(strides), tuple(padding)
     if w.shape[0] == 1 and w.shape[1] == 1:
         return _conv1x1_matmul(x, w, b, m, s, strides, padding, input_zero_point,
                                rq_input_zero_point, out_zp, rounding, qmin, qmax)

@@ -1,10 +1,12 @@
-"""K1: int8 GEMM with the exact requantize epilogue (port of
-`tachikoma_tpu/ops/pallas/matmul_int8.py`).
+"""K1: int8 GEMM with the exact requantize epilogue, and K4's GEMM mode: the
+same GEMM storing the int32 accumulator (port of
+`tachikoma_tpu/ops/pallas/matmul_int8.py`, `_mm_kernel` and `_mm_kernel_raw`).
 
-`qgemm_rq` is the kernel's wrapper: on a CUDA tensor it launches
-`csrc/qgemm_rq.cu` (or raises), on a CPU tensor it runs `qgemm_rq_plain`, the
-plain PyTorch version of the same integers.  `qmatmul_int8` is the entry with
-the JAX package's signature.
+`qgemm_rq` and `qgemm_raw` are the kernels' wrappers: on a CUDA tensor they
+launch `csrc/qgemm_rq.cu` / `csrc/qgemm_raw.cu` (or raise), on a CPU tensor
+they run `qgemm_rq_plain` / `qgemm_raw_plain`, the plain PyTorch versions of
+the same integers.  `qmatmul_int8` is the entry with the JAX package's
+signature.
 
 Zero points: the quantizer always produces wzp = 0; a nonzero input zero point
 folds into the bias (acc(x - izp, w) = x.w - izp * colsum(w), exact in int32
@@ -68,6 +70,31 @@ def qgemm_rq(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+def qgemm_raw_plain(x, w, bias) -> torch.Tensor:
+    """Plain PyTorch version of K4's GEMM mode."""
+    return (exact_int_matmul(x, w).to(torch.int64) + bias.to(torch.int64)).to(torch.int32)
+
+
+def qgemm_raw(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """K4, GEMM mode: x @ w + bias in int32 wraparound -> int32 (M, N).
+    x int8 (M, K), w int8 (K, N), bias int32 (N,)."""
+    if x.device.type == "cpu":
+        return qgemm_raw_plain(x, w, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"qgemm_raw: no kernel for device {x.device}")
+    m, k = x.shape
+    n = w.shape[1]
+    check_cuda_operands("qgemm_raw", x.device, x=(x, torch.int8, (m, k)),
+                        w=(w, torch.int8, (k, n)), bias=(bias, torch.int32, (n,)))
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    launch("tk_qgemm_raw", [x, w, out, bias], dict(
+        n=m, h=1, w=1, cin=k, kh=1, kw=1, cout=n, oh=1, ow=1, sh=1, sw=1,
+        a_vec=k % 16 == 0 and x.data_ptr() % 16 == 0,
+        b_vec=n % 4 == 0 and w.data_ptr() % 4 == 0))
+    LAUNCHES["qgemm_raw"] += 1
+    return out
+
+
 def fold_input_zero_point(bias: torch.Tensor, w: torch.Tensor, izp: int) -> torch.Tensor:
     """bias - izp * colsum(w) over all but the last axis, in int32 wraparound."""
     if not izp:
@@ -95,15 +122,16 @@ def qmatmul_int8(x, w, bias=None, multiplier=None, shift=None, out_zp: int = 0,
     """x (M, K) int8 @ w (K, N) int8 -> requantized int8 (M, N),
     bit-identical to the unfused qnn.dense + bias_add + qnn.requantize chain
     (the JAX package's entry of the same name).  multiplier / shift: scalars
-    or per-column (N,) arrays."""
-    if multiplier is None:
-        raise NotImplementedError("the raw int32 accumulator variant is not ported yet")
-    if out_dtype != "int8":
+    or per-column (N,) arrays.  Without a multiplier: the int32 accumulator
+    of (x - input_zero_point) @ w, plus bias (K4)."""
+    if multiplier is not None and out_dtype != "int8":
         raise NotImplementedError(f"qmatmul_int8: out_dtype {out_dtype} is not ported yet")
     n = w.shape[1]
     dev = x.device
     w = as_int8(w, dev)
     b = fold_input_zero_point(as_int32_vector(bias, n, dev), w, input_zero_point)
+    if multiplier is None:
+        return qgemm_raw(x.contiguous(), w, b.contiguous())
     return qgemm_rq(x.contiguous(), w, b.contiguous(), channel_vector(multiplier, n, dev),
                     channel_vector(shift, n, dev), rq_izp=rq_input_zero_point,
                     out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax)

@@ -173,6 +173,18 @@ def _bias_add_np(data: np.ndarray, bias: np.ndarray, *, node: Node) -> np.ndarra
     return data + bias.reshape(shape).astype(data.dtype)
 
 
+@torch_impl("nn.bias_add")
+def _bias_add_torch(data: torch.Tensor, bias: torch.Tensor, *, node: Node) -> torch.Tensor:
+    axis = int(node.attrs.get("axis", -1))
+    shape = [1] * data.ndim
+    shape[axis] = -1
+    b = bias.reshape(shape).to(data.dtype)
+    if data.dtype.is_floating_point:
+        return data + b
+    # integer adds wrap around in the data's dtype, as the oracle's do
+    return (data.to(torch.int64) + b.to(torch.int64)).to(data.dtype)
+
+
 # ---------------------------------------------------------------------------
 # pooling
 # ---------------------------------------------------------------------------

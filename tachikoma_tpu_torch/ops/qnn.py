@@ -8,7 +8,8 @@ operations, so its outputs equal the oracle's bit for bit on any device.
   * qnn.quantize   — cast(clip(rint(x/scale) + zp, qmin, qmax)), ties-to-even.
   * qnn.dequantize — (cast(x, i32) - zp) * scale, in float32.
   * qnn.requantize — ops/fixed_point.py.
-  * qnn.conv2d / qnn.dense — (x - izp) . (w - kzp) with int32 accumulation.
+  * qnn.conv2d / qnn.dense — (x - izp) . (w - kzp) with int32 accumulation;
+                     the torch impls run K4 (ops/kernels), with kzp = 0.
   * qnn.add        — requantize both sides to the output qparams (int32),
                      add, subtract one zp, clip.
 """
@@ -26,6 +27,8 @@ from ..ir.registry import TensorType, infer_rule, np_impl, register_op, torch_im
 from ..utils import dtypes as dt
 from . import nn as _nn
 from .fixed_point import requantize, requantize_np, torch_dtype
+from .kernels.conv import qconv2d_flat
+from .kernels.matmul_int8 import qmatmul_int8
 
 
 def _channel_shape(node: Node, ndim: int):
@@ -134,7 +137,39 @@ def _requantize_np(x: np.ndarray, *, node: Node) -> np.ndarray:
     )
 
 
+@torch_impl("qnn.requantize")
+def _requantize_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return requantize(
+        x,
+        node.attrs["input_scale"],
+        int(node.attrs.get("input_zero_point", 0)),
+        float(node.attrs["output_scale"]),
+        int(node.attrs.get("output_zero_point", 0)),
+        axis=int(node.attrs.get("axis", -1)),
+        rounding=node.attrs.get("rounding", "UPWARD"),
+        out_dtype=node.attrs.get("out_dtype", "int8"),
+    )
+
+
 # -- quantized conv / dense ---------------------------------------------------
+
+def _check_raw_operands(node: Node, data: torch.Tensor, weight: torch.Tensor) -> int:
+    """The input zero point of an unfused qnn.conv2d / qnn.dense that K4 can
+    run: int8 operands, kernel zero point 0 (the quantizer always emits 0)
+    and an int32 accumulator."""
+    kzp = np.asarray(node.attrs.get("kernel_zero_point", 0))
+    if (kzp != 0).any():
+        raise NotImplementedError(f"{node.name} ({node.op}): a nonzero kernel_zero_point "
+                                  "is not ported (the quantizer always emits 0)")
+    out_dtype = node.attrs.get("out_dtype", "int32")
+    if out_dtype != "int32":
+        raise NotImplementedError(f"{node.name} ({node.op}): out_dtype {out_dtype} is not "
+                                  "ported yet (W8A16: ROADMAP Queue 1 item 2)")
+    if data.dtype != torch.int8 or weight.dtype != torch.int8:
+        raise NotImplementedError(f"{node.name} ({node.op}): operands {data.dtype} x "
+                                  f"{weight.dtype}; the port's kernels take int8 x int8")
+    return int(node.attrs.get("input_zero_point", 0))
+
 
 @infer_rule("qnn.conv2d")
 def _qconv_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
@@ -157,6 +192,16 @@ def _qconv_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarray
     return out.astype(node.attrs.get("out_dtype", "int32"))
 
 
+@torch_impl("qnn.conv2d")
+def _qconv_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
+    izp = _check_raw_operands(node, data, weight)
+    if _nn._pair(node.attrs.get("dilation", (1, 1))) != (1, 1):
+        raise NotImplementedError(f"{node.name} (qnn.conv2d): dilation is not ported yet")
+    return qconv2d_flat(data, weight, strides=_nn._pair(node.attrs.get("strides", (1, 1))),
+                        padding=_nn._pad4(node.attrs.get("padding", (0, 0, 0, 0))),
+                        groups=int(node.attrs.get("groups", 1)), input_zero_point=izp)
+
+
 @infer_rule("qnn.dense")
 def _qdense_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
     shape, _ = _nn._dense_rel(node, ins)
@@ -175,6 +220,14 @@ def _qdense_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarra
         w = w - int(kzp)
     out = d @ w
     return out.astype(node.attrs.get("out_dtype", "int32"))
+
+
+@torch_impl("qnn.dense")
+def _qdense_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
+    izp = _check_raw_operands(node, data, weight)
+    lead = data.shape[:-1]
+    out = qmatmul_int8(data.reshape(-1, data.shape[-1]), weight, input_zero_point=izp)
+    return out.reshape(*lead, weight.shape[-1])
 
 
 # -- quantized add -----------------------------------------------------------

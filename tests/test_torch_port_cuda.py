@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card: each equals its plain PyTorch version
-(==) at main-path shapes of int8 ResNet-50 b8, on the same inputs.
+(==) at main-path shapes of int8 ResNet-50 (b8 fused, b1 unfused for K4) and
+at ragged shapes, on the same inputs; the unfused executor and the trace
+emitter on the card equal the CPU path.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs where they are not
@@ -8,14 +10,23 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import io
+
 import numpy as np
 import pytest
 import torch
 
-from tachikoma_tpu_torch.ops.kernels.conv import (qconv_rq, qconv_rq_plain, qconv_rq_res,
+from tachikoma_tpu_torch.models.vision import resnet
+from tachikoma_tpu_torch.ops.kernels.conv import (qconv_raw, qconv_raw_plain, qconv_rq,
+                                                  qconv_rq_plain, qconv_rq_res,
                                                   qconv_rq_res_plain)
-from tachikoma_tpu_torch.ops.kernels.matmul_int8 import qgemm_rq, qgemm_rq_plain
+from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qgemm_raw, qgemm_raw_plain, qgemm_rq,
+                                                         qgemm_rq_plain)
 from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
+from tachikoma_tpu_torch.quantize.quantizer import quantize
+from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+from tachikoma_tpu_torch.trace.emitter import TraceEmitter
+from tachikoma_tpu_torch.trace.format import TraceReader
 
 
 @pytest.fixture
@@ -118,3 +129,80 @@ def test_wrappers_refuse_bad_operands(rng, cuda):
         qgemm_rq(x, w.t().contiguous().t(), b, mult, shift)
     with pytest.raises(ValueError):
         qgemm_rq(x, w.cpu(), b, mult, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(37, 80, 128), (37, 200, 13), (70, 300, 256),
+                                 (3136, 64, 256), (196, 1024, 256), (1, 2048, 1000)])
+def test_k4_qgemm_raw_on_card(rng, cuda, mkn):
+    m, k, n = mkn
+    x, w = _dev(rng, (m, k), cuda), _dev(rng, (k, n), cuda)
+    b = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, n, dtype=np.int64)
+                         .astype(np.int32)).to(cuda)
+    got = qgemm_raw(x, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, qgemm_raw_plain(x, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ((2, 9, 9, 16), 3, 1, (1, 1, 1, 1), 24, 3),
+    ((2, 9, 9, 16), 3, 2, (1, 1, 1, 1), 24, -4),
+    ((1, 15, 15, 3), 7, 2, (3, 3, 3, 3), 8, -5),        # stem, cin 3, izp != 0
+    ((1, 6, 8, 8), 3, 1, (0, 1, 0, 1), 8, -2),
+    ((1, 224, 224, 3), 7, 2, (3, 3, 3, 3), 64, 7),      # the b1 224^2 stem
+    ((1, 56, 56, 128), 3, 2, (1, 1, 1, 1), 128, 0),
+    ((1, 7, 7, 512), 3, 1, (1, 1, 1, 1), 512, -3),
+])
+def test_k4_qconv_raw_on_card(rng, cuda, case):
+    shape, k, s, p, cout, izp = case
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    b = torch.from_numpy(rng.integers(-5000, 5000, cout).astype(np.int32)).to(cuda)
+    kw = dict(strides=(s, s), padding=p, izp=izp)
+    got = qconv_raw(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, qconv_raw_plain(x, w, b, **kw))
+
+
+@pytest.fixture
+def r18_unfused():
+    rng = np.random.default_rng(5)
+    calib = rng.standard_normal((1, 32, 32, 3)).astype(np.float32)
+    x = rng.standard_normal((1, 32, 32, 3)).astype(np.float32)
+    return quantize(resnet(18, batch_size=1, image_size=32), [calib]), x
+
+
+@pytest.mark.cuda
+def test_unfused_executor_on_card_equals_cpu(cuda, r18_unfused):
+    q, x = r18_unfused
+    names = computational_nodes(q)
+    got = TorchExecutor(q, capture=names, device="cuda", fuse=False).run(x)
+    want = TorchExecutor(q, capture=names, device="cpu", fuse=False).run(x)
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype.kind in "iu":
+            assert (a == b).all(), name
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_packed_fetch_and_trace_on_card_equal_the_cpu(cuda, r18_unfused, tmp_path):
+    q, x = r18_unfused
+    em = TraceEmitter(q, device="cuda")
+    outs = em._executor.run_device(x)
+    values = em._fetch_packed(outs)
+    for name, o in zip(computational_nodes(q), outs):
+        want = o.cpu().numpy()
+        assert values[name].dtype == want.dtype and values[name].shape == want.shape
+        assert (values[name] == want).all(), name
+    em.emit_to(x, tmp_path / "card.bin")
+    cpu = TraceEmitter(q, device="cpu").emit_bytes(x)
+    card = TraceReader(io.BytesIO((tmp_path / "card.bin").read_bytes()))
+    for a, b in zip(card, TraceReader(io.BytesIO(cpu))):
+        if a.output.to_array().dtype.kind in "iu":
+            assert a.encode() == b.encode(), a.name
+        else:
+            np.testing.assert_allclose(a.output.to_array(), b.output.to_array(),
+                                       rtol=1e-5, atol=1e-6)
+    assert len(card) == 93

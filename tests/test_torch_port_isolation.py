@@ -1,6 +1,7 @@
 """The port stands alone: importing it pulls in neither jax nor the JAX
-package, no file of it (or chip_smoke.py) imports them, and its executor never
-falls back to the CPU when asked for the card."""
+package, no file of it (the CLI and the trace modules included, and
+chip_smoke.py) imports them, its executor never falls back to the CPU when
+asked for the card, and the native trace writer builds inside the port."""
 
 import ast
 import pathlib
@@ -60,3 +61,21 @@ def test_executor_without_a_card_raises(monkeypatch):
         TorchExecutor(g)
     out = TorchExecutor(g, device="cpu").run(np.array([[-1.0, 2.0, 0.5]] * 2, np.float32))
     np.testing.assert_array_equal(out[0], [[0.0, 1.0, 0.5]] * 2)
+
+
+def test_native_trace_writer_builds_into_the_port_build_dir():
+    """The port reads the shared writer source as it is and builds it into
+    its own git-ignored `_build/`, never into the JAX package's
+    `native/build/`."""
+    from tachikoma_tpu_torch.trace import native
+
+    shared = ROOT / "native" / "build"
+    before = sorted((p.name, p.stat().st_mtime_ns) for p in shared.iterdir()) \
+        if shared.is_dir() else []
+    assert native.SOURCE == ROOT / "native" / "trace_writer.cpp"
+    assert native.library_path().parent == PKG / "_build" != shared
+    if native.native_available():
+        assert native.library_path().is_file()
+    after = sorted((p.name, p.stat().st_mtime_ns) for p in shared.iterdir()) \
+        if shared.is_dir() else []
+    assert after == before

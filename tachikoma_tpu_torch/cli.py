@@ -1,7 +1,8 @@
 """Command-line interface of the port (port of `tachikoma_tpu/cli.py`).
 
-  quantize  — build a zoo ResNet (or read a graph .json), calibrate, write the
-              integer graph JSON
+  quantize  — build a zoo model (or read a graph .json / .tkmod), calibrate,
+              write the integer graph JSON
+  compile   — quantize (unless already integer) and bundle into a .tkmod
   run       — execute a graph (TorchExecutor or the numpy oracle), print outputs
   trace     — emit a tachikoma-standard trace binary for given inputs
   verify    — CRC + semantic verification of a trace binary
@@ -11,9 +12,10 @@ Usage: python -m tachikoma_tpu_torch.cli <subcommand> [args]
 
 `--device` defaults to "cuda" and never falls back to the CPU; pass
 `--device cpu` to run the kernels' plain PyTorch versions.  Graph files are
-`.json`; the zoo is resnet18 / resnet34 / resnet50.  Other zoo models, model
-file formats and the JAX package's other subcommands are not ported yet and
-exit with the ROADMAP item that ports them.
+`.json` or `.tkmod` artifacts (either package's); the zoo is resnet18 /
+resnet34 / resnet50 / mobilenet_v2.  Other zoo models, model file formats and
+the JAX package's other subcommands are not ported yet and exit with the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -25,10 +27,9 @@ from collections import Counter
 
 import numpy as np
 
-ZOO = ("resnet18", "resnet34", "resnet50")
+ZOO = ("resnet18", "resnet34", "resnet50", "mobilenet_v2")
 NOT_PORTED = {
     "profile": "runtime/profiler.py, ROADMAP Queue 1 item 8",
-    "compile": "runtime/artifact.py, ROADMAP Queue 1 item 8",
     "evaluate": "quantize/evaluate.py and accuracy.py, ROADMAP Queue 1 item 11",
     "bench": "the port's benchmark, ROADMAP Queue 1 item 3",
     "tune": "tune/, ROADMAP Queue 1 item 15",
@@ -38,20 +39,34 @@ NOT_PORTED = {
 def _load_graph(path: str):
     from .ir.graph import Graph
 
+    if path.endswith(".tkmod"):
+        from .runtime.artifact import load_artifact
+
+        return load_artifact(path)[0]
     if not path.endswith(".json"):
-        raise SystemExit(f"{path}: only graph .json files are ported yet; the model "
-                         "frontends wait for ROADMAP Queue 1 item 12")
+        raise SystemExit(f"{path}: only graph .json and .tkmod files are ported yet; the "
+                         "model frontends wait for ROADMAP Queue 1 item 12")
     with open(path) as f:
         return Graph.from_json(f.read())
 
 
 def _zoo(name: str, batch: int, image: int | None):
-    from .models.vision import resnet
+    from .models.vision import mobilenet_v2, resnet
 
-    if name.lower() not in ZOO:
+    name = name.lower()
+    if name not in ZOO:
         raise SystemExit(f"zoo model {name!r} is not ported yet (the port has {ZOO}; the "
                          "others wait for ROADMAP Queue 1 item 10)")
+    if name == "mobilenet_v2":
+        return mobilenet_v2(batch_size=batch, image_size=image or 224)
     return resnet(int(name[6:]), batch_size=batch, image_size=image or 224)
+
+
+def _model(args):
+    """The float (or integer) graph of a zoo name or a graph file."""
+    if args.model.endswith((".json", ".tkmod")) or os.path.isfile(args.model):
+        return _load_graph(args.model)
+    return _zoo(args.model, args.batch, args.image_size)
 
 
 def _rand_inputs(graph, seed=0):
@@ -78,10 +93,7 @@ def cmd_quantize(args):
     from .quantize.config import QConfig
     from .quantize.quantizer import quantize
 
-    if args.model.endswith(".json") or os.path.isfile(args.model):
-        g = _load_graph(args.model)
-    else:
-        g = _zoo(args.model, args.batch, args.image_size)
+    g = _model(args)
     if args.calib_data:
         data = np.load(args.calib_data)
         batches = [{k: data[k] for k in data.files}] if hasattr(data, "files") else [data]
@@ -91,6 +103,21 @@ def cmd_quantize(args):
     with open(args.output, "w") as f:
         f.write(qg.to_json())
     print(f"wrote {args.output}: {len(qg)} nodes, hash {qg.structural_hash()[:16]}")
+
+
+def cmd_compile(args):
+    """Quantize (unless already integer) and bundle into a .tkmod artifact;
+    no tuning database goes in."""
+    from .runtime.artifact import save_artifact
+
+    g = _model(args)
+    if not any(n.dtype in ("int8", "uint8", "int16") for n in g.nodes if not n.is_var):
+        from .quantize.config import QConfig
+        from .quantize.quantizer import quantize
+
+        g = quantize(g, [_rand_inputs(g, seed=i) for i in range(args.calib_batches)], QConfig())
+    save_artifact(args.output, g, meta={"source": args.model})
+    print(f"wrote {args.output}: {len(g)} nodes, hash {g.structural_hash()[:16]}")
 
 
 def cmd_run(args):
@@ -170,7 +197,7 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
 
     q = sub.add_parser("quantize", help="calibrate + quantize a model to an integer graph")
-    q.add_argument("model", help=f"zoo name ({'/'.join(ZOO)}) or graph .json")
+    q.add_argument("model", help=f"zoo name ({'/'.join(ZOO)}) or graph .json / .tkmod")
     q.add_argument("-o", "--output", required=True)
     q.add_argument("--batch", type=int, default=1)
     q.add_argument("--image-size", type=int, default=None)
@@ -179,6 +206,14 @@ def main(argv=None):
     q.add_argument("--calibrate-mode", default="max",
                    choices=["max", "minmax", "percentile", "kl"])
     q.set_defaults(fn=cmd_quantize)
+
+    c = sub.add_parser("compile", help="quantize + bundle into a .tkmod artifact")
+    c.add_argument("model", help=f"zoo name ({'/'.join(ZOO)}) or graph .json / .tkmod")
+    c.add_argument("-o", "--output", required=True)
+    c.add_argument("--batch", type=int, default=1)
+    c.add_argument("--image-size", type=int, default=None)
+    c.add_argument("--calib-batches", type=int, default=2)
+    c.set_defaults(fn=cmd_compile)
 
     r = sub.add_parser("run", help="execute a graph")
     r.add_argument("graph")

@@ -2,11 +2,11 @@
 
 The port carries the passes of the JAX package's `DEFAULT_SIMPLIFY` that can
 fire on a graph built from the port's op set, in the same order.  The others
-(`simplify_transposes`, `remove_identity`, `fold_scale_axis`,
-`fuse_pad_into_conv`, `combine_parallel_dense`) rewrite ops the port does not
-register yet (transpose, copy, cast, reshape, multiply, nn.pad, a merged dense
-needs strided_slice), so on every graph the port can hold they are the
-identity, and the simplified graph equals the JAX package's.
+(`remove_identity`, `fold_scale_axis`, `fuse_pad_into_conv`,
+`combine_parallel_dense`) rewrite ops the port does not register yet (copy,
+cast, reshape, multiply, nn.pad, a merged dense needs strided_slice), so on
+every graph the port can hold they are the identity, and the simplified graph
+equals the JAX package's.
 
 All passes are pure functions Graph -> Graph.
 """
@@ -139,7 +139,57 @@ def fold_batch_norm(graph: Graph) -> Graph:
     return b.build([mapping[o] for o in g.outputs])
 
 
-DEFAULT_SIMPLIFY = (fold_constant, fold_batch_norm, eliminate_common_subexpr)
+def _compose_perm(p1, p2):
+    """transpose(transpose(x, p1), p2) == transpose(x, [p1[i] for i in p2])."""
+    return tuple(p1[i] for i in p2)
+
+
+def _node_perm(g: Graph, n) -> tuple:
+    ndim = len(g[n.inputs[0]].shape)
+    axes = n.attrs.get("axes")
+    return tuple(range(ndim))[::-1] if axes is None else tuple(a % ndim for a in axes)
+
+
+def simplify_transposes(graph: Graph) -> Graph:
+    """Collapse transpose chains and cancel identity transposes (frontends
+    that bridge NCHW and NHWC leave back-to-back transposes)."""
+    g = infer_types(graph)
+    changed = True
+    while changed:
+        changed = False
+        b = GraphBuilder(g.name)
+        mapping: dict[str, str] = {}
+        for n in g.nodes:
+            if n.op == VAR:
+                mapping[n.name] = b.var(n.name, n.shape, n.dtype)
+                continue
+            if n.op == CONST:
+                mapping[n.name] = b.const(g.params[n.name], name=n.name)
+                continue
+            if n.op == "transpose":
+                perm = _node_perm(g, n)
+                src = g[n.inputs[0]]
+                if src.op == "transpose":
+                    perm = _compose_perm(_node_perm(g, src), perm)
+                    changed = True
+                    if perm == tuple(range(len(perm))):
+                        mapping[n.name] = mapping[src.inputs[0]]
+                    else:
+                        mapping[n.name] = b.call("transpose", mapping[src.inputs[0]],
+                                                 name=n.name, axes=list(perm))
+                    continue
+                if perm == tuple(range(len(perm))):
+                    mapping[n.name] = mapping[n.inputs[0]]
+                    changed = True
+                    continue
+            mapping[n.name] = b.call(n.op, *[mapping[i] for i in n.inputs],
+                                     name=n.name, **dict(n.attrs))
+        g = b.build([mapping[o] for o in g.outputs]).dead_code_eliminate()
+    return g
+
+
+DEFAULT_SIMPLIFY = (fold_constant, simplify_transposes, fold_batch_norm,
+                    eliminate_common_subexpr)
 
 
 def simplify(graph: Graph) -> Graph:

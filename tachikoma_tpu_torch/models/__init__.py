@@ -1,5 +1,5 @@
 """Built-in model zoo (float graphs)."""
 
-from .vision import resnet
+from .vision import mobilenet_v2, resnet
 
-__all__ = ["resnet"]
+__all__ = ["mobilenet_v2", "resnet"]

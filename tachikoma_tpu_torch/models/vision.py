@@ -1,8 +1,9 @@
-"""ResNet float graphs, NHWC (port of `tachikoma_tpu/models/vision.py`).
+"""ResNet and MobileNetV2 float graphs, NHWC (port of
+`tachikoma_tpu/models/vision.py`).
 
 The same functions with the same seeded random weights as the JAX package, so
-the graphs are equal node for node and byte for byte.  Only `resnet` is
-ported yet.
+the graphs are equal node for node and byte for byte.  `resnet` and
+`mobilenet_v2` are ported; the other zoo models are not yet.
 """
 
 from __future__ import annotations
@@ -106,5 +107,59 @@ def resnet(num_layers=18, batch_size=1, image_size=224, num_classes=1000, seed=0
                 cin = cout
     gap = b.call("nn.global_avg_pool2d", h, keepdims=False, name="gap")
     out = _dense(b, gap, cin, num_classes, rng, "fc")
+    sm = b.call("nn.softmax", out, name="prob")
+    return infer_types(b.build(sm))
+
+
+def _inverted_residual(b, x, cin, cout, stride, expand, rng, name):
+    cmid = cin * expand
+    h = x
+    if expand != 1:
+        h = _conv(b, h, cin, cmid, 1, 1, 0, rng, f"{name}_expand")
+        h = _bn(b, h, cmid, rng, f"{name}_bn0")
+        h = b.call("clip", h, a_min=0.0, a_max=6.0, name=f"{name}_relu6_0")
+    # depthwise
+    h = _conv(b, h, cmid, cmid, 3, stride, 1, rng, f"{name}_dw", groups=cmid)
+    h = _bn(b, h, cmid, rng, f"{name}_bn1")
+    h = b.call("clip", h, a_min=0.0, a_max=6.0, name=f"{name}_relu6_1")
+    h = _conv(b, h, cmid, cout, 1, 1, 0, rng, f"{name}_project")
+    h = _bn(b, h, cout, rng, f"{name}_bn2")
+    if stride == 1 and cin == cout:
+        h = b.call("add", h, x, name=f"{name}_add")
+    return h
+
+
+def mobilenet_v2(batch_size=1, image_size=224, num_classes=1000, width_mult=1.0,
+                 seed=0) -> Graph:
+    """MobileNetV2 float graph, NHWC, seeded random weights: 17 inverted
+    residual blocks, each with a 3x3 depthwise conv, ReLU6 as clip."""
+    rng = _rng(seed)
+    b = GraphBuilder("mobilenet_v2")
+    x = b.var("data", (batch_size, image_size, image_size, 3), "float32")
+
+    def c8(ch):
+        return max(8, int(np.ceil(ch * width_mult / 8) * 8))
+
+    h = _conv(b, x, 3, c8(32), 3, 2, 1, rng, "conv0")
+    h = _bn(b, h, c8(32), rng, "bn0")
+    h = b.call("clip", h, a_min=0.0, a_max=6.0, name="relu6_0")
+    cin = c8(32)
+    # t (expand), c (out), n (repeat), s (stride)
+    cfg = [
+        (1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+        (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1),
+    ]
+    idx = 0
+    for t, c, nrep, s in cfg:
+        for i in range(nrep):
+            stride = s if i == 0 else 1
+            h = _inverted_residual(b, h, cin, c8(c), stride, t, rng, f"ir{idx}")
+            cin = c8(c)
+            idx += 1
+    h = _conv(b, h, cin, 1280, 1, 1, 0, rng, "conv_last")
+    h = _bn(b, h, 1280, rng, "bn_last")
+    h = b.call("clip", h, a_min=0.0, a_max=6.0, name="relu6_last")
+    gap = b.call("nn.global_avg_pool2d", h, keepdims=False, name="gap")
+    out = _dense(b, gap, 1280, num_classes, rng, "fc")
     sm = b.call("nn.softmax", out, name="prob")
     return infer_types(b.build(sm))

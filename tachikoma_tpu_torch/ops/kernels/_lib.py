@@ -45,6 +45,7 @@ SOURCES = {
     "qgemm_rq.cu": (("tk_qgemm_rq", 6),),
     "qconv_rq.cu": (("tk_qconv_rq", 6), ("tk_qconv_rq_res", 7)),
     "qgemm_raw.cu": (("tk_qgemm_raw", 4), ("tk_qconv_raw", 4)),
+    "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -12,7 +12,9 @@ the conv entries of the int8 path (port of
     `fuse=False` branch of the TPU kernel).
   * `qconv2d_flat`: 1x1 convs go to K1 (or, without a multiplier, K4's GEMM
     mode) as a GEMM (`_conv1x1_matmul`), every other kernel size, the 7x7 s2
-    stem included, to K2 (or K4's conv mode).
+    stem included, to K2 (or K4's conv mode); depthwise convs (groups == C)
+    to K5 (`depthwise.py`: `qdwconv_rq`, or `qdwconv_raw` without a
+    multiplier).
   * `qconv2d_flat_chain` / `qconv2d_flat_block_stack` run a chain or a stack
     of residual blocks stage by stage: the last stage of each residual block
     launches K3, the others K1 (1x1) or K2.
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ._lib import LAUNCHES, check_cuda_operands, launch
+from .depthwise import qdwconv_raw, qdwconv_rq
 from .matmul_int8 import (_TONEAREST, as_int8, as_int32_vector, fold_input_zero_point,
                           qgemm_raw, qgemm_rq)
 from .requantize import channel_vector, epilogue_plain, plan_res_add, res_add_plain
@@ -203,12 +206,16 @@ def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1)
                  rq_input_zero_point: int = 0, out_zp: int = 0, rounding: str = "UPWARD",
                  out_dtype: str = "int8", qmin: int = -128, qmax: int = 127):
     """NHWC int8 conv with the fused exact requantize: x (N,H,W,CIN) int8,
-    w (KH,KW,CIN,COUT) int8, groups 1; 1x1 -> K1, any other size -> K2.
-    Without a multiplier: the int32 accumulator of sum (x_pad - izp) * w plus
-    bias (the unfused qnn.conv2d + bias), on K4's GEMM or conv mode."""
-    if groups != 1:
-        raise NotImplementedError("grouped and depthwise convs are not ported yet "
-                                  "(ROADMAP Queue 2 item 6, _flat_dw_kernel)")
+    w (KH,KW,CIN/groups,COUT) int8, groups 1 or CIN (depthwise, COUT == CIN);
+    1x1 -> K1, any other size -> K2, depthwise -> K5.  Without a multiplier:
+    the int32 accumulator of sum (x_pad - izp) * w plus bias (the unfused
+    qnn.conv2d + bias), on K4's GEMM or conv mode, or K5's raw mode."""
+    cin = x.shape[-1]
+    depthwise = groups > 1 and groups == cin and w.shape[2] == 1 and w.shape[3] == cin
+    if groups != 1 and not depthwise:
+        raise NotImplementedError(
+            f"qconv2d_flat: groups {groups} with weight {tuple(w.shape)}: only groups 1 "
+            "and depthwise (groups == CIN == COUT) are supported")
     if multiplier is not None and out_dtype != "int8":
         raise NotImplementedError(f"qconv2d_flat: out_dtype {out_dtype} is not ported yet")
     dev = x.device
@@ -216,6 +223,15 @@ def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1)
     cout = w.shape[-1]
     b = as_int32_vector(bias, cout, dev)
     strides, padding = tuple(strides), tuple(padding)
+    if depthwise:
+        if multiplier is None:
+            return qdwconv_raw(x.contiguous(), w, b, strides=strides, padding=padding,
+                               izp=input_zero_point)
+        return qdwconv_rq(x.contiguous(), w, b, channel_vector(multiplier, cout, dev),
+                          channel_vector(shift, cout, dev), strides=strides,
+                          padding=padding, izp=input_zero_point,
+                          rq_izp=rq_input_zero_point, out_zp=out_zp, rounding=rounding,
+                          qmin=qmin, qmax=qmax)
     if multiplier is None:
         if w.shape[0] == 1 and w.shape[1] == 1:
             return _conv1x1_matmul(x, w, b, None, None, strides, padding, input_zero_point,

@@ -1,7 +1,8 @@
-"""Core float/int op set of int8 ResNet (port of `tachikoma_tpu/ops/nn.py`).
+"""Core float/int op set of int8 ResNet and MobileNetV2, and the layout ops of
+graphs imported from NCHW frameworks (port of `tachikoma_tpu/ops/nn.py`).
 
 Each op gets the JAX package's shape/dtype relation and numpy oracle, copied;
-the ops that the fused ResNet graph runs outside the kernels also get a torch
+the ops that the fused graphs run outside the kernels also get a torch
 implementation that computes the same values on any device.
 
 Layouts are the JAX package's: conv2d data NHWC, weight HWIO; dense data
@@ -285,6 +286,53 @@ def _gap_torch(data: torch.Tensor, *, node: Node) -> torch.Tensor:
     return _int_avg(total, data.shape[1] * data.shape[2]).to(data.dtype)
 
 
+# The JAX package's adaptive pool reads NHWC and takes no layout attr (its
+# torch frontend bridges an NCHW pool with transposes around it).
+@infer_rule("nn.adaptive_avg_pool2d")
+def _aap_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
+    (dshape, ddt) = ins[0]
+    n, h, w, c = dshape
+    oh, ow = _pair(node.attrs["output_size"])
+    return (n, oh, ow, c), ddt
+
+
+def _aap_windows(h: int, w: int, node: Node):
+    """((i, j), (h0, h1, w0, w1)) of each output cell, torch's adaptive bins."""
+    oh, ow = _pair(node.attrs["output_size"])
+    for i in range(oh):
+        h0, h1 = (i * h) // oh, -((-(i + 1) * h) // oh)
+        for j in range(ow):
+            yield (i, j), (h0, h1, (j * w) // ow, -((-(j + 1) * w) // ow))
+
+
+@np_impl("nn.adaptive_avg_pool2d")
+def _aap_np(data: np.ndarray, *, node: Node) -> np.ndarray:
+    n, h, w, c = data.shape
+    oh, ow = _pair(node.attrs["output_size"])
+    integer = dt.is_int(str(data.dtype))
+    acc = np.int64 if integer else np.float32
+    out = np.empty((n, oh, ow, c), dtype=acc)
+    for (i, j), (h0, h1, w0, w1) in _aap_windows(h, w, node):
+        tot = data[:, h0:h1, w0:w1, :].astype(acc).sum(axis=(1, 2))
+        cnt = (h1 - h0) * (w1 - w0)
+        out[:, i, j, :] = _int_avg(tot, cnt) if integer else tot / cnt
+    return out.astype(data.dtype)
+
+
+@torch_impl("nn.adaptive_avg_pool2d")
+def _aap_torch(data: torch.Tensor, *, node: Node) -> torch.Tensor:
+    n, h, w, c = data.shape
+    oh, ow = _pair(node.attrs["output_size"])
+    integer = not data.dtype.is_floating_point
+    acc = torch.int64 if integer else torch.float32
+    out = torch.empty((n, oh, ow, c), dtype=acc, device=data.device)
+    for (i, j), (h0, h1, w0, w1) in _aap_windows(h, w, node):
+        tot = data[:, h0:h1, w0:w1, :].to(acc).sum(dim=(1, 2))
+        cnt = (h1 - h0) * (w1 - w0)
+        out[:, i, j, :] = _int_avg(tot, cnt) if integer else tot / cnt
+    return out.to(data.dtype)
+
+
 # ---------------------------------------------------------------------------
 # normalization (inference-mode), activations, softmax, clip, add
 # ---------------------------------------------------------------------------
@@ -366,3 +414,44 @@ def _add_np(a, b, *, node: Node):
 
 
 register_op("add", infer=_broadcast_rel)
+
+
+# ---------------------------------------------------------------------------
+# layout: transpose, batch_flatten
+# ---------------------------------------------------------------------------
+
+def _perm(node: Node, ndim: int):
+    axes = node.attrs.get("axes")
+    return tuple(reversed(range(ndim))) if axes is None else tuple(int(a) for a in axes)
+
+
+@infer_rule("transpose")
+def _transpose_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    return tuple(a[i] for i in _perm(node, len(a))), adt
+
+
+@np_impl("transpose")
+def _transpose_np(a, *, node: Node):
+    return np.transpose(a, node.attrs.get("axes"))
+
+
+@torch_impl("transpose")
+def _transpose_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return a.permute(_perm(node, a.ndim))
+
+
+@infer_rule("nn.batch_flatten")
+def _bflat_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    return (a[0], int(np.prod(a[1:]))), adt
+
+
+@np_impl("nn.batch_flatten")
+def _bflat_np(a, *, node: Node):
+    return a.reshape(a.shape[0], -1)
+
+
+@torch_impl("nn.batch_flatten")
+def _bflat_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return a.reshape(a.shape[0], -1)

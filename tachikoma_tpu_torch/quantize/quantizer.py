@@ -2,7 +2,8 @@
 (port of `tachikoma_tpu/quantize/quantizer.py`).
 
 The port carries the handlers of the ops it registers (conv2d, dense,
-bias_add, relu, clip, add, global_avg_pool2d, max_pool2d), copied, so on such
+bias_add, relu, clip, add, global_avg_pool2d, adaptive_avg_pool2d, and the
+passthrough ops max_pool2d, transpose, batch_flatten), copied, so on such
 graphs its output equals the JAX package's byte for byte; the handlers of the
 transformer and other op sets are not ported yet.
 
@@ -29,10 +30,23 @@ import numpy as np
 
 from ..ir.graph import CONST, TUPLE, TUPLE_GET_ITEM, VAR, Graph, GraphBuilder, Node
 from ..ir.infer import infer_types
+from ..ir.registry import has_op
 from ..ir.transforms import simplify
+from ..ops.nn import _pair
 from ..utils import dtypes as dt
 from .calibrate import CalibrationResult, calibrate
 from .config import QConfig
+
+# Ops whose integer form is the same op applied to the quantized tensor
+# (scale/zp unchanged); the JAX package's set, of which the port handles the
+# ops it registers.
+_PASSTHROUGH = {
+    "reshape", "transpose", "squeeze", "expand_dims", "nn.batch_flatten",
+    "strided_slice", "split", "tile", "broadcast_to", "copy", "nn.dropout",
+    "nn.max_pool2d", "nn.global_max_pool2d", "nn.depth_to_space", "nn.space_to_depth",
+    "image.resize2d",
+}
+
 
 @dataclass
 class QVal:
@@ -255,6 +269,17 @@ class Quantizer:
         out = self.b.call("nn.global_avg_pool2d", src.name, name=n.name, **dict(n.attrs))
         self.env[n.name] = QVal("quant", out, src.scale, src.zp, src.dtype)
 
+    def _adaptive_avg_pool(self, n: Node):
+        # adaptive pool to (1,1) == global avg pool (zp passes through, see
+        # _global_avg_pool)
+        src = self.env[n.inputs[0]]
+        if _pair(n.attrs["output_size"]) == (1, 1) and src.kind != "float":
+            src = self.to_quant(n.inputs[0])
+            out = self.b.call("nn.adaptive_avg_pool2d", src.name, name=n.name, **dict(n.attrs))
+            self.env[n.name] = QVal("quant", out, src.scale, src.zp, src.dtype)
+            return
+        self._float_fallback(n)
+
     def _passthrough(self, n: Node):
         src = self.env[n.inputs[0]]
         if src.kind == "float":
@@ -287,9 +312,11 @@ class Quantizer:
             "clip": self._clip,
             "add": self._add,
             "nn.global_avg_pool2d": self._global_avg_pool,
-            # the integer form is the same op on the quantized tensor
-            "nn.max_pool2d": self._passthrough,
+            "nn.adaptive_avg_pool2d": self._adaptive_avg_pool,
         }
+        for op in _PASSTHROUGH - set(handlers):
+            if has_op(op):
+                handlers[op] = self._passthrough
         return handlers
 
     def run(self) -> Graph:

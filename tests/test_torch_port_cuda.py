@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each equals its plain PyTorch version
 (==) at main-path shapes of int8 ResNet-50 (b8 fused, b1 unfused for K4) and
-at ragged shapes, on the same inputs; the unfused executor and the trace
-emitter on the card equal the CPU path.
+MobileNetV2 (K5: b8 fused, b1 unfused) and at ragged shapes, on the same
+inputs; the executors and the trace emitter on the card equal the CPU path.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs where they are not
@@ -16,15 +16,19 @@ import numpy as np
 import pytest
 import torch
 
-from tachikoma_tpu_torch.models.vision import resnet
-from tachikoma_tpu_torch.ops.kernels.conv import (qconv_raw, qconv_raw_plain, qconv_rq,
-                                                  qconv_rq_plain, qconv_rq_res,
+from tachikoma_tpu_torch.models.vision import mobilenet_v2, resnet
+from tachikoma_tpu_torch.ops.kernels import _lib
+from tachikoma_tpu_torch.ops.kernels.conv import (qconv2d_flat, qconv_raw, qconv_raw_plain,
+                                                  qconv_rq, qconv_rq_plain, qconv_rq_res,
                                                   qconv_rq_res_plain)
+from tachikoma_tpu_torch.ops.kernels.depthwise import (qdwconv_raw, qdwconv_raw_plain,
+                                                       qdwconv_rq, qdwconv_rq_plain)
 from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qgemm_raw, qgemm_raw_plain, qgemm_rq,
                                                          qgemm_rq_plain)
 from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
 from tachikoma_tpu_torch.quantize.quantizer import quantize
 from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
 from tachikoma_tpu_torch.trace.emitter import TraceEmitter
 from tachikoma_tpu_torch.trace.format import TraceReader
 
@@ -162,6 +166,93 @@ def test_k4_qconv_raw_on_card(rng, cuda, case):
     got = qconv_raw(x, w, b, **kw)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, qconv_raw_plain(x, w, b, **kw))
+
+
+DW_CASES = [
+    # (x shape, k, stride, padding (t, l, b, r), izp)
+    ((8, 112, 112, 32), 3, 1, (1, 1, 1, 1), 0),        # MobileNetV2 b8 224^2
+    ((8, 112, 112, 96), 3, 2, (1, 1, 1, 1), 0),
+    ((8, 56, 56, 144), 3, 2, (1, 1, 1, 1), 0),
+    ((8, 14, 14, 576), 3, 2, (1, 1, 1, 1), 0),
+    ((8, 7, 7, 960), 3, 1, (1, 1, 1, 1), 0),
+    ((1, 28, 28, 192), 3, 1, (1, 1, 1, 1), 5),          # b1
+    ((2, 9, 9, 13), 5, 2, (2, 2, 2, 2), -5),            # C % 4 != 0
+    ((2, 8, 7, 24), 3, 1, (0, 1, 2, 0), 7),             # asymmetric pad
+    ((1, 10, 10, 300), 7, 3, (3, 3, 3, 3), -128),       # 3 channel tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_CASES)
+@pytest.mark.parametrize("rounding,qmin,qmax", [("UPWARD", 0, 24), ("TONEAREST", -128, 127)])
+def test_k5_qdwconv_rq_on_card(rng, cuda, case, rounding, qmin, qmax):
+    shape, k, s, p, izp = case
+    c = shape[3]
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, 1, c), cuda)
+    b, mult, shift = _epilogue_args(rng, c, cuda)
+    kw = dict(strides=(s, s), padding=p, izp=izp, rq_izp=-3, out_zp=2, rounding=rounding,
+              qmin=qmin, qmax=qmax)
+    got = qdwconv_rq(x, w, b, mult, shift, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qdwconv_rq_plain(x, w, b, mult, shift, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_CASES)
+def test_k5_qdwconv_raw_on_card(rng, cuda, case):
+    shape, k, s, p, izp = case
+    c = shape[3]
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, 1, c), cuda)
+    b = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, c, dtype=np.int64)
+                         .astype(np.int32)).to(cuda)
+    kw = dict(strides=(s, s), padding=p, izp=izp)
+    got = qdwconv_raw(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, qdwconv_raw_plain(x, w, b, **kw))
+
+
+@pytest.mark.cuda
+def test_k5_on_a_misaligned_view_and_through_qconv2d_flat(rng, cuda):
+    """An input whose address is not 4-byte aligned takes the byte path; a
+    strided view goes through qconv2d_flat's contiguous copy; each
+    qconv2d_flat call with groups == C launches K5 once."""
+    flat = _dev(rng, (1 + 2 * 9 * 9 * 16,), cuda)
+    x = flat[1:].view(2, 9, 9, 16)
+    assert x.data_ptr() % 4
+    w = _dev(rng, (3, 3, 1, 16), cuda)
+    b, mult, shift = _epilogue_args(rng, 16, cuda)
+    kw = dict(strides=(2, 2), padding=(1, 1, 1, 1), izp=3)
+    assert torch.equal(qdwconv_rq(x, w, b, mult, shift, **kw),
+                       qdwconv_rq_plain(x, w, b, mult, shift, **kw))
+    view = _dev(rng, (2, 9, 18, 16), cuda)[:, :, ::2]
+    before = dict(_lib.LAUNCHES)
+    got_rq = qconv2d_flat(view, w, b, mult.cpu().numpy(), shift.cpu().numpy(), strides=(2, 2),
+                          padding=(1, 1, 1, 1), groups=16, input_zero_point=3)
+    got_raw = qconv2d_flat(view, w, b, strides=(2, 2), padding=(1, 1, 1, 1), groups=16,
+                           input_zero_point=3)
+    assert _lib.LAUNCHES["qdwconv_rq"] == before.get("qdwconv_rq", 0) + 1
+    assert _lib.LAUNCHES["qdwconv_raw"] == before.get("qdwconv_raw", 0) + 1
+    vc = view.contiguous()
+    assert torch.equal(got_rq, qdwconv_rq_plain(vc, w, b, mult, shift, **kw))
+    assert torch.equal(got_raw, qdwconv_raw_plain(vc, w, b, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [True, False])
+def test_mobilenet_executor_on_card_equals_cpu(cuda, fuse):
+    rng = np.random.default_rng(4)
+    calib = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    q = quantize(mobilenet_v2(batch_size=2, image_size=32), [calib])
+    names = computational_nodes(fuse_qnn(q) if fuse else q)
+    got = TorchExecutor(q, capture=names, device="cuda", fuse=fuse).run(x)
+    want = TorchExecutor(q, capture=names, device="cpu", fuse=fuse).run(x)
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype.kind in "iu":
+            assert (a == b).all(), name
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=name)
 
 
 @pytest.fixture

@@ -1,0 +1,139 @@
+"""K5 on the CPU: the depthwise int8 conv's plain versions, and qconv2d_flat
+with groups == C, against the JAX package and the numpy oracle.
+
+  * requantize mode: `qdwconv_rq_plain` and `qconv2d_flat(groups=C)` ==
+    the JAX package's `conv_flat.qconv2d_flat(groups=C)` on its Pallas route
+    (`TK_CONV_ROUTE=pallas`: `_flat_dw_kernel` in interpret mode) and on its
+    default route, and == the oracle (qnn.conv2d + bias + requantize, clipped
+    to qmin/qmax);
+  * raw mode: `qdwconv_raw_plain` and `qconv2d_flat(groups=C)` without a
+    multiplier == the JAX package's grouped `qnn.conv2d` (`jax_impl`,
+    lax.conv) + bias and == the oracle.
+
+Integers are compared with ==.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tachikoma_tpu.ops.jax_ops  # noqa: F401  (registers the jax impls)
+from tachikoma_tpu.ir.graph import Node as JNode
+from tachikoma_tpu.ir.registry import get_op as j_get_op
+from tachikoma_tpu.ops.fixed_point import requantize_np
+from tachikoma_tpu.ops.pallas.conv_flat import qconv2d_flat as j_qconv2d_flat
+from tachikoma_tpu_torch.ops.kernels import _lib
+from tachikoma_tpu_torch.ops.kernels.conv import qconv2d_flat
+from tachikoma_tpu_torch.ops.kernels.depthwise import (qdwconv_raw, qdwconv_raw_plain,
+                                                       qdwconv_rq, qdwconv_rq_plain)
+from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
+
+CASES = [
+    # (x shape, k, strides, padding (t, l, b, r), izp, qmin, qmax, rounding)
+    ((2, 10, 10, 24), 3, (1, 1), (1, 1, 1, 1), 0, -128, 127, "UPWARD"),     # dw s1
+    ((1, 11, 11, 96), 3, (2, 2), (1, 1, 1, 1), 3, -128, 127, "UPWARD"),     # dw s2, odd edge
+    ((1, 12, 12, 96), 3, (2, 2), (1, 1, 1, 1), 0, 0, 24, "UPWARD"),         # s2 even, ReLU6 bounds
+    ((1, 9, 9, 13), 5, (2, 2), (2, 2, 2, 2), -5, -128, 127, "TONEAREST"),   # 5x5 s2, C % 4 != 0
+    ((2, 8, 7, 13), 3, (1, 1), (0, 1, 0, 1), 7, 0, 8, "UPWARD"),            # asymmetric pad
+    ((1, 7, 9, 24), 3, (2, 1), (1, 0, 2, 1), -2, -10, 100, "TONEAREST"),    # mixed strides
+]
+
+
+def _i8(rng, shape):
+    return rng.integers(-128, 128, shape).astype(np.int8)
+
+
+def _operands(rng, case):
+    shape, k, _, _, _, _, _, _ = case
+    c = shape[3]
+    x, w = _i8(rng, shape), _i8(rng, (k, k, 1, c))
+    bias = rng.integers(-3000, 3000, c).astype(np.int32)
+    scales = 0.0002 + rng.random(c) * 0.0006       # per-channel: per-channel shifts
+    return x, w, bias, scales
+
+
+def _oracle_acc(x, w, case):
+    _, _, strides, padding, izp, _, _, _ = case
+    node = JNode("c", "qnn.conv2d", ("d", "w"),
+                 {"strides": strides, "padding": padding, "groups": x.shape[3],
+                  "input_zero_point": izp, "kernel_zero_point": 0, "out_dtype": "int32"})
+    return j_get_op("qnn.conv2d").np_impl(x, w, node=node), node
+
+
+@pytest.mark.parametrize("route", ["pallas", ""])
+@pytest.mark.parametrize("case", CASES)
+def test_requantize_mode_matches_jax_routes_and_oracle(rng, monkeypatch, route, case):
+    _, _, strides, padding, izp, qmin, qmax, rounding = case
+    x, w, bias, scales = _operands(rng, case)
+    m, s = plan_requantize(scales, 0.07)
+    assert len(set(s.tolist())) > 1
+    out_zp = 4 if qmin == -128 else 0
+    monkeypatch.setenv("TK_CONV_ROUTE", route)
+    want = np.asarray(j_qconv2d_flat(
+        x, w, bias=bias, multiplier=m, shift=s, strides=strides, padding=padding,
+        groups=x.shape[3], input_zero_point=izp, out_zp=out_zp, rounding=rounding,
+        qmin=qmin, qmax=qmax))
+    acc, _ = _oracle_acc(x, w, case)
+    oracle = np.clip(requantize_np(acc + bias, scales, 0, 0.07, out_zp, axis=3,
+                                   rounding=rounding, out_dtype="int8"), qmin, qmax)
+    np.testing.assert_array_equal(want, oracle)
+
+    kw = dict(strides=strides, padding=padding, rounding=rounding, qmin=qmin, qmax=qmax)
+    got = qconv2d_flat(torch.from_numpy(x), w, bias, m, s, groups=x.shape[3],
+                       input_zero_point=izp, out_zp=out_zp, **kw).numpy()
+    assert got.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+    c = x.shape[3]
+    plain = qdwconv_rq_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+                             channel_vector(m, c, "cpu"), channel_vector(s, c, "cpu"),
+                             izp=izp, out_zp=out_zp, **kw).numpy()
+    np.testing.assert_array_equal(plain, want)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_raw_mode_matches_jax_grouped_conv_and_oracle(rng, case):
+    _, _, strides, padding, izp, _, _, _ = case
+    x, w, bias, _ = _operands(rng, case)
+    acc, node = _oracle_acc(x, w, case)
+    jax_acc = np.asarray(j_get_op("qnn.conv2d").jax_impl(x, w, node=node))
+    np.testing.assert_array_equal(jax_acc, acc)
+    want = (acc.astype(np.int64) + bias).astype(np.int32)
+    got = qdwconv_raw_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+                            strides=strides, padding=padding, izp=izp).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    got = qconv2d_flat(torch.from_numpy(x), w, bias, strides=strides, padding=padding,
+                       groups=x.shape[3], input_zero_point=izp).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_raw_mode_wraps_like_int32(rng):
+    """acc + bias wraps around in int32, as the oracle's int32 bias add does."""
+    x = np.full((1, 3, 3, 4), -128, np.int8)
+    w = np.full((3, 3, 1, 4), -128, np.int8)
+    bias = np.array([2 ** 31 - 1, -(2 ** 31), 0, 5], np.int32)
+    got = qdwconv_raw_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+                            padding=(1, 1, 1, 1), izp=127).numpy()
+    acc = _oracle_acc(x, w, ((1, 3, 3, 4), 3, (1, 1), (1, 1, 1, 1), 127, 0, 0, ""))[0]
+    np.testing.assert_array_equal(got, (acc.astype(np.int64) + bias).astype(np.int32))
+
+
+def test_wrappers_on_cpu_count_no_launch_and_refuse_other_devices(rng):
+    x, w = torch.from_numpy(_i8(rng, (1, 5, 5, 8))), torch.from_numpy(_i8(rng, (3, 3, 1, 8)))
+    b = torch.zeros(8, dtype=torch.int32)
+    before = dict(_lib.LAUNCHES)
+    qdwconv_raw(x, w, b, padding=(1, 1, 1, 1))
+    qdwconv_rq(x, w, b, b + (1 << 30), b - 8, padding=(1, 1, 1, 1))
+    assert dict(_lib.LAUNCHES) == before
+    meta = [t.to("meta") for t in (x, w, b)]
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        qdwconv_raw(*meta)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        qdwconv_rq(*meta, meta[2], meta[2])
+
+
+@pytest.mark.parametrize("wshape,groups", [((3, 3, 1, 16), 8),      # channel multiplier 2
+                                           ((3, 3, 2, 8), 4)])      # grouped, not depthwise
+def test_qconv2d_flat_refuses_other_grouped_convs(rng, wshape, groups):
+    with pytest.raises(NotImplementedError, match=f"groups {groups}"):
+        qconv2d_flat(torch.from_numpy(_i8(rng, (1, 5, 5, 8))), _i8(rng, wshape), groups=groups)

@@ -35,6 +35,8 @@ def test_import_pulls_in_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(modules) > 15
+    assert {"tachikoma_tpu_torch.ops.kernels.depthwise",
+            "tachikoma_tpu_torch.runtime.artifact"} <= set(modules)
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],

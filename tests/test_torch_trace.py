@@ -163,9 +163,10 @@ def test_raw_wrappers_count_no_launch_on_cpu_and_refuse_other_devices(rng):
     with pytest.raises(ValueError, match="no kernel for device meta"):
         qconv_raw(meta.reshape(1, 2, 2, 32), w.reshape(1, 1, 32, 8).to("meta"),
                   torch.zeros(8, dtype=torch.int32, device="meta"))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        qconv2d_flat(torch.from_numpy(_i8(rng, (1, 4, 4, 8))), _i8(rng, (3, 3, 1, 8)),
-                     groups=8, padding=(1, 1, 1, 1))
+    # grouped convs other than depthwise have no kernel (nor in the reference)
+    with pytest.raises(NotImplementedError, match="groups 2"):
+        qconv2d_flat(torch.from_numpy(_i8(rng, (1, 4, 4, 8))), _i8(rng, (3, 3, 4, 8)),
+                     groups=2, padding=(1, 1, 1, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +448,7 @@ def test_cli_quantize_trace_verify(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "93 records" in out and "verified 93/93 records" in out and "qnn.conv2d" in out
     for argv, match in [(["tune", graph], "Queue 1 item 15"),
-                        (["quantize", "mobilenet_v2", "-o", graph], "Queue 1 item 10"),
+                        (["quantize", "vgg16", "-o", graph], "Queue 1 item 10"),
                         (["run", str(tmp_path / "m.onnx"), "--device", "cpu"], "Queue 1 item 12")]:
         with pytest.raises(SystemExit, match=match):
             cli_main(argv)

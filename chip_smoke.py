@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: int8 ResNet-50 and
 MobileNetV2, each b8 224^2 fused (the run path) and b1 224^2 unfused (the
-trace path), and the trained MobileNetV2 fixture loaded from its .tkmod.
+trace path), the trained MobileNetV2 fixture loaded from its .tkmod, and the
+float transformers BERT-base, GPT-2 small and ViT-B/16 through
+fuse_attention and K6.
 
     python3 chip_smoke.py
 
@@ -45,14 +47,29 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
  11. the trained fixture tests/fixtures/synth_mbv2.tkmod, loaded with the
      port's load_artifact, quantized on the host with a calibration batch from
      the seed and fused, run on the card: K5 launched, every integer node ==
-     the CPU plain path.
+     the CPU plain path;
+ 12. float BERT-base b4 s128, 13. GPT-2 small b1 s128 (causal), 14. ViT-B/16
+     b8 224^2 (S = 197), full width and depth, random weights from the seed,
+     in four steps each: (a) build and fuse_attention (12 tk.attention, causal
+     on GPT-2's only); (b) one forward recorded call by call, every K6 call
+     held against its plain version (rtol 2e-5, atol 2e-6,
+     tests/test_flash_attention.py's) on contiguous copies of its inputs (the
+     wrapper's own copies of the head-split views are not K6's work) and
+     timed beside its bound and torch's scaled_dot_product_attention; (c) the
+     launch counts set to 0, 20 requests through TorchExecutor(
+     device="cuda"), K6 read at 12 per request, the logits and every
+     tk.attention output held against the port's CPU path at rtol 1e-4,
+     atol 1e-4, median latency; (d) the device's busy share.  Phase 12 also
+     runs K6 at tests/test_flash_attention.py's four shapes.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
 K5 per MobileNetV2 forward (b8 fused for qdwconv_rq, b1 unfused for
-qdwconv_raw); `launches` sums each kernel's launches over the paths' timed
-runs (phases 5, 8, 9 and 10), each counted from 0 just before its run;
-max_abs_err is the largest over every check.  The line before the last is one JSON object {"kernels": [...]}; the last line
+qdwconv_raw), those of K6 (flash_attn) per BERT-base b4 s128 forward;
+`launches` sums each kernel's launches over the paths' timed runs (phases 5,
+8, 9, 10, 11 and 12c-14c), each counted from 0 just before its run;
+max_abs_err is the largest over every check.  TF32 is off for matmuls and
+cuDNN (the float path's products are float32).  The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.
 """
 
@@ -76,6 +93,12 @@ REQUESTS = 20
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak, same source
 SOFTMAX_RTOL, SOFTMAX_ATOL = 1e-5, 1e-8
+FP32_OPS_PER_S = 67e12             # float32 CUDA cores (no tensor cores), same source
+FA_RTOL, FA_ATOL = 2e-5, 2e-6      # K6 vs plain: tests/test_flash_attention.py:42
+GRAPH_RTOL, GRAPH_ATOL = 1e-4, 1e-4  # a 12-layer float forward, card vs CPU
+# tests/test_flash_attention.py:27-32 (B, H, S, D, causal)
+FA_SHAPES = ((2, 2, 128, 64, False), (1, 3, 256, 64, True), (2, 2, 200, 128, False),
+             (1, 2, 130, 64, True))
 
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-6  # float trace records (tests/test_trace.py's rule)
 TRACE_BATCH = 1
@@ -97,6 +120,8 @@ KERNELS = {
     # no Pallas kernel: the JAX package's grouped qnn.conv2d (lax.conv)
     "qdwconv_raw": ("tachikoma_tpu_torch/csrc/qdwconv.cu",
                     "tachikoma_tpu/ops/jax_ops.py:121"),
+    "flash_attn": ("tachikoma_tpu_torch/csrc/flash_attn.cu",
+                   "tachikoma_tpu/ops/pallas/flash_attention.py:33"),
 }
 RUN_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res")
 TRACE_KERNELS = ("qgemm_raw", "qconv_raw")
@@ -159,17 +184,22 @@ def eager_ms(fn, reps=3) -> float:
 
 @contextlib.contextmanager
 def recording(calls: list):
-    """Record every call of the kernel wrappers (name, args, kwargs)."""
+    """Record every call of the kernel wrappers (kernel name, args, kwargs)."""
+    from tachikoma_tpu_torch.ops import attention
     from tachikoma_tpu_torch.ops.kernels import conv, matmul_int8
 
     saved = []
-    for mod, attr in ((matmul_int8, "qgemm_rq"), (conv, "qgemm_rq"),
-                      (conv, "qconv_rq"), (conv, "qconv_rq_res"),
-                      (matmul_int8, "qgemm_raw"), (conv, "qgemm_raw"), (conv, "qconv_raw"),
-                      (conv, "qdwconv_rq"), (conv, "qdwconv_raw")):
+    for mod, attr, name in ((matmul_int8, "qgemm_rq", "qgemm_rq"), (conv, "qgemm_rq", "qgemm_rq"),
+                            (conv, "qconv_rq", "qconv_rq"),
+                            (conv, "qconv_rq_res", "qconv_rq_res"),
+                            (matmul_int8, "qgemm_raw", "qgemm_raw"),
+                            (conv, "qgemm_raw", "qgemm_raw"), (conv, "qconv_raw", "qconv_raw"),
+                            (conv, "qdwconv_rq", "qdwconv_rq"),
+                            (conv, "qdwconv_raw", "qdwconv_raw"),
+                            (attention, "flash_attention", "flash_attn")):
         fn = getattr(mod, attr)
 
-        def rec(*a, _fn=fn, _name=attr, **k):
+        def rec(*a, _fn=fn, _name=name, **k):
             calls.append((_name, a, k))
             return _fn(*a, **k)
 
@@ -185,7 +215,16 @@ def recording(calls: list):
 def work(name, a, k) -> tuple[int, int, str]:
     """(bytes moved, operations, shape label) of one call: each input read
     once, each output written once (a depthwise weight is (KH, KW, 1, C):
-    one input channel per output channel)."""
+    one input channel per output channel; attention reads q, k, v and writes
+    out, (G, S, D) float32 each, and under causal needs the products of the
+    S (S + 1) / 2 unmasked scores only)."""
+    if name == "flash_attn":
+        b, h, s, d = a[0].shape
+        g = b * h
+        causal = bool(k.get("causal", False))
+        ops = 4 * g * d * s * (s + 1) // 2 if causal else 4 * g * s * s * d
+        return (4 * g * s * d * 4, ops,
+                f"G={g} S={s} D={d}{' causal' if causal else ''}")
     x, w = a[0], a[1]
     cout = w.shape[-1]
     raw = name.endswith("_raw")
@@ -212,6 +251,9 @@ def library_call(name, a, k):
     computes its function exactly, refuses M <= 16 and, through cuBLASLt,
     some other shapes (M=784 K=32 N=192 on torch 2.11, CUDA 12.8)."""
     x, w = a[0], a[1]
+    if name == "flash_attn":
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            x, w, a[2], is_causal=bool(k.get("causal", False)), scale=k.get("scale"))
     if name in ("qgemm_rq", "qgemm_raw"):
         m, kk = x.shape
         n = w.shape[1]
@@ -236,9 +278,10 @@ def library_call(name, a, k):
 
 
 def check_kernels(calls: list, names) -> dict:
-    """Hold every recorded call of the kernels `names` == against its plain
-    version, time it, and sum per kernel."""
-    from tachikoma_tpu_torch.ops.kernels import conv, depthwise, matmul_int8
+    """Hold every recorded call of the kernels `names` against its plain
+    version (== for the integer kernels, allclose for K6), time it, and sum
+    per kernel."""
+    from tachikoma_tpu_torch.ops.kernels import conv, depthwise, flash_attention, matmul_int8
 
     impl = {"qgemm_rq": (matmul_int8.qgemm_rq, matmul_int8.qgemm_rq_plain),
             "qconv_rq": (conv.qconv_rq, conv.qconv_rq_plain),
@@ -246,16 +289,27 @@ def check_kernels(calls: list, names) -> dict:
             "qgemm_raw": (matmul_int8.qgemm_raw, matmul_int8.qgemm_raw_plain),
             "qconv_raw": (conv.qconv_raw, conv.qconv_raw_plain),
             "qdwconv_rq": (depthwise.qdwconv_rq, depthwise.qdwconv_rq_plain),
-            "qdwconv_raw": (depthwise.qdwconv_raw, depthwise.qdwconv_raw_plain)}
+            "qdwconv_raw": (depthwise.qdwconv_raw, depthwise.qdwconv_raw_plain),
+            "flash_attn": (flash_attention.flash_attention,
+                           flash_attention.flash_attention_plain)}
     per_call, totals = [], {}
     for name, a, k in calls:
         fn, plain = impl[name]
+        if name == "flash_attn":
+            a = tuple(t.contiguous() for t in a)
         got, want = fn(*a, **k), plain(*a, **k)
         torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
-        assert torch.equal(got, want), f"{name} != plain on {work(name, a, k)[2]}: max |err| {err}"
+        if name == "flash_attn":
+            err = float((got - want).abs().max())
+            torch.testing.assert_close(got, want, rtol=FA_RTOL, atol=FA_ATOL)
+        else:
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+                if got.numel() else 0
+            assert torch.equal(got, want), \
+                f"{name} != plain on {work(name, a, k)[2]}: max |err| {err}"
         nbytes, ops, label = work(name, a, k)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+        rate = FP32_OPS_PER_S if name == "flash_attn" else INT8_OPS_PER_S
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
         lib = library_call(name, a, k)
         rec = dict(kernel=name, shape=label, bytes=nbytes, ops=ops,
                    ms=graph_ms(lambda: fn(*a, **k)),
@@ -282,7 +336,9 @@ def check_kernels(calls: list, names) -> dict:
         t["library_ms"] = sum(libs) if libs else None
         t["library_calls"] = len(libs)
         totals[name] = t
-        phase(f"{name} ({KERNELS[name][0]}): {len(recs)} calls per forward, all == plain")
+        held = "within rtol 2e-5 atol 2e-6 of" if name == "flash_attn" else "=="
+        phase(f"{name} ({KERNELS[name][0]}): {len(recs)} calls per forward, all {held} plain; "
+              f"max |err| {t['max_abs_err']}")
         say(f"{'shape':38s} {'calls':>5s} {'ms':>9s} {'bound_ms':>9s} {'by':>10s} "
             f"{'plain_ms':>9s} {'library_ms':>10s}")
         shapes = Counter(r["shape"] for r in recs)
@@ -588,6 +644,106 @@ def fixture_path() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the float transformer path (phases 12-14)
+# ---------------------------------------------------------------------------
+
+def transformer_path(label: str, model: str, build, make_input, causal: bool,
+                     unit: str) -> tuple[dict, int]:
+    """Phases <label>a-d of one float transformer: build and fuse_attention,
+    K6 at the forward's 12 calls (allclose plain, timed), REQUESTS requests on
+    the card with K6 counted, the logits and tk.attention outputs against the
+    CPU path, the device's busy share.  Returns K6's per-forward totals and
+    its launches in the requests."""
+    from tachikoma_tpu_torch.ir.transforms import fuse_attention
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+
+    phase(f"{label}a. float {model}: build, fuse_attention (host)")
+    t0 = time.perf_counter()
+    g = build()
+    t1 = time.perf_counter()
+    fused = fuse_attention(g)
+    t2 = time.perf_counter()
+    attn = [n for n in fused.nodes if n.op == "tk.attention"]
+    assert len(attn) == 12, len(attn)
+    assert all(bool(n.attrs["causal"]) == causal for n in attn)
+    n_params = sum(v.size for v in fused.params.values())
+    say(f"build {t1 - t0:.2f} s, fuse_attention {t2 - t1:.2f} s: {len(g)} -> {len(fused)} "
+        f"nodes, 12 tk.attention (causal {causal}), q {fused[attn[0].inputs[0]].shape}, "
+        f"{n_params} params")
+    names = [n.name for n in attn] + list(fused.outputs)
+    ex = TorchExecutor(fused, capture=names, device="cuda")
+    rng = np.random.default_rng(SEED)
+    requests = [make_input(rng) for _ in range(REQUESTS)]
+    batch = requests[0].shape[0]
+
+    phase(f"{label}b. {model}: K6 at the forward's calls: allclose plain, time, bound, SDPA")
+    calls: list = []
+    with recording(calls):
+        ex.run_device(requests[0])
+    torch.cuda.synchronize()
+    assert [c[0] for c in calls] == ["flash_attn"] * 12
+    totals = check_kernels(calls, ("flash_attn",))["flash_attn"]
+
+    phase(f"{label}c. {model} main path: {REQUESTS} requests through "
+          "TorchExecutor(device='cuda')")
+    reset(("flash_attn",))
+    lat = []
+    first_out = None
+    for x in requests:
+        t0 = time.perf_counter()
+        outs = ex.run_device(x)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if first_out is None:
+            first_out = [o.cpu().numpy() for o in outs]
+    launches = read_launches(("flash_attn",), f"the {model} path")["flash_attn"]
+    assert launches == 12 * REQUESTS, launches
+    say(f"flash_attn: {launches} launches, {launches // REQUESTS} per request")
+    t0 = time.perf_counter()
+    plain = TorchExecutor(fused, capture=names, device="cpu").run(requests[0])
+    say(f"CPU path forward {time.perf_counter() - t0:.2f} s; card vs CPU, largest |err| "
+        f"(rtol {GRAPH_RTOL} atol {GRAPH_ATOL}):")
+    for nm, a, b in zip(names, first_out, plain):
+        assert a.shape == b.shape and a.dtype == b.dtype == np.float32, nm
+        assert np.isfinite(a).all(), nm
+        say(f"  {nm:28s} {tuple(a.shape)!s:22s} max |err| {np.abs(a - b).max():.3e}, "
+            f"max |CPU| {np.abs(b).max():.3e}")
+    for nm, a, b in zip(names, first_out, plain):
+        np.testing.assert_allclose(a, b, rtol=GRAPH_RTOL, atol=GRAPH_ATOL, err_msg=nm)
+    med = statistics.median(lat[1:])
+    say(f"latency ms per request (b{batch}): median {med:.3f}, all "
+        + " ".join(f"{v:.3f}" for v in lat))
+    say(f"{unit}/s {batch / med * 1e3:.1f}; K6 device ms per forward {totals['ms']:.4f} of "
+        f"{med:.3f} ms end to end")
+
+    phase(f"{label}d. {model}: device time of the main path (torch.profiler, 3 requests)")
+    profile_requests(ex, requests[:3], med)
+    return totals, launches
+
+
+def k6_reference_shapes() -> float:
+    """Phase 12e: K6 at tests/test_flash_attention.py's four shapes against
+    its plain version; returns the largest |err|."""
+    from tachikoma_tpu_torch.ops.kernels.flash_attention import (flash_attention,
+                                                                 flash_attention_plain)
+
+    phase("12e. K6 at tests/test_flash_attention.py's four shapes: allclose plain")
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for b, h, s, d, causal in FA_SHAPES:
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32)).cuda()
+                   for _ in range(3))
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=FA_RTOL, atol=FA_ATOL)
+        worst = max(worst, err)
+        say(f"B={b} H={h} S={s} D={d} causal={causal}: max |err| {err:.3e}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -595,6 +751,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from tachikoma_tpu_torch.models.transformer import bert_base, gpt2_small, vit_b16
     from tachikoma_tpu_torch.models.vision import mobilenet_v2, resnet
     from tachikoma_tpu_torch.ops.kernels import _lib
 
@@ -607,6 +764,10 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    precision = torch.get_float32_matmul_precision()
+    say(f"float32 matmul precision {precision}, TF32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, TF32 cuDNN {torch.backends.cudnn.allow_tf32}")
+    assert precision == "highest", precision
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
 
     phase("2. kernel build (nvcc, sm_90a, one process per source)")
@@ -636,6 +797,24 @@ def main() -> int:
             totals.setdefault(name, t)
         for name, n in path_launches.items():
             launches[name] = launches.get(name, 0) + n
+
+    transformers = (
+        ("12", "BERT-base b4 s128", lambda: bert_base(batch_size=4, seq_len=128, seed=SEED),
+         lambda rng: rng.integers(0, 30522, (4, 128)).astype(np.int32), False, "sequences"),
+        ("13", "GPT-2 small b1 s128", lambda: gpt2_small(batch_size=1, seq_len=128, seed=SEED),
+         lambda rng: rng.integers(0, 50257, (1, 128)).astype(np.int32), True, "sequences"),
+        ("14", f"ViT-B/16 b{BATCH} {IMAGE}^2",
+         lambda: vit_b16(batch_size=BATCH, image_size=IMAGE, seed=SEED),
+         lambda rng: rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32), False,
+         "images"))
+    launches["flash_attn"], errs["flash_attn"] = 0, 0.0
+    for label, model, build, make_input, causal, unit in transformers:
+        fa, n = transformer_path(label, model, build, make_input, causal, unit)
+        totals.setdefault("flash_attn", fa)  # BERT-base's, per forward
+        launches["flash_attn"] += n
+        errs["flash_attn"] = max(errs["flash_attn"], fa["max_abs_err"])
+        if label == "12":
+            errs["flash_attn"] = max(errs["flash_attn"], k6_reference_shapes())
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

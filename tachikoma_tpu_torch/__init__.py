@@ -2,7 +2,8 @@
 
 Integer-only inference with the JAX package's exact semantics, on an NVIDIA
 H100: the same graph IR and quantizer, a torch executor, and hand-written
-Hopper kernels (csrc/) for the fused int8 ops.  The port imports neither jax
+Hopper kernels (csrc/) for the fused int8 ops and for the fused float
+attention of the transformer zoo.  The port imports neither jax
 nor the JAX package; graphs move between the two through the JSON format of
 `Graph.to_json` (`interop.from_reference_graph`).
 
@@ -12,7 +13,7 @@ Subpackages:
               kernels' wrappers and their plain PyTorch versions
   quantize  — calibration + float->integer graph rewriting
   runtime   — numpy interpreter, operator fusion, torch executor
-  models    — built-in model zoo (resnet)
+  models    — built-in model zoo (resnet, mobilenet_v2, bert, gpt2, vit)
 """
 
 __version__ = "0.1.0"
@@ -21,6 +22,7 @@ from .ir.graph import Graph, GraphBuilder, Node
 from .ir.infer import infer_types
 
 # Register the op vocabulary on import.
+from .ops import attention as _ops_attention  # noqa: F401
 from .ops import nn as _ops_nn  # noqa: F401
 from .ops import qnn as _ops_qnn  # noqa: F401
 from .runtime import fuse as _fuse  # noqa: F401

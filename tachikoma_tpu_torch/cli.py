@@ -13,9 +13,12 @@ Usage: python -m tachikoma_tpu_torch.cli <subcommand> [args]
 `--device` defaults to "cuda" and never falls back to the CPU; pass
 `--device cpu` to run the kernels' plain PyTorch versions.  Graph files are
 `.json` or `.tkmod` artifacts (either package's); the zoo is resnet18 /
-resnet34 / resnet50 / mobilenet_v2.  Other zoo models, model file formats and
-the JAX package's other subcommands are not ported yet and exit with the
-ROADMAP item that ports them.
+resnet34 / resnet50 / mobilenet_v2 and the float transformers bert /
+bert_base / gpt2 / vit_b16 / vit_l16.  A float transformer graph runs
+(`run`, with its attention fused by `ir/transforms.py fuse_attention` when the
+graph was written) but does not quantize yet.  Other zoo models, model file
+formats and the JAX package's other subcommands are not ported yet and exit
+with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -27,7 +30,11 @@ from collections import Counter
 
 import numpy as np
 
-ZOO = ("resnet18", "resnet34", "resnet50", "mobilenet_v2")
+ZOO = ("resnet18", "resnet34", "resnet50", "mobilenet_v2", "bert", "bert_base", "gpt2",
+       "vit_b16", "vit_l16")
+# ops of the float transformer graphs that the port's quantizer has no handler for
+_TRANSFORMER_OPS = frozenset({"tk.attention", "nn.batch_matmul", "nn.matmul", "nn.layer_norm",
+                              "nn.gelu"})
 NOT_PORTED = {
     "profile": "runtime/profiler.py, ROADMAP Queue 1 item 8",
     "evaluate": "quantize/evaluate.py and accuracy.py, ROADMAP Queue 1 item 11",
@@ -51,6 +58,7 @@ def _load_graph(path: str):
 
 
 def _zoo(name: str, batch: int, image: int | None):
+    from .models import transformer
     from .models.vision import mobilenet_v2, resnet
 
     name = name.lower()
@@ -59,6 +67,14 @@ def _zoo(name: str, batch: int, image: int | None):
                          "others wait for ROADMAP Queue 1 item 10)")
     if name == "mobilenet_v2":
         return mobilenet_v2(batch_size=batch, image_size=image or 224)
+    if name in ("bert", "bert_base"):
+        return transformer.bert_base(batch_size=batch, seq_len=128)
+    if name == "vit_b16":
+        return transformer.vit_b16(batch_size=batch, image_size=image or 224)
+    if name == "vit_l16":
+        return transformer.vit_l16(batch_size=batch, image_size=image or 224)
+    if name == "gpt2":
+        return transformer.gpt2_small(batch_size=batch, seq_len=128)
     return resnet(int(name[6:]), batch_size=batch, image_size=image or 224)
 
 
@@ -67,6 +83,13 @@ def _model(args):
     if args.model.endswith((".json", ".tkmod")) or os.path.isfile(args.model):
         return _load_graph(args.model)
     return _zoo(args.model, args.batch, args.image_size)
+
+
+def _refuse_transformer(graph) -> None:
+    ops = sorted({n.op for n in graph.nodes} & _TRANSFORMER_OPS)
+    if ops:
+        raise SystemExit(f"{graph.name}: {ops} do not quantize yet: the quantizer's transformer "
+                         "handlers wait for ROADMAP Queue 1 item 4")
 
 
 def _rand_inputs(graph, seed=0):
@@ -94,6 +117,7 @@ def cmd_quantize(args):
     from .quantize.quantizer import quantize
 
     g = _model(args)
+    _refuse_transformer(g)
     if args.calib_data:
         data = np.load(args.calib_data)
         batches = [{k: data[k] for k in data.files}] if hasattr(data, "files") else [data]
@@ -112,6 +136,7 @@ def cmd_compile(args):
 
     g = _model(args)
     if not any(n.dtype in ("int8", "uint8", "int16") for n in g.nodes if not n.is_var):
+        _refuse_transformer(g)
         from .quantize.config import QConfig
         from .quantize.quantizer import quantize
 

@@ -1,0 +1,18 @@
+// The int32 parameter array that every C entry of the port's kernels takes
+// in host memory: one layout for all (ops/kernels/_lib.py PARAMS mirrors it).
+// K6's float32 scale travels as the int32 with its bits.
+#pragma once
+
+namespace tk {
+
+enum Param {
+  P_N, P_H, P_W, P_CIN, P_KH, P_KW, P_COUT, P_OH, P_OW, P_SH, P_SW, P_PT, P_PL,
+  P_IZP, P_RQ_IZP, P_OUT_ZP, P_QMIN, P_QMAX, P_TONEAREST, P_A_VEC, P_B_VEC,
+  P_L_SKIP, P_LM, P_LS, P_LZP, P_R_SKIP, P_RM, P_RS, P_RZP, P_ZO, P_LO, P_HI,
+  P_ADD_TONEAREST,
+  // K6 flash_attn: G = B*H, S, D, causal, and the bits of the float32 scale
+  P_G, P_S, P_D, P_CAUSAL, P_SCALE_BITS,
+  P_COUNT
+};
+
+}  // namespace tk

@@ -33,7 +33,7 @@
 
 #include <cstdint>
 
-#include "qgemm.cuh"  // Param (the parameter array's layout)
+#include "params.cuh"
 #include "requantize.cuh"
 
 namespace tk {

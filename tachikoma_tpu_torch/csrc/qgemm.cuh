@@ -27,18 +27,10 @@
 
 #include <cstdint>
 
+#include "params.cuh"
 #include "requantize.cuh"
 
 namespace tk {
-
-// Layout of the int32 parameter array that the Python wrappers pass in host
-// memory (ops/kernels/_lib.py PARAMS mirrors it).
-enum Param {
-  P_N, P_H, P_W, P_CIN, P_KH, P_KW, P_COUT, P_OH, P_OW, P_SH, P_SW, P_PT, P_PL,
-  P_IZP, P_RQ_IZP, P_OUT_ZP, P_QMIN, P_QMAX, P_TONEAREST, P_A_VEC, P_B_VEC,
-  P_L_SKIP, P_LM, P_LS, P_LZP, P_R_SKIP, P_RM, P_RS, P_RZP, P_ZO, P_LO, P_HI,
-  P_ADD_TONEAREST, P_COUNT
-};
 
 constexpr int BM = 64, BN = 64, BK = 64;
 constexpr int NTHREADS = 128;  // four warps, 2 x 2, each a 32 x 32 tile

@@ -1,12 +1,19 @@
 """Pre-quantization graph cleanups (port of `tachikoma_tpu/ir/transforms.py`).
 
-The port carries the passes of the JAX package's `DEFAULT_SIMPLIFY` that can
-fire on a graph built from the port's op set, in the same order.  The others
-(`remove_identity`, `fold_scale_axis`, `fuse_pad_into_conv`,
-`combine_parallel_dense`) rewrite ops the port does not register yet (copy,
-cast, reshape, multiply, nn.pad, a merged dense needs strided_slice), so on
-every graph the port can hold they are the identity, and the simplified graph
-equals the JAX package's.
+The port carries four passes of the JAX package's `DEFAULT_SIMPLIFY`, in the
+same order.  The other four are not ported yet: `fuse_pad_into_conv` (nn.pad
+is not registered), `remove_identity` (same-shape reshape / broadcast_to,
+copy, cast), `fold_scale_axis` (multiply by a per-channel constant after or
+before a conv / dense) and `combine_parallel_dense` (sibling denses on one
+input, such as BERT's Q/K/V, into one dense and strided slices).  None fires
+on the int8 CNN graphs (ResNet, MobileNetV2, the trained fixture), so their
+simplified graph equals the JAX package's.  On the transformer graphs
+`combine_parallel_dense` fires in the JAX package, so `simplify` differs
+there; the transformer path runs its float graphs unsimplified, through
+`fuse_attention` alone, and the missing passes come with the quantizer's
+transformer handlers.
+
+`fuse_attention` is opt-in, as in the JAX package: not part of `simplify`.
 
 All passes are pure functions Graph -> Graph.
 """
@@ -198,3 +205,103 @@ def simplify(graph: Graph) -> Graph:
     for p in DEFAULT_SIMPLIFY:
         g = p(g)
     return infer_types(g)
+
+
+def fuse_attention(graph: Graph) -> Graph:
+    """Fuse the float attention subgraph into tk.attention (K6 on the card;
+    ops/attention.py):
+
+        bmm(q, k, transpose_b=True) -> multiply(scalar const)
+          -> [add(causal mask const)] -> nn.softmax(axis=-1) -> bmm(., v)
+
+    The mask branch fuses only when the constant is the additive causal
+    triangle the zoo's decoder builds (upper triangle == constant negative,
+    lower == 0); its -C value is approximated by the hard causal mask
+    (difference exp(-C), ~1e-13 for C=30).  Opt-in (float/serving path) --
+    not part of DEFAULT_SIMPLIFY."""
+    g = infer_types(graph) if any(
+        n.shape is None and n.dtype != "tuple" for n in graph.nodes) else graph
+    users = g.users()
+    outs = set(g.outputs)
+
+    def single_user(name):
+        if name in outs:
+            return None
+        u = users.get(name, ())
+        return g[u[0]] if len(u) == 1 else None
+
+    def scalar_const(name):
+        nd = g[name] if name in g else None
+        if nd is not None and nd.is_const and g.params[name].size == 1:
+            return float(g.params[name].reshape(()))
+        return None
+
+    def causal_mask_const(name):
+        nd = g[name] if name in g else None
+        if nd is None or not nd.is_const:
+            return False
+        arr = np.asarray(g.params[name])
+        if arr.ndim < 2 or arr.shape[-1] != arr.shape[-2]:
+            return False
+        m = arr.reshape(arr.shape[-2], arr.shape[-1])
+        low = np.tril(np.ones_like(m, bool))
+        return bool((m[low] == 0).all() and (m[~low] < -10).all())
+
+    fused = {}      # final bmm name -> (q, k, v, scale, causal)
+    consumed = set()
+    for n in g.nodes:
+        if n.op != "nn.batch_matmul" or not n.attrs.get("transpose_b"):
+            continue
+        mul = single_user(n.name)
+        if mul is None or mul.op != "multiply":
+            continue
+        sc = scalar_const(mul.inputs[1]) or scalar_const(mul.inputs[0])
+        if sc is None:
+            continue
+        cur = single_user(mul.name)
+        causal = False
+        mask = None
+        if cur is not None and cur.op == "add":
+            other = cur.inputs[1] if cur.inputs[0] == mul.name else cur.inputs[0]
+            if not causal_mask_const(other):
+                continue
+            causal, mask = True, cur
+            cur = single_user(cur.name)
+        if cur is None or cur.op != "nn.softmax" or int(
+                cur.attrs.get("axis", -1)) not in (-1, 3):
+            continue
+        sm = cur
+        bmm2 = single_user(sm.name)
+        if bmm2 is None or bmm2.op != "nn.batch_matmul" \
+                or bmm2.inputs[0] != sm.name \
+                or bmm2.attrs.get("transpose_a") or bmm2.attrs.get("transpose_b"):
+            continue
+        fused[bmm2.name] = (n.inputs[0], n.inputs[1], bmm2.inputs[1],
+                            sc, causal)
+        for m in (n, mul, sm, mask):
+            if m is not None:
+                consumed.add(m.name)
+
+    if not fused:
+        return g
+
+    b = GraphBuilder(g.name)
+    mapping = {}
+    for n in g.nodes:
+        if n.is_var:
+            mapping[n.name] = b.var(n.name, n.shape, n.dtype)
+        elif n.is_const:
+            mapping[n.name] = b.const(g.params[n.name], name=n.name)
+    for n in g.nodes:
+        if n.name in mapping or n.name in consumed:
+            continue
+        if n.name in fused:
+            q, k, v, sc, causal = fused[n.name]
+            mapping[n.name] = b.call(
+                "tk.attention", mapping[q], mapping[k], mapping[v],
+                name=n.name, scale=sc, causal=causal)
+            continue
+        ins = [mapping[i] for i in n.inputs]
+        mapping[n.name] = b.call(n.op, *ins, name=n.name, **dict(n.attrs))
+    return infer_types(b.build([mapping[o] for o in g.outputs])
+                       .dead_code_eliminate())

@@ -9,8 +9,10 @@ A library's file name carries a hash of `csrc/`, so an edited source is
 rebuilt.
 
 Every C entry takes its tensor pointers, a host int32 parameter array laid out
-as `PARAMS` (`csrc/qgemm.cuh` enum Param) and the CUDA stream, launches on
-that stream and returns `cudaGetLastError()`.
+as `PARAMS` (`csrc/params.cuh` enum Param) and the CUDA stream, launches on
+that stream and returns `cudaGetLastError()`.  One array for every kernel:
+K6's float32 scale travels in it as the int32 that holds its bits
+(`float32_bits`), so there is one build and one launch path.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import time
 from collections import Counter
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # Launches per kernel; each wrapper adds one where it launches its kernel.
@@ -34,7 +37,7 @@ PARAMS = (
     "n", "h", "w", "cin", "kh", "kw", "cout", "oh", "ow", "sh", "sw", "pt", "pl",
     "izp", "rq_izp", "out_zp", "qmin", "qmax", "tonearest", "a_vec", "b_vec",
     "l_skip", "lm", "ls", "lzp", "r_skip", "rm", "rs", "rzp", "zo", "lo", "hi",
-    "add_tonearest",
+    "add_tonearest", "g", "s", "d", "causal", "scale_bits",
 )
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -46,6 +49,7 @@ SOURCES = {
     "qconv_rq.cu": (("tk_qconv_rq", 6), ("tk_qconv_rq_res", 7)),
     "qgemm_raw.cu": (("tk_qgemm_raw", 4), ("tk_qconv_raw", 4)),
     "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4)),
+    "flash_attn.cu": (("tk_flash_attn", 4),),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -116,6 +120,11 @@ def _entry(name: str):
                     fn.restype = ctypes.c_int
                     _entries[fn_name] = fn
         return _entries[name]
+
+
+def float32_bits(x: float) -> int:
+    """The int32 whose bits are the float32 `x` (K6's scale parameter)."""
+    return int(np.float32(x).view(np.int32))
 
 
 def launch(name: str, tensors, params: dict) -> None:

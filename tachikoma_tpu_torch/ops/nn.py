@@ -1,24 +1,35 @@
-"""Core float/int op set of int8 ResNet and MobileNetV2, and the layout ops of
-graphs imported from NCHW frameworks (port of `tachikoma_tpu/ops/nn.py`).
+"""Core float/int op set of int8 ResNet and MobileNetV2, the layout ops of
+graphs imported from NCHW frameworks, and the float op set of the transformer
+zoo (BERT, GPT-2, ViT) (port of `tachikoma_tpu/ops/nn.py`).
 
 Each op gets the JAX package's shape/dtype relation and numpy oracle, copied;
 the ops that the fused graphs run outside the kernels also get a torch
-implementation that computes the same values on any device.
+implementation that computes the same values on any device, following
+`tachikoma_tpu/ops/jax_ops.py`.
 
 Layouts are the JAX package's: conv2d data NHWC, weight HWIO; dense data
 (..., K), weight (K, N).
+
+Float products (nn.dense, nn.batch_matmul, float nn.conv2d) are torch.matmul
+and torch.nn.functional.conv2d calls, in float32: the port assumes
+`torch.get_float32_matmul_precision() == "highest"` (torch's default) and
+`torch.backends.cudnn.allow_tf32 = False` (torch's default is True), so that
+a float32 product on the card is a float32 product and not TF32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..ir.graph import Node
-from ..ir.registry import TensorType, infer_rule, np_impl, register_op, torch_impl
+from ..ir.registry import (TensorType, flops_rule, get_op, infer_rule, np_impl, register_op,
+                           torch_impl)
 from ..utils import dtypes as dt
+from .fixed_point import torch_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +77,26 @@ def _accum_dtype(node: Node, in_dtype: str) -> str:
 
 def _same_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
     return ins[0]
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _to_out_dtype(out: torch.Tensor, node: Node, like: torch.Tensor) -> torch.Tensor:
+    """`out` in the node's out_dtype, else in the dtype of `like` (the
+    float products' rule, as the oracles apply it)."""
+    od = node.attrs.get("out_dtype")
+    return out.to(torch_dtype(od) if od else like.dtype)
+
+
+def _float_only(t: torch.Tensor, node: Node) -> None:
+    """The float products' torch impls take float tensors only: their integer
+    forms are qnn.conv2d / qnn.dense (torch has no integer matmul on CUDA)."""
+    if not t.dtype.is_floating_point:
+        raise NotImplementedError(
+            f"{node.name} ({node.op}): integer {node.op} has no torch impl; "
+            "quantized graphs carry the qnn form")
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +172,24 @@ def _conv2d_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarra
     return out.astype(data.dtype if not integer else np.int32)
 
 
+@torch_impl("nn.conv2d")
+def _conv2d_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """Float conv (ViT's patch embedding): NHWC/HWIO seen as NCHW/OIHW by
+    torch.nn.functional.conv2d, asymmetric padding applied first."""
+    _float_only(data, node)
+    pt, pl, pb, pr = _pad4(node.attrs.get("padding", (0, 0, 0, 0)))
+    x = data.to(torch.float32).permute(0, 3, 1, 2)
+    if (pt, pl) != (pb, pr):
+        x = torch.nn.functional.pad(x, (pl, pr, pt, pb))
+        pt, pl = 0, 0
+    out = torch.nn.functional.conv2d(
+        x, weight.to(torch.float32).permute(3, 2, 0, 1),
+        stride=_pair(node.attrs.get("strides", (1, 1))), padding=(pt, pl),
+        dilation=_pair(node.attrs.get("dilation", (1, 1))),
+        groups=int(node.attrs.get("groups", 1)))
+    return _to_out_dtype(out.permute(0, 2, 3, 1), node, data)
+
+
 @infer_rule("nn.dense")
 def _dense_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
     (dshape, ddt), (wshape, wdt) = ins[0], ins[1]
@@ -158,6 +207,78 @@ def _dense_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarray
     if od:
         return out.astype(od)
     return out.astype(data.dtype if not integer else np.int32)
+
+
+@torch_impl("nn.dense")
+def _dense_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
+    _float_only(data, node)
+    return _to_out_dtype(torch.matmul(data.to(torch.float32), weight.to(torch.float32)), node,
+                         data)
+
+
+@infer_rule("nn.batch_matmul")
+def _bmm_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
+    (a, adt), (b, bdt) = ins[0], ins[1]
+    ta = bool(node.attrs.get("transpose_a", False))
+    tb = bool(node.attrs.get("transpose_b", False))
+    am, ak = (a[-1], a[-2]) if ta else (a[-2], a[-1])
+    bk, bn = (b[-1], b[-2]) if tb else (b[-2], b[-1])
+    assert ak == bk, f"batch_matmul K mismatch {a} x {b}"
+    batch = broadcast_shapes(a[:-2], b[:-2])
+    return batch + (am, bn), _accum_dtype(node, dt.promote(adt, bdt))
+
+
+@np_impl("nn.batch_matmul")
+def _bmm_np(a: np.ndarray, b: np.ndarray, *, node: Node) -> np.ndarray:
+    integer = dt.is_int(str(a.dtype))
+    acc = np.int64 if integer else np.float32
+    x = a.astype(acc)
+    y = b.astype(acc)
+    if node.attrs.get("transpose_a", False):
+        x = np.swapaxes(x, -1, -2)
+    if node.attrs.get("transpose_b", False):
+        y = np.swapaxes(y, -1, -2)
+    out = x @ y
+    od = node.attrs.get("out_dtype")
+    if od:
+        return out.astype(od)
+    return out.astype(a.dtype if not integer else np.int32)
+
+
+@flops_rule("nn.batch_matmul")
+def _bmm_flops(node: Node, ins: Sequence[TensorType]) -> int:
+    out_shape, _ = _bmm_rel(node, ins)
+    a, _ = ins[0]
+    k = a[-2] if node.attrs.get("transpose_a", False) else a[-1]
+    return 2 * int(np.prod(out_shape)) * k
+
+
+@torch_impl("nn.batch_matmul")
+def _bmm_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
+    _float_only(a, node)
+    x, y = a.to(torch.float32), b.to(torch.float32)
+    if node.attrs.get("transpose_a", False):
+        x = x.transpose(-1, -2)
+    if node.attrs.get("transpose_b", False):
+        y = y.transpose(-1, -2)
+    return _to_out_dtype(torch.matmul(x, y), node, a)
+
+
+def _alias(name: str, target: str) -> None:
+    """Register `name` as another name of `target` (the JAX package's
+    `ops/extra.py _alias`), with its torch impl."""
+    t = get_op(target)
+
+    def _np(*args, node: Node):
+        return get_op(target).np_impl(*args, node=node)
+
+    def _torch(*args, node: Node):
+        return get_op(target).torch_impl(*args, node=node)
+
+    register_op(name, infer=t.infer, np_impl=_np, torch_impl=_torch, flops=t.flops)
+
+
+_alias("nn.matmul", "nn.batch_matmul")
 
 
 @infer_rule("nn.bias_add")
@@ -375,6 +496,73 @@ def _softmax_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
     return torch.softmax(x.to(torch.float32), dim=axis).to(x.dtype)
 
 
+@infer_rule("nn.layer_norm")
+def _ln_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
+    return ins[0]
+
+
+@np_impl("nn.layer_norm")
+def _ln_np(data, gamma, beta, *, node: Node):
+    axis = int(node.attrs.get("axis", -1))
+    eps = float(node.attrs.get("epsilon", 1e-5))
+    x = data.astype(np.float32)
+    mu = x.mean(axis=axis, keepdims=True)
+    var = ((x - mu) ** 2).mean(axis=axis, keepdims=True)
+    shape = [1] * data.ndim
+    shape[axis] = -1
+    out = (x - mu) / np.sqrt(var + eps) * gamma.reshape(shape) + beta.reshape(shape)
+    return out.astype(data.dtype)
+
+
+@torch_impl("nn.layer_norm")
+def _ln_torch(data, gamma, beta, *, node: Node):
+    axis = int(node.attrs.get("axis", -1))
+    eps = float(np.float32(node.attrs.get("epsilon", 1e-5)))
+    x = data.to(torch.float32)
+    mu = x.mean(dim=axis, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=axis, keepdim=True)
+    shape = [1] * data.ndim
+    shape[axis] = -1
+    out = (x - mu) / torch.sqrt(var + eps) * gamma.reshape(shape) + beta.reshape(shape)
+    return out.to(data.dtype)
+
+
+register_op("tanh", infer=_same_rel)
+register_op("nn.gelu", infer=_same_rel)
+
+
+@np_impl("tanh")
+def _tanh_np(x, *, node: Node):
+    return np.tanh(x.astype(np.float32)).astype(x.dtype)
+
+
+@torch_impl("tanh")
+def _tanh_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return torch.tanh(x.to(torch.float32)).to(x.dtype)
+
+
+@np_impl("nn.gelu")
+def _gelu_np(x, *, node: Node):
+    x32 = x.astype(np.float32)
+    if node.attrs.get("approximate", "none") == "tanh":
+        c = np.float32(math.sqrt(2.0 / math.pi))
+        out = 0.5 * x32 * (1.0 + np.tanh(c * (x32 + 0.044715 * x32**3)))
+    else:
+        try:
+            from scipy.special import erf as _erf  # type: ignore
+
+            out = 0.5 * x32 * (1.0 + _erf(x32 / np.float32(math.sqrt(2.0))))
+        except ImportError:
+            out = 0.5 * x32 * (1.0 + np.vectorize(math.erf)(x32.astype(np.float64)).astype(np.float32))
+    return out.astype(x.dtype)
+
+
+@torch_impl("nn.gelu")
+def _gelu_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    approx = "tanh" if node.attrs.get("approximate", "none") == "tanh" else "none"
+    return torch.nn.functional.gelu(x.to(torch.float32), approximate=approx).to(x.dtype)
+
+
 @infer_rule("clip")
 def _clip_rel(node: Node, ins):
     return ins[0]
@@ -407,13 +595,25 @@ def _broadcast_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
     return broadcast_shapes(a, b), dt.promote(adt, bdt)
 
 
-@np_impl("add")
-def _add_np(a, b, *, node: Node):
-    out_dt = np.dtype(dt.promote(str(a.dtype), str(b.dtype)))
-    return np.add(a.astype(out_dt), b.astype(out_dt))
+# the two elementwise binaries of the JAX package's _BINOPS table that the
+# port's graphs hold; numpy's and torch's integer add/multiply both wrap
+_BINOPS = {
+    "add": (np.add, torch.add),
+    "multiply": (np.multiply, torch.mul),
+}
 
+for _n, (_f, _tf) in _BINOPS.items():
+    def _mkb(f, tf):
+        def np_fn(a, b, *, node: Node):
+            out_dt = np.dtype(dt.promote(str(a.dtype), str(b.dtype)))
+            return f(a.astype(out_dt), b.astype(out_dt))
 
-register_op("add", infer=_broadcast_rel)
+        def torch_fn(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
+            out_dt = torch_dtype(dt.promote(_dtype_name(a), _dtype_name(b)))
+            return tf(a.to(out_dt), b.to(out_dt))
+        return np_fn, torch_fn
+    _np_fn, _torch_fn = _mkb(_f, _tf)
+    register_op(_n, infer=_broadcast_rel, np_impl=_np_fn, torch_impl=_torch_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -455,3 +655,165 @@ def _bflat_np(a, *, node: Node):
 @torch_impl("nn.batch_flatten")
 def _bflat_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
     return a.reshape(a.shape[0], -1)
+
+
+# ---------------------------------------------------------------------------
+# shape ops of the transformer graphs: reshape, concatenate, strided_slice,
+# take, broadcast_to
+# ---------------------------------------------------------------------------
+
+@infer_rule("reshape")
+def _reshape_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    newshape = list(node.attrs["newshape"])
+    total = int(np.prod(a))
+    if -1 in newshape:
+        known = int(np.prod([s for s in newshape if s != -1]))
+        newshape[newshape.index(-1)] = total // max(known, 1)
+    assert int(np.prod(newshape)) == total, f"reshape {a} -> {newshape}"
+    return tuple(int(s) for s in newshape), adt
+
+
+@np_impl("reshape")
+def _reshape_np(a, *, node: Node):
+    newshape = tuple(int(s) for s in node.attrs["newshape"])
+    return a.reshape(newshape)
+
+
+@torch_impl("reshape")
+def _reshape_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    shape, _ = _reshape_rel(node, [(tuple(a.shape), _dtype_name(a))])
+    return a.reshape(shape)
+
+
+@infer_rule("concatenate")
+def _concat_rel(node: Node, ins):
+    axis = int(node.attrs.get("axis", 0))
+    shapes = [s for s, _ in ins]
+    axis = axis % len(shapes[0])
+    out = list(shapes[0])
+    out[axis] = sum(s[axis] for s in shapes)
+    dtype = ins[0][1]
+    for _, d in ins[1:]:
+        dtype = dt.promote(dtype, d)
+    return tuple(out), dtype
+
+
+@np_impl("concatenate")
+def _concat_np(*args, node: Node):
+    return np.concatenate(args, axis=int(node.attrs.get("axis", 0)))
+
+
+@torch_impl("concatenate")
+def _concat_torch(*args: torch.Tensor, node: Node) -> torch.Tensor:
+    dtype = _dtype_name(args[0])
+    for a in args[1:]:
+        dtype = dt.promote(dtype, _dtype_name(a))
+    return torch.cat([a.to(torch_dtype(dtype)) for a in args], dim=int(node.attrs.get("axis", 0)))
+
+
+def _slices(node: Node, ndim: int) -> list[slice]:
+    """The python slice of each axis of a strided_slice."""
+    begin = list(node.attrs["begin"])
+    end = list(node.attrs["end"])
+    strides = list(node.attrs.get("strides") or [1] * len(begin))
+    axes = node.attrs.get("axes")
+    idx = [slice(None)] * ndim
+    idx_axes = axes if axes is not None else range(len(begin))
+    for k, ax in enumerate(idx_axes):
+        e = end[k]
+        idx[ax] = slice(begin[k], None if e is None else e, strides[k])
+    return idx
+
+
+@infer_rule("strided_slice")
+def _sslice_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    begin = list(node.attrs["begin"])
+    end = list(node.attrs["end"])
+    strides = list(node.attrs.get("strides") or [1] * len(begin))
+    axes = node.attrs.get("axes")
+    out = list(a)
+    idx_axes = axes if axes is not None else range(len(begin))
+    for k, ax in enumerate(idx_axes):
+        b, e, s = begin[k], end[k], strides[k]
+        dim = a[ax]
+        out[ax] = len(range(*slice(b, e, s).indices(dim)))
+    return tuple(out), adt
+
+
+@np_impl("strided_slice")
+def _sslice_np(a, *, node: Node):
+    return a[tuple(_slices(node, a.ndim))]
+
+
+@torch_impl("strided_slice")
+def _sslice_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    # torch slices take positive steps only: a negative step gathers the
+    # indices numpy's slice would visit
+    for ax, s in enumerate(_slices(node, a.ndim)):
+        if s.step is not None and s.step < 0:
+            keep = torch.arange(*s.indices(a.shape[ax]), device=a.device)
+            a = a.index_select(ax, keep)
+        else:
+            a = a[(slice(None),) * ax + (s,)]
+    return a
+
+
+@infer_rule("take")
+def _take_rel(node: Node, ins):
+    (a, adt), (i, _) = ins[0], ins[1]
+    axis = node.attrs.get("axis")
+    if axis is None:
+        return tuple(i), adt
+    axis = int(axis) % len(a)
+    return tuple(a[:axis]) + tuple(i) + tuple(a[axis + 1 :]), adt
+
+
+@np_impl("take")
+def _take_np(a, indices, *, node: Node):
+    axis = node.attrs.get("axis")
+    mode = node.attrs.get("mode", "clip")
+    if mode == "clip":
+        hi = (a.size if axis is None else a.shape[int(axis)]) - 1
+        indices = np.clip(indices, 0, hi)
+    elif mode == "wrap":
+        n = a.size if axis is None else a.shape[int(axis)]
+        indices = indices % n
+    return np.take(a, indices, axis=None if axis is None else int(axis))
+
+
+@torch_impl("take")
+def _take_torch(a: torch.Tensor, indices: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """Row gather; ids are clamped (clip, the default) or wrapped before the
+    gather, as the oracle does: on CUDA an id out of range would assert on
+    the device.  The JAX package's one-hot matmul for embeddings is a TPU
+    tactic and is not ported."""
+    axis = node.attrs.get("axis")
+    mode = node.attrs.get("mode", "clip")
+    src = a.reshape(-1) if axis is None else a
+    ax = 0 if axis is None else int(axis) % a.ndim
+    n = src.shape[ax]
+    idx = indices.to(torch.int64)
+    if mode == "clip":
+        idx = idx.clamp(0, n - 1)
+    elif mode == "wrap":
+        idx = idx.remainder(n)
+    out = src.index_select(ax, idx.reshape(-1))
+    return out.reshape(src.shape[:ax] + indices.shape + src.shape[ax + 1:])
+
+
+@infer_rule("broadcast_to")
+def _bto_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    return tuple(int(s) for s in node.attrs["shape"]), adt
+
+
+@np_impl("broadcast_to")
+def _bto_np(a, *, node: Node):
+    return np.broadcast_to(a, tuple(int(s) for s in node.attrs["shape"])).copy()
+
+
+@torch_impl("broadcast_to")
+def _bto_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return a.expand(tuple(int(s) for s in node.attrs["shape"])).contiguous()

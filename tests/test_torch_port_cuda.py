@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each equals its plain PyTorch version
 (==) at main-path shapes of int8 ResNet-50 (b8 fused, b1 unfused for K4) and
 MobileNetV2 (K5: b8 fused, b1 unfused) and at ragged shapes, on the same
-inputs; the executors and the trace emitter on the card equal the CPU path.
+inputs; K6 (float attention) is within rtol 2e-5, atol 2e-6 of its plain
+version (tests/test_flash_attention.py's tolerance); the executors and the
+trace emitter on the card equal the CPU path.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs where they are not
@@ -16,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from tachikoma_tpu_torch.ir.transforms import fuse_attention
+from tachikoma_tpu_torch.models.transformer import bert, gpt2, vit
 from tachikoma_tpu_torch.models.vision import mobilenet_v2, resnet
 from tachikoma_tpu_torch.ops.kernels import _lib
 from tachikoma_tpu_torch.ops.kernels.conv import (qconv2d_flat, qconv_raw, qconv_raw_plain,
@@ -23,6 +27,7 @@ from tachikoma_tpu_torch.ops.kernels.conv import (qconv2d_flat, qconv_raw, qconv
                                                   qconv_rq_res_plain)
 from tachikoma_tpu_torch.ops.kernels.depthwise import (qdwconv_raw, qdwconv_raw_plain,
                                                        qdwconv_rq, qdwconv_rq_plain)
+from tachikoma_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
 from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qgemm_raw, qgemm_raw_plain, qgemm_rq,
                                                          qgemm_rq_plain)
 from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
@@ -297,3 +302,96 @@ def test_packed_fetch_and_trace_on_card_equal_the_cpu(cuda, r18_unfused, tmp_pat
             np.testing.assert_allclose(a.output.to_array(), b.output.to_array(),
                                        rtol=1e-5, atol=1e-6)
     assert len(card) == 93
+
+
+FA_RTOL, FA_ATOL = 2e-5, 2e-6
+FA_CASES = [
+    # (B, H, S, D, causal)
+    (2, 2, 128, 64, False),        # tests/test_flash_attention.py's four shapes
+    (1, 3, 256, 64, True),
+    (2, 2, 200, 128, False),
+    (1, 2, 130, 64, True),
+    (2, 3, 1, 64, False),          # S on either side of one 64-key tile
+    (2, 3, 1, 64, True),
+    (1, 2, 65, 64, False),
+    (1, 2, 65, 64, True),
+    (1, 4, 96, 32, False),         # D = 32, 64, 128 and ragged D
+    (1, 4, 96, 32, True),
+    (1, 2, 70, 40, True),
+    (1, 2, 33, 100, False),
+    (2, 2, 77, 128, True),         # causal, S not a multiple of the tile
+    (4, 12, 128, 64, False),       # BERT-base b4 s128
+    (1, 12, 128, 64, True),        # GPT-2 small b1 s128
+    (8, 12, 197, 64, False),       # ViT-B/16 b8 224^2
+]
+
+
+def _f32(rng, shape, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_CASES)
+def test_k6_flash_attn_on_card(rng, cuda, case):
+    b, h, s, d, causal = case
+    q, k, v = (_f32(rng, (b, h, s, d), cuda) for _ in range(3))
+    before = _lib.LAUNCHES["flash_attn"]
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["flash_attn"] == before + 1  # a CUDA tensor launched K6
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=FA_RTOL, atol=FA_ATOL)
+
+
+@pytest.mark.cuda
+def test_k6_on_permuted_views_and_scale(rng, cuda):
+    """The graph hands K6 head-split transposes, (B, S, H, D) viewed as
+    (B, H, S, D); the wrapper copies them and the result is the same."""
+    q, k, v = (_f32(rng, (2, 50, 3, 64), cuda).permute(0, 2, 1, 3) for _ in range(3))
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, scale=0.3, causal=True)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), scale=0.3,
+                                 causal=True)
+    torch.testing.assert_close(got, want, rtol=FA_RTOL, atol=FA_ATOL)
+
+
+@pytest.mark.cuda
+def test_k6_refuses_what_it_does_not_take(rng, cuda):
+    q = _f32(rng, (1, 2, 8, 129), cuda)
+    with pytest.raises(ValueError, match="above"):
+        flash_attention(q, q, q)
+    q = _f32(rng, (1, 2, 8, 64), cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :, :4], q)
+
+
+def _small_transformer(name):
+    if name == "bert":
+        return bert(batch_size=2, seq_len=32, hidden=64, layers=2, heads=4, ffn_dim=128,
+                    vocab=100, seed=0), np.random.default_rng(1).integers(0, 100, (2, 32))
+    if name == "gpt2":
+        return gpt2(batch_size=1, seq_len=40, hidden=64, layers=2, heads=4, ffn_dim=128,
+                    vocab=80, seed=1), np.random.default_rng(2).integers(0, 80, (1, 40))
+    return vit(batch_size=2, image_size=32, patch=8, hidden=64, layers=2, heads=4, ffn_dim=128,
+               num_classes=10, seed=2), \
+        np.random.default_rng(3).standard_normal((2, 32, 32, 3)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bert", "gpt2", "vit"])
+def test_fused_transformer_on_card_equals_cpu(cuda, name):
+    torch.backends.cudnn.allow_tf32 = False
+    g, x = _small_transformer(name)
+    fused = fuse_attention(g)
+    names = computational_nodes(fused)
+    before = _lib.LAUNCHES["flash_attn"]
+    got = TorchExecutor(fused, capture=names, device="cuda").run(x)
+    assert _lib.LAUNCHES["flash_attn"] == before + 2
+    want = TorchExecutor(fused, capture=names, device="cpu").run(x)
+    for nm, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, nm
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=nm)

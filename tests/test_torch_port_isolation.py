@@ -36,7 +36,10 @@ def test_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
     assert len(modules) > 15
     assert {"tachikoma_tpu_torch.ops.kernels.depthwise",
-            "tachikoma_tpu_torch.runtime.artifact"} <= set(modules)
+            "tachikoma_tpu_torch.runtime.artifact",
+            "tachikoma_tpu_torch.ops.kernels.flash_attention",
+            "tachikoma_tpu_torch.ops.attention",
+            "tachikoma_tpu_torch.models.transformer"} <= set(modules)
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],

@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: int8 ResNet-50 and
 MobileNetV2, each b8 224^2 fused (the run path) and b1 224^2 unfused (the
-trace path), the trained MobileNetV2 fixture loaded from its .tkmod, and the
+trace path), the trained MobileNetV2 fixture loaded from its .tkmod, the
 float transformers BERT-base, GPT-2 small and ViT-B/16 through
-fuse_attention and K6.
+fuse_attention and K6, and the tuning path (tune, the four conv layouts
+K7-K10, dispatch from a tuning database) on ResNet-50.
 
     python3 chip_smoke.py
 
@@ -60,17 +61,34 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      device="cuda"), K6 read at 12 per request, the logits and every
      tk.attention output held against the port's CPU path at rtol 1e-4,
      atol 1e-4, median latency; (d) the device's busy share.  Phase 12 also
-     runs K6 at tests/test_flash_attention.py's four shapes.
+     runs K6 at tests/test_flash_attention.py's four shapes;
+ 15. the tuning path, on phase 3's ResNet-50 b8 224^2: (a) the quantized
+     graph written under TMPDIR and `tachikoma_tpu_torch.cli tune --db
+     --budget 64` run on it (every trial's output == its plain version before
+     it is timed; the only failures allowed are the library route's refusals),
+     per-task trials and bests printed; (b) with a database forcing each
+     layout at 64 x 64 on the three 3x3 s2 convs, one forward recorded and
+     K7-K10 (qconv_rq_t/_s/_w/_r) held == plain at its three calls, timed
+     beside their bound, the plain version and cuDNN's int8 conv
+     (quantized::conv2d, channels-last), then the same at a chain stage
+     (56^2 c64 3x3 s1) beside K2; (c) the forward under the tuned database
+     (every kernel call of one forward == plain, then 10 counted requests)
+     and under each forced layout (3 counted requests, the layout launched
+     3 times per forward), every integer node == phase 5's CPU path, and the
+     median latency of 10 requests without and with the tuned database, in
+     turns.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
 K5 per MobileNetV2 forward (b8 fused for qdwconv_rq, b1 unfused for
-qdwconv_raw), those of K6 (flash_attn) per BERT-base b4 s128 forward;
-`launches` sums each kernel's launches over the paths' timed runs (phases 5,
-8, 9, 10, 11 and 12c-14c), each counted from 0 just before its run;
-max_abs_err is the largest over every check.  TF32 is off for matmuls and
-cuDNN (the float path's products are float32).  The line before the last is one JSON object {"kernels": [...]}; the last line
-is {"ok": true, "device": {...}}.
+qdwconv_raw), those of K6 (flash_attn) per BERT-base b4 s128 forward, those
+of K7-K10 per ResNet-50 b8 forward with the layout forced (its three 3x3 s2
+calls, the wrapper's operand build included); `launches` sums each kernel's
+launches over the paths' timed runs (phases 5, 8, 9, 10, 11, 12c-14c and
+15c), each counted from 0 just before its run; max_abs_err is the largest
+over every check.  TF32 is off for matmuls and cuDNN (the float path's
+products are float32).  The line before the last is one JSON object
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -122,7 +140,21 @@ KERNELS = {
                     "tachikoma_tpu/ops/jax_ops.py:121"),
     "flash_attn": ("tachikoma_tpu_torch/csrc/flash_attn.cu",
                    "tachikoma_tpu/ops/pallas/flash_attention.py:33"),
+    "qconv_rq_t": ("tachikoma_tpu_torch/csrc/qconv_layouts.cu",
+                   "tachikoma_tpu/ops/pallas/conv_flat.py:278"),
+    "qconv_rq_s": ("tachikoma_tpu_torch/csrc/qconv_layouts.cu",
+                   "tachikoma_tpu/ops/pallas/conv_flat.py:133"),
+    "qconv_rq_w": ("tachikoma_tpu_torch/csrc/qconv_layouts.cu",
+                   "tachikoma_tpu/ops/pallas/conv_flat.py:182"),
+    "qconv_rq_r": ("tachikoma_tpu_torch/csrc/qconv_layouts.cu",
+                   "tachikoma_tpu/ops/pallas/conv_flat.py:224"),
 }
+LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_s", "qconv_rq_w", "qconv_rq_r")
+TUNE_BUDGET = 64
+FORCED_BLOCKS = [64, 64, 64]      # the tile of the forced-layout databases (phase 15)
+FORCED_REQUESTS = 3
+TUNED_REQUESTS = 10               # pairs of untuned and tuned requests, in turns
+CHAIN_STAGE = ((8, 56, 56, 64), (3, 3, 64, 64), (1, 1), (1, 1, 1, 1))  # 56^2 c64 3x3 s1
 RUN_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res")
 TRACE_KERNELS = ("qgemm_raw", "qconv_raw")
 MBV2_RUN_KERNELS = ("qdwconv_rq", "qgemm_rq", "qconv_rq")
@@ -142,27 +174,13 @@ def phase(title):
 # timing
 # ---------------------------------------------------------------------------
 
-def graph_ms(fn, reps=20, replays=3) -> float:
-    """Device time of one fn() call: `reps` calls captured in a CUDA graph,
-    replayed, timed with CUDA events (no host time between launches)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        g.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
+def graph_ms(fn) -> float:
+    """Device time of one fn() call: 20 calls captured in a CUDA graph,
+    replayed 3 times, timed with CUDA events (no host time between launches;
+    the tuner's timer, tachikoma_tpu_torch/utils/timing.py)."""
+    from tachikoma_tpu_torch.utils.timing import call_seconds
+
+    return call_seconds(fn, "cuda") * 1e3
 
 
 def eager_ms(fn, reps=3) -> float:
@@ -189,14 +207,14 @@ def recording(calls: list):
     from tachikoma_tpu_torch.ops.kernels import conv, matmul_int8
 
     saved = []
-    for mod, attr, name in ((matmul_int8, "qgemm_rq", "qgemm_rq"), (conv, "qgemm_rq", "qgemm_rq"),
-                            (conv, "qconv_rq", "qconv_rq"),
+    for mod, attr, name in ((matmul_int8, "qgemm_rq", "qgemm_rq"), (conv, "qconv_rq", "qconv_rq"),
                             (conv, "qconv_rq_res", "qconv_rq_res"),
                             (matmul_int8, "qgemm_raw", "qgemm_raw"),
                             (conv, "qgemm_raw", "qgemm_raw"), (conv, "qconv_raw", "qconv_raw"),
                             (conv, "qdwconv_rq", "qdwconv_rq"),
                             (conv, "qdwconv_raw", "qdwconv_raw"),
-                            (attention, "flash_attention", "flash_attn")):
+                            (attention, "flash_attention", "flash_attn"),
+                            *((conv, name, name) for name in LAYOUT_KERNELS)):
         fn = getattr(mod, attr)
 
         def rec(*a, _fn=fn, _name=name, **k):
@@ -269,19 +287,25 @@ def library_call(name, a, k):
         return lambda: x16 @ w16
     pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
     assert (pt, pl) == (pb, pr), "library conv takes symmetric padding"
+    stride = tuple(k.get("strides", (1, 1)))
+    if name in LAYOUT_KERNELS:
+        # cuDNN's int8 conv (quantized::conv2d on the card) on the same int8
+        # tensors, channels-last, per-tensor scales, cuDNN's own requantize
+        qx = torch._make_per_tensor_quantized_tensor(x, 1.0, 0).permute(0, 3, 1, 2)
+        qw = torch._make_per_tensor_quantized_tensor(w.permute(3, 2, 0, 1).contiguous(), 1.0, 0)
+        packed = torch.ops.quantized.conv2d_prepack(qw, None, list(stride), [pt, pl], [1, 1], 1)
+        return lambda: torch.ops.quantized.conv2d.new(qx, packed, 64.0, 0)
     x16 = x.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
     w16 = w.permute(3, 2, 0, 1).half().contiguous(memory_format=torch.channels_last)
-    stride = tuple(k.get("strides", (1, 1)))
     groups = x.shape[3] if name.startswith("qdwconv") else 1
     return lambda: torch.nn.functional.conv2d(x16, w16, stride=stride, padding=(pt, pl),
                                               groups=groups)
 
 
-def check_kernels(calls: list, names) -> dict:
-    """Hold every recorded call of the kernels `names` against its plain
-    version (== for the integer kernels, allclose for K6), time it, and sum
-    per kernel."""
-    from tachikoma_tpu_torch.ops.kernels import conv, depthwise, flash_attention, matmul_int8
+def kernel_impls() -> dict:
+    """Kernel name -> (wrapper, plain version)."""
+    from tachikoma_tpu_torch.ops.kernels import (conv, conv_layouts, depthwise, flash_attention,
+                                                 matmul_int8)
 
     impl = {"qgemm_rq": (matmul_int8.qgemm_rq, matmul_int8.qgemm_rq_plain),
             "qconv_rq": (conv.qconv_rq, conv.qconv_rq_plain),
@@ -292,33 +316,54 @@ def check_kernels(calls: list, names) -> dict:
             "qdwconv_raw": (depthwise.qdwconv_raw, depthwise.qdwconv_raw_plain),
             "flash_attn": (flash_attention.flash_attention,
                            flash_attention.flash_attention_plain)}
+    for name in LAYOUT_KERNELS:
+        impl[name] = (getattr(conv_layouts, name), getattr(conv_layouts, f"{name}_plain"))
+    return impl
+
+
+def hold_call(name, a, k, impl) -> float:
+    """Run one recorded call and its plain version on the same inputs, hold
+    them == (allclose for K6); returns the largest |err|."""
+    fn, plain = impl[name]
+    got, want = fn(*a, **k), plain(*a, **k)
+    torch.cuda.synchronize()
+    if name == "flash_attn":
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=FA_RTOL, atol=FA_ATOL)
+        return err
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+    assert torch.equal(got, want), f"{name} != plain on {work(name, a, k)[2]}: max |err| {err}"
+    return err
+
+
+def check_call(name, a, k, impl) -> dict:
+    """One call held against its plain version, then timed beside its bound,
+    the plain version and the library call."""
+    fn, plain = impl[name]
+    if name == "flash_attn":
+        a = tuple(t.contiguous() for t in a)
+    err = hold_call(name, a, k, impl)
+    nbytes, ops, label = work(name, a, k)
+    rate = FP32_OPS_PER_S if name == "flash_attn" else INT8_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    lib = library_call(name, a, k)
+    return dict(kernel=name, shape=label, bytes=nbytes, ops=ops,
+                ms=graph_ms(lambda: fn(*a, **k)),
+                plain_ms=eager_ms(lambda: plain(*a, **k)),
+                library_ms=graph_ms(lib) if lib is not None else None,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=err)
+
+
+def check_kernels(calls: list, names) -> dict:
+    """Hold every recorded call of the kernels `names` against its plain
+    version (== for the integer kernels, allclose for K6), time it, and sum
+    per kernel."""
+    impl = kernel_impls()
     per_call, totals = [], {}
     for name, a, k in calls:
-        fn, plain = impl[name]
-        if name == "flash_attn":
-            a = tuple(t.contiguous() for t in a)
-        got, want = fn(*a, **k), plain(*a, **k)
-        torch.cuda.synchronize()
-        if name == "flash_attn":
-            err = float((got - want).abs().max())
-            torch.testing.assert_close(got, want, rtol=FA_RTOL, atol=FA_ATOL)
-        else:
-            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
-                if got.numel() else 0
-            assert torch.equal(got, want), \
-                f"{name} != plain on {work(name, a, k)[2]}: max |err| {err}"
-        nbytes, ops, label = work(name, a, k)
-        rate = FP32_OPS_PER_S if name == "flash_attn" else INT8_OPS_PER_S
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-        lib = library_call(name, a, k)
-        rec = dict(kernel=name, shape=label, bytes=nbytes, ops=ops,
-                   ms=graph_ms(lambda: fn(*a, **k)),
-                   plain_ms=eager_ms(lambda: plain(*a, **k)),
-                   library_ms=graph_ms(lib) if lib is not None else None,
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=err)
-        per_call.append(rec)
+        per_call.append(check_call(name, a, k, impl))
 
     def fmt(v, width, digits):
         return f"{v:{width}.{digits}f}" if v is not None else f"{'-':>{width}s}"
@@ -443,12 +488,14 @@ def read_launches(names, what: str) -> dict:
     return launches
 
 
-def run_path(labels, model: str, build, kernels) -> tuple[dict, dict]:
+def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
     """The run path of one model, four phases titled by `labels` (3-6 for
     ResNet-50; 9a-9d for MobileNetV2): build, quantize and fuse on the host, the
     kernels at the path's shapes (== plain, timed), REQUESTS requests on the
     card, the integer nodes == the CPU plain path, the device's busy share.
-    Returns the kernels' per-forward totals and their launches."""
+    Returns the kernels' per-forward totals, their launches, and the path's
+    state for phase 15 (graphs, executor, requests, the CPU outputs of the
+    first request, the median latency)."""
     from tachikoma_tpu_torch.quantize.quantizer import quantize
     from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
     from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
@@ -508,7 +555,9 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict]:
 
     phase(f"{labels[3]} {model}: device time of the main path (torch.profiler, 3 requests)")
     profile_requests(ex, requests[:3], med)
-    return totals, launches
+    state = dict(quantized=q, fused=fused, names=names, ex=ex, requests=requests, plain=plain,
+                 median_ms=med)
+    return totals, launches, state
 
 
 def trace_path(labels, model: str, build, kernels) -> tuple[dict, dict]:
@@ -744,6 +793,175 @@ def k6_reference_shapes() -> float:
 
 
 # ---------------------------------------------------------------------------
+# the tuning path (phase 15)
+# ---------------------------------------------------------------------------
+
+def s2_workloads(fused) -> list[str]:
+    """The tuning-database keys of the fused graph's 3x3 stride-2 convs."""
+    from tachikoma_tpu_torch.ops.kernels.conv import flat_conv_workload
+    from tachikoma_tpu_torch.ops.nn import _pair
+
+    keys = []
+    for n in fused.nodes:
+        if n.op == "tk.conv2d_rq":
+            x, w = fused[n.inputs[0]].shape, fused[n.inputs[1]].shape
+            strides = _pair(tuple(n.attrs.get("strides", (1, 1))))
+            if tuple(w[:2]) == (3, 3) and strides == (2, 2):
+                keys.append(flat_conv_workload(*x, w[3], 3, 3, strides, True))
+    return keys
+
+
+def forced_database(workloads, layout: str):
+    """A database whose only records force `layout` at FORCED_BLOCKS."""
+    from tachikoma_tpu_torch.tune.database import TuneDatabase, TuneRecord
+
+    db = TuneDatabase()
+    for wl in workloads:
+        db.add(TuneRecord(wl, {"blocks": FORCED_BLOCKS, "layout": layout[-1]}, 0.0))
+    return db
+
+
+def counted_requests(ex, requests, kernels) -> tuple[dict, list]:
+    """Run `requests` with the launch counts of `kernels` set to 0 just before
+    and read just after; returns the counts and the first request's outputs."""
+    from tachikoma_tpu_torch.ops.kernels import _lib
+
+    reset(kernels)
+    first = None
+    for x in requests:
+        outs = ex.run_device(x)
+        torch.cuda.synchronize()
+        if first is None:
+            first = [o.cpu().numpy() for o in outs]
+    return {name: _lib.LAUNCHES[name] for name in kernels}, first
+
+
+def tune_path(state) -> tuple[dict, dict]:
+    """Phases 15a-15c: tune ResNet-50 b8 on the card through the CLI, K7-K10
+    at the forward's shapes, the forward under the tuned database and under a
+    database that forces each layout.  Returns K7-K10's per-forward totals and
+    the launches of every kernel in the counted runs."""
+    from tachikoma_tpu_torch import cli
+    from tachikoma_tpu_torch.ops.kernels.conv_layouts import flat_operands
+    from tachikoma_tpu_torch.tune.database import (NO_ERROR, RUNTIME_ERROR, TuneDatabase,
+                                                   apply_history_best)
+
+    fused, names, ex = state["fused"], state["names"], state["ex"]
+    requests, plain = state["requests"], state["plain"]
+    impl = kernel_impls()
+    kernels = RUN_KERNELS + LAYOUT_KERNELS
+    wls = s2_workloads(fused)
+    assert len(wls) == 3, wls
+
+    phase(f"15a. tune: int8 ResNet-50 b{BATCH} {IMAGE}^2 fused, `tachikoma_tpu_torch.cli tune "
+          f"--budget {TUNE_BUDGET}` on the card")
+    tdir = tempfile.mkdtemp(prefix="tk_chip_smoke_tune_")
+    try:
+        gpath, db_path = os.path.join(tdir, "r50.json"), os.path.join(tdir, "h100.jsonl")
+        with open(gpath, "w") as f:
+            f.write(state["quantized"].to_json())
+        t0 = time.perf_counter()
+        cli.main(["tune", gpath, "--db", db_path, "--budget", str(TUNE_BUDGET)])
+        say(f"tune seconds {time.perf_counter() - t0:.1f} (host clock, task set-up included)")
+        db = TuneDatabase(db_path)
+    finally:
+        for p in os.listdir(tdir):
+            os.unlink(os.path.join(tdir, p))
+        os.rmdir(tdir)
+    assert len(db) == TUNE_BUDGET, len(db)
+    bad = [(r.workload, r.config, r.error_no, r.error_msg[-300:]) for r in db.records
+           if r.error_no != NO_ERROR
+           and not (r.error_no == RUNTIME_ERROR and r.config == {"impl": "xla"})]
+    assert not bad, bad
+    say(f"{'workload':66s} {'trials':>6s} {'failed':>6s}  best")
+    for wl in dict.fromkeys(r.workload for r in db.records):
+        recs = [r for r in db.records if r.workload == wl]
+        best = db.best(wl)
+        shown = (f"{best.config} {best.time_ms * 1e3:.2f} us, {best.meta.get('tops')} TOP/s"
+                 if best else "none")
+        say(f"{wl[:66]:66s} {len(recs):6d} {sum(r.error_no != NO_ERROR for r in recs):6d}  "
+            f"{shown}")
+
+    phase("15b. K7-K10 at the forward's three 3x3 s2 calls (each layout forced at "
+          f"{FORCED_BLOCKS}) and at a chain stage: == plain, time, bound, library")
+    totals, errs = {}, {}
+    for name in LAYOUT_KERNELS:
+        calls: list = []
+        with apply_history_best(forced_database(wls, name)), recording(calls):
+            ex.run_device(requests[0])
+        torch.cuda.synchronize()
+        calls = [c for c in calls if c[0] == name]
+        assert len(calls) == 3, (name, len(calls))
+        totals.update(check_kernels(calls, (name,)))
+        errs[name] = totals[name]["max_abs_err"]
+        glue = sum(graph_ms(lambda: flat_operands(a[0], a[1], name[-1], k["strides"],
+                                                  k["padding"], k["izp"])) for _, a, k in calls)
+        say(f"of which the wrapper's operand build (flat_operands: phase image, padding, weight "
+            f"layout) {glue:.4f} ms per forward")
+    shape, wshape, strides, padding = CHAIN_STAGE
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).cuda()
+    w = torch.from_numpy(rng.integers(-127, 128, wshape).astype(np.int8)).cuda()
+    bias = torch.from_numpy(rng.integers(-5000, 5000, wshape[3]).astype(np.int32)).cuda()
+    from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
+
+    mult, shift = plan_requantize(0.002 * (0.5 + rng.random(wshape[3])), 1.0)
+    args = (x, w, bias, channel_vector(mult, wshape[3], "cuda"),
+            channel_vector(shift, wshape[3], "cuda"))
+    kw = dict(strides=strides, padding=padding, blocks=tuple(FORCED_BLOCKS))
+    phase(f"15b. chain stage {shape} * {wshape} s1 at {FORCED_BLOCKS}: == plain, time, bound")
+    say(f"{'kernel':12s} {'ms':>9s} {'bound_ms':>9s} {'by':>10s} {'plain_ms':>9s} "
+        f"{'library_ms':>10s}  (library: fp16 cuDNN for K2, int8 cuDNN for K7-K10)")
+    for name in ("qconv_rq",) + LAYOUT_KERNELS:
+        r = check_call(name, args, kw, impl)
+        errs[name] = max(errs.get(name, 0), r["max_abs_err"])
+        say(f"{name:12s} {r['ms']:9.4f} {r['bound_ms']:9.4f} {r['bound_by']:>10s} "
+            f"{r['plain_ms']:9.3f} {r['library_ms']:10.4f}")
+
+    phase(f"15c. the forward under the tuned database, then with each layout forced on the "
+          f"three 3x3 s2 convs: every integer node == the CPU path")
+    launches = Counter()
+    with apply_history_best(db):
+        calls = []
+        with recording(calls):
+            ex.run_device(requests[0])
+        for name, a, k in calls:
+            if name in kernels:
+                hold_call(name, a, k, impl)
+        counts, first = counted_requests(ex, requests[:TUNED_REQUESTS], kernels)
+    n_int = hold_against_plain(names, first, plain, fused, SOFTMAX_RTOL, SOFTMAX_ATOL)
+    for name in RUN_KERNELS:
+        assert counts[name] > 0, f"the tuned forward launched {name} no time"
+    launches.update(counts)
+    say(f"tuned: {len(calls)} kernel calls of one forward == plain; {n_int} integer nodes == "
+        f"the CPU path; launches in {TUNED_REQUESTS} requests: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    for name in LAYOUT_KERNELS:
+        with apply_history_best(forced_database(wls, name)):
+            counts, first = counted_requests(ex, requests[:FORCED_REQUESTS], kernels)
+        hold_against_plain(names, first, plain, fused, SOFTMAX_RTOL, SOFTMAX_ATOL)
+        assert counts[name] == 3 * FORCED_REQUESTS, (name, counts)
+        launches.update(counts)
+        say(f"{name} forced: launches in {FORCED_REQUESTS} requests: "
+            + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+            + f"; {n_int} integer nodes == the CPU path")
+    lat = {"untuned": [], "tuned": []}
+    for x in requests[:TUNED_REQUESTS]:
+        for key in lat:
+            with apply_history_best(db) if key == "tuned" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                ex.run_device(x)
+                torch.cuda.synchronize()
+                lat[key].append((time.perf_counter() - t0) * 1e3)
+    for key, v in lat.items():
+        say(f"{key:8s} latency ms (b{BATCH}, {TUNED_REQUESTS} requests in turns): median "
+            f"{statistics.median(v):.3f}, all " + " ".join(f"{t:.3f}" for t in v))
+    for name in LAYOUT_KERNELS:
+        totals[name]["max_abs_err"] = errs[name]
+    return totals, dict(launches)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -757,6 +975,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.environ.pop("TK_TUNE_DB", None)  # every phase names its database, or none
 
     phase("1. device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -783,13 +1002,14 @@ def main() -> int:
     def mbv2(batch):
         return mobilenet_v2(batch_size=batch, image_size=IMAGE, seed=SEED)
 
-    totals, launches = run_path(("3.", "4.", "5.", "6."), "ResNet-50", r50, RUN_KERNELS)
+    totals, launches, r50_state = run_path(("3.", "4.", "5.", "6."), "ResNet-50", r50,
+                                           RUN_KERNELS)
     trace_totals, trace_launches = trace_path(("7.", "8."), "ResNet-50", r50, TRACE_KERNELS)
     totals.update(trace_totals)
     launches.update(trace_launches)
     errs = {k: t["max_abs_err"] for k, t in totals.items()}
     for path_totals, path_launches in (
-            run_path(("9a.", "9b.", "9c.", "9d."), "MobileNetV2", mbv2, MBV2_RUN_KERNELS),
+            run_path(("9a.", "9b.", "9c.", "9d."), "MobileNetV2", mbv2, MBV2_RUN_KERNELS)[:2],
             trace_path(("10a.", "10b."), "MobileNetV2", mbv2, MBV2_TRACE_KERNELS),
             ({}, fixture_path())):
         for name, t in path_totals.items():
@@ -815,6 +1035,11 @@ def main() -> int:
         errs["flash_attn"] = max(errs["flash_attn"], fa["max_abs_err"])
         if label == "12":
             errs["flash_attn"] = max(errs["flash_attn"], k6_reference_shapes())
+    tune_totals, tune_launches = tune_path(r50_state)
+    for name, t in tune_totals.items():
+        totals[name], errs[name] = t, t["max_abs_err"]
+    for name, n in tune_launches.items():
+        launches[name] = launches.get(name, 0) + n
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

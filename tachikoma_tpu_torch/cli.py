@@ -7,6 +7,8 @@
   trace     — emit a tachikoma-standard trace binary for given inputs
   verify    — CRC + semantic verification of a trace binary
   info      — show a graph (ops, shapes, hash)
+  tune      — measure tiles and layouts of a graph's kernels on the card, append
+              the records to a tuning database (--db, required)
 
 Usage: python -m tachikoma_tpu_torch.cli <subcommand> [args]
 
@@ -19,6 +21,12 @@ bert_base / gpt2 / vit_b16 / vit_l16.  A float transformer graph runs
 graph was written) but does not quantize yet.  Other zoo models, model file
 formats and the JAX package's other subcommands are not ported yet and exit
 with the ROADMAP item that ports them.
+
+Tuning: `tune g.json --db h100.jsonl [--budget N]` appends H100 records to
+the database; `run` (and every entry point) then dispatches each kernel call
+by the best record of the database `$TK_TUNE_DB` names, and `compile` bundles
+that file into the `.tkmod`.  The port has no packaged database and never
+reads the JAX package's TPU one.
 """
 
 from __future__ import annotations
@@ -39,7 +47,6 @@ NOT_PORTED = {
     "profile": "runtime/profiler.py, ROADMAP Queue 1 item 8",
     "evaluate": "quantize/evaluate.py and accuracy.py, ROADMAP Queue 1 item 11",
     "bench": "the port's benchmark, ROADMAP Queue 1 item 3",
-    "tune": "tune/, ROADMAP Queue 1 item 15",
 }
 
 
@@ -130,8 +137,8 @@ def cmd_quantize(args):
 
 
 def cmd_compile(args):
-    """Quantize (unless already integer) and bundle into a .tkmod artifact;
-    no tuning database goes in."""
+    """Quantize (unless already integer) and bundle into a .tkmod artifact,
+    with the port's default tuning database ($TK_TUNE_DB) when one is set."""
     from .runtime.artifact import save_artifact
 
     g = _model(args)
@@ -141,8 +148,10 @@ def cmd_compile(args):
         from .quantize.quantizer import quantize
 
         g = quantize(g, [_rand_inputs(g, seed=i) for i in range(args.calib_batches)], QConfig())
-    save_artifact(args.output, g, meta={"source": args.model})
-    print(f"wrote {args.output}: {len(g)} nodes, hash {g.structural_hash()[:16]}")
+    tune_db = os.environ.get("TK_TUNE_DB")
+    save_artifact(args.output, g, tune_db_path=tune_db, meta={"source": args.model})
+    print(f"wrote {args.output}: {len(g)} nodes, hash {g.structural_hash()[:16]}"
+          + (f", tuning database {tune_db}" if tune_db and os.path.exists(tune_db) else ""))
 
 
 def cmd_run(args):
@@ -212,6 +221,54 @@ def cmd_info(args):
         print(f"  {op:<24} {c}")
 
 
+def cmd_tune(args):
+    """Tune every GEMM and conv workload of the fused graph on `--device`;
+    the records append to `--db`.  With --budget, the cross-workload
+    scheduler spends that many trials by expected gain (tune/schedule.py);
+    without it, every workload's candidates are measured once."""
+    import json
+
+    from .ops.nn import _pad4, _pair
+    from .runtime.fuse import fuse_qnn
+    from .tune.database import TuneDatabase
+    from .tune.tuner import matmul_workload, tune_conv_flat, tune_matmul
+
+    if not args.db:
+        raise SystemExit("tune: --db is required (the port has no packaged database to "
+                         "append to)")
+    g = fuse_qnn(_load_graph(args.graph))
+    db = TuneDatabase(args.db)
+    if args.budget:
+        from .tune.schedule import graph_tasks, schedule_tune
+
+        rep = schedule_tune(graph_tasks(g, device=args.device), db, total_trials=args.budget,
+                            verbose=True)
+        print(json.dumps(rep, indent=1))
+        print(f"{len(db)} records in {db.path}")
+        return
+    done = set(db.workloads())
+    seen = set()
+    for n in g.nodes:
+        if n.op in ("tk.dense_rq", "qnn.dense"):
+            M = int(np.prod(g[n.inputs[0]].shape[:-1]))
+            K, N = (int(v) for v in g[n.inputs[1]].shape)
+            key = ("mm", M, K, N)
+            if key in seen or matmul_workload(M, K, N, True) in done:
+                continue
+            seen.add(key)
+            tune_matmul(M, K, N, db, fused=True, device=args.device)
+        elif n.op in ("tk.conv2d_rq", "qnn.conv2d"):
+            a = dict(n.attrs)
+            key = ("cv", tuple(g[n.inputs[0]].shape), tuple(g[n.inputs[1]].shape),
+                   _pair(tuple(a.get("strides", (1, 1)))), _pad4(a.get("padding", (0, 0, 0, 0))),
+                   int(a.get("groups", 1)))
+            if key in seen:
+                continue
+            seen.add(key)
+            tune_conv_flat(*key[1:], db, device=args.device)
+    print(f"{len(db)} records in {db.path}")
+
+
 def cmd_not_ported(args):
     raise SystemExit(f"{args.cmd}: not ported yet ({NOT_PORTED[args.cmd]})")
 
@@ -271,6 +328,14 @@ def main(argv=None):
     i = sub.add_parser("info", help="describe a graph")
     i.add_argument("graph")
     i.set_defaults(fn=cmd_info)
+
+    tu = sub.add_parser("tune", help="tune the kernels' tiles and layouts for a graph")
+    tu.add_argument("graph")
+    tu.add_argument("--db", help="tuning database .jsonl to append to (required)")
+    tu.add_argument("--budget", type=int, default=None,
+                    help="total trials, spent across workloads by expected gain")
+    tu.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    tu.set_defaults(fn=cmd_tune)
 
     for name, where in NOT_PORTED.items():
         n = sub.add_parser(name, help=f"not ported yet ({where})")

@@ -12,6 +12,11 @@ enum Param {
   P_ADD_TONEAREST,
   // K6 flash_attn: G = B*H, S, D, causal, and the bits of the float32 scale
   P_G, P_S, P_D, P_CAUSAL, P_SCALE_BITS,
+  // the block tile of K1-K3 and K7-K10 (0 means 64)
+  P_BM, P_BN,
+  // K7-K10's flat frame (qconv_layouts.cu): rows of the over-wide output,
+  // rows of the input frame, the frame's row width, K9's taps per pass
+  P_MO, P_MX, P_WP, P_GROUP,
   P_COUNT
 };
 

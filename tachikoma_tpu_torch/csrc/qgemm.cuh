@@ -15,12 +15,16 @@
 //   * RAW = true (K4): no requantize; the epilogue stores acc + bias[n] as
 //     int32 (wraparound) to an int32 output.
 //
-// Design, simple and right first: 64x64x64 block tiles, four warps of 32x32,
-// one shared-memory stage with the next tile prefetched into registers.  Rows
-// of shared memory are padded to 80 bytes, so fragment loads hit 32 distinct
-// banks.  Edges in M, N and K are masked, so any shape runs; 16-byte loads of
-// A need CIN (conv) or K (GEMM) % 16 == 0 and 4-byte loads of B need
-// N % 4 == 0, else the loaders fall back to bytes.
+// Design, simple and right first: BM x BN x 64 block tiles, one warp per
+// 32 x 32 output tile (four warps at 64 x 64, sixteen at 128 x 128), one
+// shared-memory stage with the next tile prefetched into registers.  The
+// tile is a template parameter: K1, K2 and K3 are built at BM, BN in
+// {64, 128} x {64, 128} (the tuner's config space, `blocks`), and take it
+// from the parameter array (P_BM, P_BN; 0 means 64); K4 is built at 64 x 64
+// only.  Rows of shared memory are padded to 80 bytes, so fragment loads hit
+// 32 distinct banks.  Edges in M, N and K are masked, so any shape runs;
+// 16-byte loads of A need CIN (conv) or K (GEMM) % 16 == 0 and 4-byte loads
+// of B need N % 4 == 0, else the loaders fall back to bytes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,9 +36,20 @@
 
 namespace tk {
 
-constexpr int BM = 64, BN = 64, BK = 64;
-constexpr int NTHREADS = 128;  // four warps, 2 x 2, each a 32 x 32 tile
+constexpr int BK = 64;
 constexpr int SROW = BK + 16;  // shared-memory row stride in bytes
+
+// A BM x BN block tile: one warp per 32 x 32 output tile, warps laid out
+// (BM / 32) along M by (BN / 32) along N.
+template <int BM_, int BN_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int WARPS_M = BM / 32;
+  static constexpr int NTHREADS = 32 * (BM / 32) * (BN / 32);
+  static constexpr int A_PER = BM * (BK / 16) / NTHREADS;       // 16-byte A chunks a thread
+  static constexpr int B_PER = (BK / 4) * (BN / 4) / NTHREADS;  // 4 x 4 B blocks a thread
+  static_assert(A_PER >= 1 && B_PER >= 1, "tile too small for its threads");
+};
 
 struct Geo {
   int n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, pt, pl;
@@ -110,24 +125,40 @@ __device__ __forceinline__ uint32_t b_word(const int8_t* __restrict__ w, int k, 
   return v;
 }
 
+// 4x4 byte transpose: word r holds k + r for columns n .. n + 3; the four
+// words stored from `dst` with stride `stride` give column n + c k .. k + 3.
+__device__ __forceinline__ void store_transposed(int8_t* dst, int stride, const uint32_t (&v)[4]) {
+  const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140);
+  const uint32_t t1 = __byte_perm(v[2], v[3], 0x5140);
+  const uint32_t t2 = __byte_perm(v[0], v[1], 0x7362);
+  const uint32_t t3 = __byte_perm(v[2], v[3], 0x7362);
+  *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t1, 0x5410);
+  *reinterpret_cast<uint32_t*>(dst + stride) = __byte_perm(t0, t1, 0x7632);
+  *reinterpret_cast<uint32_t*>(dst + 2 * stride) = __byte_perm(t2, t3, 0x5410);
+  *reinterpret_cast<uint32_t*>(dst + 3 * stride) = __byte_perm(t2, t3, 0x7632);
+}
+
 // `out` is int8 (M, N), or int32 (M, N) when RAW.
-template <bool IM2COL, bool RES, bool RAW>
-__global__ void __launch_bounds__(NTHREADS)
+template <bool IM2COL, bool RES, bool RAW, int BM, int BN>
+__global__ void __launch_bounds__(Tile<BM, BN>::NTHREADS)
     qgemm_rq_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     void* __restrict__ out, const int8_t* __restrict__ residual, Requant rq,
                     ResAdd ra, Geo g) {
+  using T = Tile<BM, BN>;
+  constexpr int NT = T::NTHREADS, A_PER = T::A_PER, B_PER = T::B_PER, NG = BN / 4;
   __shared__ __align__(16) int8_t As[BM * SROW];
   __shared__ __align__(16) int8_t Bs[BN * SROW];
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
 
-  // A loads: 16-byte chunk a_c of rows a_r and a_r + 32.
-  const int a_c = tid & 3, a_r = tid >> 2;
-  ARow rows[2];
+  // A loads: element e = tid + NT j is 16-byte chunk e & 3 of row e >> 2
+  // (at 64 x 64: chunk tid & 3 of rows tid >> 2 and tid >> 2 + 32).
+  const int a_c = tid & 3;
+  ARow rows[A_PER];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int m = m0 + a_r + 32 * j;
+  for (int j = 0; j < A_PER; ++j) {
+    const int m = m0 + ((tid + NT * j) >> 2);
     rows[j].valid = m < g.M;
     if (IM2COL) {
       const int mm = rows[j].valid ? m : 0;
@@ -142,43 +173,40 @@ __global__ void __launch_bounds__(NTHREADS)
       rows[j].iy0 = rows[j].ix0 = 0;
     }
   }
-  // B loads: 4 rows (k group b_kq + 8 j) x 4 columns (n group b_nq).
-  const int b_kq = tid & 7, b_nq = tid >> 3;
+  // B loads: element e = tid + NT j is the 4 x 4 block of k group
+  // (e & 7) + 8 ((e >> 3) / NG) and n group (e >> 3) % NG (at 64 x 64: k
+  // groups tid & 7 and tid & 7 + 8, n group tid >> 3).
+  int b_kq[B_PER], b_nq[B_PER];
+#pragma unroll
+  for (int j = 0; j < B_PER; ++j) {
+    const int e = tid + NT * j;
+    b_kq[j] = (e & 7) + 8 * ((e >> 3) / NG);
+    b_nq[j] = (e >> 3) % NG;
+  }
 
-  uint4 a_reg[2];
-  uint32_t b_reg[2][4];
+  uint4 a_reg[A_PER];
+  uint32_t b_reg[B_PER][4];
   auto load = [&](int k0) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) a_reg[j] = a_chunk<IM2COL>(x, rows[j], k0 + a_c * 16, g);
+    for (int j = 0; j < A_PER; ++j) a_reg[j] = a_chunk<IM2COL>(x, rows[j], k0 + a_c * 16, g);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < B_PER; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        b_reg[j][r] = b_word(w, k0 + (b_kq + 8 * j) * 4 + r, n0 + b_nq * 4, g);
+        b_reg[j][r] = b_word(w, k0 + b_kq[j] * 4 + r, n0 + b_nq[j] * 4, g);
   };
   auto store = [&]() {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      *reinterpret_cast<uint4*>(As + (a_r + 32 * j) * SROW + a_c * 16) = a_reg[j];
+    for (int j = 0; j < A_PER; ++j)
+      *reinterpret_cast<uint4*>(As + ((tid + NT * j) >> 2) * SROW + a_c * 16) = a_reg[j];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      // 4x4 byte transpose: word r holds k + r for columns n .. n + 3;
-      // column n + c gets k .. k + 3
-      const uint32_t t0 = __byte_perm(b_reg[j][0], b_reg[j][1], 0x5140);
-      const uint32_t t1 = __byte_perm(b_reg[j][2], b_reg[j][3], 0x5140);
-      const uint32_t t2 = __byte_perm(b_reg[j][0], b_reg[j][1], 0x7362);
-      const uint32_t t3 = __byte_perm(b_reg[j][2], b_reg[j][3], 0x7362);
-      int8_t* dst = Bs + (b_nq * 4) * SROW + (b_kq + 8 * j) * 4;
-      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t1, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + SROW) = __byte_perm(t0, t1, 0x7632);
-      *reinterpret_cast<uint32_t*>(dst + 2 * SROW) = __byte_perm(t2, t3, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + 3 * SROW) = __byte_perm(t2, t3, 0x7632);
-    }
+    for (int j = 0; j < B_PER; ++j)
+      store_transposed(Bs + (b_nq[j] * 4) * SROW + b_kq[j] * 4, SROW, b_reg[j]);
   };
 
   const int lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  const int wm = (warp % T::WARPS_M) * 32, wn = (warp / T::WARPS_M) * 32;
   int32_t acc[2][4][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -268,8 +296,17 @@ inline Geo make_geo(const int32_t* p) {
   return g;
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError().  With RAW,
-// `mult` and `shift` are not read.
+template <bool IM2COL, bool RES, bool RAW, int BM, int BN>
+void launch_tile(const int8_t* x, const int8_t* w, void* out, const int8_t* residual,
+                 const Requant& rq, const ResAdd& ra, const Geo& g, cudaStream_t stream) {
+  const dim3 grid((g.M + BM - 1) / BM, (g.cout + BN - 1) / BN);
+  qgemm_rq_kernel<IM2COL, RES, RAW, BM, BN>
+      <<<grid, Tile<BM, BN>::NTHREADS, 0, stream>>>(x, w, out, residual, rq, ra, g);
+}
+
+// Launches the kernel on `stream` at the tile (P_BM, P_BN) and returns
+// cudaGetLastError() (cudaErrorInvalidValue for a tile that is not built).
+// With RAW, `mult` and `shift` are not read.
 template <bool IM2COL, bool RES, bool RAW = false>
 int launch_qgemm_rq(const int8_t* x, const int8_t* w, void* out, const int8_t* residual,
                     const int32_t* bias, const int32_t* mult, const int32_t* shift,
@@ -292,10 +329,22 @@ int launch_qgemm_rq(const int8_t* x, const int8_t* w, void* out, const int8_t* r
     ra.lo = p[P_LO];
     ra.hi = p[P_HI];
   }
-  if (g.M > 0 && g.cout > 0) {
-    const dim3 grid((g.M + BM - 1) / BM, (g.cout + BN - 1) / BN);
-    qgemm_rq_kernel<IM2COL, RES, RAW>
-        <<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(x, w, out, residual, rq, ra, g);
+  const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
+  if constexpr (RAW) {
+    if (bm != 64 || bn != 64) return (int)cudaErrorInvalidValue;
+    launch_tile<IM2COL, RES, RAW, 64, 64>(x, w, out, residual, rq, ra, g, s);
+  } else if (bm == 64 && bn == 64) {
+    launch_tile<IM2COL, RES, RAW, 64, 64>(x, w, out, residual, rq, ra, g, s);
+  } else if (bm == 64 && bn == 128) {
+    launch_tile<IM2COL, RES, RAW, 64, 128>(x, w, out, residual, rq, ra, g, s);
+  } else if (bm == 128 && bn == 64) {
+    launch_tile<IM2COL, RES, RAW, 128, 64>(x, w, out, residual, rq, ra, g, s);
+  } else if (bm == 128 && bn == 128) {
+    launch_tile<IM2COL, RES, RAW, 128, 128>(x, w, out, residual, rq, ra, g, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -37,8 +37,36 @@ PARAMS = (
     "n", "h", "w", "cin", "kh", "kw", "cout", "oh", "ow", "sh", "sw", "pt", "pl",
     "izp", "rq_izp", "out_zp", "qmin", "qmax", "tonearest", "a_vec", "b_vec",
     "l_skip", "lm", "ls", "lzp", "r_skip", "rm", "rs", "rzp", "zo", "lo", "hi",
-    "add_tonearest", "g", "s", "d", "causal", "scale_bits",
+    "add_tonearest", "g", "s", "d", "causal", "scale_bits", "bm", "bn",
+    "mo", "mx", "wp", "group",
 )
+
+# The block tiles (BM, BN) that K1-K3 and K7-K10 are built at, with BK = 64:
+# the tuner's config space for `blocks` = [BM, BN, BK] (csrc/qgemm.cuh Tile).
+BK = 64
+TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
+DEFAULT_BLOCKS = (64, 64, BK)
+
+
+def compiled_blocks(blocks) -> bool:
+    """Whether `blocks` (BM, BN, BK) names a tile the kernels are built at."""
+    try:
+        bm, bn, bk = (int(b) for b in blocks)
+    except (TypeError, ValueError):
+        return False
+    return (bm, bn) in TILES and bk == BK
+
+
+def tile_params(blocks) -> dict:
+    """The kernel parameters (bm, bn) of `blocks`, or of the default tile for
+    None; ValueError for a tile the kernels are not built at."""
+    if blocks is None:
+        blocks = DEFAULT_BLOCKS
+    if not compiled_blocks(blocks):
+        raise ValueError(f"blocks {tuple(blocks)} is not a compiled tile: (BM, BN) in {TILES} "
+                         f"with BK {BK}")
+    return {"bm": int(blocks[0]), "bn": int(blocks[1])}
+
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -50,6 +78,8 @@ SOURCES = {
     "qgemm_raw.cu": (("tk_qgemm_raw", 4), ("tk_qconv_raw", 4)),
     "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4)),
     "flash_attn.cu": (("tk_flash_attn", 4),),
+    "qconv_layouts.cu": (("tk_qconv_rq_t", 6), ("tk_qconv_rq_s", 6), ("tk_qconv_rq_w", 6),
+                         ("tk_qconv_rq_r", 6)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -12,28 +12,67 @@ the conv entries of the int8 path (port of
     `fuse=False` branch of the TPU kernel).
   * `qconv2d_flat`: 1x1 convs go to K1 (or, without a multiplier, K4's GEMM
     mode) as a GEMM (`_conv1x1_matmul`), every other kernel size, the 7x7 s2
-    stem included, to K2 (or K4's conv mode); depthwise convs (groups == C)
-    to K5 (`depthwise.py`: `qdwconv_rq`, or `qdwconv_raw` without a
-    multiplier).
+    stem included, to K2 (or K4's conv mode) or, by `layout`, to one of
+    K7-K10 (`conv_layouts.py`); depthwise convs (groups == C) to K5
+    (`depthwise.py`: `qdwconv_rq`, or `qdwconv_raw` without a multiplier).
   * `qconv2d_flat_chain` / `qconv2d_flat_block_stack` run a chain or a stack
     of residual blocks stage by stage: the last stage of each residual block
     launches K3, the others K1 (1x1) or K2.
 
+Tuning: K1-K3 and K7-K10 take a block tile `blocks` = (BM, BN, 64) from
+`_lib.TILES`.  Left None, the entries read the active tuning database (the
+`apply_history_best` context, else `$TK_TUNE_DB`) under the JAX package's
+workload keys (`flat_conv_workload`, `chain_workload`, `stack_workload`; a
+1x1 conv's GEMM reads `matmul_workload`), and fall back to 64 x 64 when no
+record names a compiled tile.
+
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
-it launches its kernel or raises.  The TPU package's frame layout, width
-packing, polyphase stacking and VMEM budgets have no counterpart here: the
-kernels read NHWC directly and take the stride themselves.
+it launches its kernel or raises.  K2-K4 read NHWC directly and take the
+stride themselves; only the layouts K7-K10 build the TPU package's flat,
+polyphase-stacked frame, because their data paths are defined on it.  Width
+packing and VMEM budgets have no counterpart.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._lib import LAUNCHES, check_cuda_operands, launch
+from ...tune.database import lookup_config
+from ._lib import (BK, DEFAULT_BLOCKS, LAUNCHES, TILES, check_cuda_operands, compiled_blocks,
+                   launch, tile_params)
+from .conv_layouts import (LAYOUTS, layout_fits, qconv_rq_r, qconv_rq_s, qconv_rq_t,
+                           qconv_rq_w)
 from .depthwise import qdwconv_raw, qdwconv_rq
 from .matmul_int8 import (_TONEAREST, as_int8, as_int32_vector, fold_input_zero_point,
-                          qgemm_raw, qgemm_rq)
+                          qgemm_raw, qgemm_rq_tuned)
 from .requantize import channel_vector, epilogue_plain, plan_res_add, res_add_plain
+
+
+def flat_conv_workload(n, h, w, cin, cout, kh, kw, strides, fuse, groups: int = 1) -> str:
+    """Tuning-database key of a conv (`conv_flat.py:1264`)."""
+    sh, sw = strides
+    g = f"_G{groups}" if groups != 1 else ""
+    return (f"qconv2d_flat/N{n}_H{h}_W{w}_C{cin}_O{cout}_K{kh}x{kw}"
+            f"_S{sh}x{sw}{g}{'_rq' if fuse else ''}")
+
+
+def chain_workload(n, h, w, stage_dims) -> str:
+    """Tuning-database key of a conv chain: stage_dims = [(kh, cin, cout), ...]
+    (`conv_flat.py:1973`)."""
+    stages = "+".join(f"K{kh}C{ci}O{co}" for (kh, ci, co) in stage_dims)
+    return f"qconv2d_chain/N{n}_H{h}_W{w}/{stages}"
+
+
+def stack_workload(n, h, w, block_dims) -> str:
+    """Tuning-database key of a residual-block stack: block_dims =
+    [[(kh, cin, cout), ...] per block] (`conv_flat.py:1979`)."""
+    blocks = "|".join("+".join(f"K{kh}C{ci}O{co}" for (kh, ci, co) in b) for b in block_dims)
+    return f"qconv2d_stack/N{n}_H{h}_W{w}/{blocks}"
+
+
+# layout -> the name of its wrapper in this module, looked up at each call
+# (as K2's `qconv_rq` is), so that a recording hook can wrap it
+LAYOUT_KERNELS = {"t": "qconv_rq_t", "s": "qconv_rq_s", "w": "qconv_rq_w", "r": "qconv_rq_r"}
 
 
 def _out_hw(x_shape, w_shape, strides, padding):
@@ -83,18 +122,22 @@ def _check_conv(kernel, x, w, bias, mult, shift, out_shape, residual=None):
 
 
 def qconv_rq_plain(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0),
-                   izp=0, rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127):
-    """Plain PyTorch version of K2."""
+                   izp=0, rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127,
+                   blocks=None):
+    """Plain PyTorch version of K2 (`blocks` is the kernel's tile: no effect)."""
     acc = conv_acc_plain(x, w, strides, padding, izp)
     return epilogue_plain(acc, bias, mult, shift, rq_izp, out_zp, rounding, qmin, qmax)
 
 
 def qconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0,
-             rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127) -> torch.Tensor:
+             rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127,
+             blocks=None) -> torch.Tensor:
     """K2: x int8 NHWC, w int8 HWIO, bias / mult / shift int32 (COUT,);
-    padding (top, left, bottom, right) -> int8 NHWC."""
+    padding (top, left, bottom, right); blocks (BM, BN, 64) a compiled tile,
+    default 64 x 64 -> int8 NHWC."""
     kw = dict(strides=strides, padding=padding, izp=izp, rq_izp=rq_izp, out_zp=out_zp,
               rounding=rounding, qmin=qmin, qmax=qmax)
+    tile = tile_params(blocks)
     if x.device.type == "cpu":
         return qconv_rq_plain(x, w, bias, mult, shift, **kw)
     if x.device.type != "cuda":
@@ -105,7 +148,8 @@ def qconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), i
     out = torch.empty(out_shape, dtype=torch.int8, device=x.device)
     bias = fold_input_zero_point(bias, w, izp)
     launch("tk_qconv_rq", [x, w, out, bias, mult, shift],
-           _conv_params(x, w, out, strides, padding, izp, rq_izp, out_zp, rounding, qmin, qmax))
+           _conv_params(x, w, out, strides, padding, izp, rq_izp, out_zp, rounding, qmin, qmax)
+           | tile)
     LAUNCHES["qconv_rq"] += 1
     return out
 
@@ -141,8 +185,9 @@ def qconv_raw(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0) -> tor
 
 
 def qconv_rq_res_plain(x, w, bias, mult, shift, residual, res_params, *, padding=(0, 0, 0, 0),
-                       izp=0, rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127):
-    """Plain PyTorch version of K3."""
+                       izp=0, rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127,
+                       blocks=None):
+    """Plain PyTorch version of K3 (`blocks` is the kernel's tile: no effect)."""
     cur = qconv_rq_plain(x, w, bias, mult, shift, padding=padding, izp=izp, rq_izp=rq_izp,
                          out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax)
     return res_add_plain(cur, residual, res_params)
@@ -150,11 +195,13 @@ def qconv_rq_res_plain(x, w, bias, mult, shift, residual, res_params, *, padding
 
 def qconv_rq_res(x, w, bias, mult, shift, residual, res_params: dict, *,
                  padding=(0, 0, 0, 0), izp=0, rq_izp=0, out_zp=0, rounding="UPWARD",
-                 qmin=-128, qmax=127) -> torch.Tensor:
+                 qmin=-128, qmax=127, blocks=None) -> torch.Tensor:
     """K3: the stride-1 K2 conv, then the fused residual qnn.add with the
-    add's attrs `res_params` (lhs = the conv output, rhs = `residual`)."""
+    add's attrs `res_params` (lhs = the conv output, rhs = `residual`);
+    blocks (BM, BN, 64) a compiled tile, default 64 x 64."""
     kw = dict(padding=padding, izp=izp, rq_izp=rq_izp, out_zp=out_zp, rounding=rounding,
               qmin=qmin, qmax=qmax)
+    tile = tile_params(blocks)
     if x.device.type == "cpu":
         return qconv_rq_res_plain(x, w, bias, mult, shift, residual, res_params, **kw)
     if x.device.type != "cuda":
@@ -170,7 +217,7 @@ def qconv_rq_res(x, w, bias, mult, shift, residual, res_params: dict, *,
     params = _conv_params(x, w, out, (1, 1), padding, izp, rq_izp, out_zp, rounding, qmin, qmax)
     params.update(l_skip=l_skip, lm=lm, ls=ls, lzp=lzp, r_skip=r_skip, rm=rm, rs=rs, rzp=rzp,
                   zo=plan["zo"], lo=plan["lo"], hi=plan["hi"],
-                  add_tonearest=_TONEAREST[plan["rounding"]])
+                  add_tonearest=_TONEAREST[plan["rounding"]], **tile)
     launch("tk_qconv_rq_res", [x, w, out, bias, mult, shift, residual], params)
     LAUNCHES["qconv_rq_res"] += 1
     return out
@@ -181,9 +228,10 @@ def qconv_rq_res(x, w, bias, mult, shift, residual, res_params: dict, *,
 # ---------------------------------------------------------------------------
 
 def _conv1x1_matmul(x, w, bias, mult, shift, strides, padding, izp, rq_izp, out_zp,
-                    rounding, qmin, qmax):
+                    rounding, qmin, qmax, blocks=None):
     """1x1 conv == GEMM on K1 (on K4 when `mult` is None); padding (with izp)
-    and stride subsample first."""
+    and stride subsample first.  K1's tile: `blocks`, else the database's
+    record for the GEMM's workload (`qgemm_rq_tuned`)."""
     pt, pl, pb, pr = padding
     if any(padding):
         x = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb), value=int(izp))
@@ -196,20 +244,56 @@ def _conv1x1_matmul(x, w, bias, mult, shift, strides, padding, izp, rq_izp, out_
     if mult is None:
         out = qgemm_raw(x2, w2, bias)
     else:
-        out = qgemm_rq(x2, w2, bias, mult, shift, rq_izp=rq_izp, out_zp=out_zp,
-                       rounding=rounding, qmin=qmin, qmax=qmax)
+        out = qgemm_rq_tuned(x2, w2, bias, mult, shift, rq_izp=rq_izp, out_zp=out_zp,
+                             rounding=rounding, qmin=qmin, qmax=qmax, blocks=blocks)
     return out.reshape(n, oh, ow, cout)
+
+
+def _conv_config(x_shape, w_shape, strides, padding, blocks, layout):
+    """(blocks, layout) of a K2-family conv: explicit `blocks` and `layout`
+    are checked (ValueError when the tile is not compiled, the layout unknown
+    or its shared memory too small); with blocks None, the database's best
+    record for the workload, ignored when its blocks are not a compiled tile
+    or its layout does not fit; else the 64 x 64 tile on K2."""
+    if layout is not None and layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: one of None, {LAYOUTS}")
+    if blocks is None:
+        n, h, wd, cin = x_shape
+        kh, kw, _, cout = w_shape
+        cfg = lookup_config(flat_conv_workload(n, h, wd, cin, cout, kh, kw, strides, True))
+        if cfg and "blocks" in cfg and compiled_blocks(cfg["blocks"]):
+            lay = layout if layout is not None else cfg.get("layout")
+            if lay in LAYOUTS and not layout_fits(lay, cfg["blocks"], x_shape, w_shape, strides,
+                                                  padding):
+                return None, layout
+            if lay is None or lay in LAYOUTS:
+                return tuple(int(b) for b in cfg["blocks"]), lay
+        return None, layout
+    if not compiled_blocks(blocks):
+        raise ValueError(f"conv blocks {tuple(blocks)} invalid: (BM, BN) must be one of {TILES} "
+                         f"and BK {BK}")
+    if layout is not None and not layout_fits(layout, blocks, x_shape, w_shape, strides, padding):
+        raise ValueError(f"layout {layout!r} at blocks {tuple(blocks)} does not fit shared memory "
+                         f"for {tuple(x_shape)} * {tuple(w_shape)}")
+    return tuple(int(b) for b in blocks), layout
 
 
 def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1),
                  padding=(0, 0, 0, 0), groups: int = 1, input_zero_point: int = 0,
                  rq_input_zero_point: int = 0, out_zp: int = 0, rounding: str = "UPWARD",
-                 out_dtype: str = "int8", qmin: int = -128, qmax: int = 127):
+                 out_dtype: str = "int8", qmin: int = -128, qmax: int = 127,
+                 blocks: tuple | None = None, layout: str | None = None):
     """NHWC int8 conv with the fused exact requantize: x (N,H,W,CIN) int8,
     w (KH,KW,CIN/groups,COUT) int8, groups 1 or CIN (depthwise, COUT == CIN);
-    1x1 -> K1, any other size -> K2, depthwise -> K5.  Without a multiplier:
-    the int32 accumulator of sum (x_pad - izp) * w plus bias (the unfused
-    qnn.conv2d + bias), on K4's GEMM or conv mode, or K5's raw mode."""
+    1x1 -> K1, depthwise -> K5, any other size -> K2 or, by `layout` ("t",
+    "s", "w", "r"), K7-K10, at the tile `blocks` (BM, BN, 64).  blocks None
+    reads the tuning database (the record's layout too, unless `layout` is
+    given); explicit bad blocks or layouts raise ValueError.  1x1 convs ignore
+    `blocks` and `layout` (their GEMM reads its own record), as the JAX
+    package's entry does.  Without a multiplier: the int32 accumulator of
+    sum (x_pad - izp) * w plus bias (the unfused qnn.conv2d + bias), on K4's
+    GEMM or conv mode, or K5's raw mode; a raw conv reads no record and
+    ignores `blocks` and `layout`."""
     cin = x.shape[-1]
     depthwise = groups > 1 and groups == cin and w.shape[2] == 1 and w.shape[3] == cin
     if groups != 1 and not depthwise:
@@ -243,12 +327,15 @@ def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1)
     if w.shape[0] == 1 and w.shape[1] == 1:
         return _conv1x1_matmul(x, w, b, m, s, strides, padding, input_zero_point,
                                rq_input_zero_point, out_zp, rounding, qmin, qmax)
-    return qconv_rq(x.contiguous(), w, b, m, s, strides=strides, padding=padding,
-                    izp=input_zero_point, rq_izp=rq_input_zero_point, out_zp=out_zp,
-                    rounding=rounding, qmin=qmin, qmax=qmax)
+    blocks, layout = _conv_config(tuple(x.shape), tuple(w.shape), strides, padding, blocks,
+                                  layout)
+    kernel = qconv_rq if layout is None else globals()[LAYOUT_KERNELS[layout]]
+    return kernel(x.contiguous(), w, b, m, s, strides=strides, padding=padding,
+                  izp=input_zero_point, rq_izp=rq_input_zero_point, out_zp=out_zp,
+                  rounding=rounding, qmin=qmin, qmax=qmax, blocks=blocks)
 
 
-def _stage(cur, st: dict, residual=None, res_params=None):
+def _stage(cur, st: dict, residual=None, res_params=None, blocks=None):
     """One stride-1 stage of a chain: dict keys as qconv2d_flat_chain's."""
     dev = cur.device
     w = as_int8(st["w"], dev)
@@ -262,14 +349,36 @@ def _stage(cur, st: dict, residual=None, res_params=None):
     padding = tuple(st["padding"])
     if residual is not None:
         return qconv_rq_res(cur, w, b, m, s, residual.contiguous(), res_params,
-                            padding=padding, **kw)
+                            padding=padding, blocks=blocks, **kw)
     if w.shape[0] == 1 and w.shape[1] == 1:
         return _conv1x1_matmul(cur, w, b, m, s, (1, 1), padding, kw["izp"], 0,
-                               kw["out_zp"], kw["rounding"], kw["qmin"], kw["qmax"])
-    return qconv_rq(cur, w, b, m, s, padding=padding, **kw)
+                               kw["out_zp"], kw["rounding"], kw["qmin"], kw["qmax"],
+                               blocks=blocks or DEFAULT_BLOCKS)
+    return qconv_rq(cur, w, b, m, s, padding=padding, blocks=blocks, **kw)
 
 
-def qconv2d_flat_chain(x, stages, *, residual=None, res_params: dict | None = None):
+def _chain_blocks(cfg, bm, bn_cap):
+    """(BM, BN, 64) of a chain or stack: explicit bm / bn_cap (ValueError when
+    not a compiled tile), else a record's {bm, bn} (ignored when not
+    compiled), else None (64 x 64)."""
+    if bm is not None:
+        blocks = (int(bm), int(bn_cap if bn_cap is not None else 64), BK)
+        if not compiled_blocks(blocks):
+            raise ValueError(f"chain bm {bm} / bn {bn_cap}: (BM, BN) must be one of {TILES}")
+        return blocks
+    if cfg and "bm" in cfg:
+        blocks = (int(cfg["bm"]), int(cfg.get("bn", 64)), BK)
+        if compiled_blocks(blocks):
+            return blocks
+    return None
+
+
+def _dims(stages):
+    return [(st["w"].shape[0], st["w"].shape[2], st["w"].shape[3]) for st in stages]
+
+
+def qconv2d_flat_chain(x, stages, *, bm=None, bn_cap=None, residual=None,
+                       res_params: dict | None = None):
     """Run a chain of stride-1, same-spatial-size, fused-requantize convs.
 
     x: (N, H, W, CIN) int8.  Each stage is a dict with keys w (KH,KW,CIN,COUT)
@@ -277,19 +386,63 @@ def qconv2d_flat_chain(x, stages, *, residual=None, res_params: dict | None = No
     per-channel), izp, out_zp, rounding, qmin, qmax, padding (pt, pl, pb, pr).
     residual / res_params: the fused qnn.add on the LAST stage (K3): residual
     (N,H,W,COUT_last) int8, res_params the add's attrs (lhs = chain output).
+    bm / bn_cap: the tile (BM, BN) of every stage's K1, K2 and K3 launch;
+    None reads the chain's record {bm, bn} (`chain_workload`), else 64 x 64.
     """
     cur = x.contiguous()
+    blocks = _chain_blocks(
+        None if bm is not None else lookup_config(chain_workload(*x.shape[:3], _dims(stages))),
+        bm, bn_cap)
     for i, st in enumerate(stages):
         last = i == len(stages) - 1
-        cur = _stage(cur, st, residual if last else None, res_params)
+        cur = _stage(cur, st, residual if last else None, res_params, blocks)
     return cur
 
 
-def qconv2d_flat_block_stack(x, blocks):
+def qconv2d_flat_chain_plain(x, stages, *, residual=None, res_params: dict | None = None,
+                             **_):
+    """Plain PyTorch version of `qconv2d_flat_chain`: K2's plain version per
+    stage, K3's on the last when there is a residual."""
+    cur = x
+    for i, st in enumerate(stages):
+        dev = cur.device
+        w = as_int8(st["w"], dev)
+        cout = w.shape[-1]
+        args = (cur, w, as_int32_vector(st.get("bias"), cout, dev),
+                channel_vector(st["multiplier"], cout, dev), channel_vector(st["shift"], cout, dev))
+        kw = dict(padding=tuple(st["padding"]), izp=int(st.get("izp", 0)),
+                  out_zp=int(st.get("out_zp", 0)), rounding=st.get("rounding", "UPWARD"),
+                  qmin=int(st.get("qmin", -128)), qmax=int(st.get("qmax", 127)))
+        if residual is not None and i == len(stages) - 1:
+            cur = qconv_rq_res_plain(*args, residual, res_params, **kw)
+        else:
+            cur = qconv_rq_plain(*args, **kw)
+    return cur
+
+
+def qconv2d_flat_block_stack_plain(x, blocks, **_):
+    """Plain PyTorch version of `qconv2d_flat_block_stack`."""
+    cur = x
+    for stages, rp in blocks:
+        cur = qconv2d_flat_chain_plain(cur, stages, residual=cur if rp else None, res_params=rp)
+    return cur
+
+
+def qconv2d_flat_block_stack(x, blocks, *, bm=None, bn_cap=None):
     """Run a stack of identity-residual blocks: blocks [(stages, res_params |
     None)]; with res_params the block computes qnn.add(chain(x), x), its last
-    stage on K3 with the block's input as the residual."""
+    stage on K3 with the block's input as the residual.  bm / bn_cap as in
+    the chain; None reads the stack's record (`stack_workload`), then the
+    first block's chain record, as the JAX package does."""
+    cfg = None
+    if bm is None:
+        n, h, wd = x.shape[:3]
+        cfg = lookup_config(stack_workload(n, h, wd, [_dims(sts) for sts, _ in blocks]))
+        if not (cfg and "bm" in cfg):
+            cfg = lookup_config(chain_workload(n, h, wd, _dims(blocks[0][0])))
+    tile = _chain_blocks(cfg, bm, bn_cap) or DEFAULT_BLOCKS
     cur = x.contiguous()
     for stages, rp in blocks:
-        cur = qconv2d_flat_chain(cur, stages, residual=cur if rp else None, res_params=rp)
+        cur = qconv2d_flat_chain(cur, stages, bm=tile[0], bn_cap=tile[1],
+                                 residual=cur if rp else None, res_params=rp)
     return cur

@@ -6,7 +6,13 @@ same GEMM storing the int32 accumulator (port of
 launch `csrc/qgemm_rq.cu` / `csrc/qgemm_raw.cu` (or raise), on a CPU tensor
 they run `qgemm_rq_plain` / `qgemm_raw_plain`, the plain PyTorch versions of
 the same integers.  `qmatmul_int8` is the entry with the JAX package's
-signature.
+signature; it takes `blocks` (a compiled tile, `_lib.TILES`) or "xla", and
+without them reads the tuning database's best record for the workload
+(`matmul_workload`, the JAX package's key).  The record `{"impl": "xla"}`
+keeps its JAX name: in the port it selects `qgemm_library`, the library
+route (`torch._int_mm` on the card, then the exact epilogue in plain torch),
+chosen only by a record or by the caller, never as a fallback.  K4 (no
+multiplier) keeps its 64 x 64 tile and reads no record.
 
 Zero points: the quantizer always produces wzp = 0; a nonzero input zero point
 folds into the bias (acc(x - izp, w) = x.w - izp * colsum(w), exact in int32
@@ -17,10 +23,16 @@ from __future__ import annotations
 
 import torch
 
-from ._lib import LAUNCHES, check_cuda_operands, launch
+from ...tune.database import lookup_config
+from ._lib import LAUNCHES, check_cuda_operands, compiled_blocks, launch, tile_params
 from .requantize import channel_vector, epilogue_plain
 
 _TONEAREST = {"UPWARD": 0, "TONEAREST": 1}
+
+
+def matmul_workload(M: int, K: int, N: int, fused: bool) -> str:
+    """Tuning-database key of a GEMM (`tachikoma_tpu/tune/tuner.py:28`)."""
+    return f"qmatmul_int8/M{M}_K{K}_N{N}/{'fused' if fused else 'raw'}"
 
 
 def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -35,8 +47,8 @@ def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def qgemm_rq_plain(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0,
-                   rounding="UPWARD", qmin=-128, qmax=127) -> torch.Tensor:
-    """Plain PyTorch version of K1."""
+                   rounding="UPWARD", qmin=-128, qmax=127, blocks=None) -> torch.Tensor:
+    """Plain PyTorch version of K1 (`blocks` is the kernel's tile: no effect)."""
     return epilogue_plain(exact_int_matmul(x, w), bias, mult, shift, rq_izp,
                           out_zp, rounding, qmin, qmax)
 
@@ -44,11 +56,12 @@ def qgemm_rq_plain(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0,
 def qgemm_rq(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
              mult: torch.Tensor, shift: torch.Tensor, *, rq_izp: int = 0,
              out_zp: int = 0, rounding: str = "UPWARD", qmin: int = -128,
-             qmax: int = 127) -> torch.Tensor:
+             qmax: int = 127, blocks=None) -> torch.Tensor:
     """K1: clip(q_multiply_shift(x @ w + bias - rq_izp, mult, shift) + out_zp,
     qmin, qmax) -> int8 (M, N).  x int8 (M, K), w int8 (K, N), bias / mult /
-    shift int32 (N,)."""
+    shift int32 (N,); blocks (BM, BN, 64) a compiled tile, default 64 x 64."""
     kw = dict(rq_izp=rq_izp, out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax)
+    tile = tile_params(blocks)
     if x.device.type == "cpu":
         return qgemm_rq_plain(x, w, bias, mult, shift, **kw)
     if x.device.type != "cuda":
@@ -65,9 +78,39 @@ def qgemm_rq(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         rq_izp=rq_izp, out_zp=out_zp, qmin=qmin, qmax=qmax,
         tonearest=_TONEAREST[rounding],
         a_vec=k % 16 == 0 and x.data_ptr() % 16 == 0,
-        b_vec=n % 4 == 0 and w.data_ptr() % 4 == 0))
+        b_vec=n % 4 == 0 and w.data_ptr() % 4 == 0, **tile))
     LAUNCHES["qgemm_rq"] += 1
     return out
+
+
+def qgemm_library(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPWARD",
+                  qmin=-128, qmax=127) -> torch.Tensor:
+    """K1's function through the library route of the record `{"impl":
+    "xla"}`: the int32 product by `torch._int_mm` on the card (cuBLASLt; it
+    refuses M <= 16, K or N not a multiple of 8, and some other shapes with a
+    RuntimeError), the exact epilogue in plain torch.  On the CPU the product
+    is `exact_int_matmul`."""
+    acc = torch._int_mm(x, w) if x.device.type == "cuda" else exact_int_matmul(x, w)
+    return epilogue_plain(acc, bias, mult, shift, rq_izp, out_zp, rounding, qmin, qmax)
+
+
+def qgemm_rq_tuned(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPWARD",
+                   qmin=-128, qmax=127, blocks=None) -> torch.Tensor:
+    """K1 at `blocks`, or the library route for blocks == "xla"; with blocks
+    None, what the active database's best record for the workload names (a
+    record whose blocks are not a compiled tile is ignored: 64 x 64)."""
+    if blocks is None:
+        cfg = lookup_config(matmul_workload(x.shape[0], x.shape[1], w.shape[1], True))
+        if cfg and "blocks" in cfg and compiled_blocks(cfg["blocks"]):
+            blocks = tuple(cfg["blocks"])
+        elif cfg and cfg.get("impl") == "xla":
+            blocks = "xla"
+    kw = dict(rq_izp=rq_izp, out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax)
+    if isinstance(blocks, str):
+        if blocks != "xla":
+            raise ValueError(f"blocks {blocks!r}: a compiled tile or 'xla'")
+        return qgemm_library(x, w, bias, mult, shift, **kw)
+    return qgemm_rq(x, w, bias, mult, shift, blocks=blocks, **kw)
 
 
 def qgemm_raw_plain(x, w, bias) -> torch.Tensor:
@@ -117,13 +160,15 @@ def as_int8(v, device) -> torch.Tensor:
 
 def qmatmul_int8(x, w, bias=None, multiplier=None, shift=None, out_zp: int = 0,
                  rounding: str = "UPWARD", out_dtype: str = "int8",
-                 qmin: int = -128, qmax: int = 127, *,
+                 qmin: int = -128, qmax: int = 127, blocks=None, *,
                  input_zero_point: int = 0, rq_input_zero_point: int = 0):
     """x (M, K) int8 @ w (K, N) int8 -> requantized int8 (M, N),
     bit-identical to the unfused qnn.dense + bias_add + qnn.requantize chain
     (the JAX package's entry of the same name).  multiplier / shift: scalars
-    or per-column (N,) arrays.  Without a multiplier: the int32 accumulator
-    of (x - input_zero_point) @ w, plus bias (K4)."""
+    or per-column (N,) arrays; blocks: a compiled tile (BM, BN, 64), "xla"
+    (the library route) or None (the tuning database, else 64 x 64); bad
+    blocks raise ValueError.  Without a multiplier: the int32 accumulator of
+    (x - input_zero_point) @ w, plus bias (K4; `blocks` is not read)."""
     if multiplier is not None and out_dtype != "int8":
         raise NotImplementedError(f"qmatmul_int8: out_dtype {out_dtype} is not ported yet")
     n = w.shape[1]
@@ -132,6 +177,7 @@ def qmatmul_int8(x, w, bias=None, multiplier=None, shift=None, out_zp: int = 0,
     b = fold_input_zero_point(as_int32_vector(bias, n, dev), w, input_zero_point)
     if multiplier is None:
         return qgemm_raw(x.contiguous(), w, b.contiguous())
-    return qgemm_rq(x.contiguous(), w, b.contiguous(), channel_vector(multiplier, n, dev),
-                    channel_vector(shift, n, dev), rq_izp=rq_input_zero_point,
-                    out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax)
+    return qgemm_rq_tuned(x.contiguous(), w, b.contiguous(), channel_vector(multiplier, n, dev),
+                          channel_vector(shift, n, dev), rq_izp=rq_input_zero_point,
+                          out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax,
+                          blocks=blocks)

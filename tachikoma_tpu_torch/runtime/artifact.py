@@ -6,9 +6,10 @@ outputs, meta), `graph.json` (the structure), one `params/<name>.npy` per
 parameter and, in files the JAX package wrote with its TPU tuning database,
 `tune.jsonl`.  The format string, member names and hashes are the JAX
 package's, so a file written by either package loads in the other to the
-same graph, and the port writes the same bytes.  The port writes no tuning
-database; a `tune.jsonl` found in a file comes back as the manifest's
-`_tune_jsonl`, as the JAX package returns it, and nothing here uses it.
+same graph, and the port writes the same bytes.  `save_artifact` bundles the
+tuning database file it is given (the CLI's `compile` passes `$TK_TUNE_DB`);
+a `tune.jsonl` found in a file comes back as the manifest's `_tune_jsonl`, as
+the JAX package returns it, and nothing here dispatches by it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import gzip
 import io
 import json
+import os
 import tarfile
 
 import numpy as np
@@ -33,9 +35,11 @@ def _add_bytes(tar: tarfile.TarFile, name: str, data: bytes) -> None:
     tar.addfile(info, io.BytesIO(data))
 
 
-def save_artifact(path: str, graph: Graph, meta: dict | None = None) -> None:
-    """Write `graph` with its params to `path`; the bytes depend on nothing
-    but the arguments."""
+def save_artifact(path: str, graph: Graph, tune_db_path: str | None = None,
+                  meta: dict | None = None) -> None:
+    """Write `graph` with its params (and the tuning database file
+    `tune_db_path`, when it exists) to `path`; the bytes depend on nothing
+    but the arguments and that file."""
     manifest = {
         "format": FORMAT,
         "graph_hash": graph.structural_hash(include_params=True),
@@ -55,6 +59,9 @@ def save_artifact(path: str, graph: Graph, meta: dict | None = None) -> None:
             buf = io.BytesIO()
             np.save(buf, dt.c_contig(graph.params[k]), allow_pickle=False)
             _add_bytes(tar, f"params/{k}.npy", buf.getvalue())
+        if tune_db_path and os.path.exists(tune_db_path):
+            with open(tune_db_path, "rb") as f:
+                _add_bytes(tar, "tune.jsonl", f.read())
 
 
 def load_artifact(path: str) -> tuple[Graph, dict]:

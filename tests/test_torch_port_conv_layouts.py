@@ -1,0 +1,185 @@
+"""The four layouts of the flat conv (K7 "t", K8 "s", K9 "w", K10 "r") on the
+CPU, against the JAX package's `qconv2d_flat(..., layout=L, blocks=...)` in
+interpret mode on the same numpy inputs, compared with ==.
+
+Each layout's plain version follows its kernel's decomposition ("s": explicit
+im2col and one product; "w": one wide product and shifted int32 sums; "r":
+one deep-K product per column tap; "t": the channel-major image), so these
+tests check the decomposition and not only the dispatch.  The dispatch tests
+hold the port's `qconv2d_flat` to the JAX package's database rules: a record
+selects its layout, bad explicit blocks raise, a foreign record is ignored.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tachikoma_tpu.ops.pallas import conv_flat as j_conv_flat
+from tachikoma_tpu.ops.pallas.qms32 import plan_requantize
+from tachikoma_tpu_torch.ops.kernels import conv, conv_layouts
+from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector
+from tachikoma_tpu_torch.tune import database as tdb
+
+LAYOUTS = ("t", "s", "w", "r")
+# (x shape, weight shape, stride, padding, input zero point)
+CASES = [
+    ((2, 10, 10, 32), (3, 3, 32, 48), (1, 1), (1, 1, 1, 1), 0),
+    ((2, 9, 9, 32), (3, 3, 32, 48), (2, 2), (1, 1, 1, 1), 0),     # stride 2 (polyphase)
+    ((1, 9, 9, 32), (3, 3, 32, 32), (2, 2), (1, 1, 1, 1), 7),     # izp != 0 at the borders
+    ((2, 8, 8, 40), (3, 3, 40, 13), (1, 1), (0, 1, 2, 1), -5),    # ragged CIN, COUT, padding
+]
+JAX_BLOCKS = (128, 128, 128)   # a tileable TPU geometry for every case
+
+
+def _inputs(case, seed=0):
+    shape, wshape, strides, padding, izp = case
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 127, shape).astype(np.int8)
+    w = rng.integers(-127, 127, wshape).astype(np.int8)
+    cout = wshape[3]
+    bias = rng.integers(-2000, 2000, cout).astype(np.int32)
+    m, s = plan_requantize(0.0002 + np.abs(rng.standard_normal(cout)) * 0.0005, 0.07)
+    return x, w, bias, m, s
+
+
+def _jax(case, layout):
+    shape, wshape, strides, padding, izp = case
+    x, w, bias, m, s = _inputs(case)
+    return np.asarray(j_conv_flat.qconv2d_flat(
+        x, w, bias=bias, multiplier=m, shift=s, strides=strides, padding=padding,
+        input_zero_point=izp, out_zp=4, layout=layout, blocks=JAX_BLOCKS))
+
+
+def _port_args(case):
+    x, w, bias, m, s = _inputs(case)
+    cout = w.shape[3]
+    return (torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+            channel_vector(m, cout, "cpu"), channel_vector(s, cout, "cpu"))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("case", CASES, ids=["s1", "s2", "izp", "ragged"])
+def test_layout_plain_equals_jax_interpret(case, layout):
+    _, _, strides, padding, izp = case
+    want = _jax(case, layout)
+    plain = getattr(conv_layouts, f"qconv_rq_{layout}_plain")
+    got = plain(*_port_args(case), strides=strides, padding=padding, izp=izp, out_zp=4)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # ... and K2's plain version (the same function along K2's im2col)
+    k2 = conv.qconv_rq_plain(*_port_args(case), strides=strides, padding=padding, izp=izp,
+                             out_zp=4)
+    np.testing.assert_array_equal(k2.numpy(), want)
+
+
+@pytest.mark.parametrize("case", CASES[:2], ids=["s1", "s2"])
+def test_flat_frame_equals_jax(case):
+    """The polyphase image and weights are the JAX package's, byte for byte."""
+    shape, wshape, strides, padding, _ = case
+    x, w, *_ = _inputs(case)
+    jx, (oh, ow, khp, kwp, hph, wph) = j_conv_flat._phase_stack(x, *wshape[:2], *strides,
+                                                                padding, 3)
+    g = conv_layouts.flat_geometry(shape, wshape, strides, padding)
+    assert (g.oh, g.ow, g.khp, g.kwp, g.hph, g.wph) == (oh, ow, khp, kwp, hph, wph)
+    px = conv_layouts.phase_image(torch.from_numpy(x), g, strides, padding, 3)
+    np.testing.assert_array_equal(px.numpy(), np.asarray(jx))
+    pw = conv_layouts.phase_weights(torch.from_numpy(w), strides)
+    np.testing.assert_array_equal(pw.numpy(), np.asarray(j_conv_flat._phase_weights(w, *strides)))
+
+
+def test_decompositions_differ_in_operands_not_in_integers():
+    """The four accumulators of one conv agree, on operands of four layouts."""
+    case = CASES[3]
+    _, _, strides, padding, izp = case
+    x, w, *_ = _port_args(case)
+    accs = []
+    for layout in LAYOUTS:
+        xf, wl, g = conv_layouts.flat_operands(x, w, layout, strides, padding, izp)
+        if layout == "t":
+            assert xf.shape == (g.c, g.mx)
+        elif layout == "w":
+            assert wl.shape == (g.c, g.khp * g.kwp * w.shape[3])
+        accs.append(conv_layouts._ACC[layout](xf, wl, g))
+    for a in accs[1:]:
+        assert torch.equal(a, accs[0])
+
+
+@pytest.fixture
+def no_default_db(monkeypatch):
+    monkeypatch.delenv("TK_TUNE_DB", raising=False)
+    tdb.reset_default_database()
+    yield
+    tdb.reset_default_database()
+
+
+def _record_calls(monkeypatch):
+    calls = []
+    for name in ("qconv_rq", "qconv_rq_t", "qconv_rq_s", "qconv_rq_w", "qconv_rq_r"):
+        fn = getattr(conv, name)
+        monkeypatch.setattr(conv, name,
+                            lambda *a, _fn=fn, _n=name, **k: calls.append((_n, k)) or _fn(*a, **k))
+    return calls
+
+
+def _flat(case, **kw):
+    _, _, strides, padding, izp = case
+    x, w, bias, m, s = _inputs(case)
+    return conv.qconv2d_flat(torch.from_numpy(x), w, bias, m, s, strides=strides,
+                             padding=padding, input_zero_point=izp, out_zp=4, **kw).numpy()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS + (None,))
+def test_record_selects_the_layout(layout, monkeypatch, no_default_db):
+    case = CASES[1]
+    shape, wshape, strides, _, _ = case
+    wl = conv.flat_conv_workload(*shape, wshape[3], *wshape[:2], strides, True)
+    assert wl == j_conv_flat.flat_conv_workload(*shape, wshape[3], *wshape[:2], strides, True)
+    cfg = {"blocks": [128, 64, 64]} | ({"layout": layout} if layout else {})
+    db = tdb.TuneDatabase()
+    db.add(tdb.TuneRecord(wl, cfg, 0.01))
+    calls = _record_calls(monkeypatch)
+    with tdb.apply_history_best(db):
+        got = _flat(case)
+    name = f"qconv_rq_{layout}" if layout else "qconv_rq"
+    assert [(n, k["blocks"]) for n, k in calls] == [(name, (128, 64, 64))]
+    np.testing.assert_array_equal(got, _jax(case, layout))
+
+
+def test_invalid_blocks_raise_and_foreign_records_are_ignored(monkeypatch, no_default_db):
+    case = CASES[0]
+    shape, wshape, strides, _, _ = case
+    for bad in ((512, 256, 128), (64, 64, 128), (96, 64, 64), (64, 64, 0)):
+        with pytest.raises(ValueError):
+            _flat(case, blocks=bad)
+    with pytest.raises(ValueError):
+        _flat(case, blocks=(64, 64, 64), layout="x")
+    want = _flat(case, blocks=(64, 64, 64))
+    wl = conv.flat_conv_workload(*shape, wshape[3], *wshape[:2], strides, True)
+    db = tdb.TuneDatabase()
+    db.add(tdb.TuneRecord(wl, {"blocks": [512, 256, 128], "layout": "s"}, 0.01))
+    calls = _record_calls(monkeypatch)
+    with tdb.apply_history_best(db):
+        got = _flat(case)
+    assert [(n, k["blocks"]) for n, k in calls] == [("qconv_rq", None)]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_wide_layout_refuses_a_tile_whose_partials_do_not_fit(no_default_db):
+    """K9 keeps (BM + maxoff) x BN int32 partials per tap in shared memory:
+    the 224^2 stem (maxoff 348 rows) fits at BN 64, not at BN 128."""
+    stem = ((8, 224, 224, 3), (7, 7, 3, 64), (2, 2), (3, 3, 3, 3))
+    assert conv_layouts.layout_fits("w", (64, 64, 64), *stem)
+    assert not conv_layouts.layout_fits("w", (64, 128, 64), *stem)
+    x = torch.zeros((1, 224, 224, 3), dtype=torch.int8)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv.qconv2d_flat(x, np.zeros((7, 7, 3, 64), np.int8), None, 1 << 30, 0, strides=(2, 2),
+                          padding=(3, 3, 3, 3), blocks=(64, 128, 64), layout="w")
+
+
+def test_default_database_reads_only_tk_tune_db(tmp_path, monkeypatch, no_default_db):
+    assert tdb.default_database() is None and tdb.lookup_config("anything") is None
+    path = tmp_path / "h100.jsonl"
+    path.write_text(tdb.TuneRecord("w", {"blocks": [64, 64, 64]}, 0.5).to_json() + "\n")
+    monkeypatch.setenv("TK_TUNE_DB", str(path))
+    assert tdb.default_database() is None          # loaded once per process
+    tdb.reset_default_database()
+    assert tdb.lookup_config("w") == {"blocks": [64, 64, 64]}

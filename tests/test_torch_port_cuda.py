@@ -395,3 +395,147 @@ def test_fused_transformer_on_card_equals_cpu(cuda, name):
     for nm, a, b in zip(names, got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, nm
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=nm)
+
+
+# ---------------------------------------------------------------------------
+# the tuning path: K1-K3 at every compiled tile, the layouts K7-K10, the tuner
+# ---------------------------------------------------------------------------
+
+TILE_BLOCKS = [(bm, bn, 64) for bm, bn in _lib.TILES]
+LAYOUT_CASES = [
+    # (x shape, k, stride, padding (t, l, b, r), cout, izp)
+    ((2, 13, 11, 3), 7, 2, (3, 3, 3, 3), 10, 4),       # stem-like, CIN 3, ragged COUT
+    ((2, 9, 9, 40), 3, 1, (1, 1, 1, 1), 13, -5),       # CIN 40, COUT 13
+    ((2, 14, 14, 128), 3, 2, (1, 0, 1, 2), 128, 0),    # asymmetric padding
+    ((8, 56, 56, 128), 3, 2, (1, 1, 1, 1), 128, 0),    # ResNet-50 b8's three 3x3 s2
+    ((8, 28, 28, 256), 3, 2, (1, 1, 1, 1), 256, 3),
+    ((8, 14, 14, 512), 3, 2, (1, 1, 1, 1), 512, -7),
+    ((8, 56, 56, 64), 3, 1, (1, 1, 1, 1), 64, 0),      # a chain stage
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["t", "s", "w", "r"])
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+@pytest.mark.parametrize("blocks", TILE_BLOCKS)
+def test_layout_kernels_on_card(rng, cuda, layout, case, blocks):
+    from tachikoma_tpu_torch.ops.kernels import conv_layouts
+
+    shape, k, s, p, cout, izp = case
+    if not conv_layouts.layout_fits(layout, blocks, shape, (k, k, shape[3], cout), (s, s), p):
+        pytest.skip(f"layout {layout} at {blocks} does not fit shared memory for {shape}")
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    kw = dict(strides=(s, s), padding=p, izp=izp, rq_izp=2, out_zp=-1, rounding="TONEAREST")
+    fn = getattr(conv_layouts, f"qconv_rq_{layout}")
+    plain = getattr(conv_layouts, f"qconv_rq_{layout}_plain")
+    n0 = _lib.LAUNCHES[f"qconv_rq_{layout}"]
+    got = fn(x, w, b, mult, shift, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES[f"qconv_rq_{layout}"] == n0 + 1
+    assert torch.equal(got, plain(x, w, b, mult, shift, **kw))
+    assert torch.equal(got, qconv_rq_plain(x, w, b, mult, shift, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", TILE_BLOCKS)
+@pytest.mark.parametrize("mkn", [(25088, 64, 256), (37, 80, 13), (8, 2048, 1000)])
+def test_k1_tiles_on_card(rng, cuda, blocks, mkn):
+    m, k, n = mkn
+    x, w = _dev(rng, (m, k), cuda), _dev(rng, (k, n), cuda)
+    b, mult, shift = _epilogue_args(rng, n, cuda)
+    got = qgemm_rq(x, w, b, mult, shift, out_zp=3, blocks=blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qgemm_rq_plain(x, w, b, mult, shift, out_zp=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", TILE_BLOCKS)
+@pytest.mark.parametrize("case", [LAYOUT_CASES[0], LAYOUT_CASES[1], LAYOUT_CASES[3]])
+def test_k2_tiles_on_card(rng, cuda, blocks, case):
+    shape, k, s, p, cout, izp = case
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    kw = dict(strides=(s, s), padding=p, izp=izp, out_zp=1)
+    got = qconv_rq(x, w, b, mult, shift, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv_rq_plain(x, w, b, mult, shift, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", TILE_BLOCKS)
+@pytest.mark.parametrize("case", [((8, 56, 56, 64), 1, 256), ((2, 9, 9, 40), 3, 40)])
+def test_k3_tiles_on_card(rng, cuda, blocks, case):
+    shape, k, cout = case
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    res = _dev(rng, shape[:3] + (cout,), cuda)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    rp = _res_params(2, -1, 3, "UPWARD")
+    kw = dict(padding=(k // 2,) * 4, izp=1, out_zp=2)
+    got = qconv_rq_res(x, w, b, mult, shift, res, rp, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv_rq_res_plain(x, w, b, mult, shift, res, rp, **kw))
+
+
+@pytest.mark.cuda
+def test_tune_trial_with_a_wrong_answer_is_never_served(cuda, monkeypatch):
+    """A trial whose output differs from the plain version is recorded as
+    WRONG_ANSWER before any time is taken, and the database never serves it,
+    however fast it would have been."""
+    from tachikoma_tpu_torch.ops.kernels import conv as conv_mod
+    from tachikoma_tpu_torch.tune.database import (NO_ERROR, WRONG_ANSWER, TuneDatabase,
+                                                   apply_history_best)
+    from tachikoma_tpu_torch.tune.tuner import conv_flat_task
+
+    real = conv_mod.qconv_rq_s
+    monkeypatch.setattr(conv_mod, "qconv_rq_s", lambda *a, **k: real(*a, **k) ^ 1)
+    shape, wshape = (2, 14, 14, 64), (3, 3, 64, 64)
+    workload, configs, measure, meta_fn, _ = conv_flat_task(shape, wshape, (2, 2), (1, 1, 1, 1),
+                                                            1, device="cuda")
+    db = TuneDatabase()
+    from tachikoma_tpu_torch.tune.database import TuneRecord
+    for cfg in configs[:5]:
+        t, err, msg = measure(cfg)
+        assert err == (WRONG_ANSWER if cfg.get("layout") == "s" else NO_ERROR), (cfg, msg)
+        db.add(TuneRecord(workload, cfg, 1e-9 if err else t * 1e3, err, msg))
+    assert db.best(workload).config.get("layout") != "s"
+    monkeypatch.setattr(conv_mod, "qconv_rq_s", real)
+    calls = []
+    monkeypatch.setattr(conv_mod, "qconv_rq_s", lambda *a, **k: calls.append(1) or real(*a, **k))
+    x = torch.zeros(shape, dtype=torch.int8, device=cuda)
+    with apply_history_best(db):
+        conv_mod.qconv2d_flat(x, torch.ones(wshape, dtype=torch.int8, device=cuda),
+                              multiplier=1 << 30, shift=0, strides=(2, 2), padding=(1, 1, 1, 1))
+    assert not calls
+
+
+@pytest.mark.cuda
+def test_tune_then_serve_resnet18_on_card(cuda, tmp_path):
+    """`tune` on the card over a fused ResNet-18 at 32 px, then the forward
+    under the database == the CPU path.  Every trial is verified == plain:
+    none is a WRONG_ANSWER, and only the library route fails (cuBLASLt
+    refuses torch._int_mm at the dense's M = 2, a RUNTIME_ERROR)."""
+    from tachikoma_tpu_torch.tune.database import (NO_ERROR, RUNTIME_ERROR, TuneDatabase,
+                                                   apply_history_best)
+    from tachikoma_tpu_torch.tune.schedule import graph_tasks, schedule_tune
+
+    rng = np.random.default_rng(0)
+    q = quantize(resnet(18, batch_size=2, image_size=32, seed=0),
+                 [rng.standard_normal((2, 32, 32, 3)).astype(np.float32)])
+    fused = fuse_qnn(q)
+    db = TuneDatabase(str(tmp_path / "db.jsonl"))
+    rep = schedule_tune(graph_tasks(fused, device="cuda"), db, total_trials=40)
+    assert rep["total_trials"] == 40
+    bad = [(r.workload, r.config, r.error_msg[-200:]) for r in db.records
+           if r.error_no != NO_ERROR
+           and not (r.error_no == RUNTIME_ERROR and r.config == {"impl": "xla"})]
+    assert not bad, bad
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    names = computational_nodes(fused)
+    want = TorchExecutor(fused, capture=names, device="cpu").run(x)
+    with apply_history_best(db):
+        got = TorchExecutor(fused, capture=names, device="cuda").run(x)
+    for nm, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype, nm
+        if a.dtype.kind in "iu":
+            assert (a == b).all(), nm

@@ -39,7 +39,19 @@ def test_import_pulls_in_no_jax():
             "tachikoma_tpu_torch.runtime.artifact",
             "tachikoma_tpu_torch.ops.kernels.flash_attention",
             "tachikoma_tpu_torch.ops.attention",
-            "tachikoma_tpu_torch.models.transformer"} <= set(modules)
+            "tachikoma_tpu_torch.models.transformer",
+            "tachikoma_tpu_torch.ops.kernels.conv_layouts",
+            "tachikoma_tpu_torch.utils.timing",
+            "tachikoma_tpu_torch.tune.database", "tachikoma_tpu_torch.tune.tuner",
+            "tachikoma_tpu_torch.tune.model", "tachikoma_tpu_torch.tune.schedule",
+            "tachikoma_tpu_torch.tune.evolutionary"} <= set(modules)
+
+
+def test_the_port_never_opens_the_tpu_tuning_database():
+    """The port's default database is $TK_TUNE_DB only: no source of it
+    names the JAX package's packaged TPU records."""
+    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert "tophub" not in path.read_text(), path
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],

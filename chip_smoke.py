@@ -2,8 +2,9 @@
 MobileNetV2, each b8 224^2 fused (the run path) and b1 224^2 unfused (the
 trace path), the trained MobileNetV2 fixture loaded from its .tkmod, the
 float transformers BERT-base, GPT-2 small and ViT-B/16 through
-fuse_attention and K6, and the tuning path (tune, the four conv layouts
-K7-K10, dispatch from a tuning database) on ResNet-50.
+fuse_attention and K6, the tuning path (tune, the four conv layouts K7-K10,
+dispatch from a tuning database) on ResNet-50, and the direct-conv tuning
+path (int8 VGG-16, tune_conv on K11/K12, the graph tuner).
 
     python3 chip_smoke.py
 
@@ -76,17 +77,35 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      and under each forced layout (3 counted requests, the layout launched
      3 times per forward), every integer node == phase 5's CPU path, and the
      median latency of 10 requests without and with the tuned database, in
-     turns.
+     turns;
+ 16. the direct-conv tuning path: (a) int8 VGG-16 b8 224^2 (five
+     tk.conv2d_chain, three tk.dense_rq) through phases 3-6 again: K2 and K1
+     == plain and timed at its calls, 20 counted requests, every integer
+     node == the CPU plain path (its time printed), latency, images/s and
+     device busy share; (b) tune_conv on the card over the distinct conv
+     workloads of VGG-16 b8 (9), ResNet-50 b8's groups-1 convs and
+     MobileNetV2 b8's depthwise convs, with K11 (qconv_direct) and K12
+     (qdwconv_direct) counted from 0: every trial == plain before it is
+     timed, no WRONG_ANSWER and no unsupported record; then each workload's
+     kernel == plain, timed beside its bound, its plain version, the library
+     call and the forward's own route for the same conv (qconv2d_flat: K2, K1
+     for a 1x1, K5), whose output it must equal; (c) tune_graph over
+     VGG-16's five chain runs, each variant run as handed over by
+     TorchExecutor for 5 counted requests, every integer node == the CPU
+     path, the median of the last 4 its time; the records go to a database
+     under TMPDIR.  The phase's host seconds are printed.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
 K5 per MobileNetV2 forward (b8 fused for qdwconv_rq, b1 unfused for
 qdwconv_raw), those of K6 (flash_attn) per BERT-base b4 s128 forward, those
 of K7-K10 per ResNet-50 b8 forward with the layout forced (its three 3x3 s2
-calls, the wrapper's operand build included); `launches` sums each kernel's
-launches over the paths' timed runs (phases 5, 8, 9, 10, 11, 12c-14c and
-15c), each counted from 0 just before its run; max_abs_err is the largest
-over every check.  TF32 is off for matmuls and cuDNN (the float path's
+calls, the wrapper's operand build included), those of K11 per VGG-16 b8
+forward (its 13 conv calls, summed with their repeats) and of K12 per
+MobileNetV2 b8 forward (its 17 depthwise calls); `launches` sums each
+kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
+12c-14c, 15c, 16a and 16c; K11 and K12 in 16b's tune_conv run), each counted
+from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
@@ -148,6 +167,10 @@ KERNELS = {
                    "tachikoma_tpu/ops/pallas/conv_flat.py:182"),
     "qconv_rq_r": ("tachikoma_tpu_torch/csrc/qconv_layouts.cu",
                    "tachikoma_tpu/ops/pallas/conv_flat.py:224"),
+    "qconv_direct": ("tachikoma_tpu_torch/csrc/qconv_direct.cu",
+                     "tachikoma_tpu/ops/pallas/conv_int8.py:47"),
+    "qdwconv_direct": ("tachikoma_tpu_torch/csrc/qconv_direct.cu",
+                       "tachikoma_tpu/ops/pallas/conv_int8.py:87"),
 }
 LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_s", "qconv_rq_w", "qconv_rq_r")
 TUNE_BUDGET = 64
@@ -160,6 +183,10 @@ TRACE_KERNELS = ("qgemm_raw", "qconv_raw")
 MBV2_RUN_KERNELS = ("qdwconv_rq", "qgemm_rq", "qconv_rq")
 MBV2_TRACE_KERNELS = ("qdwconv_raw", "qgemm_raw", "qconv_raw")
 FIXTURE = os.path.join("tests", "fixtures", "synth_mbv2.tkmod")
+VGG_RUN_KERNELS = ("qconv_rq", "qgemm_rq")
+DIRECT_KERNELS = ("qconv_direct", "qdwconv_direct")
+VGG_CONVS, VGG_CONV_WORKLOADS, MBV2_DW_CONVS = 13, 9, 17
+GRAPH_TUNE_REQUESTS = 5           # per variant; the first is dropped from the median
 
 
 def say(*a):
@@ -288,9 +315,16 @@ def library_call(name, a, k):
     pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
     assert (pt, pl) == (pb, pr), "library conv takes symmetric padding"
     stride = tuple(k.get("strides", (1, 1)))
-    if name in LAYOUT_KERNELS:
+    if name in LAYOUT_KERNELS or name == "qconv_direct":
         # cuDNN's int8 conv (quantized::conv2d on the card) on the same int8
-        # tensors, channels-last, per-tensor scales, cuDNN's own requantize
+        # tensors, channels-last, per-tensor scales, cuDNN's own requantize;
+        # a CIN that is not a multiple of 4 (the CIN-3 first convs) is padded
+        # with zero channels first, outside the timed call: cuDNN would pad it
+        # on each call with a host copy, which a CUDA graph cannot capture
+        cpad = -x.shape[3] % 4
+        if cpad:
+            x = torch.nn.functional.pad(x, (0, cpad))
+            w = torch.nn.functional.pad(w, (0, 0, 0, cpad))
         qx = torch._make_per_tensor_quantized_tensor(x, 1.0, 0).permute(0, 3, 1, 2)
         qw = torch._make_per_tensor_quantized_tensor(w.permute(3, 2, 0, 1).contiguous(), 1.0, 0)
         packed = torch.ops.quantized.conv2d_prepack(qw, None, list(stride), [pt, pl], [1, 1], 1)
@@ -304,8 +338,8 @@ def library_call(name, a, k):
 
 def kernel_impls() -> dict:
     """Kernel name -> (wrapper, plain version)."""
-    from tachikoma_tpu_torch.ops.kernels import (conv, conv_layouts, depthwise, flash_attention,
-                                                 matmul_int8)
+    from tachikoma_tpu_torch.ops.kernels import (conv, conv_direct, conv_layouts, depthwise,
+                                                 flash_attention, matmul_int8)
 
     impl = {"qgemm_rq": (matmul_int8.qgemm_rq, matmul_int8.qgemm_rq_plain),
             "qconv_rq": (conv.qconv_rq, conv.qconv_rq_plain),
@@ -315,7 +349,9 @@ def kernel_impls() -> dict:
             "qdwconv_rq": (depthwise.qdwconv_rq, depthwise.qdwconv_rq_plain),
             "qdwconv_raw": (depthwise.qdwconv_raw, depthwise.qdwconv_raw_plain),
             "flash_attn": (flash_attention.flash_attention,
-                           flash_attention.flash_attention_plain)}
+                           flash_attention.flash_attention_plain),
+            "qconv_direct": (conv_direct.qconv_direct, conv_direct.qconv_direct_plain),
+            "qdwconv_direct": (conv_direct.qdwconv_direct, conv_direct.qdwconv_direct_plain)}
     for name in LAYOUT_KERNELS:
         impl[name] = (getattr(conv_layouts, name), getattr(conv_layouts, f"{name}_plain"))
     return impl
@@ -540,7 +576,9 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
     launches = read_launches(kernels, f"the {model} run path")
     for name, n in launches.items():
         say(f"{name}: {n} launches, {n // REQUESTS} per forward")
+    t0 = time.perf_counter()
     plain = TorchExecutor(fused, capture=names, device="cpu").run(requests[0])
+    say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
     n_int = hold_against_plain(names, first_out, plain, fused, SOFTMAX_RTOL, SOFTMAX_ATOL)
     prob = first_out[names.index(fused.outputs[0])]
     assert prob.shape == (BATCH, 1000) and np.allclose(prob.sum(-1), 1, atol=1e-4)
@@ -962,6 +1000,202 @@ def tune_path(state) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the direct-conv tuning path (phase 16)
+# ---------------------------------------------------------------------------
+
+def conv_calls(state) -> Counter:
+    """(x shape, w shape, strides, padding, groups) of every conv call of one
+    forward of the state's executor, with its count: the tk.conv2d_rq calls
+    of qconv2d_flat and the chain and stack stages."""
+    from tachikoma_tpu_torch.ops.kernels import conv
+    from tachikoma_tpu_torch.runtime import fuse
+
+    calls = Counter()
+    real_stage, real_flat = conv._stage, fuse.qconv2d_flat
+
+    def stage(cur, st, *a, **k):
+        calls[(tuple(cur.shape), tuple(st["w"].shape), (1, 1), tuple(st["padding"]), 1)] += 1
+        return real_stage(cur, st, *a, **k)
+
+    def flat(x, w, *a, strides=(1, 1), padding=(0, 0, 0, 0), groups=1, **k):
+        calls[(tuple(x.shape), tuple(w.shape), tuple(strides), tuple(padding), int(groups))] += 1
+        return real_flat(x, w, *a, strides=strides, padding=padding, groups=groups, **k)
+
+    conv._stage, fuse.qconv2d_flat = stage, flat
+    try:
+        state["ex"].run_device(state["requests"][0])
+        torch.cuda.synchronize()
+    finally:
+        conv._stage, fuse.qconv2d_flat = real_stage, real_flat
+    return calls
+
+
+def direct_path(vgg_state, r50_state, mbv2_state) -> tuple[dict, dict]:
+    """Phase 16b: tune_conv on the card over the conv workloads of VGG-16 b8
+    (all 13 calls), ResNet-50 b8 (its groups-1 convs) and MobileNetV2 b8
+    (its 17 depthwise convs), with K11 / K12's launches counted from 0; then
+    each workload's kernel == plain and timed beside its bound, its plain
+    version, the library call and the forward's own route (qconv2d_flat: K1
+    for a 1x1, K2, K5 for a depthwise conv), whose output it must equal.
+    Returns K11's totals per VGG-16 forward and K12's per MobileNetV2
+    forward, and their launches in the tune_conv run."""
+    from tachikoma_tpu_torch.ops.kernels.conv import qconv2d_flat
+    from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
+    from tachikoma_tpu_torch.tune.database import NO_ERROR, TuneDatabase
+    from tachikoma_tpu_torch.tune.tuner import conv_workload, tune_conv
+
+    models = {"VGG-16": conv_calls(vgg_state),
+              "ResNet-50": Counter({k: v for k, v in conv_calls(r50_state).items() if k[4] == 1}),
+              "MobileNetV2": Counter({k: v for k, v in conv_calls(mbv2_state).items()
+                                      if k[4] > 1})}
+    assert sum(models["VGG-16"].values()) == VGG_CONVS
+    assert len(models["VGG-16"]) == VGG_CONV_WORKLOADS, models["VGG-16"]
+    assert sum(models["MobileNetV2"].values()) == MBV2_DW_CONVS
+    keys = list(dict.fromkeys(k for calls in models.values() for k in calls))
+    phase(f"16b. tune_conv on the card: {len(keys)} distinct conv workloads ("
+          + ", ".join(f"{m} {len(c)} of {sum(c.values())} calls" for m, c in models.items())
+          + "), K11 qconv_direct / K12 qdwconv_direct")
+    tdir = tempfile.mkdtemp(prefix="tk_chip_smoke_direct_")
+    try:
+        path = os.path.join(tdir, "direct.jsonl")
+        db = TuneDatabase(path)
+        reset(DIRECT_KERNELS)
+        t0 = time.perf_counter()
+        for shape, wshape, strides, padding, groups in keys:
+            tune_conv(shape, wshape, strides, padding, groups, db, verbose=False)
+        launches = read_launches(DIRECT_KERNELS, "tune_conv")
+        say(f"tune_conv seconds {time.perf_counter() - t0:.1f} (host clock, inputs and plain "
+            f"references on the card included); launches: "
+            + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        with open(path) as f:
+            lines = len(f.read().splitlines())
+    finally:
+        for p in os.listdir(tdir):
+            os.unlink(os.path.join(tdir, p))
+        os.rmdir(tdir)
+    bad = [(r.workload, r.error_no, r.error_msg[-300:]) for r in db.records
+           if r.error_no != NO_ERROR]
+    assert not bad, bad
+    assert len(db) == lines == len(keys)
+    say(f"{len(db)} records, every trial == plain before it was timed: no WRONG_ANSWER, "
+        "no unsupported")
+
+    impl = kernel_impls()
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    for key in keys:
+        shape, wshape, strides, padding, groups = key
+        name = "qconv_direct" if groups == 1 else "qdwconv_direct"
+        cout = wshape[3]
+        x = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).cuda()
+        w = torch.from_numpy(rng.integers(-127, 128, wshape).astype(np.int8)).cuda()
+        bias = torch.from_numpy(rng.integers(-5000, 5000, cout).astype(np.int32)).cuda()
+        mult, shift = plan_requantize(0.002 * (0.5 + rng.random(cout)), 1.0)
+        args = (x, w, bias, channel_vector(mult, cout, "cuda"), channel_vector(shift, cout, "cuda"))
+        kw = dict(strides=strides, padding=padding)
+        r = check_call(name, args, kw, impl)
+
+        def route(x=x, w=w, bias=bias, mult=mult, shift=shift, key=key):
+            return qconv2d_flat(x, w, bias, mult, shift, strides=key[2], padding=key[3],
+                                groups=key[4])
+
+        assert torch.equal(route(), impl[name][0](*args, **kw)), f"{name} != the forward's route"
+        r["route"] = "K5" if groups > 1 else ("K1" if wshape[:2] == (1, 1) else "K2")
+        r["route_ms"] = graph_ms(route)
+        r["tune_ms"] = db.best(conv_workload(*shape, cout, *wshape[:2], strides, groups)).time_ms
+        rows[key] = r
+
+    def fmt(v, width, digits):
+        return f"{v:{width}.{digits}f}" if v is not None else f"{'-':>{width}s}"
+
+    totals = {}
+    for model, calls in models.items():
+        name = "qdwconv_direct" if model == "MobileNetV2" else "qconv_direct"
+        say(f"\n{model}: {name} per call (ms; route = the forward's own kernel on the same call)")
+        say(f"{'shape':34s} {'n':>2s} {'ms':>8s} {'tune_ms':>8s} {'bound_ms':>8s} {'by':>10s} "
+            f"{'plain_ms':>8s} {'library':>8s} {'route':>5s} {'route_ms':>8s}")
+        for key, count in calls.items():
+            r = rows[key]
+            say(f"{r['shape']:34s} {count:2d} {r['ms']:8.4f} {r['tune_ms']:8.4f} "
+                f"{r['bound_ms']:8.4f} {r['bound_by']:>10s} {r['plain_ms']:8.3f} "
+                f"{fmt(r['library_ms'], 8, 4)} {r['route']:>5s} {r['route_ms']:8.4f}")
+        t = {k: sum(rows[key][k] * n for key, n in calls.items())
+             for k in ("ms", "plain_ms", "bound_ms", "route_ms")}
+        libs = [(rows[key]["library_ms"], n) for key, n in calls.items()
+                if rows[key]["library_ms"] is not None]
+        t["library_ms"] = sum(v * n for v, n in libs) if libs else None
+        by_bytes = sum(rows[key]["bound_ms"] * n for key, n in calls.items()
+                       if rows[key]["bound_by"] == "bytes")
+        t["bound_by"] = "bytes" if 2 * by_bytes >= t["bound_ms"] else "operations"
+        t["max_abs_err"] = max(rows[key]["max_abs_err"] for key in calls)
+        n_calls = sum(calls.values())
+        say(f"{'per forward':34s} {n_calls:2d} {t['ms']:8.4f} {'':8s} {t['bound_ms']:8.4f} "
+            f"{t['bound_by']:>10s} {t['plain_ms']:8.3f} {fmt(t['library_ms'], 8, 4)} "
+            f"{'':5s} {t['route_ms']:8.4f}  (library over {sum(n for _, n in libs)} of "
+            f"{n_calls} calls; {name} / route {t['ms'] / t['route_ms']:.2f}x)")
+        if model != "ResNet-50":
+            totals[name] = t
+    return totals, launches
+
+
+def graph_tune_path(state) -> dict:
+    """Phase 16c: tune_graph over VGG-16 b8's quantized graph, all five chain
+    runs flipped in turn.  The measurer runs GRAPH_TUNE_REQUESTS counted
+    requests of TorchExecutor on the variant as handed over (not fused
+    again), holds every integer node of the first == the CPU plain path of
+    phase 16a, and returns the median latency of the others.  Returns the
+    launches in the variants' counted requests."""
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+    from tachikoma_tpu_torch.tune.database import TuneDatabase
+    from tachikoma_tpu_torch.tune.graph_tuner import chain_runs, tune_graph
+
+    q, fused, names = state["quantized"], state["fused"], state["names"]
+    requests, plain = state["requests"][:GRAPH_TUNE_REQUESTS], state["plain"]
+    runs = chain_runs(fused)
+    assert len(runs) == 5, runs
+    phase(f"16c. tune_graph over VGG-16 b{BATCH}'s {len(runs)} chain runs ({', '.join(runs)}): "
+          f"median of {GRAPH_TUNE_REQUESTS - 1} counted requests per variant")
+    launches = Counter()
+
+    def measure(g):
+        ex = TorchExecutor(g, capture=names, device="cuda")
+        assert ex.graph is g, "the executor fused the variant again"
+        chains = [n for n in g.nodes if n.op == "tk.conv2d_chain"]
+        split = [n for n in g.nodes if n.op == "tk.conv2d_rq"]
+        assert sum(len(n.attrs["stages"]) for n in chains) + len(split) == VGG_CONVS
+        counts, first = counted_requests(ex, requests, VGG_RUN_KERNELS)
+        assert counts == {"qconv_rq": VGG_CONVS * len(requests),
+                          "qgemm_rq": 3 * len(requests)}, counts
+        launches.update(counts)
+        n_int = hold_against_plain(names, first, plain, g, SOFTMAX_RTOL, SOFTMAX_ATOL)
+        lat = []
+        for x in requests[1:]:
+            t0 = time.perf_counter()
+            ex.run_device(x)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        say(f"  variant: {len(chains)} chains + {len(split)} split convs; {n_int} integer nodes "
+            f"== the CPU path; ms " + " ".join(f"{v:.3f}" for v in lat))
+        return statistics.median(lat) / 1e3
+
+    tdir = tempfile.mkdtemp(prefix="tk_chip_smoke_graph_")
+    try:
+        db = TuneDatabase(os.path.join(tdir, "graph.jsonl"))
+        t0 = time.perf_counter()
+        res = tune_graph(q, measure, db=db)
+        seconds = time.perf_counter() - t0
+    finally:
+        for p in os.listdir(tdir):
+            os.unlink(os.path.join(tdir, p))
+        os.rmdir(tdir)
+    assert res.trials == len(runs) + 1 and len(db) == res.trials
+    say(f"baseline {res.baseline_time_s * 1e3:.3f} ms, best {res.best_time_s * 1e3:.3f} ms with "
+        f"disabled {res.best_disabled}, {res.trials} trials, {seconds:.1f} s (host clock); "
+        f"records under {db.records[0].workload}")
+    return dict(launches)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -970,7 +1204,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from tachikoma_tpu_torch.models.transformer import bert_base, gpt2_small, vit_b16
-    from tachikoma_tpu_torch.models.vision import mobilenet_v2, resnet
+    from tachikoma_tpu_torch.models.vision import mobilenet_v2, resnet, vgg
     from tachikoma_tpu_torch.ops.kernels import _lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1002,21 +1236,28 @@ def main() -> int:
     def mbv2(batch):
         return mobilenet_v2(batch_size=batch, image_size=IMAGE, seed=SEED)
 
+    def vgg16(batch):
+        return vgg(16, batch_size=batch, image_size=IMAGE, seed=SEED)
+
     totals, launches, r50_state = run_path(("3.", "4.", "5.", "6."), "ResNet-50", r50,
                                            RUN_KERNELS)
     trace_totals, trace_launches = trace_path(("7.", "8."), "ResNet-50", r50, TRACE_KERNELS)
     totals.update(trace_totals)
     launches.update(trace_launches)
     errs = {k: t["max_abs_err"] for k, t in totals.items()}
-    for path_totals, path_launches in (
-            run_path(("9a.", "9b.", "9c.", "9d."), "MobileNetV2", mbv2, MBV2_RUN_KERNELS)[:2],
-            trace_path(("10a.", "10b."), "MobileNetV2", mbv2, MBV2_TRACE_KERNELS),
-            ({}, fixture_path())):
+
+    def merge(path_totals, path_launches):
         for name, t in path_totals.items():
             errs[name] = max(errs.get(name, 0), t["max_abs_err"])
             totals.setdefault(name, t)
         for name, n in path_launches.items():
             launches[name] = launches.get(name, 0) + n
+
+    mbv2_totals, mbv2_launches, mbv2_state = run_path(("9a.", "9b.", "9c.", "9d."),
+                                                      "MobileNetV2", mbv2, MBV2_RUN_KERNELS)
+    merge(mbv2_totals, mbv2_launches)
+    merge(*trace_path(("10a.", "10b."), "MobileNetV2", mbv2, MBV2_TRACE_KERNELS))
+    merge({}, fixture_path())
 
     transformers = (
         ("12", "BERT-base b4 s128", lambda: bert_base(batch_size=4, seq_len=128, seed=SEED),
@@ -1040,6 +1281,19 @@ def main() -> int:
         totals[name], errs[name] = t, t["max_abs_err"]
     for name, n in tune_launches.items():
         launches[name] = launches.get(name, 0) + n
+
+    t16 = time.perf_counter()
+    vgg_totals, vgg_launches, vgg_state = run_path(("16a.1", "16a.2", "16a.3", "16a.4"), "VGG-16",
+                                                   vgg16, VGG_RUN_KERNELS)
+    ops = Counter(n.op for n in vgg_state["fused"].nodes)
+    assert ops["tk.conv2d_chain"] == 5 and ops["tk.dense_rq"] == 3, ops
+    merge(vgg_totals, vgg_launches)
+    direct_totals, direct_launches = direct_path(vgg_state, r50_state, mbv2_state)
+    for name, t in direct_totals.items():
+        totals[name], errs[name] = t, t["max_abs_err"]
+    merge({}, direct_launches)
+    merge({}, graph_tune_path(vgg_state))
+    say(f"\nphase 16 seconds {time.perf_counter() - t16:.1f} (host clock)")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

@@ -38,8 +38,8 @@ from collections import Counter
 
 import numpy as np
 
-ZOO = ("resnet18", "resnet34", "resnet50", "mobilenet_v2", "bert", "bert_base", "gpt2",
-       "vit_b16", "vit_l16")
+ZOO = ("resnet18", "resnet34", "resnet50", "mobilenet_v2", "vgg16", "vgg19", "bert",
+       "bert_base", "gpt2", "vit_b16", "vit_l16")
 # ops of the float transformer graphs that the port's quantizer has no handler for
 _TRANSFORMER_OPS = frozenset({"tk.attention", "nn.batch_matmul", "nn.matmul", "nn.layer_norm",
                               "nn.gelu"})
@@ -66,14 +66,18 @@ def _load_graph(path: str):
 
 def _zoo(name: str, batch: int, image: int | None):
     from .models import transformer
-    from .models.vision import mobilenet_v2, resnet
+    from .models.vision import mobilenet_v2, resnet, vgg
 
     name = name.lower()
     if name not in ZOO:
         raise SystemExit(f"zoo model {name!r} is not ported yet (the port has {ZOO}; the "
-                         "others wait for ROADMAP Queue 1 item 10)")
+                         "JAX package's mlp, lenet5, digits_cnn, squeezenet, densenet, "
+                         "resnet3d18, lstm and the others of models/vision.py wait for "
+                         "ROADMAP Queue 1 item 10)")
     if name == "mobilenet_v2":
         return mobilenet_v2(batch_size=batch, image_size=image or 224)
+    if name in ("vgg16", "vgg19"):
+        return vgg(int(name[3:]), batch_size=batch, image_size=image or 224)
     if name in ("bert", "bert_base"):
         return transformer.bert_base(batch_size=batch, seq_len=128)
     if name == "vit_b16":

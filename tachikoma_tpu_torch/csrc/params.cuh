@@ -17,6 +17,8 @@ enum Param {
   // K7-K10's flat frame (qconv_layouts.cu): rows of the over-wide output,
   // rows of the input frame, the frame's row width, K9's taps per pass
   P_MO, P_MX, P_WP, P_GROUP,
+  // K11's input channels per staged chunk; K12's output tile (qconv_direct.cu)
+  P_CC, P_TH, P_TW,
   P_COUNT
 };
 

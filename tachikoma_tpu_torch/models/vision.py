@@ -1,9 +1,9 @@
-"""ResNet and MobileNetV2 float graphs, NHWC (port of
+"""ResNet, MobileNetV2 and VGG float graphs, NHWC (port of
 `tachikoma_tpu/models/vision.py`).
 
 The same functions with the same seeded random weights as the JAX package, so
-the graphs are equal node for node and byte for byte.  `resnet` and
-`mobilenet_v2` are ported; the other zoo models are not yet.
+the graphs are equal node for node and byte for byte.  `resnet`,
+`mobilenet_v2` and `vgg` are ported; the other zoo models are not yet.
 """
 
 from __future__ import annotations
@@ -163,3 +163,37 @@ def mobilenet_v2(batch_size=1, image_size=224, num_classes=1000, width_mult=1.0,
     out = _dense(b, gap, 1280, num_classes, rng, "fc")
     sm = b.call("nn.softmax", out, name="prob")
     return infer_types(b.build(sm))
+
+
+def vgg(num_layers=16, batch_size=1, image_size=224, num_classes=1000, seed=0) -> Graph:
+    """VGG-11/13/16/19 float graph, NHWC, seeded random weights: 3x3 s1 convs
+    with bias and ReLU, a 2x2 max pool after each of five stages, three dense
+    layers."""
+    plans = {
+        11: (1, 1, 2, 2, 2),
+        13: (2, 2, 2, 2, 2),
+        16: (2, 2, 3, 3, 3),
+        19: (2, 2, 4, 4, 4),
+    }
+    plan = plans[num_layers]
+    widths = (64, 128, 256, 512, 512)
+    rng = _rng(seed)
+    b = GraphBuilder(f"vgg{num_layers}")
+    x = b.var("data", (batch_size, image_size, image_size, 3), "float32")
+    h, cin = x, 3
+    for stage, (reps, cw) in enumerate(zip(plan, widths)):
+        for i in range(reps):
+            h = _conv(b, h, cin, cw, 3, 1, 1, rng, f"conv{stage}_{i}")
+            bias = b.const((rng.standard_normal(cw) * 0.01).astype(np.float32))
+            h = b.call("nn.bias_add", h, bias)
+            h = b.call("nn.relu", h, name=f"relu{stage}_{i}")
+            cin = cw
+        h = b.call("nn.max_pool2d", h, pool_size=(2, 2), strides=(2, 2), name=f"pool{stage}")
+    h = b.call("nn.batch_flatten", h, name="flat")
+    feat = (image_size // 32) ** 2 * 512
+    h = _dense(b, h, feat, 4096, rng, "fc6")
+    h = b.call("nn.relu", h)
+    h = _dense(b, h, 4096, 4096, rng, "fc7")
+    h = b.call("nn.relu", h)
+    h = _dense(b, h, 4096, num_classes, rng, "fc8")
+    return infer_types(b.build(b.call("nn.softmax", h, name="prob")))

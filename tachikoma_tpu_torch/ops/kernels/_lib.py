@@ -38,7 +38,7 @@ PARAMS = (
     "izp", "rq_izp", "out_zp", "qmin", "qmax", "tonearest", "a_vec", "b_vec",
     "l_skip", "lm", "ls", "lzp", "r_skip", "rm", "rs", "rzp", "zo", "lo", "hi",
     "add_tonearest", "g", "s", "d", "causal", "scale_bits", "bm", "bn",
-    "mo", "mx", "wp", "group",
+    "mo", "mx", "wp", "group", "cc", "th", "tw",
 )
 
 # The block tiles (BM, BN) that K1-K3 and K7-K10 are built at, with BK = 64:
@@ -80,6 +80,7 @@ SOURCES = {
     "flash_attn.cu": (("tk_flash_attn", 4),),
     "qconv_layouts.cu": (("tk_qconv_rq_t", 6), ("tk_qconv_rq_s", 6), ("tk_qconv_rq_w", 6),
                          ("tk_qconv_rq_r", 6)),
+    "qconv_direct.cu": (("tk_qconv_direct", 6), ("tk_qdwconv_direct", 6)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -67,7 +67,10 @@ def _rebuild_start(g: Graph) -> tuple[GraphBuilder, dict]:
     return b, mapping
 
 
-def fuse_qnn(graph: Graph) -> Graph:
+def fuse_qnn(graph: Graph, disabled_chains=frozenset()) -> Graph:
+    """The fused integer graph.  `disabled_chains` names tk.conv2d_chain
+    runs (as a previous fusion named them) to split back into their member
+    tk.conv2d_rq ops: the graph tuner's decisions (`tune/graph_tuner.py`)."""
     g = infer_types(graph) if _needs_types(graph) else graph
     single_user = _single_user(g, g.users(), set(g.outputs))
 
@@ -105,7 +108,7 @@ def fuse_qnn(graph: Graph) -> Graph:
                 consumed.add(t.name)
 
     if not chains:
-        return fuse_block_stacks(fuse_chain_residual(fuse_conv_chains(g)))
+        return _fuse_runs(g, disabled_chains)
 
     b, mapping = _rebuild_start(g)
     for n in g.nodes:
@@ -184,8 +187,59 @@ def fuse_qnn(graph: Graph) -> Graph:
             continue
         ins = [mapping[i] for i in n.inputs]
         mapping[n.name] = b.call(n.op, *ins, name=n.name, **dict(n.attrs))
-    return fuse_block_stacks(fuse_chain_residual(fuse_conv_chains(
-        infer_types(b.build([mapping[o] for o in g.outputs])))))
+    return _fuse_runs(infer_types(b.build([mapping[o] for o in g.outputs])), disabled_chains)
+
+
+def _fuse_runs(g: Graph, disabled_chains) -> Graph:
+    """Chains, the chains' residual adds, block stacks; the chains named in
+    `disabled_chains` are split back first."""
+    chained = fuse_conv_chains(g)
+    if disabled_chains:
+        chained = split_chains(chained, set(disabled_chains))
+    return fuse_block_stacks(fuse_chain_residual(chained))
+
+
+def split_chains(full: Graph, disabled: set) -> Graph:
+    """`full` with each tk.conv2d_chain named in `disabled` (and without a
+    fused residual add) split back into its sequential tk.conv2d_rq stages:
+    stage i is named <chain>_u<i>, the last stage keeps the chain's name
+    (the JAX package's `tune/graph_tuner.py apply_variant` split)."""
+    b = GraphBuilder(full.name)
+    mapping = {}
+    for n in full.nodes:
+        if n.is_var:
+            mapping[n.name] = b.var(n.name, n.shape, n.dtype)
+        elif n.is_const:
+            mapping[n.name] = b.const(full.params[n.name], name=n.name)
+        elif (n.op == "tk.conv2d_chain" and n.name in disabled
+              and not n.attrs.get("res_add")):
+            cur = mapping[n.inputs[0]]
+            arg = 1
+            for si, st in enumerate(n.attrs["stages"]):
+                ins = [cur, mapping[n.inputs[arg]]]
+                arg += 1
+                attrs = {
+                    "strides": (1, 1), "padding": tuple(st["padding"]),
+                    "multiplier": st["multiplier"], "shift": st["shift"],
+                    "input_zero_point": st.get("input_zero_point", 0),
+                    "output_zero_point": st.get("output_zero_point", 0),
+                    "rounding": st.get("rounding", "UPWARD"),
+                    "out_dtype": "int8",
+                }
+                for k in ("a_min", "a_max"):
+                    if k in st:
+                        attrs[k] = st[k]
+                if st.get("has_bias"):
+                    ins.append(mapping[n.inputs[arg]])
+                    arg += 1
+                    attrs["has_bias"] = True
+                nm = n.name if si == len(n.attrs["stages"]) - 1 else f"{n.name}_u{si}"
+                cur = b.call("tk.conv2d_rq", *ins, name=nm, **attrs)
+            mapping[n.name] = cur
+        else:
+            mapping[n.name] = b.call(n.op, *[mapping[i] for i in n.inputs], name=n.name,
+                                     **dict(n.attrs))
+    return infer_types(b.build([mapping[o] for o in full.outputs]))
 
 
 # ---------------------------------------------------------------------------

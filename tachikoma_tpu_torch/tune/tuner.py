@@ -7,7 +7,9 @@ taxonomy.  The config space is the port's own: `blocks` = [BM, BN, 64] over
 the tiles the kernels are built at (`ops/kernels/_lib.py TILES`), times the
 layouts None (K2), "t", "s", "w", "r" (K7-K10) for a conv; {bm, bn} for a
 chain or a stack; the tiles plus {"impl": "xla"} (the library route) for a
-GEMM.  The TPU's block sizes never enter it.
+GEMM.  The TPU's block sizes never enter it.  `tune_conv` measures the
+direct conv (`ops/kernels/conv_direct.py`: K11, K12) at one layer shape: it
+has no config to search.
 
 Measure, then verify: a trial's output is first compared == with the plain
 version on the same inputs, and only then timed (`utils/timing.py`); a
@@ -30,6 +32,7 @@ from ..ops.kernels.conv import (chain_workload, flat_conv_workload, qconv2d_flat
                                 qconv2d_flat_block_stack, qconv2d_flat_block_stack_plain,
                                 qconv2d_flat_chain, qconv2d_flat_chain_plain, qconv_rq_plain,
                                 stack_workload)
+from ..ops.kernels.conv_direct import qconv2d_int8, qconv2d_int8_plain, qconv2d_supported
 from ..ops.kernels.conv_layouts import LAYOUTS, layout_fits
 from ..ops.kernels.depthwise import qdwconv_rq_plain
 from ..ops.kernels.matmul_int8 import (matmul_workload, qgemm_raw, qgemm_raw_plain,
@@ -39,7 +42,8 @@ from ..utils.timing import call_seconds
 from .database import (COMPILE_ERROR, NO_ERROR, RUNTIME_ERROR, WRONG_ANSWER, TuneDatabase,
                        TuneRecord)
 
-__all__ = ["matmul_workload", "flat_conv_workload", "chain_workload", "stack_workload"]
+__all__ = ["matmul_workload", "flat_conv_workload", "chain_workload", "stack_workload",
+           "conv_workload"]
 
 
 def _device(device) -> torch.device:
@@ -261,13 +265,46 @@ def tune_conv_flat(shape: tuple, wshape: tuple, strides, padding, groups, db: Tu
     return db.best(workload)
 
 
+def conv_workload(n, h, w, cin, cout, kh, kw, stride, groups) -> str:
+    """Tuning-database key of a direct conv (`tachikoma_tpu/tune/tuner.py:57`)."""
+    return (f"qconv2d_int8/N{n}_H{h}_W{w}_C{cin}_O{cout}_K{kh}x{kw}"
+            f"_S{stride[0]}x{stride[1]}_G{groups}")
+
+
 def tune_conv(shape: tuple, wshape: tuple, strides, padding, groups, db: TuneDatabase,
-              verbose: bool = True) -> TuneRecord | None:
-    """The round-1 direct conv (`tachikoma_tpu/ops/pallas/conv_int8.py`) is
-    not ported yet: it comes with ROADMAP Queue 2 item 9."""
-    raise NotImplementedError(
-        "tune_conv: the round-1 direct conv (conv_int8.py _conv_kernel / _dw_kernel) is not "
-        "ported yet (ROADMAP Queue 2 item 9)")
+              verbose: bool = True, device="cuda") -> TuneRecord | None:
+    """Measure the direct conv (`qconv2d_int8`: K11, or K12 for a depthwise
+    conv) at one layer shape and record its time and TOP/s; it has no
+    config to search.  The record's config is the JAX package's,
+    {"kernel": "pallas_direct"}, so that the records of both packages stay
+    byte-equal apart from the time; a geometry `qconv2d_supported` refuses
+    gets the COMPILE_ERROR record "unsupported"."""
+    dev = _device(device)
+    n, h, w, cin = shape
+    kh, kw, wcin, cout = wshape
+    workload = conv_workload(n, h, w, cin, cout, kh, kw, strides, groups)
+    if not qconv2d_supported(shape, wshape, strides, padding, groups):
+        db.add(TuneRecord(workload, {}, float("inf"), COMPILE_ERROR, "unsupported"))
+        return None
+    rng = np.random.default_rng(0)
+    x = _to(rng.integers(-127, 127, shape).astype(np.int8), dev)
+    wt = _to(rng.integers(-127, 127, wshape).astype(np.int8), dev)
+    mult, shift = plan_requantize(0.0004, 0.05)
+    kw_ = dict(multiplier=mult, shift=shift, strides=tuple(strides), padding=tuple(padding),
+               groups=groups)
+    reference = qconv2d_int8_plain(x, wt, **kw_)
+    t, err, msg = _trial(lambda: qconv2d_int8(x, wt, **kw_), reference, dev)
+    macs = n * ((h + padding[0] + padding[2] - kh) // strides[0] + 1) * (
+        (w + padding[1] + padding[3] - kw) // strides[1] + 1) * cout * kh * kw * (cin // groups)
+    rec = TuneRecord(workload, {"kernel": "pallas_direct"},
+                     t * 1e3 if np.isfinite(t) else float("inf"), err, msg,
+                     meta={"tops": round(2 * macs / t / 1e12, 2) if err == NO_ERROR else 0})
+    db.add(rec)
+    if verbose:
+        status = (f"{t * 1e3:.3f} ms ({rec.meta['tops']} TOPS)" if err == NO_ERROR
+                  else f"err{err}: {msg[:80]}")
+        print(f"  {workload}: {status}", flush=True)
+    return db.best(workload)
 
 
 def _stage_dicts(rng, dims, mult, shift, dev):

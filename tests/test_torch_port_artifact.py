@@ -4,9 +4,9 @@ on the CPU, against the JAX package.
   * `.tkmod` files move both ways between the packages: same bytes, same
     structural hash, == params, the tuning file passed through;
   * `tests/fixtures/synth_mbv2.tkmod` (a trained MobileNetV2 imported from
-    NCHW torch) loads in the port to the reference's hash, quantizes to the
-    reference's JSON, and runs fused and unfused == `JaxExecutor` on every
-    integer node;
+    NCHW torch) and `tests/fixtures/synth_resnet.tkmod` (a trained ResNet)
+    load in the port to the reference's hash, quantize to the reference's
+    JSON, and run fused and unfused == `JaxExecutor` on every integer node;
   * the ops the fixture adds (`transpose`, `nn.batch_flatten`,
     `nn.adaptive_avg_pool2d`): the port's oracle and torch impl == the JAX
     package's oracle;
@@ -38,6 +38,7 @@ from tachikoma_tpu_torch.runtime.executor import TorchExecutor
 from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
 
 FIXTURE = pathlib.Path(__file__).resolve().parent / "fixtures" / "synth_mbv2.tkmod"
+RESNET_FIXTURE = FIXTURE.with_name("synth_resnet.tkmod")
 RTOL, ATOL = 1e-5, 1e-6
 
 
@@ -143,6 +144,42 @@ def test_fixture_executors_match_jax_executor(fixture_graphs, fuse):
             np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=name)
     # all but the float transpose at the input and the final dequantize
     assert n_int == len(names) - 2
+
+
+@pytest.fixture(scope="module")
+def resnet_fixture_graphs():
+    jg, _ = j_load_artifact(str(RESNET_FIXTURE))
+    g, _ = load_artifact(str(RESNET_FIXTURE))
+    rng = np.random.default_rng(11)
+    shape = g.inputs[0].shape
+    calib = rng.standard_normal(shape).astype(np.float32)
+    x = rng.standard_normal(shape).astype(np.float32)
+    return jg, g, j_quantize(jg, [calib]), quantize(g, [calib]), x
+
+
+def test_resnet_fixture_loads_and_quantizes_as_the_reference(resnet_fixture_graphs):
+    jg, g, jq, q, _ = resnet_fixture_graphs
+    _same_graph(g, jg)
+    assert q.to_json() == jq.to_json()
+    assert sum(n.op == "qnn.add" for n in q.nodes) > 0
+
+
+@pytest.mark.parametrize("fuse,n_nodes", [(True, 21), (False, 73)])
+def test_resnet_fixture_executors_match_jax_executor(resnet_fixture_graphs, fuse, n_nodes):
+    _, _, jq, q, x = resnet_fixture_graphs
+    names = computational_nodes(fuse_qnn(q) if fuse else q)
+    assert len(names) == n_nodes
+    got = TorchExecutor(q, capture=names, device="cpu", fuse=fuse).run(x)
+    want = JaxExecutor(jq, capture=names, fuse=fuse).run(x)
+    n_int = 0
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype.kind in "iu":
+            np.testing.assert_array_equal(a, b, err_msg=name)
+            n_int += 1
+        else:
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=name)
+    assert n_int >= len(names) - 2
 
 
 def _port_and_reference(op, attrs, x):

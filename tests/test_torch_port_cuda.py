@@ -3,7 +3,10 @@
 MobileNetV2 (K5: b8 fused, b1 unfused) and at ragged shapes, on the same
 inputs; K6 (float attention) is within rtol 2e-5, atol 2e-6 of its plain
 version (tests/test_flash_attention.py's tolerance); the executors and the
-trace emitter on the card equal the CPU path.
+trace emitter on the card equal the CPU path.  K11 and K12 (the direct conv)
+equal their plain versions at tests/test_torch_port_conv_direct.py's shapes
+and at 56^2 c64 3x3 s1 and 112^2 c96 depthwise s2; tune_conv, a fused VGG-11
+forward and tune_graph run on the card (`-k "direct or vgg or graph_tune"`).
 
 Every test here is marked `cuda` and skips without a CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs where they are not
@@ -539,3 +542,182 @@ def test_tune_then_serve_resnet18_on_card(cuda, tmp_path):
         assert a.dtype == b.dtype, nm
         if a.dtype.kind in "iu":
             assert (a == b).all(), nm
+
+
+# ---------------------------------------------------------------------------
+# K11 qconv_direct, K12 qdwconv_direct, tune_conv, VGG and the graph tuner
+# ---------------------------------------------------------------------------
+
+# (x shape, w shape, strides, padding): the CPU tests' shapes
+# (tests/test_torch_port_conv_direct.py) and the main path's larger ones
+DIRECT_CASES = [
+    ((1, 14, 14, 64), (3, 3, 64, 48), (1, 1), (1, 1, 1, 1)),
+    ((2, 9, 9, 32), (3, 3, 32, 48), (2, 2), (1, 1, 1, 1)),
+    ((1, 8, 8, 40), (3, 3, 40, 48), (1, 1), (0, 0, 0, 0)),
+    ((2, 10, 10, 24), (3, 3, 24, 72), (1, 1), (1, 1, 1, 1)),
+    ((1, 9, 9, 24), (1, 1, 24, 40), (2, 2), (0, 0, 0, 0)),
+    ((2, 20, 20, 3), (7, 7, 3, 64), (2, 2), (3, 3, 3, 3)),
+    ((1, 12, 12, 3), (3, 3, 3, 64), (1, 1), (1, 1, 1, 1)),
+    ((8, 56, 56, 64), (3, 3, 64, 64), (1, 1), (1, 1, 1, 1)),
+    ((2, 14, 14, 512), (3, 3, 512, 512), (1, 1), (1, 1, 1, 1)),
+    ((2, 15, 15, 64), (11, 11, 64, 72), (1, 1), (5, 5, 5, 5)),
+]
+DW_DIRECT_CASES = [
+    ((1, 12, 12, 128), 3, (1, 1), (1, 1, 1, 1)),
+    ((1, 11, 11, 96), 3, (2, 2), (1, 1, 1, 1)),
+    ((1, 9, 9, 48), 3, (1, 1), (1, 1, 1, 1)),
+    ((2, 10, 10, 72), 3, (2, 2), (1, 1, 1, 1)),
+    ((1, 9, 9, 30), 5, (1, 1), (2, 2, 2, 2)),
+    ((8, 112, 112, 96), 3, (2, 2), (0, 1, 0, 1)),
+    ((8, 112, 112, 32), 3, (1, 1), (1, 1, 1, 1)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("izp,out_dtype,qmin,qmax,rounding",
+                         [(0, torch.int8, -128, 127, "UPWARD"),
+                          (-9, torch.uint8, 0, 255, "TONEAREST")])
+@pytest.mark.parametrize("case", DIRECT_CASES)
+def test_k11_qconv_direct_on_card(rng, cuda, case, izp, out_dtype, qmin, qmax, rounding):
+    from tachikoma_tpu_torch.ops.kernels.conv_direct import qconv_direct, qconv_direct_plain
+
+    shape, wshape, strides, padding = case
+    x, w = _dev(rng, shape, cuda), _dev(rng, wshape, cuda)
+    args = (x, w, *_epilogue_args(rng, wshape[3], cuda))
+    kw = dict(strides=strides, padding=padding, izp=izp, out_zp=5, rounding=rounding, qmin=qmin,
+              qmax=qmax, out_dtype=out_dtype)
+    before = _lib.LAUNCHES["qconv_direct"]
+    got = qconv_direct(*args, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["qconv_direct"] == before + 1
+    want = qconv_direct_plain(*args, **kw)
+    assert got.dtype == want.dtype == out_dtype
+    assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("izp,out_dtype,qmin,qmax,rounding",
+                         [(0, torch.int8, -128, 127, "UPWARD"),
+                          (77, torch.uint8, 0, 255, "TONEAREST")])
+@pytest.mark.parametrize("case", DW_DIRECT_CASES)
+def test_k12_qdwconv_direct_on_card(rng, cuda, case, izp, out_dtype, qmin, qmax, rounding):
+    from tachikoma_tpu_torch.ops.kernels.conv_direct import (qdwconv_direct,
+                                                             qdwconv_direct_plain)
+
+    shape, k, strides, padding = case
+    c = shape[3]
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, 1, c), cuda)
+    args = (x, w, *_epilogue_args(rng, c, cuda))
+    kw = dict(strides=strides, padding=padding, izp=izp, out_zp=-3, rounding=rounding,
+              qmin=qmin, qmax=qmax, out_dtype=out_dtype)
+    before = _lib.LAUNCHES["qdwconv_direct"]
+    got = qdwconv_direct(*args, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["qdwconv_direct"] == before + 1
+    want = qdwconv_direct_plain(*args, **kw)
+    assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
+
+
+@pytest.mark.cuda
+def test_qconv2d_direct_entry_on_a_view_and_refusals(rng, cuda):
+    """qconv2d_int8 copies a non-contiguous view before K11 runs it; K11 and
+    K12 refuse a CPU operand beside a CUDA one and a weight whose shape does
+    not fit the image's channels."""
+    from tachikoma_tpu_torch.ops.kernels.conv_direct import qconv2d_int8, qconv2d_int8_plain
+
+    x = _dev(rng, (2, 12, 12, 64), cuda)[:, 1:11, 1:11, :]
+    w = _i8(rng, (3, 3, 64, 32))
+    m, s = plan_requantize(0.0004, 0.05)
+    kw = dict(multiplier=m, shift=s, padding=(1, 1, 1, 1), input_zero_point=4)
+    assert torch.equal(qconv2d_int8(x, w, **kw), qconv2d_int8_plain(x, w, **kw))
+    from tachikoma_tpu_torch.ops.kernels.conv_direct import qconv_direct
+
+    b = torch.zeros(32, dtype=torch.int32)
+    with pytest.raises(ValueError, match="is on cpu"):
+        qconv_direct(x.contiguous(), torch.from_numpy(w).to(cuda), b, b, b)
+    b = b.to(cuda)
+    with pytest.raises(ValueError, match="has shape"):     # CIN 64 against a 48-deep weight
+        qconv_direct(x.contiguous(), torch.from_numpy(w[:, :, :48]).to(cuda), b, b, b)
+    from tachikoma_tpu_torch.ops.kernels.conv_direct import qdwconv_direct
+
+    with pytest.raises(ValueError, match="has shape"):     # a depthwise weight of 32 channels
+        qdwconv_direct(x.contiguous(), torch.from_numpy(w[:, :, :1]).to(cuda), b, b, b)
+
+
+@pytest.mark.cuda
+def test_tune_conv_direct_on_card(cuda):
+    """tune_conv on the card at a VGG, a ResNet and a MobileNetV2 shape: each
+    trial == plain before it is timed, one record each, K11 / K12 launched."""
+    from tachikoma_tpu_torch.tune.database import NO_ERROR, TuneDatabase
+    from tachikoma_tpu_torch.tune.tuner import tune_conv
+
+    db = TuneDatabase()
+    before = dict(_lib.LAUNCHES)
+    for shape, wshape, strides, padding, groups in [
+            ((2, 28, 28, 256), (3, 3, 256, 256), (1, 1), (1, 1, 1, 1), 1),
+            ((2, 56, 56, 64), (7, 7, 64, 64), (2, 2), (3, 3, 3, 3), 1),
+            ((2, 56, 56, 144), (3, 3, 1, 144), (2, 2), (0, 1, 0, 1), 144)]:
+        best = tune_conv(shape, wshape, strides, padding, groups, db, verbose=False)
+        assert best is not None and best.error_no == NO_ERROR, db.records[-1].error_msg
+        assert best.meta["tops"] > 0
+    assert len(db) == 3
+    for name in ("qconv_direct", "qdwconv_direct"):
+        assert _lib.LAUNCHES[name] > before.get(name, 0)
+
+
+@pytest.fixture(scope="module")
+def vgg11_32():
+    from tachikoma_tpu_torch.models.vision import vgg
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    return quantize(vgg(11, batch_size=2, image_size=32, seed=0), [x]), x
+
+
+@pytest.mark.cuda
+def test_vgg_fused_forward_on_card_equals_cpu(cuda, vgg11_32):
+    q, x = vgg11_32
+    fused = fuse_qnn(q)
+    names = computational_nodes(fused)
+    got = TorchExecutor(fused, capture=names, device="cuda").run(x)
+    want = TorchExecutor(fused, capture=names, device="cpu").run(x)
+    for nm, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype, nm
+        if a.dtype.kind in "iu":
+            assert (a == b).all(), nm
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-8, err_msg=nm)
+
+
+@pytest.mark.cuda
+def test_graph_tune_vgg_on_card(cuda, vgg11_32):
+    """tune_graph over VGG-11's three chains with a measurer that runs each
+    variant on the card; every variant's integer outputs == the baseline's."""
+    import time
+
+    from tachikoma_tpu_torch.tune.database import TuneDatabase
+    from tachikoma_tpu_torch.tune.graph_tuner import tune_graph
+
+    q, x = vgg11_32
+    names = computational_nodes(fuse_qnn(q))
+    base = {}
+
+    def measure(g):
+        ex = TorchExecutor(g, capture=names, device="cuda")
+        assert ex.graph is g            # run as handed over, not fused again
+        outs = ex.run(x)
+        for nm, a, b in zip(names, outs, base.setdefault("outs", outs)):
+            assert a.dtype == b.dtype, nm
+            if a.dtype.kind in "iu":
+                assert (a == b).all(), nm
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ex.run_device(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[1]
+
+    db = TuneDatabase()
+    res = tune_graph(q, measure, db=db, verbose=False)
+    assert res.trials == 4 and len(db) == 4

@@ -180,7 +180,7 @@ def test_tune_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         p_tuner.matmul_task(64, 64, 64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         p_tuner.conv_chain_task(1, 8, 8, [(3, 16, 16)])
-    with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         p_tuner.tune_conv((1, 8, 8, 16), (3, 3, 16, 16), (1, 1), (1, 1, 1, 1), 1,
                           p_db.TuneDatabase())
     wl, configs, measure, _, _ = p_tuner.matmul_task(20, 64, 24, device="cpu")

@@ -70,9 +70,12 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      per-task trials and bests printed; (b) with a database forcing each
      layout at 64 x 64 on the three 3x3 s2 convs, one forward recorded and
      K7-K10 (qconv_rq_t/_s/_w/_r) held == plain at its three calls, timed
-     beside their bound, the plain version and cuDNN's int8 conv
-     (quantized::conv2d, channels-last), then the same at a chain stage
-     (56^2 c64 3x3 s1) beside K2; (c) the forward under the tuned database
+     beside their bound, the plain version, cuDNN's int8 conv
+     (quantized::conv2d, channels-last) and K2 on the same calls, with K7's
+     and K9's per-call wrapper work (host clock) and K8's and K10's operand
+     build; then the same at the stem (7x7 s2, CIN 3, the layout forced on
+     it alone) beside K2, and at a chain stage (56^2 c64 3x3 s1) beside K2;
+     (c) the forward under the tuned database
      (every kernel call of one forward == plain, then 10 counted requests)
      and under each forced layout (3 counted requests, the layout launched
      3 times per forward), every integer node == phase 5's CPU path, and the
@@ -100,7 +103,8 @@ are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
 K5 per MobileNetV2 forward (b8 fused for qdwconv_rq, b1 unfused for
 qdwconv_raw), those of K6 (flash_attn) per BERT-base b4 s128 forward, those
 of K7-K10 per ResNet-50 b8 forward with the layout forced (its three 3x3 s2
-calls, the wrapper's operand build included), those of K11 per VGG-16 b8
+calls; K8's and K10's operand build and every wrapper's device work
+included), those of K11 per VGG-16 b8
 forward (its 13 conv calls, summed with their repeats) and of K12 per
 MobileNetV2 b8 forward (its 17 depthwise calls); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
@@ -159,11 +163,11 @@ KERNELS = {
                     "tachikoma_tpu/ops/jax_ops.py:121"),
     "flash_attn": ("tachikoma_tpu_torch/csrc/flash_attn.cu",
                    "tachikoma_tpu/ops/pallas/flash_attention.py:33"),
-    "qconv_rq_t": ("tachikoma_tpu_torch/csrc/qconv_layouts.cu",
+    "qconv_rq_t": ("tachikoma_tpu_torch/csrc/qconv_layouts_hopper.cu",
                    "tachikoma_tpu/ops/pallas/conv_flat.py:278"),
     "qconv_rq_s": ("tachikoma_tpu_torch/csrc/qconv_layouts.cu",
                    "tachikoma_tpu/ops/pallas/conv_flat.py:133"),
-    "qconv_rq_w": ("tachikoma_tpu_torch/csrc/qconv_layouts.cu",
+    "qconv_rq_w": ("tachikoma_tpu_torch/csrc/qconv_layouts_hopper.cu",
                    "tachikoma_tpu/ops/pallas/conv_flat.py:182"),
     "qconv_rq_r": ("tachikoma_tpu_torch/csrc/qconv_layouts.cu",
                    "tachikoma_tpu/ops/pallas/conv_flat.py:224"),
@@ -173,6 +177,10 @@ KERNELS = {
                        "tachikoma_tpu/ops/pallas/conv_int8.py:87"),
 }
 LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_s", "qconv_rq_w", "qconv_rq_r")
+# K7 and K9 read the NHWC image in the kernel (csrc/qconv_layouts_hopper.cu);
+# K8 and K10 take the flat frame that their wrappers build
+NHWC_LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_w")
+WRAPPER_CALLS = 20                # host-clock repeats of the wrappers' own work
 TUNE_BUDGET = 64
 FORCED_BLOCKS = [64, 64, 64]      # the tile of the forced-layout databases (phase 15)
 FORCED_REQUESTS = 3
@@ -834,8 +842,9 @@ def k6_reference_shapes() -> float:
 # the tuning path (phase 15)
 # ---------------------------------------------------------------------------
 
-def s2_workloads(fused) -> list[str]:
-    """The tuning-database keys of the fused graph's 3x3 stride-2 convs."""
+def s2_workloads(fused, k: int = 3) -> list[str]:
+    """The tuning-database keys of the fused graph's k x k stride-2 convs (k
+    3: the three 3x3 s2; k 7: the stem)."""
     from tachikoma_tpu_torch.ops.kernels.conv import flat_conv_workload
     from tachikoma_tpu_torch.ops.nn import _pair
 
@@ -844,9 +853,41 @@ def s2_workloads(fused) -> list[str]:
         if n.op == "tk.conv2d_rq":
             x, w = fused[n.inputs[0]].shape, fused[n.inputs[1]].shape
             strides = _pair(tuple(n.attrs.get("strides", (1, 1))))
-            if tuple(w[:2]) == (3, 3) and strides == (2, 2):
-                keys.append(flat_conv_workload(*x, w[3], 3, 3, strides, True))
+            if tuple(w[:2]) == (k, k) and strides == (2, 2):
+                keys.append(flat_conv_workload(*x, w[3], k, k, strides, True))
     return keys
+
+
+def forced_calls(ex, x, workloads, name: str) -> list:
+    """The calls of `name` in one forward of `ex` under a database forcing
+    its layout on `workloads`."""
+    from tachikoma_tpu_torch.tune.database import apply_history_best
+
+    calls: list = []
+    with apply_history_best(forced_database(workloads, name)), recording(calls):
+        ex.run_device(x)
+    torch.cuda.synchronize()
+    return [c for c in calls if c[0] == name]
+
+
+def wrapper_work_ms(calls) -> float:
+    """Host-clock ms per forward of K7's or K9's wrapper work besides the
+    launch (conv_layouts.layout_operands: the packed-weight lookup, the bias
+    fold where izp != 0, the output's allocation), summed over `calls`, each
+    the mean of WRAPPER_CALLS calls ending in a synchronize."""
+    from tachikoma_tpu_torch.ops.kernels.conv_layouts import flat_geometry, layout_operands
+
+    total = 0.0
+    for _, a, k in calls:
+        g = flat_geometry(a[0].shape, a[1].shape, k["strides"], k["padding"])
+        layout_operands(a[0], a[1], a[2], k["izp"], g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WRAPPER_CALLS):
+            layout_operands(a[0], a[1], a[2], k["izp"], g)
+        torch.cuda.synchronize()
+        total += (time.perf_counter() - t0) * 1e3 / WRAPPER_CALLS
+    return total
 
 
 def forced_database(workloads, layout: str):
@@ -921,21 +962,54 @@ def tune_path(state) -> tuple[dict, dict]:
             f"{shown}")
 
     phase("15b. K7-K10 at the forward's three 3x3 s2 calls (each layout forced at "
-          f"{FORCED_BLOCKS}) and at a chain stage: == plain, time, bound, library")
+          f"{FORCED_BLOCKS}), K2 on the same calls, the stem, and a chain stage: == plain, "
+          "time, bound, library")
     totals, errs = {}, {}
+    k2_ms = None
     for name in LAYOUT_KERNELS:
-        calls: list = []
-        with apply_history_best(forced_database(wls, name)), recording(calls):
-            ex.run_device(requests[0])
-        torch.cuda.synchronize()
-        calls = [c for c in calls if c[0] == name]
+        calls = forced_calls(ex, requests[0], wls, name)
         assert len(calls) == 3, (name, len(calls))
         totals.update(check_kernels(calls, (name,)))
         errs[name] = totals[name]["max_abs_err"]
-        glue = sum(graph_ms(lambda: flat_operands(a[0], a[1], name[-1], k["strides"],
-                                                  k["padding"], k["izp"])) for _, a, k in calls)
-        say(f"of which the wrapper's operand build (flat_operands: phase image, padding, weight "
-            f"layout) {glue:.4f} ms per forward")
+        if k2_ms is None:  # K2 at the same tile on the same three calls
+            for _, a, k in calls:
+                hold_call("qconv_rq", a, k, impl)
+            k2_ms = sum(graph_ms(lambda a=a, k=k: impl["qconv_rq"][0](*a, **k))
+                        for _, a, k in calls)
+        if name in NHWC_LAYOUT_KERNELS:
+            work_ms = wrapper_work_ms(calls)
+            say(f"the wrapper's own work per forward (host clock, {WRAPPER_CALLS} calls each; "
+                f"packed-weight lookup, bias fold at izp "
+                f"{sorted({k['izp'] for _, _, k in calls})}, output allocation) {work_ms:.4f} ms; "
+                "no operand build")
+        else:
+            glue = sum(graph_ms(lambda a=a, k=k: flat_operands(a[0], a[1], name[-1], k["strides"],
+                                                               k["padding"], k["izp"]))
+                       for _, a, k in calls)
+            say(f"of which the wrapper's operand build (flat_operands: phase image, padding, "
+                f"weight layout) {glue:.4f} ms per forward")
+    say(f"\nper ResNet-50 b{BATCH} forward, the three 3x3 s2 calls at {FORCED_BLOCKS} (ms):")
+    say(f"{'kernel':12s} {'ms':>9s} {'bound_ms':>9s} {'plain_ms':>9s} {'cuDNN int8':>10s} "
+        f"{'K2 same calls':>13s} {'/ K2':>6s}")
+    for name in LAYOUT_KERNELS:
+        t = totals[name]
+        say(f"{name:12s} {t['ms']:9.4f} {t['bound_ms']:9.4f} {t['plain_ms']:9.3f} "
+            f"{t['library_ms']:10.4f} {k2_ms:13.4f} {t['ms'] / k2_ms:6.2f}")
+
+    stem = s2_workloads(fused, 7)
+    assert len(stem) == 1, stem
+    phase(f"15b. the stem (7x7 s2, CIN 3), each layout forced at {FORCED_BLOCKS}: == plain, "
+          "time, bound, library, beside K2")
+    say(f"{'kernel':12s} {'ms':>9s} {'bound_ms':>9s} {'by':>10s} {'plain_ms':>9s} "
+        f"{'library_ms':>10s}  (library: cuDNN int8, CIN padded to 4)")
+    for name in LAYOUT_KERNELS:
+        (_, a, k), = forced_calls(ex, requests[0], stem, name)
+        for kernel in (("qconv_rq", name) if name == LAYOUT_KERNELS[0] else (name,)):
+            r = check_call(kernel, a, k, impl)
+            errs[kernel] = max(errs.get(kernel, 0), r["max_abs_err"])
+            say(f"{kernel:12s} {r['ms']:9.4f} {r['bound_ms']:9.4f} {r['bound_by']:>10s} "
+                f"{r['plain_ms']:9.3f} {r['library_ms']:10.4f}")
+
     shape, wshape, strides, padding = CHAIN_STAGE
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).cuda()

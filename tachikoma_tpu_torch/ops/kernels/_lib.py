@@ -78,8 +78,8 @@ SOURCES = {
     "qgemm_raw.cu": (("tk_qgemm_raw", 4), ("tk_qconv_raw", 4)),
     "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4)),
     "flash_attn.cu": (("tk_flash_attn", 4),),
-    "qconv_layouts.cu": (("tk_qconv_rq_t", 6), ("tk_qconv_rq_s", 6), ("tk_qconv_rq_w", 6),
-                         ("tk_qconv_rq_r", 6)),
+    "qconv_layouts.cu": (("tk_qconv_rq_s", 6), ("tk_qconv_rq_r", 6)),
+    "qconv_layouts_hopper.cu": (("tk_qconv_rq_t", 6), ("tk_qconv_rq_w", 6)),
     "qconv_direct.cu": (("tk_qconv_direct", 6), ("tk_qdwconv_direct", 6)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

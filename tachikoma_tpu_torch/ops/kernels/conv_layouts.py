@@ -4,35 +4,43 @@
 
 All four compute exactly K2's function (`conv.qconv_rq`): the NHWC int8 conv,
 int32 accumulator plus bias, the exact requantize epilogue.  They differ in
-how the kernel moves data (`csrc/qconv_layouts.cu`):
+how the kernel moves data:
 
-  * `qconv_rq_t` (K7, layout "t"): the image channel-major, (C, MX);
-  * `qconv_rq_s` (K8, layout "s"): the block's input window staged once per
-    channel chunk, every tap read from shared memory;
-  * `qconv_rq_w` (K9, layout "w"): one wide product against the taps' weights
-    side by side, then shifted int32 sums;
-  * `qconv_rq_r` (K10, layout "r"): K in (kx, ky, ci) order, each column
-    tap's row taps one deep-K run.
+  * `qconv_rq_t` (K7, layout "t", `csrc/qconv_layouts_hopper.cu`): the window
+    channel-major in shared memory;
+  * `qconv_rq_s` (K8, layout "s", `csrc/qconv_layouts.cu`): the block's input
+    window staged once per channel chunk, every tap read from shared memory;
+  * `qconv_rq_w` (K9, layout "w", `csrc/qconv_layouts_hopper.cu`): one wide
+    product (wgmma) against the live taps' weights side by side, then shifted
+    int32 sums;
+  * `qconv_rq_r` (K10, layout "r", `csrc/qconv_layouts.cu`): K in (kx, ky, ci)
+    order, each column tap's row taps one deep-K run.
 
-The wrappers build the kernels' operands as `_conv_mxu` does: a stride-s conv
-becomes a stride-1 conv over the polyphase-stacked image (`phase_image`,
+All four are defined on the polyphase frame of `_conv_mxu`: a stride-s conv
+is a stride-1 conv over the polyphase-stacked image (`phase_image`,
 `phase_weights`: exact relabelings), padded with the input zero point and
 flattened to the over-wide frame (output row m = n*FH + oh*WP + ow reads input
-row m + a*WP + b for tap (a, b)); the garbage columns are sliced off after.
-The input zero point folds into the bias.  Unlike the TPU wrapper, channels
-pad to a multiple of 16 (not 128) and no width or VMEM padding is added.
+row m + a*WP + b for tap (a, b)); the garbage columns are dropped after.  The
+input zero point folds into the bias.  Unlike the TPU wrapper, channels pad
+to a multiple of 16 (not 128) and no width or VMEM padding is added.  K8's
+and K10's wrappers build that frame (`flat_operands`) and hand it to their
+kernels; K7 and K9 read the caller's NHWC image and the weights packed once
+as (KH, KW, COUT, CIN) (`packed_weights`, cached per weight tensor), compute
+the frame's addresses themselves, skip the (chunk, tap) pairs whose phases
+have no weight (`live_taps`) and store straight into (N, OH, OW, COUT).
 
-Each layout's plain version follows its kernel's decomposition on the same
-flat operands, so the CPU tests check the decomposition and not only the
-dispatch: "s" an explicit im2col and one product, "w" one wide product and
-shifted int32 sums, "r" one deep-K product per column tap, "t" per-tap
-products that contract the channel-major image over its first axis.  On a CPU
-tensor each wrapper runs its plain version; on a CUDA tensor it launches its
-kernel or raises.
+Each layout's plain version follows its kernel's decomposition on the flat
+operands, so the CPU tests check the decomposition and not only the
+dispatch: "s" an explicit im2col and one product, "w" per 64-channel chunk
+one wide product against the chunk's live taps and shifted int32 sums, "r"
+one deep-K product per column tap, "t" per-tap products that contract the
+channel-major image over its first axis.  On a CPU tensor each wrapper runs
+its plain version; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -44,7 +52,11 @@ from .requantize import epilogue_plain
 LAYOUTS = ("t", "s", "w", "r")
 SROW = BK + 16                # shared-memory row stride of the kernels, bytes
 SMEM_LIMIT = 232448           # 227 KB: the H100's shared memory per block
-W_PPAD = 4                    # int32 padding per row of K9's partials
+KC = 64                       # K7 / K9: phase channels per chunk
+GMAX = 4                      # K7 / K9: live taps per step
+W_NW = 32                     # K9: window rows per wgmma
+W_PPAD = 4                    # K9: int32 padding per row of the partials
+T_SROW = 80                   # K7: bytes per staged weight row
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -59,7 +71,8 @@ def _round_up(a: int, b: int) -> int:
 class FlatGeometry:
     """The flat frame of a conv: output (N, OH, OW); the phase image (N, HPH,
     WPH, C) with C = round_up(SH*SW*CIN, 16); KHP x KWP taps at row offsets
-    `offs`; MO over-wide output rows; MX input rows (MO + maxoff, to 16)."""
+    `offs`; MO over-wide output rows; MX input rows (MO + maxoff, to 16); the
+    conv's own KH, KW, SH, SW and CIN."""
     n: int
     oh: int
     ow: int
@@ -72,6 +85,11 @@ class FlatGeometry:
     mo: int
     mx: int
     maxoff: int
+    kh: int
+    kw: int
+    sh: int
+    sw: int
+    cin: int
 
     @property
     def offs(self) -> list[int]:
@@ -93,7 +111,17 @@ def flat_geometry(x_shape, w_shape, strides, padding) -> FlatGeometry:
     maxoff = (khp - 1) * wph + kwp - 1
     mo = n * hph * wph
     return FlatGeometry(n, oh, ow, khp, kwp, hph, wph, cin_s, _round_up(cin_s, 16), mo,
-                        _round_up(mo + maxoff, 16), maxoff)
+                        _round_up(mo + maxoff, 16), maxoff, kh, kw, sh, sw, cin)
+
+
+def live_taps(g: FlatGeometry, k0: int) -> list[int]:
+    """The taps t = a*KWP + b with a weight in some phase of the 64 phase
+    channels from k0 (csrc/qconv_layouts_hopper.cu tap_live): phase (p, q)
+    has tap (a, b) when a*SH + p < KH and b*SW + q < KW."""
+    phases = range(k0 // g.cin, (min(k0 + KC, g.cin_s) - 1) // g.cin + 1)
+    return [a * g.kwp + b for a in range(g.khp) for b in range(g.kwp)
+            if any(a * g.sh + ph // g.sw < g.kh and b * g.sw + ph % g.sw < g.kw
+                   for ph in phases)]
 
 
 def phase_image(x, g: FlatGeometry, strides, padding, izp) -> torch.Tensor:
@@ -154,38 +182,48 @@ def flat_operands(x, w, layout: str, strides, padding, izp):
 
 
 # ---------------------------------------------------------------------------
-# shared memory (the sums of csrc/qconv_layouts.cu smem_bytes)
+# shared memory (the sums of csrc/qconv_layouts.cu and
+# csrc/qconv_layouts_hopper.cu smem_bytes)
 # ---------------------------------------------------------------------------
 
 def smem_bytes(layout: str, tile, g: FlatGeometry, group: int = 1) -> int:
+    """Dynamic shared memory of `layout` at `tile` with `group` live taps per
+    step (K7, K9): K9 two windows of BM + maxoff rows rounded to its wgmma's
+    32, two weight tiles and the int32 partials; K7 two NHWC windows, the
+    channel-major window and two weight tiles."""
     bm, bn = tile
     if layout == "s":
         return (bm + g.maxoff + bn) * SROW
-    if layout == "t":
-        return BK * (_round_up(bm + g.maxoff, 16) + 16) + (bm + bn) * SROW
     if layout == "r":
         return (bm + (g.khp - 1) * g.wph + g.khp * bn) * SROW
-    rows = _round_up(bm + g.maxoff, 16)
-    return (rows + group * bn) * SROW + rows * (group * bn + W_PPAD) * 4
+    if layout == "w":
+        rows = _round_up(bm + g.maxoff, W_NW)
+        return 2 * rows * KC + 2 * group * bn * KC + rows * (group * bn + W_PPAD) * 4
+    rows4 = _round_up(bm + g.maxoff, 4)
+    xs = _round_up(rows4 + 4, 32) + 8
+    return 2 * rows4 * KC + KC * xs + 2 * group * bn * T_SROW
 
 
-def w_group(tile, g: FlatGeometry) -> int:
-    """K9's taps per pass: the most whose partials fit in shared memory, 0
-    when not even one tap's do (the tile is then refused)."""
-    best = 0
-    for group in range(1, g.khp * g.kwp + 1):
-        if smem_bytes("w", tile, g, group) <= SMEM_LIMIT:
-            best = group
-    return best
+def layout_group(layout: str, tile, g: FlatGeometry) -> int:
+    """The most live taps per step K7 and K9 may take (up to 4, and for K9 up
+    to 256 / BN, wgmma's widest N) within shared memory; 0 when not even one
+    fits (the tile is then refused).  The launcher runs this many or fewer,
+    from a cost model of its occupancy (csrc/qconv_layouts_hopper.cu
+    launch_tile)."""
+    cap = min(GMAX, g.khp * g.kwp, 256 // tile[1] if layout == "w" else GMAX)
+    if g.khp * g.kwp > 255:
+        return 0
+    fits = [grp for grp in range(1, cap + 1) if smem_bytes(layout, tile, g, grp) <= SMEM_LIMIT]
+    return max(fits, default=0)
 
 
 def layout_fits(layout: str, blocks, x_shape, w_shape, strides, padding) -> bool:
     """Whether `layout` at `blocks` fits the H100's shared memory for this
-    conv (K9 needs at least one tap's partials; K7, K8 and K10 a window)."""
+    conv (K7 and K9 need at least one tap per step; K8 and K10 a window)."""
     g = flat_geometry(x_shape, w_shape, strides, padding)
     tile = (int(blocks[0]), int(blocks[1]))
-    if layout == "w":
-        return w_group(tile, g) > 0
+    if layout in ("t", "w"):
+        return layout_group(layout, tile, g) > 0
     return smem_bytes(layout, tile, g) <= SMEM_LIMIT
 
 
@@ -204,13 +242,19 @@ def acc_s(xf, wl, g: FlatGeometry) -> torch.Tensor:
 
 
 def acc_w(xf, wl, g: FlatGeometry) -> torch.Tensor:
-    """One wide product (MX, C) x (C, T*COUT), then each output sums its
-    taps' int32 partials at their row shifts."""
+    """Per chunk of 64 phase channels, one wide product (MX, 64) x (64,
+    L*COUT) against the chunk's L live taps side by side, then each output
+    sums those taps' int32 partials at their row shifts (the other taps'
+    weights in the chunk are zero)."""
     cout = wl.shape[1] // (g.khp * g.kwp)
-    wide = exact_int_matmul(xf, wl).to(torch.int64)                  # (MX, T*COUT)
+    offs = g.offs
     acc = torch.zeros((g.mo, cout), dtype=torch.int64, device=xf.device)
-    for t, o in enumerate(g.offs):
-        acc += wide[o:o + g.mo, t * cout:(t + 1) * cout]
+    for k0 in range(0, g.cin_s, KC):
+        taps = live_taps(g, k0)
+        cols = torch.cat([wl[k0:k0 + KC, t * cout:(t + 1) * cout] for t in taps], dim=1)
+        wide = exact_int_matmul(xf[:, k0:k0 + KC], cols).to(torch.int64)  # (MX, L*COUT)
+        for j, t in enumerate(taps):
+            acc += wide[offs[t]:offs[t] + g.mo, j * cout:(j + 1) * cout]
     return _wrap32(acc)
 
 
@@ -270,23 +314,62 @@ def _layout_kernel(layout, x, w, bias, mult, shift, strides, padding, izp, rq_iz
     g = flat_geometry(x.shape, w.shape, strides, padding)
     if x.ndim != 4 or min(g.oh, g.ow) <= 0:
         raise ValueError(f"{name}: bad geometry {tuple(x.shape)} * {tuple(w.shape)}")
-    group = 1
-    if layout == "w":
-        group = w_group((tile["bm"], tile["bn"]), g)
+    bm_bn = (tile["bm"], tile["bn"])
+    if layout in ("t", "w"):
+        group = layout_group(layout, bm_bn, g)
         if group == 0:
             raise ValueError(f"{name}: tile {tuple(blocks or ())} does not fit shared memory "
                              f"(window {g.maxoff} rows past the block)")
-    elif smem_bytes(layout, (tile["bm"], tile["bn"]), g) > SMEM_LIMIT:
+        wk, b, out = layout_operands(x, w, bias, izp, g)
+        n, h, wd, _ = x.shape
+        launch(f"tk_{name}", [x, wk, out, b, mult, shift], dict(
+            n=n, h=h, w=wd, cin=cin, kh=kh, kw=kw_, cout=cout, oh=g.oh, ow=g.ow, sh=strides[0],
+            sw=strides[1], pt=padding[0], pl=padding[1], izp=izp, group=group,
+            a_vec=cin % 16 == 0 and x.data_ptr() % 16 == 0, rq_izp=rq_izp, out_zp=out_zp,
+            qmin=qmin, qmax=qmax, tonearest=_TONEAREST[rounding], **tile))
+        LAUNCHES[name] += 1
+        return out
+    if smem_bytes(layout, bm_bn, g) > SMEM_LIMIT:
         raise ValueError(f"{name}: the window of {tuple(x.shape)} * {tuple(w.shape)} does not "
                          "fit shared memory")
     xf, wl, g = flat_operands(x, w, layout, strides, padding, izp)
     out = torch.empty((g.mo, cout), dtype=torch.int8, device=x.device)
     launch(f"tk_{name}", [xf, wl, out, fold_input_zero_point(bias, w, izp), mult, shift], dict(
-        mo=g.mo, mx=g.mx, cin=g.c, wp=g.wph, kh=g.khp, kw=g.kwp, cout=cout, group=group,
+        mo=g.mo, mx=g.mx, cin=g.c, wp=g.wph, kh=g.khp, kw=g.kwp, cout=cout,
         b_vec=cout % 4 == 0, rq_izp=rq_izp, out_zp=out_zp, qmin=qmin, qmax=qmax,
         tonearest=_TONEAREST[rounding], **tile))
     LAUNCHES[name] += 1
     return _unflat(out, g)
+
+
+# id(weight tensor) -> (a weak reference to it, its _version when packed, the
+# packed tensor); keyed by id because a tensor's == is elementwise
+_PACKED: dict = {}
+
+
+def packed_weights(w: torch.Tensor) -> torch.Tensor:
+    """w (KH, KW, CIN, COUT) packed K-major as (KH, KW, COUT, CIN), the layout
+    K7 and K9 stage their [n][k] weight tiles from with 16-byte copies.  Made
+    once per weight tensor and kept while the tensor lives and its
+    `_version` (in-place writes) is unchanged: the weights are constants of
+    the graph."""
+    key = id(w)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    wk = w.permute(0, 1, 3, 2).contiguous()
+    _PACKED[key] = (weakref.ref(w, lambda _, key=key, cache=_PACKED: cache.pop(key, None)),
+                    w._version, wk)
+    return wk
+
+
+def layout_operands(x, w, bias, izp, g: FlatGeometry):
+    """All K7's and K9's wrappers do on the card besides the launch: the
+    packed weights (a cache lookup after the first call), the bias with the
+    input zero point folded in (a few small kernels when izp != 0, else the
+    bias itself) and the empty (N, OH, OW, COUT) output."""
+    out = torch.empty((g.n, g.oh, g.ow, w.shape[3]), dtype=torch.int8, device=x.device)
+    return packed_weights(w), fold_input_zero_point(bias, w, izp), out
 
 
 def _make(layout: str):

@@ -27,7 +27,10 @@ CASES = [
     ((2, 9, 9, 32), (3, 3, 32, 48), (2, 2), (1, 1, 1, 1), 0),     # stride 2 (polyphase)
     ((1, 9, 9, 32), (3, 3, 32, 32), (2, 2), (1, 1, 1, 1), 7),     # izp != 0 at the borders
     ((2, 8, 8, 40), (3, 3, 40, 13), (1, 1), (0, 1, 2, 1), -5),    # ragged CIN, COUT, padding
+    ((1, 9, 9, 64), (3, 3, 64, 32), (2, 2), (1, 1, 1, 1), 0),     # phase-aligned chunks, taps skipped
+    ((2, 32, 32, 3), (7, 7, 3, 16), (2, 2), (3, 3, 3, 3), 5),     # a stem: CIN 3, izp != 0
 ]
+CASE_IDS = ["s1", "s2", "izp", "ragged", "cin64_s2", "stem"]
 JAX_BLOCKS = (128, 128, 128)   # a tileable TPU geometry for every case
 
 
@@ -58,7 +61,7 @@ def _port_args(case):
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("case", CASES, ids=["s1", "s2", "izp", "ragged"])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_layout_plain_equals_jax_interpret(case, layout):
     _, _, strides, padding, izp = case
     want = _jax(case, layout)
@@ -164,8 +167,9 @@ def test_invalid_blocks_raise_and_foreign_records_are_ignored(monkeypatch, no_de
 
 
 def test_wide_layout_refuses_a_tile_whose_partials_do_not_fit(no_default_db):
-    """K9 keeps (BM + maxoff) x BN int32 partials per tap in shared memory:
-    the 224^2 stem (maxoff 348 rows) fits at BN 64, not at BN 128."""
+    """K9 keeps (BM + maxoff, rounded to 32) x BN int32 partials per tap in
+    shared memory: the 224^2 stem (maxoff 348 rows) fits at BN 64, not at
+    BN 128."""
     stem = ((8, 224, 224, 3), (7, 7, 3, 64), (2, 2), (3, 3, 3, 3))
     assert conv_layouts.layout_fits("w", (64, 64, 64), *stem)
     assert not conv_layouts.layout_fits("w", (64, 128, 64), *stem)
@@ -173,6 +177,49 @@ def test_wide_layout_refuses_a_tile_whose_partials_do_not_fit(no_default_db):
     with pytest.raises(ValueError, match="shared memory"):
         conv.qconv2d_flat(x, np.zeros((7, 7, 3, 64), np.int8), None, 1 << 30, 0, strides=(2, 2),
                           padding=(3, 3, 3, 3), blocks=(64, 128, 64), layout="w")
+
+
+def test_live_taps_and_the_shared_memory_sums():
+    """A 3x3 s2 conv with CIN % 64 == 0: each 64-channel chunk lies in one
+    phase, whose live taps are 4, 2, 2 and 1 (9 products, not 16).  K7's and
+    K9's shared memory at the forward's 28^2 stage, and tiles they refuse."""
+    g = conv_layouts.flat_geometry((8, 56, 56, 128), (3, 3, 128, 128), (2, 2), (1, 1, 1, 1))
+    chunks = [conv_layouts.live_taps(g, k0) for k0 in range(0, g.cin_s, 64)]
+    assert chunks == [[0, 1, 2, 3]] * 2 + [[0, 2]] * 2 + [[0, 1]] * 2 + [[0]] * 2
+    # K9 at 64 x 64: 64 + 30 window rows rounded to wgmma's 32, 4 taps per step:
+    # two windows, two weight tiles, the int32 partials (rows padded by 4 words)
+    assert conv_layouts.layout_group("w", (64, 64), g) == 4
+    assert conv_layouts.smem_bytes("w", (64, 64), g, 4) == 2 * 96 * 64 + 2 * 4 * 64 * 64 + 96 * 260 * 4
+    assert conv_layouts.layout_group("w", (128, 128), g) == 2       # 2 * BN = 256
+    # K7 at 64 x 64: two NHWC windows of 96 rows, the channel-major window
+    # (64 rows of stride 136), two weight tiles of 4 taps
+    assert conv_layouts.layout_group("t", (64, 64), g) == 4
+    assert conv_layouts.smem_bytes("t", (64, 64), g, 4) == 2 * 96 * 64 + 64 * 136 + 2 * 4 * 64 * 80
+    # refused: K9's partials of the 224^2 stem at BN 128; K7's window of a
+    # 900-pixel-wide row (two rows past the block)
+    stem = ((8, 224, 224, 3), (7, 7, 3, 64), (2, 2), (3, 3, 3, 3))
+    assert conv_layouts.layout_fits("w", (64, 64, 64), *stem)
+    assert not conv_layouts.layout_fits("w", (128, 128, 64), *stem)
+    wide = ((1, 8, 900, 64), (3, 3, 64, 64), (1, 1), (1, 1, 1, 1))
+    assert conv_layouts.layout_fits("t", (64, 64, 64), *((1, 8, 300, 64),) + wide[1:])
+    assert not conv_layouts.layout_fits("t", (64, 64, 64), *wide)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv.qconv2d_flat(torch.zeros(wide[0], dtype=torch.int8), np.zeros(wide[1], np.int8), None,
+                          1 << 30, 0, padding=wide[3], blocks=(64, 64, 64), layout="t")
+
+
+def test_packed_weights_once_per_tensor_and_version():
+    """K7's and K9's (KH, KW, COUT, CIN) weights are packed once per weight
+    tensor, again after an in-place write, and dropped with the tensor."""
+    w = torch.from_numpy(np.random.default_rng(0).integers(-128, 128, (3, 3, 8, 16)).astype(np.int8))
+    wk = conv_layouts.packed_weights(w)
+    assert torch.equal(wk, w.permute(0, 1, 3, 2)) and wk.is_contiguous()
+    assert conv_layouts.packed_weights(w) is wk
+    w.neg_()
+    assert torch.equal(conv_layouts.packed_weights(w), w.permute(0, 1, 3, 2))
+    key = id(w)
+    del w
+    assert key not in conv_layouts._PACKED
 
 
 def test_default_database_reads_only_tk_tune_db(tmp_path, monkeypatch, no_default_db):

@@ -414,6 +414,11 @@ LAYOUT_CASES = [
     ((8, 28, 28, 256), 3, 2, (1, 1, 1, 1), 256, 3),
     ((8, 14, 14, 512), 3, 2, (1, 1, 1, 1), 512, -7),
     ((8, 56, 56, 64), 3, 1, (1, 1, 1, 1), 64, 0),      # a chain stage
+    ((1, 56, 56, 128), 3, 2, (1, 1, 1, 1), 128, 0),    # the three 3x3 s2 at b1
+    ((1, 28, 28, 256), 3, 2, (1, 1, 1, 1), 256, 0),
+    ((1, 14, 14, 512), 3, 2, (1, 1, 1, 1), 512, 0),
+    ((1, 224, 224, 3), 7, 2, (3, 3, 3, 3), 64, 5),     # ResNet-50's stem, izp != 0
+    ((1, 28, 28, 256), 3, 2, (1, 1, 1, 1), 256, -9),   # izp != 0 at the borders
 ]
 
 
@@ -438,6 +443,34 @@ def test_layout_kernels_on_card(rng, cuda, layout, case, blocks):
     assert _lib.LAUNCHES[f"qconv_rq_{layout}"] == n0 + 1
     assert torch.equal(got, plain(x, w, b, mult, shift, **kw))
     assert torch.equal(got, qconv_rq_plain(x, w, b, mult, shift, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["t", "w"])
+def test_k7_k9_read_nhwc_and_repack_after_a_write(rng, cuda, layout, monkeypatch):
+    """K7 and K9 build no flat frame on the card (the polyphase relabeling is
+    in the kernel); their packed weights are made once per weight tensor and
+    again after an in-place write."""
+    from tachikoma_tpu_torch.ops.kernels import conv_layouts
+
+    def refuse(*a, **k):
+        raise AssertionError("the flat frame was built on the card")
+
+    shape, k, s, p, cout, izp = LAYOUT_CASES[4]
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    kw = dict(strides=(s, s), padding=p, izp=izp)
+    want = qconv_rq_plain(x, w, b, mult, shift, **kw)
+    fn = getattr(conv_layouts, f"qconv_rq_{layout}")
+    for name in ("flat_operands", "phase_image", "phase_weights", "_unflat"):
+        monkeypatch.setattr(conv_layouts, name, refuse)
+    assert torch.equal(fn(x, w, b, mult, shift, **kw), want)
+    packed = conv_layouts.packed_weights(w)
+    assert torch.equal(fn(x, w, b, mult, shift, **kw), want)
+    assert conv_layouts.packed_weights(w) is packed
+    w.neg_()
+    assert conv_layouts.packed_weights(w) is not packed
+    assert torch.equal(fn(x, w, b, mult, shift, **kw), qconv_rq_plain(x, w, b, mult, shift, **kw))
 
 
 @pytest.mark.cuda

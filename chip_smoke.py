@@ -71,10 +71,10 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      layout at 64 x 64 on the three 3x3 s2 convs, one forward recorded and
      K7-K10 (qconv_rq_t/_s/_w/_r) held == plain at its three calls, timed
      beside their bound, the plain version, cuDNN's int8 conv
-     (quantized::conv2d, channels-last) and K2 on the same calls, with K7's
-     and K9's per-call wrapper work (host clock) and K8's and K10's operand
-     build; then the same at the stem (7x7 s2, CIN 3, the layout forced on
-     it alone) beside K2, and at a chain stage (56^2 c64 3x3 s1) beside K2;
+     (quantized::conv2d, channels-last) and K2 on the same calls, with each
+     layout's per-call wrapper work (host clock); then the same at the stem
+     (7x7 s2, CIN 3, the layout forced on it alone) beside K2, and at a chain
+     stage (56^2 c64 3x3 s1) beside K2;
      (c) the forward under the tuned database
      (every kernel call of one forward == plain, then 10 counted requests)
      and under each forced layout (3 counted requests, the layout launched
@@ -103,8 +103,7 @@ are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
 K5 per MobileNetV2 forward (b8 fused for qdwconv_rq, b1 unfused for
 qdwconv_raw), those of K6 (flash_attn) per BERT-base b4 s128 forward, those
 of K7-K10 per ResNet-50 b8 forward with the layout forced (its three 3x3 s2
-calls; K8's and K10's operand build and every wrapper's device work
-included), those of K11 per VGG-16 b8
+calls; every wrapper's device work included), those of K11 per VGG-16 b8
 forward (its 13 conv calls, summed with their repeats) and of K12 per
 MobileNetV2 b8 forward (its 17 depthwise calls); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
@@ -177,9 +176,6 @@ KERNELS = {
                        "tachikoma_tpu/ops/pallas/conv_int8.py:87"),
 }
 LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_s", "qconv_rq_w", "qconv_rq_r")
-# K7 and K9 read the NHWC image in the kernel (csrc/qconv_layouts_hopper.cu);
-# K8 and K10 take the flat frame that their wrappers build
-NHWC_LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_w")
 WRAPPER_CALLS = 20                # host-clock repeats of the wrappers' own work
 TUNE_BUDGET = 64
 FORCED_BLOCKS = [64, 64, 64]      # the tile of the forced-layout databases (phase 15)
@@ -871,7 +867,7 @@ def forced_calls(ex, x, workloads, name: str) -> list:
 
 
 def wrapper_work_ms(calls) -> float:
-    """Host-clock ms per forward of K7's or K9's wrapper work besides the
+    """Host-clock ms per forward of a layout kernel's wrapper work besides the
     launch (conv_layouts.layout_operands: the packed-weight lookup, the bias
     fold where izp != 0, the output's allocation), summed over `calls`, each
     the mean of WRAPPER_CALLS calls ending in a synchronize."""
@@ -921,7 +917,6 @@ def tune_path(state) -> tuple[dict, dict]:
     database that forces each layout.  Returns K7-K10's per-forward totals and
     the launches of every kernel in the counted runs."""
     from tachikoma_tpu_torch import cli
-    from tachikoma_tpu_torch.ops.kernels.conv_layouts import flat_operands
     from tachikoma_tpu_torch.tune.database import (NO_ERROR, RUNTIME_ERROR, TuneDatabase,
                                                    apply_history_best)
 
@@ -976,19 +971,13 @@ def tune_path(state) -> tuple[dict, dict]:
                 hold_call("qconv_rq", a, k, impl)
             k2_ms = sum(graph_ms(lambda a=a, k=k: impl["qconv_rq"][0](*a, **k))
                         for _, a, k in calls)
-        if name in NHWC_LAYOUT_KERNELS:
-            work_ms = wrapper_work_ms(calls)
-            say(f"the wrapper's own work per forward (host clock, {WRAPPER_CALLS} calls each; "
-                f"packed-weight lookup, bias fold at izp "
-                f"{sorted({k['izp'] for _, _, k in calls})}, output allocation) {work_ms:.4f} ms; "
-                "no operand build")
-        else:
-            glue = sum(graph_ms(lambda a=a, k=k: flat_operands(a[0], a[1], name[-1], k["strides"],
-                                                               k["padding"], k["izp"]))
-                       for _, a, k in calls)
-            say(f"of which the wrapper's operand build (flat_operands: phase image, padding, "
-                f"weight layout) {glue:.4f} ms per forward")
-    say(f"\nper ResNet-50 b{BATCH} forward, the three 3x3 s2 calls at {FORCED_BLOCKS} (ms):")
+        work_ms = wrapper_work_ms(calls)
+        say(f"{name}: the wrapper's own work per forward (host clock, {WRAPPER_CALLS} calls "
+            f"each; packed-weight lookup, bias fold at izp "
+            f"{sorted({k['izp'] for _, _, k in calls})}, output allocation) {work_ms:.4f} ms; "
+            "no operand build")
+    say(f"\nper ResNet-50 b{BATCH} forward, the three 3x3 s2 calls at {FORCED_BLOCKS} (ms; "
+        f"{state['card']}):")
     say(f"{'kernel':12s} {'ms':>9s} {'bound_ms':>9s} {'plain_ms':>9s} {'cuDNN int8':>10s} "
         f"{'K2 same calls':>13s} {'/ K2':>6s}")
     for name in LAYOUT_KERNELS:
@@ -1350,6 +1339,7 @@ def main() -> int:
         errs["flash_attn"] = max(errs["flash_attn"], fa["max_abs_err"])
         if label == "12":
             errs["flash_attn"] = max(errs["flash_attn"], k6_reference_shapes())
+    r50_state["card"] = card
     tune_totals, tune_launches = tune_path(r50_state)
     for name, t in tune_totals.items():
         totals[name], errs[name] = t, t["max_abs_err"]

@@ -14,10 +14,8 @@ enum Param {
   P_G, P_S, P_D, P_CAUSAL, P_SCALE_BITS,
   // the block tile of K1-K3 and K7-K10 (0 means 64)
   P_BM, P_BN,
-  // K8 and K10's flat frame (qconv_layouts.cu): rows of the over-wide output,
-  // rows of the input frame, the frame's row width; K7 and K9's live taps per
-  // step (qconv_layouts_hopper.cu)
-  P_MO, P_MX, P_WP, P_GROUP,
+  // K7-K10's most live taps per step (layouts_hopper.cuh)
+  P_GROUP,
   // K11's input channels per staged chunk; K12's output tile (qconv_direct.cu)
   P_CC, P_TH, P_TW,
   P_COUNT

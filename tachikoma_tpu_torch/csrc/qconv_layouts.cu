@@ -1,289 +1,268 @@
-// K8 and K10: two layouts of the flat conv, qconv_rq_s / _r (K7 and K9, the
-// other two, are qconv_layouts_hopper.cu).
+// K8 qconv_rq_s and K10 qconv_rq_r, the Hopper designs of two layouts of the
+// flat conv (K7 and K9, the other two, are qconv_layouts_hopper.cu).
 //
-// Each computes exactly K2's function (NHWC int8 conv, int32 accumulator +
-// bias, the exact requantize epilogue of requantize.cuh, int8 out) along
-// another data path.  They replace the layout variants of
-// tachikoma_tpu/ops/pallas/conv_flat.py _flat_conv_kernel (built by
-// _build_flat_conv, chosen per workload by the tuning database's `layout`):
-//   K8 qconv_rq_s  <- _flat_conv_kernel_s (:133), staged halo;
-//   K10 qconv_rq_r <- _flat_conv_kernel_r (:224), row-stacked K.
+// Each computes exactly K2's function: the NHWC int8 conv, the int32
+// accumulator plus the folded bias, the exact requantize epilogue of
+// requantize.cuh, the low byte of the clipped value stored (int8 or uint8).
+// They replace the layout variants of tachikoma_tpu/ops/pallas/conv_flat.py
+// (both reach pl.pallas_call at :370 through _build_flat_conv, :321):
+//   K8 qconv_rq_s  <- _flat_conv_kernel_s (:133): the block's window staged
+//      once per chunk, every tap read from it at a row shift;
+//   K10 qconv_rq_r <- _flat_conv_kernel_r (:224): for each column tap, its
+//      row taps as one deep-K run over a window staged for that column.
+// The polyphase frame, the stagers, the step walk, the cluster split and the
+// cost model are layouts_hopper.cuh's, shared with K7 and K9.
 //
-// The flat frame (built by the wrapper, ops/kernels/conv_layouts.py, as
-// _conv_mxu builds it): a stride-s conv is first rewritten as a stride-1
-// conv over the polyphase-stacked image (exact relabeling: C = s*s*CIN
-// channels, KHP x KWP = ceil(KH/s) x ceil(KW/s) taps, zero weights where a
-// phase has no tap), padded with the input zero point, its channels padded
-// with zeros to a multiple of 16, and flattened to rows of a (MX, C) matrix
-// with WP pixels per image row.  Output row m of the over-wide frame then
-// reads input row m + a * WP + b for tap (a, b): a unit-stride shift, with no
-// bounds check and no division in the kernel.  The wrapper slices off the
-// over-wide garbage columns and rows.  So both kernels are stride-1 and
-// accept every geometry, the 7x7 s2 stem (CIN 3 -> C 16) included.
-//
-// What bounds them on an H100: the same work as K2 (the 3x3 s2 convs of
-// ResNet-50 b8 are near the ~590 operations per byte at which the int8 tensor
-// cores overtake memory) plus the polyphase zero taps (16 tap-phases for the
-// 9 real taps of a 3x3 s2) and the over-wide columns.  Simple and right
-// first: mma.sync m16n8k32, BM x BN x 64 tiles of qgemm.cuh's shapes, no
-// pipelining beyond cp.async of the staged input.
-//   K8 s:  per block and 64-channel chunk, the input rows that the block's BM
-//          outputs touch (BM + maxoff rows) are copied into shared memory once
-//          (cp.async); every tap's A fragments are then read from there at a
-//          row offset.  K2 fetches each input byte once per tap from L2.
-//   K10 r: K runs in (kx, ky, ci) order over weights (KWP, KHP, C, COUT); per
-//          column tap one window of BM + (KHP-1)*WP rows is staged, and its
-//          KHP row taps form one deep-K run (KHP weight tiles staged at once,
-//          then KHP x 2 mma steps with no barrier between them).
-#include "qgemm.cuh"
+// What bounds them on the H100.  The three 3x3 s2 convs of ResNet-50 b8 move
+// about 10 MB and do 5.5 GOP: 3 us at 3.35 TB/s, 2.8 us at the int8 peak, so
+// neither bound is near; what a flat-frame design loses is overhead.  The
+// first port of these two (mma.sync, a flat frame built by the wrapper on
+// every call, all 16 tap-phase products of a 3x3 s2 conv, a full copy wait
+// and two barriers per tap) took 0.43-0.46 ms per forward for the three
+// calls on one H100 80GB HBM3 (700 W), 2.7-2.9x K2; this design takes 0.11
+// (K8) and 0.13 ms (K10) at 64 x 64, against K2's 0.16 ms (chip_smoke.py
+// phase 15b).  The design:
+//   1. No frame: the wrapper hands over the NHWC image and the packed
+//      weights; the stagers address them, and the epilogue stores straight
+//      into (N, OH, OW, COUT).
+//   2. The zero taps are skipped (tap_live): 9 products, not 16, for a 3x3
+//      s2 conv with CIN % 64 == 0.
+//   3. wgmma on a shifted window.  The chunk's window (K8: BM + maxoff frame
+//      rows from the block's first; K10: BM + (KHP-1)*WPH rows from it plus
+//      the column tap b) is staged K-slice-major: each 16-byte channel slice
+//      holds its rows contiguous at 16 bytes a row (tile_off<KSM>).  A
+//      no-swizzle core matrix (8 rows x 16 bytes) starting at any row is then
+//      128 contiguous bytes, so tap t's A operand (64 output rows, K-major)
+//      is the descriptor at window + 16 * (its row shift + 64 * warpgroup),
+//      SBO 128 (the next 8 rows), LBO 16 * rows (the next slice): no copy
+//      per tap and no partials.  B is the tap's weights [n][k] in the
+//      core-matrix layout (LBO 128, SBO 512).  A step's live taps x its K
+//      steps run as wgmma.mma_async m64nBNk32 .s32.s8.s8 back to back into
+//      the same registers, with one commit (no .satfinite: int32 sums wrap,
+//      as the reference's do).  One warpgroup per 64 rows.  K8 stages the
+//      window once per chunk; K10 once per (chunk, live column tap), its row
+//      taps at +a*WPH rows: a window KWP - 1 rows shorter than K8's, staged
+//      KWP times a chunk; the tuner weighs that trade.
+//   4. The copies are pipelined: two buffers each of window and weights;
+//      the next step's copies (its window only when it starts a new window)
+//      are issued while the current step's wgmmas run, then the warpgroup
+//      waits.  One barrier per step: the copies of a step, waited by each
+//      thread and fenced to the async proxy, are visible to every warpgroup
+//      after it, and every warpgroup is then done with the buffers that the
+//      next copies overwrite.
+//   5. The card is filled as K7 and K9 fill it: the cluster split over the
+//      chunks and the cost model's taps per step (plan_launch).
+// The 16-byte aligned (not 128-byte aligned) descriptor start is what the
+// no-swizzle mode allows; tests/test_torch_port_cuda.py holds a tap at an
+// odd row shift == the plain version.  With no swizzle, the core matrices of
+// one wgmma fall on banks that the row shift decides; no swizzle can take an
+// arbitrary shift.  The over-wide columns (KWP - 1 a frame row) are computed
+// and dropped.
+#include "layouts_hopper.cuh"
 
 namespace tk {
+namespace hop {
 
-struct Flat {
-  int mo, mx, c, wp, khp, kwp, cout;
-  bool b_vec;
-};
-
-__device__ __forceinline__ int tap_off(int t, const Flat& f) {
-  return (t / f.kwp) * f.wp + t % f.kwp;
+// Window rows of K8 (every tap's shift, up to maxoff) or K10 (COLS: its row
+// taps' shifts, up to (KHP-1)*WPH), rounded to a core matrix's 8 rows.
+__host__ __device__ inline int sr_rows(bool cols, int bm, const HGeo& g) {
+  return (bm + (cols ? (g.khp - 1) * g.wph : g.maxoff) + 7) / 8 * 8;
 }
 
-__device__ __forceinline__ int max_off(const Flat& f) { return (f.khp - 1) * f.wp + f.kwp - 1; }
-
-// 16 bytes global -> shared, or 16 zero bytes when !valid (source size 0).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
+// Dynamic shared memory: two windows and two weight tiles of `group` taps.
+// The wrapper mirrors this sum (conv_layouts.py smem_bytes) to refuse a tile
+// that does not fit.
+inline size_t sr_smem(bool cols, int bm, int bn, int group, const HGeo& g) {
+  return 2 * (size_t)sr_rows(cols, bm, g) * KC + 2 * (size_t)group * bn * KC;
 }
 
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
-
-// W[r][0, BK) = x[row0 + r][k0, k0 + BK) for r < nrows (row stride SROW),
-// zero past the frame's MX rows or its C channels.
-__device__ __forceinline__ void stage_rows(int8_t* W, const int8_t* __restrict__ x, int row0,
-                                           int nrows, int k0, const Flat& f) {
-  for (int e = threadIdx.x; e < nrows * (BK / 16); e += blockDim.x) {
-    const int r = e >> 2, ch = (e & 3) * 16;
-    const int row = row0 + r, k = k0 + ch;
-    const bool ok = row < f.mx && k < f.c;
-    cp_async16(W + r * SROW + ch, ok ? x + (long long)row * f.c + k : x, ok);
-  }
+// d (64 x BN, int32) += A (64 x 32 bytes) . B (BN x 32 bytes)^T, both from
+// shared memory by descriptor.
+template <int BN>
+__device__ __forceinline__ void wgmma_acc(int32_t (&d)[BN / 2], uint64_t da, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_acc<64>(int32_t (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-// Bs[n][kk] = w[(wrow0 + kk) * ldw + col0 + n] for kk < BK, n < NB (the mma's
-// B operand, [n][k] rows of stride SROW), zero where kk >= kvalid or
-// n >= nvalid; 4-byte loads when b_vec (ldw and col0 % 4 == 0).
-template <int NB>
-__device__ __forceinline__ void stage_b(int8_t* Bs, const int8_t* __restrict__ w, long long wrow0,
-                                        int kvalid, long long ldw, long long col0, int nvalid,
-                                        bool b_vec) {
-  constexpr int NG = NB / 4;
-  for (int e = threadIdx.x; e < (BK / 4) * NG; e += blockDim.x) {
-    const int kq = (e & 7) + 8 * ((e >> 3) / NG), nq = (e >> 3) % NG;
-    const int n = nq * 4;
-    uint32_t v[4];
+template <>
+__device__ __forceinline__ void wgmma_acc<128>(int32_t (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <bool COLS, int BM, int BN, int KS>
+__global__ void __launch_bounds__(2 * BM)
+    qconv_sr_hopper(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
+                    int8_t* __restrict__ out, Requant rq, HGeo g) {
+  constexpr int NT = 2 * BM;  // a warpgroup per 64 rows
+  extern __shared__ __align__(128) int8_t smem[];
+  const int rows = sr_rows(COLS, BM, g);
+  // two windows, two weight tiles (buffer b at base + b * size)
+  const int win_sz = rows * KC, wt_sz = g.group * BN * KC;
+  int8_t* const win = smem;
+  int8_t* const wt = smem + 2 * win_sz;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int wg_row = (threadIdx.x >> 7) * 64;
+  int32_t acc[BN / 2];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int kk = kq * 4 + r;
-      v[r] = 0;
-      if (kk < kvalid && n < nvalid) {
-        const int8_t* p = w + (wrow0 + kk) * ldw + col0 + n;
-        if (b_vec && n + 4 <= nvalid) {
-          v[r] = *reinterpret_cast<const uint32_t*>(p);
-        } else {
-          for (int j = 0; j < 4 && n + j < nvalid; ++j)
-            v[r] |= (uint32_t)(uint8_t)p[j] << (8 * j);
-        }
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+
+  Step cur = step_from<COLS>(KS > 1 ? (int)blockIdx.z : 0, 0, KS, g);
+  int wb = 0;  // the window buffer of cur
+  if (cur.chunk < g.nchunks) {
+    stage_window<KSM, NT>(win, rows, x, m0 + cur.col, rows, cur.chunk * KC, g);
+    stage_weights<CM, BN, NT>(wt, 0, wk, cur, n0, g);
+  }
+  cp_async_commit();
+  for (int s = 0; cur.chunk < g.nchunks; ++s) {
+    cp_async_wait0();
+    fence_proxy_async();
+    __syncthreads();
+    const int8_t* const ws = win + wb * win_sz;
+    const int8_t* const bs = wt + (s & 1) * wt_sz;
+    const int ksteps = chunk_ksteps(cur.chunk * KC, g);
+    wgmma_fence();
+#pragma unroll
+    for (int tl = 0; tl < GMAX; ++tl) {
+      if (tl >= cur.g) break;
+      const int row = tap_off(step_tap(cur, tl), g) - cur.col + wg_row;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        if (kk < ksteps)
+          wgmma_acc<BN>(acc, gmma_desc(ws + row * 16 + kk * 32 * rows, 16 * rows, 128),
+                        gmma_desc(bs + tl * BN * KC + kk * 256, 128, 512));
+    }
+    wgmma_commit();
+    // the next step's copies while the tensor cores run
+    const Step nxt = next_step<COLS>(cur, KS, g);
+    const bool new_win = nxt.chunk != cur.chunk || nxt.col != cur.col;
+    const int nwb = new_win ? wb ^ 1 : wb;
+    if (nxt.chunk < g.nchunks) {
+      if (new_win)
+        stage_window<KSM, NT>(win + nwb * win_sz, rows, x, m0 + nxt.col, rows, nxt.chunk * KC, g);
+      stage_weights<CM, BN, NT>(wt + ((s + 1) & 1) * wt_sz, 0, wk, nxt, n0, g);
+    }
+    cp_async_commit();
+    wgmma_wait0();
+    cur = nxt;
+    wb = nwb;
+  }
+  if (!cluster_reduce<KS, NT>(reinterpret_cast<uint32_t(&)[BN / 2]>(acc), smem)) return;
+
+  // fragment: acc[4 jb + e] is row 16 warp + lane / 4 + 8 (e >> 1) of the
+  // warpgroup's 64, column 8 jb + 2 (lane % 4) + (e & 1)
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const bool pairs = (g.cout & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long o = out_index(m0 + wg_row + 16 * warp + (lane >> 2) + 8 * h, g);
+    if (o < 0) continue;
+#pragma unroll
+    for (int jb = 0; jb < BN / 8; ++jb) {
+      const int col = n0 + 8 * jb + 2 * (lane & 3);
+      if (col >= g.cout) break;
+      const uint32_t v0 = (uint8_t)requantize_channel(acc[4 * jb + 2 * h], col, rq);
+      if (col + 1 >= g.cout) {
+        out[o + col] = (int8_t)v0;
+        break;
+      }
+      const uint32_t v1 = (uint8_t)requantize_channel(acc[4 * jb + 2 * h + 1], col + 1, rq);
+      if (pairs) {
+        *reinterpret_cast<uint16_t*>(out + o + col) = (uint16_t)(v0 | v1 << 8);
+      } else {
+        out[o + col] = (int8_t)v0;
+        out[o + col + 1] = (int8_t)v1;
       }
     }
-    store_transposed(Bs + n * SROW + kq * 4, SROW, v);
   }
-}
-
-// acc += A[a_row + m][0, BK) . Bs[n][0, BK) over the warp's 32 x 32 tile
-// (rows wm + .., columns wn + ..); A and Bs have row stride SROW.
-__device__ __forceinline__ void mma_tile(int32_t (&acc)[2][4][4], const int8_t* A, int a_row,
-                                         const int8_t* Bs, int wm, int wn, int lane) {
-  const int gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < BK; ks += 32) {
-    uint32_t af[2][4], bf[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int8_t* p = A + (a_row + wm + mt * 16 + gid) * SROW + ks + tig * 4;
-      af[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-      af[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * SROW);
-      af[mt][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-      af[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * SROW + 16);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int8_t* q = Bs + (wn + nt * 8 + gid) * SROW + ks + tig * 4;
-      bf[nt][0] = *reinterpret_cast<const uint32_t*>(q);
-      bf[nt][1] = *reinterpret_cast<const uint32_t*>(q + 16);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
-  }
-}
-
-// The requantize epilogue of the warp's 32 x 32 tile into out (MO, COUT).
-__device__ __forceinline__ void store_rq(const int32_t (&acc)[2][4][4], int8_t* __restrict__ out,
-                                         int m0, int n0, int wm, int wn, int lane, const Flat& f,
-                                         const Requant& rq) {
-  const int gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = m0 + wm + mt * 16 + gid + (i >> 1) * 8;
-        const int col = n0 + wn + nt * 8 + tig * 2 + (i & 1);
-        if (row < f.mo && col < f.cout)
-          out[(long long)row * f.cout + col] = (int8_t)requantize_channel(acc[mt][nt][i], col, rq);
-      }
-}
-
-// ---------------------------------------------------------------------------
-// K8 s: staged halo.  smem: (BM + maxoff) window rows, BN weight rows.
-// ---------------------------------------------------------------------------
-template <int BM, int BN>
-__global__ void __launch_bounds__(Tile<BM, BN>::NTHREADS)
-    qconv_s_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   int8_t* __restrict__ out, Requant rq, Flat f) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int rows = BM + max_off(f);
-  int8_t* win = smem;
-  int8_t* bs = smem + rows * SROW;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp % Tile<BM, BN>::WARPS_M) * 32, wn = (warp / Tile<BM, BN>::WARPS_M) * 32;
-  int32_t acc[2][4][4] = {};
-  const int taps = f.khp * f.kwp;
-  for (int k0 = 0; k0 < f.c; k0 += BK) {
-    stage_rows(win, x, m0, rows, k0, f);
-    for (int t = 0; t < taps; ++t) {
-      stage_b<BN>(bs, w, (long long)t * f.c + k0, f.c - k0, f.cout, n0, f.cout - n0, f.b_vec);
-      cp_async_wait_all();
-      __syncthreads();
-      mma_tile(acc, win, tap_off(t, f), bs, wm, wn, lane);
-      __syncthreads();
-    }
-  }
-  store_rq(acc, out, m0, n0, wm, wn, lane, f, rq);
-}
-
-// ---------------------------------------------------------------------------
-// K10 r: row-stacked K.  w is (KWP, KHP, C, COUT); smem: one column tap's
-// window (BM + (KHP-1)*WP rows) and its KHP weight tiles.
-// ---------------------------------------------------------------------------
-template <int BM, int BN>
-__global__ void __launch_bounds__(Tile<BM, BN>::NTHREADS)
-    qconv_r_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   int8_t* __restrict__ out, Requant rq, Flat f) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int rows = BM + (f.khp - 1) * f.wp;
-  int8_t* win = smem;
-  int8_t* bs = smem + rows * SROW;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp % Tile<BM, BN>::WARPS_M) * 32, wn = (warp / Tile<BM, BN>::WARPS_M) * 32;
-  int32_t acc[2][4][4] = {};
-  for (int k0 = 0; k0 < f.c; k0 += BK) {
-    for (int b = 0; b < f.kwp; ++b) {
-      stage_rows(win, x, m0 + b, rows, k0, f);
-      for (int a = 0; a < f.khp; ++a)
-        stage_b<BN>(bs + a * BN * SROW, w, (long long)(b * f.khp + a) * f.c + k0, f.c - k0,
-                    f.cout, n0, f.cout - n0, f.b_vec);
-      cp_async_wait_all();
-      __syncthreads();
-      for (int a = 0; a < f.khp; ++a)
-        mma_tile(acc, win, a * f.wp, bs + a * BN * SROW, wm, wn, lane);
-      __syncthreads();
-    }
-  }
-  store_rq(acc, out, m0, n0, wm, wn, lane, f, rq);
 }
 
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-enum Layout { LAYOUT_S, LAYOUT_R };
 
-// Dynamic shared memory of each layout; the wrapper mirrors these sums
-// (conv_layouts.py smem_bytes) to refuse what does not fit.
-inline size_t smem_bytes(Layout l, int bm, int bn, const Flat& f) {
-  const int maxoff = (f.khp - 1) * f.wp + f.kwp - 1;
-  switch (l) {
-    case LAYOUT_S:
-      return (size_t)(bm + maxoff + bn) * SROW;
-    case LAYOUT_R:
-      return (size_t)(bm + (f.khp - 1) * f.wp + f.khp * bn) * SROW;
-  }
-  return 0;
+template <bool COLS, int BM, int BN>
+int launch_tile(const int8_t* x, const int8_t* wk, int8_t* out, const Requant& rq, HGeo g,
+                cudaStream_t stream) {
+  auto kern1 = qconv_sr_hopper<COLS, BM, BN, 1>;
+  auto kern2 = qconv_sr_hopper<COLS, BM, BN, 2>;
+  static int sms = 0;
+  Plan plan;
+  const int rc = plan_launch(
+      (const void*)kern1, (const void*)kern2, 2 * BM, BM, BN, COLS, g,
+      [&](int grp) { return sr_smem(COLS, BM, BN, grp, g); }, sms, plan);
+  if (rc != cudaSuccess) return rc;
+  g.group = plan.group;
+  const dim3 grid((g.mo + BM - 1) / BM, (g.cout + BN - 1) / BN, plan.split ? 2 : 1);
+  return launch_cluster(plan.split ? kern2 : kern1, plan.split ? 2 : 1, grid, 2 * BM, plan.smem,
+                        stream, x, wk, out, rq, g);
 }
 
-template <Layout L, int BM, int BN>
-void launch_layout_tile(const int8_t* x, const int8_t* w, int8_t* out, const Requant& rq,
-                        const Flat& f, cudaStream_t stream) {
-  auto kern = L == LAYOUT_S ? qconv_s_kernel<BM, BN> : qconv_r_kernel<BM, BN>;
-  const int threads = Tile<BM, BN>::NTHREADS;
-  const size_t smem = smem_bytes(L, BM, BN, f);
-  // raised once per kernel, at its first (eager) launch, never lowered
-  static size_t granted = 48 * 1024;
-  if (smem > granted) {
-    if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-        cudaSuccess)
-      return;  // the launch below then fails too, and cudaGetLastError() says why
-    granted = smem;
-  }
-  const dim3 grid((f.mo + BM - 1) / BM, (f.cout + BN - 1) / BN);
-  kern<<<grid, threads, smem, stream>>>(x, w, out, rq, f);
-}
-
-template <Layout L>
-int launch_layout(const int8_t* x, const int8_t* w, int8_t* out, const int32_t* bias,
-                  const int32_t* mult, const int32_t* shift, const int32_t* p, void* stream) {
-  Flat f;
-  f.mo = p[P_MO];
-  f.mx = p[P_MX];
-  f.c = p[P_CIN];
-  f.wp = p[P_WP];
-  f.khp = p[P_KH];
-  f.kwp = p[P_KW];
-  f.cout = p[P_COUT];
-  f.b_vec = p[P_B_VEC] != 0;
-  const Requant rq{bias, mult, shift, p[P_RQ_IZP], p[P_OUT_ZP], p[P_QMIN], p[P_QMAX],
-                   p[P_TONEAREST] != 0};
+// Launches K8 (COLS false) or K10 on `stream` at the tile (P_BM, P_BN), up to
+// P_GROUP live taps per step, and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a tile that is not built, a group out of range,
+// more than 255 taps or shared memory above 227 KB).  wk is the weight
+// packed (KH, KW, COUT, CIN).
+template <bool COLS>
+int launch(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
+           const int32_t* mult, const int32_t* shift, const int32_t* p, void* stream) {
+  HGeo g;
+  if (!make_geo(p, g)) return (int)cudaErrorInvalidValue;
+  const Requant rq = make_rq(bias, mult, shift, p);
   const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
+  if (g.group < 1 || g.group > GMAX || g.khp * g.kwp > 255) return (int)cudaErrorInvalidValue;
+  if (g.mo <= 0 || g.cout <= 0 || g.oh <= 0 || g.ow <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
-  if (f.mo <= 0 || f.cout <= 0) return (int)cudaGetLastError();
-  if (bm == 64 && bn == 64) {
-    launch_layout_tile<L, 64, 64>(x, w, out, rq, f, s);
-  } else if (bm == 64 && bn == 128) {
-    launch_layout_tile<L, 64, 128>(x, w, out, rq, f, s);
-  } else if (bm == 128 && bn == 64) {
-    launch_layout_tile<L, 128, 64>(x, w, out, rq, f, s);
-  } else if (bm == 128 && bn == 128) {
-    launch_layout_tile<L, 128, 128>(x, w, out, rq, f, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (bm == 64 && bn == 64) return launch_tile<COLS, 64, 64>(x, wk, out, rq, g, s);
+  if (bm == 64 && bn == 128) return launch_tile<COLS, 64, 128>(x, wk, out, rq, g, s);
+  if (bm == 128 && bn == 64) return launch_tile<COLS, 128, 64>(x, wk, out, rq, g, s);
+  if (bm == 128 && bn == 128) return launch_tile<COLS, 128, 128>(x, wk, out, rq, g, s);
+  return (int)cudaErrorInvalidValue;
 }
 
+}  // namespace hop
 }  // namespace tk
 
-#define TK_LAYOUT_ENTRY(NAME, L)                                                             \
-  extern "C" int NAME(const int8_t* x, const int8_t* w, int8_t* out, const int32_t* bias,   \
-                      const int32_t* mult, const int32_t* shift, const int32_t* params,     \
-                      void* stream) {                                                        \
-    return tk::launch_layout<L>(x, w, out, bias, mult, shift, params, stream);              \
-  }
+extern "C" int tk_qconv_rq_s(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
+                             const int32_t* mult, const int32_t* shift, const int32_t* params,
+                             void* stream) {
+  return tk::hop::launch<false>(x, wk, out, bias, mult, shift, params, stream);
+}
 
-TK_LAYOUT_ENTRY(tk_qconv_rq_s, tk::LAYOUT_S)
-TK_LAYOUT_ENTRY(tk_qconv_rq_r, tk::LAYOUT_R)
+extern "C" int tk_qconv_rq_r(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
+                             const int32_t* mult, const int32_t* shift, const int32_t* params,
+                             void* stream) {
+  return tk::hop::launch<true>(x, wk, out, bias, mult, shift, params, stream);
+}

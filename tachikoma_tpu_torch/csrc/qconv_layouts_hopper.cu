@@ -12,17 +12,9 @@
 //      window against several taps' weights side by side, then shifted int32
 //      sums.
 //
-// The frame.  A stride-s conv is the stride-1 conv over the polyphase frame:
-// frame row (n, i, j), i < HPH = OH + KHP - 1, j < WPH = OW + KWP - 1, holds
-// C = SH*SW*CIN phase channels, channel c = (p*SW + q)*CIN + ci reading
-// x[n, i*SH + p - pt, j*SW + q - pl, ci] (the input zero point outside the
-// image), and tap (a, b) of phase (p, q) has weight w[a*SH + p, b*SW + q]
-// (none past KH or KW).  Over-wide output row m = (n*HPH + oh)*WPH + ow reads
-// frame row m + a*WPH + b for tap (a, b).  None of it is built: the stagers
-// compute each address from the caller's NHWC image and from the weights
-// packed once per weight tensor as (KH, KW, COUT, CIN) (K-major, cached by
-// the wrapper), and the epilogue stores straight into (N, OH, OW, COUT),
-// skipping the over-wide rows and columns.
+// The polyphase frame, the stagers, the step walk, the cluster split and the
+// cost model are layouts_hopper.cuh's, shared with K8 and K10
+// (qconv_layouts.cu).
 //
 // What bounds them on the H100.  The three 3x3 s2 convs of ResNet-50 b8 move
 // about 10 MB and do 5.5 GOP: 3 us at 3.35 TB/s, 2.8 us at the int8 peak, so
@@ -32,9 +24,9 @@
 // HBM3 (700 W), at 64 x 64, K7 takes 0.12 ms and K9 0.16 ms for the three
 // calls, against K2's 0.16 ms (chip_smoke.py phase 15b).  The design:
 //   1. No per-call operand build: the polyphase relabeling is address
-//      arithmetic in the stagers (above); taps outside the image read izp
-//      (a 16-byte shared store, as K11's stager does: cp.async's zero fill
-//      and TMA's out-of-bounds fill are zero, not izp).  The divisors are
+//      arithmetic in the stagers (layouts_hopper.cuh); taps outside the
+//      image read izp (a 16-byte shared store, as K11's stager does:
+//      cp.async's zero fill and TMA's out-of-bounds fill are zero, not izp).  The divisors are
 //      multiply-high constants made on the host (FastDiv), a thread keeps
 //      its 16-byte segment on every row it stages, and each tap's weight
 //      offset is made once per step.
@@ -54,7 +46,7 @@
 //      splits the chunks; rank 1's int32 sums reach rank 0 through
 //      distributed shared memory, with no second pass and no atomics.  The
 //      launcher picks the taps per step and the split together from a cost
-//      model (launch_tile): fewer taps a step spend fewer bytes, so more
+//      model (plan_launch): fewer taps a step spend fewer bytes, so more
 //      blocks share an SM and more tiles split.
 //
 // K9, the wide product on wgmma.  Per step, P = window (rows x 64) .
@@ -87,84 +79,17 @@
 // from the channel-major window; wgmma would want a 64-row A operand that four
 // warps build in lockstep, or a staged tile per tap, which is the copy this
 // layout exists to avoid.  K9 is the wgmma kernel of the pair.
-#include <cooperative_groups.h>
-
-#include <algorithm>
-
-#include "qgemm.cuh"
+#include "layouts_hopper.cuh"
 
 namespace tk {
 namespace hop {
 
-constexpr int KC = 64;          // phase channels per chunk
-constexpr int GMAX = 4;         // live taps per step
 constexpr int W_THREADS = 256;  // K9: two warpgroups
 constexpr int W_NW = 32;        // K9: window rows per wgmma (its N)
 constexpr int W_IB = 4;         // K9: wgmma tiles in flight per warpgroup
 constexpr int W_PPAD = 4;       // K9: int32 words of padding per row of P
 constexpr int T_SROW = 80;      // K7: bytes per weight row
-constexpr size_t SMEM_LIMIT = 232448;
 
-// n / d for 0 <= n < 2^31 by a multiply-high and a shift (the divisors are
-// runtime geometry; a hardware-less integer division costs ~25 instructions
-// and the stagers take several per 16-byte copy).  m = ceil(2^(31+l) / d)
-// with 2^l >= d; m == 0 stands for d == 1.
-struct FastDiv {
-  uint32_t m, s;
-  static FastDiv make(int d) {
-    FastDiv f{0u, 0u};
-    if (d > 1) {
-      int l = 0;
-      while ((1u << l) < (uint32_t)d) ++l;
-      f.m = (uint32_t)(((1ull << (31 + l)) + d - 1) / d);
-      f.s = (uint32_t)(l - 1);
-    }
-    return f;
-  }
-  __device__ __forceinline__ int div(int n) const {
-    return m ? (int)(__umulhi((uint32_t)n, m) >> s) : n;
-  }
-};
-
-struct HGeo {
-  int n, h, w, cin, kh, kw, cout, sh, sw, pt, pl, oh, ow;
-  int khp, kwp, hph, wph, plane, cs, mo, maxoff, nchunks;
-  int group;     // live taps per step
-  uint32_t izp4;  // the input zero point in each byte
-  bool a_vec;     // 16-byte image loads (CIN % 16 == 0, x aligned)
-  bool b_vec;     // 16-byte weight loads (CIN % 16 == 0)
-  bool o_vec;     // 4-byte output stores (COUT % 4 == 0)
-  FastDiv by_plane, by_wph, by_cin, by_sw, by_kwp;
-};
-
-// A phase channel c < cs as its phase (p, q) and image channel ci.
-struct PhaseCh {
-  int p, q, ci;
-};
-__device__ __forceinline__ PhaseCh phase_ch(int c, const HGeo& g) {
-  const int ph = g.by_cin.div(c), p = g.by_sw.div(ph);
-  return {p, ph - p * g.sw, c - ph * g.cin};
-}
-
-// A frame row as its image and (i, j) in the frame.
-struct FrameRow {
-  int img, i, j;
-};
-__device__ __forceinline__ FrameRow frame_row(int row, const HGeo& g) {
-  const int img = g.by_plane.div(row), rem = row - img * g.plane;
-  const int i = g.by_wph.div(rem);
-  return {img, i, rem - i * g.wph};
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -179,242 +104,9 @@ __device__ __forceinline__ void transpose4(const uint32_t (&v)[4], uint32_t (&u)
   u[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-__device__ __forceinline__ int tap_off(int t, const HGeo& g) {
-  const int a = g.by_kwp.div(t);
-  return a * g.wph + t - a * g.kwp;
-}
-
-// Whether tap t has a weight in some phase of the chunk at channel k0.
-__device__ __forceinline__ bool tap_live(int t, int k0, const HGeo& g) {
-  const int a = g.by_kwp.div(t), b = t - a * g.kwp;
-  const int ph_hi = g.by_cin.div(min(k0 + KC, g.cs) - 1);
-  for (int ph = g.by_cin.div(k0); ph <= ph_hi; ++ph) {
-    const int p = g.by_sw.div(ph), q = ph - p * g.sw;
-    if (a * g.sh + p < g.kh && b * g.sw + q < g.kw) return true;
-  }
-  return false;
-}
-
-// The 32-byte K steps of the chunk at k0 that hold phase channels (1 or 2):
-// past cs both operands are zero, so a narrow CIN skips the second.
-__device__ __forceinline__ int chunk_ksteps(int k0, const HGeo& g) {
-  return g.cs - k0 > 32 ? 2 : 1;
-}
-
-// A step: up to `group` live taps of one chunk, packed a byte each.  `t` is
-// the first tap after them; chunk >= nchunks once the steps are done.  A
-// block of a K split of KS walks every KS-th chunk (`stride`).
-struct Step {
-  int chunk, t, g;
-  uint32_t taps;
-};
-
-__device__ Step step_from(int chunk, int t, int stride, const HGeo& g) {
-  Step s{chunk, t, 0, 0u};
-  const int T = g.khp * g.kwp;
-  while (s.chunk < g.nchunks) {
-    for (; s.t < T && s.g < g.group; ++s.t)
-      if (tap_live(s.t, s.chunk * KC, g)) s.taps |= (uint32_t)s.t << (8 * s.g++);
-    if (s.g > 0) return s;
-    s.chunk += stride;
-    s.t = 0;
-  }
-  return s;
-}
-
-__device__ __forceinline__ Step next_step(const Step& s, int stride, const HGeo& g) {
-  return s.t < g.khp * g.kwp ? step_from(s.chunk, s.t, stride, g)
-                             : step_from(s.chunk + stride, 0, stride, g);
-}
-
-// The K split over a cluster of KS blocks (KS 1 or 2): rank 1 leaves its
-// int32 sums in its shared memory (n per thread, thread-major, after the
-// main loop is done with it), rank 0 adds them through distributed shared
-// memory and alone goes on to the epilogue.  Returns whether this block
-// stores the outputs.
-template <int KS, int NT, int N>
-__device__ __forceinline__ bool cluster_reduce(uint32_t (&acc)[N], int8_t* smem) {
-  if constexpr (KS == 1) {
-    return true;
-  } else {
-    namespace cg = cooperative_groups;
-    cg::cluster_group cluster = cg::this_cluster();
-    uint32_t* red = reinterpret_cast<uint32_t*>(smem);
-    const bool lead = cluster.block_rank() == 0;
-    __syncthreads();
-    if (!lead)
-#pragma unroll
-      for (int i = 0; i < N; ++i) red[i * NT + threadIdx.x] = acc[i];
-    cluster.sync();
-    if (lead) {
-      const uint32_t* other = cluster.map_shared_rank(red, 1);
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc[i] += other[i * NT + threadIdx.x];
-    }
-    cluster.sync();  // rank 1's shared memory lives until rank 0 has read it
-    return lead;
-  }
-}
-
-__device__ __forceinline__ int step_tap(const Step& s, int j) { return (s.taps >> (8 * j)) & 255; }
-
-// Byte offset of (row r, 16-byte segment seg) of a 64-byte-deep tile: the
-// no-swizzle core-matrix layout that wgmma reads (CM), or plain rows.
-template <bool CM>
-__device__ __forceinline__ int tile_off(int r, int seg, int stride) {
-  return CM ? (r >> 3) * 512 + seg * 128 + (r & 7) * 16 : r * stride + seg * 16;
-}
-
-// dst[r][0, 64) = phase channels k0 .. k0 + 63 of frame row r0 + r, r < rows;
-// izp outside the image and on rows past the last image (no kept output
-// reads them), anything past cs (their weights are zero).  NT threads; a
-// thread's 16-byte segment (threadIdx.x & 3) is the same on every row, so
-// its phase is worked out once per chunk.
-template <bool CM, int NT>
-__device__ void stage_window(int8_t* dst, const int8_t* __restrict__ x, int r0, int rows, int k0,
-                             const HGeo& g) {
-  const int seg = threadIdx.x & 3, c = k0 + seg * 16;
-  const uint4 fill = make_uint4(g.izp4, g.izp4, g.izp4, g.izp4);
-  const bool live = c < g.cs;
-  if (g.a_vec) {  // the 16 channels lie in one phase
-    const PhaseCh pc = phase_ch(live ? c : 0, g);
-    for (int r = threadIdx.x >> 2; r < rows; r += NT / 4) {
-      int8_t* d = dst + tile_off<CM>(r, seg, KC);
-      const int row = r0 + r;
-      if (live && row < g.mo) {
-        const FrameRow f = frame_row(row, g);
-        const int iy = f.i * g.sh + pc.p - g.pt, ix = f.j * g.sw + pc.q - g.pl;
-        if ((unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w) {
-          cp_async16(d, x + (((long long)f.img * g.h + iy) * g.w + ix) * g.cin + pc.ci, true);
-          continue;
-        }
-      }
-      *reinterpret_cast<uint4*>(d) = fill;
-    }
-    return;
-  }
-  // a narrow or ragged CIN: byte loads, the phase advanced channel by channel
-  const PhaseCh pc0 = phase_ch(live ? c : 0, g);
-  for (int r = threadIdx.x >> 2; r < rows; r += NT / 4) {
-    int8_t* d = dst + tile_off<CM>(r, seg, KC);
-    const int row = r0 + r;
-    if (!live || row >= g.mo) {
-      *reinterpret_cast<uint4*>(d) = fill;
-      continue;
-    }
-    const FrameRow f = frame_row(row, g);
-    uint32_t v[4] = {0, 0, 0, 0};
-    int p = pc0.p, q = pc0.q, ci = pc0.ci;
-#pragma unroll
-    for (int b = 0; b < 16; ++b) {  // unrolled: v stays in registers
-      if (c + b >= g.cs) break;
-      const int iy = f.i * g.sh + p - g.pt, ix = f.j * g.sw + q - g.pl;
-      const uint32_t byte =
-          (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w
-              ? (uint8_t)x[(((long long)f.img * g.h + iy) * g.w + ix) * g.cin + ci]
-              : g.izp4 & 0xffu;
-      v[b >> 2] |= byte << (8 * (b & 3));
-      if (++ci == g.cin) {  // the next phase (p, q), q fastest
-        ci = 0;
-        if (++q == g.sw) {
-          q = 0;
-          ++p;
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(d) = make_uint4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// dst rows tl*BN + n, tl < s.g, n < BN: the weights of the step's tap tl,
-// column n0 + n, phase channels k0 .. k0 + 63, from wk (KH, KW, COUT, CIN);
-// zero where the phase has no such tap, past cs or past COUT.  NT threads,
-// NT / 4 dividing BN: a thread keeps its segment, and each tap's weight
-// offset is worked out once per step.
-template <bool CM, int BN, int NT>
-__device__ void stage_weights(int8_t* dst, const int8_t* __restrict__ wk, const Step& s, int n0,
-                              const HGeo& g) {
-  static_assert(BN % (NT / 4) == 0, "a thread's segment must be the same on every row");
-  const int seg = threadIdx.x & 3, c = s.chunk * KC + seg * 16;
-  const bool live = c < g.cs;
-  const PhaseCh pc = phase_ch(live ? c : 0, g);
-#pragma unroll
-  for (int tl = 0; tl < GMAX; ++tl) {
-    if (tl >= s.g) break;
-    const int t = step_tap(s, tl);
-    const int a = g.by_kwp.div(t), b = t - a * g.kwp;
-    if (g.b_vec) {
-      const int ky = a * g.sh + pc.p, kx = b * g.sw + pc.q;
-      const bool tap_ok = live && ky < g.kh && kx < g.kw;
-      const int8_t* src = wk + ((long long)ky * g.kw + kx) * g.cout * g.cin + pc.ci;
-      for (int n = threadIdx.x >> 2; n < BN; n += NT / 4) {
-        const int co = n0 + n;
-        const bool ok = tap_ok && co < g.cout;
-        cp_async16(dst + tile_off<CM>(tl * BN + n, seg, T_SROW),
-                   ok ? src + (long long)co * g.cin : wk, ok);
-      }
-      continue;
-    }
-    for (int n = threadIdx.x >> 2; n < BN; n += NT / 4) {
-      const int co = n0 + n;
-      uint32_t v[4] = {0, 0, 0, 0};
-      int p = pc.p, q = pc.q, ci = pc.ci;
-#pragma unroll
-      for (int bb = 0; bb < 16; ++bb) {
-        if (!live || co >= g.cout || c + bb >= g.cs) break;
-        const int ky = a * g.sh + p, kx = b * g.sw + q;
-        if (ky < g.kh && kx < g.kw)
-          v[bb >> 2] |=
-              (uint32_t)(uint8_t)wk[(((long long)ky * g.kw + kx) * g.cout + co) * g.cin + ci]
-              << (8 * (bb & 3));
-        if (++ci == g.cin) {
-          ci = 0;
-          if (++q == g.sw) {
-            q = 0;
-            ++p;
-          }
-        }
-      }
-      *reinterpret_cast<uint4*>(dst + tile_off<CM>(tl * BN + n, seg, T_SROW)) =
-          make_uint4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
-// Writes after the last wait of this thread, in the generic proxy, made
-// visible to wgmma's async proxy (each thread, before the barrier).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// The requantized value of over-wide output row m (block-relative rows are
-// the caller's), stored where it is a real output.
-__device__ __forceinline__ long long out_index(int m, const HGeo& g) {
-  if (m >= g.mo) return -1;
-  const FrameRow f = frame_row(m, g);
-  if (f.i >= g.oh || f.j >= g.ow) return -1;
-  return (((long long)f.img * g.oh + f.i) * g.ow + f.j) * g.cout;
-}
-
 // ---------------------------------------------------------------------------
 // K9 qconv_rq_w
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint64_t gmma_desc(const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(512 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 
 // d (64 x 32) = A (64 x 32 bytes) . B (32 x 32 bytes)^T, + d when accumulate.
 __device__ __forceinline__ void wgmma_m64n32k32(int32_t (&d)[16], uint64_t da, uint64_t db,
@@ -455,8 +147,8 @@ __device__ void wide_product(const int8_t* win, const int8_t* wt, int32_t* P, in
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk)
           if (kk < ksteps)
-            wgmma_m64n32k32(d[j], gmma_desc(wt + mt * 4096 + kk * 256),
-                            gmma_desc(win + rb * (W_NW / 8) * 512 + kk * 256), kk);
+            wgmma_m64n32k32(d[j], gmma_desc(wt + mt * 4096 + kk * 256, 128, 512),
+                            gmma_desc(win + rb * (W_NW / 8) * 512 + kk * 256, 128, 512), kk);
       }
     }
     wgmma_commit();
@@ -500,20 +192,20 @@ __global__ void __launch_bounds__(W_THREADS)
 #pragma unroll
   for (int i = 0; i < PASSES * 4; ++i) acc[i] = 0;
 
-  Step cur = step_from(KS > 1 ? (int)blockIdx.z : 0, 0, KS, g);
+  Step cur = step_from<false>(KS > 1 ? (int)blockIdx.z : 0, 0, KS, g);
   int wb = 0;  // the window buffer of cur's chunk
   if (cur.chunk < g.nchunks) {
-    stage_window<true, W_THREADS>(win, x, m0, rows_pad, cur.chunk * KC, g);
-    stage_weights<true, BN, W_THREADS>(wt, wk, cur, n0, g);
+    stage_window<CM, W_THREADS>(win, 0, x, m0, rows_pad, cur.chunk * KC, g);
+    stage_weights<CM, BN, W_THREADS>(wt, 0, wk, cur, n0, g);
   }
   cp_async_commit();
   for (int s = 0; cur.chunk < g.nchunks; ++s) {
-    const Step nxt = next_step(cur, KS, g);
+    const Step nxt = next_step<false>(cur, KS, g);
     const int nwb = nxt.chunk != cur.chunk ? wb ^ 1 : wb;
     if (nxt.chunk < g.nchunks) {
       if (nxt.chunk != cur.chunk)
-        stage_window<true, W_THREADS>(win + nwb * win_sz, x, m0, rows_pad, nxt.chunk * KC, g);
-      stage_weights<true, BN, W_THREADS>(wt + ((s + 1) & 1) * wt_sz, wk, nxt, n0, g);
+        stage_window<CM, W_THREADS>(win + nwb * win_sz, 0, x, m0, rows_pad, nxt.chunk * KC, g);
+      stage_weights<CM, BN, W_THREADS>(wt + ((s + 1) & 1) * wt_sz, 0, wk, nxt, n0, g);
     }
     cp_async_commit();
     cp_async_wait1();
@@ -593,20 +285,20 @@ __global__ void __launch_bounds__(Tile<BM, BN>::NTHREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
 
-  Step cur = step_from(KS > 1 ? (int)blockIdx.z : 0, 0, KS, g);
+  Step cur = step_from<false>(KS > 1 ? (int)blockIdx.z : 0, 0, KS, g);
   int wb = 0, last_chunk = -1;
   if (cur.chunk < g.nchunks) {
-    stage_window<false, NT>(stage, x, m0, rows4, cur.chunk * KC, g);
-    stage_weights<false, BN, NT>(wt, wk, cur, n0, g);
+    stage_window<ROWS, NT>(stage, KC, x, m0, rows4, cur.chunk * KC, g);
+    stage_weights<ROWS, BN, NT>(wt, T_SROW, wk, cur, n0, g);
   }
   cp_async_commit();
   for (int s = 0; cur.chunk < g.nchunks; ++s) {
-    const Step nxt = next_step(cur, KS, g);
+    const Step nxt = next_step<false>(cur, KS, g);
     const int nwb = nxt.chunk != cur.chunk ? wb ^ 1 : wb;
     if (nxt.chunk < g.nchunks) {
       if (nxt.chunk != cur.chunk)
-        stage_window<false, NT>(stage + nwb * st_sz, x, m0, rows4, nxt.chunk * KC, g);
-      stage_weights<false, BN, NT>(wt + ((s + 1) & 1) * wt_sz, wk, nxt, n0, g);
+        stage_window<ROWS, NT>(stage + nwb * st_sz, KC, x, m0, rows4, nxt.chunk * KC, g);
+      stage_weights<ROWS, BN, NT>(wt + ((s + 1) & 1) * wt_sz, T_SROW, wk, nxt, n0, g);
     }
     cp_async_commit();
     cp_async_wait1();
@@ -711,154 +403,36 @@ inline size_t smem_bytes(HLayout l, int bm, int bn, int group, int maxoff) {
          2 * (size_t)group * bn * T_SROW;
 }
 
-template <HLayout L, int BM, int BN, int KS>
-int launch_split(const int8_t* x, const int8_t* wk, int8_t* out, const Requant& rq, const HGeo& g,
-                 size_t smem, cudaStream_t stream) {
-  auto kern = L == H_W ? qconv_w_hopper<BM, BN, KS> : qconv_t_hopper<BM, BN, KS>;
-  const int threads = L == H_W ? W_THREADS : Tile<BM, BN>::NTHREADS;
-  const dim3 grid((g.mo + BM - 1) / BM, (g.cout + BN - 1) / BN, KS);
-  if (KS == 1) {
-    kern<<<grid, threads, smem, stream>>>(x, wk, out, rq, g);
-    return (int)cudaGetLastError();
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = 1;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = KS;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
-  if (cudaLaunchKernelEx(&cfg, kern, x, wk, out, rq, g) != cudaSuccess)
-    return (int)cudaGetLastError();
-  return (int)cudaGetLastError();
-}
-
-// The live taps of the chunk at k0 (tap_live on the host).
-inline int chunk_live_taps(int k0, const HGeo& g) {
-  int n = 0;
-  for (int t = 0; t < g.khp * g.kwp; ++t) {
-    const int a = t / g.kwp, b = t % g.kwp;
-    for (int ph = k0 / g.cin; ph <= (std::min(k0 + KC, g.cs) - 1) / g.cin; ++ph)
-      if (a * g.sh + ph / g.sw < g.kh && b * g.sw + ph % g.sw < g.kw) {
-        ++n;
-        break;
-      }
-  }
-  return n;
-}
-
-// Picks the live taps per step (up to the wrapper's g.group, the most that
-// fit 227 KB) and whether to split K over a cluster of two blocks, from a
-// cost model fitted on the H100: a block's time is its steps plus twice its
-// tap products (a step's fixed cost is about half a tap's), times the waves
-// of blocks.  A smaller group spends fewer bytes, so more blocks share an
-// SM (the occupancy API says how many); K is split where twice the tiles
-// fit the card at once, a block has two chunks or more, and rank 1's sums
-// (BM * BN int32) fit its shared memory.  On ResNet-50 b8 at 64 x 64 this
-// takes K9 to three taps a step at 28^2 and 14^2 (two blocks an SM, and the
-// split at 14^2) and four at 7^2.
 template <HLayout L, int BM, int BN>
 int launch_tile(const int8_t* x, const int8_t* wk, int8_t* out, const Requant& rq, HGeo g,
                 cudaStream_t stream) {
   auto kern1 = L == H_W ? qconv_w_hopper<BM, BN, 1> : qconv_t_hopper<BM, BN, 1>;
   auto kern2 = L == H_W ? qconv_w_hopper<BM, BN, 2> : qconv_t_hopper<BM, BN, 2>;
   const int threads = L == H_W ? W_THREADS : Tile<BM, BN>::NTHREADS;
-  static int sms = 0;  // once per kernel: the SM count, the shared memory ceiling
-  if (sms == 0) {
-    int dev = 0, n = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaFuncSetAttribute(kern1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)SMEM_LIMIT) != cudaSuccess ||
-        cudaFuncSetAttribute(kern2, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)SMEM_LIMIT) != cudaSuccess)
-      return (int)cudaGetLastError();
-    sms = n;
-  }
-  long long steps[GMAX] = {0, 0, 0, 0}, taps = 0;
-  for (int c = 0; c < g.nchunks; ++c) {
-    const int live = chunk_live_taps(c * KC, g);
-    taps += live;
-    for (int grp = 1; grp <= GMAX; ++grp) steps[grp - 1] += (live + grp - 1) / grp;
-  }
-  const long long tiles = (long long)((g.mo + BM - 1) / BM) * ((g.cout + BN - 1) / BN);
-  double best = 0.0;
-  int best_group = 0;
-  bool best_split = false;
-  for (int grp = 1; grp <= g.group; ++grp) {
-    const size_t smem = smem_bytes(L, BM, BN, grp, g.maxoff);
-    if (smem > SMEM_LIMIT) break;
-    int per_sm = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern2, threads, smem) !=
-        cudaSuccess)
-      return (int)cudaGetLastError();
-    const long long slots = (long long)sms * per_sm;
-    if (slots <= 0) continue;
-    const bool split = g.nchunks >= 2 && 2 * tiles <= slots && (size_t)BM * BN * 4 <= smem;
-    const long long blocks = split ? 2 * tiles : tiles;
-    const double cost = (double)((blocks + slots - 1) / slots) *
-                        (double)(steps[grp - 1] + 2 * taps) / (split ? 2 : 1);
-    if (best_group == 0 || cost <= best) {  // a tie goes to the larger group
-      best = cost;
-      best_group = grp;
-      best_split = split;
-    }
-  }
-  if (best_group == 0) return (int)cudaErrorInvalidValue;
-  g.group = best_group;
-  const size_t smem = smem_bytes(L, BM, BN, g.group, g.maxoff);
-  return best_split ? launch_split<L, BM, BN, 2>(x, wk, out, rq, g, smem, stream)
-                    : launch_split<L, BM, BN, 1>(x, wk, out, rq, g, smem, stream);
+  static int sms = 0;
+  Plan plan;
+  const int rc = plan_launch(
+      (const void*)kern1, (const void*)kern2, threads, BM, BN, false, g,
+      [&](int grp) { return smem_bytes(L, BM, BN, grp, g.maxoff); }, sms, plan);
+  if (rc != cudaSuccess) return rc;
+  g.group = plan.group;
+  const dim3 grid((g.mo + BM - 1) / BM, (g.cout + BN - 1) / BN, plan.split ? 2 : 1);
+  return launch_cluster(plan.split ? kern2 : kern1, plan.split ? 2 : 1, grid, threads, plan.smem,
+                        stream, x, wk, out, rq, g);
 }
 
-// Launches K7 or K9 on `stream` at the tile (P_BM, P_BN), P_GROUP live taps
-// per step, and returns cudaGetLastError() (cudaErrorInvalidValue for a tile
-// that is not built, a group out of range, more than 255 taps or shared
-// memory above 227 KB).  wk is the weight packed (KH, KW, COUT, CIN).
+// Launches K7 or K9 on `stream` at the tile (P_BM, P_BN), up to P_GROUP live
+// taps per step, and returns cudaGetLastError() (cudaErrorInvalidValue for
+// a tile that is not built, a group out of range, more than 255 taps or
+// shared memory above 227 KB).  wk is the weight packed (KH, KW, COUT, CIN).
+// On ResNet-50 b8 at 64 x 64 the cost model takes K9 to three taps a step at
+// 28^2 and 14^2 (two blocks an SM, and the split at 14^2) and four at 7^2.
 template <HLayout L>
 int launch(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
            const int32_t* mult, const int32_t* shift, const int32_t* p, void* stream) {
   HGeo g;
-  g.n = p[P_N];
-  g.h = p[P_H];
-  g.w = p[P_W];
-  g.cin = p[P_CIN];
-  g.kh = p[P_KH];
-  g.kw = p[P_KW];
-  g.cout = p[P_COUT];
-  g.sh = p[P_SH];
-  g.sw = p[P_SW];
-  g.pt = p[P_PT];
-  g.pl = p[P_PL];
-  g.oh = p[P_OH];
-  g.ow = p[P_OW];
-  if (g.sh <= 0 || g.sw <= 0 || g.cin <= 0) return (int)cudaErrorInvalidValue;
-  g.khp = (g.kh + g.sh - 1) / g.sh;
-  g.kwp = (g.kw + g.sw - 1) / g.sw;
-  g.hph = g.oh + g.khp - 1;
-  g.wph = g.ow + g.kwp - 1;
-  g.plane = g.hph * g.wph;
-  g.cs = g.sh * g.sw * g.cin;
-  g.mo = g.n * g.hph * g.wph;
-  g.maxoff = (g.khp - 1) * g.wph + g.kwp - 1;
-  g.nchunks = (g.cs + KC - 1) / KC;
-  g.group = p[P_GROUP];
-  g.izp4 = (uint32_t)(uint8_t)(int8_t)p[P_IZP] * 0x01010101u;
-  g.a_vec = p[P_A_VEC] != 0 && g.cin % 16 == 0;
-  g.b_vec = g.cin % 16 == 0;
-  g.o_vec = g.cout % 4 == 0;
-  g.by_plane = FastDiv::make(g.plane);
-  g.by_wph = FastDiv::make(g.wph);
-  g.by_cin = FastDiv::make(g.cin);
-  g.by_sw = FastDiv::make(g.sw);
-  g.by_kwp = FastDiv::make(g.kwp);
-  const Requant rq{bias, mult, shift, p[P_RQ_IZP], p[P_OUT_ZP], p[P_QMIN], p[P_QMAX],
-                   p[P_TONEAREST] != 0};
+  if (!make_geo(p, g)) return (int)cudaErrorInvalidValue;
+  const Requant rq = make_rq(bias, mult, shift, p);
   const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
   if (g.group < 1 || g.group > GMAX || (L == H_W && g.group * bn > 256) ||
       g.khp * g.kwp > 255)

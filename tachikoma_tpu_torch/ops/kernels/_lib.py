@@ -38,7 +38,7 @@ PARAMS = (
     "izp", "rq_izp", "out_zp", "qmin", "qmax", "tonearest", "a_vec", "b_vec",
     "l_skip", "lm", "ls", "lzp", "r_skip", "rm", "rs", "rzp", "zo", "lo", "hi",
     "add_tonearest", "g", "s", "d", "causal", "scale_bits", "bm", "bn",
-    "mo", "mx", "wp", "group", "cc", "th", "tw",
+    "group", "cc", "th", "tw",
 )
 
 # The block tiles (BM, BN) that K1-K3 and K7-K10 are built at, with BK = 64:

@@ -8,13 +8,15 @@ how the kernel moves data:
 
   * `qconv_rq_t` (K7, layout "t", `csrc/qconv_layouts_hopper.cu`): the window
     channel-major in shared memory;
-  * `qconv_rq_s` (K8, layout "s", `csrc/qconv_layouts.cu`): the block's input
-    window staged once per channel chunk, every tap read from shared memory;
+  * `qconv_rq_s` (K8, layout "s", `csrc/qconv_layouts.cu`): the block's window
+    staged once per channel chunk, each live tap a wgmma on it at the tap's
+    row shift;
   * `qconv_rq_w` (K9, layout "w", `csrc/qconv_layouts_hopper.cu`): one wide
     product (wgmma) against the live taps' weights side by side, then shifted
     int32 sums;
-  * `qconv_rq_r` (K10, layout "r", `csrc/qconv_layouts.cu`): K in (kx, ky, ci)
-    order, each column tap's row taps one deep-K run.
+  * `qconv_rq_r` (K10, layout "r", `csrc/qconv_layouts.cu`): per live column
+    tap, a window staged for that column and its row taps as one deep-K run
+    of wgmmas.
 
 All four are defined on the polyphase frame of `_conv_mxu`: a stride-s conv
 is a stride-1 conv over the polyphase-stacked image (`phase_image`,
@@ -22,20 +24,24 @@ is a stride-1 conv over the polyphase-stacked image (`phase_image`,
 flattened to the over-wide frame (output row m = n*FH + oh*WP + ow reads input
 row m + a*WP + b for tap (a, b)); the garbage columns are dropped after.  The
 input zero point folds into the bias.  Unlike the TPU wrapper, channels pad
-to a multiple of 16 (not 128) and no width or VMEM padding is added.  K8's
-and K10's wrappers build that frame (`flat_operands`) and hand it to their
-kernels; K7 and K9 read the caller's NHWC image and the weights packed once
-as (KH, KW, COUT, CIN) (`packed_weights`, cached per weight tensor), compute
-the frame's addresses themselves, skip the (chunk, tap) pairs whose phases
-have no weight (`live_taps`) and store straight into (N, OH, OW, COUT).
+to a multiple of 16 (not 128) and no width or VMEM padding is added.  No
+kernel is handed that frame: each reads the caller's NHWC image and the
+weights packed once as (KH, KW, COUT, CIN) (`packed_weights`, cached per
+weight tensor), computes the frame's addresses itself
+(`csrc/layouts_hopper.cuh`), skips the (chunk, tap) pairs whose phases have no
+weight (`live_taps`) and stores straight into (N, OH, OW, COUT).
+`flat_operands`, `phase_image`, `phase_weights` and `_unflat` serve the plain
+versions only.
 
 Each layout's plain version follows its kernel's decomposition on the flat
 operands, so the CPU tests check the decomposition and not only the
-dispatch: "s" an explicit im2col and one product, "w" per 64-channel chunk
-one wide product against the chunk's live taps and shifted int32 sums, "r"
-one deep-K product per column tap, "t" per-tap products that contract the
-channel-major image over its first axis.  On a CPU tensor each wrapper runs
-its plain version; on a CUDA tensor it launches its kernel or raises.
+dispatch: "s" per 64-channel chunk each live tap's shifted window times that
+tap's weights, "w" per chunk one wide product against the chunk's live taps
+and shifted int32 sums, "r" per chunk and live column tap the live row taps'
+windows side by side times their stacked weights, "t" per-tap products that
+contract the channel-major image over its first axis.  On a CPU tensor each
+wrapper runs its plain version; on a CUDA tensor it launches its kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -45,15 +51,14 @@ from dataclasses import dataclass
 
 import torch
 
-from ._lib import BK, LAUNCHES, check_cuda_operands, launch, tile_params
+from ._lib import LAUNCHES, check_cuda_operands, launch, tile_params
 from .matmul_int8 import _TONEAREST, exact_int_matmul, fold_input_zero_point
 from .requantize import epilogue_plain
 
 LAYOUTS = ("t", "s", "w", "r")
-SROW = BK + 16                # shared-memory row stride of the kernels, bytes
 SMEM_LIMIT = 232448           # 227 KB: the H100's shared memory per block
-KC = 64                       # K7 / K9: phase channels per chunk
-GMAX = 4                      # K7 / K9: live taps per step
+KC = 64                       # phase channels per chunk
+GMAX = 4                      # live taps per step
 W_NW = 32                     # K9: window rows per wgmma
 W_PPAD = 4                    # K9: int32 padding per row of the partials
 T_SROW = 80                   # K7: bytes per staged weight row
@@ -182,20 +187,27 @@ def flat_operands(x, w, layout: str, strides, padding, izp):
 
 
 # ---------------------------------------------------------------------------
-# shared memory (the sums of csrc/qconv_layouts.cu and
+# shared memory (the sums of csrc/qconv_layouts.cu sr_smem and
 # csrc/qconv_layouts_hopper.cu smem_bytes)
 # ---------------------------------------------------------------------------
 
+def window_rows(layout: str, bm: int, g: FlatGeometry) -> int:
+    """The frame rows of K8's or K10's K-slice-major window, rounded to a
+    core matrix's 8: K8 every tap's shift (maxoff) past the block's BM rows,
+    K10 its row taps' shifts ((KHP-1)*WPH) from the column tap's row."""
+    reach = (g.khp - 1) * g.wph if layout == "r" else g.maxoff
+    return _round_up(bm + reach, 8)
+
+
 def smem_bytes(layout: str, tile, g: FlatGeometry, group: int = 1) -> int:
     """Dynamic shared memory of `layout` at `tile` with `group` live taps per
-    step (K7, K9): K9 two windows of BM + maxoff rows rounded to its wgmma's
-    32, two weight tiles and the int32 partials; K7 two NHWC windows, the
-    channel-major window and two weight tiles."""
+    step: K8 and K10 two windows and two weight tiles; K9 two windows of BM +
+    maxoff rows rounded to its wgmma's 32, two weight tiles and the int32
+    partials; K7 two NHWC windows, the channel-major window and two weight
+    tiles."""
     bm, bn = tile
-    if layout == "s":
-        return (bm + g.maxoff + bn) * SROW
-    if layout == "r":
-        return (bm + (g.khp - 1) * g.wph + g.khp * bn) * SROW
+    if layout in ("s", "r"):
+        return 2 * window_rows(layout, bm, g) * KC + 2 * group * bn * KC
     if layout == "w":
         rows = _round_up(bm + g.maxoff, W_NW)
         return 2 * rows * KC + 2 * group * bn * KC + rows * (group * bn + W_PPAD) * 4
@@ -205,12 +217,16 @@ def smem_bytes(layout: str, tile, g: FlatGeometry, group: int = 1) -> int:
 
 
 def layout_group(layout: str, tile, g: FlatGeometry) -> int:
-    """The most live taps per step K7 and K9 may take (up to 4, and for K9 up
-    to 256 / BN, wgmma's widest N) within shared memory; 0 when not even one
-    fits (the tile is then refused).  The launcher runs this many or fewer,
-    from a cost model of its occupancy (csrc/qconv_layouts_hopper.cu
-    launch_tile)."""
-    cap = min(GMAX, g.khp * g.kwp, 256 // tile[1] if layout == "w" else GMAX)
+    """The most live taps per step the layout's kernel may take within shared
+    memory (up to 4; for K9 up to 256 / BN, wgmma's widest N; for K10 up to
+    KHP, a step's taps lying in one column); 0 when not even one fits (the
+    tile is then refused).  The launcher runs this many or fewer, from a cost
+    model of its occupancy (csrc/layouts_hopper.cuh plan_launch)."""
+    cap = min(GMAX, g.khp * g.kwp)
+    if layout == "w":
+        cap = min(cap, 256 // tile[1])
+    elif layout == "r":
+        cap = min(cap, g.khp)
     if g.khp * g.kwp > 255:
         return 0
     fits = [grp for grp in range(1, cap + 1) if smem_bytes(layout, tile, g, grp) <= SMEM_LIMIT]
@@ -219,12 +235,9 @@ def layout_group(layout: str, tile, g: FlatGeometry) -> int:
 
 def layout_fits(layout: str, blocks, x_shape, w_shape, strides, padding) -> bool:
     """Whether `layout` at `blocks` fits the H100's shared memory for this
-    conv (K7 and K9 need at least one tap per step; K8 and K10 a window)."""
+    conv (at least one live tap per step)."""
     g = flat_geometry(x_shape, w_shape, strides, padding)
-    tile = (int(blocks[0]), int(blocks[1]))
-    if layout in ("t", "w"):
-        return layout_group(layout, tile, g) > 0
-    return smem_bytes(layout, tile, g) <= SMEM_LIMIT
+    return layout_group(layout, (int(blocks[0]), int(blocks[1])), g) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -236,9 +249,16 @@ def _wrap32(acc64: torch.Tensor) -> torch.Tensor:
 
 
 def acc_s(xf, wl, g: FlatGeometry) -> torch.Tensor:
-    """Explicit im2col of the flat frame, then one product."""
-    cols = torch.cat([xf[o:o + g.mo] for o in g.offs], dim=1)       # (MO, T*C)
-    return exact_int_matmul(cols, wl)
+    """Per chunk of 64 phase channels, each live tap's window at its row
+    shift times that tap's weights, summed (the zero taps skipped)."""
+    offs = g.offs
+    acc = torch.zeros((g.mo, wl.shape[1]), dtype=torch.int64, device=xf.device)
+    for lo in range(0, g.cin_s, KC):
+        hi = min(lo + KC, g.c)
+        for t in live_taps(g, lo):
+            acc += exact_int_matmul(xf[offs[t]:offs[t] + g.mo, lo:hi],
+                                    wl[t * g.c + lo:t * g.c + hi]).to(torch.int64)
+    return _wrap32(acc)
 
 
 def acc_w(xf, wl, g: FlatGeometry) -> torch.Tensor:
@@ -259,13 +279,21 @@ def acc_w(xf, wl, g: FlatGeometry) -> torch.Tensor:
 
 
 def acc_r(xf, wl, g: FlatGeometry) -> torch.Tensor:
-    """Per column tap b, the KHP row windows side by side (MO, KHP*C) times
-    that tap's (KHP*C, COUT) run of the (kx, ky, ci) weights."""
-    run = g.khp * g.c
+    """Per chunk and live column tap b, the live row taps' windows (from frame
+    row a*WPH + b) side by side times their stacked weights from the (kx, ky,
+    ci) weight matrix: one deep-K product per (chunk, b)."""
     acc = torch.zeros((g.mo, wl.shape[1]), dtype=torch.int64, device=xf.device)
-    for b in range(g.kwp):
-        patch = torch.cat([xf[a * g.wph + b:a * g.wph + b + g.mo] for a in range(g.khp)], dim=1)
-        acc += exact_int_matmul(patch, wl[b * run:(b + 1) * run]).to(torch.int64)
+    for lo in range(0, g.cin_s, KC):
+        hi = min(lo + KC, g.c)
+        live = live_taps(g, lo)
+        for b in range(g.kwp):
+            rows = [a for a in range(g.khp) if a * g.kwp + b in live]
+            if not rows:
+                continue
+            patch = torch.cat([xf[a * g.wph + b:a * g.wph + b + g.mo, lo:hi] for a in rows], 1)
+            base = [(b * g.khp + a) * g.c for a in rows]
+            w = torch.cat([wl[r + lo:r + hi] for r in base], 0)
+            acc += exact_int_matmul(patch, w).to(torch.int64)
     return _wrap32(acc)
 
 
@@ -299,47 +327,33 @@ def _layout_kernel(layout, x, w, bias, mult, shift, strides, padding, izp, rq_iz
                    rounding, qmin, qmax, blocks):
     name = f"qconv_rq_{layout}"
     strides, padding = tuple(strides), tuple(padding)
-    kw = dict(strides=strides, padding=padding, izp=izp, rq_izp=rq_izp, out_zp=out_zp,
-              rounding=rounding, qmin=qmin, qmax=qmax)
     tile = tile_params(blocks)
     if x.device.type == "cpu":
-        return _layout_plain(layout, x, w, bias, mult, shift, **kw)
+        return _layout_plain(layout, x, w, bias, mult, shift, strides, padding, izp, rq_izp,
+                             out_zp, rounding, qmin, qmax)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    kh, kw_, cin, cout = w.shape
+    kh, kw, cin, cout = w.shape
     i32 = torch.int32
     check_cuda_operands(name, x.device, x=(x, torch.int8, (*x.shape[:3], cin)),
-                        w=(w, torch.int8, (kh, kw_, cin, cout)), bias=(bias, i32, (cout,)),
+                        w=(w, torch.int8, (kh, kw, cin, cout)), bias=(bias, i32, (cout,)),
                         mult=(mult, i32, (cout,)), shift=(shift, i32, (cout,)))
     g = flat_geometry(x.shape, w.shape, strides, padding)
     if x.ndim != 4 or min(g.oh, g.ow) <= 0:
         raise ValueError(f"{name}: bad geometry {tuple(x.shape)} * {tuple(w.shape)}")
-    bm_bn = (tile["bm"], tile["bn"])
-    if layout in ("t", "w"):
-        group = layout_group(layout, bm_bn, g)
-        if group == 0:
-            raise ValueError(f"{name}: tile {tuple(blocks or ())} does not fit shared memory "
-                             f"(window {g.maxoff} rows past the block)")
-        wk, b, out = layout_operands(x, w, bias, izp, g)
-        n, h, wd, _ = x.shape
-        launch(f"tk_{name}", [x, wk, out, b, mult, shift], dict(
-            n=n, h=h, w=wd, cin=cin, kh=kh, kw=kw_, cout=cout, oh=g.oh, ow=g.ow, sh=strides[0],
-            sw=strides[1], pt=padding[0], pl=padding[1], izp=izp, group=group,
-            a_vec=cin % 16 == 0 and x.data_ptr() % 16 == 0, rq_izp=rq_izp, out_zp=out_zp,
-            qmin=qmin, qmax=qmax, tonearest=_TONEAREST[rounding], **tile))
-        LAUNCHES[name] += 1
-        return out
-    if smem_bytes(layout, bm_bn, g) > SMEM_LIMIT:
-        raise ValueError(f"{name}: the window of {tuple(x.shape)} * {tuple(w.shape)} does not "
-                         "fit shared memory")
-    xf, wl, g = flat_operands(x, w, layout, strides, padding, izp)
-    out = torch.empty((g.mo, cout), dtype=torch.int8, device=x.device)
-    launch(f"tk_{name}", [xf, wl, out, fold_input_zero_point(bias, w, izp), mult, shift], dict(
-        mo=g.mo, mx=g.mx, cin=g.c, wp=g.wph, kh=g.khp, kw=g.kwp, cout=cout,
-        b_vec=cout % 4 == 0, rq_izp=rq_izp, out_zp=out_zp, qmin=qmin, qmax=qmax,
-        tonearest=_TONEAREST[rounding], **tile))
+    group = layout_group(layout, (tile["bm"], tile["bn"]), g)
+    if group == 0:
+        raise ValueError(f"{name}: tile {tuple(blocks or ())} does not fit shared memory "
+                         f"(window {g.maxoff} rows past the block)")
+    wk, b, out = layout_operands(x, w, bias, izp, g)
+    n, h, wd, _ = x.shape
+    launch(f"tk_{name}", [x, wk, out, b, mult, shift], dict(
+        n=n, h=h, w=wd, cin=cin, kh=kh, kw=kw, cout=cout, oh=g.oh, ow=g.ow, sh=strides[0],
+        sw=strides[1], pt=padding[0], pl=padding[1], izp=izp, group=group,
+        a_vec=cin % 16 == 0 and x.data_ptr() % 16 == 0, rq_izp=rq_izp, out_zp=out_zp,
+        qmin=qmin, qmax=qmax, tonearest=_TONEAREST[rounding], **tile))
     LAUNCHES[name] += 1
-    return _unflat(out, g)
+    return out
 
 
 # id(weight tensor) -> (a weak reference to it, its _version when packed, the
@@ -349,7 +363,7 @@ _PACKED: dict = {}
 
 def packed_weights(w: torch.Tensor) -> torch.Tensor:
     """w (KH, KW, CIN, COUT) packed K-major as (KH, KW, COUT, CIN), the layout
-    K7 and K9 stage their [n][k] weight tiles from with 16-byte copies.  Made
+    K7-K10 stage their [n][k] weight tiles from with 16-byte copies.  Made
     once per weight tensor and kept while the tensor lives and its
     `_version` (in-place writes) is unchanged: the weights are constants of
     the graph."""
@@ -364,7 +378,7 @@ def packed_weights(w: torch.Tensor) -> torch.Tensor:
 
 
 def layout_operands(x, w, bias, izp, g: FlatGeometry):
-    """All K7's and K9's wrappers do on the card besides the launch: the
+    """All K7's to K10's wrappers do on the card besides the launch: the
     packed weights (a cache lookup after the first call), the bias with the
     input zero point folded in (a few small kernels when izp != 0, else the
     bias itself) and the empty (N, OH, OW, COUT) output."""

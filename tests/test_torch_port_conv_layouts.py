@@ -2,9 +2,10 @@
 CPU, against the JAX package's `qconv2d_flat(..., layout=L, blocks=...)` in
 interpret mode on the same numpy inputs, compared with ==.
 
-Each layout's plain version follows its kernel's decomposition ("s": explicit
-im2col and one product; "w": one wide product and shifted int32 sums; "r":
-one deep-K product per column tap; "t": the channel-major image), so these
+Each layout's plain version follows its kernel's decomposition ("s": per
+64-channel chunk, each live tap's shifted window times its weights; "w": one
+wide product and shifted int32 sums; "r": per chunk and live column tap, one
+deep-K product of its live row taps; "t": the channel-major image), so these
 tests check the decomposition and not only the dispatch.  The dispatch tests
 hold the port's `qconv2d_flat` to the JAX package's database rules: a record
 selects its layout, bad explicit blocks raise, a foreign record is ignored.
@@ -181,8 +182,9 @@ def test_wide_layout_refuses_a_tile_whose_partials_do_not_fit(no_default_db):
 
 def test_live_taps_and_the_shared_memory_sums():
     """A 3x3 s2 conv with CIN % 64 == 0: each 64-channel chunk lies in one
-    phase, whose live taps are 4, 2, 2 and 1 (9 products, not 16).  K7's and
-    K9's shared memory at the forward's 28^2 stage, and tiles they refuse."""
+    phase, whose live taps are 4, 2, 2 and 1 (9 products, not 16).  The four
+    layouts' shared memory at the forward's 28^2 stage, and tiles they
+    refuse."""
     g = conv_layouts.flat_geometry((8, 56, 56, 128), (3, 3, 128, 128), (2, 2), (1, 1, 1, 1))
     chunks = [conv_layouts.live_taps(g, k0) for k0 in range(0, g.cin_s, 64)]
     assert chunks == [[0, 1, 2, 3]] * 2 + [[0, 2]] * 2 + [[0, 1]] * 2 + [[0]] * 2
@@ -195,17 +197,84 @@ def test_live_taps_and_the_shared_memory_sums():
     # (64 rows of stride 136), two weight tiles of 4 taps
     assert conv_layouts.layout_group("t", (64, 64), g) == 4
     assert conv_layouts.smem_bytes("t", (64, 64), g, 4) == 2 * 96 * 64 + 64 * 136 + 2 * 4 * 64 * 80
-    # refused: K9's partials of the 224^2 stem at BN 128; K7's window of a
-    # 900-pixel-wide row (two rows past the block)
+    # K8 and K10 at 64 x 64: two K-slice-major windows (K8 64 + maxoff 30
+    # rows, K10 64 + (KHP-1)*WPH = 64 + 29, both rounded to 8) and two weight
+    # tiles; K10's step holds one column's row taps, at most KHP = 2
+    assert conv_layouts.window_rows("s", 64, g) == 96
+    assert conv_layouts.window_rows("r", 64, g) == 96
+    assert conv_layouts.window_rows("r", 128, g) == 160             # 157 rounded
+    assert conv_layouts.layout_group("s", (64, 64), g) == 4
+    assert conv_layouts.smem_bytes("s", (64, 64), g, 4) == 2 * 96 * 64 + 2 * 4 * 64 * 64
+    assert conv_layouts.layout_group("r", (128, 128), g) == 2
+    assert conv_layouts.smem_bytes("r", (128, 128), g, 2) == 2 * 160 * 64 + 2 * 2 * 128 * 64
+    # refused: K9's partials of the 224^2 stem at BN 128; K7's, K8's and
+    # K10's windows of a 900-pixel-wide row (two rows past the block); at
+    # 800 pixels K8 takes two taps a step, not three
     stem = ((8, 224, 224, 3), (7, 7, 3, 64), (2, 2), (3, 3, 3, 3))
     assert conv_layouts.layout_fits("w", (64, 64, 64), *stem)
     assert not conv_layouts.layout_fits("w", (128, 128, 64), *stem)
+    gs = conv_layouts.flat_geometry(*stem)
+    for layout in ("s", "r"):      # the stem's 412- and 409-row windows fit every tile
+        assert [conv_layouts.layout_group(layout, t, gs) for t in ((64, 64), (128, 128))] == [4, 4]
     wide = ((1, 8, 900, 64), (3, 3, 64, 64), (1, 1), (1, 1, 1, 1))
-    assert conv_layouts.layout_fits("t", (64, 64, 64), *((1, 8, 300, 64),) + wide[1:])
-    assert not conv_layouts.layout_fits("t", (64, 64, 64), *wide)
-    with pytest.raises(ValueError, match="shared memory"):
-        conv.qconv2d_flat(torch.zeros(wide[0], dtype=torch.int8), np.zeros(wide[1], np.int8), None,
-                          1 << 30, 0, padding=wide[3], blocks=(64, 64, 64), layout="t")
+    gw = conv_layouts.flat_geometry(*wide)
+    assert conv_layouts.window_rows("s", 64, gw) == 1872            # 64 + 1806
+    assert conv_layouts.smem_bytes("s", (64, 64), gw) == 2 * 1872 * 64 + 2 * 64 * 64 > 232448
+    for layout in ("t", "s", "r"):
+        assert conv_layouts.layout_fits(layout, (64, 64, 64), *((1, 8, 300, 64),) + wide[1:])
+        assert not conv_layouts.layout_fits(layout, (64, 64, 64), *wide)
+        with pytest.raises(ValueError, match="shared memory"):
+            conv.qconv2d_flat(torch.zeros(wide[0], dtype=torch.int8), np.zeros(wide[1], np.int8),
+                              None, 1 << 30, 0, padding=wide[3], blocks=(64, 64, 64),
+                              layout=layout)
+    g800 = conv_layouts.flat_geometry((1, 8, 800, 64), *wide[1:])
+    assert conv_layouts.layout_group("s", (64, 64), g800) == 2
+
+
+def _steps(layout, g, group):
+    """Steps of the kernels' walk (csrc/layouts_hopper.cuh step_from): up to
+    `group` live taps of one chunk, for K10 of one column tap."""
+    n = 0
+    for k0 in range(0, g.cin_s, 64):
+        live = conv_layouts.live_taps(g, k0)
+        cols = [[t for t in live if t % g.kwp == b] for b in range(g.kwp)] \
+            if layout == "r" else [live]
+        n += sum(-(-len(c) // group) for c in cols if c)
+    return n
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_steps_and_live_pairs_per_layout(case):
+    """K8 runs each chunk's live taps in steps of up to four; K10 one step per
+    (chunk, live column tap).  The cin64_s2 case has 9 live (chunk, tap)
+    pairs: K8 4 steps, K10 6 (chunk 0 two columns of two row taps, chunk 1
+    one column, chunk 2 two columns of one, chunk 3 one).  Every live pair is
+    in exactly one step of either walk, and the plain versions multiply only
+    those: the same integers as the dense im2col."""
+    shape, wshape, strides, padding, izp = case
+    g = conv_layouts.flat_geometry(shape, wshape, strides, padding)
+    pairs = sum(len(conv_layouts.live_taps(g, k0)) for k0 in range(0, g.cin_s, 64))
+    assert _steps("s", g, 1) == _steps("r", g, 1) == pairs
+    if case is CASES[4]:
+        assert pairs == 9 and _steps("s", g, 4) == 4 and _steps("r", g, 2) == 6
+    x, w, *_ = _port_args(case)
+    xf, wd, g = conv_layouts.flat_operands(x, w, "s", strides, padding, izp)
+    cols = torch.cat([xf[o:o + g.mo] for o in g.offs], dim=1)       # the dense im2col
+    dense = conv_layouts.exact_int_matmul(cols, wd)
+    for layout in ("s", "r"):
+        xf, wl, g = conv_layouts.flat_operands(x, w, layout, strides, padding, izp)
+        assert torch.equal(conv_layouts._ACC[layout](xf, wl, g), dense)
+
+
+def test_kernel_parameters_mirror_params_cuh():
+    """`_lib.PARAMS` is `csrc/params.cuh`'s enum Param, in order."""
+    import re
+    from tachikoma_tpu_torch.ops.kernels import _lib
+
+    text = (_lib.CSRC / "params.cuh").read_text()
+    body = re.sub(r"//[^\n]*", "", text[text.index("enum Param {"):text.index("P_COUNT")])
+    names = re.findall(r"\bP_([A-Z0-9_]+)", body)
+    assert tuple(n.lower() for n in names) == _lib.PARAMS
 
 
 def test_packed_weights_once_per_tensor_and_version():

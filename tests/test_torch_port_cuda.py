@@ -446,10 +446,10 @@ def test_layout_kernels_on_card(rng, cuda, layout, case, blocks):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["t", "w"])
-def test_k7_k9_read_nhwc_and_repack_after_a_write(rng, cuda, layout, monkeypatch):
-    """K7 and K9 build no flat frame on the card (the polyphase relabeling is
-    in the kernel); their packed weights are made once per weight tensor and
+@pytest.mark.parametrize("layout", ["t", "s", "w", "r"])
+def test_layouts_read_nhwc_and_repack_after_a_write(rng, cuda, layout, monkeypatch):
+    """K7-K10 build no flat frame on the card (the polyphase relabeling is in
+    the kernel); their packed weights are made once per weight tensor and
     again after an in-place write."""
     from tachikoma_tpu_torch.ops.kernels import conv_layouts
 
@@ -471,6 +471,35 @@ def test_k7_k9_read_nhwc_and_repack_after_a_write(rng, cuda, layout, monkeypatch
     w.neg_()
     assert conv_layouts.packed_weights(w) is not packed
     assert torch.equal(fn(x, w, b, mult, shift, **kw), qconv_rq_plain(x, w, b, mult, shift, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["s", "r"])
+@pytest.mark.parametrize("kernel", [(2, 1), (1, 2)])
+@pytest.mark.parametrize("blocks", [(64, 64, 64), (128, 128, 64)])
+def test_wgmma_descriptor_at_an_odd_row_shift(rng, cuda, layout, kernel, blocks):
+    """The descriptor probe of K8 and K10: one chunk (CIN 32, one K step), two
+    taps, the weights of tap (0, 0) zero, so the whole sum comes from the
+    other tap's descriptor at a row shift that is odd and not a multiple of
+    8 (WPH = 13 for the 2x1 kernel, 1 for the 1x2), 16-byte but not 128-byte
+    aligned; BM 128 adds the second warpgroup's 64 rows."""
+    from tachikoma_tpu_torch.ops.kernels import conv_layouts
+
+    kh, kw_ = kernel
+    shape, cout = (2, 14, 13, 32), 64
+    x = _dev(rng, shape, cuda)
+    w = _dev(rng, (kh, kw_, 32, cout), cuda)
+    w[0, 0] = 0
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    kw = dict(padding=(0, 0, kh - 1, kw_ - 1), izp=-3)
+    g = conv_layouts.flat_geometry(shape, w.shape, (1, 1), kw["padding"])
+    assert g.offs[1] in (13, 1) and g.offs[1] % 2 == 1 and g.cin_s == 32
+    fn = getattr(conv_layouts, f"qconv_rq_{layout}")
+    got = fn(x, w, b, mult, shift, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, getattr(conv_layouts, f"qconv_rq_{layout}_plain")(
+        x, w, b, mult, shift, **kw))
+    assert torch.equal(got, qconv_rq_plain(x, w, b, mult, shift, **kw))
 
 
 @pytest.mark.cuda

@@ -17,7 +17,10 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      path gives them: one forward is recorded call by call, then every call is
      replayed on the same tensors, its output held == against the kernel's
      plain PyTorch version, and timed (CUDA events over CUDA-graph replays)
-     beside its bound and a library call of the same shape;
+     beside its bound and a library call of the same shape; each K3 call (the
+     persistent wgmma body of csrc/qconv_igemm_hopper.cu, the residual add as
+     two tables) is printed with its tile, and K3's time per forward beside
+     its first body's (csrc/qgemm.cuh);
   5. the main path: the launch counts are set to 0, a few requests run through
      TorchExecutor(fuse=True, device="cuda"), the counts are read (each kernel
      must have launched), every captured integer node and the int8 logits are
@@ -29,8 +32,11 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
   7. the trace path, K4: ResNet-50 b1 224^2 quantized and left unfused; one
      forward of TorchExecutor(fuse=False, device="cuda") with all 232 nodes
      captured is recorded call by call, and every K4 call (qgemm_raw,
-     qconv_raw) is held == against its plain version and timed as in phase 4;
-     every captured integer node is held == against the CPU plain path;
+     qconv_raw) is held == against its plain version and timed as in phase 4,
+     each conv-mode call (K3's body, K split across blocks with int32
+     atomics where the tiles leave the card idle) printed with its split, the
+     conv mode's time per forward beside its first body's; every captured
+     integer node is held == against the CPU plain path;
   8. trace emission: the launch counts are set to 0, TraceEmitter(
      backend="torch", device="cuda").emit_to writes the b1 224^2 trace (one
      warm call, five timed), the counts are read (both K4 modes must have
@@ -149,11 +155,11 @@ KERNELS = {
                  "tachikoma_tpu/ops/pallas/matmul_int8.py:33"),
     "qconv_rq": ("tachikoma_tpu_torch/csrc/qconv_rq.cu",
                  "tachikoma_tpu/ops/pallas/conv_flat.py:68"),
-    "qconv_rq_res": ("tachikoma_tpu_torch/csrc/qconv_rq.cu",
+    "qconv_rq_res": ("tachikoma_tpu_torch/csrc/qconv_igemm_hopper.cu",
                      "tachikoma_tpu/ops/pallas/conv_flat.py:1285"),
     "qgemm_raw": ("tachikoma_tpu_torch/csrc/qgemm_raw.cu",
                   "tachikoma_tpu/ops/pallas/matmul_int8.py:61"),
-    "qconv_raw": ("tachikoma_tpu_torch/csrc/qgemm_raw.cu",
+    "qconv_raw": ("tachikoma_tpu_torch/csrc/qconv_igemm_hopper.cu",
                   "tachikoma_tpu/ops/pallas/conv_flat.py:68"),
     "qdwconv_rq": ("tachikoma_tpu_torch/csrc/qdwconv.cu",
                    "tachikoma_tpu/ops/pallas/conv_flat.py:402"),
@@ -191,6 +197,9 @@ VGG_RUN_KERNELS = ("qconv_rq", "qgemm_rq")
 DIRECT_KERNELS = ("qconv_direct", "qdwconv_direct")
 VGG_CONVS, VGG_CONV_WORKLOADS, MBV2_DW_CONVS = 13, 9, 17
 GRAPH_TUNE_REQUESTS = 5           # per variant; the first is dropped from the median
+# per-forward ms of K3 (ResNet-50 b8) and K4's conv mode (b1) on their first
+# body, csrc/qgemm.cuh (PERF.md's kernel table), printed beside this run's
+EARLIER_MS = {"qconv_rq_res": 0.3525, "qconv_raw": 0.6127}
 
 
 def say(*a):
@@ -376,6 +385,23 @@ def hold_call(name, a, k, impl) -> float:
     return err
 
 
+def launch_plan(name, a, k) -> str:
+    """K3's tile, or K4's conv-mode split of K, for one call."""
+    from tachikoma_tpu_torch.ops.kernels import _lib, conv
+
+    if name == "qconv_rq_res":
+        bm, bn = _lib.tile_params(k.get("blocks")).values()
+        return f"tile {bm}x{bn}"
+    x, w = a[0], a[1]
+    kh, kw, cin, cout = w.shape
+    sh, sw = k.get("strides", (1, 1))
+    pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
+    oh, ow = (x.shape[1] + pt + pb - kh) // sh + 1, (x.shape[2] + pl + pr - kw) // sw + 1
+    ks, kper = conv.raw_split(x.shape[0] * oh * ow, cout, kh * kw * cin,
+                              conv.sm_count(x.device.index))
+    return f"split {ks} x {kper} steps"
+
+
 def check_call(name, a, k, impl) -> dict:
     """One call held against its plain version, then timed beside its bound,
     the plain version and the library call."""
@@ -404,6 +430,8 @@ def check_kernels(calls: list, names) -> dict:
     per_call, totals = [], {}
     for name, a, k in calls:
         per_call.append(check_call(name, a, k, impl))
+        if name in EARLIER_MS:
+            per_call[-1]["plan"] = launch_plan(name, a, k)
 
     def fmt(v, width, digits):
         return f"{v:{width}.{digits}f}" if v is not None else f"{'-':>{width}s}"
@@ -434,6 +462,13 @@ def check_kernels(calls: list, names) -> dict:
         say(f"{'per forward':38s} {len(recs):5d} {t['ms']:9.4f} {t['bound_ms']:9.4f} "
             f"{t['bound_by']:>10s} {t['plain_ms']:9.3f} {fmt(t['library_ms'], 10, 4)}"
             f"  (library over {len(libs)} of {len(recs)} calls)")
+        if name in EARLIER_MS:
+            for r in recs:
+                say(f"  call {r['shape']:36s} {r['plan']:20s} {r['ms']:9.4f} ms, bound "
+                    f"{r['bound_ms']:.4f}, library {fmt(r['library_ms'], 0, 4)}")
+            ms = EARLIER_MS[name]
+            say(f"{name} per forward {t['ms']:.4f} ms; first body (csrc/qgemm.cuh) "
+                f"{ms:.4f} ms ({t['ms'] / ms:.3f}x); library {fmt(t['library_ms'], 0, 4)} ms")
     return totals
 
 

@@ -18,6 +18,8 @@ enum Param {
   P_GROUP,
   // K11's input channels per staged chunk; K12's output tile (qconv_direct.cu)
   P_CC, P_TH, P_TW,
+  // K4's conv mode: K split P_KS ways, P_KPER steps of 64 each (qconv_igemm_hopper.cu)
+  P_KS, P_KPER,
   P_COUNT
 };
 

@@ -1,0 +1,620 @@
+// K3 qconv_rq_res and K4's conv mode qconv_raw: the NHWC int8 conv as an
+// implicit GEMM on Hopper's wgmma, persistent blocks, a cp.async ring.
+//
+//   K3 qconv_rq_res replaces tachikoma_tpu/ops/pallas/conv_flat.py
+//      _flat_conv_kernel_f (:1285, pl.pallas_call at :1432; entries
+//      qconv2d_flat_chain and qconv2d_flat_block_stack): the last stage of a
+//      residual block, a stride-1 conv (any KH, KW, padding) whose epilogue
+//      requantizes and then applies the fused residual qnn.add, int8 out.
+//   K4 qconv_raw replaces the fuse=False branch of conv_flat.py
+//      _flat_conv_kernel (:68, pl.pallas_call at :370; entry qconv2d_flat
+//      without a multiplier): any stride, padding and CIN; the int32
+//      accumulator plus bias in wraparound, int32 out.  The trace path's
+//      stem and 3x3 convs run on it.
+//
+// The GEMM.  Row m = (image, oy, ox) of the output, column n = output
+// channel, k = (ky, kx, ci) over KH*KW*CIN, padded with zeros to Kp, a
+// multiple of 64.  The weights are packed once per weight tensor, K-major, as
+// (COUT, Kp) (ops/kernels/conv.py kmajor_weights), so a B tile is BN rows of
+// 64 contiguous bytes and the padding needs no mask.  A is gathered from the
+// caller's NHWC image: a thread stages the same two rows and the same 16-byte
+// segment at every step of a tile, so it works out its rows' (image, oy, ox)
+// once a tile (multiply-high constants) and walks its segment's (ky, kx, ci)
+// by additions.  With CIN % 16 == 0 a segment lies in one tap and is one
+// 16-byte cp.async (for a 1x1 conv, a row-major (M, CIN) matrix); a tap
+// outside the image is the input zero point, written by a 16-byte shared
+// store (cp.async's zero fill is zero, not izp; the wrapper folds
+// -izp * colsum(w) into the bias).  A narrow CIN (the CIN-3 stems) gathers
+// its 16 bytes one by one.
+//
+// The main loop.  Both tiles sit in shared memory in wgmma's no-swizzle
+// core-matrix layout (8 rows x 16 bytes a core matrix; LBO 128, SBO 512), and
+// a 64-deep step is two wgmma.mma_async m64nBNk32 .s32.s8.s8 per warpgroup,
+// one warpgroup per 64 rows.  No .satfinite: int32 sums wrap, as the
+// reference's do.
+//
+// Persistent blocks.  K3's calls are many short items (a 64 x 64 tile after
+// 1-8 steps of 64 at ResNet-50 b8's default tile), and a block that stages,
+// waits, multiplies, runs its epilogue and stores one tile leaves the
+// copies' latency exposed on every tile.  So the grid holds as many blocks
+// as the card holds at once (the occupancy API), each block keeps one N tile
+// and walks every gm-th M tile, and its copies run as one stream of stages
+// over its items (a ring of three stages for K3, four for K4), K3's at most
+// one item ahead: the next item's A, B and residual copies are in flight
+// while this item is multiplied and its epilogue runs.  Where K has at most
+// two steps, K3's block keeps its weights resident (its items all read the
+// same N tile's K range) and the ring carries A alone.  One barrier a step,
+// two more per K3 item (the staged output tile, then its slot's reuse).
+//
+// K3's epilogue.  On the H100 the first port's epilogue (csrc/qgemm.cuh: three
+// 64-bit q_multiply_shifts, three per-channel global loads, byte-wise
+// residual and output traffic) was 30% of K3's time
+// (tools/parent_k3_k4.py).  Here:
+//   * the per-column constants (bias - rq_izp, multiplier, left and right
+//     shift) are read once per block into shared memory, 16 bytes a column;
+//   * the requantize's product is one mul.wide.s32 and then the left shift:
+//     (x 2^l) m == (x m) 2^l mod 2^64, so it equals the oracle in its own
+//     wraparound arithmetic;
+//   * the residual add is two 256-entry int32 tables in shared memory: the
+//     conv's side is the int8 value the plain version hands to the add, the
+//     residual an int8, so out = clip(TL[v] + TR[r], lo, hi) exactly, with
+//     TR holding the output zero point's subtraction (a skipped side's
+//     table is the identity).  The block builds both in its prologue, two
+//     to four entries a thread, from the plan of ops/kernels/requantize.py
+//     plan_res_add;
+//   * the residual tile comes into shared memory by cp.async with the
+//     item's first stage, each output pair replaces its residual pair
+//     there, and the tile leaves in 16-byte rows (COUT % 16 == 0; else
+//     element by element from global memory).
+//
+// K4's split.  At batch 1 the trace path's 3x3 convs have 8-49 tiles of
+// 64 x 64 and 9-72 K steps: a serial walk on a few SMs.  The wrapper splits
+// K where the tiles leave the SMs idle and K has more than 9 steps
+// (ops/kernels/conv.py raw_split, about 6 steps a split): block z of the
+// grid walks steps [z*kper, min((z+1)*kper, steps)) and adds its int32
+// partial sums into an output the wrapper zeroed, with red.global.add.s32;
+// split 0 alone adds the bias.  Integer sums wrap the same in any order, so
+// the result is the same integers on every run.  Atomics were chosen over a
+// cluster's distributed shared memory because the split is then any size
+// (7^2 takes 12), not at most 8 (16 non-portable), and the output tiles are
+// small (at most 0.8 MB a call on that path).  Unsplit (ks 1), the sums are
+// stored.
+//
+// What bounds them on the H100: every K3 call moves its input, residual and
+// output once (bytes: 0.027 ms for ResNet-50 b8) and K4's b1 calls are bound
+// by the bytes of their weights (0.0066 ms); neither comes near the int8
+// tensor-core peak.  What holds them above that, measured with
+// tools/igemm_probe.py: a fixed cost of a few microseconds a call, the
+// copies, and for K3 the epilogue's integer work.
+#include "layouts_hopper.cuh"
+
+namespace tk {
+namespace igemm {
+
+using hop::cp_async16;
+using hop::cp_async_commit;
+using hop::fence_proxy_async;
+using hop::gmma_desc;
+using hop::wgmma_acc;
+using hop::wgmma_commit;
+using hop::wgmma_fence;
+using hop::wgmma_wait0;
+
+constexpr int KSTEP = 64;  // bytes of K per step
+constexpr int RPAD = 16;   // bytes of padding per row of K3's residual tile
+
+struct Geo {
+  int n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, pt, pl;
+  int M, K, steps, kper;  // steps = Kp / 64; a split walks kper of them
+  int m_tiles, n_tiles, gm;  // a block walks M tiles mb, mb + gm, ... of one N tile
+  // dynamic shared memory: the ring (STAGES x stage_bytes), then from off_b
+  // the resident weights (b_res), the column constants, the tables and the
+  // residual tiles (K3); smem bytes in all
+  int stage_bytes, off_b, off_cols, off_tables, off_rtile, smem;
+  bool b_res;  // the block's weights (every step of its N tile) staged once
+  uint32_t izp4;
+  bool a_vec;  // CIN % 16 == 0 and x 16-byte aligned
+  bool o_vec;  // K3: COUT % 16 == 0, residual and out 16-byte aligned
+  hop::FastDiv by_ohow, by_ow;
+};
+
+// K3's block-uniform epilogue constants; the tables are built from them.
+struct Epi {
+  int32_t rq_izp, out_zp, qmin, qmax;
+  bool tonearest;
+  bool l_skip, r_skip, add_tonearest;
+  int32_t lm, ls, lzp, rm, rs, rzp, zo, lo, hi;
+};
+
+__device__ __forceinline__ int cm_off(int r, int seg) {
+  return (r >> 3) * 512 + seg * 128 + (r & 7) * 16;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most `n` (0, 1 or 2) of this thread's copy groups are pending.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 2)
+    cp_async_wait<2>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
+
+// The requantize of one accumulator with column constants c = (bias - rq_izp,
+// multiplier, left shift, right shift 31 + max(-s, 0)): requantize.cuh's
+// q_multiply_shift with the product as mul.wide.s32, then the left shift.
+__device__ __forceinline__ int32_t requant_wide(int32_t acc, int4 c, const Epi& e) {
+  const int32_t v = wrap_add(acc, c.x);
+  const uint64_t p = (uint64_t)((int64_t)v * (int64_t)c.y) << c.z;
+  uint64_t rnd = 1ull << (c.w - 1);
+  if (e.tonearest && (int64_t)p < 0) rnd -= 1;
+  const int32_t q = wrap_add((int32_t)(uint32_t)(uint64_t)((int64_t)(p + rnd) >> c.w), e.out_zp);
+  return min(max(q, e.qmin), e.qmax);
+}
+
+// One side of the residual add at int8 value v (requantize.cuh's
+// q_multiply_shift, as plan_res_add plans it).
+__device__ __forceinline__ int32_t res_side(int32_t v, bool skip, int32_t m, int32_t s,
+                                            int32_t zp, const Epi& e) {
+  return skip ? v : wrap_add(q_multiply_shift(wrap_sub(v, zp), m, s, e.add_tonearest), e.zo);
+}
+
+constexpr int BRES_STEPS = 2;  // K3 keeps its block's weights resident up to this many steps
+
+template <bool RES, int BM, int BN>
+struct Tiles {
+  static constexpr int NT = 2 * BM;            // a warpgroup per 64 rows
+  static constexpr int STAGES = RES ? 3 : 4;   // the cp.async ring
+  static constexpr int AHEAD = RES ? 1 : STAGES - 1;  // items the copies run ahead
+  static constexpr int RSLOTS = AHEAD + 1;     // K3: residual / output tiles
+  static constexpr int RS = BN + RPAD;         // residual tile row stride
+};
+
+// The shared-memory layout of a launch (Geo's offsets).  K3 keeps its
+// block's weights resident when K has at most BRES_STEPS steps: its items
+// all read the same N tile's K range, so the ring then carries A alone and
+// a block holds less.  With more steps the resident copy delays the first
+// product (the 14^2 calls of ResNet-50 b8 ran 8% slower so, on the H100).
+template <bool RES, int BM, int BN>
+void smem_layout(Geo& g) {
+  using T = Tiles<RES, BM, BN>;
+  g.b_res = RES && g.steps <= BRES_STEPS;
+  g.stage_bytes = (BM + (g.b_res ? 0 : BN)) * KSTEP;
+  g.off_b = T::STAGES * g.stage_bytes;
+  g.off_cols = g.off_b + (g.b_res ? g.steps * BN * KSTEP : 0);
+  g.off_tables = g.off_cols + (RES ? BN * 16 : 0);
+  g.off_rtile = g.off_tables + (RES ? 2 * 256 * 4 : 0);
+  g.smem = g.off_rtile + (RES ? T::RSLOTS * BM * T::RS : 0);
+}
+
+// A block of the grid (x: N tile + n_tiles * mb, z: split of K) walks the M
+// tiles mb, mb + gm, ... of its N tile, one item each, and the steps of its
+// split in each.  The copies run as one stream of stages over the items: up
+// to STAGES - 1 stages ahead of the products, and up to AHEAD items ahead,
+// so that the next items' copies (and K3's next residual tiles) are in
+// flight while this item's epilogue runs.
+template <bool RES, int BM, int BN>
+__global__ void __launch_bounds__(2 * BM)
+    igemm_hopper(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
+                 void* __restrict__ out, const int8_t* __restrict__ residual,
+                 const int32_t* __restrict__ bias, const int32_t* __restrict__ mult,
+                 const int32_t* __restrict__ shift, Epi e, Geo g) {
+  using S = Tiles<RES, BM, BN>;
+  constexpr int NT = S::NT, ST = S::STAGES;
+  constexpr int A_PER = BM * 4 / NT;  // rows a thread stages: 2
+  constexpr int B_PER = BN * 4 / NT;  // weight rows a thread stages: 1, 2 or 4
+  extern __shared__ __align__(128) int8_t smem[];
+  const int tid = threadIdx.x, seg = tid & 3;
+  const int n0 = (blockIdx.x % g.n_tiles) * BN, mb = blockIdx.x / g.n_tiles;
+  const int n_items = mb < g.m_tiles ? (g.m_tiles - 1 - mb) / g.gm + 1 : 0;
+  const int kbeg = blockIdx.z * g.kper;
+  const int nst = min(g.steps, kbeg + g.kper) - kbeg;  // steps per item
+  // the (ky, kx, ci) of this thread's segment at step kbeg
+  int ky0, kx0, ci0;
+  {
+    const int k = kbeg * KSTEP + seg * 16;
+    const int tap = k / g.cin;
+    ci0 = k - tap * g.cin;
+    ky0 = tap / g.kw;
+    kx0 = tap - ky0 * g.kw;
+  }
+  const uint4 fill = make_uint4(g.izp4, g.izp4, g.izp4, g.izp4);
+  int8_t* const bres = smem + g.off_b;
+  int32_t* const colc = reinterpret_cast<int32_t*>(smem + g.off_cols);
+  int32_t* const tl = reinterpret_cast<int32_t*>(smem + g.off_tables);
+  int32_t* const tr = tl + 256;
+  int8_t* const rt = smem + g.off_rtile;
+
+  // the producer: the item and step it stages next, its rows, its segment's
+  // (ky, kx, ci)
+  long long a_base[A_PER];
+  int a_iy[A_PER], a_ix[A_PER];
+  bool a_ok[A_PER];
+  int ky = ky0, kx = kx0, ci = ci0;
+  int p_item = 0, p_step = 0, issued = 0;
+
+  auto begin_item = [&](int item) {
+    const int m0 = (mb + item * g.gm) * BM;
+#pragma unroll
+    for (int j = 0; j < A_PER; ++j) {
+      const int m = m0 + (tid >> 2) + j * (NT / 4);
+      a_ok[j] = m < g.M;
+      const int mm = a_ok[j] ? m : 0;
+      const int img = g.by_ohow.div(mm), rem = mm - img * (g.oh * g.ow);
+      const int oy = g.by_ow.div(rem), ox = rem - oy * g.ow;
+      a_base[j] = (long long)img * g.h * g.w * g.cin;
+      a_iy[j] = oy * g.sh - g.pt;
+      a_ix[j] = ox * g.sw - g.pl;
+    }
+    ky = ky0;
+    kx = kx0;
+    ci = ci0;
+    if constexpr (RES) {
+      if (g.o_vec) {  // the item's residual tile, with its first stage's copies
+        int8_t* const rtile = rt + (item % S::RSLOTS) * BM * S::RS;
+        for (int i = tid; i < BM * (BN / 16); i += NT) {
+          const int r = i / (BN / 16), c = 16 * (i % (BN / 16));
+          const int row = m0 + r, col = n0 + c;
+          const bool ok = row < g.M && col < g.cout;
+          cp_async16(rtile + r * S::RS + c,
+                     ok ? residual + (long long)row * g.cout + col : residual, ok);
+        }
+      }
+    }
+  };
+
+  auto stage_b = [&](int8_t* bs, int kstep) {  // the N tile's weights at step kstep
+    const long long kb = (long long)kstep * KSTEP + seg * 16;
+#pragma unroll
+    for (int j = 0; j < B_PER; ++j) {
+      const int r = (tid >> 2) + j * (NT / 4), co = n0 + r;
+      const bool ok = co < g.cout;
+      cp_async16(bs + cm_off(r, seg), ok ? wk + (long long)co * (g.steps * KSTEP) + kb : wk, ok);
+    }
+  };
+
+  auto stage = [&](int slot, int kstep) {  // step kstep of the producer's item
+    int8_t* const as = smem + slot * g.stage_bytes;
+    int8_t* const bs = as + BM * KSTEP;
+#pragma unroll
+    for (int j = 0; j < A_PER; ++j) {
+      int8_t* d = as + cm_off((tid >> 2) + j * (NT / 4), seg);
+      if (g.a_vec) {
+        const int iy = a_iy[j] + ky, ix = a_ix[j] + kx;
+        if (!a_ok[j] || ky >= g.kh) {
+          cp_async16(d, x, false);  // past K (zero weights) or past M (not stored)
+        } else if ((unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w) {
+          cp_async16(d, x + a_base[j] + ((long long)iy * g.w + ix) * g.cin + ci, true);
+        } else {
+          *reinterpret_cast<uint4*>(d) = fill;
+        }
+        continue;
+      }
+      uint32_t v[4] = {0, 0, 0, 0};
+      if (a_ok[j]) {
+        int cy = ky, cx = kx, cc = ci;
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {  // unrolled: v stays in registers
+          if (cy >= g.kh) break;
+          const int iy = a_iy[j] + cy, ix = a_ix[j] + cx;
+          const uint32_t byte =
+              (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w
+                  ? (uint8_t)x[a_base[j] + ((long long)iy * g.w + ix) * g.cin + cc]
+                  : g.izp4 & 0xffu;
+          v[b >> 2] |= byte << (8 * (b & 3));
+          if (++cc == g.cin) {
+            cc = 0;
+            if (++cx == g.kw) {
+              cx = 0;
+              ++cy;
+            }
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(d) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    if (!g.b_res) stage_b(bs, kstep);
+    // the next step: 64 bytes on
+    ci += KSTEP;
+    while (ci >= g.cin && ky < g.kh) {
+      ci -= g.cin;
+      if (++kx == g.kw) {
+        kx = 0;
+        ++ky;
+      }
+    }
+  };
+
+  // issues stages while the ring has room, up to AHEAD items ahead of c_item
+  auto produce = [&](int consumed, int c_item) {
+    while (issued - consumed < ST - 1 && p_item < n_items && p_item <= c_item + S::AHEAD) {
+      if (p_step == 0) begin_item(p_item);
+      stage(issued % ST, kbeg + p_step);
+      cp_async_commit();
+      ++issued;
+      if (++p_step == nst) {
+        p_step = 0;
+        ++p_item;
+      }
+    }
+  };
+
+  if (g.b_res)  // every step of the block's weights, with the first stage's copies
+    for (int st = 0; st < g.steps; ++st) stage_b(bres + st * BN * KSTEP, st);
+  produce(0, 0);
+  if constexpr (RES) {  // column constants and the add's tables, while the copies fly
+    for (int c = tid; c < BN; c += NT) {
+      const int col = n0 + c;
+      int4 cc = make_int4(0, 0, 0, 31);
+      if (col < g.cout) {
+        const int s = shift[col];
+        cc = make_int4(wrap_sub(bias[col], e.rq_izp), mult[col], s > 0 ? s : 0,
+                       31 + (s < 0 ? -s : 0));
+      }
+      reinterpret_cast<int4*>(colc)[c] = cc;
+    }
+    for (int i = tid; i < 512; i += NT) {
+      const int32_t v = (int8_t)(i & 255);
+      if (i < 256)
+        tl[i] = res_side(v, e.l_skip, e.lm, e.ls, e.lzp, e);
+      else
+        tr[i - 256] = wrap_sub(res_side(v, e.r_skip, e.rm, e.rs, e.rzp, e), e.zo);
+    }
+  }
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  // fragment: acc[4 jb + e] is row 16 warp + lane / 4 + 8 (e >> 1) of the
+  // warpgroup's 64, column 8 jb + 2 (lane % 4) + (e & 1)
+  const int rl0 = wg * 64 + 16 * warp + (lane >> 2);
+  int32_t acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  int consumed = 0, c_item = 0, c_step = 0;
+  while (c_item < n_items) {
+    produce(consumed, c_item);
+    cp_async_wait_upto(issued - consumed - 1);
+    fence_proxy_async();
+    __syncthreads();
+    const int8_t* const as = smem + (consumed % ST) * g.stage_bytes;
+    const int8_t* const bs = g.b_res ? bres + c_step * BN * KSTEP : as + BM * KSTEP;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_acc<BN>(acc, gmma_desc(as + wg * 4096 + kk * 256, 128, 512),
+                    gmma_desc(bs + kk * 256, 128, 512));
+    wgmma_commit();
+    wgmma_wait0();
+    ++consumed;
+    if (++c_step < nst) continue;
+
+    // the epilogue of item c_item
+    const int m0 = (mb + c_item * g.gm) * BM;
+    if constexpr (RES) {
+      int8_t* const o8 = static_cast<int8_t*>(out);
+      if (g.o_vec) {  // the residual tile landed with the item's first stage
+        int8_t* const rtile = rt + (c_item % S::RSLOTS) * BM * S::RS;
+#pragma unroll
+        for (int jb = 0; jb < BN / 8; ++jb) {
+          const int cl = 8 * jb + 2 * (lane & 3);
+          const int4 c0 = reinterpret_cast<const int4*>(colc)[cl];
+          const int4 c1 = reinterpret_cast<const int4*>(colc)[cl + 1];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint16_t* p = reinterpret_cast<uint16_t*>(rtile + (rl0 + 8 * h) * S::RS + cl);
+            const uint32_t rr = *p;
+            const int32_t q0 = requant_wide(acc[4 * jb + 2 * h], c0, e);
+            const int32_t q1 = requant_wide(acc[4 * jb + 2 * h + 1], c1, e);
+            const int32_t o0 = min(max(wrap_add(tl[q0 & 255], tr[rr & 255]), e.lo), e.hi);
+            const int32_t o1 = min(max(wrap_add(tl[q1 & 255], tr[rr >> 8]), e.lo), e.hi);
+            *p = (uint16_t)((o0 & 255) | (o1 & 255) << 8);
+          }
+        }
+        __syncthreads();
+        for (int i = tid; i < BM * (BN / 16); i += NT) {
+          const int r = i / (BN / 16), c = 16 * (i % (BN / 16));
+          const int row = m0 + r, col = n0 + c;
+          if (row < g.M && col < g.cout)
+            *reinterpret_cast<uint4*>(o8 + (long long)row * g.cout + col) =
+                *reinterpret_cast<const uint4*>(rtile + r * S::RS + c);
+        }
+        __syncthreads();  // the tile is free for item c_item + RSLOTS
+      } else {
+#pragma unroll
+        for (int jb = 0; jb < BN / 8; ++jb) {
+          const int cl = 8 * jb + 2 * (lane & 3);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + rl0 + 8 * h;
+            if (row >= g.M) continue;
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const int col = n0 + cl + e1;
+              if (col >= g.cout) continue;
+              const long long o = (long long)row * g.cout + col;
+              const int32_t q = requant_wide(acc[4 * jb + 2 * h + e1],
+                                             reinterpret_cast<const int4*>(colc)[cl + e1], e);
+              o8[o] = (int8_t)min(max(wrap_add(tl[q & 255], tr[(uint8_t)residual[o]]), e.lo),
+                                  e.hi);
+            }
+          }
+        }
+      }
+    } else {
+      int32_t* const o32 = static_cast<int32_t*>(out);
+      const bool split = gridDim.z > 1, with_bias = blockIdx.z == 0;
+#pragma unroll
+      for (int jb = 0; jb < BN / 8; ++jb) {
+        const int col = n0 + 8 * jb + 2 * (lane & 3);
+        if (col >= g.cout) continue;
+        const bool pair = col + 1 < g.cout;
+        const int32_t b0 = with_bias ? bias[col] : 0;
+        const int32_t b1 = with_bias && pair ? bias[col + 1] : 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + rl0 + 8 * h;
+          if (row >= g.M) continue;
+          int32_t* p = o32 + (long long)row * g.cout + col;
+          const int32_t v0 = wrap_add(acc[4 * jb + 2 * h], b0);
+          const int32_t v1 = wrap_add(acc[4 * jb + 2 * h + 1], b1);
+          if (split) {  // int32 atomics wrap: the same sum in any order
+            atomicAdd(p, v0);
+            if (pair) atomicAdd(p + 1, v1);
+          } else if (pair && (g.cout & 1) == 0) {
+            *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+          } else {
+            p[0] = v0;
+            if (pair) p[1] = v1;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    c_step = 0;
+    ++c_item;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+inline bool make_geo(const int32_t* p, Geo& g) {
+  g.n = p[P_N];
+  g.h = p[P_H];
+  g.w = p[P_W];
+  g.cin = p[P_CIN];
+  g.kh = p[P_KH];
+  g.kw = p[P_KW];
+  g.cout = p[P_COUT];
+  g.oh = p[P_OH];
+  g.ow = p[P_OW];
+  g.sh = p[P_SH];
+  g.sw = p[P_SW];
+  g.pt = p[P_PT];
+  g.pl = p[P_PL];
+  if (g.cin <= 0 || g.kh <= 0 || g.kw <= 0 || g.sh <= 0 || g.sw <= 0) return false;
+  g.M = g.n * g.oh * g.ow;
+  g.K = g.kh * g.kw * g.cin;
+  g.steps = (g.K + KSTEP - 1) / KSTEP;
+  g.kper = p[P_KPER];
+  g.izp4 = (uint32_t)(uint8_t)(int8_t)p[P_IZP] * 0x01010101u;
+  g.a_vec = p[P_A_VEC] != 0 && g.cin % 16 == 0;
+  g.o_vec = false;
+  return true;
+}
+
+// Launches the kernel over a grid of (N tiles x gm, 1, ks): gm M-tile lanes,
+// each block walking every gm-th M tile of its N tile, with gm as large as
+// the card holds blocks at once (the occupancy API, once per kernel and
+// shared-memory size) and at most the M tiles.
+template <bool RES, int BM, int BN>
+int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* residual,
+                const int32_t* bias, const int32_t* mult, const int32_t* shift, const Epi& e,
+                Geo g, int ks, cudaStream_t stream) {
+  using T = Tiles<RES, BM, BN>;
+  auto kern = igemm_hopper<RES, BM, BN>;
+  static int sms = 0;  // once per kernel: the SM count, the shared memory ceiling
+  static int occ_smem[8], occ_blocks[8], n_occ = 0;  // blocks an SM, by shared memory
+  if (sms == 0) {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)hop::SMEM_LIMIT) != cudaSuccess)
+      return (int)cudaGetLastError();
+    sms = n;
+  }
+  smem_layout<RES, BM, BN>(g);
+  if (g.smem > (int)hop::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  for (int i = 0; i < n_occ; ++i)
+    if (occ_smem[i] == g.smem) per_sm = occ_blocks[i];
+  if (per_sm == 0) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, T::NT, g.smem) !=
+        cudaSuccess)
+      return (int)cudaGetLastError();
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    if (n_occ < 8) {
+      occ_smem[n_occ] = g.smem;
+      occ_blocks[n_occ++] = per_sm;
+    }
+  }
+  g.m_tiles = (g.M + BM - 1) / BM;
+  g.n_tiles = (g.cout + BN - 1) / BN;
+  g.gm = std::max(1, std::min(g.m_tiles, sms * per_sm / (g.n_tiles * ks)));
+  g.by_ohow = hop::FastDiv::make(g.oh * g.ow);
+  g.by_ow = hop::FastDiv::make(g.ow);
+  const dim3 grid(g.n_tiles * g.gm, 1, ks);
+  kern<<<grid, T::NT, g.smem, stream>>>(x, wk, out, residual, bias, mult, shift, e, g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace igemm
+}  // namespace tk
+
+// K3.  wk is the weight packed (COUT, Kp) (kmajor_weights); the tile is
+// (P_BM, P_BN) from {64, 128}^2; stride 1.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a stride other than 1 or a tile not built).
+extern "C" int tk_qconv_rq_res(const int8_t* x, const int8_t* wk, int8_t* out,
+                               const int32_t* bias, const int32_t* mult, const int32_t* shift,
+                               const int8_t* residual, const int32_t* p, void* stream) {
+  using namespace tk;
+  igemm::Geo g;
+  if (!igemm::make_geo(p, g) || g.sh != 1 || g.sw != 1) return (int)cudaErrorInvalidValue;
+  g.kper = g.steps;
+  g.o_vec = g.cout % 16 == 0 && ((uintptr_t)residual | (uintptr_t)out) % 16 == 0;
+  igemm::Epi e{};
+  e.rq_izp = p[P_RQ_IZP];
+  e.out_zp = p[P_OUT_ZP];
+  e.qmin = p[P_QMIN];
+  e.qmax = p[P_QMAX];
+  e.tonearest = p[P_TONEAREST] != 0;
+  e.l_skip = p[P_L_SKIP] != 0;
+  e.r_skip = p[P_R_SKIP] != 0;
+  e.add_tonearest = p[P_ADD_TONEAREST] != 0;
+  e.lm = p[P_LM];
+  e.ls = p[P_LS];
+  e.lzp = p[P_LZP];
+  e.rm = p[P_RM];
+  e.rs = p[P_RS];
+  e.rzp = p[P_RZP];
+  e.zo = p[P_ZO];
+  e.lo = p[P_LO];
+  e.hi = p[P_HI];
+  if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
+  const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define TK_K3(BM, BN)                                                                       \
+  if (bm == BM && bn == BN)                                                                 \
+    return igemm::launch_tile<true, BM, BN>(x, wk, out, residual, bias, mult, shift, e, g, 1, \
+                                            s);
+  TK_K3(64, 64)
+  TK_K3(64, 128)
+  TK_K3(128, 64)
+  TK_K3(128, 128)
+#undef TK_K3
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4's conv mode.  wk as K3's; the tile is 64 x 64; K is split P_KS ways,
+// P_KPER steps of 64 each (every split non-empty), into an output the caller
+// zeroed when P_KS > 1.  Returns cudaGetLastError() (cudaErrorInvalidValue
+// for a split that does not cover the steps).
+extern "C" int tk_qconv_raw(const int8_t* x, const int8_t* wk, int32_t* out, const int32_t* bias,
+                            const int32_t* p, void* stream) {
+  using namespace tk;
+  igemm::Geo g;
+  if (!igemm::make_geo(p, g)) return (int)cudaErrorInvalidValue;
+  const int ks = p[P_KS];
+  if (ks < 1 || g.kper < 1 || (long long)ks * g.kper < g.steps || (ks - 1) * g.kper >= g.steps)
+    return (int)cudaErrorInvalidValue;
+  if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
+  return igemm::launch_tile<false, 64, 64>(x, wk, out, nullptr, bias, nullptr, nullptr,
+                                           igemm::Epi{}, g, ks, (cudaStream_t)stream);
+}

@@ -1,5 +1,7 @@
 // Int8 implicit-GEMM kernel with the exact requantize epilogue: the body of
-// K1 (qgemm_rq.cu), K2 and K3 (qconv_rq.cu), and K4 (qgemm_raw.cu).
+// K1 (qgemm_rq.cu), K2 (qconv_rq.cu) and K4's GEMM mode (qgemm_raw.cu).  K3
+// and K4's conv mode have a Hopper design of their own
+// (qconv_igemm_hopper.cu).
 //
 // out[m, n] = epilogue(sum_k A[m, k] * B[k, n]) with int8 operands and an
 // int32 accumulator on the tensor cores (mma.sync m16n8k32 s8.s8.s32).
@@ -11,9 +13,8 @@
 //   * B is w (K, N) row-major: a dense weight (K, N), or an HWIO conv weight
 //     seen as (KH*KW*CIN, COUT).  The loader transposes 4x4 byte blocks so
 //     that shared memory holds B as [n][k], the layout the mma takes.
-//   * RES = true (K3): the epilogue then applies the fused residual qnn.add.
-//   * RAW = true (K4): no requantize; the epilogue stores acc + bias[n] as
-//     int32 (wraparound) to an int32 output.
+//   * RAW = true (K4, GEMM mode only): no requantize; the epilogue stores
+//     acc + bias[n] as int32 (wraparound) to an int32 output.
 //
 // Design, simple and right first: BM x BN x 64 block tiles, one warp per
 // 32 x 32 output tile (four warps at 64 x 64, sixteen at 128 x 128), one
@@ -139,11 +140,11 @@ __device__ __forceinline__ void store_transposed(int8_t* dst, int stride, const 
 }
 
 // `out` is int8 (M, N), or int32 (M, N) when RAW.
-template <bool IM2COL, bool RES, bool RAW, int BM, int BN>
+template <bool IM2COL, bool RAW, int BM, int BN>
 __global__ void __launch_bounds__(Tile<BM, BN>::NTHREADS)
     qgemm_rq_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                    void* __restrict__ out, const int8_t* __restrict__ residual, Requant rq,
-                    ResAdd ra, Geo g) {
+                    void* __restrict__ out, Requant rq, Geo g) {
+  static_assert(!(IM2COL && RAW), "K4's conv mode is qconv_igemm_hopper.cu");
   using T = Tile<BM, BN>;
   constexpr int NT = T::NTHREADS, A_PER = T::A_PER, B_PER = T::B_PER, NG = BN / 4;
   __shared__ __align__(16) int8_t As[BM * SROW];
@@ -265,9 +266,7 @@ __global__ void __launch_bounds__(Tile<BM, BN>::NTHREADS)
           if constexpr (RAW) {
             static_cast<int32_t*>(out)[o] = wrap_add(acc[mt][nt][i], rq.bias[col]);
           } else {
-            int32_t v = requantize_channel(acc[mt][nt][i], col, rq);
-            if (RES) v = residual_add(v, residual[o], ra);
-            static_cast<int8_t*>(out)[o] = (int8_t)v;
+            static_cast<int8_t*>(out)[o] = (int8_t)requantize_channel(acc[mt][nt][i], col, rq);
           }
         }
       }
@@ -296,53 +295,37 @@ inline Geo make_geo(const int32_t* p) {
   return g;
 }
 
-template <bool IM2COL, bool RES, bool RAW, int BM, int BN>
-void launch_tile(const int8_t* x, const int8_t* w, void* out, const int8_t* residual,
-                 const Requant& rq, const ResAdd& ra, const Geo& g, cudaStream_t stream) {
+template <bool IM2COL, bool RAW, int BM, int BN>
+void launch_tile(const int8_t* x, const int8_t* w, void* out, const Requant& rq, const Geo& g,
+                 cudaStream_t stream) {
   const dim3 grid((g.M + BM - 1) / BM, (g.cout + BN - 1) / BN);
-  qgemm_rq_kernel<IM2COL, RES, RAW, BM, BN>
-      <<<grid, Tile<BM, BN>::NTHREADS, 0, stream>>>(x, w, out, residual, rq, ra, g);
+  qgemm_rq_kernel<IM2COL, RAW, BM, BN>
+      <<<grid, Tile<BM, BN>::NTHREADS, 0, stream>>>(x, w, out, rq, g);
 }
 
 // Launches the kernel on `stream` at the tile (P_BM, P_BN) and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a tile that is not built).
 // With RAW, `mult` and `shift` are not read.
-template <bool IM2COL, bool RES, bool RAW = false>
-int launch_qgemm_rq(const int8_t* x, const int8_t* w, void* out, const int8_t* residual,
-                    const int32_t* bias, const int32_t* mult, const int32_t* shift,
-                    const int32_t* p, void* stream) {
+template <bool IM2COL, bool RAW = false>
+int launch_qgemm_rq(const int8_t* x, const int8_t* w, void* out, const int32_t* bias,
+                    const int32_t* mult, const int32_t* shift, const int32_t* p, void* stream) {
   const Geo g = make_geo(p);
   const Requant rq{bias, mult, shift, p[P_RQ_IZP], p[P_OUT_ZP], p[P_QMIN], p[P_QMAX],
                    p[P_TONEAREST] != 0};
-  ResAdd ra{};
-  if (RES) {
-    ra.l_skip = p[P_L_SKIP] != 0;
-    ra.r_skip = p[P_R_SKIP] != 0;
-    ra.tonearest = p[P_ADD_TONEAREST] != 0;
-    ra.lm = p[P_LM];
-    ra.ls = p[P_LS];
-    ra.lzp = p[P_LZP];
-    ra.rm = p[P_RM];
-    ra.rs = p[P_RS];
-    ra.rzp = p[P_RZP];
-    ra.zo = p[P_ZO];
-    ra.lo = p[P_LO];
-    ra.hi = p[P_HI];
-  }
   const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
   const cudaStream_t s = (cudaStream_t)stream;
   if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
   if constexpr (RAW) {
     if (bm != 64 || bn != 64) return (int)cudaErrorInvalidValue;
-    launch_tile<IM2COL, RES, RAW, 64, 64>(x, w, out, residual, rq, ra, g, s);
+    launch_tile<IM2COL, RAW, 64, 64>(x, w, out, rq, g, s);
   } else if (bm == 64 && bn == 64) {
-    launch_tile<IM2COL, RES, RAW, 64, 64>(x, w, out, residual, rq, ra, g, s);
+    launch_tile<IM2COL, RAW, 64, 64>(x, w, out, rq, g, s);
   } else if (bm == 64 && bn == 128) {
-    launch_tile<IM2COL, RES, RAW, 64, 128>(x, w, out, residual, rq, ra, g, s);
+    launch_tile<IM2COL, RAW, 64, 128>(x, w, out, rq, g, s);
   } else if (bm == 128 && bn == 64) {
-    launch_tile<IM2COL, RES, RAW, 128, 64>(x, w, out, residual, rq, ra, g, s);
+    launch_tile<IM2COL, RAW, 128, 64>(x, w, out, rq, g, s);
   } else if (bm == 128 && bn == 128) {
-    launch_tile<IM2COL, RES, RAW, 128, 128>(x, w, out, residual, rq, ra, g, s);
+    launch_tile<IM2COL, RAW, 128, 128>(x, w, out, rq, g, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -54,22 +54,4 @@ __device__ __forceinline__ int32_t requantize_channel(int32_t acc, int c, const 
   return min(max(v, p.qmin), p.qmax);
 }
 
-// The fused residual qnn.add (tachikoma_tpu/runtime/fuse.py _res_add_np):
-// both sides requantized to the add's output qparams in int32 (a side whose
-// qparams already equal the output's is skipped), added, the output zero
-// point subtracted once, clipped to [lo, hi].
-struct ResAdd {
-  bool l_skip, r_skip, tonearest;
-  int32_t lm, ls, lzp, rm, rs, rzp, zo, lo, hi;
-};
-
-__device__ __forceinline__ int32_t residual_add(int32_t v, int32_t r, const ResAdd& a) {
-  const int32_t ql =
-      a.l_skip ? v : wrap_add(q_multiply_shift(wrap_sub(v, a.lzp), a.lm, a.ls, a.tonearest), a.zo);
-  const int32_t qr =
-      a.r_skip ? r : wrap_add(q_multiply_shift(wrap_sub(r, a.rzp), a.rm, a.rs, a.tonearest), a.zo);
-  const int32_t out = wrap_sub(wrap_add(ql, qr), a.zo);
-  return min(max(out, a.lo), a.hi);
-}
-
 }  // namespace tk

@@ -38,11 +38,12 @@ PARAMS = (
     "izp", "rq_izp", "out_zp", "qmin", "qmax", "tonearest", "a_vec", "b_vec",
     "l_skip", "lm", "ls", "lzp", "r_skip", "rm", "rs", "rzp", "zo", "lo", "hi",
     "add_tonearest", "g", "s", "d", "causal", "scale_bits", "bm", "bn",
-    "group", "cc", "th", "tw",
+    "group", "cc", "th", "tw", "ks", "kper",
 )
 
 # The block tiles (BM, BN) that K1-K3 and K7-K10 are built at, with BK = 64:
-# the tuner's config space for `blocks` = [BM, BN, BK] (csrc/qgemm.cuh Tile).
+# the tuner's config space for `blocks` = [BM, BN, BK] (csrc/qgemm.cuh Tile,
+# csrc/qconv_igemm_hopper.cu igemm_hopper).
 BK = 64
 TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
 DEFAULT_BLOCKS = (64, 64, BK)
@@ -74,8 +75,9 @@ BUILD_DIR = _PKG / "_build"
 # source -> (C entry, number of tensor pointers it takes)
 SOURCES = {
     "qgemm_rq.cu": (("tk_qgemm_rq", 6),),
-    "qconv_rq.cu": (("tk_qconv_rq", 6), ("tk_qconv_rq_res", 7)),
-    "qgemm_raw.cu": (("tk_qgemm_raw", 4), ("tk_qconv_raw", 4)),
+    "qconv_rq.cu": (("tk_qconv_rq", 6),),
+    "qgemm_raw.cu": (("tk_qgemm_raw", 4),),
+    "qconv_igemm_hopper.cu": (("tk_qconv_rq_res", 7), ("tk_qconv_raw", 4)),
     "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4)),
     "flash_attn.cu": (("tk_flash_attn", 4),),
     "qconv_layouts.cu": (("tk_qconv_rq_s", 6), ("tk_qconv_rq_r", 6)),

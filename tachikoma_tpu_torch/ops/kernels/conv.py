@@ -5,11 +5,15 @@ the conv entries of the int8 path (port of
   * `qconv_rq` (K2) wraps `csrc/qconv_rq.cu tk_qconv_rq`: an implicit-GEMM
     conv with any stride and padding; taps outside the image read the input
     zero point.
-  * `qconv_rq_res` (K3) wraps `tk_qconv_rq_res`: the same conv, whose epilogue
-    then applies the fused residual `qnn.add`.
-  * `qconv_raw` (K4, conv mode) wraps `csrc/qgemm_raw.cu tk_qconv_raw`: the
-    same conv storing the int32 accumulator plus bias, no requantize (the
-    `fuse=False` branch of the TPU kernel).
+  * `qconv_rq_res` (K3) wraps `csrc/qconv_igemm_hopper.cu tk_qconv_rq_res`:
+    the stride-1 conv, whose epilogue then applies the fused residual
+    `qnn.add` (as two 256-entry tables in the kernel, `res_add_tables`).
+  * `qconv_raw` (K4, conv mode) wraps `csrc/qconv_igemm_hopper.cu
+    tk_qconv_raw`: the same conv at any stride, storing the int32 accumulator
+    plus bias, no requantize (the `fuse=False` branch of the TPU kernel), with
+    K split across blocks where the tiles do not fill the card (`raw_split`).
+    Both kernels take the weights packed K-major as (COUT, Kp)
+    (`kmajor_weights`).
   * `qconv2d_flat`: 1x1 convs go to K1 (or, without a multiplier, K4's GEMM
     mode) as a GEMM (`_conv1x1_matmul`), every other kernel size, the 7x7 s2
     stem included, to K2 (or K4's conv mode) or, by `layout`, to one of
@@ -35,12 +39,14 @@ packing and VMEM budgets have no counterpart.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ...tune.database import lookup_config
 from ._lib import (BK, DEFAULT_BLOCKS, LAUNCHES, TILES, check_cuda_operands, compiled_blocks,
                    launch, tile_params)
-from .conv_layouts import (LAYOUTS, layout_fits, qconv_rq_r, qconv_rq_s, qconv_rq_t,
+from .conv_layouts import (LAYOUTS, layout_fits, pack_once, qconv_rq_r, qconv_rq_s, qconv_rq_t,
                            qconv_rq_w)
 from .depthwise import qdwconv_raw, qdwconv_rq
 from .matmul_int8 import (_TONEAREST, as_int8, as_int32_vector, fold_input_zero_point,
@@ -154,6 +160,52 @@ def qconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), i
     return out
 
 
+KSTEP = 64             # K3's and K4's K step: the packed weights' rows pad to it
+RAW_TILE = (64, 64)    # K4's conv-mode tile
+RAW_UNSPLIT_STEPS = 9  # a K4 conv of at most this many K steps runs unsplit
+RAW_SPLIT_STEPS = 6    # the K steps a split of K4 walks, where it splits
+_KMAJOR: dict = {}
+
+
+def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
+    """w (KH, KW, CIN, COUT) packed K-major as (COUT, Kp): row n holds output
+    channel n's KH*KW*CIN weights in (ky, kx, ci) order, zero past them to
+    Kp = a multiple of 64.  K3's and K4's conv-mode kernels stage their
+    weight tiles from it with 16-byte copies and no mask; made once per
+    weight tensor (`pack_once`)."""
+    def make(w):
+        kh, kw, cin, cout = w.shape
+        k = kh * kw * cin
+        wk = torch.zeros((cout, -(-k // KSTEP) * KSTEP), dtype=torch.int8, device=w.device)
+        wk[:, :k] = w.reshape(k, cout).t()
+        return wk
+
+    return pack_once(_KMAJOR, w, make)
+
+
+def raw_split(m: int, cout: int, k: int, sms: int = 132) -> tuple[int, int]:
+    """(splits, steps per split) of K4's conv mode for an (M, K) x (K, COUT)
+    conv on a card of `sms` SMs.  Unsplit where the 64 x 64 tiles fill the
+    SMs or K has at most RAW_UNSPLIT_STEPS steps of 64: a split costs the
+    zeroing of the output and its atomics, about what three or four steps
+    cost (tools/igemm_probe.py on the H100).  Else about RAW_SPLIT_STEPS
+    steps a split, with at most two blocks an SM.  Split z walks steps
+    [z*kper, min((z+1)*kper, steps)); every split is non-empty."""
+    steps = -(-k // KSTEP)
+    tiles = -(-m // RAW_TILE[0]) * -(-cout // RAW_TILE[1])
+    if tiles >= sms or steps <= RAW_UNSPLIT_STEPS:
+        return 1, steps
+    ks = min(-(-steps // RAW_SPLIT_STEPS), max(1, 2 * sms // tiles))
+    kper = -(-steps // ks)
+    return -(-steps // kper), kper
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def qconv_raw_plain(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0),
                     izp=0) -> torch.Tensor:
     """Plain PyTorch version of K4's conv mode."""
@@ -176,10 +228,14 @@ def qconv_raw(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0) -> tor
                         bias=(bias, torch.int32, (cout,)))
     if x.ndim != 4 or min(oh, ow) <= 0:
         raise ValueError(f"qconv_raw: bad geometry {tuple(x.shape)} * {tuple(w.shape)}")
-    out = torch.empty((x.shape[0], oh, ow, cout), dtype=torch.int32, device=x.device)
+    ks, kper = raw_split(x.shape[0] * oh * ow, cout, kh * kw * cin, sm_count(x.device.index))
+    # a split adds its partial sums into zeros
+    out = (torch.zeros if ks > 1 else torch.empty)((x.shape[0], oh, ow, cout),
+                                                   dtype=torch.int32, device=x.device)
     bias = fold_input_zero_point(bias, w, izp)
-    launch("tk_qconv_raw", [x, w, out, bias],
-           _conv_params(x, w, out, strides, padding, izp, 0, 0, "UPWARD", 0, 0))
+    launch("tk_qconv_raw", [x, kmajor_weights(w), out, bias],
+           _conv_params(x, w, out, strides, padding, izp, 0, 0, "UPWARD", 0, 0)
+           | dict(ks=ks, kper=kper))
     LAUNCHES["qconv_raw"] += 1
     return out
 
@@ -218,7 +274,7 @@ def qconv_rq_res(x, w, bias, mult, shift, residual, res_params: dict, *,
     params.update(l_skip=l_skip, lm=lm, ls=ls, lzp=lzp, r_skip=r_skip, rm=rm, rs=rs, rzp=rzp,
                   zo=plan["zo"], lo=plan["lo"], hi=plan["hi"],
                   add_tonearest=_TONEAREST[plan["rounding"]], **tile)
-    launch("tk_qconv_rq_res", [x, w, out, bias, mult, shift, residual], params)
+    launch("tk_qconv_rq_res", [x, kmajor_weights(w), out, bias, mult, shift, residual], params)
     LAUNCHES["qconv_rq_res"] += 1
     return out
 

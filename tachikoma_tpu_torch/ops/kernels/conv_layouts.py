@@ -361,20 +361,25 @@ def _layout_kernel(layout, x, w, bias, mult, shift, strides, padding, izp, rq_iz
 _PACKED: dict = {}
 
 
-def packed_weights(w: torch.Tensor) -> torch.Tensor:
-    """w (KH, KW, CIN, COUT) packed K-major as (KH, KW, COUT, CIN), the layout
-    K7-K10 stage their [n][k] weight tiles from with 16-byte copies.  Made
-    once per weight tensor and kept while the tensor lives and its
-    `_version` (in-place writes) is unchanged: the weights are constants of
-    the graph."""
+def pack_once(cache: dict, w: torch.Tensor, make) -> torch.Tensor:
+    """`make(w)`, made once per weight tensor and kept in `cache` while the
+    tensor lives and its `_version` (in-place writes) is unchanged: the
+    weights are constants of the graph."""
     key = id(w)
-    hit = _PACKED.get(key)
+    hit = cache.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
-    wk = w.permute(0, 1, 3, 2).contiguous()
-    _PACKED[key] = (weakref.ref(w, lambda _, key=key, cache=_PACKED: cache.pop(key, None)),
-                    w._version, wk)
+    wk = make(w)
+    cache[key] = (weakref.ref(w, lambda _, key=key, cache=cache: cache.pop(key, None)),
+                  w._version, wk)
     return wk
+
+
+def packed_weights(w: torch.Tensor) -> torch.Tensor:
+    """w (KH, KW, CIN, COUT) packed K-major as (KH, KW, COUT, CIN), the layout
+    K7-K10 stage their [n][k] weight tiles from with 16-byte copies; made
+    once per weight tensor (`pack_once`)."""
+    return pack_once(_PACKED, w, lambda w: w.permute(0, 1, 3, 2).contiguous())
 
 
 def layout_operands(x, w, bias, izp, g: FlatGeometry):

@@ -6,8 +6,11 @@ epilogue itself is the `__device__` code in `csrc/requantize.cuh`.  Hopper has
 native 64-bit integers, so the 32-bit emulation and the clamp16/clamp11 plans
 of the TPU epilogue have no counterpart: the kernels compute the int64 product
 directly.  This module also holds the epilogue's plain PyTorch version, which
-the kernels' plain versions end with, and the host plan of the fused residual
-`qnn.add` of K3.
+the kernels' plain versions end with, the host plan of the fused residual
+`qnn.add` of K3, and the two forms K3's kernel computes them in: the
+product as one widening multiply then the left shift
+(`q_multiply_shift_wide_np`), and the add as two 256-entry tables
+(`res_add_tables`, `res_add_table_plain`).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from ..fixed_point import (UPWARD, _qms_torch, fixed_point_multiplier_shift,
+from ..fixed_point import (TONEAREST, UPWARD, _qms_torch, fixed_point_multiplier_shift,
                            requantize)
 
 
@@ -102,3 +105,55 @@ def res_add_plain(cur: torch.Tensor, residual: torch.Tensor, ra: dict) -> torch.
     hi = min(int(ra.get("a_max", 127)), 127)
     out = (ql.to(torch.int64) + qr.to(torch.int64) - zo).to(torch.int32)
     return out.clamp(lo, hi).to(torch.int8)
+
+
+def q_multiply_shift_wide_np(x, m, shift, rounding: str = UPWARD) -> np.ndarray:
+    """q_multiply_shift as K3's epilogue computes it (csrc/qconv_igemm_hopper.cu
+    requant_wide): the exact int64 product of the int32s x and m (one
+    mul.wide.s32), then the left shift max(shift, 0) in 64-bit wraparound,
+    (x 2^l) m == (x m) 2^l mod 2^64, then the oracle's rounding and right
+    shift.  Elementwise over broadcast int arrays."""
+    x, m, shift = np.broadcast_arrays(np.asarray(x, np.int64), np.asarray(m, np.int64),
+                                      np.asarray(shift, np.int64))
+    left = np.maximum(shift, 0).astype(np.uint64)
+    right = (31 + np.maximum(-shift, 0)).astype(np.uint64)
+    p = (x * m).view(np.uint64) << left
+    rnd = np.uint64(1) << (right - np.uint64(1))
+    if rounding == TONEAREST:
+        rnd = rnd - (p.view(np.int64) < 0).astype(np.uint64)
+    elif rounding != UPWARD:
+        raise ValueError(f"unknown rounding {rounding!r}")
+    return ((p + rnd).view(np.int64) >> right.astype(np.int64)).astype(np.int32)
+
+
+def res_add_tables(plan: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's residual add as two 256-entry int32 tables, as each block of
+    csrc/qconv_igemm_hopper.cu builds them from `plan` (`plan_res_add`):
+    entry i is for the int8 value whose bits are i; TL[v] is the lhs side
+    requantized to the add's output (v itself when skipped), TR[r] the rhs
+    side minus the output zero point.  Each side reads one int8, so
+    clip(TL[v] + TR[r], lo, hi) is the add (`res_add_table_plain`)."""
+    v = torch.arange(256, dtype=torch.int64).to(torch.uint8).view(torch.int8).to(torch.int64)
+    zo = int(plan["zo"])
+
+    def side(skip, m, s, zp):
+        if skip:
+            return v
+        q = _qms_torch((v - zp).to(torch.int32), torch.tensor(m), torch.tensor(s),
+                       plan["rounding"])
+        return q.to(torch.int64) + zo
+
+    tl = side(*plan["lhs"]).to(torch.int32)
+    tr = (side(*plan["rhs"]) - zo).to(torch.int32)
+    return tl, tr
+
+
+def res_add_table_plain(cur: torch.Tensor, residual: torch.Tensor, ra: dict) -> torch.Tensor:
+    """The fused residual add by `res_add_tables`: clip(TL[cur] + TR[residual],
+    lo, hi) with int32 wraparound, cur and residual int8 -> int8; equals
+    `res_add_plain`."""
+    plan = plan_res_add(ra)
+    tl, tr = res_add_tables(plan)
+    idx = lambda t: t.to(torch.int64) & 255  # noqa: E731
+    out = (tl[idx(cur)].to(torch.int64) + tr[idx(residual)].to(torch.int64)).to(torch.int32)
+    return out.clamp(plan["lo"], plan["hi"]).to(torch.int8)

@@ -542,6 +542,139 @@ def test_k3_tiles_on_card(rng, cuda, blocks, case):
     assert torch.equal(got, qconv_rq_res_plain(x, w, b, mult, shift, res, rp, **kw))
 
 
+def _skip_res_params(l_skip, r_skip, rounding):
+    """Residual-add attrs whose lhs / rhs side is skipped (the output's
+    qparams) or requantized."""
+    return dict(lhs_scale=0.03 if l_skip else 0.06, lhs_zero_point=3 if l_skip else 2,
+                rhs_scale=0.03 if r_skip else 0.045, rhs_zero_point=3 if r_skip else -1,
+                output_scale=0.03, output_zero_point=3, rounding=rounding, a_min=-100,
+                a_max=100)
+
+
+K3_R50_CASES = [((8, 56, 56, 64), 1, 256), ((8, 28, 28, 128), 1, 512),
+                ((8, 14, 14, 256), 1, 1024), ((8, 7, 7, 512), 1, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_R50_CASES)
+@pytest.mark.parametrize("blocks", TILE_BLOCKS)
+@pytest.mark.parametrize("rounding", ["UPWARD", "TONEAREST"])
+@pytest.mark.parametrize("l_skip,r_skip", [(False, False), (True, False), (False, True),
+                                           (True, True)])
+def test_k3_hopper_at_resnet50_shapes(rng, cuda, case, blocks, rounding, l_skip, r_skip):
+    """K3 at ResNet-50 b8's four residual-stage shapes, every tile, both
+    roundings, each side of the add skipped or not, izp != 0."""
+    shape, k, cout = case
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    res = _dev(rng, shape[:3] + (cout,), cuda)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    rp = _skip_res_params(l_skip, r_skip, rounding)
+    kw = dict(izp=-3, rq_izp=2, out_zp=-1, rounding=rounding, qmin=-120, qmax=127)
+    got = qconv_rq_res(x, w, b, mult, shift, res, rp, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv_rq_res_plain(x, w, b, mult, shift, res, rp, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ((2, 9, 9, 24), 1, 0, 40),       # ragged CIN (byte gather) and COUT (no 16-byte rows)
+    ((3, 5, 7, 40), 3, 1, 24),
+    ((8, 7, 7, 512), 3, 1, 512),     # ResNet-18's last 3x3 stage
+    ((2, 14, 14, 256), 3, 1, 256),
+    ((1, 6, 5, 16), 5, 2, 80),       # 5x5, K not a multiple of 64
+])
+@pytest.mark.parametrize("blocks", TILE_BLOCKS)
+def test_k3_hopper_ragged_and_3x3(rng, cuda, case, blocks):
+    shape, k, p, cout = case
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    res = _dev(rng, shape[:3] + (cout,), cuda)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    rp = _skip_res_params(False, False, "TONEAREST")
+    kw = dict(padding=(p,) * 4, izp=5, out_zp=2, rounding="TONEAREST")
+    got = qconv_rq_res(x, w, b, mult, shift, res, rp, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv_rq_res_plain(x, w, b, mult, shift, res, rp, **kw))
+
+
+@pytest.mark.cuda
+def test_k3_hopper_on_a_misaligned_residual(rng, cuda):
+    """A residual 1 byte off 16-byte alignment takes the element-wise
+    epilogue; == plain all the same."""
+    shape, cout = (2, 9, 9, 64), 64
+    x, w = _dev(rng, shape, cuda), _dev(rng, (1, 1, 64, cout), cuda)
+    buf = _dev(rng, (2 * 9 * 9 * cout + 1,), cuda)
+    res = buf[1:].view(2, 9, 9, cout)
+    assert res.data_ptr() % 16 and res.is_contiguous()
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    rp = _skip_res_params(False, True, "UPWARD")
+    got = qconv_rq_res(x, w, b, mult, shift, res, rp, izp=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv_rq_res_plain(x, w, b, mult, shift, res, rp, izp=1))
+
+
+# (x shape, k, stride, padding, cout): ResNet-50 b1 224^2's eight distinct
+# conv-mode shapes and MobileNetV2 b1's stem
+K4_TRACE_CASES = [
+    ((1, 224, 224, 3), 7, 2, 3, 64),
+    ((1, 56, 56, 64), 3, 1, 1, 64),
+    ((1, 56, 56, 128), 3, 2, 1, 128),
+    ((1, 28, 28, 128), 3, 1, 1, 128),
+    ((1, 28, 28, 256), 3, 2, 1, 256),
+    ((1, 14, 14, 256), 3, 1, 1, 256),
+    ((1, 14, 14, 512), 3, 2, 1, 512),
+    ((1, 7, 7, 512), 3, 1, 1, 512),
+    ((1, 224, 224, 3), 3, 2, 1, 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_TRACE_CASES)
+@pytest.mark.parametrize("izp", [0, -6])
+def test_k4_conv_hopper_at_trace_shapes(rng, cuda, case, izp):
+    shape, k, s, p, cout = case
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    b = torch.from_numpy(rng.integers(-5000, 5000, cout).astype(np.int32)).to(cuda)
+    kw = dict(strides=(s, s), padding=(p,) * 4, izp=izp)
+    got = qconv_raw(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, qconv_raw_plain(x, w, b, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [(1, 7), (3, 3), (4, 2), (7, 1)])
+def test_k4_conv_split_that_does_not_divide_k(rng, cuda, monkeypatch, split):
+    """K = 3*3*48 = 432 bytes: 7 steps of 64, the last partly padding; each
+    forced split (3 x 3 leaves the last split one step) and a bias near
+    +-2^31, so that the partial sums and the bias wrap, == plain."""
+    from tachikoma_tpu_torch.ops.kernels import conv as conv_mod
+
+    monkeypatch.setattr(conv_mod, "raw_split", lambda *a, **k: split)
+    shape, cout = (2, 10, 10, 48), 72
+    x, w = _dev(rng, shape, cuda), _dev(rng, (3, 3, 48, cout), cuda)
+    b = torch.from_numpy(np.where(np.arange(cout) % 2, 2 ** 31 - 1 - np.arange(cout),
+                                  -2 ** 31 + np.arange(cout)).astype(np.int32)).to(cuda)
+    kw = dict(strides=(1, 1), padding=(1, 1, 1, 1), izp=3)
+    got = qconv_raw(x, w, b, **kw)
+    torch.cuda.synchronize()
+    want = qconv_raw_plain(x, w, b, **kw)
+    assert torch.equal(got, want)
+    acc = conv_mod.conv_acc_plain(x, w, (1, 1), (1, 1, 1, 1), 3).to(torch.int64)
+    full = acc + b.to(torch.int64)
+    assert ((full >= 2 ** 31) | (full < -2 ** 31)).any()  # the sums wrapped
+
+
+@pytest.mark.cuda
+def test_k4_conv_refuses_a_split_that_misses_k(rng, cuda, monkeypatch):
+    from tachikoma_tpu_torch.ops.kernels import conv as conv_mod
+
+    x, w = _dev(rng, (1, 8, 8, 64), cuda), _dev(rng, (3, 3, 64, 64), cuda)
+    b = torch.zeros(64, dtype=torch.int32, device=cuda)
+    for bad in ((2, 4), (3, 5)):  # 9 steps: 8 covered; a third split empty
+        monkeypatch.setattr(conv_mod, "raw_split", lambda *a, _b=bad, **k: _b)
+        with pytest.raises(RuntimeError, match="tk_qconv_raw"):
+            qconv_raw(x, w, b, padding=(1, 1, 1, 1))
+
+
 @pytest.mark.cuda
 def test_tune_trial_with_a_wrong_answer_is_never_served(cuda, monkeypatch):
     """A trial whose output differs from the plain version is recorded as

@@ -120,7 +120,9 @@ def _ra(case, rounding):
 
 
 def _res_add_device_formula(v, r, plan):
-    """The K3 epilogue of csrc/requantize.cuh residual_add, in numpy."""
+    """The residual add as plan_res_add plans it (each side's
+    q_multiply_shift, the sum, the clip), in numpy; K3's kernel computes the
+    same as two tables (tests/test_torch_port_igemm.py)."""
     def side(x, p):
         skip, m, s, zp = p
         if skip:

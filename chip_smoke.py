@@ -17,10 +17,13 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      path gives them: one forward is recorded call by call, then every call is
      replayed on the same tensors, its output held == against the kernel's
      plain PyTorch version, and timed (CUDA events over CUDA-graph replays)
-     beside its bound and a library call of the same shape; each K3 call (the
-     persistent wgmma body of csrc/qconv_igemm_hopper.cu, the residual add as
-     two tables) is printed with its tile, and K3's time per forward beside
-     its first body's (csrc/qgemm.cuh);
+     beside its bound and a library call of the same shape; K2 and K3 share
+     the persistent wgmma body of csrc/qconv_igemm_hopper.cu (K3's residual
+     add as two tables, K2's K split across blocks into a workspace whose
+     last block requantizes the whole sum), and each of their calls is
+     printed with its tile and K2's split, beside the previous design's time
+     on that call (K2 on csrc/qgemm.cuh), and their times per forward beside
+     the previous design's;
   5. the main path: the launch counts are set to 0, a few requests run through
      TorchExecutor(fuse=True, device="cuda"), the counts are read (each kernel
      must have launched), every captured integer node and the int8 logits are
@@ -97,10 +100,14 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      (qdwconv_direct) counted from 0: every trial == plain before it is
      timed, no WRONG_ANSWER and no unsupported record; then each workload's
      kernel == plain, timed beside its bound, its plain version, the library
-     call and the forward's own route for the same conv (qconv2d_flat: K2, K1
-     for a 1x1, K5), whose output it must equal; (c) tune_graph over
-     VGG-16's five chain runs, each variant run as handed over by
-     TorchExecutor for 5 counted requests, every integer node == the CPU
+     call, the forward's own route for the same conv (qconv2d_flat: K2, K1
+     for a 1x1, K5), whose output it must equal, and the previous design's
+     time (K11's mma.sync kernel); each K11 call is printed with its plan
+     (the Hopper path's BN and taps a step: the staged window, each tap a
+     wgmma at a shifted descriptor; or the narrow path's chunk), and each
+     CIN-3 conv also on K11's other path (== plain, timed); (c)
+     tune_graph over VGG-16's five chain runs, each variant run as handed
+     over by TorchExecutor for 5 counted requests, every integer node == the CPU
      path, the median of the last 4 its time; the records go to a database
      under TMPDIR.  The phase's host seconds are printed.
 
@@ -153,7 +160,7 @@ TRACE_TIMED = 5
 KERNELS = {
     "qgemm_rq": ("tachikoma_tpu_torch/csrc/qgemm_rq.cu",
                  "tachikoma_tpu/ops/pallas/matmul_int8.py:33"),
-    "qconv_rq": ("tachikoma_tpu_torch/csrc/qconv_rq.cu",
+    "qconv_rq": ("tachikoma_tpu_torch/csrc/qconv_igemm_hopper.cu",
                  "tachikoma_tpu/ops/pallas/conv_flat.py:68"),
     "qconv_rq_res": ("tachikoma_tpu_torch/csrc/qconv_igemm_hopper.cu",
                      "tachikoma_tpu/ops/pallas/conv_flat.py:1285"),
@@ -197,9 +204,49 @@ VGG_RUN_KERNELS = ("qconv_rq", "qgemm_rq")
 DIRECT_KERNELS = ("qconv_direct", "qdwconv_direct")
 VGG_CONVS, VGG_CONV_WORKLOADS, MBV2_DW_CONVS = 13, 9, 17
 GRAPH_TUNE_REQUESTS = 5           # per variant; the first is dropped from the median
-# per-forward ms of K3 (ResNet-50 b8) and K4's conv mode (b1) on their first
-# body, csrc/qgemm.cuh (PERF.md's kernel table), printed beside this run's
-EARLIER_MS = {"qconv_rq_res": 0.3525, "qconv_raw": 0.6127}
+# The previous designs' ms on one NVIDIA H100 80GB HBM3 at 700.00 W, printed
+# beside this run's (PERF.md's kernel table): per forward, K3 (ResNet-50 b8)
+# and K4's conv mode (b1) on their first body, csrc/qgemm.cuh, and K2 on it
+# and K11 on its mma.sync kernel (this script on the tree before them); per
+# call, K2 and K11 there, by the shape label of `work`.
+EARLIER_MS = {("ResNet-50", "qconv_rq_res"): 0.3525, ("ResNet-50", "qconv_raw"): 0.6127,
+              ("ResNet-50", "qconv_rq"): 0.7759, ("VGG-16", "qconv_rq"): 2.1242,
+              ("MobileNetV2", "qconv_rq"): 0.0311, ("VGG-16", "qconv_direct"): 1.9689,
+              ("ResNet-50", "qconv_direct"): 1.8627}
+EARLIER_CALL_MS = {
+    ("ResNet-50", "qconv_rq"): {
+        "8x224x224x3 k7 s2 -> 64": 0.0710, "8x56x56x64 k3 s1 -> 64": 0.0211,
+        "8x56x56x128 k3 s2 -> 128": 0.0305, "8x28x28x128 k3 s1 -> 128": 0.0316,
+        "8x28x28x256 k3 s2 -> 256": 0.0443, "8x14x14x256 k3 s1 -> 256": 0.0447,
+        "8x14x14x512 k3 s2 -> 512": 0.0828, "8x7x7x512 k3 s1 -> 512": 0.0833},
+    ("VGG-16", "qconv_rq"): {
+        "8x224x224x3 k3 s1 -> 64": 0.1252, "8x224x224x64 k3 s1 -> 64": 0.2188,
+        "8x112x112x64 k3 s1 -> 128": 0.1199, "8x112x112x128 k3 s1 -> 128": 0.2079,
+        "8x56x56x128 k3 s1 -> 256": 0.1099, "8x56x56x256 k3 s1 -> 256": 0.2041,
+        "8x28x28x256 k3 s1 -> 512": 0.1287, "8x28x28x512 k3 s1 -> 512": 0.2447,
+        "8x14x14x512 k3 s1 -> 512": 0.1044},
+    ("MobileNetV2", "qconv_rq"): {"8x224x224x3 k3 s2 -> 32": 0.0311},
+    ("VGG-16", "qconv_direct"): {
+        "8x224x224x3 k3 s1 -> 64": 0.0874, "8x224x224x64 k3 s1 -> 64": 0.2208,
+        "8x112x112x64 k3 s1 -> 128": 0.1235, "8x112x112x128 k3 s1 -> 128": 0.2027,
+        "8x56x56x128 k3 s1 -> 256": 0.1050, "8x56x56x256 k3 s1 -> 256": 0.1885,
+        "8x28x28x256 k3 s1 -> 512": 0.1261, "8x28x28x512 k3 s1 -> 512": 0.2387,
+        "8x14x14x512 k3 s1 -> 512": 0.0830},
+    ("ResNet-50", "qconv_direct"): {
+        "8x224x224x3 k7 s2 -> 64": 0.0371, "8x56x56x64 k1 s1 -> 256": 0.0346,
+        "8x56x56x64 k1 s1 -> 64": 0.0107, "8x56x56x64 k3 s1 -> 64": 0.0193,
+        "8x56x56x256 k1 s1 -> 64": 0.0194, "8x56x56x256 k1 s1 -> 128": 0.0300,
+        "8x56x56x128 k3 s2 -> 128": 0.0300, "8x28x28x128 k1 s1 -> 512": 0.0266,
+        "8x56x56x256 k1 s2 -> 512": 0.0516, "8x28x28x512 k1 s1 -> 128": 0.0259,
+        "8x28x28x128 k3 s1 -> 128": 0.0261, "8x28x28x512 k1 s1 -> 256": 0.0325,
+        "8x28x28x256 k3 s2 -> 256": 0.0417, "8x14x14x256 k1 s1 -> 1024": 0.0214,
+        "8x28x28x512 k1 s2 -> 1024": 0.0471, "8x14x14x1024 k1 s1 -> 256": 0.0409,
+        "8x14x14x256 k3 s1 -> 256": 0.0369, "8x14x14x1024 k1 s1 -> 512": 0.0451,
+        "8x14x14x512 k3 s2 -> 512": 0.0760, "8x7x7x512 k1 s1 -> 2048": 0.0271,
+        "8x14x14x1024 k1 s2 -> 2048": 0.0724, "8x7x7x2048 k1 s1 -> 512": 0.0796,
+        "8x7x7x512 k3 s1 -> 512": 0.0666},
+}
+PLAN_KERNELS = ("qconv_rq", "qconv_rq_res", "qconv_raw")  # printed call by call with their plan
 
 
 def say(*a):
@@ -386,20 +433,32 @@ def hold_call(name, a, k, impl) -> float:
 
 
 def launch_plan(name, a, k) -> str:
-    """K3's tile, or K4's conv-mode split of K, for one call."""
-    from tachikoma_tpu_torch.ops.kernels import _lib, conv
+    """The launch of one call as its wrapper plans it: K2's tile and split of
+    K, K3's tile, K4's conv-mode split, K11's path (BN and taps a step on the
+    Hopper path, the chunk on the narrow one)."""
+    from tachikoma_tpu_torch.ops.kernels import _lib, conv, conv_direct
 
-    if name == "qconv_rq_res":
-        bm, bn = _lib.tile_params(k.get("blocks")).values()
-        return f"tile {bm}x{bn}"
     x, w = a[0], a[1]
     kh, kw, cin, cout = w.shape
     sh, sw = k.get("strides", (1, 1))
     pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
     oh, ow = (x.shape[1] + pt + pb - kh) // sh + 1, (x.shape[2] + pl + pr - kw) // sw + 1
-    ks, kper = conv.raw_split(x.shape[0] * oh * ow, cout, kh * kw * cin,
-                              conv.sm_count(x.device.index))
-    return f"split {ks} x {kper} steps"
+    sms = conv.sm_count(x.device.index)
+    if name == "qconv_direct":
+        plan = k.get("plan") or conv_direct.direct_plan(tuple(x.shape), tuple(w.shape),
+                                                        (sh, sw), (pt, pl, pb, pr), sms)
+        if plan["cc"] != conv_direct.KC:
+            return f"narrow cc {plan['cc']}"
+        return f"wgmma bn {plan['bn']} taps {plan['group']}"
+    if name == "qconv_raw":
+        ks, kper = conv.raw_split(x.shape[0] * oh * ow, cout, kh * kw * cin, sms)
+        return f"split {ks} x {kper} steps"
+    if name == "qconv_rq_res":
+        bm, bn = _lib.tile_params(k.get("blocks")).values()
+        return f"tile {bm}x{bn}"
+    (bm, bn), ks, kper = conv.rq_launch(tuple(x.shape), tuple(w.shape), (sh, sw),
+                                        (pt, pl, pb, pr), k.get("blocks"), sms)
+    return f"tile {bm}x{bn} split {ks} x {kper}"
 
 
 def check_call(name, a, k, impl) -> dict:
@@ -422,15 +481,16 @@ def check_call(name, a, k, impl) -> dict:
                 max_abs_err=err)
 
 
-def check_kernels(calls: list, names) -> dict:
+def check_kernels(calls: list, names, model: str = "") -> dict:
     """Hold every recorded call of the kernels `names` against its plain
     version (== for the integer kernels, allclose for K6), time it, and sum
-    per kernel."""
+    per kernel; K2-K4 are printed call by call with their launch plan and
+    the previous design's time on `model`'s call."""
     impl = kernel_impls()
     per_call, totals = [], {}
     for name, a, k in calls:
         per_call.append(check_call(name, a, k, impl))
-        if name in EARLIER_MS:
+        if name in PLAN_KERNELS:
             per_call[-1]["plan"] = launch_plan(name, a, k)
 
     def fmt(v, width, digits):
@@ -462,13 +522,16 @@ def check_kernels(calls: list, names) -> dict:
         say(f"{'per forward':38s} {len(recs):5d} {t['ms']:9.4f} {t['bound_ms']:9.4f} "
             f"{t['bound_by']:>10s} {t['plain_ms']:9.3f} {fmt(t['library_ms'], 10, 4)}"
             f"  (library over {len(libs)} of {len(recs)} calls)")
-        if name in EARLIER_MS:
+        if name in PLAN_KERNELS:
+            before = EARLIER_CALL_MS.get((model, name), {})
             for r in recs:
-                say(f"  call {r['shape']:36s} {r['plan']:20s} {r['ms']:9.4f} ms, bound "
-                    f"{r['bound_ms']:.4f}, library {fmt(r['library_ms'], 0, 4)}")
-            ms = EARLIER_MS[name]
-            say(f"{name} per forward {t['ms']:.4f} ms; first body (csrc/qgemm.cuh) "
-                f"{ms:.4f} ms ({t['ms'] / ms:.3f}x); library {fmt(t['library_ms'], 0, 4)} ms")
+                say(f"  call {r['shape']:36s} {r['plan']:24s} {r['ms']:9.4f} ms, bound "
+                    f"{r['bound_ms']:.4f}, library {fmt(r['library_ms'], 0, 4)}, before "
+                    f"{fmt(before.get(r['shape']), 0, 4)}")
+        if (model, name) in EARLIER_MS:
+            ms = EARLIER_MS[(model, name)]
+            say(f"{name} per {model} forward {t['ms']:.4f} ms; the previous design {ms:.4f} ms "
+                f"({t['ms'] / ms:.3f}x); library {fmt(t['library_ms'], 0, 4)} ms")
     return totals
 
 
@@ -598,7 +661,7 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
     with recording(calls):
         ex.run_device(requests[0])
     torch.cuda.synchronize()
-    totals = check_kernels(calls, kernels)
+    totals = check_kernels(calls, kernels, model)
 
     phase(f"{labels[2]} {model} main path: {REQUESTS} requests through "
           "TorchExecutor(device='cuda')")
@@ -671,7 +734,7 @@ def trace_path(labels, model: str, build, kernels) -> tuple[dict, dict]:
         f"{name} {_lib.LAUNCHES[name]}" for name in kernels)
         + f" ({ops['qnn.conv2d']} qnn.conv2d + {ops['qnn.dense']} qnn.dense)")
     assert len(calls) == ops["qnn.conv2d"] + ops["qnn.dense"]
-    totals = check_kernels(calls, kernels)
+    totals = check_kernels(calls, kernels, model)
     plain = TorchExecutor(q, capture=names, device="cpu", fuse=False).run(x)
     n_int = hold_against_plain(names, outs, plain, q, FLOAT_RTOL, FLOAT_ATOL)
     say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; "
@@ -1133,10 +1196,12 @@ def direct_path(vgg_state, r50_state, mbv2_state) -> tuple[dict, dict]:
     (all 13 calls), ResNet-50 b8 (its groups-1 convs) and MobileNetV2 b8
     (its 17 depthwise convs), with K11 / K12's launches counted from 0; then
     each workload's kernel == plain and timed beside its bound, its plain
-    version, the library call and the forward's own route (qconv2d_flat: K1
-    for a 1x1, K2, K5 for a depthwise conv), whose output it must equal.
+    version, the library call, the forward's own route (qconv2d_flat: K1
+    for a 1x1, K2, K5 for a depthwise conv), whose output it must equal, and
+    the previous design; a CIN-3 conv also on K11's other path.
     Returns K11's totals per VGG-16 forward and K12's per MobileNetV2
     forward, and their launches in the tune_conv run."""
+    from tachikoma_tpu_torch.ops.kernels import conv, conv_direct
     from tachikoma_tpu_torch.ops.kernels.conv import qconv2d_flat
     from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
     from tachikoma_tpu_torch.tune.database import NO_ERROR, TuneDatabase
@@ -1192,6 +1257,7 @@ def direct_path(vgg_state, r50_state, mbv2_state) -> tuple[dict, dict]:
         args = (x, w, bias, channel_vector(mult, cout, "cuda"), channel_vector(shift, cout, "cuda"))
         kw = dict(strides=strides, padding=padding)
         r = check_call(name, args, kw, impl)
+        r["plan"] = launch_plan(name, args, kw) if groups == 1 else "-"
 
         def route(x=x, w=w, bias=bias, mult=mult, shift=shift, key=key):
             return qconv2d_flat(x, w, bias, mult, shift, strides=key[2], padding=key[3],
@@ -1201,6 +1267,18 @@ def direct_path(vgg_state, r50_state, mbv2_state) -> tuple[dict, dict]:
         r["route"] = "K5" if groups > 1 else ("K1" if wshape[:2] == (1, 1) else "K2")
         r["route_ms"] = graph_ms(route)
         r["tune_ms"] = db.best(conv_workload(*shape, cout, *wshape[:2], strides, groups)).time_ms
+        narrow = conv_direct.narrow_chunk(shape[3], *wshape[:2], strides)
+        if groups == 1 and shape[3] < conv_direct.NARROW_CIN and narrow is not None:
+            # a narrow CIN: K11's other path on the same call, == plain, timed
+            own = conv_direct.direct_plan(shape, wshape, strides, padding,
+                                          conv.sm_count(x.device.index))
+            other = ({"cc": narrow} if own["cc"] == conv_direct.KC else
+                     conv_direct.hopper_plan(shape, wshape, strides, padding,
+                                             conv.sm_count(x.device.index)))
+            ok = dict(kw, plan=other)
+            r["other_err"] = hold_call(name, args, ok, impl)
+            r["other_ms"] = graph_ms(lambda a=args, k=ok: impl[name][0](*a, **k))
+            r["other_plan"] = launch_plan(name, args, ok)
         rows[key] = r
 
     def fmt(v, width, digits):
@@ -1209,14 +1287,21 @@ def direct_path(vgg_state, r50_state, mbv2_state) -> tuple[dict, dict]:
     totals = {}
     for model, calls in models.items():
         name = "qdwconv_direct" if model == "MobileNetV2" else "qconv_direct"
-        say(f"\n{model}: {name} per call (ms; route = the forward's own kernel on the same call)")
-        say(f"{'shape':34s} {'n':>2s} {'ms':>8s} {'tune_ms':>8s} {'bound_ms':>8s} {'by':>10s} "
-            f"{'plain_ms':>8s} {'library':>8s} {'route':>5s} {'route_ms':>8s}")
+        before = EARLIER_CALL_MS.get((model, name), {})
+        say(f"\n{model}: {name} per call (ms; route = the forward's own kernel on the same "
+            "call; before = the previous design)")
+        say(f"{'shape':34s} {'n':>2s} {'plan':22s} {'ms':>8s} {'tune_ms':>8s} {'bound_ms':>8s} "
+            f"{'by':>10s} {'plain_ms':>8s} {'library':>8s} {'route':>5s} {'route_ms':>8s} "
+            f"{'before':>8s}")
         for key, count in calls.items():
             r = rows[key]
-            say(f"{r['shape']:34s} {count:2d} {r['ms']:8.4f} {r['tune_ms']:8.4f} "
+            say(f"{r['shape']:34s} {count:2d} {r['plan']:22s} {r['ms']:8.4f} {r['tune_ms']:8.4f} "
                 f"{r['bound_ms']:8.4f} {r['bound_by']:>10s} {r['plain_ms']:8.3f} "
-                f"{fmt(r['library_ms'], 8, 4)} {r['route']:>5s} {r['route_ms']:8.4f}")
+                f"{fmt(r['library_ms'], 8, 4)} {r['route']:>5s} {r['route_ms']:8.4f} "
+                f"{fmt(before.get(r['shape']), 8, 4)}")
+            if "other_ms" in r:
+                say(f"  {'':32s}    {r['other_plan']:22s} {r['other_ms']:8.4f}  (K11's other "
+                    "path on the same call, == plain)")
         t = {k: sum(rows[key][k] * n for key, n in calls.items())
              for k in ("ms", "plain_ms", "bound_ms", "route_ms")}
         libs = [(rows[key]["library_ms"], n) for key, n in calls.items()
@@ -1225,12 +1310,17 @@ def direct_path(vgg_state, r50_state, mbv2_state) -> tuple[dict, dict]:
         by_bytes = sum(rows[key]["bound_ms"] * n for key, n in calls.items()
                        if rows[key]["bound_by"] == "bytes")
         t["bound_by"] = "bytes" if 2 * by_bytes >= t["bound_ms"] else "operations"
-        t["max_abs_err"] = max(rows[key]["max_abs_err"] for key in calls)
+        t["max_abs_err"] = max(max(rows[key]["max_abs_err"], rows[key].get("other_err", 0))
+                               for key in calls)
         n_calls = sum(calls.values())
         say(f"{'per forward':34s} {n_calls:2d} {t['ms']:8.4f} {'':8s} {t['bound_ms']:8.4f} "
             f"{t['bound_by']:>10s} {t['plain_ms']:8.3f} {fmt(t['library_ms'], 8, 4)} "
             f"{'':5s} {t['route_ms']:8.4f}  (library over {sum(n for _, n in libs)} of "
             f"{n_calls} calls; {name} / route {t['ms'] / t['route_ms']:.2f}x)")
+        if (model, name) in EARLIER_MS:
+            ms = EARLIER_MS[(model, name)]
+            say(f"{name} per {model} forward {t['ms']:.4f} ms; the previous design {ms:.4f} ms "
+                f"({t['ms'] / ms:.3f}x)")
         if model != "ResNet-50":
             totals[name] = t
     return totals, launches

@@ -147,12 +147,35 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(valid ? 16 : 0));
 }
+// cp_async16 cached in L1 as well as L2 (.ca, as ld.global caches), for
+// copies that the SM reads again soon: an implicit GEMM's im2col rows, which
+// the next taps' rows overlap, and weights that the SM's blocks share.  On
+// the H100 it took K2's 56^2 call of ResNet-50 b8 from 32 to 12 us and
+// VGG-16 b8's 224^2 c64 conv from 255 to 146 us (tools/conv_probe.py
+// --cuts=k2_cg builds K2 with its copies in L2 alone, as they were).
+__device__ __forceinline__ void cp_async16_ca(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait0() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait2() {
+  asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+// Waits until at most `n` (0, 1 or 2) of this thread's copy groups are pending.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 2)
+    cp_async_wait2();
+  else if (n == 1)
+    cp_async_wait1();
+  else
+    cp_async_wait0();
 }
 
 __device__ __forceinline__ int tap_off(int t, const HGeo& g) {

@@ -18,8 +18,11 @@ enum Param {
   P_GROUP,
   // K11's input channels per staged chunk; K12's output tile (qconv_direct.cu)
   P_CC, P_TH, P_TW,
-  // K4's conv mode: K split P_KS ways, P_KPER steps of 64 each (qconv_igemm_hopper.cu)
+  // K2 and K4's conv mode: K split P_KS ways, P_KPER steps of 64 each (qconv_igemm_hopper.cu)
   P_KS, P_KPER,
+  // K11's Hopper path: the N tile's weights resident in shared memory, the
+  // steps its copies run ahead (qconv_direct.cu)
+  P_WRES, P_AHEAD,
   P_COUNT
 };
 

@@ -1,22 +1,28 @@
-// K3 qconv_rq_res and K4's conv mode qconv_raw: the NHWC int8 conv as an
-// implicit GEMM on Hopper's wgmma, persistent blocks, a cp.async ring.
+// K2 qconv_rq, K3 qconv_rq_res and K4's conv mode qconv_raw: the NHWC int8
+// conv as an implicit GEMM on Hopper's wgmma, persistent blocks, a cp.async
+// ring; one body, three epilogues (Mode).
 //
-//   K3 qconv_rq_res replaces tachikoma_tpu/ops/pallas/conv_flat.py
-//      _flat_conv_kernel_f (:1285, pl.pallas_call at :1432; entries
-//      qconv2d_flat_chain and qconv2d_flat_block_stack): the last stage of a
-//      residual block, a stride-1 conv (any KH, KW, padding) whose epilogue
-//      requantizes and then applies the fused residual qnn.add, int8 out.
-//   K4 qconv_raw replaces the fuse=False branch of conv_flat.py
-//      _flat_conv_kernel (:68, pl.pallas_call at :370; entry qconv2d_flat
-//      without a multiplier): any stride, padding and CIN; the int32
-//      accumulator plus bias in wraparound, int32 out.  The trace path's
-//      stem and 3x3 convs run on it.
+//   K2 qconv_rq replaces tachikoma_tpu/ops/pallas/conv_flat.py
+//      _flat_conv_kernel (:68, pl.pallas_call at :370; entry qconv2d_flat,
+//      fuse=True): any stride, padding and CIN; requantize, int8 out.  On
+//      the int8 ResNet-50 path it runs the 7x7 s2 stem, the three strided
+//      3x3 convs and the 3x3 stages of the chains and block stacks; on
+//      VGG-16 every conv.
+//   K3 qconv_rq_res replaces conv_flat.py _flat_conv_kernel_f (:1285,
+//      pl.pallas_call at :1432; entries qconv2d_flat_chain and
+//      qconv2d_flat_block_stack): the last stage of a residual block, a
+//      stride-1 conv (any KH, KW, padding) whose epilogue requantizes and
+//      then applies the fused residual qnn.add, int8 out.
+//   K4 qconv_raw replaces the fuse=False branch of _flat_conv_kernel: any
+//      stride, padding and CIN; the int32 accumulator plus bias in
+//      wraparound, int32 out.  The trace path's stem and 3x3 convs run on it.
 //
 // The GEMM.  Row m = (image, oy, ox) of the output, column n = output
 // channel, k = (ky, kx, ci) over KH*KW*CIN, padded with zeros to Kp, a
-// multiple of 64.  The weights are packed once per weight tensor, K-major, as
-// (COUT, Kp) (ops/kernels/conv.py kmajor_weights), so a B tile is BN rows of
-// 64 contiguous bytes and the padding needs no mask.  A is gathered from the
+// multiple of 64.  The weights are packed once per weight tensor, K-major
+// step by step, as (Kp / 64, COUT, 64) (ops/kernels/conv.py
+// kmajor_weights), so the B tile of a step is BN * 64 contiguous bytes and
+// the padding needs no mask: a warp's copies read 512 contiguous bytes.  A is gathered from the
 // caller's NHWC image: a thread stages the same two rows and the same 16-byte
 // segment at every step of a tile, so it works out its rows' (image, oy, ox)
 // once a tile (multiply-high constants) and walks its segment's (ky, kx, ci)
@@ -39,23 +45,19 @@
 // copies' latency exposed on every tile.  So the grid holds as many blocks
 // as the card holds at once (the occupancy API), each block keeps one N tile
 // and walks every gm-th M tile, and its copies run as one stream of stages
-// over its items (a ring of three stages for K3, four for K4), K3's at most
-// one item ahead: the next item's A, B and residual copies are in flight
-// while this item is multiplied and its epilogue runs.  Where K has at most
-// two steps, K3's block keeps its weights resident (its items all read the
-// same N tile's K range) and the ring carries A alone.  One barrier a step,
-// two more per K3 item (the staged output tile, then its slot's reuse).
+// over its items (a ring of three stages for K3, four for K2 and K4), K3's
+// at most one item ahead: the next item's A, B and residual copies are in
+// flight while this item is multiplied and its epilogue runs.  Where K has
+// at most two steps, K3's block keeps its weights resident (its items all
+// read the same N tile's K range) and the ring carries A alone.  One barrier
+// a step, one or two more per item for the staged output tile.
 //
-// K3's epilogue.  On the H100 the first port's epilogue (csrc/qgemm.cuh: three
-// 64-bit q_multiply_shifts, three per-channel global loads, byte-wise
-// residual and output traffic) was 30% of K3's time
-// (tools/parent_k3_k4.py).  Here:
-//   * the per-column constants (bias - rq_izp, multiplier, left and right
-//     shift) are read once per block into shared memory, 16 bytes a column;
-//   * the requantize's product is one mul.wide.s32 and then the left shift:
-//     (x 2^l) m == (x m) 2^l mod 2^64, so it equals the oracle in its own
-//     wraparound arithmetic;
-//   * the residual add is two 256-entry int32 tables in shared memory: the
+// The epilogues (epilogue_hopper.cuh, shared with K11).  The per-column
+// constants are read once per block into shared memory; the requantize's
+// product is one mul.wide.s32 and then the left shift (requant_wide); the
+// fragment is requantized into a staged tile, and the tile leaves in 16-byte
+// rows where COUT % 16 == 0 (else element by element).  K3 adds:
+//   * the residual add as two 256-entry int32 tables in shared memory: the
 //     conv's side is the int8 value the plain version hands to the add, the
 //     residual an int8, so out = clip(TL[v] + TR[r], lo, hi) exactly, with
 //     TR holding the output zero point's subtraction (a skipped side's
@@ -63,29 +65,45 @@
 //     to four entries a thread, from the plan of ops/kernels/requantize.py
 //     plan_res_add;
 //   * the residual tile comes into shared memory by cp.async with the
-//     item's first stage, each output pair replaces its residual pair
-//     there, and the tile leaves in 16-byte rows (COUT % 16 == 0; else
-//     element by element from global memory).
+//     item's first stage, and each output pair replaces its residual pair
+//     there (the staged tile).
+// On the H100 the first port's epilogue (csrc/qgemm.cuh: three 64-bit
+// q_multiply_shifts, three per-channel global loads, byte-wise residual and
+// output traffic) was 30% of K3's time (tools/parent_k3_k4.py).
 //
-// K4's split.  At batch 1 the trace path's 3x3 convs have 8-49 tiles of
-// 64 x 64 and 9-72 K steps: a serial walk on a few SMs.  The wrapper splits
-// K where the tiles leave the SMs idle and K has more than 9 steps
-// (ops/kernels/conv.py raw_split, about 6 steps a split): block z of the
-// grid walks steps [z*kper, min((z+1)*kper, steps)) and adds its int32
-// partial sums into an output the wrapper zeroed, with red.global.add.s32;
-// split 0 alone adds the bias.  Integer sums wrap the same in any order, so
-// the result is the same integers on every run.  Atomics were chosen over a
-// cluster's distributed shared memory because the split is then any size
-// (7^2 takes 12), not at most 8 (16 non-portable), and the output tiles are
-// small (at most 0.8 MB a call on that path).  Unsplit (ks 1), the sums are
-// stored.
+// Splits of K.  Where the tiles leave the SMs idle, the wrapper splits K
+// over the z dimension of the grid (ops/kernels/conv.py raw_split for K4,
+// rq_split for K2): block z walks steps [z*kper, min((z+1)*kper, steps)).
+//   * K4 adds its int32 partial sums into an output the wrapper zeroed, with
+//     red.global.add.s32; split 0 alone adds the bias.
+//   * K2's requantize needs the whole sum, so its splits add their partial
+//     sums into an int32 workspace the wrapper zeroed (M x COUT, then one
+//     arrival counter a tile), each block fences its adds and then counts
+//     itself in on the tile's counter, and the block that arrives last reads
+//     the complete sums back (from L2) and alone runs the epilogue.  This
+//     form was chosen over a cluster adding through distributed shared
+//     memory because it needs no co-scheduling: the split is any size (a 7^2
+//     call of ResNet-50 b8 takes 5), the persistent grid keeps the occupancy
+//     API's size, and a block that is not last goes straight on to its next
+//     item instead of waiting at a cluster barrier.
+// Integer sums wrap the same in any order, so both give the same integers
+// on every run.  Unsplit (ks 1), the sums go straight to the epilogue.
 //
-// What bounds them on the H100: every K3 call moves its input, residual and
-// output once (bytes: 0.027 ms for ResNet-50 b8) and K4's b1 calls are bound
-// by the bytes of their weights (0.0066 ms); neither comes near the int8
-// tensor-core peak.  What holds them above that, measured with
-// tools/igemm_probe.py: a fixed cost of a few microseconds a call, the
-// copies, and for K3 the epilogue's integer work.
+// What bounds them on the H100: K3's calls and K4's b1 calls are bound by
+// their bytes (0.027 ms for ResNet-50 b8's K3, 0.0066 ms for K4), K2's 3x3
+// calls by the int8 tensor-core peak (0.0177 ms per ResNet-50 b8 forward,
+// 0.1318 for VGG-16 b8's 122.8 GMAC); none comes near.  What holds them
+// above that, measured with tools/igemm_probe.py and tools/conv_probe.py
+// --cuts: a fixed cost of a few microseconds a call, for K3 the epilogue's
+// integer work, and for K2 the copies (cutting the wgmmas or the epilogue
+// saved under 5%, the A and B copies 80%).  K2's copies are cached in L1
+// as well as L2 (cp.async.ca): a 3x3 call's A rows at neighbouring taps
+// overlap and an SM's blocks share the weights, and in L2 alone (.cg) its
+// copies ran at 1.6-3 TB/s and took K2 2.6x its time at ResNet-50 b8's
+// 56^2 call.  The 64 x 64 tile stages 8 KB per 262 K products; where a
+// call has the tiles to fill the card the wrapper takes 128-row tiles
+// (conv.py rq_tile), which stage half as much per product.
+#include "epilogue_hopper.cuh"
 #include "layouts_hopper.cuh"
 
 namespace tk {
@@ -93,6 +111,7 @@ namespace igemm {
 
 using hop::cp_async16;
 using hop::cp_async_commit;
+using hop::cp_async_wait_upto;
 using hop::fence_proxy_async;
 using hop::gmma_desc;
 using hop::wgmma_acc;
@@ -101,60 +120,37 @@ using hop::wgmma_fence;
 using hop::wgmma_wait0;
 
 constexpr int KSTEP = 64;  // bytes of K per step
-constexpr int RPAD = 16;   // bytes of padding per row of K3's residual tile
+constexpr int RPAD = 16;   // bytes of padding per row of the staged output tile
+
+// The epilogue of a launch: K4's raw int32 store, K2's requantize, K3's
+// requantize and residual add.
+enum Mode { RAW, RQ, RES };
 
 struct Geo {
   int n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, pt, pl;
   int M, K, steps, kper;  // steps = Kp / 64; a split walks kper of them
   int m_tiles, n_tiles, gm;  // a block walks M tiles mb, mb + gm, ... of one N tile
   // dynamic shared memory: the ring (STAGES x stage_bytes), then from off_b
-  // the resident weights (b_res), the column constants, the tables and the
-  // residual tiles (K3); smem bytes in all
-  int stage_bytes, off_b, off_cols, off_tables, off_rtile, smem;
+  // the resident weights (b_res), the column constants, the tables (K3),
+  // the staged tiles (K2, K3) and K2's arrival flag; smem bytes in all
+  int stage_bytes, off_b, off_cols, off_tables, off_rtile, off_flag, smem;
   bool b_res;  // the block's weights (every step of its N tile) staged once
   uint32_t izp4;
   bool a_vec;  // CIN % 16 == 0 and x 16-byte aligned
-  bool o_vec;  // K3: COUT % 16 == 0, residual and out 16-byte aligned
+  bool o_vec;  // K2, K3: COUT % 16 == 0, out (and K3's residual) 16-byte aligned
   hop::FastDiv by_ohow, by_ow;
 };
 
-// K3's block-uniform epilogue constants; the tables are built from them.
+// The block-uniform epilogue constants; K3's tables are built from them.
 struct Epi {
-  int32_t rq_izp, out_zp, qmin, qmax;
-  bool tonearest;
+  epi::RqConst rq;
+  int32_t rq_izp;
   bool l_skip, r_skip, add_tonearest;
   int32_t lm, ls, lzp, rm, rs, rzp, zo, lo, hi;
 };
 
 __device__ __forceinline__ int cm_off(int r, int seg) {
   return (r >> 3) * 512 + seg * 128 + (r & 7) * 16;
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Waits until at most `n` (0, 1 or 2) of this thread's copy groups are pending.
-__device__ __forceinline__ void cp_async_wait_upto(int n) {
-  if (n >= 2)
-    cp_async_wait<2>();
-  else if (n == 1)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<0>();
-}
-
-// The requantize of one accumulator with column constants c = (bias - rq_izp,
-// multiplier, left shift, right shift 31 + max(-s, 0)): requantize.cuh's
-// q_multiply_shift with the product as mul.wide.s32, then the left shift.
-__device__ __forceinline__ int32_t requant_wide(int32_t acc, int4 c, const Epi& e) {
-  const int32_t v = wrap_add(acc, c.x);
-  const uint64_t p = (uint64_t)((int64_t)v * (int64_t)c.y) << c.z;
-  uint64_t rnd = 1ull << (c.w - 1);
-  if (e.tonearest && (int64_t)p < 0) rnd -= 1;
-  const int32_t q = wrap_add((int32_t)(uint32_t)(uint64_t)((int64_t)(p + rnd) >> c.w), e.out_zp);
-  return min(max(q, e.qmin), e.qmax);
 }
 
 // One side of the residual add at int8 value v (requantize.cuh's
@@ -166,13 +162,15 @@ __device__ __forceinline__ int32_t res_side(int32_t v, bool skip, int32_t m, int
 
 constexpr int BRES_STEPS = 2;  // K3 keeps its block's weights resident up to this many steps
 
-template <bool RES, int BM, int BN>
+template <int MODE, int BM, int BN>
 struct Tiles {
-  static constexpr int NT = 2 * BM;            // a warpgroup per 64 rows
-  static constexpr int STAGES = RES ? 3 : 4;   // the cp.async ring
-  static constexpr int AHEAD = RES ? 1 : STAGES - 1;  // items the copies run ahead
-  static constexpr int RSLOTS = AHEAD + 1;     // K3: residual / output tiles
-  static constexpr int RS = BN + RPAD;         // residual tile row stride
+  static constexpr int NT = 2 * BM;                        // a warpgroup per 64 rows
+  static constexpr int STAGES = MODE == RES ? 3 : 4;       // the cp.async ring
+  static constexpr int AHEAD = MODE == RES ? 1 : STAGES - 1;  // items the copies run ahead
+  // staged output tiles: K3 one per item in flight (its residual lands
+  // there), K2 one
+  static constexpr int RSLOTS = MODE == RES ? AHEAD + 1 : MODE == RQ ? 1 : 0;
+  static constexpr int RS = BN + RPAD;                     // staged tile row stride
 };
 
 // The shared-memory layout of a launch (Geo's offsets).  K3 keeps its
@@ -180,16 +178,17 @@ struct Tiles {
 // all read the same N tile's K range, so the ring then carries A alone and
 // a block holds less.  With more steps the resident copy delays the first
 // product (the 14^2 calls of ResNet-50 b8 ran 8% slower so, on the H100).
-template <bool RES, int BM, int BN>
+template <int MODE, int BM, int BN>
 void smem_layout(Geo& g) {
-  using T = Tiles<RES, BM, BN>;
-  g.b_res = RES && g.steps <= BRES_STEPS;
+  using T = Tiles<MODE, BM, BN>;
+  g.b_res = MODE == RES && g.steps <= BRES_STEPS;
   g.stage_bytes = (BM + (g.b_res ? 0 : BN)) * KSTEP;
   g.off_b = T::STAGES * g.stage_bytes;
   g.off_cols = g.off_b + (g.b_res ? g.steps * BN * KSTEP : 0);
-  g.off_tables = g.off_cols + (RES ? BN * 16 : 0);
-  g.off_rtile = g.off_tables + (RES ? 2 * 256 * 4 : 0);
-  g.smem = g.off_rtile + (RES ? T::RSLOTS * BM * T::RS : 0);
+  g.off_tables = g.off_cols + (MODE != RAW ? BN * 16 : 0);
+  g.off_rtile = g.off_tables + (MODE == RES ? 2 * 256 * 4 : 0);
+  g.off_flag = g.off_rtile + T::RSLOTS * BM * T::RS;
+  g.smem = g.off_flag + (MODE == RQ ? 16 : 0);
 }
 
 // A block of the grid (x: N tile + n_tiles * mb, z: split of K) walks the M
@@ -197,20 +196,23 @@ void smem_layout(Geo& g) {
 // split in each.  The copies run as one stream of stages over the items: up
 // to STAGES - 1 stages ahead of the products, and up to AHEAD items ahead,
 // so that the next items' copies (and K3's next residual tiles) are in
-// flight while this item's epilogue runs.
-template <bool RES, int BM, int BN>
+// flight while this item's epilogue runs.  `ws` is K2's split workspace.
+template <int MODE, int BM, int BN>
 __global__ void __launch_bounds__(2 * BM)
     igemm_hopper(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
                  void* __restrict__ out, const int8_t* __restrict__ residual,
                  const int32_t* __restrict__ bias, const int32_t* __restrict__ mult,
-                 const int32_t* __restrict__ shift, Epi e, Geo g) {
-  using S = Tiles<RES, BM, BN>;
+                 const int32_t* __restrict__ shift, int32_t* __restrict__ ws, Epi e, Geo g) {
+  using S = Tiles<MODE, BM, BN>;
   constexpr int NT = S::NT, ST = S::STAGES;
+  constexpr bool RES_ = MODE == RES;
   constexpr int A_PER = BM * 4 / NT;  // rows a thread stages: 2
   constexpr int B_PER = BN * 4 / NT;  // weight rows a thread stages: 1, 2 or 4
+  // no static shared memory: the launch grants the dynamic the whole 227 KB
   extern __shared__ __align__(128) int8_t smem[];
   const int tid = threadIdx.x, seg = tid & 3;
-  const int n0 = (blockIdx.x % g.n_tiles) * BN, mb = blockIdx.x / g.n_tiles;
+  const int nt_idx = blockIdx.x % g.n_tiles;
+  const int n0 = nt_idx * BN, mb = blockIdx.x / g.n_tiles;
   const int n_items = mb < g.m_tiles ? (g.m_tiles - 1 - mb) / g.gm + 1 : 0;
   const int kbeg = blockIdx.z * g.kper;
   const int nst = min(g.steps, kbeg + g.kper) - kbeg;  // steps per item
@@ -225,10 +227,11 @@ __global__ void __launch_bounds__(2 * BM)
   }
   const uint4 fill = make_uint4(g.izp4, g.izp4, g.izp4, g.izp4);
   int8_t* const bres = smem + g.off_b;
-  int32_t* const colc = reinterpret_cast<int32_t*>(smem + g.off_cols);
+  int4* const colc = reinterpret_cast<int4*>(smem + g.off_cols);
   int32_t* const tl = reinterpret_cast<int32_t*>(smem + g.off_tables);
   int32_t* const tr = tl + 256;
   int8_t* const rt = smem + g.off_rtile;
+  int* const s_last = reinterpret_cast<int*>(smem + g.off_flag);  // K2's split: arrived last
 
   // the producer: the item and step it stages next, its rows, its segment's
   // (ky, kx, ci)
@@ -254,7 +257,7 @@ __global__ void __launch_bounds__(2 * BM)
     ky = ky0;
     kx = kx0;
     ci = ci0;
-    if constexpr (RES) {
+    if constexpr (RES_) {
       if (g.o_vec) {  // the item's residual tile, with its first stage's copies
         int8_t* const rtile = rt + (item % S::RSLOTS) * BM * S::RS;
         for (int i = tid; i < BM * (BN / 16); i += NT) {
@@ -268,13 +271,23 @@ __global__ void __launch_bounds__(2 * BM)
     }
   };
 
+  // K2's copies are cached in L1 too (its 3x3 calls read each input row at
+  // three taps, its blocks on an SM share the weights); K3's and K4's stay
+  // in L2 alone, as measured in their redesign
+  auto copy16 = [](void* d, const void* src, bool ok) {
+    if constexpr (MODE == RQ)
+      hop::cp_async16_ca(d, src, ok);
+    else
+      cp_async16(d, src, ok);
+  };
+
   auto stage_b = [&](int8_t* bs, int kstep) {  // the N tile's weights at step kstep
-    const long long kb = (long long)kstep * KSTEP + seg * 16;
+    const int8_t* const wb = wk + ((long long)kstep * g.cout + n0) * KSTEP + seg * 16;
 #pragma unroll
     for (int j = 0; j < B_PER; ++j) {
-      const int r = (tid >> 2) + j * (NT / 4), co = n0 + r;
-      const bool ok = co < g.cout;
-      cp_async16(bs + cm_off(r, seg), ok ? wk + (long long)co * (g.steps * KSTEP) + kb : wk, ok);
+      const int r = (tid >> 2) + j * (NT / 4);
+      const bool ok = n0 + r < g.cout;
+      copy16(bs + cm_off(r, seg), ok ? wb + r * KSTEP : wk, ok);
     }
   };
 
@@ -287,9 +300,9 @@ __global__ void __launch_bounds__(2 * BM)
       if (g.a_vec) {
         const int iy = a_iy[j] + ky, ix = a_ix[j] + kx;
         if (!a_ok[j] || ky >= g.kh) {
-          cp_async16(d, x, false);  // past K (zero weights) or past M (not stored)
+          copy16(d, x, false);  // past K (zero weights) or past M (not stored)
         } else if ((unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w) {
-          cp_async16(d, x + a_base[j] + ((long long)iy * g.w + ix) * g.cin + ci, true);
+          copy16(d, x + a_base[j] + ((long long)iy * g.w + ix) * g.cin + ci, true);
         } else {
           *reinterpret_cast<uint4*>(d) = fill;
         }
@@ -347,17 +360,9 @@ __global__ void __launch_bounds__(2 * BM)
   if (g.b_res)  // every step of the block's weights, with the first stage's copies
     for (int st = 0; st < g.steps; ++st) stage_b(bres + st * BN * KSTEP, st);
   produce(0, 0);
-  if constexpr (RES) {  // column constants and the add's tables, while the copies fly
-    for (int c = tid; c < BN; c += NT) {
-      const int col = n0 + c;
-      int4 cc = make_int4(0, 0, 0, 31);
-      if (col < g.cout) {
-        const int s = shift[col];
-        cc = make_int4(wrap_sub(bias[col], e.rq_izp), mult[col], s > 0 ? s : 0,
-                       31 + (s < 0 ? -s : 0));
-      }
-      reinterpret_cast<int4*>(colc)[c] = cc;
-    }
+  if constexpr (MODE != RAW)  // column constants (and the add's tables), while the copies fly
+    epi::load_cols(colc, BN, n0, g.cout, bias, mult, shift, e.rq_izp);
+  if constexpr (RES_) {
     for (int i = tid; i < 512; i += NT) {
       const int32_t v = (int8_t)(i & 255);
       if (i < 256)
@@ -393,37 +398,76 @@ __global__ void __launch_bounds__(2 * BM)
     if (++c_step < nst) continue;
 
     // the epilogue of item c_item
-    const int m0 = (mb + c_item * g.gm) * BM;
-    if constexpr (RES) {
-      int8_t* const o8 = static_cast<int8_t*>(out);
-      if (g.o_vec) {  // the residual tile landed with the item's first stage
-        int8_t* const rtile = rt + (c_item % S::RSLOTS) * BM * S::RS;
+    const int mt_idx = mb + c_item * g.gm, m0 = mt_idx * BM;
+    bool run_epilogue = true;
+    if constexpr (MODE == RQ) {
+      if (gridDim.z > 1) {  // a split: add into the workspace; the last block on
+        int32_t* const cnt = ws + (long long)g.M * g.cout;
 #pragma unroll
         for (int jb = 0; jb < BN / 8; ++jb) {
-          const int cl = 8 * jb + 2 * (lane & 3);
-          const int4 c0 = reinterpret_cast<const int4*>(colc)[cl];
-          const int4 c1 = reinterpret_cast<const int4*>(colc)[cl + 1];
+          const int col = n0 + 8 * jb + 2 * (lane & 3);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            uint16_t* p = reinterpret_cast<uint16_t*>(rtile + (rl0 + 8 * h) * S::RS + cl);
-            const uint32_t rr = *p;
-            const int32_t q0 = requant_wide(acc[4 * jb + 2 * h], c0, e);
-            const int32_t q1 = requant_wide(acc[4 * jb + 2 * h + 1], c1, e);
-            const int32_t o0 = min(max(wrap_add(tl[q0 & 255], tr[rr & 255]), e.lo), e.hi);
-            const int32_t o1 = min(max(wrap_add(tl[q1 & 255], tr[rr >> 8]), e.lo), e.hi);
-            *p = (uint16_t)((o0 & 255) | (o1 & 255) << 8);
+            const int row = m0 + rl0 + 8 * h;
+            if (row >= g.M) continue;
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1)
+              if (col + e1 < g.cout)  // int32 atomics wrap: the same sum in any order
+                atomicAdd(ws + (long long)row * g.cout + col + e1, acc[4 * jb + 2 * h + e1]);
           }
         }
+        __threadfence();
         __syncthreads();
-        for (int i = tid; i < BM * (BN / 16); i += NT) {
-          const int r = i / (BN / 16), c = 16 * (i % (BN / 16));
-          const int row = m0 + r, col = n0 + c;
-          if (row < g.M && col < g.cout)
-            *reinterpret_cast<uint4*>(o8 + (long long)row * g.cout + col) =
-                *reinterpret_cast<const uint4*>(rtile + r * S::RS + c);
+        if (tid == 0)
+          *s_last = atomicAdd(cnt + mt_idx * g.n_tiles + nt_idx, 1) == (int)gridDim.z - 1;
+        __syncthreads();
+        run_epilogue = *s_last != 0;
+        if (run_epilogue) {  // every other split's adds are done: read the total
+          __threadfence();
+#pragma unroll
+          for (int jb = 0; jb < BN / 8; ++jb) {
+            const int col = n0 + 8 * jb + 2 * (lane & 3);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = m0 + rl0 + 8 * h;
+#pragma unroll
+              for (int e1 = 0; e1 < 2; ++e1)
+                acc[4 * jb + 2 * h + e1] =
+                    row < g.M && col + e1 < g.cout
+                        ? __ldcg(ws + (long long)row * g.cout + col + e1)
+                        : 0;
+            }
+          }
         }
-        __syncthreads();  // the tile is free for item c_item + RSLOTS
-      } else {
+      }
+    }
+    if constexpr (MODE != RAW) {
+      int8_t* const o8 = static_cast<int8_t*>(out);
+      auto dst = [&](int r) -> long long {
+        const int row = m0 + r;
+        return row < g.M ? (long long)row * g.cout + n0 : -1;
+      };
+      if (run_epilogue && g.o_vec) {
+        int8_t* const rtile = rt + (RES_ ? (c_item % S::RSLOTS) * BM * S::RS : 0);
+        if constexpr (RES_) {  // the residual tile landed with the item's first stage
+          epi::stage_fragment<BN>(rtile, S::RS, rl0, acc, colc, e.rq,
+                                  [&](int32_t q0, int32_t q1, uint16_t rr) {
+                                    const int32_t o0 =
+                                        min(max(wrap_add(tl[q0 & 255], tr[rr & 255]), e.lo), e.hi);
+                                    const int32_t o1 =
+                                        min(max(wrap_add(tl[q1 & 255], tr[rr >> 8]), e.lo), e.hi);
+                                    return (uint16_t)((o0 & 255) | (o1 & 255) << 8);
+                                  });
+        } else {
+          epi::stage_fragment<BN>(rtile, S::RS, rl0, acc, colc, e.rq, epi::PackPair{});
+        }
+        __syncthreads();
+        epi::store_tile16(o8, rtile, S::RS, BM, min(BN, g.cout - n0), dst);
+        // K3's tile is free for item c_item + RSLOTS after this barrier; K2's
+        // next write to its one tile follows a barrier of the next item's
+        // main loop
+        if constexpr (RES_) __syncthreads();
+      } else if (run_epilogue) {
 #pragma unroll
         for (int jb = 0; jb < BN / 8; ++jb) {
           const int cl = 8 * jb + 2 * (lane & 3);
@@ -436,10 +480,10 @@ __global__ void __launch_bounds__(2 * BM)
               const int col = n0 + cl + e1;
               if (col >= g.cout) continue;
               const long long o = (long long)row * g.cout + col;
-              const int32_t q = requant_wide(acc[4 * jb + 2 * h + e1],
-                                             reinterpret_cast<const int4*>(colc)[cl + e1], e);
-              o8[o] = (int8_t)min(max(wrap_add(tl[q & 255], tr[(uint8_t)residual[o]]), e.lo),
-                                  e.hi);
+              int32_t q = epi::requant_wide(acc[4 * jb + 2 * h + e1], colc[cl + e1], e.rq);
+              if constexpr (RES_)
+                q = min(max(wrap_add(tl[q & 255], tr[(uint8_t)residual[o]]), e.lo), e.hi);
+              o8[o] = (int8_t)q;
             }
           }
         }
@@ -509,16 +553,30 @@ inline bool make_geo(const int32_t* p, Geo& g) {
   return true;
 }
 
+inline Epi make_epi(const int32_t* p) {
+  Epi e{};
+  e.rq = epi::RqConst{p[P_OUT_ZP], p[P_QMIN], p[P_QMAX], p[P_TONEAREST] != 0};
+  e.rq_izp = p[P_RQ_IZP];
+  return e;
+}
+
+// Whether a split of ks ways, kper steps each, covers the steps with every
+// split non-empty.
+inline bool split_ok(int ks, const Geo& g) {
+  return ks >= 1 && g.kper >= 1 && (long long)ks * g.kper >= g.steps &&
+         (ks - 1) * g.kper < g.steps;
+}
+
 // Launches the kernel over a grid of (N tiles x gm, 1, ks): gm M-tile lanes,
 // each block walking every gm-th M tile of its N tile, with gm as large as
 // the card holds blocks at once (the occupancy API, once per kernel and
 // shared-memory size) and at most the M tiles.
-template <bool RES, int BM, int BN>
+template <int MODE, int BM, int BN>
 int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* residual,
-                const int32_t* bias, const int32_t* mult, const int32_t* shift, const Epi& e,
-                Geo g, int ks, cudaStream_t stream) {
-  using T = Tiles<RES, BM, BN>;
-  auto kern = igemm_hopper<RES, BM, BN>;
+                const int32_t* bias, const int32_t* mult, const int32_t* shift, int32_t* ws,
+                const Epi& e, Geo g, int ks, cudaStream_t stream) {
+  using T = Tiles<MODE, BM, BN>;
+  auto kern = igemm_hopper<MODE, BM, BN>;
   static int sms = 0;  // once per kernel: the SM count, the shared memory ceiling
   static int occ_smem[8], occ_blocks[8], n_occ = 0;  // blocks an SM, by shared memory
   if (sms == 0) {
@@ -530,7 +588,7 @@ int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* resi
       return (int)cudaGetLastError();
     sms = n;
   }
-  smem_layout<RES, BM, BN>(g);
+  smem_layout<MODE, BM, BN>(g);
   if (g.smem > (int)hop::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   int per_sm = 0;
   for (int i = 0; i < n_occ; ++i)
@@ -551,16 +609,53 @@ int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* resi
   g.by_ohow = hop::FastDiv::make(g.oh * g.ow);
   g.by_ow = hop::FastDiv::make(g.ow);
   const dim3 grid(g.n_tiles * g.gm, 1, ks);
-  kern<<<grid, T::NT, g.smem, stream>>>(x, wk, out, residual, bias, mult, shift, e, g);
+  kern<<<grid, T::NT, g.smem, stream>>>(x, wk, out, residual, bias, mult, shift, ws, e, g);
   return (int)cudaGetLastError();
+}
+
+// Launches MODE (K2 or K3) at the tile (P_BM, P_BN) from {64, 128}^2.
+template <int MODE>
+int launch_rq(const int8_t* x, const int8_t* wk, int8_t* out, const int8_t* residual,
+              const int32_t* bias, const int32_t* mult, const int32_t* shift, int32_t* ws,
+              const Epi& e, const Geo& g, int ks, const int32_t* p, cudaStream_t s) {
+  if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
+  const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
+#define TK_TILE(BM, BN)                                                                        \
+  if (bm == BM && bn == BN)                                                                    \
+    return launch_tile<MODE, BM, BN>(x, wk, out, residual, bias, mult, shift, ws, e, g, ks, s);
+  TK_TILE(64, 64)
+  TK_TILE(64, 128)
+  TK_TILE(128, 64)
+  TK_TILE(128, 128)
+#undef TK_TILE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace igemm
 }  // namespace tk
 
-// K3.  wk is the weight packed (COUT, Kp) (kmajor_weights); the tile is
-// (P_BM, P_BN) from {64, 128}^2; stride 1.  Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a stride other than 1 or a tile not built).
+// K2.  wk is the weight packed (Kp / 64, COUT, 64) (kmajor_weights); the tile is
+// (P_BM, P_BN) from {64, 128}^2; any stride.  K is split P_KS ways, P_KPER
+// steps of 64 each (every split non-empty); with P_KS > 1, ws is an int32
+// workspace of M * COUT sums and one counter per (BM, BN) tile, zeroed by
+// the caller.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
+// tile not built or a split that does not cover the steps).
+extern "C" int tk_qconv_rq(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
+                           const int32_t* mult, const int32_t* shift, int32_t* ws,
+                           const int32_t* p, void* stream) {
+  using namespace tk;
+  igemm::Geo g;
+  if (!igemm::make_geo(p, g)) return (int)cudaErrorInvalidValue;
+  const int ks = p[P_KS];
+  if (!igemm::split_ok(ks, g) || (ks > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  g.o_vec = g.cout % 16 == 0 && (uintptr_t)out % 16 == 0;
+  return igemm::launch_rq<igemm::RQ>(x, wk, out, nullptr, bias, mult, shift, ws,
+                                     igemm::make_epi(p), g, ks, p, (cudaStream_t)stream);
+}
+
+// K3.  wk as K2's; the tile is (P_BM, P_BN) from {64, 128}^2; stride 1.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for a stride other than
+// 1 or a tile not built).
 extern "C" int tk_qconv_rq_res(const int8_t* x, const int8_t* wk, int8_t* out,
                                const int32_t* bias, const int32_t* mult, const int32_t* shift,
                                const int8_t* residual, const int32_t* p, void* stream) {
@@ -569,12 +664,7 @@ extern "C" int tk_qconv_rq_res(const int8_t* x, const int8_t* wk, int8_t* out,
   if (!igemm::make_geo(p, g) || g.sh != 1 || g.sw != 1) return (int)cudaErrorInvalidValue;
   g.kper = g.steps;
   g.o_vec = g.cout % 16 == 0 && ((uintptr_t)residual | (uintptr_t)out) % 16 == 0;
-  igemm::Epi e{};
-  e.rq_izp = p[P_RQ_IZP];
-  e.out_zp = p[P_OUT_ZP];
-  e.qmin = p[P_QMIN];
-  e.qmax = p[P_QMAX];
-  e.tonearest = p[P_TONEAREST] != 0;
+  igemm::Epi e = igemm::make_epi(p);
   e.l_skip = p[P_L_SKIP] != 0;
   e.r_skip = p[P_R_SKIP] != 0;
   e.add_tonearest = p[P_ADD_TONEAREST] != 0;
@@ -587,22 +677,11 @@ extern "C" int tk_qconv_rq_res(const int8_t* x, const int8_t* wk, int8_t* out,
   e.zo = p[P_ZO];
   e.lo = p[P_LO];
   e.hi = p[P_HI];
-  if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
-  const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define TK_K3(BM, BN)                                                                       \
-  if (bm == BM && bn == BN)                                                                 \
-    return igemm::launch_tile<true, BM, BN>(x, wk, out, residual, bias, mult, shift, e, g, 1, \
-                                            s);
-  TK_K3(64, 64)
-  TK_K3(64, 128)
-  TK_K3(128, 64)
-  TK_K3(128, 128)
-#undef TK_K3
-  return (int)cudaErrorInvalidValue;
+  return igemm::launch_rq<igemm::RES>(x, wk, out, residual, bias, mult, shift, nullptr, e, g, 1,
+                                      p, (cudaStream_t)stream);
 }
 
-// K4's conv mode.  wk as K3's; the tile is 64 x 64; K is split P_KS ways,
+// K4's conv mode.  wk as K2's; the tile is 64 x 64; K is split P_KS ways,
 // P_KPER steps of 64 each (every split non-empty), into an output the caller
 // zeroed when P_KS > 1.  Returns cudaGetLastError() (cudaErrorInvalidValue
 // for a split that does not cover the steps).
@@ -612,9 +691,9 @@ extern "C" int tk_qconv_raw(const int8_t* x, const int8_t* wk, int32_t* out, con
   igemm::Geo g;
   if (!igemm::make_geo(p, g)) return (int)cudaErrorInvalidValue;
   const int ks = p[P_KS];
-  if (ks < 1 || g.kper < 1 || (long long)ks * g.kper < g.steps || (ks - 1) * g.kper >= g.steps)
-    return (int)cudaErrorInvalidValue;
+  if (!igemm::split_ok(ks, g)) return (int)cudaErrorInvalidValue;
   if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
-  return igemm::launch_tile<false, 64, 64>(x, wk, out, nullptr, bias, nullptr, nullptr,
-                                           igemm::Epi{}, g, ks, (cudaStream_t)stream);
+  return igemm::launch_tile<igemm::RAW, 64, 64>(x, wk, out, nullptr, bias, nullptr, nullptr,
+                                                nullptr, igemm::Epi{}, g, ks,
+                                                (cudaStream_t)stream);
 }

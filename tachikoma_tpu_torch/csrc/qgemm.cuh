@@ -1,31 +1,27 @@
-// Int8 implicit-GEMM kernel with the exact requantize epilogue: the body of
-// K1 (qgemm_rq.cu), K2 (qconv_rq.cu) and K4's GEMM mode (qgemm_raw.cu).  K3
-// and K4's conv mode have a Hopper design of their own
-// (qconv_igemm_hopper.cu).
+// Int8 GEMM kernel with the exact requantize epilogue: the body of K1
+// (qgemm_rq.cu) and K4's GEMM mode (qgemm_raw.cu).  The convs (K2, K3 and
+// K4's conv mode) have a Hopper design of their own
+// (qconv_igemm_hopper.cu); K7 (qconv_layouts_hopper.cu) and K11's narrow
+// path (qconv_direct.cu) take this file's mma.sync pieces.
 //
 // out[m, n] = epilogue(sum_k A[m, k] * B[k, n]) with int8 operands and an
 // int32 accumulator on the tensor cores (mma.sync m16n8k32 s8.s8.s32).
-//   * GEMM mode (IM2COL = false): A is x (M, K) row-major.
-//   * Conv mode (IM2COL = true): A is the im2col matrix of an NHWC image,
-//     gathered on the fly: m = (image, oy, ox), k = (ky, kx, ci); taps that
-//     fall outside the image read the input zero point, as qnn.conv2d pads.
-//     Any stride and padding.
-//   * B is w (K, N) row-major: a dense weight (K, N), or an HWIO conv weight
-//     seen as (KH*KW*CIN, COUT).  The loader transposes 4x4 byte blocks so
+//   * A is x (M, K) row-major.
+//   * B is w (K, N) row-major.  The loader transposes 4x4 byte blocks so
 //     that shared memory holds B as [n][k], the layout the mma takes.
-//   * RAW = true (K4, GEMM mode only): no requantize; the epilogue stores
+//   * RAW = true (K4's GEMM mode): no requantize; the epilogue stores
 //     acc + bias[n] as int32 (wraparound) to an int32 output.
 //
 // Design, simple and right first: BM x BN x 64 block tiles, one warp per
 // 32 x 32 output tile (four warps at 64 x 64, sixteen at 128 x 128), one
 // shared-memory stage with the next tile prefetched into registers.  The
-// tile is a template parameter: K1, K2 and K3 are built at BM, BN in
-// {64, 128} x {64, 128} (the tuner's config space, `blocks`), and take it
-// from the parameter array (P_BM, P_BN; 0 means 64); K4 is built at 64 x 64
-// only.  Rows of shared memory are padded to 80 bytes, so fragment loads hit
-// 32 distinct banks.  Edges in M, N and K are masked, so any shape runs;
-// 16-byte loads of A need CIN (conv) or K (GEMM) % 16 == 0 and 4-byte loads
-// of B need N % 4 == 0, else the loaders fall back to bytes.
+// tile is a template parameter: K1 is built at BM, BN in {64, 128} x
+// {64, 128} (the tuner's config space, `blocks`), and takes it from the
+// parameter array (P_BM, P_BN; 0 means 64); K4 is built at 64 x 64 only.
+// Rows of shared memory are padded to 80 bytes, so fragment loads hit 32
+// distinct banks.  Edges in M, N and K are masked, so any shape runs;
+// 16-byte loads of A need K % 16 == 0 and 4-byte loads of B need N % 4 == 0,
+// else the loaders fall back to bytes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,16 +49,13 @@ struct Tile {
 };
 
 struct Geo {
-  int n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, pt, pl;
-  int M, K;
-  uint32_t izp4;  // the input zero point in each byte
+  int M, K, cout;
   bool a_vec, b_vec;
 };
 
-// One row of A as a thread sees it: its image base and top-left input tap.
+// One row of A as a thread sees it.
 struct ARow {
   long long base;
-  int iy0, ix0;
   bool valid;
 };
 
@@ -76,42 +69,13 @@ __device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4], 
 }
 
 // 16 bytes of A: row r, k .. k + 15.
-template <bool IM2COL>
 __device__ __forceinline__ uint4 a_chunk(const int8_t* __restrict__ x, const ARow& r, int k,
                                          const Geo& g) {
   if (!r.valid || k >= g.K) return make_uint4(0, 0, 0, 0);
-  if (!IM2COL) {
-    if (g.a_vec) return *reinterpret_cast<const uint4*>(x + r.base + k);
-    uint32_t v[4] = {0, 0, 0, 0};
-    for (int b = 0; b < 16 && k + b < g.K; ++b)
-      v[b >> 2] |= (uint32_t)(uint8_t)x[r.base + k + b] << ((b & 3) * 8);
-    return make_uint4(v[0], v[1], v[2], v[3]);
-  }
-  int tap = k / g.cin;
-  int ci = k - tap * g.cin;
-  int ky = tap / g.kw;
-  int kx = tap - ky * g.kw;
-  if (g.a_vec) {  // CIN % 16 == 0: the chunk lies in one tap
-    const int iy = r.iy0 + ky, ix = r.ix0 + kx;
-    if ((unsigned)iy >= (unsigned)g.h || (unsigned)ix >= (unsigned)g.w)
-      return make_uint4(g.izp4, g.izp4, g.izp4, g.izp4);
-    return *reinterpret_cast<const uint4*>(x + r.base + ((long long)iy * g.w + ix) * g.cin + ci);
-  }
+  if (g.a_vec) return *reinterpret_cast<const uint4*>(x + r.base + k);
   uint32_t v[4] = {0, 0, 0, 0};
-  for (int b = 0; b < 16 && k + b < g.K; ++b) {
-    const int iy = r.iy0 + ky, ix = r.ix0 + kx;
-    uint32_t byte = g.izp4 & 0xffu;
-    if ((unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w)
-      byte = (uint8_t)x[r.base + ((long long)iy * g.w + ix) * g.cin + ci];
-    v[b >> 2] |= byte << ((b & 3) * 8);
-    if (++ci == g.cin) {
-      ci = 0;
-      if (++kx == g.kw) {
-        kx = 0;
-        ++ky;
-      }
-    }
-  }
+  for (int b = 0; b < 16 && k + b < g.K; ++b)
+    v[b >> 2] |= (uint32_t)(uint8_t)x[r.base + k + b] << ((b & 3) * 8);
   return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
@@ -140,11 +104,10 @@ __device__ __forceinline__ void store_transposed(int8_t* dst, int stride, const 
 }
 
 // `out` is int8 (M, N), or int32 (M, N) when RAW.
-template <bool IM2COL, bool RAW, int BM, int BN>
+template <bool RAW, int BM, int BN>
 __global__ void __launch_bounds__(Tile<BM, BN>::NTHREADS)
     qgemm_rq_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     void* __restrict__ out, Requant rq, Geo g) {
-  static_assert(!(IM2COL && RAW), "K4's conv mode is qconv_igemm_hopper.cu");
   using T = Tile<BM, BN>;
   constexpr int NT = T::NTHREADS, A_PER = T::A_PER, B_PER = T::B_PER, NG = BN / 4;
   __shared__ __align__(16) int8_t As[BM * SROW];
@@ -161,18 +124,7 @@ __global__ void __launch_bounds__(Tile<BM, BN>::NTHREADS)
   for (int j = 0; j < A_PER; ++j) {
     const int m = m0 + ((tid + NT * j) >> 2);
     rows[j].valid = m < g.M;
-    if (IM2COL) {
-      const int mm = rows[j].valid ? m : 0;
-      const int img = mm / (g.oh * g.ow);
-      const int rem = mm - img * (g.oh * g.ow);
-      const int oy = rem / g.ow, ox = rem - oy * g.ow;
-      rows[j].base = (long long)img * g.h * g.w * g.cin;
-      rows[j].iy0 = oy * g.sh - g.pt;
-      rows[j].ix0 = ox * g.sw - g.pl;
-    } else {
-      rows[j].base = (long long)m * g.K;
-      rows[j].iy0 = rows[j].ix0 = 0;
-    }
+    rows[j].base = (long long)m * g.K;
   }
   // B loads: element e = tid + NT j is the 4 x 4 block of k group
   // (e & 7) + 8 ((e >> 3) / NG) and n group (e >> 3) % NG (at 64 x 64: k
@@ -189,7 +141,7 @@ __global__ void __launch_bounds__(Tile<BM, BN>::NTHREADS)
   uint32_t b_reg[B_PER][4];
   auto load = [&](int k0) {
 #pragma unroll
-    for (int j = 0; j < A_PER; ++j) a_reg[j] = a_chunk<IM2COL>(x, rows[j], k0 + a_c * 16, g);
+    for (int j = 0; j < A_PER; ++j) a_reg[j] = a_chunk(x, rows[j], k0 + a_c * 16, g);
 #pragma unroll
     for (int j = 0; j < B_PER; ++j)
 #pragma unroll
@@ -272,41 +224,29 @@ __global__ void __launch_bounds__(Tile<BM, BN>::NTHREADS)
       }
 }
 
+// (M, K) = (P_N, P_CIN) and N = P_COUT: the wrappers pass a GEMM as a 1x1
+// conv of 1 x 1 images.
 inline Geo make_geo(const int32_t* p) {
   Geo g;
-  g.n = p[P_N];
-  g.h = p[P_H];
-  g.w = p[P_W];
-  g.cin = p[P_CIN];
-  g.kh = p[P_KH];
-  g.kw = p[P_KW];
+  g.M = p[P_N] * p[P_OH] * p[P_OW];
+  g.K = p[P_KH] * p[P_KW] * p[P_CIN];
   g.cout = p[P_COUT];
-  g.oh = p[P_OH];
-  g.ow = p[P_OW];
-  g.sh = p[P_SH];
-  g.sw = p[P_SW];
-  g.pt = p[P_PT];
-  g.pl = p[P_PL];
-  g.M = g.n * g.oh * g.ow;
-  g.K = g.kh * g.kw * g.cin;
-  g.izp4 = (uint32_t)(uint8_t)(int8_t)p[P_IZP] * 0x01010101u;
   g.a_vec = p[P_A_VEC] != 0;
   g.b_vec = p[P_B_VEC] != 0;
   return g;
 }
 
-template <bool IM2COL, bool RAW, int BM, int BN>
+template <bool RAW, int BM, int BN>
 void launch_tile(const int8_t* x, const int8_t* w, void* out, const Requant& rq, const Geo& g,
                  cudaStream_t stream) {
   const dim3 grid((g.M + BM - 1) / BM, (g.cout + BN - 1) / BN);
-  qgemm_rq_kernel<IM2COL, RAW, BM, BN>
-      <<<grid, Tile<BM, BN>::NTHREADS, 0, stream>>>(x, w, out, rq, g);
+  qgemm_rq_kernel<RAW, BM, BN><<<grid, Tile<BM, BN>::NTHREADS, 0, stream>>>(x, w, out, rq, g);
 }
 
 // Launches the kernel on `stream` at the tile (P_BM, P_BN) and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a tile that is not built).
 // With RAW, `mult` and `shift` are not read.
-template <bool IM2COL, bool RAW = false>
+template <bool RAW = false>
 int launch_qgemm_rq(const int8_t* x, const int8_t* w, void* out, const int32_t* bias,
                     const int32_t* mult, const int32_t* shift, const int32_t* p, void* stream) {
   const Geo g = make_geo(p);
@@ -317,15 +257,15 @@ int launch_qgemm_rq(const int8_t* x, const int8_t* w, void* out, const int32_t* 
   if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
   if constexpr (RAW) {
     if (bm != 64 || bn != 64) return (int)cudaErrorInvalidValue;
-    launch_tile<IM2COL, RAW, 64, 64>(x, w, out, rq, g, s);
+    launch_tile<RAW, 64, 64>(x, w, out, rq, g, s);
   } else if (bm == 64 && bn == 64) {
-    launch_tile<IM2COL, RAW, 64, 64>(x, w, out, rq, g, s);
+    launch_tile<RAW, 64, 64>(x, w, out, rq, g, s);
   } else if (bm == 64 && bn == 128) {
-    launch_tile<IM2COL, RAW, 64, 128>(x, w, out, rq, g, s);
+    launch_tile<RAW, 64, 128>(x, w, out, rq, g, s);
   } else if (bm == 128 && bn == 64) {
-    launch_tile<IM2COL, RAW, 128, 64>(x, w, out, rq, g, s);
+    launch_tile<RAW, 128, 64>(x, w, out, rq, g, s);
   } else if (bm == 128 && bn == 128) {
-    launch_tile<IM2COL, RAW, 128, 128>(x, w, out, rq, g, s);
+    launch_tile<RAW, 128, 128>(x, w, out, rq, g, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

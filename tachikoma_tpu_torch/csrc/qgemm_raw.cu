@@ -14,13 +14,13 @@
 // What bounds it on an H100: the int32 output is four times the bytes of
 // K1's int8 one, so every call of the path moves more than 1 byte per 590
 // operations and is bound by bytes (the 1x1 convs at 4-30 operations per
-// byte).  The design is K1/K2's simple tiled
+// byte).  The design is K1's simple tiled
 // body (64x64x64 tiles, register prefetch); the masked int32 store replaces
 // the requantize.
 #include "qgemm.cuh"
 
 extern "C" int tk_qgemm_raw(const int8_t* x, const int8_t* w, int32_t* out, const int32_t* bias,
                             const int32_t* params, void* stream) {
-  return tk::launch_qgemm_rq<false, true>(x, w, out, bias, nullptr, nullptr, params, stream);
+  return tk::launch_qgemm_rq<true>(x, w, out, bias, nullptr, nullptr, params, stream);
 }
 

@@ -19,5 +19,5 @@
 extern "C" int tk_qgemm_rq(const int8_t* x, const int8_t* w, int8_t* out, const int32_t* bias,
                            const int32_t* mult, const int32_t* shift, const int32_t* params,
                            void* stream) {
-  return tk::launch_qgemm_rq<false>(x, w, out, bias, mult, shift, params, stream);
+  return tk::launch_qgemm_rq(x, w, out, bias, mult, shift, params, stream);
 }

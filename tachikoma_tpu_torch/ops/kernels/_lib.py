@@ -38,7 +38,7 @@ PARAMS = (
     "izp", "rq_izp", "out_zp", "qmin", "qmax", "tonearest", "a_vec", "b_vec",
     "l_skip", "lm", "ls", "lzp", "r_skip", "rm", "rs", "rzp", "zo", "lo", "hi",
     "add_tonearest", "g", "s", "d", "causal", "scale_bits", "bm", "bn",
-    "group", "cc", "th", "tw", "ks", "kper",
+    "group", "cc", "th", "tw", "ks", "kper", "wres", "ahead",
 )
 
 # The block tiles (BM, BN) that K1-K3 and K7-K10 are built at, with BK = 64:
@@ -75,9 +75,8 @@ BUILD_DIR = _PKG / "_build"
 # source -> (C entry, number of tensor pointers it takes)
 SOURCES = {
     "qgemm_rq.cu": (("tk_qgemm_rq", 6),),
-    "qconv_rq.cu": (("tk_qconv_rq", 6),),
     "qgemm_raw.cu": (("tk_qgemm_raw", 4),),
-    "qconv_igemm_hopper.cu": (("tk_qconv_rq_res", 7), ("tk_qconv_raw", 4)),
+    "qconv_igemm_hopper.cu": (("tk_qconv_rq", 7), ("tk_qconv_rq_res", 7), ("tk_qconv_raw", 4)),
     "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4)),
     "flash_attn.cu": (("tk_flash_attn", 4),),
     "qconv_layouts.cu": (("tk_qconv_rq_s", 6), ("tk_qconv_rq_r", 6)),

@@ -2,17 +2,20 @@
 the conv entries of the int8 path (port of
 `tachikoma_tpu/ops/pallas/conv_flat.py`).
 
-  * `qconv_rq` (K2) wraps `csrc/qconv_rq.cu tk_qconv_rq`: an implicit-GEMM
-    conv with any stride and padding; taps outside the image read the input
-    zero point.
-  * `qconv_rq_res` (K3) wraps `csrc/qconv_igemm_hopper.cu tk_qconv_rq_res`:
-    the stride-1 conv, whose epilogue then applies the fused residual
-    `qnn.add` (as two 256-entry tables in the kernel, `res_add_tables`).
-  * `qconv_raw` (K4, conv mode) wraps `csrc/qconv_igemm_hopper.cu
-    tk_qconv_raw`: the same conv at any stride, storing the int32 accumulator
-    plus bias, no requantize (the `fuse=False` branch of the TPU kernel), with
-    K split across blocks where the tiles do not fill the card (`raw_split`).
-    Both kernels take the weights packed K-major as (COUT, Kp)
+  * `qconv_rq` (K2) wraps `csrc/qconv_igemm_hopper.cu tk_qconv_rq`: an
+    implicit-GEMM conv on `wgmma` with any stride and padding; taps outside
+    the image read the input zero point.  Where the tiles leave the card
+    idle, K is split across blocks (`rq_split`): the splits add into a
+    zeroed int32 workspace and the last block of a tile to arrive
+    requantizes the complete sum.
+  * `qconv_rq_res` (K3) wraps `tk_qconv_rq_res`, the same body: the stride-1
+    conv, whose epilogue then applies the fused residual `qnn.add` (as two
+    256-entry tables in the kernel, `res_add_tables`).
+  * `qconv_raw` (K4, conv mode) wraps `tk_qconv_raw`, the same body: the
+    conv at any stride, storing the int32 accumulator plus bias, no
+    requantize (the `fuse=False` branch of the TPU kernel), with K split
+    across blocks where the tiles do not fill the card (`raw_split`).
+    The three kernels take the weights packed K-major as (COUT, Kp)
     (`kmajor_weights`).
   * `qconv2d_flat`: 1x1 convs go to K1 (or, without a multiplier, K4's GEMM
     mode) as a GEMM (`_conv1x1_matmul`), every other kernel size, the 7x7 s2
@@ -140,10 +143,11 @@ def qconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), i
              blocks=None) -> torch.Tensor:
     """K2: x int8 NHWC, w int8 HWIO, bias / mult / shift int32 (COUT,);
     padding (top, left, bottom, right); blocks (BM, BN, 64) a compiled tile,
-    default 64 x 64 -> int8 NHWC."""
+    None for `rq_tile`'s -> int8 NHWC.  K is split as `rq_split` says."""
     kw = dict(strides=strides, padding=padding, izp=izp, rq_izp=rq_izp, out_zp=out_zp,
               rounding=rounding, qmin=qmin, qmax=qmax)
-    tile = tile_params(blocks)
+    if blocks is not None:
+        tile_params(blocks)  # a tile that is not built raises on every device
     if x.device.type == "cpu":
         return qconv_rq_plain(x, w, bias, mult, shift, **kw)
     if x.device.type != "cuda":
@@ -153,32 +157,46 @@ def qconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), i
     _check_conv("qconv_rq", x, w, bias, mult, shift, out_shape)
     out = torch.empty(out_shape, dtype=torch.int8, device=x.device)
     bias = fold_input_zero_point(bias, w, izp)
-    launch("tk_qconv_rq", [x, w, out, bias, mult, shift],
+    (bm, bn), ks, kper = rq_launch(tuple(x.shape), tuple(w.shape), strides, padding, blocks,
+                                   sm_count(x.device.index))
+    m, cout = out_shape[0] * oh * ow, w.shape[3]
+    # a split adds its partial sums into zeros (M x COUT, then a counter a
+    # tile); unsplit, the kernel reads no workspace
+    ws = (torch.zeros(m * cout + -(-m // bm) * -(-cout // bn), dtype=torch.int32,
+                      device=x.device) if ks > 1 else out)
+    launch("tk_qconv_rq", [x, kmajor_weights(w), out, bias, mult, shift, ws],
            _conv_params(x, w, out, strides, padding, izp, rq_izp, out_zp, rounding, qmin, qmax)
-           | tile)
+           | dict(bm=bm, bn=bn, ks=ks, kper=kper))
     LAUNCHES["qconv_rq"] += 1
     return out
 
 
-KSTEP = 64             # K3's and K4's K step: the packed weights' rows pad to it
+KSTEP = 64             # K2's, K3's and K4's K step: the packed weights' rows are one
 RAW_TILE = (64, 64)    # K4's conv-mode tile
 RAW_UNSPLIT_STEPS = 9  # a K4 conv of at most this many K steps runs unsplit
 RAW_SPLIT_STEPS = 6    # the K steps a split of K4 walks, where it splits
+RQ_FILL = 2            # a split K2 has about this many blocks per SM
+RQ_UNSPLIT_STEPS = 9   # a K2 conv of at most this many K steps runs unsplit
+RQ_MIN_STEPS = 4       # the fewest K steps a split of K2 walks
+RQ_WIDE_FILL = 2       # K2's default tile is 128 rows where those tiles fill the SMs this many times
 _KMAJOR: dict = {}
 
 
 def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
-    """w (KH, KW, CIN, COUT) packed K-major as (COUT, Kp): row n holds output
-    channel n's KH*KW*CIN weights in (ky, kx, ci) order, zero past them to
-    Kp = a multiple of 64.  K3's and K4's conv-mode kernels stage their
-    weight tiles from it with 16-byte copies and no mask; made once per
-    weight tensor (`pack_once`)."""
+    """w (KH, KW, CIN, COUT) packed K-major, step by step, as (steps, COUT,
+    64): row (s, n) holds output channel n's weights at the K indices 64 s
+    .. 64 s + 63 of the (ky, kx, ci) order, zero past K = KH*KW*CIN.  The B
+    tile of a step (BN consecutive output channels) is then BN * 64
+    contiguous bytes, which K2, K3 and K4's conv mode stage with 16-byte
+    copies, a warp 512 contiguous bytes, and no mask; made once per weight
+    tensor (`pack_once`)."""
     def make(w):
         kh, kw, cin, cout = w.shape
         k = kh * kw * cin
-        wk = torch.zeros((cout, -(-k // KSTEP) * KSTEP), dtype=torch.int8, device=w.device)
-        wk[:, :k] = w.reshape(k, cout).t()
-        return wk
+        steps = -(-k // KSTEP)
+        flat = torch.zeros((cout, steps * KSTEP), dtype=torch.int8, device=w.device)
+        flat[:, :k] = w.reshape(k, cout).t()
+        return flat.reshape(cout, steps, KSTEP).transpose(0, 1).contiguous()
 
     return pack_once(_KMAJOR, w, make)
 
@@ -198,6 +216,51 @@ def raw_split(m: int, cout: int, k: int, sms: int = 132) -> tuple[int, int]:
     ks = min(-(-steps // RAW_SPLIT_STEPS), max(1, 2 * sms // tiles))
     kper = -(-steps // ks)
     return -(-steps // kper), kper
+
+
+def rq_split(m: int, cout: int, k: int, tile=RAW_TILE, sms: int = 132) -> tuple[int, int]:
+    """(splits, steps per split) of K2 for an (M, K) x (K, COUT) conv at the
+    tile (BM, BN) on a card of `sms` SMs.  Unsplit where the tiles fill the
+    SMs or K has at most RQ_UNSPLIT_STEPS steps of 64: a split costs the
+    zeroing of the workspace, its atomics and the last block's read-back,
+    more than it gains wherever every SM has a tile (tools/conv_probe.py on
+    the H100: the 28^2 calls of ResNet-50 b8, 196 tiles of 18 steps, ran
+    faster unsplit).  Else the fewest splits that bring the blocks to
+    RQ_FILL * sms, with at least RQ_MIN_STEPS steps a split.  Split z walks
+    steps [z*kper, min((z+1)*kper, steps)); every split is non-empty."""
+    steps = -(-k // KSTEP)
+    tiles = -(-m // tile[0]) * -(-cout // tile[1])
+    if tiles >= sms or steps <= RQ_UNSPLIT_STEPS:
+        return 1, steps
+    ks = max(1, min(-(-RQ_FILL * sms // tiles), steps // RQ_MIN_STEPS))
+    kper = -(-steps // ks)
+    return -(-steps // kper), kper
+
+
+def rq_tile(m: int, cout: int, sms: int = 132) -> tuple[int, int]:
+    """K2's tile where neither the caller nor a record names one: 128 rows
+    (by 128 columns where COUT > 64, else 64) where those tiles fill the SMs
+    RQ_WIDE_FILL times over; else 64 x 128 where COUT >= 256 and those tiles
+    fill the SMs; else 64 x 64.  A wider tile stages fewer bytes per
+    product, which set K2's pace on the H100 (tools/conv_probe.py --cuts:
+    the copies, not wgmma or the epilogue); a narrow one keeps the SMs busy
+    where the call is small."""
+    bn = 128 if cout > 64 else 64
+    if -(-m // 128) * -(-cout // bn) >= RQ_WIDE_FILL * sms:
+        return 128, bn
+    if cout >= 256 and -(-m // 64) * -(-cout // 128) >= sms:
+        return 64, 128
+    return 64, 64
+
+
+def rq_launch(x_shape, w_shape, strides, padding, blocks=None, sms: int = 132):
+    """((BM, BN), splits, steps per split) of one K2 call: `blocks`' tile, or
+    `rq_tile`'s, and `rq_split`'s split of K at that tile."""
+    oh, ow = _out_hw(x_shape, w_shape, strides, padding)
+    kh, kw, cin, cout = w_shape
+    m = x_shape[0] * oh * ow
+    tile = rq_tile(m, cout, sms) if blocks is None else (int(blocks[0]), int(blocks[1]))
+    return (tile, *rq_split(m, cout, kh * kw * cin, tile, sms))
 
 
 @functools.lru_cache(maxsize=None)

@@ -134,12 +134,143 @@ def test_supported_predicate():
     assert not port((1, 4, 4, 8), (7, 7, 8, 8), (1, 1), (0, 0, 0, 0), 1)  # empty output
 
 
-@pytest.mark.parametrize("cin,k,s,cc", [(3, 3, 1, 4), (3, 7, 2, 4), (8, 3, 1, 8), (16, 3, 1, 16),
-                                         (64, 3, 1, 32), (512, 3, 1, 32), (64, 7, 1, 32),
-                                         (64, 11, 1, 8), (40, 3, 1, 32)])
+@pytest.mark.parametrize("cin,k,s,cc", [(3, 3, 1, 64), (3, 7, 2, 64), (8, 3, 1, 64), (16, 3, 1, 64),
+                                         (64, 3, 1, 64), (512, 3, 1, 64), (64, 7, 1, 64),
+                                         (64, 11, 1, 64), (40, 3, 1, 64), (4, 20, 4, 4)])
 def test_k11_chunk_fits_shared_memory(cin, k, s, cc):
+    """The Hopper path's 64-channel chunks wherever its window and one tap
+    of weights fit at BN 64; the narrow path's chunk where they do not (a
+    20x20 kernel at stride 4: 16 phases of 20 x 16 pixels)."""
     assert conv_direct.direct_chunk(cin, k, k, (s, s)) == cc
-    assert conv_direct.direct_smem(cc, k, k, (s, s)) <= conv_direct.SMEM_LIMIT
+    if cc == conv_direct.KC:
+        assert conv_direct.direct_smem(64, 1, cin, k, k, (s, s)) <= conv_direct.SMEM_LIMIT
+    else:
+        assert conv_direct.direct_smem(64, 1, cin, k, k, (s, s)) > conv_direct.SMEM_LIMIT
+        assert conv_direct.narrow_smem(cc, k, k, (s, s)) <= conv_direct.SMEM_LIMIT
+
+
+def _window_conv(x, w, strides, padding, izp):
+    """K11's Hopper data path in numpy: for every 16 x 8 output tile and
+    chunk of 64 input channels, the window staged deinterleaved into its
+    phases (`direct_geometry`; the padding pixels of each phase row hold
+    garbage, never read), then every tap read at its window offset
+    (`direct_taps`) for all 128 output pixels and multiplied with its
+    weights.  Returns the int64 sum of x_pad * w (izp outside the image)."""
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    sh, sw = strides
+    pt, pl, pb, pr = padding
+    oh, ow = (h + pt + pb - kh) // sh + 1, (wd + pl + pr - kw) // sw + 1
+    g = conv_direct.direct_geometry(cin, kh, kw, strides)
+    taps = conv_direct.direct_taps(kh, kw, strides)
+    tr, tc = conv_direct.TILE_ROWS, conv_direct.TILE_COLS
+    rng = np.random.default_rng(1)
+    acc = np.zeros((n, -(-oh // tr) * tr, -(-ow // tc) * tc, cout), np.int64)
+    rr, cc = np.meshgrid(np.arange(tr), np.arange(tc), indexing="ij")
+    for img in range(n):
+        for oy0 in range(0, oh, tr):
+            for ox0 in range(0, ow, tc):
+                iy0, ix0 = oy0 * sh - pt, ox0 * sw - pl
+                for ch in range(g["nch"]):
+                    c0, c1 = ch * conv_direct.KC, min(cin, (ch + 1) * conv_direct.KC)
+                    win = rng.integers(-128, 128, (g["npix"], c1 - c0))
+                    for ph in range(g["lph"] * g["lpw"]):
+                        p, q = divmod(ph, g["lpw"])
+                        for i in range(g["ph_rows"]):
+                            for j in range(g["real_cols"]):
+                                iy, ix = iy0 + i * sh + p, ix0 + j * sw + q
+                                inside = 0 <= iy < h and 0 <= ix < wd
+                                win[ph * g["ph_pix"] + i * g["ph_cols"] + j] = (
+                                    x[img, iy, ix, c0:c1] if inside else izp)
+                    for t, (ph, a, b, off) in enumerate(taps):
+                        ky, kx = divmod(t, kw)
+                        assert (ky, kx) == (a * sh + ph // g["lpw"], b * sw + ph % g["lpw"])
+                        rows = win[off + rr * g["ph_cols"] + cc]          # (16, 8, chunk)
+                        acc[img, oy0:oy0 + tr, ox0:ox0 + tc] += rows @ w[ky, kx, c0:c1]
+    return acc[:, :oh, :ow]
+
+
+@pytest.mark.parametrize("shape,wshape,strides,padding,izp", [
+    ((1, 14, 14, 40), (3, 3, 40, 8), (1, 1), (1, 1, 1, 1), 5),      # stride 1, 3x3
+    ((2, 11, 9, 72), (3, 3, 72, 8), (2, 2), (1, 1, 1, 1), -3),      # stride 2: 4 phases, 2 chunks
+    ((1, 20, 20, 3), (7, 7, 3, 8), (2, 2), (3, 3, 3, 3), 7),        # the CIN-3 stem
+    ((1, 9, 9, 16), (1, 1, 16, 8), (2, 2), (0, 0, 0, 0), 0),        # 1x1 s2: one live phase
+    ((1, 13, 17, 8), (5, 4, 8, 8), (3, 2), (2, 1, 2, 3), -9),       # strides 3 x 2, 5x4
+])
+def test_k11_tap_plan_reproduces_the_conv(rng, shape, wshape, strides, padding, izp):
+    x = rng.integers(-128, 128, shape).astype(np.int64)
+    w = rng.integers(-127, 128, wshape).astype(np.int64)
+    got = _window_conv(x, w, strides, padding, izp)
+    want = conv_direct.conv_acc_plain(torch.from_numpy(x.astype(np.int8)),
+                                      torch.from_numpy(w.astype(np.int8)), strides, padding,
+                                      izp).numpy().astype(np.int64)
+    np.testing.assert_array_equal(got - izp * w.sum((0, 1, 2)), want)
+
+
+@pytest.mark.parametrize("wshape", [(3, 3, 64, 48), (3, 3, 3, 64), (7, 7, 40, 24), (1, 1, 130, 16)])
+def test_k11_direct_weights(wshape):
+    """The packed weights: slab (chunk, tap) holds the tap's weights of
+    every output channel at the chunk's 64 input channels, zero past CIN."""
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.integers(-128, 128, wshape).astype(np.int8))
+    kh, kw, cin, cout = wshape
+    wk = conv_direct.direct_weights(w)
+    nch = -(-cin // 64)
+    assert wk.shape == (nch, kh * kw, cout, 64) and wk.is_contiguous()
+    flat = wk.permute(1, 2, 0, 3).reshape(kh * kw, cout, nch * 64)
+    assert torch.equal(flat[..., :cin], w.reshape(kh * kw, cin, cout).transpose(1, 2))
+    assert not flat[..., cin:].any()
+    assert conv_direct.direct_weights(w) is wk
+
+
+@pytest.mark.parametrize("shape,wshape,strides,plan", [
+    ((8, 224, 224, 64), (3, 3, 64, 64), (1, 1), {"bn": 64, "wres": 1}),
+    ((8, 112, 112, 128), (3, 3, 128, 128), (1, 1), {"bn": 128, "wres": 1}),
+    ((8, 56, 56, 256), (3, 3, 256, 256), (1, 1), {"bn": 64, "wres": 1}),
+    ((8, 28, 28, 512), (3, 3, 512, 512), (1, 1), {"bn": 128, "wres": 0, "group": 9}),
+    ((8, 14, 14, 512), (3, 3, 512, 512), (1, 1), {"bn": 64, "wres": 0, "group": 9}),
+    ((8, 224, 224, 3), (3, 3, 3, 64), (1, 1), {"bn": 64, "wres": 1}),
+    ((8, 224, 224, 3), (7, 7, 3, 64), (2, 2), {"cc": 4}),
+])
+def test_k11_plan_at_vgg16_and_resnet50_shapes(shape, wshape, strides, plan):
+    """The weights stay resident where every slab of the N tile fits beside
+    the windows (CIN <= 128 at BN 128, <= 256 at BN 64); VGG-16's
+    512-channel convs stream them; the 7x7 CIN-3 stem takes the narrow
+    path, VGG-16's 3x3 CIN-3 conv the Hopper one."""
+    got = conv_direct.direct_plan(shape, wshape, strides, (1, 1, 1, 1))
+    assert got["cc"] == plan.get("cc", conv_direct.KC) and {k: got[k] for k in plan} == plan
+    hopper = conv_direct.hopper_plan(shape, wshape, strides, (1, 1, 1, 1))
+    assert hopper["cc"] == conv_direct.KC
+    assert conv_direct.direct_smem(hopper["bn"], hopper["group"], shape[3], *wshape[:2], strides,
+                                   hopper["wres"], hopper["ahead"]) <= conv_direct.SMEM_LIMIT
+
+
+def test_direct_plan_fits_shared_memory_wherever_supported():
+    """Every groups-1 geometry qconv2d_supported admits has a plan within
+    227 KB on its path, and every geometry the narrow path alone fits (the
+    first port's predicate) is still admitted."""
+    n_hopper = n_narrow = 0
+    for cin in (3, 16, 40, 64, 512):
+        for k in (1, 2, 3, 5, 7, 11, 15, 20):
+            for s in (1, 2, 3, 4, 8):
+                shape, wshape = (2, 64, 64, cin), (k, k, cin, 96)
+                supported = conv_direct.qconv2d_supported(shape, wshape, (s, s), (0, 0, 0, 0), 1)
+                if conv_direct.narrow_chunk(cin, k, k, (s, s)) is not None:
+                    assert supported, (cin, k, s)
+                if not supported:
+                    continue
+                plan = conv_direct.direct_plan(shape, wshape, (s, s), (0, 0, 0, 0))
+                if plan["cc"] == conv_direct.KC:
+                    n_hopper += 1
+                    assert plan["bn"] in conv_direct.BNS and 1 <= plan["group"] <= k * k
+                    assert conv_direct.direct_smem(plan["bn"], plan["group"], cin, k, k, (s, s),
+                                                   plan["wres"], plan["ahead"]) \
+                        <= conv_direct.SMEM_LIMIT
+                else:
+                    n_narrow += 1
+                    assert conv_direct.narrow_smem(plan["cc"], k, k, (s, s)) \
+                        <= conv_direct.SMEM_LIMIT
+    assert n_hopper > 100 and n_narrow > 0
 
 
 @pytest.mark.parametrize("out,k,s,tile", [(112, 3, 1, (8, 56)), (56, 3, 2, (8, 28)),

@@ -612,6 +612,128 @@ def test_k3_hopper_on_a_misaligned_residual(rng, cuda):
     assert torch.equal(got, qconv_rq_res_plain(x, w, b, mult, shift, res, rp, izp=1))
 
 
+# ---------------------------------------------------------------------------
+# K2 on the Hopper body: every call shape of ResNet-50 b8 and VGG-16 b8, the
+# four tiles, the exact split of K before the requantize
+# ---------------------------------------------------------------------------
+
+# (x shape, k, stride, padding, cout)
+K2_R50_CASES = [
+    ((8, 224, 224, 3), 7, 2, 3, 64),        # the stem: byte gather, unsplit
+    ((8, 56, 56, 64), 3, 1, 1, 64),
+    ((8, 56, 56, 128), 3, 2, 1, 128),       # split 2 ways
+    ((8, 28, 28, 128), 3, 1, 1, 128),
+    ((8, 28, 28, 256), 3, 2, 1, 256),       # split 3 ways
+    ((8, 14, 14, 256), 3, 1, 1, 256),
+    ((8, 14, 14, 512), 3, 2, 1, 512),       # split 5 ways
+    ((8, 7, 7, 512), 3, 1, 1, 512),
+]
+K2_VGG_CASES = [
+    ((8, 224, 224, 3), 64), ((8, 224, 224, 64), 64), ((8, 112, 112, 64), 128),
+    ((8, 112, 112, 128), 128), ((8, 56, 56, 128), 256), ((8, 56, 56, 256), 256),
+    ((8, 28, 28, 256), 512), ((8, 28, 28, 512), 512), ((8, 14, 14, 512), 512),
+]
+
+
+def _k2_case(rng, cuda, shape, k, s, p, cout, rounding="UPWARD", izp=0, blocks=None):
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    kw = dict(strides=(s, s), padding=(p,) * 4, izp=izp, rq_izp=-2, out_zp=1, rounding=rounding,
+              qmin=-120, qmax=126)
+    before = _lib.LAUNCHES["qconv_rq"]
+    got = qconv_rq(x, w, b, mult, shift, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["qconv_rq"] == before + 1
+    want = qconv_rq_plain(x, w, b, mult, shift, **kw)
+    assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_R50_CASES)
+@pytest.mark.parametrize("rounding,izp", [("UPWARD", 0), ("TONEAREST", 7)])
+def test_k2_hopper_at_resnet50_shapes(rng, cuda, case, rounding, izp):
+    """K2 at ResNet-50 b8's eight distinct call shapes (17 calls), default
+    tile, both roundings, izp 0 and 7."""
+    _k2_case(rng, cuda, *case, rounding=rounding, izp=izp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_VGG_CASES)
+def test_k2_hopper_at_vgg16_shapes(rng, cuda, case):
+    """K2 at VGG-16 b8's nine distinct conv shapes (13 calls)."""
+    shape, cout = case
+    _k2_case(rng, cuda, shape, 3, 1, 1, cout, izp=-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", TILE_BLOCKS)
+@pytest.mark.parametrize("case", [K2_R50_CASES[1], K2_R50_CASES[7]])
+def test_k2_hopper_tiles_at_56_and_7(rng, cuda, blocks, case):
+    """Every tile at the 56^2 stage (unsplit) and the 7^2 stage (split)."""
+    _k2_case(rng, cuda, *case, rounding="TONEAREST", izp=5, blocks=blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [(1, 7), (2, 4), (3, 3), (4, 2), (7, 1)])
+@pytest.mark.parametrize("rounding", ["UPWARD", "TONEAREST"])
+def test_k2_split_that_does_not_divide_k(rng, cuda, monkeypatch, split, rounding):
+    """K = 3*3*48 = 432 bytes: 7 steps of 64, the last partly padding; each
+    forced split (3 x 3 leaves the last split one step), izp != 0 and a bias
+    near +-2^31, so that the complete sum wraps before the requantize: ==
+    plain, and the split was launched with its workspace."""
+    from tachikoma_tpu_torch.ops.kernels import conv as conv_mod
+
+    monkeypatch.setattr(conv_mod, "rq_split", lambda *a, **k: split)
+    shape, cout = (2, 10, 10, 48), 72
+    x, w = _dev(rng, shape, cuda), _dev(rng, (3, 3, 48, cout), cuda)
+    _, mult, shift = _epilogue_args(rng, cout, cuda)
+    b = torch.from_numpy(np.where(np.arange(cout) % 2, 2 ** 31 - 1 - np.arange(cout),
+                                  -2 ** 31 + np.arange(cout)).astype(np.int32)).to(cuda)
+    kw = dict(padding=(1, 1, 1, 1), izp=3, out_zp=2, rounding=rounding)
+    got = qconv_rq(x, w, b, mult, shift, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv_rq_plain(x, w, b, mult, shift, **kw))
+    acc = conv_mod.conv_acc_plain(x, w, (1, 1), (1, 1, 1, 1), 3).to(torch.int64)
+    full = acc + conv_mod.fold_input_zero_point(b, w, 3).to(torch.int64)
+    assert ((full >= 2 ** 31) | (full < -2 ** 31)).any()  # the sums wrapped
+
+
+@pytest.mark.cuda
+def test_k2_refuses_a_split_that_misses_k(rng, cuda, monkeypatch):
+    from tachikoma_tpu_torch.ops.kernels import conv as conv_mod
+
+    x, w = _dev(rng, (1, 8, 8, 64), cuda), _dev(rng, (3, 3, 64, 64), cuda)
+    b, mult, shift = _epilogue_args(rng, 64, cuda)
+    for bad in ((2, 4), (3, 5)):  # 9 steps: 8 covered; a third split empty
+        monkeypatch.setattr(conv_mod, "rq_split", lambda *a, _b=bad, **k: _b)
+        with pytest.raises(RuntimeError, match="tk_qconv_rq"):
+            qconv_rq(x, w, b, mult, shift, padding=(1, 1, 1, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ((2, 13, 11, 24), 3, 1, 1, 10),     # ragged CIN (byte gather) and COUT (element stores)
+    ((3, 9, 7, 40), 5, 2, 2, 24),       # CIN 40, COUT 24, 5x5 s2
+    ((2, 14, 14, 256), 3, 2, 1, 40),    # split, COUT not a multiple of 16
+])
+@pytest.mark.parametrize("blocks", TILE_BLOCKS)
+def test_k2_hopper_ragged(rng, cuda, case, blocks):
+    _k2_case(rng, cuda, *case, rounding="TONEAREST", izp=-4, blocks=blocks)
+
+
+@pytest.mark.cuda
+def test_k2_through_qconv2d_flat_on_a_view(rng, cuda):
+    """qconv2d_flat copies a non-contiguous view before K2; a 3x3 conv on it
+    == the CPU path."""
+    x = _dev(rng, (2, 12, 12, 64), cuda)[:, 1:11, 1:11, :]
+    w = _i8(rng, (3, 3, 64, 48))
+    m, s = plan_requantize(0.0004, 0.05)
+    kw = dict(multiplier=m, shift=s, padding=(1, 1, 1, 1), input_zero_point=4)
+    got = qconv2d_flat(x, w, **kw)
+    want = qconv2d_flat(x.cpu(), w, **kw)
+    assert torch.equal(got.cpu(), want)
+
+
 # (x shape, k, stride, padding, cout): ResNet-50 b1 224^2's eight distinct
 # conv-mode shapes and MobileNetV2 b1's stem
 K4_TRACE_CASES = [
@@ -788,6 +910,103 @@ def test_k11_qconv_direct_on_card(rng, cuda, case, izp, out_dtype, qmin, qmax, r
     want = qconv_direct_plain(*args, **kw)
     assert got.dtype == want.dtype == out_dtype
     assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
+
+
+# (x shape, w shape, strides, padding): VGG-16's 3x3s at 224^2, 56^2 and
+# 14^2, ResNet-50's 3x3 s2 and 7x7 s2 CIN-3 stem, a 1x1 s2, ragged COUT
+K11_HOPPER_CASES = [
+    ((2, 224, 224, 64), (3, 3, 64, 64), (1, 1), (1, 1, 1, 1)),
+    ((2, 224, 224, 3), (3, 3, 3, 64), (1, 1), (1, 1, 1, 1)),
+    ((8, 56, 56, 256), (3, 3, 256, 256), (1, 1), (1, 1, 1, 1)),
+    ((8, 14, 14, 512), (3, 3, 512, 512), (1, 1), (1, 1, 1, 1)),
+    ((8, 28, 28, 256), (3, 3, 256, 256), (2, 2), (1, 1, 1, 1)),
+    ((8, 224, 224, 3), (7, 7, 3, 64), (2, 2), (3, 3, 3, 3)),
+    ((8, 28, 28, 512), (1, 1, 512, 1024), (2, 2), (0, 0, 0, 0)),
+    ((2, 17, 19, 96), (3, 3, 96, 40), (1, 1), (1, 1, 1, 1)),       # ragged COUT, 2 chunks
+    ((2, 17, 19, 24), (5, 5, 24, 13), (3, 2), (2, 1, 2, 3)),       # strides 3 x 2, COUT 13
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("izp,out_dtype,qmin,qmax,rounding",
+                         [(0, torch.int8, -128, 127, "UPWARD"),
+                          (-9, torch.uint8, 0, 255, "TONEAREST")])
+@pytest.mark.parametrize("case", K11_HOPPER_CASES)
+def test_k11_hopper_at_main_path_shapes(rng, cuda, case, izp, out_dtype, qmin, qmax, rounding):
+    """K11's Hopper path (its own plan: BN 64 or 128, the weights resident or
+    streamed) == plain, int8 and uint8 out, izp 0 and -9; the 7x7 CIN-3
+    stem, which the wrapper sends to the narrow path, forced onto it."""
+    from tachikoma_tpu_torch.ops.kernels import conv_direct as cd
+
+    shape, wshape, strides, padding = case
+    plan = cd.hopper_plan(shape, wshape, strides, padding)
+    x, w = _dev(rng, shape, cuda), _dev(rng, wshape, cuda)
+    args = (x, w, *_epilogue_args(rng, wshape[3], cuda))
+    kw = dict(strides=strides, padding=padding, izp=izp, out_zp=5, rounding=rounding, qmin=qmin,
+              qmax=qmax, out_dtype=out_dtype)
+    before = _lib.LAUNCHES["qconv_direct"]
+    got = cd.qconv_direct(*args, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["qconv_direct"] == before + 1
+    want = cd.qconv_direct_plain(*args, **kw)
+    assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [{"cc": 64, "bn": 64, "group": 1},
+                                  {"cc": 64, "bn": 128, "group": 4},
+                                  {"cc": 64, "bn": 64, "group": 9},
+                                  {"cc": 16}, {"cc": 4}])
+@pytest.mark.parametrize("case", [K11_HOPPER_CASES[3], K11_HOPPER_CASES[5],
+                                  K11_HOPPER_CASES[7]])
+def test_k11_forced_plans(rng, cuda, plan, case):
+    """Each BN and taps a step of the Hopper path, and the narrow path, on
+    the same calls == plain."""
+    from tachikoma_tpu_torch.ops.kernels import conv_direct as cd
+
+    shape, wshape, strides, padding = case
+    if plan["cc"] == cd.KC:
+        assert cd.direct_smem(plan["bn"], plan["group"], shape[3], *wshape[:2],
+                              strides, plan.get("wres", 0)) <= cd.SMEM_LIMIT
+    else:
+        assert cd.narrow_smem(plan["cc"], *wshape[:2], strides) <= cd.SMEM_LIMIT
+    x, w = _dev(rng, shape, cuda), _dev(rng, wshape, cuda)
+    args = (x, w, *_epilogue_args(rng, wshape[3], cuda))
+    kw = dict(strides=strides, padding=padding, izp=3, out_zp=-2, rounding="TONEAREST")
+    got = cd.qconv_direct(*args, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cd.qconv_direct_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("case", [K11_HOPPER_CASES[0], K11_HOPPER_CASES[1], K11_HOPPER_CASES[2],
+                                  K11_HOPPER_CASES[5], K11_HOPPER_CASES[7]])
+def test_k11_resident_and_streamed_weights(rng, cuda, bn, case):
+    """The same calls with the N tile's weights resident (where they fit)
+    and streamed up to nine taps a step, the copies one to three steps
+    ahead: == plain, one persistent block walking several M tiles."""
+    from tachikoma_tpu_torch.ops.kernels import conv_direct as cd
+
+    shape, wshape, strides, padding = case
+    x, w = _dev(rng, shape, cuda), _dev(rng, wshape, cuda)
+    args = (x, w, *_epilogue_args(rng, wshape[3], cuda))
+    kw = dict(strides=strides, padding=padding, izp=-5, out_zp=3, rounding="UPWARD")
+    want = cd.qconv_direct_plain(*args, **kw)
+    def fits(group, wres, ahead):
+        return cd.direct_smem(bn, group, shape[3], *wshape[:2], strides, wres,
+                              ahead) <= cd.SMEM_LIMIT
+
+    taps = wshape[0] * wshape[1]
+    plans = [{"cc": 64, "bn": bn, "group": taps, "wres": 1, "ahead": ahead}
+             for ahead in (1, 2, 3) if fits(taps, 1, ahead)]
+    group = max(g for g in range(1, min(9, taps) + 1) if fits(g, 0, 1))
+    plans += [{"cc": 64, "bn": bn, "group": group, "wres": 0, "ahead": ahead}
+              for ahead in (1, 2, 3) if fits(group, 0, ahead)]
+    for plan in plans:
+        got = cd.qconv_direct(*args, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""The arithmetic of K3's and K4's Hopper kernels (csrc/qconv_igemm_hopper.cu)
-that the CPU can check, against the JAX package's oracle:
+"""The arithmetic of K2's, K3's and K4's Hopper kernels
+(csrc/qconv_igemm_hopper.cu) that the CPU can check, against the JAX
+package's oracle:
 
   * K3's residual add as two 256-entry tables (`res_add_table_plain`) ==
     `res_add_plain` and the JAX package's `_res_add_np` over all 65,536
@@ -10,7 +11,10 @@ that the CPU can check, against the JAX package's oracle:
   * K4's split of K (`raw_split`) covers every K index exactly once, each
     split non-empty, at every ResNet-50 b1 conv shape of the trace path and
     MobileNetV2 b1's stem;
-  * the K-major weights both kernels stage from (`kmajor_weights`).
+  * K2's split of K (`rq_split`) does the same at every ResNet-50 b8 and
+    VGG-16 b8 call shape and every tile, and its int32 partial sums, added
+    in wraparound, give the complete sum the requantize takes;
+  * the K-major weights the three kernels stage from (`kmajor_weights`).
 
 The kernels themselves run on the card: tests/test_torch_port_cuda.py.
 """
@@ -143,6 +147,81 @@ def test_raw_split_of_the_trace_path():
     assert got == [(1, 3), (1, 9), (3, 6), (3, 6), (6, 6), (6, 6), (12, 6), (12, 6), (1, 1)]
 
 
+# (x shape, k, stride, padding, cout): K2's calls of ResNet-50 b8 (the stem,
+# the 3x3 stages and the three 3x3 s2 convs) and VGG-16 b8 (its 3x3s)
+RQ_SHAPES = [
+    ((8, 224, 224, 3), 7, 2, 3, 64),
+    ((8, 56, 56, 64), 3, 1, 1, 64),
+    ((8, 56, 56, 128), 3, 2, 1, 128),
+    ((8, 28, 28, 128), 3, 1, 1, 128),
+    ((8, 28, 28, 256), 3, 2, 1, 256),
+    ((8, 14, 14, 256), 3, 1, 1, 256),
+    ((8, 14, 14, 512), 3, 2, 1, 512),
+    ((8, 7, 7, 512), 3, 1, 1, 512),
+    ((8, 224, 224, 3), 3, 1, 1, 64),
+    ((8, 224, 224, 64), 3, 1, 1, 64),
+    ((8, 112, 112, 64), 3, 1, 1, 128),
+    ((8, 112, 112, 128), 3, 1, 1, 128),
+    ((8, 56, 56, 128), 3, 1, 1, 256),
+    ((8, 56, 56, 256), 3, 1, 1, 256),
+    ((8, 28, 28, 256), 3, 1, 1, 512),
+    ((8, 28, 28, 512), 3, 1, 1, 512),
+    ((8, 14, 14, 512), 3, 1, 1, 512),
+]
+
+
+@pytest.mark.parametrize("case", RQ_SHAPES)
+def test_rq_split_covers_every_k_step_once(case):
+    m, cout, k = _mk(*case)
+    steps = -(-k // conv.KSTEP)
+    for tile in ((64, 64), (64, 128), (128, 64), (128, 128)):
+        ks, kper = conv.rq_split(m, cout, k, tile)
+        covered = np.zeros(steps, np.int64)
+        for z in range(ks):
+            lo, hi = z * kper, min((z + 1) * kper, steps)
+            assert lo < hi, f"split {z} of {ks} is empty"
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+        tiles = -(-m // tile[0]) * -(-cout // tile[1])
+        if tiles >= 132 or steps <= conv.RQ_UNSPLIT_STEPS:
+            assert ks == 1  # the tiles fill the card, or K is short
+        else:  # no more blocks than fill the card RQ_FILL times, no split too short
+            assert ks > 1 and (ks - 1) * tiles < conv.RQ_FILL * 132
+            assert kper >= conv.RQ_MIN_STEPS
+
+
+def test_rq_launch_of_resnet50_and_vgg16():
+    """The tiles and splits chip_smoke.py phases 4 and 16a.2 report: K2
+    splits only ResNet-50 b8's 14^2 and 7^2 calls; VGG-16 b8's large convs
+    take the 128-row tiles, its 28^2 ones 64 x 128."""
+    got = [conv.rq_launch(c[0], (c[1], c[1], c[0][3], c[4]), (c[2],) * 2, (c[3],) * 4)
+           for c in RQ_SHAPES]
+    assert got == [((128, 64), 1, 3), ((64, 64), 1, 9), ((64, 64), 1, 18), ((64, 64), 1, 18),
+                   ((64, 64), 3, 12), ((64, 64), 3, 12), ((64, 64), 5, 15), ((64, 64), 5, 15),
+                   ((128, 64), 1, 1), ((128, 64), 1, 9), ((128, 128), 1, 9),
+                   ((128, 128), 1, 18), ((128, 128), 1, 18), ((128, 128), 1, 36),
+                   ((64, 128), 1, 36), ((64, 128), 1, 72), ((64, 64), 1, 72)]
+
+
+def test_rq_split_partial_sums_wrap_to_the_total():
+    """Each split's int32 sum of its K steps, added into a zeroed int32 in
+    any order with wraparound, is the whole K's wraparound sum: what K2's
+    last block reads back and requantizes."""
+    rng = np.random.default_rng(0)
+    k = 7 * 64
+    prod = rng.integers(-128 * 127, 128 * 128, (5, k)).astype(np.int64) * 65537
+    want = (prod.sum(1) + 2 ** 31) % 2 ** 32 - 2 ** 31
+    for ks, kper in [(1, 7), (2, 4), (3, 3), (7, 1)]:
+        parts = [prod[:, z * kper * 64:(z + 1) * kper * 64].sum(1) for z in range(ks)]
+        parts = [(p + 2 ** 31) % 2 ** 32 - 2 ** 31 for p in parts]  # each split's int32
+        for order in (range(ks), reversed(range(ks))):
+            total = np.zeros(5, np.int64)
+            for z in order:
+                total = (total + parts[z] + 2 ** 31) % 2 ** 32 - 2 ** 31
+            np.testing.assert_array_equal(total, want)
+    assert (np.abs(prod.sum(1)) >= 2 ** 31).any()  # the sums did wrap
+
+
 @pytest.mark.parametrize("wshape", [(1, 1, 64, 256), (3, 3, 40, 24), (7, 7, 3, 64),
                                     (3, 3, 3, 32)])
 def test_kmajor_weights(wshape):
@@ -151,13 +230,16 @@ def test_kmajor_weights(wshape):
     kh, kw, cin, cout = wshape
     k = kh * kw * cin
     wk = conv.kmajor_weights(w)
-    assert wk.shape == (cout, -(-k // 64) * 64) and wk.is_contiguous()
+    steps = -(-k // 64)
+    assert wk.shape == (steps, cout, 64) and wk.is_contiguous()
+    flat = wk.transpose(0, 1).reshape(cout, steps * 64)  # output channel n's K row
     for n in (0, cout - 1):
-        assert torch.equal(wk[n, :k], w[..., n].reshape(k))  # (ky, kx, ci) order
-    assert not wk[:, k:].any()
+        assert torch.equal(flat[n, :k], w[..., n].reshape(k))  # (ky, kx, ci) order
+    assert not flat[:, k:].any()
     assert conv.kmajor_weights(w) is wk
     w.neg_()
-    assert torch.equal(conv.kmajor_weights(w)[:, :k], w.reshape(k, cout).t())
+    flat = conv.kmajor_weights(w).transpose(0, 1).reshape(cout, steps * 64)
+    assert torch.equal(flat[:, :k], w.reshape(k, cout).t())
     key = id(w)
     del w
     assert key not in conv._KMAJOR

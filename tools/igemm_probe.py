@@ -28,7 +28,10 @@ For each distinct call shape of one recorded forward:
     bytes, read and written once: what moving them alone costs);
   * with `--alt NAME=PATH` (repeatable), another source of the same two C
     entries built and timed on the same calls (e.g. an earlier design).
-`--no-cuts` skips the cut builds, `--k3-only` the K4 calls.  A cut or an
+`--no-cuts` skips the cut builds, `--k3-only` the K4 calls.  The cuts of
+the requantize (`no_epilogue` and the builds on it) were written against
+the source before the epilogue moved into csrc/epilogue_hopper.cuh; they
+no longer apply and are skipped with a message.  A cut or an
 alternative source is loaded as a second library into the process; on the
 H100 one whose kernel takes more than 48 KB of dynamic shared memory fails
 to launch from there (CUDA error 1, recorded in place of its time), though
@@ -65,12 +68,11 @@ CUTS = {
     "no_res_load": ("qconv_rq_res", [("if (g.o_vec) {  // the item's residual tile",
                                       "if (g.M < 0) {  // the item's residual tile")]),
     "no_store": ("qconv_rq_res", [
-        ("if (row < g.M && col < g.cout)\n            *reinterpret_cast<uint4*>",
-         "if (row < 0)\n            *reinterpret_cast<uint4*>")]),
+        ("epi::store_tile16(o8, rtile, S::RS, BM, min(BN, g.cout - n0), dst);", "")]),
     "no_table_build": ("qconv_rq_res", [("for (int i = tid; i < 512; i += NT) {",
                                          "for (int i = tid; i < 512 * (int)(g.M < 0); i += NT) {")]),
-    "stages2": (None, [("STAGES = RES ? 3 : 4;", "STAGES = 2;")]),
-    "no_b_res": ("qconv_rq_res", [("g.b_res = RES && g.steps <= BRES_STEPS;",
+    "stages2": (None, [("STAGES = MODE == RES ? 3 : 4;", "STAGES = 2;")]),
+    "no_b_res": ("qconv_rq_res", [("g.b_res = MODE == RES && g.steps <= BRES_STEPS;",
                                    "g.b_res = false;")]),
     "minblocks4": (None, [("__launch_bounds__(2 * BM)\n",
                            "__launch_bounds__(2 * BM, BN == 64 ? 256 / BM : 1)\n")]),

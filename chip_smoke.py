@@ -10,7 +10,9 @@ path (int8 VGG-16, tune_conv on K11/K12, the graph tuner).
 
 Phases, in order (any failure exits non-zero; no phase catches its own):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-  2. the kernels' build from tachikoma_tpu_torch/csrc (nvcc, sm_90a);
+  2. the kernels' build from tachikoma_tpu_torch/csrc (nvcc, sm_90a), and
+     `nm -D` of every library: no GNU-unique symbol (the launchers' statics
+     stay local to each library, so a second copy can be loaded beside it);
   3. ResNet-50 built, quantized (numpy calibration on the host, timed here,
      outside every timed window) and fused, with random weights from a seed;
   4. K1 (qgemm_rq), K2 (qconv_rq) and K3 (qconv_rq_res) at the shapes the main
@@ -48,13 +50,16 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      CRCs checked natively and every record re-executed by verify_trace;
   9. MobileNetV2 b8 224^2 (the JAX package's zoo model, width 1.0, random
      weights from the seed): phases 3-6 again -- K5 qdwconv_rq at its 17
-     calls and K1/K2 at their MobileNetV2 shapes held == plain and timed, 20
-     requests with every kernel of the path launched, every integer node ==
-     the CPU plain path, latency, images/s and device busy share;
- 10. MobileNetV2 b1 224^2 unfused: phases 7-8 again -- K5 qdwconv_raw and K4
-     held == plain and timed, the trace emitted on the card (1 warm + 5
-     timed) with both K4 modes and qdwconv_raw launched, compared record by
-     record with the CPU trace, CRC-checked and verify_trace'd;
+     calls (each printed with its tile, per call and per forward beside the
+     first design's time) and K1/K2 at their MobileNetV2 shapes held == plain
+     and timed, 20 requests with every kernel of the path launched, every
+     integer node == the CPU plain path, latency, images/s and the device's
+     busy time a request beside the earlier tree's;
+ 10. MobileNetV2 b1 224^2 unfused: phases 7-8 again -- K5 qdwconv_raw (each
+     call with its tile and the first design's time) and K4 held == plain and
+     timed, the trace emitted on the card (1 warm + 5 timed) with both K4
+     modes and qdwconv_raw launched, compared record by record with the CPU
+     trace, CRC-checked and verify_trace'd;
  11. the trained fixture tests/fixtures/synth_mbv2.tkmod, loaded with the
      port's load_artifact, quantized on the host with a calibration batch from
      the seed and fused, run on the card: K5 launched, every integer node ==
@@ -64,14 +69,17 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      in four steps each: (a) build and fuse_attention (12 tk.attention, causal
      on GPT-2's only); (b) one forward recorded call by call, every K6 call
      held against its plain version (rtol 2e-5, atol 2e-6,
-     tests/test_flash_attention.py's) on contiguous copies of its inputs (the
-     wrapper's own copies of the head-split views are not K6's work) and
-     timed beside its bound and torch's scaled_dot_product_attention; (c) the
-     launch counts set to 0, 20 requests through TorchExecutor(
-     device="cuda"), K6 read at 12 per request, the logits and every
-     tk.attention output held against the port's CPU path at rtol 1e-4,
-     atol 1e-4, median latency; (d) the device's busy share.  Phase 12 also
-     runs K6 at tests/test_flash_attention.py's four shapes;
+     tests/test_flash_attention.py's) on the head-split views the graph
+     hands over (read in place) and timed beside its bound, torch's
+     scaled_dot_product_attention and the first design's time, per call (with
+     its launch plan) and per forward; (c) the launch counts set to 0, 20
+     requests through TorchExecutor(device="cuda"), K6 read at 12 per
+     request and the wrapper's copies of q, k and v at 0, the logits and
+     every tk.attention output held against the port's CPU path at rtol
+     1e-4, atol 1e-4, median latency; (d) the device's busy time a request
+     beside the earlier tree's share.  Phase 12 also runs K6 (e) at
+     tests/test_flash_attention.py's four shapes and at D = 32, 80, 160,
+     256 and 320, causal and not, S 130 and 197;
  15. the tuning path, on phase 3's ResNet-50 b8 224^2: (a) the quantized
      graph written under TMPDIR and `tachikoma_tpu_torch.cli tune --db
      --budget 64` run on it (every trial's output == its plain version before
@@ -114,7 +122,8 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
 K5 per MobileNetV2 forward (b8 fused for qdwconv_rq, b1 unfused for
-qdwconv_raw), those of K6 (flash_attn) per BERT-base b4 s128 forward, those
+qdwconv_raw), those of K6 (flash_attn) per BERT-base b4 s128 forward (its
+bound at the 3xTF32 rate, 495 / 3 TFLOP/s, or its bytes), those
 of K7-K10 per ResNet-50 b8 forward with the layout forced (its three 3x3 s2
 calls; every wrapper's device work included), those of K11 per VGG-16 b8
 forward (its 13 conv calls, summed with their repeats) and of K12 per
@@ -146,12 +155,16 @@ REQUESTS = 20
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak, same source
 SOFTMAX_RTOL, SOFTMAX_ATOL = 1e-5, 1e-8
-FP32_OPS_PER_S = 67e12             # float32 CUDA cores (no tensor cores), same source
+TF32X3_OPS_PER_S = 495e12 / 3      # K6's 3xTF32 products: the dense TF32 peak over 3, same source
 FA_RTOL, FA_ATOL = 2e-5, 2e-6      # K6 vs plain: tests/test_flash_attention.py:42
 GRAPH_RTOL, GRAPH_ATOL = 1e-4, 1e-4  # a 12-layer float forward, card vs CPU
-# tests/test_flash_attention.py:27-32 (B, H, S, D, causal)
+# tests/test_flash_attention.py:27-32 (B, H, S, D, causal), then the head
+# widths of tests/test_torch_port_cuda.py's K6 cases (D above 128: the
+# output columns split across blocks; 320: Q and K read from global memory)
 FA_SHAPES = ((2, 2, 128, 64, False), (1, 3, 256, 64, True), (2, 2, 200, 128, False),
-             (1, 2, 130, 64, True))
+             (1, 2, 130, 64, True),
+             *((2, 3, 130 if i % 2 else 197, d, causal) for i, d in enumerate((32, 80, 160, 256, 320))
+               for causal in (False, True)))
 
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-6  # float trace records (tests/test_trace.py's rule)
 TRACE_BATCH = 1
@@ -212,7 +225,16 @@ GRAPH_TUNE_REQUESTS = 5           # per variant; the first is dropped from the m
 EARLIER_MS = {("ResNet-50", "qconv_rq_res"): 0.3525, ("ResNet-50", "qconv_raw"): 0.6127,
               ("ResNet-50", "qconv_rq"): 0.7759, ("VGG-16", "qconv_rq"): 2.1242,
               ("MobileNetV2", "qconv_rq"): 0.0311, ("VGG-16", "qconv_direct"): 1.9689,
-              ("ResNet-50", "qconv_direct"): 1.8627}
+              ("ResNet-50", "qconv_direct"): 1.8627,
+              # K5 and K6 before their Hopper redesign (their first designs)
+              ("MobileNetV2", "qdwconv_rq"): 0.1892, ("MobileNetV2", "qdwconv_raw"): 0.0777,
+              ("BERT-base b4 s128", "flash_attn"): 0.2954,
+              ("GPT-2 small b1 s128", "flash_attn"): 0.2878,
+              (f"ViT-B/16 b{BATCH} {IMAGE}^2", "flash_attn"): 0.8744}
+# The device's busy share of a request on the tree before K5 and K6's
+# redesign (this script's phases 9d and 12d-14d there)
+EARLIER_BUSY = {"MobileNetV2": "1.8423 ms, 7.5%", "BERT-base b4 s128": "27.3%",
+                "GPT-2 small b1 s128": "17.3%", f"ViT-B/16 b{BATCH} {IMAGE}^2": "72.4%"}
 EARLIER_CALL_MS = {
     ("ResNet-50", "qconv_rq"): {
         "8x224x224x3 k7 s2 -> 64": 0.0710, "8x56x56x64 k3 s1 -> 64": 0.0211,
@@ -226,6 +248,19 @@ EARLIER_CALL_MS = {
         "8x28x28x256 k3 s1 -> 512": 0.1287, "8x28x28x512 k3 s1 -> 512": 0.2447,
         "8x14x14x512 k3 s1 -> 512": 0.1044},
     ("MobileNetV2", "qconv_rq"): {"8x224x224x3 k3 s2 -> 32": 0.0311},
+    # K5's first design, per call (tools/dw_probe.py --design first on it)
+    ("MobileNetV2", "qdwconv_rq"): {
+        "8x112x112x32 k3 s1 -> 32": 0.0234, "8x112x112x96 k3 s2 -> 96": 0.0213,
+        "8x56x56x144 k3 s1 -> 144": 0.0286, "8x56x56x144 k3 s2 -> 144": 0.0093,
+        "8x28x28x192 k3 s1 -> 192": 0.0127, "8x28x28x192 k3 s2 -> 192": 0.0056,
+        "8x14x14x384 k3 s1 -> 384": 0.0076, "8x14x14x576 k3 s1 -> 576": 0.0103,
+        "8x14x14x576 k3 s2 -> 576": 0.0051, "8x7x7x960 k3 s1 -> 960": 0.0055},
+    ("MobileNetV2", "qdwconv_raw"): {
+        "1x112x112x32 k3 s1 -> 32": 0.0049, "1x112x112x96 k3 s2 -> 96": 0.0051,
+        "1x56x56x144 k3 s1 -> 144": 0.0058, "1x56x56x144 k3 s2 -> 144": 0.0044,
+        "1x28x28x192 k3 s1 -> 192": 0.0046, "1x28x28x192 k3 s2 -> 192": 0.0043,
+        "1x14x14x384 k3 s1 -> 384": 0.0042, "1x14x14x576 k3 s1 -> 576": 0.0043,
+        "1x14x14x576 k3 s2 -> 576": 0.0042, "1x7x7x960 k3 s1 -> 960": 0.0041},
     ("VGG-16", "qconv_direct"): {
         "8x224x224x3 k3 s1 -> 64": 0.0874, "8x224x224x64 k3 s1 -> 64": 0.2208,
         "8x112x112x64 k3 s1 -> 128": 0.1235, "8x112x112x128 k3 s1 -> 128": 0.2027,
@@ -246,7 +281,8 @@ EARLIER_CALL_MS = {
         "8x14x14x1024 k1 s2 -> 2048": 0.0724, "8x7x7x2048 k1 s1 -> 512": 0.0796,
         "8x7x7x512 k3 s1 -> 512": 0.0666},
 }
-PLAN_KERNELS = ("qconv_rq", "qconv_rq_res", "qconv_raw")  # printed call by call with their plan
+# printed call by call with their plan
+PLAN_KERNELS = ("qconv_rq", "qconv_rq_res", "qconv_raw", "qdwconv_rq", "qdwconv_raw", "flash_attn")
 
 
 def say(*a):
@@ -435,15 +471,25 @@ def hold_call(name, a, k, impl) -> float:
 def launch_plan(name, a, k) -> str:
     """The launch of one call as its wrapper plans it: K2's tile and split of
     K, K3's tile, K4's conv-mode split, K11's path (BN and taps a step on the
-    Hopper path, the chunk on the narrow one)."""
-    from tachikoma_tpu_torch.ops.kernels import _lib, conv, conv_direct
+    Hopper path, the chunk on the narrow one), K5's tile, K6's plan (warps a
+    block, depth of Q.K^T, output columns a block, column blocks, stages;
+    kg: Q and K read from global memory)."""
+    from tachikoma_tpu_torch.ops.kernels import _lib, conv, conv_direct, depthwise, flash_attention
 
     x, w = a[0], a[1]
+    if name == "flash_attn":
+        b, h, s_, d = x.shape
+        p = flash_attention.fa_plan(b * h, s_, d, conv.sm_count(x.device.index))
+        return (f"w {p['w']} dq {p['dq']} dv {p['dv']} cs {p['cs']} st {p['stages']}"
+                f"{' kg' if p['kg'] else ''}, {p['blocks']} blocks")
     kh, kw, cin, cout = w.shape
     sh, sw = k.get("strides", (1, 1))
     pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
     oh, ow = (x.shape[1] + pt + pb - kh) // sh + 1, (x.shape[2] + pl + pr - kw) // sw + 1
     sms = conv.sm_count(x.device.index)
+    if name.startswith("qdwconv"):
+        p = depthwise.dw_plan(x.shape[0], oh, ow, cout, kh, kw, sh, sw)
+        return f"ct {p['ct']} tile {p['th']}x{p['tw']}, {p['blocks']} blocks"
     if name == "qconv_direct":
         plan = k.get("plan") or conv_direct.direct_plan(tuple(x.shape), tuple(w.shape),
                                                         (sh, sw), (pt, pl, pb, pr), sms)
@@ -465,11 +511,9 @@ def check_call(name, a, k, impl) -> dict:
     """One call held against its plain version, then timed beside its bound,
     the plain version and the library call."""
     fn, plain = impl[name]
-    if name == "flash_attn":
-        a = tuple(t.contiguous() for t in a)
     err = hold_call(name, a, k, impl)
     nbytes, ops, label = work(name, a, k)
-    rate = FP32_OPS_PER_S if name == "flash_attn" else INT8_OPS_PER_S
+    rate = TF32X3_OPS_PER_S if name == "flash_attn" else INT8_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     lib = library_call(name, a, k)
     return dict(kernel=name, shape=label, bytes=nbytes, ops=ops,
@@ -523,7 +567,9 @@ def check_kernels(calls: list, names, model: str = "") -> dict:
             f"{t['bound_by']:>10s} {t['plain_ms']:9.3f} {fmt(t['library_ms'], 10, 4)}"
             f"  (library over {len(libs)} of {len(recs)} calls)")
         if name in PLAN_KERNELS:
-            before = EARLIER_CALL_MS.get((model, name), {})
+            before = dict(EARLIER_CALL_MS.get((model, name), {}))
+            if name == "flash_attn" and (model, name) in EARLIER_MS:  # 12 equal calls
+                before = {r["shape"]: EARLIER_MS[(model, name)] / len(recs) for r in recs}
             for r in recs:
                 say(f"  call {r['shape']:36s} {r['plan']:24s} {r['ms']:9.4f} ms, bound "
                     f"{r['bound_ms']:.4f}, library {fmt(r['library_ms'], 0, 4)}, before "
@@ -535,9 +581,10 @@ def check_kernels(calls: list, names, model: str = "") -> dict:
     return totals
 
 
-def profile_requests(ex, requests, median_ms: float) -> None:
+def profile_requests(ex, requests, median_ms: float, earlier: str | None = None) -> None:
     """Device time per request by kernel name, and the device's busy share
-    of the unprofiled median latency."""
+    of the unprofiled median latency (beside `earlier`, the tree before K5
+    and K6's redesign, where given)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -554,7 +601,8 @@ def profile_requests(ex, requests, median_ms: float) -> None:
         say("the profiler saw no device time: device busy share not measured")
         return
     say(f"device busy ms per request {busy_ms:.4f} = {busy_ms / median_ms:.1%} of the "
-        f"median latency; idle {1 - busy_ms / median_ms:.1%}")
+        f"median latency; idle {1 - busy_ms / median_ms:.1%}"
+        + (f" (before K5 and K6's redesign: {earlier})" if earlier else ""))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         say(f"  {e.self_device_time_total / 1e3 / len(requests):9.4f} ms  "
             f"{e.count // len(requests):4d}x  {e.key[:90]}")
@@ -694,7 +742,7 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
     say(f"{'+'.join(kernels)} device ms per forward {kernel_ms:.4f} of {med:.3f} ms end to end")
 
     phase(f"{labels[3]} {model}: device time of the main path (torch.profiler, 3 requests)")
-    profile_requests(ex, requests[:3], med)
+    profile_requests(ex, requests[:3], med, EARLIER_BUSY.get(model))
     state = dict(quantized=q, fused=fused, names=names, ex=ex, requests=requests, plain=plain,
                  median_ms=med)
     return totals, launches, state
@@ -871,11 +919,15 @@ def transformer_path(label: str, model: str, build, make_input, causal: bool,
         ex.run_device(requests[0])
     torch.cuda.synchronize()
     assert [c[0] for c in calls] == ["flash_attn"] * 12
-    totals = check_kernels(calls, ("flash_attn",))["flash_attn"]
+    assert not any(t.is_contiguous() for t in calls[0][1]), "the head split hands over views"
+    totals = check_kernels(calls, ("flash_attn",), model)["flash_attn"]
 
     phase(f"{label}c. {model} main path: {REQUESTS} requests through "
           "TorchExecutor(device='cuda')")
+    from tachikoma_tpu_torch.ops.kernels.flash_attention import COPIES
+
     reset(("flash_attn",))
+    COPIES["flash_attn"] = 0
     lat = []
     first_out = None
     for x in requests:
@@ -887,7 +939,9 @@ def transformer_path(label: str, model: str, build, make_input, causal: bool,
             first_out = [o.cpu().numpy() for o in outs]
     launches = read_launches(("flash_attn",), f"the {model} path")["flash_attn"]
     assert launches == 12 * REQUESTS, launches
-    say(f"flash_attn: {launches} launches, {launches // REQUESTS} per request")
+    assert COPIES["flash_attn"] == 0, f"the wrapper copied q, k or v {COPIES['flash_attn']} times"
+    say(f"flash_attn: {launches} launches, {launches // REQUESTS} per request; q, k and v read "
+        f"in place (the wrapper's copies: {COPIES['flash_attn']})")
     t0 = time.perf_counter()
     plain = TorchExecutor(fused, capture=names, device="cpu").run(requests[0])
     say(f"CPU path forward {time.perf_counter() - t0:.2f} s; card vs CPU, largest |err| "
@@ -906,7 +960,7 @@ def transformer_path(label: str, model: str, build, make_input, causal: bool,
         f"{med:.3f} ms end to end")
 
     phase(f"{label}d. {model}: device time of the main path (torch.profiler, 3 requests)")
-    profile_requests(ex, requests[:3], med)
+    profile_requests(ex, requests[:3], med, EARLIER_BUSY.get(model))
     return totals, launches
 
 
@@ -916,7 +970,8 @@ def k6_reference_shapes() -> float:
     from tachikoma_tpu_torch.ops.kernels.flash_attention import (flash_attention,
                                                                  flash_attention_plain)
 
-    phase("12e. K6 at tests/test_flash_attention.py's four shapes: allclose plain")
+    phase("12e. K6 at tests/test_flash_attention.py's four shapes and at D = 32 to 320: "
+          "allclose plain")
     rng = np.random.default_rng(SEED)
     worst = 0.0
     for b, h, s, d, causal in FA_SHAPES:
@@ -928,7 +983,8 @@ def k6_reference_shapes() -> float:
         err = float((got - want).abs().max())
         torch.testing.assert_close(got, want, rtol=FA_RTOL, atol=FA_ATOL)
         worst = max(worst, err)
-        say(f"B={b} H={h} S={s} D={d} causal={causal}: max |err| {err:.3e}")
+        say(f"B={b} H={h} S={s} D={d} causal={causal}: max |err| {err:.3e}, plan "
+            f"{launch_plan('flash_attn', (q, k, v), {})}")
     return worst
 
 
@@ -1417,6 +1473,15 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             say(line.strip())
+    # the launchers' once-per-kernel statics stay local to each library
+    # (-fno-gnu-unique): no STB_GNU_UNIQUE ('u') symbol in any of them
+    for lib in sorted(_lib.BUILD_DIR.glob("*.so")):
+        syms = subprocess.run(["nm", "-D", str(lib)], capture_output=True, text=True,
+                              check=True).stdout.splitlines()
+        unique = [ln for ln in syms if ln.split()[-2:-1] == ["u"]]
+        assert not unique, f"{lib.name}: GNU-unique symbols {unique[:3]}"
+    say("nm -D: no GNU-unique symbol in " + ", ".join(p.name for p in
+                                                      sorted(_lib.BUILD_DIR.glob("*.so"))))
 
     def r50(batch):
         return resnet(50, batch_size=batch, image_size=IMAGE, seed=SEED)

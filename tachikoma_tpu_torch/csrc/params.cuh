@@ -23,6 +23,17 @@ enum Param {
   // K11's Hopper path: the N tile's weights resident in shared memory, the
   // steps its copies run ahead (qconv_direct.cu)
   P_WRES, P_AHEAD,
+  // K6 flash_attn: heads; the element strides (batch, head, row) of q, k
+  // and v; the plan of ops/kernels/flash_attention.py fa_plan (warps a
+  // block, depth of Q.K^T, output columns a block, column blocks, Q and K read
+  // from global memory, 16-byte copies)
+  P_HEADS, P_Q_SB, P_Q_SH, P_Q_SS, P_K_SB, P_K_SH, P_K_SS, P_V_SB, P_V_SH, P_V_SS,
+  P_FA_W, P_FA_DQ, P_FA_DV, P_FA_CS, P_FA_KG, P_FA_VEC,
+  // K5's window row pitch in 4-byte words (its tile travels in P_CC, P_TH,
+  // P_TW; qdwconv.cu)
+  P_DW_RP,
+  // K6's K and V tiles in flight (1 or 2), keys a tile
+  P_FA_STAGES, P_FA_BK,
   P_COUNT
 };
 

@@ -16,19 +16,40 @@
 // qnn.conv2d (ops/jax_ops.py, lax.conv with feature_group_count), which has
 // no Pallas kernel: the 17 grouped convs of the unfused (trace) graph.
 //
-// The TPU kernel stacks the stride phases of a padded, flattened image and
-// pads channels to 128 lanes; none of that is needed here.  Depthwise has no
-// tensor-core form, so CUDA cores do the work, in a simple design: a block of
-// 256 threads covers up to 32 groups of 4 channels (a channel tile) of
-// 256 / groups output pixels; each thread computes one pixel x 4 channels,
-// reading each tap as one char4 when C % 4 == 0 (else byte by byte, masked
-// at C), with the accumulator in registers and the block's weights
-// (KH * KW taps x its channels) in shared memory.  When C <= 128 the block
-// reads and writes one contiguous run of NHWC memory.
+// What bounds it on an H100: bytes.  MobileNetV2 b8 224^2 moves 48.6 MB
+// through its 17 depthwise calls (each input byte read once, each output
+// written once: 14.5 us at 3.35 TB/s) for 0.17 G multiply-adds; at b1 each
+// call is a few microseconds of launch and one trip to memory.  The first
+// design (a thread per pixel x 4 channels, each of the nine taps its
+// own 4-byte load through L1) ran 13x that bound; tools/dw_probe.py cut it
+// apart: the loads were 30% of its time, the int64 requantize 14%, the
+// launch and grid alone 15% at b8 and 30% at b1.
+//
+// Design.  A block owns a tile of TH output rows x TW output columns x CT
+// channels (CT = 16, 32, 48 or 64) of one image and stages its input window,
+// ((TH-1) sh + KH) rows x ((TW-1) sw + KW) columns x CT channels, in shared
+// memory once: 16-byte cp.async copies where C % 16 == 0 (byte copies
+// otherwise); window positions outside the image are filled with izp, so the
+// taps need no bounds test and sum x * w, and izp * sum(w) is taken off once
+// per channel (exact in uint32, like the oracle's int32).  A thread owns 4
+// channels (one 32-bit word of the window) and a strip of R = 4 output
+// pixels along x: for 3x3 it reads R + 2 window columns a row at stride 1
+// (2R + 1 at stride 2), not 9R taps, sign-extends each byte once (prmt),
+// and holds the nine taps x 4 channels of weights and the per-channel
+// epilogue constants (bias - rq_izp, multiplier, shifts and rounding) in
+// registers.  Other kernel sizes keep the weights in shared memory and read
+// each tap from the window.  The window's row pitch is padded so that a
+// warp's reads fall on distinct banks.  ops/kernels/depthwise.py dw_plan
+// picks the tile: blocks of about 128 threads, two strips wide, up to 8
+// rows tall (tools/dw_probe.py --plans: at the b1 calls too, where such a
+// grid leaves SMs idle, smaller blocks that fill the card ran slower).
+// Depthwise has no reduction over channels, so there is no tensor-core form
+// to seek.
 //
 // Range: |x - izp| <= 255 and |w| <= 128, so a 3x3 tap sum stays below 2^19;
 // the accumulator is summed in uint32, so even a kernel deep enough to wrap
-// wraps as the oracle's int32 does.
+// wraps as the oracle's int32 does.  izp is an int8 zero point (the window's
+// fill byte).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -36,108 +57,280 @@
 #include "params.cuh"
 #include "requantize.cuh"
 
+// The parts that tools/dw_probe.py cuts out, one at a time, to see what sets
+// the kernel's time (each is 1 in the kernel as it runs).
+#define DW_STAGE_INPUT 1  // 0: the window is not staged (its taps read what shared memory holds)
+#define DW_EPILOGUE 1     // 0: the accumulator is stored as it is
+#define DW_BODY 1         // 0: the kernel returns as it starts
+
 namespace tk {
 
-constexpr int DW_THREADS = 256;
-constexpr int DW_MAX_GROUPS = 32;  // channel groups of 4 per block
-constexpr int DW_MAX_SMEM = 48 * 1024;
+constexpr int DW_R = 4;  // output pixels a thread, along x
+constexpr int DW_MAX_SMEM = 227 * 1024;
 
 struct DwGeo {
   int n, h, w, c, kh, kw, oh, ow, sh, sw, pt, pl, izp;
-  int groups_per_block;  // channel groups of 4 in a block's tile
-  int pix_per_block;
-  bool vec;  // C % 4 == 0 and every operand 4-byte aligned
+  int ct, th, tw;        // a block's tile: channels, output rows, output columns
+  int ih, iw, rp;        // its input window: rows, columns, row pitch in 4-byte words
+  int tiles_x, tiles_y;  // output tiles along x and y (the grid's x is images x tiles)
+  bool vec16;            // C % 16 == 0 and x 16-byte aligned: 16-byte copies
+  bool vec4;             // C % 4 == 0 and x, w 4-byte aligned: word loads and stores
 };
 
-__device__ __forceinline__ void load4(const int8_t* __restrict__ p, int c, const DwGeo& g,
-                                      int32_t (&v)[4]) {
-  if (g.vec) {
-    const char4 q = *reinterpret_cast<const char4*>(p + c);
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
+// The per-channel constants of the requantize epilogue, computed once: the
+// arithmetic of requantize.cuh q_multiply_shift, with (acc + bias) - rq_izp
+// folded into acc + (bias - rq_izp) (both wrap in uint32).
+struct DwRq {
+  uint32_t bz;     // bias - rq_izp (RAW: bias)
+  uint64_t m;      // the multiplier, sign-extended
+  uint64_t round;  // 2^(tr - 1)
+  int left, tr;    // max(s, 0), 31 + max(-s, 0)
+};
+
+// Byte e of `word`, sign-extended: prmt's default mode, result byte 0 the
+// byte itself (selector nibble e), bytes 1-3 its sign (nibble 8 | e: the high
+// bit replicates the sign; __byte_perm reads only the low 3 bits).
+__device__ __forceinline__ int32_t sext_byte(uint32_t word, int e) {
+  int32_t r;
+  asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(word), "r"(0x8880u + 0x1111u * (uint32_t)e));
+  return r;
+}
+
+__device__ __forceinline__ int32_t dw_requantize(uint32_t acc, const DwRq& r, const Requant& p) {
+  uint64_t v = (uint64_t)(int64_t)(int32_t)(acc + r.bz) << r.left;
+  v *= r.m;
+  uint64_t round = r.round;
+  if (p.tonearest && (int64_t)v < 0) round -= 1;
+  v += round;
+  const int32_t q = wrap_add((int32_t)(uint32_t)(uint64_t)((int64_t)v >> r.tr), p.out_zp);
+  return min(max(q, p.qmin), p.qmax);
+}
+
+// The block's input window into shared memory (`win`, [ih][rp] words, each
+// position CT / 4 words of channels), izp outside the image and past C.
+__device__ __forceinline__ void dw_stage(uint32_t* win, const int8_t* __restrict__ x, int img,
+                                         int iy0, int ix0, int c0, const DwGeo& g) {
+  const uint32_t fill = (uint32_t)(uint8_t)g.izp * 0x01010101u;
+  const int cw = g.ct >> 2;
+  const int8_t* xi = x + (long long)img * g.h * g.w * g.c;
+  if (g.vec16) {
+    const int cq = g.ct >> 4;  // 16-byte chunks a position
+    const int total = g.ih * g.iw * cq;
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int q = i % cq, pos = i / cq;
+      const int r = pos / g.iw, col = pos - r * g.iw;
+      const int iy = iy0 + r, ix = ix0 + col, ch = c0 + 16 * q;
+      uint32_t* dst = win + r * g.rp + col * cw + 4 * q;
+      if ((unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w && ch < g.c) {
+        const int8_t* src = xi + ((long long)iy * g.w + ix) * g.c + ch;
+        const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src));
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(fill, fill, fill, fill);
+      }
+    }
+    asm volatile("cp.async.commit_group;");
   } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = c + j < g.c ? p[c + j] : 0;
+    int8_t* wb = reinterpret_cast<int8_t*>(win);
+    const int total = g.ih * g.iw * g.ct;
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int cc = i % g.ct, pos = i / g.ct;
+      const int r = pos / g.iw, col = pos - r * g.iw;
+      const int iy = iy0 + r, ix = ix0 + col, ch = c0 + cc;
+      const bool in = (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w && ch < g.c;
+      wb[(r * g.rp + col * cw) * 4 + cc] =
+          in ? xi[((long long)iy * g.w + ix) * g.c + ch] : (int8_t)g.izp;
+    }
   }
 }
 
-// `out` is int8 (N, OH, OW, C), or int32 when RAW.  K = KH = KW known at
-// compile time (the 3x3 of MobileNetV2: the tap loops unroll, so a thread
-// issues its nine loads before it needs the first), or 0 for any size.
-template <bool RAW, int K>
-__global__ void __launch_bounds__(DW_THREADS)
+// 4 channels of tap `tap` of w (KH, KW, 1, C) as one word, 0 past C.
+__device__ __forceinline__ uint32_t dw_weight_word(const int8_t* __restrict__ w, int tap, int c,
+                                                   const DwGeo& g) {
+  const int8_t* p = w + (long long)tap * g.c + c;
+  if (g.vec4) return *reinterpret_cast<const uint32_t*>(p);
+  uint32_t v = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (c + e < g.c) v |= (uint32_t)(uint8_t)p[e] << (8 * e);
+  return v;
+}
+
+// `out` is int8 (N, OH, OW, C), or int32 when RAW.  K = KH = KW = 3 with the
+// column stride SW known at compile time (MobileNetV2's convs: the weights
+// live in registers and the window's columns are reused across the strip),
+// or K = 0 for any size and stride (the weights in shared memory after the
+// window).
+template <bool RAW, int K, int SW>
+__global__ void __launch_bounds__(256)
     qdwconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                    void* __restrict__ out, Requant rq, DwGeo g) {
-  extern __shared__ __align__(16) int8_t ws[];  // [tap][channel of the tile]
-  const int kh = K ? K : g.kh, kw = K ? K : g.kw;
-  const int tile_c = g.groups_per_block * 4;
-  const int c0 = blockIdx.y * tile_c;
-  for (int i = threadIdx.x; i < kh * kw * tile_c; i += DW_THREADS) {
-    const int tap = i / tile_c, cc = c0 + i - tap * tile_c;
-    ws[i] = cc < g.c ? w[(long long)tap * g.c + cc] : 0;
-  }
-  __syncthreads();
+  extern __shared__ __align__(16) uint32_t win[];
+#if !DW_BODY
+  if (g.n >= 0) return;
+#endif
+  const int kh = K ? K : g.kh, kw = K ? K : g.kw, sw = SW ? SW : g.sw;
+  const int cw_n = g.ct >> 2;
+  int bx = blockIdx.x;
+  const int tx = bx % g.tiles_x;
+  bx /= g.tiles_x;
+  const int tyb = bx % g.tiles_y, img = bx / g.tiles_y;
+  const int c0 = blockIdx.y * g.ct, oy0 = tyb * g.th, ox0 = tx * g.tw;
 
-  const int slot = threadIdx.x / g.groups_per_block;
-  const int grp = threadIdx.x - slot * g.groups_per_block;
-  const int c = c0 + grp * 4;
-  const int pix = blockIdx.x * g.pix_per_block + slot;  // < N * OH * OW < 2^31
-  if (slot >= g.pix_per_block || pix >= g.n * g.oh * g.ow || c >= g.c) return;
+#if DW_STAGE_INPUT
+  dw_stage(win, x, img, oy0 * g.sh - g.pt, ox0 * sw - g.pl, c0, g);
+#endif
+  uint32_t* ws = win + g.ih * g.rp;  // K = 0: [tap][CT / 4] words
+  if (K == 0)
+    for (int i = threadIdx.x; i < kh * kw * cw_n; i += blockDim.x) {
+      const int tap = i / cw_n, q = i - tap * cw_n;
+      ws[i] = c0 + 4 * q < g.c ? dw_weight_word(w, tap, c0 + 4 * q, g) : 0u;
+    }
 
-  const int img = pix / (g.oh * g.ow);
-  const int rem = pix - img * (g.oh * g.ow);
-  const int oy = rem / g.ow, ox = rem - oy * g.ow;
-  const int iy0 = oy * g.sh - g.pt, ix0 = ox * g.sw - g.pl;
-  const int8_t* xi = x + (long long)img * g.h * g.w * g.c;
+  const int cw = threadIdx.x % cw_n, rest = threadIdx.x / cw_n;
+  const int ty = rest % g.th, sx = rest / g.th;
+  const int c = c0 + 4 * cw, oy = oy0 + ty, ox = ox0 + sx * DW_R;
+  const bool live = c < g.c && oy < g.oh && ox < g.ow;
 
-  uint32_t acc[4] = {0, 0, 0, 0};
+  // the thread's weights (3x3) and epilogue constants, loaded while the
+  // window's copies are in flight
+  int32_t wt[K ? K * K : 1][4];
+  uint32_t wsum[4] = {0, 0, 0, 0};
+  DwRq rc[4];
+  if (live) {
+    if (K) {
 #pragma unroll
-  for (int ky = 0; ky < kh; ++ky) {
-    const int iy = iy0 + ky;
+      for (int tap = 0; tap < K * K; ++tap) {
+        const uint32_t word = dw_weight_word(w, tap, c, g);
 #pragma unroll
-    for (int kx = 0; kx < kw; ++kx) {
-      const int ix = ix0 + kx;
-      if ((unsigned)iy >= (unsigned)g.h || (unsigned)ix >= (unsigned)g.w) continue;
-      int32_t xv[4];
-      load4(xi + ((long long)iy * g.w + ix) * g.c, c, g, xv);
-      const char4 wv = *reinterpret_cast<const char4*>(ws + (ky * kw + kx) * tile_c + grp * 4);
-      acc[0] += (uint32_t)((xv[0] - g.izp) * wv.x);
-      acc[1] += (uint32_t)((xv[1] - g.izp) * wv.y);
-      acc[2] += (uint32_t)((xv[2] - g.izp) * wv.z);
-      acc[3] += (uint32_t)((xv[3] - g.izp) * wv.w);
+        for (int e = 0; e < 4; ++e) {
+          wt[tap][e] = sext_byte(word, e);
+          wsum[e] += (uint32_t)wt[tap][e];
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ce = c + e < g.c ? c + e : c;
+      rc[e].bz = RAW ? (uint32_t)rq.bias[ce] : (uint32_t)rq.bias[ce] - (uint32_t)rq.rq_izp;
+      if (!RAW) {
+        const int s = rq.shift[ce];
+        rc[e].m = (uint64_t)(int64_t)rq.mult[ce];
+        rc[e].left = s > 0 ? s : 0;
+        rc[e].tr = 31 + (s < 0 ? -s : 0);
+        rc[e].round = (uint64_t)1 << (rc[e].tr - 1);
+      }
     }
   }
+#if DW_STAGE_INPUT
+  if (g.vec16) asm volatile("cp.async.wait_all;" ::: "memory");
+#endif
+  __syncthreads();
+  if (!live) return;
 
-  const long long o = (long long)pix * g.c + c;
-  if constexpr (RAW) {
-    int32_t v[4];
+  uint32_t acc[DW_R][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = c + j < g.c ? wrap_add((int32_t)acc[j], rq.bias[c + j]) : 0;
-    int32_t* dst = static_cast<int32_t*>(out) + o;
-    if (g.vec) {
-      *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
-    } else {
-      for (int j = 0; j < 4 && c + j < g.c; ++j) dst[j] = v[j];
+  for (int j = 0; j < DW_R; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0u;
+  const uint32_t* row0 = win + ty * g.sh * g.rp + sx * DW_R * sw * cw_n + cw;
+  if (K) {
+    constexpr int NCOL = (DW_R - 1) * (SW ? SW : 1) + K;
+#pragma unroll
+    for (int ky = 0; ky < K; ++ky) {
+      int32_t xv[NCOL][4];
+#pragma unroll
+      for (int i = 0; i < NCOL; ++i) {
+        const uint32_t word = row0[ky * g.rp + i * cw_n];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xv[i][e] = sext_byte(word, e);
+      }
+#pragma unroll
+      for (int j = 0; j < DW_R; ++j)
+#pragma unroll
+        for (int kx = 0; kx < K; ++kx)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[j][e] += (uint32_t)(xv[j * SW + kx][e] * wt[ky * K + kx][e]);
     }
   } else {
-    int8_t v[4];
+    for (int tap = 0; tap < kh * kw; ++tap) {
+      const int ky = tap / kw, kx = tap - ky * kw;
+      const uint32_t wword = ws[tap * cw_n + cw];
+      int32_t wv[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = c + j < g.c ? (int8_t)requantize_channel((int32_t)acc[j], c + j, rq) : 0;
-    int8_t* dst = static_cast<int8_t*>(out) + o;
-    if (g.vec) {
-      *reinterpret_cast<char4*>(dst) = make_char4(v[0], v[1], v[2], v[3]);
+      for (int e = 0; e < 4; ++e) {
+        wv[e] = sext_byte(wword, e);
+        wsum[e] += (uint32_t)wv[e];
+      }
+#pragma unroll
+      for (int j = 0; j < DW_R; ++j) {
+        const uint32_t word = row0[ky * g.rp + (j * sw + kx) * cw_n];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += (uint32_t)(sext_byte(word, e) * wv[e]);
+      }
+    }
+  }
+
+  // the window holds izp where the image does not: take izp * sum(w) off
+  uint32_t zw[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) zw[e] = (uint32_t)g.izp * wsum[e];
+  const long long pix0 = ((long long)img * g.oh + oy) * g.ow + ox;
+#pragma unroll
+  for (int j = 0; j < DW_R; ++j) {
+    if (ox + j >= g.ow) break;
+    const long long o = (pix0 + j) * g.c + c;
+    if constexpr (RAW) {
+      int32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = DW_EPILOGUE ? (int32_t)(acc[j][e] - zw[e] + rc[e].bz) : (int32_t)acc[j][e];
+      int32_t* dst = static_cast<int32_t*>(out) + o;
+      if (g.vec4) {
+        *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
+      } else {
+        for (int e = 0; e < 4 && c + e < g.c; ++e) dst[e] = v[e];
+      }
     } else {
-      for (int j = 0; j < 4 && c + j < g.c; ++j) dst[j] = v[j];
+      uint32_t packed = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int32_t v = DW_EPILOGUE ? dw_requantize(acc[j][e] - zw[e], rc[e], rq)
+                                      : (int32_t)acc[j][e];
+        packed |= (uint32_t)(uint8_t)v << (8 * e);
+      }
+      int8_t* dst = static_cast<int8_t*>(out) + o;
+      if (g.vec4) {
+        *reinterpret_cast<uint32_t*>(dst) = packed;
+      } else {
+        for (int e = 0; e < 4 && c + e < g.c; ++e) dst[e] = (int8_t)(packed >> (8 * e));
+      }
     }
   }
 }
 
-// Launches on `stream` and returns cudaGetLastError() (cudaErrorInvalidValue
-// when the block's weights do not fit in shared memory).  With RAW, `mult`
-// and `shift` are not read.
+template <bool RAW, int K, int SW>
+int launch_dw(const int8_t* x, const int8_t* w, void* out, const Requant& rq, const DwGeo& g,
+              dim3 grid, int threads, size_t smem, cudaStream_t st) {
+  // once per instantiation (and so never inside a CUDA-graph capture, which
+  // follows a warm-up call)
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qdwconv_kernel<RAW, K, SW>, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_MAX_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
+  }
+  qdwconv_kernel<RAW, K, SW><<<grid, threads, smem, st>>>(x, w, out, rq, g);
+  return (int)cudaGetLastError();
+}
+
+// Launches on `stream` at the tile the wrapper planned (P_CC channels,
+// P_TH x P_TW outputs, window row pitch P_RP words; depthwise.py dw_plan)
+// and returns cudaGetLastError(); cudaErrorInvalidValue for a tile K5 does
+// not take (CT not one of 16, 32, 48, 64; TW not a multiple of 4; more than
+// 256 threads; a row pitch below the window's width or not a multiple of 4;
+// the window and weights above 227 KB), an izp outside int8, or more than
+// 2^31 output pixels.  With RAW, `mult` and `shift` are not read.
 template <bool RAW>
 int launch_qdwconv(const int8_t* x, const int8_t* w, void* out, const int32_t* bias,
                    const int32_t* mult, const int32_t* shift, const int32_t* p, void* stream) {
@@ -155,27 +348,38 @@ int launch_qdwconv(const int8_t* x, const int8_t* w, void* out, const int32_t* b
   g.pt = p[P_PT];
   g.pl = p[P_PL];
   g.izp = p[P_IZP];
-  g.vec = p[P_A_VEC] != 0;
-  // channel tiles of at most 32 groups, as even as they can be (C = 144:
-  // two tiles of 18 groups, not 32 + 4)
-  const int groups = (g.c + 3) / 4;
-  const int tiles = (groups + DW_MAX_GROUPS - 1) / DW_MAX_GROUPS;
-  g.groups_per_block = (groups + tiles - 1) / tiles;
-  g.pix_per_block = DW_THREADS / g.groups_per_block;
+  g.vec4 = p[P_A_VEC] != 0;
+  g.vec16 = p[P_B_VEC] != 0;
+  g.ct = p[P_CC];
+  g.th = p[P_TH];
+  g.tw = p[P_TW];
+  g.rp = p[P_DW_RP];
   const Requant rq{bias, mult, shift, p[P_RQ_IZP], p[P_OUT_ZP], p[P_QMIN], p[P_QMAX],
                    p[P_TONEAREST] != 0};
   const long long npix = (long long)g.n * g.oh * g.ow;
-  const size_t smem = (size_t)g.kh * g.kw * g.groups_per_block * 4;
-  if (smem > DW_MAX_SMEM || npix >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  if (npix > 0 && g.c > 0) {
-    const dim3 grid((unsigned)((npix + g.pix_per_block - 1) / g.pix_per_block), tiles);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (g.kh == 3 && g.kw == 3)
-      qdwconv_kernel<RAW, 3><<<grid, DW_THREADS, smem, st>>>(x, w, out, rq, g);
-    else
-      qdwconv_kernel<RAW, 0><<<grid, DW_THREADS, smem, st>>>(x, w, out, rq, g);
-  }
-  return (int)cudaGetLastError();
+  if (npix >= (1LL << 31) || g.izp < -128 || g.izp > 127) return (int)cudaErrorInvalidValue;
+  if (npix == 0 || g.c == 0) return (int)cudaGetLastError();
+  if ((g.ct != 16 && g.ct != 32 && g.ct != 48 && g.ct != 64) || g.th < 1 || g.tw < DW_R ||
+      g.tw % DW_R || (g.vec16 && g.c % 16))
+    return (int)cudaErrorInvalidValue;
+  g.ih = (g.th - 1) * g.sh + g.kh;
+  g.iw = (g.tw - 1) * g.sw + g.kw;
+  g.tiles_y = (g.oh + g.th - 1) / g.th;
+  g.tiles_x = (g.ow + g.tw - 1) / g.tw;
+  const int threads = (g.ct / 4) * g.th * (g.tw / DW_R);
+  const bool k3 = g.kh == 3 && g.kw == 3 && (g.sw == 1 || g.sw == 2);
+  const size_t smem =
+      4 * ((size_t)g.ih * g.rp + (k3 ? 0 : (size_t)g.kh * g.kw * (g.ct / 4)));
+  if (threads > 256 || g.rp < g.iw * (g.ct / 4) || g.rp % 4 || smem > (size_t)DW_MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const long long bx = (long long)g.n * g.tiles_y * g.tiles_x;
+  const long long by = (g.c + g.ct - 1) / g.ct;
+  if (bx > 0x7fffffffLL || by > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)bx, (unsigned)by);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k3 && g.sw == 1) return launch_dw<RAW, 3, 1>(x, w, out, rq, g, grid, threads, smem, st);
+  if (k3) return launch_dw<RAW, 3, 2>(x, w, out, rq, g, grid, threads, smem, st);
+  return launch_dw<RAW, 0, 0>(x, w, out, rq, g, grid, threads, smem, st);
 }
 
 }  // namespace tk

@@ -39,6 +39,9 @@ PARAMS = (
     "l_skip", "lm", "ls", "lzp", "r_skip", "rm", "rs", "rzp", "zo", "lo", "hi",
     "add_tonearest", "g", "s", "d", "causal", "scale_bits", "bm", "bn",
     "group", "cc", "th", "tw", "ks", "kper", "wres", "ahead",
+    "heads", "q_sb", "q_sh", "q_ss", "k_sb", "k_sh", "k_ss", "v_sb", "v_sh", "v_ss",
+    "fa_w", "fa_dq", "fa_dv", "fa_cs", "fa_kg", "fa_vec", "dw_rp",
+    "fa_stages", "fa_bk",
 )
 
 # The block tiles (BM, BN) that K1-K3 and K7-K10 are built at, with BK = 64:
@@ -83,8 +86,13 @@ SOURCES = {
     "qconv_layouts_hopper.cu": (("tk_qconv_rq_t", 6), ("tk_qconv_rq_w", 6)),
     "qconv_direct.cu": (("tk_qconv_direct", 6), ("tk_qdwconv_direct", 6)),
 }
+# -fno-gnu-unique: g++ would give the launchers' once-per-kernel statics
+# (function-template locals) STB_GNU_UNIQUE binding, which the dynamic linker
+# shares across every library loaded in the process, even under RTLD_LOCAL;
+# a second copy of a library would then skip raising its own kernels'
+# shared-memory limit.  With it they stay local to each library.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xcompiler", "-fno-gnu-unique")
 
 _entries: dict[str, ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
@@ -175,9 +183,11 @@ def launch(name: str, tensors, params: dict) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def check_cuda_operands(kernel: str, device: torch.device, **operands) -> None:
-    """Raise unless every operand (tensor, dtype, shape) is a contiguous
-    tensor of that dtype and shape on `device`."""
+def check_cuda_operands(kernel: str, device: torch.device, contiguous: bool = True,
+                        **operands) -> None:
+    """Raise unless every operand (tensor, dtype, shape) is a tensor of that
+    dtype and shape on `device`, contiguous unless `contiguous` is False
+    (K6 reads strided views through their strides)."""
     for key, (t, dtype, shape) in operands.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{kernel}: {key} must be a tensor, got {type(t).__name__}")
@@ -187,5 +197,5 @@ def check_cuda_operands(kernel: str, device: torch.device, **operands) -> None:
             raise TypeError(f"{kernel}: {key} has dtype {t.dtype}, expected {dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{kernel}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{kernel}: {key} must be contiguous")

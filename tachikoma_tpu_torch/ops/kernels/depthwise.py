@@ -13,11 +13,14 @@ stride and padding (top, left, bottom, right); taps outside the image read
 the input zero point, so they add 0 to sum (x_pad - izp) * w.  On a CPU
 tensor each wrapper runs its plain PyTorch version; on a CUDA tensor it
 launches K5 or raises.  The TPU kernel's polyphase stacking, 128-lane
-padding and VMEM budget have no counterpart: K5 reads NHWC directly.
+padding and VMEM budget have no counterpart: K5 stages each block's window
+of the NHWC image in shared memory, at the tile `dw_plan` picks;
+`dw_thread_outputs` says which outputs each thread of that launch writes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..nn import conv2d_out_hw
@@ -25,9 +28,103 @@ from ._lib import LAUNCHES, check_cuda_operands, launch
 from .matmul_int8 import _TONEAREST
 from .requantize import epilogue_plain
 
-# csrc/qdwconv.cu keeps a block's weights (KH * KW taps x up to 128 channels)
-# in 48 KiB of shared memory
-_MAX_TAPS = 48 * 1024 // 128
+# csrc/qdwconv.cu: R output pixels a thread along x, the channel tiles it is
+# built for (in the order a tie prefers them), at most 256 threads and
+# 227 KB of shared memory a block
+R = 4
+CHANNEL_TILES = (32, 64, 16, 48)
+MAX_THREADS = 256
+MAX_SMEM = 227 * 1024
+
+
+def _window(th, tw, kh, kw, sh, sw):
+    return (th - 1) * sh + kh, (tw - 1) * sw + kw
+
+
+def _row_pitch(ct, th, nx, iw, sh, sw) -> int:
+    """The window's row pitch in 4-byte words: its width, rounded up to 16
+    bytes, plus the pad that puts the first warp's first read on the fewest
+    words of one bank (csrc/qdwconv.cu maps thread -> (word, row, strip))."""
+    cw = ct // 4
+    base = -(-iw * cw // 4) * 4
+    threads = min(32, cw * th * nx)
+    best = None
+    for pad in range(0, 32, 4):
+        rp = base + pad
+        banks = {}
+        for lane in range(threads):
+            q, rest = lane % cw, lane // cw
+            ty, sx = rest % th, rest // th
+            addr = ty * sh * rp + sx * R * sw * cw + q
+            banks.setdefault(addr % 32, set()).add(addr)
+        worst = max(len(a) for a in banks.values())
+        if best is None or worst < best[0]:
+            best = (worst, rp)
+    return best[1]
+
+
+def dw_plan(n, oh, ow, c, kh, kw, sh, sw) -> dict:
+    """K5's tile for one call: {"ct": channels, "th": output rows, "tw":
+    output columns (R a thread), "rp": window row pitch in words, "threads",
+    "blocks", "smem" bytes}.  The channel tile pads C the least (ties: 32,
+    64, 16, 48); a block of about 128 threads covers two strips of a row
+    (8 columns) and as many rows as that leaves, up to 8 (tools/dw_probe.py
+    --plans: blocks of 64 to 128 threads and 1 to 2 K outputs ran fastest at
+    MobileNetV2's b8 and b1 calls, the b1 calls too, where such blocks
+    leave most SMs idle: smaller ones, a grid that fills the card, ran up to
+    1.3x slower); the window is cut until it fits in shared memory."""
+    ct = min(CHANNEL_TILES, key=lambda t: (-(-c // t) * t, CHANNEL_TILES.index(t)))
+    nx = max(1, min(2, -(-ow // R)))
+    th = max(1, min(oh, 8, 128 // (ct // 4 * nx)))
+
+    def blocks(ct, th, nx):
+        return n * -(-oh // th) * -(-ow // (R * nx)) * -(-c // ct)
+
+    def smem(ct, th, nx):
+        ih, iw = _window(th, R * nx, kh, kw, sh, sw)
+        generic = not (kh == kw == 3 and sw in (1, 2))
+        return 4 * (ih * _row_pitch(ct, th, nx, iw, sh, sw) + (kh * kw * ct // 4 if generic else 0))
+
+    while smem(ct, th, nx) > MAX_SMEM and (th > 1 or nx > 1 or ct > 16):
+        if th > 1:
+            th = -(-th // 2)
+        elif nx > 1:
+            nx = -(-nx // 2)
+        else:
+            ct = 16
+    if smem(ct, th, nx) > MAX_SMEM:
+        raise ValueError(f"qdwconv: a {kh}x{kw} window does not fit in K5's shared memory")
+    ih, iw = _window(th, R * nx, kh, kw, sh, sw)
+    return dict(ct=ct, th=th, tw=R * nx, rp=_row_pitch(ct, th, nx, iw, sh, sw),
+                threads=ct // 4 * th * nx, blocks=blocks(ct, th, nx), smem=smem(ct, th, nx))
+
+
+def dw_thread_outputs(plan: dict, n, oh, ow, c) -> np.ndarray:
+    """The (image, oy, ox, channel) of every output each thread of K5's
+    launch at `plan` writes, as csrc/qdwconv.cu maps block and thread to
+    them (R pixels along x, 4 channels a thread; those past the image or C
+    are not written): an (M, 4) int64 array, one row an output."""
+    ct, th, tw = plan["ct"], plan["th"], plan["tw"]
+    tiles_x, tiles_y = -(-ow // tw), -(-oh // th)
+    cw = ct // 4
+    tid = np.arange(cw * th * (tw // R))
+    q, rest = tid % cw, tid // cw
+    ty, sx = rest % th, rest // th
+    bx, by = np.meshgrid(np.arange(n * tiles_y * tiles_x), np.arange(-(-c // ct)), indexing="ij")
+    bx, by = bx.reshape(-1, 1), by.reshape(-1, 1)
+    tx, rest_b = bx % tiles_x, bx // tiles_x
+    tyb, img = rest_b % tiles_y, rest_b // tiles_y
+    ch0 = by * ct + 4 * q
+    oy = tyb * th + ty
+    ox0 = tx * tw + sx * R
+    parts = []
+    for j in range(R):
+        for e in range(4):
+            ox, ch = ox0 + j, ch0 + e
+            keep = (ch < c) & (oy < oh) & (ox < ow) & (ch0 < c)
+            parts.append(np.stack([np.broadcast_to(a, keep.shape)[keep]
+                                   for a in (img, oy, ox, ch)], axis=1))
+    return np.concatenate(parts)
 
 
 def dw_acc_plain(x, w, strides, padding, izp) -> torch.Tensor:
@@ -70,16 +167,19 @@ def _launch(kernel, x, w, out_dtype, ptrs, strides, padding, izp, **epilogue):
     oh, ow = conv2d_out_hw(h, wd, kh, kw, strides, padding, (1, 1))
     if min(oh, ow) <= 0:
         raise ValueError(f"{kernel}: bad geometry {tuple(x.shape)} * {tuple(w.shape)}")
-    if kh * kw > _MAX_TAPS:
-        raise ValueError(f"{kernel}: {kh}x{kw} taps exceed K5's shared-memory tile")
+    if not -128 <= int(izp) <= 127:
+        raise ValueError(f"{kernel}: input zero point {izp} is not an int8 value")
     ops = dict(x=(x, torch.int8, (n, h, wd, c)), w=(w, torch.int8, (kh, kw, 1, c)))
     ops.update((k, (t, torch.int32, (c,))) for k, t in ptrs.items())
     check_cuda_operands(kernel, x.device, **ops)
     out = torch.empty((n, oh, ow, c), dtype=out_dtype, device=x.device)
-    vec = c % 4 == 0 and x.data_ptr() % 4 == 0
+    plan = dw_plan(n, oh, ow, c, kh, kw, strides[0], strides[1])
+    vec4 = c % 4 == 0 and x.data_ptr() % 4 == 0 and w.data_ptr() % 4 == 0
+    vec16 = c % 16 == 0 and x.data_ptr() % 16 == 0
     launch(f"tk_{kernel}", [x, w, out, *ptrs.values()], dict(
         n=n, h=h, w=wd, cin=c, kh=kh, kw=kw, cout=c, oh=oh, ow=ow, sh=strides[0],
-        sw=strides[1], pt=padding[0], pl=padding[1], izp=izp, a_vec=vec, **epilogue))
+        sw=strides[1], pt=padding[0], pl=padding[1], izp=izp, a_vec=vec4, b_vec=vec16,
+        cc=plan["ct"], th=plan["th"], tw=plan["tw"], dw_rp=plan["rp"], **epilogue))
     LAUNCHES[kernel] += 1
     return out
 

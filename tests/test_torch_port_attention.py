@@ -24,16 +24,21 @@ from tachikoma_tpu_torch.ir.transforms import fuse_attention
 from tachikoma_tpu_torch.models import transformer as pt
 from tachikoma_tpu_torch.ops import attention
 from tachikoma_tpu_torch.ops.kernels import _lib
-from tachikoma_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
+from tachikoma_tpu_torch.ops.kernels.flash_attention import (KG_DVS, TILES, WARPS, fa_plan,
+                                                              fa_smem_bytes,
+                                                              flash_attention,
+                                                              flash_attention_plain)
 from tachikoma_tpu_torch.runtime.executor import TorchExecutor
 
 KERNEL_RTOL, KERNEL_ATOL = 2e-5, 2e-6
 GRAPH_RTOL, GRAPH_ATOL = 1e-4, 1e-5
 
-# (B, H, S, D, causal): tests/test_flash_attention.py's four shapes and
-# ViT-B/16's (S = 197: the keys of the last tile are masked)
+# (B, H, S, D, causal): tests/test_flash_attention.py's four shapes,
+# ViT-B/16's (S = 197: the keys of the last tile are masked) and two head
+# widths above 128 (K6 splits the output columns across blocks there)
 SHAPES = [(2, 2, 128, 64, False), (1, 3, 256, 64, True), (2, 2, 200, 128, False),
-          (1, 2, 130, 64, True), (1, 12, 197, 64, False)]
+          (1, 2, 130, 64, True), (1, 12, 197, 64, False), (1, 2, 24, 160, False),
+          (1, 2, 24, 256, True)]
 
 # the sizes of tests/test_flash_attention.py:46,62; ViT at image 32, patch 8
 # (S = 17, a ragged size)
@@ -144,3 +149,30 @@ def test_fused_forward_matches_jax_executor_and_unfused_oracle(model, monkeypatc
     # per layer, bmm, multiply, softmax (and GPT-2's mask add) go into tk.attention
     assert len(computational_nodes(j_fused)) == len(computational_nodes(jg)) - 2 * (
         4 if model == "gpt2" else 3)
+
+
+# (G = B*H, S, D): the zoo's calls (BERT-base b4, GPT-2 small b1, ViT-B/16
+# b8), the card tests' head widths and two that need Q and K read from
+# global memory
+PLAN_SHAPES = [(48, 128, 64), (12, 128, 64), (96, 197, 64), (6, 130, 32), (6, 197, 80),
+               (2, 130, 160), (4, 197, 256), (2, 130, 320), (2, 40, 1100), (1, 8, 1),
+               (2, 24, 3000)]
+
+
+@pytest.mark.parametrize("g,s,d", PLAN_SHAPES)
+def test_fa_plan_covers_every_column_and_fits(g, s, d):
+    """K6's plan: a tile it is built for, deep enough for D, output column
+    blocks that cover D, a block's planes within 227 KB of shared memory,
+    and Q and K read from global memory exactly where D is above 256."""
+    plan = fa_plan(g, s, d)
+    assert plan["kg"] == (d > 256)
+    if plan["kg"]:
+        assert plan["w"] == 1 and plan["dq"] == 0 and plan["dv"] in KG_DVS
+    else:
+        assert (plan["dq"], plan["dv"], plan["bk"]) in TILES and plan["w"] in WARPS
+        assert plan["dq"] >= d and (plan["dq"] == 32 or plan["dq"] < 2 * d + 8)
+    assert plan["cs"] * plan["dv"] >= d > (plan["cs"] - 1) * plan["dv"]
+    assert plan["stages"] in (1, 2) and (plan["stages"] == 1 or s > plan["bk"])
+    assert fa_smem_bytes(plan["w"], plan["dq"], plan["dv"], plan["bk"], plan["kg"],
+                         plan["stages"]) <= 227 * 1024
+    assert plan["blocks"] == -(-s // (16 * plan["w"])) * g * plan["cs"]

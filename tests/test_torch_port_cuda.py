@@ -30,6 +30,7 @@ from tachikoma_tpu_torch.ops.kernels.conv import (qconv2d_flat, qconv_raw, qconv
                                                   qconv_rq_res_plain)
 from tachikoma_tpu_torch.ops.kernels.depthwise import (qdwconv_raw, qdwconv_raw_plain,
                                                        qdwconv_rq, qdwconv_rq_plain)
+from tachikoma_tpu_torch.ops.kernels import flash_attention as fa_mod
 from tachikoma_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
 from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qgemm_raw, qgemm_raw_plain, qgemm_rq,
                                                          qgemm_rq_plain)
@@ -187,6 +188,19 @@ DW_CASES = [
     ((2, 9, 9, 13), 5, 2, (2, 2, 2, 2), -5),            # C % 4 != 0
     ((2, 8, 7, 24), 3, 1, (0, 1, 2, 0), 7),             # asymmetric pad
     ((1, 10, 10, 300), 7, 3, (3, 3, 3, 3), -128),       # 3 channel tiles
+    # the other MobileNetV2 b8 shapes (17 calls, 10 shapes in all)
+    ((8, 56, 56, 144), 3, 1, (1, 1, 1, 1), 0),
+    ((8, 28, 28, 192), 3, 1, (1, 1, 1, 1), 0),
+    ((8, 28, 28, 192), 3, 2, (1, 1, 1, 1), 0),
+    ((8, 14, 14, 384), 3, 1, (1, 1, 1, 1), 0),
+    ((8, 14, 14, 576), 3, 1, (1, 1, 1, 1), 0),
+    # stride 2 with asymmetric padding, 5x5 and 7x7 at stride 1, a 16-byte
+    # channel count off the window's 16-byte copies, a tiny image
+    ((2, 11, 13, 20), 3, 2, (0, 1, 1, 0), -7),
+    ((1, 12, 12, 40), 3, 2, (1, 0, 1, 0), 3),
+    ((2, 9, 9, 16), 5, 1, (2, 2, 2, 2), 100),
+    ((1, 9, 9, 32), 7, 1, (3, 3, 3, 3), 127),
+    ((3, 5, 6, 8), 3, 1, (1, 1, 1, 1), 127),
 ]
 
 
@@ -243,6 +257,55 @@ def test_k5_on_a_misaligned_view_and_through_qconv2d_flat(rng, cuda):
     vc = view.contiguous()
     assert torch.equal(got_rq, qdwconv_rq_plain(vc, w, b, mult, shift, **kw))
     assert torch.equal(got_raw, qdwconv_raw_plain(vc, w, b, **kw))
+
+
+@pytest.mark.cuda
+def test_a_second_library_copy_launches_above_48kb(rng, cuda, tmp_path, monkeypatch):
+    """A second copy of K2's library, loaded under another file name into
+    this process, raises its own kernels' shared-memory limit: the
+    launchers' once-per-kernel statics are local to each library
+    (-fno-gnu-unique), not one GNU-unique copy that the first library set.
+    K2 takes more than 48 KB of dynamic shared memory; it launches from
+    the port's library, then from the copy, then from the port's again,
+    == plain each time."""
+    import ctypes
+    import shutil
+
+    shape, k, s, p, cout = (8, 56, 56, 64), 3, 1, 1, 64
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    kw = dict(strides=(s, s), padding=(p,) * 4)
+    want = qconv_rq_plain(x, w, b, mult, shift, **kw)
+    assert torch.equal(qconv_rq(x, w, b, mult, shift, **kw), want)
+    src = "qconv_igemm_hopper.cu"
+    copy = tmp_path / f"second-{_lib._library(src).name}"
+    shutil.copy(_lib._library(src), copy)
+    second = ctypes.CDLL(str(copy))
+    for fn_name, n_ptr in _lib.SOURCES[src]:
+        fn = getattr(second, fn_name)
+        fn.argtypes = [ctypes.c_void_p] * (n_ptr + 2)
+        fn.restype = ctypes.c_int
+        assert fn is not _lib._entries[fn_name]
+        monkeypatch.setitem(_lib._entries, fn_name, fn)
+    got = qconv_rq(x, w, b, mult, shift, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    monkeypatch.undo()
+    assert torch.equal(qconv_rq(x, w, b, mult, shift, **kw), want)
+
+
+@pytest.mark.cuda
+def test_no_library_has_a_gnu_unique_symbol(cuda):
+    """nm -D of every built library shows no STB_GNU_UNIQUE ('u') symbol."""
+    import subprocess
+
+    _lib.build()
+    libs = sorted(_lib.BUILD_DIR.glob("*.so"))
+    assert len(libs) >= len(_lib.SOURCES)
+    for lib in libs:
+        syms = subprocess.run(["nm", "-D", str(lib)], capture_output=True, text=True,
+                              check=True).stdout.splitlines()
+        assert not [ln for ln in syms if ln.split()[-2:-1] == ["u"]], lib.name
 
 
 @pytest.mark.cuda
@@ -326,6 +389,10 @@ FA_CASES = [
     (4, 12, 128, 64, False),       # BERT-base b4 s128
     (1, 12, 128, 64, True),        # GPT-2 small b1 s128
     (8, 12, 197, 64, False),       # ViT-B/16 b8 224^2
+    # D above 128 (the output columns split across blocks; 320 reads Q and K
+    # from global memory), S ragged
+    *((2, 3, s, d, causal) for d in (32, 80, 160, 256, 320) for s in (130, 197)
+      for causal in (False, True)),
 ]
 
 
@@ -350,11 +417,14 @@ def test_k6_flash_attn_on_card(rng, cuda, case):
 @pytest.mark.cuda
 def test_k6_on_permuted_views_and_scale(rng, cuda):
     """The graph hands K6 head-split transposes, (B, S, H, D) viewed as
-    (B, H, S, D); the wrapper copies them and the result is the same."""
+    (B, H, S, D); K6 reads them in place through their strides (the wrapper
+    copies none) and the result is the same."""
     q, k, v = (_f32(rng, (2, 50, 3, 64), cuda).permute(0, 2, 1, 3) for _ in range(3))
     assert not q.is_contiguous()
+    copies = fa_mod.COPIES["flash_attn"]
     got = flash_attention(q, k, v, scale=0.3, causal=True)
     torch.cuda.synchronize()
+    assert fa_mod.COPIES["flash_attn"] == copies
     want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), scale=0.3,
                                  causal=True)
     torch.testing.assert_close(got, want, rtol=FA_RTOL, atol=FA_ATOL)
@@ -362,14 +432,44 @@ def test_k6_on_permuted_views_and_scale(rng, cuda):
 
 @pytest.mark.cuda
 def test_k6_refuses_what_it_does_not_take(rng, cuda):
+    """D above 128 is taken now (no refusal); a wrong dtype or shape is
+    refused."""
     q = _f32(rng, (1, 2, 8, 129), cuda)
-    with pytest.raises(ValueError, match="above"):
-        flash_attention(q, q, q)
+    torch.testing.assert_close(flash_attention(q, q, q), flash_attention_plain(q, q, q),
+                               rtol=FA_RTOL, atol=FA_ATOL)
     q = _f32(rng, (1, 2, 8, 64), cuda)
     with pytest.raises(TypeError):
         flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :, :4], q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 160])
+def test_k6_reads_head_split_views_in_place(rng, cuda, d):
+    """q, k and v as the graph's head split hands them over, three
+    (B, S, H, D) tensors (k and v slices of one (B, S, 2, H, D) projection)
+    viewed as (B, H, S, D): K6 launches once, the wrapper copies none of
+    them, and the result is within tolerance of the plain version; a view
+    whose last dimension is strided is copied, and counted."""
+    b, s, h = 2, 70, 3
+    q = _f32(rng, (b, s, h, d), cuda).permute(0, 2, 1, 3)
+    kv = _f32(rng, (b, s, 2, h, d), cuda)
+    k, v = kv[:, :, 0].permute(0, 2, 1, 3), kv[:, :, 1].permute(0, 2, 1, 3)
+    assert not any(t.is_contiguous() for t in (q, k, v))
+    copies, launches = fa_mod.COPIES["flash_attn"], _lib.LAUNCHES["flash_attn"]
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_mod.COPIES["flash_attn"] == copies
+    assert _lib.LAUNCHES["flash_attn"] == launches + 1
+    want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, rtol=FA_RTOL, atol=FA_ATOL)
+    strided = _f32(rng, (b, h, s, 2 * d), cuda)[..., ::2]
+    got = flash_attention(strided, k, v)
+    torch.cuda.synchronize()
+    assert fa_mod.COPIES["flash_attn"] == copies + 1
+    torch.testing.assert_close(got, flash_attention_plain(strided.contiguous(), k, v),
+                               rtol=FA_RTOL, atol=FA_ATOL)
 
 
 def _small_transformer(name):

@@ -24,8 +24,9 @@ from tachikoma_tpu.ops.fixed_point import requantize_np
 from tachikoma_tpu.ops.pallas.conv_flat import qconv2d_flat as j_qconv2d_flat
 from tachikoma_tpu_torch.ops.kernels import _lib
 from tachikoma_tpu_torch.ops.kernels.conv import qconv2d_flat
-from tachikoma_tpu_torch.ops.kernels.depthwise import (qdwconv_raw, qdwconv_raw_plain,
-                                                       qdwconv_rq, qdwconv_rq_plain)
+from tachikoma_tpu_torch.ops.kernels.depthwise import (dw_plan, dw_thread_outputs, qdwconv_raw,
+                                                       qdwconv_raw_plain, qdwconv_rq,
+                                                       qdwconv_rq_plain)
 from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
 
 CASES = [
@@ -137,3 +138,40 @@ def test_wrappers_on_cpu_count_no_launch_and_refuse_other_devices(rng):
 def test_qconv2d_flat_refuses_other_grouped_convs(rng, wshape, groups):
     with pytest.raises(NotImplementedError, match=f"groups {groups}"):
         qconv2d_flat(torch.from_numpy(_i8(rng, (1, 5, 5, 8))), _i8(rng, wshape), groups=groups)
+
+
+# MobileNetV2 224^2's 17 depthwise convs as (input side, channels, stride),
+# 3x3 pad 1, at b8 and b1; then odd ones: C % 4 != 0, 5x5 and 7x7, stride 2
+# with asymmetric padding, stride 3, a channel count of three tiles
+MBV2_DW = [(112, 32, 1), (112, 96, 2), (56, 144, 1), (56, 144, 2), (28, 192, 1), (28, 192, 1),
+           (28, 192, 2), (14, 384, 1), (14, 384, 1), (14, 384, 1), (14, 384, 1), (14, 576, 1),
+           (14, 576, 1), (14, 576, 2), (7, 960, 1), (7, 960, 1), (7, 960, 1)]
+PLAN_CASES = ([((b, side, side, c), 3, s, (1, 1, 1, 1)) for b in (8, 1) for side, c, s in MBV2_DW]
+              + [((2, 9, 9, 13), 5, 2, (2, 2, 2, 2)), ((2, 8, 7, 24), 3, 1, (0, 1, 2, 0)),
+                 ((1, 10, 10, 300), 7, 3, (3, 3, 3, 3)), ((2, 11, 13, 20), 3, 2, (0, 1, 1, 0)),
+                 ((1, 9, 9, 16), 7, 1, (3, 3, 3, 3)), ((1, 12, 12, 40), 3, 2, (1, 0, 1, 0)),
+                 ((1, 3, 3, 5), 3, 1, (0, 0, 0, 0))])
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"k{c[1]}s{c[2]}")
+def test_tile_plan_covers_every_output_once(case):
+    """K5's tile plan: the outputs its launch's threads write (R pixels x 4
+    channels each, as csrc/qdwconv.cu maps them) cover every pixel and
+    channel exactly once; a block's window and weights fit in 227 KB of
+    shared memory, its threads in 256; where there is work for it, the grid
+    has a block for every SM."""
+    shape, k, s, (pt, pl, pb, pr) = case
+    n, h, w, c = shape
+    oh, ow = (h + pt + pb - k) // s + 1, (w + pl + pr - k) // s + 1
+    plan = dw_plan(n, oh, ow, c, k, k, s, s)
+    assert plan["ct"] in (16, 32, 48, 64) and plan["tw"] % 4 == 0
+    assert plan["threads"] == plan["ct"] // 4 * plan["th"] * plan["tw"] // 4 <= 256
+    iw = (plan["tw"] - 1) * s + k
+    assert plan["rp"] % 4 == 0 and plan["rp"] >= iw * plan["ct"] // 4
+    assert plan["smem"] <= 227 * 1024
+    outs = dw_thread_outputs(plan, n, oh, ow, c)
+    flat = ((outs[:, 0] * oh + outs[:, 1]) * ow + outs[:, 2]) * c + outs[:, 3]
+    assert len(flat) == n * oh * ow * c
+    np.testing.assert_array_equal(np.sort(flat), np.arange(n * oh * ow * c))
+    if n * oh * ow * c >= 132 * 4096:   # work enough for a block of 4 K outputs an SM
+        assert plan["blocks"] >= 132

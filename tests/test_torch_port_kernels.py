@@ -149,3 +149,15 @@ def test_wrappers_count_no_launch_on_cpu(rng):
     b = torch.zeros(8, dtype=torch.int32)
     assert torch.equal(qgemm_rq(x, w, b, v, s), qgemm_rq_plain(x, w, b, v, s))
     assert dict(_lib.LAUNCHES) == before
+
+
+def test_parameter_layout_matches_params_cuh():
+    """`_lib.PARAMS` names the int32 parameter array in the order of
+    csrc/params.cuh's enum Param, which every C entry indexes; a name out of
+    place hands a kernel another kernel's value."""
+    import re
+
+    text = (_lib.CSRC / "params.cuh").read_text()
+    body = re.sub(r"//[^\n]*", "", text[text.index("enum Param {") + 12:text.index("P_COUNT")])
+    names = [n.strip() for n in body.split(",") if n.strip()]
+    assert names == ["P_" + p.upper() for p in _lib.PARAMS]

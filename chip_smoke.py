@@ -19,19 +19,23 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      path gives them: one forward is recorded call by call, then every call is
      replayed on the same tensors, its output held == against the kernel's
      plain PyTorch version, and timed (CUDA events over CUDA-graph replays)
-     beside its bound and a library call of the same shape; K2 and K3 share
-     the persistent wgmma body of csrc/qconv_igemm_hopper.cu (K3's residual
-     add as two tables, K2's K split across blocks into a workspace whose
-     last block requantizes the whole sum), and each of their calls is
-     printed with its tile and K2's split, beside the previous design's time
-     on that call (K2 on csrc/qgemm.cuh), and their times per forward beside
-     the previous design's;
+     beside its bound and a library call of the same shape (at M <= 16,
+     where torch._int_mm refuses, an fp16 matmul of the same shape); K1's
+     tiled path, K2 and K3 share the persistent wgmma body of
+     csrc/igemm_hopper.cuh (K3's residual add as two tables, K2's and K1's
+     K split across blocks into a workspace whose last block requantizes
+     the whole sum), K1's dense calls run its skinny split-K path, and each
+     call is printed with its plan (K1's path, tile and split; K2's tile and
+     split; K3's tile), beside the previous design's time on that call (K1
+     and K2 on csrc/qgemm.cuh), and their times per forward beside the
+     previous design's;
   5. the main path: the launch counts are set to 0, a few requests run through
      TorchExecutor(fuse=True, device="cuda"), the counts are read (each kernel
      must have launched), every captured integer node and the int8 logits are
      held == against the port's plain path (TorchExecutor on the CPU) on the
-     same input, the softmax output with a stated tolerance, and the median
-     latency and images/s are printed;
+     same input, the softmax output with a stated tolerance, no weight is
+     packed K-major again during the requests (K1-K4 pack each weight
+     tensor once), and the median latency and images/s are printed;
   6. device time per request by kernel (torch.profiler) and the device's
      busy share of the median latency;
   7. the trace path, K4: ResNet-50 b1 224^2 quantized and left unfused; one
@@ -110,7 +114,8 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      kernel == plain, timed beside its bound, its plain version, the library
      call, the forward's own route for the same conv (qconv2d_flat: K2, K1
      for a 1x1, K5), whose output it must equal, and the previous design's
-     time (K11's mma.sync kernel); each K11 call is printed with its plan
+     time (K11's mma.sync kernel; K12's own kernel, which K5's body
+     replaced); each K11 call is printed with its plan
      (the Hopper path's BN and taps a step: the staged window, each tap a
      wgmma at a shifted descriptor; or the narrow path's chunk), and each
      CIN-3 conv also on K11's other path (== plain, timed); (c)
@@ -198,7 +203,7 @@ KERNELS = {
                    "tachikoma_tpu/ops/pallas/conv_flat.py:224"),
     "qconv_direct": ("tachikoma_tpu_torch/csrc/qconv_direct.cu",
                      "tachikoma_tpu/ops/pallas/conv_int8.py:47"),
-    "qdwconv_direct": ("tachikoma_tpu_torch/csrc/qconv_direct.cu",
+    "qdwconv_direct": ("tachikoma_tpu_torch/csrc/qdwconv.cu",
                        "tachikoma_tpu/ops/pallas/conv_int8.py:87"),
 }
 LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_s", "qconv_rq_w", "qconv_rq_r")
@@ -228,6 +233,9 @@ EARLIER_MS = {("ResNet-50", "qconv_rq_res"): 0.3525, ("ResNet-50", "qconv_raw"):
               ("ResNet-50", "qconv_direct"): 1.8627,
               # K5 and K6 before their Hopper redesign (their first designs)
               ("MobileNetV2", "qdwconv_rq"): 0.1892, ("MobileNetV2", "qdwconv_raw"): 0.0777,
+              # K1 on csrc/qgemm.cuh and K12 on its own kernel, before their redesign
+              ("ResNet-50", "qgemm_rq"): 0.4246, ("MobileNetV2", "qgemm_rq"): 0.3658,
+              ("VGG-16", "qgemm_rq"): 0.4019, ("MobileNetV2", "qdwconv_direct"): 0.1936,
               ("BERT-base b4 s128", "flash_attn"): 0.2954,
               ("GPT-2 small b1 s128", "flash_attn"): 0.2878,
               (f"ViT-B/16 b{BATCH} {IMAGE}^2", "flash_attn"): 0.8744}
@@ -236,6 +244,30 @@ EARLIER_MS = {("ResNet-50", "qconv_rq_res"): 0.3525, ("ResNet-50", "qconv_raw"):
 EARLIER_BUSY = {"MobileNetV2": "1.8423 ms, 7.5%", "BERT-base b4 s128": "27.3%",
                 "GPT-2 small b1 s128": "17.3%", f"ViT-B/16 b{BATCH} {IMAGE}^2": "72.4%"}
 EARLIER_CALL_MS = {
+    # K12's own kernel before it moved onto K5's body (tools/dw_probe.py --k12 on it)
+    ("MobileNetV2", "qdwconv_direct"): {
+        "8x112x112x32 k3 s1 -> 32": 0.0312, "8x112x112x96 k3 s2 -> 96": 0.0190,
+        "8x56x56x144 k3 s1 -> 144": 0.0312, "8x56x56x144 k3 s2 -> 144": 0.0128,
+        "8x28x28x192 k3 s1 -> 192": 0.0112, "8x28x28x192 k3 s2 -> 192": 0.0075,
+        "8x14x14x384 k3 s1 -> 384": 0.0070, "8x14x14x576 k3 s1 -> 576": 0.0098,
+        "8x14x14x576 k3 s2 -> 576": 0.0054, "8x7x7x960 k3 s1 -> 960": 0.0051},
+    # K1's first design (csrc/qgemm.cuh), per call (tools/gemm_probe.py on it)
+    ("ResNet-50", "qgemm_rq"): {
+        "M=25088 K=64 N=64": 0.0086, "M=25088 K=64 N=256": 0.0332, "M=25088 K=256 N=64": 0.0117,
+        "M=25088 K=256 N=128": 0.0251, "M=6272 K=256 N=512": 0.0241, "M=6272 K=512 N=128": 0.0131,
+        "M=6272 K=512 N=256": 0.0181, "M=1568 K=512 N=1024": 0.0199, "M=1568 K=1024 N=256": 0.0148,
+        "M=1568 K=1024 N=512": 0.0197, "M=392 K=1024 N=2048": 0.0194, "M=392 K=2048 N=512": 0.0243,
+        "M=8 K=2048 N=1000": 0.0195},
+    ("MobileNetV2", "qgemm_rq"): {
+        "M=100352 K=32 N=16": 0.0109, "M=100352 K=16 N=96": 0.0393, "M=25088 K=96 N=24": 0.0059,
+        "M=25088 K=24 N=144": 0.0217, "M=25088 K=144 N=24": 0.0067, "M=6272 K=144 N=32": 0.0061,
+        "M=6272 K=32 N=192": 0.0086, "M=6272 K=192 N=32": 0.0061, "M=1568 K=192 N=64": 0.0061,
+        "M=1568 K=64 N=384": 0.0075, "M=1568 K=384 N=64": 0.0079, "M=1568 K=384 N=96": 0.0079,
+        "M=1568 K=96 N=576": 0.0080, "M=1568 K=576 N=96": 0.0096, "M=392 K=576 N=160": 0.0098,
+        "M=392 K=160 N=960": 0.0067, "M=392 K=960 N=160": 0.0131, "M=392 K=960 N=320": 0.0138,
+        "M=392 K=320 N=1280": 0.0105, "M=8 K=1280 N=1000": 0.0134},
+    ("VGG-16", "qgemm_rq"): {
+        "M=8 K=25088 N=4096": 0.3230, "M=8 K=4096 N=4096": 0.0403, "M=8 K=4096 N=1000": 0.0359},
     ("ResNet-50", "qconv_rq"): {
         "8x224x224x3 k7 s2 -> 64": 0.0710, "8x56x56x64 k3 s1 -> 64": 0.0211,
         "8x56x56x128 k3 s2 -> 128": 0.0305, "8x28x28x128 k3 s1 -> 128": 0.0316,
@@ -282,7 +314,8 @@ EARLIER_CALL_MS = {
         "8x7x7x512 k3 s1 -> 512": 0.0666},
 }
 # printed call by call with their plan
-PLAN_KERNELS = ("qconv_rq", "qconv_rq_res", "qconv_raw", "qdwconv_rq", "qdwconv_raw", "flash_attn")
+PLAN_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res", "qconv_raw", "qdwconv_rq", "qdwconv_raw",
+                "flash_attn")
 
 
 def say(*a):
@@ -469,14 +502,21 @@ def hold_call(name, a, k, impl) -> float:
 
 
 def launch_plan(name, a, k) -> str:
-    """The launch of one call as its wrapper plans it: K2's tile and split of
+    """The launch of one call as its wrapper plans it: K1's path (tiled at a
+    tile, or skinny) and split of K, K2's tile and split of
     K, K3's tile, K4's conv-mode split, K11's path (BN and taps a step on the
     Hopper path, the chunk on the narrow one), K5's tile, K6's plan (warps a
     block, depth of Q.K^T, output columns a block, column blocks, stages;
     kg: Q and K read from global memory)."""
-    from tachikoma_tpu_torch.ops.kernels import _lib, conv, conv_direct, depthwise, flash_attention
+    from tachikoma_tpu_torch.ops.kernels import (_lib, conv, conv_direct, depthwise,
+                                                 flash_attention, matmul_int8)
 
     x, w = a[0], a[1]
+    if name == "qgemm_rq":
+        p = k.get("plan") or matmul_int8.gemm_plan(x.shape[0], x.shape[1], w.shape[1],
+                                                   k.get("blocks"), conv.sm_count(x.device.index))
+        tile = f" {p['bm']}x{p['bn']}" if p["path"] == "tiled" else ""
+        return f"{p['path']}{tile} split {p['ks']} x {p['kper']}"
     if name == "flash_attn":
         b, h, s_, d = x.shape
         p = flash_attention.fa_plan(b * h, s_, d, conv.sm_count(x.device.index))
@@ -682,6 +722,7 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
     Returns the kernels' per-forward totals, their launches, and the path's
     state for phase 15 (graphs, executor, requests, the CPU outputs of the
     first request, the median latency)."""
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8
     from tachikoma_tpu_torch.quantize.quantizer import quantize
     from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
     from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
@@ -713,6 +754,7 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
 
     phase(f"{labels[2]} {model} main path: {REQUESTS} requests through "
           "TorchExecutor(device='cuda')")
+    packed = len(matmul_int8._KMAJOR)
     reset(kernels)
     lat = []
     first_out = None
@@ -726,6 +768,10 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
     launches = read_launches(kernels, f"the {model} run path")
     for name, n in launches.items():
         say(f"{name}: {n} launches, {n // REQUESTS} per forward")
+    # K1-K4 read weights packed K-major once per weight tensor: none is
+    # packed again inside a request
+    assert len(matmul_int8._KMAJOR) == packed, "a request packed a weight again"
+    say(f"{packed} weight tensors packed K-major before the requests, none during them")
     t0 = time.perf_counter()
     plain = TorchExecutor(fused, capture=names, device="cpu").run(requests[0])
     say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
@@ -1313,7 +1359,7 @@ def direct_path(vgg_state, r50_state, mbv2_state) -> tuple[dict, dict]:
         args = (x, w, bias, channel_vector(mult, cout, "cuda"), channel_vector(shift, cout, "cuda"))
         kw = dict(strides=strides, padding=padding)
         r = check_call(name, args, kw, impl)
-        r["plan"] = launch_plan(name, args, kw) if groups == 1 else "-"
+        r["plan"] = launch_plan(name, args, kw)
 
         def route(x=x, w=w, bias=bias, mult=mult, shift=shift, key=key):
             return qconv2d_flat(x, w, bias, mult, shift, strides=key[2], padding=key[3],

@@ -1,0 +1,553 @@
+// The implicit-GEMM body on Hopper's wgmma that K1's tiled path
+// (qgemm_rq.cu), K2, K3 and K4's conv mode (qconv_igemm_hopper.cu) launch:
+// persistent blocks over (M tile, N tile) items, a cp.async ring across
+// them, three epilogues (Mode), the exact split of K.  The design and its
+// measurements are in qconv_igemm_hopper.cu's notes.
+#pragma once
+
+#include "epilogue_hopper.cuh"
+#include "layouts_hopper.cuh"
+
+namespace tk {
+namespace igemm {
+
+using hop::cp_async16;
+using hop::cp_async_commit;
+using hop::cp_async_wait_upto;
+using hop::fence_proxy_async;
+using hop::gmma_desc;
+using hop::wgmma_acc;
+using hop::wgmma_commit;
+using hop::wgmma_fence;
+using hop::wgmma_wait0;
+
+constexpr int KSTEP = 64;  // bytes of K per step
+
+// 8 bytes from global to shared memory, zeros where !valid (.ca: the only
+// cp.async class that takes 8 bytes).
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 8 : 0));
+}
+constexpr int RPAD = 16;   // bytes of padding per row of the staged output tile
+
+// The epilogue of a launch: K4's raw int32 store, K2's requantize, K3's
+// requantize and residual add.
+enum Mode { RAW, RQ, RES };
+
+struct Geo {
+  int n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, pt, pl;
+  int M, K, steps, kper;  // steps = Kp / 64; a split walks kper of them
+  int m_tiles, n_tiles, gm;  // a block walks M tiles mb, mb + gm, ... of one N tile
+  // dynamic shared memory: the ring (STAGES x stage_bytes), then from off_b
+  // the resident weights (b_res), the column constants, the tables (K3),
+  // the staged tiles (K2, K3) and K2's arrival flag; smem bytes in all
+  int stage_bytes, off_b, off_cols, off_tables, off_rtile, off_flag, smem;
+  bool b_res;  // the block's weights (every step of its N tile) staged once
+  uint32_t izp4;
+  bool a_vec;   // CIN % 16 == 0 and x 16-byte aligned
+  bool a_vec8;  // K1's GEMM (1x1): CIN % 16 == 8 and x 8-byte aligned, 8-byte copies
+  bool o_vec;  // K2, K3: COUT % 16 == 0, out (and K3's residual) 16-byte aligned
+  hop::FastDiv by_ohow, by_ow;
+};
+
+// The block-uniform epilogue constants; K3's tables are built from them.
+struct Epi {
+  epi::RqConst rq;
+  int32_t rq_izp;
+  bool l_skip, r_skip, add_tonearest;
+  int32_t lm, ls, lzp, rm, rs, rzp, zo, lo, hi;
+};
+
+__device__ __forceinline__ int cm_off(int r, int seg) {
+  return (r >> 3) * 512 + seg * 128 + (r & 7) * 16;
+}
+
+// One side of the residual add at int8 value v (requantize.cuh's
+// q_multiply_shift, as plan_res_add plans it).
+__device__ __forceinline__ int32_t res_side(int32_t v, bool skip, int32_t m, int32_t s,
+                                            int32_t zp, const Epi& e) {
+  return skip ? v : wrap_add(q_multiply_shift(wrap_sub(v, zp), m, s, e.add_tonearest), e.zo);
+}
+
+constexpr int BRES_STEPS = 2;  // K3 keeps its block's weights resident up to this many steps
+
+template <int MODE, int BM, int BN>
+struct Tiles {
+  static constexpr int NT = 2 * BM;                        // a warpgroup per 64 rows
+  static constexpr int STAGES = MODE == RES ? 3 : 4;       // the cp.async ring
+  static constexpr int AHEAD = MODE == RES ? 1 : STAGES - 1;  // items the copies run ahead
+  // staged output tiles: K3 one per item in flight (its residual lands
+  // there), K2 one
+  static constexpr int RSLOTS = MODE == RES ? AHEAD + 1 : MODE == RQ ? 1 : 0;
+  static constexpr int RS = BN + RPAD;                     // staged tile row stride
+};
+
+// The shared-memory layout of a launch (Geo's offsets).  K3 keeps its
+// block's weights resident when K has at most BRES_STEPS steps: its items
+// all read the same N tile's K range, so the ring then carries A alone and
+// a block holds less.  With more steps the resident copy delays the first
+// product (the 14^2 calls of ResNet-50 b8 ran 8% slower so, on the H100).
+template <int MODE, int BM, int BN>
+void smem_layout(Geo& g) {
+  using T = Tiles<MODE, BM, BN>;
+  g.b_res = MODE == RES && g.steps <= BRES_STEPS;
+  g.stage_bytes = (BM + (g.b_res ? 0 : BN)) * KSTEP;
+  g.off_b = T::STAGES * g.stage_bytes;
+  g.off_cols = g.off_b + (g.b_res ? g.steps * BN * KSTEP : 0);
+  g.off_tables = g.off_cols + (MODE != RAW ? BN * 16 : 0);
+  g.off_rtile = g.off_tables + (MODE == RES ? 2 * 256 * 4 : 0);
+  g.off_flag = g.off_rtile + T::RSLOTS * BM * T::RS;
+  g.smem = g.off_flag + (MODE == RQ ? 16 : 0);
+}
+
+// A block of the grid (x: N tile + n_tiles * mb, z: split of K) walks the M
+// tiles mb, mb + gm, ... of its N tile, one item each, and the steps of its
+// split in each.  The copies run as one stream of stages over the items: up
+// to STAGES - 1 stages ahead of the products, and up to AHEAD items ahead,
+// so that the next items' copies (and K3's next residual tiles) are in
+// flight while this item's epilogue runs.  `ws` is K2's split workspace.
+template <int MODE, int BM, int BN>
+__global__ void __launch_bounds__(2 * BM)
+    igemm_hopper(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
+                 void* __restrict__ out, const int8_t* __restrict__ residual,
+                 const int32_t* __restrict__ bias, const int32_t* __restrict__ mult,
+                 const int32_t* __restrict__ shift, int32_t* __restrict__ ws, Epi e, Geo g) {
+  using S = Tiles<MODE, BM, BN>;
+  constexpr int NT = S::NT, ST = S::STAGES;
+  constexpr bool RES_ = MODE == RES;
+  constexpr int A_PER = BM * 4 / NT;  // rows a thread stages: 2
+  constexpr int B_PER = BN * 4 / NT;  // weight rows a thread stages: 1, 2 or 4
+  // no static shared memory: the launch grants the dynamic the whole 227 KB
+  extern __shared__ __align__(128) int8_t smem[];
+  const int tid = threadIdx.x, seg = tid & 3;
+  const int nt_idx = blockIdx.x % g.n_tiles;
+  const int n0 = nt_idx * BN, mb = blockIdx.x / g.n_tiles;
+  const int n_items = mb < g.m_tiles ? (g.m_tiles - 1 - mb) / g.gm + 1 : 0;
+  const int kbeg = blockIdx.z * g.kper;
+  const int nst = min(g.steps, kbeg + g.kper) - kbeg;  // steps per item
+  // the (ky, kx, ci) of this thread's segment at step kbeg
+  int ky0, kx0, ci0;
+  {
+    const int k = kbeg * KSTEP + seg * 16;
+    const int tap = k / g.cin;
+    ci0 = k - tap * g.cin;
+    ky0 = tap / g.kw;
+    kx0 = tap - ky0 * g.kw;
+  }
+  const uint4 fill = make_uint4(g.izp4, g.izp4, g.izp4, g.izp4);
+  int8_t* const bres = smem + g.off_b;
+  int4* const colc = reinterpret_cast<int4*>(smem + g.off_cols);
+  int32_t* const tl = reinterpret_cast<int32_t*>(smem + g.off_tables);
+  int32_t* const tr = tl + 256;
+  int8_t* const rt = smem + g.off_rtile;
+  int* const s_last = reinterpret_cast<int*>(smem + g.off_flag);  // K2's split: arrived last
+
+  // the producer: the item and step it stages next, its rows, its segment's
+  // (ky, kx, ci)
+  long long a_base[A_PER];
+  int a_iy[A_PER], a_ix[A_PER];
+  bool a_ok[A_PER];
+  int ky = ky0, kx = kx0, ci = ci0;
+  int p_item = 0, p_step = 0, issued = 0;
+
+  auto begin_item = [&](int item) {
+    const int m0 = (mb + item * g.gm) * BM;
+#pragma unroll
+    for (int j = 0; j < A_PER; ++j) {
+      const int m = m0 + (tid >> 2) + j * (NT / 4);
+      a_ok[j] = m < g.M;
+      const int mm = a_ok[j] ? m : 0;
+      const int img = g.by_ohow.div(mm), rem = mm - img * (g.oh * g.ow);
+      const int oy = g.by_ow.div(rem), ox = rem - oy * g.ow;
+      a_base[j] = (long long)img * g.h * g.w * g.cin;
+      a_iy[j] = oy * g.sh - g.pt;
+      a_ix[j] = ox * g.sw - g.pl;
+    }
+    ky = ky0;
+    kx = kx0;
+    ci = ci0;
+    if constexpr (RES_) {
+      if (g.o_vec) {  // the item's residual tile, with its first stage's copies
+        int8_t* const rtile = rt + (item % S::RSLOTS) * BM * S::RS;
+        for (int i = tid; i < BM * (BN / 16); i += NT) {
+          const int r = i / (BN / 16), c = 16 * (i % (BN / 16));
+          const int row = m0 + r, col = n0 + c;
+          const bool ok = row < g.M && col < g.cout;
+          cp_async16(rtile + r * S::RS + c,
+                     ok ? residual + (long long)row * g.cout + col : residual, ok);
+        }
+      }
+    }
+  };
+
+  // K2's copies are cached in L1 too (its 3x3 calls read each input row at
+  // three taps, its blocks on an SM share the weights); K3's and K4's stay
+  // in L2 alone, as measured in their redesign
+  auto copy16 = [](void* d, const void* src, bool ok) {
+    if constexpr (MODE == RQ)
+      hop::cp_async16_ca(d, src, ok);
+    else
+      cp_async16(d, src, ok);
+  };
+
+  auto stage_b = [&](int8_t* bs, int kstep) {  // the N tile's weights at step kstep
+    const int8_t* const wb = wk + ((long long)kstep * g.cout + n0) * KSTEP + seg * 16;
+#pragma unroll
+    for (int j = 0; j < B_PER; ++j) {
+      const int r = (tid >> 2) + j * (NT / 4);
+      const bool ok = n0 + r < g.cout;
+      copy16(bs + cm_off(r, seg), ok ? wb + r * KSTEP : wk, ok);
+    }
+  };
+
+  auto stage = [&](int slot, int kstep) {  // step kstep of the producer's item
+    int8_t* const as = smem + slot * g.stage_bytes;
+    int8_t* const bs = as + BM * KSTEP;
+#pragma unroll
+    for (int j = 0; j < A_PER; ++j) {
+      int8_t* d = as + cm_off((tid >> 2) + j * (NT / 4), seg);
+      if (g.a_vec || g.a_vec8) {
+        const int iy = a_iy[j] + ky, ix = a_ix[j] + kx;
+        if (!a_ok[j] || ky >= g.kh) {
+          copy16(d, x, false);  // past K (zero weights) or past M (not stored)
+        } else if ((unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w) {
+          const int8_t* const src = x + a_base[j] + ((long long)iy * g.w + ix) * g.cin + ci;
+          if (g.a_vec) {
+            copy16(d, src, true);
+          } else {  // a 1x1 conv's segment: its second half may lie past K (zeros)
+            cp_async8(d, src, true);
+            cp_async8(d + 8, ci + 8 < g.cin ? src + 8 : x, ci + 8 < g.cin);
+          }
+        } else {
+          *reinterpret_cast<uint4*>(d) = fill;
+        }
+        continue;
+      }
+      uint32_t v[4] = {0, 0, 0, 0};
+      if (a_ok[j]) {
+        int cy = ky, cx = kx, cc = ci;
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {  // unrolled: v stays in registers
+          if (cy >= g.kh) break;
+          const int iy = a_iy[j] + cy, ix = a_ix[j] + cx;
+          const uint32_t byte =
+              (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w
+                  ? (uint8_t)x[a_base[j] + ((long long)iy * g.w + ix) * g.cin + cc]
+                  : g.izp4 & 0xffu;
+          v[b >> 2] |= byte << (8 * (b & 3));
+          if (++cc == g.cin) {
+            cc = 0;
+            if (++cx == g.kw) {
+              cx = 0;
+              ++cy;
+            }
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(d) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    if (!g.b_res) stage_b(bs, kstep);
+    // the next step: 64 bytes on
+    ci += KSTEP;
+    while (ci >= g.cin && ky < g.kh) {
+      ci -= g.cin;
+      if (++kx == g.kw) {
+        kx = 0;
+        ++ky;
+      }
+    }
+  };
+
+  // issues stages while the ring has room, up to AHEAD items ahead of c_item
+  auto produce = [&](int consumed, int c_item) {
+    while (issued - consumed < ST - 1 && p_item < n_items && p_item <= c_item + S::AHEAD) {
+      if (p_step == 0) begin_item(p_item);
+      stage(issued % ST, kbeg + p_step);
+      cp_async_commit();
+      ++issued;
+      if (++p_step == nst) {
+        p_step = 0;
+        ++p_item;
+      }
+    }
+  };
+
+  if (g.b_res)  // every step of the block's weights, with the first stage's copies
+    for (int st = 0; st < g.steps; ++st) stage_b(bres + st * BN * KSTEP, st);
+  produce(0, 0);
+  if constexpr (MODE != RAW)  // column constants (and the add's tables), while the copies fly
+    epi::load_cols(colc, BN, n0, g.cout, bias, mult, shift, e.rq_izp);
+  if constexpr (RES_) {
+    for (int i = tid; i < 512; i += NT) {
+      const int32_t v = (int8_t)(i & 255);
+      if (i < 256)
+        tl[i] = res_side(v, e.l_skip, e.lm, e.ls, e.lzp, e);
+      else
+        tr[i - 256] = wrap_sub(res_side(v, e.r_skip, e.rm, e.rs, e.rzp, e), e.zo);
+    }
+  }
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  // fragment: acc[4 jb + e] is row 16 warp + lane / 4 + 8 (e >> 1) of the
+  // warpgroup's 64, column 8 jb + 2 (lane % 4) + (e & 1)
+  const int rl0 = wg * 64 + 16 * warp + (lane >> 2);
+  int32_t acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  int consumed = 0, c_item = 0, c_step = 0;
+  while (c_item < n_items) {
+    produce(consumed, c_item);
+    cp_async_wait_upto(issued - consumed - 1);
+    fence_proxy_async();
+    __syncthreads();
+    const int8_t* const as = smem + (consumed % ST) * g.stage_bytes;
+    const int8_t* const bs = g.b_res ? bres + c_step * BN * KSTEP : as + BM * KSTEP;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_acc<BN>(acc, gmma_desc(as + wg * 4096 + kk * 256, 128, 512),
+                    gmma_desc(bs + kk * 256, 128, 512));
+    wgmma_commit();
+    wgmma_wait0();
+    ++consumed;
+    if (++c_step < nst) continue;
+
+    // the epilogue of item c_item
+    const int mt_idx = mb + c_item * g.gm, m0 = mt_idx * BM;
+    bool run_epilogue = true;
+    if constexpr (MODE == RQ) {
+      if (gridDim.z > 1) {  // a split: add into the workspace; the last block on
+        int32_t* const cnt = ws + (long long)g.M * g.cout;
+#pragma unroll
+        for (int jb = 0; jb < BN / 8; ++jb) {
+          const int col = n0 + 8 * jb + 2 * (lane & 3);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + rl0 + 8 * h;
+            if (row >= g.M) continue;
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1)
+              if (col + e1 < g.cout)  // int32 atomics wrap: the same sum in any order
+                atomicAdd(ws + (long long)row * g.cout + col + e1, acc[4 * jb + 2 * h + e1]);
+          }
+        }
+        __threadfence();
+        __syncthreads();
+        if (tid == 0)
+          *s_last = atomicAdd(cnt + mt_idx * g.n_tiles + nt_idx, 1) == (int)gridDim.z - 1;
+        __syncthreads();
+        run_epilogue = *s_last != 0;
+        if (run_epilogue) {  // every other split's adds are done: read the total
+          __threadfence();
+#pragma unroll
+          for (int jb = 0; jb < BN / 8; ++jb) {
+            const int col = n0 + 8 * jb + 2 * (lane & 3);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = m0 + rl0 + 8 * h;
+#pragma unroll
+              for (int e1 = 0; e1 < 2; ++e1)
+                acc[4 * jb + 2 * h + e1] =
+                    row < g.M && col + e1 < g.cout
+                        ? __ldcg(ws + (long long)row * g.cout + col + e1)
+                        : 0;
+            }
+          }
+        }
+      }
+    }
+    if constexpr (MODE != RAW) {
+      int8_t* const o8 = static_cast<int8_t*>(out);
+      auto dst = [&](int r) -> long long {
+        const int row = m0 + r;
+        return row < g.M ? (long long)row * g.cout + n0 : -1;
+      };
+      if (run_epilogue && g.o_vec) {
+        int8_t* const rtile = rt + (RES_ ? (c_item % S::RSLOTS) * BM * S::RS : 0);
+        if constexpr (RES_) {  // the residual tile landed with the item's first stage
+          epi::stage_fragment<BN>(rtile, S::RS, rl0, acc, colc, e.rq,
+                                  [&](int32_t q0, int32_t q1, uint16_t rr) {
+                                    const int32_t o0 =
+                                        min(max(wrap_add(tl[q0 & 255], tr[rr & 255]), e.lo), e.hi);
+                                    const int32_t o1 =
+                                        min(max(wrap_add(tl[q1 & 255], tr[rr >> 8]), e.lo), e.hi);
+                                    return (uint16_t)((o0 & 255) | (o1 & 255) << 8);
+                                  });
+        } else {
+          epi::stage_fragment<BN>(rtile, S::RS, rl0, acc, colc, e.rq, epi::PackPair{});
+        }
+        __syncthreads();
+        epi::store_tile16(o8, rtile, S::RS, BM, min(BN, g.cout - n0), dst);
+        // K3's tile is free for item c_item + RSLOTS after this barrier; K2's
+        // next write to its one tile follows a barrier of the next item's
+        // main loop
+        if constexpr (RES_) __syncthreads();
+      } else if (run_epilogue) {
+#pragma unroll
+        for (int jb = 0; jb < BN / 8; ++jb) {
+          const int cl = 8 * jb + 2 * (lane & 3);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + rl0 + 8 * h;
+            if (row >= g.M) continue;
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const int col = n0 + cl + e1;
+              if (col >= g.cout) continue;
+              const long long o = (long long)row * g.cout + col;
+              int32_t q = epi::requant_wide(acc[4 * jb + 2 * h + e1], colc[cl + e1], e.rq);
+              if constexpr (RES_)
+                q = min(max(wrap_add(tl[q & 255], tr[(uint8_t)residual[o]]), e.lo), e.hi);
+              o8[o] = (int8_t)q;
+            }
+          }
+        }
+      }
+    } else {
+      int32_t* const o32 = static_cast<int32_t*>(out);
+      const bool split = gridDim.z > 1, with_bias = blockIdx.z == 0;
+#pragma unroll
+      for (int jb = 0; jb < BN / 8; ++jb) {
+        const int col = n0 + 8 * jb + 2 * (lane & 3);
+        if (col >= g.cout) continue;
+        const bool pair = col + 1 < g.cout;
+        const int32_t b0 = with_bias ? bias[col] : 0;
+        const int32_t b1 = with_bias && pair ? bias[col + 1] : 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + rl0 + 8 * h;
+          if (row >= g.M) continue;
+          int32_t* p = o32 + (long long)row * g.cout + col;
+          const int32_t v0 = wrap_add(acc[4 * jb + 2 * h], b0);
+          const int32_t v1 = wrap_add(acc[4 * jb + 2 * h + 1], b1);
+          if (split) {  // int32 atomics wrap: the same sum in any order
+            atomicAdd(p, v0);
+            if (pair) atomicAdd(p + 1, v1);
+          } else if (pair && (g.cout & 1) == 0) {
+            *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+          } else {
+            p[0] = v0;
+            if (pair) p[1] = v1;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    c_step = 0;
+    ++c_item;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+inline bool make_geo(const int32_t* p, Geo& g) {
+  g.n = p[P_N];
+  g.h = p[P_H];
+  g.w = p[P_W];
+  g.cin = p[P_CIN];
+  g.kh = p[P_KH];
+  g.kw = p[P_KW];
+  g.cout = p[P_COUT];
+  g.oh = p[P_OH];
+  g.ow = p[P_OW];
+  g.sh = p[P_SH];
+  g.sw = p[P_SW];
+  g.pt = p[P_PT];
+  g.pl = p[P_PL];
+  if (g.cin <= 0 || g.kh <= 0 || g.kw <= 0 || g.sh <= 0 || g.sw <= 0) return false;
+  g.M = g.n * g.oh * g.ow;
+  g.K = g.kh * g.kw * g.cin;
+  g.steps = (g.K + KSTEP - 1) / KSTEP;
+  g.kper = p[P_KPER];
+  g.izp4 = (uint32_t)(uint8_t)(int8_t)p[P_IZP] * 0x01010101u;
+  g.a_vec = p[P_A_VEC] != 0 && g.cin % 16 == 0;
+  g.a_vec8 = false;
+  g.o_vec = false;
+  return true;
+}
+
+inline Epi make_epi(const int32_t* p) {
+  Epi e{};
+  e.rq = epi::RqConst{p[P_OUT_ZP], p[P_QMIN], p[P_QMAX], p[P_TONEAREST] != 0};
+  e.rq_izp = p[P_RQ_IZP];
+  return e;
+}
+
+// Whether a split of ks ways, kper steps each, covers the steps with every
+// split non-empty.
+inline bool split_ok(int ks, const Geo& g) {
+  return ks >= 1 && g.kper >= 1 && (long long)ks * g.kper >= g.steps &&
+         (ks - 1) * g.kper < g.steps;
+}
+
+// Launches the kernel over a grid of (N tiles x gm, 1, ks): gm M-tile lanes,
+// each block walking every gm-th M tile of its N tile, with gm as large as
+// the card holds blocks at once (the occupancy API, once per kernel and
+// shared-memory size) and at most the M tiles.
+template <int MODE, int BM, int BN>
+int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* residual,
+                const int32_t* bias, const int32_t* mult, const int32_t* shift, int32_t* ws,
+                const Epi& e, Geo g, int ks, cudaStream_t stream) {
+  using T = Tiles<MODE, BM, BN>;
+  auto kern = igemm_hopper<MODE, BM, BN>;
+  static int sms = 0;  // once per kernel: the SM count, the shared memory ceiling
+  static int occ_smem[8], occ_blocks[8], n_occ = 0;  // blocks an SM, by shared memory
+  if (sms == 0) {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)hop::SMEM_LIMIT) != cudaSuccess)
+      return (int)cudaGetLastError();
+    sms = n;
+  }
+  smem_layout<MODE, BM, BN>(g);
+  if (g.smem > (int)hop::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  for (int i = 0; i < n_occ; ++i)
+    if (occ_smem[i] == g.smem) per_sm = occ_blocks[i];
+  if (per_sm == 0) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, T::NT, g.smem) !=
+        cudaSuccess)
+      return (int)cudaGetLastError();
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    if (n_occ < 8) {
+      occ_smem[n_occ] = g.smem;
+      occ_blocks[n_occ++] = per_sm;
+    }
+  }
+  g.m_tiles = (g.M + BM - 1) / BM;
+  g.n_tiles = (g.cout + BN - 1) / BN;
+  g.gm = std::max(1, std::min(g.m_tiles, sms * per_sm / (g.n_tiles * ks)));
+  g.by_ohow = hop::FastDiv::make(g.oh * g.ow);
+  g.by_ow = hop::FastDiv::make(g.ow);
+  const dim3 grid(g.n_tiles * g.gm, 1, ks);
+  kern<<<grid, T::NT, g.smem, stream>>>(x, wk, out, residual, bias, mult, shift, ws, e, g);
+  return (int)cudaGetLastError();
+}
+
+// Launches MODE (K2 or K3) at the tile (P_BM, P_BN) from {64, 128}^2.
+template <int MODE>
+int launch_rq(const int8_t* x, const int8_t* wk, int8_t* out, const int8_t* residual,
+              const int32_t* bias, const int32_t* mult, const int32_t* shift, int32_t* ws,
+              const Epi& e, const Geo& g, int ks, const int32_t* p, cudaStream_t s) {
+  if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
+  const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
+#define TK_TILE(BM, BN)                                                                        \
+  if (bm == BM && bn == BN)                                                                    \
+    return launch_tile<MODE, BM, BN>(x, wk, out, residual, bias, mult, shift, ws, e, g, ks, s);
+  TK_TILE(64, 64)
+  TK_TILE(64, 128)
+  TK_TILE(128, 64)
+  TK_TILE(128, 128)
+#undef TK_TILE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace igemm
+}  // namespace tk

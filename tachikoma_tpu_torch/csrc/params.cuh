@@ -34,6 +34,8 @@ enum Param {
   P_DW_RP,
   // K6's K and V tiles in flight (1 or 2), keys a tile
   P_FA_STAGES, P_FA_BK,
+  // K1's path: 0 tiled (igemm_hopper.cuh), 1 skinny (qgemm_rq.cu)
+  P_QG_PATH,
   P_COUNT
 };
 

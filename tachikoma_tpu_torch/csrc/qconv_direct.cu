@@ -1,11 +1,11 @@
-// K11 qconv_direct and K12 qdwconv_direct: the direct int8 conv, NHWC, with
-// the exact requantize epilogue, storing int8 or uint8 bytes.
+// K11 qconv_direct: the direct int8 conv, NHWC, with the exact requantize
+// epilogue, storing int8 or uint8 bytes.
 //
 // K11 replaces tachikoma_tpu/ops/pallas/conv_int8.py _conv_kernel (groups 1,
-// any kernel size, stride and padding); K12 replaces _dw_kernel (depthwise,
-// groups == C, any kernel size and stride).  Entry on both packages:
+// any kernel size, stride and padding).  Entry on both packages:
 // qconv2d_int8 (ops/kernels/conv_direct.py), reached by tune/tuner.py
-// tune_conv.
+// tune_conv.  Its depthwise twin K12 (_dw_kernel) runs K5's body
+// (qdwconv.cu tk_qdwconv_direct).
 //
 //   acc[n, oy, ox, co] = sum_{ky, kx, ci} x_pad[n, oy*sh + ky, ox*sw + kx, ci] * w[ky, kx, ci, co]
 //
@@ -69,20 +69,10 @@
 // channels staged packed, a table of window offsets per reduction index,
 // weights transposed per chunk.
 //
-// K12 (CUDA cores; depthwise has no tensor-core form) follows _dw_kernel's
-// whole-window block, cut to fit shared memory: one block per (image, tile
-// of TH output rows by TW output columns, 64 channels) stages the tile's
-// ((TH-1)*sh + KH) x ((TW-1)*sw + KW) x 64 input window (16-byte copies when
-// C % 16 == 0, halo izp) and the block's KH*KW x 64 weights; each thread then
-// sums the taps of one output pixel for 4 neighbouring channels in int32 and
-// runs the epilogue.  The wrapper picks TH and TW so the window stays within
-// 64 KB.
-//
-// What bounds them on the H100: K11 the tensor cores at VGG-16's 3x3 convs
-// (operations: 0.1318 ms for VGG-16 b8's 122.8 GMAC at 1979 TOP/s), K12 the
-// bytes (one read of the image, one write of the output).  What holds K11
-// above its bound (tools/conv_probe.py --cuts, on this design's first
-// versions): not wgmma (cutting it saved 6-15%) but the copies (the
+// What bounds it on the H100: the tensor cores at VGG-16's 3x3 convs
+// (operations: 0.1318 ms for VGG-16 b8's 122.8 GMAC at 1979 TOP/s).  What
+// holds it above its bound (tools/conv_probe.py --cuts, on this design's
+// first versions): not wgmma (cutting it saved 6-15%) but the copies (the
 // windows and, where they stream, the weights) and the epilogue's integer
 // work (37% of VGG-16 b8's 224^2 c64 call).
 #include <cuda_runtime.h>
@@ -98,8 +88,6 @@ namespace tk {
 constexpr int D_TH = 8, D_TW = 8;  // K11's output tile (rows x columns)
 constexpr int D_BN = 64;           // K11's output channels per block
 constexpr int D_THREADS = 128;     // four warps, one per 32 x 32 of the 64 x 64 tile
-constexpr int DWD_THREADS = 256;
-constexpr int DWD_CB = 64;  // K12's channels per block
 constexpr size_t D_SMEM_LIMIT = 232448;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -689,159 +677,6 @@ int launch_qconv_direct_hopper(const int8_t* x, const int8_t* wk, uint8_t* out,
   return launch_hopper_bn<128>(x, wk, out, bias, mult, shift, rq, g, s);
 }
 
-// ---------------------------------------------------------------------------
-// K12 qdwconv_direct
-// ---------------------------------------------------------------------------
-
-struct DwdGeo {
-  int n, h, w, c, kh, kw, oh, ow, sh, sw, pt, pl;
-  int th, tw;          // the block's output tile
-  int wh, ww;          // its input window
-  int tiles_y, tiles_x;
-  uint32_t izp4;
-  bool a_vec;          // C % 16 == 0 and x 16-byte aligned: 16-byte window copies
-  bool o_vec;          // C % 4 == 0 and out 4-byte aligned: 4-byte stores
-};
-
-// K = KH = KW known at compile time (3: the taps' weights live in registers
-// and the tap loops unroll), or 0 for any size.
-template <int K>
-__global__ void __launch_bounds__(DWD_THREADS)
-    qdwconv_direct_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                          uint8_t* __restrict__ out, Requant rq, DwdGeo g) {
-  extern __shared__ __align__(128) int8_t smem[];
-  const int kh = K ? K : g.kh, kw = K ? K : g.kw;
-  int8_t* win = smem;                               // [row][column][64 channels]
-  int8_t* ws = smem + g.wh * g.ww * DWD_CB;         // [tap][64 channels]
-  const int tiles = g.tiles_y * g.tiles_x;
-  const int img = blockIdx.x / tiles;
-  const int t = blockIdx.x - img * tiles;
-  const int oy0 = (t / g.tiles_x) * g.th, ox0 = (t % g.tiles_x) * g.tw;
-  const int iy0 = oy0 * g.sh - g.pt, ix0 = ox0 * g.sw - g.pl;
-  const int c0 = blockIdx.y * DWD_CB;
-  const int8_t* xi = x + (long long)img * g.h * g.w * g.c;
-
-  for (int i = threadIdx.x; i < kh * kw * DWD_CB; i += DWD_THREADS) {
-    const int tap = i / DWD_CB, cc = c0 + i % DWD_CB;
-    ws[i] = cc < g.c ? w[(long long)tap * g.c + cc] : 0;
-  }
-  const uint32_t izp = g.izp4 & 0xffu;
-  for (int e = threadIdx.x; e < g.wh * g.ww * 4; e += DWD_THREADS) {
-    const int pix = e >> 2, cc = c0 + (e & 3) * 16;
-    const int r = pix / g.ww, col = pix - r * g.ww;
-    const int iy = iy0 + r, ix = ix0 + col;
-    int8_t* dst = win + pix * DWD_CB + (e & 3) * 16;
-    const bool in = (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w && cc < g.c;
-    const int8_t* src = xi + ((long long)iy * g.w + ix) * g.c + cc;
-    if (in && g.a_vec) {
-      cp_async16(dst, src);
-    } else if (in) {
-      uint32_t v[4] = {0, 0, 0, 0};
-      for (int j = 0; j < 16; ++j)
-        v[j >> 2] |= (cc + j < g.c ? (uint32_t)(uint8_t)src[j] : izp) << ((j & 3) * 8);
-      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(g.izp4, g.izp4, g.izp4, g.izp4);
-    }
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int cl = (threadIdx.x & 15) * 4, slot = threadIdx.x >> 4;
-  const int c = c0 + cl;
-  if (c >= g.c) return;
-  char4 wr[K ? K * K : 1];
-  if (K) {
-#pragma unroll
-    for (int i = 0; i < K * K; ++i) wr[i] = *reinterpret_cast<const char4*>(ws + i * DWD_CB + cl);
-  }
-  for (int p = slot; p < g.th * g.tw; p += DWD_THREADS / 16) {
-    const int oy = p / g.tw, ox = p - oy * g.tw;
-    const int goy = oy0 + oy, gox = ox0 + ox;
-    if (goy >= g.oh || gox >= g.ow) continue;
-    const int8_t* base = win + ((oy * g.sh) * g.ww + ox * g.sw) * DWD_CB + cl;
-    uint32_t acc[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int ky = 0; ky < kh; ++ky)
-#pragma unroll
-      for (int kx = 0; kx < kw; ++kx) {
-        const char4 xv = *reinterpret_cast<const char4*>(base + (ky * g.ww + kx) * DWD_CB);
-        const char4 wv = K ? wr[K ? ky * K + kx : 0]
-                           : *reinterpret_cast<const char4*>(ws + (ky * kw + kx) * DWD_CB + cl);
-        acc[0] += (uint32_t)(xv.x * wv.x);
-        acc[1] += (uint32_t)(xv.y * wv.y);
-        acc[2] += (uint32_t)(xv.z * wv.z);
-        acc[3] += (uint32_t)(xv.w * wv.w);
-      }
-    uint8_t v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = c + j < g.c ? (uint8_t)requantize_channel((int32_t)acc[j], c + j, rq) : 0;
-    uint8_t* dst = out + (((long long)img * g.oh + goy) * g.ow + gox) * g.c + c;
-    if (g.o_vec) {
-      *reinterpret_cast<uchar4*>(dst) = make_uchar4(v[0], v[1], v[2], v[3]);
-    } else {
-      for (int j = 0; j < 4 && c + j < g.c; ++j) dst[j] = v[j];
-    }
-  }
-}
-
-template <int K>
-int launch_dwd(const int8_t* x, const int8_t* w, uint8_t* out, const Requant& rq,
-               const DwdGeo& g, size_t smem, unsigned blocks, cudaStream_t stream) {
-  static size_t granted = 48 * 1024;
-  if (smem > granted) {
-    if (cudaFuncSetAttribute(qdwconv_direct_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem) != cudaSuccess)
-      return (int)cudaGetLastError();
-    granted = smem;
-  }
-  const dim3 grid(blocks, (g.c + DWD_CB - 1) / DWD_CB);
-  qdwconv_direct_kernel<K><<<grid, DWD_THREADS, smem, stream>>>(x, w, out, rq, g);
-  return (int)cudaGetLastError();
-}
-
-// Launches K12 on `stream` at the tile (P_TH, P_TW) and returns
-// cudaGetLastError() (cudaErrorInvalidValue when the window and weights
-// exceed 227 KB of shared memory).
-int launch_qdwconv_direct(const int8_t* x, const int8_t* w, uint8_t* out, const int32_t* bias,
-                          const int32_t* mult, const int32_t* shift, const int32_t* p,
-                          void* stream) {
-  DwdGeo g;
-  g.n = p[P_N];
-  g.h = p[P_H];
-  g.w = p[P_W];
-  g.c = p[P_CIN];
-  g.kh = p[P_KH];
-  g.kw = p[P_KW];
-  g.oh = p[P_OH];
-  g.ow = p[P_OW];
-  g.sh = p[P_SH];
-  g.sw = p[P_SW];
-  g.pt = p[P_PT];
-  g.pl = p[P_PL];
-  g.th = p[P_TH];
-  g.tw = p[P_TW];
-  if (g.th <= 0 || g.tw <= 0) return (int)cudaErrorInvalidValue;
-  g.wh = (g.th - 1) * g.sh + g.kh;
-  g.ww = (g.tw - 1) * g.sw + g.kw;
-  g.tiles_y = (g.oh + g.th - 1) / g.th;
-  g.tiles_x = (g.ow + g.tw - 1) / g.tw;
-  g.izp4 = (uint32_t)(uint8_t)(int8_t)p[P_IZP] * 0x01010101u;
-  g.a_vec = p[P_A_VEC] != 0;
-  g.o_vec = p[P_B_VEC] != 0;
-  const Requant rq{bias, mult, shift, 0, p[P_OUT_ZP], p[P_QMIN], p[P_QMAX],
-                   p[P_TONEAREST] != 0};
-  const size_t smem = ((size_t)g.wh * g.ww + (size_t)g.kh * g.kw) * DWD_CB;
-  const long long blocks = (long long)g.n * g.tiles_y * g.tiles_x;
-  if (smem > D_SMEM_LIMIT || blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  if (blocks <= 0 || g.c <= 0) return (int)cudaGetLastError();
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (g.kh == 3 && g.kw == 3) return launch_dwd<3>(x, w, out, rq, g, smem, (unsigned)blocks, s);
-  return launch_dwd<0>(x, w, out, rq, g, smem, (unsigned)blocks, s);
-}
-
 }  // namespace tk
 
 // K11: the Hopper path (P_CC 64, its chunk; w packed (KH*KW, COUT, CINP)) or
@@ -852,10 +687,4 @@ extern "C" int tk_qconv_direct(const int8_t* x, const int8_t* w, uint8_t* out,
   if (params[tk::P_CC] == tk::H_KC)
     return tk::launch_qconv_direct_hopper(x, w, out, bias, mult, shift, params, stream);
   return tk::launch_qconv_direct_narrow(x, w, out, bias, mult, shift, params, stream);
-}
-
-extern "C" int tk_qdwconv_direct(const int8_t* x, const int8_t* w, uint8_t* out,
-                                 const int32_t* bias, const int32_t* mult, const int32_t* shift,
-                                 const int32_t* params, void* stream) {
-  return tk::launch_qdwconv_direct(x, w, out, bias, mult, shift, params, stream);
 }

@@ -12,6 +12,15 @@
 // qdwconv_rq replaces tachikoma_tpu/ops/pallas/conv_flat.py _flat_dw_kernel
 // (built by _build_flat_dw, driven by _conv_dw_vpu, entry qconv2d_flat with
 // groups == C): the 17 depthwise convs of a fused MobileNetV2 forward.
+//   * qdwconv_direct (K12, tk_qdwconv_direct) replaces
+//     tachikoma_tpu/ops/pallas/conv_int8.py _dw_kernel (entry qconv2d_int8
+//     with groups == C, reached by tune/tuner.py tune_conv): the requantize
+//     mode with rq_izp = 0 and an int8 or uint8 output.  Its first port
+//     (qconv_direct.cu, PR 6: a thread per pixel x 4 channels, nine 4-byte
+//     window loads a pixel, the int64 epilogue, a 64 KB window budget) ran
+//     MobileNetV2 b8's 17 calls in 0.1936 ms against this body's 0.1046
+//     (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W); it now launches
+//     this body at dw_plan's tile.
 // qdwconv_raw is the port's counterpart of the JAX package's unfused grouped
 // qnn.conv2d (ops/jax_ops.py, lax.conv with feature_group_count), which has
 // no Pallas kernel: the 17 grouped convs of the unfused (trace) graph.
@@ -393,4 +402,17 @@ extern "C" int tk_qdwconv_rq(const int8_t* x, const int8_t* w, int8_t* out, cons
 extern "C" int tk_qdwconv_raw(const int8_t* x, const int8_t* w, int32_t* out,
                               const int32_t* bias, const int32_t* params, void* stream) {
   return tk::launch_qdwconv<true>(x, w, out, bias, nullptr, nullptr, params, stream);
+}
+
+// K12 qdwconv_direct: K5's requantize mode with rq_izp = 0, storing the low
+// byte of the clipped value, so an int8 or a uint8 output (qmin 0, qmax 255)
+// takes the same store.  The bias arrives as the caller's (the kernel takes
+// izp * sum(w) off, as for K5).
+extern "C" int tk_qdwconv_direct(const int8_t* x, const int8_t* w, uint8_t* out,
+                                 const int32_t* bias, const int32_t* mult, const int32_t* shift,
+                                 const int32_t* params, void* stream) {
+  int32_t p[tk::P_COUNT];
+  for (int i = 0; i < tk::P_COUNT; ++i) p[i] = params[i];
+  p[tk::P_RQ_IZP] = 0;
+  return tk::launch_qdwconv<false>(x, w, out, bias, mult, shift, p, stream);
 }

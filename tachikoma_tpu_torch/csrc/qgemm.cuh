@@ -1,8 +1,10 @@
-// Int8 GEMM kernel with the exact requantize epilogue: the body of K1
-// (qgemm_rq.cu) and K4's GEMM mode (qgemm_raw.cu).  The convs (K2, K3 and
-// K4's conv mode) have a Hopper design of their own
-// (qconv_igemm_hopper.cu); K7 (qconv_layouts_hopper.cu) and K11's narrow
-// path (qconv_direct.cu) take this file's mma.sync pieces.
+// Int8 GEMM kernel with the exact requantize epilogue: the first port's body
+// of K1, now the body of K4's GEMM mode (qgemm_raw.cu) alone; K1
+// (qgemm_rq.cu) and the convs (K2, K3 and K4's conv mode) have Hopper
+// designs of their own (igemm_hopper.cuh); K7 (qconv_layouts_hopper.cu) and
+// K11's narrow path (qconv_direct.cu) take this file's mma.sync pieces.  Its
+// requantize epilogue and its tiles other than 64 x 64 were K1's; a `git
+// archive` of an earlier tree builds them (tools/gemm_probe.py --csrc).
 //
 // out[m, n] = epilogue(sum_k A[m, k] * B[k, n]) with int8 operands and an
 // int32 accumulator on the tensor cores (mma.sync m16n8k32 s8.s8.s32).

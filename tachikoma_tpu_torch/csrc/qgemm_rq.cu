@@ -2,22 +2,283 @@
 // requantize epilogue, int8 out (M, N).
 //
 // Replaces tachikoma_tpu/ops/pallas/matmul_int8.py _mm_kernel (built by
-// _build_qmatmul, entry qmatmul_int8).  On the int8 ResNet-50 path it runs
-// the 1x1 convs (M = batch * H * W, K = CIN, N = COUT) and the classifier
-// dense (M = batch, K = 2048, N = 1000).
+// _build_qmatmul, entry qmatmul_int8).  On the int8 paths it runs the 1x1
+// convs of ResNet-50 and MobileNetV2 (M = batch * H * W, K = CIN, N = COUT),
+// their classifiers and VGG-16's three dense layers (M = batch).  The weight
+// arrives packed K-major once per weight tensor, (Kp / 64, N, 64)
+// (ops/kernels/matmul_int8.py kmajor_weights): the 64 bytes of K step s of
+// output channel n are one row, and a step's rows for consecutive channels
+// are contiguous.
 //
-// What bounds it on an H100: a 1x1 conv does 2 * CIN * COUT / (CIN + COUT)
-// operations per activation byte moved, at most 512 on this path, under the
-// ~590 int8 operations per byte at which the tensor cores (1979 TOP/s)
-// overtake memory (3.35 TB/s), so it is bound by bytes; the dense at M = 8
-// reads 2 MB of weights for 33 MOP and is bound by bytes too.  The design
-// (qgemm.cuh) is the simple tiled one: each block reads its A and B tiles
-// into shared memory, and the int32 accumulator never leaves registers
-// before the int8 store.
-#include "qgemm.cuh"
+// What bounds it on an H100: bytes.  A 1x1 conv does 2 * CIN * COUT /
+// (CIN + COUT) operations per activation byte moved, at most 512 on these
+// paths, under the ~590 int8 operations per byte at which the tensor cores
+// (1979 TOP/s) overtake memory (3.35 TB/s); the dense layers at M = 8 read
+// their weights once for 16 operations a byte (VGG-16's 124 MB of dense
+// weights: 0.037 ms).  The first port's kernel (qgemm.cuh, kept for K4's
+// GEMM mode) ran ResNet-50 b8's 21 calls in 0.3730 ms and VGG-16 b8's three
+// dense layers in 0.3993 (tools/gemm_probe.py, NVIDIA H100 80GB HBM3,
+// 700.00 W): a single-stage mma.sync loop, B transposed in registers, the
+// int64 epilogue (16-22% of its time, cut out), and a grid of
+// (M / 64) x (N / 64) blocks that gave fc6 64 blocks for 392 steps each
+// (0.32 ms for 103 MB: 0.3 TB/s).  Two paths replace it, picked by the
+// wrapper's plan (gemm_plan, P_QG_PATH):
+//
+//   * the tiled path (M above 64): K2's implicit-GEMM body
+//     (igemm_hopper.cuh) on the GEMM as a 1x1 conv of 1 x 1 images:
+//     wgmma.mma_async m64nBNk32 on both operands K-major in shared memory,
+//     persistent blocks with a 4-stage cp.async ring across their items, the
+//     requantize epilogue of epilogue_hopper.cuh (column constants once a
+//     block in shared memory, one mul.wide.s32, a staged output tile leaving
+//     in 16-byte rows), and the exact split of K where the tiles leave SMs
+//     idle.  x is copied 16 bytes at a time, or 8 where K % 16 == 8
+//     (MobileNetV2's K = 24).  tools/gemm_probe.py --k2 timed that body on
+//     the first port's calls before this path existed: 0.2893 ms against
+//     0.3730 per ResNet-50 b8 forward.  The tile is the caller's (the tuner's
+//     `blocks`), else rq_tile's; the split rq_split's.
+//   * the skinny path (M <= 64: the dense layers at batch 1 to 64): the
+//     bytes are the weights, so the operands swap, out^T (N, M) = W^T (N, K)
+//     x^T (K, M), and the packed weight rows are the mma.sync m16n8k32 A
+//     operand (16 output channels a warp, 64 a block of four warps), x the
+//     B operand (n = 8 rows of M a product, up to eight products).  Each
+//     lane copies 16 bytes of two weight rows and of each x row and runs two
+//     products a step; the k order inside a step is permuted alike on both
+//     operands (a lane's 16 bytes are k 16 tig .. 16 tig + 15), which the
+//     sum does not see.  K is split (skinny_split) over about four blocks
+//     an SM, and each block streams its slice of steps through a ring of
+//     SK_STAGES stages of 16-byte cp.async copies, SK_STAGES - 1 of them in
+//     flight.  The splits add their int32 sums into a zeroed workspace and
+//     the last block of an N tile to arrive requantizes the whole sum, as
+//     K2's split does (igemm_hopper.cuh).  The skinny path reads no tile:
+//     a tuner's `blocks` sets the tiled path's alone.
+// Integer sums wrap alike in any order, so every split gives the same
+// integers on every run.
+#include "igemm_hopper.cuh"
 
-extern "C" int tk_qgemm_rq(const int8_t* x, const int8_t* w, int8_t* out, const int32_t* bias,
-                           const int32_t* mult, const int32_t* shift, const int32_t* params,
-                           void* stream) {
-  return tk::launch_qgemm_rq(x, w, out, bias, mult, shift, params, stream);
+// The parts of the skinny path that tools/gemm_probe.py cuts out, one at a
+// time (each is 1 in the kernel as it runs).
+#define QG_EPILOGUE 1  // 0: the sum's low byte is stored, no requantize (the split still adds)
+#define QG_A_LOADS 1   // 0: x is not copied (its tile holds what shared memory held)
+#define QG_BODY 1      // 0: the kernel returns as it starts
+
+namespace tk {
+namespace skinny {
+
+constexpr int KSTEP = 64;          // bytes of K a step
+constexpr int WARPS = 4;
+constexpr int SK_BN = 16 * WARPS;  // output channels a block (matmul_int8.py SKINNY_BN)
+constexpr int NT = 32 * WARPS;
+constexpr int SK_STAGES = 8;       // the ring
+constexpr int MAX_M = 64;          // matmul_int8.py SKINNY_M
+
+struct Geo {
+  int M, K, N, steps, kper;
+  bool x16, x8;  // x copied 16 (K % 16 == 0) or 8 (K % 8 == 0) bytes at a time, else by bytes
+};
+
+template <int MT>
+__host__ __device__ constexpr int stage_bytes() {
+  return (SK_BN + 8 * MT) * KSTEP;
+}
+
+// Stage `slot` <- step s: the block's SK_BN weight rows (contiguous in wk)
+// and x's rows 0 .. 8 MT - 1 at k = 64 s .. 64 s + 63, zeros past M, K or N.
+template <int MT>
+__device__ __forceinline__ void stage(int8_t* st, const int8_t* __restrict__ x,
+                                      const int8_t* __restrict__ wk, int s, int n0,
+                                      const Geo& g) {
+  const int tid = threadIdx.x;
+  const int8_t* const wsrc = wk + ((long long)s * g.N + n0) * KSTEP;
+#pragma unroll
+  for (int i = tid; i < SK_BN * 4; i += NT) {
+    const bool ok = n0 + (i >> 2) < g.N;
+    hop::cp_async16(st + 16 * i, ok ? wsrc + 16 * i : wk, ok);
+  }
+#if QG_A_LOADS
+  int8_t* const xs = st + SK_BN * KSTEP;
+  for (int i = tid; i < 8 * MT * 4; i += NT) {
+    const int r = i >> 2, k = s * KSTEP + 16 * (i & 3);
+    const int8_t* const src = x + (long long)r * g.K + k;
+    int8_t* const d = xs + 16 * i;
+    if (g.x16) {
+      const bool ok = r < g.M && k < g.K;
+      hop::cp_async16(d, ok ? src : x, ok);
+    } else if (g.x8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool ok = r < g.M && k + 8 * h < g.K;
+        igemm::cp_async8(d + 8 * h, ok ? src + 8 * h : x, ok);
+      }
+    } else {
+      uint32_t v[4] = {0, 0, 0, 0};
+      for (int b = 0; b < 16; ++b)
+        if (r < g.M && k + b < g.K) v[b >> 2] |= (uint32_t)(uint8_t)src[b] << (8 * (b & 3));
+      *reinterpret_cast<uint4*>(d) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+#endif
+}
+
+// Block (x: N tile, y: split of K) sums steps [y kper, min((y + 1) kper,
+// steps)) of its SK_BN channels for the M <= 8 MT rows of x.  Warp w owns
+// channels n0 + 16 w .. + 15; lane (gid, tig) = (lane / 4, lane % 4) holds
+// acc[mt] = channels (gid, gid + 8) x rows 8 mt + 2 tig + (0, 1).
+template <int MT>
+__global__ void __launch_bounds__(NT)
+    qgemm_skinny(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
+                 int8_t* __restrict__ out, const int32_t* __restrict__ bias,
+                 const int32_t* __restrict__ mult, const int32_t* __restrict__ shift,
+                 int32_t* __restrict__ ws, epi::RqConst rq, int32_t rq_izp, Geo g) {
+  constexpr int ST = stage_bytes<MT>();
+  extern __shared__ __align__(128) int8_t smem[];
+  int4* const colc = reinterpret_cast<int4*>(smem + SK_STAGES * ST);
+  int* const s_last = reinterpret_cast<int*>(colc + SK_BN);
+#if !QG_BODY
+  if (g.M >= 0) return;
+#endif
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * SK_BN;
+  const int kbeg = blockIdx.y * g.kper;
+  const int nst = min(g.steps, kbeg + g.kper) - kbeg;
+
+#pragma unroll
+  for (int i = 0; i < SK_STAGES - 1; ++i) {
+    if (i < nst) stage<MT>(smem + i * ST, x, wk, kbeg + i, n0, g);
+    hop::cp_async_commit();
+  }
+  epi::load_cols(colc, SK_BN, n0, g.N, bias, mult, shift, rq_izp);  // while the copies fly
+
+  int32_t acc[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0;
+  const int w_off = (16 * warp + gid) * KSTEP + 16 * tig;  // a lane's 16 bytes of its row
+  const int x_off = SK_BN * KSTEP + gid * KSTEP + 16 * tig;
+  for (int it = 0; it < nst; ++it) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(SK_STAGES - 2) : "memory");
+    __syncthreads();  // step it landed for every thread; step it - 1's slot is free
+    if (it + SK_STAGES - 1 < nst)
+      stage<MT>(smem + ((it + SK_STAGES - 1) % SK_STAGES) * ST, x, wk, kbeg + it + SK_STAGES - 1,
+                n0, g);
+    hop::cp_async_commit();
+    const int8_t* const st = smem + (it % SK_STAGES) * ST;
+    const uint4 wa = *reinterpret_cast<const uint4*>(st + w_off);
+    const uint4 wb = *reinterpret_cast<const uint4*>(st + w_off + 8 * KSTEP);
+    const uint32_t a0[4] = {wa.x, wb.x, wa.y, wb.y}, a1[4] = {wa.z, wb.z, wa.w, wb.w};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint4 xv = *reinterpret_cast<const uint4*>(st + x_off + mt * 8 * KSTEP);
+      mma_s8(acc[mt], a0, xv.x, xv.y);
+      mma_s8(acc[mt], a1, xv.z, xv.w);
+    }
+  }
+
+  // element e of acc[mt]: channel n0 + 16 warp + gid + 8 (e >> 1), row 8 mt + 2 tig + (e & 1)
+  const int cl = 16 * warp + gid;
+  if (gridDim.y > 1) {  // a split: add into the workspace; the last block of the N tile goes on
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 8 * mt + 2 * tig + (e & 1), col = n0 + cl + 8 * (e >> 1);
+        if (row < g.M && col < g.N)  // int32 atomics wrap: the same sum in any order
+          atomicAdd(ws + (long long)row * g.N + col, acc[mt][e]);
+      }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      *s_last = atomicAdd(ws + (long long)g.M * g.N + blockIdx.x, 1) == (int)gridDim.y - 1;
+    __syncthreads();
+    if (!*s_last) return;
+    __threadfence();  // every other split's adds are done: read the total
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 8 * mt + 2 * tig + (e & 1), col = n0 + cl + 8 * (e >> 1);
+        acc[mt][e] = row < g.M && col < g.N ? __ldcg(ws + (long long)row * g.N + col) : 0;
+      }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 8 * mt + 2 * tig + (e & 1), c = cl + 8 * (e >> 1);
+      if (row < g.M && n0 + c < g.N)
+        out[(long long)row * g.N + n0 + c] =
+            (int8_t)(QG_EPILOGUE ? epi::requant_wide(acc[mt][e], colc[c], rq) : acc[mt][e]);
+    }
+}
+
+template <int MT>
+int launch_mt(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
+              const int32_t* mult, const int32_t* shift, int32_t* ws, const epi::RqConst& rq,
+              int32_t rq_izp, const Geo& g, int ks, cudaStream_t stream) {
+  constexpr size_t smem = SK_STAGES * stage_bytes<MT>() + SK_BN * 16 + 16;
+  static bool raised = false;  // once per instantiation, before any graph capture
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qgemm_skinny<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
+  }
+  const dim3 grid((g.N + SK_BN - 1) / SK_BN, ks);
+  qgemm_skinny<MT><<<grid, NT, smem, stream>>>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g);
+  return (int)cudaGetLastError();
+}
+
+// The skinny path at P_KS splits of P_KPER steps: M <= 64, rounded up to 8,
+// 16, 32 or 64 rows of products.
+inline int launch(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
+                  const int32_t* mult, const int32_t* shift, int32_t* ws, const int32_t* p,
+                  cudaStream_t s) {
+  Geo g;
+  g.M = p[P_N];
+  g.K = p[P_CIN];
+  g.N = p[P_COUT];
+  g.steps = (g.K + KSTEP - 1) / KSTEP;
+  g.kper = p[P_KPER];
+  const int ks = p[P_KS];
+  g.x16 = p[P_A_VEC] != 0 && g.K % 16 == 0;
+  g.x8 = p[P_B_VEC] != 0 && g.K % 8 == 0;
+  if (g.M > MAX_M || ks < 1 || g.kper < 1 || (long long)ks * g.kper < g.steps ||
+      (ks - 1) * g.kper >= g.steps || ks > 65535 || (ks > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (g.M <= 0 || g.N <= 0) return (int)cudaGetLastError();
+  const epi::RqConst rq{p[P_OUT_ZP], p[P_QMIN], p[P_QMAX], p[P_TONEAREST] != 0};
+  const int rq_izp = p[P_RQ_IZP];
+  if (g.M <= 8) return launch_mt<1>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
+  if (g.M <= 16) return launch_mt<2>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
+  if (g.M <= 32) return launch_mt<4>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
+  return launch_mt<8>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
+}
+
+}  // namespace skinny
+}  // namespace tk
+
+// K1.  wk is w packed (Kp / 64, N, 64); P_QG_PATH 0 runs the tiled path at
+// the tile (P_BM, P_BN) from {64, 128}^2, 1 the skinny path (M <= 64); K is
+// split P_KS ways, P_KPER steps of 64 each (every split non-empty).  With
+// P_KS > 1, ws is an int32 workspace of M * N sums and then one arrival
+// counter a tile ((BM, BN) tiles on the tiled path, N / 64 on the skinny
+// one), zeroed by the caller.  P_A_VEC: x may be copied 16 bytes at a time
+// (K % 16 == 0, 16-byte aligned); P_B_VEC: 8 bytes (K % 8 == 0, 8-byte
+// aligned).  Returns cudaGetLastError() (cudaErrorInvalidValue for a path,
+// tile or split the kernel does not take).
+extern "C" int tk_qgemm_rq(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
+                           const int32_t* mult, const int32_t* shift, int32_t* ws,
+                           const int32_t* p, void* stream) {
+  using namespace tk;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (p[P_QG_PATH] == 1) return skinny::launch(x, wk, out, bias, mult, shift, ws, p, s);
+  if (p[P_QG_PATH] != 0 || p[P_KH] != 1 || p[P_KW] != 1 || p[P_H] != 1 || p[P_W] != 1)
+    return (int)cudaErrorInvalidValue;
+  igemm::Geo g;
+  if (!igemm::make_geo(p, g)) return (int)cudaErrorInvalidValue;
+  const int ks = p[P_KS];
+  if (!igemm::split_ok(ks, g) || (ks > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  g.a_vec8 = !g.a_vec && p[P_B_VEC] != 0 && g.cin % 16 == 8;
+  g.o_vec = g.cout % 16 == 0 && (uintptr_t)out % 16 == 0;
+  return igemm::launch_rq<igemm::RQ>(x, wk, out, nullptr, bias, mult, shift, ws,
+                                     igemm::make_epi(p), g, ks, p, s);
 }

@@ -18,12 +18,14 @@ K6's float32 scale travels in it as the int32 that holds its bits
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
+import weakref
 from collections import Counter
 from pathlib import Path
 
@@ -41,12 +43,12 @@ PARAMS = (
     "group", "cc", "th", "tw", "ks", "kper", "wres", "ahead",
     "heads", "q_sb", "q_sh", "q_ss", "k_sb", "k_sh", "k_ss", "v_sb", "v_sh", "v_ss",
     "fa_w", "fa_dq", "fa_dv", "fa_cs", "fa_kg", "fa_vec", "dw_rp",
-    "fa_stages", "fa_bk",
+    "fa_stages", "fa_bk", "qg_path",
 )
 
-# The block tiles (BM, BN) that K1-K3 and K7-K10 are built at, with BK = 64:
-# the tuner's config space for `blocks` = [BM, BN, BK] (csrc/qgemm.cuh Tile,
-# csrc/qconv_igemm_hopper.cu igemm_hopper).
+# The block tiles (BM, BN) that K1's tiled path, K2, K3 and K7-K10 are built
+# at, with BK = 64: the tuner's config space for `blocks` = [BM, BN, BK]
+# (csrc/igemm_hopper.cuh igemm_hopper, csrc/layouts_hopper.cuh).
 BK = 64
 TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
 DEFAULT_BLOCKS = (64, 64, BK)
@@ -77,14 +79,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # source -> (C entry, number of tensor pointers it takes)
 SOURCES = {
-    "qgemm_rq.cu": (("tk_qgemm_rq", 6),),
+    "qgemm_rq.cu": (("tk_qgemm_rq", 7),),
     "qgemm_raw.cu": (("tk_qgemm_raw", 4),),
     "qconv_igemm_hopper.cu": (("tk_qconv_rq", 7), ("tk_qconv_rq_res", 7), ("tk_qconv_raw", 4)),
-    "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4)),
+    "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4), ("tk_qdwconv_direct", 6)),
     "flash_attn.cu": (("tk_flash_attn", 4),),
     "qconv_layouts.cu": (("tk_qconv_rq_s", 6), ("tk_qconv_rq_r", 6)),
     "qconv_layouts_hopper.cu": (("tk_qconv_rq_t", 6), ("tk_qconv_rq_w", 6)),
-    "qconv_direct.cu": (("tk_qconv_direct", 6), ("tk_qdwconv_direct", 6)),
+    "qconv_direct.cu": (("tk_qconv_direct", 6),),
 }
 # -fno-gnu-unique: g++ would give the launchers' once-per-kernel statics
 # (function-template locals) STB_GNU_UNIQUE binding, which the dynamic linker
@@ -199,3 +201,23 @@ def check_cuda_operands(kernel: str, device: torch.device, contiguous: bool = Tr
             raise ValueError(f"{kernel}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{kernel}: {key} must be contiguous")
+
+
+def pack_once(cache: dict, w: torch.Tensor, make) -> torch.Tensor:
+    """`make(w)`, made once per weight tensor and kept in `cache` while the
+    tensor lives and its `_version` (in-place writes) is unchanged: the
+    weights are constants of the graph."""
+    key = id(w)
+    hit = cache.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    wk = make(w)
+    cache[key] = (weakref.ref(w, lambda _, key=key, cache=cache: cache.pop(key, None)),
+                  w._version, wk)
+    return wk
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

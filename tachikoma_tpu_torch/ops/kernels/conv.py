@@ -42,18 +42,18 @@ packing and VMEM budgets have no counterpart.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ...tune.database import lookup_config
 from ._lib import (BK, DEFAULT_BLOCKS, LAUNCHES, TILES, check_cuda_operands, compiled_blocks,
-                   launch, tile_params)
-from .conv_layouts import (LAYOUTS, layout_fits, pack_once, qconv_rq_r, qconv_rq_s, qconv_rq_t,
-                           qconv_rq_w)
+                   launch, sm_count, tile_params)
+from .conv_layouts import LAYOUTS, layout_fits, qconv_rq_r, qconv_rq_s, qconv_rq_t, qconv_rq_w
 from .depthwise import qdwconv_raw, qdwconv_rq
-from .matmul_int8 import (_TONEAREST, as_int8, as_int32_vector, fold_input_zero_point,
-                          qgemm_raw, qgemm_rq_tuned)
+# the body's plan and weight packing, shared with K1's tiled path
+from .matmul_int8 import (_KMAJOR, _TONEAREST, KSTEP, RQ_FILL, RQ_MIN_STEPS,  # noqa: F401
+                          RQ_UNSPLIT_STEPS, RQ_WIDE_FILL, as_int8, as_int32_vector,
+                          fold_input_zero_point, kmajor_weights, qgemm_raw, qgemm_rq_tuned,
+                          rq_split, rq_tile)
 from .requantize import channel_vector, epilogue_plain, plan_res_add, res_add_plain
 
 
@@ -171,34 +171,9 @@ def qconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), i
     return out
 
 
-KSTEP = 64             # K2's, K3's and K4's K step: the packed weights' rows are one
 RAW_TILE = (64, 64)    # K4's conv-mode tile
 RAW_UNSPLIT_STEPS = 9  # a K4 conv of at most this many K steps runs unsplit
 RAW_SPLIT_STEPS = 6    # the K steps a split of K4 walks, where it splits
-RQ_FILL = 2            # a split K2 has about this many blocks per SM
-RQ_UNSPLIT_STEPS = 9   # a K2 conv of at most this many K steps runs unsplit
-RQ_MIN_STEPS = 4       # the fewest K steps a split of K2 walks
-RQ_WIDE_FILL = 2       # K2's default tile is 128 rows where those tiles fill the SMs this many times
-_KMAJOR: dict = {}
-
-
-def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
-    """w (KH, KW, CIN, COUT) packed K-major, step by step, as (steps, COUT,
-    64): row (s, n) holds output channel n's weights at the K indices 64 s
-    .. 64 s + 63 of the (ky, kx, ci) order, zero past K = KH*KW*CIN.  The B
-    tile of a step (BN consecutive output channels) is then BN * 64
-    contiguous bytes, which K2, K3 and K4's conv mode stage with 16-byte
-    copies, a warp 512 contiguous bytes, and no mask; made once per weight
-    tensor (`pack_once`)."""
-    def make(w):
-        kh, kw, cin, cout = w.shape
-        k = kh * kw * cin
-        steps = -(-k // KSTEP)
-        flat = torch.zeros((cout, steps * KSTEP), dtype=torch.int8, device=w.device)
-        flat[:, :k] = w.reshape(k, cout).t()
-        return flat.reshape(cout, steps, KSTEP).transpose(0, 1).contiguous()
-
-    return pack_once(_KMAJOR, w, make)
 
 
 def raw_split(m: int, cout: int, k: int, sms: int = 132) -> tuple[int, int]:
@@ -218,41 +193,6 @@ def raw_split(m: int, cout: int, k: int, sms: int = 132) -> tuple[int, int]:
     return -(-steps // kper), kper
 
 
-def rq_split(m: int, cout: int, k: int, tile=RAW_TILE, sms: int = 132) -> tuple[int, int]:
-    """(splits, steps per split) of K2 for an (M, K) x (K, COUT) conv at the
-    tile (BM, BN) on a card of `sms` SMs.  Unsplit where the tiles fill the
-    SMs or K has at most RQ_UNSPLIT_STEPS steps of 64: a split costs the
-    zeroing of the workspace, its atomics and the last block's read-back,
-    more than it gains wherever every SM has a tile (tools/conv_probe.py on
-    the H100: the 28^2 calls of ResNet-50 b8, 196 tiles of 18 steps, ran
-    faster unsplit).  Else the fewest splits that bring the blocks to
-    RQ_FILL * sms, with at least RQ_MIN_STEPS steps a split.  Split z walks
-    steps [z*kper, min((z+1)*kper, steps)); every split is non-empty."""
-    steps = -(-k // KSTEP)
-    tiles = -(-m // tile[0]) * -(-cout // tile[1])
-    if tiles >= sms or steps <= RQ_UNSPLIT_STEPS:
-        return 1, steps
-    ks = max(1, min(-(-RQ_FILL * sms // tiles), steps // RQ_MIN_STEPS))
-    kper = -(-steps // ks)
-    return -(-steps // kper), kper
-
-
-def rq_tile(m: int, cout: int, sms: int = 132) -> tuple[int, int]:
-    """K2's tile where neither the caller nor a record names one: 128 rows
-    (by 128 columns where COUT > 64, else 64) where those tiles fill the SMs
-    RQ_WIDE_FILL times over; else 64 x 128 where COUT >= 256 and those tiles
-    fill the SMs; else 64 x 64.  A wider tile stages fewer bytes per
-    product, which set K2's pace on the H100 (tools/conv_probe.py --cuts:
-    the copies, not wgmma or the epilogue); a narrow one keeps the SMs busy
-    where the call is small."""
-    bn = 128 if cout > 64 else 64
-    if -(-m // 128) * -(-cout // bn) >= RQ_WIDE_FILL * sms:
-        return 128, bn
-    if cout >= 256 and -(-m // 64) * -(-cout // 128) >= sms:
-        return 64, 128
-    return 64, 64
-
-
 def rq_launch(x_shape, w_shape, strides, padding, blocks=None, sms: int = 132):
     """((BM, BN), splits, steps per split) of one K2 call: `blocks`' tile, or
     `rq_tile`'s, and `rq_split`'s split of K at that tile."""
@@ -261,12 +201,6 @@ def rq_launch(x_shape, w_shape, strides, padding, blocks=None, sms: int = 132):
     m = x_shape[0] * oh * ow
     tile = rq_tile(m, cout, sms) if blocks is None else (int(blocks[0]), int(blocks[1]))
     return (tile, *rq_split(m, cout, kh * kw * cin, tile, sms))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """The SM count of CUDA device `index`."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def qconv_raw_plain(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0),
@@ -364,7 +298,7 @@ def _conv1x1_matmul(x, w, bias, mult, shift, strides, padding, izp, rq_izp, out_
         out = qgemm_raw(x2, w2, bias)
     else:
         out = qgemm_rq_tuned(x2, w2, bias, mult, shift, rq_izp=rq_izp, out_zp=out_zp,
-                             rounding=rounding, qmin=qmin, qmax=qmax, blocks=blocks)
+                             rounding=rounding, qmin=qmin, qmax=qmax, blocks=blocks, w_src=w)
     return out.reshape(n, oh, ow, cout)
 
 

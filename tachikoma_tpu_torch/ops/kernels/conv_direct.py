@@ -13,24 +13,26 @@ epilogue (port of `tachikoma_tpu/ops/pallas/conv_int8.py`).
     first port's `mma.sync` kernel (the narrow path, `narrow_chunk`);
     `direct_plan` picks the path, BN, the taps a step and the copies' depth
     from the shape.
-  * `qdwconv_direct` (K12) wraps `tk_qdwconv_direct` (replaces `_dw_kernel`):
-    depthwise (groups == C), any kernel size and stride, on CUDA cores, one
-    staged window per (image, output tile, 64 channels).
+  * `qdwconv_direct` (K12) wraps `csrc/qdwconv.cu tk_qdwconv_direct`
+    (replaces `_dw_kernel`): depthwise (groups == C), any kernel size and
+    stride, on K5's body (`depthwise.dw_launch`, at `dw_plan`'s tile): K5's
+    requantize mode with rq_izp = 0, the caller's bias (the kernel takes
+    izp * sum(w) off itself), the low byte stored as `out_dtype`.
   * `qconv2d_int8` is the JAX package's entry with its signature: a
     multiplier (scalar or per channel) is required, there is no raw mode;
     `out_dtype` "int8" or "uint8" with `qmin` / `qmax`; groups 1 or
     depthwise, else NotImplementedError.  A nonzero `input_zero_point` pads
-    the border with izp and folds - izp * colsum(w) into the bias (int32
-    wraparound).  `qconv2d_int8_plain` is the same call through the plain
-    versions.
+    the border with izp; K11's wrapper folds - izp * colsum(w) into the bias
+    (int32 wraparound), K12's kernel takes izp * sum(w) off.
+    `qconv2d_int8_plain` is the same call through the plain versions.
 
 The TPU kernel's VMEM budget (`_vmem_cost`, `_pick_bn`, `_pick_dw_bc`), its
 128-lane channel padding, the strided-patch over-padding and `_x32_tracing`
 have no counterpart.  `qconv2d_supported` is the port's own: it admits every
-groups-1 and depthwise geometry whose staged tiles fit the H100's 227 KB of
-shared memory on either K11 path (all but kernels of hundreds of taps), and
-so says True where the JAX predicate says False for VMEM, e.g.
-(1, 224, 224, 64) 3x3.
+groups-1 geometry whose staged tiles fit the H100's 227 KB of shared memory
+on either K11 path and every depthwise one for which K5's `dw_plan` finds a
+tile (all but kernels of hundreds of taps), and so says True where the JAX
+predicate says False for VMEM, e.g. (1, 224, 224, 64) 3x3.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
 it launches its kernel or raises.  Nothing dispatches a forward to these
@@ -46,7 +48,7 @@ from ..nn import conv2d_out_hw
 from ._lib import LAUNCHES, check_cuda_operands, launch
 from .conv import conv_acc_plain, sm_count
 from .conv_layouts import SMEM_LIMIT, _round_up, pack_once
-from .depthwise import dw_acc_plain
+from .depthwise import dw_acc_plain, dw_launch, dw_plan
 from .matmul_int8 import _TONEAREST, as_int8, as_int32_vector, fold_input_zero_point
 from .requantize import channel_vector, epilogue_plain
 
@@ -59,8 +61,6 @@ NARROW_CIN, NARROW_TAPS = 16, 9  # below this CIN and above these taps, the narr
 NARROW_TILE = 8              # the narrow path's output tile: 8 x 8 pixels (csrc D_TH, D_TW)
 NARROW_BN = 64               # its output channels per block (csrc D_BN)
 NARROW_CHUNKS = (32, 16, 8, 4)  # its input channels per staged chunk
-DW_CB = 64                   # K12's channels per block (csrc DWD_CB)
-DW_BUDGET = 64 * 1024        # K12's target shared memory per block
 OUT_DTYPES = {"int8": torch.int8, "uint8": torch.uint8}
 _DIRECT: dict = {}
 
@@ -205,26 +205,6 @@ def direct_weights(w: torch.Tensor) -> torch.Tensor:
     return pack_once(_DIRECT, w, make)
 
 
-def dw_smem(tile, kh: int, kw: int, strides) -> int:
-    """K12's dynamic shared memory at output tile (TH, TW): the window and
-    the block's weights, 64 channels each (csrc launch_qdwconv_direct)."""
-    th, tw = tile
-    return (((th - 1) * strides[0] + kh) * ((tw - 1) * strides[1] + kw) + kh * kw) * DW_CB
-
-
-def dw_tile(oh: int, ow: int, kh: int, kw: int, strides) -> tuple[int, int] | None:
-    """K12's output tile (TH, TW): 8 rows by the whole output row, the
-    columns halved down to 8, then the rows, until the block fits DW_BUDGET;
-    None when a 1 x 1 tile exceeds the card's shared memory."""
-    th, tw = min(8, oh), ow
-    while dw_smem((th, tw), kh, kw, strides) > DW_BUDGET and (th, tw) != (1, 1):
-        if tw > 8 or th == 1:
-            tw = -(-tw // 2)
-        else:
-            th = -(-th // 2)
-    return (th, tw) if dw_smem((th, tw), kh, kw, strides) <= SMEM_LIMIT else None
-
-
 def _depthwise(x_shape, w_shape, groups) -> bool:
     cin = x_shape[3]
     return groups == cin and w_shape[2] == 1 and w_shape[3] == cin
@@ -233,7 +213,8 @@ def _depthwise(x_shape, w_shape, groups) -> bool:
 def qconv2d_supported(x_shape, w_shape, strides, padding, groups: int) -> bool:
     """Whether `qconv2d_int8` runs this geometry on the card: groups 1 or
     depthwise (groups == CIN == COUT, one input channel per filter), a
-    non-empty output, and K11's or K12's staged tiles within 227 KB."""
+    non-empty output, and K11's staged tiles within 227 KB or a tile of
+    K12's (K5's `dw_plan`, which raises where none fits)."""
     kh, kw = w_shape[:2]
     oh, ow = conv2d_out_hw(x_shape[1], x_shape[2], kh, kw, tuple(strides), tuple(padding),
                            (1, 1))
@@ -242,7 +223,11 @@ def qconv2d_supported(x_shape, w_shape, strides, padding, groups: int) -> bool:
     if groups == 1:
         return direct_chunk(x_shape[3], kh, kw, strides) is not None
     if _depthwise(x_shape, w_shape, groups):
-        return dw_tile(oh, ow, kh, kw, strides) is not None
+        try:
+            dw_plan(x_shape[0], oh, ow, x_shape[3], kh, kw, *strides)
+        except ValueError:
+            return False
+        return True
     return False
 
 
@@ -272,30 +257,28 @@ def qdwconv_direct_plain(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0,
     return out.view(_out_dtype(out_dtype))
 
 
-def _launch(kernel, x, w, bias, mult, shift, strides, padding, izp, out_zp, rounding, qmin,
-            qmax, out_dtype, tile_params, wk=None):
-    """Check the operands, fold izp into the bias, launch tk_<kernel> (on
-    `wk`, the weights as the kernel takes them, default w), count it;
+def _launch_k11(x, w, bias, mult, shift, strides, padding, izp, out_zp, rounding, qmin, qmax,
+                out_dtype, plan, wk):
+    """Check K11's operands, fold izp into the bias, launch tk_qconv_direct at
+    `plan` on `wk` (the weights as the plan's path takes them), count it;
     returns the output."""
     n, h, wd, cin = x.shape
-    kh, kw = w.shape[:2]
-    cout = cin if kernel == "qdwconv_direct" else w.shape[3]
-    wshape = (kh, kw, 1 if kernel == "qdwconv_direct" else cin, cout)
+    kh, kw, _, cout = w.shape
     oh, ow = conv2d_out_hw(h, wd, kh, kw, strides, padding, (1, 1))
     i32 = torch.int32
-    check_cuda_operands(kernel, x.device, x=(x, torch.int8, (n, h, wd, cin)),
-                        w=(w, torch.int8, wshape), bias=(bias, i32, (cout,)),
+    check_cuda_operands("qconv_direct", x.device, x=(x, torch.int8, (n, h, wd, cin)),
+                        w=(w, torch.int8, (kh, kw, cin, cout)), bias=(bias, i32, (cout,)),
                         mult=(mult, i32, (cout,)), shift=(shift, i32, (cout,)))
     out = torch.empty((n, oh, ow, cout), dtype=_out_dtype(out_dtype), device=x.device)
     bias = fold_input_zero_point(bias, w, izp)
-    launch(f"tk_{kernel}", [x, w if wk is None else wk, out, bias, mult, shift], dict(
+    launch("tk_qconv_direct", [x, wk, out, bias, mult, shift], dict(
         n=n, h=h, w=wd, cin=cin, kh=kh, kw=kw, cout=cout, oh=oh, ow=ow, sh=strides[0],
         sw=strides[1], pt=padding[0], pl=padding[1], izp=izp, out_zp=out_zp, qmin=qmin,
         qmax=qmax, tonearest=_TONEAREST[rounding],
         a_vec=cin % 16 == 0 and x.data_ptr() % 16 == 0,
         b_vec=cout % 4 == 0 and w.data_ptr() % 4 == 0 and out.data_ptr() % 4 == 0,
-        **tile_params))
-    LAUNCHES[kernel] += 1
+        **plan))
+    LAUNCHES["qconv_direct"] += 1
     return out
 
 
@@ -330,8 +313,8 @@ def qconv_direct(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0
     if plan is None:
         raise ValueError(f"qconv_direct: a {kh}x{kw} window exceeds shared memory")
     wk = direct_weights(w) if plan["cc"] == KC else w
-    return _launch("qconv_direct", x, w, bias, mult, shift, strides, padding, izp, out_zp,
-                   rounding, qmin, qmax, out_dtype, plan, wk=wk)
+    return _launch_k11(x, w, bias, mult, shift, strides, padding, izp, out_zp, rounding, qmin,
+                       qmax, out_dtype, plan, wk)
 
 
 def qdwconv_direct(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0,
@@ -345,12 +328,10 @@ def qdwconv_direct(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0,
         return qdwconv_direct_plain(x, w, bias, mult, shift, **kw_)
     if x.device.type != "cuda":
         raise ValueError(f"qdwconv_direct: no kernel for device {x.device}")
-    kh, kw, oh, ow = _geometry("qdwconv_direct", x, w, strides, padding)
-    tile = dw_tile(oh, ow, kh, kw, strides)
-    if tile is None:
-        raise ValueError(f"qdwconv_direct: a {kh}x{kw} window exceeds shared memory")
-    return _launch("qdwconv_direct", x, w, bias, mult, shift, strides, padding, izp, out_zp,
-                   rounding, qmin, qmax, out_dtype, {"th": tile[0], "tw": tile[1]})
+    _geometry("qdwconv_direct", x, w, strides, padding)
+    return dw_launch("qdwconv_direct", x, w, _out_dtype(out_dtype),
+                     dict(bias=bias, mult=mult, shift=shift), tuple(strides), tuple(padding), izp,
+                     out_zp=out_zp, qmin=qmin, qmax=qmax, tonearest=_TONEAREST[rounding])
 
 
 def _call(x, w, bias, multiplier, shift, strides, padding, groups, input_zero_point, out_zp,

@@ -46,12 +46,11 @@ raises.
 
 from __future__ import annotations
 
-import weakref
 from dataclasses import dataclass
 
 import torch
 
-from ._lib import LAUNCHES, check_cuda_operands, launch, tile_params
+from ._lib import LAUNCHES, check_cuda_operands, launch, pack_once, tile_params
 from .matmul_int8 import _TONEAREST, exact_int_matmul, fold_input_zero_point
 from .requantize import epilogue_plain
 
@@ -359,20 +358,6 @@ def _layout_kernel(layout, x, w, bias, mult, shift, strides, padding, izp, rq_iz
 # id(weight tensor) -> (a weak reference to it, its _version when packed, the
 # packed tensor); keyed by id because a tensor's == is elementwise
 _PACKED: dict = {}
-
-
-def pack_once(cache: dict, w: torch.Tensor, make) -> torch.Tensor:
-    """`make(w)`, made once per weight tensor and kept in `cache` while the
-    tensor lives and its `_version` (in-place writes) is unchanged: the
-    weights are constants of the graph."""
-    key = id(w)
-    hit = cache.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == w._version:
-        return hit[2]
-    wk = make(w)
-    cache[key] = (weakref.ref(w, lambda _, key=key, cache=cache: cache.pop(key, None)),
-                  w._version, wk)
-    return wk
 
 
 def packed_weights(w: torch.Tensor) -> torch.Tensor:

@@ -158,8 +158,10 @@ def qdwconv_raw_plain(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0),
     return (dw_acc_plain(x, w, strides, padding, izp) + bias.to(torch.int64)).to(torch.int32)
 
 
-def _launch(kernel, x, w, out_dtype, ptrs, strides, padding, izp, **epilogue):
-    """Check the operands, launch C entry tk_<kernel>, count it; returns out."""
+def dw_launch(kernel, x, w, out_dtype, ptrs, strides, padding, izp, **epilogue):
+    """Check the operands, launch C entry tk_<kernel> (K5's body: tk_qdwconv_rq,
+    tk_qdwconv_raw, or K12's tk_qdwconv_direct) at `dw_plan`'s tile, count
+    it; returns out."""
     if x.ndim != 4 or w.ndim != 4:
         raise ValueError(f"{kernel}: bad geometry {tuple(x.shape)} * {tuple(w.shape)}")
     n, h, wd, c = x.shape
@@ -195,7 +197,7 @@ def qdwconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0),
                                 qmin=qmin, qmax=qmax)
     if x.device.type != "cuda":
         raise ValueError(f"qdwconv_rq: no kernel for device {x.device}")
-    return _launch("qdwconv_rq", x, w, torch.int8, dict(bias=bias, mult=mult, shift=shift),
+    return dw_launch("qdwconv_rq", x, w, torch.int8, dict(bias=bias, mult=mult, shift=shift),
                    strides, padding, izp, rq_izp=rq_izp, out_zp=out_zp, qmin=qmin,
                    qmax=qmax, tonearest=_TONEAREST[rounding])
 
@@ -207,4 +209,4 @@ def qdwconv_raw(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0) -> t
         return qdwconv_raw_plain(x, w, bias, strides=strides, padding=padding, izp=izp)
     if x.device.type != "cuda":
         raise ValueError(f"qdwconv_raw: no kernel for device {x.device}")
-    return _launch("qdwconv_raw", x, w, torch.int32, dict(bias=bias), strides, padding, izp)
+    return dw_launch("qdwconv_raw", x, w, torch.int32, dict(bias=bias), strides, padding, izp)

@@ -5,14 +5,31 @@ same GEMM storing the int32 accumulator (port of
 `qgemm_rq` and `qgemm_raw` are the kernels' wrappers: on a CUDA tensor they
 launch `csrc/qgemm_rq.cu` / `csrc/qgemm_raw.cu` (or raise), on a CPU tensor
 they run `qgemm_rq_plain` / `qgemm_raw_plain`, the plain PyTorch versions of
-the same integers.  `qmatmul_int8` is the entry with the JAX package's
-signature; it takes `blocks` (a compiled tile, `_lib.TILES`) or "xla", and
-without them reads the tuning database's best record for the workload
-(`matmul_workload`, the JAX package's key).  The record `{"impl": "xla"}`
-keeps its JAX name: in the port it selects `qgemm_library`, the library
-route (`torch._int_mm` on the card, then the exact epilogue in plain torch),
-chosen only by a record or by the caller, never as a fallback.  K4 (no
-multiplier) keeps its 64 x 64 tile and reads no record.
+the same integers.  K1 has two paths, which `gemm_plan` picks from the shape:
+
+  * the tiled path (M above SKINNY_M: the 1x1 convs) runs the implicit-GEMM
+    body of K2 (`csrc/igemm_hopper.cuh`: `wgmma`, persistent blocks, a
+    `cp.async` ring, the exact split of K) on the GEMM as a 1x1 conv of 1 x 1
+    images, at K2's tile and split rules (`rq_tile`, `rq_split`);
+  * the skinny path (M <= SKINNY_M: the dense layers at small batch) swaps
+    the operands, out^T = W^T x^T, and splits K over enough blocks that every
+    SM streams weights; the splits add into an int32 workspace and the last
+    block of an N tile requantizes (the split of the tiled path).
+
+Both read the weight packed K-major (`kmajor_weights`), once per weight
+tensor: a caller whose weight is a view made per call (a 1x1 conv's
+`w.reshape(CIN, COUT)`) names its stable tensor as `w_src`, which is packed
+(and cached) in its place.
+
+`qmatmul_int8` is the entry with the JAX package's signature; it takes
+`blocks` (a compiled tile, `_lib.TILES`) or "xla", and without them reads the
+tuning database's best record for the workload (`matmul_workload`, the JAX
+package's key).  A tile sets the tiled path's (BM, BN); the skinny path reads
+no tile.  The record `{"impl": "xla"}` keeps its JAX name: in the port it
+selects `qgemm_library`, the library route (`torch._int_mm` on the card,
+then the exact epilogue in plain torch), chosen only by a record or by the
+caller, never as a fallback.  K4 (no multiplier) keeps its 64 x 64 tile and
+reads no record.
 
 Zero points: the quantizer always produces wzp = 0; a nonzero input zero point
 folds into the bias (acc(x - izp, w) = x.w - izp * colsum(w), exact in int32
@@ -24,15 +41,142 @@ from __future__ import annotations
 import torch
 
 from ...tune.database import lookup_config
-from ._lib import LAUNCHES, check_cuda_operands, compiled_blocks, launch, tile_params
+from ._lib import (BK, LAUNCHES, TILES, check_cuda_operands, compiled_blocks, launch,
+                   pack_once, sm_count, tile_params)
 from .requantize import channel_vector, epilogue_plain
 
 _TONEAREST = {"UPWARD": 0, "TONEAREST": 1}
+
+KSTEP = BK             # the K step of K1's paths and K2-K4: a packed weight row
+RQ_FILL = 2            # a split K1 (tiled) or K2 has about this many blocks per SM
+RQ_UNSPLIT_STEPS = 9   # a call of at most this many K steps runs unsplit
+RQ_MIN_STEPS = 4       # the fewest K steps a split walks
+RQ_WIDE_FILL = 2       # the default tile is 128 rows where those tiles fill the SMs this many times
+SKINNY_M = 64          # K1 runs its skinny path at M <= SKINNY_M (csrc/qgemm_rq.cu)
+SKINNY_BN = 64         # output channels a skinny block (csrc SK_BN)
+SKINNY_FILL = 4        # the skinny path's blocks: about this many per SM
+SKINNY_MIN_STEPS = 2   # the fewest K steps a skinny split walks
+PATHS = {"tiled": 0, "skinny": 1}
+_KMAJOR: dict = {}
 
 
 def matmul_workload(M: int, K: int, N: int, fused: bool) -> str:
     """Tuning-database key of a GEMM (`tachikoma_tpu/tune/tuner.py:28`)."""
     return f"qmatmul_int8/M{M}_K{K}_N{N}/{'fused' if fused else 'raw'}"
+
+
+def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
+    """w (..., COUT), K the product of its other dimensions in their order
+    ((KH, KW, CIN, COUT) of a conv, (K, N) of a GEMM), packed K-major, step
+    by step, as (steps, COUT, 64): row (s, n) holds output channel n's
+    weights at K indices 64 s .. 64 s + 63, zero past K.  The weight tile of
+    a step (BN consecutive output channels) is then BN * 64 contiguous bytes,
+    which K1, K2, K3 and K4's conv mode stage with 16-byte copies, a warp
+    512 contiguous bytes, and no mask; made once per weight tensor
+    (`pack_once`): a (1, 1, K, N) conv weight and its (K, N) view pack
+    alike."""
+    def make(w):
+        cout = w.shape[-1]
+        k = w.numel() // cout
+        steps = -(-k // KSTEP)
+        flat = torch.zeros((cout, steps * KSTEP), dtype=torch.int8, device=w.device)
+        flat[:, :k] = w.reshape(k, cout).t()
+        return flat.reshape(cout, steps, KSTEP).transpose(0, 1).contiguous()
+
+    return pack_once(_KMAJOR, w, make)
+
+
+def rq_split(m: int, cout: int, k: int, tile=(64, 64), sms: int = 132) -> tuple[int, int]:
+    """(splits, steps per split) of the implicit-GEMM body's requantize mode
+    (K2, K1's tiled path) for an (M, K) x (K, COUT) product at the tile (BM,
+    BN) on a card of `sms` SMs.  Unsplit where the tiles fill the SMs or K
+    has at most RQ_UNSPLIT_STEPS steps of 64: a split costs the zeroing of
+    the workspace, its atomics and the last block's read-back, more than it
+    gains wherever every SM has a tile (tools/conv_probe.py on the H100: the
+    28^2 calls of ResNet-50 b8, 196 tiles of 18 steps, ran faster unsplit).
+    Else the fewest splits that bring the blocks to RQ_FILL * sms, with at
+    least RQ_MIN_STEPS steps a split.  Split z walks steps [z*kper,
+    min((z+1)*kper, steps)); every split is non-empty."""
+    steps = -(-k // KSTEP)
+    tiles = -(-m // tile[0]) * -(-cout // tile[1])
+    if tiles >= sms or steps <= RQ_UNSPLIT_STEPS:
+        return 1, steps
+    ks = max(1, min(-(-RQ_FILL * sms // tiles), steps // RQ_MIN_STEPS))
+    kper = -(-steps // ks)
+    return -(-steps // kper), kper
+
+
+def rq_tile(m: int, cout: int, sms: int = 132) -> tuple[int, int]:
+    """The body's tile where neither the caller nor a record names one: 128
+    rows (by 128 columns where COUT > 64, else 64) where those tiles fill the
+    SMs RQ_WIDE_FILL times over; else 64 x 128 where COUT >= 256 and those
+    tiles fill the SMs; else 64 x 64.  A wider tile stages fewer bytes per
+    product, which set K2's pace on the H100 (tools/conv_probe.py --cuts:
+    the copies, not wgmma or the epilogue); a narrow one keeps the SMs busy
+    where the call is small."""
+    bn = 128 if cout > 64 else 64
+    if -(-m // 128) * -(-cout // bn) >= RQ_WIDE_FILL * sms:
+        return 128, bn
+    if cout >= 256 and -(-m // 64) * -(-cout // 128) >= sms:
+        return 64, 128
+    return 64, 64
+
+
+def skinny_split(k: int, n: int, sms: int = 132) -> tuple[int, int]:
+    """(splits, steps per split) of K1's skinny path: the fewest splits of K
+    that bring its blocks (N / SKINNY_BN tiles, rounded up, times the
+    splits) to SKINNY_FILL * sms, with at least SKINNY_MIN_STEPS steps a
+    split; every split non-empty."""
+    steps = -(-k // KSTEP)
+    tiles = -(-n // SKINNY_BN)
+    ks = max(1, min(-(-SKINNY_FILL * sms // tiles), steps // SKINNY_MIN_STEPS))
+    kper = -(-steps // ks)
+    return -(-steps // kper), kper
+
+
+def gemm_plan(m: int, k: int, n: int, blocks=None, sms: int = 132) -> dict:
+    """K1's launch for an (M, K) x (K, N) call on a card of `sms` SMs:
+    {"path": "skinny", "ks", "kper"} at M <= SKINNY_M (`skinny_split`; a
+    tile in `blocks` is not read), else {"path": "tiled", "bm", "bn", "ks",
+    "kper"} at `blocks`' tile or `rq_tile`'s, split as `rq_split` says where
+    the tiles fill under half the SMs, else unsplit (tools/gemm_probe.py
+    --plans on the H100: ResNet-50 b8's (1568, 1024, 256) call, 100 tiles,
+    ran in 0.0127 ms unsplit and 0.0189 split three ways; its (392, 2048,
+    512), 56 tiles, in 0.0173 split five ways and 0.0220 unsplit)."""
+    if m <= SKINNY_M:
+        ks, kper = skinny_split(k, n, sms)
+        return {"path": "skinny", "ks": ks, "kper": kper}
+    bm, bn = rq_tile(m, n, sms) if blocks is None else (int(blocks[0]), int(blocks[1]))
+    if 2 * -(-m // bm) * -(-n // bn) >= sms:
+        ks, kper = 1, -(-k // KSTEP)
+    else:
+        ks, kper = rq_split(m, n, k, (bm, bn), sms)
+    return {"path": "tiled", "bm": bm, "bn": bn, "ks": ks, "kper": kper}
+
+
+def gemm_plans(m: int, k: int, n: int, sms: int = 132) -> list[dict]:
+    """The launches K1 can make of one call: the tiled path at every tile of
+    `_lib.TILES`, each at `rq_split`'s split and unsplit, and at M <=
+    SKINNY_M the skinny path at `skinny_split`'s split, unsplit and at twice
+    and half its splits (tools/gemm_probe.py --plans, the card tests)."""
+    steps = -(-k // KSTEP)
+    plans = []
+    for bm, bn in TILES:
+        ks, kper = rq_split(m, n, k, (bm, bn), sms)
+        for ks_, kper_ in dict.fromkeys([(ks, kper), (1, steps)]):
+            plans.append({"path": "tiled", "bm": bm, "bn": bn, "ks": ks_, "kper": kper_})
+    if m <= SKINNY_M:
+        ks, _ = skinny_split(k, n, sms)
+        for want in dict.fromkeys([ks, 1, 2 * ks, max(1, ks // 2)]):
+            kper = -(-steps // min(want, steps))
+            plans.append({"path": "skinny", "ks": -(-steps // kper), "kper": kper})
+    return plans
+
+
+def split_covers(ks: int, kper: int, steps: int) -> bool:
+    """Whether a split of ks ways, kper steps each, covers `steps` steps with
+    every split non-empty (csrc igemm split_ok)."""
+    return ks >= 1 and kper >= 1 and ks * kper >= steps and (ks - 1) * kper < steps
 
 
 def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -46,22 +190,28 @@ def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.int64).to(torch.int32)
 
 
-def qgemm_rq_plain(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0,
-                   rounding="UPWARD", qmin=-128, qmax=127, blocks=None) -> torch.Tensor:
-    """Plain PyTorch version of K1 (`blocks` is the kernel's tile: no effect)."""
-    return epilogue_plain(exact_int_matmul(x, w), bias, mult, shift, rq_izp,
-                          out_zp, rounding, qmin, qmax)
+def qgemm_rq_plain(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPWARD",
+                   qmin=-128, qmax=127, blocks=None, plan=None, w_src=None) -> torch.Tensor:
+    """Plain PyTorch version of K1 (`blocks`, `plan` and `w_src` are the
+    kernel's launch and weight cache: no effect)."""
+    return epilogue_plain(exact_int_matmul(x, w), bias, mult, shift, rq_izp, out_zp, rounding,
+                          qmin, qmax)
 
 
 def qgemm_rq(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
              mult: torch.Tensor, shift: torch.Tensor, *, rq_izp: int = 0,
              out_zp: int = 0, rounding: str = "UPWARD", qmin: int = -128,
-             qmax: int = 127, blocks=None) -> torch.Tensor:
+             qmax: int = 127, blocks=None, plan: dict | None = None,
+             w_src: torch.Tensor | None = None) -> torch.Tensor:
     """K1: clip(q_multiply_shift(x @ w + bias - rq_izp, mult, shift) + out_zp,
     qmin, qmax) -> int8 (M, N).  x int8 (M, K), w int8 (K, N), bias / mult /
-    shift int32 (N,); blocks (BM, BN, 64) a compiled tile, default 64 x 64."""
+    shift int32 (N,); blocks (BM, BN, 64) a compiled tile (the tiled path's),
+    None for `gemm_plan`'s; `plan` forces a launch as `gemm_plan` gives it;
+    `w_src`: the stable tensor w is a view of ((1, 1, K, N)), packed in w's
+    place (`kmajor_weights`, once per tensor); None packs w."""
     kw = dict(rq_izp=rq_izp, out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax)
-    tile = tile_params(blocks)
+    if blocks is not None:
+        tile_params(blocks)  # a tile that is not built raises on every device
     if x.device.type == "cpu":
         return qgemm_rq_plain(x, w, bias, mult, shift, **kw)
     if x.device.type != "cuda":
@@ -69,16 +219,30 @@ def qgemm_rq(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     m, k = x.shape
     n = w.shape[1]
     i32 = torch.int32
+    wk = kmajor_weights(w if w_src is None else w_src)
     check_cuda_operands("qgemm_rq", x.device, x=(x, torch.int8, (m, k)),
-                        w=(w, torch.int8, (k, n)), bias=(bias, i32, (n,)),
-                        mult=(mult, i32, (n,)), shift=(shift, i32, (n,)))
+                        w=(w, torch.int8, (k, n)), wk=(wk, torch.int8, (-(-k // KSTEP), n, KSTEP)),
+                        bias=(bias, i32, (n,)), mult=(mult, i32, (n,)), shift=(shift, i32, (n,)))
+    if plan is None:
+        plan = gemm_plan(m, k, n, blocks, sm_count(x.device.index))
+    if not split_covers(plan["ks"], plan["kper"], -(-k // KSTEP)):
+        raise ValueError(f"qgemm_rq: split {plan['ks']} x {plan['kper']} does not cover K {k}")
+    if plan["path"] == "skinny" and m > SKINNY_M:
+        raise ValueError(f"qgemm_rq: the skinny path takes M <= {SKINNY_M}, got {m}")
     out = torch.empty((m, n), dtype=torch.int8, device=x.device)
-    launch("tk_qgemm_rq", [x, w, out, bias, mult, shift], dict(
+    # a split adds its partial sums into zeros (M x N, then a counter an N
+    # tile, or an (M, N) tile on the tiled path); unsplit, no workspace
+    tiles = (-(-n // SKINNY_BN) if plan["path"] == "skinny"
+             else -(-m // plan["bm"]) * -(-n // plan["bn"]))
+    ws = (torch.zeros(m * n + tiles, dtype=i32, device=x.device) if plan["ks"] > 1 else out)
+    launch("tk_qgemm_rq", [x, wk, out, bias, mult, shift, ws], dict(
         n=m, h=1, w=1, cin=k, kh=1, kw=1, cout=n, oh=1, ow=1, sh=1, sw=1,
         rq_izp=rq_izp, out_zp=out_zp, qmin=qmin, qmax=qmax,
         tonearest=_TONEAREST[rounding],
         a_vec=k % 16 == 0 and x.data_ptr() % 16 == 0,
-        b_vec=n % 4 == 0 and w.data_ptr() % 4 == 0, **tile))
+        b_vec=k % 8 == 0 and x.data_ptr() % 8 == 0,
+        qg_path=PATHS[plan["path"]], bm=plan.get("bm", 0), bn=plan.get("bn", 0),
+        ks=plan["ks"], kper=plan["kper"]))
     LAUNCHES["qgemm_rq"] += 1
     return out
 
@@ -95,10 +259,11 @@ def qgemm_library(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPWA
 
 
 def qgemm_rq_tuned(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPWARD",
-                   qmin=-128, qmax=127, blocks=None) -> torch.Tensor:
+                   qmin=-128, qmax=127, blocks=None, w_src=None) -> torch.Tensor:
     """K1 at `blocks`, or the library route for blocks == "xla"; with blocks
     None, what the active database's best record for the workload names (a
-    record whose blocks are not a compiled tile is ignored: 64 x 64)."""
+    record whose blocks are not a compiled tile is ignored: `gemm_plan`'s
+    tile)."""
     if blocks is None:
         cfg = lookup_config(matmul_workload(x.shape[0], x.shape[1], w.shape[1], True))
         if cfg and "blocks" in cfg and compiled_blocks(cfg["blocks"]):
@@ -110,7 +275,7 @@ def qgemm_rq_tuned(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPW
         if blocks != "xla":
             raise ValueError(f"blocks {blocks!r}: a compiled tile or 'xla'")
         return qgemm_library(x, w, bias, mult, shift, **kw)
-    return qgemm_rq(x, w, bias, mult, shift, blocks=blocks, **kw)
+    return qgemm_rq(x, w, bias, mult, shift, blocks=blocks, w_src=w_src, **kw)
 
 
 def qgemm_raw_plain(x, w, bias) -> torch.Tensor:

@@ -20,7 +20,7 @@ from tachikoma_tpu.ops.pallas import conv_int8 as j_conv
 from tachikoma_tpu.ops.pallas.qms32 import plan_requantize as j_plan_requantize
 from tachikoma_tpu.tune import database as j_db
 from tachikoma_tpu.tune import tuner as j_tuner
-from tachikoma_tpu_torch.ops.kernels import conv_direct
+from tachikoma_tpu_torch.ops.kernels import conv_direct, depthwise
 from tachikoma_tpu_torch.ops.kernels.requantize import plan_requantize
 from tachikoma_tpu_torch.tune import database as p_db
 from tachikoma_tpu_torch.tune import tuner as p_tuner
@@ -273,12 +273,62 @@ def test_direct_plan_fits_shared_memory_wherever_supported():
     assert n_hopper > 100 and n_narrow > 0
 
 
-@pytest.mark.parametrize("out,k,s,tile", [(112, 3, 1, (8, 56)), (56, 3, 2, (8, 28)),
-                                           (7, 3, 1, (7, 7)), (14, 3, 2, (8, 14)),
-                                           (300, 5, 1, (8, 75))])
-def test_k12_tile_fits_its_budget(out, k, s, tile):
-    assert conv_direct.dw_tile(out, out, k, k, (s, s)) == tile
-    assert conv_direct.dw_smem(tile, k, k, (s, s)) <= conv_direct.DW_BUDGET
+@pytest.mark.parametrize("out,k,s,c,tile", [(112, 3, 1, 32, (32, 8, 8)), (56, 3, 2, 144, (16, 8, 8)),
+                                             (7, 3, 1, 960, (32, 7, 8)), (14, 3, 2, 576, (32, 8, 8)),
+                                             (300, 5, 1, 16, (16, 8, 8))])
+def test_k12_plan_fits_shared_memory(out, k, s, c, tile):
+    """K12 runs K5's body at `dw_plan`'s tile (channels, rows, columns): at
+    most 256 threads and 227 KB a block, every output written once, and
+    `qconv2d_supported` says yes."""
+    plan = depthwise.dw_plan(2, out, out, c, k, k, s, s)
+    assert (plan["ct"], plan["th"], plan["tw"]) == tile
+    assert plan["threads"] <= depthwise.MAX_THREADS and plan["smem"] <= depthwise.MAX_SMEM
+    if out <= 112:
+        outs = depthwise.dw_thread_outputs(plan, 2, out, out, c)
+        flat = ((outs[:, 0] * out + outs[:, 1]) * out + outs[:, 2]) * c + outs[:, 3]
+        assert np.array_equal(np.sort(flat), np.arange(2 * out * out * c))
+    side = (out - 1) * s + 1
+    assert conv_direct.qconv2d_supported((2, side, side, c), (k, k, 1, c), (s, s),
+                                         (k // 2,) * 4, c)
+
+
+def test_k12_unsupported_where_k5_has_no_tile():
+    """A depthwise window that no tile of K5's fits (101 x 101 taps) is
+    unsupported, as `dw_plan` raises for it."""
+    with pytest.raises(ValueError, match="does not fit"):
+        depthwise.dw_plan(1, 100, 100, 16, 101, 101, 1, 1)
+    assert not conv_direct.qconv2d_supported((1, 200, 200, 16), (101, 101, 1, 16), (1, 1),
+                                             (0, 0, 0, 0), 16)
+
+
+@pytest.mark.parametrize("out_dtype,qmin,qmax", [("int8", -128, 127), ("uint8", 0, 255)])
+@pytest.mark.parametrize("shape,k,strides,padding,izp", [
+    ((2, 9, 9, 32), 3, (1, 1), (1, 1, 1, 1), 7),
+    ((1, 11, 11, 48), 3, (2, 2), (0, 1, 0, 1), -5),
+    ((1, 8, 8, 20), 5, (1, 1), (2, 2, 2, 2), 100),
+])
+def test_k12_izp_convention_on_k5s_body(rng, out_dtype, qmin, qmax, shape, k, strides, padding,
+                                        izp):
+    """K12 on the card launches K5's requantize mode with the caller's bias
+    (not folded: K5's body takes izp * sum(w) off itself), rq_izp 0, and
+    the clipped value's low byte as `out_dtype` (conv_direct.qdwconv_direct).
+    That function, through K5's plain version, == the JAX package's
+    qconv2d_int8 in interpret mode."""
+    c = shape[3]
+    x = rng.integers(-128, 128, shape).astype(np.int8)
+    w = rng.integers(-127, 127, (k, k, 1, c)).astype(np.int8)
+    b = rng.integers(-2000, 2000, c).astype(np.int32)
+    m, s = j_plan_requantize(0.0004 + np.abs(rng.standard_normal(c)) * 0.0005, 0.07)
+    kw = dict(strides=strides, padding=padding, out_zp=4, rounding="TONEAREST", qmin=qmin,
+              qmax=qmax)
+    got = depthwise.qdwconv_rq_plain(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+        torch.from_numpy(m.astype(np.int32)), torch.from_numpy(s.astype(np.int32)), izp=izp,
+        rq_izp=0, **kw).view(getattr(torch, out_dtype))
+    want = np.asarray(j_conv.qconv2d_int8(x, w, bias=b, multiplier=m, shift=s, groups=c,
+                                          input_zero_point=izp, out_dtype=out_dtype, **kw))
+    assert want.dtype == np.dtype(out_dtype)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _record(rec):

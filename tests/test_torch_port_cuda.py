@@ -3,10 +3,13 @@
 MobileNetV2 (K5: b8 fused, b1 unfused) and at ragged shapes, on the same
 inputs; K6 (float attention) is within rtol 2e-5, atol 2e-6 of its plain
 version (tests/test_flash_attention.py's tolerance); the executors and the
-trace emitter on the card equal the CPU path.  K11 and K12 (the direct conv)
-equal their plain versions at tests/test_torch_port_conv_direct.py's shapes
-and at 56^2 c64 3x3 s1 and 112^2 c96 depthwise s2; tune_conv, a fused VGG-11
-forward and tune_graph run on the card (`-k "direct or vgg or graph_tune"`).
+trace emitter on the card equal the CPU path.  K1 equals its plain version
+on both paths (tiled and skinny) at every tile and split, at ResNet-50's,
+MobileNetV2's and VGG-16's calls (`-k k1_`).  K11 and K12 (the direct conv)
+equal their plain versions at tests/test_torch_port_conv_direct.py's shapes,
+at 56^2 c64 3x3 s1 and at MobileNetV2 b8's depthwise shapes; tune_conv, a
+fused VGG-11 forward and tune_graph run on the card (`-k "direct or vgg or
+graph_tune"`).
 
 Every test here is marked `cuda` and skips without a CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs where they are not
@@ -80,9 +83,15 @@ def _epilogue_args(rng, n, device, per_channel=True):
             channel_vector(mult, n, device), channel_vector(shift, n, device))
 
 
+# K1's calls: ResNet-50 b8 1x1 convs and classifier, VGG-16 b8's fc6, a b1
+# classifier, MobileNetV2's K = 24 expand conv (8-byte copies), a ragged one
+K1_CASES = [(25088, 64, 256), (1568, 1024, 256), (8, 2048, 1000), (37, 80, 13),
+            (8, 25088, 4096), (1, 2048, 1000), (392, 2048, 512), (6272, 512, 128),
+            (25088, 24, 144)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mkn", [(25088, 64, 256), (1568, 1024, 256), (8, 2048, 1000),
-                                 (37, 80, 13)])
+@pytest.mark.parametrize("mkn", K1_CASES)
 @pytest.mark.parametrize("rounding", ["UPWARD", "TONEAREST"])
 def test_k1_qgemm_rq_on_card(rng, cuda, mkn, rounding):
     m, k, n = mkn
@@ -604,7 +613,7 @@ def test_wgmma_descriptor_at_an_odd_row_shift(rng, cuda, layout, kernel, blocks)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("blocks", TILE_BLOCKS)
-@pytest.mark.parametrize("mkn", [(25088, 64, 256), (37, 80, 13), (8, 2048, 1000)])
+@pytest.mark.parametrize("mkn", K1_CASES)
 def test_k1_tiles_on_card(rng, cuda, blocks, mkn):
     m, k, n = mkn
     x, w = _dev(rng, (m, k), cuda), _dev(rng, (k, n), cuda)
@@ -612,6 +621,44 @@ def test_k1_tiles_on_card(rng, cuda, blocks, mkn):
     got = qgemm_rq(x, w, b, mult, shift, out_zp=3, blocks=blocks)
     torch.cuda.synchronize()
     assert torch.equal(got, qgemm_rq_plain(x, w, b, mult, shift, out_zp=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", K1_CASES)
+def test_k1_every_plan_on_card(rng, cuda, mkn):
+    """Every launch K1 can make of the call (`gemm_plans`: the tiled path at
+    each tile, split and unsplit; at M <= 64 the skinny path at several
+    splits), each == plain, with the 8-byte and byte copies of x."""
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import gemm_plans
+
+    m, k, n = mkn
+    x, w = _dev(rng, (m, k), cuda), _dev(rng, (k, n), cuda)
+    b, mult, shift = _epilogue_args(rng, n, cuda)
+    kw = dict(rq_izp=-2, out_zp=1, rounding="TONEAREST")
+    want = qgemm_rq_plain(x, w, b, mult, shift, **kw)
+    for plan in gemm_plans(m, k, n):
+        got = qgemm_rq(x, w, b, mult, shift, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+
+
+@pytest.mark.cuda
+def test_k1_refuses_what_it_does_not_take(rng, cuda):
+    """The skinny path refuses M > 64 and a split that leaves a step out;
+    an unaligned x (an odd offset) takes the byte copies and stays == plain."""
+    x, w = _dev(rng, (80, 128), cuda), _dev(rng, (128, 32), cuda)
+    b, mult, shift = _epilogue_args(rng, 32, cuda)
+    with pytest.raises(ValueError, match="skinny path takes M"):
+        qgemm_rq(x, w, b, mult, shift, plan={"path": "skinny", "ks": 1, "kper": 2})
+    with pytest.raises(ValueError, match="does not cover"):
+        qgemm_rq(x[:8], w, b, mult, shift, plan={"path": "skinny", "ks": 1, "kper": 1})
+    buf = _dev(rng, (80 * 136 + 1,), cuda)
+    xu = buf[1:].view(80, 136)
+    wu = _dev(rng, (136, 32), cuda)
+    for m in (8, 80):  # the skinny path, the tiled one
+        got = qgemm_rq(xu[:m], wu, b, mult, shift)
+        torch.cuda.synchronize()
+        assert torch.equal(got, qgemm_rq_plain(xu[:m], wu, b, mult, shift))
 
 
 @pytest.mark.cuda
@@ -987,6 +1034,19 @@ DW_DIRECT_CASES = [
     ((1, 9, 9, 30), 5, (1, 1), (2, 2, 2, 2)),
     ((8, 112, 112, 96), 3, (2, 2), (0, 1, 0, 1)),
     ((8, 112, 112, 32), 3, (1, 1), (1, 1, 1, 1)),
+    # MobileNetV2 b8's other depthwise shapes (17 calls, 10 shapes), then a
+    # 5x5 and a 7x7 kernel (weights in shared memory)
+    ((8, 112, 112, 96), 3, (2, 2), (1, 1, 1, 1)),
+    ((8, 56, 56, 144), 3, (1, 1), (1, 1, 1, 1)),
+    ((8, 56, 56, 144), 3, (2, 2), (1, 1, 1, 1)),
+    ((8, 28, 28, 192), 3, (1, 1), (1, 1, 1, 1)),
+    ((8, 28, 28, 192), 3, (2, 2), (1, 1, 1, 1)),
+    ((8, 14, 14, 384), 3, (1, 1), (1, 1, 1, 1)),
+    ((8, 14, 14, 576), 3, (1, 1), (1, 1, 1, 1)),
+    ((8, 14, 14, 576), 3, (2, 2), (1, 1, 1, 1)),
+    ((8, 7, 7, 960), 3, (1, 1), (1, 1, 1, 1)),
+    ((2, 17, 17, 64), 5, (1, 1), (2, 2, 2, 2)),
+    ((2, 15, 15, 40), 7, (2, 2), (3, 3, 3, 3)),
 ]
 
 

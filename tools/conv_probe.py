@@ -51,20 +51,20 @@ SPLITS = (1, 2, 3, 4, 6, 8, 12)
 # name -> (the kernel's source, [(file, old, new), ...]): a build of csrc with
 # a part cut out or changed
 _IG, _DI, _LH = "qconv_igemm_hopper.cu", "qconv_direct.cu", "layouts_hopper.cuh"
+_IGH = "igemm_hopper.cuh"  # K2's body, which qconv_igemm_hopper.cu includes
 CUTS = {
-    "k2_no_mma": (_IG, [(_IG, "      wgmma_acc<BN>(acc, gmma_desc(as + wg * 4096 + kk * 256, 128, 512),",
+    "k2_no_mma": (_IG, [(_IGH, "      wgmma_acc<BN>(acc, gmma_desc(as + wg * 4096 + kk * 256, 128, 512),",
                          "      if (g.M < 0) wgmma_acc<BN>(acc, gmma_desc(as + wg * 4096 + kk * 256, "
                          "128, 512),")]),
-    "k2_no_a": (_IG, [(_IG, "          copy16(d, x + a_base[j] + ((long long)iy * g.w + ix) * g.cin"
-                       " + ci, true);", "          ;")]),
-    "k2_no_b": (_IG, [(_IG, "    if (!g.b_res) stage_b(bs, kstep);", "")]),
-    "k2_no_copies": (_IG, [(_IG, "      stage(issued % ST, kbeg + p_step);\n", "")]),
-    "k2_no_epilogue": (_IG, [(_IG, "      if (run_epilogue && g.o_vec) {", "      if (g.M < 0) {"),
-                             (_IG, "      } else if (run_epilogue) {", "      } else if (g.M < 0) {")]),
+    "k2_no_a": (_IG, [(_IGH, "            copy16(d, src, true);", "            ;")]),
+    "k2_no_b": (_IG, [(_IGH, "    if (!g.b_res) stage_b(bs, kstep);", "")]),
+    "k2_no_copies": (_IG, [(_IGH, "      stage(issued % ST, kbeg + p_step);\n", "")]),
+    "k2_no_epilogue": (_IG, [(_IGH, "      if (run_epilogue && g.o_vec) {", "      if (g.M < 0) {"),
+                             (_IGH, "      } else if (run_epilogue) {", "      } else if (g.M < 0) {")]),
     # the copies in L2 alone (.cg), not cached in L1 as well (.ca)
-    "k2_cg": (_IG, [(_IG, "      hop::cp_async16_ca(d, src, ok);", "      cp_async16(d, src, ok);")]),
+    "k2_cg": (_IG, [(_IGH, "      hop::cp_async16_ca(d, src, ok);", "      cp_async16(d, src, ok);")]),
     # a ring of eight stages, seven ahead
-    "k2_stages8": (_IG, [(_IG, "STAGES = MODE == RES ? 3 : 4;", "STAGES = MODE == RES ? 3 : 8;"),
+    "k2_stages8": (_IG, [(_IGH, "STAGES = MODE == RES ? 3 : 4;", "STAGES = MODE == RES ? 3 : 8;"),
                          (_LH, "  if (n >= 2)\n    cp_async_wait2();",
                           "  if (n >= 6)\n    asm volatile(\"cp.async.wait_group 6;\" ::: \"memory\");\n"
                           "  else if (n >= 4)\n    asm volatile(\"cp.async.wait_group 4;\" ::: \"memory\");\n"

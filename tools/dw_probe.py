@@ -2,6 +2,7 @@
 MobileNetV2 224^2, at batch 8 and batch 1, whole and with parts cut out:
 
     python3 tools/dw_probe.py [--design NAME] [--csrc DIR] [--plans] [OUT_JSON]
+    python3 tools/dw_probe.py --k12 [--k12-csrc DIR] [OUT_JSON]
 
 Every variant is a build of `qdwconv.cu` (from DIR, default the package's
 `csrc/`) with a part cut out, loaded beside the others into this one process
@@ -16,6 +17,13 @@ Every variant is a build of `qdwconv.cu` (from DIR, default the package's
   * empty: the kernel returns as it starts (the launch and the grid alone);
   * `--plans`: the whole build at every tile that fits, at each distinct
     call (requantize mode at b8, raw mode at b1), == plain first.
+
+With `--k12`, the probe times K12 (`conv_direct.qdwconv_direct`, which runs
+K5's body with rq_izp 0) beside K5's requantize mode at the 17 b8 calls,
+call by call in turns, each == its plain version first; with `--k12-csrc
+DIR` also the K12 of an earlier tree (`qconv_direct.cu` of DIR, its own
+kernel: a thread per pixel x 4 channels, 64 channels a block, the output
+tile of its `dw_tile`), launched with that tree's arguments.
 
 A cut's outputs are wrong by design and are not compared.  `--design` names
 the cut set: `hopper` for the staged-window design (the default) or `first`
@@ -73,18 +81,19 @@ CUTS = {
 
 def build_variants(csrc: Path, src: str, cuts: dict, workdir: Path) -> dict:
     """Compile `src` as it is and with each cut, all at once; returns
-    name -> library path."""
+    name -> library path.  A cut is a list of (old, new) replacements in
+    `src`, or (file, old, new) in another file of `csrc` (a header)."""
     from tachikoma_tpu_torch.ops.kernels import _lib
 
     jobs = {}
     for name, reps in {"whole": [], **cuts}.items():
         d = workdir / name
         shutil.copytree(csrc, d / "csrc")
-        text = (d / "csrc" / src).read_text()
-        for old, new in reps:
+        for rep in reps:
+            file, old, new = rep if len(rep) == 3 else (src, *rep)
+            text = (d / "csrc" / file).read_text()
             assert text.count(old) == 1, f"cut {name} does not apply: {old[:60]!r}"
-            text = text.replace(old, new)
-        (d / "csrc" / src).write_text(text)
+            (d / "csrc" / file).write_text(text.replace(old, new))
         lib = d / f"lib{Path(src).stem}-{name}.so"
         cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(lib), str(d / "csrc" / src)]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -191,6 +200,71 @@ def sweep_plans(ops) -> dict:
     return out
 
 
+def earlier_dw_tile(oh, ow, kh, kw, strides):
+    """The earlier K12's output tile (TH, TW) (its conv_direct.dw_tile): 8
+    rows by the whole output row, the columns halved down to 8, then the
+    rows, until the window and weights of 64 channels fit 64 KB."""
+    def smem(th, tw):
+        return (((th - 1) * strides[0] + kh) * ((tw - 1) * strides[1] + kw) + kh * kw) * 64
+
+    th, tw = min(8, oh), ow
+    while smem(th, tw) > 64 * 1024 and (th, tw) != (1, 1):
+        if tw > 8 or th == 1:
+            tw = -(-tw // 2)
+        else:
+            th = -(-th // 2)
+    return th, tw
+
+
+def compare_k12(ops, before_csrc, workdir) -> dict:
+    """K5 rq, K12 and (from `before_csrc`) the earlier K12 at the b8 calls,
+    in turns, each == plain first; ms per call and per forward."""
+    from tachikoma_tpu_torch.ops.kernels import _lib, conv_direct, depthwise
+    from tachikoma_tpu_torch.utils.timing import call_seconds
+
+    before = None
+    if before_csrc is not None:
+        lib = build_variants(Path(before_csrc), "qconv_direct.cu", {}, workdir / "k12")["whole"]
+        before = ctypes.CDLL(str(lib)).tk_qdwconv_direct
+        before.argtypes = [ctypes.c_void_p] * 8
+        before.restype = ctypes.c_int
+    rows = {"k5_rq": [], "k12": [], "k12_before": []}
+    for label, x, w, bias, mult, shift, s in ops[8]:
+        kw = dict(strides=(s, s), padding=(1, 1, 1, 1))
+        want = conv_direct.qdwconv_direct_plain(x, w, bias, mult, shift, **kw)
+        fns = {"k5_rq": lambda: depthwise.qdwconv_rq(x, w, bias, mult, shift, **kw),
+               "k12": lambda: conv_direct.qdwconv_direct(x, w, bias, mult, shift, **kw)}
+        if before is not None:
+            n, h, wd, c = x.shape
+            oh = ow = (h + 2 - 3) // s + 1
+            th, tw = earlier_dw_tile(oh, ow, 3, 3, (s, s))
+            out = torch.empty((n, oh, ow, c), dtype=torch.int8, device=x.device)
+            p = dict(n=n, h=h, w=wd, cin=c, kh=3, kw=3, cout=c, oh=oh, ow=ow, sh=s, sw=s, pt=1,
+                     pl=1, qmin=-128, qmax=127, a_vec=int(c % 16 == 0), b_vec=int(c % 4 == 0),
+                     th=th, tw=tw)
+            arr = (ctypes.c_int32 * len(_lib.PARAMS))(*(int(p.get(k, 0)) for k in _lib.PARAMS))
+
+            def run(out=out, arr=arr, x=x, w=w, bias=bias, mult=mult, shift=shift):
+                rc = before(x.data_ptr(), w.data_ptr(), out.data_ptr(), bias.data_ptr(),
+                            mult.data_ptr(), shift.data_ptr(), ctypes.addressof(arr),
+                            torch.cuda.current_stream().cuda_stream)
+                assert rc == 0, f"earlier K12: CUDA error {rc}"
+                return out
+            fns["k12_before"] = run
+        for name, fn in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{name} != plain at {label}"
+        for name, fn in fns.items():
+            rows[name].append(call_seconds(fn, "cuda") * 1e3)
+        print(f"{label:22s} " + " ".join(f"{k} {v[-1]:.4f}" for k, v in rows.items() if v),
+              flush=True)
+    res = {k: {"per_call": v, "per_forward": sum(v)} for k, v in rows.items() if v}
+    print("per MobileNetV2 b8 forward: "
+          + " ".join(f"{k} {v['per_forward']:.4f}" for k, v in res.items()), flush=True)
+    return res
+
+
 def main() -> int:
     from tachikoma_tpu_torch.ops.kernels import depthwise
     from tachikoma_tpu_torch.ops.kernels._lib import CSRC
@@ -199,6 +273,7 @@ def main() -> int:
     argv = sys.argv[1:]
     design = "hopper"
     csrc = CSRC
+    k12_csrc = None
     args = []
     i = 0
     while i < len(argv):
@@ -206,6 +281,8 @@ def main() -> int:
             design, i = argv[i + 1], i + 2
         elif argv[i] == "--csrc":
             csrc, i = Path(argv[i + 1]), i + 2
+        elif argv[i] == "--k12-csrc":
+            k12_csrc, i = Path(argv[i + 1]), i + 2
         else:
             if not argv[i].startswith("--"):
                 args.append(argv[i])
@@ -216,9 +293,15 @@ def main() -> int:
     print(card, flush=True)
     workdir = Path(tempfile.mkdtemp(prefix="dw_probe_"))
     try:
-        libs = build_variants(Path(csrc), SRC, CUTS[design], workdir)
         rng = np.random.default_rng(0)
         ops = {b: calls(b, rng) for b in BATCHES}
+        if "--k12" in argv:
+            res = {"card": card, "k12": compare_k12(ops, k12_csrc, workdir),
+                   "calls": [f"{side}x{side}x{c} s{s}" for side, c, s in MBV2_DW]}
+            with open(out_path, "w") as f:
+                json.dump(res, f, indent=1)
+            return 0
+        libs = build_variants(Path(csrc), SRC, CUTS[design], workdir)
         res = {"card": card, "design": design, "csrc": str(csrc), "variants": {}}
         pad = (1, 1, 1, 1)
         for name, lib in libs.items():

@@ -128,7 +128,10 @@ def main() -> int:
     print("card:", card, flush=True)
     _lib.build()
     _lib._entry("tk_qconv_raw")
-    src = (_lib.CSRC / "qconv_igemm_hopper.cu").read_text()
+    # the body lives in igemm_hopper.cuh: inlined, so that the cuts see it
+    src = (_lib.CSRC / "qconv_igemm_hopper.cu").read_text().replace(
+        '#include "igemm_hopper.cuh"',
+        (_lib.CSRC / "igemm_hopper.cuh").read_text().replace("#pragma once\n", ""))
     cuts = {}
     tmp = tempfile.mkdtemp()  # kept until the end: the loaded libraries live there
     try:

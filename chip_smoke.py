@@ -43,15 +43,18 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      captured is recorded call by call, and every K4 call (qgemm_raw,
      qconv_raw) is held == against its plain version and timed as in phase 4,
      each conv-mode call (K3's body, K split across blocks with int32
-     atomics where the tiles leave the card idle) printed with its split, the
-     conv mode's time per forward beside its first body's; every captured
-     integer node is held == against the CPU plain path;
+     atomics where the tiles leave the card idle) printed with its split and
+     each GEMM-mode call (K1's two paths: the tiled wgmma body, the skinny
+     split-K path) with its plan, both beside the previous design's time per
+     call and per forward; every captured integer node is held == against
+     the CPU plain path;
   8. trace emission: the launch counts are set to 0, TraceEmitter(
      backend="torch", device="cuda").emit_to writes the b1 224^2 trace (one
      warm call, five timed), the counts are read (both K4 modes must have
-     launched), the trace is held record by record against the CPU plain
-     path's trace (integer records byte-equal, float records allclose), its
-     CRCs checked natively and every record re-executed by verify_trace;
+     launched), no weight is packed K-major during the timed calls, the
+     trace is held record by record against the CPU plain path's trace
+     (integer records byte-equal, float records allclose), its CRCs checked
+     natively and every record re-executed by verify_trace;
   9. MobileNetV2 b8 224^2 (the JAX package's zoo model, width 1.0, random
      weights from the seed): phases 3-6 again -- K5 qdwconv_rq at its 17
      calls (each printed with its tile, per call and per forward beside the
@@ -61,9 +64,11 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      busy time a request beside the earlier tree's;
  10. MobileNetV2 b1 224^2 unfused: phases 7-8 again -- K5 qdwconv_raw (each
      call with its tile and the first design's time) and K4 held == plain and
-     timed, the trace emitted on the card (1 warm + 5 timed) with both K4
-     modes and qdwconv_raw launched, compared record by record with the CPU
-     trace, CRC-checked and verify_trace'd;
+     timed (each GEMM-mode call with its plan and the previous design's
+     time), the trace emitted on the card (1 warm + 5 timed) with both K4
+     modes and qdwconv_raw launched and no weight packed during the timed
+     traces, compared record by record with the CPU trace, CRC-checked and
+     verify_trace'd;
  11. the trained fixture tests/fixtures/synth_mbv2.tkmod, loaded with the
      port's load_artifact, quantized on the host with a calibration batch from
      the seed and fused, run on the card: K5 launched, every integer node ==
@@ -182,7 +187,7 @@ KERNELS = {
                  "tachikoma_tpu/ops/pallas/conv_flat.py:68"),
     "qconv_rq_res": ("tachikoma_tpu_torch/csrc/qconv_igemm_hopper.cu",
                      "tachikoma_tpu/ops/pallas/conv_flat.py:1285"),
-    "qgemm_raw": ("tachikoma_tpu_torch/csrc/qgemm_raw.cu",
+    "qgemm_raw": ("tachikoma_tpu_torch/csrc/qgemm_rq.cu",
                   "tachikoma_tpu/ops/pallas/matmul_int8.py:61"),
     "qconv_raw": ("tachikoma_tpu_torch/csrc/qconv_igemm_hopper.cu",
                   "tachikoma_tpu/ops/pallas/conv_flat.py:68"),
@@ -236,6 +241,9 @@ EARLIER_MS = {("ResNet-50", "qconv_rq_res"): 0.3525, ("ResNet-50", "qconv_raw"):
               # K1 on csrc/qgemm.cuh and K12 on its own kernel, before their redesign
               ("ResNet-50", "qgemm_rq"): 0.4246, ("MobileNetV2", "qgemm_rq"): 0.3658,
               ("VGG-16", "qgemm_rq"): 0.4019, ("MobileNetV2", "qdwconv_direct"): 0.1936,
+              # K4's GEMM mode on csrc/qgemm.cuh, before it moved onto K1's paths
+              # (tools/gemm_probe.py --raw --csrc on the tree before it, b1 forwards)
+              ("ResNet-50", "qgemm_raw"): 0.3268, ("MobileNetV2", "qgemm_raw"): 0.2139,
               ("BERT-base b4 s128", "flash_attn"): 0.2954,
               ("GPT-2 small b1 s128", "flash_attn"): 0.2878,
               (f"ViT-B/16 b{BATCH} {IMAGE}^2", "flash_attn"): 0.8744}
@@ -266,6 +274,22 @@ EARLIER_CALL_MS = {
         "M=1568 K=96 N=576": 0.0080, "M=1568 K=576 N=96": 0.0096, "M=392 K=576 N=160": 0.0098,
         "M=392 K=160 N=960": 0.0067, "M=392 K=960 N=160": 0.0131, "M=392 K=960 N=320": 0.0138,
         "M=392 K=320 N=1280": 0.0105, "M=8 K=1280 N=1000": 0.0134},
+    # K4's GEMM mode on csrc/qgemm.cuh, per b1 call (tools/gemm_probe.py --raw on it)
+    ("ResNet-50", "qgemm_raw"): {
+        "M=3136 K=64 N=64": 0.0041, "M=3136 K=64 N=256": 0.0066, "M=3136 K=256 N=64": 0.0059,
+        "M=3136 K=256 N=128": 0.0064, "M=784 K=128 N=512": 0.0050, "M=784 K=256 N=512": 0.0062,
+        "M=784 K=512 N=128": 0.0082, "M=784 K=512 N=256": 0.0083, "M=196 K=256 N=1024": 0.0058,
+        "M=196 K=512 N=1024": 0.0082, "M=196 K=1024 N=256": 0.0128, "M=196 K=1024 N=512": 0.0124,
+        "M=49 K=512 N=2048": 0.0081, "M=49 K=1024 N=2048": 0.0128, "M=49 K=2048 N=512": 0.0222,
+        "M=1 K=2048 N=1000": 0.0182},
+    ("MobileNetV2", "qgemm_raw"): {
+        "M=12544 K=32 N=16": 0.0036, "M=12544 K=16 N=96": 0.0082, "M=3136 K=96 N=24": 0.0037,
+        "M=3136 K=24 N=144": 0.0057, "M=3136 K=144 N=24": 0.0042, "M=784 K=144 N=32": 0.0046,
+        "M=784 K=32 N=192": 0.0041, "M=784 K=192 N=32": 0.0046, "M=196 K=192 N=64": 0.0050,
+        "M=196 K=64 N=384": 0.0041, "M=196 K=384 N=64": 0.0069, "M=196 K=384 N=96": 0.0068,
+        "M=196 K=96 N=576": 0.0047, "M=196 K=576 N=96": 0.0085, "M=49 K=576 N=160": 0.0081,
+        "M=49 K=160 N=960": 0.0050, "M=49 K=960 N=160": 0.0116, "M=49 K=960 N=320": 0.0116,
+        "M=49 K=320 N=1280": 0.0063, "M=1 K=1280 N=1000": 0.0123},
     ("VGG-16", "qgemm_rq"): {
         "M=8 K=25088 N=4096": 0.3230, "M=8 K=4096 N=4096": 0.0403, "M=8 K=4096 N=1000": 0.0359},
     ("ResNet-50", "qconv_rq"): {
@@ -314,8 +338,8 @@ EARLIER_CALL_MS = {
         "8x7x7x512 k3 s1 -> 512": 0.0666},
 }
 # printed call by call with their plan
-PLAN_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res", "qconv_raw", "qdwconv_rq", "qdwconv_raw",
-                "flash_attn")
+PLAN_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res", "qgemm_raw", "qconv_raw", "qdwconv_rq",
+                "qdwconv_raw", "flash_attn")
 
 
 def say(*a):
@@ -366,7 +390,7 @@ def recording(calls: list):
     for mod, attr, name in ((matmul_int8, "qgemm_rq", "qgemm_rq"), (conv, "qconv_rq", "qconv_rq"),
                             (conv, "qconv_rq_res", "qconv_rq_res"),
                             (matmul_int8, "qgemm_raw", "qgemm_raw"),
-                            (conv, "qgemm_raw", "qgemm_raw"), (conv, "qconv_raw", "qconv_raw"),
+                            (conv, "qconv_raw", "qconv_raw"),
                             (conv, "qdwconv_rq", "qdwconv_rq"),
                             (conv, "qdwconv_raw", "qdwconv_raw"),
                             (attention, "flash_attention", "flash_attn"),
@@ -420,10 +444,10 @@ def work(name, a, k) -> tuple[int, int, str]:
 
 
 def library_call(name, a, k):
-    """One PyTorch call of the same shape (used only as a yardstick), or None
-    where there is none: K4's GEMM mode takes only torch._int_mm, which
-    computes its function exactly, refuses M <= 16 and, through cuBLASLt,
-    some other shapes (M=784 K=32 N=192 on torch 2.11, CUDA 12.8)."""
+    """One PyTorch call of the same shape (used only as a yardstick): for the
+    GEMMs torch._int_mm, which computes K4's function exactly but refuses M
+    <= 16 and, through cuBLASLt, some other shapes (M=784 K=32 N=192 on
+    torch 2.11, CUDA 12.8); there an fp16 matmul of the same shape."""
     x, w = a[0], a[1]
     if name == "flash_attn":
         return lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -437,8 +461,6 @@ def library_call(name, a, k):
                 return lambda: torch._int_mm(x, w)
             except RuntimeError as e:
                 say(f"torch._int_mm refuses M={m} K={kk} N={n}: {str(e)[:60]}")
-        if name == "qgemm_raw":
-            return None
         x16, w16 = x.half(), w.half()
         return lambda: x16 @ w16
     pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
@@ -502,8 +524,8 @@ def hold_call(name, a, k, impl) -> float:
 
 
 def launch_plan(name, a, k) -> str:
-    """The launch of one call as its wrapper plans it: K1's path (tiled at a
-    tile, or skinny) and split of K, K2's tile and split of
+    """The launch of one call as its wrapper plans it: K1's and K4's GEMM
+    mode's path (tiled at a tile, or skinny) and split of K, K2's tile and split of
     K, K3's tile, K4's conv-mode split, K11's path (BN and taps a step on the
     Hopper path, the chunk on the narrow one), K5's tile, K6's plan (warps a
     block, depth of Q.K^T, output columns a block, column blocks, stages;
@@ -512,7 +534,7 @@ def launch_plan(name, a, k) -> str:
                                                  flash_attention, matmul_int8)
 
     x, w = a[0], a[1]
-    if name == "qgemm_rq":
+    if name in ("qgemm_rq", "qgemm_raw"):
         p = k.get("plan") or matmul_int8.gemm_plan(x.shape[0], x.shape[1], w.shape[1],
                                                    k.get("blocks"), conv.sm_count(x.device.index))
         tile = f" {p['bm']}x{p['bn']}" if p["path"] == "tiled" else ""
@@ -794,6 +816,14 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
     return totals, launches, state
 
 
+def packed_weights() -> set:
+    """The K-major packed weights held now (`kmajor_weights`' cache), by
+    identity: a weight packed after this call is not in the set."""
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8
+
+    return {id(v[2]) for v in matmul_int8._KMAJOR.values()}
+
+
 def trace_path(labels, model: str, build, kernels) -> tuple[dict, dict]:
     """The trace path of one model, two phases titled by `labels` (7-8 for
     ResNet-50; 10a-10b for MobileNetV2): the unfused b1 forward's raw kernels
@@ -844,6 +874,7 @@ def trace_path(labels, model: str, build, kernels) -> tuple[dict, dict]:
         em = TraceEmitter(q, backend="torch", device="cuda", meta=meta)
         reset(kernels)
         n_records = em.emit_to(x, path)
+        packed = packed_weights()
         times, timings = [], []
         for _ in range(TRACE_TIMED):
             t0 = time.perf_counter()
@@ -853,6 +884,12 @@ def trace_path(labels, model: str, build, kernels) -> tuple[dict, dict]:
         launches = read_launches(kernels, f"the {model} trace path")
         for name, n in launches.items():
             say(f"{name}: {n} launches in {TRACE_TIMED + 1} traces")
+        # K4 reads weights packed K-major once per weight tensor: the warm
+        # call packed them, the timed calls pack none
+        again = packed_weights() - packed
+        assert not again, f"the timed traces packed {len(again)} weights K-major"
+        say(f"{len(packed)} weight tensors packed K-major by the warm trace, none during the "
+            f"{TRACE_TIMED} timed traces")
         nbytes = os.path.getsize(path)
         med = statistics.median(times)
 

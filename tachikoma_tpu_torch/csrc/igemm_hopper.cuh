@@ -1,5 +1,6 @@
-// The implicit-GEMM body on Hopper's wgmma that K1's tiled path
-// (qgemm_rq.cu), K2, K3 and K4's conv mode (qconv_igemm_hopper.cu) launch:
+// The implicit-GEMM body on Hopper's wgmma that the tiled paths of K1 and of
+// K4's GEMM mode (qgemm_rq.cu), K2, K3 and K4's conv mode
+// (qconv_igemm_hopper.cu) launch:
 // persistent blocks over (M tile, N tile) items, a cp.async ring across
 // them, three epilogues (Mode), the exact split of K.  The design and its
 // measurements are in qconv_igemm_hopper.cu's notes.
@@ -32,8 +33,8 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool val
 }
 constexpr int RPAD = 16;   // bytes of padding per row of the staged output tile
 
-// The epilogue of a launch: K4's raw int32 store, K2's requantize, K3's
-// requantize and residual add.
+// The epilogue of a launch: K4's raw int32 store (both modes), K2's and K1's
+// requantize, K3's requantize and residual add.
 enum Mode { RAW, RQ, RES };
 
 struct Geo {
@@ -41,7 +42,7 @@ struct Geo {
   int M, K, steps, kper;  // steps = Kp / 64; a split walks kper of them
   int m_tiles, n_tiles, gm;  // a block walks M tiles mb, mb + gm, ... of one N tile
   // dynamic shared memory: the ring (STAGES x stage_bytes), then from off_b
-  // the resident weights (b_res), the column constants, the tables (K3),
+  // the resident weights (b_res), the column constants (K4: the bias), the tables (K3),
   // the staged tiles (K2, K3) and K2's arrival flag; smem bytes in all
   int stage_bytes, off_b, off_cols, off_tables, off_rtile, off_flag, smem;
   bool b_res;  // the block's weights (every step of its N tile) staged once
@@ -96,7 +97,7 @@ void smem_layout(Geo& g) {
   g.stage_bytes = (BM + (g.b_res ? 0 : BN)) * KSTEP;
   g.off_b = T::STAGES * g.stage_bytes;
   g.off_cols = g.off_b + (g.b_res ? g.steps * BN * KSTEP : 0);
-  g.off_tables = g.off_cols + (MODE != RAW ? BN * 16 : 0);
+  g.off_tables = g.off_cols + (MODE != RAW ? BN * 16 : BN * 4);
   g.off_rtile = g.off_tables + (MODE == RES ? 2 * 256 * 4 : 0);
   g.off_flag = g.off_rtile + T::RSLOTS * BM * T::RS;
   g.smem = g.off_flag + (MODE == RQ ? 16 : 0);
@@ -139,6 +140,7 @@ __global__ void __launch_bounds__(2 * BM)
   const uint4 fill = make_uint4(g.izp4, g.izp4, g.izp4, g.izp4);
   int8_t* const bres = smem + g.off_b;
   int4* const colc = reinterpret_cast<int4*>(smem + g.off_cols);
+  int32_t* const colb = reinterpret_cast<int32_t*>(smem + g.off_cols);  // K4's bias
   int32_t* const tl = reinterpret_cast<int32_t*>(smem + g.off_tables);
   int32_t* const tr = tl + 256;
   int8_t* const rt = smem + g.off_rtile;
@@ -277,8 +279,13 @@ __global__ void __launch_bounds__(2 * BM)
   if (g.b_res)  // every step of the block's weights, with the first stage's copies
     for (int st = 0; st < g.steps; ++st) stage_b(bres + st * BN * KSTEP, st);
   produce(0, 0);
-  if constexpr (MODE != RAW)  // column constants (and the add's tables), while the copies fly
+  // column constants (and the add's tables; K4's bias, zero on the splits
+  // past the first), while the copies fly
+  if constexpr (MODE != RAW)
     epi::load_cols(colc, BN, n0, g.cout, bias, mult, shift, e.rq_izp);
+  else
+    for (int i = tid; i < BN; i += NT)
+      colb[i] = blockIdx.z == 0 && n0 + i < g.cout ? bias[n0 + i] : 0;
   if constexpr (RES_) {
     for (int i = tid; i < 512; i += NT) {
       const int32_t v = (int8_t)(i & 255);
@@ -407,14 +414,13 @@ __global__ void __launch_bounds__(2 * BM)
       }
     } else {
       int32_t* const o32 = static_cast<int32_t*>(out);
-      const bool split = gridDim.z > 1, with_bias = blockIdx.z == 0;
+      const bool split = gridDim.z > 1;
 #pragma unroll
       for (int jb = 0; jb < BN / 8; ++jb) {
-        const int col = n0 + 8 * jb + 2 * (lane & 3);
+        const int cl = 8 * jb + 2 * (lane & 3), col = n0 + cl;
         if (col >= g.cout) continue;
         const bool pair = col + 1 < g.cout;
-        const int32_t b0 = with_bias ? bias[col] : 0;
-        const int32_t b1 = with_bias && pair ? bias[col + 1] : 0;
+        const int32_t b0 = colb[cl], b1 = colb[cl + 1];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = m0 + rl0 + 8 * h;
@@ -531,11 +537,12 @@ int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* resi
   return (int)cudaGetLastError();
 }
 
-// Launches MODE (K2 or K3) at the tile (P_BM, P_BN) from {64, 128}^2.
+// Launches MODE (K1's tiled path and K2 in RQ, K3, K4's GEMM mode in RAW) at
+// the tile (P_BM, P_BN) from {64, 128}^2.
 template <int MODE>
-int launch_rq(const int8_t* x, const int8_t* wk, int8_t* out, const int8_t* residual,
-              const int32_t* bias, const int32_t* mult, const int32_t* shift, int32_t* ws,
-              const Epi& e, const Geo& g, int ks, const int32_t* p, cudaStream_t s) {
+int launch_tiled(const int8_t* x, const int8_t* wk, void* out, const int8_t* residual,
+                 const int32_t* bias, const int32_t* mult, const int32_t* shift, int32_t* ws,
+                 const Epi& e, const Geo& g, int ks, const int32_t* p, cudaStream_t s) {
   if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
   const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
 #define TK_TILE(BM, BN)                                                                        \

@@ -77,7 +77,10 @@
 // over the z dimension of the grid (ops/kernels/conv.py raw_split for K4,
 // rq_split for K2): block z walks steps [z*kper, min((z+1)*kper, steps)).
 //   * K4 adds its int32 partial sums into an output the wrapper zeroed, with
-//     red.global.add.s32; split 0 alone adds the bias.
+//     red.global.add.s32; split 0 alone adds the bias, which each block
+//     stages in shared memory while its first copies fly (read after the
+//     main loop it cost K4's GEMM mode 1.1 us a call on the H100:
+//     tools/gemm_probe.py --raw).
 //   * K2's requantize needs the whole sum, so its splits add their partial
 //     sums into an int32 workspace the wrapper zeroed (M x COUT, then one
 //     arrival counter a tile), each block fences its adds and then counts
@@ -122,8 +125,8 @@ extern "C" int tk_qconv_rq(const int8_t* x, const int8_t* wk, int8_t* out, const
   const int ks = p[P_KS];
   if (!igemm::split_ok(ks, g) || (ks > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
   g.o_vec = g.cout % 16 == 0 && (uintptr_t)out % 16 == 0;
-  return igemm::launch_rq<igemm::RQ>(x, wk, out, nullptr, bias, mult, shift, ws,
-                                     igemm::make_epi(p), g, ks, p, (cudaStream_t)stream);
+  return igemm::launch_tiled<igemm::RQ>(x, wk, out, nullptr, bias, mult, shift, ws,
+                                        igemm::make_epi(p), g, ks, p, (cudaStream_t)stream);
 }
 
 // K3.  wk as K2's; the tile is (P_BM, P_BN) from {64, 128}^2; stride 1.
@@ -150,8 +153,8 @@ extern "C" int tk_qconv_rq_res(const int8_t* x, const int8_t* wk, int8_t* out,
   e.zo = p[P_ZO];
   e.lo = p[P_LO];
   e.hi = p[P_HI];
-  return igemm::launch_rq<igemm::RES>(x, wk, out, residual, bias, mult, shift, nullptr, e, g, 1,
-                                      p, (cudaStream_t)stream);
+  return igemm::launch_tiled<igemm::RES>(x, wk, out, residual, bias, mult, shift, nullptr, e, g,
+                                         1, p, (cudaStream_t)stream);
 }
 
 // K4's conv mode.  wk as K2's; the tile is 64 x 64; K is split P_KS ways,

@@ -1,63 +1,67 @@
-// K1 qgemm_rq: int8 x (M, K) times int8 w (K, N), int32 accumulator, exact
-// requantize epilogue, int8 out (M, N).
+// K1 qgemm_rq and K4's GEMM mode qgemm_raw: int8 x (M, K) times int8 w
+// (K, N), int32 accumulator; K1 requantizes exactly to int8 (M, N), K4 stores
+// acc + bias as int32 (M, N), in int32 wraparound.
 //
-// Replaces tachikoma_tpu/ops/pallas/matmul_int8.py _mm_kernel (built by
-// _build_qmatmul, entry qmatmul_int8).  On the int8 paths it runs the 1x1
-// convs of ResNet-50 and MobileNetV2 (M = batch * H * W, K = CIN, N = COUT),
-// their classifiers and VGG-16's three dense layers (M = batch).  The weight
-// arrives packed K-major once per weight tensor, (Kp / 64, N, 64)
-// (ops/kernels/matmul_int8.py kmajor_weights): the 64 bytes of K step s of
-// output channel n are one row, and a step's rows for consecutive channels
-// are contiguous.
+// K1 replaces tachikoma_tpu/ops/pallas/matmul_int8.py _mm_kernel (built by
+// _build_qmatmul, entry qmatmul_int8): on the int8 run paths the 1x1 convs of
+// ResNet-50 and MobileNetV2 (M = batch * H * W, K = CIN, N = COUT), their
+// classifiers and VGG-16's three dense layers (M = batch).  K4's GEMM mode
+// replaces _mm_kernel_raw of the same file (entry qmatmul_int8 without a
+// multiplier): on the unfused graphs the trace path runs, every 1x1
+// qnn.conv2d and the qnn.dense (at batch 1: ResNet-50's 37 calls,
+// MobileNetV2's 35).  The weight arrives packed K-major once per weight
+// tensor, (Kp / 64, N, 64) (ops/kernels/matmul_int8.py kmajor_weights): the
+// 64 bytes of K step s of output channel n are one row, and a step's rows for
+// consecutive channels are contiguous.
 //
-// What bounds it on an H100: bytes.  A 1x1 conv does 2 * CIN * COUT /
+// What bounds them on an H100: bytes.  A 1x1 conv does 2 * CIN * COUT /
 // (CIN + COUT) operations per activation byte moved, at most 512 on these
 // paths, under the ~590 int8 operations per byte at which the tensor cores
-// (1979 TOP/s) overtake memory (3.35 TB/s); the dense layers at M = 8 read
-// their weights once for 16 operations a byte (VGG-16's 124 MB of dense
-// weights: 0.037 ms).  The first port's kernel (qgemm.cuh, kept for K4's
-// GEMM mode) ran ResNet-50 b8's 21 calls in 0.3730 ms and VGG-16 b8's three
-// dense layers in 0.3993 (tools/gemm_probe.py, NVIDIA H100 80GB HBM3,
-// 700.00 W): a single-stage mma.sync loop, B transposed in registers, the
-// int64 epilogue (16-22% of its time, cut out), and a grid of
-// (M / 64) x (N / 64) blocks that gave fc6 64 blocks for 392 steps each
-// (0.32 ms for 103 MB: 0.3 TB/s).  Two paths replace it, picked by the
-// wrapper's plan (gemm_plan, P_QG_PATH):
+// (1979 TOP/s) overtake memory (3.35 TB/s); K4's int32 output is four times
+// K1's int8 one; the dense layers at M = 8 read their weights once for 16
+// operations a byte (VGG-16's 124 MB of dense weights: 0.037 ms); at batch 1
+// a call is a few microseconds of latency, its launch included.  Two paths,
+// picked by the wrapper's plan (gemm_plan, P_QG_PATH), each with both
+// epilogues:
 //
 //   * the tiled path (M above 64): K2's implicit-GEMM body
 //     (igemm_hopper.cuh) on the GEMM as a 1x1 conv of 1 x 1 images:
 //     wgmma.mma_async m64nBNk32 on both operands K-major in shared memory,
-//     persistent blocks with a 4-stage cp.async ring across their items, the
-//     requantize epilogue of epilogue_hopper.cuh (column constants once a
-//     block in shared memory, one mul.wide.s32, a staged output tile leaving
-//     in 16-byte rows), and the exact split of K where the tiles leave SMs
-//     idle.  x is copied 16 bytes at a time, or 8 where K % 16 == 8
-//     (MobileNetV2's K = 24).  tools/gemm_probe.py --k2 timed that body on
-//     the first port's calls before this path existed: 0.2893 ms against
-//     0.3730 per ResNet-50 b8 forward.  The tile is the caller's (the tuner's
-//     `blocks`), else rq_tile's; the split rq_split's.
-//   * the skinny path (M <= 64: the dense layers at batch 1 to 64): the
-//     bytes are the weights, so the operands swap, out^T (N, M) = W^T (N, K)
-//     x^T (K, M), and the packed weight rows are the mma.sync m16n8k32 A
-//     operand (16 output channels a warp, 64 a block of four warps), x the
-//     B operand (n = 8 rows of M a product, up to eight products).  Each
-//     lane copies 16 bytes of two weight rows and of each x row and runs two
-//     products a step; the k order inside a step is permuted alike on both
-//     operands (a lane's 16 bytes are k 16 tig .. 16 tig + 15), which the
-//     sum does not see.  K is split (skinny_split) over about four blocks
-//     an SM, and each block streams its slice of steps through a ring of
-//     SK_STAGES stages of 16-byte cp.async copies, SK_STAGES - 1 of them in
-//     flight.  The splits add their int32 sums into a zeroed workspace and
-//     the last block of an N tile to arrive requantizes the whole sum, as
-//     K2's split does (igemm_hopper.cuh).  The skinny path reads no tile:
-//     a tuner's `blocks` sets the tiled path's alone.
+//     persistent blocks with a 4-stage cp.async ring across their items, and
+//     the split of K where the tiles leave SMs idle.  K1 takes the requantize
+//     epilogue of epilogue_hopper.cuh (column constants once a block in
+//     shared memory, one mul.wide.s32, a staged output tile leaving in
+//     16-byte rows), its split the exact one whose last block requantizes;
+//     K4 takes the body's RAW epilogue, whose split adds int32 partial sums
+//     atomically into a zeroed output, the bias on split 0 (no workspace, no
+//     arrival counter, no read-back).  x is copied 16 bytes at a time, or 8
+//     where K % 16 == 8 (MobileNetV2's K = 24).  The tile is the caller's
+//     (the tuner's `blocks`), else rq_tile's.
+//   * the skinny path (M <= 64: the dense layers at batch 1 to 64, and
+//     K4's stage-4 1x1 convs at batch 1, M = 49): the bytes are the
+//     weights, so the operands swap, out^T (N, M) = W^T (N, K) x^T (K, M),
+//     and the packed weight rows are the mma.sync m16n8k32 A operand (16
+//     output channels a warp, 64 a block of four warps), x the B operand
+//     (n = 8 rows of M a product, up to eight products).  Each lane copies
+//     16 bytes of two weight rows and of each x row and runs two products a
+//     step; the k order inside a step is permuted alike on both operands (a
+//     lane's 16 bytes are k 16 tig .. 16 tig + 15), which the sum does not
+//     see.  K is split (skinny_split) over about four blocks an SM, and each
+//     block streams its slice of steps through a ring of SK_STAGES stages of
+//     16-byte cp.async copies, SK_STAGES - 1 of them in flight.  K1's splits
+//     add their int32 sums into a zeroed workspace and the last block of an
+//     N tile to arrive requantizes the whole sum, as K2's split does; K4's
+//     add theirs atomically into the zeroed output, split 0 with the bias.
+//     The skinny path reads no tile: a tuner's `blocks` sets the tiled
+//     path's alone.
 // Integer sums wrap alike in any order, so every split gives the same
 // integers on every run.
 #include "igemm_hopper.cuh"
 
 // The parts of the skinny path that tools/gemm_probe.py cuts out, one at a
 // time (each is 1 in the kernel as it runs).
-#define QG_EPILOGUE 1  // 0: the sum's low byte is stored, no requantize (the split still adds)
+#define QG_EPILOGUE 1  // 0: K1 stores the sum's low byte, no requantize (the split still
+                       // adds); K4 stores nothing
 #define QG_A_LOADS 1   // 0: x is not copied (its tile holds what shared memory held)
 #define QG_BODY 1      // 0: the kernel returns as it starts
 
@@ -122,11 +126,12 @@ __device__ __forceinline__ void stage(int8_t* st, const int8_t* __restrict__ x,
 // Block (x: N tile, y: split of K) sums steps [y kper, min((y + 1) kper,
 // steps)) of its SK_BN channels for the M <= 8 MT rows of x.  Warp w owns
 // channels n0 + 16 w .. + 15; lane (gid, tig) = (lane / 4, lane % 4) holds
-// acc[mt] = channels (gid, gid + 8) x rows 8 mt + 2 tig + (0, 1).
-template <int MT>
+// acc[mt] = channels (gid, gid + 8) x rows 8 mt + 2 tig + (0, 1).  `out` is
+// int8 (K1), or int32 with RAW (K4: mult, shift, ws and rq are not read).
+template <int MT, bool RAW>
 __global__ void __launch_bounds__(NT)
     qgemm_skinny(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
-                 int8_t* __restrict__ out, const int32_t* __restrict__ bias,
+                 void* __restrict__ out, const int32_t* __restrict__ bias,
                  const int32_t* __restrict__ mult, const int32_t* __restrict__ shift,
                  int32_t* __restrict__ ws, epi::RqConst rq, int32_t rq_izp, Geo g) {
   constexpr int ST = stage_bytes<MT>();
@@ -147,7 +152,18 @@ __global__ void __launch_bounds__(NT)
     if (i < nst) stage<MT>(smem + i * ST, x, wk, kbeg + i, n0, g);
     hop::cp_async_commit();
   }
-  epi::load_cols(colc, SK_BN, n0, g.N, bias, mult, shift, rq_izp);  // while the copies fly
+  // while the copies fly: K1's column constants; K4's bias of the lane's
+  // two channels (below), zero on the splits past the first
+  int32_t braw[2] = {0, 0};
+  if constexpr (!RAW) {
+    epi::load_cols(colc, SK_BN, n0, g.N, bias, mult, shift, rq_izp);
+  } else if (blockIdx.y == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 16 * warp + gid + 8 * h;
+      braw[h] = col < g.N ? bias[col] : 0;
+    }
+  }
 
   int32_t acc[MT][4];
 #pragma unroll
@@ -175,6 +191,25 @@ __global__ void __launch_bounds__(NT)
 
   // element e of acc[mt]: channel n0 + 16 warp + gid + 8 (e >> 1), row 8 mt + 2 tig + (e & 1)
   const int cl = 16 * warp + gid;
+  if constexpr (RAW) {  // acc + bias stored, or with a split added into the zeroed output
+    if (!QG_EPILOGUE) return;
+    int32_t* const o32 = static_cast<int32_t*>(out);
+    const bool split = gridDim.y > 1;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 8 * mt + 2 * tig + (e & 1), col = n0 + cl + 8 * (e >> 1);
+        if (row >= g.M || col >= g.N) continue;
+        int32_t* const p = o32 + (long long)row * g.N + col;
+        const int32_t v = wrap_add(acc[mt][e], braw[e >> 1]);
+        if (split)
+          atomicAdd(p, v);  // int32 atomics wrap: the same sum in any order
+        else
+          *p = v;
+      }
+    return;
+  }
   if (gridDim.y > 1) {  // a split: add into the workspace; the last block of the N tile goes on
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -205,33 +240,36 @@ __global__ void __launch_bounds__(NT)
     for (int e = 0; e < 4; ++e) {
       const int row = 8 * mt + 2 * tig + (e & 1), c = cl + 8 * (e >> 1);
       if (row < g.M && n0 + c < g.N)
-        out[(long long)row * g.N + n0 + c] =
+        static_cast<int8_t*>(out)[(long long)row * g.N + n0 + c] =
             (int8_t)(QG_EPILOGUE ? epi::requant_wide(acc[mt][e], colc[c], rq) : acc[mt][e]);
     }
 }
 
-template <int MT>
-int launch_mt(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
+template <int MT, bool RAW>
+int launch_mt(const int8_t* x, const int8_t* wk, void* out, const int32_t* bias,
               const int32_t* mult, const int32_t* shift, int32_t* ws, const epi::RqConst& rq,
               int32_t rq_izp, const Geo& g, int ks, cudaStream_t stream) {
   constexpr size_t smem = SK_STAGES * stage_bytes<MT>() + SK_BN * 16 + 16;
   static bool raised = false;  // once per instantiation, before any graph capture
   if (!raised) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qgemm_skinny<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        qgemm_skinny<MT, RAW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     raised = true;
   }
   const dim3 grid((g.N + SK_BN - 1) / SK_BN, ks);
-  qgemm_skinny<MT><<<grid, NT, smem, stream>>>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g);
+  qgemm_skinny<MT, RAW>
+      <<<grid, NT, smem, stream>>>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g);
   return (int)cudaGetLastError();
 }
 
 // The skinny path at P_KS splits of P_KPER steps: M <= 64, rounded up to 8,
-// 16, 32 or 64 rows of products.
-inline int launch(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
-                  const int32_t* mult, const int32_t* shift, int32_t* ws, const int32_t* p,
-                  cudaStream_t s) {
+// 16, 32 or 64 rows of products.  K1's split needs the workspace `ws`; K4's
+// (RAW) adds into `out`, which the caller zeroed.
+template <bool RAW>
+int launch(const int8_t* x, const int8_t* wk, void* out, const int32_t* bias,
+           const int32_t* mult, const int32_t* shift, int32_t* ws, const int32_t* p,
+           cudaStream_t s) {
   Geo g;
   g.M = p[P_N];
   g.K = p[P_CIN];
@@ -242,18 +280,30 @@ inline int launch(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t*
   g.x16 = p[P_A_VEC] != 0 && g.K % 16 == 0;
   g.x8 = p[P_B_VEC] != 0 && g.K % 8 == 0;
   if (g.M > MAX_M || ks < 1 || g.kper < 1 || (long long)ks * g.kper < g.steps ||
-      (ks - 1) * g.kper >= g.steps || ks > 65535 || (ks > 1 && ws == nullptr))
+      (ks - 1) * g.kper >= g.steps || ks > 65535 || (!RAW && ks > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   if (g.M <= 0 || g.N <= 0) return (int)cudaGetLastError();
   const epi::RqConst rq{p[P_OUT_ZP], p[P_QMIN], p[P_QMAX], p[P_TONEAREST] != 0};
   const int rq_izp = p[P_RQ_IZP];
-  if (g.M <= 8) return launch_mt<1>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
-  if (g.M <= 16) return launch_mt<2>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
-  if (g.M <= 32) return launch_mt<4>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
-  return launch_mt<8>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
+  if (g.M <= 8) return launch_mt<1, RAW>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
+  if (g.M <= 16) return launch_mt<2, RAW>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
+  if (g.M <= 32) return launch_mt<4, RAW>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
+  return launch_mt<8, RAW>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
 }
 
 }  // namespace skinny
+
+// The tiled path's geometry: the GEMM as a 1x1 conv of 1 x 1 images, split
+// P_KS ways; false for what the path does not take.
+inline bool tiled_geo(const int32_t* p, const void* out, igemm::Geo& g) {
+  if (p[P_QG_PATH] != 0 || p[P_KH] != 1 || p[P_KW] != 1 || p[P_H] != 1 || p[P_W] != 1 ||
+      !igemm::make_geo(p, g) || !igemm::split_ok(p[P_KS], g))
+    return false;
+  g.a_vec8 = !g.a_vec && p[P_B_VEC] != 0 && g.cin % 16 == 8;
+  g.o_vec = g.cout % 16 == 0 && (uintptr_t)out % 16 == 0;
+  return true;
+}
+
 }  // namespace tk
 
 // K1.  wk is w packed (Kp / 64, N, 64); P_QG_PATH 0 runs the tiled path at
@@ -270,15 +320,25 @@ extern "C" int tk_qgemm_rq(const int8_t* x, const int8_t* wk, int8_t* out, const
                            const int32_t* p, void* stream) {
   using namespace tk;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (p[P_QG_PATH] == 1) return skinny::launch(x, wk, out, bias, mult, shift, ws, p, s);
-  if (p[P_QG_PATH] != 0 || p[P_KH] != 1 || p[P_KW] != 1 || p[P_H] != 1 || p[P_W] != 1)
-    return (int)cudaErrorInvalidValue;
+  if (p[P_QG_PATH] == 1) return skinny::launch<false>(x, wk, out, bias, mult, shift, ws, p, s);
   igemm::Geo g;
-  if (!igemm::make_geo(p, g)) return (int)cudaErrorInvalidValue;
-  const int ks = p[P_KS];
-  if (!igemm::split_ok(ks, g) || (ks > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  g.a_vec8 = !g.a_vec && p[P_B_VEC] != 0 && g.cin % 16 == 8;
-  g.o_vec = g.cout % 16 == 0 && (uintptr_t)out % 16 == 0;
-  return igemm::launch_rq<igemm::RQ>(x, wk, out, nullptr, bias, mult, shift, ws,
-                                     igemm::make_epi(p), g, ks, p, s);
+  if (!tiled_geo(p, out, g) || (p[P_KS] > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  return igemm::launch_tiled<igemm::RQ>(x, wk, out, nullptr, bias, mult, shift, ws,
+                                        igemm::make_epi(p), g, p[P_KS], p, s);
+}
+
+// K4's GEMM mode.  wk, the paths, tiles and splits as K1's; with P_KS > 1
+// the splits add into `out`, which the caller zeroed, and split 0 adds the
+// bias.  Returns cudaGetLastError() (cudaErrorInvalidValue for a path, tile
+// or split the kernel does not take).
+extern "C" int tk_qgemm_raw(const int8_t* x, const int8_t* wk, int32_t* out, const int32_t* bias,
+                            const int32_t* p, void* stream) {
+  using namespace tk;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (p[P_QG_PATH] == 1)
+    return skinny::launch<true>(x, wk, out, bias, nullptr, nullptr, nullptr, p, s);
+  igemm::Geo g;
+  if (!tiled_geo(p, out, g)) return (int)cudaErrorInvalidValue;
+  return igemm::launch_tiled<igemm::RAW>(x, wk, out, nullptr, bias, nullptr, nullptr, nullptr,
+                                         igemm::Epi{}, g, p[P_KS], p, s);
 }

@@ -46,8 +46,9 @@ PARAMS = (
     "fa_stages", "fa_bk", "qg_path",
 )
 
-# The block tiles (BM, BN) that K1's tiled path, K2, K3 and K7-K10 are built
-# at, with BK = 64: the tuner's config space for `blocks` = [BM, BN, BK]
+# The block tiles (BM, BN) that the tiled paths of K1 and K4's GEMM mode, K2,
+# K3 and K7-K10 are built at, with BK = 64: the tuner's config space for
+# `blocks` = [BM, BN, BK]
 # (csrc/igemm_hopper.cuh igemm_hopper, csrc/layouts_hopper.cuh).
 BK = 64
 TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
@@ -79,8 +80,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # source -> (C entry, number of tensor pointers it takes)
 SOURCES = {
-    "qgemm_rq.cu": (("tk_qgemm_rq", 7),),
-    "qgemm_raw.cu": (("tk_qgemm_raw", 4),),
+    "qgemm_rq.cu": (("tk_qgemm_rq", 7), ("tk_qgemm_raw", 4)),
     "qconv_igemm_hopper.cu": (("tk_qconv_rq", 7), ("tk_qconv_rq_res", 7), ("tk_qconv_raw", 4)),
     "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4), ("tk_qdwconv_direct", 6)),
     "flash_attn.cu": (("tk_flash_attn", 4),),

@@ -18,7 +18,8 @@ the conv entries of the int8 path (port of
     The three kernels take the weights packed K-major as (COUT, Kp)
     (`kmajor_weights`).
   * `qconv2d_flat`: 1x1 convs go to K1 (or, without a multiplier, K4's GEMM
-    mode) as a GEMM (`_conv1x1_matmul`), every other kernel size, the 7x7 s2
+    mode, on K1's two paths) as a GEMM (`_conv1x1_matmul`), every other kernel
+    size, the 7x7 s2
     stem included, to K2 (or K4's conv mode) or, by `layout`, to one of
     K7-K10 (`conv_layouts.py`); depthwise convs (groups == C) to K5
     (`depthwise.py`: `qdwconv_rq`, or `qdwconv_raw` without a multiplier).
@@ -52,8 +53,8 @@ from .depthwise import qdwconv_raw, qdwconv_rq
 # the body's plan and weight packing, shared with K1's tiled path
 from .matmul_int8 import (_KMAJOR, _TONEAREST, KSTEP, RQ_FILL, RQ_MIN_STEPS,  # noqa: F401
                           RQ_UNSPLIT_STEPS, RQ_WIDE_FILL, as_int8, as_int32_vector,
-                          fold_input_zero_point, kmajor_weights, qgemm_raw, qgemm_rq_tuned,
-                          rq_split, rq_tile)
+                          fold_input_zero_point, kmajor_weights, qgemm_raw_tuned,
+                          qgemm_rq_tuned, rq_split, rq_tile)
 from .requantize import channel_vector, epilogue_plain, plan_res_add, res_add_plain
 
 
@@ -282,9 +283,11 @@ def qconv_rq_res(x, w, bias, mult, shift, residual, res_params: dict, *,
 
 def _conv1x1_matmul(x, w, bias, mult, shift, strides, padding, izp, rq_izp, out_zp,
                     rounding, qmin, qmax, blocks=None):
-    """1x1 conv == GEMM on K1 (on K4 when `mult` is None); padding (with izp)
-    and stride subsample first.  K1's tile: `blocks`, else the database's
-    record for the GEMM's workload (`qgemm_rq_tuned`)."""
+    """1x1 conv == GEMM on K1 (on K4's GEMM mode when `mult` is None);
+    padding (with izp) and stride subsample first.  The tile: `blocks`, else
+    the database's record for the GEMM's workload (`qgemm_rq_tuned`,
+    `qgemm_raw_tuned`).  The GEMM packs the stable 4-D weight (`w_src`), not
+    the view made here."""
     pt, pl, pb, pr = padding
     if any(padding):
         x = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb), value=int(izp))
@@ -295,7 +298,7 @@ def _conv1x1_matmul(x, w, bias, mult, shift, strides, padding, izp, rq_izp, out_
     x2, w2 = x.reshape(n * oh * ow, cin).contiguous(), w.reshape(cin, cout)
     bias = fold_input_zero_point(bias, w, izp)
     if mult is None:
-        out = qgemm_raw(x2, w2, bias)
+        out = qgemm_raw_tuned(x2, w2, bias, blocks=blocks, w_src=w)
     else:
         out = qgemm_rq_tuned(x2, w2, bias, mult, shift, rq_izp=rq_izp, out_zp=out_zp,
                              rounding=rounding, qmin=qmin, qmax=qmax, blocks=blocks, w_src=w)
@@ -345,8 +348,8 @@ def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1)
     `blocks` and `layout` (their GEMM reads its own record), as the JAX
     package's entry does.  Without a multiplier: the int32 accumulator of
     sum (x_pad - izp) * w plus bias (the unfused qnn.conv2d + bias), on K4's
-    GEMM or conv mode, or K5's raw mode; a raw conv reads no record and
-    ignores `blocks` and `layout`."""
+    GEMM or conv mode, or K5's raw mode; a raw conv other than a 1x1 reads no
+    record and ignores `blocks` and `layout`."""
     cin = x.shape[-1]
     depthwise = groups > 1 and groups == cin and w.shape[2] == 1 and w.shape[3] == cin
     if groups != 1 and not depthwise:

@@ -1,20 +1,24 @@
 """K1: int8 GEMM with the exact requantize epilogue, and K4's GEMM mode: the
-same GEMM storing the int32 accumulator (port of
+same GEMM storing the int32 accumulator plus bias (port of
 `tachikoma_tpu/ops/pallas/matmul_int8.py`, `_mm_kernel` and `_mm_kernel_raw`).
 
 `qgemm_rq` and `qgemm_raw` are the kernels' wrappers: on a CUDA tensor they
-launch `csrc/qgemm_rq.cu` / `csrc/qgemm_raw.cu` (or raise), on a CPU tensor
-they run `qgemm_rq_plain` / `qgemm_raw_plain`, the plain PyTorch versions of
-the same integers.  K1 has two paths, which `gemm_plan` picks from the shape:
+launch `csrc/qgemm_rq.cu`'s `tk_qgemm_rq` / `tk_qgemm_raw` (or raise), on a
+CPU tensor they run `qgemm_rq_plain` / `qgemm_raw_plain`, the plain PyTorch
+versions of the same integers.  Both have two paths, which `gemm_plan` picks
+from the shape:
 
   * the tiled path (M above SKINNY_M: the 1x1 convs) runs the implicit-GEMM
     body of K2 (`csrc/igemm_hopper.cuh`: `wgmma`, persistent blocks, a
-    `cp.async` ring, the exact split of K) on the GEMM as a 1x1 conv of 1 x 1
-    images, at K2's tile and split rules (`rq_tile`, `rq_split`);
-  * the skinny path (M <= SKINNY_M: the dense layers at small batch) swaps
-    the operands, out^T = W^T x^T, and splits K over enough blocks that every
-    SM streams weights; the splits add into an int32 workspace and the last
-    block of an N tile requantizes (the split of the tiled path).
+    `cp.async` ring, a split of K) on the GEMM as a 1x1 conv of 1 x 1
+    images, at K2's tile and split rules (`rq_tile`, `rq_split`); K1's
+    splits add into an int32 workspace whose last block requantizes, K4's
+    into the zeroed output;
+  * the skinny path (M <= SKINNY_M: the dense layers at small batch, K4's
+    7^2 1x1 convs at batch 1) swaps the operands, out^T = W^T x^T, and
+    splits K over enough blocks that every SM streams weights; K1's splits
+    add into a workspace and the last block of an N tile requantizes, K4's
+    add into the zeroed output.
 
 Both read the weight packed K-major (`kmajor_weights`), once per weight
 tensor: a caller whose weight is a view made per call (a 1x1 conv's
@@ -24,12 +28,12 @@ tensor: a caller whose weight is a view made per call (a 1x1 conv's
 `qmatmul_int8` is the entry with the JAX package's signature; it takes
 `blocks` (a compiled tile, `_lib.TILES`) or "xla", and without them reads the
 tuning database's best record for the workload (`matmul_workload`, the JAX
-package's key).  A tile sets the tiled path's (BM, BN); the skinny path reads
-no tile.  The record `{"impl": "xla"}` keeps its JAX name: in the port it
-selects `qgemm_library`, the library route (`torch._int_mm` on the card,
-then the exact epilogue in plain torch), chosen only by a record or by the
-caller, never as a fallback.  K4 (no multiplier) keeps its 64 x 64 tile and
-reads no record.
+package's key: `fused` with a multiplier, `raw` without).  A tile sets the
+tiled path's (BM, BN); the skinny path reads no tile.  The record
+`{"impl": "xla"}` keeps its JAX name: in the port it selects the library
+route (`qgemm_library`, `qgemm_raw_library`: `torch._int_mm` on the card,
+then the exact epilogue or the bias in plain torch), chosen only by a record
+or by the caller, never as a fallback.
 
 Zero points: the quantizer always produces wzp = 0; a nonzero input zero point
 folds into the bias (acc(x - izp, w) = x.w - izp * colsum(w), exact in int32
@@ -123,7 +127,7 @@ def rq_tile(m: int, cout: int, sms: int = 132) -> tuple[int, int]:
 
 
 def skinny_split(k: int, n: int, sms: int = 132) -> tuple[int, int]:
-    """(splits, steps per split) of K1's skinny path: the fewest splits of K
+    """(splits, steps per split) of the skinny path: the fewest splits of K
     that bring its blocks (N / SKINNY_BN tiles, rounded up, times the
     splits) to SKINNY_FILL * sms, with at least SKINNY_MIN_STEPS steps a
     split; every split non-empty."""
@@ -135,14 +139,21 @@ def skinny_split(k: int, n: int, sms: int = 132) -> tuple[int, int]:
 
 
 def gemm_plan(m: int, k: int, n: int, blocks=None, sms: int = 132) -> dict:
-    """K1's launch for an (M, K) x (K, N) call on a card of `sms` SMs:
-    {"path": "skinny", "ks", "kper"} at M <= SKINNY_M (`skinny_split`; a
-    tile in `blocks` is not read), else {"path": "tiled", "bm", "bn", "ks",
-    "kper"} at `blocks`' tile or `rq_tile`'s, split as `rq_split` says where
-    the tiles fill under half the SMs, else unsplit (tools/gemm_probe.py
-    --plans on the H100: ResNet-50 b8's (1568, 1024, 256) call, 100 tiles,
-    ran in 0.0127 ms unsplit and 0.0189 split three ways; its (392, 2048,
-    512), 56 tiles, in 0.0173 split five ways and 0.0220 unsplit)."""
+    """The launch of K1 and of K4's GEMM mode for an (M, K) x (K, N) call on
+    a card of `sms` SMs: {"path": "skinny", "ks", "kper"} at M <= SKINNY_M
+    (`skinny_split`; a tile in `blocks` is not read), else {"path": "tiled",
+    "bm", "bn", "ks", "kper"} at `blocks`' tile or `rq_tile`'s, split as
+    `rq_split` says where the tiles fill under half the SMs, else unsplit
+    (tools/gemm_probe.py --plans on the H100: ResNet-50 b8's (1568, 1024,
+    256) call, 100 tiles, ran in 0.0127 ms unsplit and 0.0189 split three
+    ways; its (392, 2048, 512), 56 tiles, in 0.0173 split five ways and
+    0.0220 unsplit).  K4's cheaper split (atomics into a zeroed output, no
+    workspace or read-back) does not pay for a rule of its own
+    (tools/gemm_probe.py --raw on the H100, ms per b1 forward): at
+    ResNet-50's 37 calls this rule gave 0.2128, one splitting wherever the
+    tiles fill at most a third of the SMs 0.2101 (MobileNetV2's 35 calls:
+    0.1691 and 0.1617), and K4's conv-mode rule (`conv.raw_split`) 0.2492
+    against this rule's 0.2427 in another run."""
     if m <= SKINNY_M:
         ks, kper = skinny_split(k, n, sms)
         return {"path": "skinny", "ks": ks, "kper": kper}
@@ -155,10 +166,11 @@ def gemm_plan(m: int, k: int, n: int, blocks=None, sms: int = 132) -> dict:
 
 
 def gemm_plans(m: int, k: int, n: int, sms: int = 132) -> list[dict]:
-    """The launches K1 can make of one call: the tiled path at every tile of
-    `_lib.TILES`, each at `rq_split`'s split and unsplit, and at M <=
-    SKINNY_M the skinny path at `skinny_split`'s split, unsplit and at twice
-    and half its splits (tools/gemm_probe.py --plans, the card tests)."""
+    """The launches K1 and K4's GEMM mode can make of one call: the tiled
+    path at every tile of `_lib.TILES`, each at `rq_split`'s split and
+    unsplit, and at M <= SKINNY_M the skinny path at `skinny_split`'s split,
+    unsplit and at twice and half its splits (tools/gemm_probe.py --plans,
+    the card tests)."""
     steps = -(-k // KSTEP)
     plans = []
     for bm, bn in TILES:
@@ -198,6 +210,33 @@ def qgemm_rq_plain(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPW
                           qmin, qmax)
 
 
+def _gemm_launch(name: str, x: torch.Tensor, w: torch.Tensor, w_src, blocks, plan,
+                 **vectors) -> tuple[dict, torch.Tensor, dict]:
+    """The checks and launch parameters K1 and K4's GEMM mode share:
+    the weight packed K-major once per tensor (w_src's where given), the
+    operands checked (`vectors`: the int32 (N,) bias, multiplier and
+    shift), the launch `plan` (`gemm_plan`'s where None) checked against K.
+    Returns (plan, packed weight, kernel parameters)."""
+    m, k = x.shape
+    n = w.shape[1]
+    wk = kmajor_weights(w if w_src is None else w_src)
+    check_cuda_operands(name, x.device, x=(x, torch.int8, (m, k)), w=(w, torch.int8, (k, n)),
+                        wk=(wk, torch.int8, (-(-k // KSTEP), n, KSTEP)),
+                        **{key: (v, torch.int32, (n,)) for key, v in vectors.items()})
+    if plan is None:
+        plan = gemm_plan(m, k, n, blocks, sm_count(x.device.index))
+    if not split_covers(plan["ks"], plan["kper"], -(-k // KSTEP)):
+        raise ValueError(f"{name}: split {plan['ks']} x {plan['kper']} does not cover K {k}")
+    if plan["path"] == "skinny" and m > SKINNY_M:
+        raise ValueError(f"{name}: the skinny path takes M <= {SKINNY_M}, got {m}")
+    params = dict(n=m, h=1, w=1, cin=k, kh=1, kw=1, cout=n, oh=1, ow=1, sh=1, sw=1,
+                  a_vec=k % 16 == 0 and x.data_ptr() % 16 == 0,
+                  b_vec=k % 8 == 0 and x.data_ptr() % 8 == 0,
+                  qg_path=PATHS[plan["path"]], bm=plan.get("bm", 0), bn=plan.get("bn", 0),
+                  ks=plan["ks"], kper=plan["kper"])
+    return plan, wk, params
+
+
 def qgemm_rq(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
              mult: torch.Tensor, shift: torch.Tensor, *, rq_izp: int = 0,
              out_zp: int = 0, rounding: str = "UPWARD", qmin: int = -128,
@@ -216,91 +255,112 @@ def qgemm_rq(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         return qgemm_rq_plain(x, w, bias, mult, shift, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"qgemm_rq: no kernel for device {x.device}")
-    m, k = x.shape
-    n = w.shape[1]
-    i32 = torch.int32
-    wk = kmajor_weights(w if w_src is None else w_src)
-    check_cuda_operands("qgemm_rq", x.device, x=(x, torch.int8, (m, k)),
-                        w=(w, torch.int8, (k, n)), wk=(wk, torch.int8, (-(-k // KSTEP), n, KSTEP)),
-                        bias=(bias, i32, (n,)), mult=(mult, i32, (n,)), shift=(shift, i32, (n,)))
-    if plan is None:
-        plan = gemm_plan(m, k, n, blocks, sm_count(x.device.index))
-    if not split_covers(plan["ks"], plan["kper"], -(-k // KSTEP)):
-        raise ValueError(f"qgemm_rq: split {plan['ks']} x {plan['kper']} does not cover K {k}")
-    if plan["path"] == "skinny" and m > SKINNY_M:
-        raise ValueError(f"qgemm_rq: the skinny path takes M <= {SKINNY_M}, got {m}")
+    plan, wk, params = _gemm_launch("qgemm_rq", x, w, w_src, blocks, plan, bias=bias, mult=mult,
+                                    shift=shift)
+    m, n = x.shape[0], w.shape[1]
     out = torch.empty((m, n), dtype=torch.int8, device=x.device)
     # a split adds its partial sums into zeros (M x N, then a counter an N
     # tile, or an (M, N) tile on the tiled path); unsplit, no workspace
     tiles = (-(-n // SKINNY_BN) if plan["path"] == "skinny"
              else -(-m // plan["bm"]) * -(-n // plan["bn"]))
-    ws = (torch.zeros(m * n + tiles, dtype=i32, device=x.device) if plan["ks"] > 1 else out)
-    launch("tk_qgemm_rq", [x, wk, out, bias, mult, shift, ws], dict(
-        n=m, h=1, w=1, cin=k, kh=1, kw=1, cout=n, oh=1, ow=1, sh=1, sw=1,
-        rq_izp=rq_izp, out_zp=out_zp, qmin=qmin, qmax=qmax,
-        tonearest=_TONEAREST[rounding],
-        a_vec=k % 16 == 0 and x.data_ptr() % 16 == 0,
-        b_vec=k % 8 == 0 and x.data_ptr() % 8 == 0,
-        qg_path=PATHS[plan["path"]], bm=plan.get("bm", 0), bn=plan.get("bn", 0),
-        ks=plan["ks"], kper=plan["kper"]))
+    ws = (torch.zeros(m * n + tiles, dtype=torch.int32, device=x.device) if plan["ks"] > 1
+          else out)
+    launch("tk_qgemm_rq", [x, wk, out, bias, mult, shift, ws], params | dict(
+        rq_izp=rq_izp, out_zp=out_zp, qmin=qmin, qmax=qmax, tonearest=_TONEAREST[rounding]))
     LAUNCHES["qgemm_rq"] += 1
     return out
+
+
+def _tuned(m: int, k: int, n: int, fused: bool, blocks):
+    """`blocks` as the caller gave it, or with blocks None what the active
+    database's best record for the workload names: its tile, "xla", or None
+    (no record, or blocks that are not a compiled tile: `gemm_plan`'s
+    tile).  A string other than "xla" raises ValueError."""
+    if blocks is None:
+        cfg = lookup_config(matmul_workload(m, k, n, fused))
+        if cfg and "blocks" in cfg and compiled_blocks(cfg["blocks"]):
+            return tuple(cfg["blocks"])
+        if cfg and cfg.get("impl") == "xla":
+            return "xla"
+    if isinstance(blocks, str) and blocks != "xla":
+        raise ValueError(f"blocks {blocks!r}: a compiled tile or 'xla'")
+    return blocks
+
+
+def _library_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The int32 product of the library route: `torch._int_mm` on the card
+    (cuBLASLt; it refuses M <= 16, K or N not a multiple of 8, and some other
+    shapes with a RuntimeError), `exact_int_matmul` on the CPU."""
+    return torch._int_mm(x, w) if x.device.type == "cuda" else exact_int_matmul(x, w)
 
 
 def qgemm_library(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPWARD",
                   qmin=-128, qmax=127) -> torch.Tensor:
     """K1's function through the library route of the record `{"impl":
-    "xla"}`: the int32 product by `torch._int_mm` on the card (cuBLASLt; it
-    refuses M <= 16, K or N not a multiple of 8, and some other shapes with a
-    RuntimeError), the exact epilogue in plain torch.  On the CPU the product
-    is `exact_int_matmul`."""
-    acc = torch._int_mm(x, w) if x.device.type == "cuda" else exact_int_matmul(x, w)
-    return epilogue_plain(acc, bias, mult, shift, rq_izp, out_zp, rounding, qmin, qmax)
+    "xla"}`: the library's int32 product, the exact epilogue in plain
+    torch."""
+    return epilogue_plain(_library_product(x, w), bias, mult, shift, rq_izp, out_zp, rounding,
+                          qmin, qmax)
 
 
 def qgemm_rq_tuned(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPWARD",
                    qmin=-128, qmax=127, blocks=None, w_src=None) -> torch.Tensor:
     """K1 at `blocks`, or the library route for blocks == "xla"; with blocks
-    None, what the active database's best record for the workload names (a
-    record whose blocks are not a compiled tile is ignored: `gemm_plan`'s
-    tile)."""
-    if blocks is None:
-        cfg = lookup_config(matmul_workload(x.shape[0], x.shape[1], w.shape[1], True))
-        if cfg and "blocks" in cfg and compiled_blocks(cfg["blocks"]):
-            blocks = tuple(cfg["blocks"])
-        elif cfg and cfg.get("impl") == "xla":
-            blocks = "xla"
+    None, what the active database's best record for the workload names
+    (`_tuned`)."""
+    blocks = _tuned(x.shape[0], x.shape[1], w.shape[1], True, blocks)
     kw = dict(rq_izp=rq_izp, out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax)
-    if isinstance(blocks, str):
-        if blocks != "xla":
-            raise ValueError(f"blocks {blocks!r}: a compiled tile or 'xla'")
+    if blocks == "xla":
         return qgemm_library(x, w, bias, mult, shift, **kw)
     return qgemm_rq(x, w, bias, mult, shift, blocks=blocks, w_src=w_src, **kw)
 
 
-def qgemm_raw_plain(x, w, bias) -> torch.Tensor:
-    """Plain PyTorch version of K4's GEMM mode."""
-    return (exact_int_matmul(x, w).to(torch.int64) + bias.to(torch.int64)).to(torch.int32)
+def _add_bias(acc: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """acc + bias[n] in int32 wraparound."""
+    return (acc.to(torch.int64) + bias.to(torch.int64)).to(torch.int32)
 
 
-def qgemm_raw(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def qgemm_raw_plain(x, w, bias, *, blocks=None, plan=None, w_src=None) -> torch.Tensor:
+    """Plain PyTorch version of K4's GEMM mode (`blocks`, `plan` and `w_src`
+    are the kernel's launch and weight cache: no effect)."""
+    return _add_bias(exact_int_matmul(x, w), bias)
+
+
+def qgemm_raw(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, blocks=None,
+              plan: dict | None = None, w_src: torch.Tensor | None = None) -> torch.Tensor:
     """K4, GEMM mode: x @ w + bias in int32 wraparound -> int32 (M, N).
-    x int8 (M, K), w int8 (K, N), bias int32 (N,)."""
+    x int8 (M, K), w int8 (K, N), bias int32 (N,); blocks, plan and w_src as
+    `qgemm_rq`'s.  A split adds its partial sums into a zeroed output, the
+    bias with split 0."""
+    if blocks is not None:
+        tile_params(blocks)
     if x.device.type == "cpu":
         return qgemm_raw_plain(x, w, bias)
     if x.device.type != "cuda":
         raise ValueError(f"qgemm_raw: no kernel for device {x.device}")
-    m, k = x.shape
-    n = w.shape[1]
-    check_cuda_operands("qgemm_raw", x.device, x=(x, torch.int8, (m, k)),
-                        w=(w, torch.int8, (k, n)), bias=(bias, torch.int32, (n,)))
-    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
-    launch("tk_qgemm_raw", [x, w, out, bias], dict(
-        n=m, h=1, w=1, cin=k, kh=1, kw=1, cout=n, oh=1, ow=1, sh=1, sw=1,
-        a_vec=k % 16 == 0 and x.data_ptr() % 16 == 0,
-        b_vec=n % 4 == 0 and w.data_ptr() % 4 == 0))
+    plan, wk, params = _gemm_launch("qgemm_raw", x, w, w_src, blocks, plan, bias=bias)
+    out = (torch.zeros if plan["ks"] > 1 else torch.empty)((x.shape[0], w.shape[1]),
+                                                           dtype=torch.int32, device=x.device)
+    launch("tk_qgemm_raw", [x, wk, out, bias], params)
     LAUNCHES["qgemm_raw"] += 1
     return out
+
+
+def qgemm_raw_library(x, w, bias) -> torch.Tensor:
+    """K4's GEMM mode through the library route of the record `{"impl":
+    "xla"}`: the library's int32 product plus the bias in plain torch."""
+    return _add_bias(_library_product(x, w), bias)
+
+
+def qgemm_raw_tuned(x, w, bias, *, blocks=None, w_src=None) -> torch.Tensor:
+    """K4's GEMM mode at `blocks`, or the library route for blocks == "xla";
+    with blocks None, what the active database's best record for the raw
+    workload names (`_tuned`), as the JAX package's `qmatmul_int8` without a
+    multiplier reads it."""
+    blocks = _tuned(x.shape[0], x.shape[1], w.shape[1], False, blocks)
+    if blocks == "xla":
+        return qgemm_raw_library(x, w, bias)
+    return qgemm_raw(x, w, bias, blocks=blocks, w_src=w_src)
 
 
 def fold_input_zero_point(bias: torch.Tensor, w: torch.Tensor, izp: int) -> torch.Tensor:
@@ -331,9 +391,10 @@ def qmatmul_int8(x, w, bias=None, multiplier=None, shift=None, out_zp: int = 0,
     bit-identical to the unfused qnn.dense + bias_add + qnn.requantize chain
     (the JAX package's entry of the same name).  multiplier / shift: scalars
     or per-column (N,) arrays; blocks: a compiled tile (BM, BN, 64), "xla"
-    (the library route) or None (the tuning database, else 64 x 64); bad
-    blocks raise ValueError.  Without a multiplier: the int32 accumulator of
-    (x - input_zero_point) @ w, plus bias (K4; `blocks` is not read)."""
+    (the library route) or None (the tuning database's record for the
+    workload, else `gemm_plan`'s tile); bad blocks raise ValueError.
+    Without a multiplier: the int32 accumulator of (x - input_zero_point) @
+    w, plus bias (K4's GEMM mode, its tile and record read alike)."""
     if multiplier is not None and out_dtype != "int8":
         raise NotImplementedError(f"qmatmul_int8: out_dtype {out_dtype} is not ported yet")
     n = w.shape[1]
@@ -341,7 +402,7 @@ def qmatmul_int8(x, w, bias=None, multiplier=None, shift=None, out_zp: int = 0,
     w = as_int8(w, dev)
     b = fold_input_zero_point(as_int32_vector(bias, n, dev), w, input_zero_point)
     if multiplier is None:
-        return qgemm_raw(x.contiguous(), w, b.contiguous())
+        return qgemm_raw_tuned(x.contiguous(), w, b.contiguous(), blocks=blocks)
     return qgemm_rq_tuned(x.contiguous(), w, b.contiguous(), channel_vector(multiplier, n, dev),
                           channel_vector(shift, n, dev), rq_izp=rq_input_zero_point,
                           out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax,

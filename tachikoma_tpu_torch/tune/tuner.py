@@ -35,7 +35,7 @@ from ..ops.kernels.conv import (chain_workload, flat_conv_workload, qconv2d_flat
 from ..ops.kernels.conv_direct import qconv2d_int8, qconv2d_int8_plain, qconv2d_supported
 from ..ops.kernels.conv_layouts import LAYOUTS, layout_fits
 from ..ops.kernels.depthwise import qdwconv_rq_plain
-from ..ops.kernels.matmul_int8 import (matmul_workload, qgemm_raw, qgemm_raw_plain,
+from ..ops.kernels.matmul_int8 import (matmul_workload, qgemm_raw_plain, qgemm_raw_tuned,
                                        qgemm_rq_plain, qgemm_rq_tuned)
 from ..ops.kernels.requantize import channel_vector, plan_requantize
 from ..utils.timing import call_seconds
@@ -104,8 +104,9 @@ def matmul_task(M: int, K: int, N: int, fused: bool = True,
                 candidates: Sequence[tuple[int, int, int]] | None = None,
                 weight: int = 1, device="cuda"):
     """(workload, configs, measure, meta_fn, weight) for a GEMM workload: the
-    task unit of schedule_tune and of tune_matmul's own loop.  K4 (fused
-    False) has one tile and no library route."""
+    task unit of schedule_tune and of tune_matmul's own loop.  K1 (fused) and
+    K4's GEMM mode (fused False) alike: the compiled tiles and the library
+    route."""
     dev = _device(device)
     rng = np.random.default_rng(0)
     a = _to(rng.integers(-127, 127, (M, K)).astype(np.int8), dev)
@@ -116,10 +117,9 @@ def matmul_task(M: int, K: int, N: int, fused: bool = True,
         mult, shift = plan_requantize(0.0004, 0.05)
         m, s = channel_vector(mult, N, dev), channel_vector(shift, N, dev)
         reference = qgemm_rq_plain(a, b, bias, m, s)
-        cands = list(candidates or matmul_candidates(M, K, N)) + ["xla"]
     else:
         reference = qgemm_raw_plain(a, b, bias)
-        cands = [DEFAULT_BLOCKS]
+    cands = list(candidates or matmul_candidates(M, K, N)) + ["xla"]
     configs = [{"impl": "xla"} if c == "xla" else {"blocks": list(c)} for c in cands]
 
     def measure(cfg):
@@ -127,7 +127,7 @@ def matmul_task(M: int, K: int, N: int, fused: bool = True,
         if fused:
             run = lambda: qgemm_rq_tuned(a, b, bias, m, s, blocks=blocks)  # noqa: E731
         else:
-            run = lambda: qgemm_raw(a, b, bias)  # noqa: E731
+            run = lambda: qgemm_raw_tuned(a, b, bias, blocks=blocks)  # noqa: E731
         return _trial(run, reference, dev)
 
     return workload, configs, measure, _tops(2 * M * K * N), weight

@@ -5,7 +5,8 @@ inputs; K6 (float attention) is within rtol 2e-5, atol 2e-6 of its plain
 version (tests/test_flash_attention.py's tolerance); the executors and the
 trace emitter on the card equal the CPU path.  K1 equals its plain version
 on both paths (tiled and skinny) at every tile and split, at ResNet-50's,
-MobileNetV2's and VGG-16's calls (`-k k1_`).  K11 and K12 (the direct conv)
+MobileNetV2's and VGG-16's calls (`-k k1_`); K4's GEMM mode likewise at the
+b1 trace path's calls (`-k "k4_qgemm or k4_gemm"`).  K11 and K12 (the direct conv)
 equal their plain versions at tests/test_torch_port_conv_direct.py's shapes,
 at 56^2 c64 3x3 s1 and at MobileNetV2 b8's depthwise shapes; tune_conv, a
 fused VGG-11 forward and tune_graph run on the card (`-k "direct or vgg or
@@ -153,17 +154,123 @@ def test_wrappers_refuse_bad_operands(rng, cuda):
         qgemm_rq(x, w.cpu(), b, mult, shift)
 
 
+# K4's GEMM calls: ResNet-50 b1's 56^2, 28^2 and 14^2 1x1 convs (the tiled
+# path, split where its tiles leave the card idle), its 7^2 ones (M = 49) and
+# the b1 classifiers (M = 1) on the skinny path, MobileNetV2's K = 24 (8-byte
+# copies), K % 8 != 0 (byte copies), ragged M and N
+K4_GEMM_CASES = [(37, 80, 128), (37, 200, 13), (70, 300, 256), (3136, 64, 256),
+                 (196, 1024, 256), (1, 2048, 1000), (49, 512, 2048), (49, 2048, 512),
+                 (784, 512, 128), (3136, 24, 144), (1, 1280, 1000), (100, 100, 40),
+                 (12544, 16, 96), (196, 1024, 512)]
+
+
+def _extreme_bias(rng, n, device):
+    return torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, n, dtype=np.int64)
+                            .astype(np.int32)).to(device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mkn", [(37, 80, 128), (37, 200, 13), (70, 300, 256),
-                                 (3136, 64, 256), (196, 1024, 256), (1, 2048, 1000)])
+@pytest.mark.parametrize("mkn", K4_GEMM_CASES)
 def test_k4_qgemm_raw_on_card(rng, cuda, mkn):
     m, k, n = mkn
     x, w = _dev(rng, (m, k), cuda), _dev(rng, (k, n), cuda)
-    b = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, n, dtype=np.int64)
-                         .astype(np.int32)).to(cuda)
+    b = _extreme_bias(rng, n, cuda)
     got = qgemm_raw(x, w, b)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, qgemm_raw_plain(x, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(bm, bn, 64) for bm, bn in _lib.TILES])
+@pytest.mark.parametrize("mkn", K4_GEMM_CASES)
+def test_k4_gemm_tiles_on_card(rng, cuda, blocks, mkn):
+    m, k, n = mkn
+    x, w = _dev(rng, (m, k), cuda), _dev(rng, (k, n), cuda)
+    b = _extreme_bias(rng, n, cuda)
+    got = qgemm_raw(x, w, b, blocks=blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qgemm_raw_plain(x, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", K4_GEMM_CASES)
+def test_k4_gemm_every_plan_on_card(rng, cuda, mkn):
+    """Every launch K4's GEMM mode can make of the call (`gemm_plans`: the
+    tiled path at each tile, unsplit and at `rq_split`'s split; at M <= 64
+    the skinny path at several splits) and the tiled path at
+    every split of K from 1 to 8, each == plain: the splits add into the
+    zeroed output and split 0 alone adds the bias."""
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import gemm_plans
+
+    m, k, n = mkn
+    x, w = _dev(rng, (m, k), cuda), _dev(rng, (k, n), cuda)
+    b = _extreme_bias(rng, n, cuda)
+    want = qgemm_raw_plain(x, w, b)
+    steps = -(-k // 64)
+    plans = gemm_plans(m, k, n)
+    for ks in range(1, min(8, steps) + 1):
+        kper = -(-steps // ks)
+        plans.append({"path": "tiled", "bm": 64, "bn": 64, "ks": -(-steps // kper), "kper": kper})
+    for plan in plans:
+        got = qgemm_raw(x, w, b, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+
+
+@pytest.mark.cuda
+def test_k4_gemm_refuses_what_it_does_not_take(rng, cuda):
+    """The skinny path refuses M > 64, a split that leaves a step out is
+    refused, a tile that is not built raises in the wrapper and in the
+    kernel's entry; an unaligned x (an odd offset) takes the byte copies on
+    both paths and stays == plain."""
+    x, w = _dev(rng, (80, 128), cuda), _dev(rng, (128, 32), cuda)
+    b = _extreme_bias(rng, 32, cuda)
+    with pytest.raises(ValueError, match="skinny path takes M"):
+        qgemm_raw(x, w, b, plan={"path": "skinny", "ks": 1, "kper": 2})
+    with pytest.raises(ValueError, match="does not cover"):
+        qgemm_raw(x[:8], w, b, plan={"path": "skinny", "ks": 1, "kper": 1})
+    with pytest.raises(ValueError, match="does not cover"):
+        qgemm_raw(x, w, b, plan={"path": "tiled", "bm": 64, "bn": 64, "ks": 3, "kper": 1})
+    with pytest.raises(ValueError, match="not a compiled tile"):
+        qgemm_raw(x, w, b, blocks=(32, 64, 64))
+    with pytest.raises(RuntimeError, match="tk_qgemm_raw"):
+        qgemm_raw(x, w, b, plan={"path": "tiled", "bm": 32, "bn": 64, "ks": 1, "kper": 2})
+    buf = _dev(rng, (80 * 136 + 1,), cuda)
+    xu = buf[1:].view(80, 136)
+    wu = _dev(rng, (136, 32), cuda)
+    for m in (8, 80):  # the skinny path, the tiled one
+        got = qgemm_raw(xu[:m], wu, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, qgemm_raw_plain(xu[:m], wu, b))
+
+
+@pytest.mark.cuda
+def test_k4_gemm_through_qconv2d_flat_and_qmatmul_int8(rng, cuda):
+    """A raw 1x1 conv (stride 2, izp folded into the bias) launches K4's GEMM
+    mode once a call and packs its 4-D weight once across calls; the entry
+    `qmatmul_int8` without a multiplier serves a tile and the library route
+    (`blocks="xla"`), each == the CPU path."""
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8 as mm
+
+    x = _dev(rng, (1, 14, 14, 1024), cuda)
+    w = _dev(rng, (1, 1, 1024, 512), cuda)
+    b = _extreme_bias(rng, 512, cuda)
+    kw = dict(strides=(2, 2), input_zero_point=-3)
+    want = qconv2d_flat(x.cpu(), w.cpu(), b.cpu(), **kw)
+    before = _lib.LAUNCHES["qgemm_raw"]
+    got = qconv2d_flat(x, w, b, **kw)
+    packed = len(mm._KMAJOR)
+    again = qconv2d_flat(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["qgemm_raw"] == before + 2 and len(mm._KMAJOR) == packed
+    assert torch.equal(got.cpu(), want) and torch.equal(again.cpu(), want)
+    x2, w2 = _dev(rng, (49, 512), cuda), _dev(rng, (512, 256), cuda)
+    b2 = _extreme_bias(rng, 256, cuda)
+    want = mm.qmatmul_int8(x2.cpu(), w2.cpu(), b2.cpu())
+    for blocks in ((128, 128, 64), "xla", None):
+        got = mm.qmatmul_int8(x2, w2, b2, blocks=blocks)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), blocks
 
 
 @pytest.mark.cuda

@@ -1,8 +1,11 @@
 """K1 (qgemm_rq) timed on one GPU at every call it gets in the int8 b8 224^2
 forwards of ResNet-50, MobileNetV2 and VGG-16, beside an earlier tree's K1
-in the same process:
+in the same process; with `--raw`, K4's GEMM mode (qgemm_raw) at every call
+of the unfused b1 224^2 forwards of ResNet-50 (37) and MobileNetV2 (35),
+beside an earlier tree's K4:
 
     python3 tools/gemm_probe.py [--csrc DIR] [--no-cuts] [--k2] [--plans] [OUT_JSON]
+    python3 tools/gemm_probe.py --raw [--csrc DIR] [--no-cuts] [--plans] [OUT_JSON]
 
 Each call is an (M, K) x (K, N) GEMM with the exact requantize epilogue
 (M = batch * H * W for a 1x1 conv, the batch for a dense layer).  Per call:
@@ -37,14 +40,30 @@ Each call is an (M, K) x (K, N) GEMM with the exact requantize epilogue
     `csrc/layouts_hopper.cuh`;
   * `--k2`: K2 (`conv.qconv_rq`) on the same GEMM as a 1x1 conv of (M, 1, 1,
     K) images, == plain first (whether K2's body serves K1's calls);
-  * `--plans`: the port's K1 at each tile of `_lib.TILES` on the tiled path
-    and at other splits of K, == plain first;
+  * `--plans`: the port's K1 at every launch of `gemm_plans` and, at the
+    default tile of the tiled path, at the splits 1, 2, 3, 4, 6 and 8 of K
+    that cover it, == plain first;
   * `library`: `torch._int_mm` where cuBLASLt takes the shape (M > 16, K
     and N multiples of 8), else an fp16 `torch.matmul` of the same shape
     (timed only, never served);
   * `bound`: max(bytes / 3.35 TB/s, 2 M K N / 1979 TOP/s), the bytes each
     input read once (x, w, 12 bytes of column constants) and the output
     written once.
+
+With `--raw` each call is x (M, K) @ w (K, N) + bias (extreme values, so
+that the sums wrap), int32 out, and the same measurements are made of K4:
+`port` (`qgemm_raw`, == `qgemm_raw_plain` first), `before` (with `--csrc
+DIR`: `qgemm_raw.cu` of DIR on its `qgemm.cuh` body, launched with that
+design's arguments, the weight (K, N) row-major, == plain first) and
+`before_empty`; the port cut apart: `port_tiled_empty` /
+`port_skinny_empty` (the zeroing of a split's output kept),
+`port_tiled_raw_no_epilogue` / `port_skinny_no_epilogue` (no store),
+`port_tiled_raw_no_bias` (the bias not read), the tiled path's copies, its
+`wgmma`s, or all of those and the store (`port_tiled_raw_loop_only`), its
+ring at 2 or 8 stages, the skinny path's copies of x; `--plans` as above;
+`library` as above (the bias add not included); `bound`: the bytes of x, w,
+the bias and the int32 output over 3.35 TB/s, or the operations over the
+int8 peak.
 
 Times are CUDA events over CUDA-graph replays (`utils/timing.py
 call_seconds`, warm L2), per call and summed per forward with each call's
@@ -121,8 +140,29 @@ def _vgg16(b):
     return [(b, 25088, 4096, 1), (b, 4096, 4096, 1), (b, 4096, 1000, 1)]
 
 
+def _resnet50_unfused(b):
+    """ResNet-50's K4 GEMM calls in an unfused forward (chip_smoke.py phase
+    7): every 1x1 conv (each bottleneck's first and last, the four
+    downsamples) and the classifier."""
+    calls = [(b * 56 * 56, 64, 64, 1), (b * 56 * 56, 64, 256, 4), (b * 56 * 56, 256, 64, 2)]
+    side, cin = 56, 256
+    for width, blocks in ((128, 4), (256, 6), (512, 3)):
+        out = 4 * width
+        calls.append((b * side * side, cin, width, 1))           # first block's first 1x1
+        side //= 2
+        calls.append((b * side * side, width, out, blocks))      # every block's last 1x1
+        calls.append((b * side * side, cin, out, 1))             # the downsample
+        calls.append((b * side * side, out, width, blocks - 1))  # the other blocks' first 1x1
+        cin = out
+    calls.append((b, 2048, 1000, 1))
+    return calls
+
+
 MODELS = {"ResNet-50": _resnet50, "MobileNetV2": _mobilenet_v2, "VGG-16": _vgg16}
-BATCH = 8
+# K4's GEMM mode: the unfused forwards of the trace path (chip_smoke.py
+# phases 7 and 10a); MobileNetV2 unfused makes K1's fused calls
+RAW_MODELS = {"ResNet-50": _resnet50_unfused, "MobileNetV2": _mobilenet_v2}
+SPLITS = (1, 2, 3, 4, 6, 8)  # --plans: splits of K tried at the default tile
 
 # cuts of the first port's body (csrc/qgemm.cuh), applied to DIR's copy
 BEFORE_CUTS = {
@@ -177,10 +217,30 @@ PORT_CUTS = {
                             "  else if (n >= 4)\n    asm volatile(\"cp.async.wait_group 4;\" ::: "
                             "\"memory\");\n  else if (n >= 2)\n    cp_async_wait2();")],
 }
+# K4's tiled path without its epilogue (the RAW branch of igemm_hopper.cuh)
+PORT_CUTS["port_tiled_raw_no_epilogue"] = [
+    (_IGH, "    } else {\n      int32_t* const o32 = static_cast<int32_t*>(out);",
+     "    } else if (g.M < 0) {\n      int32_t* const o32 = static_cast<int32_t*>(out);")]
+PORT_CUTS["port_tiled_raw_no_bias"] = [
+    (_IGH, "        const int32_t b0 = colb[cl], b1 = colb[cl + 1];",
+     "        const int32_t b0 = 0, b1 = 0;")]
+RQ_CUTS = ("port_skinny_no_epilogue", "port_skinny_no_a_loads", "port_skinny_empty",
+           "port_tiled_no_epilogue", "port_tiled_no_requant", "port_tiled_no_store",
+           "port_tiled_no_a_loads", "port_tiled_no_b_loads", "port_tiled_no_mma",
+           "port_tiled_loop_only", "port_tiled_empty", "port_tiled_stages2",
+           "port_tiled_stages8")
+RAW_CUTS = ("port_tiled_empty", "port_skinny_empty", "port_tiled_raw_no_epilogue",
+            "port_skinny_no_epilogue", "port_tiled_raw_no_bias", "port_tiled_no_a_loads",
+            "port_tiled_no_b_loads", "port_tiled_no_mma", "port_tiled_raw_loop_only",
+            "port_tiled_stages2", "port_tiled_stages8", "port_skinny_no_a_loads")
 PORT_CUTS["port_tiled_loop_only"] = (PORT_CUTS["port_tiled_no_epilogue"]
                                      + PORT_CUTS["port_tiled_no_a_loads"]
                                      + PORT_CUTS["port_tiled_no_b_loads"]
                                      + PORT_CUTS["port_tiled_no_mma"])
+PORT_CUTS["port_tiled_raw_loop_only"] = (PORT_CUTS["port_tiled_raw_no_epilogue"]
+                                         + PORT_CUTS["port_tiled_no_a_loads"]
+                                         + PORT_CUTS["port_tiled_no_b_loads"]
+                                         + PORT_CUTS["port_tiled_no_mma"])
 
 
 def card() -> str:
@@ -188,8 +248,8 @@ def card() -> str:
                           capture_output=True, text=True).stdout.strip()
 
 
-def bound_ms(m, k, n) -> float:
-    nbytes = m * k + k * n + m * n + 12 * n
+def bound_ms(m, k, n, raw=False) -> float:
+    nbytes = m * k + k * n + (4 * m * n + 4 * n if raw else m * n + 12 * n)
     return max(nbytes / HBM_BYTES_PER_S, 2 * m * k * n / INT8_OPS_PER_S) * 1e3
 
 
@@ -217,6 +277,30 @@ def before_launcher(lib_path: Path):
     return run
 
 
+def before_raw_launcher(lib_path: Path):
+    """fn(x, w, bias, out) launching the earlier design's tk_qgemm_raw from
+    `lib_path` as its wrapper did (w (K, N) row-major, 64 x 64)."""
+    from tachikoma_tpu_torch.ops.kernels import _lib
+
+    fn = ctypes.CDLL(str(lib_path)).tk_qgemm_raw
+    fn.argtypes = [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+
+    def run(x, w, bias, out):
+        m, k = x.shape
+        n = w.shape[1]
+        p = dict(n=m, h=1, w=1, cin=k, kh=1, kw=1, cout=n, oh=1, ow=1, sh=1, sw=1,
+                 a_vec=int(k % 16 == 0), b_vec=int(n % 4 == 0))
+        arr = (ctypes.c_int32 * len(_lib.PARAMS))(*(int(p.get(key, 0)) for key in _lib.PARAMS))
+        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), bias.data_ptr(), ctypes.addressof(arr),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"tk_qgemm_raw (before): CUDA error {rc}")
+        return out
+
+    return run
+
+
 def library(x, w):
     m, k = x.shape
     n = w.shape[1]
@@ -230,9 +314,61 @@ def library(x, w):
     return lambda: x16 @ w16
 
 
+def time_checked(fn, want, what) -> float:
+    """fn() == want, then its device ms (CUDA-graph replays)."""
+    from tachikoma_tpu_torch.utils.timing import call_seconds
+
+    got = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"{what} != plain"
+    return call_seconds(fn, "cuda") * 1e3
+
+
+def _xw(rng, m, k, n):
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).cuda()
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).cuda()
+    return x, w
+
+
+def _rq_operands(rng, m, k, n):
+    """K1's (x, w, bias, multiplier, shift) at production-like scales."""
+    from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
+
+    x, w = _xw(rng, m, k, n)
+    bias = torch.from_numpy(rng.integers(-5000, 5000, n).astype(np.int32)).cuda()
+    mu, sh = plan_requantize(0.002 * (0.5 + rng.random(n)), 1.0)
+    return x, w, bias, channel_vector(mu, n, "cuda"), channel_vector(sh, n, "cuda")
+
+
+def _raw_operands(rng, m, k, n):
+    """K4's (x, w, bias), the bias extreme so that the sums wrap."""
+    x, w = _xw(rng, m, k, n)
+    bias = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+                            .astype(np.int32)).cuda()
+    return x, w, bias
+
+
+# what --raw changes: the calls, the kernel (and its plain version
+# `<kernel>_plain`), its operands and output, the earlier tree's source,
+# launcher and cuts, the port's cuts
+MODES = {
+    False: dict(models=MODELS, batch=8, kernel="qgemm_rq", operands=_rq_operands,
+                out_dtype=torch.int8, before_src=SRC, launcher=before_launcher,
+                before_cuts=tuple(BEFORE_CUTS), port_cuts=RQ_CUTS),
+    True: dict(models=RAW_MODELS, batch=1, kernel="qgemm_raw", operands=_raw_operands,
+               out_dtype=torch.int32, before_src="qgemm_raw.cu", launcher=before_raw_launcher,
+               before_cuts=("empty",), port_cuts=RAW_CUTS),
+}
+
+
+def _applies(csrc: Path, src: str, cut) -> bool:
+    """Whether every replacement of a cut finds its text once in csrc."""
+    return all((csrc / (r[0] if len(r) == 3 else src)).read_text().count(r[-2]) == 1
+               for r in cut)
+
+
 def main() -> int:
     from tachikoma_tpu_torch.ops.kernels import _lib, conv, matmul_int8 as mm
-    from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
     from tachikoma_tpu_torch.utils.timing import call_seconds
 
     argv = sys.argv[1:]
@@ -241,87 +377,79 @@ def main() -> int:
             if not a.startswith("--") and (i == 0 or argv[i - 1] != "--csrc")]
     out_path = args[0] if args else "gemm_probe.json"
     cuts = "--no-cuts" not in argv
+    raw = "--raw" in argv
+    mode = MODES[raw]
+    kernel = mode["kernel"]
+    wrapper, plain = getattr(mm, kernel), getattr(mm, kernel + "_plain")
     the_card = card()
     print(the_card, flush=True)
     _lib.build()
     workdir = Path(tempfile.mkdtemp(prefix="gemm_probe_"))
     res = {"card": the_card, "before_csrc": str(csrc) if csrc else None, "models": {}}
+    sms = conv.sm_count(0)
     try:
         before = {}
         if csrc is not None:
-            before_text = (csrc / "qgemm.cuh").read_text()
-            before_cuts = {k: v for k, v in BEFORE_CUTS.items()
-                           if cuts and all(before_text.count(old) == 1 for _, old, _ in v)}
-            before = build_variants(csrc, SRC, before_cuts, workdir / "before")
-        port_text = (_lib.CSRC / SRC).read_text()
-        port_cuts = {k: v for k, v in PORT_CUTS.items()
-                     if cuts and all((_lib.CSRC / r[0]).read_text().count(r[1]) == 1
-                                     if len(r) == 3 else port_text.count(r[0]) == 1 for r in v)}
+            before_cuts = {k: BEFORE_CUTS[k] for k in mode["before_cuts"]
+                           if cuts and _applies(csrc, mode["before_src"], BEFORE_CUTS[k])}
+            before = build_variants(csrc, mode["before_src"], before_cuts, workdir / "before")
+        port_cuts = {k: PORT_CUTS[k] for k in mode["port_cuts"]
+                     if cuts and _applies(_lib.CSRC, SRC, PORT_CUTS[k])}
         port = build_variants(_lib.CSRC, SRC, port_cuts, workdir / "port")
-        launchers = {f"before{'' if k == 'whole' else '_' + k}": before_launcher(p)
+        launchers = {f"before{'' if k == 'whole' else '_' + k}": mode["launcher"](p)
                      for k, p in before.items()}
         rng = np.random.default_rng(0)
-        for model, make in MODELS.items():
+        for model, make in mode["models"].items():
             rows = []
-            for m, k, n, reps in make(BATCH):
-                x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).cuda()
-                w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).cuda()
-                bias = torch.from_numpy(rng.integers(-5000, 5000, n).astype(np.int32)).cuda()
-                mu, sh = plan_requantize(0.002 * (0.5 + rng.random(n)), 1.0)
-                ops = (x, w, bias, channel_vector(mu, n, "cuda"), channel_vector(sh, n, "cuda"))
-                want = mm.qgemm_rq_plain(*ops)
-                row = {"m": m, "k": k, "n": n, "reps": reps, "bound_ms": bound_ms(m, k, n)}
-                row["plan"] = str(mm.gemm_plan(m, k, n, sms=conv.sm_count(0)))
+            for m, k, n, reps in make(mode["batch"]):
+                ops = mode["operands"](rng, m, k, n)
+                x, w = ops[0], ops[1]
+                want = plain(*ops)
+                plan = mm.gemm_plan(m, k, n, sms=sms)
+                row = {"m": m, "k": k, "n": n, "reps": reps, "bound_ms": bound_ms(m, k, n, raw),
+                       "plan": str(plan)}
 
                 def port_fn(ops=ops):
-                    return mm.qgemm_rq(*ops)
+                    return wrapper(*ops)
 
-                got = port_fn()
-                torch.cuda.synchronize()
-                assert torch.equal(got, want), f"port K1 != plain at {m}x{k}x{n}"
-                row["port"] = call_seconds(port_fn, "cuda") * 1e3
-                skinny = mm.gemm_plan(m, k, n, sms=conv.sm_count(0))["path"] == "skinny"
+                row["port"] = time_checked(port_fn, want, f"port {kernel} {m}x{k}x{n}")
                 for name, lib in port.items():
-                    if name == "whole" or ("skinny" in name) != skinny:
+                    if name == "whole" or ("skinny" in name) != (plan["path"] == "skinny"):
                         continue
                     with entries_of(lib, SRC):
                         row[name] = call_seconds(port_fn, "cuda") * 1e3
-                out = torch.empty((m, n), dtype=torch.int8, device="cuda")
+                out = torch.empty((m, n), dtype=mode["out_dtype"], device="cuda")
                 for name, run in launchers.items():
                     def fn(run=run, ops=ops, out=out):
                         return run(*ops, out)
-                    if name == "before":
-                        got = fn()
-                        torch.cuda.synchronize()
-                        assert torch.equal(got, want), f"before K1 != plain at {m}x{k}x{n}"
-                    row[name] = call_seconds(fn, "cuda") * 1e3
-                if "--k2" in argv:
+                    row[name] = (time_checked(fn, want, f"before {kernel} {m}x{k}x{n}")
+                                 if name == "before" else call_seconds(fn, "cuda") * 1e3)
+                if "--k2" in argv and not raw:
                     x4, w4 = x.reshape(m, 1, 1, k), w.reshape(1, 1, k, n)
-
-                    def k2(x4=x4, w4=w4, ops=ops):
-                        return conv.qconv_rq(x4, w4, *ops[2:])
-                    got = k2()
-                    torch.cuda.synchronize()
-                    assert torch.equal(got.reshape(m, n), want), f"K2 != plain at {m}x{k}x{n}"
-                    row["k2_1x1"] = call_seconds(k2, "cuda") * 1e3
+                    row["k2_1x1"] = time_checked(
+                        lambda x4=x4, w4=w4, ops=ops: conv.qconv_rq(x4, w4, *ops[2:]).reshape(m, n),
+                        want, f"K2 {m}x{k}x{n}")
                 if "--plans" in argv:
+                    steps = -(-k // mm.KSTEP)
+                    plans = mm.gemm_plans(m, k, n, sms)
+                    if plan["path"] == "tiled":
+                        for ks in SPLITS:
+                            kper = -(-steps // min(ks, steps))
+                            plans.append(dict(plan, ks=-(-steps // kper), kper=kper))
                     row["plans"] = {}
-                    for p in mm.gemm_plans(m, k, n, sms=conv.sm_count(0)):
-                        def fp(ops=ops, p=p):
-                            return mm.qgemm_rq(*ops, plan=p)
-                        got = fp()
-                        torch.cuda.synchronize()
-                        assert torch.equal(got, want), f"K1 {p} != plain at {m}x{k}x{n}"
-                        row["plans"][str(p)] = call_seconds(fp, "cuda") * 1e3
+                    for p in plans:
+                        if str(p) not in row["plans"]:
+                            row["plans"][str(p)] = time_checked(
+                                lambda ops=ops, p=p: wrapper(*ops, plan=p), want,
+                                f"{kernel} {p} at {m}x{k}x{n}")
                 row["library"] = call_seconds(library(x, w), "cuda") * 1e3
                 rows.append(row)
                 keys = [key for key in row if isinstance(row[key], float)]
                 print(f"{model:12s} M={m:6d} K={k:5d} N={n:5d} x{reps} "
                       + " ".join(f"{key} {row[key]:.4f}" for key in keys)
-                      + (f" [{row['plan']}]" if "plan" in row else ""), flush=True)
-                if "plans" in row:
-                    for p, t in sorted(row["plans"].items(), key=lambda kv: kv[1]):
-                        print(f"    {t:.4f} {p}", flush=True)
+                      + f" [{row['plan']}]", flush=True)
+                for p, t in sorted(row.get("plans", {}).items(), key=lambda kv: kv[1]):
+                    print(f"    {t:.4f} {p}", flush=True)
             # a cut of one path counts the other path's calls whole
             keys = list(dict.fromkeys(key for r in rows for key in r if isinstance(r[key], float)))
             total = {key: sum(r.get(key, r["port"]) * r["reps"] for r in rows) for key in keys}

@@ -3,8 +3,10 @@ MobileNetV2, each b8 224^2 fused (the run path) and b1 224^2 unfused (the
 trace path), the trained MobileNetV2 fixture loaded from its .tkmod, the
 float transformers BERT-base, GPT-2 small and ViT-B/16 through
 fuse_attention and K6, the tuning path (tune, the four conv layouts K7-K10,
-dispatch from a tuning database) on ResNet-50, and the direct-conv tuning
-path (int8 VGG-16, tune_conv on K11/K12, the graph tuner).
+dispatch from a tuning database) on ResNet-50, the direct-conv tuning
+path (int8 VGG-16, tune_conv on K11/K12, the graph tuner), and the int8
+transformers (BERT-base run and traced, GPT-2 small and ViT-B/16 run) on K1,
+K4 and K1's batched mode.
 
     python3 chip_smoke.py
 
@@ -127,7 +129,28 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      tune_graph over VGG-16's five chain runs, each variant run as handed
      over by TorchExecutor for 5 counted requests, every integer node == the CPU
      path, the median of the last 4 its time; the records go to a database
-     under TMPDIR.  The phase's host seconds are printed.
+     under TMPDIR.  The phase's host seconds are printed;
+ 17. the int8 transformers: (a) BERT-base b4 s128 (12 layers, hidden 768,
+     the JAX package's bench configuration) built from the seed, quantized
+     with TRANSFORMER_INT8 on the host (timed, outside every timed window)
+     and fused, its fused op counts asserted (12 qnn.dense, 38 tk.dense_rq,
+     24 tk.bmm_rq, 12 qnn.softmax, 25 qnn.layer_norm, 13 qnn.lut); (b) one
+     forward recorded call by call, every K1 (qgemm_rq), K4 (qgemm_raw: the
+     merged Q/K/V dense) and K1 batched-mode (qbmm_rq: the attention's two
+     products of each layer) call held == plain and timed beside its bound
+     and library call (an fp16 torch.matmul of the same batched shapes for
+     qbmm, not exact), with its
+     plan; (c) 20 requests through TorchExecutor(fuse=True, device="cuda")
+     with the counts set to 0 and read, no weight packed during them, every
+     integer node == the CPU path, the median latency and sequences/s; (d)
+     device time by kernel and the busy share; (e) the trace path at b1
+     s128, unfused: every K4 and qbmm_raw call == plain and timed, the
+     trace emitted on the card (1 warm, 5 timed, no weight packed during
+     them) and held record by record against the CPU's trace, CRCs and
+     verify_trace; (f) GPT-2 small b1 s128 (causal) and ViT-B/16 b8 224^2
+     quantized with TRANSFORMER_INT8, fused and run on the card: every
+     recorded kernel call == plain, 3 counted requests with their tk.bmm_rq
+     through qbmm_rq, every integer node == the CPU path.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -137,10 +160,12 @@ bound at the 3xTF32 rate, 495 / 3 TFLOP/s, or its bytes), those
 of K7-K10 per ResNet-50 b8 forward with the layout forced (its three 3x3 s2
 calls; every wrapper's device work included), those of K11 per VGG-16 b8
 forward (its 13 conv calls, summed with their repeats) and of K12 per
-MobileNetV2 b8 forward (its 17 depthwise calls); `launches` sums each
+MobileNetV2 b8 forward (its 17 depthwise calls), those of qbmm_rq per int8
+BERT-base b4 s128 forward and of qbmm_raw per int8 BERT-base b1 s128 trace
+forward (phase 17); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
-12c-14c, 15c, 16a and 16c; K11 and K12 in 16b's tune_conv run), each counted
-from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
+12c-14c, 15c, 16a, 16c, 17c, 17e and 17f; K11 and K12 in 16b's tune_conv
+run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
@@ -210,6 +235,9 @@ KERNELS = {
                      "tachikoma_tpu/ops/pallas/conv_int8.py:47"),
     "qdwconv_direct": ("tachikoma_tpu_torch/csrc/qdwconv.cu",
                        "tachikoma_tpu/ops/pallas/conv_int8.py:87"),
+    # no Pallas kernel: XLA runs tk.bmm_rq and qnn.batch_matmul in the JAX package
+    "qbmm_rq": ("tachikoma_tpu_torch/csrc/qgemm_rq.cu", "tachikoma_tpu/runtime/fuse.py:389"),
+    "qbmm_raw": ("tachikoma_tpu_torch/csrc/qgemm_rq.cu", "tachikoma_tpu/ops/jax_ops.py:249"),
 }
 LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_s", "qconv_rq_w", "qconv_rq_r")
 WRAPPER_CALLS = 20                # host-clock repeats of the wrappers' own work
@@ -227,6 +255,14 @@ VGG_RUN_KERNELS = ("qconv_rq", "qgemm_rq")
 DIRECT_KERNELS = ("qconv_direct", "qdwconv_direct")
 VGG_CONVS, VGG_CONV_WORKLOADS, MBV2_DW_CONVS = 13, 9, 17
 GRAPH_TUNE_REQUESTS = 5           # per variant; the first is dropped from the median
+SEQ = 128                         # BERT-base and GPT-2 small's sequence (phases 12, 13, 17)
+BERT_BATCH = 4
+# the fused int8 BERT-base's op counts (phase 17a), from the JAX package's fuse_qnn
+BERT_INT8_OPS = {"qnn.dense": 12, "tk.dense_rq": 38, "tk.bmm_rq": 24, "qnn.softmax": 12,
+                 "qnn.layer_norm": 25, "qnn.lut": 13}
+INT8_TRANSFORMER_KERNELS = ("qgemm_rq", "qgemm_raw", "qbmm_rq")
+INT8_TRACE_KERNELS = ("qgemm_raw", "qbmm_raw")
+INT8_CHECK_REQUESTS = 3           # phase 17f's counted requests
 # The previous designs' ms on one NVIDIA H100 80GB HBM3 at 700.00 W, printed
 # beside this run's (PERF.md's kernel table): per forward, K3 (ResNet-50 b8)
 # and K4's conv mode (b1) on their first body, csrc/qgemm.cuh, and K2 on it
@@ -339,7 +375,8 @@ EARLIER_CALL_MS = {
 }
 # printed call by call with their plan
 PLAN_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res", "qgemm_raw", "qconv_raw", "qdwconv_rq",
-                "qdwconv_raw", "flash_attn")
+                "qdwconv_raw", "flash_attn", "qbmm_rq", "qbmm_raw")
+BMM_KERNELS = ("qbmm_rq", "qbmm_raw")
 
 
 def say(*a):
@@ -394,6 +431,8 @@ def recording(calls: list):
                             (conv, "qdwconv_rq", "qdwconv_rq"),
                             (conv, "qdwconv_raw", "qdwconv_raw"),
                             (attention, "flash_attention", "flash_attn"),
+                            (matmul_int8, "qbmm_rq", "qbmm_rq"),
+                            (matmul_int8, "qbmm_raw", "qbmm_raw"),
                             *((conv, name, name) for name in LAYOUT_KERNELS)):
         fn = getattr(mod, attr)
 
@@ -415,7 +454,17 @@ def work(name, a, k) -> tuple[int, int, str]:
     once, each output written once (a depthwise weight is (KH, KW, 1, C):
     one input channel per output channel; attention reads q, k, v and writes
     out, (G, S, D) float32 each, and under causal needs the products of the
-    S (S + 1) / 2 unmasked scores only)."""
+    S (S + 1) / 2 unmasked scores only; K1's batched mode reads its operands
+    (views read in place) and writes (batch, M, N))."""
+    if name in BMM_KERNELS:
+        from tachikoma_tpu_torch.ops.kernels.matmul_int8 import _logical
+
+        A, B = _logical(a[0], a[1], k.get("transpose_a", False), k.get("transpose_b", False))
+        m, kk, n = A.shape[-2], A.shape[-1], B.shape[-1]
+        nb = int(np.prod(torch.broadcast_shapes(A.shape[:-2], B.shape[:-2])))
+        out_b = 4 if name == "qbmm_raw" else 1
+        return (A.numel() + B.numel() + out_b * nb * m * n, 2 * nb * m * kk * n,
+                f"{nb}x ({m}, {kk}) x ({kk}, {n})")
     if name == "flash_attn":
         b, h, s, d = a[0].shape
         g = b * h
@@ -449,6 +498,13 @@ def library_call(name, a, k):
     <= 16 and, through cuBLASLt, some other shapes (M=784 K=32 N=192 on
     torch 2.11, CUDA 12.8); there an fp16 matmul of the same shape."""
     x, w = a[0], a[1]
+    if name in BMM_KERNELS:  # an fp16 product of the same shapes: not exact
+        from tachikoma_tpu_torch.ops.kernels.matmul_int8 import _logical
+
+        A, B = _logical(x.half(), w.half(), k.get("transpose_a", False),
+                        k.get("transpose_b", False))
+        A, B = A.contiguous(), B.contiguous()
+        return lambda: torch.matmul(A, B)
     if name == "flash_attn":
         return lambda: torch.nn.functional.scaled_dot_product_attention(
             x, w, a[2], is_causal=bool(k.get("causal", False)), scale=k.get("scale"))
@@ -502,7 +558,9 @@ def kernel_impls() -> dict:
             "flash_attn": (flash_attention.flash_attention,
                            flash_attention.flash_attention_plain),
             "qconv_direct": (conv_direct.qconv_direct, conv_direct.qconv_direct_plain),
-            "qdwconv_direct": (conv_direct.qdwconv_direct, conv_direct.qdwconv_direct_plain)}
+            "qdwconv_direct": (conv_direct.qdwconv_direct, conv_direct.qdwconv_direct_plain),
+            "qbmm_rq": (matmul_int8.qbmm_rq, matmul_int8.qbmm_rq_plain),
+            "qbmm_raw": (matmul_int8.qbmm_raw, matmul_int8.qbmm_raw_plain)}
     for name in LAYOUT_KERNELS:
         impl[name] = (getattr(conv_layouts, name), getattr(conv_layouts, f"{name}_plain"))
     return impl
@@ -534,6 +592,13 @@ def launch_plan(name, a, k) -> str:
                                                  flash_attention, matmul_int8)
 
     x, w = a[0], a[1]
+    if name in BMM_KERNELS:
+        _, _, _, p = matmul_int8._bmm_launch(
+            name, x, w, k.get("lhs_zero_point", 0), k.get("rhs_zero_point", 0),
+            k.get("transpose_a", False), k.get("transpose_b", False), k.get("plan"))
+        modes = {v: key for key, v in matmul_int8.BMM_MODES.items()}
+        return (f"tile {p['bm']}x{p['bn']}, {p['bmm_nb']} products, A {modes[p['a_mode']]}, "
+                f"B {modes[p['b_mode']]}")
     if name in ("qgemm_rq", "qgemm_raw"):
         p = k.get("plan") or matmul_int8.gemm_plan(x.shape[0], x.shape[1], w.shape[1],
                                                    k.get("blocks"), conv.sm_count(x.device.index))
@@ -824,25 +889,31 @@ def packed_weights() -> set:
     return {id(v[2]) for v in matmul_int8._KMAJOR.values()}
 
 
-def trace_path(labels, model: str, build, kernels) -> tuple[dict, dict]:
+def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
+               size: str = f"{IMAGE}^2") -> tuple[dict, dict]:
     """The trace path of one model, two phases titled by `labels` (7-8 for
-    ResNet-50; 10a-10b for MobileNetV2): the unfused b1 forward's raw kernels
-    == plain and timed, every integer node == the CPU plain path, then the
-    trace emitted on the card, compared with the CPU's and verified.
-    Returns the kernels' per-forward totals and their launches (the trace
-    path's run)."""
+    ResNet-50; 10a-10b for MobileNetV2; 17e for int8 BERT-base): the
+    unfused b1 forward's raw kernels == plain and timed, every integer node
+    == the CPU plain path, then the trace emitted on the card, compared with
+    the CPU's and verified.  `make_input(rng)` makes the calibration batch
+    and the input (an image by default), `config` is the QConfig (the
+    default one by default).  Returns the kernels' per-forward totals and
+    their launches (the trace path's run)."""
     from tachikoma_tpu_torch.ops.kernels import _lib
     from tachikoma_tpu_torch.quantize.quantizer import quantize
     from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
     from tachikoma_tpu_torch.trace.emitter import TraceEmitter, verify_trace
     from tachikoma_tpu_torch.trace.native import native_verify
 
-    phase(f"{labels[0]} trace path: int8 {model} b{TRACE_BATCH} {IMAGE}^2 unfused on the card")
+    phase(f"{labels[0]} trace path: int8 {model} b{TRACE_BATCH} {size} unfused on the card")
+    if make_input is None:
+        def make_input(rng):
+            return rng.standard_normal((TRACE_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    calib = rng.standard_normal((TRACE_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
-    q = quantize(build(TRACE_BATCH), [calib])
-    x = rng.standard_normal((TRACE_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    calib = make_input(rng)
+    q = quantize(build(TRACE_BATCH), [calib], *([config] if config is not None else []))
+    x = make_input(rng)
     names = computational_nodes(q)
     ops = Counter(q[n].op for n in names)
     say(f"build + calibrate + quantize {time.perf_counter() - t0:.2f} s (host)")
@@ -856,8 +927,9 @@ def trace_path(labels, model: str, build, kernels) -> tuple[dict, dict]:
     read_launches(kernels, f"the unfused {model} forward")
     say("raw kernel calls per forward: " + ", ".join(
         f"{name} {_lib.LAUNCHES[name]}" for name in kernels)
-        + f" ({ops['qnn.conv2d']} qnn.conv2d + {ops['qnn.dense']} qnn.dense)")
-    assert len(calls) == ops["qnn.conv2d"] + ops["qnn.dense"]
+        + f" ({ops['qnn.conv2d']} qnn.conv2d + {ops['qnn.dense']} qnn.dense + "
+        f"{ops['qnn.batch_matmul']} qnn.batch_matmul)")
+    assert len(calls) == ops["qnn.conv2d"] + ops["qnn.dense"] + ops["qnn.batch_matmul"]
     totals = check_kernels(calls, kernels, model)
     plain = TorchExecutor(q, capture=names, device="cpu", fuse=False).run(x)
     n_int = hold_against_plain(names, outs, plain, q, FLOAT_RTOL, FLOAT_ATOL)
@@ -869,7 +941,7 @@ def trace_path(labels, model: str, build, kernels) -> tuple[dict, dict]:
     tdir = tempfile.gettempdir()
     path = os.path.join(tdir, f"tk_chip_smoke_{os.getpid()}.bin")
     ref_path = os.path.join(tdir, f"tk_chip_smoke_{os.getpid()}_cpu.bin")
-    meta = {"model": f"{model.lower().replace('-', '')}_b{TRACE_BATCH}_{IMAGE}"}
+    meta = {"model": f"{model.lower().replace('-', '')}_b{TRACE_BATCH}_{size.split('^')[0]}"}
     try:
         em = TraceEmitter(q, backend="torch", device="cuda", meta=meta)
         reset(kernels)
@@ -1523,6 +1595,155 @@ def graph_tune_path(state) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the int8 transformers (phase 17)
+# ---------------------------------------------------------------------------
+
+def bert_ids(batch: int):
+    def make(rng):
+        return rng.integers(0, 30522, (batch, SEQ)).astype(np.int32)
+
+    return make
+
+
+def int8_bert_path() -> tuple[dict, dict]:
+    """Phases 17a-d: int8 BERT-base b4 s128 (TRANSFORMER_INT8) quantized and
+    fused on the host, K1, K4 and qbmm_rq at the forward's calls (== plain,
+    timed), REQUESTS requests on the card with the kernels counted, every
+    integer node == the CPU path, the device's busy share.  Returns the
+    kernels' per-forward totals and their launches in the requests."""
+    from tachikoma_tpu_torch.models.transformer import bert_base
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    model = f"int8 BERT-base b{BERT_BATCH} s{SEQ}"
+    phase(f"17a. {model}: build, quantize (TRANSFORMER_INT8), fuse (host)")
+    make = bert_ids(BERT_BATCH)
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    g = bert_base(batch_size=BERT_BATCH, seq_len=SEQ, seed=SEED)
+    t1 = time.perf_counter()
+    q = quantize(g, [make(rng)], TRANSFORMER_INT8)
+    t2 = time.perf_counter()
+    fused = fuse_qnn(q)
+    t3 = time.perf_counter()
+    ops = Counter(n.op for n in fused.nodes if n.op not in ("var", "const"))
+    say(f"build {t1 - t0:.2f} s, calibrate+quantize {t2 - t1:.2f} s, fuse {t3 - t2:.2f} s")
+    say("fused graph: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
+    for op, n in BERT_INT8_OPS.items():
+        assert ops[op] == n, f"{op}: {ops[op]} in the fused graph, expected {n}"
+    names = computational_nodes(fused)
+    ex = TorchExecutor(fused, capture=names, device="cuda")
+    requests = [make(rng) for _ in range(REQUESTS)]
+
+    phase(f"17b. {model}: K1, K4 and K1's batched mode at the forward's calls: == plain, "
+          "time, bound, library")
+    calls: list = []
+    with recording(calls):
+        ex.run_device(requests[0])
+    torch.cuda.synchronize()
+    totals = check_kernels(calls, INT8_TRANSFORMER_KERNELS, model)
+
+    phase(f"17c. {model} main path: {REQUESTS} requests through "
+          "TorchExecutor(fuse=True, device='cuda')")
+    packed = len(matmul_int8._KMAJOR)
+    reset(INT8_TRANSFORMER_KERNELS)
+    lat = []
+    first_out = None
+    for x in requests:
+        t0 = time.perf_counter()
+        outs = ex.run_device(x)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if first_out is None:
+            first_out = [o.cpu().numpy() for o in outs]
+    launches = read_launches(INT8_TRANSFORMER_KERNELS, f"the {model} run path")
+    per = {"qgemm_rq": BERT_INT8_OPS["tk.dense_rq"], "qgemm_raw": BERT_INT8_OPS["qnn.dense"],
+           "qbmm_rq": BERT_INT8_OPS["tk.bmm_rq"]}
+    for name, n in launches.items():
+        say(f"{name}: {n} launches, {n // REQUESTS} per forward")
+        assert n == per[name] * REQUESTS, (name, n)
+    assert len(matmul_int8._KMAJOR) == packed, "a request packed a weight again"
+    say(f"{packed} weight tensors packed K-major before the requests, none during them "
+        "(the batched mode packs nothing)")
+    t0 = time.perf_counter()
+    plain = TorchExecutor(fused, capture=names, device="cpu").run(requests[0])
+    say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
+    n_int = hold_against_plain(names, first_out, plain, fused, FLOAT_RTOL, FLOAT_ATOL)
+    logits = first_out[names.index(fused.outputs[0])]
+    assert logits.shape == (BERT_BATCH, 2) and np.isfinite(logits).all()
+    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; "
+        f"logits {logits.shape} finite")
+    med = statistics.median(lat[1:])
+    say(f"latency ms per request (b{BERT_BATCH} s{SEQ}): median {med:.3f}, all "
+        + " ".join(f"{v:.3f}" for v in lat))
+    say(f"sequences/s {BERT_BATCH / med * 1e3:.1f}")
+    kernel_ms = sum(t["ms"] for t in totals.values())
+    say(f"{'+'.join(INT8_TRANSFORMER_KERNELS)} device ms per forward {kernel_ms:.4f} of "
+        f"{med:.3f} ms end to end")
+
+    phase(f"17d. {model}: device time of the main path (torch.profiler, 3 requests)")
+    profile_requests(ex, requests[:3], med)
+    return totals, launches
+
+
+def int8_transformer_check(label: str, model: str, build, make_input) -> dict:
+    """Phase 17f: an int8 transformer (TRANSFORMER_INT8) quantized, fused and
+    run on the card: every recorded kernel call == plain, INT8_CHECK_REQUESTS
+    requests with K1 and qbmm_rq counted, every integer node == the CPU path
+    (float nodes within the float transformers' tolerance: GPT-2's float
+    lm-head product).  Returns the launches."""
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    phase(f"{label} int8 {model}: quantize (TRANSFORMER_INT8), fuse, run on the card")
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    fused = fuse_qnn(quantize(build(), [make_input(rng)], TRANSFORMER_INT8))
+    ops = Counter(n.op for n in fused.nodes if n.op not in ("var", "const"))
+    say(f"build + calibrate + quantize + fuse {time.perf_counter() - t0:.2f} s (host)")
+    say("fused graph: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
+    assert ops["tk.bmm_rq"] == 24 and ops["qnn.softmax"] == 12, ops
+    names = computational_nodes(fused)
+    ex = TorchExecutor(fused, capture=names, device="cuda")
+    x = make_input(rng)
+    calls: list = []
+    with recording(calls):
+        ex.run_device(x)
+    torch.cuda.synchronize()
+    impl = kernel_impls()
+    held = Counter()
+    for name, a, k in calls:
+        hold_call(name, a, k, impl)
+        held[name] += 1
+    say("kernel calls of one forward, each == plain: "
+        + ", ".join(f"{n} {name}" for name, n in sorted(held.items())))
+    assert held["qbmm_rq"] == 24, held
+    kernels = ("qgemm_rq", "qbmm_rq")
+    reset(kernels)
+    first_out = None
+    for _ in range(INT8_CHECK_REQUESTS):
+        outs = ex.run_device(x)
+        torch.cuda.synchronize()
+        if first_out is None:
+            first_out = [o.cpu().numpy() for o in outs]
+    launches = read_launches(kernels, f"the int8 {model} path")
+    assert launches["qbmm_rq"] == 24 * INT8_CHECK_REQUESTS, launches
+    say(", ".join(f"{name}: {n} launches in {INT8_CHECK_REQUESTS} requests"
+                  for name, n in launches.items()))
+    plain = TorchExecutor(fused, capture=names, device="cpu").run(x)
+    n_int = hold_against_plain(names, first_out, plain, fused, GRAPH_RTOL, GRAPH_ATOL)
+    out = first_out[names.index(fused.outputs[0])]
+    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; "
+        f"output {out.shape} finite, float nodes within rtol {GRAPH_RTOL} atol {GRAPH_ATOL}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1533,6 +1754,7 @@ def main() -> int:
     from tachikoma_tpu_torch.models.transformer import bert_base, gpt2_small, vit_b16
     from tachikoma_tpu_torch.models.vision import mobilenet_v2, resnet, vgg
     from tachikoma_tpu_torch.ops.kernels import _lib
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1631,6 +1853,29 @@ def main() -> int:
     merge({}, direct_launches)
     merge({}, graph_tune_path(vgg_state))
     say(f"\nphase 16 seconds {time.perf_counter() - t16:.1f} (host clock)")
+
+    t17 = time.perf_counter()
+    bert_totals, bert_launches = int8_bert_path()
+    for name, t in bert_totals.items():
+        errs[name] = max(errs.get(name, 0), t["max_abs_err"])
+    totals["qbmm_rq"] = bert_totals["qbmm_rq"]
+    merge({}, bert_launches)
+    bert_trace_totals, bert_trace_launches = trace_path(
+        ("17e.", "17e."), "BERT-base", lambda b: bert_base(batch_size=b, seq_len=SEQ, seed=SEED),
+        INT8_TRACE_KERNELS, make_input=bert_ids(TRACE_BATCH), config=TRANSFORMER_INT8,
+        size=f"s{SEQ}")
+    for name, t in bert_trace_totals.items():
+        errs[name] = max(errs.get(name, 0), t["max_abs_err"])
+    totals["qbmm_raw"] = bert_trace_totals["qbmm_raw"]
+    merge({}, bert_trace_launches)
+    merge({}, int8_transformer_check(
+        "17f.", f"GPT-2 small b1 s{SEQ}", lambda: gpt2_small(batch_size=1, seq_len=SEQ, seed=SEED),
+        lambda rng: rng.integers(0, 50257, (1, SEQ)).astype(np.int32)))
+    merge({}, int8_transformer_check(
+        "17f.", f"ViT-B/16 b{BATCH} {IMAGE}^2",
+        lambda: vit_b16(batch_size=BATCH, image_size=IMAGE, seed=SEED),
+        lambda rng: rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32)))
+    say(f"\nphase 17 seconds {time.perf_counter() - t17:.1f} (host clock)")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

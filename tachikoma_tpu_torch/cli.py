@@ -16,11 +16,14 @@ Usage: python -m tachikoma_tpu_torch.cli <subcommand> [args]
 `--device cpu` to run the kernels' plain PyTorch versions.  Graph files are
 `.json` or `.tkmod` artifacts (either package's); the zoo is resnet18 /
 resnet34 / resnet50 / mobilenet_v2 and the float transformers bert /
-bert_base / gpt2 / vit_b16 / vit_l16.  A float transformer graph runs
-(`run`, with its attention fused by `ir/transforms.py fuse_attention` when the
-graph was written) but does not quantize yet.  Other zoo models, model file
-formats and the JAX package's other subcommands are not ported yet and exit
-with the ROADMAP item that ports them.
+bert_base / gpt2 / vit_b16 / vit_l16.  A transformer quantizes as in the JAX
+package: `--transformer` takes the integer-attention preset (TRANSFORMER_INT8:
+qnn.softmax, qnn.lut, qnn.layer_norm), without it the default QConfig keeps
+softmax and gelu in float; a fused float graph's tk.attention stays float.
+A float transformer graph also runs (`run`, with its attention fused by
+`ir/transforms.py fuse_attention` when the graph was written).  Other zoo
+models, model file formats and the JAX package's other subcommands are not
+ported yet and exit with the ROADMAP item that ports them.
 
 Tuning: `tune g.json --db h100.jsonl [--budget N]` appends H100 records to
 the database; `run` (and every entry point) then dispatches each kernel call
@@ -40,9 +43,6 @@ import numpy as np
 
 ZOO = ("resnet18", "resnet34", "resnet50", "mobilenet_v2", "vgg16", "vgg19", "bert",
        "bert_base", "gpt2", "vit_b16", "vit_l16")
-# ops of the float transformer graphs that the port's quantizer has no handler for
-_TRANSFORMER_OPS = frozenset({"tk.attention", "nn.batch_matmul", "nn.matmul", "nn.layer_norm",
-                              "nn.gelu"})
 NOT_PORTED = {
     "profile": "runtime/profiler.py, ROADMAP Queue 1 item 8",
     "evaluate": "quantize/evaluate.py and accuracy.py, ROADMAP Queue 1 item 11",
@@ -96,13 +96,6 @@ def _model(args):
     return _zoo(args.model, args.batch, args.image_size)
 
 
-def _refuse_transformer(graph) -> None:
-    ops = sorted({n.op for n in graph.nodes} & _TRANSFORMER_OPS)
-    if ops:
-        raise SystemExit(f"{graph.name}: {ops} do not quantize yet: the quantizer's transformer "
-                         "handlers wait for ROADMAP Queue 1 item 4")
-
-
 def _rand_inputs(graph, seed=0):
     rng = np.random.default_rng(seed)
     out = {}
@@ -124,17 +117,17 @@ def _load_inputs(args, graph):
 
 
 def cmd_quantize(args):
-    from .quantize.config import QConfig
+    from .quantize.config import TRANSFORMER_INT8, QConfig
     from .quantize.quantizer import quantize
 
     g = _model(args)
-    _refuse_transformer(g)
     if args.calib_data:
         data = np.load(args.calib_data)
         batches = [{k: data[k] for k in data.files}] if hasattr(data, "files") else [data]
     else:
         batches = [_rand_inputs(g, seed=i) for i in range(args.calib_batches)]
-    qg = quantize(g, batches, QConfig(calibrate_mode=args.calibrate_mode))
+    cfg = TRANSFORMER_INT8 if args.transformer else QConfig(calibrate_mode=args.calibrate_mode)
+    qg = quantize(g, batches, cfg)
     with open(args.output, "w") as f:
         f.write(qg.to_json())
     print(f"wrote {args.output}: {len(qg)} nodes, hash {qg.structural_hash()[:16]}")
@@ -147,11 +140,11 @@ def cmd_compile(args):
 
     g = _model(args)
     if not any(n.dtype in ("int8", "uint8", "int16") for n in g.nodes if not n.is_var):
-        _refuse_transformer(g)
-        from .quantize.config import QConfig
+        from .quantize.config import TRANSFORMER_INT8, QConfig
         from .quantize.quantizer import quantize
 
-        g = quantize(g, [_rand_inputs(g, seed=i) for i in range(args.calib_batches)], QConfig())
+        cfg = TRANSFORMER_INT8 if args.transformer else QConfig()
+        g = quantize(g, [_rand_inputs(g, seed=i) for i in range(args.calib_batches)], cfg)
     tune_db = os.environ.get("TK_TUNE_DB")
     save_artifact(args.output, g, tune_db_path=tune_db, meta={"source": args.model})
     print(f"wrote {args.output}: {len(g)} nodes, hash {g.structural_hash()[:16]}"
@@ -291,6 +284,8 @@ def main(argv=None):
     q.add_argument("--calib-batches", type=int, default=2)
     q.add_argument("--calibrate-mode", default="max",
                    choices=["max", "minmax", "percentile", "kl"])
+    q.add_argument("--transformer", action="store_true",
+                   help="use the integer-attention preset (TRANSFORMER_INT8)")
     q.set_defaults(fn=cmd_quantize)
 
     c = sub.add_parser("compile", help="quantize + bundle into a .tkmod artifact")
@@ -299,6 +294,8 @@ def main(argv=None):
     c.add_argument("--batch", type=int, default=1)
     c.add_argument("--image-size", type=int, default=None)
     c.add_argument("--calib-batches", type=int, default=2)
+    c.add_argument("--transformer", action="store_true",
+                   help="use the integer-attention preset (TRANSFORMER_INT8)")
     c.set_defaults(fn=cmd_compile)
 
     r = sub.add_parser("run", help="execute a graph")

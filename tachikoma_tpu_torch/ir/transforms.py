@@ -1,17 +1,14 @@
 """Pre-quantization graph cleanups (port of `tachikoma_tpu/ir/transforms.py`).
 
-The port carries four passes of the JAX package's `DEFAULT_SIMPLIFY`, in the
-same order.  The other four are not ported yet: `fuse_pad_into_conv` (nn.pad
-is not registered), `remove_identity` (same-shape reshape / broadcast_to,
-copy, cast), `fold_scale_axis` (multiply by a per-channel constant after or
-before a conv / dense) and `combine_parallel_dense` (sibling denses on one
-input, such as BERT's Q/K/V, into one dense and strided slices).  None fires
-on the int8 CNN graphs (ResNet, MobileNetV2, the trained fixture), so their
-simplified graph equals the JAX package's.  On the transformer graphs
-`combine_parallel_dense` fires in the JAX package, so `simplify` differs
-there; the transformer path runs its float graphs unsimplified, through
-`fuse_attention` alone, and the missing passes come with the quantizer's
-transformer handlers.
+The port carries the eight passes of the JAX package's `DEFAULT_SIMPLIFY`,
+copied, in the same order: fold_constant, simplify_transposes,
+remove_identity, fold_batch_norm, fold_scale_axis, fuse_pad_into_conv,
+combine_parallel_dense, eliminate_common_subexpr.  Node names, their order
+and the folded parameters' bytes come out equal to the JAX package's (the
+trace records and the structural hash depend on them): on BERT,
+`combine_parallel_dense` merges Q/K/V into `<input>__qkv` and three strided
+slices, and `fold_scale_axis` folds the attention's scalar multiplies where
+they follow a dense.
 
 `fuse_attention` is opt-in, as in the JAX package: not part of `simplify`.
 
@@ -24,7 +21,7 @@ import json
 
 import numpy as np
 
-from .graph import CONST, TUPLE, TUPLE_GET_ITEM, VAR, Graph, GraphBuilder
+from .graph import CONST, TUPLE, TUPLE_GET_ITEM, VAR, Graph, GraphBuilder, Node
 from .infer import infer_types
 from .registry import get_op
 
@@ -195,8 +192,252 @@ def simplify_transposes(graph: Graph) -> Graph:
     return g
 
 
-DEFAULT_SIMPLIFY = (fold_constant, simplify_transposes, fold_batch_norm,
-                    eliminate_common_subexpr)
+def fuse_pad_into_conv(graph: Graph) -> Graph:
+    """Merge a zero-constant nn.pad feeding conv2d/pool into the op's own
+    padding attr."""
+    g = infer_types(graph)
+    users = g.users()
+    b = GraphBuilder(g.name)
+    mapping: dict[str, str] = {}
+    absorbed: set[str] = set()
+    for n in g.nodes:
+        if (
+            n.op == "nn.pad"
+            and n.attrs.get("pad_mode", "constant") == "constant"
+            and float(n.attrs.get("pad_value", 0)) == 0.0
+            and len(n.attrs["pad_width"]) == 4
+            and tuple(n.attrs["pad_width"][0]) == (0, 0)
+            and tuple(n.attrs["pad_width"][3]) == (0, 0)
+            and all(g[u].op == "nn.conv2d" for u in users[n.name])
+            and users[n.name]
+        ):
+            absorbed.add(n.name)
+            mapping[n.name] = mapping[n.inputs[0]]
+            continue
+        if n.op == VAR:
+            mapping[n.name] = b.var(n.name, n.shape, n.dtype)
+        elif n.op == CONST:
+            mapping[n.name] = b.const(g.params[n.name], name=n.name)
+        else:
+            attrs = dict(n.attrs)
+            if n.op == "nn.conv2d" and n.inputs[0] in absorbed:
+                pad = g[n.inputs[0]].attrs["pad_width"]
+                (pt, pb), (pl, pr) = pad[1], pad[2]
+                from ..ops.nn import _pad4
+
+                opt, opl, opb, opr = _pad4(attrs.get("padding", (0, 0, 0, 0)))
+                attrs["padding"] = (opt + pt, opl + pl, opb + pb, opr + pr)
+            new_inputs = tuple(mapping[i] for i in n.inputs)
+            mapping[n.name] = b.call(n.op, *new_inputs, name=n.name, **attrs)
+    return b.build([mapping[o] for o in g.outputs])
+
+
+def combine_parallel_dense(graph: Graph) -> Graph:
+    """Merge sibling nn.dense ops sharing the same input into ONE matmul
+    with concatenated weight columns + a split.  BERT's Q/K/V projections become one GEMM; per-channel quantization
+    scales survive the concat unchanged."""
+    g = infer_types(graph)
+    users = g.users()
+    # group dense users of each producer by (weight K dim)
+    groups: dict[str, list[Node]] = {}
+    for n in g.nodes:
+        if (n.op == "nn.dense" and len(n.inputs) == 2
+                and g[n.inputs[1]].is_const
+                and not n.attrs.get("out_dtype")):
+            groups.setdefault(n.inputs[0], []).append(n)
+
+    merge: dict[str, tuple] = {}   # dense node name -> (group key, col slice)
+    merged_groups = {}
+    for src, nodes in groups.items():
+        if len(nodes) < 2:
+            continue
+        # every member's FULL user set must be the dense itself (simple case)
+        ws = [g.params[n.inputs[1]] for n in nodes]
+        if any(w.ndim != 2 for w in ws):
+            continue
+        key = f"{src}__qkv"
+        off = 0
+        slices = []
+        for n, w in zip(nodes, ws):
+            slices.append((off, off + w.shape[1]))
+            off += w.shape[1]
+        merged_groups[key] = (src, nodes, ws, slices)
+        for n, sl in zip(nodes, slices):
+            merge[n.name] = (key, sl)
+
+    if not merged_groups:
+        return g
+
+    b = GraphBuilder(g.name)
+    mapping: dict[str, str] = {}
+    emitted: dict[str, str] = {}
+    for n in g.nodes:
+        if n.op == VAR:
+            mapping[n.name] = b.var(n.name, n.shape, n.dtype)
+        elif n.op == CONST:
+            mapping[n.name] = b.const(g.params[n.name], name=n.name)
+        elif n.name in merge:
+            key, (lo, hi) = merge[n.name]
+            if key not in emitted:
+                src, nodes, ws, slices = merged_groups[key]
+                wcat = np.concatenate(ws, axis=1)
+                wname = b.const(wcat, name=key + "_w")
+                emitted[key] = b.call("nn.dense", mapping[src], wname,
+                                      name=key)
+            ndim = len(n.shape)
+            mapping[n.name] = b.call(
+                "strided_slice", emitted[key],
+                begin=[0] * (ndim - 1) + [lo],
+                end=list(n.shape[:-1]) + [hi],
+                strides=[1] * ndim, name=n.name)
+        else:
+            mapping[n.name] = b.call(
+                n.op, *[mapping[i] for i in n.inputs], name=n.name,
+                **dict(n.attrs))
+    return infer_types(b.build([mapping[o] for o in g.outputs]))
+
+
+def _channel_scale(g: Graph, name: str, channels: int) -> np.ndarray | None:
+    """A const usable as a per-output-channel scale: scalar or (C,) (possibly
+    wrapped in leading 1s, e.g. (1,1,1,C))."""
+    n = g[name]
+    if not n.is_const:
+        return None
+    v = g.params[name]
+    if v.size == 1:
+        return np.full((channels,), v.reshape(()), v.dtype)
+    squeezed = v.reshape(-1) if v.ndim and v.size == v.shape[-1] else None
+    if squeezed is not None and squeezed.shape == (channels,):
+        return squeezed
+    return None
+
+
+def fold_scale_axis(graph: Graph) -> Graph:
+    """Fold per-channel multiplies into adjacent conv2d/dense weights.
+
+    Backward: ``multiply(conv(x, w), s)`` -> ``conv(x, w * s[cout])``
+    Forward:  ``conv(multiply(x, s), w)`` -> ``conv(x, w * s[cin])``
+    (dense analogously on its K/N axes).  Applies when the scale is a const
+    scalar or per-channel vector and the producer has a single consumer.
+    """
+    g = infer_types(graph)
+    users = g.users()
+
+    # ---- backward: multiply-after --------------------------------------
+    fold_after: dict[str, str] = {}  # mul node -> producer conv/dense
+    for n in g.nodes:
+        if n.op != "multiply" or len(n.inputs) != 2:
+            continue
+        for xi, si in ((0, 1), (1, 0)):
+            src = g[n.inputs[xi]]
+            if (src.op in ("nn.conv2d", "nn.dense")
+                    and len(users[src.name]) == 1
+                    and g[src.inputs[1]].is_const
+                    and src.name not in fold_after.values()):
+                cout = src.shape[-1]
+                s = _channel_scale(g, n.inputs[si], cout)
+                if s is not None:
+                    fold_after[n.name] = src.name
+                    break
+
+    # ---- forward: multiply-before --------------------------------------
+    fold_before: dict[str, str] = {}  # conv/dense node -> mul producer
+    for n in g.nodes:
+        if n.op not in ("nn.conv2d", "nn.dense"):
+            continue
+        if n.op == "nn.conv2d" and int(n.attrs.get("groups", 1)) != 1:
+            continue
+        src = g[n.inputs[0]]
+        if (src.op == "multiply" and len(src.inputs) == 2
+                and len(users[src.name]) == 1
+                and g[n.inputs[1]].is_const
+                and src.name not in fold_after):
+            cin = g[src.name].shape[-1]
+            for xi, si in ((0, 1), (1, 0)):
+                s = _channel_scale(g, src.inputs[si], cin)
+                if s is not None and not g[src.inputs[xi]].is_const:
+                    fold_before[n.name] = (src.name, src.inputs[xi], s)
+                    break
+
+    if not fold_after and not fold_before:
+        return graph
+
+    after_by_src = {v: k for k, v in fold_after.items()}
+    skip_muls = set(fold_after) | {v[0] for v in fold_before.values()}
+    b = GraphBuilder(g.name)
+    mapping: dict[str, str] = {}
+    for n in g.nodes:
+        if n.op == VAR:
+            mapping[n.name] = b.var(n.name, n.shape, n.dtype)
+            continue
+        if n.op == CONST:
+            mapping[n.name] = b.const(g.params[n.name], name=n.name)
+            continue
+        if n.name in skip_muls and n.name not in fold_after:
+            # forward-folded multiply: forward its data input
+            xin = next(v[1] for v in fold_before.values() if v[0] == n.name)
+            mapping[n.name] = mapping[xin]
+            continue
+        if n.name in fold_after:
+            mapping[n.name] = mapping[fold_after[n.name]]
+            continue
+        if n.op in ("nn.conv2d", "nn.dense"):
+            w = g.params[n.inputs[1]]
+            wname = n.inputs[1]
+            suffix = ""
+            if n.name in fold_before:
+                _, _, s = fold_before[n.name]
+                # scale the INPUT-channel axis: conv HWIO axis -2, dense K axis 0
+                axis = -2 if n.op == "nn.conv2d" else 0
+                shape = [1] * w.ndim
+                shape[axis] = w.shape[axis]
+                w = (w.astype(np.float64)
+                     * s.astype(np.float64).reshape(shape)).astype(w.dtype)
+                suffix += "_fsf"
+            if n.name in after_by_src:
+                mul = g[after_by_src[n.name]]
+                si = mul.inputs[1] if mul.inputs[0] == n.name else mul.inputs[0]
+                s = _channel_scale(g, si, n.shape[-1])
+                w = (w.astype(np.float64)
+                     * s.astype(np.float64).reshape((1,) * (w.ndim - 1) + (-1,))
+                     ).astype(w.dtype)
+                suffix += "_fsb"
+            new_inputs = [mapping[n.inputs[0]]]
+            if suffix:
+                new_inputs.append(b.const(w, name=wname + suffix))
+            else:
+                new_inputs.append(mapping[n.inputs[1]])
+            new_inputs += [mapping[i] for i in n.inputs[2:]]
+            mapping[n.name] = b.call(n.op, *new_inputs, name=n.name,
+                                     **dict(n.attrs))
+            continue
+        mapping[n.name] = b.call(n.op, *[mapping[i] for i in n.inputs],
+                                 name=n.name, **dict(n.attrs))
+    return b.build([mapping[o] for o in g.outputs]).dead_code_eliminate()
+
+
+def remove_identity(graph: Graph) -> Graph:
+    """Strip no-op nodes: copy, same-dtype cast, same-shape reshape /
+    broadcast_to."""
+    g = infer_types(graph)
+
+    def rewrite(b: GraphBuilder, n: Node, new_inputs):
+        src = g[n.inputs[0]] if n.inputs else None
+        if n.op == "copy":
+            return new_inputs[0]
+        if n.op == "cast" and src is not None and src.dtype == n.dtype:
+            return new_inputs[0]
+        if (n.op in ("reshape", "broadcast_to") and src is not None
+                and tuple(src.shape) == tuple(n.shape)):
+            return new_inputs[0]
+        return None
+
+    return g.transform(rewrite).dead_code_eliminate()
+
+
+DEFAULT_SIMPLIFY = (fold_constant, simplify_transposes, remove_identity,
+                    fold_batch_norm, fold_scale_axis, fuse_pad_into_conv,
+                    combine_parallel_dense, eliminate_common_subexpr)
 
 
 def simplify(graph: Graph) -> Graph:

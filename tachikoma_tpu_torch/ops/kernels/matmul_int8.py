@@ -38,6 +38,15 @@ or by the caller, never as a fallback.
 Zero points: the quantizer always produces wzp = 0; a nonzero input zero point
 folds into the bias (acc(x - izp, w) = x.w - izp * colsum(w), exact in int32
 wraparound arithmetic), so the kernel is a pure int8 GEMM.
+
+K1's batched mode (`qbmm_rq`, `qbmm_raw`; `qbmm_int8` is the entry of
+tk.bmm_rq and qnn.batch_matmul) runs a batch of products (a - za) @ (b - zb)
+on the same `wgmma` body, the batch as the grid's y dimension: the
+attention's scores q . k^T and context softmax . v.  Both operands are
+activations, read in place through their strides (`_bmm_launch`), never
+packed or cached; the kernel folds the zero points (the softmax output's
+-128) from the column and row sums of the tiles it stages.  Neither
+`torch.matmul` nor `torch._int_mm` takes a batched int8 product on CUDA.
 """
 
 from __future__ import annotations
@@ -407,3 +416,205 @@ def qmatmul_int8(x, w, bias=None, multiplier=None, shift=None, out_zp: int = 0,
                           channel_vector(shift, n, dev), rq_izp=rq_input_zero_point,
                           out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax,
                           blocks=blocks)
+
+
+# ---------------------------------------------------------------------------
+# K1's batched mode: qnn.batch_matmul (raw) and tk.bmm_rq (requantized)
+# ---------------------------------------------------------------------------
+
+BMM_MODES = {"kmajor16": 0, "rows16": 1, "bytes": 2}  # csrc igemm_hopper.cuh OpMode
+
+
+def bmm_plan(nb: int, m: int, k: int, n: int, sms: int = 132) -> dict:
+    """The tile of a batched call of nb products (M, K) x (K, N): 128 rows
+    (by 128 columns where N > 64) where those tiles of all the products fill
+    the SMs RQ_WIDE_FILL times over, else 64 x 64 (the attention products of
+    BERT-base b4, 48 of (128, 64, 128) and (128, 128, 64), are 192 tiles of
+    64 x 64).  The batched mode is not split: K is a head dimension or a
+    sequence."""
+    bn = 128 if n > 64 else 64
+    if nb * -(-m // 128) * -(-n // bn) >= RQ_WIDE_FILL * sms:
+        return {"bm": 128, "bn": bn}
+    return {"bm": 64, "bn": 64}
+
+
+def _logical(a: torch.Tensor, b: torch.Tensor, transpose_a: bool, transpose_b: bool):
+    """A as (..., M, K) and B as (..., K, N) views of the operands."""
+    return (a.transpose(-1, -2) if transpose_a else a,
+            b.transpose(-1, -2) if transpose_b else b)
+
+
+def exact_int_bmm(a: torch.Tensor, b: torch.Tensor, lhs_zero_point: int = 0,
+                  rhs_zero_point: int = 0, transpose_a: bool = False,
+                  transpose_b: bool = False) -> torch.Tensor:
+    """(a - lhs_zero_point) @ (b - rhs_zero_point), the operands' last two
+    axes transposed as asked and their leading axes broadcast, -> int32 in
+    wraparound, through float64: every product is at most 255^2, so the
+    sums are exact integers below 2^53 (`exact_int_matmul`'s argument)."""
+    x, y = _logical(a.to(torch.float64) - int(lhs_zero_point),
+                    b.to(torch.float64) - int(rhs_zero_point), transpose_a, transpose_b)
+    if x.shape[-1] >= 1 << 36:
+        raise ValueError("reduction too deep for an exact float64 accumulator")
+    return torch.matmul(x, y).to(torch.int64).to(torch.int32)
+
+
+def qbmm_raw_plain(a, b, *, lhs_zero_point=0, rhs_zero_point=0, transpose_a=False,
+                   transpose_b=False, plan=None) -> torch.Tensor:
+    """Plain PyTorch version of K1's batched mode, raw (`plan` is the
+    kernel's launch: no effect)."""
+    return exact_int_bmm(a, b, lhs_zero_point, rhs_zero_point, transpose_a, transpose_b)
+
+
+def qbmm_rq_plain(a, b, bias, mult, shift, *, lhs_zero_point=0, rhs_zero_point=0,
+                  transpose_a=False, transpose_b=False, rq_izp=0, out_zp=0, rounding="UPWARD",
+                  qmin=-128, qmax=127, plan=None) -> torch.Tensor:
+    """Plain PyTorch version of K1's batched mode, requantizing."""
+    acc = exact_int_bmm(a, b, lhs_zero_point, rhs_zero_point, transpose_a, transpose_b)
+    return epilogue_plain(acc, bias, mult, shift, rq_izp, out_zp, rounding, qmin, qmax)
+
+
+def _merge_batch(batch, sa, sb):
+    """The batch axes of two operands as two (size, a stride, b stride)
+    triples, adjacent axes merged where both operands' strides allow it;
+    None where more than two remain."""
+    merged = []
+    for n, x, y in zip(batch, sa, sb):
+        if n == 1:
+            continue
+        if merged and merged[-1][1] == x * n and merged[-1][2] == y * n:
+            merged[-1] = (merged[-1][0] * n, x, y)
+        else:
+            merged.append((n, x, y))
+    if len(merged) > 2:
+        return None
+    return [(1, 0, 0)] * (2 - len(merged)) + merged
+
+
+def _stage_mode(t: torch.Tensor, sr: int, sk: int, rows: int, k: int, sbs) -> int:
+    """How the kernel stages an operand whose element (r, k) sits at r sr + k
+    sk (BMM_MODES): 16-byte copies where k is contiguous, 16 rows of one k a
+    load where the rows are, else a byte a load."""
+    aligned = t.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in sbs)
+    if aligned and sk == 1 and k % 16 == 0 and sr % 16 == 0:
+        return BMM_MODES["kmajor16"]
+    if aligned and sr == 1 and rows % 16 == 0 and sk % 16 == 0:
+        return BMM_MODES["rows16"]
+    return BMM_MODES["bytes"]
+
+
+def _bmm_launch(name: str, a: torch.Tensor, b: torch.Tensor, lhs_zero_point: int,
+                rhs_zero_point: int, transpose_a: bool, transpose_b: bool, plan):
+    """The operands and parameters of a batched launch: the batch axes
+    broadcast and merged (the operands copied as they are laid out where
+    more than two would remain), each operand's strides and staging mode,
+    the zero points (the kernel folds them: -za colsum(B) - zb rowsum(A) + K
+    za zb, its sums taken from the staged tiles).  Returns (output shape, A,
+    B, parameters)."""
+    for key, t in (("a", a), ("b", b)):
+        if t.dtype != torch.int8:
+            raise NotImplementedError(f"{name}: {key} is {t.dtype}; the kernel takes int8 x int8")
+        if t.device != a.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected {a.device}")
+    A, B = _logical(a, b, transpose_a, transpose_b)
+    m, k = A.shape[-2:]
+    if B.shape[-2] != k:
+        raise ValueError(f"{name}: K mismatch {tuple(A.shape)} x {tuple(B.shape)}")
+    n = B.shape[-1]
+    batch = tuple(torch.broadcast_shapes(A.shape[:-2], B.shape[:-2]))
+    A, B = A.expand(batch + (m, k)), B.expand(batch + (k, n))
+    dims = _merge_batch(batch, A.stride()[:-2], B.stride()[:-2])
+    if dims is None:  # the operands copied as they are laid out, broadcast
+        A, B = _logical(a.expand(batch + tuple(a.shape[-2:])).contiguous(),
+                        b.expand(batch + tuple(b.shape[-2:])).contiguous(),
+                        transpose_a, transpose_b)
+        dims = _merge_batch(batch, A.stride()[:-2], B.stride()[:-2])
+    (n0, a0, b0), (n1, a1, b1) = dims
+    nb = n0 * n1
+    if nb > 65535:
+        raise ValueError(f"{name}: {nb} products, the kernel takes at most 65535")
+    a_sm, a_sk = A.stride()[-2:]
+    b_sk, b_sn = B.stride()[-2:]
+    strides = dict(a_sb0=a0, a_sb1=a1, a_sm=a_sm, a_sk=a_sk, b_sb0=b0, b_sb1=b1, b_sn=b_sn,
+                   b_sk=b_sk)
+    if any(abs(v) >= 1 << 31 for v in strides.values()):
+        raise ValueError(f"{name}: strides {strides} do not fit the kernel's int32 parameters")
+    if plan is None:
+        plan = bmm_plan(nb, m, k, n, sm_count(a.device.index))
+    params = dict(n=m, h=1, w=1, cin=k, kh=1, kw=1, cout=n, oh=1, ow=1, sh=1, sw=1,
+                  bm=plan["bm"], bn=plan["bn"], ks=1, kper=-(-k // KSTEP), bmm_nb=nb,
+                  bmm_nb1=n1, a_mode=_stage_mode(A, a_sm, a_sk, m, k, (a0, a1)),
+                  b_mode=_stage_mode(B, b_sn, b_sk, n, k, (b0, b1)),
+                  bmm_za=int(lhs_zero_point), bmm_zb=int(rhs_zero_point), **strides)
+    return batch + (m, n), A, B, params
+
+
+def qbmm_rq(a: torch.Tensor, b: torch.Tensor, bias, mult: torch.Tensor, shift: torch.Tensor, *,
+            lhs_zero_point: int = 0, rhs_zero_point: int = 0, transpose_a: bool = False,
+            transpose_b: bool = False, rq_izp: int = 0, out_zp: int = 0,
+            rounding: str = "UPWARD", qmin: int = -128, qmax: int = 127,
+            plan: dict | None = None) -> torch.Tensor:
+    """K1's batched mode: clip(q_multiply_shift((a - za) @ (b - zb) + bias -
+    rq_izp, mult, shift) + out_zp, qmin, qmax) -> int8 (batch..., M, N), the
+    products batched over the broadcast leading axes, each operand read in
+    place through its strides (a head-split view, `v` N-major), the zero
+    points folded in the kernel.  bias None or int32 (N,), mult / shift
+    int32 (N,); `plan` ({"bm", "bn"}) forces a tile, else `bmm_plan`'s."""
+    kw = dict(lhs_zero_point=lhs_zero_point, rhs_zero_point=rhs_zero_point,
+              transpose_a=transpose_a, transpose_b=transpose_b, rq_izp=rq_izp, out_zp=out_zp,
+              rounding=rounding, qmin=qmin, qmax=qmax)
+    if a.device.type == "cpu":
+        return qbmm_rq_plain(a, b, bias, mult, shift, **kw)
+    if a.device.type != "cuda":
+        raise ValueError(f"qbmm_rq: no kernel for device {a.device}")
+    shape, A, B, params = _bmm_launch("qbmm_rq", a, b, lhs_zero_point, rhs_zero_point,
+                                      transpose_a, transpose_b, plan)
+    n = shape[-1]
+    bias = channel_vector(0, n, a.device) if bias is None else bias
+    check_cuda_operands("qbmm_rq", a.device, bias=(bias, torch.int32, (n,)),
+                        mult=(mult, torch.int32, (n,)), shift=(shift, torch.int32, (n,)))
+    out = torch.empty(shape, dtype=torch.int8, device=a.device)
+    launch("tk_qbmm_rq", [A, B, out, bias, mult, shift], params | dict(
+        rq_izp=rq_izp, out_zp=out_zp, qmin=qmin, qmax=qmax, tonearest=_TONEAREST[rounding]))
+    LAUNCHES["qbmm_rq"] += 1
+    return out
+
+
+def qbmm_raw(a: torch.Tensor, b: torch.Tensor, *, lhs_zero_point: int = 0,
+             rhs_zero_point: int = 0, transpose_a: bool = False, transpose_b: bool = False,
+             plan: dict | None = None) -> torch.Tensor:
+    """K1's batched mode in the RAW epilogue: (a - za) @ (b - zb) -> int32
+    (batch..., M, N) in wraparound (the unfused qnn.batch_matmul of the
+    trace path); operands and `plan` as `qbmm_rq`'s."""
+    kw = dict(lhs_zero_point=lhs_zero_point, rhs_zero_point=rhs_zero_point,
+              transpose_a=transpose_a, transpose_b=transpose_b)
+    if a.device.type == "cpu":
+        return qbmm_raw_plain(a, b, **kw)
+    if a.device.type != "cuda":
+        raise ValueError(f"qbmm_raw: no kernel for device {a.device}")
+    shape, A, B, params = _bmm_launch("qbmm_raw", a, b, lhs_zero_point, rhs_zero_point,
+                                      transpose_a, transpose_b, plan)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    launch("tk_qbmm_raw", [A, B, out, channel_vector(0, shape[-1], a.device)], params)
+    LAUNCHES["qbmm_raw"] += 1
+    return out
+
+
+def qbmm_int8(a, b, bias=None, multiplier=None, shift=None, *, lhs_zero_point: int = 0,
+              rhs_zero_point: int = 0, transpose_a: bool = False, transpose_b: bool = False,
+              out_zp: int = 0, rounding: str = "UPWARD", qmin: int = -128, qmax: int = 127,
+              rq_input_zero_point: int = 0) -> torch.Tensor:
+    """The entry of tk.bmm_rq and qnn.batch_matmul: (a - za) @ (b - zb), the
+    leading axes broadcast, requantized to int8 with `multiplier` / `shift`
+    (scalars or per-column (N,) lists; `bias` int32 (N,) or None) by
+    `qbmm_rq`, or without a multiplier the int32 accumulator by `qbmm_raw`."""
+    kw = dict(lhs_zero_point=lhs_zero_point, rhs_zero_point=rhs_zero_point,
+              transpose_a=transpose_a, transpose_b=transpose_b)
+    if multiplier is None:
+        if bias is not None:
+            raise NotImplementedError("qbmm_int8: a bias without a requantize is not ported")
+        return qbmm_raw(a, b, **kw)
+    n = b.shape[-2] if transpose_b else b.shape[-1]
+    return qbmm_rq(a, b, None if bias is None else as_int32_vector(bias, n, a.device),
+                   channel_vector(multiplier, n, a.device), channel_vector(shift, n, a.device),
+                   rq_izp=rq_input_zero_point, out_zp=out_zp, rounding=rounding, qmin=qmin,
+                   qmax=qmax, **kw)

@@ -595,10 +595,11 @@ def _broadcast_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
     return broadcast_shapes(a, b), dt.promote(adt, bdt)
 
 
-# the two elementwise binaries of the JAX package's _BINOPS table that the
-# port's graphs hold; numpy's and torch's integer add/multiply both wrap
+# the elementwise binaries of the JAX package's _BINOPS table that the
+# port's graphs hold; numpy's and torch's integer add/subtract/multiply wrap
 _BINOPS = {
     "add": (np.add, torch.add),
+    "subtract": (np.subtract, torch.sub),
     "multiply": (np.multiply, torch.mul),
 }
 
@@ -801,6 +802,45 @@ def _take_torch(a: torch.Tensor, indices: torch.Tensor, *, node: Node) -> torch.
         idx = idx.remainder(n)
     out = src.index_select(ax, idx.reshape(-1))
     return out.reshape(src.shape[:ax] + indices.shape + src.shape[ax + 1:])
+
+
+@infer_rule("nn.pad")
+def _pad_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    pw = node.attrs["pad_width"]
+    return tuple(int(s + b + e) for s, (b, e) in zip(a, pw)), adt
+
+
+@np_impl("nn.pad")
+def _pad_np(a, *, node: Node):
+    pw = [(int(b), int(e)) for b, e in node.attrs["pad_width"]]
+    mode = node.attrs.get("pad_mode", "constant")
+    if mode == "constant":
+        val = node.attrs.get("pad_value", 0)
+        if dt.is_int(str(a.dtype)):
+            val = int(val)
+        return np.pad(a, pw, constant_values=val)
+    return np.pad(a, pw, mode={"edge": "edge", "reflect": "reflect"}[mode])
+
+
+@torch_impl("nn.pad")
+def _pad_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """A constant pad through torch's (widths last axis first, the value cast
+    as the oracle casts it); "edge" and "reflect" gather each padded axis at
+    the indices numpy's pad of an arange gives."""
+    pw = [(int(b), int(e)) for b, e in node.attrs["pad_width"]]
+    mode = node.attrs.get("pad_mode", "constant")
+    if mode == "constant":
+        val = node.attrs.get("pad_value", 0)
+        val = int(val) if not a.dtype.is_floating_point else float(np.float32(val))
+        flat = [v for b, e in reversed(pw) for v in (b, e)]
+        return torch.nn.functional.pad(a, flat, mode="constant", value=val)
+    np_mode = {"edge": "edge", "reflect": "reflect"}[mode]
+    for ax, (b, e) in enumerate(pw):
+        if b or e:
+            idx = np.pad(np.arange(a.shape[ax]), (b, e), mode=np_mode)
+            a = a.index_select(ax, torch.as_tensor(idx, device=a.device))
+    return a
 
 
 @infer_rule("broadcast_to")

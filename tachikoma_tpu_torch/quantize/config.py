@@ -1,9 +1,9 @@
 """Quantization configuration (port of `tachikoma_tpu/quantize/config.py`).
 
 The same QConfig fields as the JAX package, so a configuration carries over;
-the port's quantizer honours the int8 ResNet subset of them (see
-quantizer.py), and its calibration runs the numpy oracle only.  The JAX
-package's presets for transformers and W8A16 are not ported yet."""
+its calibration runs the numpy oracle only.  Of the JAX package's presets the
+port has TRANSFORMER_INT8; TRANSFORMER_INT8_SCAN (for the segmented executor)
+and W8A16 (the int64 wide path) wait for ROADMAP Queue 1 steps 4 and 5."""
 
 from __future__ import annotations
 
@@ -50,3 +50,11 @@ class QConfig:
     # part share ONE pooled quantization scale, so structurally identical
     # layers get IDENTICAL integer attrs.
     scale_group: str | None = None
+
+
+# Preset for the BERT/ViT integer-attention trace path.
+TRANSFORMER_INT8 = QConfig(
+    integer_softmax=True,
+    lut_ops=frozenset({"nn.gelu", "tanh", "sigmoid", "nn.silu", "erf"}),
+    float_ops=frozenset({"nn.log_softmax"}),
+)

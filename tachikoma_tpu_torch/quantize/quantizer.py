@@ -1,11 +1,12 @@
 """Quantizer — rewrite a calibrated float graph into an integer-only graph
 (port of `tachikoma_tpu/quantize/quantizer.py`).
 
-The port carries the handlers of the ops it registers (conv2d, dense,
-bias_add, relu, clip, add, global_avg_pool2d, adaptive_avg_pool2d, and the
-passthrough ops max_pool2d, transpose, batch_flatten), copied, so on such
-graphs its output equals the JAX package's byte for byte; the handlers of the
-transformer and other op sets are not ported yet.
+The port carries the JAX package's handlers, copied, so its output equals the
+JAX package's byte for byte: conv2d, dense, batch_matmul, bias_add, relu,
+clip, add, subtract, multiply, concatenate, global_avg_pool2d,
+adaptive_avg_pool2d, pad, the integer softmax, the LUT ops, layer_norm and
+the passthrough ops it registers.  nn.avg_pool2d (qnn.avg_pool2d) is not
+ported: a graph that reaches it raises (ROADMAP Queue 1 item 9.4).
 
 Strategy: one topological walk.  Each original node maps to a QVal — a value
 in the new graph tagged with its numeric representation:
@@ -245,19 +246,68 @@ class Quantizer:
         else:
             self._float_fallback(n)
 
-    def _add(self, n: Node):
-        # qnn.add with calibrated output qparams
+    def _batch_matmul(self, n: Node):
+        a = self.to_quant(n.inputs[0])
+        bqv = self.to_quant(n.inputs[1])
+        out = self.b.call(
+            "qnn.batch_matmul", a.name, bqv.name,
+            lhs_zero_point=a.zp, rhs_zero_point=bqv.zp,
+            out_dtype=self.cfg.accum_dtype, name=n.name,
+            **{k: v for k, v in n.attrs.items() if k in ("transpose_a", "transpose_b")},
+        )
+        accum_scale = float(a.scale) * float(bqv.scale)
+        self.env[n.name] = QVal("accum", out, accum_scale, 0, self.cfg.accum_dtype)
+
+    def _scalar_const(self, name: str) -> float | None:
+        nd = self.g[name] if name in self.g else None
+        if nd is not None and nd.is_const and self.g.params[name].size == 1:
+            return float(self.g.params[name].reshape(()))
+        return None
+
+    def _binary(self, n: Node, qop: str):
+        # scale folding: multiplying a quantized tensor by a positive scalar
+        # constant only rescales its quantization scale — zero runtime ops
+        if qop == "qnn.mul":
+            for ti, ci in ((0, 1), (1, 0)):
+                cval = self._scalar_const(n.inputs[ci])
+                src = self.env[n.inputs[ti]]
+                if cval is not None and cval > 0 and src.kind in ("quant", "accum"):
+                    self.env[n.name] = QVal(
+                        src.kind, src.name,
+                        np.asarray(src.scale) * cval if np.ndim(src.scale) else float(src.scale) * cval,
+                        src.zp, src.dtype, src.axis,
+                    )
+                    return
+        # qnn.add / qnn.subtract / qnn.mul with calibrated output qparams
         a = self.to_quant(n.inputs[0])
         c = self.to_quant(n.inputs[1])
         oscale, ozp = self.act_qparams(n.name)
         out = self.b.call(
-            "qnn.add", a.name, c.name,
+            qop, a.name, c.name,
             lhs_scale=float(a.scale), lhs_zero_point=a.zp,
             rhs_scale=float(c.scale), rhs_zero_point=c.zp,
             output_scale=oscale, output_zero_point=ozp,
             rounding=self.cfg.rounding, out_dtype=self.cfg.act_dtype, name=n.name,
         )
         self.env[n.name] = QVal("quant", out, oscale, ozp, self.cfg.act_dtype)
+
+    def _concat(self, n: Node):
+        vals = [self.to_quant(i) for i in n.inputs]
+        oscale, ozp = self.act_qparams(n.name)
+        out = self.b.call(
+            "qnn.concatenate", *[v.name for v in vals],
+            input_scales=[float(v.scale) for v in vals],
+            input_zero_points=[v.zp for v in vals],
+            output_scale=oscale, output_zero_point=ozp,
+            rounding=self.cfg.rounding, out_dtype=self.cfg.act_dtype,
+            axis=int(n.attrs.get("axis", 0)), name=n.name,
+        )
+        self.env[n.name] = QVal("quant", out, oscale, ozp, self.cfg.act_dtype)
+
+    def _avg_pool(self, n: Node):
+        raise NotImplementedError(
+            f"{n.name} (nn.avg_pool2d): qnn.avg_pool2d is not ported yet (ROADMAP Queue 1 "
+            "item 9.4)")
 
     def _global_avg_pool(self, n: Node):
         # the integer mean rounds identically in the raw quantized domain
@@ -285,12 +335,104 @@ class Quantizer:
         if src.kind == "float":
             self._float_fallback(n)
             return
+        if src.kind == "accum" and n.op == "strided_slice":
+            # a LAST-axis slice maps 1:1 onto the per-channel scale vector:
+            # keep the accumulator domain (merged-QKV splits stay exact)
+            shape = self.g[n.inputs[0]].shape
+            begin = list(n.attrs.get("begin", []))
+            end = list(n.attrs.get("end", []))
+            strides = list(n.attrs.get("strides", [1] * len(begin)))
+            if (shape is not None and len(begin) == len(shape)
+                    and all(int(st) == 1 for st in strides)
+                    and all(int(b) == 0 and int(e) >= shape[i]
+                            for i, (b, e) in enumerate(zip(begin[:-1], end[:-1])))):
+                lo, hi = int(begin[-1]), int(end[-1])
+                sc = src.scale
+                if isinstance(sc, np.ndarray) and sc.ndim > 0:
+                    sc = sc[lo:hi]
+                out = self.b.call(n.op, src.name, name=n.name, **dict(n.attrs))
+                self.env[n.name] = QVal("accum", out, sc, src.zp, src.dtype,
+                                        src.axis)
+                return
         if src.kind == "accum":
             # per-channel accum scales don't survive axis-moving ops;
             # requantize to int8 first (scalar scale) to stay safe
             src = self.to_quant(n.inputs[0])
         out = self.b.call(n.op, src.name, name=n.name, **dict(n.attrs))
         self.env[n.name] = QVal(src.kind, out, src.scale, src.zp, src.dtype, src.axis)
+
+    def _pad(self, n: Node):
+        src = self.env[n.inputs[0]]
+        if src.kind == "quant" and float(n.attrs.get("pad_value", 0)) == 0.0:
+            attrs = dict(n.attrs)
+            attrs["pad_value"] = src.zp
+            out = self.b.call("nn.pad", src.name, name=n.name, **attrs)
+            self.env[n.name] = QVal("quant", out, src.scale, src.zp, src.dtype)
+        else:
+            self._float_fallback(n)
+
+    def _softmax(self, n: Node):
+        src = self.env[n.inputs[0]]
+        if not self.cfg.integer_softmax or src.kind == "float":
+            self._float_fallback(n)
+            return
+        from ..ops.qnn import SOFTMAX_OUT_SCALE, SOFTMAX_OUT_ZP
+
+        src = self.to_quant(n.inputs[0])
+        out = self.b.call(
+            "qnn.softmax", src.name,
+            input_scale=float(src.scale), axis=int(n.attrs.get("axis", -1)),
+            out_dtype=self.cfg.act_dtype, name=n.name,
+        )
+        self.env[n.name] = QVal("quant", out, SOFTMAX_OUT_SCALE, SOFTMAX_OUT_ZP, self.cfg.act_dtype)
+
+    def _lut_unary(self, n: Node):
+        src = self.env[n.inputs[0]]
+        if src.kind == "float":
+            self._float_fallback(n)
+            return
+        from ..ir.registry import get_op
+        from ..ops.qnn import build_lut
+
+        src = self.to_quant(n.inputs[0])
+        oscale, ozp = self.act_qparams(n.name)
+        np_fn = get_op(n.op).np_impl
+
+        def f(x):
+            return np_fn(x, node=n)
+
+        table = build_lut(f, float(src.scale), src.zp, oscale, ozp)
+        out = self.b.call(
+            "qnn.lut", src.name, table=[int(v) for v in table],
+            out_dtype=self.cfg.act_dtype, name=n.name,
+        )
+        self.env[n.name] = QVal("quant", out, oscale, ozp, self.cfg.act_dtype)
+
+    def _layer_norm(self, n: Node):
+        """nn.layer_norm -> qnn.layer_norm with pinned integer semantics
+        (ops/qnn.py).  Falls back when gamma/beta aren't constants or the
+        axis isn't the last dimension."""
+        src = self.env[n.inputs[0]]
+        axis = int(n.attrs.get("axis", -1))
+        shape = self.g[n.inputs[0]].shape
+        if (src.kind == "float"
+                or shape is None
+                or axis not in (-1, len(shape) - 1)
+                or n.inputs[1] not in self.g.params
+                or n.inputs[2] not in self.g.params):
+            self._float_fallback(n)
+            return
+        from ..ops.qnn import plan_layer_norm
+
+        src = self.to_quant(n.inputs[0])
+        gamma = self.g.params[n.inputs[1]]
+        beta = self.g.params[n.inputs[2]]
+        oscale, ozp = self.act_qparams(n.name)
+        attrs = plan_layer_norm(gamma, beta, float(src.scale), src.zp,
+                                oscale, ozp, int(shape[-1]))
+        attrs["out_dtype"] = self.cfg.act_dtype
+        out = self.b.call("qnn.layer_norm", src.name, name=n.name, **attrs)
+        self.env[n.name] = QVal("quant", out, oscale, ozp, self.cfg.act_dtype)
 
     def _float_fallback(self, n: Node):
         ins = [self.to_float(i).name for i in n.inputs]
@@ -301,19 +443,28 @@ class Quantizer:
 
     def _make_handlers(self) -> dict:
         cfg = self.cfg
-        if cfg.integer_softmax or cfg.lut_ops:
-            raise NotImplementedError(
-                "integer softmax and LUT ops (qnn.softmax, qnn.lut) are not ported yet")
         handlers: dict[str, Callable[[Node], None]] = {
             "nn.conv2d": self._conv_dense,
             "nn.dense": self._conv_dense,
+            "nn.batch_matmul": self._batch_matmul,
             "nn.bias_add": self._bias_add,
             "nn.relu": self._relu,
             "clip": self._clip,
-            "add": self._add,
+            "add": lambda n: self._binary(n, "qnn.add"),
+            "subtract": lambda n: self._binary(n, "qnn.subtract"),
+            "multiply": lambda n: self._binary(n, "qnn.mul"),
+            "concatenate": self._concat,
+            "nn.avg_pool2d": self._avg_pool,
             "nn.global_avg_pool2d": self._global_avg_pool,
             "nn.adaptive_avg_pool2d": self._adaptive_avg_pool,
+            "nn.pad": self._pad,
         }
+        if cfg.integer_softmax:
+            handlers["nn.softmax"] = self._softmax
+        if getattr(cfg, "integer_layer_norm", False):
+            handlers["nn.layer_norm"] = self._layer_norm
+        for op in cfg.lut_ops:
+            handlers[op] = self._lut_unary
         for op in _PASSTHROUGH - set(handlers):
             if has_op(op):
                 handlers[op] = self._passthrough

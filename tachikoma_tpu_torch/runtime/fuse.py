@@ -6,6 +6,7 @@ memory:
 
   qnn.conv2d -> [nn.bias_add(const)] -> [clip] -> qnn.requantize -> [clip]  => tk.conv2d_rq
   qnn.dense  -> [nn.bias_add(const)] -> [clip] -> qnn.requantize -> [clip]  => tk.dense_rq
+  qnn.batch_matmul -> [nn.bias_add(const)] -> [clip] -> qnn.requantize -> [clip]  => tk.bmm_rq
   runs of stride-1 tk.conv2d_rq with a spatial kernel                    => tk.conv2d_chain
   tk.conv2d_chain -> qnn.add -> [clip]                                   => chain with res_add
   runs of identity-residual chains                                       => tk.conv2d_block_stack
@@ -18,7 +19,8 @@ fuses every run that contains a spatial kernel.
 multiplier/shift are precomputed at fusion time (integers in attrs), so the
 fused ops are float-free.  Each fused op has the JAX package's numpy oracle
 and a torch implementation that runs the port's kernels: K1 (1x1 convs, the
-dense), K2 (other convs) and K3 (the last stage of each residual block).
+dense; its batched mode the attention products of tk.bmm_rq), K2 (other
+convs) and K3 (the last stage of each residual block).
 """
 
 from __future__ import annotations
@@ -27,14 +29,15 @@ import numpy as np
 
 from ..ir.graph import Graph, GraphBuilder, Node
 from ..ir.infer import infer_types
-from ..ir.registry import get_op, infer_rule, np_impl, torch_impl
+from ..ir.registry import get_op, infer_rule, np_impl, register_op, torch_impl
 from ..ops import nn as _nn
 from ..ops.fixed_point import q_multiply_shift_np, q_multiply_shift_per_axis_np, requantize_np
 from ..ops.kernels.conv import qconv2d_flat, qconv2d_flat_block_stack, qconv2d_flat_chain
-from ..ops.kernels.matmul_int8 import qmatmul_int8
+from ..ops.kernels.matmul_int8 import qbmm_int8, qmatmul_int8
 from ..ops.kernels.requantize import plan_requantize
 
-_FUSABLE_HEAD = {"qnn.conv2d": "tk.conv2d_rq", "qnn.dense": "tk.dense_rq"}
+_FUSABLE_HEAD = {"qnn.conv2d": "tk.conv2d_rq", "qnn.dense": "tk.dense_rq",
+                 "qnn.batch_matmul": "tk.bmm_rq"}
 
 
 def _needs_types(graph: Graph) -> bool:
@@ -286,7 +289,9 @@ def _split_bias(node: Node, args):
 def _head_shadow(node: Node) -> Node:
     keep = {k: v for k, v in node.attrs.items()
             if k in ("strides", "padding", "dilation", "groups",
-                     "input_zero_point", "kernel_zero_point")}
+                     "input_zero_point", "kernel_zero_point",
+                     "lhs_zero_point", "rhs_zero_point",
+                     "transpose_a", "transpose_b")}
     keep["out_dtype"] = "int32"
     return node.with_(attrs=keep)
 
@@ -348,6 +353,42 @@ def _dense_rq_torch(*args, node: Node):
     out = qmatmul_int8(data.reshape(-1, data.shape[-1]), weight, bias,
                        **_kernel_args(dict(node.attrs)))
     return out.reshape(*data.shape[:-1], out.shape[-1])
+
+
+@infer_rule("tk.bmm_rq")
+def _bmm_rq_rel(node, ins):
+    shape, _ = _nn._bmm_rel(node, ins[:2])
+    return shape, node.attrs.get("out_dtype", "int8")
+
+
+@np_impl("tk.bmm_rq")
+def _bmm_rq_np(*args, node: Node):
+    (a, c), bias = _split_bias(node, args)
+    acc = get_op("qnn.batch_matmul").np_impl(a, c, node=_head_shadow(node))
+    return _fused_epilogue_np(acc, node, bias)
+
+
+@torch_impl("tk.bmm_rq")
+def _bmm_rq_torch(*args, node: Node):
+    """K1's batched mode (`qbmm_rq`), the operands read in place."""
+    (a, c), bias = _split_bias(node, args)
+    at = dict(node.attrs)
+    if at.get("out_dtype", "int8") != "int8":
+        raise NotImplementedError(f"{node.name} (tk.bmm_rq): out_dtype {at['out_dtype']} is "
+                                  "not ported yet")
+    lo, hi = _bounds(at)
+    return qbmm_int8(a, c, bias, at["multiplier"], at["shift"],
+                     lhs_zero_point=int(at.get("lhs_zero_point", 0)),
+                     rhs_zero_point=int(at.get("rhs_zero_point", 0)),
+                     transpose_a=bool(at.get("transpose_a", False)),
+                     transpose_b=bool(at.get("transpose_b", False)),
+                     rq_input_zero_point=int(at.get("rq_input_zero_point", 0)),
+                     out_zp=int(at.get("output_zero_point", 0)),
+                     rounding=at.get("rounding", "UPWARD"), qmin=lo, qmax=hi)
+
+
+# the flops rule reuses the head op's count
+register_op("tk.bmm_rq", flops=_nn._bmm_flops)
 
 
 # ---------------------------------------------------------------------------

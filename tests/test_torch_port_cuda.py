@@ -1402,3 +1402,145 @@ def test_graph_tune_vgg_on_card(cuda, vgg11_32):
     db = TuneDatabase()
     res = tune_graph(q, measure, db=db, verbose=False)
     assert res.trials == 4 and len(db) == 4
+
+
+# ---------------------------------------------------------------------------
+# K1's batched mode (qbmm_rq, qbmm_raw): tk.bmm_rq and qnn.batch_matmul
+# ---------------------------------------------------------------------------
+
+def _heads(rng, b, s, h, d, device):
+    """A head-split (B, H, S, D) view of a (B, S, H, D) int8 tensor."""
+    return _dev(rng, (b, s, h, d), device).permute(0, 2, 1, 3)
+
+
+def _bmm_case(rng, device, case):
+    """(a, b, keyword arguments) of the attention products: scores q . k^T of
+    head-split views, context softmax . v with the softmax's zero point."""
+    kind, b, s, h, d = case
+    if kind == "scores":
+        return (_heads(rng, b, s, h, d, device), _heads(rng, b, s, h, d, device),
+                dict(transpose_b=True))
+    return (_dev(rng, (b, h, s, s), device), _heads(rng, b, s, h, d, device),
+            dict(lhs_zero_point=-128))
+
+
+BMM_CASES = [("scores", 4, 128, 12, 64), ("context", 4, 128, 12, 64),   # BERT-base b4 s128
+             ("scores", 2, 197, 12, 64), ("context", 2, 197, 12, 64),   # ViT-B/16's S
+             ("scores", 2, 40, 3, 40), ("context", 2, 40, 3, 40),       # ragged D
+             ("scores", 1, 33, 2, 72), ("context", 1, 33, 2, 72)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BMM_CASES, ids=["-".join(map(str, c)) for c in BMM_CASES])
+@pytest.mark.parametrize("tile", [None, (64, 64), (128, 128)])
+def test_k1_qbmm_on_card(rng, cuda, case, tile):
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qbmm_raw, qbmm_raw_plain, qbmm_rq,
+                                                             qbmm_rq_plain)
+
+    a, b, kw = _bmm_case(rng, cuda, case)
+    plan = None if tile is None else {"bm": tile[0], "bn": tile[1]}
+    n = b.shape[-2] if kw.get("transpose_b") else b.shape[-1]
+    mult, shift = plan_requantize(0.002, 1.0)
+    m_t, s_t = channel_vector(mult, n, cuda), channel_vector(shift, n, cuda)
+    before = _lib.LAUNCHES["qbmm_raw"], _lib.LAUNCHES["qbmm_rq"]
+    raw = qbmm_raw(a, b, plan=plan, **kw)
+    assert torch.equal(raw.cpu(), qbmm_raw_plain(a.cpu(), b.cpu(), **kw))
+    rq = qbmm_rq(a, b, None, m_t, s_t, out_zp=-3, qmin=-120, plan=plan, **kw)
+    want = qbmm_rq_plain(a.cpu(), b.cpu(), None, m_t.cpu(), s_t.cpu(), out_zp=-3, qmin=-120, **kw)
+    assert torch.equal(rq.cpu(), want)
+    assert (_lib.LAUNCHES["qbmm_raw"], _lib.LAUNCHES["qbmm_rq"]) == (before[0] + 1,
+                                                                     before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("za,zb,ta,tb", [(0, 5, False, False), (-128, -7, False, True),
+                                         (11, 3, True, True), (-128, 0, True, False)])
+def test_k1_qbmm_zero_points_and_transposes_on_card(rng, cuda, za, zb, ta, tb):
+    """Both zero points folded (the column and row terms), both transposes
+    (A or B read rows-contiguous or a byte a load), broadcast batch axes and
+    a bias."""
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qbmm_raw, qbmm_raw_plain, qbmm_rq,
+                                                             qbmm_rq_plain)
+
+    m, k, n = 48, 80, 64
+    a = _dev(rng, (2, 1) + ((k, m) if ta else (m, k)), cuda)
+    b = _dev(rng, (1, 3) + ((n, k) if tb else (k, n)), cuda)
+    kw = dict(lhs_zero_point=za, rhs_zero_point=zb, transpose_a=ta, transpose_b=tb)
+    assert torch.equal(qbmm_raw(a, b, **kw).cpu(), qbmm_raw_plain(a.cpu(), b.cpu(), **kw))
+    bias = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)).to(cuda)
+    mult, shift = plan_requantize(0.0004 * (0.5 + rng.random(n)), 1.0)
+    m_t, s_t = channel_vector(mult, n, cuda), channel_vector(shift, n, cuda)
+    got = qbmm_rq(a, b, bias, m_t, s_t, rounding="TONEAREST", **kw)
+    want = qbmm_rq_plain(a.cpu(), b.cpu(), bias.cpu(), m_t.cpu(), s_t.cpu(),
+                         rounding="TONEAREST", **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_k1_qbmm_reads_each_calls_rhs(rng, cuda):
+    """Two calls at one shape with different rhs values each give their own
+    answer: the batched mode packs nothing."""
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import qbmm_raw, qbmm_raw_plain
+
+    for kind in ("scores", "context"):
+        a, b1, kw = _bmm_case(rng, cuda, (kind, 4, 128, 12, 64))
+        _, b2, _ = _bmm_case(rng, cuda, (kind, 4, 128, 12, 64))
+        o1, o2 = qbmm_raw(a, b1, **kw), qbmm_raw(a, b2, **kw)
+        assert torch.equal(o1.cpu(), qbmm_raw_plain(a.cpu(), b1.cpu(), **kw))
+        assert torch.equal(o2.cpu(), qbmm_raw_plain(a.cpu(), b2.cpu(), **kw))
+        b1.copy_(b2)  # written in place: read anew
+        assert torch.equal(qbmm_raw(a, b1, **kw).cpu(), o2.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bert", "gpt2", "vit"])
+def test_int8_transformer_on_card_equals_cpu(cuda, name):
+    """A small int8 transformer (TRANSFORMER_INT8), fused and unfused: every
+    integer node on the card == the CPU path, tk.bmm_rq through qbmm_rq and
+    qnn.batch_matmul through qbmm_raw."""
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8
+
+    kw = {"bert": dict(batch_size=2, seq_len=32, hidden=64, layers=2, heads=4, ffn_dim=128,
+                       vocab=100, seed=3),
+          "gpt2": dict(batch_size=1, seq_len=24, hidden=48, layers=2, heads=4, ffn_dim=96,
+                       vocab=80, seed=4),
+          "vit": dict(batch_size=2, image_size=32, patch=8, hidden=64, layers=2, heads=4,
+                      ffn_dim=128, num_classes=10, seed=5)}[name]
+    g = {"bert": bert, "gpt2": gpt2, "vit": vit}[name](**kw)
+    inp = g.inputs[0]
+    rng = np.random.default_rng(1)
+    x = (rng.integers(0, 60, inp.shape).astype(inp.dtype) if inp.dtype.startswith("int")
+         else rng.standard_normal(inp.shape).astype(np.float32))
+    q = quantize(g, [x], TRANSFORMER_INT8)
+    for graph, key in ((fuse_qnn(q), "qbmm_rq"), (q, "qbmm_raw")):
+        names = computational_nodes(graph)
+        before = _lib.LAUNCHES[key]
+        got = TorchExecutor(graph, capture=names, device="cuda", fuse=False).run(x)
+        assert _lib.LAUNCHES[key] - before == 2 * kw["layers"]
+        want = TorchExecutor(graph, capture=names, device="cpu", fuse=False).run(x)
+        for nm, a, b in zip(names, got, want):
+            assert a.dtype == b.dtype, nm
+            if a.dtype.kind in "iu":
+                assert (a == b).all(), nm
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=nm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores_scale", [0.01, 1.0])
+def test_qnn_attention_on_card_equals_cpu(rng, cuda, scores_scale):
+    """qnn.attention's two products on K1's batched mode (the second as a
+    product of u - 128 with zero point -128 plus the u == 256 term; 1.0
+    makes rows with u == 256) == its CPU path."""
+    from tachikoma_tpu_torch import GraphBuilder, infer_types
+
+    b = GraphBuilder("attn")
+    q, k, v = (b.var(n, (2, 3, 16, 32), "int8") for n in "qkv")
+    g = infer_types(b.build(b.call("qnn.attention", q, k, v, scores_scale=scores_scale,
+                                   v_scale=0.02, output_scale=0.05, name="y")))
+    x = {n: _i8(rng, (2, 3, 16, 32)) for n in "qkv"}
+    before = _lib.LAUNCHES["qbmm_raw"]
+    got = TorchExecutor(g, device="cuda", fuse=False).run(x)[0]
+    assert _lib.LAUNCHES["qbmm_raw"] - before == 3
+    want = TorchExecutor(g, device="cpu", fuse=False).run(x)[0]
+    assert got.dtype == want.dtype and (got == want).all()

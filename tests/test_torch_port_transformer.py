@@ -8,8 +8,8 @@ bits), and its torch impl equals the JAX package's oracle and `jax_impl`
 gelu and tanh within rtol 1e-5, atol 1e-6: a sum in another order, another
 libm).  The zoo graphs equal the reference's node for node and param for
 param, at small sizes and at BERT-base's published widths; the JAX package's
-fused BERT JSON runs in the port; the CLI takes the zoo names and refuses to
-quantize a transformer."""
+fused BERT JSON runs in the port; the CLI takes the zoo names and quantizes
+and compiles a transformer as the JAX package's CLI does."""
 
 import numpy as np
 import pytest
@@ -20,7 +20,7 @@ from tachikoma_tpu.ir.graph import GraphBuilder as JGraphBuilder
 from tachikoma_tpu.ir.transforms import fuse_attention as j_fuse_attention
 from tachikoma_tpu.models import transformer as jt
 from tachikoma_tpu.runtime.executor import JaxExecutor
-from tachikoma_tpu_torch import GraphBuilder, infer_types, run_graph
+from tachikoma_tpu_torch import Graph, GraphBuilder, infer_types, run_graph
 from tachikoma_tpu_torch.cli import main as cli_main
 from tachikoma_tpu_torch.interop import from_reference_graph
 from tachikoma_tpu_torch.ir.registry import get_op
@@ -197,6 +197,14 @@ def test_reference_fused_bert_json_runs_in_the_port():
 
 
 def test_cli_runs_a_fused_transformer_and_refuses_to_quantize_it(tmp_path, capsys, monkeypatch):
+    """The CLI runs a fused float transformer, and quantizes and compiles the
+    transformers (a graph file with its tk.attention left float, and the zoo
+    names, with and without --transformer) to the JAX package's CLI's
+    graphs.  The name is older than the quantizer's transformer handlers,
+    which ended the refusal."""
+    from tachikoma_tpu.cli import main as j_cli_main
+    from tachikoma_tpu_torch.runtime.artifact import load_artifact
+
     path = tmp_path / "bert.json"
     g = fuse_attention(pt.bert(**SMALL["bert"]))
     path.write_text(g.to_json())
@@ -207,8 +215,21 @@ def test_cli_runs_a_fused_transformer_and_refuses_to_quantize_it(tmp_path, capsy
     x = np.random.default_rng(0).integers(0, 100, (2, 32)).astype(np.int32)  # the CLI's input
     want = TorchExecutor(g, device="cpu").run(x)[0]
     np.testing.assert_array_equal(np.load(out)[g.outputs[0]], want)
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
-        cli_main(["quantize", str(path), "-o", str(tmp_path / "q.json")])
+
+    def same_output(cmd, model, extra):
+        mine, ref = tmp_path / f"p_{cmd}", tmp_path / f"j_{cmd}"
+        cli_main([cmd, model, "-o", str(mine), *extra])
+        j_cli_main([cmd, model, "-o", str(ref), *extra])
+        if cmd == "quantize":
+            assert mine.read_text() == ref.read_text()
+            return Graph.from_json(mine.read_text())
+        qa, qb = load_artifact(str(mine))[0], load_artifact(str(ref))[0]
+        assert qa.to_json() == qb.to_json()
+        return qa
+
+    for extra in ([], ["--transformer"]):
+        q = same_output("quantize", str(path), extra)
+        assert sum(n.op == "tk.attention" for n in q.nodes) == 2  # left float
     # the zoo names reach the transformer builders (small stand-ins here)
     built = []
     for name, fn in (("bert", "bert_base"), ("bert_base", "bert_base"), ("gpt2", "gpt2_small"),
@@ -216,8 +237,12 @@ def test_cli_runs_a_fused_transformer_and_refuses_to_quantize_it(tmp_path, capsy
         model = "vit" if fn.startswith("vit") else fn.split("_")[0]
         monkeypatch.setattr(pt, fn, lambda *a, _m=model, _fn=fn, **k: (
             built.append(_fn), getattr(pt, _m)(**SMALL[_m]))[1])
-        for cmd in ("quantize", "compile"):
-            with pytest.raises(SystemExit, match="Queue 1 item 4"):
-                cli_main([cmd, name, "-o", str(tmp_path / "q.json")])
+        monkeypatch.setattr(jt, fn, lambda *a, _m=model, **k: getattr(jt, _m)(**SMALL[_m]))
+        for extra in ([], ["--transformer"]):
+            for cmd in ("quantize", "compile"):
+                q = same_output(cmd, name, extra)
+                ops = {n.op for n in q.nodes}
+                assert {"qnn.batch_matmul", "qnn.layer_norm"} <= ops
+                assert ("qnn.softmax" in ops) == bool(extra)
     assert built == [fn for fn in ("bert_base", "bert_base", "gpt2_small", "vit_b16", "vit_l16")
-                     for _ in range(2)]
+                     for _ in range(4)]

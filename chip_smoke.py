@@ -6,7 +6,9 @@ fuse_attention and K6, the tuning path (tune, the four conv layouts K7-K10,
 dispatch from a tuning database) on ResNet-50, the direct-conv tuning
 path (int8 VGG-16, tune_conv on K11/K12, the graph tuner), and the int8
 transformers (BERT-base run and traced, GPT-2 small and ViT-B/16 run) on K1,
-K4 and K1's batched mode.
+K4 and K1's batched mode, and GPT-2 small KV-cache decoding (float: the host
+loop, the step replayed as one CUDA graph, the scanned form; int8 at M = 1,
+one step traced).
 
     python3 chip_smoke.py
 
@@ -150,7 +152,28 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      verify_trace; (f) GPT-2 small b1 s128 (causal) and ViT-B/16 b8 224^2
      quantized with TRANSFORMER_INT8, fused and run on the card: every
      recorded kernel call == plain, 3 counted requests with their tk.bmm_rq
-     through qbmm_rq, every integer node == the CPU path.
+     through qbmm_rq, every integer node == the CPU path;
+ 18. decoding (models/decoding.py, the serving path), GPT-2 small b1 with a
+     cache of 128, a prompt of 8 tokens from the seed and 64 new ones (the
+     JAX package's scripts/bench_models.py configuration): (a) the full
+     graph, its fuse_attention form and the decode step built; (b) the host
+     loop, GreedyDecoder(device="cuda").attach_prefill(fused).generate: K6
+     launched 12 times in the prefill, each within rtol 2e-5, atol 2e-6 of
+     plain, the tokens == the CPU decoder's (a difference prints the step
+     and the top-2 gap, and fails), every step's logits within rtol 1e-4,
+     atol 1e-4 of the CPU's and every position's within 2e-4 of the full
+     recompute on the card, ms/token, tokens/s and the busy share of a step;
+     (c) generate_ondevice: one step captured in a CUDA graph and replayed
+     per token, tokens == (b)'s, ms/token with the prefill amortised, one
+     replay timed alone (CUDA events); (d) gpt2_generate_scanned, tokens ==
+     (b)'s; (e) the int8 step (4 step feeds calibrate TRANSFORMER_INT8,
+     fused: 12 qnn.dense, 36 tk.dense_rq, 24 tk.bmm_rq, 1 float nn.matmul),
+     every K1, K4 and qbmm_rq call of a step == plain and timed, every
+     integer node == the CPU path, 16 tokens counted (72 launches a token)
+     and == the CPU int8 decoder's; (f) one unfused int8 step at pos 8
+     traced on the card: K4 and qbmm_raw == plain and timed, the trace held
+     record by record against the CPU's, CRCs and verify_trace.  Each phase
+     title carries the card's name and power limit.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -164,8 +187,8 @@ MobileNetV2 b8 forward (its 17 depthwise calls), those of qbmm_rq per int8
 BERT-base b4 s128 forward and of qbmm_raw per int8 BERT-base b1 s128 trace
 forward (phase 17); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
-12c-14c, 15c, 16a, 16c, 17c, 17e and 17f; K11 and K12 in 16b's tune_conv
-run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
+12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e and 18f; K11 and K12 in
+16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
@@ -263,6 +286,18 @@ BERT_INT8_OPS = {"qnn.dense": 12, "tk.dense_rq": 38, "tk.bmm_rq": 24, "qnn.softm
 INT8_TRANSFORMER_KERNELS = ("qgemm_rq", "qgemm_raw", "qbmm_rq")
 INT8_TRACE_KERNELS = ("qgemm_raw", "qbmm_raw")
 INT8_CHECK_REQUESTS = 3           # phase 17f's counted requests
+# decoding (phase 18): the JAX package's bench configuration
+# (scripts/bench_models.py gpt2_decode): GPT-2 small b1, a cache of 128, a
+# prompt of 8 tokens, then 64 new ones; the int8 step calibrated on 4 step feeds
+DECODE_PROMPT, DECODE_NEW, DECODE_INT8_NEW, DECODE_CALIB = 8, 64, 16, 4
+DECODE_LAYERS, DECODE_VOCAB = 12, 50257
+STEP_RTOL, STEP_ATOL = 1e-4, 1e-4  # a step's logits, card vs CPU
+RECOMPUTE_TOL = 2e-4               # tests/test_decoding.py:55-62
+REPLAYS_TIMED = 20
+# the fused int8 GPT-2 small step's op counts, from the JAX package's fuse_qnn
+GPT2_INT8_STEP_OPS = {"qnn.dense": 12, "tk.dense_rq": 36, "tk.bmm_rq": 24, "nn.matmul": 1}
+DECODE_KERNELS = ("qgemm_rq", "qgemm_raw", "qbmm_rq")
+DECODE_TRACE_KERNELS = ("qgemm_raw", "qbmm_raw")
 # The previous designs' ms on one NVIDIA H100 80GB HBM3 at 700.00 W, printed
 # beside this run's (PERF.md's kernel table): per forward, K3 (ResNet-50 b8)
 # and K4's conv mode (b1) on their first body, csrc/qgemm.cuh, and K2 on it
@@ -712,27 +747,39 @@ def profile_requests(ex, requests, median_ms: float, earlier: str | None = None)
     """Device time per request by kernel name, and the device's busy share
     of the unprofiled median latency (beside `earlier`, the tree before K5
     and K6's redesign, where given)."""
+    feeds = iter(requests)
+    profile_runs(lambda: ex.run_device(next(feeds)), len(requests), median_ms, "request",
+                 earlier)
+
+
+def profile_runs(run, n: int, median_ms: float, what: str,
+                 earlier: str | None = None) -> tuple[float, float] | None:
+    """`run()` n times under torch.profiler: device time per run by kernel
+    name and the device's busy share of `median_ms`, the unprofiled median
+    of one run.  Returns (busy ms, device operations) per run, or None when
+    the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for x in requests:
-            ex.run_device(x)
+        for _ in range(n):
+            run()
             torch.cuda.synchronize()
     # device-side entries only: an operator's entry repeats the time of the
     # kernels it launched
     events = [e for e in prof.key_averages()
               if e.device_type != torch.autograd.DeviceType.CPU and e.count > 0
               and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / len(requests)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
     if busy_ms == 0:
         say("the profiler saw no device time: device busy share not measured")
-        return
-    say(f"device busy ms per request {busy_ms:.4f} = {busy_ms / median_ms:.1%} of the "
+        return None
+    say(f"device busy ms per {what} {busy_ms:.4f} = {busy_ms / median_ms:.1%} of the "
         f"median latency; idle {1 - busy_ms / median_ms:.1%}"
         + (f" (before K5 and K6's redesign: {earlier})" if earlier else ""))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        say(f"  {e.self_device_time_total / 1e3 / len(requests):9.4f} ms  "
-            f"{e.count // len(requests):4d}x  {e.key[:90]}")
+        say(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms  "
+            f"{e.count // n:4d}x  {e.key[:90]}")
+    return busy_ms, sum(e.count for e in events) / n
 
 
 # ---------------------------------------------------------------------------
@@ -746,27 +793,50 @@ def filesystem_type(path: str) -> str:
     return out.stdout.strip() or "unknown"
 
 
-def compare_traces(path: str, ref_path: str) -> tuple[int, int]:
+FLOAT_PRODUCTS = ("nn.matmul", "nn.dense", "nn.batch_matmul")
+
+
+def float_product_cone(graph) -> set:
+    """The float nodes that a float product (FLOAT_PRODUCTS) reaches through
+    float nodes, the product included: cuBLAS and the CPU sum a product in
+    another order, and the difference flows on to them."""
+    cone: set = set()
+    for n in graph.nodes:  # topological order
+        if (n.dtype or "").startswith("float") and (
+                n.op in FLOAT_PRODUCTS or any(i in cone for i in n.inputs)):
+            cone.add(n.name)
+    return cone
+
+
+def compare_traces(path: str, ref_path: str, cone: set = frozenset(),
+                   counts: dict | None = None) -> tuple[int, int]:
     """Hold the trace at `path` record by record against `ref_path`: same
     header, names, op ids and attrs; integer records byte-equal, float
-    records allclose.  Returns (records, integer records)."""
+    records allclose at FLOAT_RTOL / FLOAT_ATOL, those of the nodes in `cone`
+    (`float_product_cone`) at the float transformers' GRAPH_RTOL /
+    GRAPH_ATOL.  Returns (records, integer records); `counts` gets the
+    number of float records that are byte-equal all the same."""
     from tachikoma_tpu_torch.trace.format import TraceReader, op_id
 
     with open(path, "rb") as f, open(ref_path, "rb") as g:
         got, want = TraceReader(f), TraceReader(g)
     assert got.graph_hash == want.graph_hash and len(got) == len(want) and got.meta == want.meta
-    n_int = 0
+    n_int = n_float_equal = 0
     for a, b in zip(got, want):
         assert (a.node_id, a.name, a.op_name, a.attrs) == (b.node_id, b.name, b.op_name, b.attrs)
         assert op_id(a.op_name) == op_id(b.op_name)
         if a.output.to_array().dtype.kind in "iu":
             assert a.encode() == b.encode(), f"trace record {a.name} differs from the CPU's"
             n_int += 1
-        else:
-            for ta, tb in zip(a.tensors, b.tensors):
-                assert ta.role == tb.role and ta.shape == tb.shape
-                np.testing.assert_allclose(ta.to_array(), tb.to_array(), rtol=FLOAT_RTOL,
-                                           atol=FLOAT_ATOL, err_msg=a.name)
+            continue
+        n_float_equal += a.encode() == b.encode()
+        rtol, atol = (GRAPH_RTOL, GRAPH_ATOL) if a.name in cone else (FLOAT_RTOL, FLOAT_ATOL)
+        for ta, tb in zip(a.tensors, b.tensors):
+            assert ta.role == tb.role and ta.shape == tb.shape
+            np.testing.assert_allclose(ta.to_array(), tb.to_array(), rtol=rtol, atol=atol,
+                                       err_msg=a.name)
+    if counts is not None:
+        counts["float_byte_equal"] = n_float_equal
     return len(got), n_int
 
 
@@ -1744,6 +1814,311 @@ def int8_transformer_check(label: str, model: str, build, make_input) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# decoding (phase 18)
+# ---------------------------------------------------------------------------
+
+def same_tokens(got, want, want_logits, n_prompt: int, what: str) -> None:
+    """Hold two greedy token sequences ==; at the first difference print the
+    new token's index and the top-2 gap of the reference's logits there."""
+    if got.shape == want.shape and (got == want).all():
+        return
+    s = int(np.argwhere((got != want).any(axis=0))[0][0])
+    top2 = np.sort(want_logits[n_prompt - 1 + s][0])[-2:]
+    say(f"{what}: new token {s} differs, {got[:, s].tolist()} vs {want[:, s].tolist()}; the "
+        f"reference's top-2 gap there {top2[1] - top2[0]:.3e}")
+    raise AssertionError(f"{what}: greedy tokens differ at new token {s}")
+
+
+def step_bound_ms(step, int8: bool) -> tuple[float, float]:
+    """(bytes, ms at HBM_BYTES_PER_S) one decode step must move at b1: every
+    param read once but the embedding tables (a row each), and the float
+    caches read by the attention and copied by the functional cache write;
+    the int8 step also quantizes them (a float read, an int8 write)."""
+    params = sum(v.nbytes for k, v in step.params.items() if k not in ("wte", "wpe"))
+    rows = step.params["wte"][0].nbytes + step.params["wpe"][0].nbytes
+    cache = sum(4 * int(np.prod(n.shape)) for n in step.inputs
+                if n.name[0] in "kv" and n.name[1:].isdigit())
+    nbytes = params + rows + 3 * cache + (cache + cache // 4 if int8 else 0)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def decode_path(card: str) -> tuple[dict, dict]:
+    """Phases 18a-f: GPT-2 small KV-cache decoding on the card (the JAX
+    package's serving path, models/decoding.py).  Returns the int8 step's
+    kernels' per-step totals and the launches of the counted runs (K6 in
+    18b's prefill, K1, K4 and qbmm_rq in 18e's generation, K4 and qbmm_raw in
+    18f's traces)."""
+    from tachikoma_tpu_torch.ir.transforms import fuse_attention
+    from tachikoma_tpu_torch.models.decoding import (GreedyDecoder, gpt2_decode_step,
+                                                     gpt2_generate_scanned)
+    from tachikoma_tpu_torch.models.transformer import gpt2_small
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+    from tachikoma_tpu_torch.runtime.interpreter import run_graph
+    from tachikoma_tpu_torch.trace.emitter import TraceEmitter, verify_trace
+    from tachikoma_tpu_torch.trace.native import native_verify
+
+    P, NEW, LAY = DECODE_PROMPT, DECODE_NEW, DECODE_LAYERS
+    launches = {}
+    phase(f"18a. decoding GPT-2 small b1, cache {SEQ}: build, fuse_attention, the decode step "
+          f"(host) [{card}]")
+    t0 = time.perf_counter()
+    full = gpt2_small(batch_size=1, seq_len=SEQ, seed=SEED)
+    t1 = time.perf_counter()
+    fused = fuse_attention(full)
+    t2 = time.perf_counter()
+    step = gpt2_decode_step(full, batch_size=1, max_len=SEQ)
+    t3 = time.perf_counter()
+    prompt = np.random.default_rng(SEED).integers(0, DECODE_VOCAB, (1, P)).astype(np.int32)
+    n_attn = sum(n.op == "tk.attention" for n in fused.nodes)
+    say(f"build {t1 - t0:.2f} s, fuse_attention {t2 - t1:.2f} s, decode step {t3 - t2:.2f} s: "
+        f"full graph {len(full)} nodes, fused {len(fused)} ({n_attn} tk.attention), step "
+        f"{len(step)} nodes, {len(computational_nodes(step))} ops; prompt {prompt.tolist()}")
+
+    phase(f"18b. float decoding, the host loop: attach_prefill(fuse_attention(full)), "
+          f"generate(prompt, {NEW}) on the card [{card}]")
+    dec = GreedyDecoder(step, layers=LAY, device="cuda").attach_prefill(fused)
+    dec.generate(prompt, 4)  # warm: cuBLAS, the kernel library, the allocator
+    calls: list = []
+    reset(("flash_attn",))
+    t0 = time.perf_counter()
+    with recording(calls):
+        toks, logits = dec.generate(prompt, NEW)
+    total_s = time.perf_counter() - t0
+    launches["flash_attn"] = read_launches(("flash_attn",), "the prefill")["flash_attn"]
+    assert launches["flash_attn"] == 12 and [c[0] for c in calls] == ["flash_attn"] * 12, calls
+    impl = kernel_impls()
+    k6_err = max(hold_call(name, a, k, impl) for name, a, k in calls)
+    say(f"prefill: 12 flash_attn launches ({work(*calls[0])[2]}, "
+        f"{launch_plan(*calls[0])}), each within rtol {FA_RTOL} atol {FA_ATOL} of plain, max "
+        f"|err| {k6_err:.3e}")
+    t0 = time.perf_counter()
+    ctoks, clogits = GreedyDecoder(step, layers=LAY, device="cpu").attach_prefill(
+        fused).generate(prompt, NEW)
+    say(f"CPU host loop {time.perf_counter() - t0:.2f} s (host)")
+    same_tokens(toks, ctoks, clogits, P, "float host loop, card vs CPU")
+    assert len(logits) == len(clogits) == P + NEW - 1
+    worst = 0.0
+    for p, (a, b) in enumerate(zip(logits, clogits)):
+        assert a.shape == (1, DECODE_VOCAB) and np.isfinite(a).all(), p
+        np.testing.assert_allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL, err_msg=f"position {p}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    seq = np.zeros((1, SEQ), np.int32)
+    seq[:, :P] = prompt
+    seq[:, P:P + NEW] = toks
+    recompute = TorchExecutor(fused, device="cuda").run({"input_ids": seq})[0]
+    worst_full = 0.0
+    for p in range(P + NEW - 1):
+        np.testing.assert_allclose(logits[p], recompute[:, p], rtol=RECOMPUTE_TOL,
+                                   atol=RECOMPUTE_TOL, err_msg=f"position {p}")
+        worst_full = max(worst_full, float(np.abs(logits[p] - recompute[:, p]).max()))
+    say(f"tokens == the CPU's host loop, all {NEW}: {toks[0].tolist()}")
+    say(f"every step's logits within rtol {STEP_RTOL} atol {STEP_ATOL} of the CPU's (max |err| "
+        f"{worst:.3e}); every position's within {RECOMPUTE_TOL} of the full recompute on the "
+        f"card (max |err| {worst_full:.3e})")
+    step_ms = [1e3 * v for v in dec.step_seconds]
+    med = statistics.median(step_ms)
+    nbytes, bound = step_bound_ms(step, int8=False)
+    say(f"ms/token (host clock per step, median of {len(step_ms)}) {med:.4f}, tokens/s "
+        f"{1e3 / med:.1f}; bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); the whole call {total_s:.3f} s")
+    say("steps ms, all: " + " ".join(f"{v:.3f}" for v in step_ms))
+    ex = dec._ex
+    feed = {"token": torch.from_numpy(toks[:, :1]).cuda(),
+            "pos": torch.tensor(P, dtype=torch.int32, device="cuda"),
+            **{n.name: torch.zeros(n.shape, device="cuda") for n in step.inputs
+               if n.name[0] in "kv"}}
+    busy = profile_runs(lambda: ex.run_device(feed)[0].cpu(), 3, med, "step")
+    say(f"launches per token: 0 of the port's kernels (the float step runs torch ops; K6 "
+        f"12 in the prefill), {busy[1]:.0f} device operations a step" if busy else
+        "launches per token: 0 of the port's kernels")
+
+    phase(f"18c. float decoding on the device: generate_ondevice(prompt, {NEW}), the step "
+          f"captured once in a CUDA graph and replayed [{card}]")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        otoks = dec.generate_ondevice(prompt, NEW)
+        times.append(time.perf_counter() - t0)
+        same_tokens(otoks, toks, logits, P, "generate_ondevice vs generate")
+    assert dec.cuda_graph is not None and dec.replays == NEW - 1, dec.replays
+    call_ms = 1e3 * statistics.median(times[1:])
+    say(f"tokens == 18b's; {dec.replays} replays of one captured CUDA graph a call")
+    say(f"ms/token with the prefill and the capture amortised over {NEW} tokens "
+        f"{call_ms / NEW:.4f} (call {call_ms:.3f} ms, median of the last 2 of 3), tokens/s "
+        f"{NEW / call_ms * 1e3:.1f}")
+    replay = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(REPLAYS_TIMED):
+        start.record()
+        dec.cuda_graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        replay.append(start.elapsed_time(end))
+    rep = statistics.median(replay)
+    say(f"one step replayed alone: median {rep:.4f} ms of {REPLAYS_TIMED} (CUDA events), "
+        f"{1e3 / rep:.1f} tokens/s; bound {bound:.4f} ms ({bound / rep:.1%} of it)")
+    profile_runs(lambda: dec.generate_ondevice(prompt, NEW), 1, call_ms, "generate_ondevice call")
+    profile_runs(dec.cuda_graph.replay, 3, rep, "replayed step")
+
+    phase(f"18d. gpt2_generate_scanned(full, prompt, {NEW}, max_len={SEQ}): plain torch over the "
+          f"stacked layer weights [{card}]")
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        stoks = gpt2_generate_scanned(full, prompt, NEW, max_len=SEQ, device="cuda")
+        times.append(time.perf_counter() - t0)
+        same_tokens(stoks, toks, logits, P, "gpt2_generate_scanned vs generate")
+    say(f"tokens == 18b's; ms/token {1e3 * times[-1] / NEW:.4f} (the second call "
+        f"{times[-1]:.3f} s over {NEW} tokens, {P + NEW - 1} steps; the first, with the weights' "
+        f"upload, {times[0]:.3f} s)")
+
+    phase(f"18e. int8 decode step: calibrate on {DECODE_CALIB} step feeds (positions 0-"
+          f"{DECODE_CALIB - 1}), quantize (TRANSFORMER_INT8), fuse (host) [{card}]")
+    t0 = time.perf_counter()
+    caches = {n.name: np.zeros(n.shape, np.float32) for n in step.inputs if n.name[0] in "kv"}
+    calib = []
+    for p in range(DECODE_CALIB):
+        f = {"token": prompt[:, p:p + 1], "pos": np.int32(p), **caches}
+        calib.append(dict(f))
+        outs = run_graph(step, f)
+        for i in range(LAY):
+            caches[f"k{i}"], caches[f"v{i}"] = outs[1 + i], outs[1 + LAY + i]
+    t1 = time.perf_counter()
+    q = quantize(step, calib, TRANSFORMER_INT8)
+    t2 = time.perf_counter()
+    qf = fuse_qnn(q)
+    t3 = time.perf_counter()
+    ops = Counter(n.op for n in qf.nodes if n.op not in ("var", "const"))
+    say(f"step feeds {t1 - t0:.2f} s, calibrate+quantize {t2 - t1:.2f} s, fuse {t3 - t2:.2f} s")
+    say("fused step: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
+    for op, n in GPT2_INT8_STEP_OPS.items():
+        assert ops[op] == n, f"{op}: {ops[op]} in the fused step, expected {n}"
+    names = computational_nodes(qf)
+    feed = {"token": prompt[:, DECODE_CALIB:DECODE_CALIB + 1], "pos": np.int32(DECODE_CALIB),
+            **caches}
+    ex8 = TorchExecutor(qf, capture=names, device="cuda")
+    calls = []
+    with recording(calls):
+        outs8 = [o.cpu().numpy() for o in ex8.run_device(feed)]
+    totals = check_kernels(calls, DECODE_KERNELS, "int8 GPT-2 small decode step")
+    plain = TorchExecutor(qf, capture=names, device="cpu").run(feed)
+    n_int = hold_against_plain(names, outs8, plain, qf, GRAPH_RTOL, GRAPH_ATOL)
+    say(f"one step at pos {DECODE_CALIB}: {n_int} of {len(names)} captured nodes are integer and "
+        f"== the CPU path; float nodes within rtol {GRAPH_RTOL} atol {GRAPH_ATOL}")
+
+    phase(f"18e. int8 decoding on the card: generate(prompt, {DECODE_INT8_NEW}), the prompt "
+          f"stepped through the step graph [{card}]")
+    dec8 = GreedyDecoder(qf, layers=LAY, device="cuda")
+    dec8.generate(prompt, 2)  # warm: K1 and K4 pack their weights
+    packed = len(matmul_int8._KMAJOR)
+    reset(DECODE_KERNELS)
+    toks8, logits8 = dec8.generate(prompt, DECODE_INT8_NEW)
+    n_steps = P + DECODE_INT8_NEW - 1
+    counted = read_launches(DECODE_KERNELS, "the int8 decoder")
+    per = {"qgemm_rq": GPT2_INT8_STEP_OPS["tk.dense_rq"], "qgemm_raw": GPT2_INT8_STEP_OPS["qnn.dense"],
+           "qbmm_rq": GPT2_INT8_STEP_OPS["tk.bmm_rq"]}
+    for name, n in counted.items():
+        assert n == per[name] * n_steps, (name, n)
+        launches[name] = n
+    assert len(matmul_int8._KMAJOR) == packed, "a step packed a weight again"
+    say(", ".join(f"{name}: {n} launches in {n_steps} steps, {n // n_steps} a token"
+                  for name, n in counted.items())
+        + f"; {packed} weight tensors packed K-major by the warm call, none during the steps")
+    t0 = time.perf_counter()
+    ctoks8, clogits8 = GreedyDecoder(qf, layers=LAY, device="cpu").generate(prompt,
+                                                                           DECODE_INT8_NEW)
+    say(f"CPU int8 decoder {time.perf_counter() - t0:.2f} s (host)")
+    same_tokens(toks8, ctoks8, clogits8, P, "int8 decoder, card vs CPU")
+    for p, (a, b) in enumerate(zip(logits8, clogits8)):
+        assert np.isfinite(a).all(), p
+        np.testing.assert_allclose(a, b, rtol=GRAPH_RTOL, atol=GRAPH_ATOL, err_msg=f"int8 {p}")
+    say(f"tokens == the CPU int8 decoder's, all {DECODE_INT8_NEW}: {toks8[0].tolist()}; every "
+        f"step's float logits within rtol {GRAPH_RTOL} atol {GRAPH_ATOL}")
+    step_ms = [1e3 * v for v in dec8.step_seconds[P:]]
+    med8 = statistics.median(step_ms)
+    nbytes8, bound8 = step_bound_ms(qf, int8=True)
+    kernel_ms = sum(t["ms"] for t in totals.values())
+    say(f"ms/token (host clock per step, median of the {len(step_ms)} decode steps) {med8:.4f}, "
+        f"tokens/s {1e3 / med8:.1f}; bound {bound8:.4f} ms ({nbytes8 / 1e6:.1f} MB); "
+        f"{'+'.join(DECODE_KERNELS)} device ms per step {kernel_ms:.4f}")
+    feed_dev = {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in feed.items()}
+    ex8s = dec8._ex
+    busy = profile_runs(lambda: ex8s.run_device(feed_dev)[0].cpu(), 3, med8, "step")
+    say(f"launches per token: {sum(per.values())} of the port's kernels "
+        f"({', '.join(f'{per[n]} {n}' for n in DECODE_KERNELS)})"
+        + (f", {busy[1]:.0f} device operations a step" if busy else ""))
+
+    phase(f"18f. trace of one unfused int8 step at pos {P} (the caches of 18e's prompt): K4 and "
+          f"qbmm_raw == plain, TraceEmitter(backend='torch', device='cuda').emit_to [{card}]")
+    c8 = {n.name: torch.zeros(n.shape, device="cuda") for n in qf.inputs if n.name[0] in "kv"}
+    for p in range(P):
+        _, c8 = dec8._step(prompt[:, p:p + 1], p, c8)
+    tfeed = {"token": toks8[:, :1], "pos": np.int32(P),
+             **{k: v.cpu().numpy() for k, v in c8.items()}}
+    qnames = computational_nodes(q)
+    exq = TorchExecutor(q, capture=qnames, device="cuda")
+    reset(DECODE_TRACE_KERNELS)
+    calls = []
+    with recording(calls):
+        qouts = [o.cpu().numpy() for o in exq.run_device(tfeed)]
+    read_launches(DECODE_TRACE_KERNELS, "the unfused int8 step")
+    trace_totals = check_kernels(calls, DECODE_TRACE_KERNELS, "int8 GPT-2 small decode step")
+    n_int = hold_against_plain(qnames, qouts,
+                               TorchExecutor(q, capture=qnames, device="cpu").run(tfeed), q,
+                               GRAPH_RTOL, GRAPH_ATOL)
+    say(f"{n_int} of {len(qnames)} nodes of the unfused step are integer and == the CPU path")
+    tdir = tempfile.gettempdir()
+    path = os.path.join(tdir, f"tk_chip_smoke_{os.getpid()}_step.bin")
+    ref_path = os.path.join(tdir, f"tk_chip_smoke_{os.getpid()}_step_cpu.bin")
+    meta = {"model": f"gpt2_small_b1_step_pos{P}"}
+    try:
+        em = TraceEmitter(q, backend="torch", device="cuda", meta=meta)
+        reset(DECODE_TRACE_KERNELS)
+        t0 = time.perf_counter()
+        n_records = em.emit_to(tfeed, path)
+        t1 = time.perf_counter()
+        em.emit_to(tfeed, path)
+        t2 = time.perf_counter()
+        for name, n in read_launches(DECODE_TRACE_KERNELS, "the step's traces").items():
+            launches[name] = launches.get(name, 0) + n
+        nbytes = os.path.getsize(path)
+        say(f"records {n_records}, bytes {nbytes}; trace s {t2 - t1:.4f} (the first, warm, "
+            f"{t1 - t0:.4f}); writer {em.last_timings['writer']}; dir {tdir} "
+            f"({filesystem_type(tdir)})")
+        t0 = time.perf_counter()
+        TraceEmitter(q, backend="torch", device="cpu", meta=meta).emit_to(tfeed, ref_path)
+        t1 = time.perf_counter()
+        counts: dict = {}
+        cone = float_product_cone(q)
+        n, n_int = compare_traces(path, ref_path, cone, counts)
+        with open(path, "rb") as f, open(ref_path, "rb") as g:
+            whole = f.read() == g.read()
+        say(f"CPU trace {t1 - t0:.2f} s; card trace vs CPU trace: {n} records, {n_int} integer "
+            f"byte-equal, {n - n_int} float ({counts['float_byte_equal']} of them byte-equal) "
+            f"within rtol {FLOAT_RTOL} atol {FLOAT_ATOL} but the {len(cone)} of the float LM "
+            f"head's product and what it feeds ({', '.join(sorted(cone))}), within the float "
+            f"transformers' rtol {GRAPH_RTOL} atol {GRAPH_ATOL}; the whole file byte-equal: "
+            f"{whole}")
+        assert native_verify(path) == n_records
+        t0 = time.perf_counter()
+        res = verify_trace(path, q)
+        assert res["verified"] == res["records"] == n_records, res["mismatches"][:5]
+        say(f"CRCs ok (native); verify_trace: {res['verified']}/{res['records']} records "
+            f"verified by the numpy oracle in {time.perf_counter() - t0:.2f} s")
+    finally:
+        for p_ in (path, ref_path):
+            if os.path.exists(p_):
+                os.unlink(p_)
+    totals.update(trace_totals)
+    totals["flash_attn"] = {"max_abs_err": k6_err}
+    return totals, launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1876,6 +2251,12 @@ def main() -> int:
         lambda: vit_b16(batch_size=BATCH, image_size=IMAGE, seed=SEED),
         lambda rng: rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32)))
     say(f"\nphase 17 seconds {time.perf_counter() - t17:.1f} (host clock)")
+    t18 = time.perf_counter()
+    decode_totals, decode_launches = decode_path(card)
+    for name, t in decode_totals.items():
+        errs[name] = max(errs.get(name, 0), t["max_abs_err"])
+    merge({}, decode_launches)
+    say(f"\nphase 18 seconds {time.perf_counter() - t18:.1f} (host clock)")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

@@ -190,6 +190,7 @@ def q_multiply_shift_per_axis(x: torch.Tensor, ms, shifts, axis: int,
 _TORCH_DTYPES = {
     "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
     "int32": torch.int32, "int64": torch.int64, "float32": torch.float32,
+    "float64": torch.float64, "bool": torch.bool,
 }
 
 

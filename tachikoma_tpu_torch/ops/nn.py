@@ -617,6 +617,70 @@ for _n, (_f, _tf) in _BINOPS.items():
     register_op(_n, infer=_broadcast_rel, np_impl=_np_fn, torch_impl=_torch_fn)
 
 
+# comparisons, logical ops and where: the decode step's position mask
+# (models/decoding.py) is `where(less_equal(arange, pos), 0, -30)`
+
+def _cmp_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
+    (a, _), (b, _) = ins[0], ins[1]
+    return broadcast_shapes(a, b), "bool"
+
+
+_CMPOPS = {
+    "equal": (np.equal, torch.eq), "not_equal": (np.not_equal, torch.ne),
+    "less": (np.less, torch.lt), "less_equal": (np.less_equal, torch.le),
+    "greater": (np.greater, torch.gt), "greater_equal": (np.greater_equal, torch.ge),
+    "logical_and": (np.logical_and, torch.logical_and),
+    "logical_or": (np.logical_or, torch.logical_or),
+}
+
+for _n, (_f, _tf) in _CMPOPS.items():
+    def _mkc(f, tf):
+        def np_fn(a, b, *, node: Node):
+            return f(a, b)
+
+        def torch_fn(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
+            return tf(a, b)
+        return np_fn, torch_fn
+    _np_fn, _torch_fn = _mkc(_f, _tf)
+    register_op(_n, infer=_cmp_rel, np_impl=_np_fn, torch_impl=_torch_fn)
+
+
+@infer_rule("logical_not")
+def _lnot_rel(node: Node, ins):
+    (a, _) = ins[0]
+    return a, "bool"
+
+
+@np_impl("logical_not")
+def _lnot_np(a, *, node: Node):
+    return np.logical_not(a)
+
+
+@torch_impl("logical_not")
+def _lnot_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return torch.logical_not(a)
+
+
+@infer_rule("where")
+def _where_rel(node: Node, ins):
+    (c, _), (a, adt), (b, bdt) = ins
+    return broadcast_shapes(broadcast_shapes(c, a), b), dt.promote(adt, bdt)
+
+
+@np_impl("where")
+def _where_np(c, a, b, *, node: Node):
+    return np.where(c, a, b)
+
+
+@torch_impl("where")
+def _where_torch(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """The branches in the relation's dtype (`dt.promote`, numpy's rule: an
+    int32 branch with a float32 one gives float64, as the oracle does); a
+    nonzero condition selects `a`, as numpy's truth value does."""
+    out_dt = torch_dtype(dt.promote(_dtype_name(a), _dtype_name(b)))
+    return torch.where(c.to(torch.bool), a.to(out_dt), b.to(out_dt))
+
+
 # ---------------------------------------------------------------------------
 # layout: transpose, batch_flatten
 # ---------------------------------------------------------------------------

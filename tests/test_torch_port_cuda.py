@@ -1544,3 +1544,177 @@ def test_qnn_attention_on_card_equals_cpu(rng, cuda, scores_scale):
     assert _lib.LAUNCHES["qbmm_raw"] - before == 3
     want = TorchExecutor(g, device="cpu", fuse=False).run(x)[0]
     assert got.dtype == want.dtype and (got == want).all()
+
+
+# ---------------------------------------------------------------------------
+# the decode step (models/decoding.py): K1, K4 and K1's batched mode at M = 1,
+# dynamic_update_slice, the step captured in a CUDA graph
+# ---------------------------------------------------------------------------
+
+# GPT-2 small's decode step at b1 (and b2): attn_o, ffn1, ffn2 on K1's skinny
+# path, the merged Q/K/V on K4's GEMM mode
+DECODE_GEMM_CASES = [(m, k, n) for m in (1, 2)
+                     for k, n in ((768, 768), (768, 3072), (3072, 768), (768, 2304))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", DECODE_GEMM_CASES, ids=["x".join(map(str, c))
+                                                        for c in DECODE_GEMM_CASES])
+def test_k1_and_k4_at_decode_shapes(rng, cuda, mkn):
+    m, k, n = mkn
+    x, w = _dev(rng, (m, k), cuda), _dev(rng, (k, n), cuda)
+    b, mult, shift = _epilogue_args(rng, n, cuda)
+    kw = dict(rq_izp=0, out_zp=5, rounding="UPWARD", qmin=-128, qmax=127)
+    got = qgemm_rq(x, w, b, mult, shift, **kw)
+    bias = _extreme_bias(rng, n, cuda)
+    raw = qgemm_raw(x, w, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qgemm_rq_plain(x, w, b, mult, shift, **kw))
+    assert raw.shape == (m, n) and torch.equal(raw, qgemm_raw_plain(x, w, bias))
+
+
+# (kind, B, H, cache length, head width): the step's scores q . K^T over the
+# whole cache, (1, 64) x (128, 64)^T a head, and context p . V with the
+# softmax's zero point, (1, 128) x (128, 64), V the cache itself
+DECODE_BMM_CASES = [(kind, b, 12, 128, 64) for kind in ("scores", "context") for b in (1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_BMM_CASES,
+                         ids=["-".join(map(str, c)) for c in DECODE_BMM_CASES])
+def test_k1_qbmm_at_decode_shapes(rng, cuda, case):
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qbmm_raw, qbmm_raw_plain, qbmm_rq,
+                                                             qbmm_rq_plain)
+
+    kind, b, h, s, d = case
+    cache = _dev(rng, (b, h, s, d), cuda)
+    if kind == "scores":
+        a, kw, n = _heads(rng, b, 1, h, d, cuda), dict(transpose_b=True), s
+    else:
+        a, kw, n = _dev(rng, (b, h, 1, s), cuda), dict(lhs_zero_point=-128), d
+    mult, shift = plan_requantize(0.002, 1.0)
+    m_t, s_t = channel_vector(mult, n, cuda), channel_vector(shift, n, cuda)
+    raw = qbmm_raw(a, cache, **kw)
+    assert raw.shape == (b, h, 1, n)
+    assert torch.equal(raw.cpu(), qbmm_raw_plain(a.cpu(), cache.cpu(), **kw))
+    rq = qbmm_rq(a, cache, None, m_t, s_t, out_zp=-3, **kw)
+    want = qbmm_rq_plain(a.cpu(), cache.cpu(), None, m_t.cpu(), s_t.cpu(), out_zp=-3, **kw)
+    assert torch.equal(rq.cpu(), want)
+
+
+def _graph_replay(fn):
+    """fn() captured in a CUDA graph after one warm run on a side stream;
+    returns (graph, the captured output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.cuda
+def test_dynamic_update_slice_on_card_reads_its_start_on_the_device(rng, cuda):
+    """dynamic_update_slice on the card == the oracle at every start, the
+    start read on the device: one captured graph replayed with the start
+    tensor rewritten between replays writes each position."""
+    from tachikoma_tpu_torch import GraphBuilder, infer_types, run_graph
+
+    b = GraphBuilder("dus")
+    cache, row = b.var("cache", (2, 3, 12, 4), "float32"), b.var("row", (2, 3, 1, 4), "float32")
+    pos, zero = b.var("pos", (), "int32"), b.const(np.int32(0))
+    g = infer_types(b.build(b.call("dynamic_update_slice", cache, row, zero, zero, pos, zero,
+                                   name="y")))
+    c = rng.standard_normal((2, 3, 12, 4)).astype(np.float32)
+    r = rng.standard_normal((2, 3, 1, 4)).astype(np.float32)
+    ex = TorchExecutor(g, device="cuda")
+    feeds = {"cache": torch.from_numpy(c).cuda(), "row": torch.from_numpy(r).cuda(),
+             "pos": torch.tensor(0, dtype=torch.int32, device="cuda")}
+    graph, out = _graph_replay(lambda: ex.run_device(feeds)[0])
+    for p in (0, 5, 11, 40):
+        feeds["pos"].fill_(p)
+        graph.replay()
+        want = run_graph(g, {"cache": c, "row": r, "pos": np.int32(p)})[0]
+        assert (out.cpu().numpy() == want).all(), p
+        assert (ex.run(feeds)[0] == want).all(), p
+
+
+def _tiny_decoder_models():
+    from tachikoma_tpu_torch.models.decoding import gpt2_decode_step
+
+    dims = dict(hidden=32, layers=2, heads=4, ffn_dim=64, vocab=50)
+    full = gpt2(batch_size=2, seq_len=12, seed=7, **dims)
+    return full, gpt2_decode_step(full, batch_size=2, max_len=12, **dims)
+
+
+def _step_feeds(step, prompt, steps):
+    from tachikoma_tpu_torch import run_graph
+
+    caches = {n.name: np.zeros(n.shape, np.float32) for n in step.inputs if n.name[0] in "kv"}
+    feeds = []
+    for p in range(steps):
+        f = {"token": prompt[:, p:p + 1], "pos": np.int32(p), **caches}
+        feeds.append(dict(f))
+        outs = run_graph(step, f)
+        for i in range(2):
+            caches[f"k{i}"], caches[f"v{i}"] = outs[1 + i], outs[3 + i]
+    return feeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["float", "int8"])
+def test_decode_step_captured_in_a_cuda_graph_equals_eager(cuda, form):
+    """One decode step captured in a CUDA graph after a warm eager step and
+    replayed at two positions == the eager step on the card, and its integer
+    nodes == the CPU path (the int8 step through K1, K4 and qbmm_rq)."""
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8
+
+    _, step = _tiny_decoder_models()
+    prompt = np.random.default_rng(2).integers(0, 50, (2, 6)).astype(np.int32)
+    feeds = _step_feeds(step, prompt, 6)
+    if form == "int8":
+        step = fuse_qnn(quantize(step, feeds[:4], TRANSFORMER_INT8))
+        assert {"qnn.dense", "tk.dense_rq", "tk.bmm_rq"} <= {n.op for n in step.nodes}
+    names = computational_nodes(step)
+    ex = TorchExecutor(step, capture=names, device="cuda")
+    static = {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in feeds[4].items()}
+    graph, outs = _graph_replay(lambda: ex.run_device(static))
+    for f in (feeds[4], feeds[5]):
+        for k, v in f.items():
+            static[k].copy_(torch.as_tensor(np.asarray(v)))
+        graph.replay()
+        got = [o.cpu().numpy() for o in outs]
+        eager = ex.run(f)
+        cpu = TorchExecutor(step, capture=names, device="cpu").run(f)
+        for nm, a, e, c in zip(names, got, eager, cpu):
+            assert a.dtype == e.dtype == c.dtype, nm
+            if a.dtype.kind in "iub":
+                assert (a == e).all() and (a == c).all(), nm
+            else:
+                np.testing.assert_array_equal(a, e, err_msg=nm)
+                np.testing.assert_allclose(a, c, rtol=1e-4, atol=1e-4, err_msg=nm)
+
+
+@pytest.mark.cuda
+def test_generate_ondevice_on_card_equals_generate(cuda):
+    """generate_ondevice replays a captured step (n_new - 1 replays) and
+    gives generate's greedy tokens, on the card and against the CPU; its
+    sampling is deterministic at a seed."""
+    from tachikoma_tpu_torch.models.decoding import GreedyDecoder
+
+    full, step = _tiny_decoder_models()
+    prompt = np.random.default_rng(3).integers(0, 50, (2, 5)).astype(np.int32)
+    dec = GreedyDecoder(step, layers=2).attach_prefill(fuse_attention(full))
+    host, _ = dec.generate(prompt, 6)
+    cpu, _ = GreedyDecoder(step, layers=2, device="cpu").attach_prefill(full).generate(prompt, 6)
+    np.testing.assert_array_equal(host, cpu)
+    got = dec.generate_ondevice(prompt, 6)
+    assert dec.cuda_graph is not None and dec.replays == 5
+    np.testing.assert_array_equal(got, host)
+    a = dec.generate_ondevice(prompt, 6, temperature=0.8, top_k=10, seed=3)
+    b = dec.generate_ondevice(prompt, 6, temperature=0.8, top_k=10, seed=3)
+    np.testing.assert_array_equal(a, b)
+    assert (a >= 0).all() and (a < 50).all()

@@ -6,9 +6,10 @@ fuse_attention and K6, the tuning path (tune, the four conv layouts K7-K10,
 dispatch from a tuning database) on ResNet-50, the direct-conv tuning
 path (int8 VGG-16, tune_conv on K11/K12, the graph tuner), and the int8
 transformers (BERT-base run and traced, GPT-2 small and ViT-B/16 run) on K1,
-K4 and K1's batched mode, and GPT-2 small KV-cache decoding (float: the host
+K4 and K1's batched mode, GPT-2 small KV-cache decoding (float: the host
 loop, the step replayed as one CUDA graph, the scanned form; int8 at M = 1,
-one step traced).
+one step traced), and the rest of the vision zoo (eleven builders, int8,
+fused, on K1, K2 and K5; the Inception-v3 stem traced on K4).
 
     python3 chip_smoke.py
 
@@ -172,8 +173,34 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      integer node == the CPU path, 16 tokens counted (72 launches a token)
      and == the CPU int8 decoder's; (f) one unfused int8 step at pos 8
      traced on the card: K4 and qbmm_raw == plain and timed, the trace held
-     record by record against the CPU's, CRCs and verify_trace.  Each phase
-     title carries the card's name and power limit.
+     record by record against the CPU's, CRCs and verify_trace;
+ 19. the vision zoo (models/vision.py), each builder at the JAX builder's
+     published widths and default sizes, weights and inputs from the seed:
+     SqueezeNet 1.1 b8 224^2, DenseNet-121 b8 224^2, the Inception-v3 stem b8
+     299^2, DQN b1 84^2 x 4, LeNet-5 b1, the MLP b1, the trained digits CNN
+     b32 (tests/fixtures/digits_cnn.npz), the LSTM b1 seq 16, the DCGAN
+     generator b1, SSD-lite b1 320^2 (boxes, scores, NMS indices) and
+     ResNet3D-18 b1 16 x 112^2: (19a-19k) built, calibrated, quantized and
+     fused, the fused op counts printed; every K1/K2/K3/K5 call of a forward
+     == plain and timed beside its bound and library call; 20 requests
+     through TorchExecutor(device='cuda'), launches counted, the median
+     latency and (3 requests, torch.profiler) the busy share; every integer
+     node == the CPU path, except the nodes that a float op computed in
+     another order on the card reaches (float_source_set: float
+     convolutions and products, mean and the pools, exp, sigmoid, tanh,
+     softmax), each of which == its own op's CPU plain impl on the card's
+     captured inputs, its end-to-end difference printed (elements, LSB, a
+     quantize's distance to its rounding boundary); float nodes and outputs
+     within rtol 1e-4, atol 1e-4, a float output downstream of a flipped
+     quantize within atol 2e-3; argmax == the CPU's; SSD-lite's NMS == the
+     oracle on the card's inputs, its indices == the CPU's or a printed
+     near-tie (score and IoU both within 1e-4 of their thresholds), and
+     timed; the requests run with TF32 allowed for cuDNN and matmuls, which
+     the port's float convolutions and products override;
+     (19l) the Inception-v3 stem b1 299^2 unfused: K4 == plain and timed,
+     the trace emitted on the card and held against the CPU's, CRCs and
+     verify_trace.  Each phase title carries the card's name and power
+     limit.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -187,8 +214,8 @@ MobileNetV2 b8 forward (its 17 depthwise calls), those of qbmm_rq per int8
 BERT-base b4 s128 forward and of qbmm_raw per int8 BERT-base b1 s128 trace
 forward (phase 17); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
-12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e and 18f; K11 and K12 in
-16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
+12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k and 19l; K11
+and K12 in 16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
@@ -2119,6 +2146,324 @@ def decode_path(card: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the vision zoo (phase 19)
+# ---------------------------------------------------------------------------
+
+ZOO_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res", "qdwconv_rq")
+ZOO_PROFILED = 3                  # requests under torch.profiler
+DIGITS_FIXTURE = os.path.join("tests", "fixtures", "digits_cnn.npz")
+# the end-to-end limit of a float output that a quantize flipped by the
+# float-source set feeds (ResNet3D-18's probabilities: 7.06e-4 measured, PERF.md 2)
+ZOO_FLIPPED_ATOL = 2e-3
+
+
+def _host(v):
+    return [t.cpu().numpy() for t in v] if isinstance(v, (list, tuple)) else v.cpu().numpy()
+
+
+def quantize_gap(node, x: np.ndarray, index) -> str:
+    """For a qnn.quantize element: its float input, x / scale (float32, as
+    the op divides) and that value's distance to the nearest rounding
+    boundary k + 1/2 (rint rounds ties to even)."""
+    scale = np.asarray(node.attrs["scale"], np.float32)
+    s = scale if scale.ndim == 0 else scale.reshape(-1)[index[int(node.attrs.get("axis", -1))]]
+    q = float(np.float32(x[index]) / np.float32(s))
+    return (f"input {float(x[index])!r}, x/scale {q!r}, "
+            f"{abs(abs(q - np.floor(q)) - 0.5):.3g} from a rounding boundary")
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """torch's TF32 flags set as a user may set them (cuDNN's is on by
+    default): the port's float convolutions and products run in float32
+    all the same (ops/nn.py float32_products)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def hold_zoo_nodes(graph, names, card: list, cpu: list, feeds: dict) -> dict:
+    """Phase 19's rule (runtime/crosscheck.py hold_node_level at GRAPH_RTOL /
+    GRAPH_ATOL): outside the float-source set every captured node == the CPU
+    path; inside it every node == its own op's CPU impl on the card's
+    captured inputs.  Prints each end-to-end difference there: elements that
+    differ, the largest difference in LSB, and for a qnn.quantize its first
+    differing element's float input and distance to the rounding boundary."""
+    from tachikoma_tpu_torch.runtime.crosscheck import hold_node_level
+
+    counts, differing = hold_node_level(graph, names, card, cpu, feeds, GRAPH_RTOL, GRAPH_ATOL)
+    for nm, n_diff, lsb, first in differing:
+        node = graph[nm]
+        a = card[names.index(nm)]
+        line = (f"  end to end: {nm} ({node.op}) {n_diff} of {a.size} elements "
+                f"differ from the CPU path, at most {lsb} LSB; first at {first}")
+        if node.op == "qnn.quantize":
+            src = node.inputs[0]
+            if src in names:
+                line += (f"; card {quantize_gap(node, card[names.index(src)], first)}"
+                         f"; CPU {quantize_gap(node, cpu[names.index(src)], first)}")
+        say(line)
+    return dict(counts)
+
+
+def nms_versus_cpu(graph, names, card: list, cpu: list) -> str:
+    """Phase 19's SSD-lite check of the selected boxes: the card's NMS on its
+    own inputs is held == the oracle (by hold_zoo_nodes and here), then its
+    indices against the CPU path's.  A difference prints each box that only
+    one side keeps, its score's distance to the score threshold and its
+    largest IoU with the boxes kept before it, and fails unless both that
+    score and that IoU lie within GRAPH_ATOL of their thresholds (a
+    near-tie)."""
+    from tachikoma_tpu_torch.ir.registry import get_op
+
+    node = next(n for n in graph.nodes if n.op == "vision.non_max_suppression")
+    cap = dict(zip(names, card))
+    boxes, scores = cap[node.inputs[0]], cap[node.inputs[1]]
+    oracle = get_op(node.op).np_impl(boxes, scores, node=node)
+    got, want = cap[node.name], cpu[names.index(node.name)]
+    assert (got == oracle).all(), "the card's NMS != the oracle on the card's own inputs"
+    kept = int((got >= 0).sum())
+    if (got == want).all():
+        return f"NMS: {kept} boxes kept, == the CPU path's indices and == the oracle"
+    iou_thr = float(node.attrs.get("iou_threshold", 0.5))
+    score_thr = float(node.attrs.get("score_threshold", -np.inf))
+    ours, theirs = list(got[0][got[0] >= 0]), list(want[0][want[0] >= 0])
+    only = [i for i in ours if i not in theirs] + [i for i in theirs if i not in ours]
+    near = True
+    for i in sorted(only, key=lambda i: -scores[0, i]):
+        before = [j for j in ours if scores[0, j] > scores[0, i] or (scores[0, j] == scores[0, i]
+                                                                      and j < i)]
+        b = boxes[0]
+        ious = [0.0]
+        for j in before:
+            y1, x1 = max(b[i, 0], b[j, 0]), max(b[i, 1], b[j, 1])
+            y2, x2 = min(b[i, 2], b[j, 2]), min(b[i, 3], b[j, 3])
+            inter = max(y2 - y1, 0) * max(x2 - x1, 0)
+            union = ((b[i, 2] - b[i, 0]) * (b[i, 3] - b[i, 1])
+                     + (b[j, 2] - b[j, 0]) * (b[j, 3] - b[j, 1]) - inter)
+            ious.append(float(inter / max(union, 1e-9)))
+        gap_s, gap_i = float(scores[0, i]) - score_thr, max(ious) - iou_thr
+        say(f"  NMS: box {i} {b[i].tolist()} kept by {'the card' if i in ours else 'the CPU'} "
+            f"only; score {float(scores[0, i])!r} ({gap_s:+.3g} from {score_thr}), largest IoU "
+            f"with a box kept before it {max(ious):.6f} ({gap_i:+.3g} from {iou_thr})")
+        near = near and max(abs(gap_s), abs(gap_i)) <= GRAPH_ATOL
+    assert near, "the card's NMS indices differ from the CPU path's beyond a near-tie"
+    return f"NMS: {kept} boxes kept; {len(only)} differ from the CPU path's, each a near-tie"
+
+
+def zoo_path(label: str, model: str, build, make_input, card: str,
+             check_output=None) -> tuple[dict, dict, dict]:
+    """Phase 19 for one builder at its published widths: build, calibrate
+    and quantize from SEED, fuse; every recorded K1/K2/K3/K5 call == plain,
+    timed, bound and library; REQUESTS requests through
+    TorchExecutor(device='cuda') with the launches counted; the integer
+    nodes held to the CPU path by hold_zoo_nodes; the device's busy share.
+    Returns the kernels' per-forward totals, their launches and a summary."""
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.crosscheck import float_source_set
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    phase(f"{label} {model}: build, calibrate, quantize, fuse (host) [{card}]")
+    t0 = time.perf_counter()
+    g = build()
+    rng = np.random.default_rng(SEED)
+    t1 = time.perf_counter()
+    q = quantize(g, [make_input(rng)])
+    t2 = time.perf_counter()
+    fused = fuse_qnn(q)
+    ops = Counter(n.op for n in fused.nodes if n.op not in ("var", "const"))
+    say(f"build {t1 - t0:.2f} s, calibrate+quantize {t2 - t1:.2f} s, fuse "
+        f"{time.perf_counter() - t2:.2f} s")
+    say("fused graph: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
+    names = computational_nodes(fused)
+    ex = TorchExecutor(fused, capture=names, device="cuda")
+    requests = [make_input(rng) for _ in range(REQUESTS)]
+
+    calls: list = []
+    with recording(calls):
+        ex.run_device(requests[0])
+    torch.cuda.synchronize()
+    kernels = tuple(k for k in ZOO_KERNELS if any(c[0] == k for c in calls))
+    phase(f"{label} {model}: {', '.join(kernels) or 'no kernel'} at the forward's "
+          f"{len(calls)} calls: == plain, time, bound, library [{card}]")
+    totals = check_kernels(calls, kernels, model) if kernels else {}
+
+    phase(f"{label} {model}: {REQUESTS} requests through TorchExecutor(device='cuda'), TF32 "
+          f"allowed for cuDNN and matmuls [{card}]")
+    reset(kernels)
+    lat, first = [], None
+    with tf32_allowed():  # the port's float products must not take it
+        for x in requests:
+            t0 = time.perf_counter()
+            outs = ex.run_device(x)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = [_host(o) for o in outs]
+    launches = read_launches(kernels, f"the {model} path")
+    say(", ".join(f"{k}: {n} launches, {n // REQUESTS} per request" for k, n in launches.items()))
+    med = statistics.median(lat[1:])
+    say(f"latency ms per request: median {med:.3f}, all " + " ".join(f"{v:.3f}" for v in lat))
+    t0 = time.perf_counter()
+    plain = [_host(o) for o in
+             TorchExecutor(fused, capture=names, device="cpu").run_device(requests[0])]
+    say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
+    feeds = requests[0] if isinstance(requests[0], dict) else {fused.inputs[0].name: requests[0]}
+    counts = hold_zoo_nodes(fused, names, first, plain, feeds)
+    say(f"{counts.get('int', 0)} integer nodes outside the float-source set == the CPU path; "
+        f"{counts.get('float', 0)} float nodes there within rtol {GRAPH_RTOL} atol {GRAPH_ATOL} "
+        f"({counts.get('float_bit_equal', 0)} bit-equal); the set holds {counts['cone']} nodes: "
+        f"{counts.get('cone_int', 0)} integer, each == its CPU impl on the card's inputs "
+        f"({counts.get('cone_int_differing', 0)} differ from the CPU path end to end), "
+        f"{counts.get('cone_float', 0)} float within rtol {GRAPH_RTOL} atol {GRAPH_ATOL} of it")
+    # the float outputs inside the set: within GRAPH_RTOL / GRAPH_ATOL of the
+    # CPU path where no quantize of the set flipped, else within
+    # ZOO_FLIPPED_ATOL (those outside the set were held above)
+    atol = ZOO_FLIPPED_ATOL if counts.get("cone_int_differing") else GRAPH_ATOL
+    cone = float_source_set(fused)
+    for o in fused.outputs:
+        a, b = first[names.index(o)], plain[names.index(o)]
+        if a.dtype.kind == "f" and o in cone:
+            assert np.isfinite(a).all(), o
+            err = np.abs(a.astype(np.float64) - b).max()
+            bad = int((~np.isclose(a, b, rtol=GRAPH_RTOL, atol=GRAPH_ATOL)).sum())
+            say(f"  end to end: output {o} max |card - CPU| {err:.3g}, {bad} of {a.size} "
+                f"elements outside rtol {GRAPH_RTOL} atol {GRAPH_ATOL}; held at atol {atol}")
+            np.testing.assert_allclose(a, b, rtol=GRAPH_RTOL, atol=atol, err_msg=o)
+    extra = check_output(fused, names, first, plain) if check_output else ""
+    say(f"outputs: {', '.join(f'{o} {first[names.index(o)].shape}' for o in fused.outputs)}"
+        + (f"; {extra}" if extra else ""))
+    kernel_ms = sum(t["ms"] for t in totals.values())
+    say(f"{'+'.join(kernels) or 'no kernel'} device ms per forward {kernel_ms:.4f} of {med:.3f} "
+        "ms end to end")
+
+    phase(f"{label} {model}: device time (torch.profiler, {ZOO_PROFILED} requests) [{card}]")
+    busy = profile_runs(lambda: ex.run_device(requests[1]), ZOO_PROFILED, med, "request")
+    summary = dict(model=model, nodes=len(names), median_ms=med, kernel_ms=kernel_ms,
+                   busy_ms=busy[0] if busy else None,
+                   launches={k: n // REQUESTS for k, n in launches.items()},
+                   kernels={k: {f: t[f] for f in ("calls", "ms", "bound_ms", "plain_ms",
+                                                   "library_ms")} for k, t in totals.items()},
+                   **counts)
+    say("zoo summary " + json.dumps(summary))
+    return totals, launches, summary
+
+
+def classifier(classes: int):
+    def check(graph, names, card, cpu):
+        p = card[names.index(graph.outputs[0])]
+        assert p.shape[-1] == classes and np.allclose(p.sum(-1), 1, atol=1e-4), p.shape
+        agree = int((p.argmax(-1) == cpu[names.index(graph.outputs[0])].argmax(-1)).sum())
+        assert agree == p.shape[0], f"argmax == the CPU's on {agree} of {p.shape[0]}"
+        return f"probabilities sum to 1, argmax == the CPU's on {agree} of {p.shape[0]}"
+    return check
+
+
+def logits(classes: int):
+    def check(graph, names, card, cpu):
+        y = card[names.index(graph.outputs[0])]
+        assert y.shape[-1] == classes and np.isfinite(y).all(), y.shape
+        agree = int((y.argmax(-1) == cpu[names.index(graph.outputs[0])].argmax(-1)).sum())
+        assert agree == y.shape[0], f"argmax == the CPU's on {agree} of {y.shape[0]}"
+        return f"argmax == the CPU's on {agree} of {y.shape[0]}"
+    return check
+
+
+def dcgan_check(graph, names, card, cpu):
+    img = card[names.index(graph.outputs[0])]
+    assert img.shape == (1, 64, 64, 3) and np.abs(img).max() <= 1, img.shape
+    return f"image {img.shape} in [{img.min():.3f}, {img.max():.3f}]"
+
+
+def ssd_check(graph, names, card, cpu):
+    boxes, scores, keep = (card[names.index(o)] for o in graph.outputs)
+    assert boxes.shape[:2] == scores.shape and keep.shape == (1, 100), (boxes.shape, keep.shape)
+    assert ((keep >= -1) & (keep < scores.shape[1])).all()
+    node = next(n for n in graph.nodes if n.op == "vision.non_max_suppression")
+    cap = dict(zip(names, card))
+    from tachikoma_tpu_torch.ir.registry import get_op
+
+    b, s = (torch.from_numpy(cap[i]).cuda() for i in node.inputs)
+    nms = get_op(node.op).torch_impl
+    ms = eager_ms(lambda: nms(b, s, node=node))
+    return (f"{scores.shape[1]} priors; {nms_versus_cpu(graph, names, card, cpu)}; "
+            f"NMS on the card {ms:.3f} ms a call (eager, host reads every "
+            f"few fixed-point steps included)")
+
+
+def zoo_configs():
+    """Phase 19's eleven configurations: the JAX builders' published widths
+    and default sizes (b8 for the ImageNet CNNs, b32 for the digits set, b1
+    for the rest), inputs and weights from SEED (digits_cnn: its trained
+    fixture)."""
+    from tachikoma_tpu_torch.models import vision as v
+
+    def images(shape):
+        return lambda rng: rng.standard_normal(shape).astype(np.float32)
+
+    return [
+        ("19a.", "SqueezeNet 1.1 b8 224^2", lambda: v.squeezenet(batch_size=8, seed=SEED),
+         images((8, 224, 224, 3)), classifier(1000)),
+        ("19b.", "DenseNet-121 b8 224^2", lambda: v.densenet(batch_size=8, seed=SEED),
+         images((8, 224, 224, 3)), classifier(1000)),
+        ("19c.", "Inception-v3 stem b8 299^2", lambda: v.inception_v3_stem(batch_size=8, seed=SEED),
+         images((8, 299, 299, 3)), classifier(1000)),
+        ("19d.", "DQN b1 84^2 x 4", lambda: v.dqn(batch_size=1, seed=SEED),
+         images((1, 84, 84, 4)), logits(18)),
+        ("19e.", "LeNet-5 b1 28^2", lambda: v.lenet5(batch_size=1, seed=SEED),
+         images((1, 28, 28, 1)), classifier(10)),
+        ("19f.", "MLP b1 784", lambda: v.mlp(batch_size=1, seed=SEED), images((1, 784)),
+         classifier(10)),
+        ("19g.", "digits CNN b32 8^2 (trained)",
+         lambda: v.digits_cnn(DIGITS_FIXTURE, batch_size=32), images((32, 8, 8, 1)), logits(10)),
+        ("19h.", "LSTM b1 seq 16", lambda: v.lstm(batch_size=1, seq_len=16, seed=SEED),
+         images((1, 16, 64)), classifier(10)),
+        ("19i.", "DCGAN generator b1 latent 100",
+         lambda: v.dcgan_generator(batch_size=1, seed=SEED), images((1, 100)), dcgan_check),
+        ("19j.", "SSD-lite b1 320^2", lambda: v.ssd_lite(batch_size=1, seed=SEED),
+         images((1, 320, 320, 3)), ssd_check),
+        ("19k.", "ResNet3D-18 b1 16 x 112^2",
+         lambda: v.resnet_3d(18, batch_size=1, seed=SEED), images((1, 16, 112, 112, 3)),
+         classifier(400)),
+    ]
+
+
+def vision_zoo(card: str) -> tuple[dict, dict, list]:
+    """Phase 19: the eleven builders (zoo_path each), then the traced run of
+    the Inception-v3 stem b1 299^2 unfused (K4's conv and GEMM modes, the
+    qnn.avg_pool2d and qnn.concatenate records) held against the CPU's
+    trace.  Returns the kernels' totals (the first path's per kernel, for
+    the kernels line), their launches and the per-model summaries."""
+    from tachikoma_tpu_torch.models.vision import inception_v3_stem
+
+    totals, launches, summaries = {}, Counter(), []
+    for label, model, build, make_input, check in zoo_configs():
+        t, n, summary = zoo_path(label, model, build, make_input, card, check)
+        for name, tot in t.items():
+            totals.setdefault(name, tot)
+            totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"], tot["max_abs_err"])
+        launches.update(n)
+        summaries.append(summary)
+    trace_totals, trace_launches = trace_path(
+        (f"19l. [{card}]", f"19l. [{card}]"), "Inception-v3 stem",
+        lambda b: inception_v3_stem(batch_size=b, seed=SEED), TRACE_KERNELS,
+        make_input=lambda rng: rng.standard_normal((TRACE_BATCH, 299, 299, 3)).astype(np.float32),
+        size="299^2")
+    for name, tot in trace_totals.items():
+        totals.setdefault(name, tot)
+    launches.update(trace_launches)
+    say("zoo summary " + json.dumps({"model": "Inception-v3 stem b1 299^2 trace",
+                                     "kernels": {k: {f: t[f] for f in ("calls", "ms", "bound_ms",
+                                                                       "plain_ms", "library_ms")}
+                                                 for k, t in trace_totals.items()}}))
+    return totals, dict(launches), summaries
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2257,6 +2602,12 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), t["max_abs_err"])
     merge({}, decode_launches)
     say(f"\nphase 18 seconds {time.perf_counter() - t18:.1f} (host clock)")
+    t19 = time.perf_counter()
+    zoo_totals, zoo_launches, _ = vision_zoo(card)
+    for name, t in zoo_totals.items():
+        errs[name] = max(errs.get(name, 0), t["max_abs_err"])
+    merge({}, zoo_launches)
+    say(f"\nphase 19 seconds {time.perf_counter() - t19:.1f} (host clock)")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

@@ -13,8 +13,9 @@ Subpackages:
               kernels' wrappers and their plain PyTorch versions
   quantize  — calibration + float->integer graph rewriting
   runtime   — numpy interpreter, operator fusion, torch executor
-  models    — built-in model zoo (resnet, mobilenet_v2, bert, gpt2, vit) and
-              KV-cache decoding (models/decoding.py)
+  models    — built-in model zoo (the JAX package's fourteen vision
+              builders, bert, gpt2, vit) and KV-cache decoding
+              (models/decoding.py)
 """
 
 __version__ = "0.1.0"
@@ -26,6 +27,7 @@ from .ir.infer import infer_types
 from .ops import attention as _ops_attention  # noqa: F401
 from .ops import nn as _ops_nn  # noqa: F401
 from .ops import qnn as _ops_qnn  # noqa: F401
+from .ops import tail as _ops_tail  # noqa: F401
 from .ops import tail3 as _ops_tail3  # noqa: F401
 from .runtime import fuse as _fuse  # noqa: F401
 

@@ -14,16 +14,18 @@ Usage: python -m tachikoma_tpu_torch.cli <subcommand> [args]
 
 `--device` defaults to "cuda" and never falls back to the CPU; pass
 `--device cpu` to run the kernels' plain PyTorch versions.  Graph files are
-`.json` or `.tkmod` artifacts (either package's); the zoo is resnet18 /
-resnet34 / resnet50 / mobilenet_v2 and the float transformers bert /
-bert_base / gpt2 / vit_b16 / vit_l16.  A transformer quantizes as in the JAX
+`.json` or `.tkmod` artifacts (either package's); the zoo is the JAX CLI's:
+lenet5 / mlp / digits_cnn / resnet18 / resnet34 / resnet50 / mobilenet_v2 /
+vgg16 / vgg19 / squeezenet / densenet / resnet3d18 / lstm and the float
+transformers bert / bert_base / gpt2 / vit_b16 / vit_l16 (`--image-size`,
+`--seq-len` for lstm, bert and gpt2).  A transformer quantizes as in the JAX
 package: `--transformer` takes the integer-attention preset (TRANSFORMER_INT8:
 qnn.softmax, qnn.lut, qnn.layer_norm), without it the default QConfig keeps
 softmax and gelu in float; a fused float graph's tk.attention stays float.
 A float transformer graph also runs (`run`, with its attention fused by
-`ir/transforms.py fuse_attention` when the graph was written).  Other zoo
-models, model file formats and the JAX package's other subcommands are not
-ported yet and exit with the ROADMAP item that ports them.
+`ir/transforms.py fuse_attention` when the graph was written).  Model file
+formats and the JAX package's other subcommands are not ported yet and exit
+with the ROADMAP item that ports them.
 
 Tuning: `tune g.json --db h100.jsonl [--budget N]` appends H100 records to
 the database; `run` (and every entry point) then dispatches each kernel call
@@ -41,8 +43,9 @@ from collections import Counter
 
 import numpy as np
 
-ZOO = ("resnet18", "resnet34", "resnet50", "mobilenet_v2", "vgg16", "vgg19", "bert",
-       "bert_base", "gpt2", "vit_b16", "vit_l16")
+ZOO = ("lenet5", "mlp", "resnet18", "resnet34", "resnet50", "mobilenet_v2", "bert", "bert_base",
+       "vit_b16", "vit_l16", "gpt2", "vgg16", "vgg19", "squeezenet", "densenet", "resnet3d18",
+       "lstm", "digits_cnn")
 NOT_PORTED = {
     "profile": "runtime/profiler.py, ROADMAP Queue 1 item 8",
     "evaluate": "quantize/evaluate.py and accuracy.py, ROADMAP Queue 1 item 11",
@@ -64,36 +67,51 @@ def _load_graph(path: str):
         return Graph.from_json(f.read())
 
 
-def _zoo(name: str, batch: int, image: int | None):
-    from .models import transformer
-    from .models.vision import mobilenet_v2, resnet, vgg
+def _zoo(name: str, batch: int, image: int | None, seq: int | None = None):
+    """The JAX CLI's zoo (`tachikoma_tpu/cli.py` _zoo), name for name and
+    default for default."""
+    from .models import transformer, vision
 
     name = name.lower()
     if name not in ZOO:
-        raise SystemExit(f"zoo model {name!r} is not ported yet (the port has {ZOO}; the "
-                         "JAX package's mlp, lenet5, digits_cnn, squeezenet, densenet, "
-                         "resnet3d18, lstm and the others of models/vision.py wait for "
-                         "ROADMAP Queue 1 item 10)")
+        raise SystemExit(f"unknown zoo model {name!r} (the zoo: {', '.join(ZOO)})")
+    if name == "lenet5":
+        return vision.lenet5(batch_size=batch)
+    if name == "mlp":
+        return vision.mlp(batch_size=batch)
+    if name in ("resnet18", "resnet34", "resnet50"):
+        return vision.resnet(int(name[6:]), batch_size=batch, image_size=image or 224)
     if name == "mobilenet_v2":
-        return mobilenet_v2(batch_size=batch, image_size=image or 224)
-    if name in ("vgg16", "vgg19"):
-        return vgg(int(name[3:]), batch_size=batch, image_size=image or 224)
+        return vision.mobilenet_v2(batch_size=batch, image_size=image or 224)
     if name in ("bert", "bert_base"):
-        return transformer.bert_base(batch_size=batch, seq_len=128)
+        return transformer.bert_base(batch_size=batch, seq_len=seq or 128)
     if name == "vit_b16":
         return transformer.vit_b16(batch_size=batch, image_size=image or 224)
     if name == "vit_l16":
         return transformer.vit_l16(batch_size=batch, image_size=image or 224)
     if name == "gpt2":
-        return transformer.gpt2_small(batch_size=batch, seq_len=128)
-    return resnet(int(name[6:]), batch_size=batch, image_size=image or 224)
+        return transformer.gpt2_small(batch_size=batch, seq_len=seq or 128)
+    if name in ("vgg16", "vgg19"):
+        return vision.vgg(int(name[3:]), batch_size=batch, image_size=image or 224)
+    if name == "squeezenet":
+        return vision.squeezenet(batch_size=batch, image_size=image or 224)
+    if name == "densenet":
+        return vision.densenet(batch_size=batch, image_size=image or 224)
+    if name == "resnet3d18":
+        return vision.resnet_3d(18, batch_size=batch, image_size=image or 112)
+    if name == "lstm":
+        return vision.lstm(batch_size=batch, seq_len=seq or 16)
+    # digits_cnn: the trained weights in the repo's test fixtures
+    fx = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
+                      "fixtures", "digits_cnn.npz")
+    return vision.digits_cnn(fx, batch_size=batch)
 
 
 def _model(args):
     """The float (or integer) graph of a zoo name or a graph file."""
     if args.model.endswith((".json", ".tkmod")) or os.path.isfile(args.model):
         return _load_graph(args.model)
-    return _zoo(args.model, args.batch, args.image_size)
+    return _zoo(args.model, args.batch, args.image_size, args.seq_len)
 
 
 def _rand_inputs(graph, seed=0):
@@ -280,6 +298,7 @@ def main(argv=None):
     q.add_argument("-o", "--output", required=True)
     q.add_argument("--batch", type=int, default=1)
     q.add_argument("--image-size", type=int, default=None)
+    q.add_argument("--seq-len", type=int, default=None)
     q.add_argument("--calib-data", help=".npz of calibration inputs")
     q.add_argument("--calib-batches", type=int, default=2)
     q.add_argument("--calibrate-mode", default="max",
@@ -293,6 +312,7 @@ def main(argv=None):
     c.add_argument("-o", "--output", required=True)
     c.add_argument("--batch", type=int, default=1)
     c.add_argument("--image-size", type=int, default=None)
+    c.add_argument("--seq-len", type=int, default=None)
     c.add_argument("--calib-batches", type=int, default=2)
     c.add_argument("--transformer", action="store_true",
                    help="use the integer-attention preset (TRANSFORMER_INT8)")

@@ -1,6 +1,8 @@
 """Core float/int op set of int8 ResNet and MobileNetV2, the layout ops of
-graphs imported from NCHW frameworks, and the float op set of the transformer
-zoo (BERT, GPT-2, ViT) (port of `tachikoma_tpu/ops/nn.py`).
+graphs imported from NCHW frameworks, the float op set of the transformer
+zoo (BERT, GPT-2, ViT), and the ops the rest of the vision zoo keeps after
+quantization (avg_pool2d, batch_norm, relu, sigmoid, exp, split, max, mean,
+conv2d_transpose) (port of `tachikoma_tpu/ops/nn.py`).
 
 Each op gets the JAX package's shape/dtype relation and numpy oracle, copied;
 the ops that the fused graphs run outside the kernels also get a torch
@@ -10,15 +12,16 @@ implementation that computes the same values on any device, following
 Layouts are the JAX package's: conv2d data NHWC, weight HWIO; dense data
 (..., K), weight (K, N).
 
-Float products (nn.dense, nn.batch_matmul, float nn.conv2d) are torch.matmul
-and torch.nn.functional.conv2d calls, in float32: the port assumes
-`torch.get_float32_matmul_precision() == "highest"` (torch's default) and
-`torch.backends.cudnn.allow_tf32 = False` (torch's default is True), so that
-a float32 product on the card is a float32 product and not TF32.
+Float products (nn.dense, nn.batch_matmul, float nn.conv2d,
+nn.conv2d_transpose) are torch.matmul and cuDNN calls in float32: each runs
+under `float32_products`, which turns TF32 off for cuDNN (torch's default is
+on) and for matmuls whatever the caller set, so that a float32 product on
+the card is a float32 product and not TF32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -35,6 +38,21 @@ from .fixed_point import torch_dtype
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def float32_products():
+    """TF32 off for cuDNN convolutions and matmuls inside, the caller's
+    flags restored after (torch's flags are process-wide)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if saved == (False, False):
+        yield
+        return
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
 
 def broadcast_shapes(a: Sequence[int], b: Sequence[int]) -> tuple[int, ...]:
     return tuple(int(s) for s in np.broadcast_shapes(tuple(a), tuple(b)))
@@ -182,11 +200,78 @@ def _conv2d_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> to
     if (pt, pl) != (pb, pr):
         x = torch.nn.functional.pad(x, (pl, pr, pt, pb))
         pt, pl = 0, 0
-    out = torch.nn.functional.conv2d(
-        x, weight.to(torch.float32).permute(3, 2, 0, 1),
-        stride=_pair(node.attrs.get("strides", (1, 1))), padding=(pt, pl),
-        dilation=_pair(node.attrs.get("dilation", (1, 1))),
-        groups=int(node.attrs.get("groups", 1)))
+    with float32_products():
+        out = torch.nn.functional.conv2d(
+            x, weight.to(torch.float32).permute(3, 2, 0, 1),
+            stride=_pair(node.attrs.get("strides", (1, 1))), padding=(pt, pl),
+            dilation=_pair(node.attrs.get("dilation", (1, 1))),
+            groups=int(node.attrs.get("groups", 1)))
+    return _to_out_dtype(out.permute(0, 2, 3, 1), node, data)
+
+
+# conv2d_transpose: the float deconvolutions of the DCGAN generator
+
+@infer_rule("nn.conv2d_transpose")
+def _conv2d_t_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
+    (dshape, ddt), (wshape, wdt) = ins[0], ins[1]
+    n, h, w, cin = dshape
+    kh, kw, wcin, cout = wshape
+    sh, sw = _pair(node.attrs.get("strides", (1, 1)))
+    pt, pl, pb, pr = _pad4(node.attrs.get("padding", (0, 0, 0, 0)))
+    oph, opw = _pair(node.attrs.get("output_padding", (0, 0)))
+    oh = (h - 1) * sh + kh - pt - pb + oph
+    ow = (w - 1) * sw + kw - pl - pr + opw
+    return (n, oh, ow, cout), _accum_dtype(node, dt.promote(ddt, wdt))
+
+
+@np_impl("nn.conv2d_transpose")
+def _conv2d_t_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarray:
+    n, h, w, cin = data.shape
+    kh, kw, wcin, cout = weight.shape
+    sh, sw = _pair(node.attrs.get("strides", (1, 1)))
+    pt, pl, pb, pr = _pad4(node.attrs.get("padding", (0, 0, 0, 0)))
+    oph, opw = _pair(node.attrs.get("output_padding", (0, 0)))
+    integer = dt.is_int(str(data.dtype))
+    acc = np.int64 if integer else np.float32
+    oh = (h - 1) * sh + kh - pt - pb + oph
+    ow = (w - 1) * sw + kw - pl - pr + opw
+    full = np.zeros((n, oh + pt + pb, ow + pl + pr, cout), dtype=acc)
+    d = data.astype(acc)
+    wf = weight.astype(acc).reshape(kh * kw, wcin, cout)
+    prod = np.einsum("nhwc,kco->nhwko", d, wf)  # (n,h,w,kh*kw,cout)
+    prod = prod.reshape(n, h, w, kh, kw, cout)
+    for ki in range(kh):
+        for kj in range(kw):
+            full[:, ki : ki + h * sh : sh, kj : kj + w * sw : sw, :] += prod[:, :, :, ki, kj, :]
+    out = full[:, pt : pt + oh, pl : pl + ow, :]
+    od = node.attrs.get("out_dtype")
+    if od:
+        return out.astype(od)
+    return out.astype(data.dtype if not integer else np.int32)
+
+
+@torch_impl("nn.conv2d_transpose")
+def _conv2d_t_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """Float deconvolution: torch.nn.functional.conv_transpose2d over the
+    NHWC data and the (KH, KW, CIN, COUT) weight seen as NCHW / (CIN, COUT,
+    KH, KW), unpadded: the full output ((H - 1) * SH + KH rows), then the
+    output padding's zero rows appended and the padding cropped, as the
+    oracle's scatter into `full` does.  The JAX package computes it on XLA
+    (`jax_ops.py` _conv2d_transpose_core), outside any Pallas kernel."""
+    _float_only(data, node)
+    n, h, w, cin = data.shape
+    kh, kw, wcin, cout = weight.shape
+    sh, sw = _pair(node.attrs.get("strides", (1, 1)))
+    pt, pl, pb, pr = _pad4(node.attrs.get("padding", (0, 0, 0, 0)))
+    oph, opw = _pair(node.attrs.get("output_padding", (0, 0)))
+    oh = (h - 1) * sh + kh - pt - pb + oph
+    ow = (w - 1) * sw + kw - pl - pr + opw
+    with float32_products():
+        full = torch.nn.functional.conv_transpose2d(
+            data.to(torch.float32).permute(0, 3, 1, 2),
+            weight.to(torch.float32).permute(2, 3, 0, 1), stride=(sh, sw))
+    full = torch.nn.functional.pad(full, (0, opw, 0, oph))
+    out = full[:, :, pt:pt + oh, pl:pl + ow]
     return _to_out_dtype(out.permute(0, 2, 3, 1), node, data)
 
 
@@ -212,8 +297,9 @@ def _dense_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarray
 @torch_impl("nn.dense")
 def _dense_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
     _float_only(data, node)
-    return _to_out_dtype(torch.matmul(data.to(torch.float32), weight.to(torch.float32)), node,
-                         data)
+    with float32_products():
+        out = torch.matmul(data.to(torch.float32), weight.to(torch.float32))
+    return _to_out_dtype(out, node, data)
 
 
 @infer_rule("nn.batch_matmul")
@@ -261,7 +347,9 @@ def _bmm_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
         x = x.transpose(-1, -2)
     if node.attrs.get("transpose_b", False):
         y = y.transpose(-1, -2)
-    return _to_out_dtype(torch.matmul(x, y), node, a)
+    with float32_products():
+        out = torch.matmul(x, y)
+    return _to_out_dtype(out, node, a)
 
 
 def _alias(name: str, target: str) -> None:
@@ -327,6 +415,28 @@ def _pool_geometry(node: Node, h: int, w: int):
     return kh, kw, sh, sw, (pt, pl, pb, pr), oh, ow
 
 
+def _pool_windows(data, kh, kw, strides, padding, pad_value, ceil_mode):
+    n, h, w, c = data.shape
+    sh, sw = _pair(strides)
+    pt, pl, pb, pr = _pad4(padding)
+    if ceil_mode:
+        # extend right/bottom padding so every window fits
+        oh = -((h + pt + pb - kh) // -sh) + 1
+        ow = -((w + pl + pr - kw) // -sw) + 1
+        pb = max(pb, (oh - 1) * sh + kh - h - pt)
+        pr = max(pr, (ow - 1) * sw + kw - w - pl)
+    padded = np.pad(data, ((0, 0), (pt, pb), (pl, pr), (0, 0)), constant_values=pad_value)
+    oh = (h + pt + pb - kh) // sh + 1
+    ow = (w + pl + pr - kw) // sw + 1
+    s = padded.strides
+    return np.lib.stride_tricks.as_strided(
+        padded,
+        shape=(n, oh, ow, kh, kw, c),
+        strides=(s[0], s[1] * sh, s[2] * sw, s[1], s[2], s[3]),
+        writeable=False,
+    )
+
+
 @infer_rule("nn.max_pool2d")
 def _pool_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
     (dshape, ddt) = ins[0]
@@ -338,16 +448,10 @@ def _pool_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
 @np_impl("nn.max_pool2d")
 def _max_pool2d_np(data: np.ndarray, *, node: Node) -> np.ndarray:
     lo = np.iinfo(data.dtype).min if dt.is_int(str(data.dtype)) else -np.inf
-    n, h, w, c = data.shape
-    kh, kw, sh, sw, (pt, pl, pb, pr), oh, ow = _pool_geometry(node, h, w)
-    padded = np.pad(data, ((0, 0), (pt, pb), (pl, pr), (0, 0)), constant_values=lo)
-    s = padded.strides
-    win = np.lib.stride_tricks.as_strided(
-        padded,
-        shape=(n, oh, ow, kh, kw, c),
-        strides=(s[0], s[1] * sh, s[2] * sw, s[1], s[2], s[3]),
-        writeable=False,
-    )
+    kh, kw = _pair(node.attrs["pool_size"])
+    win = _pool_windows(data, kh, kw, node.attrs.get("strides", (1, 1)),
+                        node.attrs.get("padding", (0, 0, 0, 0)), lo,
+                        node.attrs.get("ceil_mode", False))
     return win.max(axis=(3, 4))
 
 
@@ -367,8 +471,65 @@ def _max_pool2d_torch(data: torch.Tensor, *, node: Node) -> torch.Tensor:
     return win.amax(dim=(-2, -1))
 
 
-def _int_avg(total, count: int):
-    """Round-half-away-from-zero integer division (numpy or torch int64)."""
+register_op("nn.avg_pool2d", infer=_pool_rel)
+
+
+def _avg_counts_window(node: Node) -> bool:
+    """Whether every window divides by kh * kw (count_include_pad, or no
+    padding attr); else by the number of its cells inside the image."""
+    return bool(node.attrs.get("count_include_pad", False)) or \
+        _pad4(node.attrs.get("padding", (0, 0, 0, 0))) == (0, 0, 0, 0)
+
+
+@np_impl("nn.avg_pool2d")
+def _avg_pool2d_np(data: np.ndarray, *, node: Node) -> np.ndarray:
+    kh, kw = _pair(node.attrs["pool_size"])
+    integer = dt.is_int(str(data.dtype))
+    acc = np.int64 if integer else np.float32
+
+    def windows(a):
+        return _pool_windows(a, kh, kw, node.attrs.get("strides", (1, 1)),
+                             node.attrs.get("padding", (0, 0, 0, 0)), 0,
+                             node.attrs.get("ceil_mode", False))
+
+    total = windows(data.astype(acc)).sum(axis=(3, 4))
+    if _avg_counts_window(node):
+        count = kh * kw
+    else:
+        ones = np.ones(data.shape[1:3] + (1,), dtype=acc)[None]
+        count = windows(np.broadcast_to(ones, data.shape).astype(acc)).sum(axis=(3, 4))
+    if integer:
+        # round-half-away-from-zero integer average (qnn avg_pool's rule)
+        return _int_avg(total, count).astype(data.dtype)
+    return (total / count).astype(data.dtype)
+
+
+@torch_impl("nn.avg_pool2d")
+def _avg_pool2d_torch(data: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """Window sums over the zero-padded image (int64 for integers), divided
+    by kh * kw or by each window's count of image cells, as the oracle."""
+    n, h, w, c = data.shape
+    kh, kw, sh, sw, (pt, pl, pb, pr), oh, ow = _pool_geometry(node, h, w)
+    integer = not data.dtype.is_floating_point
+    acc = torch.int64 if integer else torch.float32
+
+    def window_sum(t):
+        padded = torch.nn.functional.pad(t, (0, 0, pl, pr, pt, pb))
+        return padded.unfold(1, kh, sh).unfold(2, kw, sw).sum(dim=(-2, -1))
+
+    total = window_sum(data.to(acc))
+    if _avg_counts_window(node):
+        count = kh * kw
+    else:
+        count = window_sum(torch.ones((1, h, w, 1), dtype=acc, device=data.device))
+    if integer:
+        return _int_avg(total, count).to(data.dtype)
+    return (total / count).to(data.dtype)
+
+
+def _int_avg(total, count):
+    """Round-half-away-from-zero integer division (numpy or torch int64) by
+    a positive count, an int or an array of the total's shape."""
     half = count // 2
     if isinstance(total, torch.Tensor):
         pos = torch.div(total + half, count, rounding_mode="floor")
@@ -472,6 +633,26 @@ def _bn_np(data, gamma, beta, mean, var, *, node: Node):
     return out.astype(data.dtype)
 
 
+@torch_impl("nn.batch_norm")
+def _bn_torch(data, gamma, beta, mean, var, *, node: Node):
+    """The oracle op for op in float32: 1 / sqrt(var + eps), then (x - mean)
+    * (gamma * inv) + beta, each a correctly rounded float32 operation on
+    either device (no rsqrt, no fused multiply-add, no cuDNN), so the result
+    is the CPU's bit for bit: a batch norm that feeds qnn.quantize
+    (DenseNet's, the 3D ResNet's) quantizes the same on the card."""
+    eps = float(np.float32(node.attrs.get("epsilon", 1e-5)))
+    axis = int(node.attrs.get("axis", -1))
+    shape = [1] * data.ndim
+    shape[axis] = -1
+    f32 = torch.float32
+    s = torch.sqrt(var.to(f32) + eps)
+    inv = torch.ones_like(s) / s
+    scale = gamma.to(f32) * inv
+    centred = data.to(f32) - mean.to(f32).reshape(shape)
+    out = centred * scale.reshape(shape) + beta.to(f32).reshape(shape)
+    return out.to(data.dtype)
+
+
 register_op("nn.relu", infer=_same_rel)
 register_op("nn.softmax", infer=_same_rel)
 
@@ -479,6 +660,11 @@ register_op("nn.softmax", infer=_same_rel)
 @np_impl("nn.relu")
 def _relu_np(x, *, node: Node):
     return np.maximum(x, np.zeros((), dtype=x.dtype))
+
+
+@torch_impl("nn.relu")
+def _relu_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @np_impl("nn.softmax")
@@ -539,6 +725,35 @@ def _tanh_np(x, *, node: Node):
 @torch_impl("tanh")
 def _tanh_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
     return torch.tanh(x.to(torch.float32)).to(x.dtype)
+
+
+register_op("sigmoid", infer=_same_rel)
+register_op("exp", infer=_same_rel)
+
+
+@np_impl("sigmoid")
+def _sigmoid_np(x, *, node: Node):
+    x32 = x.astype(np.float32)
+    return (1.0 / (1.0 + np.exp(-x32))).astype(x.dtype)
+
+
+@torch_impl("sigmoid")
+def _sigmoid_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    # the oracle's formula, not torch.sigmoid: only the exp is not correctly
+    # rounded on the card; the add and the division are
+    x32 = x.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    return (one / (one + torch.exp(-x32))).to(x.dtype)
+
+
+@np_impl("exp")
+def _exp_np(x, *, node: Node):
+    return np.exp(x.astype(np.float32)).astype(x.dtype)
+
+
+@torch_impl("exp")
+def _exp_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return torch.exp(x.to(torch.float32)).to(x.dtype)
 
 
 @np_impl("nn.gelu")
@@ -777,6 +992,46 @@ def _concat_torch(*args: torch.Tensor, node: Node) -> torch.Tensor:
     return torch.cat([a.to(torch_dtype(dtype)) for a in args], dim=int(node.attrs.get("axis", 0)))
 
 
+@infer_rule("split")
+def _split_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    axis = int(node.attrs.get("axis", 0)) % len(a)
+    iops = node.attrs["indices_or_sections"]
+    if isinstance(iops, int):
+        assert a[axis] % iops == 0
+        sec = a[axis] // iops
+        sizes = [sec] * iops
+    else:
+        pts = [0] + list(iops) + [a[axis]]
+        sizes = [pts[i + 1] - pts[i] for i in range(len(pts) - 1)]
+    out = []
+    for s in sizes:
+        sh = list(a)
+        sh[axis] = s
+        out.append((tuple(sh), adt))
+    return out
+
+
+@np_impl("split")
+def _split_np(a, *, node: Node):
+    axis = int(node.attrs.get("axis", 0))
+    iops = node.attrs["indices_or_sections"]
+    if not isinstance(iops, int):
+        iops = list(iops)
+    return list(np.split(a, iops, axis=axis))
+
+
+@torch_impl("split")
+def _split_torch(a: torch.Tensor, *, node: Node) -> list[torch.Tensor]:
+    """A list of views, as the oracle's np.split: equal sections (the
+    relation asserts they divide the axis) or the pieces between indices."""
+    axis = int(node.attrs.get("axis", 0))
+    iops = node.attrs["indices_or_sections"]
+    if not isinstance(iops, int):
+        iops = [int(i) for i in iops]
+    return list(torch.tensor_split(a, iops, dim=axis))
+
+
 def _slices(node: Node, ndim: int) -> list[slice]:
     """The python slice of each axis of a strided_slice."""
     begin = list(node.attrs["begin"])
@@ -921,3 +1176,75 @@ def _bto_np(a, *, node: Node):
 @torch_impl("broadcast_to")
 def _bto_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
     return a.expand(tuple(int(s) for s in node.attrs["shape"])).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# reductions: the SSD head's best-class score (max) and the 3D ResNet's
+# spatio-temporal pool (mean)
+# ---------------------------------------------------------------------------
+
+def _reduce_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    axes = node.attrs.get("axis")
+    keepdims = node.attrs.get("keepdims", False)
+    if axes is None:
+        axes = tuple(range(len(a)))
+    elif not isinstance(axes, (tuple, list)):
+        axes = (axes,)
+    axes = tuple(ax % len(a) for ax in axes)
+    if keepdims:
+        shape = tuple(1 if i in axes else s for i, s in enumerate(a))
+    else:
+        shape = tuple(s for i, s in enumerate(a) if i not in axes)
+    return shape, adt
+
+
+def _norm_axes(node: Node, ndim: int):
+    axes = node.attrs.get("axis")
+    if axes is None:
+        return None
+    if not isinstance(axes, (tuple, list)):
+        axes = (axes,)
+    return tuple(ax % ndim for ax in axes)
+
+
+@np_impl("max")
+def _max_np(a, *, node: Node):
+    out = np.max(a, axis=_norm_axes(node, a.ndim), keepdims=bool(node.attrs.get("keepdims", False)))
+    return np.asarray(out, dtype=a.dtype)
+
+
+@torch_impl("max")
+def _max_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    axes = _norm_axes(node, a.ndim)
+    return torch.amax(a, dim=axes if axes is not None else tuple(range(a.ndim)),
+                      keepdim=bool(node.attrs.get("keepdims", False)))
+
+
+@np_impl("mean")
+def _mean_np(a, *, node: Node):
+    axes = _norm_axes(node, a.ndim)
+    keepdims = bool(node.attrs.get("keepdims", False))
+    if not dt.is_float(str(a.dtype)):
+        return np.mean(a.astype(np.float64), axis=axes, keepdims=keepdims).astype(a.dtype)
+    return np.asarray(np.mean(a.astype(np.float32), axis=axes, keepdims=keepdims), dtype=a.dtype)
+
+
+@torch_impl("mean")
+def _mean_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """Float: a float32 mean (its sum order is torch's, not numpy's pairwise
+    one).  Integer: the oracle's float64 mean truncated toward zero, computed
+    exactly as the int64 sum over the count in float64 (the sum of int32 or
+    narrower values stays below 2^53, so every order gives it)."""
+    axes = _norm_axes(node, a.ndim)
+    dims = axes if axes is not None else tuple(range(a.ndim))
+    keepdims = bool(node.attrs.get("keepdims", False))
+    if a.dtype.is_floating_point:
+        return a.to(torch.float32).mean(dim=dims, keepdim=keepdims).to(a.dtype)
+    count = int(np.prod([a.shape[d] for d in dims]))
+    total = a.to(torch.int64).sum(dim=dims, keepdim=keepdims).to(torch.float64)
+    return torch.trunc(total / count).to(a.dtype)
+
+
+register_op("max", infer=_reduce_rel)
+register_op("mean", infer=_reduce_rel)

@@ -17,6 +17,8 @@ equal the oracle's bit for bit on any device.
   * qnn.mul        — (lhs - zp)(rhs - zp) in int32, requantized from the
                      product of the scales.
   * qnn.concatenate — each input requantized to the output qparams.
+  * qnn.avg_pool2d — (x - izp) pooled to the integer average (round half
+                     away from zero), requantized to the output qparams.
   * qnn.softmax, qnn.lut, qnn.attention, qnn.layer_norm — the JAX package's
                      pinned integer semantics, tables built on the host in
                      float64 numpy.  Its TPU tactics are not carried over: the
@@ -399,6 +401,43 @@ def _qconcat_torch(*args: torch.Tensor, node: Node) -> torch.Tensor:
             parts.append(requantize(x.to(torch.int32), float(s), int(z), oscale, ozp,
                                     rounding=rounding, out_dtype=out_dtype))
     return torch.cat(parts, dim=int(node.attrs.get("axis", 0)))
+
+
+# -- quantized average pool ---------------------------------------------------
+
+@infer_rule("qnn.avg_pool2d")
+def _qavgpool_rel(node: Node, ins):
+    return _nn._pool_rel(node, ins)
+
+
+@np_impl("qnn.avg_pool2d")
+def _qavgpool_np(x: np.ndarray, *, node: Node) -> np.ndarray:
+    # `src/relay/qnn/op/avg_pool2d.cc`: cast i32, subtract izp, pool (integer
+    # average, round-half-away), requantize to output qparams, clip/cast.
+    out_dtype = node.attrs.get("out_dtype", str(x.dtype))
+    izp = int(node.attrs.get("input_zero_point", 0))
+    v = x.astype(np.int32) - np.int32(izp)
+    pooled = _nn._avg_pool2d_np(v, node=node)
+    return requantize_np(
+        pooled, float(node.attrs["input_scale"]), 0, float(node.attrs["output_scale"]),
+        int(node.attrs.get("output_zero_point", 0)),
+        rounding=node.attrs.get("rounding", "UPWARD"), out_dtype=out_dtype)
+
+
+@torch_impl("qnn.avg_pool2d")
+def _qavgpool_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """The oracle's sequence in integer torch: int32 minus the input zero
+    point, nn.avg_pool2d's int64 window sums and round-half-away average
+    (padded cells add 0 and, without count_include_pad, do not count), then
+    the exact fixed-point requantize.  The JAX package runs it on XLA, not
+    in Pallas."""
+    out_dtype = node.attrs.get("out_dtype", _nn._dtype_name(x))
+    izp = int(node.attrs.get("input_zero_point", 0))
+    pooled = _nn._avg_pool2d_torch(x.to(torch.int32) - izp, node=node)
+    return requantize(
+        pooled, float(node.attrs["input_scale"]), 0, float(node.attrs["output_scale"]),
+        int(node.attrs.get("output_zero_point", 0)),
+        rounding=node.attrs.get("rounding", "UPWARD"), out_dtype=out_dtype)
 
 
 # -- quantized batch matmul --------------------------------------------------

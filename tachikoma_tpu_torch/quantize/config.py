@@ -3,7 +3,7 @@
 The same QConfig fields as the JAX package, so a configuration carries over;
 its calibration runs the numpy oracle only.  Of the JAX package's presets the
 port has TRANSFORMER_INT8; TRANSFORMER_INT8_SCAN (for the segmented executor)
-and W8A16 (the int64 wide path) wait for ROADMAP Queue 1 steps 4 and 5."""
+and W8A16 (the int64 wide path) wait for ROADMAP Queue 1 items 13 and 2."""
 
 from __future__ import annotations
 

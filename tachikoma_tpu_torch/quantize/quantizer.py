@@ -3,10 +3,10 @@
 
 The port carries the JAX package's handlers, copied, so its output equals the
 JAX package's byte for byte: conv2d, dense, batch_matmul, bias_add, relu,
-clip, add, subtract, multiply, concatenate, global_avg_pool2d,
+clip, add, subtract, multiply, concatenate, avg_pool2d (qnn.avg_pool2d, the
+input's scale and zero point passed through), global_avg_pool2d,
 adaptive_avg_pool2d, pad, the integer softmax, the LUT ops, layer_norm and
-the passthrough ops it registers.  nn.avg_pool2d (qnn.avg_pool2d) is not
-ported: a graph that reaches it raises (ROADMAP Queue 1 item 9.4).
+the passthrough ops it registers.
 
 Strategy: one topological walk.  Each original node maps to a QVal — a value
 in the new graph tagged with its numeric representation:
@@ -305,9 +305,17 @@ class Quantizer:
         self.env[n.name] = QVal("quant", out, oscale, ozp, self.cfg.act_dtype)
 
     def _avg_pool(self, n: Node):
-        raise NotImplementedError(
-            f"{n.name} (nn.avg_pool2d): qnn.avg_pool2d is not ported yet (ROADMAP Queue 1 "
-            "item 9.4)")
+        src = self.env[n.inputs[0]]
+        if src.kind != "quant":
+            src = self.to_quant(n.inputs[0])
+        out = self.b.call(
+            "qnn.avg_pool2d", src.name,
+            input_scale=float(src.scale), input_zero_point=src.zp,
+            output_scale=float(src.scale), output_zero_point=src.zp,
+            rounding=self.cfg.rounding, out_dtype=src.dtype, name=n.name,
+            **{k: v for k, v in n.attrs.items()},
+        )
+        self.env[n.name] = QVal("quant", out, src.scale, src.zp, src.dtype)
 
     def _global_avg_pool(self, n: Node):
         # the integer mean rounds identically in the raw quantized domain

@@ -1718,3 +1718,143 @@ def test_generate_ondevice_on_card_equals_generate(cuda):
     b = dec.generate_ondevice(prompt, 6, temperature=0.8, top_k=10, seed=3)
     np.testing.assert_array_equal(a, b)
     assert (a >= 0).all() and (a < 50).all()
+
+
+# ---------------------------------------------------------------------------
+# the rest of the vision zoo: its new kernel shapes and its float ops
+# ---------------------------------------------------------------------------
+
+# K2 at shapes no earlier path gave it: LeNet-5's 5x5 convs (CIN 1 -> 6 pad 2:
+# COUT % 16 != 0, the output stored element by element; CIN 6 -> 16), DQN's
+# 8x8 s4 at CIN 4 (the narrow-CIN gather, K = 256), 4x4 s2 at CIN 32 and
+# 3x3 at 9^2, Inception's 3x3 s2 valid stem at 299^2, SSD-lite's extra 3x3 s2
+# convs on 5^2 and 3^2 maps
+ZOO_K2_CASES = [
+    ((1, 28, 28, 1), 5, 1, 2, 6, -3),
+    ((1, 14, 14, 6), 5, 1, 0, 16, 4),
+    ((1, 84, 84, 4), 8, 4, 0, 32, 0),
+    ((1, 20, 20, 32), 4, 2, 0, 64, 7),
+    ((1, 9, 9, 64), 3, 1, 0, 64, -5),
+    ((8, 299, 299, 3), 3, 2, 0, 32, 0),
+    ((1, 5, 5, 128), 3, 2, 1, 256, 0),
+    ((1, 3, 3, 128), 3, 2, 1, 256, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ZOO_K2_CASES)
+def test_k2_at_the_vision_zoo_shapes_on_card(rng, cuda, case):
+    shape, k, s, p, cout, izp = case
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    kw = dict(strides=(s, s), padding=(p, p, p, p), izp=izp, out_zp=1)
+    got = qconv_rq(x, w, b, mult, shift, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv_rq_plain(x, w, b, mult, shift, **kw))
+
+
+# K5 at SSD-lite's head depthwise convs (3x3 pad 1): 20^2 x 96, 10^2 x 160,
+# and the extra stages' maps, 5^2 to 1^2 at C 256 (most of a window padding)
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 20, 20, 96), (1, 10, 10, 160), (1, 5, 5, 256),
+                                   (1, 3, 3, 256), (1, 2, 2, 256), (1, 1, 1, 256)])
+def test_k5_on_tiny_maps_on_card(rng, cuda, shape):
+    c = shape[3]
+    x, w = _dev(rng, shape, cuda), _dev(rng, (3, 3, 1, c), cuda)
+    b, mult, shift = _epilogue_args(rng, c, cuda)
+    kw = dict(strides=(1, 1), padding=(1, 1, 1, 1), izp=-4, rq_izp=-3, out_zp=2,
+              rounding="UPWARD", qmin=0, qmax=127)
+    got = qdwconv_rq(x, w, b, mult, shift, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qdwconv_rq_plain(x, w, b, mult, shift, **kw))
+
+
+# K1 at SSD-lite's 1x1 heads (N = 126 and 24 = 6 anchors x 21 classes, x 4)
+# and at M = 1 (the LSTM's two denses a step, DQN's and the MLP's heads)
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(400, 96, 126), (400, 96, 24), (25, 256, 126), (9, 256, 24),
+                                 (1, 64, 512), (1, 128, 512), (1, 3136, 512), (1, 784, 128)])
+def test_k1_at_the_vision_zoo_shapes_on_card(rng, cuda, mkn):
+    m, k, n = mkn
+    x, w = _dev(rng, (m, k), cuda), _dev(rng, (k, n), cuda)
+    b, mult, shift = _epilogue_args(rng, n, cuda)
+    kw = dict(rq_izp=3, out_zp=-2, rounding="UPWARD", qmin=-128, qmax=127)
+    got = qgemm_rq(x, w, b, mult, shift, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qgemm_rq_plain(x, w, b, mult, shift, **kw))
+
+
+def _one_node(op, attrs, *inputs):
+    from tachikoma_tpu_torch.ir.graph import Node
+    from tachikoma_tpu_torch.ir.registry import get_op
+
+    node = Node("n", op, tuple(f"x{i}" for i in range(len(inputs))), attrs)
+    impl = get_op(op)
+    return impl, node
+
+
+@pytest.mark.cuda
+def test_batch_norm_on_card_is_the_cpus_bit_for_bit(rng, cuda):
+    x = (rng.standard_normal((2, 16, 16, 64)) * np.exp(rng.uniform(-6, 6, (2, 16, 16, 64)))
+         ).astype(np.float32)
+    params = [np.abs(rng.standard_normal(64)).astype(np.float32) + 0.5,
+              rng.standard_normal(64).astype(np.float32) * 0.1,
+              rng.standard_normal(64).astype(np.float32) * 0.1,
+              np.abs(rng.standard_normal(64)).astype(np.float32) + 1e-4]
+    impl, node = _one_node("nn.batch_norm", {}, x, *params)
+    cpu = impl.torch_impl(torch.from_numpy(x), *map(torch.from_numpy, params), node=node)
+    card = impl.torch_impl(torch.from_numpy(x).to(cuda),
+                           *(torch.from_numpy(p).to(cuda) for p in params), node=node)
+    assert card.cpu().numpy().tobytes() == cpu.numpy().tobytes()
+    assert cpu.numpy().tobytes() == impl.np_impl(x, *params, node=node).tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,thr", [(3204, 100, 0.05), (500, 20, -1.0), (64, 64, 0.5)])
+def test_nms_on_card_equals_the_oracle(rng, cuda, n, k, thr):
+    lo = rng.random((2, n, 2)).astype(np.float32) * 0.8
+    boxes = np.concatenate([lo, lo + (0.05 + rng.random((2, n, 2)) * 0.3)], -1).astype(np.float32)
+    scores = (1 / 21 + rng.standard_normal((2, n)) * 0.01).astype(np.float32)
+    m = n // 7
+    scores[:, 1:7 * m:7] = scores[:, 0:7 * m:7]  # ties
+    impl, node = _one_node("vision.non_max_suppression",
+                           dict(max_output_size=k, iou_threshold=0.5, score_threshold=thr),
+                           boxes, scores)
+    got = impl.torch_impl(torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda),
+                          node=node)
+    np.testing.assert_array_equal(got.cpu().numpy(), impl.np_impl(boxes, scores, node=node))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("lenet5", {}), ("dqn", {}), ("squeezenet", {"image_size": 64}),
+    ("inception_v3_stem", {"image_size": 75}),
+    ("densenet", {"image_size": 32, "blocks": (2, 2, 2, 2), "growth": 8}),
+    ("lstm", {"seq_len": 4}), ("ssd_lite", {"image_size": 64}),
+    ("dcgan_generator", {}), ("resnet_3d", {"frames": 2, "image_size": 8})])
+def test_vision_zoo_executor_on_card_equals_cpu(cuda, name, kw, monkeypatch):
+    """The small zoo graphs, fused, on the card against the CPU path, with
+    TF32 allowed for cuDNN and matmuls (the port's float products turn it
+    off): every integer node == the CPU path, or, where a float op computed
+    in another order on the card reaches it, == its own op's CPU impl on the
+    card's inputs (runtime/crosscheck.py); float nodes within rtol 1e-4,
+    atol 1e-4 of the same."""
+    from tachikoma_tpu_torch.models import vision
+    from tachikoma_tpu_torch.runtime.crosscheck import hold_node_level
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    rng = np.random.default_rng(9)
+    g = getattr(vision, name)(**kw)
+    feeds = [{n.name: rng.standard_normal(n.shape).astype(np.float32) for n in g.inputs}
+             for _ in range(2)]
+    fused = fuse_qnn(quantize(g, [feeds[0]]))
+    names = computational_nodes(fused)
+
+    def host(v):
+        return [t.cpu().numpy() for t in v] if isinstance(v, list) else v.cpu().numpy()
+
+    card = [host(v) for v in TorchExecutor(fused, capture=names, device="cuda").run_device(feeds[1])]
+    cpu = [host(v) for v in TorchExecutor(fused, capture=names, device="cpu").run_device(feeds[1])]
+    counts, _ = hold_node_level(fused, names, card, cpu, feeds[1], 1e-4, 1e-4)
+    assert counts["int"] + counts["cone_int"] > 0

@@ -45,7 +45,8 @@ def test_import_pulls_in_no_jax():
             "tachikoma_tpu_torch.tune.database", "tachikoma_tpu_torch.tune.tuner",
             "tachikoma_tpu_torch.tune.model", "tachikoma_tpu_torch.tune.schedule",
             "tachikoma_tpu_torch.tune.evolutionary",
-            "tachikoma_tpu_torch.models.decoding", "tachikoma_tpu_torch.ops.tail3"} <= set(modules)
+            "tachikoma_tpu_torch.models.decoding", "tachikoma_tpu_torch.ops.tail3",
+            "tachikoma_tpu_torch.ops.tail", "tachikoma_tpu_torch.models.vision"} <= set(modules)
 
 
 def test_the_port_never_opens_the_tpu_tuning_database():

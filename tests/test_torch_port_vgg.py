@@ -89,5 +89,5 @@ def test_cli_quantizes_vgg16_as_the_jax_cli(tmp_path):
     q = Graph.from_json(ours.read_text())
     assert sum(n.op == "qnn.conv2d" for n in q.nodes) == 13
     assert sum(n.op == "qnn.dense" for n in q.nodes) == 3
-    with pytest.raises(SystemExit, match="Queue 1 item 10"):
-        cli.main(["quantize", "squeezenet", "-o", str(ours)])
+    with pytest.raises(SystemExit, match="unknown zoo model"):
+        cli.main(["quantize", "alexnet", "-o", str(ours)])

@@ -8,8 +8,11 @@ path (int8 VGG-16, tune_conv on K11/K12, the graph tuner), and the int8
 transformers (BERT-base run and traced, GPT-2 small and ViT-B/16 run) on K1,
 K4 and K1's batched mode, GPT-2 small KV-cache decoding (float: the host
 loop, the step replayed as one CUDA graph, the scanned form; int8 at M = 1,
-one step traced), and the rest of the vision zoo (eleven builders, int8,
-fused, on K1, K2 and K5; the Inception-v3 stem traced on K4).
+one step traced), the rest of the vision zoo (eleven builders, int8,
+fused, on K1, K2 and K5; the Inception-v3 stem traced on K4), and the
+TFLite import and W8A16 path (the exporter's int8 MobileNetV2 at b16 on K1,
+K2 and K5 at its own zero points, traced at b1; ResNet-50 W8A16 b8 and b1
+on K4 over two byte planes; the 16x8 fixture).
 
     python3 chip_smoke.py
 
@@ -200,7 +203,31 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      (19l) the Inception-v3 stem b1 299^2 unfused: K4 == plain and timed,
      the trace emitted on the card and held against the CPU's, CRCs and
      verify_trace.  Each phase title carries the card's name and power
-     limit.
+     limit;
+ 20. the TFLite import and the W8A16 path: (a) the exporter's int8
+     MobileNetV2 96^2 (tests/fixtures/mobilenet_v2_int8.tflite: 52 convs
+     and a dense, every one at a nonzero input zero point, -128 on 25;
+     TFLite's stride-2 SAME padding (0, 0, 1, 1)) imported at b16 with
+     integer_lut False and the default, fused: every K1/K2/K5 call == plain
+     and timed beside its bound and library call, 20 requests on the batch
+     fixture's 16 images (launches counted), every integer node == the CPU
+     path, the int8 output within one quantum of the TFLite interpreter's
+     goldens and top-1 16 of 16, latency, images/s and the busy share; the
+     default import's nodes == the CPU path, top-1 16 of 16; (b) the same
+     model b1 unfused: K4 and K5's raw mode == plain, the trace emitted on
+     the card, held against the CPU's, CRCs and verify_trace; (c) ResNet-50
+     quantized W8A16 (int16 activations, int64 accumulators; seed 0, numpy
+     calibration outside the timed windows) b8 224^2, unfused: every int64
+     product (wide_planes: K4's raw modes on two byte planes of the int16
+     activations) == its float64 plain version and timed beside its bound
+     and the float64 cuBLAS / cuDNN call of the same shapes, every plane's
+     K4 call == plain and timed, 20 requests, every integer node == the CPU
+     path, the probabilities within phase 5's tolerance, latency and the
+     busy share; (d) its b1 trace on the card, held against the CPU's
+     trace, CRCs and verify_trace; (e) the 16x8 TFLite fixture on the card
+     (K4 and K5's raw modes on the planes, a depthwise conv among them):
+     every call == plain, integers == the CPU path, the float output within
+     2^-15 of the interpreter's.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -212,9 +239,12 @@ calls; every wrapper's device work included), those of K11 per VGG-16 b8
 forward (its 13 conv calls, summed with their repeats) and of K12 per
 MobileNetV2 b8 forward (its 17 depthwise calls), those of qbmm_rq per int8
 BERT-base b4 s128 forward and of qbmm_raw per int8 BERT-base b1 s128 trace
-forward (phase 17); `launches` sums each
+forward (phase 17), those of wide_planes (the W8A16 products on K4 / K5
+over two byte planes: its bound the int16 read, int8 weights and int64
+write, or two int8 products; its library call the float64 product) per
+W8A16 ResNet-50 b8 forward (phase 20c); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
-12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k and 19l; K11
+12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l and 20a-20e; K11
 and K12 in 16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
@@ -288,6 +318,10 @@ KERNELS = {
     # no Pallas kernel: XLA runs tk.bmm_rq and qnn.batch_matmul in the JAX package
     "qbmm_rq": ("tachikoma_tpu_torch/csrc/qgemm_rq.cu", "tachikoma_tpu/runtime/fuse.py:389"),
     "qbmm_raw": ("tachikoma_tpu_torch/csrc/qgemm_rq.cu", "tachikoma_tpu/ops/jax_ops.py:249"),
+    # no Pallas kernel: XLA runs qnn.conv2d / qnn.dense into int64 in the JAX
+    # package; the port runs them on K4 / K5's raw modes over two byte planes
+    "wide_planes": ("tachikoma_tpu_torch/ops/kernels/wide.py",
+                    "tachikoma_tpu/ops/jax_ops.py:103"),
 }
 LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_s", "qconv_rq_w", "qconv_rq_r")
 WRAPPER_CALLS = 20                # host-clock repeats of the wrappers' own work
@@ -301,6 +335,15 @@ TRACE_KERNELS = ("qgemm_raw", "qconv_raw")
 MBV2_RUN_KERNELS = ("qdwconv_rq", "qgemm_rq", "qconv_rq")
 MBV2_TRACE_KERNELS = ("qdwconv_raw", "qgemm_raw", "qconv_raw")
 FIXTURE = os.path.join("tests", "fixtures", "synth_mbv2.tkmod")
+# phase 20: the exporter-made TFLite fixtures and the W8A16 path
+TFLITE_MODEL = os.path.join("tests", "fixtures", "mobilenet_v2_int8.tflite")
+TFLITE_BATCH = os.path.join("tests", "fixtures", "mobilenet_v2_int8_batch.npz")
+TFLITE_16X8 = os.path.join("tests", "fixtures", "small_cnn_16x8.tflite")
+TFLITE_16X8_IO = os.path.join("tests", "fixtures", "small_cnn_16x8_io.npz")
+TFLITE_KERNELS = ("qgemm_rq", "qconv_rq", "qdwconv_rq")
+TFLITE_TRACE_KERNELS = ("qgemm_raw", "qconv_raw", "qdwconv_raw")
+W8A16_KERNELS = ("wide_planes", "qgemm_raw", "qconv_raw")
+W8A16_16X8_KERNELS = ("wide_planes", "qgemm_raw", "qconv_raw", "qdwconv_raw")
 VGG_RUN_KERNELS = ("qconv_rq", "qgemm_rq")
 DIRECT_KERNELS = ("qconv_direct", "qdwconv_direct")
 VGG_CONVS, VGG_CONV_WORKLOADS, MBV2_DW_CONVS = 13, 9, 17
@@ -483,10 +526,11 @@ def eager_ms(fn, reps=3) -> float:
 def recording(calls: list):
     """Record every call of the kernel wrappers (kernel name, args, kwargs)."""
     from tachikoma_tpu_torch.ops import attention
-    from tachikoma_tpu_torch.ops.kernels import conv, matmul_int8
+    from tachikoma_tpu_torch.ops.kernels import conv, matmul_int8, wide
 
     saved = []
-    for mod, attr, name in ((matmul_int8, "qgemm_rq", "qgemm_rq"), (conv, "qconv_rq", "qconv_rq"),
+    for mod, attr, name in ((wide, "wide_conv", "wide_planes"), (wide, "wide_dense", "wide_planes"),
+                            (matmul_int8, "qgemm_rq", "qgemm_rq"), (conv, "qconv_rq", "qconv_rq"),
                             (conv, "qconv_rq_res", "qconv_rq_res"),
                             (matmul_int8, "qgemm_raw", "qgemm_raw"),
                             (conv, "qconv_raw", "qconv_raw"),
@@ -536,6 +580,14 @@ def work(name, a, k) -> tuple[int, int, str]:
                 f"G={g} S={s} D={d}{' causal' if causal else ''}")
     x, w = a[0], a[1]
     cout = w.shape[-1]
+    if name == "wide_planes":  # int16 in, int8 weights, int64 out; two int8 products
+        if w.ndim == 2:
+            m, kk = x.shape
+            return (2 * m * kk + kk * cout + 8 * m * cout, 2 * 2 * m * kk * cout,
+                    f"M={m} K={kk} N={cout} int16")
+        out_shape, label = conv_out(x, w, k)
+        return (2 * x.numel() + w.numel() + 8 * int(np.prod(out_shape)),
+                2 * 2 * int(np.prod(out_shape)) * int(np.prod(w.shape[:3])), label + " int16")
     raw = name.endswith("_raw")
     out_b, vec_b = (4, 4) if raw else (1, 12)  # output bytes, per-channel vector bytes
     if name in ("qgemm_rq", "qgemm_raw"):
@@ -554,12 +606,32 @@ def work(name, a, k) -> tuple[int, int, str]:
             f"{n}x{h}x{wd}x{x.shape[3]} k{kh} s{sh} -> {cout}")
 
 
+def conv_out(x, w, k) -> tuple[tuple, str]:
+    """The output shape (N, OH, OW, COUT) of a recorded conv call, and its label."""
+    kh, kw = w.shape[:2]
+    sh, sw = k.get("strides", (1, 1))
+    pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
+    n, h, wd, c = x.shape
+    oh, ow = (h + pt + pb - kh) // sh + 1, (wd + pl + pr - kw) // sw + 1
+    return (n, oh, ow, w.shape[3]), f"{n}x{h}x{wd}x{c} k{kh} s{sh} -> {w.shape[3]}"
+
+
 def library_call(name, a, k):
     """One PyTorch call of the same shape (used only as a yardstick): for the
     GEMMs torch._int_mm, which computes K4's function exactly but refuses M
     <= 16 and, through cuBLASLt, some other shapes (M=784 K=32 N=192 on
     torch 2.11, CUDA 12.8); there an fp16 matmul of the same shape."""
     x, w = a[0], a[1]
+    if name == "wide_planes":  # the exact float64 product (cuBLAS, cuDNN) of the same shapes
+        xd, wd = x.to(torch.float64), w.to(torch.float64)
+        if w.ndim == 2:
+            return lambda: xd @ wd
+        pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
+        xd = torch.nn.functional.pad(xd, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2).contiguous()
+        wd = wd.permute(3, 2, 0, 1).contiguous()
+        groups = int(k.get("groups", 1))
+        return lambda: torch.nn.functional.conv2d(xd, wd, stride=tuple(k.get("strides", (1, 1))),
+                                                  groups=groups)
     if name in BMM_KERNELS:  # an fp16 product of the same shapes: not exact
         from tachikoma_tpu_torch.ops.kernels.matmul_int8 import _logical
 
@@ -582,9 +654,9 @@ def library_call(name, a, k):
         x16, w16 = x.half(), w.half()
         return lambda: x16 @ w16
     pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
-    assert (pt, pl) == (pb, pr), "library conv takes symmetric padding"
     stride = tuple(k.get("strides", (1, 1)))
     if name in LAYOUT_KERNELS or name == "qconv_direct":
+        assert (pt, pl) == (pb, pr), "library conv takes symmetric padding"
         # cuDNN's int8 conv (quantized::conv2d on the card) on the same int8
         # tensors, channels-last, per-tensor scales, cuDNN's own requantize;
         # a CIN that is not a multiple of 4 (the CIN-3 first convs) is padded
@@ -598,7 +670,10 @@ def library_call(name, a, k):
         qw = torch._make_per_tensor_quantized_tensor(w.permute(3, 2, 0, 1).contiguous(), 1.0, 0)
         packed = torch.ops.quantized.conv2d_prepack(qw, None, list(stride), [pt, pl], [1, 1], 1)
         return lambda: torch.ops.quantized.conv2d.new(qx, packed, 64.0, 0)
-    x16 = x.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
+    x16 = x.permute(0, 3, 1, 2).half()
+    if (pt, pl) != (pb, pr):  # an asymmetric pad (TFLite's SAME at stride 2) goes first
+        x16, pt, pl = torch.nn.functional.pad(x16, (pl, pr, pt, pb)), 0, 0
+    x16 = x16.contiguous(memory_format=torch.channels_last)
     w16 = w.permute(3, 2, 0, 1).half().contiguous(memory_format=torch.channels_last)
     groups = x.shape[3] if name.startswith("qdwconv") else 1
     return lambda: torch.nn.functional.conv2d(x16, w16, stride=stride, padding=(pt, pl),
@@ -608,9 +683,14 @@ def library_call(name, a, k):
 def kernel_impls() -> dict:
     """Kernel name -> (wrapper, plain version)."""
     from tachikoma_tpu_torch.ops.kernels import (conv, conv_direct, conv_layouts, depthwise,
-                                                 flash_attention, matmul_int8)
+                                                 flash_attention, matmul_int8, wide)
 
-    impl = {"qgemm_rq": (matmul_int8.qgemm_rq, matmul_int8.qgemm_rq_plain),
+    def wide_call(conv_fn, dense_fn):
+        return lambda x, w, **k: (dense_fn if w.ndim == 2 else conv_fn)(x, w, **k)
+
+    impl = {"wide_planes": (wide_call(wide.wide_conv, wide.wide_dense),
+                            wide_call(wide.wide_conv_plain, wide.wide_dense_plain)),
+            "qgemm_rq": (matmul_int8.qgemm_rq, matmul_int8.qgemm_rq_plain),
             "qconv_rq": (conv.qconv_rq, conv.qconv_rq_plain),
             "qconv_rq_res": (conv.qconv_rq_res, conv.qconv_rq_res_plain),
             "qgemm_raw": (matmul_int8.qgemm_raw, matmul_int8.qgemm_raw_plain),
@@ -939,19 +1019,7 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
     phase(f"{labels[2]} {model} main path: {REQUESTS} requests through "
           "TorchExecutor(device='cuda')")
     packed = len(matmul_int8._KMAJOR)
-    reset(kernels)
-    lat = []
-    first_out = None
-    for x in requests:
-        t0 = time.perf_counter()
-        outs = ex.run_device(x)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-        if first_out is None:
-            first_out = [o.cpu().numpy() for o in outs]
-    launches = read_launches(kernels, f"the {model} run path")
-    for name, n in launches.items():
-        say(f"{name}: {n} launches, {n // REQUESTS} per forward")
+    lat, first_out, launches = timed_requests(ex, requests, kernels, f"the {model} run path")
     # K1-K4 read weights packed K-major once per weight tensor: none is
     # packed again inside a request
     assert len(matmul_int8._KMAJOR) == packed, "a request packed a weight again"
@@ -964,10 +1032,7 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
     assert prob.shape == (BATCH, 1000) and np.allclose(prob.sum(-1), 1, atol=1e-4)
     say(f"{n_int} integer nodes == plain path; float nodes within rtol {SOFTMAX_RTOL} "
         f"atol {SOFTMAX_ATOL}")
-    med = statistics.median(lat[1:])
-    say(f"latency ms per request (b{BATCH}): median {med:.3f}, all "
-        + " ".join(f"{v:.3f}" for v in lat))
-    say(f"images/s {BATCH / med * 1e3:.1f}")
+    med = say_latency(lat, BATCH)
     kernel_ms = sum(t["ms"] for t in totals.values())
     say(f"{'+'.join(kernels)} device ms per forward {kernel_ms:.4f} of {med:.3f} ms end to end")
 
@@ -976,6 +1041,35 @@ def run_path(labels, model: str, build, kernels) -> tuple[dict, dict, dict]:
     state = dict(quantized=q, fused=fused, names=names, ex=ex, requests=requests, plain=plain,
                  median_ms=med)
     return totals, launches, state
+
+
+def timed_requests(ex, feeds, kernels, what: str) -> tuple[list, list, dict]:
+    """Each feed through ex.run_device, the kernels' counts set to 0 just
+    before and read just after: the latencies (ms, host clock around the
+    run and a synchronize), the first request's outputs and the launches."""
+    reset(kernels)
+    lat, first_out = [], None
+    for x in feeds:
+        t0 = time.perf_counter()
+        outs = ex.run_device(x)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if first_out is None:
+            first_out = [o.cpu().numpy() for o in outs]
+    launches = read_launches(kernels, what)
+    for name, n in launches.items():
+        say(f"{name}: {n} launches, {n // len(feeds)} per forward")
+    return lat, first_out, launches
+
+
+def say_latency(lat: list, batch: int) -> float:
+    """Print the median latency (the first request dropped) and images/s;
+    returns the median."""
+    med = statistics.median(lat[1:])
+    say(f"latency ms per request (b{batch}): median {med:.3f}, all "
+        + " ".join(f"{v:.3f}" for v in lat))
+    say(f"images/s {batch / med * 1e3:.1f}")
+    return med
 
 
 def packed_weights() -> set:
@@ -987,33 +1081,39 @@ def packed_weights() -> set:
 
 
 def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
-               size: str = f"{IMAGE}^2") -> tuple[dict, dict]:
+               size: str = f"{IMAGE}^2", prepared=None) -> tuple[dict, dict]:
     """The trace path of one model, two phases titled by `labels` (7-8 for
-    ResNet-50; 10a-10b for MobileNetV2; 17e for int8 BERT-base): the
-    unfused b1 forward's raw kernels == plain and timed, every integer node
-    == the CPU plain path, then the trace emitted on the card, compared with
-    the CPU's and verified.  `make_input(rng)` makes the calibration batch
-    and the input (an image by default), `config` is the QConfig (the
-    default one by default).  Returns the kernels' per-forward totals and
-    their launches (the trace path's run)."""
+    ResNet-50; 10a-10b for MobileNetV2; 17e for int8 BERT-base; 20b and 20d
+    for the TFLite MobileNetV2 and W8A16 ResNet-50): the unfused b1
+    forward's raw kernels == plain and timed, every integer node == the CPU
+    plain path, then the trace emitted on the card, compared with the CPU's
+    and verified.  `make_input(rng)` makes the calibration batch and the
+    input (an image by default), `config` is the QConfig (the default one by
+    default); `prepared` = (integer graph, input) skips the build and the
+    quantize (an imported model).  Returns the kernels' per-forward totals
+    and their launches (the trace path's run)."""
     from tachikoma_tpu_torch.ops.kernels import _lib
     from tachikoma_tpu_torch.quantize.quantizer import quantize
     from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
     from tachikoma_tpu_torch.trace.emitter import TraceEmitter, verify_trace
     from tachikoma_tpu_torch.trace.native import native_verify
 
-    phase(f"{labels[0]} trace path: int8 {model} b{TRACE_BATCH} {size} unfused on the card")
+    phase(f"{labels[0]} trace path: {model} b{TRACE_BATCH} {size} unfused on the card")
     if make_input is None:
         def make_input(rng):
             return rng.standard_normal((TRACE_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED)
-    calib = make_input(rng)
-    q = quantize(build(TRACE_BATCH), [calib], *([config] if config is not None else []))
-    x = make_input(rng)
+    if prepared is None:
+        rng = np.random.default_rng(SEED)
+        calib = make_input(rng)
+        q = quantize(build(TRACE_BATCH), [calib], *([config] if config is not None else []))
+        x = make_input(rng)
+    else:
+        q, x = prepared
     names = computational_nodes(q)
     ops = Counter(q[n].op for n in names)
-    say(f"build + calibrate + quantize {time.perf_counter() - t0:.2f} s (host)")
+    if prepared is None:
+        say(f"build + calibrate + quantize {time.perf_counter() - t0:.2f} s (host)")
     say(f"unfused graph: {len(names)} computational nodes: "
         + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
     ex = TorchExecutor(q, capture=names, device="cuda", fuse=False)
@@ -1026,7 +1126,10 @@ def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
         f"{name} {_lib.LAUNCHES[name]}" for name in kernels)
         + f" ({ops['qnn.conv2d']} qnn.conv2d + {ops['qnn.dense']} qnn.dense + "
         f"{ops['qnn.batch_matmul']} qnn.batch_matmul)")
-    assert len(calls) == ops["qnn.conv2d"] + ops["qnn.dense"] + ops["qnn.batch_matmul"]
+    # a W8A16 product is one wide_planes call and the K4 / K5 calls of its two planes
+    n_wide = sum(name == "wide_planes" for name, _, _ in calls)
+    assert len(calls) == (ops["qnn.conv2d"] + ops["qnn.dense"] + ops["qnn.batch_matmul"]
+                          + 2 * n_wide)
     totals = check_kernels(calls, kernels, model)
     plain = TorchExecutor(q, capture=names, device="cpu", fuse=False).run(x)
     n_int = hold_against_plain(names, outs, plain, q, FLOAT_RTOL, FLOAT_ATOL)
@@ -2464,6 +2567,198 @@ def vision_zoo(card: str) -> tuple[dict, dict, list]:
 
 
 # ---------------------------------------------------------------------------
+# the TFLite import and the W8A16 path (phase 20)
+# ---------------------------------------------------------------------------
+
+def tflite_path(card: str) -> tuple[dict, dict, dict]:
+    """Phases 20a-20b: the exporter's int8 MobileNetV2 96^2 (52 convs and a
+    dense, each at a nonzero input zero point; TFLite's stride-2 SAME pads
+    the bottom and right only) imported and fused at b16: K1 / K2 / K5 ==
+    plain and timed at every call, REQUESTS requests on the batch fixture's
+    16 images, every integer node == the CPU path, the int8 output within
+    one quantum of the TFLite interpreter's and top-1 16 of 16, the busy
+    share; the default (integer_lut) import checked alike; then b1 unfused
+    on K4 / K5's raw modes and traced.  Returns the kernels' per-forward
+    totals, the launches and the largest |err| of each kernel."""
+    from tachikoma_tpu_torch.frontend import from_tflite
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    model = "TFLite MobileNetV2 b16 96^2"
+    phase(f"20a. the exporter's int8 MobileNetV2 ({TFLITE_MODEL}) b16 96^2: from_tflite "
+          f"(integer_lut False and the default), fuse (host) [{card}]")
+    batch = np.load(TFLITE_BATCH)
+    xs, ys = batch["x"], batch["y"]
+    t0 = time.perf_counter()
+    name = from_tflite(TFLITE_MODEL).inputs[0].name
+    graphs = {lut: from_tflite(TFLITE_MODEL, {name: xs.shape}, integer_lut=lut)
+              for lut in (False, True)}
+    fused = {lut: fuse_qnn(g) for lut, g in graphs.items()}
+    say(f"import + fuse, both modes {time.perf_counter() - t0:.2f} s (host)")
+    ops = Counter(n.op for n in fused[False].nodes if n.op not in ("var", "const"))
+    say("fused graph: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
+    heads = [n for n in fused[False].nodes if n.op in ("tk.conv2d_rq", "tk.dense_rq")]
+    izps = Counter(int(n.attrs["input_zero_point"]) for n in heads)
+    assert len(heads) == 53 and 0 not in izps, izps
+    s2 = [(n.name, tuple(n.attrs["padding"]), n.attrs["input_zero_point"]) for n in heads
+          if tuple(n.attrs.get("strides", (1, 1))) == (2, 2)]
+    assert all(p == (0, 0, 1, 1) for _, p, _ in s2), s2
+    say(f"input zero points of the 53 fused convs and dense: {dict(sorted(izps.items()))}; "
+        f"stride-2 convs (name, padding, izp): {s2}")
+    names = computational_nodes(fused[False])
+    ex = TorchExecutor(graphs[False], capture=names, fuse=True, device="cuda")
+    assert ex.graph.to_json() == fused[False].to_json()
+
+    phase(f"20a. {model}: K1, K2 and K5 at the forward's calls: == plain, time, bound, "
+          f"library [{card}]")
+    calls: list = []
+    with recording(calls):
+        ex.run_device(xs)
+    torch.cuda.synchronize()
+    totals = check_kernels(calls, TFLITE_KERNELS, model)
+    errs = {k: t["max_abs_err"] for k, t in totals.items()}
+
+    phase(f"20a. {model}: {REQUESTS} requests through TorchExecutor(fuse=True, "
+          f"device='cuda') [{card}]")
+    lat, first_out, launches = timed_requests(ex, [xs] * REQUESTS, TFLITE_KERNELS,
+                                              f"the {model} path")
+    plain = TorchExecutor(graphs[False], capture=names, fuse=True, device="cpu").run(xs)
+    n_int = hold_against_plain(names, first_out, plain, fused[False], FLOAT_RTOL, FLOAT_ATOL)
+    out = first_out[names.index(fused[False].outputs[0])]
+    diff = np.abs(out.astype(np.int32) - ys.astype(np.int32))
+    top1 = int((out.argmax(-1) == ys.argmax(-1)).sum())
+    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; int8 "
+        f"output {out.shape} vs the TFLite interpreter: max |diff| {diff.max()} quantum, "
+        f"{(diff == 0).mean():.1%} equal, top-1 {top1} of {len(ys)}")
+    assert diff.max() <= 1 and top1 == len(ys)
+    med = say_latency(lat, len(xs))
+    kernel_ms = sum(t["ms"] for t in totals.values())
+    say(f"{'+'.join(TFLITE_KERNELS)} device ms per forward {kernel_ms:.4f} of {med:.3f} ms "
+        "end to end")
+    profile_requests(ex, [xs] * 3, med)
+    names_l = computational_nodes(fused[True])
+    card_l = TorchExecutor(graphs[True], capture=names_l, fuse=True, device="cuda").run(xs)
+    cpu_l = TorchExecutor(graphs[True], capture=names_l, fuse=True, device="cpu").run(xs)
+    n_int = hold_against_plain(names_l, card_l, cpu_l, fused[True], FLOAT_RTOL, FLOAT_ATOL)
+    out = card_l[names_l.index(fused[True].outputs[0])]
+    top1 = int((out.argmax(-1) == ys.argmax(-1)).sum())
+    assert top1 == len(ys)
+    say(f"integer_lut import (qnn.softmax): {n_int} of {len(names_l)} nodes integer and == the "
+        f"CPU plain path, top-1 {top1} of {len(ys)}")
+
+    trace_totals, trace_launches = trace_path(
+        ("20b.", "20b."), "TFLite MobileNetV2", None, TFLITE_TRACE_KERNELS, size="96^2",
+        prepared=(from_tflite(TFLITE_MODEL), xs[:TRACE_BATCH]))
+    for k, t in trace_totals.items():
+        errs[k] = max(errs.get(k, 0), t["max_abs_err"])
+    for k, n in trace_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    return totals, launches, errs
+
+
+def w8a16_path(card: str) -> tuple[dict, dict, dict]:
+    """Phases 20c-20e: ResNet-50 quantized W8A16 (int16 activations, int64
+    accumulators, unfused) at b8 224^2: every product on K4 over two byte
+    planes == its float64 plain version, timed beside the float64 cuBLAS /
+    cuDNN call of the same shapes and the bound, REQUESTS requests, every
+    integer node == the CPU path, the probabilities within phase 5's
+    tolerance, the busy share; its b1 trace; the 16x8 TFLite fixture on the
+    card.  Returns wide_planes' per-forward totals, the launches and the
+    largest |err| of each kernel."""
+    from tachikoma_tpu_torch.frontend import from_tflite
+    from tachikoma_tpu_torch.models.vision import resnet
+    from tachikoma_tpu_torch.quantize.config import W8A16
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+
+    model = f"ResNet-50 W8A16 b{BATCH} {IMAGE}^2"
+
+    def r50(batch):
+        return resnet(50, batch_size=batch, image_size=IMAGE, seed=SEED)
+
+    phase(f"20c. {model}: build (seed {SEED}), calibrate, quantize (W8A16), unfused (host) "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    g = r50(BATCH)
+    rng = np.random.default_rng(SEED)
+    calib = rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    t1 = time.perf_counter()
+    q = quantize(g, [calib], W8A16)
+    say(f"build {t1 - t0:.2f} s, calibrate+quantize {time.perf_counter() - t1:.2f} s")
+    ops = Counter((n.op, n.dtype) for n in q.nodes if n.op not in ("var", "const"))
+    say("graph: " + ", ".join(f"{v} {k[0]} {k[1]}" for k, v in sorted(ops.items())))
+    assert ops[("qnn.conv2d", "int64")] == 53 and ops[("qnn.dense", "int64")] == 1, ops
+    assert ops[("qnn.requantize", "int16")] == 54, ops
+    names = computational_nodes(q)
+    ex = TorchExecutor(q, capture=names, device="cuda")
+    requests = [rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+                for _ in range(REQUESTS)]
+
+    phase(f"20c. {model}: the int64 products on K4 over two byte planes (wide_planes) and the "
+          f"planes' K4 calls: == plain (float64), time, bound, float64 library call [{card}]")
+    calls: list = []
+    with recording(calls):
+        ex.run_device(requests[0])
+    torch.cuda.synchronize()
+    assert sum(name == "wide_planes" for name, _, _ in calls) == 54
+    totals = check_kernels(calls, W8A16_KERNELS, model)
+    errs = {k: t["max_abs_err"] for k, t in totals.items()}
+
+    phase(f"20c. {model}: {REQUESTS} requests through TorchExecutor(device='cuda') [{card}]")
+    lat, first_out, launches = timed_requests(ex, requests, W8A16_KERNELS, f"the {model} path")
+    t0 = time.perf_counter()
+    plain = TorchExecutor(q, capture=names, device="cpu").run(requests[0])
+    say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
+    n_int = hold_against_plain(names, first_out, plain, q, SOFTMAX_RTOL, SOFTMAX_ATOL)
+    prob = first_out[names.index(q.outputs[0])]
+    assert prob.shape == (BATCH, 1000) and np.allclose(prob.sum(-1), 1, atol=1e-4)
+    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; float "
+        f"nodes within rtol {SOFTMAX_RTOL} atol {SOFTMAX_ATOL}")
+    med = say_latency(lat, BATCH)
+    say(f"wide_planes device ms per forward {totals['wide_planes']['ms']:.4f} (bound "
+        f"{totals['wide_planes']['bound_ms']:.4f}, float64 library "
+        f"{totals['wide_planes']['library_ms']:.4f}) of {med:.3f} ms end to end")
+    profile_requests(ex, requests[:3], med)
+
+    trace_totals, trace_launches = trace_path(("20d.", "20d."), "ResNet-50 W8A16", r50,
+                                              W8A16_KERNELS, config=W8A16)
+    for k, t in trace_totals.items():
+        errs[k] = max(errs.get(k, 0), t["max_abs_err"])
+    for k, n in trace_launches.items():
+        launches[k] = launches.get(k, 0) + n
+
+    phase(f"20e. the 16x8 TFLite fixture ({TFLITE_16X8}) on the card: every product on K4 / K5 "
+          f"over two byte planes == plain, integers == the CPU path [{card}]")
+    io16 = np.load(TFLITE_16X8_IO)
+    g16 = from_tflite(TFLITE_16X8)
+    names16 = computational_nodes(g16)
+    ex16 = TorchExecutor(g16, capture=names16, device="cuda")
+    calls = []
+    with recording(calls):
+        ex16.run_device(io16["x"])
+    torch.cuda.synchronize()
+    impl = kernel_impls()
+    held = Counter()
+    for k, a, kw in calls:
+        errs[k] = max(errs.get(k, 0), hold_call(k, a, kw, impl))
+        held[k] += 1
+    say("kernel calls of one forward, each == plain: "
+        + ", ".join(f"{n} {k}" for k, n in sorted(held.items())))
+    reset(W8A16_16X8_KERNELS)
+    card16 = ex16.run(io16["x"])
+    for k, n in read_launches(W8A16_16X8_KERNELS, "the 16x8 fixture").items():
+        launches[k] = launches.get(k, 0) + n
+    cpu16 = TorchExecutor(g16, capture=names16, device="cpu").run(io16["x"])
+    n_int = hold_against_plain(names16, card16, cpu16, g16, FLOAT_RTOL, FLOAT_ATOL)
+    out = card16[names16.index(g16.outputs[0])]
+    gap = float(np.abs(out - io16["y"]).max())
+    assert gap <= 1.0 / (1 << 15) + 1e-9, gap
+    say(f"{n_int} of {len(names16)} nodes integer and == the CPU plain path; float output within "
+        f"{gap:.3g} of the TFLite interpreter's (limit 2^-15)")
+    return totals, launches, errs
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2608,6 +2903,17 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), t["max_abs_err"])
     merge({}, zoo_launches)
     say(f"\nphase 19 seconds {time.perf_counter() - t19:.1f} (host clock)")
+    t20 = time.perf_counter()
+    tflite_totals, tflite_launches, tflite_errs = tflite_path(card)
+    wide_totals, wide_launches, wide_errs = w8a16_path(card)
+    for part in (tflite_errs, wide_errs):
+        for name, e in part.items():
+            errs[name] = max(errs.get(name, 0), e)
+    totals["wide_planes"] = wide_totals["wide_planes"]
+    launches["wide_planes"] = 0
+    merge({}, tflite_launches)
+    merge({}, wide_launches)
+    say(f"\nphase 20 seconds {time.perf_counter() - t20:.1f} (host clock)")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

@@ -96,6 +96,12 @@ def _out_hw(x_shape, w_shape, strides, padding):
 def conv_acc_plain(x, w, strides, padding, izp) -> torch.Tensor:
     """int32 accumulator of qnn.conv2d, sum (x_pad - izp) * w with the border
     padded by izp, in float64 (exact, see `exact_int_matmul`)."""
+    return conv_acc_exact(x, w, strides, padding, izp).to(torch.int32)
+
+
+def conv_acc_exact(x, w, strides, padding, izp) -> torch.Tensor:
+    """`conv_acc_plain`'s sum in int64: exact while every partial sum stays
+    below 2^53 (int8 or int16 x, int8 w)."""
     n = x.shape[0]
     kh, kw, cin, cout = w.shape
     sh, sw = strides
@@ -105,7 +111,7 @@ def conv_acc_plain(x, w, strides, padding, izp) -> torch.Tensor:
     oh, ow = cols.shape[1], cols.shape[2]
     cols = cols.permute(0, 1, 2, 4, 5, 3).reshape(n * oh * ow, kh * kw * cin)
     acc = cols @ w.to(torch.float64).reshape(kh * kw * cin, cout)
-    return acc.to(torch.int64).to(torch.int32).reshape(n, oh, ow, cout)
+    return acc.to(torch.int64).reshape(n, oh, ow, cout)
 
 
 def _conv_params(x, w, out, strides, padding, izp, rq_izp, out_zp, rounding, qmin, qmax):
@@ -355,7 +361,7 @@ def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1)
     if groups != 1 and not depthwise:
         raise NotImplementedError(
             f"qconv2d_flat: groups {groups} with weight {tuple(w.shape)}: only groups 1 "
-            "and depthwise (groups == CIN == COUT) are supported")
+            "and depthwise (groups == CIN == COUT) are supported (ROADMAP Queue 1 item 2)")
     if multiplier is not None and out_dtype != "int8":
         raise NotImplementedError(f"qconv2d_flat: out_dtype {out_dtype} is not ported yet")
     dev = x.device

@@ -1162,6 +1162,31 @@ def _pad_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
     return a
 
 
+@infer_rule("cast")
+def _cast_rel(node: Node, ins):
+    (a, _) = ins[0]
+    return tuple(a), node.attrs["dtype"]
+
+
+@np_impl("cast")
+def _cast_np(a, *, node: Node):
+    # C-style truncation cast for float->int (TVM semantics)
+    target = node.attrs["dtype"]
+    if dt.is_float(str(a.dtype)) and dt.is_int(target):
+        return np.trunc(a).astype(target)
+    return a.astype(target)
+
+
+@torch_impl("cast")
+def _cast_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """The oracle's cast: float -> int truncates toward zero, an integer
+    narrowing wraps around, as numpy's astype does."""
+    target = torch_dtype(node.attrs["dtype"])
+    if a.dtype.is_floating_point and not target.is_floating_point:
+        return torch.trunc(a).to(target)
+    return a.to(target)
+
+
 @infer_rule("broadcast_to")
 def _bto_rel(node: Node, ins):
     (a, adt) = ins[0]

@@ -11,6 +11,8 @@ equal the oracle's bit for bit on any device.
   * qnn.requantize — ops/fixed_point.py.
   * qnn.conv2d / qnn.dense — (x - izp) . (w - kzp) with int32 accumulation;
                      the torch impls run K4 (ops/kernels), with kzp = 0.
+                     With out_dtype int64 (W8A16: int16 data), the sum is
+                     int64, on K4 / K5 over two byte planes (kernels/wide.py).
   * qnn.batch_matmul — (a - za) @ (b - zb), int32; K1's batched mode.
   * qnn.add / qnn.subtract — requantize both sides to the output qparams
                      (int32), add (subtract), take one zp off (put it back).
@@ -41,6 +43,7 @@ from ..ir.registry import TensorType, infer_rule, np_impl, register_op, torch_im
 from ..utils import dtypes as dt
 from . import nn as _nn
 from .fixed_point import fixed_point_multiplier_shift, requantize, requantize_np, torch_dtype
+from .kernels import wide as _wide
 from .kernels.conv import qconv2d_flat
 from .kernels.matmul_int8 import qbmm_int8, qmatmul_int8
 
@@ -168,20 +171,25 @@ def _requantize_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
 # -- quantized conv / dense ---------------------------------------------------
 
 def _check_raw_operands(node: Node, data: torch.Tensor, weight: torch.Tensor) -> int:
-    """The input zero point of an unfused qnn.conv2d / qnn.dense that K4 can
-    run: int8 operands, kernel zero point 0 (the quantizer always emits 0)
-    and an int32 accumulator."""
+    """The input zero point of an unfused qnn.conv2d / qnn.dense that the
+    port's kernels can run: int8 weights with kernel zero point 0 (the
+    quantizer always emits 0), and int8 data into an int32 accumulator (K4,
+    K5) or int8 / int16 data into an int64 one (the W8A16 byte planes,
+    `kernels/wide.py`)."""
     kzp = np.asarray(node.attrs.get("kernel_zero_point", 0))
     if (kzp != 0).any():
         raise NotImplementedError(f"{node.name} ({node.op}): a nonzero kernel_zero_point "
-                                  "is not ported (the quantizer always emits 0)")
+                                  "is not ported (the quantizer always emits 0; ROADMAP "
+                                  "Queue 1 item 2)")
     out_dtype = node.attrs.get("out_dtype", "int32")
-    if out_dtype != "int32":
+    data_dtypes = {"int32": (torch.int8,), "int64": (torch.int8, torch.int16)}
+    if out_dtype not in data_dtypes:
         raise NotImplementedError(f"{node.name} ({node.op}): out_dtype {out_dtype} is not "
-                                  "ported yet (W8A16: ROADMAP Queue 1 item 2)")
-    if data.dtype != torch.int8 or weight.dtype != torch.int8:
+                                  "ported: int32 or int64 accumulators only")
+    if data.dtype not in data_dtypes[out_dtype] or weight.dtype != torch.int8:
         raise NotImplementedError(f"{node.name} ({node.op}): operands {data.dtype} x "
-                                  f"{weight.dtype}; the port's kernels take int8 x int8")
+                                  f"{weight.dtype} into {out_dtype}; the port's kernels take "
+                                  "int8 x int8 into int32, int8 or int16 x int8 into int64")
     return int(node.attrs.get("input_zero_point", 0))
 
 
@@ -211,9 +219,12 @@ def _qconv_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> tor
     izp = _check_raw_operands(node, data, weight)
     if _nn._pair(node.attrs.get("dilation", (1, 1))) != (1, 1):
         raise NotImplementedError(f"{node.name} (qnn.conv2d): dilation is not ported yet")
-    return qconv2d_flat(data, weight, strides=_nn._pair(node.attrs.get("strides", (1, 1))),
-                        padding=_nn._pad4(node.attrs.get("padding", (0, 0, 0, 0))),
-                        groups=int(node.attrs.get("groups", 1)), input_zero_point=izp)
+    geometry = dict(strides=_nn._pair(node.attrs.get("strides", (1, 1))),
+                    padding=_nn._pad4(node.attrs.get("padding", (0, 0, 0, 0))),
+                    groups=int(node.attrs.get("groups", 1)))
+    if node.attrs.get("out_dtype", "int32") == "int64":
+        return _wide.wide_conv(data, weight, izp=izp, **geometry)
+    return qconv2d_flat(data, weight, input_zero_point=izp, **geometry)
 
 
 @infer_rule("qnn.dense")
@@ -240,7 +251,11 @@ def _qdense_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarra
 def _qdense_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
     izp = _check_raw_operands(node, data, weight)
     lead = data.shape[:-1]
-    out = qmatmul_int8(data.reshape(-1, data.shape[-1]), weight, input_zero_point=izp)
+    x = data.reshape(-1, data.shape[-1])
+    if node.attrs.get("out_dtype", "int32") == "int64":
+        out = _wide.wide_dense(x, weight, izp=izp)
+    else:
+        out = qmatmul_int8(x, weight, input_zero_point=izp)
     return out.reshape(*lead, weight.shape[-1])
 
 

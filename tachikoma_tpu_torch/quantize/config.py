@@ -2,8 +2,8 @@
 
 The same QConfig fields as the JAX package, so a configuration carries over;
 its calibration runs the numpy oracle only.  Of the JAX package's presets the
-port has TRANSFORMER_INT8; TRANSFORMER_INT8_SCAN (for the segmented executor)
-and W8A16 (the int64 wide path) wait for ROADMAP Queue 1 items 13 and 2."""
+port has TRANSFORMER_INT8 and W8A16; TRANSFORMER_INT8_SCAN (for the segmented
+executor) waits for ROADMAP Queue 1 item 13."""
 
 from __future__ import annotations
 
@@ -58,3 +58,11 @@ TRANSFORMER_INT8 = QConfig(
     lut_ops=frozenset({"nn.gelu", "tanh", "sigmoid", "nn.silu", "erf"}),
     float_ops=frozenset({"nn.log_softmax"}),
 )
+
+
+# 16-bit activations x 8-bit weights (the TFLite "16x8" mode): int64
+# accumulators and biases, requantized on the wide fixed-point path
+# (ops/fixed_point.py q_multiply_shift_wide_*).  fuse_qnn leaves the int64
+# heads unfused; on the card their products run on K4 / K5 over two byte
+# planes of the int16 activations (ops/kernels/wide.py).
+W8A16 = QConfig(act_dtype="int16", accum_dtype="int64", bias_dtype="int64")

@@ -1858,3 +1858,164 @@ def test_vision_zoo_executor_on_card_equals_cpu(cuda, name, kw, monkeypatch):
     cpu = [host(v) for v in TorchExecutor(fused, capture=names, device="cpu").run_device(feeds[1])]
     counts, _ = hold_node_level(fused, names, card, cpu, feeds[1], 1e-4, 1e-4)
     assert counts["int"] + counts["cone_int"] > 0
+
+
+# ---------------------------------------------------------------------------
+# W8A16 on the card: K4 / K5 over two byte planes, the wide requantize, and
+# the exporter's TFLite MobileNetV2 at b16 on K1 / K2 / K5 (`-k "w8a16 or tflite"`)
+# ---------------------------------------------------------------------------
+
+W8A16_CONVS = [
+    # (x shape, weight shape, strides, padding, groups): ResNet-50's 7x7 s2 stem,
+    # a 3x3 s2 and s1 at its widths, 1x1 s1 / s2, MobileNetV2-like depthwise
+    # (TFLite's bottom-right SAME at s2), the 16x8 fixture's groups-8 conv
+    ((1, 224, 224, 3), (7, 7, 3, 64), (2, 2), (3, 3, 3, 3), 1),
+    ((2, 28, 28, 128), (3, 3, 128, 128), (2, 2), (1, 1, 1, 1), 1),
+    ((1, 14, 14, 256), (3, 3, 256, 256), (1, 1), (1, 1, 1, 1), 1),
+    ((2, 28, 28, 256), (1, 1, 256, 512), (2, 2), (0, 0, 0, 0), 1),
+    ((1, 7, 7, 512), (1, 1, 512, 2048), (1, 1), (0, 0, 0, 0), 1),
+    ((2, 56, 56, 144), (3, 3, 1, 144), (2, 2), (0, 0, 1, 1), 144),
+    ((1, 16, 16, 8), (3, 3, 1, 8), (1, 1), (1, 1, 1, 1), 8),
+]
+W8A16_ZPS = [0, -32768, 32767, 256, -3841]
+
+
+def _i16(rng, shape):
+    x = rng.integers(-2 ** 15, 2 ** 15, shape).astype(np.int16)
+    flat = x.reshape(-1)
+    flat[: flat.size // 8] = -2 ** 15
+    flat[flat.size // 8: flat.size // 4] = 2 ** 15 - 1
+    rng.shuffle(flat)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("izp", W8A16_ZPS)
+@pytest.mark.parametrize("case", W8A16_CONVS, ids=[f"conv{i}" for i in range(len(W8A16_CONVS))])
+def test_w8a16_conv_planes_on_card_equal_plain(rng, cuda, case, izp):
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    xs, ws, strides, padding, groups = case
+    x = torch.from_numpy(_i16(rng, xs)).to(cuda)
+    w = _dev(rng, ws, cuda)
+    kw = dict(strides=strides, padding=padding, groups=groups, izp=izp)
+    before = _lib.LAUNCHES["wide_planes"]
+    got = wide.wide_conv(x, w, **kw)
+    want = wide.wide_conv_plain(x, w, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["wide_planes"] == before + 1
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    cpu = wide.wide_conv(x.cpu(), w.cpu(), **kw)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("izp", W8A16_ZPS)
+@pytest.mark.parametrize("mkn", [(8, 2048, 1000), (1, 2048, 1000), (16, 1280, 10),
+                                 (100, 576, 96), (3136, 64, 256)])
+def test_w8a16_dense_planes_on_card_equal_plain(rng, cuda, mkn, izp):
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    m, k, n = mkn
+    x = torch.from_numpy(_i16(rng, (m, k))).to(cuda)
+    w = _dev(rng, (k, n), cuda)
+    got = wide.wide_dense(x, w, izp=izp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, wide.wide_dense_plain(x, w, izp=izp))
+
+
+@pytest.mark.cuda
+def test_w8a16_planes_exact_near_the_k_bound_and_raise_past_it(cuda):
+    """At K = K_BOUND the worst case fills each plane's int32 sum to
+    2^31 - 127 (K4's GEMM mode on both paths); one term more raises."""
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    k = wide.K_BOUND
+    for m in (1, 128):
+        x = torch.full((m, k), -2 ** 15, dtype=torch.int16, device=cuda)
+        w = torch.full((k, 2), -128, dtype=torch.int8, device=cuda)
+        got = wide.wide_dense(x, w, izp=2 ** 15 - 1)
+        torch.cuda.synchronize()
+        assert bool((got == (-2 ** 16 + 1) * -128 * k).all())
+    x = torch.zeros((1, 3, 3, 7400), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="above 65793"):
+        wide.wide_conv(x, torch.zeros((3, 3, 7400, 4), dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="above 65793"):
+        wide.wide_dense(torch.zeros((1, k + 1), dtype=torch.int16, device=cuda),
+                        torch.zeros((k + 1, 4), dtype=torch.int8, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ["UPWARD", "TONEAREST"])
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_w8a16_wide_requantize_on_card_equals_cpu(rng, cuda, per_channel, rounding):
+    from tachikoma_tpu_torch.ops import fixed_point as fp
+
+    x = rng.integers(-2 ** 45, 2 ** 45, (4, 7, 7, 64)).astype(np.int64)
+    x.reshape(-1)[:4] = [2 ** 45, -(2 ** 45), 0, -1]
+    scale = rng.uniform(1e-8, 3e-6, 64).astype(np.float32) if per_channel else 1.7e-6
+    args = (scale, -3, 0.0021, 5)
+    kw = dict(axis=3, rounding=rounding, out_dtype="int16")
+    got = fp.requantize(torch.from_numpy(x).to(cuda), *args, **kw)
+    want = fp.requantize(torch.from_numpy(x), *args, **kw)
+    assert got.dtype == torch.int16 and torch.equal(got.cpu(), want)
+    np.testing.assert_array_equal(want.numpy(), fp.requantize_np(x, *args, **kw))
+    ms = rng.integers(1 << 30, (1 << 31) - 1, 64)
+    shifts = rng.integers(-40, 2, 64)
+    got = fp.q_multiply_shift_wide_per_axis(torch.from_numpy(x).to(cuda), ms, shifts, 3, rounding)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  fp.q_multiply_shift_wide_per_axis_np(x, ms, shifts, 3, rounding))
+
+
+def _fixture(name):
+    import os
+
+    return os.path.join(os.path.dirname(__file__), "fixtures", name)
+
+
+@pytest.mark.cuda
+def test_tflite_mobilenet_b16_fused_on_card_equals_cpu(cuda):
+    """The exporter's int8 MobileNetV2 at b16 (every conv at a nonzero
+    input zero point): K1, K2 and K5 launched, every node == the CPU path,
+    within one quantum of the interpreter, top-1 16 of 16."""
+    from tachikoma_tpu_torch.frontend import from_tflite
+
+    batch = np.load(_fixture("mobilenet_v2_int8_batch.npz"))
+    xs, ys = batch["x"], batch["y"]
+    path = _fixture("mobilenet_v2_int8.tflite")
+    name = from_tflite(path).inputs[0].name
+    g = fuse_qnn(from_tflite(path, {name: xs.shape}, integer_lut=False))
+    names = computational_nodes(g)
+    for k in ("qgemm_rq", "qconv_rq", "qdwconv_rq"):
+        _lib.LAUNCHES[k] = 0
+    card = TorchExecutor(g, capture=names, device="cuda").run(xs)
+    assert (_lib.LAUNCHES["qgemm_rq"], _lib.LAUNCHES["qconv_rq"],
+            _lib.LAUNCHES["qdwconv_rq"]) == (35, 1, 17)
+    cpu = TorchExecutor(g, capture=names, device="cpu").run(xs)
+    for nm, a, b in zip(names, card, cpu):
+        if b.dtype.kind in "iu":
+            np.testing.assert_array_equal(a, b, err_msg=nm)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=nm)
+    out = card[names.index(g.outputs[0])]
+    assert np.abs(out.astype(np.int32) - ys.astype(np.int32)).max() <= 1
+    assert (out.argmax(-1) == ys.argmax(-1)).sum() == 16
+
+
+@pytest.mark.cuda
+def test_tflite_16x8_on_card_equals_cpu(cuda):
+    from tachikoma_tpu_torch.frontend import from_tflite
+
+    io_ = np.load(_fixture("small_cnn_16x8_io.npz"))
+    g = from_tflite(_fixture("small_cnn_16x8.tflite"))
+    names = computational_nodes(g)
+    _lib.LAUNCHES["wide_planes"] = 0
+    card = TorchExecutor(g, capture=names, device="cuda").run(io_["x"])
+    assert _lib.LAUNCHES["wide_planes"] == 5  # 4 qnn.conv2d + 1 qnn.dense
+    cpu = TorchExecutor(g, capture=names, device="cpu").run(io_["x"])
+    for nm, a, b in zip(names, card, cpu):
+        if b.dtype.kind in "iu":
+            np.testing.assert_array_equal(a, b, err_msg=nm)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=nm)
+    assert np.abs(card[names.index(g.outputs[0])] - io_["y"]).max() <= 1.0 / (1 << 15) + 1e-9

@@ -214,7 +214,6 @@ def test_qnn_dense_torch_matches_jax_and_oracle(rng, izp):
 
 @pytest.mark.parametrize("bad,match", [
     (dict(kernel_zero_point=2), "kernel_zero_point"),
-    (dict(out_dtype="int64"), "W8A16"),
 ])
 def test_qnn_conv2d_and_dense_refuse_what_k4_cannot_run(rng, bad, match):
     for op, x, w in [("qnn.conv2d", _i8(rng, (1, 4, 4, 8)), _i8(rng, (1, 1, 8, 4))),

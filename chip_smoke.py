@@ -12,7 +12,9 @@ one step traced), the rest of the vision zoo (eleven builders, int8,
 fused, on K1, K2 and K5; the Inception-v3 stem traced on K4), and the
 TFLite import and W8A16 path (the exporter's int8 MobileNetV2 at b16 on K1,
 K2 and K5 at its own zero points, traced at b1; ResNet-50 W8A16 b8 and b1
-on K4 over two byte planes; the 16x8 fixture).
+on K4 over two byte planes; the 16x8 fixture), and the ONNX import path
+(ResNet-50 b8 written as torch.onnx.export writes it, fused on K1-K3; the
+six exporters' fixtures float, int8 and traced; the importer's 53 ops).
 
     python3 chip_smoke.py
 
@@ -227,7 +229,28 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      trace, CRCs and verify_trace; (e) the 16x8 TFLite fixture on the card
      (K4 and K5's raw modes on the planes, a depthwise conv among them):
      every call == plain, integers == the CPU path, the float output within
-     2^-15 of the interpreter's.
+     2^-15 of the interpreter's;
+ 21. the ONNX import path: (a) ResNet-50 b8 224^2 written as
+     torch.onnx.export lays out torchvision's model (models/onnx_resnet.py:
+     batch norms folded into the convs, NCHW input, weights from the seed)
+     with the port's encoder, imported with from_onnx, calibrated,
+     quantized and fused, its fused op counts asserted (14 tk.conv2d_rq, 1
+     tk.conv2d_chain, 4 tk.conv2d_block_stack, 1 tk.dense_rq: native
+     ResNet-50's); every K1/K2/K3 call == plain and timed, 20 requests with
+     the launches counted, every integer node == the CPU path, the median
+     latency, images/s and the busy share; (b) the six exporters' fixtures
+     (tests/fixtures/{paddle,oneflow,caffe,coreml,darknet}_route.onnx,
+     mxnet_lenet.onnx): float on the card within rtol 1e-4, atol 1e-4 of
+     their expected outputs and of the CPU path; int8 and fused, every
+     kernel call == plain and timed, every node held as phase 19 holds it;
+     a b1 graph of each (the batch overridden at import) unfused and traced
+     on the card (K4), held against the CPU's trace, CRCs and verify_trace;
+     (c) each of the importer's 53 ops on the card against its CPU torch
+     impl on tests/onnx_op_cases.py's cases: integers, indices, bools and
+     the exact float ops ==, the others within rtol 1e-5, atol 1e-6; (d)
+     `python -m tachikoma_tpu_torch.cli run` on darknet_route.onnx (on the
+     card, the CLI's default), its output within rtol 1e-4, atol 1e-4 of
+     the expected one.  The phase's host seconds are printed.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -244,7 +267,8 @@ over two byte planes: its bound the int16 read, int8 weights and int64
 write, or two int8 products; its library call the float64 product) per
 W8A16 ResNet-50 b8 forward (phase 20c); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
-12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l and 20a-20e; K11
+12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l, 20a-20e,
+21a and 21b; K11
 and K12 in 16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
@@ -2759,6 +2783,242 @@ def w8a16_path(card: str) -> tuple[dict, dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the ONNX import path (phase 21)
+# ---------------------------------------------------------------------------
+
+ONNX_DIR = os.path.join("tests", "fixtures")
+ONNX_FIXTURES = ("paddle_route", "oneflow_route", "caffe_route", "coreml_route",
+                 "darknet_route", "mxnet_lenet")
+# the fused ONNX ResNet-50's op counts: native ResNet-50's (phase 3)
+ONNX_R50_OPS = {"tk.conv2d_rq": 14, "tk.conv2d_chain": 1, "tk.conv2d_block_stack": 4,
+                "tk.dense_rq": 1}
+# a fixture's float output (tests/test_frontend_onnx_routes.py:40)
+ROUTE_RTOL, ROUTE_ATOL = 1e-4, 1e-4
+OP_RTOL, OP_ATOL = 1e-5, 1e-6        # a float op on the card against its CPU torch impl
+RAW_KERNELS = ("qgemm_raw", "qconv_raw", "qdwconv_raw")
+
+
+def onnx_resnet_path(card: str) -> tuple[dict, dict]:
+    """Phase 21a: ResNet-50 b8 224^2 written as torch.onnx.export writes it
+    (models/onnx_resnet.py, weights from SEED), imported with from_onnx,
+    quantized and fused to native ResNet-50's form; every K1/K2/K3 call ==
+    plain and timed, REQUESTS requests with the launches counted, every
+    integer node == the CPU path, latency and the busy share.  Returns the
+    kernels' per-forward totals and their launches."""
+    from tachikoma_tpu_torch.frontend import from_onnx
+    from tachikoma_tpu_torch.models.onnx_resnet import resnet50_onnx
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    model = f"ONNX ResNet-50 b{BATCH} {IMAGE}^2"
+    phase(f"21a. {model}: written by models/onnx_resnet.py (seed {SEED}), from_onnx, quantize, "
+          f"fuse (host) [{card}]")
+    t0 = time.perf_counter()
+    blob = resnet50_onnx(BATCH, IMAGE, seed=SEED)
+    t1 = time.perf_counter()
+    g = from_onnx(blob)
+    t2 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    q = quantize(g, [rng.standard_normal((BATCH, 3, IMAGE, IMAGE)).astype(np.float32)])
+    t3 = time.perf_counter()
+    fused = fuse_qnn(q)
+    say(f"write {t1 - t0:.2f} s ({len(blob)} bytes), from_onnx {t2 - t1:.2f} s ({len(g)} "
+        f"nodes), calibrate+quantize {t3 - t2:.2f} s, fuse {time.perf_counter() - t3:.2f} s")
+    ops = Counter(n.op for n in fused.nodes if n.op not in ("var", "const"))
+    say("fused graph: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
+    assert {k: ops[k] for k in ONNX_R50_OPS} == ONNX_R50_OPS, ops
+    names = computational_nodes(fused)
+    ex = TorchExecutor(fused, capture=names, device="cuda")
+    requests = [rng.standard_normal((BATCH, 3, IMAGE, IMAGE)).astype(np.float32)
+                for _ in range(REQUESTS)]
+
+    phase(f"21a. {model}: K1, K2 and K3 at the forward's calls: == plain, time, bound, "
+          f"library [{card}]")
+    calls: list = []
+    with recording(calls):
+        ex.run_device(requests[0])
+    torch.cuda.synchronize()
+    totals = check_kernels(calls, RUN_KERNELS, model)
+
+    phase(f"21a. {model}: {REQUESTS} requests through TorchExecutor(device='cuda') [{card}]")
+    lat, first_out, launches = timed_requests(ex, requests, RUN_KERNELS, f"the {model} path")
+    plain = TorchExecutor(fused, capture=names, device="cpu").run(requests[0])
+    n_int = hold_against_plain(names, first_out, plain, fused, FLOAT_RTOL, FLOAT_ATOL)
+    logits = first_out[names.index(fused.outputs[0])]
+    assert logits.shape == (BATCH, 1000) and np.isfinite(logits).all()
+    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; logits "
+        f"{logits.shape}, float nodes within rtol {FLOAT_RTOL} atol {FLOAT_ATOL}")
+    med = say_latency(lat, BATCH)
+    kernel_ms = sum(t["ms"] for t in totals.values())
+    say(f"{'+'.join(RUN_KERNELS)} device ms per forward {kernel_ms:.4f} of {med:.3f} ms end to "
+        f"end [{card}]")
+    profile_requests(ex, requests[:3], med)
+    return totals, launches
+
+
+def kernels_called(ex, x) -> tuple:
+    """The kernel wrappers one run of `ex` on `x` calls, in KERNELS' order."""
+    calls: list = []
+    with recording(calls):
+        ex.run_device(x)
+    torch.cuda.synchronize()
+    return tuple(k for k in KERNELS if any(c[0] == k for c in calls))
+
+
+def onnx_fixture_path(name: str, card: str) -> tuple[dict, dict, dict]:
+    """Phase 21b for one exporter's fixture: the float graph on the card
+    within ROUTE_RTOL / ROUTE_ATOL of the exporter's expected output and of
+    the CPU path; int8 and fused, every kernel call == plain and timed, the
+    launches counted, every node held as phase 19 holds it (hold_zoo_nodes);
+    then a b1 graph (the batch overridden at import) unfused and traced on
+    the card (trace_path).  Returns the kernels' totals, launches and
+    largest |err|."""
+    from tachikoma_tpu_torch.frontend import from_onnx
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    path = os.path.join(ONNX_DIR, f"{name}.onnx")
+    io_ = np.load(os.path.join(ONNX_DIR, f"{name}_io.npz"))
+    x, expected = io_["x"], io_["expected"]
+    phase(f"21b. {path}: float, then int8 fused on the card, input {x.shape} [{card}]")
+    t0 = time.perf_counter()
+    g = from_onnx(path)
+    on_card = TorchExecutor(g, device="cuda").run([x])[0]
+    on_cpu = TorchExecutor(g, device="cpu").run([x])[0]
+    np.testing.assert_allclose(on_card, expected, rtol=ROUTE_RTOL, atol=ROUTE_ATOL)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=ROUTE_RTOL, atol=ROUTE_ATOL)
+    say(f"float {sorted({n.op for n in g.nodes} - {'var', 'const'})}: output {on_card.shape}, "
+        f"max |card - expected| {np.abs(on_card - expected).max():.3g}, max |card - CPU| "
+        f"{np.abs(on_card - on_cpu).max():.3g}")
+    fused = fuse_qnn(quantize(g, [x]))
+    ops = Counter(n.op for n in fused.nodes if n.op not in ("var", "const"))
+    say(f"import, runs, calibrate+quantize+fuse {time.perf_counter() - t0:.2f} s (host); fused "
+        "graph: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
+    names = computational_nodes(fused)
+    ex = TorchExecutor(fused, capture=names, device="cuda")
+    calls: list = []
+    with recording(calls):
+        ex.run_device(x)
+    torch.cuda.synchronize()
+    kernels = tuple(k for k in KERNELS if any(c[0] == k for c in calls))
+    assert kernels, f"{name}: the fused forward ran no kernel"
+    totals = check_kernels(calls, kernels, name)
+    reset(kernels)
+    card_out = [_host(o) for o in ex.run_device(x)]
+    launches = read_launches(kernels, f"the fused {name} forward")
+    cpu_out = [_host(o) for o in TorchExecutor(fused, capture=names, device="cpu").run_device(x)]
+    counts = hold_zoo_nodes(fused, names, card_out, cpu_out, {fused.inputs[0].name: x})
+    say(f"{', '.join(f'{k} {n}' for k, n in launches.items())} launches; {counts.get('int', 0)} "
+        f"integer nodes == the CPU path, {counts.get('cone_int', 0)} in the float-source set "
+        f"== their CPU impl on the card's inputs ({counts.get('cone_int_differing', 0)} differ "
+        f"end to end), {counts.get('float', 0) + counts.get('cone_float', 0)} float nodes "
+        f"within rtol {GRAPH_RTOL} atol {GRAPH_ATOL}")
+    errs = {k: t["max_abs_err"] for k, t in totals.items()}
+
+    inp = g.inputs[0].name
+    g1 = from_onnx(path, {inp: (TRACE_BATCH,) + tuple(x.shape[1:])})
+    q1 = quantize(g1, [x[:TRACE_BATCH]])
+    trace_kernels = kernels_called(TorchExecutor(q1, device="cuda"), x[:TRACE_BATCH])
+    trace_totals, trace_launches = trace_path(
+        ("21b.", "21b."), f"ONNX {name}", None, trace_kernels, size=f"{x.shape[2]}^2",
+        prepared=(q1, x[:TRACE_BATCH]))
+    for k, t in trace_totals.items():
+        errs[k] = max(errs.get(k, 0), t["max_abs_err"])
+    for k, n in trace_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    return totals, launches, errs
+
+
+def onnx_ops_on_card(card: str) -> None:
+    """Phase 21c: each of the ONNX importer's 53 ops on the card against its
+    CPU torch impl, on the cases of tests/onnx_op_cases.py (the JAX
+    package's op tests' shapes and the named trouble spots): integers,
+    indices, bools and the exact float ops ==, the others within OP_RTOL /
+    OP_ATOL."""
+    from tachikoma_tpu_torch.ir.graph import Node
+    from tachikoma_tpu_torch.ir.registry import get_op
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from onnx_op_cases import CASES
+
+    phase(f"21c. the ONNX importer's ops on the card against their CPU torch impls: "
+          f"{len(CASES)} cases [{card}]")
+    per_op: dict = {}
+    for cid, op, inputs, attrs, tol, _, _, _ in CASES:
+        node = Node("y", op, tuple(f"x{i}" for i in range(len(inputs))), attrs)
+        impl = get_op(op).torch_impl
+        got = impl(*(torch.from_numpy(v).cuda() for v in inputs), node=node)
+        want = impl(*map(torch.from_numpy, inputs), node=node)
+        got, want = (v if isinstance(v, list) else [v] for v in (got, want))
+        err = 0.0
+        for a, b in zip(got, want):
+            a = a.cpu().numpy()
+            b = b.numpy()
+            assert a.dtype == b.dtype and a.shape == b.shape, cid
+            if tol is True or b.dtype.kind in "iub":
+                np.testing.assert_array_equal(a, b, err_msg=cid)
+            else:
+                np.testing.assert_allclose(a, b, rtol=OP_RTOL, atol=OP_ATOL, err_msg=cid)
+                both = np.isfinite(a) & np.isfinite(b)
+                if both.any():
+                    err = max(err, float(np.abs(a[both].astype(np.float64) - b[both]).max()))
+        cases, exact, worst = per_op.get(op, (0, True, 0.0))
+        per_op[op] = (cases + 1, exact and (tol is True), max(worst, err))
+    for op, (cases, exact, worst) in sorted(per_op.items()):
+        say(f"  {op:24s} {cases:2d} cases  "
+            + ("==" if exact else f"max |card - CPU| {worst:.3g} (rtol {OP_RTOL} atol {OP_ATOL})"))
+    assert len(per_op) == 53, sorted(per_op)
+    say(f"{len(per_op)} ops, {len(CASES)} cases held")
+
+
+def onnx_cli(card: str) -> None:
+    """Phase 21d: `python -m tachikoma_tpu_torch.cli run` on an .onnx
+    fixture on the card (the CLI's default device), its output within
+    ROUTE_RTOL / ROUTE_ATOL of the exporter's expected output."""
+    name = "darknet_route"
+    path = os.path.join(ONNX_DIR, f"{name}.onnx")
+    io_ = np.load(os.path.join(ONNX_DIR, f"{name}_io.npz"))
+    phase(f"21d. python -m tachikoma_tpu_torch.cli run {path} (device cuda) [{card}]")
+    tdir = tempfile.mkdtemp(prefix="tk_chip_smoke_onnx_")
+    xin, out = os.path.join(tdir, "x.npy"), os.path.join(tdir, "y.npz")
+    np.save(xin, io_["x"])
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "tachikoma_tpu_torch.cli", "run", path,
+                          "--input", xin, "-o", out], capture_output=True, text=True,
+                         timeout=300)
+    say(res.stdout.strip().splitlines()[0] if res.stdout.strip() else "(no output)")
+    assert res.returncode == 0, res.stderr[-2000:]
+    got = np.load(out)
+    y = got[got.files[0]]
+    np.testing.assert_allclose(y, io_["expected"], rtol=ROUTE_RTOL, atol=ROUTE_ATOL)
+    say(f"exit 0 in {time.perf_counter() - t0:.2f} s; {got.files[0]} {y.shape} within rtol "
+        f"{ROUTE_RTOL} atol {ROUTE_ATOL} of the exporter's expected output (max |diff| "
+        f"{np.abs(y - io_['expected']).max():.3g})")
+    for f in (xin, out):
+        os.remove(f)
+    os.rmdir(tdir)
+
+
+def onnx_path(card: str) -> tuple[dict, dict, dict]:
+    """Phase 21: the ONNX import path (21a-21d).  Returns the kernels' totals
+    (ResNet-50's), their launches over 21a and 21b's counted runs, and the
+    largest |err| of each."""
+    totals, launches = onnx_resnet_path(card)
+    errs = {k: t["max_abs_err"] for k, t in totals.items()}
+    for name in ONNX_FIXTURES:
+        _, fx_launches, fx_errs = onnx_fixture_path(name, card)
+        for k, e in fx_errs.items():
+            errs[k] = max(errs.get(k, 0), e)
+        for k, n in fx_launches.items():
+            launches[k] = launches.get(k, 0) + n
+    onnx_ops_on_card(card)
+    onnx_cli(card)
+    return totals, launches, errs
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2914,6 +3174,12 @@ def main() -> int:
     merge({}, tflite_launches)
     merge({}, wide_launches)
     say(f"\nphase 20 seconds {time.perf_counter() - t20:.1f} (host clock)")
+    t21 = time.perf_counter()
+    _, onnx_launches, onnx_errs = onnx_path(card)
+    for name, e in onnx_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    merge({}, onnx_launches)
+    say(f"\nphase 21 seconds {time.perf_counter() - t21:.1f} (host clock) [{card}]")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

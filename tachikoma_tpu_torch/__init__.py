@@ -25,6 +25,7 @@ from .ir.infer import infer_types
 
 # Register the op vocabulary on import.
 from .ops import attention as _ops_attention  # noqa: F401
+from .ops import extra as _ops_extra  # noqa: F401
 from .ops import nn as _ops_nn  # noqa: F401
 from .ops import qnn as _ops_qnn  # noqa: F401
 from .ops import tail as _ops_tail  # noqa: F401

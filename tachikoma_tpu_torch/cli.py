@@ -14,8 +14,10 @@ Usage: python -m tachikoma_tpu_torch.cli <subcommand> [args]
 
 `--device` defaults to "cuda" and never falls back to the CPU; pass
 `--device cpu` to run the kernels' plain PyTorch versions.  Graph files are
-`.json` or `.tkmod` artifacts (either package's) or prequantized `.tflite`
-models (int8, or 16x8 on the W8A16 path); the zoo is the JAX CLI's:
+`.json` or `.tkmod` artifacts (either package's), float `.onnx` models
+(`quantize` calibrates them; QDQ models import as quantize-dequantize
+islands) or prequantized `.tflite` models (int8, or 16x8 on the W8A16
+path); the zoo is the JAX CLI's:
 lenet5 / mlp / digits_cnn / resnet18 / resnet34 / resnet50 / mobilenet_v2 /
 vgg16 / vgg19 / squeezenet / densenet / resnet3d18 / lstm and the float
 transformers bert / bert_base / gpt2 / vit_b16 / vit_l16 (`--image-size`,
@@ -61,14 +63,18 @@ def _load_graph(path: str):
         from .runtime.artifact import load_artifact
 
         return load_artifact(path)[0]
+    if path.endswith(".onnx"):
+        from .frontend.onnx import from_onnx
+
+        return from_onnx(path)
     if path.endswith(".tflite"):
         # prequantized: already an integer graph, runnable and traceable as it is
         from .frontend.tflite import from_tflite
 
         return from_tflite(path)
     if not path.endswith(".json"):
-        raise SystemExit(f"{path}: only graph .json, .tkmod and .tflite files are ported yet; "
-                         "the other model frontends wait for ROADMAP Queue 1 item 12")
+        raise SystemExit(f"{path}: only graph .json, .tkmod, .onnx and .tflite files are ported "
+                         "yet; the other model frontends wait for ROADMAP Queue 1 item 12")
     with open(path) as f:
         return Graph.from_json(f.read())
 
@@ -115,7 +121,7 @@ def _zoo(name: str, batch: int, image: int | None, seq: int | None = None):
 
 def _model(args):
     """The float (or integer) graph of a zoo name or a graph file."""
-    if args.model.endswith((".json", ".tkmod")) or os.path.isfile(args.model):
+    if args.model.endswith((".json", ".tkmod", ".onnx", ".tflite")) or os.path.isfile(args.model):
         return _load_graph(args.model)
     return _zoo(args.model, args.batch, args.image_size, args.seq_len)
 

@@ -1,8 +1,12 @@
 """Core float/int op set of int8 ResNet and MobileNetV2, the layout ops of
 graphs imported from NCHW frameworks, the float op set of the transformer
-zoo (BERT, GPT-2, ViT), and the ops the rest of the vision zoo keeps after
+zoo (BERT, GPT-2, ViT), the ops the rest of the vision zoo keeps after
 quantization (avg_pool2d, batch_norm, relu, sigmoid, exp, split, max, mean,
-conv2d_transpose) (port of `tachikoma_tpu/ops/nn.py`).
+conv2d_transpose), and the ops of this file that the ONNX importer emits
+(elementwise math, maximum / minimum / mod / divide / power, sum / prod /
+min / argmax / argmin, squeeze / expand_dims / tile, gather, one_hot,
+leaky_relu, prelu, log_softmax, global_max_pool2d, image.resize2d,
+depth_to_space, space_to_depth) (port of `tachikoma_tpu/ops/nn.py`).
 
 Each op gets the JAX package's shape/dtype relation and numpy oracle, copied;
 the ops that the fused graphs run outside the kernels also get a torch
@@ -1273,3 +1277,680 @@ def _mean_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
 
 register_op("max", infer=_reduce_rel)
 register_op("mean", infer=_reduce_rel)
+
+
+# ---------------------------------------------------------------------------
+# the ONNX importer's ops (frontend/onnx.py): elementwise math, binaries,
+# reductions, shape and index ops, resize, depth/space moves.  Each torch
+# impl computes the oracle's values: a float32 cast where the oracle casts,
+# numpy's promotion, numpy's rules at a zero divisor and for negative and
+# out-of-range indices (an index out of range raises, as numpy's does,
+# instead of reaching a device-side assert).
+# ---------------------------------------------------------------------------
+
+for _name in ("nn.log_softmax", "erf", "log", "sqrt", "negative", "abs", "round", "floor", "ceil",
+              "sign"):
+    register_op(_name, infer=_same_rel)
+
+
+def _int_exact(np_fn):
+    # the oracle keeps integer negative / abs / sign in the input's dtype
+    return np_fn in (np.negative, np.abs, np.sign)
+
+
+def _torch_sign(x: torch.Tensor) -> torch.Tensor:
+    """np.sign: NaN stays NaN (torch.sign gives 0 there)."""
+    s = torch.sign(x)
+    return torch.where(torch.isnan(x), x, s) if x.dtype.is_floating_point else s
+
+
+for _n, (_f, _tf) in {
+    "log": (np.log, torch.log), "sqrt": (np.sqrt, torch.sqrt),
+    "negative": (np.negative, torch.neg), "abs": (np.abs, torch.abs),
+    "floor": (np.floor, torch.floor), "ceil": (np.ceil, torch.ceil),
+    "sign": (np.sign, _torch_sign),
+}.items():
+    def _mku(f, tf):
+        def np_fn(x, *, node: Node):
+            if dt.is_int(str(x.dtype)) and _int_exact(f):
+                return f(x)
+            return f(x.astype(np.float32)).astype(x.dtype)
+
+        def torch_fn(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+            if _int_exact(f) and not x.dtype.is_floating_point and x.dtype != torch.bool:
+                return tf(x)
+            return tf(x.to(torch.float32)).to(x.dtype)
+        return np_fn, torch_fn
+    _np_fn, _torch_fn = _mku(_f, _tf)
+    register_op(_n, np_impl=_np_fn, torch_impl=_torch_fn)
+
+
+@np_impl("round")
+def _round_np(x, *, node: Node):
+    # TVM `round` lowers to nearbyint (ties-to-even) == np.rint
+    return np.rint(x.astype(np.float32)).astype(x.dtype)
+
+
+@torch_impl("round")
+def _round_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return torch.round(x.to(torch.float32)).to(x.dtype)  # ties to even, as np.rint
+
+
+@np_impl("erf")
+def _erf_np(x, *, node: Node):
+    try:
+        from scipy.special import erf as _serf  # type: ignore
+
+        return _serf(x.astype(np.float32)).astype(x.dtype)
+    except ImportError:
+        out = np.vectorize(math.erf)(x.astype(np.float64))
+        return out.astype(x.dtype)
+
+
+@torch_impl("erf")
+def _erf_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return torch.erf(x.to(torch.float32)).to(x.dtype)
+
+
+@np_impl("nn.log_softmax")
+def _log_softmax_np(x, *, node: Node):
+    axis = int(node.attrs.get("axis", -1))
+    x32 = x.astype(np.float32)
+    m = x32.max(axis=axis, keepdims=True)
+    s = np.log(np.exp(x32 - m).sum(axis=axis, keepdims=True))
+    return (x32 - m - s).astype(x.dtype)
+
+
+@torch_impl("nn.log_softmax")
+def _log_softmax_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """The oracle's sequence in float32: the max, the log of the summed
+    exponentials, (x - m) - s."""
+    axis = int(node.attrs.get("axis", -1))
+    x32 = x.to(torch.float32)
+    m = x32.amax(dim=axis, keepdim=True)
+    s = torch.log(torch.exp(x32 - m).sum(dim=axis, keepdim=True))
+    return (x32 - m - s).to(x.dtype)
+
+
+@infer_rule("nn.leaky_relu")
+def _lrelu_rel(node: Node, ins):
+    return ins[0]
+
+
+@np_impl("nn.leaky_relu")
+def _lrelu_np(x, *, node: Node):
+    alpha = np.float32(node.attrs.get("alpha", 0.01))
+    return np.where(x >= 0, x, (x.astype(np.float32) * alpha).astype(x.dtype))
+
+
+@torch_impl("nn.leaky_relu")
+def _lrelu_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    alpha = torch.tensor(np.float32(node.attrs.get("alpha", 0.01)), device=x.device)
+    return torch.where(x >= 0, x, (x.to(torch.float32) * alpha).to(x.dtype))
+
+
+@infer_rule("nn.prelu")
+def _prelu_rel(node: Node, ins):
+    return ins[0]
+
+
+@np_impl("nn.prelu")
+def _prelu_np(x, alpha, *, node: Node):
+    axis = int(node.attrs.get("axis", -1))
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    return np.where(x >= 0, x, x * alpha.reshape(shape)).astype(x.dtype)
+
+
+@torch_impl("nn.prelu")
+def _prelu_torch(x: torch.Tensor, alpha: torch.Tensor, *, node: Node) -> torch.Tensor:
+    axis = int(node.attrs.get("axis", -1))
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    p = torch_dtype(dt.promote(_dtype_name(x), _dtype_name(alpha)))
+    xp = x.to(p)
+    return torch.where(x >= 0, xp, xp * alpha.reshape(shape).to(p)).to(x.dtype)
+
+
+# binaries: maximum and minimum (NaN propagates in both), numpy's floor mod,
+# C division on integers, power
+
+for _n, (_f, _tf) in {"maximum": (np.maximum, torch.maximum),
+                      "minimum": (np.minimum, torch.minimum)}.items():
+    _np_fn, _torch_fn = _mkb(_f, _tf)
+    register_op(_n, infer=_broadcast_rel, np_impl=_np_fn, torch_impl=_torch_fn)
+
+
+def _promoted(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    out_dt = torch_dtype(dt.promote(_dtype_name(a), _dtype_name(b)))
+    return a.to(out_dt), b.to(out_dt)
+
+
+def _nonzero_divisor(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(b == 0, b with its zeros made 1): an integer division by zero gives
+    0 in numpy (with a warning), raises in torch on the CPU and is undefined
+    on CUDA."""
+    zero = b == 0
+    return zero, torch.where(zero, torch.ones_like(b), b)
+
+
+@np_impl("mod")
+def _mod_np(a, b, *, node: Node):
+    out_dt = np.dtype(dt.promote(str(a.dtype), str(b.dtype)))
+    return np.mod(a.astype(out_dt), b.astype(out_dt))
+
+
+@torch_impl("mod")
+def _mod_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """np.mod, a floor mod: the sign of the divisor.  Integers: 0 at a zero
+    divisor.  Floats: NaN at a zero divisor (as torch gives), and a zero
+    result carries the divisor's sign, as numpy's does (torch's carries the
+    dividend's)."""
+    a, b = _promoted(a, b)
+    if not a.dtype.is_floating_point:
+        zero, b1 = _nonzero_divisor(b)
+        return torch.where(zero, torch.zeros_like(a), torch.remainder(a, b1))
+    r = torch.remainder(a, b)
+    return torch.where(r == 0, torch.copysign(torch.zeros_like(r), b), r)
+
+
+register_op("mod", infer=_broadcast_rel)
+
+
+@infer_rule("divide")
+def _div_rel(node: Node, ins):
+    return _broadcast_rel(node, ins)
+
+
+@np_impl("divide")
+def _div_np(a, b, *, node: Node):
+    out_dt = np.dtype(dt.promote(str(a.dtype), str(b.dtype)))
+    if dt.is_int(str(out_dt)):
+        # TVM integer divide truncates toward zero (C semantics)
+        q = a.astype(np.int64) // b.astype(np.int64)
+        r = a.astype(np.int64) % b.astype(np.int64)
+        q = np.where((r != 0) & ((a < 0) != (b < 0)), q + 1, q)
+        return q.astype(out_dt)
+    return (a.astype(out_dt) / b.astype(out_dt))
+
+
+@torch_impl("divide")
+def _div_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """Integers: the quotient truncated toward zero, computed in int64 and
+    wrapped into the promoted dtype as the oracle's astype does; 0 at a
+    zero divisor, the oracle's value there.  Floats: IEEE division."""
+    out_dt = torch_dtype(dt.promote(_dtype_name(a), _dtype_name(b)))
+    if out_dt.is_floating_point:
+        return a.to(out_dt) / b.to(out_dt)
+    zero, b1 = _nonzero_divisor(b.to(torch.int64))
+    q = torch.div(a.to(torch.int64), b1, rounding_mode="trunc")
+    return torch.where(zero, torch.zeros_like(q), q).to(out_dt)
+
+
+@infer_rule("power")
+def _pow_rel(node: Node, ins):
+    return _broadcast_rel(node, ins)
+
+
+@np_impl("power")
+def _pow_np(a, b, *, node: Node):
+    out_dt = np.dtype(dt.promote(str(a.dtype), str(b.dtype)))
+    return np.power(a.astype(out_dt), b.astype(out_dt))
+
+
+@torch_impl("power")
+def _pow_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """np.power in the promoted dtype; an integer power wraps as numpy's.
+    A negative integer exponent raises, as numpy's does (torch would give 0
+    or 1); checking it reads one flag on the host."""
+    a, b = _promoted(a, b)
+    if not a.dtype.is_floating_point and a.dtype != torch.bool and bool((b < 0).any()):
+        raise ValueError(f"{node.name}: integers to negative integer powers are not allowed")
+    return torch.pow(a, b)
+
+
+# reductions: sum, prod, min, argmax, argmin
+
+def _reduce_dims(node: Node, ndim: int) -> tuple[int, ...]:
+    axes = _norm_axes(node, ndim)
+    return tuple(range(ndim)) if axes is None else axes
+
+
+def _narrow_int(dtype: str) -> bool:
+    return dtype in ("int8", "uint8", "int16", "int32")
+
+
+@infer_rule("sum")
+def _sum_rel(node: Node, ins):
+    shape, adt = _reduce_rel(node, ins)
+    if str(adt) in ("int8", "uint8", "int16", "int32"):
+        return shape, "int32"
+    return shape, adt
+
+
+register_op("prod", infer=_reduce_rel)
+register_op("min", infer=_reduce_rel)
+
+for _n, _f in {"sum": np.sum, "min": np.min, "prod": np.prod}.items():
+    def _mkr(f, name):
+        def impl(a, *, node: Node):
+            axes = _norm_axes(node, a.ndim)
+            keepdims = bool(node.attrs.get("keepdims", False))
+            if name in ("sum", "prod") and dt.is_int(str(a.dtype)):
+                return f(a.astype(np.int64), axis=axes, keepdims=keepdims).astype(
+                    "int32" if str(a.dtype) in ("int8", "uint8", "int16", "int32") else a.dtype
+                )
+            out = f(a, axis=axes, keepdims=keepdims)
+            return np.asarray(out, dtype=a.dtype)
+        return impl
+    register_op(_n, np_impl=_mkr(_f, _n))
+
+
+def _prod_dims(a: torch.Tensor, dims: tuple[int, ...], keepdim: bool) -> torch.Tensor:
+    # torch.prod reduces one dim a call: the highest first keeps the others'
+    # indices
+    for d in sorted(dims, reverse=True):
+        a = a.prod(dim=d, keepdim=keepdim)
+    return a
+
+
+def _int_reduce_out(a: torch.Tensor) -> torch.dtype:
+    return torch.int32 if _narrow_int(_dtype_name(a)) else a.dtype
+
+
+@torch_impl("sum")
+def _sum_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """Integers: the int64 sum (exact modulo 2^64 in every order) in int32
+    for int32 and narrower inputs, wrapping as the oracle's astype does.
+    Floats: torch's sum order, not numpy's pairwise one."""
+    dims = _reduce_dims(node, a.ndim)
+    integer = not a.dtype.is_floating_point and a.dtype != torch.bool
+    x = a.to(torch.int64) if integer else a
+    if dims:
+        x = x.sum(dim=dims, keepdim=bool(node.attrs.get("keepdims", False)))
+    return x.to(_int_reduce_out(a) if integer else a.dtype)
+
+
+@torch_impl("prod")
+def _prod_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """As `sum`: an int64 product (exact modulo 2^64 in every order) in the
+    oracle's dtype; floats in torch's order."""
+    dims = _reduce_dims(node, a.ndim)
+    integer = not a.dtype.is_floating_point and a.dtype != torch.bool
+    x = _prod_dims(a.to(torch.int64) if integer else a, dims,
+                   bool(node.attrs.get("keepdims", False)))
+    return x.to(_int_reduce_out(a) if integer else a.dtype)
+
+
+@torch_impl("min")
+def _min_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    dims = _reduce_dims(node, a.ndim)
+    return torch.amin(a, dim=dims, keepdim=bool(node.attrs.get("keepdims", False))) if dims else a
+
+
+def _arg_rel(node: Node, ins):
+    shape, _ = _reduce_rel(node, ins)
+    return shape, "int32"
+
+
+for _n, (_f, _tf) in {"argmax": (np.argmax, torch.argmax),
+                      "argmin": (np.argmin, torch.argmin)}.items():
+    def _mka(f, tf):
+        def np_fn(a, *, node: Node):
+            axes = _norm_axes(node, a.ndim)
+            ax = axes[0] if axes else None
+            out = f(a, axis=ax)
+            if node.attrs.get("keepdims", False) and ax is not None:
+                out = np.expand_dims(out, ax)
+            return out.astype(np.int32)
+
+        def torch_fn(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+            # the first index of the extreme, NaN counted the extreme, as numpy
+            axes = _norm_axes(node, a.ndim)
+            ax = axes[0] if axes else None
+            out = tf(a, dim=ax)
+            if node.attrs.get("keepdims", False) and ax is not None:
+                out = out.unsqueeze(ax)
+            return out.to(torch.int32)
+        return np_fn, torch_fn
+    _np_fn, _torch_fn = _mka(_f, _tf)
+    register_op(_n, infer=_arg_rel, np_impl=_np_fn, torch_impl=_torch_fn)
+
+
+# shape ops: squeeze, expand_dims, tile
+
+@infer_rule("squeeze")
+def _squeeze_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    axes = node.attrs.get("axis")
+    if axes is None:
+        return tuple(s for s in a if s != 1), adt
+    axes = [ax % len(a) for ax in (axes if isinstance(axes, (tuple, list)) else [axes])]
+    return tuple(s for i, s in enumerate(a) if i not in axes), adt
+
+
+@np_impl("squeeze")
+def _squeeze_np(a, *, node: Node):
+    axes = node.attrs.get("axis")
+    if axes is not None and not isinstance(axes, (tuple, list)):
+        axes = (axes,)
+    return np.squeeze(a, axis=tuple(axes) if axes is not None else None)
+
+
+@torch_impl("squeeze")
+def _squeeze_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """np.squeeze: an axis named that is not of size 1 raises, as numpy's
+    does (torch's squeeze would leave it)."""
+    axes = node.attrs.get("axis")
+    if axes is not None:
+        for ax in (axes if isinstance(axes, (tuple, list)) else [axes]):
+            if a.shape[int(ax) % a.ndim] != 1:
+                raise ValueError(f"{node.name}: cannot squeeze axis {ax} of size "
+                                 f"{a.shape[int(ax) % a.ndim]}")
+    shape, _ = _squeeze_rel(node, [(tuple(a.shape), _dtype_name(a))])
+    return a.reshape(shape)
+
+
+@infer_rule("expand_dims")
+def _expand_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    axis = int(node.attrs["axis"])
+    num = int(node.attrs.get("num_newaxis", 1))
+    axis = axis % (len(a) + 1)
+    return tuple(a[:axis]) + (1,) * num + tuple(a[axis:]), adt
+
+
+@np_impl("expand_dims")
+def _expand_np(a, *, node: Node):
+    axis = int(node.attrs["axis"]) % (a.ndim + 1)
+    num = int(node.attrs.get("num_newaxis", 1))
+    shape = a.shape[:axis] + (1,) * num + a.shape[axis:]
+    return a.reshape(shape)
+
+
+@torch_impl("expand_dims")
+def _expand_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    shape, _ = _expand_rel(node, [(tuple(a.shape), _dtype_name(a))])
+    return a.reshape(shape)
+
+
+@infer_rule("tile")
+def _tile_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    reps = tuple(int(r) for r in node.attrs["reps"])
+    return tuple(int(s) for s in np.tile(np.empty(a, dtype=np.bool_), reps).shape), adt
+
+
+@np_impl("tile")
+def _tile_np(a, *, node: Node):
+    return np.tile(a, tuple(int(r) for r in node.attrs["reps"]))
+
+
+@torch_impl("tile")
+def _tile_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return a.tile(tuple(int(r) for r in node.attrs["reps"]))  # np.tile's rule for short reps
+
+
+# index ops: gather (take_along_axis), one_hot
+
+def index_in_range(idx: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    """`idx` (int64) with negative entries counted from the end, as numpy's
+    indexing counts them; an entry outside [-n, n) raises IndexError, as
+    numpy's does, instead of reaching a device-side assert.  The check reads
+    one flag on the host."""
+    if idx.numel() and bool(((idx < -n) | (idx >= n)).any()):
+        raise IndexError(f"{what}: index out of range for an axis of size {n}")
+    return torch.where(idx < 0, idx + n, idx)
+
+
+@infer_rule("gather")
+def _gather_rel(node: Node, ins):
+    (_, adt), (i, _) = ins[0], ins[1]
+    return tuple(i), adt
+
+
+@np_impl("gather")
+def _gather_np(a, indices, *, node: Node):
+    axis = int(node.attrs.get("axis", 0))
+    return np.take_along_axis(a, indices.astype(np.int64), axis=axis)
+
+
+@torch_impl("gather")
+def _gather_torch(a: torch.Tensor, indices: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """np.take_along_axis: the axes other than `axis` broadcast between the
+    data and the indices, as numpy's do (torch.gather would read a corner)."""
+    if a.ndim != indices.ndim:
+        raise ValueError(f"{node.name}: indices rank {indices.ndim} != data rank {a.ndim}")
+    axis = int(node.attrs.get("axis", 0)) % a.ndim
+    idx = index_in_range(indices.to(torch.int64), a.shape[axis], node.name)
+    other = [1 if d == axis else s for d, s in enumerate(a.shape)]
+    other_i = [1 if d == axis else s for d, s in enumerate(idx.shape)]
+    shape = list(broadcast_shapes(other, other_i))
+    a_shape, i_shape = list(shape), list(shape)
+    a_shape[axis], i_shape[axis] = a.shape[axis], idx.shape[axis]
+    return torch.gather(a.expand(a_shape), axis, idx.expand(i_shape))
+
+
+@infer_rule("one_hot")
+def _onehot_rel(node: Node, ins):
+    (i, _) = ins[0]
+    depth = int(node.attrs["depth"])
+    axis = int(node.attrs.get("axis", -1))
+    shape = list(i)
+    if axis == -1:
+        shape = shape + [depth]
+    else:
+        shape.insert(axis, depth)
+    return tuple(shape), node.attrs.get("dtype", "float32")
+
+
+@np_impl("one_hot")
+def _onehot_np(indices, *, node: Node):
+    depth = int(node.attrs["depth"])
+    on = node.attrs.get("on_value", 1)
+    off = node.attrs.get("off_value", 0)
+    dtype = node.attrs.get("dtype", "float32")
+    out = np.full(indices.shape + (depth,), off, dtype=dtype)
+    idx = np.clip(indices, 0, depth - 1)
+    np.put_along_axis(out, idx[..., None].astype(np.int64), np.asarray(on, dtype=dtype), axis=-1)
+    mask = (indices >= 0) & (indices < depth)
+    out = np.where(mask[..., None], out, np.asarray(off, dtype=dtype))
+    axis = int(node.attrs.get("axis", -1))
+    if axis != -1:
+        out = np.moveaxis(out, -1, axis)
+    return out
+
+
+@torch_impl("one_hot")
+def _onehot_torch(indices: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """`on` where the index, clipped to [0, depth) and truncated as the
+    oracle's astype truncates, meets the depth position and the index lies
+    in [0, depth); `off` elsewhere (a row out of range is all `off`)."""
+    depth = int(node.attrs["depth"])
+    dtype = node.attrs.get("dtype", "float32")
+    dev = indices.device
+    on = torch.from_numpy(np.asarray(node.attrs.get("on_value", 1), dtype=dtype)).to(dev)
+    off = torch.from_numpy(np.asarray(node.attrs.get("off_value", 0), dtype=dtype)).to(dev)
+    idx = indices.clamp(0, depth - 1).to(torch.int64)
+    inside = (indices >= 0) & (indices < depth)
+    hit = (idx.unsqueeze(-1) == torch.arange(depth, device=dev)) & inside.unsqueeze(-1)
+    out = torch.where(hit, on, off)
+    axis = int(node.attrs.get("axis", -1))
+    return out if axis == -1 else out.movedim(-1, axis)
+
+
+# NHWC pooling and layout moves: global max pool, resize, depth <-> space
+
+@infer_rule("nn.global_max_pool2d")
+def _gmp_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
+    return _gap_rel(node, ins)
+
+
+@np_impl("nn.global_max_pool2d")
+def _gmp_np(data: np.ndarray, *, node: Node) -> np.ndarray:
+    return data.max(axis=(1, 2), keepdims=node.attrs.get("keepdims", True))
+
+
+@torch_impl("nn.global_max_pool2d")
+def _gmp_torch(data: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return torch.amax(data, dim=(1, 2), keepdim=bool(node.attrs.get("keepdims", True)))
+
+
+@infer_rule("image.resize2d")
+def _resize2d_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    n, h, w, c = a
+    oh, ow = _pair(node.attrs["size"])
+    return (n, oh, ow, c), adt
+
+
+def _resize2d_src_coords(in_size: int, out_size: int, ctm: str) -> np.ndarray:
+    """Float source coordinates for each output index, per the ONNX / TVM
+    coordinate_transformation_mode semantics (TVM's topi/image/resize.py
+    get_inx)."""
+    x = np.arange(out_size, dtype=np.float64)
+    if ctm == "asymmetric":
+        return x * in_size / out_size
+    if ctm == "half_pixel":
+        return (x + 0.5) * in_size / out_size - 0.5
+    if ctm == "align_corners":
+        return x * (in_size - 1) / max(out_size - 1, 1)
+    raise NotImplementedError(
+        f"resize2d coordinate_transformation_mode {ctm!r}")
+
+
+def _resize2d_nn_index(in_size: int, out_size: int, ctm: str,
+                       rm: str) -> np.ndarray:
+    xin = _resize2d_src_coords(in_size, out_size, ctm)
+    if rm == "floor":
+        idx = np.floor(xin)
+    elif rm == "ceil":
+        idx = np.ceil(xin)
+    elif rm == "round_prefer_floor":
+        idx = np.ceil(xin - 0.5)
+    elif rm == "round_prefer_ceil":
+        idx = np.floor(xin + 0.5)
+    else:
+        raise NotImplementedError(f"resize2d rounding_method {rm!r}")
+    return np.clip(idx, 0, in_size - 1).astype(np.int64)
+
+
+def _resize2d_linear_taps(in_size: int, out_size: int, ctm: str):
+    """(lo_index, hi_index, hi_weight) static arrays for 1-D linear resize."""
+    xin = np.clip(_resize2d_src_coords(in_size, out_size, ctm), 0, in_size - 1)
+    lo = np.floor(xin).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    return lo, hi, (xin - lo).astype(np.float32)
+
+
+def _resize2d_common(a, node, take=lambda v, ax, idx: np.take(v, idx, axis=ax),
+                     const=lambda v, like: v):
+    """resize2d over static numpy tables (the shapes are static): the
+    nearest gathers, or linear's `top + (bot - top) * w` in the input's
+    float dtype, op for op.  The oracle runs it on numpy arrays; the torch
+    impl passes a gather and a conversion of the weights to its device."""
+    oh, ow = _pair(node.attrs["size"])
+    method = node.attrs.get("method", "nearest_neighbor")
+    ctm = node.attrs.get("coordinate_transformation_mode", "asymmetric")
+    n, h, w, c = a.shape
+    if method in ("nearest_neighbor", "nearest"):
+        rm = node.attrs.get("rounding_method", "floor")
+        ys = _resize2d_nn_index(h, oh, ctm, rm)
+        xs = _resize2d_nn_index(w, ow, ctm, rm)
+        return take(take(a, 1, ys), 2, xs)
+    if method in ("linear", "bilinear"):
+        if not _is_float_array(a):
+            raise NotImplementedError(
+                "resize2d linear requires float input (dequantize first); "
+                f"got {a.dtype}")
+        ylo, yhi, wy = _resize2d_linear_taps(h, oh, ctm)
+        xlo, xhi, wx = _resize2d_linear_taps(w, ow, ctm)
+        dtype = str(a.dtype).removeprefix("torch.")
+        wy = const(wy.reshape(1, oh, 1, 1).astype(dtype), a)
+        wx = const(wx.reshape(1, 1, ow, 1).astype(dtype), a)
+        top = take(a, 1, ylo)
+        bot = take(a, 1, yhi)
+        row = top + (bot - top) * wy
+        left = take(row, 2, xlo)
+        right = take(row, 2, xhi)
+        return left + (right - left) * wx
+    raise NotImplementedError(f"resize2d method {method}")
+
+
+def _is_float_array(a) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype.is_floating_point
+    return np.issubdtype(np.dtype(str(a.dtype)), np.floating)
+
+
+@np_impl("image.resize2d")
+def _resize2d_np(a, *, node: Node):
+    return _resize2d_common(a, node)
+
+
+@torch_impl("image.resize2d")
+def _resize2d_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """The oracle's gather tables and its three linear ops, not
+    F.interpolate (whose coordinates and rounding differ); nearest runs on
+    any dtype, int8 included (the quantizer passes it through)."""
+    dev = a.device
+    return _resize2d_common(
+        a, node, take=lambda v, ax, idx: v.index_select(ax, torch.from_numpy(idx).to(dev)),
+        const=lambda v, like: torch.from_numpy(v).to(dev))
+
+
+@infer_rule("nn.depth_to_space")
+def _d2s_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    n, h, w, c = a
+    b = int(node.attrs["block_size"])
+    return (n, h * b, w * b, c // (b * b)), adt
+
+
+def _d2s(a, node: Node):
+    # numpy and torch share reshape; transpose is permute on a tensor
+    n, h, w, c = a.shape
+    b = int(node.attrs["block_size"])
+    perm = (lambda x, p: x.transpose(p)) if isinstance(a, np.ndarray) else \
+        (lambda x, p: x.permute(p))
+    if node.attrs.get("mode", "DCR") == "DCR":
+        x = a.reshape(n, h, w, b, b, c // (b * b))
+    else:
+        x = perm(a.reshape(n, h, w, c // (b * b), b, b), (0, 1, 2, 4, 5, 3))
+    x = perm(x, (0, 1, 3, 2, 4, 5))
+    return x.reshape(n, h * b, w * b, c // (b * b))
+
+
+@np_impl("nn.depth_to_space")
+def _d2s_np(a, *, node: Node):
+    return _d2s(a, node)
+
+
+@torch_impl("nn.depth_to_space")
+def _d2s_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return _d2s(a, node)
+
+
+@infer_rule("nn.space_to_depth")
+def _s2d_rel(node: Node, ins):
+    (a, adt) = ins[0]
+    n, h, w, c = a
+    b = int(node.attrs["block_size"])
+    return (n, h // b, w // b, c * b * b), adt
+
+
+@np_impl("nn.space_to_depth")
+def _s2d_np(a, *, node: Node):
+    n, h, w, c = a.shape
+    b = int(node.attrs["block_size"])
+    x = a.reshape(n, h // b, b, w // b, b, c)
+    x = x.transpose(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // b, w // b, b * b * c)
+
+
+@torch_impl("nn.space_to_depth")
+def _s2d_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    n, h, w, c = a.shape
+    b = int(node.attrs["block_size"])
+    x = a.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // b, w // b, b * b * c)

@@ -1,18 +1,23 @@
-"""Two ops of the JAX package's operator long tail that the vision zoo needs
-(port of part of `tachikoma_tpu/ops/tail.py`): `nn.conv3d` (the 3D ResNet's
-float convolutions, NDHWC data, DHWIO weights) and
-`vision.non_max_suppression` (SSD-lite's per-image greedy NMS).  The rest of
-that file waits for ROADMAP Queue 1 item 9.4.
+"""Ops of the JAX package's operator long tail (port of part of
+`tachikoma_tpu/ops/tail.py`): the two the vision zoo needs, `nn.conv3d`
+(the 3D ResNet's float convolutions, NDHWC data, DHWIO weights) and
+`vision.non_max_suppression` (SSD-lite's per-image greedy NMS), and the five
+the ONNX importer emits: `scatter_elements`, `scatter_nd`, `gather_nd`,
+`einsum` and `trilu`.  The rest of that file waits for ROADMAP Queue 1 item
+9.4.
 
-Neither has a Pallas kernel in the JAX package (XLA's conv and a
-`lax.fori_loop`), so their torch impls are a library conv and plain torch:
+None has a Pallas kernel in the JAX package (XLA's conv, scatter, gather and
+dot, and a `lax.fori_loop`), so their torch impls are a library call or
+plain torch:
 - nn.conv3d is torch.nn.functional.conv3d in float32 (TF32 off under
   ops/nn.py float32_products), summed in cuDNN's order, not the oracle's;
 - the NMS computes the IoU matrix of the score-sorted boxes once and then
   finds the greedy keep set as the fixed point of "kept = above the score
   threshold and not suppressed by a kept box before it", one matrix-vector
   step an iteration, with one host read of a flag every few steps and none
-  per box.
+  per box;
+- an integer einsum is a broadcast product summed in int64 (CUDA has no
+  integer matmul), a float one torch.einsum in float32.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import torch
 from ..ir.graph import Node
 from ..ir.registry import infer_rule, np_impl, register_op, torch_impl
 from ..utils import dtypes as dt
-from .nn import _float_only, _to_out_dtype, float32_products
+from .fixed_point import torch_dtype
+from .nn import _float_only, _to_out_dtype, float32_products, index_in_range
 
 
 # ---------------------------------------------------------------------------
@@ -209,3 +215,258 @@ def _nms_torch(boxes: torch.Tensor, scores: torch.Tensor, *, node: Node) -> torc
     out = torch.full((bsz, k + 1), -1, dtype=torch.int32, device=boxes.device)
     out.scatter_(1, slot, order.to(torch.int32))
     return out[:, :k]
+
+
+# ---------------------------------------------------------------------------
+# the ONNX importer's scatter / gather family, einsum and trilu.  Negative
+# indices count from the end and an index out of range raises, as numpy's
+# indexing in the oracles does (ops/nn.py index_in_range); a destination
+# written twice keeps the last write in the oracle's order (torch's scatter
+# leaves that order unspecified on CUDA); accumulations into one
+# destination add in the oracle's order on the CPU and in CUDA's atomic
+# order on the card (integers are exact in every order).
+# ---------------------------------------------------------------------------
+
+def _last_writes(dest: torch.Tensor, size: int) -> torch.Tensor:
+    """For each write i to dest[i] (in order), the slot it should land in:
+    dest[i] if no later write hits the same slot, else `size`, a spare slot
+    past the end; so a scatter of unique slots keeps the last write."""
+    pos = torch.arange(dest.numel(), device=dest.device)
+    last = torch.full((size,), -1, dtype=torch.int64, device=dest.device)
+    last.scatter_reduce_(0, dest, pos, reduce="amax")
+    return torch.where(last[dest] == pos, dest, torch.full_like(dest, size))
+
+
+def _write_rows(out: torch.Tensor, rows: torch.Tensor, values: torch.Tensor,
+                add: bool) -> torch.Tensor:
+    """out (P, R) with values (M, R) written to rows (M,), in order: a sum
+    (index_add_) or the last write of each row."""
+    if add:
+        return out.index_add_(0, rows, values.to(out.dtype))
+    spare = torch.cat([out, out[:1]])
+    spare.index_copy_(0, _last_writes(rows, out.shape[0]), values.to(out.dtype))
+    return spare[:-1]
+
+
+@infer_rule("scatter_elements")
+def _scatter_rel(node: Node, ins):
+    return ins[0]
+
+
+def _scatter_np_core(data, indices, updates, axis, reduce_):
+    out = data.copy()
+    idx = indices.astype(np.int64)
+    idx = np.where(idx < 0, idx + data.shape[axis], idx)
+    if reduce_ == "update":
+        np.put_along_axis(out, idx, updates, axis=axis)
+    elif reduce_ == "add":
+        grid = list(np.meshgrid(*[np.arange(s) for s in idx.shape], indexing="ij"))
+        grid[axis] = idx
+        np.add.at(out, tuple(grid), updates)
+    else:
+        raise NotImplementedError(reduce_)
+    return out
+
+
+@np_impl("scatter_elements")
+def _scatter_np(data, indices, updates, *, node: Node):
+    axis = int(node.attrs.get("axis", 0)) % data.ndim
+    return _scatter_np_core(data, indices, updates, axis,
+                            node.attrs.get("reduction", "update"))
+
+
+@torch_impl("scatter_elements")
+def _scatter_torch(data: torch.Tensor, indices: torch.Tensor, updates: torch.Tensor, *,
+                   node: Node) -> torch.Tensor:
+    """The oracle: a negative index gets the axis' size added once (then
+    numpy's own indexing wraps a second time), each element of `updates`
+    goes to its place in C order, "update" keeping the last write and
+    "add" summing."""
+    red = node.attrs.get("reduction", "update")
+    if red not in ("update", "add"):
+        raise NotImplementedError(red)
+    axis = int(node.attrs.get("axis", 0)) % data.ndim
+    n = data.shape[axis]
+    idx = indices.to(torch.int64)
+    idx = index_in_range(torch.where(idx < 0, idx + n, idx), n, node.name)
+    # each element's coordinates: idx on `axis`, elsewhere an arange over the
+    # data's axis (np.put_along_axis, which broadcasts them) or over the
+    # indices' (the oracle's meshgrid for "add")
+    base = data.shape if red == "update" else idx.shape
+    coords = [idx if d == axis else
+              torch.arange(base[d], device=data.device).reshape(
+                  [base[d] if e == d else 1 for e in range(data.ndim)])
+              for d in range(data.ndim)]
+    coords = torch.broadcast_tensors(*coords)
+    dest = torch.zeros_like(coords[0])
+    for d in range(data.ndim):
+        dest = dest * data.shape[d] + coords[d]
+    upd = updates.expand(dest.shape)
+    out = _write_rows(data.reshape(-1, 1).clone(), dest.reshape(-1), upd.reshape(-1, 1),
+                      red == "add")
+    return out.reshape(data.shape)
+
+
+def _nd_rows(data: torch.Tensor, indices: torch.Tensor, what: str) -> torch.Tensor:
+    """The row of data viewed as (prod(shape[:K]), rest) that each index
+    tuple of indices (..., K) names, wrapped and checked as numpy's
+    indexing does."""
+    k = indices.shape[-1]
+    flat = indices.reshape(-1, k).to(torch.int64)
+    rows = torch.zeros(flat.shape[0], dtype=torch.int64, device=data.device)
+    for j in range(k):
+        rows = rows * data.shape[j] + index_in_range(flat[:, j], data.shape[j], what)
+    return rows
+
+
+@infer_rule("scatter_nd")
+def _scatter_nd_rel(node: Node, ins):
+    return ins[0]
+
+
+@np_impl("scatter_nd")
+def _scatter_nd_np(data, indices, updates, *, node: Node):
+    # indices (..., K) index the first K dims of data; updates (..., rest)
+    out = data.copy()
+    k = indices.shape[-1]
+    flat_idx = indices.reshape(-1, k).astype(np.int64)
+    flat_upd = updates.reshape(-1, *data.shape[k:])
+    mode = node.attrs.get("mode", "update")
+    for i, ix in enumerate(map(tuple, flat_idx)):
+        if mode == "add":
+            out[ix] = out[ix] + flat_upd[i]
+        else:
+            out[ix] = flat_upd[i]
+    return out
+
+
+@torch_impl("scatter_nd")
+def _scatter_nd_torch(data: torch.Tensor, indices: torch.Tensor, updates: torch.Tensor, *,
+                      node: Node) -> torch.Tensor:
+    """The oracle's loop: each index tuple's slice written in order ("add"
+    under the attr `mode`, which the oracle reads; ONNX's `reduction` attr
+    does not reach it)."""
+    k = indices.shape[-1]
+    rows = _nd_rows(data, indices, node.name)
+    rest = int(np.prod(data.shape[k:]))
+    out = _write_rows(data.reshape(-1, rest).clone(), rows, updates.reshape(-1, rest),
+                      node.attrs.get("mode", "update") == "add")
+    return out.reshape(data.shape)
+
+
+@infer_rule("gather_nd")
+def _gather_nd_rel(node: Node, ins):
+    (ds, ddt), (isx, _) = ins[0], ins[1]
+    k = isx[-1]
+    return tuple(isx[:-1]) + tuple(ds[k:]), ddt
+
+
+@np_impl("gather_nd")
+def _gather_nd_np(data, indices, *, node: Node):
+    k = indices.shape[-1]
+    flat = indices.reshape(-1, k).astype(np.int64)
+    out = np.stack([data[tuple(ix)] for ix in flat])
+    return out.reshape(*indices.shape[:-1], *data.shape[k:])
+
+
+@torch_impl("gather_nd")
+def _gather_nd_torch(data: torch.Tensor, indices: torch.Tensor, *, node: Node) -> torch.Tensor:
+    k = indices.shape[-1]
+    rest = int(np.prod(data.shape[k:]))
+    out = data.reshape(-1, rest).index_select(0, _nd_rows(data, indices, node.name))
+    return out.reshape(*indices.shape[:-1], *data.shape[k:])
+
+
+@infer_rule("einsum")
+def _einsum_rel(node: Node, ins):
+    eq = node.attrs["equation"]
+    shapes = [s for (s, _) in ins]
+    out = np.einsum(eq, *[np.zeros(s, np.int8) for s in shapes])
+    return tuple(out.shape), ins[0][1]
+
+
+@np_impl("einsum")
+def _einsum_np(*args, node: Node):
+    acc = np.int64 if args[0].dtype.kind in "iu" else None
+    out = np.einsum(node.attrs["equation"],
+                    *[a.astype(acc) if acc else a for a in args])
+    return out.astype(args[0].dtype if acc is None else
+                      node.attrs.get("out_dtype", "int32"))
+
+
+def _einsum_terms(eq: str, ndims) -> tuple[list[str], str]:
+    """The input terms and the output term of `eq` with each ellipsis spelt
+    out in letters the equation does not use (right-aligned, as numpy
+    broadcasts them), and numpy's implicit output where `->` is absent: the
+    ellipsis, then the letters seen once, sorted."""
+    eq = eq.replace(" ", "")
+    lhs, _, rhs = eq.partition("->")
+    terms = lhs.split(",")
+    free = [c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ" if c not in eq]
+    n_ell = max([nd - (len(t) - 3) for t, nd in zip(terms, ndims) if "..." in t] or [0])
+    ell = "".join(free[:n_ell])
+    terms = [t.replace("...", ell[n_ell - (nd - (len(t) - 3)):]) for t, nd in zip(terms, ndims)]
+    if "->" not in eq:
+        seen = "".join(terms)
+        rhs = ell + "".join(sorted(c for c in set(seen) if seen.count(c) == 1 and c not in ell))
+    return terms, rhs.replace("...", ell)
+
+
+def _einsum_int64(eq: str, args) -> torch.Tensor:
+    """An integer einsum in int64, exact (a product and a sum wrap modulo
+    2^64 in every order, as numpy's int64 einsum does): each operand's
+    repeated letters taken as diagonals, the operands broadcast over every
+    letter and multiplied, the letters not in the output summed.  CUDA has
+    no integer matmul, so torch.einsum cannot run it there."""
+    terms, out = _einsum_terms(eq, [a.ndim for a in args])
+    letters = list(out) + sorted({c for t in terms for c in t} - set(out))
+    total = None
+    for t, a in zip(terms, args):
+        t = list(t)
+        while len(set(t)) < len(t):  # "ii": the diagonal, its letter moved last
+            c = next(c for c in t if t.count(c) > 1)
+            i = t.index(c)
+            j = t.index(c, i + 1)
+            a = torch.diagonal(a, dim1=i, dim2=j)
+            t = [x for m, x in enumerate(t) if m not in (i, j)] + [c]
+        a = a.permute([t.index(c) for c in letters if c in t])
+        a = a.reshape([a.shape[[c for c in letters if c in t].index(c)] if c in t else 1
+                       for c in letters])
+        total = a if total is None else total * a
+    summed = tuple(range(len(out), len(letters)))
+    return total.sum(dim=summed) if summed else total
+
+
+@torch_impl("einsum")
+def _einsum_torch(*args: torch.Tensor, node: Node) -> torch.Tensor:
+    """Integers (the first operand's kind decides, as in the oracle): every
+    operand in int64, summed exactly, the result in `out_dtype` (int32 by
+    default).  Floats: torch.einsum in float32 (TF32 off), in cuBLAS's
+    order, not numpy's."""
+    eq = node.attrs["equation"]
+    if not args[0].dtype.is_floating_point:
+        out = _einsum_int64(eq, [a.to(torch.int64) for a in args])
+        return out.to(torch_dtype(node.attrs.get("out_dtype", "int32")))
+    dtype = dt.promote(*[str(a.dtype).removeprefix("torch.") for a in args[:2]])
+    for a in args[2:]:
+        dtype = dt.promote(dtype, str(a.dtype).removeprefix("torch."))
+    with float32_products():
+        out = torch.einsum(eq, *[a.to(torch_dtype(dtype)) for a in args])
+    return out.to(args[0].dtype)
+
+
+@infer_rule("trilu")
+def _trilu_rel(node: Node, ins):
+    return ins[0]
+
+
+@np_impl("trilu")
+def _trilu_np(a, *, node: Node):
+    k = int(node.attrs.get("k", 0))
+    return np.triu(a, k) if node.attrs.get("upper", True) else np.tril(a, k)
+
+
+@torch_impl("trilu")
+def _trilu_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    k = int(node.attrs.get("k", 0))
+    return torch.triu(a, k) if node.attrs.get("upper", True) else torch.tril(a, k)

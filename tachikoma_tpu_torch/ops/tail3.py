@@ -1,7 +1,8 @@
-"""Dynamic slicing with runtime start indices (port of the dynamic-slicing
-part of `tachikoma_tpu/ops/tail3.py`): `dynamic_slice` and
+"""Dynamic slicing with runtime start indices and the truncated modulo (port
+of part of `tachikoma_tpu/ops/tail3.py`): `dynamic_slice` and
 `dynamic_update_slice`, the primitives of the decode step's KV-cache writes
-(models/decoding.py gpt2_decode_step).
+(models/decoding.py gpt2_decode_step), and `trunc_mod`, ONNX's Mod with
+fmod=1.
 
 The slice extents are attrs (or the update's shape), the start indices are
 scalar tensor inputs, clamped like `lax.dynamic_slice` so that the window
@@ -20,7 +21,9 @@ import numpy as np
 import torch
 
 from ..ir.graph import Node
-from ..ir.registry import infer_rule, np_impl, torch_impl
+from ..ir.registry import infer_rule, np_impl, register_op, torch_impl
+from ..utils import dtypes as dt
+from .nn import _nonzero_divisor, _promoted
 
 
 @infer_rule("dynamic_slice")
@@ -101,3 +104,29 @@ def _update_indices(a: torch.Tensor, u: torch.Tensor,
 def _dyn_upd_torch(a: torch.Tensor, u: torch.Tensor, *starts: torch.Tensor,
                    node: Node) -> torch.Tensor:
     return a.clone().index_put_(_update_indices(a, u, starts), u.to(a.dtype))
+
+
+# ---------------------------------------------------------------------------
+# trunc_mod: np.fmod, the sign of the dividend
+# ---------------------------------------------------------------------------
+
+def _bin_rel(node: Node, ins):
+    (s0, d0), (s1, d1) = ins[0], ins[1]
+    return tuple(np.broadcast_shapes(s0, s1)), dt.promote(d0, d1)
+
+
+def _trunc_mod_np(a, b, *, node: Node):
+    return np.fmod(a, b).astype(dt.promote(str(a.dtype), str(b.dtype)))
+
+
+def _trunc_mod_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """torch.fmod in the promoted dtype (C's fmod, exact); an integer zero
+    divisor gives 0, as numpy's does, a float one NaN."""
+    a, b = _promoted(a, b)
+    if a.dtype.is_floating_point:
+        return torch.fmod(a, b)
+    zero, b1 = _nonzero_divisor(b)
+    return torch.where(zero, torch.zeros_like(a), torch.fmod(a, b1))
+
+
+register_op("trunc_mod", infer=_bin_rel, np_impl=_trunc_mod_np, torch_impl=_trunc_mod_torch)

@@ -10,7 +10,11 @@ card's own inputs.  Every other node equals the CPU path.
 
 The elementwise float ops written op for op (`nn.batch_norm`, `nn.relu`,
 `qnn.dequantize`, `sigmoid`'s add and division, `nn.bias_add`) are not
-sources: a difference there is a fault.
+sources, nor are those that are exact or correctly rounded element by
+element (`nn.leaky_relu`, `negative`, `abs`, `floor`, `ceil`, `round`,
+`maximum`, `minimum`, `sign`, IEEE `divide` and `sqrt`, `mod` and
+`trunc_mod`, which are fmod-exact, resize2d's three ops): a difference
+there is a fault.
 """
 
 from __future__ import annotations
@@ -31,7 +35,16 @@ FLOAT_PRODUCTS = ("nn.dense", "nn.matmul", "nn.batch_matmul", "nn.conv2d", "nn.c
 # not correctly rounded), the float transformers' fused ops included
 FLOAT_SOURCES = FLOAT_PRODUCTS + ("mean", "nn.global_avg_pool2d", "nn.avg_pool2d", "exp",
                                   "sigmoid", "tanh", "nn.softmax", "nn.gelu", "nn.layer_norm",
-                                  "tk.attention")
+                                  "tk.attention") + (
+    # the ONNX importer's ops, one reason each:
+    "einsum",            # a float product: cuBLAS's sum order
+    "sum", "prod", "cumsum",  # float reductions and scans: the card's order
+    "nn.log_softmax", "nn.instance_norm",  # reductions inside (max, sums, means)
+    "nn.lrn",            # powf is not correctly rounded on CUDA
+    "erf", "log", "power",  # CUDA's erff, logf, powf: not correctly rounded
+    "sin", "cos", "tan", "asin", "acos", "atan", "sinh", "cosh",  # likewise
+    "scatter_elements", "scatter_nd",  # float adds into one place: CUDA's atomic order
+)
 
 
 def float_source_set(graph: Graph, sources: Sequence[str] = FLOAT_SOURCES,

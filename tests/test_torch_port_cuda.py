@@ -19,6 +19,7 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import contextlib
 import io
 
 import numpy as np
@@ -2019,3 +2020,151 @@ def test_tflite_16x8_on_card_equals_cpu(cuda):
         else:
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=nm)
     assert np.abs(card[names.index(g.outputs[0])] - io_["y"]).max() <= 1.0 / (1 << 15) + 1e-9
+
+
+# ---------------------------------------------------------------------------
+# the ONNX import path on the card: the importer's 53 ops against their CPU
+# torch impls, the six exporters' fixtures and ResNet-50 as torch.onnx.export
+# writes it, fused on K1-K3 (`-k onnx`)
+# ---------------------------------------------------------------------------
+
+from onnx_op_cases import CASES as ONNX_OP_CASES  # noqa: E402  (tests/, no jax)
+
+ONNX_FIXTURES = ("paddle_route", "oneflow_route", "caffe_route", "coreml_route",
+                 "darknet_route", "mxnet_lenet")
+OP_RTOL, OP_ATOL = 1e-5, 1e-6      # a float op on the card against its CPU torch impl
+
+
+def op_on_card_and_cpu(op, inputs, attrs, device):
+    """The op's torch impl on the card and on the CPU, on the same inputs;
+    each result a list of host arrays."""
+    from tachikoma_tpu_torch.ir.graph import Node
+    from tachikoma_tpu_torch.ir.registry import get_op
+
+    impl = get_op(op).torch_impl
+    node = Node("y", op, tuple(f"x{i}" for i in range(len(inputs))), attrs)
+
+    def listed(v):
+        return [t.cpu().numpy() for t in (v if isinstance(v, list) else [v])]
+
+    card = listed(impl(*(torch.from_numpy(x).to(device) for x in inputs), node=node))
+    return card, listed(impl(*map(torch.from_numpy, inputs), node=node))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ONNX_OP_CASES, ids=[c[0] for c in ONNX_OP_CASES])
+def test_onnx_op_on_card_equals_cpu(cuda, case):
+    """Integers, indices, bools and the exact float ops (tol EXACT) ==; the
+    float ops that round or sum in another order within rtol 1e-5, atol
+    1e-6."""
+    _, op, inputs, attrs, tol, _, _, _ = case
+    card, cpu = op_on_card_and_cpu(op, inputs, attrs, cuda)
+    assert len(card) == len(cpu)
+    for a, b in zip(card, cpu):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if tol is True or b.dtype.kind in "iub":
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=OP_RTOL, atol=OP_ATOL)
+
+
+@pytest.mark.cuda
+def test_onnx_index_out_of_range_raises_on_card(cuda):
+    """An index out of range raises on the host, as numpy's does, and never
+    reaches a device-side assert (the context stays usable)."""
+    card, _ = op_on_card_and_cpu("gather", [np.zeros((3, 2), np.float32),
+                                            np.array([[1, 0]], np.int64)], {"axis": 0}, cuda)
+    with pytest.raises(IndexError):
+        op_on_card_and_cpu("gather", [np.zeros((3, 2), np.float32),
+                                      np.array([[3, 0]], np.int64)], {"axis": 0}, cuda)
+    with pytest.raises(IndexError):
+        op_on_card_and_cpu("scatter_nd", [np.zeros((3, 2), np.int32), np.array([[-4]], np.int64),
+                                          np.ones((1, 2), np.int32)], {}, cuda)
+    assert torch.zeros(1, device=cuda).item() == 0
+
+
+@contextlib.contextmanager
+def _recorded(calls, names=("qgemm_rq", "qconv_rq", "qconv_rq_res")):
+    from tachikoma_tpu_torch.ops.kernels import conv as conv_mod
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8 as mm_mod
+
+    mods = {"qgemm_rq": mm_mod, "qconv_rq": conv_mod, "qconv_rq_res": conv_mod}
+    saved = [(mods[n], n, getattr(mods[n], n)) for n in names]
+    for mod, n, fn in saved:
+        setattr(mod, n, lambda *a, _fn=fn, _n=n, **k: (calls.append((_n, a, k)), _fn(*a, **k))[1])
+    try:
+        yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+@pytest.mark.cuda
+def test_onnx_resnet50_b2_64_fused_on_card_equals_cpu(cuda):
+    """ResNet-50 written as torch.onnx.export writes it, imported, quantized
+    and fused (14 tk.conv2d_rq, 1 tk.conv2d_chain, 4 tk.conv2d_block_stack,
+    1 tk.dense_rq): every K1, K2 and K3 call of a forward == its plain
+    version, every integer node == the CPU path."""
+    from tachikoma_tpu_torch.frontend import from_onnx
+    from tachikoma_tpu_torch.models.onnx_resnet import resnet50_onnx
+    from tachikoma_tpu_torch.ops.kernels.conv import qconv_rq_plain, qconv_rq_res_plain
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import qgemm_rq_plain
+
+    rng = np.random.default_rng(0)
+    g = from_onnx(resnet50_onnx(2, 64))
+    xs = [rng.standard_normal((2, 3, 64, 64)).astype(np.float32) for _ in range(2)]
+    fused = fuse_qnn(quantize(g, [xs[0]]))
+    ops = [n.op for n in fused.nodes]
+    assert [ops.count(o) for o in ("tk.conv2d_rq", "tk.conv2d_chain", "tk.conv2d_block_stack",
+                                   "tk.dense_rq")] == [14, 1, 4, 1]
+    names = computational_nodes(fused)
+    calls = []
+    for k in ("qgemm_rq", "qconv_rq", "qconv_rq_res"):
+        _lib.LAUNCHES[k] = 0
+    with _recorded(calls):
+        card = TorchExecutor(fused, capture=names, device="cuda").run(xs[1])
+    assert all(_lib.LAUNCHES[k] > 0 for k in ("qgemm_rq", "qconv_rq", "qconv_rq_res"))
+    plain = {"qgemm_rq": qgemm_rq_plain, "qconv_rq": qconv_rq_plain,
+             "qconv_rq_res": qconv_rq_res_plain}
+    for name, a, k in calls:
+        assert torch.equal(_kernel(name)(*a, **k), plain[name](*a, **k)), name
+    cpu = TorchExecutor(fused, capture=names, device="cpu").run(xs[1])
+    for nm, a, b in zip(names, card, cpu):
+        if b.dtype.kind in "iu":
+            np.testing.assert_array_equal(a, b, err_msg=nm)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=nm)
+
+
+def _kernel(name):
+    from tachikoma_tpu_torch.ops.kernels import conv as conv_mod
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8 as mm_mod
+
+    return getattr(mm_mod if name == "qgemm_rq" else conv_mod, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ONNX_FIXTURES)
+def test_onnx_fixture_on_card_equals_cpu(cuda, name):
+    """Float: within rtol 1e-4, atol 1e-4 of the exporter's expected output
+    (tests/test_frontend_onnx_routes.py:40) and of the CPU path.  Int8 and
+    fused: every integer node == the CPU path, or, where a float op of
+    runtime/crosscheck.py FLOAT_SOURCES reaches it, == its own op's CPU impl
+    on the card's inputs."""
+    from tachikoma_tpu_torch.frontend import from_onnx
+    from tachikoma_tpu_torch.runtime.crosscheck import hold_node_level
+
+    io_ = np.load(_fixture(f"{name}_io.npz"))
+    x, expected = io_["x"], io_["expected"]
+    g = from_onnx(_fixture(f"{name}.onnx"))
+    card = TorchExecutor(g, device="cuda").run([x])[0]
+    np.testing.assert_allclose(card, expected, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card, TorchExecutor(g, device="cpu").run([x])[0], rtol=1e-4,
+                               atol=1e-4)
+    fused = fuse_qnn(quantize(g, [x]))
+    names = computational_nodes(fused)
+    on_card = TorchExecutor(fused, capture=names, device="cuda").run([x])
+    on_cpu = TorchExecutor(fused, capture=names, device="cpu").run([x])
+    counts, _ = hold_node_level(fused, names, on_card, on_cpu, {fused.inputs[0].name: x},
+                                1e-4, 1e-4)
+    assert counts["int"] + counts["cone_int"] > 0

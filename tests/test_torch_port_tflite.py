@@ -314,7 +314,7 @@ def test_cli_runs_traces_and_verifies_a_tflite_model(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         cli_main(["verify", trace])
     assert e.value.code == 0
-    for suffix in (".onnx", ".keras", ".h5", ".pb", ".pt"):
+    for suffix in (".keras", ".h5", ".pb", ".pt"):  # .onnx is ported (test_torch_port_onnx.py)
         with pytest.raises(SystemExit, match="Queue 1 item 12"):
             cli_main(["run", str(tmp_path / f"m{suffix}"), "--device", "cpu"])
 

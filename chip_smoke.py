@@ -14,7 +14,11 @@ TFLite import and W8A16 path (the exporter's int8 MobileNetV2 at b16 on K1,
 K2 and K5 at its own zero points, traced at b1; ResNet-50 W8A16 b8 and b1
 on K4 over two byte planes; the 16x8 fixture), and the ONNX import path
 (ResNet-50 b8 written as torch.onnx.export writes it, fused on K1-K3; the
-six exporters' fixtures float, int8 and traced; the importer's 53 ops).
+six exporters' fixtures float, int8 and traced; the importer's 53 ops), and
+the PyTorch import path and FQ2I (a torch.ao-quantized ResNet-50 b8 on
+K1-K3 at its own zero points, traced at b1 on K4; the float module through
+from_torch; FQ2I'd QDQ ONNX models; the evaluation modules and the CLI's
+.pt and evaluate).
 
     python3 chip_smoke.py
 
@@ -251,6 +255,34 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      `python -m tachikoma_tpu_torch.cli run` on darknet_route.onnx (on the
      card, the CLI's default), its output within rtol 1e-4, atol 1e-4 of
      the expected one.  The phase's host seconds are printed.
+ 22. the PyTorch import path and FQ2I: (a) ResNet-50 as a torchvision-layout
+     nn.Module (models/torch_resnet.py, weights from the seed), quantized by
+     torch.ao on the host (prepare_fx, fbgemm's default qconfig, one b2 224^2
+     calibration batch, convert_fx; timed outside every timed window),
+     imported at b8 224^2 with import_torch_quantized (the model's own scales
+     and zero points: quint8's shifted by -128) and fused (14 / 1 / 4 / 1, as
+     phase 21a), the stem's and a block stack's zero points printed; every
+     K1/K2/K3 call == plain and timed, 20 requests with the launches counted,
+     every integer node and the logits == the CPU path, latency, images/s and
+     the busy share; the largest difference from torch's eager quantized model
+     (on the host) in output quanta, the top-1 agreement and the distinct
+     top-1 classes, printed and not held; (b) the same model imported at b1
+     224^2, unfused and traced on the card (K4), as phases 7-8; (c) the float
+     module through from_torch: the b8 forward on the card within rtol 1e-4
+     and atol 2.5e-3 (2.6x the largest float32 distance measured: the pooled
+     features' scale is 10^3) of torch eager on the card and of the CPU path,
+     then quantize and fuse (14 / 1 / 4 / 1), one b8 forward with the launches
+     counted, every K1/K2/K3 call == plain and every integer node == the CPU
+     path; (d) FQ2I on the three QDQ ONNX models of tests/test_fq2i.py
+     (tests/torch_import_cases.py): from_onnx, fq2i, fuse, integer ops only,
+     on the card == the CPU path, every kernel call == plain; (e)
+     quantization_report of (c)'s float and quantized graphs on one b8 batch
+     (the numpy oracle; the worst five layers' SNR), eval_topk of (c)'s float
+     graph against (a)'s int8 graph on 64 synthetic_images on the card with
+     the float graph's distinct top-1 classes printed, and `python -m
+     tachikoma_tpu_torch.cli run` on a saved (model, shape) .pt of (a)'s model
+     and `cli evaluate` of the float and int8 .pt files on a dataset .npz,
+     both exiting 0. The phase's host seconds are printed.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -268,7 +300,7 @@ write, or two int8 products; its library call the float64 product) per
 W8A16 ResNet-50 b8 forward (phase 20c); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
 12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l, 20a-20e,
-21a and 21b; K11
+21a, 21b, 22a-22d; K11
 and K12 in 16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
@@ -2801,14 +2833,12 @@ RAW_KERNELS = ("qgemm_raw", "qconv_raw", "qdwconv_raw")
 def onnx_resnet_path(card: str) -> tuple[dict, dict]:
     """Phase 21a: ResNet-50 b8 224^2 written as torch.onnx.export writes it
     (models/onnx_resnet.py, weights from SEED), imported with from_onnx,
-    quantized and fused to native ResNet-50's form; every K1/K2/K3 call ==
-    plain and timed, REQUESTS requests with the launches counted, every
-    integer node == the CPU path, latency and the busy share.  Returns the
-    kernels' per-forward totals and their launches."""
+    quantized and fused to native ResNet-50's form, then run by
+    fused_resnet_run.  Returns the kernels' per-forward totals and their
+    launches."""
     from tachikoma_tpu_torch.frontend import from_onnx
     from tachikoma_tpu_torch.models.onnx_resnet import resnet50_onnx
     from tachikoma_tpu_torch.quantize.quantizer import quantize
-    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
     from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
 
     model = f"ONNX ResNet-50 b{BATCH} {IMAGE}^2"
@@ -2825,15 +2855,28 @@ def onnx_resnet_path(card: str) -> tuple[dict, dict]:
     fused = fuse_qnn(q)
     say(f"write {t1 - t0:.2f} s ({len(blob)} bytes), from_onnx {t2 - t1:.2f} s ({len(g)} "
         f"nodes), calibrate+quantize {t3 - t2:.2f} s, fuse {time.perf_counter() - t3:.2f} s")
+    requests = [rng.standard_normal((BATCH, 3, IMAGE, IMAGE)).astype(np.float32)
+                for _ in range(REQUESTS)]
+    totals, launches, _, _, _ = fused_resnet_run("21a.", model, fused, requests, card)
+    return totals, launches
+
+
+def fused_resnet_run(label: str, model: str, fused, requests, card: str):
+    """Phases 21a and 22a on a ResNet-50 fused to native's form (asserted):
+    every K1/K2/K3 call of one forward == plain and timed, REQUESTS requests
+    through TorchExecutor(device='cuda') with the launches counted, every
+    integer node == the CPU path, the latency and the busy share.  Returns
+    the kernels' per-forward totals, their launches, the recorded calls,
+    and the first request's logits on the card and on the CPU path."""
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+
     ops = Counter(n.op for n in fused.nodes if n.op not in ("var", "const"))
     say("fused graph: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
     assert {k: ops[k] for k in ONNX_R50_OPS} == ONNX_R50_OPS, ops
     names = computational_nodes(fused)
     ex = TorchExecutor(fused, capture=names, device="cuda")
-    requests = [rng.standard_normal((BATCH, 3, IMAGE, IMAGE)).astype(np.float32)
-                for _ in range(REQUESTS)]
 
-    phase(f"21a. {model}: K1, K2 and K3 at the forward's calls: == plain, time, bound, "
+    phase(f"{label} {model}: K1, K2 and K3 at the forward's calls: == plain, time, bound, "
           f"library [{card}]")
     calls: list = []
     with recording(calls):
@@ -2841,20 +2884,24 @@ def onnx_resnet_path(card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     totals = check_kernels(calls, RUN_KERNELS, model)
 
-    phase(f"21a. {model}: {REQUESTS} requests through TorchExecutor(device='cuda') [{card}]")
+    phase(f"{label} {model}: {REQUESTS} requests through TorchExecutor(device='cuda') [{card}]")
     lat, first_out, launches = timed_requests(ex, requests, RUN_KERNELS, f"the {model} path")
+    t0 = time.perf_counter()
     plain = TorchExecutor(fused, capture=names, device="cpu").run(requests[0])
+    say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
     n_int = hold_against_plain(names, first_out, plain, fused, FLOAT_RTOL, FLOAT_ATOL)
-    logits = first_out[names.index(fused.outputs[0])]
+    out = names.index(fused.outputs[0])
+    logits = first_out[out]
     assert logits.shape == (BATCH, 1000) and np.isfinite(logits).all()
     say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; logits "
-        f"{logits.shape}, float nodes within rtol {FLOAT_RTOL} atol {FLOAT_ATOL}")
+        f"{logits.shape} (max |logit| {np.abs(logits).max():.2f}), float nodes within rtol "
+        f"{FLOAT_RTOL} atol {FLOAT_ATOL}")
     med = say_latency(lat, BATCH)
     kernel_ms = sum(t["ms"] for t in totals.values())
     say(f"{'+'.join(RUN_KERNELS)} device ms per forward {kernel_ms:.4f} of {med:.3f} ms end to "
         f"end [{card}]")
     profile_requests(ex, requests[:3], med)
-    return totals, launches
+    return totals, launches, calls, logits, plain[out]
 
 
 def kernels_called(ex, x) -> tuple:
@@ -3019,6 +3066,292 @@ def onnx_path(card: str) -> tuple[dict, dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the PyTorch import path and FQ2I (phase 22)
+# ---------------------------------------------------------------------------
+
+TORCH_CALIB_BATCH = 2             # torch.ao's calibration batch (b2 224^2)
+# 22c's float logits: rtol GRAPH_RTOL and this atol, 2.6x the largest float32
+# distance of models/torch_resnet.py's ResNet-50 at b8 224^2 on an H100 (the
+# card against the CPU path 9.7e-4, against torch eager on the card 8.2e-4):
+# float32's error at its pooled features' scale of 10^3, which the fc's
+# projection cancels out of the logits (near 10^2) but not out of the sums
+# (tests/test_torch_port_torch_fx.py, tests/test_torch_port_cuda.py hold it too)
+R50_FLOAT_ATOL = 2.5e-3
+EVAL_IMAGES = 64                  # 22e's synthetic images
+CLI_EVAL_IMAGES = 16              # 22e's `cli evaluate` dataset
+
+
+def hold_calls(calls: list) -> dict:
+    """Every recorded kernel call == its plain version; the largest |err|
+    of each kernel."""
+    impl, errs = kernel_impls(), {}
+    for name, a, k in calls:
+        errs[name] = max(errs.get(name, 0), hold_call(name, a, k, impl))
+    return errs
+
+
+def counted_forward(ex, x, kernels, what: str) -> tuple[list, dict, dict]:
+    """One forward of `ex` with the kernels' counts set to 0 just before and
+    read just after (each must have launched), every call recorded and then
+    held == plain.  Returns the captured outputs (host), the launches and
+    each kernel's largest |err|."""
+    reset(kernels)
+    calls: list = []
+    with recording(calls):
+        outs = [_host(o) for o in ex.run_device(x)]
+    launches = read_launches(kernels, what)
+    errs = hold_calls(calls)
+    say(f"{what}: " + ", ".join(f"{k} {n} launches" for k, n in launches.items())
+        + f"; {len(calls)} kernel calls, all == plain")
+    return outs, launches, errs
+
+
+def torch_ao_resnet_path(card: str) -> tuple[dict, dict, dict]:
+    """Phase 22a: ResNet-50 of models/torch_resnet.py quantized by torch.ao
+    (fbgemm) on the host, imported at b8 224^2 with import_torch_quantized
+    and fused to native ResNet-50's form, then run by fused_resnet_run; the
+    logits == the CPU path; its distance from torch's eager quantized
+    model.  Returns the kernels' per-forward
+    totals, their launches and the path's state."""
+    from tachikoma_tpu_torch.frontend.torch_quantized import import_torch_quantized
+    from tachikoma_tpu_torch.models.torch_resnet import quantize_fx, resnet50_torch
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    model = f"torch.ao ResNet-50 b{BATCH} {IMAGE}^2"
+    phase(f"22a. {model}: models/torch_resnet.py (seed {SEED}), torch.ao prepare_fx / calibrate "
+          f"b{TORCH_CALIB_BATCH} / convert_fx (fbgemm), import_torch_quantized, fuse (host) [{card}]")
+    t0 = time.perf_counter()
+    float_model = resnet50_torch(seed=SEED)
+    t1 = time.perf_counter()
+    mq = quantize_fx(float_model, (TORCH_CALIB_BATCH, 3, IMAGE, IMAGE), seed=SEED)
+    t2 = time.perf_counter()
+    g = import_torch_quantized(mq, {"x": (BATCH, 3, IMAGE, IMAGE)})
+    t3 = time.perf_counter()
+    fused = fuse_qnn(g)
+    say(f"build {t1 - t0:.2f} s, torch.ao quantize {t2 - t1:.2f} s, import_torch_quantized "
+        f"{t3 - t2:.2f} s ({len(g)} nodes), fuse {time.perf_counter() - t3:.2f} s")
+    stem = next(n for n in fused.nodes if n.op == "tk.conv2d_rq")
+    stack = next(n for n in fused.nodes if n.op == "tk.conv2d_block_stack")
+    res = stack.attrs["blocks"][0]["res_add"]
+    say(f"zero points: stem {stem.name} (7x7 s2) input {stem.attrs['input_zero_point']}, output "
+        f"{stem.attrs['output_zero_point']}; block stack {stack.name}: first conv's input "
+        f"{stack.attrs['blocks'][0]['stages'][0]['input_zero_point']}, residual add lhs "
+        f"{res['lhs_zero_point']} rhs {res['rhs_zero_point']} output "
+        f"{res['output_zero_point']} (clip from {res['a_min']})")
+    rng = np.random.default_rng(SEED)
+    requests = [rng.standard_normal((BATCH, 3, IMAGE, IMAGE)).astype(np.float32)
+                for _ in range(REQUESTS)]
+    totals, launches, calls, logits, cpu_logits = fused_resnet_run("22a.", model, fused,
+                                                                   requests, card)
+    assert np.array_equal(logits, cpu_logits), "the logits differ from the CPU path"
+    say("the logits == the CPU path")
+    # the K2 / K3 wrappers fold the input zero point into the bias on every
+    # call (ops/kernels/matmul_int8.py fold_input_zero_point, four torch
+    # launches), inside the times above; phase 21a's calls have izp 0
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import fold_input_zero_point
+
+    fold: dict = {}
+    for name, a, k in calls:
+        if name in ("qconv_rq", "qconv_rq_res") and k.get("izp", 0):
+            fold[name] = fold.get(name, 0.0) + graph_ms(
+                lambda a=a, k=k: fold_input_zero_point(a[2], a[1], k["izp"]))
+    say("the input zero point's fold into the bias inside the K2 / K3 wrappers, device ms a "
+        "forward: " + ", ".join(f"{n} {v:.4f} of {totals[n]['ms']:.4f}"
+                                for n, v in fold.items()) + f" [{card}]")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        eager = mq(torch.from_numpy(requests[0])).numpy()
+    scale = float(mq.fc.scale)
+    top1, eager_top1 = logits.argmax(-1), eager.argmax(-1)
+    say(f"torch eager quantized model (host, engine {torch.backends.quantized.engine}) "
+        f"{time.perf_counter() - t0:.2f} s: max |logits - eager| {np.abs(logits - eager).max():.4g}"
+        f" = {np.abs(logits - eager).max() / scale:.2f} output quanta (fc scale {scale:.6g}); "
+        f"top-1 agreement {(top1 == eager_top1).mean():.3f} ({int((top1 == eager_top1).sum())} "
+        f"of {BATCH}; {len(set(top1))} distinct top-1 classes here, {len(set(eager_top1))} in "
+        f"eager); printed, not held")
+    state = dict(float_model=float_model, mq=mq, fused=fused, requests=requests)
+    return totals, launches, state
+
+
+def torch_float_path(card: str, state: dict) -> tuple[dict, dict]:
+    """Phase 22c: the float module through from_torch: its b8 forward on the
+    card within GRAPH_RTOL and R50_FLOAT_ATOL of torch eager on the card and
+    of the CPU path; then quantized and fused (native ResNet-50's form), one
+    counted b8 forward, every kernel call == plain and every integer node
+    == the CPU path.  Returns the launches and the largest |err|s; `state`
+    gets the float and quantized graphs."""
+    from tachikoma_tpu_torch.frontend import from_torch
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    float_model, x = state["float_model"], state["requests"][0]
+    model = f"float ResNet-50 b{BATCH} {IMAGE}^2 (from_torch)"
+    phase(f"22c. {model}: the card against torch eager on the card and the CPU path [{card}]")
+    t0 = time.perf_counter()
+    gf = from_torch(float_model, {"x": (BATCH, 3, IMAGE, IMAGE)})
+    ops = Counter(n.op for n in gf.nodes)
+    say(f"from_torch {time.perf_counter() - t0:.2f} s: {len(gf)} nodes, {ops['nn.conv2d']} "
+        f"nn.conv2d, {ops['nn.batch_norm']} nn.batch_norm, {ops['nn.dense']} nn.dense")
+    on_card = TorchExecutor(gf, device="cuda").run(x)[0]
+    on_cpu = TorchExecutor(gf, device="cpu").run(x)[0]
+    with torch.no_grad():
+        eager = float_model.cuda()(torch.from_numpy(x).cuda()).cpu().numpy()
+    float_model.cpu()
+    say(f"logits {on_card.shape}: max |card - torch eager on the card| "
+        f"{np.abs(on_card - eager).max():.3g}, max |card - CPU| "
+        f"{np.abs(on_card - on_cpu).max():.3g}; max |logit| {np.abs(eager).max():.2f}; held at "
+        f"rtol {GRAPH_RTOL}, atol {R50_FLOAT_ATOL} (TF32 off); elements beyond atol "
+        f"{GRAPH_ATOL} + rtol {GRAPH_RTOL}: "
+        f"{int((np.abs(on_card - eager) > GRAPH_ATOL + GRAPH_RTOL * np.abs(eager)).sum())} "
+        f"of {eager.size}")
+    np.testing.assert_allclose(on_card, eager, rtol=GRAPH_RTOL, atol=R50_FLOAT_ATOL)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=GRAPH_RTOL, atol=R50_FLOAT_ATOL)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1)
+    q = quantize(gf, [rng.standard_normal((BATCH, 3, IMAGE, IMAGE)).astype(np.float32)])
+    fused = fuse_qnn(q)
+    fops = Counter(n.op for n in fused.nodes)
+    say(f"calibrate+quantize+fuse {time.perf_counter() - t0:.2f} s (host): "
+        + ", ".join(f"{fops[k]} {k}" for k in ONNX_R50_OPS))
+    assert {k: fops[k] for k in ONNX_R50_OPS} == ONNX_R50_OPS, fops
+    names = computational_nodes(fused)
+    outs, launches, errs = counted_forward(TorchExecutor(fused, capture=names, device="cuda"),
+                                           x, RUN_KERNELS, f"the quantized {model} forward")
+    plain = TorchExecutor(fused, capture=names, device="cpu").run(x)
+    n_int = hold_against_plain(names, outs, plain, fused, FLOAT_RTOL, FLOAT_ATOL)
+    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path")
+    state.update(float_graph=gf, quantized_float=q)
+    return launches, errs
+
+
+def fq2i_onnx_path(card: str) -> tuple[dict, dict]:
+    """Phase 22d: the three QDQ ONNX models of tests/test_fq2i.py, written
+    with the port's encoder (tests/torch_import_cases.py): from_onnx,
+    fq2i, fuse; no float product left; on the card, every kernel call ==
+    plain and every node == the CPU path.  Returns the launches and the
+    largest |err|s."""
+    from tachikoma_tpu_torch.frontend import from_onnx
+    from tachikoma_tpu_torch.quantize.fq2i import fq2i
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_import_cases import QDQ_CASES
+
+    phase(f"22d. FQ2I on QDQ ONNX models: from_onnx, fq2i, fuse, the card == the CPU path "
+          f"[{card}]")
+    launches, errs = {}, {}
+    for name, build in sorted(QDQ_CASES.items()):
+        model, shape = build(np.random.default_rng(0))
+        g = from_onnx(model)
+        ig = fq2i(g)
+        fused = fuse_qnn(ig)
+        ops = [n.op for n in fused.nodes if n.op not in ("var", "const")]
+        assert not {"nn.conv2d", "nn.dense", "nn.matmul", "nn.batch_matmul"} & set(ops), ops
+        names = computational_nodes(fused)
+        x = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+        ex = TorchExecutor(fused, capture=names, device="cuda")
+        kernels = kernels_called(ex, x)
+        assert kernels, f"{name}: the fused graph ran no kernel"
+        outs, n_launch, n_errs = counted_forward(ex, x, kernels, f"{name} {shape}")
+        cpu = TorchExecutor(fused, capture=names, device="cpu").run(x)
+        for nm, a, b in zip(names, outs, cpu):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f"{name}: {nm} != the CPU path"
+        say(f"  {name}: QDQ graph {len(g)} nodes -> fused {' -> '.join(ops)}; {len(names)} "
+            f"nodes == the CPU path")
+        for k, n in n_launch.items():
+            launches[k] = launches.get(k, 0) + n
+        for k, e in n_errs.items():
+            errs[k] = max(errs.get(k, 0), e)
+    return launches, errs
+
+
+def torch_eval_path(card: str, state: dict) -> None:
+    """Phase 22e: quantization_report of 22c's float and quantized graphs on
+    one b8 batch (the numpy oracle), eval_topk of 22c's float graph against
+    22a's int8 graph on EVAL_IMAGES synthetic images on the card, and the
+    CLI's `run` on a saved (model, shape) .pt of 22a's model and `evaluate`
+    of the float and int8 .pt files on a dataset .npz (on the card, the
+    CLI's default)."""
+    from tachikoma_tpu_torch.quantize.accuracy import eval_topk
+    from tachikoma_tpu_torch.quantize.dataset import Dataset, synthetic_images
+    from tachikoma_tpu_torch.quantize.evaluate import quantization_report
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+
+    phase(f"22e. evaluation: quantization_report (b{BATCH}, the numpy oracle), eval_topk "
+          f"({EVAL_IMAGES} synthetic images on the card), the CLI's run and evaluate [{card}]")
+    t0 = time.perf_counter()
+    rep = quantization_report(state["float_graph"], state["quantized_float"],
+                              state["requests"][0])
+    say(f"quantization_report {time.perf_counter() - t0:.2f} s (host): {len(rep.layers)} layers")
+    for line in rep.table(worst=5).splitlines():
+        say("  " + line)
+    t0 = time.perf_counter()
+    ds = synthetic_images(EVAL_IMAGES, (IMAGE, IMAGE, 3), seed=SEED)
+    ds = Dataset(np.ascontiguousarray(ds.data.transpose(0, 3, 1, 2)), None, ds.name)
+    t1 = time.perf_counter()
+    acc = eval_topk(state["float_graph"], state["fused"], ds, executor="torch", device="cuda",
+                    name="torch.ao")
+    say(f"synthetic_images {t1 - t0:.2f} s (host); eval_topk {time.perf_counter() - t1:.2f} s: "
+        f"{acc.row()}")
+    assert acc.n == EVAL_IMAGES
+    ex = TorchExecutor(state["float_graph"], device="cuda")
+    top1 = np.concatenate([ex.run([chunk])[0][:valid].argmax(-1)
+                           for chunk, valid in ds.batches(BATCH)])
+    say(f"the float graph's top-1 class over the {EVAL_IMAGES} images: {len(set(top1))} "
+        f"distinct classes (the agreement above can move)")
+
+    tdir = tempfile.mkdtemp(prefix="tk_chip_smoke_torch_")
+    int8_pt, float_pt = os.path.join(tdir, "r50_int8.pt"), os.path.join(tdir, "r50_float.pt")
+    data = os.path.join(tdir, "images.npz")
+    torch.save((state["mq"], (BATCH, 3, IMAGE, IMAGE)), int8_pt)
+    torch.save((state["float_model"], (BATCH, 3, IMAGE, IMAGE)), float_pt)
+    np.savez(data, data=ds.data[:CLI_EVAL_IMAGES])
+    try:
+        for args in (["run", int8_pt],
+                     ["evaluate", float_pt, int8_pt, "--dataset", data, "--samples",
+                      str(CLI_EVAL_IMAGES)]):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "tachikoma_tpu_torch.cli", *args],
+                                 capture_output=True, text=True, timeout=300)
+            lines = res.stdout.strip().splitlines()
+            say(f"cli {args[0]} (device cuda): exit {res.returncode} in "
+                f"{time.perf_counter() - t0:.2f} s; " + (lines[0] if lines else "(no output)"))
+            assert res.returncode == 0, res.stderr[-2000:]
+    finally:
+        for f in (int8_pt, float_pt, data):
+            if os.path.exists(f):
+                os.remove(f)
+        os.rmdir(tdir)
+
+
+def torch_path(card: str) -> tuple[dict, dict]:
+    """Phase 22 (22a-22e).  Returns each kernel's launches over 22a-22d's
+    counted runs and its largest |err|."""
+    from tachikoma_tpu_torch.frontend.torch_quantized import import_torch_quantized
+
+    totals, launches, state = torch_ao_resnet_path(card)
+    errs = {k: t["max_abs_err"] for k, t in totals.items()}
+
+    def merge(part_launches, part_errs):
+        for k, n in part_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        for k, e in part_errs.items():
+            errs[k] = max(errs.get(k, 0), e)
+
+    g1 = import_torch_quantized(state["mq"], {"x": (TRACE_BATCH, 3, IMAGE, IMAGE)})
+    trace_totals, trace_launches = trace_path(
+        ("22b.", "22b."), "torch.ao ResNet-50", None, TRACE_KERNELS,
+        prepared=(g1, state["requests"][0][:TRACE_BATCH]))
+    merge(trace_launches, {k: t["max_abs_err"] for k, t in trace_totals.items()})
+    merge(*torch_float_path(card, state))
+    merge(*fq2i_onnx_path(card))
+    torch_eval_path(card, state)
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3180,6 +3513,12 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), e)
     merge({}, onnx_launches)
     say(f"\nphase 21 seconds {time.perf_counter() - t21:.1f} (host clock) [{card}]")
+    t22 = time.perf_counter()
+    torch_launches, torch_errs = torch_path(card)
+    for name, e in torch_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    merge({}, torch_launches)
+    say(f"\nphase 22 seconds {time.perf_counter() - t22:.1f} (host clock) [{card}]")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

@@ -29,6 +29,7 @@ from .ops import extra as _ops_extra  # noqa: F401
 from .ops import nn as _ops_nn  # noqa: F401
 from .ops import qnn as _ops_qnn  # noqa: F401
 from .ops import tail as _ops_tail  # noqa: F401
+from .ops import tail2 as _ops_tail2  # noqa: F401
 from .ops import tail3 as _ops_tail3  # noqa: F401
 from .runtime import fuse as _fuse  # noqa: F401
 

@@ -7,6 +7,8 @@
   trace     — emit a tachikoma-standard trace binary for given inputs
   verify    — CRC + semantic verification of a trace binary
   info      — show a graph (ops, shapes, hash)
+  evaluate  — quantization quality: per-layer SNR and output agreement, or
+              dataset-scale top-1 / top-5 agreement and accuracy (--dataset)
   tune      — measure tiles and layouts of a graph's kernels on the card, append
               the records to a tuning database (--db, required)
 
@@ -16,8 +18,11 @@ Usage: python -m tachikoma_tpu_torch.cli <subcommand> [args]
 `--device cpu` to run the kernels' plain PyTorch versions.  Graph files are
 `.json` or `.tkmod` artifacts (either package's), float `.onnx` models
 (`quantize` calibrates them; QDQ models import as quantize-dequantize
-islands) or prequantized `.tflite` models (int8, or 16x8 on the W8A16
-path); the zoo is the JAX CLI's:
+islands), prequantized `.tflite` models (int8, or 16x8 on the W8A16 path)
+or `torch.save`d `.pt` / `.pth` modules (a torch.ao-quantized one becomes
+an integer graph at its own scales, a float one a float graph; the input
+shape comes from a saved `(model, shape)` tuple or
+`TK_TORCH_INPUT_SHAPE=1,3,224,224`); the zoo is the JAX CLI's:
 lenet5 / mlp / digits_cnn / resnet18 / resnet34 / resnet50 / mobilenet_v2 /
 vgg16 / vgg19 / squeezenet / densenet / resnet3d18 / lstm and the float
 transformers bert / bert_base / gpt2 / vit_b16 / vit_l16 (`--image-size`,
@@ -26,9 +31,16 @@ package: `--transformer` takes the integer-attention preset (TRANSFORMER_INT8:
 qnn.softmax, qnn.lut, qnn.layer_norm), without it the default QConfig keeps
 softmax and gelu in float; a fused float graph's tk.attention stays float.
 A float transformer graph also runs (`run`, with its attention fused by
-`ir/transforms.py fuse_attention` when the graph was written).  Model file
-formats and the JAX package's other subcommands are not ported yet and exit
-with the ROADMAP item that ports them.
+`ir/transforms.py fuse_attention` when the graph was written).  The
+TensorFlow and Keras formats and the JAX package's other subcommands are not
+ported yet and exit with the ROADMAP item that ports them.
+
+Evaluation: `evaluate float.json quant.json [--input x.npy]` prints the
+per-layer SNR report (the numpy oracle); `evaluate float.json quant.json
+--dataset synthetic|digits|path.npz` the top-k agreement of the two graphs
+over the dataset, and without the quantized graph one row per calibration
+mode (`--modes`), on `--backend torch` (the default, on `--device`) or
+`oracle`.
 
 Tuning: `tune g.json --db h100.jsonl [--budget N]` appends H100 records to
 the database; `run` (and every entry point) then dispatches each kernel call
@@ -51,7 +63,6 @@ ZOO = ("lenet5", "mlp", "resnet18", "resnet34", "resnet50", "mobilenet_v2", "ber
        "lstm", "digits_cnn")
 NOT_PORTED = {
     "profile": "runtime/profiler.py, ROADMAP Queue 1 item 8",
-    "evaluate": "quantize/evaluate.py and accuracy.py, ROADMAP Queue 1 item 11",
     "bench": "the port's benchmark, ROADMAP Queue 1 item 3",
 }
 
@@ -72,11 +83,52 @@ def _load_graph(path: str):
         from .frontend.tflite import from_tflite
 
         return from_tflite(path)
+    if path.endswith((".pt", ".pth")):
+        return _load_torch(path)
     if not path.endswith(".json"):
-        raise SystemExit(f"{path}: only graph .json, .tkmod, .onnx and .tflite files are ported "
-                         "yet; the other model frontends wait for ROADMAP Queue 1 item 12")
+        raise SystemExit(f"{path}: only graph .json, .tkmod, .onnx, .tflite and .pt / .pth files "
+                         "are ported yet; the TensorFlow and Keras frontends wait for ROADMAP "
+                         "Queue 1 item 12")
     with open(path) as f:
         return Graph.from_json(f.read())
+
+
+def _load_torch(path: str):
+    """A torch.save'd nn.Module / fx GraphModule, as the JAX CLI reads it: a
+    torch.ao-quantized model through the prequantized importer (FQ2I, the
+    model's own scales), a float one through the fx importer.  Input shape: a
+    (model, shape) tuple in the file, or TK_TORCH_INPUT_SHAPE="1,3,224,224".
+    The file is read with `frontend.torch_quantized.torch_load`, which also
+    reads the quantized modules torch's own unpickling leaves broken."""
+    from .frontend.torch_quantized import torch_load
+
+    obj = torch_load(path)
+    shape = None
+    if isinstance(obj, (tuple, list)) and len(obj) == 2:
+        obj, shape = obj
+    if shape is None:
+        env = os.environ.get("TK_TORCH_INPUT_SHAPE")
+        if not env:
+            raise SystemExit("torch import needs an input shape: save a (model, shape) tuple or "
+                             "set TK_TORCH_INPUT_SHAPE=1,3,224,224")
+        shape = tuple(int(v) for v in env.split(","))
+    # quantized-module detection, with the JAX CLI's fallback to the fx
+    # graph's call targets where module iteration raises
+    try:
+        quantized = any(
+            type(m).__module__.startswith(("torch.ao.nn.quantized",
+                                           "torch.ao.nn.intrinsic.quantized"))
+            for m in dict(obj.named_modules()).values())
+    except Exception:
+        quantized = hasattr(obj, "graph") and any(
+            "quantiz" in str(getattr(n, "target", "")) for n in obj.graph.nodes)
+    if quantized:
+        from .frontend.torch_quantized import import_torch_quantized
+
+        return import_torch_quantized(obj, {"x": tuple(shape)})
+    from .frontend.torch_fx import from_torch
+
+    return from_torch(obj, {"x": tuple(shape)})
 
 
 def _zoo(name: str, batch: int, image: int | None, seq: int | None = None):
@@ -121,7 +173,8 @@ def _zoo(name: str, batch: int, image: int | None, seq: int | None = None):
 
 def _model(args):
     """The float (or integer) graph of a zoo name or a graph file."""
-    if args.model.endswith((".json", ".tkmod", ".onnx", ".tflite")) or os.path.isfile(args.model):
+    if args.model.endswith((".json", ".tkmod", ".onnx", ".tflite", ".pt", ".pth")) \
+            or os.path.isfile(args.model):
         return _load_graph(args.model)
     return _zoo(args.model, args.batch, args.image_size, args.seq_len)
 
@@ -239,6 +292,45 @@ def cmd_verify(args):
     sys.exit(0 if ok else 1)
 
 
+def cmd_evaluate(args):
+    """Quantization quality reports.
+
+    Default: per-layer SNR + output agreement on one input batch
+    (quantize/evaluate.py, on the numpy oracle).  With --dataset:
+    dataset-scale top-1/top-5 accuracy + float-vs-int8 agreement
+    (quantize/accuracy.py) on --backend — per calibration mode when no
+    quantized graph is given."""
+    def load(path):
+        if path and not os.path.exists(path) and "." not in path:
+            return _zoo(path, args.batch, None, None)
+        return _load_graph(path)
+
+    fg = load(args.float_graph)
+    if args.dataset:
+        from .quantize.accuracy import compare_calibrations, eval_topk, table
+        from .quantize.dataset import get_dataset
+
+        ds = get_dataset(args.dataset, tuple(fg.inputs[0].shape), samples=args.samples)
+        if args.quant_graph:
+            rep = eval_topk(fg, load(args.quant_graph), ds, executor=args.backend,
+                            limit=args.samples, device=args.device)
+            print(rep.row())
+        else:
+            reps = compare_calibrations(fg, ds, modes=args.modes.split(","),
+                                        calib_samples=args.calib_samples, executor=args.backend,
+                                        limit=args.samples, device=args.device)
+            print(table(reps))
+        return
+    if not args.quant_graph:
+        raise SystemExit("evaluate needs a quantized graph for the SNR report, or --dataset for "
+                         "the accuracy harness")
+    from .quantize.evaluate import quantization_report
+
+    qg = _load_graph(args.quant_graph)
+    rep = quantization_report(fg, qg, _load_inputs(args, fg))
+    print(rep.table(worst=args.worst))
+
+
 def cmd_info(args):
     g = _load_graph(args.graph)
     print(f"graph {g.name}: {len(g)} nodes, hash {g.structural_hash()[:16]}")
@@ -306,7 +398,8 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
 
     q = sub.add_parser("quantize", help="calibrate + quantize a model to an integer graph")
-    q.add_argument("model", help=f"zoo name ({'/'.join(ZOO)}) or graph .json / .tkmod")
+    q.add_argument("model", help=f"zoo name ({'/'.join(ZOO)}) or a graph / model file "
+                   "(.json, .tkmod, .onnx, .tflite, .pt)")
     q.add_argument("-o", "--output", required=True)
     q.add_argument("--batch", type=int, default=1)
     q.add_argument("--image-size", type=int, default=None)
@@ -320,7 +413,8 @@ def main(argv=None):
     q.set_defaults(fn=cmd_quantize)
 
     c = sub.add_parser("compile", help="quantize + bundle into a .tkmod artifact")
-    c.add_argument("model", help=f"zoo name ({'/'.join(ZOO)}) or graph .json / .tkmod")
+    c.add_argument("model", help=f"zoo name ({'/'.join(ZOO)}) or a graph / model file "
+                   "(.json, .tkmod, .onnx, .tflite, .pt)")
     c.add_argument("-o", "--output", required=True)
     c.add_argument("--batch", type=int, default=1)
     c.add_argument("--image-size", type=int, default=None)
@@ -361,6 +455,23 @@ def main(argv=None):
     i = sub.add_parser("info", help="describe a graph")
     i.add_argument("graph")
     i.set_defaults(fn=cmd_info)
+
+    e = sub.add_parser("evaluate", help="quantization quality: per-layer SNR, or "
+                                         "dataset-scale accuracy with --dataset")
+    e.add_argument("float_graph", help="graph file or zoo name")
+    e.add_argument("quant_graph", nargs="?")
+    e.add_argument("--input", help=".npy/.npz input file (random if omitted)")
+    e.add_argument("--worst", type=int, default=15)
+    e.add_argument("--dataset", help="'digits' | 'synthetic' | 'synthetic-labeled' | path.npz: "
+                                     "run the accuracy harness instead of the SNR report")
+    e.add_argument("--modes", default="max,percentile,kl",
+                   help="calibration modes compared when no quantized graph is given")
+    e.add_argument("--samples", type=int, default=200)
+    e.add_argument("--calib-samples", type=int, default=32)
+    e.add_argument("--batch", type=int, default=32)
+    e.add_argument("--backend", default="torch", choices=["torch", "oracle"])
+    e.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    e.set_defaults(fn=cmd_evaluate)
 
     tu = sub.add_parser("tune", help="tune the kernels' tiles and layouts for a graph")
     tu.add_argument("graph")

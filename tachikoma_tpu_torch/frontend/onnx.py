@@ -11,8 +11,8 @@ arithmetic fold at import time, since graphs are static-shape.
 QuantizeLinear / DequantizeLinear / QLinearConv / QLinearMatMul import as
 the JAX importer imports them: quantize and dequantize nodes around float
 ops, the dequantized weights folded to float and annotated with their model
-scales.  Turning those islands into integer ops is FQ2I
-(`quantize/fq2i.py`), which waits for ROADMAP Queue 1 item 11.
+scales.  FQ2I (`quantize/fq2i.py fq2i`) then turns those islands into
+integer ops at the model's own scales and its exact int8 weights.
 
 The graph is the JAX importer's, byte for byte (`Graph.to_json`), so every
 op a converter emits has its relation, oracle and torch impl in the port's
@@ -204,9 +204,9 @@ class _OnnxImporter:
     # -- QDQ / prequantized import ------------------------------------------
     # QuantizeLinear/DequantizeLinear pairs import as qnn.quantize/dequantize
     # nodes; dequantized weight constants fold to float but carry their model
-    # scales as const-node attrs (qdq_scale/qdq_per_axis) so that an FQ2I
-    # pass (quantize/fq2i.py, ROADMAP item 11) recovers the exact int8
-    # weights, as Relay's FakeQuantizationToInteger does.
+    # scales as const-node attrs (qdq_scale/qdq_per_axis) so that FQ2I
+    # (quantize/fq2i.py) recovers the exact int8 weights, as Relay's
+    # FakeQuantizationToInteger does.
 
     def _mark_qdq(self, const_name: str, onnx_name: str, last_axis_was: int):
         """Mark an imported weight const with its model quantization scales.

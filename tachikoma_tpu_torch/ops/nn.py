@@ -162,6 +162,17 @@ def _im2col(data: np.ndarray, kh, kw, strides, padding, dilation, pad_value=0):
     return windows.reshape(n, oh, ow, kh * kw * c), oh, ow
 
 
+def exact_int_acc(a: np.ndarray, b: np.ndarray, k: int):
+    """The accumulator dtype of an integer product of `a` and `b` summed over
+    `k` terms: float64 when every partial sum is an integer below 2^53 in
+    magnitude (then each product and each addition is exact, in any order,
+    and BLAS computes it), else int64."""
+    def magnitude(v):  # without np.abs, which wraps int8 -128 to itself
+        return max(-int(v.min(initial=0)), int(v.max(initial=0)), 1)
+
+    return np.float64 if k * magnitude(a) * magnitude(b) < 2 ** 53 else np.int64
+
+
 @np_impl("nn.conv2d")
 def _conv2d_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarray:
     kh, kw, wcin, cout = weight.shape
@@ -171,7 +182,7 @@ def _conv2d_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarra
     dilation = node.attrs.get("dilation", (1, 1))
     out_dtype = node.attrs.get("out_dtype")
     integer = dt.is_int(str(data.dtype))
-    acc = np.int64 if integer else np.float32
+    acc = exact_int_acc(data, weight, kh * kw * wcin) if integer else np.float32
     cols, oh, ow = _im2col(data.astype(acc), kh, kw, strides, padding, dilation)
     n = data.shape[0]
     cin = data.shape[3]
@@ -187,6 +198,8 @@ def _conv2d_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarra
             patch = cols_g[..., :, g * cpg : (g + 1) * cpg].reshape(n, oh, ow, kh * kw * cpg)
             wg = wflat[:, :, :, g * opg : (g + 1) * opg].reshape(kh * kw * cpg, opg)
             out[..., g * opg : (g + 1) * opg] = patch @ wg
+    if integer:
+        out = out.astype(np.int64)  # exact integers either way
     if out_dtype:
         # Two's-complement truncation: int64 accumulate then cast == int32
         # wraparound accumulation (mod-2^32 arithmetic is associative).
@@ -780,6 +793,24 @@ def _gelu_np(x, *, node: Node):
 def _gelu_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
     approx = "tanh" if node.attrs.get("approximate", "none") == "tanh" else "none"
     return torch.nn.functional.gelu(x.to(torch.float32), approximate=approx).to(x.dtype)
+
+
+register_op("nn.silu", infer=_same_rel)
+
+
+@np_impl("nn.silu")
+def _silu_np(x, *, node: Node):
+    x32 = x.astype(np.float32)
+    return (x32 / (1.0 + np.exp(-x32))).astype(x.dtype)
+
+
+@torch_impl("nn.silu")
+def _silu_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    # the oracle's formula, as sigmoid's: torch.exp and numpy's exp differ
+    # by an ulp, the add and the division are correctly rounded
+    x32 = x.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    return (x32 / (one + torch.exp(-x32))).to(x.dtype)
 
 
 @infer_rule("clip")

@@ -243,7 +243,8 @@ def _qdense_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarra
         w = w - np.asarray(kzp, dtype=np.int64).reshape(1, -1)
     elif int(kzp) != 0:
         w = w - int(kzp)
-    out = d @ w
+    acc = _nn.exact_int_acc(d, w, d.shape[-1])
+    out = (d.astype(acc) @ w.astype(acc)).astype(np.int64)
     return out.astype(node.attrs.get("out_dtype", "int32"))
 
 

@@ -44,6 +44,7 @@ FLOAT_SOURCES = FLOAT_PRODUCTS + ("mean", "nn.global_avg_pool2d", "nn.avg_pool2d
     "erf", "log", "power",  # CUDA's erff, logf, powf: not correctly rounded
     "sin", "cos", "tan", "asin", "acos", "atan", "sinh", "cosh",  # likewise
     "scatter_elements", "scatter_nd",  # float adds into one place: CUDA's atomic order
+    "nn.silu",           # the torch.fx importer's: CUDA's expf
 )
 
 

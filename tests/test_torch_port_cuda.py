@@ -2168,3 +2168,208 @@ def test_onnx_fixture_on_card_equals_cpu(cuda, name):
     counts, _ = hold_node_level(fused, names, on_card, on_cpu, {fused.inputs[0].name: x},
                                 1e-4, 1e-4)
     assert counts["int"] + counts["cone_int"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the PyTorch import path and FQ2I: the torch.ao models of
+# tests/test_torch_quantized.py (tests/torch_import_cases.py), the torch.ao
+# ResNet-50 of models/torch_resnet.py, the zero points torch's quint8 gives
+# K2 and K3 (the stem's input zero point, the residual add's own scale and
+# zero point -128), the float module through from_torch, FQ2I'd QDQ models
+# ---------------------------------------------------------------------------
+
+from torch_import_cases import QDQ_CASES, TORCH_AO_CASES, torch_ao_case  # noqa: E402
+
+RQ_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res")
+
+
+def _fused_on_card_equals_cpu(fused, x):
+    """Every K1/K2/K3 call of one forward == plain (their launches counted),
+    every node held against the CPU path (runtime/crosscheck.py's rule);
+    returns the kernels that launched."""
+    from tachikoma_tpu_torch.runtime.crosscheck import hold_node_level
+
+    names = computational_nodes(fused)
+    calls = []
+    for k in RQ_KERNELS:
+        _lib.LAUNCHES[k] = 0
+    with _recorded(calls):
+        card = TorchExecutor(fused, capture=names, device="cuda").run(x)
+    launched = {k for k in RQ_KERNELS if _lib.LAUNCHES[k] > 0}
+    assert launched == {name for name, _, _ in calls}
+    plain = {"qgemm_rq": qgemm_rq_plain, "qconv_rq": qconv_rq_plain,
+             "qconv_rq_res": qconv_rq_res_plain}
+    for name, a, k in calls:
+        assert torch.equal(_kernel(name)(*a, **k), plain[name](*a, **k)), name
+    cpu = TorchExecutor(fused, capture=names, device="cpu").run(x)
+    hold_node_level(fused, names, card, cpu, {fused.inputs[0].name: x}, 1e-4, 1e-4)
+    return launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TORCH_AO_CASES))
+def test_torch_ao_model_fused_on_card_equals_cpu(cuda, case):
+    from tachikoma_tpu_torch.frontend.torch_quantized import import_torch_quantized
+
+    mq, shape = torch_ao_case(case)
+    fused = fuse_qnn(import_torch_quantized(mq, {"x": shape}))
+    x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    assert _fused_on_card_equals_cpu(fused, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 64, 3), (8, 224, 224, 3)])
+@pytest.mark.parametrize("izp", [-63, -65, -128])
+def test_k2_stem_7x7_s2_at_torch_zero_points(rng, cuda, shape, izp):
+    """torch.ao ResNet-50's stem: 7x7 s2 pad 3 at input zero point -63 (the
+    b2 224^2 calibration's, -65 at 32^2): the taps outside the image are the
+    zero point, not 0; output zero point -128 (quint8's 0)."""
+    x, w = _dev(rng, shape, cuda), _dev(rng, (7, 7, 3, 64), cuda)
+    b, mult, shift = _epilogue_args(rng, 64, cuda)
+    kw = dict(strides=(2, 2), padding=(3, 3, 3, 3), izp=izp, out_zp=-128, rounding="UPWARD")
+    got = qconv_rq(x, w, b, mult, shift, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv_rq_plain(x, w, b, mult, shift, **kw))
+    # the border: every tap outside the image at the zero point sums to 0
+    xz = torch.full_like(x, izp)
+    assert torch.equal(qconv_rq(xz, w, b, mult, shift, **kw),
+                       qconv_rq_plain(xz, w, b, mult, shift, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_R50_CASES)
+@pytest.mark.parametrize("blocks", TILE_BLOCKS)
+def test_k3_at_torch_add_relu_params(rng, cuda, case, blocks):
+    """A block stack's residual add as torch's quantized::add_relu gives it:
+    its own output scale, every zero point in quint8's domain shifted by
+    -128 (the branch's -58-ish, the shortcut's and the output's -128) and
+    the ReLU a clip at the output zero point."""
+    shape, k, cout = case
+    x, w = _dev(rng, shape, cuda), _dev(rng, (k, k, shape[3], cout), cuda)
+    res = _dev(rng, shape[:3] + (cout,), cuda)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    rp = dict(lhs_scale=0.2522, lhs_zero_point=-58, rhs_scale=0.3336, rhs_zero_point=-128,
+              output_scale=0.3548, output_zero_point=-128, rounding="UPWARD", a_min=-128,
+              a_max=127)
+    kw = dict(izp=-128, rq_izp=0, out_zp=-58, rounding="UPWARD")
+    got = qconv_rq_res(x, w, b, mult, shift, res, rp, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv_rq_res_plain(x, w, b, mult, shift, res, rp, **kw))
+
+
+@pytest.fixture(scope="module")
+def torch_r50():
+    from tachikoma_tpu_torch.models.torch_resnet import quantize_fx, resnet50_torch
+
+    m = resnet50_torch()
+    return m, quantize_fx(m, (2, 3, 64, 64))
+
+
+@pytest.mark.cuda
+def test_torch_ao_resnet50_b2_64_fused_on_card_equals_cpu(cuda, torch_r50):
+    """The torch.ao-quantized ResNet-50 fused to native's form (14 / 1 / 4 /
+    1) at its own zero points: every K1/K2/K3 call == plain, every node ==
+    the CPU path (the int8 max pool's padding and the int8 mean included)."""
+    from tachikoma_tpu_torch.frontend.torch_quantized import import_torch_quantized
+
+    _, mq = torch_r50
+    fused = fuse_qnn(import_torch_quantized(mq, {"x": (2, 3, 64, 64)}))
+    ops = [n.op for n in fused.nodes]
+    assert [ops.count(o) for o in ("tk.conv2d_rq", "tk.conv2d_chain", "tk.conv2d_block_stack",
+                                   "tk.dense_rq")] == [14, 1, 4, 1]
+    x = np.random.default_rng(2).standard_normal((2, 3, 64, 64)).astype(np.float32)
+    assert _fused_on_card_equals_cpu(fused, x) == set(RQ_KERNELS)
+
+
+@pytest.mark.cuda
+def test_torch_ao_resnet50_b1_64_unfused_on_card_equals_cpu(cuda, torch_r50):
+    """Unfused (the trace path's graph): K4 at every qnn.conv2d / qnn.dense
+    == plain, every integer node == the CPU path."""
+    from tachikoma_tpu_torch.frontend.torch_quantized import import_torch_quantized
+
+    _, mq = torch_r50
+    g = import_torch_quantized(mq, {"x": (1, 3, 64, 64)})
+    x = np.random.default_rng(3).standard_normal((1, 3, 64, 64)).astype(np.float32)
+    names = computational_nodes(g)
+    card = TorchExecutor(g, capture=names, device="cuda").run(x)
+    cpu = TorchExecutor(g, capture=names, device="cpu").run(x)
+    for nm, a, b in zip(names, card, cpu):
+        if b.dtype.kind in "iu":
+            np.testing.assert_array_equal(a, b, err_msg=nm)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=nm)
+
+
+@pytest.mark.cuda
+def test_torch_float_resnet50_on_card_equals_torch_eager(cuda, torch_r50):
+    """from_torch of the float module: the card within rtol 1e-4 and atol
+    2.5e-3 (chip_smoke.py R50_FLOAT_ATOL: float32's error at the pooled
+    features' scale of 10^3) of torch eager on the card (TF32 off) and of the
+    CPU path."""
+    from tachikoma_tpu_torch.frontend import from_torch
+
+    m, _ = torch_r50
+    g = from_torch(m, {"x": (2, 3, 64, 64)})
+    x = np.random.default_rng(4).standard_normal((2, 3, 64, 64)).astype(np.float32)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = m.to(cuda)(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    finally:
+        m.cpu()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    got = TorchExecutor(g, device="cuda").run(x)[0]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2.5e-3)
+    np.testing.assert_allclose(got, TorchExecutor(g, device="cpu").run(x)[0], rtol=1e-4,
+                               atol=2.5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(QDQ_CASES))
+def test_fq2i_qdq_model_on_card_equals_cpu(cuda, case):
+    from tachikoma_tpu_torch.frontend import from_onnx
+    from tachikoma_tpu_torch.quantize.fq2i import fq2i
+
+    model, shape = QDQ_CASES[case](np.random.default_rng(0))
+    fused = fuse_qnn(fq2i(from_onnx(model)))
+    x = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+    assert _fused_on_card_equals_cpu(fused, x) == {"qgemm_rq" if case == "qlinear_matmul"
+                                                    else "qconv_rq"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [(2.0, 2.0), (1.5, 3.0)])
+def test_upsampling_and_silu_on_card_equals_cpu(cuda, scale):
+    from tachikoma_tpu_torch.ir.graph import Node
+    from tachikoma_tpu_torch.ir.registry import get_op
+
+    x = np.random.default_rng(6).standard_normal((2, 5, 7, 16)).astype(np.float32)
+    node = Node("y", "nn.upsampling", ("x",), {"scale_h": scale[0], "scale_w": scale[1]})
+    for v in (x, (x * 40).astype(np.int8)):
+        impl = get_op("nn.upsampling").torch_impl
+        got = impl(torch.from_numpy(v).to(cuda), node=node).cpu()
+        assert torch.equal(got, impl(torch.from_numpy(v), node=node))
+    silu = get_op("nn.silu").torch_impl
+    node = Node("y", "nn.silu", ("x",), {})
+    np.testing.assert_allclose(silu(torch.from_numpy(x).to(cuda), node=node).cpu().numpy(),
+                               silu(torch.from_numpy(x), node=node).numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_eval_topk_on_card_equals_cpu(cuda, torch_r50):
+    """accuracy.eval_topk's "torch" backend on the card gives the CPU's
+    agreements (integer logits ==, the float graph's argmax on 8 images)."""
+    from tachikoma_tpu_torch.frontend import from_torch
+    from tachikoma_tpu_torch.frontend.torch_quantized import import_torch_quantized
+    from tachikoma_tpu_torch.quantize.accuracy import eval_topk
+    from tachikoma_tpu_torch.quantize.dataset import Dataset, synthetic_images
+
+    m, mq = torch_r50
+    gf = from_torch(m, {"x": (2, 3, 64, 64)})
+    gq = fuse_qnn(import_torch_quantized(mq, {"x": (2, 3, 64, 64)}))
+    ds = synthetic_images(8, (64, 64, 3), seed=0)
+    ds = Dataset(np.ascontiguousarray(ds.data.transpose(0, 3, 1, 2)), None, ds.name)
+    card = eval_topk(gf, gq, ds, device="cuda")
+    assert card.row() == eval_topk(gf, gq, ds, device="cpu").row()
+    assert card.n == 8

@@ -366,7 +366,7 @@ def test_cli_quantizes_and_runs_an_onnx_model_on_the_cpu(tmp_path, capsys):
 
 
 def test_cli_names_item_12_for_the_other_frontends(tmp_path):
-    for suffix in (".keras", ".h5", ".pb", ".pt"):
+    for suffix in (".keras", ".h5", ".pb"):  # .pt is ported (test_torch_port_torch_fx.py)
         with pytest.raises(SystemExit, match="Queue 1 item 12"):
             cli_main(["run", str(tmp_path / f"m{suffix}"), "--device", "cpu"])
 

@@ -18,7 +18,11 @@ six exporters' fixtures float, int8 and traced; the importer's 53 ops), and
 the PyTorch import path and FQ2I (a torch.ao-quantized ResNet-50 b8 on
 K1-K3 at its own zero points, traced at b1 on K4; the float module through
 from_torch; FQ2I'd QDQ ONNX models; the evaluation modules and the CLI's
-.pt and evaluate).
+.pt and evaluate), and the segmented executor and the rest of item 13's
+executors (int8 ViT-L/16 b1 224^2 with layer-tied scales run as a scan over
+stacked layers on K1, K4, qbmm_rq and K2; the segmented trace backend on
+int8 GPT-2 small; the "torch-cpu" calibration; the CLI's run --segmented and
+profile; placement and shape buckets).
 
     python3 chip_smoke.py
 
@@ -283,6 +287,36 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      tachikoma_tpu_torch.cli run` on a saved (model, shape) .pt of (a)'s model
      and `cli evaluate` of the float and int8 .pt files on a dataset .npz,
      both exiting 0. The phase's host seconds are printed.
+ 23. the segmented executor and the rest of item 13's executors: (a) int8
+     ViT-L/16 b1 224^2 (24 blocks, hidden 1024, 16 heads, FFN 4096, 197
+     tokens; seed 0) calibrated by the oracle on one image, quantized with
+     TRANSFORMER_INT8_SCAN (layer-tied scales) and fused, run by
+     SegmentedExecutor at its defaults (min_ops 48, max_ops 640,
+     min_scan_layers 3): its partition asserted to the JAX package's (13
+     segments, 3 programs, the scan run (1, 11, 0)), the device bytes at
+     construction (the scan's stacks, the other segments' params, nothing
+     else); one segmented forward recorded, every K1 / K4 / qbmm_rq / K2
+     call == plain and each distinct shape timed beside its bound and
+     library call; 10 requests through the segmented executor (the scan:
+     each layer's params views of the stacks, made once, no weight packed
+     during them) and 10 through TorchExecutor, counted, both medians; the
+     scan's logits == the whole graph's, every node of the segmented
+     executor (every node captured: no scan) == the whole graph's and the
+     integer ones == the CPU plain path; the busy share; (b) int8 GPT-2 small
+     b1 s128 (TRANSFORMER_INT8_SCAN, unfused) traced on the card through
+     the "torch-segmented" backend, its K4 and qbmm_raw calls == plain, the
+     file byte-equal to the "torch" backend's trace, CRCs and verify_trace;
+     (c) the "torch-cpu" calibration of the float ViT-L (the segmented
+     executor on the host, streamed): every scale within 1e-4 relative of
+     the oracle's; the CLI's `run --segmented`, `profile --mode ablate` and
+     `profile --mode isolated --top 10` on the saved int8 ResNet-50 b8
+     graph of phase 3, on the card; (d) phase 17's int8 BERT-base b4 s128
+     with its embedding lookup on the host (HeterogeneousExecutor, devices
+     ("cuda:0", "cpu")): one transfer a request, the outputs == the
+     single-device executor on the card, both latencies; (e) int8 ResNet-50
+     224^2 through BucketedExecutor (buckets 1, 2, 4, 8) at batches 1, 3
+     and 8: rows == TorchExecutor at the true batch on the card, latencies.
+     The phase's host seconds are printed.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -300,7 +334,7 @@ write, or two int8 products; its library call the float64 product) per
 W8A16 ResNet-50 b8 forward (phase 20c); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
 12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l, 20a-20e,
-21a, 21b, 22a-22d; K11
+21a, 21b, 22a-22d, 23a, 23b, 23d, 23e; K11
 and K12 in 16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
@@ -309,6 +343,7 @@ products are float32).  The line before the last is one JSON object
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -1866,7 +1901,9 @@ def int8_bert_path() -> tuple[dict, dict]:
     fused on the host, K1, K4 and qbmm_rq at the forward's calls (== plain,
     timed), REQUESTS requests on the card with the kernels counted, every
     integer node == the CPU path, the device's busy share.  Returns the
-    kernels' per-forward totals and their launches in the requests."""
+    kernels' per-forward totals, their launches in the requests, and the
+    path's state for phase 23d (the fused graph, the executor, the
+    requests)."""
     from tachikoma_tpu_torch.models.transformer import bert_base
     from tachikoma_tpu_torch.ops.kernels import matmul_int8
     from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8
@@ -1942,7 +1979,7 @@ def int8_bert_path() -> tuple[dict, dict]:
 
     phase(f"17d. {model}: device time of the main path (torch.profiler, 3 requests)")
     profile_requests(ex, requests[:3], med)
-    return totals, launches
+    return totals, launches, dict(fused=fused, ex=ex, requests=requests)
 
 
 def int8_transformer_check(label: str, model: str, build, make_input) -> dict:
@@ -3352,6 +3389,469 @@ def torch_path(card: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the segmented executor and the rest of item 13's executors (phase 23)
+# ---------------------------------------------------------------------------
+
+# The JAX package's partition of the tied, fused int8 ViT-L/16 at the
+# segmented executor's defaults (min_ops 48, max_ops 640, min_scan_layers 3):
+# segments, programs and the scan runs (start, length, carry slot).  It reads
+# node counts and attrs, not widths: the same graph at hidden 64 gives it in
+# both packages (tests/test_torch_port_segmented.py holds the port's
+# partition to the JAX package's on every test graph).
+VITL_PARTITION = (13, 3, [(1, 11, 0)])
+VITL_KERNELS = ("qgemm_rq", "qgemm_raw", "qbmm_rq", "qconv_rq")
+SEGMENTED_REQUESTS = 10           # requests per executor in 23a, and per batch in 23d/23e
+BUCKETS, BUCKET_BATCHES = (1, 2, 4, 8), (1, 3, 8)
+CALIB_RTOL = 1e-4                 # "torch-cpu" scales vs the oracle's (tests/test_quantize.py:199-203)
+
+
+def check_distinct(calls: list, names, model: str) -> dict:
+    """Every recorded call held == its plain version; the first call of each
+    distinct (kernel, shape) also timed as check_call times it, and each
+    kernel's per-forward totals summed over its calls at their shape's
+    times (a 24-layer forward repeats six shapes)."""
+    impl = kernel_impls()
+    timed, errs, labels = {}, {}, []
+    for name, a, k in calls:
+        errs[name] = max(errs.get(name, 0), hold_call(name, a, k, impl))
+        label = work(name, a, k)[2]
+        labels.append((name, label))
+        if (name, label) not in timed:
+            timed[(name, label)] = check_call(name, a, k, impl)
+    totals = {}
+    for name in names:
+        recs = [timed[key] for key in labels if key[0] == name]
+        assert recs, f"the {model} forward made no call of {name}"
+        t = dict(calls=len(recs), max_abs_err=errs[name])
+        for key in ("ms", "plain_ms", "bound_ms"):
+            t[key] = sum(r[key] for r in recs)
+        libs = [r["library_ms"] for r in recs if r["library_ms"] is not None]
+        t["library_ms"] = sum(libs) if libs else None
+        by_bytes = sum(r["bound_ms"] for r in recs if r["bound_by"] == "bytes")
+        t["bound_by"] = "bytes" if 2 * by_bytes >= t["bound_ms"] else "operations"
+        totals[name] = t
+        phase(f"{name} ({KERNELS[name][0]}) at {model}: {len(recs)} calls per forward, all == "
+              f"plain; max |err| {t['max_abs_err']}")
+        say(f"{'shape':38s} {'calls':>5s} {'ms':>9s} {'bound_ms':>9s} {'by':>10s} "
+            f"{'plain_ms':>9s} {'library_ms':>10s}")
+        for (n, label), count in Counter(k for k in labels if k[0] == name).items():
+            r = timed[(n, label)]
+            lib = f"{r['library_ms']:10.4f}" if r["library_ms"] is not None else f"{'-':>10s}"
+            say(f"{label:38s} {count:5d} {r['ms']:9.4f} {r['bound_ms']:9.4f} "
+                f"{r['bound_by']:>10s} {r['plain_ms']:9.3f} {lib}")
+        lib = f"{t['library_ms']:.4f}" if t["library_ms"] is not None else "-"
+        say(f"per forward: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ({t['bound_by']}), "
+            f"plain {t['plain_ms']:.3f}, library {lib}")
+    return totals
+
+
+def median_requests(run, feeds) -> tuple[float, list]:
+    """Each feed through run(), host clock around the run and a synchronize;
+    the median with the first dropped, and every latency (ms)."""
+    lat = []
+    for x in feeds:
+        t0 = time.perf_counter()
+        run(x)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat[1:]), lat
+
+
+def vitl_segmented_path(card: str) -> tuple[dict, dict, dict]:
+    """Phase 23a: int8 ViT-L/16 b1 224^2 (TRANSFORMER_INT8_SCAN, fused) run
+    by SegmentedExecutor at its defaults.  Returns the kernels' per-forward
+    totals, their launches in the segmented requests, and the state 23c
+    reuses (the simplified float graph, its oracle calibration and input)."""
+    from tachikoma_tpu_torch.ir.transforms import simplify
+    from tachikoma_tpu_torch.models.transformer import vit_l16
+    from tachikoma_tpu_torch.quantize.calibrate import calibrate
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8_SCAN
+    from tachikoma_tpu_torch.quantize.quantizer import Quantizer
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+    from tachikoma_tpu_torch.runtime.segmented import SegmentedExecutor
+
+    model = f"int8 ViT-L/16 b1 {IMAGE}^2"
+    phase(f"23a. {model}: build (seed {SEED}), quantize (TRANSFORMER_INT8_SCAN, the oracle's "
+          f"calibration on one image), fuse (host) [{card}]")
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    g = simplify(vit_l16(batch_size=1, image_size=IMAGE, seed=SEED))
+    calib = rng.standard_normal((1, IMAGE, IMAGE, 3)).astype(np.float32)
+    t1 = time.perf_counter()
+    c_oracle = calibrate(g, [calib], TRANSFORMER_INT8_SCAN)
+    t2 = time.perf_counter()
+    fused = fuse_qnn(Quantizer(g, c_oracle, TRANSFORMER_INT8_SCAN).run())
+    t3 = time.perf_counter()
+    ops = Counter(n.op for n in fused.nodes if n.op not in ("var", "const"))
+    say(f"build + simplify {t1 - t0:.2f} s, oracle calibration {t2 - t1:.2f} s, quantize + "
+        f"fuse {t3 - t2:.2f} s")
+    say("fused graph: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
+    assert ops["tk.bmm_rq"] == 48 and ops["qnn.dense"] == 24 and ops["tk.conv2d_rq"] == 1, ops
+
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    seg = SegmentedExecutor(fused, device="cuda")
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    say(f"SegmentedExecutor(fused, device='cuda') at min_ops 48, max_ops 640, min_scan_layers 3: "
+        f"built in {time.perf_counter() - t0:.2f} s; {len(seg.segments)} segments, "
+        f"{seg.n_programs} programs, scan runs (start, length, carry slot) {seg.scan_runs}")
+    say("segment ops: " + " ".join(str(len([n for n in s.sub.nodes
+                                             if not (n.is_var or n.is_const)]))
+                                   for s in seg.segments))
+    assert (len(seg.segments), seg.n_programs, seg.scan_runs) == VITL_PARTITION, (
+        len(seg.segments), seg.n_programs, seg.scan_runs)
+    start, length, _ = seg.scan_runs[0]
+    n_stacks = len(seg._scans[start]["stacks"])
+    other = {p.data_ptr(): p for si, ps in enumerate(seg._seg_params)
+             if not start <= si < start + length for p in ps}
+    n_tensors = n_stacks + len(other)
+    held = seg.stacked_bytes + seg.segment_bytes
+    say(f"device bytes at construction {m1 - m0}: the scan's {n_stacks} stacks "
+        f"{seg.stacked_bytes} (the {length} members' weights, each member's params views of "
+        f"them), the other segments' params {seg.segment_bytes} ({len(other)} tensors); no "
+        f"per-segment copy of a member's weights (the JAX package's executor puts those on the "
+        f"device too: {seg.stacked_bytes} bytes more)")
+    # the caching allocator may hand out up to 1 MiB more than asked for a
+    # large tensor (it keeps a remainder under 1 MiB in the block); a second
+    # copy of the members' weights would add the stacks' size again
+    assert held <= m1 - m0 <= held + (1 << 20) * n_tensors, (m1 - m0, held, n_tensors)
+
+    names = computational_nodes(fused)
+    whole = TorchExecutor(fused, device="cuda")
+    seg_all = SegmentedExecutor(fused, capture=names, device="cuda")
+    assert seg_all.scan_runs == [] and seg_all.n_programs == seg.n_programs
+    requests = [rng.standard_normal((1, IMAGE, IMAGE, 3)).astype(np.float32)
+                for _ in range(SEGMENTED_REQUESTS)]
+    x = requests[0]
+
+    phase(f"23a. {model}: K1, K4, qbmm_rq and K2 at the segmented forward's calls (the scan's "
+          f"views of the stacks): == plain, time, bound, library [{card}]")
+    calls: list = []
+    before = packed_weights()
+    with recording(calls):
+        out_scan = _host(seg.run_device(x)[0])
+    torch.cuda.synchronize()
+    first = len(packed_weights() - before)
+    say("kernel calls of one segmented forward: " + ", ".join(
+        f"{n} {name}" for name, n in sorted(Counter(c[0] for c in calls).items())))
+    totals = check_distinct(calls, VITL_KERNELS, model)
+
+    phase(f"23a. {model}: {SEGMENTED_REQUESTS} requests through the segmented executor (the "
+          f"scan) and through TorchExecutor (whole graph), counted; every node == [{card}]")
+    packed = packed_weights()
+    reset(VITL_KERNELS)
+    med_seg, lat_seg = median_requests(seg.run_device, requests)
+    launches = read_launches(VITL_KERNELS, f"the segmented {model} path")
+    again = packed_weights() - packed
+    assert not again, f"the segmented requests packed {len(again)} weights K-major again"
+    for name, n in launches.items():
+        say(f"{name}: {n} launches, {n // SEGMENTED_REQUESTS} per forward")
+    say(f"{first} weight tensors packed K-major by the first segmented forward (one per layer "
+        f"view of the stacks and per other weight of K1 / K4 / K2), none during the requests")
+    med_whole, lat_whole = median_requests(whole.run_device, requests)
+    say(f"latency ms per request (b1): segmented median {med_seg:.3f}, whole graph median "
+        f"{med_whole:.3f} ({med_seg / med_whole:.3f}x)")
+    say("segmented, all: " + " ".join(f"{v:.3f}" for v in lat_seg))
+    say("whole graph, all: " + " ".join(f"{v:.3f}" for v in lat_whole))
+    say(f"images/s: segmented {1e3 / med_seg:.1f}, whole graph {1e3 / med_whole:.1f}")
+    kernel_ms = sum(t["ms"] for t in totals.values())
+    say(f"{'+'.join(VITL_KERNELS)} device ms per forward {kernel_ms:.4f} of {med_seg:.3f} ms "
+        "end to end")
+
+    whole_all = TorchExecutor(fused, capture=names, device="cuda")
+    outs_whole = [_host(o) for o in whole_all.run_device(x)]
+    outs_seg = [_host(o) for o in seg_all.run_device(x)]
+    t0 = time.perf_counter()
+    plain = TorchExecutor(fused, capture=names, device="cpu").run(x)
+    say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
+    n_int = 0
+    for nm, a, b in zip(names, outs_seg, outs_whole):
+        assert a.dtype == b.dtype and a.shape == b.shape and (a == b).all(), nm
+        n_int += a.dtype.kind in "iu"
+    n_plain = hold_against_plain(names, outs_seg, plain, fused, FLOAT_RTOL, FLOAT_ATOL)
+    logits = outs_whole[names.index(fused.outputs[0])]
+    assert out_scan.shape == logits.shape == (1, 1000) and (out_scan == logits).all()
+    assert np.isfinite(logits).all()
+    int_logits = fused[fused.outputs[0]].inputs[0]
+    say(f"the scan's logits == the whole graph's; {len(names)} captured nodes of the segmented "
+        f"executor (no scan: every node captured) == the whole graph's, {n_int} integer (the "
+        f"int8 logits {int_logits} among them); {n_plain} integer == the CPU plain path, float "
+        f"nodes within rtol {FLOAT_RTOL} atol {FLOAT_ATOL}")
+
+    phase(f"23a. {model}: device time of the segmented path (torch.profiler, 3 requests) "
+          f"[{card}]")
+    feeds = iter(requests[:3])
+    profile_runs(lambda: seg.run_device(next(feeds)), 3, med_seg, "request")
+    del whole, whole_all, seg_all
+    state = dict(float_graph=g, calib=calib, c_oracle=c_oracle, oracle_s=t2 - t1)
+    return totals, launches, state
+
+
+def gpt2_segmented_trace(card: str) -> tuple[dict, dict]:
+    """Phase 23b: int8 GPT-2 small b1 s128 (TRANSFORMER_INT8_SCAN, unfused)
+    traced on the card through the "torch-segmented" backend, byte-equal to
+    the "torch" backend's trace and verified.  Returns the raw kernels'
+    launches in the segmented traces and their largest |err|."""
+    import filecmp
+
+    from tachikoma_tpu_torch.models.transformer import gpt2_small
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8_SCAN
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.trace.emitter import TraceEmitter, verify_trace
+    from tachikoma_tpu_torch.trace.native import native_verify
+
+    model = f"int8 GPT-2 small b1 s{SEQ}"
+    phase(f"23b. {model}: quantize (TRANSFORMER_INT8_SCAN), unfused; TraceEmitter(backend="
+          f"'torch-segmented') against backend='torch' on the card [{card}]")
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    q = quantize(gpt2_small(batch_size=1, seq_len=SEQ, seed=SEED),
+                 [rng.integers(0, 50257, (1, SEQ)).astype(np.int32)], TRANSFORMER_INT8_SCAN)
+    x = rng.integers(0, 50257, (1, SEQ)).astype(np.int32)
+    say(f"build + calibrate + quantize {time.perf_counter() - t0:.2f} s (host)")
+    tdir = tempfile.gettempdir()
+    path = os.path.join(tdir, f"tk_chip_smoke_{os.getpid()}_seg.bin")
+    ref_path = os.path.join(tdir, f"tk_chip_smoke_{os.getpid()}_whole.bin")
+    meta = {"model": f"gpt2_small_b1_s{SEQ}_scan"}
+    try:
+        em = TraceEmitter(q, backend="torch-segmented", device="cuda", meta=meta)
+        ex = em._executor
+        say(f"the segmented backend's executor: {len(ex.segments)} segments, {ex.n_programs} "
+            f"programs, scan runs {ex.scan_runs} (every node is captured)")
+        calls: list = []
+        with recording(calls):
+            ex.run_device(x)
+        errs = hold_calls(calls)
+        say("raw kernel calls of one forward, each == plain: " + ", ".join(
+            f"{n} {name}" for name, n in sorted(Counter(c[0] for c in calls).items())))
+        reset(INT8_TRACE_KERNELS)
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            n_records = em.emit_to(x, path)
+            times.append(time.perf_counter() - t0)
+        launches = read_launches(INT8_TRACE_KERNELS, f"the segmented {model} trace")
+        say(", ".join(f"{k}: {n} launches in 2 traces" for k, n in launches.items()))
+        whole = TraceEmitter(q, backend="torch", device="cuda", meta=meta)
+        whole.emit_to(x, ref_path)
+        t0 = time.perf_counter()
+        whole.emit_to(x, ref_path)
+        t_whole = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        assert filecmp.cmp(path, ref_path, shallow=False), "segmented trace != whole-graph trace"
+        say(f"records {n_records}, {nbytes / 1e6:.1f} MB; trace s: segmented {times[0]:.4f} "
+            f"(first) {times[1]:.4f}, whole graph {t_whole:.4f}; the two files byte-equal "
+            f"(writer {em.last_timings['writer']}, {tdir} on {filesystem_type(tdir)})")
+        assert native_verify(path) == n_records
+        t0 = time.perf_counter()
+        res = verify_trace(path, q)
+        assert res["records"] == n_records
+        say(f"CRCs ok (native); verify_trace: {res['verified']}/{res['records']} records in "
+            f"{time.perf_counter() - t0:.2f} s")
+        say(verify_cone(path, q, res))
+    finally:
+        for p in (path, ref_path):
+            if os.path.exists(p):
+                os.unlink(p)
+    return launches, errs
+
+
+def verify_cone(path: str, graph, res: dict) -> str:
+    """verify_trace's mismatches, held to section 2's rule: only records of
+    the float product cone (a float product on cuBLAS, in another sum order
+    than numpy's, and the float nodes it feeds) may miss the verifier's
+    rtol 1e-5, atol 1e-6, and each of those is re-run by the numpy oracle
+    and held within the float transformers' GRAPH_RTOL / GRAPH_ATOL."""
+    from tachikoma_tpu_torch.ir.graph import Node
+    from tachikoma_tpu_torch.ir.registry import get_op
+    from tachikoma_tpu_torch.trace.format import ROLE_INPUT, ROLE_PARAM, TraceReader
+
+    cone = float_product_cone(graph)
+    off = {name for name, _ in res["mismatches"]}
+    assert off <= cone, [m for m in res["mismatches"] if m[0] not in cone][:5]
+    worst, held = 0.0, 0
+    with open(path, "rb") as f:
+        for rec in TraceReader(f):
+            if rec.name not in off:
+                continue
+            args = [t.to_array() for t in rec.tensors if t.role in (ROLE_INPUT, ROLE_PARAM)]
+            shadow = Node(rec.name, rec.op_name, tuple(f"i{k}" for k in range(len(args))),
+                          {k: tuple(v) if isinstance(v, list) else v
+                           for k, v in rec.attrs.items()})
+            want = np.asarray(get_op(rec.op_name).np_impl(*args, node=shadow), np.float64)
+            got = rec.output.to_array().astype(np.float64)
+            np.testing.assert_allclose(got, want, rtol=GRAPH_RTOL, atol=GRAPH_ATOL,
+                                       err_msg=rec.name)
+            worst = max(worst, float(np.abs(got - want).max()))
+            held += 1
+    assert held == len(off)
+    return (f"the {len(off)} records verify_trace leaves ({', '.join(sorted(off)) or 'none'}) "
+            f"are in the float product cone ({len(cone)} nodes) and within rtol {GRAPH_RTOL} "
+            f"atol {GRAPH_ATOL} of the oracle (max |err| {worst:.3e})")
+
+
+def calibration_and_cli(card: str, vitl: dict, r50_state: dict) -> None:
+    """Phase 23c: the "torch-cpu" calibration of the ViT-L float graph against
+    the oracle's; the CLI's `run --segmented` and `profile` (both modes) on
+    the saved int8 ResNet-50 b8 graph, on the card."""
+    from dataclasses import replace
+
+    from tachikoma_tpu_torch.cli import main as cli_main
+    from tachikoma_tpu_torch.quantize.calibrate import calibrate
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8_SCAN
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+
+    phase(f"23c. the 'torch-cpu' calibration of the float ViT-L/16 b1 {IMAGE}^2 (segmented, "
+          f"streamed, on the host) against the oracle's [{card}]")
+    t0 = time.perf_counter()
+    c_cpu = calibrate(vitl["float_graph"], [vitl["calib"]],
+                      replace(TRANSFORMER_INT8_SCAN, calibrate_backend="torch-cpu"))
+    t_cpu = time.perf_counter() - t0
+    assert set(c_cpu.stats) == set(vitl["c_oracle"].stats)
+    worst = 0.0
+    for k in c_cpu.stats:
+        s1, z1 = vitl["c_oracle"].scale_zp(k)
+        s2, z2 = c_cpu.scale_zp(k)
+        rel = abs(s1 - s2) / max(s1, 1e-12)
+        assert rel < CALIB_RTOL and z1 == z2, (k, s1, s2)
+        worst = max(worst, rel)
+    say(f"{len(c_cpu.stats)} scales, largest relative difference {worst:.3e} (< {CALIB_RTOL}); "
+        f"oracle {vitl['oracle_s']:.2f} s, torch-cpu {t_cpu:.2f} s (host)")
+
+    phase(f"23c. the CLI on the saved int8 ResNet-50 b{BATCH} {IMAGE}^2 graph: run --segmented, "
+          f"profile --mode ablate, profile --mode isolated --top 10 (device cuda) [{card}]")
+    tdir = tempfile.mkdtemp()
+    graph_path = os.path.join(tdir, "r50.json")
+    x_path, out_path = os.path.join(tdir, "x.npy"), os.path.join(tdir, "out.npz")
+    q = r50_state["quantized"]
+    with open(graph_path, "w") as f:
+        f.write(q.to_json())
+    x = r50_state["requests"][0]
+    np.save(x_path, x)
+    try:
+        for argv in (["run", graph_path, "--segmented", "--input", x_path, "-o", out_path],
+                     ["profile", graph_path, "--mode", "ablate", "--input", x_path],
+                     ["profile", graph_path, "--mode", "isolated", "--top", "10", "--input",
+                      x_path]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli_main(argv)
+            say(f"$ python -m tachikoma_tpu_torch.cli {' '.join(argv[:1] + argv[2:])} "
+                f"({time.perf_counter() - t0:.2f} s)")
+            text = buf.getvalue()
+            if "ablate" in argv:
+                say(text.rstrip())
+                assert "cum ms" in text and f"device: {torch.cuda.get_device_name(0)}" in text
+            elif "isolated" in argv:
+                say(text.rstrip())
+                lines = text.rstrip().splitlines()
+                assert "GOPS" in lines[0] and len(lines) == 12 and "whole-graph" in lines[-1]
+        got = np.load(out_path)[q.outputs[0]]
+        want = TorchExecutor(q, fuse=True, device="cuda").run(x)[0]
+        assert got.shape == (BATCH, 1000) and np.array_equal(got, want)
+        say(f"run --segmented: output {got.shape} == TorchExecutor(fuse=True) on the card")
+    finally:
+        for p in (graph_path, x_path, out_path):
+            if os.path.exists(p):
+                os.unlink(p)
+        os.rmdir(tdir)
+
+
+def placement_path(card: str, bert: dict) -> dict:
+    """Phase 23d: phase 17's int8 BERT-base b4 s128 with its embedding lookup
+    on the host (devices ("cuda:0", "cpu")); outputs == the single-device
+    executor on the card.  Returns the kernels' launches in its requests."""
+    from tachikoma_tpu_torch.runtime.placement import (HeterogeneousExecutor,
+                                                       embeddings_on_host, plan_devices)
+
+    model = f"int8 BERT-base b{BERT_BATCH} s{SEQ}"
+    phase(f"23d. {model}: the embedding lookups on the host, the rest on cuda:0 "
+          f"(HeterogeneousExecutor, devices ('cuda:0', 'cpu')) [{card}]")
+    fused, requests, ex = bert["fused"], bert["requests"], bert["ex"]
+    placed = embeddings_on_host(fused)
+    plan = plan_devices(placed)
+    on_host = sorted(k for k, d in plan.items() if d == 1)
+    hx = HeterogeneousExecutor(placed, devices=("cuda:0", "cpu"))
+    say(f"on the host: {on_host}; segments (device id, nodes): "
+        + ", ".join(f"({d}, {len(ns)})" for d, ns in hx.segments))
+    reset(INT8_TRANSFORMER_KERNELS)
+    med, lat = median_requests(hx.run_device, requests[:SEGMENTED_REQUESTS])
+    launches = read_launches(INT8_TRANSFORMER_KERNELS, f"the placed {model} path")
+    say(f"transfers per request {hx.transfers}; " + ", ".join(
+        f"{k}: {n} launches" for k, n in launches.items()))
+    out_index = [ex.capture.index(o) for o in fused.outputs]
+    for x in requests[:2]:
+        got = [_host(o) for o in hx.run_device(x)]
+        want = [_host(ex.run_device(x)[i]) for i in out_index]
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    med_one, _ = median_requests(ex.run_device, requests[:SEGMENTED_REQUESTS])
+    say(f"outputs == TorchExecutor on the card; latency ms median: placed {med:.3f}, one device "
+        f"{med_one:.3f}; placed, all: " + " ".join(f"{v:.3f}" for v in lat))
+    assert hx.transfers == 1, hx.transfers
+    return launches
+
+
+def bucketed_path(card: str, r50_state: dict) -> dict:
+    """Phase 23e: int8 ResNet-50 fused through BucketedExecutor with buckets
+    (1, 2, 4, 8) at batches 1, 3 and 8: rows == TorchExecutor at the true
+    batch on the card.  Returns the kernels' launches in its requests."""
+    from tachikoma_tpu_torch.runtime.bucketed import BucketedExecutor
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+
+    phase(f"23e. int8 ResNet-50 {IMAGE}^2 fused through BucketedExecutor(buckets={BUCKETS}) at "
+          f"batches {BUCKET_BATCHES} [{card}]")
+    q = r50_state["quantized"]
+    bx = BucketedExecutor(q, buckets=BUCKETS, fuse=True, device="cuda")
+    rng = np.random.default_rng(SEED + 23)
+    launches: dict = {}
+    for b in BUCKET_BATCHES:
+        feeds = [rng.standard_normal((b, IMAGE, IMAGE, 3)).astype(np.float32)
+                 for _ in range(SEGMENTED_REQUESTS)]
+        t0 = time.perf_counter()
+        bx.run_device(feeds[0])
+        t_first = time.perf_counter() - t0
+        reset(RUN_KERNELS)
+        med, _ = median_requests(bx.run_device, feeds)
+        for k, n in read_launches(RUN_KERNELS, f"the bucketed ResNet-50 at b{b}").items():
+            launches[k] = launches.get(k, 0) + n
+        got = _host(bx.run_device(feeds[0])[0])
+        exact = TorchExecutor(bx._graph_for(b), fuse=True, device="cuda")
+        want = exact.run(feeds[0])[0]
+        assert got.shape == want.shape == (b, 1000) and np.array_equal(got, want)
+        med_exact, _ = median_requests(exact.run_device, feeds)
+        bucket = next(v for v in BUCKETS if v >= b)
+        say(f"b{b} on bucket {bucket}: rows == TorchExecutor at b{b}; first call {t_first:.2f} s; "
+            f"latency ms median {med:.3f} (exact-shape executor {med_exact:.3f})")
+    say(f"buckets built: {bx.compiled_buckets}; launches: {launches}")
+    assert bx.compiled_buckets == [1, 4, 8]
+    return launches
+
+
+def executors_path(card: str, r50_state: dict, bert: dict) -> tuple[dict, dict, dict]:
+    """Phase 23 (23a-23e).  Returns 23a's kernel totals, each kernel's
+    launches over 23a-23e's counted runs, and its largest |err|."""
+    totals, launches, vitl = vitl_segmented_path(card)
+    errs = {k: t["max_abs_err"] for k, t in totals.items()}
+
+    def merge(part_launches, part_errs=None):
+        for k, n in part_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        for k, e in (part_errs or {}).items():
+            errs[k] = max(errs.get(k, 0), e)
+
+    merge(*gpt2_segmented_trace(card))
+    calibration_and_cli(card, vitl, r50_state)
+    merge(placement_path(card, bert))
+    merge(bucketed_path(card, r50_state))
+    return totals, launches, errs
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3463,7 +3963,7 @@ def main() -> int:
     say(f"\nphase 16 seconds {time.perf_counter() - t16:.1f} (host clock)")
 
     t17 = time.perf_counter()
-    bert_totals, bert_launches = int8_bert_path()
+    bert_totals, bert_launches, bert_state = int8_bert_path()
     for name, t in bert_totals.items():
         errs[name] = max(errs.get(name, 0), t["max_abs_err"])
     totals["qbmm_rq"] = bert_totals["qbmm_rq"]
@@ -3519,6 +4019,12 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), e)
     merge({}, torch_launches)
     say(f"\nphase 22 seconds {time.perf_counter() - t22:.1f} (host clock) [{card}]")
+    t23 = time.perf_counter()
+    _, exec_launches, exec_errs = executors_path(card, r50_state, bert_state)
+    for name, e in exec_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    merge({}, exec_launches)
+    say(f"\nphase 23 seconds {time.perf_counter() - t23:.1f} (host clock) [{card}]")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

@@ -12,7 +12,8 @@ Subpackages:
   ops       — op registry impls: numpy oracle, torch; ops/kernels: the CUDA
               kernels' wrappers and their plain PyTorch versions
   quantize  — calibration + float->integer graph rewriting
-  runtime   — numpy interpreter, operator fusion, torch executor
+  runtime   — numpy interpreter, operator fusion, torch executor, the
+              segmented, bucketed and placed executors, the profiler
   models    — built-in model zoo (the JAX package's fourteen vision
               builders, bert, gpt2, vit) and KV-cache decoding
               (models/decoding.py)

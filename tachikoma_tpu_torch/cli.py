@@ -3,14 +3,19 @@
   quantize  — build a zoo model (or read a graph .json / .tkmod), calibrate,
               write the integer graph JSON
   compile   — quantize (unless already integer) and bundle into a .tkmod
-  run       — execute a graph (TorchExecutor or the numpy oracle), print outputs
+  run       — execute a graph (TorchExecutor, SegmentedExecutor with
+              --segmented, or the numpy oracle), print outputs
   trace     — emit a tachikoma-standard trace binary for given inputs
+              (--backend torch | torch-segmented | oracle)
   verify    — CRC + semantic verification of a trace binary
   info      — show a graph (ops, shapes, hash)
   evaluate  — quantization quality: per-layer SNR and output agreement, or
               dataset-scale top-1 / top-5 agreement and accuracy (--dataset)
   tune      — measure tiles and layouts of a graph's kernels on the card, append
               the records to a tuning database (--db, required)
+  profile   — timing report on --device: --mode ablate (the graph cut at the
+              segmented executor's cut points, cumulative latency per prefix;
+              the default) or --mode isolated (each op timed alone)
 
 Usage: python -m tachikoma_tpu_torch.cli <subcommand> [args]
 
@@ -33,7 +38,7 @@ softmax and gelu in float; a fused float graph's tk.attention stays float.
 A float transformer graph also runs (`run`, with its attention fused by
 `ir/transforms.py fuse_attention` when the graph was written).  The
 TensorFlow and Keras formats and the JAX package's other subcommands are not
-ported yet and exit with the ROADMAP item that ports them.
+ported yet and exit with the ROADMAP item that ports them (`bench`: item 3).
 
 Evaluation: `evaluate float.json quant.json [--input x.npy]` prints the
 per-layer SNR report (the numpy oracle); `evaluate float.json quant.json
@@ -62,7 +67,6 @@ ZOO = ("lenet5", "mlp", "resnet18", "resnet34", "resnet50", "mobilenet_v2", "ber
        "vit_b16", "vit_l16", "gpt2", "vgg16", "vgg19", "squeezenet", "densenet", "resnet3d18",
        "lstm", "digits_cnn")
 NOT_PORTED = {
-    "profile": "runtime/profiler.py, ROADMAP Queue 1 item 8",
     "bench": "the port's benchmark, ROADMAP Queue 1 item 3",
 }
 
@@ -241,6 +245,12 @@ def cmd_run(args):
         from .runtime.interpreter import run_graph
 
         outs = run_graph(g, inputs)
+    elif args.segmented:
+        # graph-as-data execution for deep models (per-segment programs,
+        # structural sharing, a scan over stacked layers: runtime/segmented.py)
+        from .runtime.segmented import SegmentedExecutor
+
+        outs = SegmentedExecutor(g, fuse=not args.no_fuse, device=args.device).run(inputs)
     else:
         from .runtime.executor import TorchExecutor
 
@@ -388,6 +398,30 @@ def cmd_tune(args):
     print(f"{len(db)} records in {db.path}")
 
 
+def cmd_profile(args):
+    g = _load_graph(args.graph)
+    inputs = _load_inputs(args, g)
+    if args.mode == "ablate":
+        from .runtime.profiler import ablate_graph
+
+        rep = ablate_graph(g, inputs, repeats=args.repeats, fuse=not args.no_fuse,
+                           device=args.device)
+        print({"csv": rep.csv, "json": rep.json}.get(args.format, rep.table)())
+        return
+    from .runtime.profiler import profile_graph
+
+    print("NOTE: isolated per-op times mispredict in-context cost (each op runs alone, "
+          "its inputs warm); use --mode ablate for in-context attribution.", file=sys.stderr)
+    rep = profile_graph(g, inputs, repeats=args.repeats, fuse=not args.no_fuse,
+                        device=args.device)
+    if args.format == "table":
+        print(rep.table(top=args.top))
+    elif args.format == "csv":
+        print(rep.csv())
+    else:
+        print(rep.json())
+
+
 def cmd_not_ported(args):
     raise SystemExit(f"{args.cmd}: not ported yet ({NOT_PORTED[args.cmd]})")
 
@@ -431,12 +465,15 @@ def main(argv=None):
     r.add_argument("--input", help=".npy/.npz input file (random if omitted)")
     r.add_argument("-o", "--output", help="save outputs to .npz")
     r.add_argument("--no-fuse", action="store_true")
+    r.add_argument("--segmented", action="store_true",
+                   help="run through SegmentedExecutor (per-segment programs, a scan over "
+                        "stacked layers)")
     r.set_defaults(fn=cmd_run)
 
     t = sub.add_parser("trace", help="emit a tachikoma-standard trace binary")
     t.add_argument("graph")
     t.add_argument("-o", "--output", required=True)
-    t.add_argument("--backend", default="torch", choices=["torch", "oracle"])
+    t.add_argument("--backend", default="torch", choices=["torch", "torch-segmented", "oracle"])
     t.add_argument("--device", default="cuda", help="torch device (default cuda)")
     t.add_argument("--input", help=".npy/.npz input file")
     t.add_argument("--native", action="store_true",
@@ -480,6 +517,19 @@ def main(argv=None):
                     help="total trials, spent across workloads by expected gain")
     tu.add_argument("--device", default="cuda", help="torch device (default cuda)")
     tu.set_defaults(fn=cmd_tune)
+
+    pr = sub.add_parser("profile", help="timing report: --mode ablate (cumulative latency of "
+                                         "the graph cut at the segmented executor's cut points, "
+                                         "the default) or --mode isolated (each op alone)")
+    pr.add_argument("graph")
+    pr.add_argument("--mode", default="ablate", choices=["ablate", "isolated"])
+    pr.add_argument("--input", help=".npy/.npz input file (random if omitted)")
+    pr.add_argument("--repeats", type=int, default=5)
+    pr.add_argument("--top", type=int, default=None)
+    pr.add_argument("--format", default="table", choices=["table", "csv", "json"])
+    pr.add_argument("--no-fuse", action="store_true")
+    pr.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    pr.set_defaults(fn=cmd_profile)
 
     for name, where in NOT_PORTED.items():
         n = sub.add_parser(name, help=f"not ported yet ({where})")

@@ -1,6 +1,6 @@
 """The long-tail ops of the ONNX importer (port of part of
 `tachikoma_tpu/ops/extra.py`): the trigonometric and hyperbolic functions,
-`isnan` / `isinf`, `logical_xor`, `nn.lrn` and `nn.instance_norm`,
+`isnan` / `isinf`, `logical_xor`, `bitwise_not`, `nn.lrn` and `nn.instance_norm`,
 `reverse`, `cumsum` and `topk`.  The rest of that file waits for ROADMAP
 Queue 1 item 9.4.
 
@@ -76,6 +76,11 @@ def _lxor_np(a, b, *, node: Node):
 @torch_impl("logical_xor")
 def _lxor_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
     return torch.logical_xor(a, b)
+
+
+register_op("bitwise_not", infer=_same_rel,
+            np_impl=lambda a, *, node: np.bitwise_not(a),
+            torch_impl=lambda a, *, node: torch.bitwise_not(a))
 
 
 # -- normalization -----------------------------------------------------------

@@ -6,7 +6,8 @@ conv2d_transpose), and the ops of this file that the ONNX importer emits
 (elementwise math, maximum / minimum / mod / divide / power, sum / prod /
 min / argmax / argmin, squeeze / expand_dims / tile, gather, one_hot,
 leaky_relu, prelu, log_softmax, global_max_pool2d, image.resize2d,
-depth_to_space, space_to_depth) (port of `tachikoma_tpu/ops/nn.py`).
+depth_to_space, space_to_depth), and the bitwise binaries and shifts
+(port of `tachikoma_tpu/ops/nn.py`).
 
 Each op gets the JAX package's shape/dtype relation and numpy oracle, copied;
 the ops that the fused graphs run outside the kernels also get a torch
@@ -20,7 +21,8 @@ Float products (nn.dense, nn.batch_matmul, float nn.conv2d,
 nn.conv2d_transpose) are torch.matmul and cuDNN calls in float32: each runs
 under `float32_products`, which turns TF32 off for cuDNN (torch's default is
 on) and for matmuls whatever the caller set, so that a float32 product on
-the card is a float32 product and not TF32.
+the card is a float32 product and not TF32.  An integer nn.dense (operands
+of at most 16 bits) sums exactly through float64, as K1's plain version does.
 """
 
 from __future__ import annotations
@@ -292,6 +294,20 @@ def _conv2d_t_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> 
     return _to_out_dtype(out.permute(0, 2, 3, 1), node, data)
 
 
+@flops_rule("nn.conv2d")
+def _conv2d_flops(node: Node, ins: Sequence[TensorType]) -> int:
+    (wshape, _) = ins[1]
+    out_shape, _ = _conv2d_rel(node, ins)
+    kh, kw, wcin, cout = wshape
+    return 2 * int(np.prod(out_shape)) * kh * kw * wcin
+
+
+@flops_rule("nn.dense")
+def _dense_flops(node: Node, ins: Sequence[TensorType]) -> int:
+    (dshape, _), (wshape, _) = ins[0], ins[1]
+    return 2 * int(np.prod(dshape)) * wshape[1]
+
+
 @infer_rule("nn.dense")
 def _dense_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
     (dshape, ddt), (wshape, wdt) = ins[0], ins[1]
@@ -311,9 +327,24 @@ def _dense_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarray
     return out.astype(data.dtype if not integer else np.int32)
 
 
+# integer operand dtypes whose products a float64 sum holds exactly over any
+# reduction of fewer than 2^53 / (max |a| * max |b|) terms
+_EXACT_INT_BITS = {torch.int8: 7, torch.uint8: 8, torch.int16: 15}
+
+
 @torch_impl("nn.dense")
 def _dense_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
-    _float_only(data, node)
+    if not data.dtype.is_floating_point:
+        # the oracle's int64 sum, exact through float64 where the operands are
+        # at most 16 bits wide (torch has no integer matmul on CUDA); then
+        # the out_dtype cast, wrapping as numpy's astype does
+        bits = (_EXACT_INT_BITS.get(data.dtype), _EXACT_INT_BITS.get(weight.dtype))
+        if None in bits or data.shape[-1] >= 1 << (53 - sum(bits)):
+            raise NotImplementedError(
+                f"{node.name} (nn.dense): an integer product of {data.dtype} x {weight.dtype} "
+                f"over K = {data.shape[-1]} has no exact torch impl")
+        out = (data.to(torch.float64) @ weight.to(torch.float64)).to(torch.int64)
+        return out.to(torch_dtype(node.attrs.get("out_dtype") or "int32"))
     with float32_products():
         out = torch.matmul(data.to(torch.float32), weight.to(torch.float32))
     return _to_out_dtype(out, node, data)
@@ -1448,6 +1479,19 @@ def _prelu_torch(x: torch.Tensor, alpha: torch.Tensor, *, node: Node) -> torch.T
 
 for _n, (_f, _tf) in {"maximum": (np.maximum, torch.maximum),
                       "minimum": (np.minimum, torch.minimum)}.items():
+    _np_fn, _torch_fn = _mkb(_f, _tf)
+    register_op(_n, infer=_broadcast_rel, np_impl=_np_fn, torch_impl=_torch_fn)
+
+
+# the bitwise binaries and shifts of the JAX package's _BINOPS table (an
+# integer graph's `right_shift` by a constant, tests/test_placement.py); a
+# shift by the width or more, or by a negative count, gives 0 (or -1 for a
+# negative value shifted right) in both numpy and torch
+for _n, (_f, _tf) in {"bitwise_and": (np.bitwise_and, torch.bitwise_and),
+                      "bitwise_or": (np.bitwise_or, torch.bitwise_or),
+                      "bitwise_xor": (np.bitwise_xor, torch.bitwise_xor),
+                      "left_shift": (np.left_shift, torch.bitwise_left_shift),
+                      "right_shift": (np.right_shift, torch.bitwise_right_shift)}.items():
     _np_fn, _torch_fn = _mkb(_f, _tf)
     register_op(_n, infer=_broadcast_rel, np_impl=_np_fn, torch_impl=_torch_fn)
 

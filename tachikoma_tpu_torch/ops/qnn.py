@@ -493,6 +493,8 @@ def _qbmm_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor
 
 
 register_op("qnn.batch_matmul", flops=_nn._bmm_flops)
+register_op("qnn.conv2d", flops=_nn._conv2d_flops)
+register_op("qnn.dense", flops=_nn._dense_flops)
 
 
 # -- integer softmax & LUT ops ----------------------------------------------

@@ -1,10 +1,10 @@
 """Calibration — collect per-node activation statistics on a dataset (port
 of `tachikoma_tpu/quantize/calibrate.py`).
 
-Runs the float graph over calibration batches through the numpy interpreter,
-records output ranges per node, and turns them into scales/zero-points.  The
-JAX package's second calibration backend (a segmented executor on the host
-CPU, `calibrate_backend="xla-cpu"`) is not ported yet.
+Runs the float graph over calibration batches through the numpy interpreter
+(or, with `calibrate_backend="torch-cpu"`, the segmented executor on the CPU,
+the counterpart of the JAX package's "xla-cpu"), records output ranges per
+node, and turns them into scales/zero-points.
 """
 
 from __future__ import annotations
@@ -130,6 +130,7 @@ class Calibrator:
         self.config = config
         self.stats: dict[str, TensorStats] = {}
         self._interp = None
+        self._seg = None
 
     def collect(self, inputs, bins: int | None | str = "auto") -> None:
         if bins == "auto":
@@ -149,12 +150,31 @@ class Calibrator:
             norm = dict(zip([n.name for n in self.graph.inputs], norm))
         for k, v in norm.items():
             self.stats.setdefault(k, TensorStats()).update(np.asarray(v), bins)
-        if self.config.calibrate_backend != "oracle":
+        backend = self.config.calibrate_backend
+        if backend == "torch-cpu":
+            self._collect_torch_cpu(norm, hook)
+            return
+        if backend != "oracle":
             raise NotImplementedError(
-                f"calibrate_backend {self.config.calibrate_backend!r} is not ported yet")
+                f"calibrate_backend {backend!r}: the port has 'oracle' and 'torch-cpu' (the "
+                "counterpart of the JAX package's 'xla-cpu')")
         if self._interp is None:
             self._interp = Interpreter(self.graph)
         self._interp.run(inputs, intercept=hook)
+
+    def _collect_torch_cpu(self, feeds, hook):
+        """Segmented capture on the CPU: one program per structural key, no
+        scan (every node is captured), and a bounded-memory walk through
+        `run_stream` that frees each value once no later segment needs it.
+        The numpy oracle stays the default: its float64 products are the
+        reference, and torch's float32 ones agree to about 1e-6."""
+        from ..runtime.executor import computational_nodes
+        from ..runtime.segmented import SegmentedExecutor, run_stream
+
+        if self._seg is None:
+            self._seg = SegmentedExecutor(self.graph, capture=computational_nodes(self.graph),
+                                          scan=False, device="cpu")
+        run_stream(self._seg, feeds, lambda nm, arr: hook(nm, None, None, arr))
 
     def _pool_groups(self):
         """scale_group tying: nodes whose names differ only in the grouped

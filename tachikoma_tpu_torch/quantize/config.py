@@ -1,13 +1,14 @@
 """Quantization configuration (port of `tachikoma_tpu/quantize/config.py`).
 
 The same QConfig fields as the JAX package, so a configuration carries over;
-its calibration runs the numpy oracle only.  Of the JAX package's presets the
-port has TRANSFORMER_INT8 and W8A16; TRANSFORMER_INT8_SCAN (for the segmented
-executor) waits for ROADMAP Queue 1 item 13."""
+its calibration runs the numpy oracle or, as the JAX package's "xla-cpu"
+backend does on XLA, the port's segmented executor on the CPU ("torch-cpu").
+The JAX package's three presets: TRANSFORMER_INT8, TRANSFORMER_INT8_SCAN and
+W8A16."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 
 @dataclass(frozen=True)
@@ -43,7 +44,8 @@ class QConfig:
     # dequantized float island (ops/qnn.py integer layer norm)
     integer_layer_norm: bool = True
     # calibration executor: "oracle" (numpy interpreter, the exactness
-    # reference); the JAX package's "xla-cpu" is not ported yet
+    # reference) or "torch-cpu" (the segmented executor on the CPU, streamed:
+    # the counterpart of the JAX package's "xla-cpu")
     calibrate_backend: str = "oracle"
     # scale tying: a regex matching the layer-varying part of node names
     # (e.g. r"block\d+"); nodes/weights whose names differ only in that
@@ -58,6 +60,14 @@ TRANSFORMER_INT8 = QConfig(
     lut_ops=frozenset({"nn.gelu", "tanh", "sigmoid", "nn.silu", "erf"}),
     float_ops=frozenset({"nn.log_softmax"}),
 )
+
+
+# TRANSFORMER_INT8 with layer-tied scales: structurally identical encoder/
+# decoder layers get IDENTICAL integer attrs, so the segmented executor runs
+# deep quantized transformers as O(1) programs with a scan over stacked
+# layer weights (runtime/segmented.py).  Group-max scales are slightly
+# coarser than per-layer calibration.
+TRANSFORMER_INT8_SCAN = replace(TRANSFORMER_INT8, scale_group=r"(block|layer)\d+")
 
 
 # 16-bit activations x 8-bit weights (the TFLite "16x8" mode): int64

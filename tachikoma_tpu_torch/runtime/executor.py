@@ -33,11 +33,7 @@ class TorchExecutor:
         device="cuda",
         fuse: bool = False,
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchExecutor: device 'cuda' asked for but no CUDA device is available; "
-                "pass device='cpu' to run on the CPU")
+        self.device = resolve_device(device, "TorchExecutor")
         g = graph
         if fuse:
             from .fuse import fuse_qnn
@@ -45,11 +41,7 @@ class TorchExecutor:
             g = fuse_qnn(g)
         if any(n.shape is None and n.dtype != "tuple" for n in g.nodes):
             g = infer_types(g)
-        missing = sorted({n.op for n in g.nodes
-                          if n.op not in (VAR, CONST, TUPLE, TUPLE_GET_ITEM)
-                          and get_op(n.op).torch_impl is None})
-        if missing:
-            raise NotImplementedError(f"ops without a torch impl: {missing}")
+        check_torch_impls(g)
         self.graph = g
         self.capture = list(capture) if capture is not None else list(g.outputs)
         self._var_names = [n.name for n in g.inputs]
@@ -82,24 +74,50 @@ class TorchExecutor:
         return [env[name] for name in self.capture]
 
     def _normalize(self, inputs) -> dict[str, torch.Tensor]:
-        if isinstance(inputs, (np.ndarray, torch.Tensor)):
-            inputs = [inputs]
-        if not isinstance(inputs, Mapping):
-            assert len(self._var_names) == len(inputs), (
-                f"expected {len(self._var_names)} inputs, got {len(inputs)}"
-            )
-            inputs = dict(zip(self._var_names, inputs))
-        missing = [v for v in self._var_names if v not in inputs]
-        if missing:
-            raise KeyError(f"graph inputs not provided: {missing}")
-        out = {}
-        for k in self._var_names:
-            v = torch.as_tensor(inputs[k], device=self.device)
-            dtype = self.graph[k].dtype
-            if dtype is not None and v.dtype != torch_dtype(dtype):
-                v = v.to(torch_dtype(dtype))
-            out[k] = v
-        return out
+        return graph_feeds(self.graph, self._var_names, inputs, self.device)
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """`device` as a torch.device; a CUDA device with no card present raises
+    (the port never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: device 'cuda' asked for but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU")
+    return dev
+
+
+def check_torch_impls(graph: Graph) -> None:
+    """Raise naming every op of `graph` that has no torch impl."""
+    missing = sorted({n.op for n in graph.nodes
+                      if n.op not in (VAR, CONST, TUPLE, TUPLE_GET_ITEM)
+                      and get_op(n.op).torch_impl is None})
+    if missing:
+        raise NotImplementedError(f"ops without a torch impl: {missing}")
+
+
+def graph_feeds(graph: Graph, var_names, inputs, device) -> dict[str, torch.Tensor]:
+    """The graph's inputs (an array, a list in input order or a name -> value
+    mapping) as tensors on `device` in the graph's dtypes."""
+    if isinstance(inputs, (np.ndarray, torch.Tensor)):
+        inputs = [inputs]
+    if not isinstance(inputs, Mapping):
+        assert len(var_names) == len(inputs), (
+            f"expected {len(var_names)} inputs, got {len(inputs)}"
+        )
+        inputs = dict(zip(var_names, inputs))
+    missing = [v for v in var_names if v not in inputs]
+    if missing:
+        raise KeyError(f"graph inputs not provided: {missing}")
+    out = {}
+    for k in var_names:
+        v = torch.as_tensor(inputs[k], device=device)
+        dtype = graph[k].dtype
+        if dtype is not None and v.dtype != torch_dtype(dtype):
+            v = v.to(torch_dtype(dtype))
+        out[k] = v
+    return out
 
 
 def computational_nodes(graph: Graph) -> list[str]:

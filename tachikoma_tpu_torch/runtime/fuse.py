@@ -387,7 +387,9 @@ def _bmm_rq_torch(*args, node: Node):
                      rounding=at.get("rounding", "UPWARD"), qmin=lo, qmax=hi)
 
 
-# the flops rule reuses the head op's count
+# the flops rules reuse the head ops' counts (profiler rooflines)
+register_op("tk.conv2d_rq", flops=_nn._conv2d_flops)
+register_op("tk.dense_rq", flops=_nn._dense_flops)
 register_op("tk.bmm_rq", flops=_nn._bmm_flops)
 
 
@@ -675,6 +677,19 @@ def _chain_torch(*args, node: Node):
                               residual=residual, res_params=ra)
 
 
+def _chain_flops(node: Node, ins):
+    (ds, _) = ins[0]
+    total, arg = 0, 1
+    for st in node.attrs["stages"]:
+        kh, kw, ci, co = ins[arg][0]
+        total += 2 * ds[0] * ds[1] * ds[2] * co * kh * kw * ci
+        arg += 2 if st.get("has_bias") else 1
+    return total
+
+
+register_op("tk.conv2d_chain", flops=_chain_flops)
+
+
 # ---------------------------------------------------------------------------
 # residual-block stacks: consecutive identity-residual chains
 # ---------------------------------------------------------------------------
@@ -783,6 +798,20 @@ def _stack_rel(node, ins):
             cout = ins[arg][0][3]
             arg += 2 if st.get("has_bias") else 1
     return (ds[0], ds[1], ds[2], cout), "int8"
+
+
+def _stack_flops(node: Node, ins):
+    (ds, _) = ins[0]
+    total, arg = 0, 1
+    for blk in node.attrs["blocks"]:
+        for st in blk["stages"]:
+            kh, kw, ci, co = ins[arg][0]
+            total += 2 * ds[0] * ds[1] * ds[2] * co * kh * kw * ci
+            arg += 2 if st.get("has_bias") else 1
+    return total
+
+
+register_op("tk.conv2d_block_stack", flops=_stack_flops)
 
 
 @np_impl("tk.conv2d_block_stack")

@@ -2,7 +2,8 @@
 `tachikoma_tpu/trace/emitter.py`).
 
 Execute the integer graph — on the numpy oracle, or on a torch device through
-`TorchExecutor` with every node captured — and stream per-operator records
+`TorchExecutor` or `SegmentedExecutor` with every node captured — and stream
+per-operator records
 (op id, attrs, input values, param values, expected output) into the
 tachikoma-standard binary format (`format.py`).
 
@@ -40,7 +41,7 @@ from .format import (ROLE_INPUT, ROLE_OUTPUT, ROLE_PARAM, OpRecord, TensorRecord
                      TraceWriter)
 from .native import NativeTraceWriter, native_available
 
-BACKENDS = ("torch", "oracle")
+BACKENDS = ("torch", "torch-segmented", "oracle")
 STREAM_GROUPS = 6
 
 _NP_DTYPES = {torch.bool: np.dtype(np.bool_), torch.int8: np.dtype(np.int8),
@@ -135,15 +136,16 @@ class TraceEmitter:
 
     backend="torch" (the default) runs the unfused graph on `device` ("cuda"
     by default: with no card it raises; pass device="cpu" for the CPU) with
-    every computational node captured; backend="oracle" runs the numpy
-    interpreter.  The JAX package's "jax-segmented" backend is not ported
-    (it waits for runtime/segmented.py, ROADMAP Queue 1 item 13)."""
+    every computational node captured; backend="torch-segmented" runs it
+    through `runtime/segmented.py SegmentedExecutor` (one program per
+    structural key, no scan: every node is captured), the counterpart of the
+    JAX package's "jax-segmented"; backend="oracle" runs the numpy
+    interpreter.  Every backend writes the same bytes."""
 
     def __init__(self, graph: Graph, backend: str = "torch", device="cuda",
                  meta: dict | None = None, require_integer: bool = False):
         if backend not in BACKENDS:
-            raise ValueError(f"backend {backend!r}: the port has {BACKENDS}; 'jax-segmented' "
-                             "waits for runtime/segmented.py (ROADMAP Queue 1 item 13)")
+            raise ValueError(f"backend {backend!r}: the port has {BACKENDS}")
         self.graph = infer_types(graph) if any(
             n.shape is None and n.dtype != "tuple" for n in graph.nodes) else graph
         self.backend = backend
@@ -169,6 +171,10 @@ class TraceEmitter:
         if backend == "torch":
             self._executor = TorchExecutor(self.graph, capture=self._names, device=device,
                                            fuse=False)
+        elif backend == "torch-segmented":
+            from ..runtime.segmented import SegmentedExecutor
+
+            self._executor = SegmentedExecutor(self.graph, capture=self._names, device=device)
         self.device = self._executor.device if self._executor else torch.device("cpu")
 
     # -- values ---------------------------------------------------------------

@@ -2373,3 +2373,89 @@ def test_eval_topk_on_card_equals_cpu(cuda, torch_r50):
     card = eval_topk(gf, gq, ds, device="cuda")
     assert card.row() == eval_topk(gf, gq, ds, device="cpu").row()
     assert card.n == 8
+
+
+# ---------------------------------------------------------------------------
+# the segmented, bucketed and placed executors on the card
+# ---------------------------------------------------------------------------
+
+def _tied_gpt2():
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8_SCAN
+
+    g = gpt2(batch_size=1, seq_len=16, hidden=64, layers=6, heads=4, ffn_dim=128, vocab=96,
+             seed=1)
+    x = np.random.default_rng(0).integers(0, 96, (1, 16)).astype(np.int32)
+    return fuse_qnn(quantize(g, [x], TRANSFORMER_INT8_SCAN)), x
+
+
+@pytest.mark.cuda
+def test_segmented_scan_on_card_equals_cpu(cuda):
+    """A tied int8 GPT-2 scanned over its stacked layers on the card == the
+    CPU path and the whole-graph executor (==), twice, on two inputs: K1's
+    K-major packing is made once per layer view and never again; the scan
+    member's weights are not copied besides the stacks."""
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8
+    from tachikoma_tpu_torch.runtime.segmented import SegmentedExecutor
+
+    f, x = _tied_gpt2()
+    ex = SegmentedExecutor(f, min_ops=16, max_ops=120, device="cuda")
+    assert ex.scan_runs == [(1, 5, 0)] and ex.n_programs == 3
+    cpu = SegmentedExecutor(f, min_ops=16, max_ops=120, device="cpu")
+    whole = TorchExecutor(f, device="cuda")
+    whole.run(x)  # packs its own weights K-major before the count below
+    for step, xs in enumerate((x, (x + 7) % 96)):
+        before = _lib.LAUNCHES["qgemm_rq"], _lib.LAUNCHES["qbmm_rq"]
+        got = ex.run(xs)
+        assert _lib.LAUNCHES["qgemm_rq"] > before[0] and _lib.LAUNCHES["qbmm_rq"] > before[1]
+        if step == 0:
+            packed = len(matmul_int8._KMAJOR)
+        else:
+            assert len(matmul_int8._KMAJOR) == packed, "a run packed a weight again"
+        for a, b, c in zip(got, cpu.run(xs), whole.run(xs)):
+            assert a.dtype == b.dtype
+            if a.dtype.kind in "iu":
+                assert (a == b).all() and (a == c).all()
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+                np.testing.assert_array_equal(a, c)
+    layers = ex._scans[1]["layers"]
+    assert all(p.data_ptr() == st[k].data_ptr()
+               for k in range(5) for p, st in zip(layers[k], ex._scans[1]["stacks"]))
+
+
+@pytest.mark.cuda
+def test_bucketed_on_card_equals_cpu(cuda):
+    from tachikoma_tpu_torch.runtime.bucketed import BucketedExecutor
+
+    g = resnet(18, batch_size=1, image_size=32, seed=0)
+    rng = np.random.default_rng(2)
+    q = quantize(g, [rng.standard_normal((1, 32, 32, 3)).astype(np.float32)])
+    card = BucketedExecutor(q, buckets=(2, 4), fuse=True, device="cuda")
+    cpu = BucketedExecutor(q, buckets=(2, 4), fuse=True, device="cpu")
+    for batch in (1, 3, 4, 5):
+        x = rng.standard_normal((batch, 32, 32, 3)).astype(np.float32)
+        got = card.run(x)[0]
+        assert got.shape[0] == batch
+        # the float softmax head: the card's and the CPU's round apart
+        np.testing.assert_allclose(got, cpu.run(x)[0], rtol=1e-5, atol=1e-8)
+        exact = TorchExecutor(card._graph_for(batch), fuse=True, device="cuda").run(x)[0]
+        assert (got == exact).all()
+    assert card.compiled_buckets == [2, 4, 5]
+
+
+@pytest.mark.cuda
+def test_placement_cuda_and_cpu_equals_one_device(cuda):
+    """The CPU-offload layout: the embedding lookups on the host, the rest
+    on cuda:0; outputs == the single-device executor on the card."""
+    from tachikoma_tpu_torch.quantize.config import TRANSFORMER_INT8
+    from tachikoma_tpu_torch.runtime.placement import HeterogeneousExecutor, embeddings_on_host
+
+    g = bert(batch_size=2, seq_len=16, hidden=32, layers=2, heads=4, ffn_dim=64, vocab=100,
+             seed=0)
+    x = np.random.default_rng(3).integers(0, 100, (2, 16)).astype(np.int32)
+    q = fuse_qnn(quantize(g, [x], TRANSFORMER_INT8))
+    hx = HeterogeneousExecutor(embeddings_on_host(q), devices=("cuda:0", "cpu"))
+    got = hx.run(x)
+    assert hx.transfers == 1 and [d for d, _ in hx.segments] == [1, 0]
+    for a, b in zip(got, TorchExecutor(q, device="cuda").run(x)):
+        np.testing.assert_array_equal(a, b)

@@ -46,7 +46,10 @@ def test_import_pulls_in_no_jax():
             "tachikoma_tpu_torch.tune.model", "tachikoma_tpu_torch.tune.schedule",
             "tachikoma_tpu_torch.tune.evolutionary",
             "tachikoma_tpu_torch.models.decoding", "tachikoma_tpu_torch.ops.tail3",
-            "tachikoma_tpu_torch.ops.tail", "tachikoma_tpu_torch.models.vision"} <= set(modules)
+            "tachikoma_tpu_torch.ops.tail", "tachikoma_tpu_torch.models.vision",
+            "tachikoma_tpu_torch.runtime.segmented", "tachikoma_tpu_torch.runtime.bucketed",
+            "tachikoma_tpu_torch.runtime.placement",
+            "tachikoma_tpu_torch.runtime.profiler"} <= set(modules)
 
 
 def test_the_port_never_opens_the_tpu_tuning_database():

@@ -134,12 +134,27 @@ def test_op_matches_reference_oracle_and_jax_impl(case):
 
 
 def test_integer_products_have_no_torch_impl():
+    """Integer nn.batch_matmul has no torch impl (quantized graphs carry the
+    qnn form); integer nn.dense has one only where float64 sums it exactly
+    (operands of at most 16 bits: the JAX package's placement tests run an
+    int8 one), == the oracle, and none for wider operands."""
+    x8 = np.arange(-3, 3, dtype=np.int8).reshape(2, 3)
+    for dtype, ok in (("int8", True), ("int32", False)):
+        b = GraphBuilder()
+        x = b.var("x", (2, 3), dtype)
+        w = b.const(np.full((3, 4), -7, dtype), name="w")
+        g = b.build(b.call("nn.dense", x, w, out_dtype="int32", name="d"))
+        if ok:
+            got = TorchExecutor(g, device="cpu").run(x8)[0]
+            assert got.dtype == np.int32 and (got == run_graph(g, x8)[0]).all()
+        else:
+            with pytest.raises(NotImplementedError, match="no exact torch impl"):
+                TorchExecutor(g, device="cpu").run(x8.astype(dtype))
     b = GraphBuilder()
-    x = b.var("x", (2, 3), "int8")
-    w = b.const(np.ones((3, 4), np.int8), name="w")
-    g = b.build(b.call("nn.dense", x, w, name="d"))
+    a = b.var("a", (2, 3, 4), "int8")
+    g = b.build(b.call("nn.batch_matmul", a, a, transpose_b=True, name="m"))
     with pytest.raises(NotImplementedError, match="qnn"):
-        TorchExecutor(g, device="cpu").run(np.ones((2, 3), np.int8))
+        TorchExecutor(g, device="cpu").run(np.ones((2, 3, 4), np.int8))
     assert get_op("nn.matmul").flops is get_op("nn.batch_matmul").flops is not None
 
 

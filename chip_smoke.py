@@ -22,7 +22,12 @@ from_torch; FQ2I'd QDQ ONNX models; the evaluation modules and the CLI's
 executors (int8 ViT-L/16 b1 224^2 with layer-tied scales run as a scan over
 stacked layers on K1, K4, qbmm_rq and K2; the segmented trace backend on
 int8 GPT-2 small; the "torch-cpu" calibration; the CLI's run --segmented and
-profile; placement and shape buckets).
+profile; placement and shape buckets), and data-dependent shapes, control
+flow and quantization-aware training (int8 ResNet-50 b8 with a per-request
+top-k head through the dispatch-time specializer on K1-K3; tk.cond and
+tk.while_loop over its pooled int8 features on K4; every dyn.* op; a
+fake-quant ResNet-50 b8 trained on the card through torch autograd and
+finalized to int8 on K1-K3).
 
     python3 chip_smoke.py
 
@@ -317,6 +322,48 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      224^2 through BucketedExecutor (buckets 1, 2, 4, 8) at batches 1, 3
      and 8: rows == TorchExecutor at the true batch on the card, latencies.
      The phase's host seconds are printed.
+ 24. data-dependent shapes, control flow and quantization-aware training:
+     (a) phase 3's int8 ResNet-50 b8 224^2 with a dyn.topk (axis -1, both)
+     on its int8 logits, k an int32 input (tests/runtime_cases.py
+     with_topk_head), fused (14 / 1 / 4 / 1 and the dyn.topk), run through
+     a new DynShapeExecutor(device="cuda") at k = 1, 5, 10, 5: three
+     specializations and a hit, each miss's fold / infer / build host
+     seconds, every K1-K3 call of the first request == plain (the bytes its
+     recorded tensors held), every output == the CPU path (probabilities
+     within the softmax tolerance) and == the graph with k a static topk;
+     the device bytes at construction (the weights, once), after the first
+     request (the weights, their K-major packs, the rest), and no pack and
+     no byte more from the second request on; the int8 logits' count of
+     -128; 20 hits and 20 requests of TorchExecutor on the static graph in
+     turns, both medians and their ratio, no weight packed;
+     (b) ResNet-50 b8's pooled int8 features (8, 2048) from phase 3's CPU
+     path through tk.cond between two int8 heads (qnn.dense 2048 -> 1000 +
+     requantize) on both flags and tk.while_loop over a qnn.dense 2048 ->
+     2048 + requantize + clip block at n = 0, 1, 4: == the CPU path, every
+     K4 call (qgemm_raw) == plain, 20 requests each with the latency and the
+     host reads a request; the b1 cond graph traced on the card, byte-equal
+     to the CPU path's trace and verify_trace'd; (c) every dyn.* op at
+     tests/test_dyn.py's shapes (tests/runtime_cases.py CASES) through
+     DynShapeExecutor(device="cuda") == device="cpu", dyn.nonzero
+     unspecialized; (d) float ResNet-50 b8 224^2 (seed 0) with log_softmax +
+     nn.cross_entropy_with_logits against one-hot labels, qat_prepare on one
+     b8 batch, value_and_grad_fn on the card: the float graph's step-0 loss
+     within 1e-4 of the CPU's, every gradient within GRAD_NORMWISE
+     norm-wise and those of the last stage and the head within
+     GRAD_TAIL_NORMWISE, which the control, the same backward in TF32, must
+     exceed; the
+     fake-quant graph's step-0 loss within QAT_FQ_LOSS_RTOL of the CPU's,
+     its gradients' difference printed beside the CPU's own spread when
+     every weight moves by 1e-7 (a rounding tipped by a float sum's order
+     moves an activation by a quantum), remat's loss == and gradients
+     within 1e-5 of the plain run's on the card, both peak device bytes; 3
+     SGD steps (the gradient scaled to a step length of 0.01), the loss
+     falling; STE_LAYER's fake-quant pairs (its activation on another
+     batch at the stepped weights, its per-channel weight) forward and
+     backward == the CPU's on identical inputs; qat_finalize from the
+     card's stepped weights, fuse_qnn (14 / 1 / 4 / 1), every K1-K3 call of a forward ==
+     plain, 20 requests counted, every integer node == the CPU path.  The
+     phase's host seconds are printed.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -334,7 +381,7 @@ write, or two int8 products; its library call the float64 product) per
 W8A16 ResNet-50 b8 forward (phase 20c); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
 12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l, 20a-20e,
-21a, 21b, 22a-22d, 23a, 23b, 23d, 23e; K11
+21a, 21b, 22a-22d, 23a, 23b, 23d, 23e, 24a, 24b, 24d; K11
 and K12 in 16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
@@ -3855,6 +3902,550 @@ def executors_path(card: str, r50_state: dict, bert: dict) -> tuple[dict, dict, 
 # main
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# dynamic shapes, control flow and quantization-aware training (phase 24)
+# ---------------------------------------------------------------------------
+
+TOPK_KS = (1, 5, 10, 5)           # 24a: three specializations, then a hit
+HIT_REQUESTS = 20                 # 24a: hits and static-graph requests, in turns
+CONTROL_REQUESTS = 20             # 24b: requests per graph, the flags and trip counts in turns
+LOOP_TRIPS = (0, 1, 4)            # 24b
+CONTROL_KERNELS = ("qgemm_raw",)  # a branch's and a loop body's qnn.dense on K4's GEMM mode
+QAT_STEPS = 3
+# 24d: each SGD step is the gradient scaled to this length in parameter
+# space: the random ResNet-50's loss is 10^6-10^8 (its logits are that
+# large), where a fixed rate either stalls or diverges; 0.01 descended at
+# every step on the CPU at b2 32^2, b2 64^2 and b4 96^2 (0.05 overshot at 32^2)
+QAT_STEP_LENGTH = 0.01
+QAT_LOSS_RTOL = 1e-4              # step 0's loss of the float graph, card vs CPU
+# each gradient of the float graph, card vs CPU, norm-wise relative.  A
+# relu whose input the card's float sums put on the other side of 0 from
+# the CPU's (in s2b4 here) changes the gradient of every leaf before it by
+# up to 7.0e-4, and conv0_w's by 2.3e-3 (a max pool's near tie); past it
+# the card reads 3e-7 to 8e-7 (NVIDIA H100 80GB HBM3, 700.00 W).  So every
+# leaf is held within GRAD_NORMWISE, about the CPU's own spread under a
+# QAT_NUDGE move (4.8e-3), against a gross fault; the leaves of the last
+# stage and the head (GRAD_TAIL), past that relu, within GRAD_TAIL_NORMWISE,
+# which the control, the backward in TF32 (`_tf32_grads`), must exceed
+# (9.9e-5 to 9.0e-4 there; 2.6e-3 at conv0_w, where it cannot be told apart)
+GRAD_NORMWISE = 5e-3
+GRAD_TAIL = ("s3", "fc")
+GRAD_TAIL_NORMWISE = 1e-5
+# step 0's loss of the fake-quant graph, card vs CPU: between the card's
+# reading (1.05e-4, NVIDIA H100 80GB HBM3, 700.00 W) and the CPU's own
+# spread under a QAT_NUDGE move of every weight (8.9e-4)
+QAT_FQ_LOSS_RTOL = 3e-4
+# the fake-quant pairs held card against CPU at full size: this conv's
+# activation (a real NHWC activation of the stepped model on another batch;
+# one entry past the calibrated range) and weight (per-channel scales on
+# HWIO's last axis)
+STE_LAYER = "s0b0_conv2"
+QAT_NUDGE = 1e-7                  # the CPU's own spread: every weight moved by this, relative
+REMAT_NORMWISE = 1e-5             # remat=True against remat=False on the card (the same forward)
+
+
+def runtime_cases():
+    """tests/runtime_cases.py (no jax): the dyn.* cases, the topk head, the
+    control-flow graphs and the training loss shared with the tests."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import runtime_cases as cases
+
+    return cases
+
+
+def same_outputs(got, want, what: str, float_tol=(SOFTMAX_RTOL, SOFTMAX_ATOL)) -> None:
+    """== and one dtype; float arrays within `float_tol`."""
+    assert len(got) == len(want), what
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, a.dtype, b.dtype, a.shape)
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, *float_tol, err_msg=what)
+        else:
+            assert (a == b).all(), f"{what}: != the CPU path"
+
+
+def dyn_head_path(card: str, r50_state: dict) -> tuple[dict, dict]:
+    """Phase 24a: phase 3's int8 ResNet-50 with a dyn.topk head (k an
+    int32 input) on the int8 logits, fused, through DynShapeExecutor on the
+    card.  Returns the launches and the kernels' largest |err|."""
+    from tachikoma_tpu_torch.ir.graph import Graph, Node
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8
+    from tachikoma_tpu_torch.runtime.dynshape import DynShapeExecutor, specialize
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    cases = runtime_cases()
+    model = f"int8 ResNet-50 b{BATCH} {IMAGE}^2"
+    phase(f"24a. dynamic head: {model} (phase 3's graph) with a dyn.topk (axis -1, both) on "
+          f"its int8 logits, k an int32 input, fused [{card}]")
+    t0 = time.perf_counter()
+    fused = fuse_qnn(cases.with_topk_head(r50_state["quantized"], Node, Graph))
+    ops = Counter(n.op for n in fused.nodes)
+    n_tk = sum(v for op, v in ops.items() if op.startswith("tk."))
+    say(f"with_topk_head + fuse_qnn {time.perf_counter() - t0:.2f} s (host): {n_tk} tk.* ops, "
+        f"{ops['dyn.topk']} dyn.topk")
+    assert ops["dyn.topk"] == 1 and {k: ops[k] for k in ONNX_R50_OPS} == ONNX_R50_OPS, ops
+    # a new executor, as a user builds it: its own copy of the weights,
+    # packed K-major at the first request and shared by every specialization
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    ex = DynShapeExecutor(fused, device="cuda")
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in ex._params.values())
+    say(f"DynShapeExecutor(fused, device='cuda'): {torch.cuda.memory_allocated() - base} "
+        f"device bytes at construction; the weights: {weights} bytes in {len(ex._params)} "
+        f"tensors, one copy")
+    x = r50_state["requests"][0]
+    feeds = [{"data": x, "k": np.array([k], np.int32)} for k in TOPK_KS]
+    cpu = DynShapeExecutor(fused, device="cpu")
+    cpu_outs = {}
+    t0 = time.perf_counter()
+    for f in feeds:
+        k = int(f["k"][0])
+        if k not in cpu_outs:
+            cpu_outs[k] = cpu.run(f)
+    say(f"CPU path, k in {sorted(cpu_outs)}: {time.perf_counter() - t0:.2f} s (host)")
+
+    def request(f) -> list:
+        misses = ex.misses
+        t0 = time.perf_counter()
+        o = [v.cpu().numpy() for v in ex.run_device(f)]
+        secs = time.perf_counter() - t0
+        build = ex.miss_seconds[-1] if ex.misses > misses else None
+        say(f"request k={int(f['k'][0]):2d}: {'miss' if build else 'hit'}, "
+            f"{secs * 1e3:.1f} ms (host)"
+            + (f"; fold {build['fold'] * 1e3:.2f} ms, infer {build['infer'] * 1e3:.2f} ms, "
+               f"build {build['build'] * 1e3:.2f} ms" if build else ""))
+        return o
+
+    # the first request packs the weights; its K1-K3 calls are recorded and
+    # held == plain, and then let go
+    packed = packed_weights()
+    reset(RUN_KERNELS)
+    calls: list = []
+    with recording(calls):
+        outs = [request(feeds[0])]
+    launches = read_launches(RUN_KERNELS, "the dynamic head's first request")
+    errs = hold_calls(calls)
+    kmajor = [v[2] for v in matmul_int8._KMAJOR.values() if id(v[2]) not in packed]
+    held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for _, a, k in calls for t in (*a, *k.values()) if isinstance(t, torch.Tensor)}
+    own = {t.untyped_storage().data_ptr() for t in ex._params.values()}
+    say(f"{len(calls)} K1-K3 calls of the first request, all == plain; their recorded "
+        f"tensors held {sum(v for p, v in held.items() if p not in own)} device bytes beside "
+        f"the weights until let go")
+    del calls, held
+    torch.cuda.synchronize()
+    mem = [torch.cuda.memory_allocated() - base]
+    packed = packed_weights()
+    say(f"after the first request: {mem[0]} device bytes over the executor's start = the "
+        f"weights {weights} + {len(kmajor)} K-major packed weights "
+        f"{sum(t.numel() * t.element_size() for t in kmajor)} + "
+        f"{mem[0] - weights - sum(t.numel() * t.element_size() for t in kmajor)} other")
+    del kmajor
+    reset(RUN_KERNELS)
+    for f in feeds[1:]:
+        outs.append(request(f))
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated() - base)
+    for name, n in read_launches(RUN_KERNELS, "the dynamic head's later requests").items():
+        launches[name] += n
+    assert (ex.misses, ex.hits, len(ex._cache)) == (3, 1, 3), (ex.misses, ex.hits)
+    new_packs = packed_weights() - packed
+    say(f"device bytes over the executor's start after 1 specialization {mem[0]}, after 3 "
+        f"{mem[2]}, after the hit {mem[3]}; weights packed after the first request: "
+        f"{len(new_packs)}")
+    assert not new_packs and mem == [mem[0]] * len(mem), (len(new_packs), mem)
+    for f, o in zip(feeds, outs):
+        k = int(f["k"][0])
+        same_outputs(o, cpu_outs[k], f"k={k} vs the CPU path")
+        sg, key = specialize(fused, f)
+        assert key == (("head_topk", ((k,),)),) and sg["head_topk"].op == "topk"
+        static = TorchExecutor(sg, device="cuda", params=ex._params).run({"data": x})
+        same_outputs(o, static, f"k={k} vs the static topk", float_tol=(0, 0))
+        assert o[1].shape == (BATCH, k) and o[2].shape == (BATCH, k)
+    say(f"every output == the CPU path (probabilities within rtol {SOFTMAX_RTOL} atol "
+        f"{SOFTMAX_ATOL}) and == the graph with k a static topk, at k = "
+        + ", ".join(str(k) for k in TOPK_KS))
+    logits_name = next(n for n in fused.nodes if n.op == "qnn.dequantize").inputs[0]
+    logits = r50_state["plain"][r50_state["names"].index(logits_name)]
+    wrapped = int(((logits == -128).any(axis=-1)).sum())
+    say(f"the int8 logits ({logits_name}, {logits.shape}) hold {int((logits == -128).sum())} "
+        f"entries of -128, in {wrapped} of {BATCH} rows: the reference oracle's wrapped "
+        f"negation would rank -128 first there (ROADMAP Queue 3)")
+
+    phase(f"24a. {model}: {HIT_REQUESTS} hits (k=5) and {HIT_REQUESTS} requests of "
+          f"TorchExecutor on the static graph, in turns [{card}]")
+    static_ex = TorchExecutor(specialize(fused, feeds[1])[0], device="cuda", params=ex._params)
+    reqs = r50_state["requests"]
+    reset(RUN_KERNELS)
+    hit_lat, static_lat = [], []
+    for i in range(HIT_REQUESTS):
+        xi = reqs[i % len(reqs)]
+        for run, lat in ((lambda: ex.run_device({"data": xi, "k": feeds[1]["k"]}), hit_lat),
+                         (lambda: static_ex.run_device({"data": xi}), static_lat)):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+    runs = read_launches(RUN_KERNELS, "the hits and the static requests")
+    for name, n in runs.items():
+        launches[name] += n
+    assert ex.hits == 1 + HIT_REQUESTS and ex.misses == 3
+    new_packs = packed_weights() - packed
+    assert not new_packs, f"{len(new_packs)} weights packed during the requests"
+    hit_ms, static_ms = statistics.median(hit_lat[1:]), statistics.median(static_lat[1:])
+    say(f"hit median {hit_ms:.3f} ms, static TorchExecutor median {static_ms:.3f} ms, ratio "
+        f"{hit_ms / static_ms:.3f} (b{BATCH}, host clock, the first of each dropped) [{card}]")
+    say(f"weights packed after the first request, in the {len(feeds) - 1} later requests and "
+        f"the {2 * HIT_REQUESTS} timed: 0")
+    return launches, errs
+
+
+def control_path(card: str, r50_state: dict) -> tuple[dict, dict]:
+    """Phase 24b: tk.cond between two int8 heads and tk.while_loop over an
+    int8 block, on ResNet-50 b8's pooled int8 features."""
+    from tachikoma_tpu_torch import Graph, GraphBuilder, infer_types
+    from tachikoma_tpu_torch.ops import control
+    from tachikoma_tpu_torch.ops.kernels import _lib
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+    from tachikoma_tpu_torch.trace.emitter import TraceEmitter, emit_trace, verify_trace
+
+    cases = runtime_cases()
+    pkg = (GraphBuilder, Graph, infer_types)
+    fused, names = r50_state["fused"], r50_state["names"]
+    gap = next(n.name for n in fused.nodes if n.op == "nn.global_avg_pool2d")
+    feats = r50_state["plain"][names.index(gap)].reshape(BATCH, -1)
+    width = feats.shape[1]
+    assert feats.dtype == np.int8 and width == 2048, (feats.dtype, feats.shape)
+    phase(f"24b. control flow at ResNet-50's head: its pooled int8 features {feats.shape} "
+          f"({gap}, phase 3's CPU path); tk.cond between two int8 heads (qnn.dense {width} -> "
+          f"1000, requantize), tk.while_loop over a qnn.dense {width} -> {width} + requantize + "
+          f"clip block [{card}]")
+    graphs = {"cond": cases.cond_heads(*pkg, batch=BATCH, features=width, classes=1000),
+              "while": cases.while_blocks(*pkg, batch=BATCH, features=width)}
+    feeds = {"cond": [{"flag": np.asarray(f), "features": feats} for f in (True, False)],
+             "while": [{"i0": np.int32(0), "n": np.int32(n), "features": feats}
+                       for n in LOOP_TRIPS]}
+    launches, errs = {name: 0 for name in CONTROL_KERNELS}, {}
+    for which, g in graphs.items():
+        ex, cpu = TorchExecutor(g, device="cuda"), TorchExecutor(g, device="cpu")
+        answers = []
+        for f in feeds[which]:
+            reset(CONTROL_KERNELS)
+            calls: list = []
+            with recording(calls):
+                got = ex.run(f)
+            for name in CONTROL_KERNELS:
+                launches[name] += _lib.LAUNCHES[name]
+            for name, e in hold_calls(calls).items():
+                errs[name] = max(errs.get(name, 0), e)
+            same_outputs(got, cpu.run(f), f"{which} {f.get('flag', f.get('n'))}")
+            answers.append(got[-1])
+            trips = f"n={int(f['n'])}, count {int(got[0])}" if which == "while" else \
+                f"flag {bool(f['flag'])}"
+            say(f"{which} {trips}: == the CPU path, {len(calls)} K4 calls == plain")
+        assert not (answers[0] == answers[1]).all(), f"{which}: the two runs agree"
+        reset(CONTROL_KERNELS)
+        control.HOST_READS.clear()
+        lat = []
+        for i in range(CONTROL_REQUESTS):
+            f = feeds[which][i % len(feeds[which])]
+            t0 = time.perf_counter()
+            ex.run_device(f)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        for name in CONTROL_KERNELS:
+            launches[name] += _lib.LAUNCHES[name]
+        reads = sum(control.HOST_READS.values())
+        say(f"{which}: {CONTROL_REQUESTS} requests ({'flags' if which == 'cond' else 'n'} in "
+            f"turns) median {statistics.median(lat[1:]):.3f} ms, all "
+            + " ".join(f"{v:.2f}" for v in lat)
+            + f"; host reads {reads / CONTROL_REQUESTS:.2f} per request [{card}]")
+    assert launches["qgemm_raw"] > 0
+
+    g1 = cases.cond_heads(*pkg, batch=1, features=width, classes=1000)
+    f1 = {"flag": np.asarray(False), "features": feats[:1]}
+    t0 = time.perf_counter()
+    blob = TraceEmitter(g1, backend="torch", device="cuda").emit_bytes(f1)
+    t1 = time.perf_counter()
+    assert blob == emit_trace(g1, f1, backend="torch", device="cpu")
+    report = verify_trace(blob, g1)
+    assert report["mismatches"] == [], report["mismatches"][:3]
+    say(f"b1 trace of the cond graph on the card: {len(blob)} bytes, {(t1 - t0) * 1e3:.1f} ms, "
+        f"byte-equal to the CPU path's, verify_trace: {report['records']} records, no mismatch")
+    return launches, errs
+
+
+def dyn_ops_on_card(card: str) -> None:
+    """Phase 24c: every dyn.* op at tests/test_dyn.py's shapes through
+    DynShapeExecutor(device='cuda') == device='cpu'."""
+    from tachikoma_tpu_torch import GraphBuilder
+    from tachikoma_tpu_torch.runtime.dynshape import DynShapeExecutor
+
+    cases = runtime_cases()
+    phase(f"24c. the 17 dyn.* ops at tests/test_dyn.py's shapes: DynShapeExecutor(device='cuda') "
+          f"== device='cpu' [{card}]")
+    seen = set()
+    for cid, build, feeds in cases.CASES:
+        g = build(GraphBuilder)
+        ex = DynShapeExecutor(g, device="cuda")
+        got, want = ex.run(dict(feeds)), DynShapeExecutor(g, device="cpu").run(dict(feeds))
+        same_outputs(got, want, cid, float_tol=(0, 0))
+        ops = {n.op for n in g.nodes if n.op.startswith("dyn.")}
+        seen |= ops
+        if ops == {"dyn.nonzero"}:
+            assert list(ex._cache) == [()], "dyn.nonzero specialized"
+        say(f"  {cid:20s} {'+'.join(sorted(ops)):36s} == "
+            + ("(unspecialized)" if ops == {"dyn.nonzero"} else f"key {list(ex._cache)[0]}"))
+    assert seen == cases.DYN_OPS, sorted(cases.DYN_OPS - seen)
+    say(f"{len(seen)} dyn.* ops, {len(cases.CASES)} cases held")
+
+
+def _loss_and_grads(graph, feeds, device: str):
+    """One value_and_grad_fn step of `graph` on `device` from its own weights."""
+    from tachikoma_tpu_torch.runtime.autodiff import value_and_grad_fn
+
+    fn, train, _ = value_and_grad_fn(graph, device=device)
+    return fn(train, feeds)
+
+
+def _cpu_spread(graph, feeds, loss, grads) -> tuple[float, str, float]:
+    """The CPU against its own (loss, grads) with every weight moved by
+    QAT_NUDGE relative (normal, seed SEED + 1): the largest gradient
+    difference norm-wise, its parameter, and the loss's relative difference."""
+    from tachikoma_tpu_torch.runtime.autodiff import value_and_grad_fn
+
+    fn, train, _ = value_and_grad_fn(graph, device="cpu")
+    rng = np.random.default_rng(SEED + 1)
+    moved_loss, moved = fn({k: v * (1 + QAT_NUDGE * torch.from_numpy(
+        rng.standard_normal(tuple(v.shape)).astype(np.float32))) for k, v in train.items()},
+        feeds)
+    d, k = max((_normwise(moved[k], grads[k]), k) for k in grads)
+    return d, k, abs(float(moved_loss) - float(loss)) / abs(float(loss))
+
+
+def _tf32_grads(graph, feeds) -> dict:
+    """The fault GRAD_TAIL_NORMWISE is there to catch, as a control: the
+    gradients of value_and_grad_fn's step with the backward run in TF32
+    (torch's default for cuDNN) instead of under float32_products."""
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+
+    ex = TorchExecutor(graph, device="cuda")
+    train = {k: v.detach().requires_grad_(True) for k, v in ex._params.items()
+             if v.dtype.is_floating_point}
+    loss = ex.run_device(feeds, params=train)[0]
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        grads = torch.autograd.grad(loss, list(train.values()))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return dict(zip(train, grads))
+
+
+def ste_on_card(qat_g, train, feeds, layer: str, card: str) -> None:
+    """The fake-quant pairs of conv `layer`, forward and straight-through
+    backward, card against CPU on identical inputs: the activation the
+    card's forward gives at the stepped weights `train`, the stepped
+    weight, and one upstream gradient (seed SEED + 2).  Held ==."""
+    from tachikoma_tpu_torch.ir.registry import get_op
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+
+    conv = qat_g[layer]
+    pairs = []
+    for src in conv.inputs[:2]:
+        sdq = qat_g[src]
+        sq = qat_g[sdq.inputs[0]]
+        pairs.append((sq.inputs[0], sq, sdq))
+    act = pairs[0][0]
+    x = TorchExecutor(qat_g, capture=[act], device="cuda").run_device(feeds, params=train)[0]
+    values = {act: x.detach().cpu(), pairs[1][0]: train[pairs[1][0]].detach().cpu()}
+    rng = np.random.default_rng(SEED + 2)
+    sq_impl = get_op("qnn.simulated_quantize").torch_impl
+    sdq_impl = get_op("qnn.simulated_dequantize").torch_impl
+    saturated = []
+    for name, sq, sdq in pairs:
+        v = values[name]
+        up = torch.from_numpy(rng.standard_normal(tuple(v.shape)).astype(np.float32))
+        res = {}
+        for dev in ("cpu", "cuda"):
+            t = v.to(dev).requires_grad_(True)
+            y = sdq_impl(sq_impl(t, node=sq), node=sdq)
+            (g,) = torch.autograd.grad(y, t, up.to(dev))
+            res[dev] = (y.detach().cpu(), g.cpu())
+        (y, g), (cy, cg) = res["cuda"], res["cpu"]
+        assert torch.equal(y, cy) and torch.equal(g, cg), (
+            name, float((y - cy).abs().max()), float((g - cg).abs().max()))
+        per = (f"per-channel on axis {sq.attrs.get('axis')}"
+               if np.ndim(sq.attrs["scale"]) else "per-tensor")
+        saturated.append(int((cg == 0).sum()) - int((up == 0).sum()))
+        say(f"  {layer}'s fake-quant of {name} {tuple(v.shape)} ({per} scale): forward and "
+            f"straight-through gradient == the CPU's; {saturated[-1]} entries saturated "
+            f"(gradient 0) [{card}]")
+    # the other batch takes the activation past its calibrated range: the
+    # clip's zero gradient is among what was held
+    assert saturated[0] > 0, saturated
+
+
+def _normwise(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def qat_path(card: str, r50_state: dict) -> tuple[dict, dict]:
+    """Phase 24d: quantization-aware training of float ResNet-50 b8 224^2
+    on the card, then the finalized int8 model on K1-K3."""
+    from tachikoma_tpu_torch.ir.graph import Graph, Node
+    from tachikoma_tpu_torch.models.vision import resnet
+    from tachikoma_tpu_torch.quantize.qat import qat_finalize, qat_prepare
+    from tachikoma_tpu_torch.runtime.autodiff import value_and_grad_fn
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    cases = runtime_cases()
+    model = f"float ResNet-50 b{BATCH} {IMAGE}^2"
+    phase(f"24d. QAT: {model} (seed {SEED}) with log_softmax + nn.cross_entropy_with_logits "
+          f"against one-hot labels; qat_prepare on one b{BATCH} batch [{card}]")
+    float_g = resnet(50, batch_size=BATCH, image_size=IMAGE, seed=SEED)
+    g = cases.with_cross_entropy(float_g, Node, Graph)
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    feeds = {"data": x, "labels": cases.one_hot_labels(BATCH, 1000, SEED)}
+    t0 = time.perf_counter()
+    qat_g = qat_prepare(g, [feeds])
+    ops = Counter(n.op for n in qat_g.nodes)
+    say(f"qat_prepare {time.perf_counter() - t0:.2f} s (host, numpy calibration): "
+        f"{ops['qnn.simulated_quantize']} fake-quant pairs")
+
+    # the float graph (no fake quant), card against CPU: float sums in
+    # another order only; beside it the control, the backward in TF32
+    cpu_s = time.perf_counter()
+    closs, cgrads = _loss_and_grads(g, feeds, "cpu")
+    cpu_s = time.perf_counter() - cpu_s
+    loss0, grads0 = _loss_and_grads(g, feeds, "cuda")
+    rel = abs(float(loss0) - float(closs)) / abs(float(closs))
+    tf32 = _tf32_grads(g, feeds)
+    diffs = {what: sorted(((_normwise(gr[k], cgrads[k]), k) for k in cgrads), reverse=True)
+             for what, gr in (("sound", grads0), ("tf32", tf32))}
+    tail = {what: [dk for dk in d if dk[1].startswith(GRAD_TAIL)] for what, d in diffs.items()}
+    own = _cpu_spread(g, feeds, closs, cgrads)
+    say(f"step 0 of the float graph (same loss, no fake quant): loss on the card "
+        f"{float(loss0):.6g}, on the CPU {float(closs):.6g} (relative {rel:.3g}; CPU step "
+        f"{cpu_s:.2f} s); the CPU against itself with the weights moved by {QAT_NUDGE} "
+        f"relative: {own[0]:.3g} ({own[1]}) [{card}]")
+    for what, label in (("sound", "the card's gradients"),
+                        ("tf32", "the control, the card's backward in TF32")):
+        nonzero = [d for d, _ in tail[what] if d > 0]
+        say(f"  {label} against the CPU's, norm-wise relative, of {len(cgrads)}: largest "
+            + ", ".join(f"{d:.3g} ({k})" for d, k in diffs[what][:3])
+            + f", median {statistics.median(d for d, _ in diffs[what]):.3g}; in the last stage "
+            f"and the head ({len(tail[what])}, {len(nonzero)} nonzero): largest "
+            + ", ".join(f"{d:.3g} ({k})" for d, k in tail[what][:2])
+            + f", smallest nonzero {min(nonzero):.3g}")
+    assert rel <= QAT_LOSS_RTOL and diffs["sound"][0][0] <= GRAD_NORMWISE, (rel, diffs["sound"][:3])
+    assert tail["sound"][0][0] <= GRAD_TAIL_NORMWISE, tail["sound"][:3]
+    assert tail["tf32"][0][0] > GRAD_TAIL_NORMWISE, ("the control passes", tail["tf32"][:3])
+    say(f"held: the loss within {QAT_LOSS_RTOL}, every gradient within {GRAD_NORMWISE}, those "
+        f"of the last stage and the head within {GRAD_TAIL_NORMWISE}, which the control "
+        f"({tail['tf32'][0][0]:.3g}) exceeds")
+    del grads0, cgrads, tf32
+
+    # the fake-quant graph, card against CPU: a rounding that a float sum in
+    # another order tips over a half changes an activation by a quantum, so
+    # the gradients differ as much as the CPU's own do when every weight
+    # moves by QAT_NUDGE relative (printed beside, not held); the loss is held
+    fn, train, _ = value_and_grad_fn(qat_g, device="cuda")
+    t0 = time.perf_counter()
+    loss0, grads0 = fn(train, feeds)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    closs, cgrads = _loss_and_grads(qat_g, feeds, "cpu")
+    card_vs_cpu = max((_normwise(grads0[k], cgrads[k]), k) for k in cgrads)
+    own = _cpu_spread(qat_g, feeds, closs, cgrads)
+    fq_rel = abs(float(loss0) - float(closs)) / abs(float(closs))
+    say(f"step 0 of the fake-quant graph: loss on the card {float(loss0):.6g}, on the CPU "
+        f"{float(closs):.6g} (relative {fq_rel:.3g}, held within {QAT_FQ_LOSS_RTOL}), the "
+        f"largest gradient difference {card_vs_cpu[0]:.3g} norm-wise ({card_vs_cpu[1]}); "
+        f"the CPU against itself with the weights moved by {QAT_NUDGE} relative: loss "
+        f"{own[2]:.3g}, gradients {own[0]:.3g} ({own[1]}) [{card}]")
+    assert fq_rel <= QAT_FQ_LOSS_RTOL, fq_rel
+    del cgrads
+
+    # remat on the card: the same forward run again in the backward
+    rfn, rtrain, _ = value_and_grad_fn(qat_g, remat=True, device="cuda")
+    peaks = {}
+    for what, f, t in (("remat=False", fn, train), ("remat=True", rfn, rtrain)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        rloss, gr = f(t, feeds)
+        torch.cuda.synchronize()
+        peaks[what] = torch.cuda.max_memory_allocated() - before
+    rworst = max((_normwise(gr[k], grads0[k]), k) for k in grads0)
+    say(f"remat=True: loss {float(rloss):.6g}, gradients within {rworst[0]:.3g} norm-wise of "
+        f"remat=False's ({rworst[1]}); peak device bytes over the parameters: remat=False "
+        f"{peaks['remat=False']}, remat=True {peaks['remat=True']} [{card}]")
+    assert float(rloss) == float(loss0) and rworst[0] <= REMAT_NORMWISE, (rloss, loss0, rworst)
+    del gr, grads0
+
+    phase(f"24d. {QAT_STEPS} SGD steps on the card (step length {QAT_STEP_LENGTH}) [{card}]")
+    losses, step_ms = [], []
+    for _ in range(QAT_STEPS):
+        t0 = time.perf_counter()
+        loss, grads = fn(train, feeds)
+        norm = torch.sqrt(sum((v.double() ** 2).sum() for v in grads.values()))
+        lr = float(QAT_STEP_LENGTH / norm)
+        train = {k: v - lr * grads[k] for k, v in train.items()}
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    losses.append(float(fn(train, feeds)[0]))
+    say("losses " + " -> ".join(f"{v:.6g}" for v in losses)
+        + f"; ms per step {statistics.median(step_ms):.1f} (all "
+        + " ".join(f"{v:.1f}" for v in step_ms) + f"; the first value_and_grad {first_ms:.1f}) "
+        f"[{card}]")
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    ste_on_card(qat_g, train, {**feeds, "data": r50_state["requests"][1]}, STE_LAYER, card)
+
+    t0 = time.perf_counter()
+    qg = qat_finalize(float_g, train, [x])
+    t1 = time.perf_counter()
+    fused = fuse_qnn(qg)
+    say(f"qat_finalize {t1 - t0:.2f} s (host, the card's stepped weights read back, numpy "
+        f"calibration), fuse {time.perf_counter() - t1:.2f} s")
+    ops = Counter(n.op for n in fused.nodes)
+    assert {k: ops[k] for k in ONNX_R50_OPS} == ONNX_R50_OPS, ops
+    names = computational_nodes(fused)
+    ex = TorchExecutor(fused, capture=names, device="cuda")
+    requests = r50_state["requests"]
+    _, _, errs = counted_forward(ex, requests[0], RUN_KERNELS, "the finalized model's first forward")
+    lat, first_out, launches = timed_requests(ex, requests, RUN_KERNELS,
+                                              "the finalized model's requests")
+    plain = TorchExecutor(fused, capture=names, device="cpu").run(requests[0])
+    n_int = hold_against_plain(names, first_out, plain, fused, SOFTMAX_RTOL, SOFTMAX_ATOL)
+    say(f"finalized int8 ResNet-50: {n_int} integer nodes == the CPU path")
+    say_latency(lat, BATCH)
+    return launches, errs
+
+
+def runtime_path(card: str, r50_state: dict) -> tuple[dict, dict]:
+    """Phase 24: the dynamic head, control flow, the dyn.* ops and QAT."""
+    launches, errs = {}, {}
+
+    def merge(part):
+        for name, n in part[0].items():
+            launches[name] = launches.get(name, 0) + n
+        for name, e in part[1].items():
+            errs[name] = max(errs.get(name, 0), e)
+
+    merge(dyn_head_path(card, r50_state))
+    merge(control_path(card, r50_state))
+    dyn_ops_on_card(card)
+    merge(qat_path(card, r50_state))
+    return launches, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4025,6 +4616,12 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), e)
     merge({}, exec_launches)
     say(f"\nphase 23 seconds {time.perf_counter() - t23:.1f} (host clock) [{card}]")
+    t24 = time.perf_counter()
+    runtime_launches, runtime_errs = runtime_path(card, r50_state)
+    for name, e in runtime_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    merge({}, runtime_launches)
+    say(f"\nphase 24 seconds {time.perf_counter() - t24:.1f} (host clock) [{card}]")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

@@ -13,7 +13,9 @@ Subpackages:
               kernels' wrappers and their plain PyTorch versions
   quantize  — calibration + float->integer graph rewriting
   runtime   — numpy interpreter, operator fusion, torch executor, the
-              segmented, bucketed and placed executors, the profiler
+              segmented, bucketed and placed executors, the profiler,
+              dispatch-time specialization of dyn.* graphs (dynshape.py)
+              and gradients through torch autograd (autodiff.py)
   models    — built-in model zoo (the JAX package's fourteen vision
               builders, bert, gpt2, vit) and KV-cache decoding
               (models/decoding.py)
@@ -26,6 +28,8 @@ from .ir.infer import infer_types
 
 # Register the op vocabulary on import.
 from .ops import attention as _ops_attention  # noqa: F401
+from .ops import control as _ops_control  # noqa: F401
+from .ops import dyn as _ops_dyn  # noqa: F401
 from .ops import extra as _ops_extra  # noqa: F401
 from .ops import nn as _ops_nn  # noqa: F401
 from .ops import qnn as _ops_qnn  # noqa: F401

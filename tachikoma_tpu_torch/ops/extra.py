@@ -8,9 +8,13 @@ Each op has the JAX package's relation and numpy oracle, copied, and a torch
 impl that computes the oracle's values on any device:
 - the unary functions cast to float32 and back, as the oracle does;
 - `cumsum` accumulates int8 to int32 inputs in int32 (wrapping as numpy's);
-- `topk` is a stable sort of `-a`, so ties go to the lowest index and
-  `-a` wraps at an integer minimum (int8 -128 sorts first), as the
-  oracle's argsort does; torch.topk's tie order is unspecified on CUDA;
+- `topk` is a stable ascending sort of a sort key that reverses the order
+  of the values: `-a` for floats (exact, so float results are the oracle's
+  bit for bit), `~a` for integers and bools (`-a - 1`, which never wraps).
+  Ties go to the lowest index, as in `lax.top_k` and the oracle.  The
+  oracle negates integers in their own dtype, so int8 -128 (and every
+  nonzero uint8) sorts wrongly there; the port follows `lax.top_k`
+  (ROADMAP Queue 3).  torch.topk's tie order is unspecified on CUDA;
 - `nn.lrn` sums the window's squares one shifted slice at a time, in the
   oracle's order, and `nn.instance_norm` runs the oracle's float32 sequence.
 """
@@ -251,21 +255,30 @@ def _topk_out(vals, idx, node: Node):
 def _topk_np(a, *, node: Node):
     k = int(node.attrs["k"])
     axis = int(node.attrs.get("axis", -1)) % a.ndim
-    idx = np.argsort(-np.moveaxis(a, axis, -1), axis=-1, kind="stable")[..., :k]
-    vals = np.take_along_axis(np.moveaxis(a, axis, -1), idx, axis=-1)
+    moved = np.moveaxis(a, axis, -1)
+    idx = np.argsort(_descending_key(moved), axis=-1, kind="stable")[..., :k]
+    vals = np.take_along_axis(moved, idx, axis=-1)
     vals = np.moveaxis(vals, -1, axis)
     idx = np.moveaxis(idx, -1, axis).astype(node.attrs.get("dtype", "int32"))
     return _topk_out(vals, idx, node)
 
 
+def _descending_key(a):
+    """A key whose ascending order is `a`'s descending order: -a for floats,
+    ~a (= -a - 1, no wrap at the dtype's minimum) for integers and bools."""
+    if isinstance(a, torch.Tensor):
+        return torch.neg(a) if a.dtype.is_floating_point else torch.bitwise_not(a)
+    return -a if a.dtype.kind in "fc" else np.invert(a)
+
+
 @torch_impl("topk")
 def _topk_torch(a: torch.Tensor, *, node: Node):
-    """A stable ascending sort of -a (negation wraps in the input's dtype,
-    as numpy's does), its first k indices, the values gathered from a."""
+    """A stable ascending sort of the descending key, its first k indices,
+    the values gathered from a."""
     k = int(node.attrs["k"])
     axis = int(node.attrs.get("axis", -1)) % a.ndim
     moved = a.movedim(axis, -1)
-    _, order = torch.sort(torch.neg(moved), dim=-1, stable=True)
+    _, order = torch.sort(_descending_key(moved), dim=-1, stable=True)
     idx = order[..., :k]
     vals = torch.gather(moved, -1, idx).movedim(-1, axis)
     idx = idx.movedim(-1, axis).to(torch_dtype(node.attrs.get("dtype", "int32")))

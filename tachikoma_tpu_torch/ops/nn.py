@@ -28,6 +28,7 @@ of at most 16 bits) sums exactly through float64, as K1's plain version does.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 from typing import Sequence
 
@@ -58,6 +59,28 @@ def float32_products():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# The device of the graph walk in progress, for the ops that have no tensor
+# input to take it from (`full`, `ones`, `zeros`); the torch executor and the
+# control-flow ops' subgraph runner set it around each walk.
+_RUN_DEVICE: contextvars.ContextVar = contextvars.ContextVar("run_device", default=None)
+
+
+@contextlib.contextmanager
+def walking_on(device):
+    """Mark `device` as the device of the graph walk inside."""
+    token = _RUN_DEVICE.set(torch.device(device))
+    try:
+        yield
+    finally:
+        _RUN_DEVICE.reset(token)
+
+
+def walk_device() -> torch.device:
+    """The device of the graph walk in progress (the CPU outside one)."""
+    dev = _RUN_DEVICE.get()
+    return torch.device("cpu") if dev is None else dev
 
 
 def broadcast_shapes(a: Sequence[int], b: Sequence[int]) -> tuple[int, ...]:

@@ -28,6 +28,12 @@ equal the oracle's bit for bit on any device.
                      Q15 exp table) where it selects, divide with integer
                      floor division where it divides in float32, and multiply
                      in int64 where it emulates 64 bits in u32.
+  * qnn.simulated_quantize / qnn.simulated_dequantize — the fake-quant
+                     pair of quantization-aware training (quantize/qat.py):
+                     float in, float out, the oracle's values; the quantize
+                     is a torch.autograd.Function whose gradient is the JAX
+                     impl's straight-through estimator (1/scale inside the
+                     representable range, 0 where the clip saturates).
 """
 
 from __future__ import annotations
@@ -857,3 +863,80 @@ def _qln_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
     out = (prod >> total_right) + bias
     odt = a.get("out_dtype", "int8")
     return out.clamp(dt.qmin(odt), dt.qmax(odt)).to(torch_dtype(odt))
+
+
+
+# -- simulated (fake) quantization for QAT -----------------------------------
+# The reference's qnn.simulated_quantize / simulated_dequantize: float-in,
+# float-out ops that mimic quantize (round + zp + clip) and dequantize, so
+# that a float model trains THROUGH the quantization nonlinearity.
+
+def _sim_scale_zp(node: Node, ndim: int):
+    scale = np.asarray(node.attrs["scale"], np.float32)
+    zp = np.asarray(node.attrs.get("zero_point", 0), np.int32)
+    if scale.ndim > 0:
+        axis = int(node.attrs.get("axis", -1))
+        shape = [1] * ndim
+        shape[axis] = -1
+        scale = scale.reshape(shape)
+        zp = zp.reshape(shape) if zp.ndim > 0 else zp
+    return scale, zp
+
+
+@infer_rule("qnn.simulated_quantize")
+def _simq_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
+    (a, _) = ins[0]
+    return tuple(a), "float32"
+
+
+@np_impl("qnn.simulated_quantize")
+def _simq_np(x: np.ndarray, *, node: Node) -> np.ndarray:
+    scale, zp = _sim_scale_zp(node, x.ndim)
+    odt = node.attrs.get("out_dtype", "int8")
+    q = np.rint(x.astype(np.float32) / scale) + zp
+    return np.clip(q, dt.qmin(odt), dt.qmax(odt)).astype(np.float32)
+
+
+class _SimulatedQuantize(torch.autograd.Function):
+    """clip(round(x / scale) + zp, lo, hi) in float32; backward: the
+    straight-through estimator, grad / scale where lo <= round(x / scale) +
+    zp <= hi before the clip, 0 where the clip saturates."""
+
+    @staticmethod
+    def forward(ctx, x, scale, zp, lo, hi):
+        q = torch.round(x / scale) + zp
+        ctx.save_for_backward((q >= lo) & (q <= hi), scale)
+        return q.clamp(lo, hi)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inside, scale = ctx.saved_tensors
+        return torch.where(inside, grad / scale, torch.zeros_like(grad)), None, None, None, None
+
+
+@torch_impl("qnn.simulated_quantize")
+def _simq_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    scale, zp = _qparams_torch(node, x)
+    odt = node.attrs.get("out_dtype", "int8")
+    return _SimulatedQuantize.apply(x.to(torch.float32), scale, zp.to(torch.float32),
+                                    float(dt.qmin(odt)), float(dt.qmax(odt)))
+
+
+@infer_rule("qnn.simulated_dequantize")
+def _simdq_rel(node: Node, ins: Sequence[TensorType]) -> TensorType:
+    (a, _) = ins[0]
+    return tuple(a), "float32"
+
+
+@np_impl("qnn.simulated_dequantize")
+def _simdq_np(x: np.ndarray, *, node: Node) -> np.ndarray:
+    scale, zp = _sim_scale_zp(node, x.ndim)
+    return ((x.astype(np.float32) - zp) * scale).astype(np.float32)
+
+
+@torch_impl("qnn.simulated_dequantize")
+def _simdq_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """(x - zp) is an exact integer in float32; one float32 product by the
+    scale then rounds as the oracle's float64 product rounded to float32."""
+    scale, zp = _qparams_torch(node, x)
+    return (x.to(torch.float32) - zp.to(torch.float32)) * scale

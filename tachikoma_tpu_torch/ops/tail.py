@@ -1,10 +1,12 @@
 """Ops of the JAX package's operator long tail (port of part of
 `tachikoma_tpu/ops/tail.py`): the two the vision zoo needs, `nn.conv3d`
 (the 3D ResNet's float convolutions, NDHWC data, DHWIO weights) and
-`vision.non_max_suppression` (SSD-lite's per-image greedy NMS), and the five
+`vision.non_max_suppression` (SSD-lite's per-image greedy NMS), the five
 the ONNX importer emits: `scatter_elements`, `scatter_nd`, `gather_nd`,
-`einsum` and `trilu`.  The rest of that file waits for ROADMAP Queue 1 item
-9.4.
+`einsum` and `trilu`, and the static twins that the `dyn.*` folds emit
+(ops/dyn.py): `full`, `ones`, `zeros`, `sparse_to_dense`, with `shape_of`,
+where a shape-feeding subgraph starts.  The rest of that file waits for
+ROADMAP Queue 1 item 9.4.
 
 None has a Pallas kernel in the JAX package (XLA's conv, scatter, gather and
 dot, and a `lax.fori_loop`), so their torch impls are a library call or
@@ -17,7 +19,12 @@ plain torch:
   step an iteration, with one host read of a flag every few steps and none
   per box;
 - an integer einsum is a broadcast product summed in int64 (CUDA has no
-  integer matmul), a float one torch.einsum in float32.
+  integer matmul), a float one torch.einsum in float32;
+- `full` / `ones` / `zeros` have no tensor input and make their output on
+  the device of the graph walk (ops/nn.py `walk_device`);
+- `sparse_to_dense` writes each index's value with the oracle's last write
+  winning among repeated indices, chosen by a scatter of positions (amax),
+  so that no host read and no nondeterministic scatter is needed.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from ..ir.graph import Node
 from ..ir.registry import infer_rule, np_impl, register_op, torch_impl
 from ..utils import dtypes as dt
 from .fixed_point import torch_dtype
-from .nn import _float_only, _to_out_dtype, float32_products, index_in_range
+from .nn import _float_only, _to_out_dtype, float32_products, index_in_range, walk_device
 
 
 # ---------------------------------------------------------------------------
@@ -470,3 +477,99 @@ def _trilu_np(a, *, node: Node):
 def _trilu_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
     k = int(node.attrs.get("k", 0))
     return torch.triu(a, k) if node.attrs.get("upper", True) else torch.tril(a, k)
+
+
+# ---------------------------------------------------------------------------
+# creation ops, sparse_to_dense and shape_of: the static twins of the dyn.*
+# folds (ops/dyn.py) and where a shape-feeding subgraph starts
+# ---------------------------------------------------------------------------
+
+def _creation(name, fill):
+    def rel(node, ins):
+        return tuple(node.attrs["shape"]), node.attrs.get("dtype", "float32")
+
+    def fill_value(node):
+        return node.attrs.get("fill_value", fill) if fill is None else fill
+
+    def np_i(*args, node):
+        return np.full(tuple(node.attrs["shape"]), fill_value(node),
+                       node.attrs.get("dtype", "float32"))
+
+    def torch_i(*args, node):
+        dtype = node.attrs.get("dtype", "float32")
+        # the fill converted to the dtype as numpy converts it (a float fill
+        # of an integer tensor truncates)
+        value = np.full((), fill_value(node), dtype).item()
+        return torch.full(tuple(node.attrs["shape"]), value, dtype=torch_dtype(dtype),
+                          device=walk_device())
+
+    register_op(name, infer=rel, np_impl=np_i, torch_impl=torch_i)
+
+
+_creation("zeros", 0)
+_creation("ones", 1)
+_creation("full", None)
+
+
+@infer_rule("sparse_to_dense")
+def _std_rel(node: Node, ins):
+    return tuple(node.attrs["output_shape"]), ins[1][1]
+
+
+def _std_index(indices):
+    """The oracle's (n, c) index rows: one row per sparse entry, c leading
+    dimensions of the output (a row shorter than the output's rank sets
+    a slice)."""
+    return indices.reshape(-1, indices.shape[-1]) if indices.ndim > 1 else indices.reshape(-1, 1)
+
+
+@np_impl("sparse_to_dense")
+def _std_np(indices, values, default, *, node: Node):
+    shape = tuple(node.attrs["output_shape"])
+    out = np.full(shape, default if np.ndim(default) == 0 else default.item(),
+                  values.dtype)
+    idx = _std_index(indices)
+    for i, ix in enumerate(map(tuple, idx.astype(np.int64))):
+        out[ix] = values.reshape(-1)[i] if values.ndim else values
+    return out
+
+
+@torch_impl("sparse_to_dense")
+def _std_torch(indices: torch.Tensor, values: torch.Tensor, default: torch.Tensor, *,
+               node: Node) -> torch.Tensor:
+    """Row r of the output's leading c dimensions takes the value of the
+    last sparse entry that names it, as the oracle's loop leaves it; the
+    others keep the default."""
+    shape = tuple(node.attrs["output_shape"])
+    idx = _std_index(indices).to(torch.int64)
+    n, c = idx.shape
+    lead = shape[:c]
+    rows = int(np.prod(lead, dtype=np.int64))
+    dims = torch.tensor(lead, dtype=torch.int64, device=idx.device)
+    idx = torch.where(idx < 0, idx + dims, idx)  # numpy's negative indices
+    lin = torch.zeros(n, dtype=torch.int64, device=idx.device)
+    for j in range(c):
+        lin = lin * lead[j] + idx[:, j]
+    pos = torch.full((rows,), -1, dtype=torch.int64, device=idx.device)
+    pos = pos.scatter_reduce(0, lin, torch.arange(n, device=idx.device), "amax")
+    vals = values.reshape(-1) if values.ndim else values.reshape(1).expand(n)
+    base = default.reshape(()).to(values.dtype).expand(
+        rows, int(np.prod(shape[c:], dtype=np.int64)))
+    picked = vals[pos.clamp(min=0)].unsqueeze(-1)
+    return torch.where((pos >= 0).unsqueeze(-1), picked, base).reshape(shape)
+
+
+@infer_rule("shape_of")
+def _shapeof_rel(node: Node, ins):
+    return (len(ins[0][0]),), node.attrs.get("dtype", "int32")
+
+
+@np_impl("shape_of")
+def _shapeof_np(a, *, node: Node):
+    return np.asarray(a.shape, node.attrs.get("dtype", "int32"))
+
+
+@torch_impl("shape_of")
+def _shapeof_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return torch.tensor(tuple(a.shape), dtype=torch_dtype(node.attrs.get("dtype", "int32")),
+                        device=a.device)

@@ -11,6 +11,11 @@ the window's indices are computed on the start tensors' device and the
 values moved with `index_select` / `index_put_`, so a step holds no
 device-to-host read and can be captured in a CUDA graph.  The update is
 functional: it returns a new tensor.
+
+Also `nn.cross_entropy_with_logits`, the loss of quantization-aware training
+(quantize/qat.py): its prediction is already log-probabilities (a
+`nn.log_softmax`), its target one-hot or soft labels, the loss -sum(target *
+pred) / batch in float32.
 """
 
 from __future__ import annotations
@@ -130,3 +135,23 @@ def _trunc_mod_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.T
 
 
 register_op("trunc_mod", infer=_bin_rel, np_impl=_trunc_mod_np, torch_impl=_trunc_mod_torch)
+
+
+
+# ---------------------------------------------------------------------------
+# nn.cross_entropy_with_logits (pred already log-probabilities)
+# ---------------------------------------------------------------------------
+
+@infer_rule("nn.cross_entropy_with_logits")
+def _cewl_rel(node: Node, ins):
+    return (), "float32"
+
+
+@np_impl("nn.cross_entropy_with_logits")
+def _cewl_np(pred, target, *, node: Node):
+    return np.float32(-np.sum(target * pred) / pred.shape[0])
+
+
+@torch_impl("nn.cross_entropy_with_logits")
+def _cewl_torch(pred: torch.Tensor, target: torch.Tensor, *, node: Node) -> torch.Tensor:
+    return (-torch.sum(target * pred) / pred.shape[0]).to(torch.float32)

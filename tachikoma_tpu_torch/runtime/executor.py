@@ -19,6 +19,7 @@ from ..ir.graph import CONST, TUPLE, TUPLE_GET_ITEM, VAR, Graph
 from ..ir.infer import infer_types
 from ..ir.registry import get_op
 from ..ops.fixed_point import torch_dtype
+from ..ops.nn import walking_on
 from ..utils import dtypes as dt
 
 
@@ -32,6 +33,7 @@ class TorchExecutor:
         capture: Sequence[str] | None = None,
         device="cuda",
         fuse: bool = False,
+        params: Mapping[str, torch.Tensor] | None = None,
     ):
         self.device = resolve_device(device, "TorchExecutor")
         g = graph
@@ -45,17 +47,38 @@ class TorchExecutor:
         self.graph = g
         self.capture = list(capture) if capture is not None else list(g.outputs)
         self._var_names = [n.name for n in g.inputs]
-        self._params = {k: torch.from_numpy(np.array(dt.c_contig(v))).to(self.device)
+        # `params`: tensors on the device already, shared with other
+        # executors of graphs with the same parameters (runtime/dynshape.py)
+        shared = params or {}
+        self._params = {k: shared[k] if k in shared else to_device(v, self.device)
                         for k, v in g.params.items()}
 
     def run(self, inputs) -> list[np.ndarray]:
         return [o.cpu().numpy() for o in self.run_device(inputs)]
 
-    def run_device(self, inputs) -> list[torch.Tensor]:
-        """Run and return tensors on the device (no host transfer)."""
-        env: dict[str, Any] = {}
+    def run_device(self, inputs, params: Mapping[str, torch.Tensor] | None = None
+                   ) -> list[torch.Tensor]:
+        """Run and return tensors on the device (no host transfer); `params`
+        replaces the executor's parameters of those names for this run (a
+        functional run: runtime/autodiff.py differentiates through it)."""
         feeds = self._normalize(inputs)
-        for node in self.graph.nodes:
+        consts = self._params if not params else {**self._params, **params}
+        env = walk(self.graph, feeds, consts, self.device)
+        return [env[name] for name in self.capture]
+
+    def _normalize(self, inputs) -> dict[str, torch.Tensor]:
+        return graph_feeds(self.graph, self._var_names, inputs, self.device)
+
+
+def walk(graph: Graph, feeds: Mapping[str, Any], consts: Mapping[str, torch.Tensor],
+         device: torch.device) -> dict[str, Any]:
+    """Every node's value: `graph` walked in topological order on `device`,
+    its inputs from `feeds` (shapes checked), its constants from `consts`,
+    each op by its torch impl.  The executor's run and a control-flow
+    subgraph's (ops/control.py) both walk here."""
+    env: dict[str, Any] = {}
+    with walking_on(device):
+        for node in graph.nodes:
             if node.op == VAR:
                 v = feeds[node.name]
                 if node.shape is not None and tuple(v.shape) != tuple(node.shape):
@@ -63,7 +86,7 @@ class TorchExecutor:
                                      f"got {tuple(v.shape)}")
                 env[node.name] = v
             elif node.op == CONST:
-                env[node.name] = self._params[node.name]
+                env[node.name] = consts[node.name]
             elif node.op == TUPLE:
                 env[node.name] = [env[i] for i in node.inputs]
             elif node.op == TUPLE_GET_ITEM:
@@ -71,10 +94,12 @@ class TorchExecutor:
             else:
                 impl = get_op(node.op).torch_impl
                 env[node.name] = impl(*[env[i] for i in node.inputs], node=node)
-        return [env[name] for name in self.capture]
+    return env
 
-    def _normalize(self, inputs) -> dict[str, torch.Tensor]:
-        return graph_feeds(self.graph, self._var_names, inputs, self.device)
+
+def to_device(v: np.ndarray, device) -> torch.Tensor:
+    """A graph constant as a tensor on `device`."""
+    return torch.from_numpy(np.array(dt.c_contig(v))).to(device)
 
 
 def resolve_device(device, who: str) -> torch.device:

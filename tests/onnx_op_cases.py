@@ -9,7 +9,9 @@ from the oracle's.
 
 A case is (id, op, inputs, attrs, tol, jax, n_out, graph): `tol` is EXACT
 (==) or the float tolerance against the numpy oracle; `jax` False where the
-JAX package's jax impl departs from its oracle on the case; `n_out` the
+JAX package's jax impl departs from its oracle on the case, JAX_IMPL where
+the port follows the jax impl there instead (the oracle's integer `topk`
+wraps: ROADMAP Queue 3); `n_out` the
 op's outputs; `graph` False where the JAX package's relation and oracle
 part (its interpreter refuses the graph), so the impls are called on the
 arrays."""
@@ -17,6 +19,7 @@ arrays."""
 import numpy as np
 
 EXACT = True
+JAX_IMPL = "jax_impl"  # the answer is the JAX package's jax impl, not its oracle
 ELEM = 1e-6    # elementwise float32 functions: torch's and numpy's may differ by an ulp
 SUMS = 1e-5    # reductions, norms, products: another summation order
 
@@ -203,11 +206,13 @@ CASES = [
     case("topk_both", "topk", [floats(3, 10)], dict(k=3, axis=-1, ret_type="both"), n_out=2),
     case("topk_ties_lowest_index_first", "topk", [TOPK_TIES],
          dict(k=5, axis=-1, ret_type="both", dtype="int64"), n_out=2),
+    # the oracle's -a wraps at -128, which it sorts first; the port and
+    # lax.top_k put 127 first
     case("topk_int8_min_wraps_first", "topk", [TOPK_INT8],
-         dict(k=4, axis=-1, ret_type="both"), jax=False, n_out=2),
+         dict(k=4, axis=-1, ret_type="both"), jax=JAX_IMPL, n_out=2),
     case("topk_axis0_values", "topk", [floats(6, 3)], dict(k=2, axis=0, ret_type="values")),
     case("topk_indices", "topk", [ints(2, 9)], dict(k=9, ret_type="indices", dtype="int64"),
-         jax=False),
+         jax=JAX_IMPL),
     # -- ops/tail.py ----------------------------------------------------------------
     case("einsum_int8_matmul", "einsum", [ints(3, 4, lo=-10, hi=10), ints(4, 5, seed=1, lo=-10,
                                                                         hi=10)],

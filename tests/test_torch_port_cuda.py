@@ -2459,3 +2459,177 @@ def test_placement_cuda_and_cpu_equals_one_device(cuda):
     assert hx.transfers == 1 and [d for d, _ in hx.segments] == [1, 0]
     for a, b in zip(got, TorchExecutor(q, device="cuda").run(x)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# dynamic shapes, control flow and quantization-aware training on the card
+# ---------------------------------------------------------------------------
+
+from runtime_cases import CASES as DYN_CASES  # noqa: E402  (tests/, no jax)
+from runtime_cases import (cond_heads, one_hot_labels, while_blocks,  # noqa: E402
+                           with_cross_entropy, with_topk_head)
+
+
+def _same_as_cpu(got, want, what, float_tol=(1e-5, 1e-8)):
+    assert len(got) == len(want), what
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, *float_tol, err_msg=what)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=what)
+
+
+@pytest.fixture(scope="module")
+def r18_topk_head():
+    from tachikoma_tpu_torch.ir.graph import Graph, Node
+
+    rng = np.random.default_rng(0)
+    q = quantize(resnet(18, batch_size=2, image_size=32, seed=0),
+                 [rng.standard_normal((2, 32, 32, 3)).astype(np.float32)])
+    return fuse_qnn(with_topk_head(q, Node, Graph)), rng.standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_dynamic_head_on_card_equals_cpu(cuda, r18_topk_head):
+    """A dyn.topk head on fused int8 ResNet-18's logits: k = 1, 5, 10, 5 make
+    three specializations and a hit; K1-K3 launch; every output == the CPU
+    path's; the hit packs no weight and builds nothing."""
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8
+    from tachikoma_tpu_torch.runtime.dynshape import DynShapeExecutor
+
+    fused, x = r18_topk_head
+    ex, cpu = DynShapeExecutor(fused, device="cuda"), DynShapeExecutor(fused, device="cpu")
+    names = ("qgemm_rq", "qconv_rq", "qconv_rq_res")
+    for name in names:
+        _lib.LAUNCHES[name] = 0
+    for i, k in enumerate((1, 5, 10, 5)):
+        if i == 3:
+            packed, built = len(matmul_int8._KMAJOR), len(ex.miss_seconds)
+        feeds = {"data": x, "k": np.array([k], np.int32)}
+        got = ex.run(feeds)
+        _same_as_cpu(got, cpu.run(feeds), f"k={k}")
+        assert got[1].shape == (2, k)
+    assert (ex.misses, ex.hits) == (3, 1)
+    assert len(matmul_int8._KMAJOR) == packed and len(ex.miss_seconds) == built
+    assert all(_lib.LAUNCHES[name] > 0 for name in names)
+    assert all(e._params is not ex._params and
+               all(e._params[k] is ex._params[k] for k in ex._params)
+               for e in ex._cache.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["cond", "while"])
+def test_control_flow_on_card_equals_cpu_with_k4_plain(cuda, which, monkeypatch):
+    """tk.cond between two int8 heads and tk.while_loop over an int8 block:
+    == the CPU path on both flags and n = 0, 1, 4; every K4 call a branch or
+    a body makes == its plain version; one host read per cond, n + 1 per
+    loop; a branch's weight packed once over the calls."""
+    from tachikoma_tpu_torch import Graph, GraphBuilder, infer_types
+    from tachikoma_tpu_torch.ops import control
+    from tachikoma_tpu_torch.ops.kernels import matmul_int8
+
+    pkg = (GraphBuilder, Graph, infer_types)
+    rng = np.random.default_rng(4)
+    x = _i8(rng, (4, 64))
+    if which == "cond":
+        g = cond_heads(*pkg, batch=4, features=64, classes=40)
+        runs = [({"flag": np.asarray(f), "features": x}, 1) for f in (True, False, True)]
+    else:
+        g = while_blocks(*pkg, batch=4, features=64)
+        runs = [({"i0": np.int32(0), "n": np.int32(n), "features": x}, n + 1) for n in (0, 1, 4)]
+    held = []
+    real = matmul_int8.qgemm_raw
+
+    def checked(*a, **k):
+        out = real(*a, **k)
+        assert torch.equal(out, matmul_int8.qgemm_raw_plain(*a, **k))
+        held.append(out.shape)
+        return out
+
+    monkeypatch.setattr(matmul_int8, "qgemm_raw", checked)
+    ex, cpu = TorchExecutor(g, device="cuda"), TorchExecutor(g, device="cpu")
+    packed = []
+    for _ in range(2):  # the second pass packs nothing
+        for feeds, reads in runs:
+            control.HOST_READS.clear()
+            got = ex.run(feeds)
+            assert sum(control.HOST_READS.values()) == reads
+            _same_as_cpu(got, cpu.run(feeds), str(feeds.get("flag", feeds.get("n"))))
+        packed.append(len(matmul_int8._KMAJOR))
+    assert held and packed[0] == packed[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cid,build,feeds", DYN_CASES, ids=[c[0] for c in DYN_CASES])
+def test_dyn_op_on_card_equals_cpu(cuda, cid, build, feeds):
+    from tachikoma_tpu_torch import GraphBuilder
+    from tachikoma_tpu_torch.runtime.dynshape import DynShapeExecutor
+
+    g = build(GraphBuilder)
+    _same_as_cpu(DynShapeExecutor(g, device="cuda").run(dict(feeds)),
+                 DynShapeExecutor(g, device="cpu").run(dict(feeds)), cid, float_tol=(0, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attrs", [dict(scale=0.1, zero_point=0, out_dtype="int8"),
+                                   dict(scale=[0.02, 0.2, 1.0], zero_point=[0, 5, -7],
+                                        out_dtype="int8", axis=0)], ids=["tensor", "axis"])
+def test_simulated_quantize_on_card_equals_cpu(cuda, attrs):
+    """The fake-quant pair's values == the CPU's, and its straight-through
+    gradient (1/scale inside, 0 where the clip saturates) == the CPU's."""
+    from tachikoma_tpu_torch.ir.graph import Node
+    from tachikoma_tpu_torch.ir.registry import get_op
+
+    dq_attrs = {k: v for k, v in attrs.items() if k != "out_dtype"}
+    sq = Node("s", "qnn.simulated_quantize", ("x",), attrs)
+    dq = Node("d", "qnn.simulated_dequantize", ("s",), dq_attrs)
+    x = np.random.default_rng(5).standard_normal((3, 6)).astype(np.float32) * 40
+    outs, grads = [], []
+    for dev in ("cuda", "cpu"):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        q = get_op("qnn.simulated_quantize").torch_impl(xt, node=sq)
+        out = get_op("qnn.simulated_dequantize").torch_impl(q, node=dq)
+        out.sum().backward()
+        outs.append((q.detach().cpu().numpy(), out.detach().cpu().numpy()))
+        grads.append(xt.grad.cpu().numpy())
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(grads[0], grads[1])
+    assert (grads[0] == 0).any() and (grads[0] != 0).any()
+
+
+@pytest.mark.cuda
+def test_gradients_on_card_match_cpu_and_remat(cuda):
+    """ResNet-18 b2 32² with a cross-entropy loss: value_and_grad_fn on the
+    card gives the CPU's loss within 1e-4 and each gradient within 1e-3
+    norm-wise (cuDNN's fp32 sums in another order).  With fake-quant pairs
+    (qat_prepare) a rounding tipped by such a sum moves an activation by a
+    quantum, so there the card is held against itself: remat=True's loss
+    and gradients == remat=False's within 1e-5 norm-wise."""
+    from tachikoma_tpu_torch.ir.graph import Graph, Node
+    from tachikoma_tpu_torch.quantize.qat import qat_prepare
+    from tachikoma_tpu_torch.runtime.autodiff import value_and_grad_fn
+
+    rng = np.random.default_rng(6)
+    feeds = {"data": rng.standard_normal((2, 32, 32, 3)).astype(np.float32),
+             "labels": one_hot_labels(2, 1000)}
+    g = with_cross_entropy(resnet(18, batch_size=2, image_size=32, seed=0), Node, Graph)
+
+    def step(graph, device, remat=False):
+        fn, train, _ = value_and_grad_fn(graph, remat=remat, device=device)
+        loss, grads = fn(train, feeds)
+        return float(loss), {k: v.cpu().double() for k, v in grads.items()}
+
+    def normwise(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    (closs, cgrads), (loss, grads) = step(g, "cpu"), step(g, "cuda")
+    assert abs(loss - closs) <= 1e-4 * abs(closs)
+    worst = max((normwise(grads[k], cgrads[k]), k) for k in cgrads)
+    assert worst[0] <= 1e-3, worst
+    qat_g = qat_prepare(g, [feeds])
+    (loss, grads), (rloss, rgrads) = step(qat_g, "cuda"), step(qat_g, "cuda", remat=True)
+    worst = max((normwise(rgrads[k], grads[k]), k) for k in grads)
+    assert rloss == loss and worst[0] <= 1e-5, (rloss, loss, worst)

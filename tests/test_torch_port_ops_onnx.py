@@ -18,8 +18,10 @@ method, negative indices, scatters that write one place twice.
 
 Where the jax impl departs from the oracle (the oracle is the rule the port
 follows), the case says so and the jax impl is not compared: XLA's integer
-division by zero, lax.top_k on an int8 -128 (it does not negate), jnp's
-take_along_axis and scatter of a doubly wrapped index."""
+division by zero, jnp's take_along_axis and scatter of a doubly wrapped
+index.  The one exception is an integer topk: the oracle sorts -a in the
+input's dtype, which wraps at -128, and the port follows lax.top_k there
+(ROADMAP Queue 3), so those cases are held to the jax impl."""
 
 import numpy as np
 import pytest
@@ -36,7 +38,7 @@ from tachikoma_tpu_torch.ir.graph import Node
 from tachikoma_tpu_torch.ir.registry import get_op
 from tachikoma_tpu_torch.runtime.executor import TorchExecutor
 
-from onnx_op_cases import CASES, EXACT, SPECIAL, TOPK_TIES, floats, ints
+from onnx_op_cases import CASES, EXACT, JAX_IMPL, SPECIAL, TOPK_TIES, floats, ints
 
 OP_CASES = [pytest.param(*c[1:], id=c[0]) for c in CASES]
 
@@ -87,6 +89,8 @@ def test_op_matches_reference_oracle_and_jax_impl(op, inputs, attrs, tol, jax, n
                         *map(torch.from_numpy, inputs), node=node))}
         if jax:
             outs["jax impl"] = _listed(j_get_op(op).jax_impl(*inputs, node=jnode))
+        if jax == JAX_IMPL:  # the oracle's answer is the recorded reference fault
+            wants = outs.pop("jax impl")
     for key, got in outs.items():
         assert len(got) == len(wants)
         for a, w in zip(got, wants):

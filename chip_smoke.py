@@ -27,7 +27,10 @@ flow and quantization-aware training (int8 ResNet-50 b8 with a per-request
 top-k head through the dispatch-time specializer on K1-K3; tk.cond and
 tk.while_loop over its pooled int8 features on K4; every dyn.* op; a
 fake-quant ResNet-50 b8 trained on the card through torch autograd and
-finalized to int8 on K1-K3).
+finalized to int8 on K1-K3), and the TensorFlow and Keras import path (a
+Keras-layout ResNet-50 b8 .pb read by the in-tree GraphDef codec, fused on
+K1 and K2, traced at b1 on K4, run through the CLI; the six ops the
+importer brought).
 
     python3 chip_smoke.py
 
@@ -363,7 +366,29 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      backward == the CPU's on identical inputs; qat_finalize from the
      card's stepped weights, fuse_qnn (14 / 1 / 4 / 1), every K1-K3 call of a forward ==
      plain, 20 requests counted, every integer node == the CPU path.  The
-     phase's host seconds are printed.
+     phase's host seconds are printed;
+ 25. the TensorFlow and Keras import path: (a) keras.applications.ResNet50's
+     frozen inference graph (Keras 3's layout: the stride on the 1x1 convs,
+     batch norm unfolded into Reshape / Rsqrt / Mul / Sub / AddV2) written at
+     b8 224^2 from the seed by models/keras_resnet.py to a .pb in a
+     temporary directory, its bytes and node histogram printed (held to
+     Keras's), read back by the port's codec (frontend/tf_proto.py: no
+     TensorFlow here), from_tf_graphdef, quantized on phase 3's calibration
+     batch and fused, the fused op counts printed beside native
+     ResNet-50's and why they differ (53 tk.conv2d_rq, no chain: each batch
+     norm stays a qnn.mul and a qnn.add, so K3 has no call), then every K1
+     and K2 call == plain and timed, 20 requests counted, every integer node
+     == the CPU path, the probabilities within FLOAT_RTOL / FLOAT_ATOL,
+     latency and busy share; (b) the same .pb at b1 (input_specs),
+     quantized and left unfused, traced on K4 as in phases 7-8, the records a
+     float source reaches (the float mean's quantize and what follows)
+     holding their integer tensors == and their float input within
+     FLOAT_RTOL / FLOAT_ATOL; (c) `tachikoma_tpu_torch.cli quantize` of the
+     .pb on 25a's calibration batch writes 25a's integer graph (equal
+     JSON), and `run` of it on the card gives 25a's output; (d) the six ops
+     the TensorFlow importer brought (rsqrt, floor_divide, floor_mod, all,
+     any, stack) on tests/tf_op_cases.py's cases on the card == their CPU
+     torch impls.  The phase's host seconds are printed.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -381,7 +406,7 @@ write, or two int8 products; its library call the float64 product) per
 W8A16 ResNet-50 b8 forward (phase 20c); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
 12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l, 20a-20e,
-21a, 21b, 22a-22d, 23a, 23b, 23d, 23e, 24a, 24b, 24d; K11
+21a, 21b, 22a-22d, 23a, 23b, 23d, 23e, 24a, 24b, 24d, 25a, 25b; K11
 and K12 in 16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
@@ -1054,13 +1079,17 @@ def float_product_cone(graph) -> set:
 
 
 def compare_traces(path: str, ref_path: str, cone: set = frozenset(),
-                   counts: dict | None = None) -> tuple[int, int]:
+                   counts: dict | None = None, sourced: set = frozenset()) -> tuple[int, int]:
     """Hold the trace at `path` record by record against `ref_path`: same
     header, names, op ids and attrs; integer records byte-equal, float
     records allclose at FLOAT_RTOL / FLOAT_ATOL, those of the nodes in `cone`
     (`float_product_cone`) at the float transformers' GRAPH_RTOL /
-    GRAPH_ATOL.  Returns (records, integer records); `counts` gets the
-    number of float records that are byte-equal all the same."""
+    GRAPH_ATOL.  An integer record of a node in `sourced` (the float source
+    set, `runtime/crosscheck.py float_source_set`: a qnn.quantize of a float
+    mean the card sums in another order) holds its integer tensors == and its
+    float input at FLOAT_RTOL / FLOAT_ATOL.  Returns (records, integer
+    records); `counts` gets the number of float records that are byte-equal
+    all the same."""
     from tachikoma_tpu_torch.trace.format import TraceReader, op_id
 
     with open(path, "rb") as f, open(ref_path, "rb") as g:
@@ -1071,7 +1100,18 @@ def compare_traces(path: str, ref_path: str, cone: set = frozenset(),
         assert (a.node_id, a.name, a.op_name, a.attrs) == (b.node_id, b.name, b.op_name, b.attrs)
         assert op_id(a.op_name) == op_id(b.op_name)
         if a.output.to_array().dtype.kind in "iu":
-            assert a.encode() == b.encode(), f"trace record {a.name} differs from the CPU's"
+            if a.name in sourced and a.encode() != b.encode():
+                for ta, tb in zip(a.tensors, b.tensors):
+                    assert ta.role == tb.role and ta.shape == tb.shape
+                    x, y = ta.to_array(), tb.to_array()
+                    if y.dtype.kind in "iub":
+                        assert x.dtype == y.dtype and (x == y).all(), \
+                            f"trace record {a.name} differs from the CPU's"
+                    else:
+                        np.testing.assert_allclose(x, y, rtol=FLOAT_RTOL, atol=FLOAT_ATOL,
+                                                   err_msg=a.name)
+            else:
+                assert a.encode() == b.encode(), f"trace record {a.name} differs from the CPU's"
             n_int += 1
             continue
         n_float_equal += a.encode() == b.encode()
@@ -1228,10 +1268,13 @@ def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
     and verified.  `make_input(rng)` makes the calibration batch and the
     input (an image by default), `config` is the QConfig (the default one by
     default); `prepared` = (integer graph, input) skips the build and the
-    quantize (an imported model).  Returns the kernels' per-forward totals
-    and their launches (the trace path's run)."""
+    quantize (an imported model).  The records a float source reaches are
+    held as compare_traces's `sourced` says (Keras's float mean).  Returns
+    the kernels' per-forward totals and their launches (the trace path's
+    run)."""
     from tachikoma_tpu_torch.ops.kernels import _lib
     from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.crosscheck import float_source_set
     from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
     from tachikoma_tpu_torch.trace.emitter import TraceEmitter, verify_trace
     from tachikoma_tpu_torch.trace.native import native_verify
@@ -1320,10 +1363,16 @@ def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
         t0 = time.perf_counter()
         TraceEmitter(q, backend="torch", device="cpu", meta=meta).emit_to(x, ref_path)
         t1 = time.perf_counter()
-        n, n_int = compare_traces(path, ref_path)
+        sourced = float_source_set(q)
+        n, n_int = compare_traces(path, ref_path, sourced=sourced)
+        reached = sorted(nm for nm in sourced if not q[nm].dtype.startswith("float"))
         say(f"CPU plain trace {t1 - t0:.2f} s; card trace == CPU trace: {n} records, "
-            f"{n_int} integer byte-equal, {n - n_int} float within rtol {FLOAT_RTOL} "
-            f"atol {FLOAT_ATOL} ({time.perf_counter() - t1:.2f} s)")
+            f"{n_int} integer byte-equal"
+            + (f" but those a float source reaches ({', '.join(reached)}: their integer "
+               f"tensors ==, float inputs within rtol {FLOAT_RTOL} atol {FLOAT_ATOL})"
+               if reached else "")
+            + f", {n - n_int} float within rtol {FLOAT_RTOL} atol {FLOAT_ATOL} "
+            f"({time.perf_counter() - t1:.2f} s)")
         assert native_verify(path) == n_records
         t0 = time.perf_counter()
         res = verify_trace(path, q)
@@ -2945,31 +2994,34 @@ def onnx_resnet_path(card: str) -> tuple[dict, dict]:
     return totals, launches
 
 
-def fused_resnet_run(label: str, model: str, fused, requests, card: str):
-    """Phases 21a and 22a on a ResNet-50 fused to native's form (asserted):
-    every K1/K2/K3 call of one forward == plain and timed, REQUESTS requests
-    through TorchExecutor(device='cuda') with the launches counted, every
-    integer node == the CPU path, the latency and the busy share.  Returns
-    the kernels' per-forward totals, their launches, the recorded calls,
-    and the first request's logits on the card and on the CPU path."""
+def fused_resnet_run(label: str, model: str, fused, requests, card: str,
+                     expected_ops: dict = ONNX_R50_OPS, kernels=RUN_KERNELS):
+    """Phases 21a, 22a and 25a on a fused ResNet-50 whose op counts are
+    `expected_ops` (native's form unless given; asserted): every call of the
+    `kernels` (K1/K2/K3 unless given) in one forward == plain and timed,
+    REQUESTS requests through TorchExecutor(device='cuda') with the launches
+    counted, every integer node == the CPU path, the latency and the busy
+    share.  Returns the kernels' per-forward totals, their launches, the
+    recorded calls, and the first request's output on the card and on the
+    CPU path."""
     from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
 
     ops = Counter(n.op for n in fused.nodes if n.op not in ("var", "const"))
     say("fused graph: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
-    assert {k: ops[k] for k in ONNX_R50_OPS} == ONNX_R50_OPS, ops
+    assert {k: ops[k] for k in expected_ops} == expected_ops, ops
     names = computational_nodes(fused)
     ex = TorchExecutor(fused, capture=names, device="cuda")
 
-    phase(f"{label} {model}: K1, K2 and K3 at the forward's calls: == plain, time, bound, "
-          f"library [{card}]")
+    phase(f"{label} {model}: {', '.join(kernels)} at the forward's calls: == plain, time, "
+          f"bound, library [{card}]")
     calls: list = []
     with recording(calls):
         ex.run_device(requests[0])
     torch.cuda.synchronize()
-    totals = check_kernels(calls, RUN_KERNELS, model)
+    totals = check_kernels(calls, kernels, model)
 
     phase(f"{label} {model}: {REQUESTS} requests through TorchExecutor(device='cuda') [{card}]")
-    lat, first_out, launches = timed_requests(ex, requests, RUN_KERNELS, f"the {model} path")
+    lat, first_out, launches = timed_requests(ex, requests, kernels, f"the {model} path")
     t0 = time.perf_counter()
     plain = TorchExecutor(fused, capture=names, device="cpu").run(requests[0])
     say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
@@ -2977,12 +3029,12 @@ def fused_resnet_run(label: str, model: str, fused, requests, card: str):
     out = names.index(fused.outputs[0])
     logits = first_out[out]
     assert logits.shape == (BATCH, 1000) and np.isfinite(logits).all()
-    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; logits "
-        f"{logits.shape} (max |logit| {np.abs(logits).max():.2f}), float nodes within rtol "
+    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; output "
+        f"{logits.shape} (max |value| {np.abs(logits).max():.4g}), float nodes within rtol "
         f"{FLOAT_RTOL} atol {FLOAT_ATOL}")
     med = say_latency(lat, BATCH)
     kernel_ms = sum(t["ms"] for t in totals.values())
-    say(f"{'+'.join(RUN_KERNELS)} device ms per forward {kernel_ms:.4f} of {med:.3f} ms end to "
+    say(f"{'+'.join(kernels)} device ms per forward {kernel_ms:.4f} of {med:.3f} ms end to "
         f"end [{card}]")
     profile_requests(ex, requests[:3], med)
     return totals, launches, calls, logits, plain[out]
@@ -4446,6 +4498,193 @@ def runtime_path(card: str, r50_state: dict) -> tuple[dict, dict]:
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# the TensorFlow and Keras import path (phase 25)
+# ---------------------------------------------------------------------------
+
+# the op histogram of keras.applications.ResNet50's frozen graph at b8 224^2
+# (tests/test_torch_port_tf.py holds models/keras_resnet.py to Keras's own)
+KERAS_R50_GRAPHDEF_OPS = {
+    "Placeholder": 1, "Const": 641, "Identity": 321, "Conv2D": 53, "BiasAdd": 54, "Reshape": 265,
+    "Squeeze": 53, "Rsqrt": 53, "Mul": 159, "Sub": 53, "AddV2": 122, "Relu": 49, "Pad": 2,
+    "MaxPool": 1, "Mean": 1, "MatMul": 1, "Softmax": 1, "NoOp": 1}
+# its fused int8 graph (the JAX package's fuse_qnn gives the same,
+# tests/test_torch_port_tf.py): every batch norm stays a qnn.mul and a qnn.add
+# between its conv and the ReLU, so no chain or block stack forms
+KERAS_R50_OPS = {"tk.conv2d_rq": 53, "tk.conv2d_chain": 0, "tk.conv2d_block_stack": 0,
+                 "tk.dense_rq": 1, "qnn.mul": 53, "qnn.add": 69}
+KERAS_RUN_KERNELS = ("qgemm_rq", "qconv_rq")
+
+
+def keras_resnet_path(card: str, tdir: str) -> tuple[dict, dict, dict]:
+    """Phase 25a: Keras's ResNet-50 b8 224^2 written as a frozen GraphDef
+    (models/keras_resnet.py, weights from SEED) to a .pb, read back with the
+    port's codec (no TensorFlow on this machine), imported, quantized on
+    phase 3's calibration batch and fused, then run by fused_resnet_run on
+    K1 and K2.  Returns the kernels' totals and launches, and the state 25b
+    and 25c read (the path, the calibration batch, the quantized graph, the
+    first request and its output on the card)."""
+    from tachikoma_tpu_torch.frontend import from_tf_graphdef
+    from tachikoma_tpu_torch.frontend.tf_proto import load_graph_def
+    from tachikoma_tpu_torch.models.keras_resnet import resnet50_keras
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    model = f"Keras ResNet-50 b{BATCH} {IMAGE}^2"
+    phase(f"25a. {model}: written by models/keras_resnet.py (seed {SEED}) to a .pb, read by "
+          f"frontend/tf_proto.py, from_tf_graphdef, quantize, fuse (host) [{card}]")
+    path = os.path.join(tdir, "keras_resnet50.pb")
+    t0 = time.perf_counter()
+    blob = resnet50_keras(BATCH, IMAGE, seed=SEED)
+    with open(path, "wb") as f:
+        f.write(blob)
+    t1 = time.perf_counter()
+    gd = load_graph_def(path)
+    t2 = time.perf_counter()
+    g = from_tf_graphdef(gd)
+    t3 = time.perf_counter()
+    hist = Counter(n.op for n in gd.node)
+    say(f"{path}: {len(blob)} bytes, {len(gd.node)} nodes: "
+        + ", ".join(f"{v} {k}" for k, v in sorted(hist.items())))
+    assert hist == KERAS_R50_GRAPHDEF_OPS, hist
+    imported = Counter(n.op for n in g.nodes)
+    say(f"write {t1 - t0:.2f} s, decode {t2 - t1:.2f} s, from_tf_graphdef {t3 - t2:.2f} s "
+        f"(host): " + ", ".join(f"{v} {k}" for k, v in sorted(imported.items())))
+    # phase 3's calibration batch, then the requests, from the seed
+    rng = np.random.default_rng(SEED)
+    calib = rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    q = quantize(g, [calib])
+    t1 = time.perf_counter()
+    fused = fuse_qnn(q)
+    say(f"simplify + calibrate + quantize {t1 - t0:.2f} s, fuse {time.perf_counter() - t1:.2f} s "
+        "(host)")
+    ops = Counter(n.op for n in fused.nodes)
+    say("fused op counts, this graph against native ResNet-50's (phase 3): "
+        + ", ".join(f"{k} {ops[k]} / {ONNX_R50_OPS.get(k, '-')}"
+                    for k in ("tk.conv2d_rq", "tk.conv2d_chain", "tk.conv2d_block_stack",
+                              "tk.dense_rq")))
+    say("  they differ because Keras 3 writes each batch norm unfolded: simplify folds its "
+        "constants to one multiply and one add a channel, which quantize as qnn.mul and "
+        f"qnn.add ({ops['qnn.mul']} and {ops['qnn.add']}) between the conv's requantize and "
+        "the ReLU, so fuse_qnn forms no chain and no block stack and K3 has no call; the "
+        "stride sits on the 1x1 convs (the stem and the 3x3 convs run on K2, every 1x1 conv, "
+        "the strided ones subsampled first, on K1's GEMM: ops/kernels/conv.py "
+        "_conv1x1_matmul)")
+    requests = [rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+                for _ in range(REQUESTS)]
+    totals, launches, _, out, _ = fused_resnet_run("25a.", model, fused, requests, card,
+                                                   KERAS_R50_OPS, KERAS_RUN_KERNELS)
+    assert np.allclose(out.sum(-1), 1, atol=1e-4), out.sum(-1)
+    state = dict(path=path, calib=calib, quantized=q, x=requests[0], out=out)
+    return totals, launches, state
+
+
+def keras_trace_path(card: str, state: dict) -> tuple[dict, dict]:
+    """Phase 25b: the same .pb at b1 (input_specs), quantized on the first
+    image of 25a's calibration batch and left unfused, traced on K4
+    (trace_path: every K4 call == plain, every integer record byte-equal to
+    the CPU plain path's trace, verify_trace)."""
+    from tachikoma_tpu_torch.frontend import from_tf_graphdef
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+
+    t0 = time.perf_counter()
+    g1 = from_tf_graphdef(state["path"], {"x": (TRACE_BATCH, IMAGE, IMAGE, 3)})
+    x1 = state["x"][:TRACE_BATCH]
+    q1 = quantize(g1, [state["calib"][:TRACE_BATCH]])
+    say(f"\n25b. the .pb at b{TRACE_BATCH} (input_specs): import, calibrate, quantize "
+        f"{time.perf_counter() - t0:.2f} s (host) [{card}]")
+    kernels = kernels_called(TorchExecutor(q1, device="cuda"), x1)
+    assert kernels == TRACE_KERNELS, kernels
+    return trace_path(("25b.", "25b."), "Keras ResNet-50", None, kernels, prepared=(q1, x1))
+
+
+def keras_cli(card: str, state: dict, tdir: str) -> None:
+    """Phase 25c: the port's CLI on the written .pb: `quantize` on 25a's
+    calibration batch writes 25a's integer graph (equal JSON), then `run` of
+    that graph on the card (the CLI's default device) gives 25a's output on
+    its first request."""
+    calib, xin = os.path.join(tdir, "calib.npy"), os.path.join(tdir, "x.npy")
+    qpath, out = os.path.join(tdir, "q.json"), os.path.join(tdir, "y.npz")
+    np.save(calib, state["calib"])
+    np.save(xin, state["x"])
+    cli = [sys.executable, "-m", "tachikoma_tpu_torch.cli"]
+    phase(f"25c. python -m tachikoma_tpu_torch.cli quantize {state['path']} --calib-data, then "
+          f"run (device cuda) [{card}]")
+    t0 = time.perf_counter()
+    res = subprocess.run(cli + ["quantize", state["path"], "-o", qpath, "--calib-data", calib],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    say(res.stdout.strip().splitlines()[-1])
+    with open(qpath) as f:
+        assert f.read() == state["quantized"].to_json(), "the CLI's integer graph is not 25a's"
+    t1 = time.perf_counter()
+    res = subprocess.run(cli + ["run", qpath, "--input", xin, "-o", out], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    say(res.stdout.strip().splitlines()[0] if res.stdout.strip() else "(no output)")
+    got = np.load(out)
+    y = got[got.files[0]]
+    assert y.shape == state["out"].shape and np.isfinite(y).all()
+    np.testing.assert_allclose(y, state["out"], rtol=SOFTMAX_RTOL, atol=SOFTMAX_ATOL)
+    say(f"quantize exit 0 in {t1 - t0:.2f} s: the integer graph == 25a's (equal JSON); run exit "
+        f"0 in {time.perf_counter() - t1:.2f} s: {got.files[0]} {y.shape}, max |CLI - 25a| "
+        f"{np.abs(y - state['out']).max():.3g} (rtol {SOFTMAX_RTOL} atol {SOFTMAX_ATOL}), "
+        f"argmax equal {bool((y.argmax(-1) == state['out'].argmax(-1)).all())}")
+
+
+def tf_ops_on_card(card: str) -> None:
+    """Phase 25d: the six ops the TensorFlow importer brought (rsqrt,
+    floor_divide, floor_mod, all, any, stack) on the card against their CPU
+    torch impls, on tests/tf_op_cases.py's cases: all == (a zero's sign
+    too), an integer divided by zero included."""
+    from tachikoma_tpu_torch.ir.graph import Node
+    from tachikoma_tpu_torch.ir.registry import get_op
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from tf_op_cases import CASES
+
+    phase(f"25d. the TensorFlow importer's six new ops on the card against their CPU torch "
+          f"impls: {len(CASES)} cases [{card}]")
+    per_op = Counter()
+    for cid, op, inputs, attrs, _, _, _, _ in CASES:
+        node = Node("y", op, tuple(f"x{i}" for i in range(len(inputs))), attrs)
+        impl = get_op(op).torch_impl
+        a = impl(*(torch.from_numpy(v).cuda() for v in inputs), node=node).cpu().numpy()
+        b = impl(*map(torch.from_numpy, inputs), node=node).numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, cid
+        np.testing.assert_array_equal(a, b, err_msg=cid)
+        if b.dtype.kind == "f":
+            seen = ~np.isnan(b)
+            np.testing.assert_array_equal(np.signbit(a)[seen], np.signbit(b)[seen], err_msg=cid)
+        per_op[op] += 1
+    say(", ".join(f"{op} {n} cases ==" for op, n in sorted(per_op.items())))
+    assert len(per_op) == 6, per_op
+
+
+def tf_path(card: str) -> tuple[dict, dict]:
+    """Phase 25: the TensorFlow and Keras import path (25a-25d).  Returns the
+    kernels' launches over 25a and 25b's counted runs and the largest |err|
+    of each."""
+    tdir = tempfile.mkdtemp(prefix="tk_chip_smoke_tf_")
+    try:
+        totals, launches, state = keras_resnet_path(card, tdir)
+        errs = {k: t["max_abs_err"] for k, t in totals.items()}
+        trace_totals, trace_launches = keras_trace_path(card, state)
+        for k, t in trace_totals.items():
+            errs[k] = max(errs.get(k, 0), t["max_abs_err"])
+        for k, n in trace_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        keras_cli(card, state, tdir)
+    finally:
+        for name in os.listdir(tdir):
+            os.remove(os.path.join(tdir, name))
+        os.rmdir(tdir)
+    tf_ops_on_card(card)
+    return launches, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4622,6 +4861,12 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), e)
     merge({}, runtime_launches)
     say(f"\nphase 24 seconds {time.perf_counter() - t24:.1f} (host clock) [{card}]")
+    t25 = time.perf_counter()
+    tf_launches, tf_errs = tf_path(card)
+    for name, e in tf_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    merge({}, tf_launches)
+    say(f"\nphase 25 seconds {time.perf_counter() - t25:.1f} (host clock) [{card}]")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

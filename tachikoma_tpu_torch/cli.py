@@ -23,11 +23,14 @@ Usage: python -m tachikoma_tpu_torch.cli <subcommand> [args]
 `--device cpu` to run the kernels' plain PyTorch versions.  Graph files are
 `.json` or `.tkmod` artifacts (either package's), float `.onnx` models
 (`quantize` calibrates them; QDQ models import as quantize-dequantize
-islands), prequantized `.tflite` models (int8, or 16x8 on the W8A16 path)
-or `torch.save`d `.pt` / `.pth` modules (a torch.ao-quantized one becomes
+islands), prequantized `.tflite` models (int8, or 16x8 on the W8A16 path),
+`torch.save`d `.pt` / `.pth` modules (a torch.ao-quantized one becomes
 an integer graph at its own scales, a float one a float graph; the input
 shape comes from a saved `(model, shape)` tuple or
-`TK_TORCH_INPUT_SHAPE=1,3,224,224`); the zoo is the JAX CLI's:
+`TK_TORCH_INPUT_SHAPE=1,3,224,224`), frozen TensorFlow GraphDefs (`.pb`,
+read by the in-tree codec: no TensorFlow needed), and Keras models (`.keras`,
+`.h5`) and SavedModel directories, which need TensorFlow to trace and
+freeze (without it they exit naming it); the zoo is the JAX CLI's:
 lenet5 / mlp / digits_cnn / resnet18 / resnet34 / resnet50 / mobilenet_v2 /
 vgg16 / vgg19 / squeezenet / densenet / resnet3d18 / lstm and the float
 transformers bert / bert_base / gpt2 / vit_b16 / vit_l16 (`--image-size`,
@@ -36,9 +39,9 @@ package: `--transformer` takes the integer-attention preset (TRANSFORMER_INT8:
 qnn.softmax, qnn.lut, qnn.layer_norm), without it the default QConfig keeps
 softmax and gelu in float; a fused float graph's tk.attention stays float.
 A float transformer graph also runs (`run`, with its attention fused by
-`ir/transforms.py fuse_attention` when the graph was written).  The
-TensorFlow and Keras formats and the JAX package's other subcommands are not
-ported yet and exit with the ROADMAP item that ports them (`bench`: item 3).
+`ir/transforms.py fuse_attention` when the graph was written).  The JAX
+package's other subcommands are not ported yet and exit with the ROADMAP
+item that ports them (`bench`: item 3).
 
 Evaluation: `evaluate float.json quant.json [--input x.npy]` prints the
 per-layer SNR report (the numpy oracle); `evaluate float.json quant.json
@@ -57,6 +60,7 @@ reads the JAX package's TPU one.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import sys
 from collections import Counter
@@ -66,6 +70,7 @@ import numpy as np
 ZOO = ("lenet5", "mlp", "resnet18", "resnet34", "resnet50", "mobilenet_v2", "bert", "bert_base",
        "vit_b16", "vit_l16", "gpt2", "vgg16", "vgg19", "squeezenet", "densenet", "resnet3d18",
        "lstm", "digits_cnn")
+MODEL_SUFFIXES = (".json", ".tkmod", ".onnx", ".tflite", ".pt", ".pth", ".pb", ".keras", ".h5")
 NOT_PORTED = {
     "bench": "the port's benchmark, ROADMAP Queue 1 item 3",
 }
@@ -89,10 +94,26 @@ def _load_graph(path: str):
         return from_tflite(path)
     if path.endswith((".pt", ".pth")):
         return _load_torch(path)
+    if path.endswith(".pb"):
+        # a frozen GraphDef, through the in-tree codec
+        from .frontend.tensorflow import from_tf_graphdef
+
+        return from_tf_graphdef(path)
+    if path.endswith((".keras", ".h5")) or os.path.isdir(path):
+        if importlib.util.find_spec("tensorflow") is None:
+            raise SystemExit(f"{path}: Keras models and SavedModels are traced and frozen by "
+                             "TensorFlow, which is not installed; freeze the model to a .pb "
+                             "GraphDef and pass that")
+        if os.path.isdir(path):
+            from .frontend.tensorflow import from_saved_model
+
+            return from_saved_model(path)
+        from .frontend.keras import from_keras
+
+        return from_keras(path)
     if not path.endswith(".json"):
-        raise SystemExit(f"{path}: only graph .json, .tkmod, .onnx, .tflite and .pt / .pth files "
-                         "are ported yet; the TensorFlow and Keras frontends wait for ROADMAP "
-                         "Queue 1 item 12")
+        raise SystemExit(f"{path}: not a graph .json / .tkmod, nor an .onnx, .tflite, .pt / .pth, "
+                         ".pb, .keras / .h5 model or a SavedModel directory")
     with open(path) as f:
         return Graph.from_json(f.read())
 
@@ -177,8 +198,8 @@ def _zoo(name: str, batch: int, image: int | None, seq: int | None = None):
 
 def _model(args):
     """The float (or integer) graph of a zoo name or a graph file."""
-    if args.model.endswith((".json", ".tkmod", ".onnx", ".tflite", ".pt", ".pth")) \
-            or os.path.isfile(args.model):
+    if args.model.endswith(MODEL_SUFFIXES) or os.path.isfile(args.model) \
+            or os.path.isdir(args.model):
         return _load_graph(args.model)
     return _zoo(args.model, args.batch, args.image_size, args.seq_len)
 
@@ -433,7 +454,7 @@ def main(argv=None):
 
     q = sub.add_parser("quantize", help="calibrate + quantize a model to an integer graph")
     q.add_argument("model", help=f"zoo name ({'/'.join(ZOO)}) or a graph / model file "
-                   "(.json, .tkmod, .onnx, .tflite, .pt)")
+                   "(.json, .tkmod, .onnx, .tflite, .pt, .pb, .keras, .h5)")
     q.add_argument("-o", "--output", required=True)
     q.add_argument("--batch", type=int, default=1)
     q.add_argument("--image-size", type=int, default=None)
@@ -448,7 +469,7 @@ def main(argv=None):
 
     c = sub.add_parser("compile", help="quantize + bundle into a .tkmod artifact")
     c.add_argument("model", help=f"zoo name ({'/'.join(ZOO)}) or a graph / model file "
-                   "(.json, .tkmod, .onnx, .tflite, .pt)")
+                   "(.json, .tkmod, .onnx, .tflite, .pt, .pb, .keras, .h5)")
     c.add_argument("-o", "--output", required=True)
     c.add_argument("--batch", type=int, default=1)
     c.add_argument("--image-size", type=int, default=None)

@@ -1,8 +1,8 @@
 """The long-tail ops of the ONNX importer (port of part of
 `tachikoma_tpu/ops/extra.py`): the trigonometric and hyperbolic functions,
 `isnan` / `isinf`, `logical_xor`, `bitwise_not`, `nn.lrn` and `nn.instance_norm`,
-`reverse`, `cumsum` and `topk`.  The rest of that file waits for ROADMAP
-Queue 1 item 9.4.
+`reverse`, `cumsum` and `topk`; and `stack`, the TensorFlow importer's Pack.
+The rest of that file waits for ROADMAP Queue 1 item 9.4.
 
 Each op has the JAX package's relation and numpy oracle, copied, and a torch
 impl that computes the oracle's values on any device:
@@ -284,3 +284,26 @@ def _topk_torch(a: torch.Tensor, *, node: Node):
     idx = idx.movedim(-1, axis).to(torch_dtype(node.attrs.get("dtype", "int32")))
     return _topk_out(vals, idx, node)
 
+
+# ---------------------------------------------------------------------------
+# stack: TensorFlow's Pack
+# ---------------------------------------------------------------------------
+
+@infer_rule("stack")
+def _stack_rel(node, ins):
+    axis = int(node.attrs.get("axis", 0))
+    (a, adt) = ins[0]
+    axis = axis % (len(a) + 1)
+    return tuple(a[:axis]) + (len(ins),) + tuple(a[axis:]), adt
+
+
+@np_impl("stack")
+def _stack_np(*args, node: Node):
+    return np.stack(args, axis=int(node.attrs.get("axis", 0)))
+
+
+@torch_impl("stack")
+def _stack_torch(*args: torch.Tensor, node: Node) -> torch.Tensor:
+    """np.stack of inputs of one dtype (TensorFlow's Pack), a negative axis
+    counted from the end of the output's shape."""
+    return torch.stack(args, dim=int(node.attrs.get("axis", 0)))

@@ -6,8 +6,9 @@ conv2d_transpose), and the ops of this file that the ONNX importer emits
 (elementwise math, maximum / minimum / mod / divide / power, sum / prod /
 min / argmax / argmin, squeeze / expand_dims / tile, gather, one_hot,
 leaky_relu, prelu, log_softmax, global_max_pool2d, image.resize2d,
-depth_to_space, space_to_depth), and the bitwise binaries and shifts
-(port of `tachikoma_tpu/ops/nn.py`).
+depth_to_space, space_to_depth), the bitwise binaries and shifts, and the
+TensorFlow importer's rsqrt, floor_divide, all and any (port of
+`tachikoma_tpu/ops/nn.py`).
 
 Each op gets the JAX package's shape/dtype relation and numpy oracle, copied;
 the ops that the fused graphs run outside the kernels also get a torch
@@ -2052,3 +2053,75 @@ def _s2d_torch(a: torch.Tensor, *, node: Node) -> torch.Tensor:
     b = int(node.attrs["block_size"])
     x = a.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(n, h // b, w // b, b * b * c)
+
+
+# ---------------------------------------------------------------------------
+# the TensorFlow importer's ops (frontend/tensorflow.py): rsqrt (Keras 3's
+# batch norm), floor_divide (FloorDiv), all / any (All, Any)
+# ---------------------------------------------------------------------------
+
+register_op("rsqrt", infer=_same_rel)
+
+
+@np_impl("rsqrt")
+def _rsqrt_np(x, *, node: Node):
+    return (1.0 / np.sqrt(x.astype(np.float32))).astype(x.dtype)
+
+
+@torch_impl("rsqrt")
+def _rsqrt_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """The oracle's float32 1 / sqrt(x): each operation computed in float64
+    and rounded to float32, which gives the correctly rounded float32 result
+    (float64 carries more than twice float32's bits), as numpy's is.  So the
+    result is the oracle's bit for bit on either device: torch's float32
+    sqrt on the CPU can be an ulp off, and CUDA's rsqrtf (torch.rsqrt) is
+    not correctly rounded."""
+    f32, f64 = torch.float32, torch.float64
+    s = torch.sqrt(x.to(f32).to(f64)).to(f32)
+    return (1.0 / s.to(f64)).to(f32).to(x.dtype)
+
+
+@np_impl("floor_divide")
+def _floor_divide_np(a, b, *, node: Node):
+    out_dt = np.dtype(dt.promote(str(a.dtype), str(b.dtype)))
+    return np.floor_divide(a.astype(out_dt), b.astype(out_dt))
+
+
+@torch_impl("floor_divide")
+def _floor_divide_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
+    """np.floor_divide in the promoted dtype.  Integers: 0 at a zero
+    divisor, numpy's value.  Floats: torch's floor division is numpy's
+    (the quotient of a - fmod(a, b), inf or NaN at a zero divisor)."""
+    a, b = _promoted(a, b)
+    if a.dtype.is_floating_point:
+        return torch.div(a, b, rounding_mode="floor")
+    zero, b1 = _nonzero_divisor(b)
+    return torch.where(zero, torch.zeros_like(a), torch.div(a, b1, rounding_mode="floor"))
+
+
+register_op("floor_divide", infer=_broadcast_rel)
+
+
+def _bool_reduce_rel(node: Node, ins):
+    return _reduce_rel(node, ins)[0], "bool"
+
+
+for _n, (_f, _tf) in {"all": (np.all, torch.all), "any": (np.any, torch.any)}.items():
+    def _mkbool(f, tf):
+        def np_fn(a, *, node: Node):
+            out = f(a, axis=_norm_axes(node, a.ndim),
+                    keepdims=bool(node.attrs.get("keepdims", False)))
+            return np.asarray(out, dtype="bool")
+
+        def torch_fn(a: torch.Tensor, *, node: Node) -> torch.Tensor:
+            """The truth of each value (nonzero, NaN true), reduced one axis
+            at a time, the highest first; the oracle reads only `axis` and
+            `keepdims`."""
+            keepdim = bool(node.attrs.get("keepdims", False))
+            x = a.to(torch.bool)
+            for d in sorted(_reduce_dims(node, a.ndim), reverse=True):
+                x = tf(x, dim=d, keepdim=keepdim)
+            return x
+        return np_fn, torch_fn
+    _np_fn, _torch_fn = _mkbool(_f, _tf)
+    register_op(_n, infer=_bool_reduce_rel, np_impl=_np_fn, torch_impl=_torch_fn)

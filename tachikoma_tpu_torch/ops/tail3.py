@@ -2,7 +2,8 @@
 of part of `tachikoma_tpu/ops/tail3.py`): `dynamic_slice` and
 `dynamic_update_slice`, the primitives of the decode step's KV-cache writes
 (models/decoding.py gpt2_decode_step), and `trunc_mod`, ONNX's Mod with
-fmod=1.
+fmod=1, and `floor_mod`, TensorFlow's FloorMod: numpy's floor mod, the
+torch impl of `mod` (ops/nn.py).
 
 The slice extents are attrs (or the update's shape), the start indices are
 scalar tensor inputs, clamped like `lax.dynamic_slice` so that the window
@@ -28,7 +29,7 @@ import torch
 from ..ir.graph import Node
 from ..ir.registry import infer_rule, np_impl, register_op, torch_impl
 from ..utils import dtypes as dt
-from .nn import _nonzero_divisor, _promoted
+from .nn import _mod_torch, _nonzero_divisor, _promoted
 
 
 @infer_rule("dynamic_slice")
@@ -155,3 +156,14 @@ def _cewl_np(pred, target, *, node: Node):
 @torch_impl("nn.cross_entropy_with_logits")
 def _cewl_torch(pred: torch.Tensor, target: torch.Tensor, *, node: Node) -> torch.Tensor:
     return (-torch.sum(target * pred) / pred.shape[0]).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# floor_mod: np.mod, the sign of the divisor (TensorFlow's FloorMod)
+# ---------------------------------------------------------------------------
+
+def _floor_mod_np(a, b, *, node: Node):
+    return np.mod(a, b).astype(dt.promote(str(a.dtype), str(b.dtype)))
+
+
+register_op("floor_mod", infer=_bin_rel, np_impl=_floor_mod_np, torch_impl=_mod_torch)

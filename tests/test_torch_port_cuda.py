@@ -2633,3 +2633,66 @@ def test_gradients_on_card_match_cpu_and_remat(cuda):
     (loss, grads), (rloss, rgrads) = step(qat_g, "cuda"), step(qat_g, "cuda", remat=True)
     worst = max((normwise(rgrads[k], grads[k]), k) for k in grads)
     assert rloss == loss and worst[0] <= 1e-5, (rloss, loss, worst)
+
+
+# ---------------------------------------------------------------------------
+# the TensorFlow and Keras import path: the six ops it brought against their
+# CPU torch impls, and Keras's ResNet-50 as models/keras_resnet.py writes it,
+# read by the in-tree codec and fused on K1 and K2 (`-k keras or tf_op`)
+# ---------------------------------------------------------------------------
+
+from tf_op_cases import CASES as TF_OP_CASES  # noqa: E402  (tests/, no jax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TF_OP_CASES, ids=[c[0] for c in TF_OP_CASES])
+def test_tf_op_on_card_equals_cpu(cuda, case):
+    """rsqrt, floor_divide, floor_mod, all, any and stack: == the CPU torch
+    impl (a zero's sign too), an integer divided by zero included."""
+    _, op, inputs, attrs, _, _, _, _ = case
+    card, cpu = op_on_card_and_cpu(op, inputs, attrs, cuda)
+    for a, b in zip(card, cpu):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+        if b.dtype.kind == "f":
+            seen = ~np.isnan(b)
+            np.testing.assert_array_equal(np.signbit(a)[seen], np.signbit(b)[seen])
+
+
+@pytest.mark.cuda
+def test_keras_resnet50_b2_64_fused_on_card_equals_cpu(cuda, tmp_path):
+    """Keras's ResNet-50 written as a frozen GraphDef, read back from a .pb
+    by the codec, quantized and fused (53 tk.conv2d_rq, 1 tk.dense_rq: its
+    batch norms stay qnn.mul / qnn.add, so no chain forms): every K1 and K2
+    call of a forward == its plain version, every integer node == the CPU
+    path."""
+    from tachikoma_tpu_torch.frontend import from_tf_graphdef
+    from tachikoma_tpu_torch.models.keras_resnet import resnet50_keras
+    from tachikoma_tpu_torch.ops.kernels.conv import qconv_rq_plain
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import qgemm_rq_plain
+
+    rng = np.random.default_rng(0)
+    path = tmp_path / "r50.pb"
+    path.write_bytes(resnet50_keras(2, 64))
+    g = from_tf_graphdef(str(path))
+    xs = [rng.standard_normal((2, 64, 64, 3)).astype(np.float32) for _ in range(2)]
+    fused = fuse_qnn(quantize(g, [xs[0]]))
+    ops = [n.op for n in fused.nodes]
+    assert [ops.count(o) for o in ("tk.conv2d_rq", "tk.conv2d_chain", "tk.dense_rq")] == \
+        [53, 0, 1]
+    names = computational_nodes(fused)
+    calls = []
+    for k in ("qgemm_rq", "qconv_rq"):
+        _lib.LAUNCHES[k] = 0
+    with _recorded(calls):
+        card = TorchExecutor(fused, capture=names, device="cuda").run(xs[1])
+    assert _lib.LAUNCHES["qgemm_rq"] == 37 and _lib.LAUNCHES["qconv_rq"] == 17
+    plain = {"qgemm_rq": qgemm_rq_plain, "qconv_rq": qconv_rq_plain}
+    for name, a, k in calls:
+        assert torch.equal(_kernel(name)(*a, **k), plain[name](*a, **k)), name
+    cpu = TorchExecutor(fused, capture=names, device="cpu").run(xs[1])
+    for nm, a, b in zip(names, card, cpu):
+        if b.dtype.kind in "iu":
+            np.testing.assert_array_equal(a, b, err_msg=nm)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=nm)

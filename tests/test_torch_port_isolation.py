@@ -101,3 +101,50 @@ def test_native_trace_writer_builds_into_the_port_build_dir():
     after = sorted((p.name, p.stat().st_mtime_ns) for p in shared.iterdir()) \
         if shared.is_dir() else []
     assert after == before
+
+
+TF_MODULES = ("tensorflow", "keras")
+# the only functions of the port that import TensorFlow or Keras (to trace and
+# freeze a model); a frozen .pb is read by frontend/tf_proto.py without them
+TF_ENTRY_POINTS = {"from_tf_function", "from_saved_model", "from_keras"}
+
+
+def test_import_pulls_in_no_tensorflow_or_keras():
+    modules = sorted(
+        p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".").removesuffix(".__init__")
+        for p in PKG.rglob("*.py"))
+    assert {"tachikoma_tpu_torch.frontend.tensorflow", "tachikoma_tpu_torch.frontend.tf_proto",
+            "tachikoma_tpu_torch.frontend.keras",
+            "tachikoma_tpu_torch.models.keras_resnet"} <= set(modules)
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in modules)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in ('tensorflow', 'keras',"
+              " 'tf_keras', 'jax', 'tachikoma_tpu')]\n"
+              "assert not bad, bad[:10]\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _imports(node, where="<module>"):
+    """(innermost enclosing function, imported module names) of every
+    absolute import under `node`."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            yield from _imports(child, child.name)
+            continue
+        if isinstance(child, ast.Import):
+            yield where, [a.name for a in child.names]
+        elif isinstance(child, ast.ImportFrom) and child.level == 0:
+            yield where, [child.module or ""]
+        yield from _imports(child, where)
+
+
+def test_tensorflow_is_imported_only_inside_the_tracing_entry_points():
+    found = set()
+    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for where, names in _imports(ast.parse(path.read_text())):
+            if any(n.split(".")[0] in TF_MODULES for n in names):
+                assert where in TF_ENTRY_POINTS, f"{path}: {where} imports {names}"
+                found.add(where)
+    assert found == TF_ENTRY_POINTS

@@ -314,10 +314,10 @@ def test_cli_runs_traces_and_verifies_a_tflite_model(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         cli_main(["verify", trace])
     assert e.value.code == 0
-    # .onnx and .pt are ported (test_torch_port_onnx.py, test_torch_port_torch_fx.py)
-    for suffix in (".keras", ".h5", ".pb"):
-        with pytest.raises(SystemExit, match="Queue 1 item 12"):
-            cli_main(["run", str(tmp_path / f"m{suffix}"), "--device", "cpu"])
+    # .onnx, .pt, .pb and .keras / .h5 are ported (test_torch_port_onnx.py,
+    # test_torch_port_torch_fx.py, test_torch_port_tf.py); any other file is refused
+    with pytest.raises(SystemExit, match="not a graph"):
+        cli_main(["run", str(tmp_path / "m.tfl"), "--device", "cpu"])
 
 
 def test_entry_points_refuse_a_missing_card():

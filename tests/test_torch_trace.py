@@ -476,6 +476,6 @@ def test_cli_quantize_trace_verify(tmp_path, capsys):
     assert "93 records" in out and "verified 93/93 records" in out and "qnn.conv2d" in out
     for argv, match in [(["bench", graph], "Queue 1 item 3"),
                         (["quantize", "alexnet", "-o", graph], "unknown zoo model"),
-                        (["run", str(tmp_path / "m.keras"), "--device", "cpu"], "Queue 1 item 12")]:
+                        (["run", str(tmp_path / "m.txt"), "--device", "cpu"], "not a graph")]:
         with pytest.raises(SystemExit, match=match):
             cli_main(argv)

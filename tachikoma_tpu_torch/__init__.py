@@ -19,6 +19,9 @@ Subpackages:
   models    — built-in model zoo (the JAX package's fourteen vision
               builders, bert, gpt2, vit) and KV-cache decoding
               (models/decoding.py)
+  parallel  — dp x tp sharded execution, the sharded trace, pipeline,
+              expert and sequence (ring) parallelism over torch.distributed
+  exec      — the trace collector (records uploaded by ranks, merged)
 """
 
 __version__ = "0.1.0"

@@ -710,15 +710,18 @@ def _bn_torch(data, gamma, beta, mean, var, *, node: Node):
     """The oracle op for op in float32: 1 / sqrt(var + eps), then (x - mean)
     * (gamma * inv) + beta, each a correctly rounded float32 operation on
     either device (no rsqrt, no fused multiply-add, no cuDNN), so the result
-    is the CPU's bit for bit: a batch norm that feeds qnn.quantize
-    (DenseNet's, the 3D ResNet's) quantizes the same on the card."""
+    is the oracle's bit for bit: a batch norm that feeds qnn.quantize
+    (DenseNet's, the 3D ResNet's) quantizes the same on the card.  The sqrt
+    and the division are taken in float64 and rounded once to float32,
+    which is their correctly rounded float32 result (torch's CPU float32
+    sqrt is an ulp off on some inputs, e.g. 1.0478698)."""
     eps = float(np.float32(node.attrs.get("epsilon", 1e-5)))
     axis = int(node.attrs.get("axis", -1))
     shape = [1] * data.ndim
     shape[axis] = -1
-    f32 = torch.float32
-    s = torch.sqrt(var.to(f32) + eps)
-    inv = torch.ones_like(s) / s
+    f32, f64 = torch.float32, torch.float64
+    s = torch.sqrt((var.to(f32) + eps).to(f64)).to(f32)
+    inv = (1.0 / s.to(f64)).to(f32)
     scale = gamma.to(f32) * inv
     centred = data.to(f32) - mean.to(f32).reshape(shape)
     out = centred * scale.reshape(shape) + beta.to(f32).reshape(shape)

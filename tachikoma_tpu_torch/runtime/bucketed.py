@@ -46,18 +46,7 @@ class BucketedExecutor:
     # -- internals -----------------------------------------------------------
 
     def _graph_for(self, b: int) -> Graph:
-        nodes = []
-        for n in self.template.nodes:
-            if n.op == VAR:
-                shape = list(n.shape)
-                shape[self.axis] = b
-                nodes.append(n.with_(shape=tuple(shape)))
-            else:
-                # drop stale inferred types; infer_types refills
-                nodes.append(n.with_(shape=None, dtype=None) if n.op != "const" else n)
-        g = Graph(nodes, list(self.template.outputs), dict(self.template.params),
-                  self.template.name)
-        return infer_types(g)
+        return with_batch(self.template, b, self.axis)
 
     def executor_for(self, b: int) -> TorchExecutor:
         bucket = next((v for v in self.buckets if v >= b), b)
@@ -111,3 +100,19 @@ class BucketedExecutor:
                         f"exact bucket size (buckets={self.buckets})")
             outs = [o.narrow(self.axis, 0, b) for o in outs]
         return outs
+
+
+def with_batch(graph: Graph, b: int, axis: int = 0) -> Graph:
+    """`graph` with every input var's `axis` set to `b`, types inferred
+    again."""
+    nodes = []
+    for n in graph.nodes:
+        if n.op == VAR:
+            shape = list(n.shape)
+            shape[axis] = b
+            nodes.append(n.with_(shape=tuple(shape)))
+        else:
+            # drop stale inferred types; infer_types refills
+            nodes.append(n.with_(shape=None, dtype=None) if n.op != "const" else n)
+    g = Graph(nodes, list(graph.outputs), dict(graph.params), graph.name)
+    return infer_types(g)

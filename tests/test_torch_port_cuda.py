@@ -28,7 +28,7 @@ import torch
 
 from tachikoma_tpu_torch.ir.transforms import fuse_attention
 from tachikoma_tpu_torch.models.transformer import bert, gpt2, vit
-from tachikoma_tpu_torch.models.vision import mobilenet_v2, resnet
+from tachikoma_tpu_torch.models.vision import lenet5, mobilenet_v2, resnet
 from tachikoma_tpu_torch.ops.kernels import _lib
 from tachikoma_tpu_torch.ops.kernels.conv import (qconv2d_flat, qconv_raw, qconv_raw_plain,
                                                   qconv_rq, qconv_rq_plain, qconv_rq_res,
@@ -2696,3 +2696,130 @@ def test_keras_resnet50_b2_64_fused_on_card_equals_cpu(cuda, tmp_path):
             np.testing.assert_array_equal(a, b, err_msg=nm)
         else:
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=nm)
+
+
+# -- parallel/* on the card: ranks on cuda:0 over gloo (phase 26 at small shapes)
+
+from parallel_cases import (EXPERTS, MESHES, RINGS, SCALES, _key,  # noqa: E402  (tests/, no jax)
+                            integer_nodes, moe_case, nccl_world_of_one, parallel_round,
+                            ring_case)
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    """Four rank processes on cuda:0 over gloo running parallel_round on int8
+    LeNet-5 b8 and ResNet-18 b4 32^2: (graphs, inputs, the ranks' results)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run with -m cuda on the card")
+    from tachikoma_tpu_torch.parallel.gather import launch
+    from tachikoma_tpu_torch.runtime.artifact import save_artifact
+
+    _lib.build()  # here, before any rank starts: four ranks building at once would race
+    tmp = tmp_path_factory.mktemp("card_parallel")
+    graphs, feeds, artifacts = {}, {}, {}
+    for name, build, shape in (("lenet5", lambda: lenet5(batch_size=8), (8, 28, 28, 1)),
+                               ("resnet18", lambda: resnet(18, batch_size=4, image_size=32),
+                                (4, 32, 32, 3))):
+        rng = np.random.default_rng(0)
+        data = [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+        graphs[name], feeds[name] = quantize(build(), data), data[0]
+        artifacts[name] = str(tmp / f"{name}.tkmod")
+        save_artifact(artifacts[name], graphs[name])
+    ranks = launch(4, parallel_round, (artifacts, feeds, moe_case(), ring_case(), "cuda:0"),
+                   init_method=f"file://{tmp / 'store'}", timeout=600)
+    return graphs, feeds, ranks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes", MESHES, ids=_key)
+@pytest.mark.parametrize("model", ["lenet5", "resnet18"])
+def test_sharded_executor_on_card_equals_single_card(card_ranks, model, axes):
+    """ShardedExecutor over 4 ranks on one card: every integer node == the
+    single card's TorchExecutor, the float output within rtol 1e-5, atol
+    1e-7 (tests/test_shard.py:43), every rank the same global values; the
+    sharded trace == the single card's trace bytes."""
+    graphs, feeds, ranks = card_ranks
+    q, x = graphs[model], feeds[model]
+    names = integer_nodes(q) + list(q.outputs)
+    want = TorchExecutor(q, capture=names, device="cuda").run(x)
+    got = ranks[0]["captures"][(model, _key(axes))]
+    for name, w in zip(names, want):
+        if w.dtype.kind in "iu":
+            np.testing.assert_array_equal(got[name], w, err_msg=name)
+        else:
+            np.testing.assert_allclose(got[name], w, rtol=1e-5, atol=1e-7, err_msg=name)
+    assert len({r["digests"][(model, _key(axes))] for r in ranks}) == 1
+    if model == "lenet5":
+        from tachikoma_tpu_torch.trace.emitter import TraceEmitter
+
+        single = TraceEmitter(q, backend="torch", device="cuda").emit_bytes(x)
+        assert ranks[0]["traces"][(model, _key(axes))] == single
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ep", EXPERTS)
+def test_moe_on_card_equals_reference(card_ranks, ep):
+    from tachikoma_tpu_torch.parallel.moe import moe_dense_int8_reference
+
+    _, _, ranks = card_ranks
+    want = moe_dense_int8_reference(*moe_case())
+    for r in ranks[:ep]:
+        np.testing.assert_array_equal(r["moe"][ep], want)
+        np.testing.assert_array_equal(r["moe_kept"][ep][0], want)
+        np.testing.assert_array_equal(r["moe_kept"][ep][1], want[::-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp", RINGS)
+def test_ring_attention_on_card_equals_oracle(card_ranks, sp):
+    """K1's batched raw mode on each rank's chunks; K and V rotate through
+    the host (gloo), which the helper counts."""
+    from tachikoma_tpu_torch import GraphBuilder, infer_types, run_graph
+
+    _, _, ranks = card_ranks
+    q, k, v = ring_case()
+    b = GraphBuilder()
+    qn, kn, vn = (b.var(n, q.shape, "int8") for n in "qkv")
+    g = infer_types(b.build(b.call("qnn.attention", qn, kn, vn, **SCALES)))
+    want = run_graph(g, {"q": q, "k": k, "v": v})[0]
+    for r in ranks[:sp]:
+        got, stats = r["ring"][sp]
+        np.testing.assert_array_equal(got, want)
+        assert stats["send_recv"]["host_bytes"] == 2 * stats["send_recv"]["bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_retry_and_meshes_on_card(card_ranks):
+    _, _, ranks = card_ranks
+    assert ranks[0]["retried"][0] == ranks[0]["traces"][("lenet5", "dp2,tp2")]
+    assert [r["member"] for r in ranks] == [True, True, False, False]
+    assert [r["non_member_raises"] for r in ranks] == [False, False, True, True]
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_on_card(cuda, tmp_path):
+    from tachikoma_tpu_torch.parallel.gather import launch
+
+    [(ok, stats)] = launch(1, nccl_world_of_one, init_method=f"file://{tmp_path / 'store'}",
+                           timeout=300)
+    assert ok and stats["all_reduce"]["host_bytes"] == stats["all_gather"]["host_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_stages,micro", [(2, 4), (3, 2)])
+def test_pipeline_on_card_equals_single_card(cuda, num_stages, micro):
+    """Stages on streams of one card, an event between stages per
+    microbatch: the output == the single card's; every stage's span is
+    recorded."""
+    from tachikoma_tpu_torch.parallel.pipeline import PipelineExecutor
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    q = quantize(resnet(18, batch_size=4, image_size=32), [x])
+    pe = PipelineExecutor(q, num_stages, devices=["cuda:0"] * num_stages)
+    got = pe.run(x, num_microbatches=micro)
+    want = TorchExecutor(q, device="cuda").run(x)
+    np.testing.assert_array_equal(got[0], want[0])
+    spans = pe.intervals()
+    assert len(spans) == len(pe.stages) * micro
+    assert all(end >= start for _, _, start, end in spans)

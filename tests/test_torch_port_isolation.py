@@ -49,7 +49,14 @@ def test_import_pulls_in_no_jax():
             "tachikoma_tpu_torch.ops.tail", "tachikoma_tpu_torch.models.vision",
             "tachikoma_tpu_torch.runtime.segmented", "tachikoma_tpu_torch.runtime.bucketed",
             "tachikoma_tpu_torch.runtime.placement",
-            "tachikoma_tpu_torch.runtime.profiler"} <= set(modules)
+            "tachikoma_tpu_torch.runtime.profiler",
+            "tachikoma_tpu_torch.utils.logging", "tachikoma_tpu_torch.parallel.mesh",
+            "tachikoma_tpu_torch.parallel.shard", "tachikoma_tpu_torch.parallel.gather",
+            "tachikoma_tpu_torch.parallel.pipeline", "tachikoma_tpu_torch.parallel.moe",
+            "tachikoma_tpu_torch.parallel.ring_attention",
+            "tachikoma_tpu_torch.exec.trace_collector", "tachikoma_tpu_torch.ir.text",
+            "tachikoma_tpu_torch.ir.passes", "tachikoma_tpu_torch.ir.patterns",
+            "tachikoma_tpu_torch.ir.viz"} <= set(modules)
 
 
 def test_the_port_never_opens_the_tpu_tuning_database():

@@ -512,8 +512,8 @@ KERNELS = {
     "qdwconv_direct": ("tachikoma_tpu_torch/csrc/qdwconv.cu",
                        "tachikoma_tpu/ops/pallas/conv_int8.py:87"),
     # no Pallas kernel: XLA runs tk.bmm_rq and qnn.batch_matmul in the JAX package
-    "qbmm_rq": ("tachikoma_tpu_torch/csrc/qgemm_rq.cu", "tachikoma_tpu/runtime/fuse.py:389"),
-    "qbmm_raw": ("tachikoma_tpu_torch/csrc/qgemm_rq.cu", "tachikoma_tpu/ops/jax_ops.py:249"),
+    "qbmm_rq": ("tachikoma_tpu_torch/csrc/qbmm_hopper.cu", "tachikoma_tpu/runtime/fuse.py:389"),
+    "qbmm_raw": ("tachikoma_tpu_torch/csrc/qbmm_hopper.cu", "tachikoma_tpu/ops/jax_ops.py:249"),
     # no Pallas kernel: XLA runs qnn.conv2d / qnn.dense into int64 in the JAX
     # package; the port runs them on K4 / K5's raw modes over two byte planes
     "wide_planes": ("tachikoma_tpu_torch/ops/kernels/wide.py",
@@ -627,6 +627,16 @@ EARLIER_CALL_MS = {
         "M=196 K=96 N=576": 0.0047, "M=196 K=576 N=96": 0.0085, "M=49 K=576 N=160": 0.0081,
         "M=49 K=160 N=960": 0.0050, "M=49 K=960 N=160": 0.0116, "M=49 K=960 N=320": 0.0116,
         "M=49 K=320 N=1280": 0.0063, "M=1 K=1280 N=1000": 0.0123},
+    # K1's batched mode as a BMM instantiation of csrc/igemm_hopper.cuh's body,
+    # per call (tools/bmm_probe.py --csrc on it)
+    ("int8 BERT-base b4 s128", "qbmm_rq"): {
+        "48x (128, 64) x (64, 128)": 0.0046, "48x (128, 128) x (128, 64)": 0.0060},
+    ("BERT-base", "qbmm_raw"): {
+        "12x (128, 64) x (64, 128)": 0.0037, "12x (128, 128) x (128, 64)": 0.0055},
+    ("int8 GPT-2 small decode step", "qbmm_rq"): {
+        "12x (1, 64) x (64, 128)": 0.0040, "12x (1, 128) x (128, 64)": 0.0057},
+    ("int8 GPT-2 small decode step", "qbmm_raw"): {
+        "12x (1, 64) x (64, 128)": 0.0036, "12x (1, 128) x (128, 64)": 0.0054},
     ("VGG-16", "qgemm_rq"): {
         "M=8 K=25088 N=4096": 0.3230, "M=8 K=4096 N=4096": 0.0403, "M=8 K=4096 N=1000": 0.0359},
     ("ResNet-50", "qconv_rq"): {
@@ -930,13 +940,8 @@ def launch_plan(name, a, k) -> str:
                                                  flash_attention, matmul_int8)
 
     x, w = a[0], a[1]
-    if name in BMM_KERNELS:
-        _, _, _, p = matmul_int8._bmm_launch(
-            name, x, w, k.get("lhs_zero_point", 0), k.get("rhs_zero_point", 0),
-            k.get("transpose_a", False), k.get("transpose_b", False), k.get("plan"))
-        modes = {v: key for key, v in matmul_int8.BMM_MODES.items()}
-        return (f"tile {p['bm']}x{p['bn']}, {p['bmm_nb']} products, A {modes[p['a_mode']]}, "
-                f"B {modes[p['b_mode']]}")
+    if name in BMM_KERNELS:  # path, tile, chunks of K, staging modes, operands read as uint8
+        return matmul_int8.launch_summary(name, x, w, **k)
     if name in ("qgemm_rq", "qgemm_raw"):
         p = k.get("plan") or matmul_int8.gemm_plan(x.shape[0], x.shape[1], w.shape[1],
                                                    k.get("blocks"), conv.sm_count(x.device.index))

@@ -3,9 +3,7 @@
 // (qconv_igemm_hopper.cu) launch:
 // persistent blocks over (M tile, N tile) items, a cp.async ring across
 // them, three epilogues (Mode), the exact split of K.  The design and its
-// measurements are in qconv_igemm_hopper.cu's notes.  Its batched mode (BMM,
-// K1's qbmm_rq and qbmm_raw in qgemm_rq.cu) runs a batch of products, one
-// batch a grid row, each operand read through its strides (Bmm).
+// measurements are in qconv_igemm_hopper.cu's notes.
 #pragma once
 
 #include "epilogue_hopper.cuh"
@@ -46,7 +44,7 @@ struct Geo {
   // dynamic shared memory: the ring (STAGES x stage_bytes), then from off_b
   // the resident weights (b_res), the column constants (K4: the bias), the tables (K3),
   // the staged tiles (K2, K3) and K2's arrival flag; smem bytes in all
-  int stage_bytes, off_b, off_cols, off_tables, off_rtile, off_flag, off_zp, smem;
+  int stage_bytes, off_b, off_cols, off_tables, off_rtile, off_flag, smem;
   bool b_res;  // the block's weights (every step of its N tile) staged once
   uint32_t izp4;
   bool a_vec;   // CIN % 16 == 0 and x 16-byte aligned
@@ -54,30 +52,6 @@ struct Geo {
   bool o_vec;  // K2, K3: COUT % 16 == 0, out (and K3's residual) 16-byte aligned
   hop::FastDiv by_ohow, by_ow;
 };
-
-// The batched mode's operands (BMM): product z of the grid's row z = z0 nb1
-// + z1 reads A's element (m, k) at a + z0 a_sb0 + z1 a_sb1 + m a_sm + k a_sk
-// and B's (k, n) at b + z0 b_sb0 + z1 b_sb1 + n b_sn + k b_sk (int8
-// elements), computes (A - za)(B - zb) = A B - za colsum(B) - zb rowsum(A)
-// + K za zb, the column and row sums taken from the staged tiles with dp4a
-// while the product runs, adds the bias (N,) and stores its (M, N) output
-// at out + z M N.  Each operand is staged by its mode (stage_operand):
-// K-major (k stride 1) in 16-byte copies, row-major (row stride 1) 16 rows
-// of one k a load and transposed in shared memory, or a byte a load.
-enum OpMode { KMAJOR16, ROWS16, BYTES };
-struct Bmm {
-  int nb1, a_mode, b_mode, za, zb;
-  long long a_sb0, a_sb1, a_sm, a_sk, b_sb0, b_sb1, b_sn, b_sk;
-};
-
-// The sum of the int8 bytes of the 16-byte segment at p, added to c.
-__device__ __forceinline__ int32_t byte_sum16(const int8_t* p, int32_t c) {
-  const int4 v = *reinterpret_cast<const int4*>(p);
-  c = __dp4a(v.x, 0x01010101, c);
-  c = __dp4a(v.y, 0x01010101, c);
-  c = __dp4a(v.z, 0x01010101, c);
-  return __dp4a(v.w, 0x01010101, c);
-}
 
 // The block-uniform epilogue constants; K3's tables are built from them.
 struct Epi {
@@ -96,52 +70,6 @@ __device__ __forceinline__ int cm_off(int r, int seg) {
 __device__ __forceinline__ int32_t res_side(int32_t v, bool skip, int32_t m, int32_t s,
                                             int32_t zp, const Epi& e) {
   return skip ? v : wrap_add(q_multiply_shift(wrap_sub(v, zp), m, s, e.add_tonearest), e.zo);
-}
-
-// The batched mode's staging of one operand tile: R rows (r0 + r < rows) by
-// the 64 k of a step from k0 (k < K), zeros elsewhere, K-major in the core
-// matrix layout of cm_off, from a source whose element (r, k) sits at
-// src[r sr + k sk].  KMAJOR16 (sk == 1, 16-byte aligned rows, K % 16 == 0)
-// copies 16 bytes a segment through `copy`; ROWS16 (sr == 1, rows % 16 ==
-// 0, 16-byte aligned k rows) loads 16 rows of one k and writes them a byte
-// each; BYTES reads a byte a load.
-template <int R, int NT, class Copy>
-__device__ __forceinline__ void stage_operand(int8_t* dst, const int8_t* __restrict__ src,
-                                              long long sr, long long sk, int r0, int rows,
-                                              int k0, int K, int mode, Copy copy) {
-  const int tid = threadIdx.x;
-  if (mode == KMAJOR16) {
-#pragma unroll
-    for (int i = tid; i < R * 4; i += NT) {
-      const int r = i >> 2, seg = i & 3, k = k0 + 16 * seg;
-      const bool ok = r0 + r < rows && k < K;
-      copy(dst + cm_off(r, seg), ok ? src + (long long)(r0 + r) * sr + k : src, ok);
-    }
-  } else if (mode == ROWS16) {
-#pragma unroll
-    for (int i = tid; i < R * 4; i += NT) {  // R / 16 chunks of each of the 64 k
-      const int kk = i / (R / 16), r = 16 * (i - kk * (R / 16)), k = k0 + kk;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k < K && r0 + r < rows)
-        v = __ldg(reinterpret_cast<const uint4*>(src + (long long)k * sk + r0 + r));
-      const uint8_t* const b = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) dst[cm_off(r + j, kk >> 4) + (kk & 15)] = (int8_t)b[j];
-    }
-  } else {
-#pragma unroll
-    for (int i = tid; i < R * 4; i += NT) {
-      const int r = i >> 2, seg = i & 3, k = k0 + 16 * seg;
-      uint32_t v[4] = {0, 0, 0, 0};
-      if (r0 + r < rows) {
-        const int8_t* const p = src + (long long)(r0 + r) * sr;
-#pragma unroll
-        for (int b = 0; b < 16; ++b)
-          if (k + b < K) v[b >> 2] |= (uint32_t)(uint8_t)p[(long long)(k + b) * sk] << (8 * (b & 3));
-      }
-      *reinterpret_cast<uint4*>(dst + cm_off(r, seg)) = make_uint4(v[0], v[1], v[2], v[3]);
-    }
-  }
 }
 
 constexpr int BRES_STEPS = 2;  // K3 keeps its block's weights resident up to this many steps
@@ -172,8 +100,7 @@ void smem_layout(Geo& g) {
   g.off_tables = g.off_cols + (MODE != RAW ? BN * 16 : BN * 4);
   g.off_rtile = g.off_tables + (MODE == RES ? 2 * 256 * 4 : 0);
   g.off_flag = g.off_rtile + T::RSLOTS * BM * T::RS;
-  g.off_zp = g.off_flag + (MODE == RQ ? 16 : 0);  // the batched mode's zero-point terms
-  g.smem = g.off_zp;
+  g.smem = g.off_flag + (MODE == RQ ? 16 : 0);
 }
 
 // A block of the grid (x: N tile + n_tiles * mb, z: split of K) walks the M
@@ -182,14 +109,12 @@ void smem_layout(Geo& g) {
 // to STAGES - 1 stages ahead of the products, and up to AHEAD items ahead,
 // so that the next items' copies (and K3's next residual tiles) are in
 // flight while this item's epilogue runs.  `ws` is K2's split workspace.
-// BMM: x and wk are the product's A and B, read through bq (unsplit).
-template <int MODE, int BM, int BN, bool BMM = false>
+template <int MODE, int BM, int BN>
 __global__ void __launch_bounds__(2 * BM)
     igemm_hopper(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
                  void* __restrict__ out, const int8_t* __restrict__ residual,
                  const int32_t* __restrict__ bias, const int32_t* __restrict__ mult,
-                 const int32_t* __restrict__ shift, int32_t* __restrict__ ws, Epi e, Geo g,
-                 Bmm bq) {
+                 const int32_t* __restrict__ shift, int32_t* __restrict__ ws, Epi e, Geo g) {
   using S = Tiles<MODE, BM, BN>;
   constexpr int NT = S::NT, ST = S::STAGES;
   constexpr bool RES_ = MODE == RES;
@@ -198,14 +123,6 @@ __global__ void __launch_bounds__(2 * BM)
   // no static shared memory: the launch grants the dynamic the whole 227 KB
   extern __shared__ __align__(128) int8_t smem[];
   const int tid = threadIdx.x, seg = tid & 3;
-  if constexpr (BMM) {
-    const int z = blockIdx.y, z0 = z / bq.nb1, z1 = z - z0 * bq.nb1;
-    x += z0 * bq.a_sb0 + z1 * bq.a_sb1;
-    wk += z0 * bq.b_sb0 + z1 * bq.b_sb1;
-    const long long o = (long long)z * g.M * g.cout;
-    out = MODE == RAW ? (void*)(static_cast<int32_t*>(out) + o)
-                      : (void*)(static_cast<int8_t*>(out) + o);
-  }
   const int nt_idx = blockIdx.x % g.n_tiles;
   const int n0 = nt_idx * BN, mb = blockIdx.x / g.n_tiles;
   const int n_items = mb < g.m_tiles ? (g.m_tiles - 1 - mb) / g.gm + 1 : 0;
@@ -228,17 +145,6 @@ __global__ void __launch_bounds__(2 * BM)
   int32_t* const tr = tl + 256;
   int8_t* const rt = smem + g.off_rtile;
   int* const s_last = reinterpret_cast<int*>(smem + g.off_flag);  // K2's split: arrived last
-  // BMM: the item's zero-point terms, -za colsum(B) + K za zb a column and
-  // -zb rowsum(A) a row, and this thread's partial sums of the staged
-  // segments tid + j NT (row (tid + j NT) / 4 of the tile, segment tid % 4)
-  int32_t* const colz = reinterpret_cast<int32_t*>(smem + g.off_zp);
-  int32_t* const rowz = colz + BN;
-  constexpr int CPT = BMM ? 4 * BN / NT : 1, RPT = BMM ? 4 * BM / NT : 1;
-  int32_t cpart[CPT], rpart[RPT];
-#pragma unroll
-  for (int j = 0; j < CPT; ++j) cpart[j] = 0;
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) rpart[j] = 0;
 
   // the producer: the item and step it stages next, its rows, its segment's
   // (ky, kx, ci)
@@ -246,7 +152,7 @@ __global__ void __launch_bounds__(2 * BM)
   int a_iy[A_PER], a_ix[A_PER];
   bool a_ok[A_PER];
   int ky = ky0, kx = kx0, ci = ci0;
-  int p_item = 0, p_step = 0, issued = 0, p_m0 = 0;
+  int p_item = 0, p_step = 0, issued = 0;
 
   auto begin_conv = [&](int item) {
     const int m0 = (mb + item * g.gm) * BM;
@@ -356,30 +262,11 @@ __global__ void __launch_bounds__(2 * BM)
     }
   };
 
-  // the batched mode's item and step: both operands through their strides
-  auto begin_item = [&](int item) {
-    if constexpr (BMM)
-      p_m0 = (mb + item * g.gm) * BM;
-    else
-      begin_conv(item);
-  };
-  auto stage = [&](int slot, int kstep) {
-    if constexpr (BMM) {
-      int8_t* const as = smem + slot * g.stage_bytes;
-      stage_operand<BM, NT>(as, x, bq.a_sm, bq.a_sk, p_m0, g.M, kstep * KSTEP, g.K, bq.a_mode,
-                            copy16);
-      stage_operand<BN, NT>(as + BM * KSTEP, wk, bq.b_sn, bq.b_sk, n0, g.cout, kstep * KSTEP,
-                            g.K, bq.b_mode, copy16);
-    } else {
-      stage_conv(slot, kstep);
-    }
-  };
-
   // issues stages while the ring has room, up to AHEAD items ahead of c_item
   auto produce = [&](int consumed, int c_item) {
     while (issued - consumed < ST - 1 && p_item < n_items && p_item <= c_item + S::AHEAD) {
-      if (p_step == 0) begin_item(p_item);
-      stage(issued % ST, kbeg + p_step);
+      if (p_step == 0) begin_conv(p_item);
+      stage_conv(issued % ST, kbeg + p_step);
       cp_async_commit();
       ++issued;
       if (++p_step == nst) {
@@ -430,22 +317,6 @@ __global__ void __launch_bounds__(2 * BM)
       wgmma_acc<BN>(acc, gmma_desc(as + wg * 4096 + kk * 256, 128, 512),
                     gmma_desc(bs + kk * 256, 128, 512));
     wgmma_commit();
-    if constexpr (BMM) {  // the zero points' sums, while the product runs (zeros past K)
-      if (bq.za != 0) {
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int i = tid + j * NT;
-          cpart[j] = byte_sum16(bs + cm_off(i >> 2, i & 3), cpart[j]);
-        }
-      }
-      if (bq.zb != 0) {
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          const int i = tid + j * NT;
-          rpart[j] = byte_sum16(as + cm_off(i >> 2, i & 3), rpart[j]);
-        }
-      }
-    }
     wgmma_wait0();
     ++consumed;
     if (++c_step < nst) continue;
@@ -453,42 +324,6 @@ __global__ void __launch_bounds__(2 * BM)
     // the epilogue of item c_item
     const int mt_idx = mb + c_item * g.gm, m0 = mt_idx * BM;
     bool run_epilogue = true;
-    if constexpr (BMM) {  // the zero points' terms, added in int32 wraparound
-      if (bq.za != 0 || bq.zb != 0) {
-        const int32_t kzz = (int32_t)((uint32_t)g.K * (uint32_t)bq.za * (uint32_t)bq.zb);
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {  // the 4 lanes of a row hold its 4 segments
-          int32_t c = cpart[j];
-          c = wrap_add(c, __shfl_xor_sync(0xffffffffu, c, 1));
-          c = wrap_add(c, __shfl_xor_sync(0xffffffffu, c, 2));
-          if ((tid & 3) == 0)
-            colz[(tid + j * NT) >> 2] = wrap_sub(kzz, (int32_t)((uint32_t)bq.za * (uint32_t)c));
-          cpart[j] = 0;
-        }
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          int32_t r = rpart[j];
-          r = wrap_add(r, __shfl_xor_sync(0xffffffffu, r, 1));
-          r = wrap_add(r, __shfl_xor_sync(0xffffffffu, r, 2));
-          if ((tid & 3) == 0)
-            rowz[(tid + j * NT) >> 2] = (int32_t)(0u - (uint32_t)bq.zb * (uint32_t)r);
-          rpart[j] = 0;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int jb = 0; jb < BN / 8; ++jb) {
-          const int cl = 8 * jb + 2 * (lane & 3);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int32_t rv = rowz[rl0 + 8 * h];
-#pragma unroll
-            for (int e1 = 0; e1 < 2; ++e1)
-              acc[4 * jb + 2 * h + e1] =
-                  wrap_add(acc[4 * jb + 2 * h + e1], wrap_add(colz[cl + e1], rv));
-          }
-        }
-      }
-    }
     if constexpr (MODE == RQ) {
       if (gridDim.z > 1) {  // a split: add into the workspace; the last block on
         int32_t* const cnt = ws + (long long)g.M * g.cout;
@@ -656,18 +491,16 @@ inline bool split_ok(int ks, const Geo& g) {
          (ks - 1) * g.kper < g.steps;
 }
 
-// Launches the kernel over a grid of (N tiles x gm, nb, ks): gm M-tile lanes,
+// Launches the kernel over a grid of (N tiles x gm, 1, ks): gm M-tile lanes,
 // each block walking every gm-th M tile of its N tile, with gm as large as
 // the card holds blocks at once (the occupancy API, once per kernel and
-// shared-memory size) and at most the M tiles; nb products in the batched
-// mode (bq), else 1.
-template <int MODE, int BM, int BN, bool BMM = false>
+// shared-memory size) and at most the M tiles.
+template <int MODE, int BM, int BN>
 int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* residual,
                 const int32_t* bias, const int32_t* mult, const int32_t* shift, int32_t* ws,
-                const Epi& e, Geo g, int ks, cudaStream_t stream, const Bmm& bq = Bmm{},
-                int nb = 1) {
+                const Epi& e, Geo g, int ks, cudaStream_t stream) {
   using T = Tiles<MODE, BM, BN>;
-  auto kern = igemm_hopper<MODE, BM, BN, BMM>;
+  auto kern = igemm_hopper<MODE, BM, BN>;
   static int sms = 0;  // once per kernel: the SM count, the shared memory ceiling
   static int occ_smem[8], occ_blocks[8], n_occ = 0;  // blocks an SM, by shared memory
   if (sms == 0) {
@@ -680,7 +513,6 @@ int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* resi
     sms = n;
   }
   smem_layout<MODE, BM, BN>(g);
-  if (BMM) g.smem += (BN + BM) * 4;  // colz, rowz
   if (g.smem > (int)hop::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   int per_sm = 0;
   for (int i = 0; i < n_occ; ++i)
@@ -697,27 +529,25 @@ int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* resi
   }
   g.m_tiles = (g.M + BM - 1) / BM;
   g.n_tiles = (g.cout + BN - 1) / BN;
-  g.gm = std::max(1, std::min(g.m_tiles, sms * per_sm / (g.n_tiles * ks * nb)));
+  g.gm = std::max(1, std::min(g.m_tiles, sms * per_sm / (g.n_tiles * ks)));
   g.by_ohow = hop::FastDiv::make(g.oh * g.ow);
   g.by_ow = hop::FastDiv::make(g.ow);
-  const dim3 grid(g.n_tiles * g.gm, nb, ks);
-  kern<<<grid, T::NT, g.smem, stream>>>(x, wk, out, residual, bias, mult, shift, ws, e, g, bq);
+  const dim3 grid(g.n_tiles * g.gm, 1, ks);
+  kern<<<grid, T::NT, g.smem, stream>>>(x, wk, out, residual, bias, mult, shift, ws, e, g);
   return (int)cudaGetLastError();
 }
 
-// Launches MODE (K1's tiled path and K2 in RQ, K3, K4's GEMM mode in RAW;
-// K1's batched mode with BMM) at the tile (P_BM, P_BN) from {64, 128}^2.
-template <int MODE, bool BMM = false>
+// Launches MODE (K1's tiled path and K2 in RQ, K3, K4's GEMM mode in RAW)
+// at the tile (P_BM, P_BN) from {64, 128}^2.
+template <int MODE>
 int launch_tiled(const int8_t* x, const int8_t* wk, void* out, const int8_t* residual,
                  const int32_t* bias, const int32_t* mult, const int32_t* shift, int32_t* ws,
-                 const Epi& e, const Geo& g, int ks, const int32_t* p, cudaStream_t s,
-                 const Bmm& bq = Bmm{}, int nb = 1) {
-  if (g.M <= 0 || g.cout <= 0 || nb <= 0) return (int)cudaGetLastError();
+                 const Epi& e, const Geo& g, int ks, const int32_t* p, cudaStream_t s) {
+  if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
   const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
 #define TK_TILE(BM, BN)                                                                        \
   if (bm == BM && bn == BN)                                                                    \
-    return launch_tile<MODE, BM, BN, BMM>(x, wk, out, residual, bias, mult, shift, ws, e, g, ks, \
-                                          s, bq, nb);
+    return launch_tile<MODE, BM, BN>(x, wk, out, residual, bias, mult, shift, ws, e, g, ks, s);
   TK_TILE(64, 64)
   TK_TILE(64, 128)
   TK_TILE(128, 64)

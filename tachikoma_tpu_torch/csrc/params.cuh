@@ -36,11 +36,13 @@ enum Param {
   P_FA_STAGES, P_FA_BK,
   // K1's path: 0 tiled (igemm_hopper.cuh), 1 skinny (qgemm_rq.cu)
   P_QG_PATH,
-  // K1's batched mode (igemm_hopper.cuh Bmm): the products, the inner batch
+  // K1's batched mode (qbmm_hopper.cu Opnd): the products, the inner batch
   // dimension, each operand's staging mode and element strides (batch 0,
   // batch 1, row, k), the zero points of A and B
   P_BMM_NB, P_BMM_NB1, P_A_MODE, P_B_MODE, P_A_SB0, P_A_SB1, P_A_SM, P_A_SK, P_B_SB0, P_B_SB1,
   P_B_SN, P_B_SK, P_BMM_ZA, P_BMM_ZB,
+  // its path (0 tiles, 1 M <= 16)
+  P_BMM_PATH,
   P_COUNT
 };
 

@@ -57,23 +57,8 @@
 // Integer sums wrap alike in any order, so every split gives the same
 // integers on every run.
 //
-// K1's batched mode (tk_qbmm_rq, tk_qbmm_raw) runs tk.bmm_rq and the
-// unfused qnn.batch_matmul, which the JAX package leaves to XLA
-// (runtime/fuse.py tk.bmm_rq, ops/jax_ops.py qnn.batch_matmul): the
-// attention's two products, 24 calls per int8 BERT-base forward, each
-// (B H) products of (S, D) x (D, S) or (S, S) x (S, D).  A call moves about
-// 1.6 MB at BERT-base b4 (0.5 us of bytes) and does 0.1 GOP, so it is
-// latency-bound: one launch for all its products (the batch as the grid's
-// y dimension, never a launch per head) on the tiled path's wgmma body in
-// its RQ or RAW epilogue, unsplit.  Both operands are activations, read in
-// place through their strides: q and k (K-major) in 16-byte cp.async
-// copies; v, whose k is its row, 16 rows of one k a load, transposed into
-// the K-major tile a byte at a time in shared memory (wgmma takes int8
-// operands K-major only); ragged shapes a byte a load.  The zero points
-// fold in the epilogue, (a - za)(b - zb) = ab - za colsum(b) - zb
-// rowsum(a) + K za zb, the sums taken from the staged tiles with dp4a
-// while the product runs, so the context product (za = -128, the softmax
-// output) needs no work on the host.
+// K1's batched mode (tk_qbmm_rq, tk_qbmm_raw) is a kernel of its own:
+// qbmm_hopper.cu.
 #include "igemm_hopper.cuh"
 
 // The parts of the skinny path that tools/gemm_probe.py cuts out, one at a
@@ -322,33 +307,6 @@ inline bool tiled_geo(const int32_t* p, const void* out, igemm::Geo& g) {
   return true;
 }
 
-// The batched mode's geometry (the GEMM as a 1x1 conv of 1 x 1 images,
-// unsplit), its operands and its products; false for what it does not take.
-inline bool bmm_geo(const int32_t* p, const void* out, igemm::Geo& g, igemm::Bmm& bq, int& nb) {
-  nb = p[P_BMM_NB];
-  if (p[P_KH] != 1 || p[P_KW] != 1 || p[P_H] != 1 || p[P_W] != 1 || p[P_KS] != 1 ||
-      !igemm::make_geo(p, g) || !igemm::split_ok(1, g) || nb < 0 || nb > 65535 ||
-      p[P_BMM_NB1] < 1)
-    return false;
-  for (const int m : {p[P_A_MODE], p[P_B_MODE]})
-    if (m < igemm::KMAJOR16 || m > igemm::BYTES) return false;
-  g.o_vec = g.cout % 16 == 0 && (uintptr_t)out % 16 == 0;
-  bq.nb1 = p[P_BMM_NB1];
-  bq.a_mode = p[P_A_MODE];
-  bq.b_mode = p[P_B_MODE];
-  bq.a_sb0 = p[P_A_SB0];
-  bq.a_sb1 = p[P_A_SB1];
-  bq.a_sm = p[P_A_SM];
-  bq.a_sk = p[P_A_SK];
-  bq.b_sb0 = p[P_B_SB0];
-  bq.b_sb1 = p[P_B_SB1];
-  bq.b_sn = p[P_B_SN];
-  bq.b_sk = p[P_B_SK];
-  bq.za = p[P_BMM_ZA];
-  bq.zb = p[P_BMM_ZB];
-  return true;
-}
-
 }  // namespace tk
 
 // K1.  wk is w packed (Kp / 64, N, 64); P_QG_PATH 0 runs the tiled path at
@@ -386,37 +344,4 @@ extern "C" int tk_qgemm_raw(const int8_t* x, const int8_t* wk, int32_t* out, con
   if (!tiled_geo(p, out, g)) return (int)cudaErrorInvalidValue;
   return igemm::launch_tiled<igemm::RAW>(x, wk, out, nullptr, bias, nullptr, nullptr, nullptr,
                                          igemm::Epi{}, g, p[P_KS], p, s);
-}
-
-// K1's batched mode, requantizing: P_BMM_NB products (M, K) x (K, N) of int8
-// a and b read through their strides and modes (P_A_*, P_B_*; igemm_hopper.cuh
-// Bmm), each (a - P_BMM_ZA)(b - P_BMM_ZB) plus the bias (N,), requantized
-// with the per-column mult and shift (N,) into out (nb, M, N) int8; the
-// tile (P_BM, P_BN), unsplit.  Returns cudaGetLastError()
-// (cudaErrorInvalidValue for what the mode does not take).
-extern "C" int tk_qbmm_rq(const int8_t* a, const int8_t* b, int8_t* out, const int32_t* bias,
-                          const int32_t* mult, const int32_t* shift, const int32_t* p,
-                          void* stream) {
-  using namespace tk;
-  igemm::Geo g;
-  igemm::Bmm bq;
-  int nb = 0;
-  if (!bmm_geo(p, out, g, bq, nb)) return (int)cudaErrorInvalidValue;
-  return igemm::launch_tiled<igemm::RQ, true>(a, b, out, nullptr, bias, mult, shift, nullptr,
-                                              igemm::make_epi(p), g, 1, p, (cudaStream_t)stream,
-                                              bq, nb);
-}
-
-// K1's batched mode in the RAW epilogue (qnn.batch_matmul): out (nb, M, N)
-// int32 = the products plus the bias as tk_qbmm_rq's, in int32 wraparound.
-extern "C" int tk_qbmm_raw(const int8_t* a, const int8_t* b, int32_t* out, const int32_t* bias,
-                           const int32_t* p, void* stream) {
-  using namespace tk;
-  igemm::Geo g;
-  igemm::Bmm bq;
-  int nb = 0;
-  if (!bmm_geo(p, out, g, bq, nb)) return (int)cudaErrorInvalidValue;
-  return igemm::launch_tiled<igemm::RAW, true>(a, b, out, nullptr, bias, nullptr, nullptr, nullptr,
-                                               igemm::Epi{}, g, 1, p, (cudaStream_t)stream, bq,
-                                               nb);
 }

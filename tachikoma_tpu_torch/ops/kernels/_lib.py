@@ -45,7 +45,7 @@ PARAMS = (
     "fa_w", "fa_dq", "fa_dv", "fa_cs", "fa_kg", "fa_vec", "dw_rp",
     "fa_stages", "fa_bk", "qg_path",
     "bmm_nb", "bmm_nb1", "a_mode", "b_mode", "a_sb0", "a_sb1", "a_sm", "a_sk", "b_sb0", "b_sb1",
-    "b_sn", "b_sk", "bmm_za", "bmm_zb",
+    "b_sn", "b_sk", "bmm_za", "bmm_zb", "bmm_path",
 )
 
 # The block tiles (BM, BN) that the tiled paths of K1 and K4's GEMM mode, K2,
@@ -82,8 +82,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # source -> (C entry, number of tensor pointers it takes)
 SOURCES = {
-    "qgemm_rq.cu": (("tk_qgemm_rq", 7), ("tk_qgemm_raw", 4), ("tk_qbmm_rq", 6),
-                    ("tk_qbmm_raw", 4)),
+    "qgemm_rq.cu": (("tk_qgemm_rq", 7), ("tk_qgemm_raw", 4)),
+    "qbmm_hopper.cu": (("tk_qbmm_rq", 6), ("tk_qbmm_raw", 4)),
     "qconv_igemm_hopper.cu": (("tk_qconv_rq", 7), ("tk_qconv_rq_res", 7), ("tk_qconv_raw", 4)),
     "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4), ("tk_qdwconv_direct", 6)),
     "flash_attn.cu": (("tk_flash_attn", 4),),

@@ -41,16 +41,21 @@ wraparound arithmetic), so the kernel is a pure int8 GEMM.
 
 K1's batched mode (`qbmm_rq`, `qbmm_raw`; `qbmm_int8` is the entry of
 tk.bmm_rq and qnn.batch_matmul) runs a batch of products (a - za) @ (b - zb)
-on the same `wgmma` body, the batch as the grid's y dimension: the
-attention's scores q . k^T and context softmax . v.  Both operands are
-activations, read in place through their strides (`_bmm_launch`), never
-packed or cached; the kernel folds the zero points (the softmax output's
--128) from the column and row sums of the tiles it stages.  Neither
-`torch.matmul` nor `torch._int_mm` takes a batched int8 product on CUDA.
+on a kernel of its own (`csrc/qbmm_hopper.cu`), the batch as the grid's y
+dimension: the attention's scores q . k^T and context softmax . v.  Both
+operands are activations, read in place through their strides
+(`_bmm_launch`), never packed or cached.  `bmm_plan` picks its path: M <=
+SMALL_M (the decode step) on CUDA cores with no 64-row tile, else `wgmma`
+tiles of BM x BN with K staged whole where it fits; `_stage_mode` how each
+operand reaches shared memory.  A zero point of -128 is flipped into its
+operand (read as uint8); any other is folded from the staged tiles' sums.
+Neither `torch.matmul` nor `torch._int_mm` takes a batched int8 product on
+CUDA.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...tune.database import lookup_config
@@ -422,20 +427,62 @@ def qmatmul_int8(x, w, bias=None, multiplier=None, shift=None, out_zp: int = 0,
 # K1's batched mode: qnn.batch_matmul (raw) and tk.bmm_rq (requantized)
 # ---------------------------------------------------------------------------
 
-BMM_MODES = {"kmajor16": 0, "rows16": 1, "bytes": 2}  # csrc igemm_hopper.cuh OpMode
+BMM_STAGES = {"kmajor16": 0, "kmajor": 1, "rows": 2}  # csrc/qbmm_hopper.cu Stage
+BMM_PATHS = {"tiles": 0, "small": 1}                  # csrc/qbmm_hopper.cu Path
+SMALL_M = 16          # the small path takes M <= SMALL_M (csrc S_MAX_M)
+BMM_BN = (64, 256)    # the columns of a tile of the tiled path (n64 wgmma sub-tiles)
+
+
+def bmm_kc(k: int) -> int:
+    """The bytes of K a chunk of the tiled path, as the kernel derives them:
+    K whole where it is at most 256 bytes (the least of 64, 128 and 256
+    that holds it: D 64, S 128 and 197), else chunks of 256 bytes in two
+    buffers (csrc/qbmm_hopper.cu make_args)."""
+    return next((c for c in (64, 128) if k <= c), 256)
 
 
 def bmm_plan(nb: int, m: int, k: int, n: int, sms: int = 132) -> dict:
-    """The tile of a batched call of nb products (M, K) x (K, N): 128 rows
-    (by 128 columns where N > 64) where those tiles of all the products fill
-    the SMs RQ_WIDE_FILL times over, else 64 x 64 (the attention products of
-    BERT-base b4, 48 of (128, 64, 128) and (128, 128, 64), are 192 tiles of
-    64 x 64).  The batched mode is not split: K is a head dimension or a
-    sequence."""
-    bn = 128 if n > 64 else 64
-    if nb * -(-m // 128) * -(-n // bn) >= RQ_WIDE_FILL * sms:
-        return {"bm": 128, "bn": bn}
-    return {"bm": 64, "bn": 64}
+    """The launch of a batched call of nb products (M, K) x (K, N).
+
+    {"path": "small"} at M <= SMALL_M (the decode step's products at M =
+    1): a warp a row and a group of columns, no `wgmma` and no 64-row tile.
+    Else {"path": "tiles", "bm", "bn"}, from tools/bmm_probe.py --plans on
+    the H100 (every tile at every call of the main path), K staged as
+    `bmm_kc` says:
+      * BN 256 where N is at most 256 but not a multiple of 16 and the
+        products' 256-column tiles fill half the SMs (ViT-B/16 b8's N = 197:
+        each row of the tile leaves whole, in aligned 16-byte stores; 19.9
+        us a call against 21.4 at BN 64), or where N is 1024 or more (the
+        ring's scores: A read from L2 a quarter as often; 94.9 against 100.7
+        us at 2048 rows), else 64 (a thread requantizes 32 outputs, not
+        128: BERT-base b4's scores 4.9 us against 8.4);
+      * BM 128 where M > 64 and those tiles fill the SMs, or M is 1024 or
+        more (the ring's context at 2048 rows: 65.5 against 72.1 us), else
+        64."""
+    if m <= SMALL_M:
+        return {"path": "small"}
+    bm = 128 if m > 64 and (nb * -(-m // 128) >= sms or m >= 1024) else 64
+    whole_rows = 64 < n <= 256 and n % 16 and 2 * nb * -(-m // bm) >= sms
+    bn = 256 if whole_rows or n >= 1024 else 64
+    return {"path": "tiles", "bm": bm, "bn": bn}
+
+
+def bmm_plans(m: int) -> list[dict]:
+    """Every launch the batched mode can make of a call with M rows: the
+    small path where it takes M, and the tiles at every BM and BN
+    (tools/bmm_probe.py --plans, the card tests)."""
+    plans = [{"path": "small"}] if m <= SMALL_M else []
+    return plans + [{"path": "tiles", "bm": bm, "bn": bn} for bm in (64, 128) for bn in BMM_BN]
+
+
+def _check_plan(name: str, plan: dict, m: int) -> None:
+    """Raise for a plan the kernel does not take."""
+    path = plan.get("path")
+    if path == "small":
+        if m > SMALL_M:
+            raise ValueError(f"{name}: the small path takes M <= {SMALL_M}, got M {m}")
+    elif path != "tiles" or plan.get("bm") not in (64, 128) or plan.get("bn") not in BMM_BN:
+        raise ValueError(f"{name}: plan {plan} is not a launch of the kernel")
 
 
 def _logical(a: torch.Tensor, b: torch.Tensor, transpose_a: bool, transpose_b: bool):
@@ -490,31 +537,38 @@ def _merge_batch(batch, sa, sb):
     return [(1, 0, 0)] * (2 - len(merged)) + merged
 
 
-def _stage_mode(t: torch.Tensor, sr: int, sk: int, rows: int, k: int, sbs) -> int:
+def _stage_mode(t: torch.Tensor, sr: int, sk: int, rows: int, sbs) -> str | None:
     """How the kernel stages an operand whose element (r, k) sits at r sr + k
-    sk (BMM_MODES): 16-byte copies where k is contiguous, 16 rows of one k a
-    load where the rows are, else a byte a load."""
-    aligned = t.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in sbs)
-    if aligned and sk == 1 and k % 16 == 0 and sr % 16 == 0:
-        return BMM_MODES["kmajor16"]
-    if aligned and sr == 1 and rows % 16 == 0 and sk % 16 == 0:
-        return BMM_MODES["rows16"]
-    return BMM_MODES["bytes"]
+    sk (`BMM_STAGES`): "kmajor16" (16-byte cp.async copies; a zero point of
+    -128 flipped in shared memory once they land) where k is contiguous and
+    every row starts 16-byte aligned; "kmajor" (aligned 16-byte loads
+    realigned in registers) where k is contiguous otherwise (the softmax
+    output's 197-byte rows); "rows" (16 rows of one k a load, transposed in
+    registers) where the rows are contiguous (v); None where neither is
+    (the operand is copied first)."""
+    if sk == 1:
+        aligned = (t.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in sbs)
+                   and (rows == 1 or sr % 16 == 0))
+        return "kmajor16" if aligned else "kmajor"
+    return "rows" if sr == 1 else None
 
 
 def _bmm_launch(name: str, a: torch.Tensor, b: torch.Tensor, lhs_zero_point: int,
                 rhs_zero_point: int, transpose_a: bool, transpose_b: bool, plan):
     """The operands and parameters of a batched launch: the batch axes
     broadcast and merged (the operands copied as they are laid out where
-    more than two would remain), each operand's strides and staging mode,
-    the zero points (the kernel folds them: -za colsum(B) - zb rowsum(A) + K
-    za zb, its sums taken from the staged tiles).  Returns (output shape, A,
-    B, parameters)."""
+    more than two would remain), the plan (`bmm_plan`'s where None), each
+    operand's strides and staging mode (an operand that no mode takes, or
+    an A with its rows contiguous on the small path, copied contiguous
+    first), the zero points (the kernel flips a -128 into its operand and
+    folds any other: -za colsum(B) - zb rowsum(A) + K za zb).  Returns
+    (output shape, A, B, parameters)."""
     for key, t in (("a", a), ("b", b)):
         if t.dtype != torch.int8:
             raise NotImplementedError(f"{name}: {key} is {t.dtype}; the kernel takes int8 x int8")
         if t.device != a.device:
             raise ValueError(f"{name}: {key} is on {t.device}, expected {a.device}")
+    za, zb = int(lhs_zero_point), int(rhs_zero_point)
     A, B = _logical(a, b, transpose_a, transpose_b)
     m, k = A.shape[-2:]
     if B.shape[-2] != k:
@@ -522,30 +576,60 @@ def _bmm_launch(name: str, a: torch.Tensor, b: torch.Tensor, lhs_zero_point: int
     n = B.shape[-1]
     batch = tuple(torch.broadcast_shapes(A.shape[:-2], B.shape[:-2]))
     A, B = A.expand(batch + (m, k)), B.expand(batch + (k, n))
-    dims = _merge_batch(batch, A.stride()[:-2], B.stride()[:-2])
-    if dims is None:  # the operands copied as they are laid out, broadcast
-        A, B = _logical(a.expand(batch + tuple(a.shape[-2:])).contiguous(),
-                        b.expand(batch + tuple(b.shape[-2:])).contiguous(),
-                        transpose_a, transpose_b)
-        dims = _merge_batch(batch, A.stride()[:-2], B.stride()[:-2])
-    (n0, a0, b0), (n1, a1, b1) = dims
-    nb = n0 * n1
+    nb = int(np.prod(batch)) if batch else 1
     if nb > 65535:
         raise ValueError(f"{name}: {nb} products, the kernel takes at most 65535")
-    a_sm, a_sk = A.stride()[-2:]
-    b_sk, b_sn = B.stride()[-2:]
+    if plan is None:
+        plan = bmm_plan(nb, m, k, n, sm_count(a.device.index))
+    _check_plan(name, plan, m)
+    while True:
+        dims = _merge_batch(batch, A.stride()[:-2], B.stride()[:-2])
+        if dims is None:  # the operands copied as they are laid out, broadcast
+            A, B = _logical(a.expand(batch + tuple(a.shape[-2:])).contiguous(),
+                            b.expand(batch + tuple(b.shape[-2:])).contiguous(),
+                            transpose_a, transpose_b)
+            dims = _merge_batch(batch, A.stride()[:-2], B.stride()[:-2])
+        (n0, a0, b0), (n1, a1, b1) = dims
+        a_sm, a_sk = A.stride()[-2:]
+        b_sk, b_sn = B.stride()[-2:]
+        # a size-1 axis's stride is never read: the one that names a mode
+        a_sk, b_sk = (1, 1) if k == 1 else (a_sk, b_sk)
+        a_sm, b_sn = 1 if m == 1 else a_sm, 1 if n == 1 else b_sn
+        a_mode = _stage_mode(A, a_sm, a_sk, m, (a0, a1))
+        b_mode = _stage_mode(B, b_sn, b_sk, n, (b0, b1))
+        copy_a = a_mode is None or (plan["path"] == "small" and a_mode == "rows")
+        if not copy_a and b_mode is not None:
+            break
+        A = A.contiguous() if copy_a else A
+        B = B.contiguous() if b_mode is None else B
     strides = dict(a_sb0=a0, a_sb1=a1, a_sm=a_sm, a_sk=a_sk, b_sb0=b0, b_sb1=b1, b_sn=b_sn,
                    b_sk=b_sk)
     if any(abs(v) >= 1 << 31 for v in strides.values()):
         raise ValueError(f"{name}: strides {strides} do not fit the kernel's int32 parameters")
-    if plan is None:
-        plan = bmm_plan(nb, m, k, n, sm_count(a.device.index))
-    params = dict(n=m, h=1, w=1, cin=k, kh=1, kw=1, cout=n, oh=1, ow=1, sh=1, sw=1,
-                  bm=plan["bm"], bn=plan["bn"], ks=1, kper=-(-k // KSTEP), bmm_nb=nb,
-                  bmm_nb1=n1, a_mode=_stage_mode(A, a_sm, a_sk, m, k, (a0, a1)),
-                  b_mode=_stage_mode(B, b_sn, b_sk, n, k, (b0, b1)),
-                  bmm_za=int(lhs_zero_point), bmm_zb=int(rhs_zero_point), **strides)
+    params = dict(n=m, cin=k, cout=n, bmm_path=BMM_PATHS[plan["path"]], bm=plan.get("bm", 0),
+                  bn=plan.get("bn", 0), bmm_nb=n0 * n1, bmm_nb1=n1,
+                  a_mode=BMM_STAGES[a_mode], b_mode=BMM_STAGES[b_mode], bmm_za=za, bmm_zb=zb,
+                  **strides)
     return batch + (m, n), A, B, params
+
+
+def launch_summary(name: str, a: torch.Tensor, b: torch.Tensor, *, lhs_zero_point: int = 0,
+                   rhs_zero_point: int = 0, transpose_a: bool = False,
+                   transpose_b: bool = False, plan: dict | None = None, **_) -> str:
+    """The launch of one batched call as `_bmm_launch` makes it: the path
+    and tile, the chunks of K, the products, each operand's staging mode and
+    which operands are read as uint8 (a zero point of -128 flipped in)."""
+    _, _, _, p = _bmm_launch(name, a, b, lhs_zero_point, rhs_zero_point, transpose_a,
+                             transpose_b, plan)
+    stages = {v: key for key, v in BMM_STAGES.items()}
+    if p["bmm_path"] == BMM_PATHS["small"]:
+        head = f"small M {p['n']}"
+    else:
+        kc = bmm_kc(p["cin"])
+        head = f"tiles {p['bm']}x{p['bn']} kc {kc} ({-(-p['cin'] // kc)} chunks)"
+    u8 = "".join(s for s, z in (("A", lhs_zero_point), ("B", rhs_zero_point)) if z == -128)
+    return (f"{head}, {p['bmm_nb']} products, A {stages[p['a_mode']]}, B {stages[p['b_mode']]}"
+            + (f", u8 {u8}" if u8 else ""))
 
 
 def qbmm_rq(a: torch.Tensor, b: torch.Tensor, bias, mult: torch.Tensor, shift: torch.Tensor, *,
@@ -557,8 +641,9 @@ def qbmm_rq(a: torch.Tensor, b: torch.Tensor, bias, mult: torch.Tensor, shift: t
     rq_izp, mult, shift) + out_zp, qmin, qmax) -> int8 (batch..., M, N), the
     products batched over the broadcast leading axes, each operand read in
     place through its strides (a head-split view, `v` N-major), the zero
-    points folded in the kernel.  bias None or int32 (N,), mult / shift
-    int32 (N,); `plan` ({"bm", "bn"}) forces a tile, else `bmm_plan`'s."""
+    points applied in the kernel.  bias None or int32 (N,), mult / shift
+    int32 (N,); `plan` (as `bmm_plan` gives it) forces a launch, else
+    `bmm_plan`'s."""
     kw = dict(lhs_zero_point=lhs_zero_point, rhs_zero_point=rhs_zero_point,
               transpose_a=transpose_a, transpose_b=transpose_b, rq_izp=rq_izp, out_zp=out_zp,
               rounding=rounding, qmin=qmin, qmax=qmax)

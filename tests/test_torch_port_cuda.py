@@ -1416,38 +1416,82 @@ def _heads(rng, b, s, h, d, device):
 
 def _bmm_case(rng, device, case):
     """(a, b, keyword arguments) of the attention products: scores q . k^T of
-    head-split views, context softmax . v with the softmax's zero point."""
+    head-split views, context softmax . v with the softmax's zero point; the
+    decode step's (d-: q's row against the (B, H, S, D) caches, the softmax
+    row against V; p-: 8 rows, a prompt's or a verify step's); the ring's
+    (r-: contiguous chunks of S rows)."""
     kind, b, s, h, d = case
     if kind == "scores":
         return (_heads(rng, b, s, h, d, device), _heads(rng, b, s, h, d, device),
                 dict(transpose_b=True))
-    return (_dev(rng, (b, h, s, s), device), _heads(rng, b, s, h, d, device),
-            dict(lhs_zero_point=-128))
+    if kind == "context":
+        return (_dev(rng, (b, h, s, s), device), _heads(rng, b, s, h, d, device),
+                dict(lhs_zero_point=-128))
+    cache = _dev(rng, (b, h, s, d), device)
+    rows = 8 if kind.startswith("p-") else 1
+    if kind in ("d-scores", "p-scores"):
+        return _heads(rng, b, rows, h, d, device), cache, dict(transpose_b=True)
+    if kind in ("d-context", "p-context"):
+        return _dev(rng, (b, h, rows, s), device), cache, dict(lhs_zero_point=-128)
+    if kind == "r-scores":
+        return _dev(rng, (b, h, s, d), device), cache, dict(transpose_b=True)
+    return _dev(rng, (b, h, s, s), device), cache, dict(lhs_zero_point=-128)  # r-context
 
 
 BMM_CASES = [("scores", 4, 128, 12, 64), ("context", 4, 128, 12, 64),   # BERT-base b4 s128
              ("scores", 2, 197, 12, 64), ("context", 2, 197, 12, 64),   # ViT-B/16's S
+             ("scores", 1, 197, 16, 64), ("context", 1, 197, 16, 64),   # ViT-L/16
+             ("d-scores", 1, 128, 12, 64), ("d-context", 1, 128, 12, 64),  # the decode step
+             ("p-scores", 1, 128, 12, 64), ("p-context", 1, 128, 12, 64),  # 8 rows at the cache
+             ("r-scores", 1, 1024, 12, 64),                               # a ring chunk
+             ("r-context", 1, 2048, 2, 64),                               # K 2048
+             ("r-context", 1, 300, 2, 64),                                # K 300: a 44-byte tail
              ("scores", 2, 40, 3, 40), ("context", 2, 40, 3, 40),       # ragged D
              ("scores", 1, 33, 2, 72), ("context", 1, 33, 2, 72)]
+# every path: the plan's own, the small path where M <= 16, and tiles at
+# every BM and BN (K in the chunks bmm_kc gives: whole up to 256 bytes)
+BMM_PLANS = [None, {"path": "small"},
+             {"path": "tiles", "bm": 64, "bn": 64},
+             {"path": "tiles", "bm": 128, "bn": 256},
+             {"path": "tiles", "bm": 64, "bn": 256},
+             {"path": "tiles", "bm": 128, "bn": 64}]
+
+
+def _bmm_want(fn, a, b, *args, **kw):
+    """The plain version on the CPU, or for the big calls on the card
+    (float64 sums of integers below 2^53: exact in any order)."""
+    if a.numel() + b.numel() > 1 << 22:
+        return fn(a, b, *args, **kw).cpu()
+    return fn(a.cpu(), b.cpu(), *(None if v is None else v.cpu() for v in args), **kw)
+
+
+def _plan_id(plan):
+    if plan is None or plan["path"] == "small":
+        return "default" if plan is None else "small"
+    return f"t{plan['bm']}x{plan['bn']}"
+
+
+# the small path only where M <= 16 (the decode step's products, 8 rows)
+BMM_CASE_PLANS = [(c, p) for c in BMM_CASES for p in BMM_PLANS
+                  if p is None or p["path"] == "tiles" or c[0][:2] in ("d-", "p-")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", BMM_CASES, ids=["-".join(map(str, c)) for c in BMM_CASES])
-@pytest.mark.parametrize("tile", [None, (64, 64), (128, 128)])
-def test_k1_qbmm_on_card(rng, cuda, case, tile):
+@pytest.mark.parametrize("case,plan", BMM_CASE_PLANS,
+                         ids=["-".join(map(str, c)) + "-" + _plan_id(p) for c, p in BMM_CASE_PLANS])
+def test_k1_qbmm_on_card(rng, cuda, case, plan):
     from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qbmm_raw, qbmm_raw_plain, qbmm_rq,
                                                              qbmm_rq_plain)
 
     a, b, kw = _bmm_case(rng, cuda, case)
-    plan = None if tile is None else {"bm": tile[0], "bn": tile[1]}
     n = b.shape[-2] if kw.get("transpose_b") else b.shape[-1]
     mult, shift = plan_requantize(0.002, 1.0)
     m_t, s_t = channel_vector(mult, n, cuda), channel_vector(shift, n, cuda)
     before = _lib.LAUNCHES["qbmm_raw"], _lib.LAUNCHES["qbmm_rq"]
     raw = qbmm_raw(a, b, plan=plan, **kw)
-    assert torch.equal(raw.cpu(), qbmm_raw_plain(a.cpu(), b.cpu(), **kw))
+    assert torch.equal(raw.cpu(), _bmm_want(qbmm_raw_plain, a, b, **kw))
     rq = qbmm_rq(a, b, None, m_t, s_t, out_zp=-3, qmin=-120, plan=plan, **kw)
-    want = qbmm_rq_plain(a.cpu(), b.cpu(), None, m_t.cpu(), s_t.cpu(), out_zp=-3, qmin=-120, **kw)
+    want = _bmm_want(qbmm_rq_plain, a, b, None, m_t, s_t, out_zp=-3, qmin=-120, **kw)
     assert torch.equal(rq.cpu(), want)
     assert (_lib.LAUNCHES["qbmm_raw"], _lib.LAUNCHES["qbmm_rq"]) == (before[0] + 1,
                                                                      before[1] + 1)
@@ -1455,15 +1499,19 @@ def test_k1_qbmm_on_card(rng, cuda, case, tile):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("za,zb,ta,tb", [(0, 5, False, False), (-128, -7, False, True),
-                                         (11, 3, True, True), (-128, 0, True, False)])
-def test_k1_qbmm_zero_points_and_transposes_on_card(rng, cuda, za, zb, ta, tb):
-    """Both zero points folded (the column and row terms), both transposes
-    (A or B read rows-contiguous or a byte a load), broadcast batch axes and
-    a bias."""
+                                         (11, 3, True, True), (-128, 0, True, False),
+                                         (0, -128, False, False), (-128, -128, False, True),
+                                         (11, -128, True, True), (-128, -128, True, False)])
+@pytest.mark.parametrize("m", [5, 48])
+def test_k1_qbmm_zero_points_and_transposes_on_card(rng, cuda, za, zb, ta, tb, m):
+    """Both zero points, -128 flipped into the operand (read as uint8) on
+    either side or both, any other folded (the column and row terms); both
+    transposes (A or B read with its rows contiguous); broadcast batch axes
+    and a bias; the small path (M 5) and the tiles (M 48)."""
     from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qbmm_raw, qbmm_raw_plain, qbmm_rq,
                                                              qbmm_rq_plain)
 
-    m, k, n = 48, 80, 64
+    k, n = 80, 64
     a = _dev(rng, (2, 1) + ((k, m) if ta else (m, k)), cuda)
     b = _dev(rng, (1, 3) + ((n, k) if tb else (k, n)), cuda)
     kw = dict(lhs_zero_point=za, rhs_zero_point=zb, transpose_a=ta, transpose_b=tb)
@@ -1474,6 +1522,73 @@ def test_k1_qbmm_zero_points_and_transposes_on_card(rng, cuda, za, zb, ta, tb):
     got = qbmm_rq(a, b, bias, m_t, s_t, rounding="TONEAREST", **kw)
     want = qbmm_rq_plain(a.cpu(), b.cpu(), bias.cpu(), m_t.cpu(), s_t.cpu(),
                          rounding="TONEAREST", **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 8])
+@pytest.mark.parametrize("side", ["a", "b"])
+@pytest.mark.parametrize("m", [1, 70])
+def test_k1_qbmm_odd_base_pointer_on_card(rng, cuda, offset, side, m):
+    """An operand whose data starts an odd number of bytes (or 8) past 16-byte
+    alignment: staged by realigned loads on both paths, == plain."""
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qbmm_raw, qbmm_raw_plain, qbmm_rq,
+                                                             qbmm_rq_plain)
+
+    shapes = {"a": (2, 3, m, 96), "b": (2, 3, 96, 40)}
+    a, b = _dev(rng, shapes["a"], cuda), _dev(rng, shapes["b"], cuda)
+    t = a if side == "a" else b
+    flat = torch.empty(t.numel() + offset, dtype=torch.int8, device=cuda)
+    v = flat[offset:].view(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 == offset % 16
+    a, b = (v, b) if side == "a" else (a, v)
+    for za, zb in ((0, 0), (-128, 3)):
+        kw = dict(lhs_zero_point=za, rhs_zero_point=zb)
+        assert torch.equal(qbmm_raw(a, b, **kw).cpu(), qbmm_raw_plain(a.cpu(), b.cpu(), **kw))
+        mult, shift = plan_requantize(0.001, 1.0)
+        m_t, s_t = channel_vector(mult, 40, cuda), channel_vector(shift, 40, cuda)
+        assert torch.equal(qbmm_rq(a, b, None, m_t, s_t, **kw).cpu(),
+                           qbmm_rq_plain(a.cpu(), b.cpu(), None, m_t.cpu(), s_t.cpu(), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 197])
+@pytest.mark.parametrize("m", [1, 12, 197])
+def test_k1_qbmm_ragged_n_on_card(rng, cuda, n, m):
+    """N = 8 and N = 197: the staged epilogue's ragged rows (a run of whole
+    rows, or a row at a time past one tile), both epilogues, both paths."""
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import (qbmm_raw, qbmm_raw_plain, qbmm_rq,
+                                                             qbmm_rq_plain)
+
+    a, b = _dev(rng, (3, 2, m, 64), cuda), _dev(rng, (3, 2, 64, n), cuda)
+    mult, shift = plan_requantize(0.002 * (0.5 + rng.random(n)), 1.0)
+    m_t, s_t = channel_vector(mult, n, cuda), channel_vector(shift, n, cuda)
+    plans = [None, {"path": "tiles", "bm": 64, "bn": 64}]
+    for plan in plans + ([{"path": "small"}] if m <= 16 else []):
+        assert torch.equal(qbmm_raw(a, b, plan=plan).cpu(), qbmm_raw_plain(a.cpu(), b.cpu()))
+        assert torch.equal(qbmm_rq(a, b, None, m_t, s_t, out_zp=4, plan=plan).cpu(),
+                           qbmm_rq_plain(a.cpu(), b.cpu(), None, m_t.cpu(), s_t.cpu(), out_zp=4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ["UPWARD", "TONEAREST"])
+@pytest.mark.parametrize("m", [1, 96])
+def test_k1_qbmm_requant_shifts_on_card(rng, cuda, rounding, m):
+    """The requantize at per-column scales from 2^-24 to 2^5 (right shifts
+    of 31 to 55 bits, left shifts of 1 to 5), extreme biases and a narrow
+    clip, on the small path (M 1) and the tiles (M 96): == plain."""
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import qbmm_rq, qbmm_rq_plain
+
+    n = 160
+    a, b = _dev(rng, (3, m, 100), cuda), _dev(rng, (3, 100, n), cuda)
+    mult, shift = plan_requantize(2.0 ** rng.uniform(-24, 5, n), 1.0)
+    assert shift.min() < -20 and shift.max() > 0
+    m_t, s_t = channel_vector(mult, n, cuda), channel_vector(shift, n, cuda)
+    bias = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)).to(cuda)
+    kw = dict(lhs_zero_point=-128, rq_izp=7, out_zp=-5, rounding=rounding, qmin=-100, qmax=90)
+    got = qbmm_rq(a, b, bias, m_t, s_t, **kw)
+    want = qbmm_rq_plain(a.cpu(), b.cpu(), bias.cpu(), m_t.cpu(), s_t.cpu(), **kw)
     assert torch.equal(got.cpu(), want)
 
 

@@ -212,32 +212,66 @@ def test_bmm_rq_fused_matches_reference():
 
 def _emulate(a, b, za, zb, ta, tb, plan):
     """What the kernel computes from `_bmm_launch`'s operands and parameters:
-    each product's A and B read through the strides, less the zero points,
-    in int32 wraparound."""
+    each product's A and B read through the strides; an operand whose zero
+    point is -128 read as uint8 with its sign bit flipped ((x ^ 0x80) as
+    uint8 is x + 128) and its zero point dropped; the zero points left
+    folded from the column and row sums (-za colsum(B) - zb rowsum(A) + K za
+    zb); all in int32 wraparound."""
     shape, A, B, p = mm._bmm_launch("qbmm", a, b, za, zb, ta, tb, plan)
     n0, n1 = p["bmm_nb"] // p["bmm_nb1"], p["bmm_nb1"]
     m, k, n = p["n"], p["cin"], p["cout"]
     av = torch.as_strided(A, (n0, n1, m, k), (p["a_sb0"], p["a_sb1"], p["a_sm"], p["a_sk"]))
     bv = torch.as_strided(B, (n0, n1, k, n), (p["b_sb0"], p["b_sb1"], p["b_sk"], p["b_sn"]))
-    acc = (av.to(torch.float64) - p["bmm_za"]) @ (bv.to(torch.float64) - p["bmm_zb"])
-    return acc.to(torch.int64).to(torch.int32).reshape(shape), p
+
+    def operand(v, z):  # (the values the kernel multiplies, the zero point left)
+        if z == -128:
+            return (v ^ -128).view(torch.uint8).to(torch.int64), 0
+        return v.to(torch.int64), z
+
+    (av, za_), (bv, zb_) = operand(av, p["bmm_za"]), operand(bv, p["bmm_zb"])
+    acc = (av.to(torch.float64) @ bv.to(torch.float64)).to(torch.int64)
+    acc = (acc - za_ * bv.sum(-2, keepdim=True) - zb_ * av.sum(-1, keepdim=True) + k * za_ * zb_)
+    return acc.to(torch.int32).reshape(shape), p
 
 
+SMALL_PLAN = {"path": "small"}
+TILES_PLAN = {"path": "tiles", "bm": 64, "bn": 64}
 BMM_LAUNCHES = [
-    # (id, a shape, b shape, za, zb, ta, tb, view of a (B, S, H, D) tensor, modes)
-    ("scores_views", (2, 16, 3, 64), (2, 16, 3, 64), 0, 0, False, True, True, (0, 0)),
-    ("ctx_views", (2, 3, 16, 16), (2, 16, 3, 64), -128, 0, False, False, "b", (0, 1)),
-    ("ragged_197", (1, 2, _S, _S), (1, 2, _S, 64), -128, 0, False, False, False, (2, 1)),
-    ("zb_both_t", (3, 9, 5), (3, 7, 9), 11, -7, True, True, False, (2, 2)),
-    ("broadcast", (2, 1, 6, 32), (1, 3, 32, 16), -128, 3, False, False, False, (0, 1)),
-    ("three_batch_axes", (2, 2, 3, 8, 16), (2, 2, 3, 8, 16), 0, 0, False, True, False, (0, 0)),
-    ("unmergeable_axes", (3, 2, 2, 8, 16), (2, 3, 2, 8, 16), 0, 0, False, True, "swap", (0, 0)),
+    # (id, a shape, b shape, za, zb, ta, tb, view of a (B, S, H, D) tensor, plan, staging modes)
+    ("scores_views", (2, 16, 3, 64), (2, 16, 3, 64), 0, 0, False, True, True, TILES_PLAN,
+     ("kmajor16", "kmajor16")),
+    ("ctx_views_u8_a", (2, 3, 16, 16), (2, 16, 3, 64), -128, 0, False, False, "b", TILES_PLAN,
+     ("kmajor16", "rows")),
+    ("ragged_197", (1, 2, _S, _S), (1, 2, _S, 64), -128, 0, False, False, False, TILES_PLAN,
+     ("kmajor", "rows")),
+    ("unaligned_rows_no_flip", (1, 2, 40, 24), (1, 2, 24, 8), 3, 0, False, False, False, TILES_PLAN,
+     ("kmajor", "rows")),
+    ("zb_both_t", (3, 9, 5), (3, 7, 9), 11, -7, True, True, False, TILES_PLAN, ("rows", "kmajor")),
+    ("u8_b", (2, 24, 32), (2, 32, 16), 5, -128, False, False, False, TILES_PLAN, ("kmajor16", "rows")),
+    ("u8_both_t", (2, 32, 24), (2, 16, 32), -128, -128, True, True, False, TILES_PLAN,
+     ("rows", "kmajor16")),
+    ("broadcast", (2, 1, 6, 32), (1, 3, 32, 16), -128, 3, False, False, False, TILES_PLAN,
+     ("kmajor16", "rows")),
+    ("three_batch_axes", (2, 2, 3, 8, 16), (2, 2, 3, 8, 16), 0, 0, False, True, False, TILES_PLAN,
+     ("kmajor16", "kmajor16")),
+    ("unmergeable_axes", (3, 2, 2, 8, 16), (2, 3, 2, 8, 16), 0, 0, False, True, "swap", TILES_PLAN,
+     ("kmajor16", "kmajor16")),
+    ("decode_scores", (1, 1, 12, 64), (1, 12, 128, 64), 0, 0, False, True, "a", SMALL_PLAN,
+     ("kmajor16", "kmajor16")),
+    ("decode_ctx_u8_a", (1, 12, 1, 128), (1, 12, 128, 64), -128, 0, False, False, False, SMALL_PLAN,
+     ("kmajor16", "rows")),
+    ("small_a_rows_copied", (3, 9, 5), (3, 9, 7), 11, -128, True, False, False, SMALL_PLAN,
+     ("kmajor", "rows")),
+    ("small_both_u8", (2, 4, 40), (2, 40, 24), -128, -128, False, False, False, SMALL_PLAN,
+     ("kmajor", "rows")),
+    ("tiles_u8_a_aligned", (2, 64, 32), (2, 32, 16), -128, 0, False, False, False,
+     dict(TILES_PLAN, bn=256), ("kmajor16", "rows")),
 ]
 
 
 @pytest.mark.parametrize("case", BMM_LAUNCHES, ids=[c[0] for c in BMM_LAUNCHES])
 def test_bmm_launch_emulated_equals_plain(case):
-    _, ash, bsh, za, zb, ta, tb, views, modes = case
+    _, ash, bsh, za, zb, ta, tb, views, plan, modes = case
     a = torch.from_numpy(_i8(ash, 50))
     b = torch.from_numpy(_i8(bsh, 51))
     if views in (True, "a"):       # head-split views of (B, S, H, D) tensors, read in place
@@ -246,15 +280,96 @@ def test_bmm_launch_emulated_equals_plain(case):
         b = b.permute(0, 2, 1, 3)
     if views == "swap":            # three batch axes that do not merge: copied first
         a = a.transpose(0, 1)
-    got, p = _emulate(a, b, za, zb, ta, tb, {"bm": 64, "bn": 64})
+    got, p = _emulate(a, b, za, zb, ta, tb, plan)
     assert torch.equal(got, mm.exact_int_bmm(a, b, za, zb, ta, tb))
-    assert (p["a_mode"], p["b_mode"]) == modes
+    names = {v: key for key, v in mm.BMM_STAGES.items()}
+    assert (names[p["a_mode"]], names[p["b_mode"]]) == modes
+    assert p["bmm_path"] == mm.BMM_PATHS[plan["path"]]
+
+
+@pytest.mark.parametrize("offset", [1, 5, 8])
+@pytest.mark.parametrize("side", ["a", "b"])
+def test_bmm_launch_odd_base_pointer(side, offset):
+    """An operand whose data starts off 16-byte alignment is staged by
+    realigned loads (never cp.async), and its reads through the strides
+    still give the plain product."""
+    a, b = _i8((2, 3, 20, 32), 52), _i8((2, 3, 32, 48), 53)
+    t = a if side == "a" else b
+    flat = torch.from_numpy(np.concatenate([np.zeros(offset, np.int8), t.ravel()]))
+    v = flat[offset:].view(t.shape)
+    a, b = (v, torch.from_numpy(b)) if side == "a" else (torch.from_numpy(a), v)
+    for plan in (TILES_PLAN, SMALL_PLAN):
+        if plan is SMALL_PLAN:
+            a = a[..., :16, :]
+        got, p = _emulate(a, b, 0, -7, False, False, plan)
+        assert torch.equal(got, mm.exact_int_bmm(a, b, 0, -7))
+        mode = p["a_mode"] if side == "a" else p["b_mode"]
+        assert mode == mm.BMM_STAGES["kmajor" if side == "a" else "rows"]
+
+
+def test_bmm_u8_flip_is_the_zero_point():
+    """(x ^ 0x80) read as uint8 is x - (-128) for every int8 x: the flip the
+    kernel stages is the zero point's subtraction."""
+    x = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    assert torch.equal((x ^ -128).view(torch.uint8).to(torch.int16), x.to(torch.int16) + 128)
+
+
+# (nb, M, K, N) of the main path's calls -> the plan (NVIDIA H100: 132 SMs)
+BMM_PLANS = [
+    ((12, 1, 64, 128), SMALL_PLAN),                                # decode step: scores
+    ((12, 1, 128, 64), SMALL_PLAN),                                # decode step: context
+    ((48, 128, 64, 128), TILES_PLAN),                              # BERT-base b4 s128: scores
+    ((48, 128, 128, 64), TILES_PLAN),                              # and context, K whole
+    ((16, _S, 64, _S), TILES_PLAN),                                # ViT-L/16: 64 tiles a column
+    ((16, _S, _S, 64), TILES_PLAN),                                # K 197 staged whole
+    ((96, _S, 64, _S), dict(TILES_PLAN, bm=128, bn=256)),          # ViT-B/16 b8: N 197 one tile
+    ((96, _S, _S, 64), dict(TILES_PLAN, bm=128)),
+    ((12, 2048, 64, 2048), dict(TILES_PLAN, bm=128, bn=256)),      # ring sp 2: scores
+    ((12, 2048, 2048, 64), dict(TILES_PLAN, bm=128)),              # and context, 8 chunks
+    ((12, 1024, 64, 1024), dict(TILES_PLAN, bm=128, bn=256)),      # ring sp 4
+    ((12, 1024, 1024, 64), dict(TILES_PLAN, bm=128)),
+    ((2, 16, 4096, 8), SMALL_PLAN),                                # the small path: M <= 16
+    ((2, 17, 64, 8), TILES_PLAN),
+    ((2, 16, 4097, 8), SMALL_PLAN),                                # at any K
+]
+
+
+@pytest.mark.parametrize("shape,plan", BMM_PLANS, ids=["x".join(map(str, c[0])) for c in BMM_PLANS])
+def test_bmm_plan_path_and_tile(shape, plan):
+    assert mm.bmm_plan(*shape) == plan
+    assert plan in mm.bmm_plans(shape[1])  # a launch the kernel is built for
+
+
+@pytest.mark.parametrize("shape", [(3, 1, 64, 40), (2, 12, 200, 24), (2, 70, 300, 24)],
+                         ids=["small_m1", "small_m12", "tiles_chunked"])
+def test_bmm_plans_each_launch_emulated(shape):
+    """Every launch `bmm_plans` lists is one the kernel takes (the small
+    path only where M <= SMALL_M; tiles at each BM and BN, K in the chunks
+    `bmm_kc` gives), and each, emulated through its launch, == plain."""
+    nb, m, k, n = shape
+    a = torch.from_numpy(_i8((nb, k, m), 54)).transpose(-1, -2)  # A with its rows contiguous
+    b = torch.from_numpy(_i8((nb, k, n), 55))
+    plans = mm.bmm_plans(m)
+    assert ({"path": "small"} in plans) == (m <= mm.SMALL_M)
+    assert {(p.get("bm"), p.get("bn")) for p in plans if p["path"] == "tiles"} == {
+        (bm, bn) for bm in (64, 128) for bn in (64, 256)}
+    for plan in plans:
+        got, p = _emulate(a, b, -128, 5, False, False, plan)
+        assert torch.equal(got, mm.exact_int_bmm(a, b, -128, 5))
+        kmajor = plan["path"] == "small" or m == 1  # copied, or its one row has k contiguous
+        names = ("kmajor16", "kmajor") if kmajor else ("rows",)
+        assert p["a_mode"] in [mm.BMM_STAGES[x] for x in names]
+        if plan["path"] == "tiles":  # K whole up to 256 bytes, else 256-byte chunks
+            kc = mm.bmm_kc(k)
+            assert kc in (64, 128, 256) and (kc >= k or kc == 256) and (kc == 64 or kc // 2 < k)
+            assert f"kc {kc} ({-(-k // kc)} chunks)" in mm.launch_summary(
+                "qbmm", a, b, lhs_zero_point=-128, rhs_zero_point=5, plan=plan)
 
 
 def test_bmm_plan_and_plain_wrappers():
-    assert mm.bmm_plan(48, 128, 64, 128) == {"bm": 64, "bn": 64}
-    assert mm.bmm_plan(48, 128, 128, 64) == {"bm": 64, "bn": 64}
-    assert mm.bmm_plan(96, _S, 64, _S) == {"bm": 128, "bn": 128}
+    assert mm.bmm_plan(48, 128, 64, 128) == {"path": "tiles", "bm": 64, "bn": 64}
+    assert mm.bmm_plan(12, 1, 128, 64) == {"path": "small"}
+    assert mm.bmm_plan(96, _S, 64, _S) == {"path": "tiles", "bm": 128, "bn": 256}
     a, b = torch.from_numpy(_i8((2, 5, 24), 60)), torch.from_numpy(_i8((2, 24, 7), 61))
     mult = torch.full((7,), 1500000000, dtype=torch.int32)
     shift = torch.full((7,), -8, dtype=torch.int32)
@@ -272,6 +387,12 @@ def test_bmm_plan_and_plain_wrappers():
     assert (got.numpy() == want).all()
     with pytest.raises(ValueError, match="no kernel"):
         mm.qbmm_raw(a.to("meta"), b.to("meta"))
+    for bad in ({"path": "small"}, {"path": "tiles", "bm": 96, "bn": 64},
+                {"path": "tiles", "bm": 64, "bn": 128},
+                {"path": "tiles", "bm": 64, "bn": 32}, {"bm": 64, "bn": 64}):
+        with pytest.raises(ValueError, match="plan|small path"):
+            mm._bmm_launch("qbmm", torch.from_numpy(_i8((2, 40, 8), 62)),
+                           torch.from_numpy(_i8((2, 8, 4), 63)), 0, 0, False, False, bad)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,8 @@ in the same process; with `--raw`, K4's GEMM mode (qgemm_raw) at every call
 of the unfused b1 224^2 forwards of ResNet-50 (37) and MobileNetV2 (35),
 beside an earlier tree's K4:
 
-    python3 tools/gemm_probe.py [--csrc DIR] [--no-cuts] [--k2] [--plans] [OUT_JSON]
-    python3 tools/gemm_probe.py --raw [--csrc DIR] [--no-cuts] [--plans] [OUT_JSON]
+    python3 tools/gemm_probe.py [--csrc DIR] [--parent DIR] [--no-cuts] [--k2] [--plans] [OUT_JSON]
+    python3 tools/gemm_probe.py --raw [--csrc DIR] [--parent DIR] [--no-cuts] [--plans] [OUT_JSON]
 
 Each call is an (M, K) x (K, N) GEMM with the exact requantize epilogue
 (M = batch * H * W for a 1x1 conv, the batch for a dense layer).  Per call:
@@ -38,6 +38,14 @@ Each call is an (M, K) x (K, N) GEMM with the exact requantize epilogue
     blocks an SM; of eight, seven steps in flight) in
     `csrc/igemm_hopper.cuh`, `csrc/epilogue_hopper.cuh` and
     `csrc/layouts_hopper.cuh`;
+  * `--parent DIR` (a `csrc/` of the same design's C interface, e.g. a `git
+    archive` of the parent tree): the port's own wrapper launching DIR's
+    `qgemm_rq.cu` entries (`parent`, == plain first), timed in turns with
+    its own (`port`, `parent`, `port_again`, `parent_again`); with `--k2`
+    also K2 (`qconv_rq`) at ResNet-50 b8's eight 3x3 / 7x7 calls
+    (tools/conv_probe.py K2_CALLS), its own and DIR's
+    `qconv_igemm_hopper.cu` in turns: whether a change to the shared body
+    moved K1, K2 or K4;
   * `--k2`: K2 (`conv.qconv_rq`) on the same GEMM as a 1x1 conv of (M, 1, 1,
     K) images, == plain first (whether K2's body serves K1's calls);
   * `--plans`: the port's K1 at every launch of `gemm_plans` and, at the
@@ -367,14 +375,52 @@ def _applies(csrc: Path, src: str, cut) -> bool:
                for r in cut)
 
 
+def k2_turns(parent_lib: Path, rng) -> dict:
+    """K2 at ResNet-50 b8's 3x3 / 7x7 calls, the port's library and
+    `parent_lib` (a build of another qconv_igemm_hopper.cu) in turns, each
+    == plain first; ms a call and summed a forward."""
+    from conv_probe import K2_CALLS
+    from tachikoma_tpu_torch.ops.kernels import conv
+    from tachikoma_tpu_torch.utils.timing import call_seconds
+
+    src = "qconv_igemm_hopper.cu"
+    rows = []
+    for shape, k, stride, pad, cout in K2_CALLS["ResNet-50"]:
+        x = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).cuda()
+        w = torch.from_numpy(rng.integers(-127, 128, (k, k, shape[3], cout)).astype(np.int8)).cuda()
+        _, _, bias, mult, shift = _rq_operands(rng, 1, 1, cout)
+        kw = dict(strides=(stride, stride), padding=(pad,) * 4)
+        want = conv.qconv_rq_plain(x, w, bias, mult, shift, **kw)
+
+        def fn(x=x, w=w, bias=bias, mult=mult, shift=shift, kw=kw):
+            return conv.qconv_rq(x, w, bias, mult, shift, **kw)
+
+        label = f"{'x'.join(map(str, shape))} k{k} s{stride} -> {cout}"
+        row = {"call": label, "port": time_checked(fn, want, f"K2 {label}")}
+        with entries_of(parent_lib, src):
+            row["parent"] = time_checked(fn, want, f"K2 (parent) {label}")
+        row["port_again"] = call_seconds(fn, "cuda") * 1e3
+        with entries_of(parent_lib, src):
+            row["parent_again"] = call_seconds(fn, "cuda") * 1e3
+        rows.append(row)
+        print(f"K2 {label:34s} " + " ".join(f"{key} {v:.4f}" for key, v in row.items()
+                                            if key != "call"), flush=True)
+    total = {key: sum(r[key] for r in rows) for key in ("port", "parent", "port_again",
+                                                         "parent_again")}
+    print("K2 ResNet-50 b8 per forward: " + " ".join(f"{key} {v:.4f}" for key, v in total.items()),
+          flush=True)
+    return {"calls": rows, "per_forward": total}
+
+
 def main() -> int:
     from tachikoma_tpu_torch.ops.kernels import _lib, conv, matmul_int8 as mm
     from tachikoma_tpu_torch.utils.timing import call_seconds
 
     argv = sys.argv[1:]
     csrc = Path(argv[argv.index("--csrc") + 1]) if "--csrc" in argv else None
+    parent = Path(argv[argv.index("--parent") + 1]) if "--parent" in argv else None
     args = [a for i, a in enumerate(argv)
-            if not a.startswith("--") and (i == 0 or argv[i - 1] != "--csrc")]
+            if not a.startswith("--") and (i == 0 or argv[i - 1] not in ("--csrc", "--parent"))]
     out_path = args[0] if args else "gemm_probe.json"
     cuts = "--no-cuts" not in argv
     raw = "--raw" in argv
@@ -396,6 +442,8 @@ def main() -> int:
         port_cuts = {k: PORT_CUTS[k] for k in mode["port_cuts"]
                      if cuts and _applies(_lib.CSRC, SRC, PORT_CUTS[k])}
         port = build_variants(_lib.CSRC, SRC, port_cuts, workdir / "port")
+        parent_libs = {src: build_variants(parent, src, {}, workdir / f"parent_{Path(src).stem}")
+                       ["whole"] for src in (SRC, "qconv_igemm_hopper.cu")} if parent else {}
         launchers = {f"before{'' if k == 'whole' else '_' + k}": mode["launcher"](p)
                      for k, p in before.items()}
         rng = np.random.default_rng(0)
@@ -413,6 +461,12 @@ def main() -> int:
                     return wrapper(*ops)
 
                 row["port"] = time_checked(port_fn, want, f"port {kernel} {m}x{k}x{n}")
+                if parent_libs:  # in turns: port, parent, port, parent
+                    with entries_of(parent_libs[SRC], SRC):
+                        row["parent"] = time_checked(port_fn, want, f"parent {kernel} {m}x{k}x{n}")
+                    row["port_again"] = call_seconds(port_fn, "cuda") * 1e3
+                    with entries_of(parent_libs[SRC], SRC):
+                        row["parent_again"] = call_seconds(port_fn, "cuda") * 1e3
                 for name, lib in port.items():
                     if name == "whole" or ("skinny" in name) != (plan["path"] == "skinny"):
                         continue
@@ -456,6 +510,8 @@ def main() -> int:
             print(f"{model:12s} per forward ({sum(r['reps'] for r in rows)} calls): "
                   + " ".join(f"{key} {v:.4f}" for key, v in total.items()), flush=True)
             res["models"][model] = {"calls": rows, "per_forward": total}
+        if parent_libs and "--k2" in argv and not raw:
+            res["k2_parent"] = k2_turns(parent_libs["qconv_igemm_hopper.cu"], rng)
         with open(out_path, "w") as f:
             json.dump(res, f, indent=1)
     finally:

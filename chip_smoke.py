@@ -12,7 +12,8 @@ one step traced), the rest of the vision zoo (eleven builders, int8,
 fused, on K1, K2 and K5; the Inception-v3 stem traced on K4), and the
 TFLite import and W8A16 path (the exporter's int8 MobileNetV2 at b16 on K1,
 K2 and K5 at its own zero points, traced at b1; ResNet-50 W8A16 b8 and b1
-on K4 over two byte planes; the 16x8 fixture), and the ONNX import path
+on qgemm_wide / qconv_wide, the int64 products' own kernel; the 16x8
+fixture, its depthwise conv on K5's int16 mode), and the ONNX import path
 (ResNet-50 b8 written as torch.onnx.export writes it, fused on K1-K3; the
 six exporters' fixtures float, int8 and traced; the importer's 53 ops), and
 the PyTorch import path and FQ2I (a torch.ao-quantized ResNet-50 b8 on
@@ -240,14 +241,16 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      the card, held against the CPU's, CRCs and verify_trace; (c) ResNet-50
      quantized W8A16 (int16 activations, int64 accumulators; seed 0, numpy
      calibration outside the timed windows) b8 224^2, unfused: every int64
-     product (wide_planes: K4's raw modes on two byte planes of the int16
-     activations) == its float64 plain version and timed beside its bound
-     and the float64 cuBLAS / cuDNN call of the same shapes, every plane's
-     K4 call == plain and timed, 20 requests, every integer node == the CPU
-     path, the probabilities within phase 5's tolerance, latency and the
-     busy share; (d) its b1 trace on the card, held against the CPU's
-     trace, CRCs and verify_trace; (e) the 16x8 TFLite fixture on the card
-     (K4 and K5's raw modes on the planes, a depthwise conv among them):
+     product (qgemm_wide for the 1x1 stride-1 convs and the dense,
+     qconv_wide for the others: one wgmma pass over the int16 activations'
+     two byte planes, csrc/qconv_wide_hopper.cu) == its float64 plain
+     version and timed beside its bound and the float64 cuBLAS / cuDNN call
+     of the same shapes, no K4 / K5 launch, 20 requests, every integer node
+     == the CPU path, the probabilities within phase 5's tolerance, latency
+     and the busy share; (d) its b1 trace on the card, held against the
+     CPU's trace, CRCs and verify_trace; (e) the 16x8 TFLite fixture on the
+     card (qgemm_wide, qconv_wide and its depthwise conv on qdwconv_wide,
+     K5's int16 mode; each call == plain and timed, no K4 / K5 launch):
      every call == plain, integers == the CPU path, the float output within
      2^-15 of the interpreter's;
  21. the ONNX import path: (a) ResNet-50 b8 224^2 written as
@@ -431,10 +434,11 @@ calls; every wrapper's device work included), those of K11 per VGG-16 b8
 forward (its 13 conv calls, summed with their repeats) and of K12 per
 MobileNetV2 b8 forward (its 17 depthwise calls), those of qbmm_rq per int8
 BERT-base b4 s128 forward and of qbmm_raw per int8 BERT-base b1 s128 trace
-forward (phase 17), those of wide_planes (the W8A16 products on K4 / K5
-over two byte planes: its bound the int16 read, int8 weights and int64
-write, or two int8 products; its library call the float64 product) per
-W8A16 ResNet-50 b8 forward (phase 20c); `launches` sums each
+forward (phase 17), those of qgemm_wide and qconv_wide (the W8A16 int64
+products: their bound the int16 read, int8 weights and int64 write, or two
+int8 products; their library call the float64 product) per W8A16
+ResNet-50 b8 forward (phase 20c) and of qdwconv_wide per 16x8 fixture
+forward (phase 20e); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
 12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l, 20a-20e,
 21a, 21b, 22a-22d, 23a, 23b, 23d, 23e, 24a, 24b, 24d, 25a, 25b; 26a,
@@ -514,10 +518,12 @@ KERNELS = {
     # no Pallas kernel: XLA runs tk.bmm_rq and qnn.batch_matmul in the JAX package
     "qbmm_rq": ("tachikoma_tpu_torch/csrc/qbmm_hopper.cu", "tachikoma_tpu/runtime/fuse.py:389"),
     "qbmm_raw": ("tachikoma_tpu_torch/csrc/qbmm_hopper.cu", "tachikoma_tpu/ops/jax_ops.py:249"),
-    # no Pallas kernel: XLA runs qnn.conv2d / qnn.dense into int64 in the JAX
-    # package; the port runs them on K4 / K5's raw modes over two byte planes
-    "wide_planes": ("tachikoma_tpu_torch/ops/kernels/wide.py",
-                    "tachikoma_tpu/ops/jax_ops.py:103"),
+    # no Pallas kernel: XLA runs qnn.dense / qnn.conv2d into int64 in the JAX package
+    "qgemm_wide": ("tachikoma_tpu_torch/csrc/qconv_wide_hopper.cu",
+                   "tachikoma_tpu/ops/jax_ops.py:188"),
+    "qconv_wide": ("tachikoma_tpu_torch/csrc/qconv_wide_hopper.cu",
+                   "tachikoma_tpu/ops/jax_ops.py:103"),
+    "qdwconv_wide": ("tachikoma_tpu_torch/csrc/qdwconv.cu", "tachikoma_tpu/ops/jax_ops.py:103"),
 }
 LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_s", "qconv_rq_w", "qconv_rq_r")
 WRAPPER_CALLS = 20                # host-clock repeats of the wrappers' own work
@@ -538,8 +544,13 @@ TFLITE_16X8 = os.path.join("tests", "fixtures", "small_cnn_16x8.tflite")
 TFLITE_16X8_IO = os.path.join("tests", "fixtures", "small_cnn_16x8_io.npz")
 TFLITE_KERNELS = ("qgemm_rq", "qconv_rq", "qdwconv_rq")
 TFLITE_TRACE_KERNELS = ("qgemm_raw", "qconv_raw", "qdwconv_raw")
-W8A16_KERNELS = ("wide_planes", "qgemm_raw", "qconv_raw")
-W8A16_16X8_KERNELS = ("wide_planes", "qgemm_raw", "qconv_raw", "qdwconv_raw")
+W8A16_KERNELS = ("qgemm_wide", "qconv_wide")
+W8A16_16X8_KERNELS = ("qgemm_wide", "qconv_wide", "qdwconv_wide")
+WIDE_KERNELS = W8A16_16X8_KERNELS
+# the plane route's ms per forward (wide_planes: K4 / K5 on two byte planes
+# and torch passes; this script on the tree before the W8A16 kernels, NVIDIA
+# H100 80GB HBM3, 700.00 W): phase 20c b8, 20d b1
+PLANE_ROUTE_MS = {"20c": 6.2636, "20d": 2.9902}
 VGG_RUN_KERNELS = ("qconv_rq", "qgemm_rq")
 DIRECT_KERNELS = ("qconv_direct", "qdwconv_direct")
 VGG_CONVS, VGG_CONV_WORKLOADS, MBV2_DW_CONVS = 13, 9, 17
@@ -686,7 +697,8 @@ EARLIER_CALL_MS = {
 }
 # printed call by call with their plan
 PLAN_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res", "qgemm_raw", "qconv_raw", "qdwconv_rq",
-                "qdwconv_raw", "flash_attn", "qbmm_rq", "qbmm_raw")
+                "qdwconv_raw", "flash_attn", "qbmm_rq", "qbmm_raw", "qgemm_wide", "qconv_wide",
+                "qdwconv_wide")
 BMM_KERNELS = ("qbmm_rq", "qbmm_raw")
 
 
@@ -735,7 +747,7 @@ def recording(calls: list):
     from tachikoma_tpu_torch.ops.kernels import conv, matmul_int8, wide
 
     saved = []
-    for mod, attr, name in ((wide, "wide_conv", "wide_planes"), (wide, "wide_dense", "wide_planes"),
+    for mod, attr, name in (*((wide, name, name) for name in WIDE_KERNELS),
                             (matmul_int8, "qgemm_rq", "qgemm_rq"), (conv, "qconv_rq", "qconv_rq"),
                             (conv, "qconv_rq_res", "qconv_rq_res"),
                             (matmul_int8, "qgemm_raw", "qgemm_raw"),
@@ -786,14 +798,16 @@ def work(name, a, k) -> tuple[int, int, str]:
                 f"G={g} S={s} D={d}{' causal' if causal else ''}")
     x, w = a[0], a[1]
     cout = w.shape[-1]
-    if name == "wide_planes":  # int16 in, int8 weights, int64 out; two int8 products
-        if w.ndim == 2:
+    if name in WIDE_KERNELS:  # int16 in, int8 weights, int64 out
+        if name == "qgemm_wide":  # two int8 products (the byte planes)
             m, kk = x.shape
             return (2 * m * kk + kk * cout + 8 * m * cout, 2 * 2 * m * kk * cout,
                     f"M={m} K={kk} N={cout} int16")
         out_shape, label = conv_out(x, w, k)
+        products = 1 if name == "qdwconv_wide" else 2  # depthwise: no planes
         return (2 * x.numel() + w.numel() + 8 * int(np.prod(out_shape)),
-                2 * 2 * int(np.prod(out_shape)) * int(np.prod(w.shape[:3])), label + " int16")
+                products * 2 * int(np.prod(out_shape)) * int(np.prod(w.shape[:3])),
+                label + " int16")
     raw = name.endswith("_raw")
     out_b, vec_b = (4, 4) if raw else (1, 12)  # output bytes, per-channel vector bytes
     if name in ("qgemm_rq", "qgemm_raw"):
@@ -828,14 +842,14 @@ def library_call(name, a, k):
     <= 16 and, through cuBLASLt, some other shapes (M=784 K=32 N=192 on
     torch 2.11, CUDA 12.8); there an fp16 matmul of the same shape."""
     x, w = a[0], a[1]
-    if name == "wide_planes":  # the exact float64 product (cuBLAS, cuDNN) of the same shapes
+    if name in WIDE_KERNELS:  # the exact float64 product (cuBLAS, cuDNN) of the same shapes
         xd, wd = x.to(torch.float64), w.to(torch.float64)
-        if w.ndim == 2:
+        if name == "qgemm_wide":
             return lambda: xd @ wd
         pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
         xd = torch.nn.functional.pad(xd, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2).contiguous()
         wd = wd.permute(3, 2, 0, 1).contiguous()
-        groups = int(k.get("groups", 1))
+        groups = x.shape[3] if name == "qdwconv_wide" else 1
         return lambda: torch.nn.functional.conv2d(xd, wd, stride=tuple(k.get("strides", (1, 1))),
                                                   groups=groups)
     if name in BMM_KERNELS:  # an fp16 product of the same shapes: not exact
@@ -891,12 +905,7 @@ def kernel_impls() -> dict:
     from tachikoma_tpu_torch.ops.kernels import (conv, conv_direct, conv_layouts, depthwise,
                                                  flash_attention, matmul_int8, wide)
 
-    def wide_call(conv_fn, dense_fn):
-        return lambda x, w, **k: (dense_fn if w.ndim == 2 else conv_fn)(x, w, **k)
-
-    impl = {"wide_planes": (wide_call(wide.wide_conv, wide.wide_dense),
-                            wide_call(wide.wide_conv_plain, wide.wide_dense_plain)),
-            "qgemm_rq": (matmul_int8.qgemm_rq, matmul_int8.qgemm_rq_plain),
+    impl = {"qgemm_rq": (matmul_int8.qgemm_rq, matmul_int8.qgemm_rq_plain),
             "qconv_rq": (conv.qconv_rq, conv.qconv_rq_plain),
             "qconv_rq_res": (conv.qconv_rq_res, conv.qconv_rq_res_plain),
             "qgemm_raw": (matmul_int8.qgemm_raw, matmul_int8.qgemm_raw_plain),
@@ -911,6 +920,8 @@ def kernel_impls() -> dict:
             "qbmm_raw": (matmul_int8.qbmm_raw, matmul_int8.qbmm_raw_plain)}
     for name in LAYOUT_KERNELS:
         impl[name] = (getattr(conv_layouts, name), getattr(conv_layouts, f"{name}_plain"))
+    for name in WIDE_KERNELS:
+        impl[name] = (getattr(wide, name), getattr(wide, f"{name}_plain"))
     return impl
 
 
@@ -937,9 +948,13 @@ def launch_plan(name, a, k) -> str:
     block, depth of Q.K^T, output columns a block, column blocks, stages;
     kg: Q and K read from global memory)."""
     from tachikoma_tpu_torch.ops.kernels import (_lib, conv, conv_direct, depthwise,
-                                                 flash_attention, matmul_int8)
+                                                 flash_attention, matmul_int8, wide)
 
     x, w = a[0], a[1]
+    if name == "qgemm_wide":
+        p = k.get("plan") or wide.wide_plan(x.shape[0], x.shape[1], w.shape[1],
+                                            conv.sm_count(x.device.index))
+        return f"tile {p['bm']}x{p['bn']} split {p['ks']} x {p['kper']}"
     if name in BMM_KERNELS:  # path, tile, chunks of K, staging modes, operands read as uint8
         return matmul_int8.launch_summary(name, x, w, **k)
     if name in ("qgemm_rq", "qgemm_raw"):
@@ -957,8 +972,11 @@ def launch_plan(name, a, k) -> str:
     pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
     oh, ow = (x.shape[1] + pt + pb - kh) // sh + 1, (x.shape[2] + pl + pr - kw) // sw + 1
     sms = conv.sm_count(x.device.index)
+    if name == "qconv_wide":
+        p = k.get("plan") or wide.wide_plan(x.shape[0] * oh * ow, kh * kw * cin, cout, sms)
+        return f"tile {p['bm']}x{p['bn']} split {p['ks']} x {p['kper']}"
     if name.startswith("qdwconv"):
-        p = depthwise.dw_plan(x.shape[0], oh, ow, cout, kh, kw, sh, sw)
+        p = depthwise.dw_plan(x.shape[0], oh, ow, cout, kh, kw, sh, sw, x.element_size())
         return f"ct {p['ct']} tile {p['th']}x{p['tw']}, {p['blocks']} blocks"
     if name == "qconv_direct":
         plan = k.get("plan") or conv_direct.direct_plan(tuple(x.shape), tuple(w.shape),
@@ -1348,10 +1366,7 @@ def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
         f"{name} {_lib.LAUNCHES[name]}" for name in kernels)
         + f" ({ops['qnn.conv2d']} qnn.conv2d + {ops['qnn.dense']} qnn.dense + "
         f"{ops['qnn.batch_matmul']} qnn.batch_matmul)")
-    # a W8A16 product is one wide_planes call and the K4 / K5 calls of its two planes
-    n_wide = sum(name == "wide_planes" for name, _, _ in calls)
-    assert len(calls) == (ops["qnn.conv2d"] + ops["qnn.dense"] + ops["qnn.batch_matmul"]
-                          + 2 * n_wide)
+    assert len(calls) == ops["qnn.conv2d"] + ops["qnn.dense"] + ops["qnn.batch_matmul"]
     totals = check_kernels(calls, kernels, model)
     plain = TorchExecutor(q, capture=names, device="cpu", fuse=False).run(x)
     n_int = hold_against_plain(names, outs, plain, q, FLOAT_RTOL, FLOAT_ATOL)
@@ -2890,15 +2905,37 @@ def tflite_path(card: str) -> tuple[dict, dict, dict]:
     return totals, launches, errs
 
 
+def no_raw_launch(what: str) -> None:
+    """Assert that K4 / K5 (their raw modes) launched no time since their
+    counts were set to 0: an int16 product runs on its own kernels."""
+    from tachikoma_tpu_torch.ops.kernels import _lib
+
+    raw = {name: _lib.LAUNCHES[name] for name in RAW_KERNELS}
+    assert not any(raw.values()), f"{what} launched K4 / K5: {raw}"
+    say(f"{what}: no K4 / K5 launch ({', '.join(RAW_KERNELS)} 0)")
+
+
+def wide_products_ms(label: str, totals: dict) -> None:
+    """The W8A16 products' device ms per forward beside the plane route's."""
+    ms = sum(totals[k]["ms"] for k in W8A16_KERNELS)
+    say(f"{label} W8A16 products per forward: "
+        + " + ".join(f"{k} {totals[k]['ms']:.4f}" for k in W8A16_KERNELS)
+        + f" = {ms:.4f} ms; the plane route {PLANE_ROUTE_MS[label]:.4f} ms "
+        f"({ms / PLANE_ROUTE_MS[label]:.3f}x); bound "
+        f"{sum(totals[k]['bound_ms'] for k in W8A16_KERNELS):.4f} ms")
+
+
 def w8a16_path(card: str) -> tuple[dict, dict, dict]:
     """Phases 20c-20e: ResNet-50 quantized W8A16 (int16 activations, int64
-    accumulators, unfused) at b8 224^2: every product on K4 over two byte
-    planes == its float64 plain version, timed beside the float64 cuBLAS /
-    cuDNN call of the same shapes and the bound, REQUESTS requests, every
-    integer node == the CPU path, the probabilities within phase 5's
-    tolerance, the busy share; its b1 trace; the 16x8 TFLite fixture on the
-    card.  Returns wide_planes' per-forward totals, the launches and the
-    largest |err| of each kernel."""
+    accumulators, unfused) at b8 224^2: every product on qgemm_wide /
+    qconv_wide == its float64 plain version, timed beside the float64
+    cuBLAS / cuDNN call of the same shapes and the bound, no K4 / K5 launch,
+    REQUESTS requests, every integer node == the CPU path, the probabilities
+    within phase 5's tolerance, the busy share; its b1 trace; the 16x8
+    TFLite fixture on the card (its depthwise conv on qdwconv_wide).
+    Returns the three kernels' per-forward totals (qgemm_wide and
+    qconv_wide per b8 forward, qdwconv_wide per 16x8 forward), the launches
+    and the largest |err| of each kernel."""
     from tachikoma_tpu_torch.frontend import from_tflite
     from tachikoma_tpu_torch.models.vision import resnet
     from tachikoma_tpu_torch.quantize.config import W8A16
@@ -2928,18 +2965,22 @@ def w8a16_path(card: str) -> tuple[dict, dict, dict]:
     requests = [rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
                 for _ in range(REQUESTS)]
 
-    phase(f"20c. {model}: the int64 products on K4 over two byte planes (wide_planes) and the "
-          f"planes' K4 calls: == plain (float64), time, bound, float64 library call [{card}]")
+    phase(f"20c. {model}: the int64 products on qgemm_wide / qconv_wide: == plain (float64), "
+          f"time, bound, float64 library call [{card}]")
     calls: list = []
     with recording(calls):
         ex.run_device(requests[0])
     torch.cuda.synchronize()
-    assert sum(name == "wide_planes" for name, _, _ in calls) == 54
+    assert len(calls) == 54 and {name for name, _, _ in calls} == set(W8A16_KERNELS), \
+        Counter(name for name, _, _ in calls)
     totals = check_kernels(calls, W8A16_KERNELS, model)
     errs = {k: t["max_abs_err"] for k, t in totals.items()}
+    wide_products_ms("20c", totals)
 
     phase(f"20c. {model}: {REQUESTS} requests through TorchExecutor(device='cuda') [{card}]")
+    reset(RAW_KERNELS)
     lat, first_out, launches = timed_requests(ex, requests, W8A16_KERNELS, f"the {model} path")
+    no_raw_launch(f"the {model} requests")
     t0 = time.perf_counter()
     plain = TorchExecutor(q, capture=names, device="cpu").run(requests[0])
     say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
@@ -2949,20 +2990,25 @@ def w8a16_path(card: str) -> tuple[dict, dict, dict]:
     say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; float "
         f"nodes within rtol {SOFTMAX_RTOL} atol {SOFTMAX_ATOL}")
     med = say_latency(lat, BATCH)
-    say(f"wide_planes device ms per forward {totals['wide_planes']['ms']:.4f} (bound "
-        f"{totals['wide_planes']['bound_ms']:.4f}, float64 library "
-        f"{totals['wide_planes']['library_ms']:.4f}) of {med:.3f} ms end to end")
+    say(f"W8A16 products device ms per forward "
+        f"{sum(totals[k]['ms'] for k in W8A16_KERNELS):.4f} (bound "
+        f"{sum(totals[k]['bound_ms'] for k in W8A16_KERNELS):.4f}, float64 library "
+        f"{sum(totals[k]['library_ms'] for k in W8A16_KERNELS):.4f}) of {med:.3f} ms end to end")
     profile_requests(ex, requests[:3], med)
 
+    reset(RAW_KERNELS)
     trace_totals, trace_launches = trace_path(("20d.", "20d."), "ResNet-50 W8A16", r50,
                                               W8A16_KERNELS, config=W8A16)
+    no_raw_launch("the W8A16 b1 trace path")
+    wide_products_ms("20d", trace_totals)
     for k, t in trace_totals.items():
         errs[k] = max(errs.get(k, 0), t["max_abs_err"])
     for k, n in trace_launches.items():
         launches[k] = launches.get(k, 0) + n
 
-    phase(f"20e. the 16x8 TFLite fixture ({TFLITE_16X8}) on the card: every product on K4 / K5 "
-          f"over two byte planes == plain, integers == the CPU path [{card}]")
+    phase(f"20e. the 16x8 TFLite fixture ({TFLITE_16X8}) on the card: every product on "
+          f"qgemm_wide / qconv_wide / qdwconv_wide == plain and timed, integers == the CPU path "
+          f"[{card}]")
     io16 = np.load(TFLITE_16X8_IO)
     g16 = from_tflite(TFLITE_16X8)
     names16 = computational_nodes(g16)
@@ -2971,17 +3017,17 @@ def w8a16_path(card: str) -> tuple[dict, dict, dict]:
     with recording(calls):
         ex16.run_device(io16["x"])
     torch.cuda.synchronize()
-    impl = kernel_impls()
-    held = Counter()
-    for k, a, kw in calls:
-        errs[k] = max(errs.get(k, 0), hold_call(k, a, kw, impl))
-        held[k] += 1
-    say("kernel calls of one forward, each == plain: "
-        + ", ".join(f"{n} {k}" for k, n in sorted(held.items())))
-    reset(W8A16_16X8_KERNELS)
+    assert Counter(k for k, _, _ in calls) == {"qgemm_wide": 2, "qconv_wide": 2,
+                                               "qdwconv_wide": 1}, calls
+    totals16 = check_kernels(calls, W8A16_16X8_KERNELS, "16x8 fixture")
+    for k, t in totals16.items():
+        errs[k] = max(errs.get(k, 0), t["max_abs_err"])
+    totals["qdwconv_wide"] = totals16["qdwconv_wide"]
+    reset(W8A16_16X8_KERNELS + RAW_KERNELS)
     card16 = ex16.run(io16["x"])
     for k, n in read_launches(W8A16_16X8_KERNELS, "the 16x8 fixture").items():
         launches[k] = launches.get(k, 0) + n
+    no_raw_launch("the 16x8 fixture")
     cpu16 = TorchExecutor(g16, capture=names16, device="cpu").run(io16["x"])
     n_int = hold_against_plain(names16, card16, cpu16, g16, FLOAT_RTOL, FLOAT_ATOL)
     out = card16[names16.index(g16.outputs[0])]
@@ -5504,8 +5550,9 @@ def main() -> int:
     for part in (tflite_errs, wide_errs):
         for name, e in part.items():
             errs[name] = max(errs.get(name, 0), e)
-    totals["wide_planes"] = wide_totals["wide_planes"]
-    launches["wide_planes"] = 0
+    for name in WIDE_KERNELS:
+        totals[name] = wide_totals[name]
+        launches[name] = 0
     merge({}, tflite_launches)
     merge({}, wide_launches)
     say(f"\nphase 20 seconds {time.perf_counter() - t20:.1f} (host clock)")

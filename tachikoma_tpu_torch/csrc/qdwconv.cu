@@ -59,6 +59,17 @@
 // the accumulator is summed in uint32, so even a kernel deep enough to wrap
 // wraps as the oracle's int32 does.  izp is an int8 zero point (the window's
 // fill byte).
+//
+// qdwconv_wide (tk_qdwconv_wide: the body with T = int16_t) is W8A16's
+// depthwise qnn.conv2d into int64 (the JAX package's grouped qnn.conv2d on
+// XLA, ops/jax_ops.py _qconv2d_jax; no Pallas kernel): int16 data, int8
+// weights, no bias.  The window holds int16 (8 bytes a thread's 4 channels,
+// izp's 16 bits where the image is not; 16-byte copies where C % 8 == 0),
+// and a tap is x * w in int32.  Depthwise sums no channels, so it needs no
+// byte planes: |x - izp| <= 65535 and |w| <= 128, so each term is below
+// 2^23 and a sum of up to 256 taps (DW_WIDE_TAPS) is exact in int32; the
+// uint32 sum minus izp * sum(w) is that int32, stored sign-extended as
+// int64.  The launch refuses more taps.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -76,13 +87,14 @@ namespace tk {
 
 constexpr int DW_R = 4;  // output pixels a thread, along x
 constexpr int DW_MAX_SMEM = 227 * 1024;
+constexpr int DW_WIDE_TAPS = 256;  // (2^31 - 1) / (65535 * 128): qdwconv_wide's exact taps
 
 struct DwGeo {
   int n, h, w, c, kh, kw, oh, ow, sh, sw, pt, pl, izp;
   int ct, th, tw;        // a block's tile: channels, output rows, output columns
   int ih, iw, rp;        // its input window: rows, columns, row pitch in 4-byte words
   int tiles_x, tiles_y;  // output tiles along x and y (the grid's x is images x tiles)
-  bool vec16;            // C % 16 == 0 and x 16-byte aligned: 16-byte copies
+  bool vec16;            // x 16-byte aligned and C a whole number of 16-byte copies
   bool vec4;             // C % 4 == 0 and x, w 4-byte aligned: word loads and stores
 };
 
@@ -115,23 +127,43 @@ __device__ __forceinline__ int32_t dw_requantize(uint32_t acc, const DwRq& r, co
   return min(max(q, p.qmin), p.qmax);
 }
 
+// 4 channels of the window at `p` (int8: one word; int16: two), sign-extended.
+template <typename T>
+__device__ __forceinline__ void dw_load4(const uint32_t* p, int32_t (&v)[4]) {
+  if constexpr (sizeof(T) == 1) {
+    const uint32_t word = *p;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = sext_byte(word, e);
+  } else {
+    const uint2 d = *reinterpret_cast<const uint2*>(p);
+    v[0] = (int32_t)(int16_t)(d.x & 0xffffu);
+    v[1] = (int32_t)d.x >> 16;
+    v[2] = (int32_t)(int16_t)(d.y & 0xffffu);
+    v[3] = (int32_t)d.y >> 16;
+  }
+}
+
 // The block's input window into shared memory (`win`, [ih][rp] words, each
-// position CT / 4 words of channels), izp outside the image and past C.
-__device__ __forceinline__ void dw_stage(uint32_t* win, const int8_t* __restrict__ x, int img,
+// position CT * sizeof(T) / 4 words of channels), izp outside the image and
+// past C.
+template <typename T>
+__device__ __forceinline__ void dw_stage(uint32_t* win, const T* __restrict__ x, int img,
                                          int iy0, int ix0, int c0, const DwGeo& g) {
-  const uint32_t fill = (uint32_t)(uint8_t)g.izp * 0x01010101u;
-  const int cw = g.ct >> 2;
-  const int8_t* xi = x + (long long)img * g.h * g.w * g.c;
+  const uint32_t fill = sizeof(T) == 1 ? (uint32_t)(uint8_t)g.izp * 0x01010101u
+                                       : (uint32_t)(uint16_t)g.izp * 0x00010001u;
+  const int cw = g.ct * (int)sizeof(T) / 4;
+  const T* xi = x + (long long)img * g.h * g.w * g.c;
   if (g.vec16) {
-    const int cq = g.ct >> 4;  // 16-byte chunks a position
+    const int cq = g.ct * (int)sizeof(T) / 16;  // 16-byte chunks a position
+    constexpr int CH = 16 / sizeof(T);          // channels a chunk
     const int total = g.ih * g.iw * cq;
     for (int i = threadIdx.x; i < total; i += blockDim.x) {
       const int q = i % cq, pos = i / cq;
       const int r = pos / g.iw, col = pos - r * g.iw;
-      const int iy = iy0 + r, ix = ix0 + col, ch = c0 + 16 * q;
+      const int iy = iy0 + r, ix = ix0 + col, ch = c0 + CH * q;
       uint32_t* dst = win + r * g.rp + col * cw + 4 * q;
       if ((unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w && ch < g.c) {
-        const int8_t* src = xi + ((long long)iy * g.w + ix) * g.c + ch;
+        const T* src = xi + ((long long)iy * g.w + ix) * g.c + ch;
         const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src));
       } else {
@@ -140,15 +172,15 @@ __device__ __forceinline__ void dw_stage(uint32_t* win, const int8_t* __restrict
     }
     asm volatile("cp.async.commit_group;");
   } else {
-    int8_t* wb = reinterpret_cast<int8_t*>(win);
+    T* wb = reinterpret_cast<T*>(win);
     const int total = g.ih * g.iw * g.ct;
     for (int i = threadIdx.x; i < total; i += blockDim.x) {
       const int cc = i % g.ct, pos = i / g.ct;
       const int r = pos / g.iw, col = pos - r * g.iw;
       const int iy = iy0 + r, ix = ix0 + col, ch = c0 + cc;
       const bool in = (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w && ch < g.c;
-      wb[(r * g.rp + col * cw) * 4 + cc] =
-          in ? xi[((long long)iy * g.w + ix) * g.c + ch] : (int8_t)g.izp;
+      wb[(r * g.rp + col * cw) * (4 / (int)sizeof(T)) + cc] =
+          in ? xi[((long long)iy * g.w + ix) * g.c + ch] : (T)g.izp;
     }
   }
 }
@@ -165,21 +197,24 @@ __device__ __forceinline__ uint32_t dw_weight_word(const int8_t* __restrict__ w,
   return v;
 }
 
-// `out` is int8 (N, OH, OW, C), or int32 when RAW.  K = KH = KW = 3 with the
-// column stride SW known at compile time (MobileNetV2's convs: the weights
-// live in registers and the window's columns are reused across the strip),
-// or K = 0 for any size and stride (the weights in shared memory after the
-// window).
-template <bool RAW, int K, int SW>
+// `out` is int8 (N, OH, OW, C), or int32 when RAW; int64 for T = int16_t
+// (qdwconv_wide: RAW with no bias).  K = KH = KW = 3 with the column stride
+// SW known at compile time (MobileNetV2's convs: the weights live in
+// registers and the window's columns are reused across the strip), or K = 0
+// for any size and stride (the weights in shared memory after the window).
+template <bool RAW, int K, int SW, typename T = int8_t>
 __global__ void __launch_bounds__(256)
-    qdwconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+    qdwconv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                    void* __restrict__ out, Requant rq, DwGeo g) {
+  constexpr bool WIDE = sizeof(T) == 2;
+  static_assert(!WIDE || RAW, "the int16 mode stores the raw sum");
   extern __shared__ __align__(16) uint32_t win[];
 #if !DW_BODY
   if (g.n >= 0) return;
 #endif
   const int kh = K ? K : g.kh, kw = K ? K : g.kw, sw = SW ? SW : g.sw;
-  const int cw_n = g.ct >> 2;
+  const int cw_n = g.ct >> 2;                    // 4-channel groups a position
+  const int wp = cw_n * (int)sizeof(T);          // window words a position
   int bx = blockIdx.x;
   const int tx = bx % g.tiles_x;
   bx /= g.tiles_x;
@@ -189,7 +224,7 @@ __global__ void __launch_bounds__(256)
 #if DW_STAGE_INPUT
   dw_stage(win, x, img, oy0 * g.sh - g.pt, ox0 * sw - g.pl, c0, g);
 #endif
-  uint32_t* ws = win + g.ih * g.rp;  // K = 0: [tap][CT / 4] words
+  uint32_t* ws = win + g.ih * g.rp;  // K = 0: [tap][CT / 4] words of weights
   if (K == 0)
     for (int i = threadIdx.x; i < kh * kw * cw_n; i += blockDim.x) {
       const int tap = i / cw_n, q = i - tap * cw_n;
@@ -221,7 +256,9 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int ce = c + e < g.c ? c + e : c;
-      rc[e].bz = RAW ? (uint32_t)rq.bias[ce] : (uint32_t)rq.bias[ce] - (uint32_t)rq.rq_izp;
+      rc[e].bz = WIDE ? 0u
+                 : RAW  ? (uint32_t)rq.bias[ce]
+                        : (uint32_t)rq.bias[ce] - (uint32_t)rq.rq_izp;
       if (!RAW) {
         const int s = rq.shift[ce];
         rc[e].m = (uint64_t)(int64_t)rq.mult[ce];
@@ -240,18 +277,14 @@ __global__ void __launch_bounds__(256)
   uint32_t acc[DW_R][4];
 #pragma unroll
   for (int j = 0; j < DW_R; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0u;
-  const uint32_t* row0 = win + ty * g.sh * g.rp + sx * DW_R * sw * cw_n + cw;
+  const uint32_t* row0 = win + ty * g.sh * g.rp + sx * DW_R * sw * wp + cw * (int)sizeof(T);
   if (K) {
     constexpr int NCOL = (DW_R - 1) * (SW ? SW : 1) + K;
 #pragma unroll
     for (int ky = 0; ky < K; ++ky) {
       int32_t xv[NCOL][4];
 #pragma unroll
-      for (int i = 0; i < NCOL; ++i) {
-        const uint32_t word = row0[ky * g.rp + i * cw_n];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) xv[i][e] = sext_byte(word, e);
-      }
+      for (int i = 0; i < NCOL; ++i) dw_load4<T>(row0 + ky * g.rp + i * wp, xv[i]);
 #pragma unroll
       for (int j = 0; j < DW_R; ++j)
 #pragma unroll
@@ -272,9 +305,10 @@ __global__ void __launch_bounds__(256)
       }
 #pragma unroll
       for (int j = 0; j < DW_R; ++j) {
-        const uint32_t word = row0[ky * g.rp + (j * sw + kx) * cw_n];
+        int32_t xv[4];
+        dw_load4<T>(row0 + ky * g.rp + (j * sw + kx) * wp, xv);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] += (uint32_t)(sext_byte(word, e) * wv[e]);
+        for (int e = 0; e < 4; ++e) acc[j][e] += (uint32_t)(xv[e] * wv[e]);
       }
     }
   }
@@ -288,7 +322,18 @@ __global__ void __launch_bounds__(256)
   for (int j = 0; j < DW_R; ++j) {
     if (ox + j >= g.ow) break;
     const long long o = (pix0 + j) * g.c + c;
-    if constexpr (RAW) {
+    if constexpr (WIDE) {  // the exact int32 sum, sign-extended
+      long long v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = (int32_t)(acc[j][e] - zw[e]);
+      long long* dst = static_cast<long long*>(out) + o;
+      if (g.vec4) {
+        reinterpret_cast<longlong2*>(dst)[0] = make_longlong2(v[0], v[1]);
+        reinterpret_cast<longlong2*>(dst)[1] = make_longlong2(v[2], v[3]);
+      } else {
+        for (int e = 0; e < 4 && c + e < g.c; ++e) dst[e] = v[e];
+      }
+    } else if constexpr (RAW) {
       int32_t v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
@@ -317,19 +362,19 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <bool RAW, int K, int SW>
-int launch_dw(const int8_t* x, const int8_t* w, void* out, const Requant& rq, const DwGeo& g,
+template <bool RAW, int K, int SW, typename T>
+int launch_dw(const T* x, const int8_t* w, void* out, const Requant& rq, const DwGeo& g,
               dim3 grid, int threads, size_t smem, cudaStream_t st) {
   // once per instantiation (and so never inside a CUDA-graph capture, which
   // follows a warm-up call)
   static bool raised = false;
   if (!raised) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qdwconv_kernel<RAW, K, SW>, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_MAX_SMEM);
+        qdwconv_kernel<RAW, K, SW, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_MAX_SMEM);
     if (e != cudaSuccess) return (int)e;
     raised = true;
   }
-  qdwconv_kernel<RAW, K, SW><<<grid, threads, smem, st>>>(x, w, out, rq, g);
+  qdwconv_kernel<RAW, K, SW, T><<<grid, threads, smem, st>>>(x, w, out, rq, g);
   return (int)cudaGetLastError();
 }
 
@@ -338,11 +383,13 @@ int launch_dw(const int8_t* x, const int8_t* w, void* out, const Requant& rq, co
 // and returns cudaGetLastError(); cudaErrorInvalidValue for a tile K5 does
 // not take (CT not one of 16, 32, 48, 64; TW not a multiple of 4; more than
 // 256 threads; a row pitch below the window's width or not a multiple of 4;
-// the window and weights above 227 KB), an izp outside int8, or more than
-// 2^31 output pixels.  With RAW, `mult` and `shift` are not read.
-template <bool RAW>
-int launch_qdwconv(const int8_t* x, const int8_t* w, void* out, const int32_t* bias,
+// the window and weights above 227 KB), an izp outside T, more than
+// 2^31 output pixels, or (T = int16_t) more than DW_WIDE_TAPS taps.  With
+// RAW, `mult` and `shift` are not read; with T = int16_t, `bias` neither.
+template <bool RAW, typename T = int8_t>
+int launch_qdwconv(const T* x, const int8_t* w, void* out, const int32_t* bias,
                    const int32_t* mult, const int32_t* shift, const int32_t* p, void* stream) {
+  constexpr bool WIDE = sizeof(T) == 2;
   DwGeo g;
   g.n = p[P_N];
   g.h = p[P_H];
@@ -366,29 +413,33 @@ int launch_qdwconv(const int8_t* x, const int8_t* w, void* out, const int32_t* b
   const Requant rq{bias, mult, shift, p[P_RQ_IZP], p[P_OUT_ZP], p[P_QMIN], p[P_QMAX],
                    p[P_TONEAREST] != 0};
   const long long npix = (long long)g.n * g.oh * g.ow;
-  if (npix >= (1LL << 31) || g.izp < -128 || g.izp > 127) return (int)cudaErrorInvalidValue;
+  const int zmax = WIDE ? 32767 : 127;
+  if (npix >= (1LL << 31) || g.izp < -zmax - 1 || g.izp > zmax ||
+      (WIDE && (long long)g.kh * g.kw > DW_WIDE_TAPS))
+    return (int)cudaErrorInvalidValue;
   if (npix == 0 || g.c == 0) return (int)cudaGetLastError();
   if ((g.ct != 16 && g.ct != 32 && g.ct != 48 && g.ct != 64) || g.th < 1 || g.tw < DW_R ||
-      g.tw % DW_R || (g.vec16 && g.c % 16))
+      g.tw % DW_R || (g.vec16 && g.c * (int)sizeof(T) % 16))
     return (int)cudaErrorInvalidValue;
   g.ih = (g.th - 1) * g.sh + g.kh;
   g.iw = (g.tw - 1) * g.sw + g.kw;
   g.tiles_y = (g.oh + g.th - 1) / g.th;
   g.tiles_x = (g.ow + g.tw - 1) / g.tw;
   const int threads = (g.ct / 4) * g.th * (g.tw / DW_R);
+  const int wp = g.ct / 4 * (int)sizeof(T);  // window words a position
   const bool k3 = g.kh == 3 && g.kw == 3 && (g.sw == 1 || g.sw == 2);
   const size_t smem =
       4 * ((size_t)g.ih * g.rp + (k3 ? 0 : (size_t)g.kh * g.kw * (g.ct / 4)));
-  if (threads > 256 || g.rp < g.iw * (g.ct / 4) || g.rp % 4 || smem > (size_t)DW_MAX_SMEM)
+  if (threads > 256 || g.rp < g.iw * wp || g.rp % 4 || smem > (size_t)DW_MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   const long long bx = (long long)g.n * g.tiles_y * g.tiles_x;
   const long long by = (g.c + g.ct - 1) / g.ct;
   if (bx > 0x7fffffffLL || by > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)bx, (unsigned)by);
   cudaStream_t st = (cudaStream_t)stream;
-  if (k3 && g.sw == 1) return launch_dw<RAW, 3, 1>(x, w, out, rq, g, grid, threads, smem, st);
-  if (k3) return launch_dw<RAW, 3, 2>(x, w, out, rq, g, grid, threads, smem, st);
-  return launch_dw<RAW, 0, 0>(x, w, out, rq, g, grid, threads, smem, st);
+  if (k3 && g.sw == 1) return launch_dw<RAW, 3, 1, T>(x, w, out, rq, g, grid, threads, smem, st);
+  if (k3) return launch_dw<RAW, 3, 2, T>(x, w, out, rq, g, grid, threads, smem, st);
+  return launch_dw<RAW, 0, 0, T>(x, w, out, rq, g, grid, threads, smem, st);
 }
 
 }  // namespace tk
@@ -415,4 +466,12 @@ extern "C" int tk_qdwconv_direct(const int8_t* x, const int8_t* w, uint8_t* out,
   for (int i = 0; i < tk::P_COUNT; ++i) p[i] = params[i];
   p[tk::P_RQ_IZP] = 0;
   return tk::launch_qdwconv<false>(x, w, out, bias, mult, shift, p, stream);
+}
+
+// qdwconv_wide: int16 x (N, H, W, C), int8 w (KH, KW, 1, C) -> int64 (N, OH,
+// OW, C), sum (x_pad - izp) * w with izp an int16 zero point and no bias, at
+// most DW_WIDE_TAPS taps.
+extern "C" int tk_qdwconv_wide(const int16_t* x, const int8_t* w, int64_t* out,
+                               const int32_t* params, void* stream) {
+  return tk::launch_qdwconv<true, int16_t>(x, w, out, nullptr, nullptr, nullptr, params, stream);
 }

@@ -85,11 +85,13 @@ SOURCES = {
     "qgemm_rq.cu": (("tk_qgemm_rq", 7), ("tk_qgemm_raw", 4)),
     "qbmm_hopper.cu": (("tk_qbmm_rq", 6), ("tk_qbmm_raw", 4)),
     "qconv_igemm_hopper.cu": (("tk_qconv_rq", 7), ("tk_qconv_rq_res", 7), ("tk_qconv_raw", 4)),
-    "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4), ("tk_qdwconv_direct", 6)),
+    "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4), ("tk_qdwconv_direct", 6),
+                   ("tk_qdwconv_wide", 3)),
     "flash_attn.cu": (("tk_flash_attn", 4),),
     "qconv_layouts.cu": (("tk_qconv_rq_s", 6), ("tk_qconv_rq_r", 6)),
     "qconv_layouts_hopper.cu": (("tk_qconv_rq_t", 6), ("tk_qconv_rq_w", 6)),
     "qconv_direct.cu": (("tk_qconv_direct", 6),),
+    "qconv_wide_hopper.cu": (("tk_qgemm_wide", 4), ("tk_qconv_wide", 4)),
 }
 # -fno-gnu-unique: g++ would give the launchers' once-per-kernel statics
 # (function-template locals) STB_GNU_UNIQUE binding, which the dynamic linker

@@ -7,6 +7,8 @@ raw int32 accumulator (port of `tachikoma_tpu/ops/pallas/conv_flat.py`
   * `qdwconv_raw` wraps `tk_qdwconv_raw`: the same conv storing the int32
     accumulator plus bias, for the unfused grouped `qnn.conv2d` (the JAX
     package runs that through `lax.conv`, with no Pallas kernel).
+  * `dw_launch` also launches the body's int16 mode, `tk_qdwconv_wide`
+    (W8A16's depthwise conv into int64; its wrapper is `wide.qdwconv_wide`).
 
 x is int8 NHWC (N, H, W, C), w int8 HWIO (KH, KW, 1, C); any kernel size,
 stride and padding (top, left, bottom, right); taps outside the image read
@@ -41,21 +43,24 @@ def _window(th, tw, kh, kw, sh, sw):
     return (th - 1) * sh + kh, (tw - 1) * sw + kw
 
 
-def _row_pitch(ct, th, nx, iw, sh, sw) -> int:
+def _row_pitch(ct, th, nx, iw, sh, sw, eb=1) -> int:
     """The window's row pitch in 4-byte words: its width, rounded up to 16
     bytes, plus the pad that puts the first warp's first read on the fewest
-    words of one bank (csrc/qdwconv.cu maps thread -> (word, row, strip))."""
-    cw = ct // 4
+    words of one bank (csrc/qdwconv.cu maps thread -> (channel group, row,
+    strip)); `eb` bytes an element (2: the int16 mode, a thread's 4 channels
+    two words)."""
+    groups = ct // 4
+    cw = groups * eb
     base = -(-iw * cw // 4) * 4
-    threads = min(32, cw * th * nx)
+    threads = min(32, groups * th * nx)
     best = None
     for pad in range(0, 32, 4):
         rp = base + pad
         banks = {}
         for lane in range(threads):
-            q, rest = lane % cw, lane // cw
+            q, rest = lane % groups, lane // groups
             ty, sx = rest % th, rest // th
-            addr = ty * sh * rp + sx * R * sw * cw + q
+            addr = ty * sh * rp + sx * R * sw * cw + q * eb
             banks.setdefault(addr % 32, set()).add(addr)
         worst = max(len(a) for a in banks.values())
         if best is None or worst < best[0]:
@@ -63,7 +68,7 @@ def _row_pitch(ct, th, nx, iw, sh, sw) -> int:
     return best[1]
 
 
-def dw_plan(n, oh, ow, c, kh, kw, sh, sw) -> dict:
+def dw_plan(n, oh, ow, c, kh, kw, sh, sw, eb=1) -> dict:
     """K5's tile for one call: {"ct": channels, "th": output rows, "tw":
     output columns (R a thread), "rp": window row pitch in words, "threads",
     "blocks", "smem" bytes}.  The channel tile pads C the least (ties: 32,
@@ -72,7 +77,8 @@ def dw_plan(n, oh, ow, c, kh, kw, sh, sw) -> dict:
     --plans: blocks of 64 to 128 threads and 1 to 2 K outputs ran fastest at
     MobileNetV2's b8 and b1 calls, the b1 calls too, where such blocks
     leave most SMs idle: smaller ones, a grid that fills the card, ran up to
-    1.3x slower); the window is cut until it fits in shared memory."""
+    1.3x slower); the window is cut until it fits in shared memory.  `eb`:
+    bytes an input element (2 for the int16 mode)."""
     ct = min(CHANNEL_TILES, key=lambda t: (-(-c // t) * t, CHANNEL_TILES.index(t)))
     nx = max(1, min(2, -(-ow // R)))
     th = max(1, min(oh, 8, 128 // (ct // 4 * nx)))
@@ -83,7 +89,8 @@ def dw_plan(n, oh, ow, c, kh, kw, sh, sw) -> dict:
     def smem(ct, th, nx):
         ih, iw = _window(th, R * nx, kh, kw, sh, sw)
         generic = not (kh == kw == 3 and sw in (1, 2))
-        return 4 * (ih * _row_pitch(ct, th, nx, iw, sh, sw) + (kh * kw * ct // 4 if generic else 0))
+        return 4 * (ih * _row_pitch(ct, th, nx, iw, sh, sw, eb)
+                    + (kh * kw * ct // 4 if generic else 0))
 
     while smem(ct, th, nx) > MAX_SMEM and (th > 1 or nx > 1 or ct > 16):
         if th > 1:
@@ -95,7 +102,7 @@ def dw_plan(n, oh, ow, c, kh, kw, sh, sw) -> dict:
     if smem(ct, th, nx) > MAX_SMEM:
         raise ValueError(f"qdwconv: a {kh}x{kw} window does not fit in K5's shared memory")
     ih, iw = _window(th, R * nx, kh, kw, sh, sw)
-    return dict(ct=ct, th=th, tw=R * nx, rp=_row_pitch(ct, th, nx, iw, sh, sw),
+    return dict(ct=ct, th=th, tw=R * nx, rp=_row_pitch(ct, th, nx, iw, sh, sw, eb),
                 threads=ct // 4 * th * nx, blocks=blocks(ct, th, nx), smem=smem(ct, th, nx))
 
 
@@ -160,8 +167,8 @@ def qdwconv_raw_plain(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0),
 
 def dw_launch(kernel, x, w, out_dtype, ptrs, strides, padding, izp, **epilogue):
     """Check the operands, launch C entry tk_<kernel> (K5's body: tk_qdwconv_rq,
-    tk_qdwconv_raw, or K12's tk_qdwconv_direct) at `dw_plan`'s tile, count
-    it; returns out."""
+    tk_qdwconv_raw, K12's tk_qdwconv_direct, or the int16 mode
+    tk_qdwconv_wide on int16 x) at `dw_plan`'s tile, count it; returns out."""
     if x.ndim != 4 or w.ndim != 4:
         raise ValueError(f"{kernel}: bad geometry {tuple(x.shape)} * {tuple(w.shape)}")
     n, h, wd, c = x.shape
@@ -169,15 +176,17 @@ def dw_launch(kernel, x, w, out_dtype, ptrs, strides, padding, izp, **epilogue):
     oh, ow = conv2d_out_hw(h, wd, kh, kw, strides, padding, (1, 1))
     if min(oh, ow) <= 0:
         raise ValueError(f"{kernel}: bad geometry {tuple(x.shape)} * {tuple(w.shape)}")
-    if not -128 <= int(izp) <= 127:
-        raise ValueError(f"{kernel}: input zero point {izp} is not an int8 value")
-    ops = dict(x=(x, torch.int8, (n, h, wd, c)), w=(w, torch.int8, (kh, kw, 1, c)))
+    x_dtype, eb = (torch.int16, 2) if kernel == "qdwconv_wide" else (torch.int8, 1)
+    zmax = 2 ** (8 * eb - 1)
+    if not -zmax <= int(izp) < zmax:
+        raise ValueError(f"{kernel}: input zero point {izp} is not an int{8 * eb} value")
+    ops = dict(x=(x, x_dtype, (n, h, wd, c)), w=(w, torch.int8, (kh, kw, 1, c)))
     ops.update((k, (t, torch.int32, (c,))) for k, t in ptrs.items())
     check_cuda_operands(kernel, x.device, **ops)
     out = torch.empty((n, oh, ow, c), dtype=out_dtype, device=x.device)
-    plan = dw_plan(n, oh, ow, c, kh, kw, strides[0], strides[1])
+    plan = dw_plan(n, oh, ow, c, kh, kw, strides[0], strides[1], eb)
     vec4 = c % 4 == 0 and x.data_ptr() % 4 == 0 and w.data_ptr() % 4 == 0
-    vec16 = c % 16 == 0 and x.data_ptr() % 16 == 0
+    vec16 = c * eb % 16 == 0 and x.data_ptr() % 16 == 0
     launch(f"tk_{kernel}", [x, w, out, *ptrs.values()], dict(
         n=n, h=h, w=wd, cin=c, kh=kh, kw=kw, cout=c, oh=oh, ow=ow, sh=strides[0],
         sw=strides[1], pt=padding[0], pl=padding[1], izp=izp, a_vec=vec4, b_vec=vec16,

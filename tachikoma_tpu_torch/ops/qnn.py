@@ -12,7 +12,8 @@ equal the oracle's bit for bit on any device.
   * qnn.conv2d / qnn.dense — (x - izp) . (w - kzp) with int32 accumulation;
                      the torch impls run K4 (ops/kernels), with kzp = 0.
                      With out_dtype int64 (W8A16: int16 data), the sum is
-                     int64, on K4 / K5 over two byte planes (kernels/wide.py).
+                     int64, on qgemm_wide / qconv_wide / qdwconv_wide
+                     (kernels/wide.py).
   * qnn.batch_matmul — (a - za) @ (b - zb), int32; K1's batched mode.
   * qnn.add / qnn.subtract — requantize both sides to the output qparams
                      (int32), add (subtract), take one zp off (put it back).
@@ -180,8 +181,8 @@ def _check_raw_operands(node: Node, data: torch.Tensor, weight: torch.Tensor) ->
     """The input zero point of an unfused qnn.conv2d / qnn.dense that the
     port's kernels can run: int8 weights with kernel zero point 0 (the
     quantizer always emits 0), and int8 data into an int32 accumulator (K4,
-    K5) or int8 / int16 data into an int64 one (the W8A16 byte planes,
-    `kernels/wide.py`)."""
+    K5) or int8 / int16 data into an int64 one (W8A16's own kernels,
+    `kernels/wide.py`; int8 data there runs K4 / K5 and casts)."""
     kzp = np.asarray(node.attrs.get("kernel_zero_point", 0))
     if (kzp != 0).any():
         raise NotImplementedError(f"{node.name} ({node.op}): a nonzero kernel_zero_point "

@@ -73,6 +73,7 @@ TRANSFORMER_INT8_SCAN = replace(TRANSFORMER_INT8, scale_group=r"(block|layer)\d+
 # 16-bit activations x 8-bit weights (the TFLite "16x8" mode): int64
 # accumulators and biases, requantized on the wide fixed-point path
 # (ops/fixed_point.py q_multiply_shift_wide_*).  fuse_qnn leaves the int64
-# heads unfused; on the card their products run on K4 / K5 over two byte
-# planes of the int16 activations (ops/kernels/wide.py).
+# heads unfused; on the card their products run on kernels of their own,
+# one wgmma pass over the int16 activations' two byte planes
+# (ops/kernels/wide.py).
 W8A16 = QConfig(act_dtype="int16", accum_dtype="int64", bias_dtype="int64")

@@ -1977,14 +1977,17 @@ def test_vision_zoo_executor_on_card_equals_cpu(cuda, name, kw, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# W8A16 on the card: K4 / K5 over two byte planes, the wide requantize, and
-# the exporter's TFLite MobileNetV2 at b16 on K1 / K2 / K5 (`-k "w8a16 or tflite"`)
+# W8A16 on the card: qgemm_wide / qconv_wide (csrc/qconv_wide_hopper.cu) and
+# K5's int16 mode qdwconv_wide, the wide requantize, and the exporter's TFLite
+# MobileNetV2 at b16 on K1 / K2 / K5 (`-k "w8a16 or tflite"`)
 # ---------------------------------------------------------------------------
 
 W8A16_CONVS = [
     # (x shape, weight shape, strides, padding, groups): ResNet-50's 7x7 s2 stem,
     # a 3x3 s2 and s1 at its widths, 1x1 s1 / s2, MobileNetV2-like depthwise
-    # (TFLite's bottom-right SAME at s2), the 16x8 fixture's groups-8 conv
+    # (TFLite's bottom-right SAME at s2), the 16x8 fixture's groups-8 conv; CIN
+    # 12 and 20 (not a multiple of 8: element loads), CIN 24 (a 16-element
+    # segment across two taps), the b1 trace's 7^2 3x3 (K split over the grid)
     ((1, 224, 224, 3), (7, 7, 3, 64), (2, 2), (3, 3, 3, 3), 1),
     ((2, 28, 28, 128), (3, 3, 128, 128), (2, 2), (1, 1, 1, 1), 1),
     ((1, 14, 14, 256), (3, 3, 256, 256), (1, 1), (1, 1, 1, 1), 1),
@@ -1992,8 +1995,13 @@ W8A16_CONVS = [
     ((1, 7, 7, 512), (1, 1, 512, 2048), (1, 1), (0, 0, 0, 0), 1),
     ((2, 56, 56, 144), (3, 3, 1, 144), (2, 2), (0, 0, 1, 1), 144),
     ((1, 16, 16, 8), (3, 3, 1, 8), (1, 1), (1, 1, 1, 1), 8),
+    ((2, 13, 13, 12), (3, 3, 12, 40), (1, 1), (1, 1, 1, 1), 1),
+    ((3, 10, 10, 20), (1, 1, 20, 24), (1, 1), (0, 0, 0, 0), 1),
+    ((2, 9, 9, 24), (3, 3, 24, 72), (2, 2), (0, 1, 1, 0), 1),
+    ((1, 7, 7, 512), (3, 3, 512, 512), (1, 1), (1, 1, 1, 1), 1),
 ]
 W8A16_ZPS = [0, -32768, 32767, 256, -3841]
+K4_K5 = ("qgemm_raw", "qconv_raw", "qdwconv_raw")
 
 
 def _i16(rng, shape):
@@ -2005,21 +2013,33 @@ def _i16(rng, shape):
     return x
 
 
+def _wide_kernel(xs, ws, strides, padding, groups) -> str:
+    """The kernel `wide.wide_conv` launches for an int16 conv."""
+    if groups > 1:
+        return "qdwconv_wide"
+    one = ws[:2] == (1, 1) and tuple(strides) == (1, 1) and not any(padding)
+    return "qgemm_wide" if one else "qconv_wide"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("izp", W8A16_ZPS)
 @pytest.mark.parametrize("case", W8A16_CONVS, ids=[f"conv{i}" for i in range(len(W8A16_CONVS))])
 def test_w8a16_conv_planes_on_card_equal_plain(rng, cuda, case, izp):
+    """Each int16 conv runs on its own kernel, counted under its name, with
+    no K4 / K5 launch, == the float64 plain version and the CPU path."""
     from tachikoma_tpu_torch.ops.kernels import wide
 
     xs, ws, strides, padding, groups = case
     x = torch.from_numpy(_i16(rng, xs)).to(cuda)
     w = _dev(rng, ws, cuda)
     kw = dict(strides=strides, padding=padding, groups=groups, izp=izp)
-    before = _lib.LAUNCHES["wide_planes"]
+    name = _wide_kernel(*case)
+    before = dict(_lib.LAUNCHES)
     got = wide.wide_conv(x, w, **kw)
     want = wide.wide_conv_plain(x, w, **kw)
     torch.cuda.synchronize()
-    assert _lib.LAUNCHES["wide_planes"] == before + 1
+    assert _lib.LAUNCHES[name] == before.get(name, 0) + 1
+    assert all(_lib.LAUNCHES[k] == before.get(k, 0) for k in K4_K5)
     assert got.dtype == torch.int64 and torch.equal(got, want)
     cpu = wide.wide_conv(x.cpu(), w.cpu(), **kw)
     assert torch.equal(got.cpu(), cpu)
@@ -2028,37 +2048,123 @@ def test_w8a16_conv_planes_on_card_equal_plain(rng, cuda, case, izp):
 @pytest.mark.cuda
 @pytest.mark.parametrize("izp", W8A16_ZPS)
 @pytest.mark.parametrize("mkn", [(8, 2048, 1000), (1, 2048, 1000), (16, 1280, 10),
-                                 (100, 576, 96), (3136, 64, 256)])
+                                 (100, 576, 96), (3136, 64, 256), (1, 70, 10), (49, 4608, 512)])
 def test_w8a16_dense_planes_on_card_equal_plain(rng, cuda, mkn, izp):
     from tachikoma_tpu_torch.ops.kernels import wide
 
     m, k, n = mkn
     x = torch.from_numpy(_i16(rng, (m, k))).to(cuda)
     w = _dev(rng, (k, n), cuda)
+    before = _lib.LAUNCHES["qgemm_wide"]
     got = wide.wide_dense(x, w, izp=izp)
     torch.cuda.synchronize()
+    assert _lib.LAUNCHES["qgemm_wide"] == before + 1
     assert torch.equal(got, wide.wide_dense_plain(x, w, izp=izp))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(1, 2048, 1000), (49, 4608, 512), (8, 147, 64), (300, 72, 200)])
+def test_w8a16_gemm_at_every_plan_on_card(rng, cuda, mkn):
+    """`qgemm_wide` at every tile and split of K (`wide_plans`: the split
+    path's 64-bit atomics at M 1 and 49) == plain."""
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    m, k, n = mkn
+    x = torch.from_numpy(_i16(rng, (m, k))).to(cuda)
+    w = _dev(rng, (k, n), cuda)
+    want = wide.qgemm_wide_plain(x, w, izp=-77)
+    for plan in wide.wide_plans(k):
+        got = wide.qgemm_wide(x, w, izp=-77, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+
+
+@pytest.mark.cuda
+def test_w8a16_conv_at_every_plan_on_card(rng, cuda):
+    """`qconv_wide` at every tile and split of K on the b1 trace's 7^2 3x3
+    call and a CIN-3 stem == plain."""
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    for xs, ws, strides, padding in (((1, 7, 7, 512), (3, 3, 512, 512), (1, 1), (1, 1, 1, 1)),
+                                     ((1, 30, 30, 3), (7, 7, 3, 64), (2, 2), (3, 3, 3, 3))):
+        x = torch.from_numpy(_i16(rng, xs)).to(cuda)
+        w = _dev(rng, ws, cuda)
+        kw = dict(strides=strides, padding=padding, izp=12345)
+        want = wide.qconv_wide_plain(x, w, **kw)
+        for plan in wide.wide_plans(ws[0] * ws[1] * ws[2]):
+            got = wide.qconv_wide(x, w, plan=plan, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (xs, plan)
+
+
+@pytest.mark.cuda
 def test_w8a16_planes_exact_near_the_k_bound_and_raise_past_it(cuda):
-    """At K = K_BOUND the worst case fills each plane's int32 sum to
-    2^31 - 127 (K4's GEMM mode on both paths); one term more raises."""
+    """At K = K_BOUND the worst case fills the lo plane's int32 sum to
+    -2^31 + 128 * 255 ... (x = -1: lo 255, w = -128) and, beside it, x - izp
+    = -65535 on every term; unsplit and split; one term more raises."""
     from tachikoma_tpu_torch.ops.kernels import wide
 
     k = wide.K_BOUND
-    for m in (1, 128):
-        x = torch.full((m, k), -2 ** 15, dtype=torch.int16, device=cuda)
-        w = torch.full((k, 2), -128, dtype=torch.int8, device=cuda)
-        got = wide.wide_dense(x, w, izp=2 ** 15 - 1)
-        torch.cuda.synchronize()
-        assert bool((got == (-2 ** 16 + 1) * -128 * k).all())
+    w = torch.full((k, 2), -128, dtype=torch.int8, device=cuda)
+    steps = -(-k // 64)
+    for xv, izp in ((-1, 0), (-2 ** 15, 2 ** 15 - 1), (255, -256)):
+        for m, plan in ((1, None), (128, None), (64, dict(bm=64, bn=64, ks=1, kper=steps))):
+            x = torch.full((m, k), xv, dtype=torch.int16, device=cuda)
+            got = wide.qgemm_wide(x, w, izp=izp, plan=plan)
+            torch.cuda.synchronize()
+            assert bool((got == (xv - izp) * -128 * k).all()), (xv, izp, m, plan)
     x = torch.zeros((1, 3, 3, 7400), dtype=torch.int16, device=cuda)
     with pytest.raises(ValueError, match="above 65793"):
         wide.wide_conv(x, torch.zeros((3, 3, 7400, 4), dtype=torch.int8, device=cuda))
     with pytest.raises(ValueError, match="above 65793"):
         wide.wide_dense(torch.zeros((1, k + 1), dtype=torch.int16, device=cuda),
                         torch.zeros((k + 1, 4), dtype=torch.int8, device=cuda))
+
+
+@pytest.mark.cuda
+def test_w8a16_depthwise_exact_at_its_tap_bound_and_raise_past_it(cuda):
+    """K5's int16 mode at DW_TAP_BOUND = 256 taps (16 x 16), every term
+    (x - izp) w = 65535 * 128: the int32 sum at 2^31 - 32768; 257 taps
+    raise."""
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    taps = wide.DW_TAP_BOUND
+    assert taps == 256
+    x = torch.full((2, 16, 16, 24), -2 ** 15, dtype=torch.int16, device=cuda)
+    w = torch.full((16, 16, 1, 24), -128, dtype=torch.int8, device=cuda)
+    before = _lib.LAUNCHES["qdwconv_wide"]
+    got = wide.wide_conv(x, w, groups=24, izp=2 ** 15 - 1)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["qdwconv_wide"] == before + 1
+    assert got.shape == (2, 1, 1, 24) and bool((got == 65535 * 128 * taps).all())
+    assert torch.equal(got, wide.wide_conv_plain(x, w, groups=24, izp=2 ** 15 - 1))
+    with pytest.raises(ValueError, match="K 257 is above 256"):
+        wide.wide_conv(torch.zeros((1, 1, 257, 8), dtype=torch.int16, device=cuda),
+                       torch.zeros((1, 257, 1, 8), dtype=torch.int8, device=cuda), groups=8)
+
+
+@pytest.mark.cuda
+def test_w8a16_int16_products_launch_no_k4_k5(rng, cuda):
+    """A W8A16 ResNet-18 b2 32^2 forward on the card: every int16 product on
+    qgemm_wide / qconv_wide, no K4 / K5 launch, == the CPU path."""
+    from tachikoma_tpu_torch.quantize.config import W8A16
+
+    g = resnet(18, batch_size=2, image_size=32, seed=0)
+    calib = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    q = quantize(g, [calib], W8A16)
+    names = computational_nodes(q)
+    wide_names = ("qgemm_wide", "qconv_wide", "qdwconv_wide")
+    for k in K4_K5 + wide_names:
+        _lib.LAUNCHES[k] = 0
+    card = TorchExecutor(q, capture=names, device="cuda").run(calib)
+    assert all(_lib.LAUNCHES[k] == 0 for k in K4_K5)
+    n_products = sum(q[n].op in ("qnn.conv2d", "qnn.dense") for n in names)
+    assert _lib.LAUNCHES["qgemm_wide"] + _lib.LAUNCHES["qconv_wide"] == n_products
+    assert _lib.LAUNCHES["qgemm_wide"] > 0 and _lib.LAUNCHES["qconv_wide"] > 0
+    cpu = TorchExecutor(q, capture=names, device="cpu").run(calib)
+    for nm, a, b in zip(names, card, cpu):
+        if b.dtype.kind in "iu":
+            np.testing.assert_array_equal(a, b, err_msg=nm)
 
 
 @pytest.mark.cuda
@@ -2125,9 +2231,13 @@ def test_tflite_16x8_on_card_equals_cpu(cuda):
     io_ = np.load(_fixture("small_cnn_16x8_io.npz"))
     g = from_tflite(_fixture("small_cnn_16x8.tflite"))
     names = computational_nodes(g)
-    _lib.LAUNCHES["wide_planes"] = 0
+    wide_names = ("qgemm_wide", "qconv_wide", "qdwconv_wide")
+    for k in K4_K5 + wide_names:
+        _lib.LAUNCHES[k] = 0
     card = TorchExecutor(g, capture=names, device="cuda").run(io_["x"])
-    assert _lib.LAUNCHES["wide_planes"] == 5  # 4 qnn.conv2d + 1 qnn.dense
+    # 4 qnn.conv2d (the CIN-3 3x3 and the 3x3 s2, a 1x1, a depthwise) + 1 qnn.dense
+    assert [_lib.LAUNCHES[k] for k in wide_names] == [2, 2, 1]
+    assert all(_lib.LAUNCHES[k] == 0 for k in K4_K5)
     cpu = TorchExecutor(g, capture=names, device="cpu").run(io_["x"])
     for nm, a, b in zip(names, card, cpu):
         if b.dtype.kind in "iu":

@@ -56,7 +56,7 @@ def test_import_pulls_in_no_jax():
             "tachikoma_tpu_torch.parallel.ring_attention",
             "tachikoma_tpu_torch.exec.trace_collector", "tachikoma_tpu_torch.ir.text",
             "tachikoma_tpu_torch.ir.passes", "tachikoma_tpu_torch.ir.patterns",
-            "tachikoma_tpu_torch.ir.viz"} <= set(modules)
+            "tachikoma_tpu_torch.ir.viz", "tachikoma_tpu_torch.ops.kernels.wide"} <= set(modules)
 
 
 def test_the_port_never_opens_the_tpu_tuning_database():
@@ -66,7 +66,8 @@ def test_the_port_never_opens_the_tpu_tuning_database():
         assert "tophub" not in path.read_text(), path
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                  ROOT / "tools" / "wide_probe.py"],
                          ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_file_imports_jax(path):
     for node in ast.walk(ast.parse(path.read_text())):

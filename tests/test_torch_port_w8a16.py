@@ -1,7 +1,8 @@
 """The W8A16 path of the port on the CPU (16-bit activations, 8-bit weights,
 int64 accumulators), against the JAX package: the wide fixed-point
-multiply, the int64 requantize, qnn.conv2d / qnn.dense into int64, the byte
-planes that carry those products to K4 and K5 on the card, the W8A16
+multiply, the int64 requantize, qnn.conv2d / qnn.dense into int64, the
+arithmetic of the card's kernels for those products (the int16 operand's
+byte planes, K5's int16 mode), the W8A16
 preset's quantize / fuse / run / trace, the int16 and int64 paths of the
 other ops, and `runtime/validate.py`.
 
@@ -253,33 +254,42 @@ def test_wide_products_refuse_what_no_kernel_runs(rng, bad, match):
 
 
 # ---------------------------------------------------------------------------
-# the byte planes: the card route's arithmetic through K4 and K5's plain versions
+# the kernels' arithmetic: the CPU model of qgemm_wide / qconv_wide's byte
+# planes and of K5's int16 mode, against the JAX package's int64 oracle
 # ---------------------------------------------------------------------------
 
 PLANE_ZPS = [0, 1, -1, 255, 256, -256, -128, 32767, -32768, 12345, -3840]
+WIDE_DENSE = [(1, 70, 10), (16, 1280, 10), (65, 576, 96), (8, 2048, 1000)]
 
 
 @pytest.mark.parametrize("izp", PLANE_ZPS)
 def test_split_planes_recompose_at_the_int16_extremes(izp):
-    x = torch.tensor([I16_MIN, I16_MIN + 1, -257, -256, -255, -1, 0, 1, 255, 256, I16_MAX],
-                     dtype=torch.int16)
-    (hi, zh), (lo, zl) = wide.split_planes(x, izp)
-    assert hi.dtype == lo.dtype == torch.int8 and -128 <= zh <= 127 and -128 <= zl <= 127
-    got = 256 * (hi.to(torch.int64) - zh) + (lo.to(torch.int64) - zl)
-    assert torch.equal(got, x.to(torch.int64) - izp)
-    assert int((hi.to(torch.int64) - zh).abs().max()) <= 255
-    assert int((lo.to(torch.int64) - zl).abs().max()) <= 255
+    """hi is an s8 byte, lo a u8 byte, 256 hi + lo == x; izp's fill splits
+    alike, so x - izp == 256 (hi - zh) + (lo - zl) term by term."""
+    x = torch.tensor([I16_MIN, I16_MIN + 1, -257, -256, -255, -1, 0, 1, 255, 256, I16_MAX,
+                      izp], dtype=torch.int16)
+    hi, lo = wide.byte_planes(x)
+    assert int(hi.min()) >= -128 and int(hi.max()) <= 127
+    assert int(lo.min()) >= 0 and int(lo.max()) <= 255
+    assert torch.equal(256 * hi + lo, x.to(torch.int64))
+    zh, zl = wide.byte_planes(torch.tensor([izp], dtype=torch.int16))
+    assert torch.equal(256 * (hi - zh) + (lo - zl), x.to(torch.int64) - izp)
+    assert int(hi[-1]) == int(zh) and int(lo[-1]) == int(zl)
 
 
-@pytest.mark.parametrize("izp", [0, 256, -32768, 32767, -5])
+@pytest.mark.parametrize("izp", PLANE_ZPS)
 @pytest.mark.parametrize("xs,ws,strides,padding,groups",
                          [c[:5] for c in WIDE_CONVS], ids=[f"conv{i}" for i in range(9)])
 def test_conv_planes_through_k4_k5_plain_equal_the_direct_int64_sum(rng, xs, ws, strides,
                                                                     padding, groups, izp):
+    """The kernels' arithmetic (`wide_conv_model`: the izp fill, the s8 / u8
+    planes' int32 sums, the int64 combine less izp colsum; K5's int16 sum
+    for the depthwise cases) == the plain version == the JAX package's
+    qnn.conv2d int64 oracle, at the int16 extremes."""
     x, w = _i16(rng, xs), _w8(rng, ws)
     kw = dict(strides=strides, padding=padding, groups=groups, izp=izp)
     want = wide.wide_conv_plain(torch.from_numpy(x), torch.from_numpy(w), **kw)
-    got = wide.wide_conv_planes(torch.from_numpy(x), torch.from_numpy(w), **kw)
+    got = wide.wide_conv_model(torch.from_numpy(x), torch.from_numpy(w), **kw)
     assert got.dtype == want.dtype == torch.int64
     assert torch.equal(got, want)
     attrs = dict(strides=strides, padding=padding, groups=groups, input_zero_point=izp,
@@ -288,32 +298,73 @@ def test_conv_planes_through_k4_k5_plain_equal_the_direct_int64_sum(rng, xs, ws,
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-@pytest.mark.parametrize("izp", [0, 256, -32768, 32767, 77])
-@pytest.mark.parametrize("m,k,n", [(1, 70, 10), (16, 1280, 10), (65, 576, 96), (8, 2048, 1000)])
+@pytest.mark.parametrize("izp", PLANE_ZPS)
+@pytest.mark.parametrize("m,k,n", WIDE_DENSE)
 def test_dense_planes_through_k4_plain_equal_the_direct_int64_sum(rng, m, k, n, izp):
+    """`wide_dense_model` (qgemm_wide's planes) == the plain version == the
+    JAX package's qnn.dense int64 oracle."""
     x, w = _i16(rng, (m, k)), _w8(rng, (k, n))
-    want = (x.astype(np.int64) - izp) @ w.astype(np.int64)
-    got = wide.wide_dense_planes(torch.from_numpy(x), torch.from_numpy(w), izp=izp)
+    attrs = dict(input_zero_point=izp, out_dtype="int64")
+    want = j_get_op("qnn.dense").np_impl(x, w, node=JNode("y", "qnn.dense", ("x", "w"), attrs))
+    got = wide.wide_dense_model(torch.from_numpy(x), torch.from_numpy(w), izp=izp)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(wide.wide_dense_plain(torch.from_numpy(x),
                                                         torch.from_numpy(w), izp=izp), want)
 
 
 def test_planes_are_exact_at_the_k_bound_and_raise_past_it():
-    """The worst case at K = K_BOUND: |plane - zp| = 255 and w = -128 on
-    every term, each plane's sum 2^31 - 127; one more term raises."""
+    """The worst case at K = K_BOUND: x = -1 (lo 255) and w = -128 on every
+    term fill the lo plane's int32 sum to -2^31 + 128; one more term leaves
+    int32 (the range check) and the model, like the kernels, raises."""
     k = wide.K_BOUND
     assert 255 * 128 * k <= 2 ** 31 - 1 < 255 * 128 * (k + 1)
-    x = torch.full((1, k), I16_MIN, dtype=torch.int16)
     w = torch.full((k, 1), -128, dtype=torch.int8)
-    got = wide.wide_dense_planes(x, w, izp=I16_MAX)
-    assert int(got) == (I16_MIN - I16_MAX) * -128 * k
+    for xv, izp in ((-1, 0), (255, -256), (I16_MIN, I16_MAX)):
+        got = wide.wide_dense_model(torch.full((1, k), xv, dtype=torch.int16), w, izp=izp)
+        assert int(got) == (xv - izp) * -128 * k
+    lo_sum = -255 * 128 * k
+    assert -2 ** 31 <= lo_sum == -2 ** 31 + 128
+    with pytest.raises(OverflowError, match="the lo plane"):
+        wide.plane_product(torch.full((1, k + 1), -1, dtype=torch.int16),
+                           torch.full((k + 1, 1), -128, dtype=torch.int8), 0)
     with pytest.raises(ValueError, match="K 65794 is above 65793"):
-        wide.wide_dense_planes(torch.zeros((1, k + 1), dtype=torch.int16),
-                               torch.zeros((k + 1, 1), dtype=torch.int8))
+        wide.wide_dense_model(torch.zeros((1, k + 1), dtype=torch.int16),
+                              torch.zeros((k + 1, 1), dtype=torch.int8))
     with pytest.raises(ValueError, match="above 65793"):
-        wide.wide_conv_planes(torch.zeros((1, 3, 3, 7400), dtype=torch.int16),
-                              torch.zeros((3, 3, 7400, 1), dtype=torch.int8))
+        wide.wide_conv_model(torch.zeros((1, 3, 3, 7400), dtype=torch.int16),
+                             torch.zeros((3, 3, 7400, 1), dtype=torch.int8))
+
+
+def test_depthwise_is_exact_at_its_tap_bound_and_raises_past_it():
+    """K5's int16 mode: (x - izp) w = 65535 * 128 on each of 256 taps stays
+    in int32 (2^31 - 32768); a 257th term would leave it, and the model and
+    the kernel raise above DW_TAP_BOUND taps."""
+    taps = wide.DW_TAP_BOUND
+    assert taps == 256 and 65535 * 128 * taps <= 2 ** 31 - 1 < 65535 * 128 * (taps + 1)
+    x = torch.full((1, 16, 16, 4), I16_MIN, dtype=torch.int16)
+    w = torch.full((16, 16, 1, 4), -128, dtype=torch.int8)
+    got = wide.wide_conv_model(x, w, groups=4, izp=I16_MAX)
+    assert bool((got == 65535 * 128 * taps).all())
+    assert torch.equal(got, wide.wide_conv_plain(x, w, groups=4, izp=I16_MAX))
+    with pytest.raises(ValueError, match="K 257 is above 256"):
+        wide.wide_conv_model(torch.zeros((1, 1, 257, 4), dtype=torch.int16),
+                             torch.zeros((1, 257, 1, 4), dtype=torch.int8), groups=4)
+
+
+def test_plans_cover_k_and_fill_the_card():
+    """`wide_plan` at W8A16 ResNet-50's calls: a built tile, every split
+    non-empty and covering K, the small grids (M 1, 8, 49) split."""
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import split_covers
+
+    for m, k, n in [(8, 2048, 1000), (1, 2048, 1000), (49, 4608, 512), (392, 4608, 512),
+                    (25088, 64, 256), (100352, 147, 64), (12544, 147, 64), (1, 16, 10)]:
+        p = wide.wide_plan(m, k, n)
+        assert (p["bm"], p["bn"]) in wide.WIDE_TILES
+        assert split_covers(p["ks"], p["kper"], -(-k // 64)), (m, k, n, p)
+        if m <= 49 and k >= 2048:
+            assert p["ks"] > 1, (m, k, n, p)
+    for plan in wide.wide_plans(4608):
+        assert split_covers(plan["ks"], plan["kper"], 72)
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu(monkeypatch):
@@ -321,16 +372,22 @@ def test_wrappers_take_the_plain_version_on_the_cpu(monkeypatch):
     launch; a device with no kernel raises."""
     from tachikoma_tpu_torch.ops.kernels import _lib
 
-    monkeypatch.setattr(wide, "wide_dense_planes", lambda *a, **k: pytest.fail("planes"))
-    monkeypatch.setattr(wide, "wide_conv_planes", lambda *a, **k: pytest.fail("planes"))
-    before = _lib.LAUNCHES["wide_planes"]
+    monkeypatch.setattr(wide, "_launch_wide", lambda *a, **k: pytest.fail("kernel"))
+    names = ("qgemm_wide", "qconv_wide", "qdwconv_wide")
+    before = {k: _lib.LAUNCHES[k] for k in names}
     x, w = torch.ones((2, 5), dtype=torch.int16), torch.ones((5, 3), dtype=torch.int8)
     assert int(wide.wide_dense(x, w, izp=-2).sum()) == 2 * 3 * 15
+    assert int(wide.qgemm_wide(x, w, izp=-2).sum()) == 2 * 3 * 15
     wide.wide_conv(torch.ones((1, 3, 3, 2), dtype=torch.int16),
                    torch.ones((1, 1, 2, 2), dtype=torch.int8))
-    assert _lib.LAUNCHES["wide_planes"] == before
+    wide.qdwconv_wide(torch.ones((1, 3, 3, 2), dtype=torch.int16),
+                      torch.ones((3, 3, 1, 2), dtype=torch.int8), padding=(1, 1, 1, 1))
+    assert {k: _lib.LAUNCHES[k] for k in names} == before
     with pytest.raises(ValueError, match="no kernel for device meta"):
         wide.wide_dense(x.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        wide.qconv_wide(torch.ones((1, 3, 3, 2), dtype=torch.int16, device="meta"),
+                        torch.ones((1, 1, 2, 2), dtype=torch.int8, device="meta"))
 
 
 # ---------------------------------------------------------------------------

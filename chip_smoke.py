@@ -35,7 +35,10 @@ importer brought), and parallel/* over torch.distributed (int8 ResNet-50
 b8 sharded dp x tp over four rank processes on the one card over gloo on
 K4, with int32 all-reduces; NCCL at world size 1; the tp-sharded b1 trace
 and the trace collector's merge byte-equal to the single card's; a
-two-stage pipeline; int8 ring attention on K1's batched mode; MoE on K4).
+two-stage pipeline; int8 ring attention on K1's batched mode; MoE on K4),
+and dilated and grouped int8 convs on K2 and K4's conv mode
+(DeepLabV3-ResNet-50 b1 520^2 at output stride 8 through ONNX, ResNeXt-50
+32x4d b8 224^2 through torch.fx, fused, unfused and traced).
 
     python3 chip_smoke.py
 
@@ -422,6 +425,30 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      experts on the card once) == moe_dense_int8_reference, every
      qgemm_raw call == plain.  Beside them, two ranks on cuda:0 in one
      NCCL group: NCCL's refusal ("Duplicate GPU detected") is printed.
+     The phase's host seconds are printed;
+ 27. dilated and grouped convs: (a) DeepLabV3-ResNet-50 b1 520^2 (21
+     classes, output stride 8, ASPP 12 / 24 / 36) written by
+     models/onnx_deeplab.py from the seed, from_onnx, quantized with the
+     bilinear Resize in float (deeplab_qconfig), fused, every K1 / K2 / K3
+     call of a forward == plain and timed, its 11 dilated K2 calls asserted (the
+     dilated K2 calls summed as a row of their own: launches, ms, the bound
+     of their useful operations, plain, the fp16 cuDNN conv with their
+     dilation), 20 requests counted with no plain conv and no library conv
+     run (`conv_acc_exact`, `exact_int_matmul` and F.conv2d spied on), the
+     nodes held to the CPU path as phase 19 holds them (hold_node_level:
+     this graph has no float source, its pooling is integer and its
+     bilinear Resize elementwise, so every integer node == the CPU path and
+     the float logits are within GRAPH_RTOL / GRAPH_ATOL), latency and
+     busy share; (b) the same graph unfused at b1 520^2: every K1 / K4
+     call == plain and timed, the dilated K4 calls as a row; (c) the model
+     written at b1 176^2 (22^2 maps: the trace kept small; the backbone's
+     and the rate-12 branch's taps land inside the map, the rate-24 and
+     rate-36 branches' outer taps only in the padding, so only (b) runs
+     those two at their real geometry), quantized, traced on K4 as in phases
+     7-8; (d) ResNeXt-50 32x4d b8 224^2 (models/torch_resnet.py) through
+     from_torch, quantized and fused, then as (a), its 16 grouped K2 calls
+     asserted and summed as a row; (e) its b1 224^2
+     graph traced on K4 as in phases 7-8, its 16 grouped K4 calls as a row.
      The phase's host seconds are printed.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
@@ -442,7 +469,7 @@ forward (phase 20e); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
 12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l, 20a-20e,
 21a, 21b, 22a-22d, 23a, 23b, 23d, 23e, 24a, 24b, 24d, 25a, 25b; 26a,
-26d, 26e, 26f summed over the ranks; K11
+26d, 26e, 26f summed over the ranks; 27a-27e; K11
 and K12 in 16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
@@ -814,26 +841,27 @@ def work(name, a, k) -> tuple[int, int, str]:
         m, kk = x.shape
         return (m * kk + kk * cout + out_b * m * cout + vec_b * cout, 2 * m * kk * cout,
                 f"M={m} K={kk} N={cout}")
-    kh, kw, cin, _ = w.shape
-    sh, sw = k.get("strides", (1, 1))
-    pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
-    n, h, wd, _ = x.shape
-    oh, ow = (h + pt + pb - kh) // sh + 1, (wd + pl + pr - kw) // sw + 1
-    out = n * oh * ow * cout
+    kh, kw, cin, _ = w.shape  # cin: a group's input channels (the useful products)
+    out_shape, label = conv_out(x, w, k)
+    out = int(np.prod(out_shape))
     nbytes = (x.numel() + w.numel() + out_b * out + vec_b * cout
               + (out if name == "qconv_rq_res" else 0))
-    return (nbytes, 2 * out * kh * kw * cin,
-            f"{n}x{h}x{wd}x{x.shape[3]} k{kh} s{sh} -> {cout}")
+    return nbytes, 2 * out * kh * kw * cin, label
 
 
 def conv_out(x, w, k) -> tuple[tuple, str]:
-    """The output shape (N, OH, OW, COUT) of a recorded conv call, and its label."""
+    """The output shape (N, OH, OW, COUT) of a recorded conv call, and its
+    label (with the dilation and the groups where they are not 1)."""
     kh, kw = w.shape[:2]
     sh, sw = k.get("strides", (1, 1))
+    dh, dw = k.get("dilation", (1, 1))
+    groups = k.get("groups", 1)
     pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
     n, h, wd, c = x.shape
-    oh, ow = (h + pt + pb - kh) // sh + 1, (wd + pl + pr - kw) // sw + 1
-    return (n, oh, ow, w.shape[3]), f"{n}x{h}x{wd}x{c} k{kh} s{sh} -> {w.shape[3]}"
+    oh = (h + pt + pb - (kh - 1) * dh - 1) // sh + 1
+    ow = (wd + pl + pr - (kw - 1) * dw - 1) // sw + 1
+    extra = (f" d{dh}" if (dh, dw) != (1, 1) else "") + (f" g{groups}" if groups != 1 else "")
+    return (n, oh, ow, w.shape[3]), f"{n}x{h}x{wd}x{c} k{kh} s{sh}{extra} -> {w.shape[3]}"
 
 
 def library_call(name, a, k):
@@ -895,9 +923,10 @@ def library_call(name, a, k):
         x16, pt, pl = torch.nn.functional.pad(x16, (pl, pr, pt, pb)), 0, 0
     x16 = x16.contiguous(memory_format=torch.channels_last)
     w16 = w.permute(3, 2, 0, 1).half().contiguous(memory_format=torch.channels_last)
-    groups = x.shape[3] if name.startswith("qdwconv") else 1
+    groups = x.shape[3] if name.startswith("qdwconv") else k.get("groups", 1)
+    dilation = tuple(k.get("dilation", (1, 1)))
     return lambda: torch.nn.functional.conv2d(x16, w16, stride=stride, padding=(pt, pl),
-                                              groups=groups)
+                                              dilation=dilation, groups=groups)
 
 
 def kernel_impls() -> dict:
@@ -970,7 +999,8 @@ def launch_plan(name, a, k) -> str:
     kh, kw, cin, cout = w.shape
     sh, sw = k.get("strides", (1, 1))
     pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
-    oh, ow = (x.shape[1] + pt + pb - kh) // sh + 1, (x.shape[2] + pl + pr - kw) // sw + 1
+    dilation, groups = tuple(k.get("dilation", (1, 1))), k.get("groups", 1)
+    (_, oh, ow, _), _ = conv_out(x, w, k)
     sms = conv.sm_count(x.device.index)
     if name == "qconv_wide":
         p = k.get("plan") or wide.wide_plan(x.shape[0] * oh * ow, kh * kw * cin, cout, sms)
@@ -985,14 +1015,17 @@ def launch_plan(name, a, k) -> str:
             return f"narrow cc {plan['cc']}"
         return f"wgmma bn {plan['bn']} taps {plan['group']}"
     if name == "qconv_raw":
-        ks, kper = conv.raw_split(x.shape[0] * oh * ow, cout, kh * kw * cin, sms)
-        return f"split {ks} x {kper} steps"
+        kk, span = conv._geometry(tuple(x.shape), tuple(w.shape), conv.RAW_TILE[1], groups)
+        ks, kper = conv.raw_split(x.shape[0] * oh * ow, cout, kk, sms)
+        return f"split {ks} x {kper} steps" + (f", {span} groups a tile" if groups != 1 else "")
     if name == "qconv_rq_res":
         bm, bn = _lib.tile_params(k.get("blocks")).values()
         return f"tile {bm}x{bn}"
     (bm, bn), ks, kper = conv.rq_launch(tuple(x.shape), tuple(w.shape), (sh, sw),
-                                        (pt, pl, pb, pr), k.get("blocks"), sms)
-    return f"tile {bm}x{bn} split {ks} x {kper}"
+                                        (pt, pl, pb, pr), k.get("blocks"), sms, dilation, groups)
+    span = conv._geometry(tuple(x.shape), tuple(w.shape), bn, groups)[1]
+    return f"tile {bm}x{bn} split {ks} x {kper}" + (f", {span} groups a tile"
+                                                    if groups != 1 else "")
 
 
 def check_call(name, a, k, impl) -> dict:
@@ -1013,17 +1046,21 @@ def check_call(name, a, k, impl) -> dict:
                 max_abs_err=err)
 
 
-def check_kernels(calls: list, names, model: str = "") -> dict:
+def check_kernels(calls: list, names, model: str = "", keep: list | None = None) -> dict:
     """Hold every recorded call of the kernels `names` against its plain
     version (== for the integer kernels, allclose for K6), time it, and sum
     per kernel; K2-K4 are printed call by call with their launch plan and
-    the previous design's time on `model`'s call."""
+    the previous design's time on `model`'s call.  `keep`, where given,
+    receives every call's record (its dilation and groups among them)."""
     impl = kernel_impls()
     per_call, totals = [], {}
     for name, a, k in calls:
         per_call.append(check_call(name, a, k, impl))
+        per_call[-1]["geometry"] = (tuple(k.get("dilation", (1, 1))), k.get("groups", 1))
         if name in PLAN_KERNELS:
             per_call[-1]["plan"] = launch_plan(name, a, k)
+    if keep is not None:
+        keep.extend(per_call)
 
     def fmt(v, width, digits):
         return f"{v:{width}.{digits}f}" if v is not None else f"{'-':>{width}s}"
@@ -1307,16 +1344,18 @@ def say_latency(lat: list, batch: int) -> float:
 
 
 def packed_weights() -> set:
-    """The K-major packed weights held now (`kmajor_weights`' cache), by
-    identity: a weight packed after this call is not in the set."""
-    from tachikoma_tpu_torch.ops.kernels import matmul_int8
+    """The K-major packed weights held now (`kmajor_weights`' cache and
+    `grouped_weights`' caches), by identity: a weight packed after this call
+    is not in the set."""
+    from tachikoma_tpu_torch.ops.kernels import conv, matmul_int8
 
-    return {id(v[2]) for v in matmul_int8._KMAJOR.values()}
+    caches = (matmul_int8._KMAJOR, *conv._GROUPED.values())
+    return {id(v[2]) for cache in caches for v in cache.values()}
 
 
 def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
-               size: str = f"{IMAGE}^2", prepared=None, keep: dict | None = None
-               ) -> tuple[dict, dict]:
+               size: str = f"{IMAGE}^2", prepared=None, keep: dict | None = None,
+               per_call: list | None = None) -> tuple[dict, dict]:
     """The trace path of one model, two phases titled by `labels` (7-8 for
     ResNet-50; 10a-10b for MobileNetV2; 17e for int8 BERT-base; 20b and 20d
     for the TFLite MobileNetV2 and W8A16 ResNet-50): the unfused b1
@@ -1329,8 +1368,9 @@ def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
     held as compare_traces's `sourced` says (Keras's float mean).  `keep`,
     where given, receives the integer graph, the input, the meta and the
     card trace's size and sha256 (phase 26c holds the sharded trace to
-    them).  Returns the kernels' per-forward totals and their launches (the
-    trace path's run)."""
+    them); `per_call`, where given, the unfused forward's call records
+    (check_kernels).  Returns the kernels' per-forward totals and their
+    launches (the trace path's run)."""
     from tachikoma_tpu_torch.ops.kernels import _lib
     from tachikoma_tpu_torch.quantize.quantizer import quantize
     from tachikoma_tpu_torch.runtime.crosscheck import float_source_set
@@ -1367,7 +1407,7 @@ def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
         + f" ({ops['qnn.conv2d']} qnn.conv2d + {ops['qnn.dense']} qnn.dense + "
         f"{ops['qnn.batch_matmul']} qnn.batch_matmul)")
     assert len(calls) == ops["qnn.conv2d"] + ops["qnn.dense"] + ops["qnn.batch_matmul"]
-    totals = check_kernels(calls, kernels, model)
+    totals = check_kernels(calls, kernels, model, per_call)
     plain = TorchExecutor(q, capture=names, device="cpu", fuse=False).run(x)
     n_int = hold_against_plain(names, outs, plain, q, FLOAT_RTOL, FLOAT_ATOL)
     say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; "
@@ -2607,13 +2647,19 @@ def nms_versus_cpu(graph, names, card: list, cpu: list) -> str:
 
 
 def zoo_path(label: str, model: str, build, make_input, card: str,
-             check_output=None) -> tuple[dict, dict, dict]:
+             check_output=None, config=None, keep: dict | None = None,
+             only_kernels: bool = False) -> tuple[dict, dict, dict]:
     """Phase 19 for one builder at its published widths: build, calibrate
     and quantize from SEED, fuse; every recorded K1/K2/K3/K5 call == plain,
     timed, bound and library; REQUESTS requests through
     TorchExecutor(device='cuda') with the launches counted; the integer
     nodes held to the CPU path by hold_zoo_nodes; the device's busy share.
-    Returns the kernels' per-forward totals, their launches and a summary."""
+    Returns the kernels' per-forward totals, their launches and a summary.
+    `config` is the QConfig (the default one by default); `keep` receives
+    the integer graph, the requests and the forward's call records
+    (check_kernels' "per_call"); `only_kernels` runs the requests under
+    no_plain_conv; `make_input` may make NCHW batches (an imported model's
+    input)."""
     from tachikoma_tpu_torch.quantize.quantizer import quantize
     from tachikoma_tpu_torch.runtime.crosscheck import float_source_set
     from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
@@ -2624,7 +2670,7 @@ def zoo_path(label: str, model: str, build, make_input, card: str,
     g = build()
     rng = np.random.default_rng(SEED)
     t1 = time.perf_counter()
-    q = quantize(g, [make_input(rng)])
+    q = quantize(g, [make_input(rng)], *([config] if config is not None else []))
     t2 = time.perf_counter()
     fused = fuse_qnn(q)
     ops = Counter(n.op for n in fused.nodes if n.op not in ("var", "const"))
@@ -2642,13 +2688,17 @@ def zoo_path(label: str, model: str, build, make_input, card: str,
     kernels = tuple(k for k in ZOO_KERNELS if any(c[0] == k for c in calls))
     phase(f"{label} {model}: {', '.join(kernels) or 'no kernel'} at the forward's "
           f"{len(calls)} calls: == plain, time, bound, library [{card}]")
-    totals = check_kernels(calls, kernels, model) if kernels else {}
+    if keep is not None:
+        keep.update(quantized=q, requests=requests, per_call=[])
+    per_call = keep["per_call"] if keep is not None else None
+    totals = check_kernels(calls, kernels, model, per_call) if kernels else {}
 
     phase(f"{label} {model}: {REQUESTS} requests through TorchExecutor(device='cuda'), TF32 "
           f"allowed for cuDNN and matmuls [{card}]")
     reset(kernels)
     lat, first = [], None
-    with tf32_allowed():  # the port's float products must not take it
+    spy = no_plain_conv(f"the {model} requests") if only_kernels else contextlib.nullcontext()
+    with tf32_allowed(), spy:  # the port's float products must not take TF32
         for x in requests:
             t0 = time.perf_counter()
             outs = ex.run_device(x)
@@ -5401,6 +5451,226 @@ def parallel_path(card: str, r50_state: dict, trace: dict) -> tuple[dict, dict]:
     return dict(launches), errs
 
 
+# ---------------------------------------------------------------------------
+# phase 27: dilated and grouped convs on K2 and K4's conv mode
+# ---------------------------------------------------------------------------
+
+DEEPLAB_SIDE = 520          # torchvision's references/segmentation evaluation size
+DEEPLAB_TRACE_SIDE = 176    # the trace's reduced input: 22^2 maps at output stride 8
+DEEPLAB_CLASSES = 21
+DEEPLAB_DILATED = 11        # layer3 5 x d2, layer4 d2 and 2 x d4, the ASPP at 12, 24, 36
+RESNEXT_GROUPED = 16        # the grouped 3x3 of each bottleneck
+
+
+@contextlib.contextmanager
+def no_plain_conv(what: str):
+    """Spy on the plain versions' sums (ops/kernels/conv.py conv_acc_exact,
+    under every plain K2-K4; matmul_int8.py exact_int_matmul, under K1's
+    and K4's GEMM mode's) and on the library's conv (F.conv2d) while the
+    block runs, and fail if any of them ran."""
+    from tachikoma_tpu_torch.ops.kernels import conv, matmul_int8
+
+    counts: Counter = Counter()
+    spied = ((conv, "conv_acc_exact"), (matmul_int8, "exact_int_matmul"),
+             (torch.nn.functional, "conv2d"))
+    saved = [getattr(mod, attr) for mod, attr in spied]
+
+    def spy(fn, key):
+        def call(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+        return call
+
+    for (mod, attr), fn in zip(spied, saved):
+        setattr(mod, attr, spy(fn, attr))
+    try:
+        yield counts
+    finally:
+        for (mod, attr), fn in zip(spied, saved):
+            setattr(mod, attr, fn)
+    assert not counts, f"{what} ran a plain or library conv: {dict(counts)}"
+    say(f"{what}: no plain version and no library conv ran (conv_acc_exact, exact_int_matmul, "
+        "F.conv2d spied on)")
+
+
+def geometry_rows(per_call: list, what: str, card: str) -> dict:
+    """The dilated and grouped calls among a forward's call records, summed
+    by kernel: calls, ms, the bound of their useful operations (a grouped
+    call's products within its groups, not the block-diagonal ones the
+    kernel computes), plain ms and the library call's ms; printed, with the
+    ratios, as one line each and one JSON line."""
+    rows: dict = {}
+    for r in per_call:
+        (dilation, groups) = r["geometry"]
+        if dilation == (1, 1) and groups == 1:
+            continue
+        t = rows.setdefault(r["kernel"], dict(calls=0, ms=0.0, bound_ms=0.0, plain_ms=0.0,
+                                              library_ms=0.0, ops=0, bytes=0))
+        t["calls"] += 1
+        for key in ("ms", "bound_ms", "plain_ms", "ops", "bytes"):
+            t[key] += r[key]
+        t["library_ms"] += r["library_ms"] or 0.0
+    for name, t in rows.items():
+        lib = t["library_ms"]
+        say(f"{what}: {name} {t['calls']} dilated / grouped calls a forward: {t['ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.1f}x the bound; "
+            f"{t['ops']:.4g} useful operations), plain {t['plain_ms']:.3f} ms, library "
+            f"{lib:.4f} ms" + (f" ({t['ms'] / lib:.2f}x)" if lib else "") + f" [{card}]")
+    say("geometry rows " + json.dumps({"what": what, "card": card, **rows}))
+    return rows
+
+
+def segmentation(classes: int, side: int):
+    def check(graph, names, card, cpu):
+        y = card[names.index(graph.outputs[0])]
+        assert y.shape == (1, classes, side, side) and np.isfinite(y).all(), y.shape
+        agree = float((y.argmax(1) == cpu[names.index(graph.outputs[0])].argmax(1)).mean())
+        return f"logits {y.shape} finite, per-pixel argmax == the CPU's at {agree:.6f} of pixels"
+    return check
+
+
+def unfused_forward(label: str, model: str, q, x, card: str) -> tuple[dict, dict, dict]:
+    """An unfused forward on the card: every K1 / K4 call == plain and timed,
+    the launches counted from 0, no plain conv on the path.  Returns the
+    launches, each kernel's largest |err| and the dilated / grouped rows."""
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor
+
+    phase(f"{label} {model} unfused: every K4 call == plain, timed [{card}]")
+    ex = TorchExecutor(q, device="cuda", fuse=False)
+    ex.run_device(x)  # the weights packed
+    torch.cuda.synchronize()
+    calls: list = []
+    kernels = ("qgemm_raw", "qconv_raw")
+    reset(kernels)
+    with recording(calls), no_plain_conv(f"the unfused {model} forward"):
+        ex.run_device(x)
+        torch.cuda.synchronize()
+    launches = read_launches(kernels, f"the unfused {model} forward")
+    per_call: list = []
+    totals = check_kernels(calls, kernels, model, per_call)
+    rows = geometry_rows(per_call, f"{label} {model} unfused", card)
+    return launches, {k: t["max_abs_err"] for k, t in totals.items()}, rows
+
+
+def deeplab_path(card: str, r50_state: dict) -> tuple[dict, dict]:
+    """Phases 27a-27c on DeepLabV3-ResNet-50.  Returns the launches and the
+    largest |err| per kernel."""
+    from tachikoma_tpu_torch.frontend import from_onnx
+    from tachikoma_tpu_torch.models.onnx_deeplab import deeplab_qconfig, deeplabv3_onnx
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+
+    side = DEEPLAB_SIDE
+    model = f"DeepLabV3-ResNet-50 b1 {side}^2"
+
+    def build():
+        t0 = time.perf_counter()
+        blob = deeplabv3_onnx(1, side, DEEPLAB_CLASSES, seed=SEED)
+        say(f"written by models/onnx_deeplab.py (seed {SEED}): {len(blob)} bytes in "
+            f"{time.perf_counter() - t0:.2f} s")
+        return from_onnx(blob)
+
+    keep: dict = {}
+    totals, launches, summary = zoo_path(
+        "27a.", model, build,
+        lambda rng: rng.standard_normal((1, 3, side, side)).astype(np.float32), card,
+        check_output=segmentation(DEEPLAB_CLASSES, side), config=deeplab_qconfig(), keep=keep,
+        only_kernels=True)
+    rows = geometry_rows(keep["per_call"], f"27a. {model} fused", card)
+    assert rows["qconv_rq"]["calls"] == DEEPLAB_DILATED, rows
+    say(f"27a. {model}: median {summary['median_ms']:.3f} ms a request, device busy "
+        f"{summary['busy_ms']} ms; ResNet-50 b{BATCH} {IMAGE}^2 (phase 5) "
+        f"{r50_state['median_ms']:.3f} ms [{card}]")
+    errs = {k: t["max_abs_err"] for k, t in totals.items()}
+    raw_launches, raw_errs, raw_rows = unfused_forward("27b.", model, keep["quantized"],
+                                                       keep["requests"][0], card)
+    assert raw_rows["qconv_raw"]["calls"] == DEEPLAB_DILATED, raw_rows
+    for part in (raw_launches,):
+        for k, n in part.items():
+            launches[k] = launches.get(k, 0) + n
+    for k, e in raw_errs.items():
+        errs[k] = max(errs.get(k, 0), e)
+
+    t0 = time.perf_counter()
+    tside = DEEPLAB_TRACE_SIDE
+    rng = np.random.default_rng(SEED)
+    g = from_onnx(deeplabv3_onnx(1, tside, DEEPLAB_CLASSES, seed=SEED))
+    calib, x = (rng.standard_normal((1, 3, tside, tside)).astype(np.float32) for _ in range(2))
+    q = quantize(g, [calib], deeplab_qconfig())
+    say(f"\n27c. DeepLabV3-ResNet-50 written at b1 {tside}^2 (the trace's reduced input: "
+        f"{-(-tside // 8)}^2 maps), import, calibrate, quantize {time.perf_counter() - t0:.2f} s "
+        f"(host) [{card}]")
+    per_call: list = []
+    trace_totals, trace_launches = trace_path(
+        ("27c.", "27c."), "DeepLabV3-ResNet-50", None, TRACE_KERNELS, prepared=(q, x),
+        size=f"{tside}^2", per_call=per_call)
+    geometry_rows(per_call, f"27c. DeepLabV3-ResNet-50 b1 {tside}^2 unfused", card)
+    for k, n in trace_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, t in trace_totals.items():
+        errs[k] = max(errs.get(k, 0), t["max_abs_err"])
+    return launches, errs
+
+
+def resnext_path(card: str, r50_state: dict) -> tuple[dict, dict]:
+    """Phases 27d-27e on ResNeXt-50 32x4d.  Returns the launches and the
+    largest |err| per kernel."""
+    from tachikoma_tpu_torch.frontend.torch_fx import from_torch
+    from tachikoma_tpu_torch.models.torch_resnet import resnext50_32x4d_torch
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+
+    model = f"ResNeXt-50 32x4d b{BATCH} {IMAGE}^2"
+    t0 = time.perf_counter()
+    module = resnext50_32x4d_torch(seed=SEED)
+    say(f"\n27d. models/torch_resnet.py resnext50_32x4d_torch (seed {SEED}) "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+
+    def make_input(rng):
+        return rng.standard_normal((BATCH, 3, IMAGE, IMAGE)).astype(np.float32)
+
+    keep: dict = {}
+    totals, launches, summary = zoo_path(
+        "27d.", model, lambda: from_torch(module, {"x": (BATCH, 3, IMAGE, IMAGE)}), make_input,
+        card, check_output=logits(1000), keep=keep, only_kernels=True)
+    rows = geometry_rows(keep["per_call"], f"27d. {model} fused", card)
+    assert rows["qconv_rq"]["calls"] == RESNEXT_GROUPED, rows
+    say(f"27d. {model}: median {summary['median_ms']:.3f} ms a request, device busy "
+        f"{summary['busy_ms']} ms; ResNet-50 b{BATCH} {IMAGE}^2 (phase 5) "
+        f"{r50_state['median_ms']:.3f} ms [{card}]")
+    errs = {k: t["max_abs_err"] for k, t in totals.items()}
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    shape = (TRACE_BATCH, 3, IMAGE, IMAGE)
+    calib, x = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    q = quantize(from_torch(module, {"x": shape}), [calib])
+    say(f"\n27e. ResNeXt-50 32x4d at b{TRACE_BATCH}: from_torch, calibrate, quantize "
+        f"{time.perf_counter() - t0:.2f} s (host) [{card}]")
+    per_call: list = []
+    trace_totals, trace_launches = trace_path(
+        ("27e.", "27e."), "ResNeXt-50 32x4d", None, TRACE_KERNELS, prepared=(q, x),
+        per_call=per_call)
+    raw_rows = geometry_rows(per_call, f"27e. ResNeXt-50 32x4d b{TRACE_BATCH} unfused", card)
+    assert raw_rows["qconv_raw"]["calls"] == RESNEXT_GROUPED, raw_rows
+    for k, n in trace_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, t in trace_totals.items():
+        errs[k] = max(errs.get(k, 0), t["max_abs_err"])
+    return launches, errs
+
+
+def geometry_path(card: str, r50_state: dict) -> tuple[dict, dict]:
+    """Phase 27: DeepLabV3-ResNet-50 (dilated) and ResNeXt-50 32x4d
+    (grouped).  Returns the launches and the largest |err| per kernel."""
+    phase(f"27. dilated and grouped convs on K2 and K4's conv mode [{card}]")
+    launches, errs = deeplab_path(card, r50_state)
+    more_launches, more_errs = resnext_path(card, r50_state)
+    for k, n in more_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, e in more_errs.items():
+        errs[k] = max(errs.get(k, 0), e)
+    return launches, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5590,6 +5860,12 @@ def main() -> int:
     for name, e in parallel_errs.items():
         errs[name] = max(errs.get(name, 0), e)
     merge({}, parallel_launches)
+    t27 = time.perf_counter()
+    geometry_launches, geometry_errs = geometry_path(card, r50_state)
+    for name, e in geometry_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    merge({}, geometry_launches)
+    say(f"\nphase 27 seconds {time.perf_counter() - t27:.1f} (host clock) [{card}]")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

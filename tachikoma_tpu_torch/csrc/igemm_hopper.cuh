@@ -39,6 +39,12 @@ enum Mode { RAW, RQ, RES };
 
 struct Geo {
   int n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, pt, pl;
+  int dh, dw;  // the dilation: tap (ky, kx) reads input row oy*sh - pt + ky*dh
+  // a grouped conv runs as one dense conv a super-group of its groups, whose
+  // weights the wrapper expands block-diagonally: an N tile of the super-group
+  // n0 / nspan reads the cspan input channels from (n0 / nspan) * cspan on,
+  // and K = KH * KW * cspan (a dense conv: cspan = CIN, nspan = COUT)
+  int cspan, nspan;
   int M, K, steps, kper;  // steps = Kp / 64; a split walks kper of them
   int m_tiles, n_tiles, gm;  // a block walks M tiles mb, mb + gm, ... of one N tile
   // dynamic shared memory: the ring (STAGES x stage_bytes), then from off_b
@@ -125,6 +131,7 @@ __global__ void __launch_bounds__(2 * BM)
   const int tid = threadIdx.x, seg = tid & 3;
   const int nt_idx = blockIdx.x % g.n_tiles;
   const int n0 = nt_idx * BN, mb = blockIdx.x / g.n_tiles;
+  const int c0 = n0 / g.nspan * g.cspan;  // the first input channel the N tile reads
   const int n_items = mb < g.m_tiles ? (g.m_tiles - 1 - mb) / g.gm + 1 : 0;
   const int kbeg = blockIdx.z * g.kper;
   const int nst = min(g.steps, kbeg + g.kper) - kbeg;  // steps per item
@@ -132,8 +139,8 @@ __global__ void __launch_bounds__(2 * BM)
   int ky0, kx0, ci0;
   {
     const int k = kbeg * KSTEP + seg * 16;
-    const int tap = k / g.cin;
-    ci0 = k - tap * g.cin;
+    const int tap = k / g.cspan;
+    ci0 = k - tap * g.cspan;
     ky0 = tap / g.kw;
     kx0 = tap - ky0 * g.kw;
   }
@@ -163,7 +170,7 @@ __global__ void __launch_bounds__(2 * BM)
       const int mm = a_ok[j] ? m : 0;
       const int img = g.by_ohow.div(mm), rem = mm - img * (g.oh * g.ow);
       const int oy = g.by_ow.div(rem), ox = rem - oy * g.ow;
-      a_base[j] = (long long)img * g.h * g.w * g.cin;
+      a_base[j] = (long long)img * g.h * g.w * g.cin + c0;
       a_iy[j] = oy * g.sh - g.pt;
       a_ix[j] = ox * g.sw - g.pl;
     }
@@ -211,7 +218,7 @@ __global__ void __launch_bounds__(2 * BM)
     for (int j = 0; j < A_PER; ++j) {
       int8_t* d = as + cm_off((tid >> 2) + j * (NT / 4), seg);
       if (g.a_vec || g.a_vec8) {
-        const int iy = a_iy[j] + ky, ix = a_ix[j] + kx;
+        const int iy = a_iy[j] + ky * g.dh, ix = a_ix[j] + kx * g.dw;
         if (!a_ok[j] || ky >= g.kh) {
           copy16(d, x, false);  // past K (zero weights) or past M (not stored)
         } else if ((unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w) {
@@ -220,7 +227,7 @@ __global__ void __launch_bounds__(2 * BM)
             copy16(d, src, true);
           } else {  // a 1x1 conv's segment: its second half may lie past K (zeros)
             cp_async8(d, src, true);
-            cp_async8(d + 8, ci + 8 < g.cin ? src + 8 : x, ci + 8 < g.cin);
+            cp_async8(d + 8, ci + 8 < g.cspan ? src + 8 : x, ci + 8 < g.cspan);
           }
         } else {
           *reinterpret_cast<uint4*>(d) = fill;
@@ -233,13 +240,13 @@ __global__ void __launch_bounds__(2 * BM)
 #pragma unroll
         for (int b = 0; b < 16; ++b) {  // unrolled: v stays in registers
           if (cy >= g.kh) break;
-          const int iy = a_iy[j] + cy, ix = a_ix[j] + cx;
+          const int iy = a_iy[j] + cy * g.dh, ix = a_ix[j] + cx * g.dw;
           const uint32_t byte =
               (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w
                   ? (uint8_t)x[a_base[j] + ((long long)iy * g.w + ix) * g.cin + cc]
                   : g.izp4 & 0xffu;
           v[b >> 2] |= byte << (8 * (b & 3));
-          if (++cc == g.cin) {
+          if (++cc == g.cspan) {
             cc = 0;
             if (++cx == g.kw) {
               cx = 0;
@@ -253,8 +260,8 @@ __global__ void __launch_bounds__(2 * BM)
     if (!g.b_res) stage_b(bs, kstep);
     // the next step: 64 bytes on
     ci += KSTEP;
-    while (ci >= g.cin && ky < g.kh) {
-      ci -= g.cin;
+    while (ci >= g.cspan && ky < g.kh) {
+      ci -= g.cspan;
       if (++kx == g.kw) {
         kx = 0;
         ++ky;
@@ -465,13 +472,21 @@ inline bool make_geo(const int32_t* p, Geo& g) {
   g.sw = p[P_SW];
   g.pt = p[P_PT];
   g.pl = p[P_PL];
-  if (g.cin <= 0 || g.kh <= 0 || g.kw <= 0 || g.sh <= 0 || g.sw <= 0) return false;
+  g.dh = p[P_DH] ? p[P_DH] : 1;
+  g.dw = p[P_DW] ? p[P_DW] : 1;
+  g.cspan = p[P_CSPAN] ? p[P_CSPAN] : g.cin;
+  if (g.cin <= 0 || g.kh <= 0 || g.kw <= 0 || g.sh <= 0 || g.sw <= 0 || g.dh <= 0 ||
+      g.dw <= 0 || g.cspan <= 0 || g.cin % g.cspan != 0 ||
+      (long long)g.cout * g.cspan % g.cin != 0)
+    return false;
+  g.nspan = (int)((long long)g.cout * g.cspan / g.cin);
+  if (g.nspan <= 0) g.nspan = 1;  // COUT 0: no tile
   g.M = g.n * g.oh * g.ow;
-  g.K = g.kh * g.kw * g.cin;
+  g.K = g.kh * g.kw * g.cspan;
   g.steps = (g.K + KSTEP - 1) / KSTEP;
   g.kper = p[P_KPER];
   g.izp4 = (uint32_t)(uint8_t)(int8_t)p[P_IZP] * 0x01010101u;
-  g.a_vec = p[P_A_VEC] != 0 && g.cin % 16 == 0;
+  g.a_vec = p[P_A_VEC] != 0 && g.cin % 16 == 0 && g.cspan % 16 == 0;
   g.a_vec8 = false;
   g.o_vec = false;
   return true;
@@ -514,6 +529,8 @@ int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* resi
   }
   smem_layout<MODE, BM, BN>(g);
   if (g.smem > (int)hop::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  // an N tile lies inside one super-group
+  if (g.nspan != g.cout && g.nspan % BN != 0) return (int)cudaErrorInvalidValue;
   int per_sm = 0;
   for (int i = 0; i < n_occ; ++i)
     if (occ_smem[i] == g.smem) per_sm = occ_blocks[i];

@@ -43,6 +43,10 @@ enum Param {
   P_B_SN, P_B_SK, P_BMM_ZA, P_BMM_ZB,
   // its path (0 tiles, 1 M <= 16)
   P_BMM_PATH,
+  // K2 and K4's conv mode (igemm_hopper.cuh): the dilation (0 means 1), and
+  // the input channels of a super-group of a grouped conv, whose N tiles
+  // read the contiguous run of that many channels (0 means CIN: dense)
+  P_DH, P_DW, P_CSPAN,
   P_COUNT
 };
 

@@ -35,6 +35,22 @@
 // -izp * colsum(w) into the bias).  A narrow CIN (the CIN-3 stems) gathers
 // its 16 bytes one by one.
 //
+// Dilation and groups (K2 and K4's conv mode).  A dilated tap (ky, kx) reads
+// input row oy*sh - pt + ky*dh and column ox*sw - pl + kx*dw: the segment walk
+// is the same and only the tap's offset is scaled.  A grouped conv (CIN / G
+// input and COUT / G output channels a group) runs as one dense conv a
+// super-group of S consecutive groups: an N tile lies inside one super-group
+// (S * COUT / G is a multiple of BN, or S = G), reads the contiguous run of
+// S * CIN / G channels of x that the super-group's groups read, and K is
+// KH * KW * S * CIN / G.  The wrapper expands the weights block-diagonally to
+// (KH, KW, S * CIN / G, COUT), zero where a column's group does not read the
+// channel, and packs that K-major once per weight tensor
+// (ops/kernels/conv.py grouped_weights).  So the body is unchanged but for
+// the A base (offset by the super-group's first channel) and the channel
+// count of the segment walk; the zero weights waste S times the useful
+// products, which on ResNeXt-50's grouped 3x3 calls (S = 16, 8, 4, 2 at
+// BN 64) cost little against the copies that bound them.
+//
 // The main loop.  Both tiles sit in shared memory in wgmma's no-swizzle
 // core-matrix layout (8 rows x 16 bytes a core matrix; LBO 128, SBO 512), and
 // a 64-deep step is two wgmma.mma_async m64nBNk32 .s32.s8.s8 per warpgroup,
@@ -110,8 +126,10 @@
 // (conv.py rq_tile), which stage half as much per product.
 #include "igemm_hopper.cuh"
 
-// K2.  wk is the weight packed (Kp / 64, COUT, 64) (kmajor_weights); the tile is
-// (P_BM, P_BN) from {64, 128}^2; any stride.  K is split P_KS ways, P_KPER
+// K2.  wk is the weight packed (Kp / 64, COUT, 64) (kmajor_weights, or
+// grouped_weights' block-diagonal expansion with P_CSPAN its super-group's
+// channels); the tile is (P_BM, P_BN) from {64, 128}^2; any stride and
+// dilation (P_DH, P_DW).  K is split P_KS ways, P_KPER
 // steps of 64 each (every split non-empty); with P_KS > 1, ws is an int32
 // workspace of M * COUT sums and one counter per (BM, BN) tile, zeroed by
 // the caller.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
@@ -157,7 +175,7 @@ extern "C" int tk_qconv_rq_res(const int8_t* x, const int8_t* wk, int8_t* out,
                                          1, p, (cudaStream_t)stream);
 }
 
-// K4's conv mode.  wk as K2's; the tile is 64 x 64; K is split P_KS ways,
+// K4's conv mode.  wk, dilation and P_CSPAN as K2's; the tile is 64 x 64; K is split P_KS ways,
 // P_KPER steps of 64 each (every split non-empty), into an output the caller
 // zeroed when P_KS > 1.  Returns cudaGetLastError() (cudaErrorInvalidValue
 // for a split that does not cover the steps).

@@ -20,7 +20,9 @@ EPS = 1e-5
 def _node(op: str, ins, outs, name: str, **attrs) -> dict:
     alist = []
     for k, v in attrs.items():
-        if isinstance(v, float):
+        if isinstance(v, str):
+            alist.append({"name": k, "s": v.encode(), "type": 3})
+        elif isinstance(v, float):
             alist.append({"name": k, "f": v, "type": 1})
         elif isinstance(v, int):
             alist.append({"name": k, "i": v, "type": 2})
@@ -50,13 +52,14 @@ class _Writer:
         return name
 
     def conv(self, x: str, cin: int, cout: int, k: int, stride: int, pad: int,
-             scope: str, gain: float = 1.0) -> str:
+             scope: str, gain: float = 1.0, dilation: int = 1, groups: int = 1) -> str:
         """Conv with its batch norm folded: w * gamma / sqrt(var + eps) and
         beta - mean * gamma / sqrt(var + eps), in float32; `gain` scales
         gamma (a trained residual branch's last batch norm is small, which
         keeps the sum of sixteen blocks in range)."""
         rng = self.rng
-        w = rng.standard_normal((cout, cin, k, k)) * np.sqrt(2.0 / (k * k * cin))
+        cin_g = cin // groups
+        w = rng.standard_normal((cout, cin_g, k, k)) * np.sqrt(2.0 / (k * k * cin_g))
         gamma = (np.abs(rng.standard_normal(cout)) + 0.5) * gain
         beta = rng.standard_normal(cout) * 0.1
         mean = rng.standard_normal(cout) * 0.1
@@ -66,7 +69,7 @@ class _Writer:
         bn = self.param((beta - mean * s).astype(np.float32))
         out = f"{scope}/Conv_output_0"
         self.nodes.append(_node("Conv", [x, wn, bn], [out], f"{scope}/Conv",
-                                dilations=[1, 1], group=1, kernel_shape=[k, k],
+                                dilations=[dilation] * 2, group=groups, kernel_shape=[k, k],
                                 pads=[pad] * 4, strides=[stride, stride]))
         return out
 

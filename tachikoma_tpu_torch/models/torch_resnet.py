@@ -1,7 +1,14 @@
-"""ResNet-50 as a torch `nn.Module` in torchvision's layout, and its
-torch.ao quantization: the model the prequantized-torch import path
-(frontend/torch_quantized.py) and the float torch.fx path
-(frontend/torch_fx.py) are run on.  Not a zoo entry.
+"""ResNet-50 and ResNeXt-50 32x4d as torch `nn.Module`s in torchvision's
+layout, and the torch.ao quantization: the models the prequantized-torch
+import path (frontend/torch_quantized.py) and the float torch.fx path
+(frontend/torch_fx.py) are run on.  Not zoo entries.
+
+ResNeXt-50 32x4d is torchvision's `resnext50_32x4d` (resnet.py): the same
+network with `groups=32` and `width_per_group=4`, so a bottleneck's width is
+`int(planes * width_per_group / 64) * groups` (128, 256, 512 and 1024 over
+the four stages) and its 3x3 conv is grouped, 4, 8, 16 and 32 channels a
+group; `resnet_torch` takes the stages' blocks and widths too, to narrow it
+for tests.
 
 The module is torchvision's ResNet-50 (v1.5: the stride on a bottleneck's
 3x3 conv; convs without bias, each followed by a batch norm; a 1x1 conv and
@@ -39,13 +46,15 @@ FC_GAIN = 2.0   # the projected fc's gain: logits near 10^2 at 224^2
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, width: int, stride: int = 1):
+    def __init__(self, cin: int, planes: int, stride: int = 1, groups: int = 1,
+                 width_per_group: int = 64):
         super().__init__()
-        cout = width * self.expansion
+        width = int(planes * (width_per_group / 64.0)) * groups
+        cout = planes * self.expansion
         self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(width)
         self.relu1 = nn.ReLU()
-        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, groups=groups, bias=False)
         self.bn2 = nn.BatchNorm2d(width)
         self.relu2 = nn.ReLU()
         self.conv3 = nn.Conv2d(width, cout, 1, bias=False)
@@ -64,22 +73,28 @@ class Bottleneck(nn.Module):
         return self.skip_add_relu.add_relu(out, identity)
 
 
-class ResNet50(nn.Module):
-    def __init__(self):
+class ResNet(nn.Module):
+    """torchvision's bottleneck ResNet: `layers` blocks a stage, `planes`
+    the stages' planes (the stem's width the first), `groups` and
+    `width_per_group` as torchvision's."""
+
+    def __init__(self, layers=(3, 4, 6, 3), planes=(64, 128, 256, 512), groups: int = 1,
+                 width_per_group: int = 64, num_classes: int = 1000):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        cin = planes[0]
+        self.conv1 = nn.Conv2d(3, cin, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(cin)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, 2, 1)
-        cin = 64
-        for stage, (blocks, width) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
-            layers = []
+        for stage, (blocks, width) in enumerate(zip(layers, planes)):
+            layers_ = []
             for i in range(blocks):
-                layers.append(Bottleneck(cin, width, 2 if stage > 0 and i == 0 else 1))
+                layers_.append(Bottleneck(cin, width, 2 if stage > 0 and i == 0 else 1, groups,
+                                          width_per_group))
                 cin = width * Bottleneck.expansion
-            setattr(self, f"layer{stage + 1}", nn.Sequential(*layers))
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*layers_))
         self.avgpool = nn.AdaptiveAvgPool2d((1, 1))
-        self.fc = nn.Linear(cin, 1000)
+        self.fc = nn.Linear(cin, num_classes)
 
     def features(self, x):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
@@ -90,8 +105,10 @@ class ResNet50(nn.Module):
         return self.fc(self.features(x))
 
 
-def _fill(model: ResNet50, seed: int) -> None:
-    """Random weights from `seed`, in module order."""
+
+def _fill(model: ResNet, seed: int, probe_size: int = 224) -> None:
+    """Random weights from `seed`, in module order; the fc projected off the
+    pooled features of one random `probe_size`^2 image."""
     rng = np.random.default_rng(seed)
 
     def put(t: torch.Tensor, arr: np.ndarray) -> None:
@@ -115,15 +132,29 @@ def _fill(model: ResNet50, seed: int) -> None:
         put(fc.bias, rng.standard_normal(fc.out_features) * 0.01)
         model.eval()
         f = model.features(torch.from_numpy(
-            rng.standard_normal((1, 3, 224, 224)).astype(np.float32)))[0].double().numpy()
+            rng.standard_normal((1, 3, probe_size, probe_size)).astype(np.float32)))[0]
+        f = f.double().numpy()
         u = f / np.linalg.norm(f)
         put(fc.weight, (w - np.outer(w @ u, u)) * FC_GAIN)
 
 
-def resnet50_torch(seed: int = 0) -> ResNet50:
+def resnet50_torch(seed: int = 0) -> ResNet:
     """The float ResNet-50 module in eval mode, weights from `seed`."""
-    model = ResNet50()
-    _fill(model, seed)
+    return resnet_torch(seed=seed)
+
+
+def resnext50_32x4d_torch(seed: int = 0) -> ResNet:
+    """The float ResNeXt-50 32x4d module in eval mode, weights from `seed`."""
+    return resnet_torch(groups=32, width_per_group=4, seed=seed)
+
+
+def resnet_torch(layers=(3, 4, 6, 3), planes=(64, 128, 256, 512), groups: int = 1,
+                 width_per_group: int = 64, num_classes: int = 1000, seed: int = 0,
+                 probe_size: int = 224) -> ResNet:
+    """A float bottleneck ResNet (or ResNeXt) in eval mode, weights from
+    `seed`: ResNet-50 at the defaults."""
+    model = ResNet(layers, planes, groups, width_per_group, num_classes)
+    _fill(model, seed, probe_size)
     return model.eval()
 
 

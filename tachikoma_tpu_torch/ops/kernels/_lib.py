@@ -45,7 +45,7 @@ PARAMS = (
     "fa_w", "fa_dq", "fa_dv", "fa_cs", "fa_kg", "fa_vec", "dw_rp",
     "fa_stages", "fa_bk", "qg_path",
     "bmm_nb", "bmm_nb1", "a_mode", "b_mode", "a_sb0", "a_sb1", "a_sm", "a_sk", "b_sb0", "b_sb1",
-    "b_sn", "b_sk", "bmm_za", "bmm_zb", "bmm_path",
+    "b_sn", "b_sk", "bmm_za", "bmm_zb", "bmm_path", "dh", "dw", "cspan",
 )
 
 # The block tiles (BM, BN) that the tiled paths of K1 and K4's GEMM mode, K2,

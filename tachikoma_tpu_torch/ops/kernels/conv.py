@@ -23,6 +23,11 @@ the conv entries of the int8 path (port of
     stem included, to K2 (or K4's conv mode) or, by `layout`, to one of
     K7-K10 (`conv_layouts.py`); depthwise convs (groups == C) to K5
     (`depthwise.py`: `qdwconv_rq`, or `qdwconv_raw` without a multiplier).
+    Dilated convs (but a 1x1's, whose dilation is a no-op) and grouped convs
+    other than depthwise go to K2 or K4's conv mode, which take the dilation
+    and run a grouped conv as one dense conv a super-group of its groups
+    (`group_span`), its weights expanded block-diagonally (`grouped_weights`);
+    they read no K7-K10 layout.
   * `qconv2d_flat_chain` / `qconv2d_flat_block_stack` run a chain or a stack
     of residual blocks stage by stage: the last stage of each residual block
     launches K3, the others K1 (1x1) or K2.
@@ -47,23 +52,28 @@ import torch
 
 from ...tune.database import lookup_config
 from ._lib import (BK, DEFAULT_BLOCKS, LAUNCHES, TILES, check_cuda_operands, compiled_blocks,
-                   launch, sm_count, tile_params)
+                   launch, pack_once, sm_count, tile_params)
 from .conv_layouts import LAYOUTS, layout_fits, qconv_rq_r, qconv_rq_s, qconv_rq_t, qconv_rq_w
 from .depthwise import qdwconv_raw, qdwconv_rq
 # the body's plan and weight packing, shared with K1's tiled path
 from .matmul_int8 import (_KMAJOR, _TONEAREST, KSTEP, RQ_FILL, RQ_MIN_STEPS,  # noqa: F401
                           RQ_UNSPLIT_STEPS, RQ_WIDE_FILL, as_int8, as_int32_vector,
-                          fold_input_zero_point, kmajor_weights, qgemm_raw_tuned,
+                          fold_input_zero_point, kmajor_pack, kmajor_weights, qgemm_raw_tuned,
                           qgemm_rq_tuned, rq_split, rq_tile)
 from .requantize import channel_vector, epilogue_plain, plan_res_add, res_add_plain
 
 
-def flat_conv_workload(n, h, w, cin, cout, kh, kw, strides, fuse, groups: int = 1) -> str:
-    """Tuning-database key of a conv (`conv_flat.py:1264`)."""
+def flat_conv_workload(n, h, w, cin, cout, kh, kw, strides, fuse, groups: int = 1,
+                       dilation=(1, 1)) -> str:
+    """Tuning-database key of a conv (`conv_flat.py:1264`); a dilated conv's
+    key adds `_D{dh}x{dw}` (the reference keys undilated convs alone), so no
+    record tuned for an undilated conv of the same shapes is applied to it."""
     sh, sw = strides
+    dh, dw = dilation
     g = f"_G{groups}" if groups != 1 else ""
+    d = f"_D{dh}x{dw}" if (dh, dw) != (1, 1) else ""
     return (f"qconv2d_flat/N{n}_H{h}_W{w}_C{cin}_O{cout}_K{kh}x{kw}"
-            f"_S{sh}x{sw}{g}{'_rq' if fuse else ''}")
+            f"_S{sh}x{sw}{d}{g}{'_rq' if fuse else ''}")
 
 
 def chain_workload(n, h, w, stage_dims) -> str:
@@ -85,28 +95,34 @@ def stack_workload(n, h, w, block_dims) -> str:
 LAYOUT_KERNELS = {"t": "qconv_rq_t", "s": "qconv_rq_s", "w": "qconv_rq_w", "r": "qconv_rq_r"}
 
 
-def _out_hw(x_shape, w_shape, strides, padding):
+def _out_hw(x_shape, w_shape, strides, padding, dilation=(1, 1)):
     _, h, wd, _ = x_shape
     kh, kw = w_shape[:2]
     sh, sw = strides
+    dh, dw = dilation
     pt, pl, pb, pr = padding
-    return (h + pt + pb - kh) // sh + 1, (wd + pl + pr - kw) // sw + 1
+    return ((h + pt + pb - (kh - 1) * dh - 1) // sh + 1,
+            (wd + pl + pr - (kw - 1) * dw - 1) // sw + 1)
 
 
-def conv_acc_plain(x, w, strides, padding, izp) -> torch.Tensor:
+def conv_acc_plain(x, w, strides, padding, izp, dilation=(1, 1), groups=1) -> torch.Tensor:
     """int32 accumulator of qnn.conv2d, sum (x_pad - izp) * w with the border
     padded by izp, in float64 (exact, see `exact_int_matmul`)."""
-    return conv_acc_exact(x, w, strides, padding, izp).to(torch.int32)
+    return conv_acc_exact(x, w, strides, padding, izp, dilation, groups).to(torch.int32)
 
 
-def conv_acc_exact(x, w, strides, padding, izp) -> torch.Tensor:
+def conv_acc_exact(x, w, strides, padding, izp, dilation=(1, 1), groups=1) -> torch.Tensor:
     """`conv_acc_plain`'s sum in int64: exact while every partial sum stays
-    below 2^53 (int8 or int16 x, int8 w)."""
+    below 2^53 (int8 or int16 x, int8 w).  w is (KH, KW, CIN / groups, COUT),
+    group g's outputs COUT / groups channels from g * COUT / groups on."""
     n = x.shape[0]
     kh, kw, cin, cout = w.shape
     sh, sw = strides
     pt, pl, pb, pr = padding
     xp = torch.nn.functional.pad(x.to(torch.float64) - float(izp), (0, 0, pl, pr, pt, pb))
+    if tuple(dilation) != (1, 1) or groups != 1:
+        return _taps_acc(xp, w.to(torch.float64), strides, dilation, groups,
+                         _out_hw(x.shape, w.shape, strides, padding, dilation))
     cols = xp.unfold(1, kh, sh).unfold(2, kw, sw)      # (n, oh, ow, cin, kh, kw)
     oh, ow = cols.shape[1], cols.shape[2]
     cols = cols.permute(0, 1, 2, 4, 5, 3).reshape(n * oh * ow, kh * kw * cin)
@@ -114,21 +130,97 @@ def conv_acc_exact(x, w, strides, padding, izp) -> torch.Tensor:
     return acc.to(torch.int64).reshape(n, oh, ow, cout)
 
 
-def _conv_params(x, w, out, strides, padding, izp, rq_izp, out_zp, rounding, qmin, qmax):
+def _taps_acc(xp, wd, strides, dilation, groups, out_hw) -> torch.Tensor:
+    """The dilated or grouped sum of `conv_acc_exact` over the padded float64
+    image xp, tap by tap: each tap's (N, OH, OW, CIN) window times its
+    (CIN / groups, COUT) weights, a batched product over the groups.  Every
+    partial sum is an integer below 2^53, so the order does not matter."""
+    kh, kw, cin_g, cout = wd.shape
+    sh, sw = strides
+    dh, dw = dilation
+    oh, ow = out_hw
+    n = xp.shape[0]
+    cout_g = cout // groups
+    acc = torch.zeros((n * oh * ow, groups, cout_g), dtype=torch.float64, device=xp.device)
+    for ky in range(kh):
+        for kx in range(kw):
+            win = xp[:, ky * dh:ky * dh + (oh - 1) * sh + 1:sh,
+                     kx * dw:kx * dw + (ow - 1) * sw + 1:sw, :]
+            a = win.reshape(n * oh * ow, groups, cin_g).transpose(0, 1)   # (G, M, CIN/G)
+            b = wd[ky, kx].reshape(cin_g, groups, cout_g).transpose(0, 1)  # (G, CIN/G, COUT/G)
+            acc += torch.bmm(a, b).transpose(0, 1)
+    return acc.to(torch.int64).reshape(n, oh, ow, cout)
+
+
+def group_span(groups: int, cout_g: int, bn: int) -> int:
+    """The groups a super-group of a grouped conv on K2 or K4's conv mode
+    holds at the N tile `bn`: the fewest (a divisor of `groups`) whose output
+    channels are a multiple of `bn`, so that no N tile straddles two
+    super-groups; else all of them (one dense conv of the whole)."""
+    return next((s for s in range(1, groups + 1)
+                 if groups % s == 0 and s * cout_g % bn == 0), groups)
+
+
+def expand_groups(w: torch.Tensor, groups: int, span: int) -> torch.Tensor:
+    """A grouped weight (KH, KW, CIN / groups, COUT) expanded block-diagonally
+    to (KH, KW, span * CIN / groups, COUT): output channel n of group g reads
+    the channels of g's place in its super-group of `span` groups, zero
+    elsewhere.  Column sums are the group's own."""
+    kh, kw, cin_g, cout = w.shape
+    cout_g = cout // groups
+    sgs = groups // span
+    w6 = w.reshape(kh, kw, cin_g, sgs, span, cout_g)
+    we = torch.zeros((kh, kw, span, cin_g, sgs, span, cout_g), dtype=w.dtype, device=w.device)
+    for s in range(span):
+        we[:, :, s, :, :, s, :] = w6[:, :, :, :, s, :]
+    return we.reshape(kh, kw, span * cin_g, cout)
+
+
+_GROUPED: dict = {}  # span -> the packing cache of that span
+
+
+def grouped_weights(w: torch.Tensor, groups: int, span: int) -> torch.Tensor:
+    """`expand_groups(w, groups, span)` packed K-major (`kmajor_pack`), made
+    once per weight tensor and span (`pack_once`)."""
+    return pack_once(_GROUPED.setdefault(span, {}), w,
+                     lambda w: kmajor_pack(expand_groups(w, groups, span)))
+
+
+def _geometry(x_shape, w_shape, bn: int, groups: int) -> tuple[int, int]:
+    """(K, span) of a K2 / K4 call at the N tile `bn`: the super-group's
+    groups `span` (1 for a dense conv) and K = KH * KW * its channels."""
+    kh, kw, cin_g, cout = w_shape
+    span = group_span(groups, cout // groups, bn) if groups != 1 else 1
+    return kh * kw * span * cin_g, span
+
+
+def _packed(w, groups: int, span: int) -> torch.Tensor:
+    return kmajor_weights(w) if groups == 1 else grouped_weights(w, groups, span)
+
+
+def _conv_params(x, w, out, strides, padding, izp, rq_izp, out_zp, rounding, qmin, qmax,
+                 dilation=(1, 1), cspan=0):
+    """The kernel parameters of a K2 / K3 / K4 call; `cspan` the input
+    channels of a grouped conv's super-group (0: dense)."""
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
+    a_span = cspan or cin
     return dict(n=n, h=h, w=wd, cin=cin, kh=kh, kw=kw, cout=cout, oh=out.shape[1],
                 ow=out.shape[2], sh=strides[0], sw=strides[1], pt=padding[0],
                 pl=padding[1], izp=izp, rq_izp=rq_izp, out_zp=out_zp, qmin=qmin,
                 qmax=qmax, tonearest=_TONEAREST[rounding],
-                a_vec=cin % 16 == 0 and x.data_ptr() % 16 == 0,
-                b_vec=cout % 4 == 0 and w.data_ptr() % 4 == 0)
+                a_vec=cin % 16 == 0 and a_span % 16 == 0 and x.data_ptr() % 16 == 0,
+                b_vec=cout % 4 == 0 and w.data_ptr() % 4 == 0, dh=dilation[0],
+                dw=dilation[1], cspan=cspan)
 
 
-def _check_conv(kernel, x, w, bias, mult, shift, out_shape, residual=None):
+def _check_conv(kernel, x, w, bias, mult, shift, out_shape, residual=None, groups=1):
     i32 = torch.int32
     kh, kw, cin, cout = w.shape
-    ops = dict(x=(x, torch.int8, (*x.shape[:3], cin)), w=(w, torch.int8, (kh, kw, cin, cout)),
+    if groups < 1 or cout % groups:
+        raise ValueError(f"{kernel}: groups {groups} do not divide COUT {cout}")
+    ops = dict(x=(x, torch.int8, (*x.shape[:3], cin * groups)),
+               w=(w, torch.int8, (kh, kw, cin, cout)),
                bias=(bias, i32, (cout,)), mult=(mult, i32, (cout,)), shift=(shift, i32, (cout,)))
     if residual is not None:
         ops["residual"] = (residual, torch.int8, out_shape)
@@ -139,40 +231,45 @@ def _check_conv(kernel, x, w, bias, mult, shift, out_shape, residual=None):
 
 def qconv_rq_plain(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0),
                    izp=0, rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127,
-                   blocks=None):
+                   blocks=None, dilation=(1, 1), groups=1):
     """Plain PyTorch version of K2 (`blocks` is the kernel's tile: no effect)."""
-    acc = conv_acc_plain(x, w, strides, padding, izp)
+    acc = conv_acc_plain(x, w, strides, padding, izp, dilation, groups)
     return epilogue_plain(acc, bias, mult, shift, rq_izp, out_zp, rounding, qmin, qmax)
 
 
 def qconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0,
              rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127,
-             blocks=None) -> torch.Tensor:
-    """K2: x int8 NHWC, w int8 HWIO, bias / mult / shift int32 (COUT,);
-    padding (top, left, bottom, right); blocks (BM, BN, 64) a compiled tile,
-    None for `rq_tile`'s -> int8 NHWC.  K is split as `rq_split` says."""
+             blocks=None, dilation=(1, 1), groups=1) -> torch.Tensor:
+    """K2: x int8 NHWC, w int8 HWIO (KH, KW, CIN / groups, COUT), bias /
+    mult / shift int32 (COUT,); padding (top, left, bottom, right); dilation
+    (dh, dw); blocks (BM, BN, 64) a compiled tile, None for `rq_tile`'s ->
+    int8 NHWC.  K is split as `rq_split` says; a grouped conv runs a super-group
+    of `group_span` groups as one dense conv."""
+    dilation = tuple(dilation)
     kw = dict(strides=strides, padding=padding, izp=izp, rq_izp=rq_izp, out_zp=out_zp,
-              rounding=rounding, qmin=qmin, qmax=qmax)
+              rounding=rounding, qmin=qmin, qmax=qmax, dilation=dilation, groups=groups)
     if blocks is not None:
         tile_params(blocks)  # a tile that is not built raises on every device
     if x.device.type == "cpu":
         return qconv_rq_plain(x, w, bias, mult, shift, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"qconv_rq: no kernel for device {x.device}")
-    oh, ow = _out_hw(x.shape, w.shape, strides, padding)
+    oh, ow = _out_hw(x.shape, w.shape, strides, padding, dilation)
     out_shape = (x.shape[0], oh, ow, w.shape[3])
-    _check_conv("qconv_rq", x, w, bias, mult, shift, out_shape)
+    _check_conv("qconv_rq", x, w, bias, mult, shift, out_shape, groups=groups)
     out = torch.empty(out_shape, dtype=torch.int8, device=x.device)
     bias = fold_input_zero_point(bias, w, izp)
     (bm, bn), ks, kper = rq_launch(tuple(x.shape), tuple(w.shape), strides, padding, blocks,
-                                   sm_count(x.device.index))
+                                   sm_count(x.device.index), dilation, groups)
+    span = _geometry(tuple(x.shape), tuple(w.shape), bn, groups)[1]
     m, cout = out_shape[0] * oh * ow, w.shape[3]
     # a split adds its partial sums into zeros (M x COUT, then a counter a
     # tile); unsplit, the kernel reads no workspace
     ws = (torch.zeros(m * cout + -(-m // bm) * -(-cout // bn), dtype=torch.int32,
                       device=x.device) if ks > 1 else out)
-    launch("tk_qconv_rq", [x, kmajor_weights(w), out, bias, mult, shift, ws],
-           _conv_params(x, w, out, strides, padding, izp, rq_izp, out_zp, rounding, qmin, qmax)
+    launch("tk_qconv_rq", [x, _packed(w, groups, span), out, bias, mult, shift, ws],
+           _conv_params(x, w, out, strides, padding, izp, rq_izp, out_zp, rounding, qmin, qmax,
+                        dilation, span * w.shape[2])
            | dict(bm=bm, bn=bn, ks=ks, kper=kper))
     LAUNCHES["qconv_rq"] += 1
     return out
@@ -200,45 +297,66 @@ def raw_split(m: int, cout: int, k: int, sms: int = 132) -> tuple[int, int]:
     return -(-steps // kper), kper
 
 
-def rq_launch(x_shape, w_shape, strides, padding, blocks=None, sms: int = 132):
+GROUPED_BN = 64  # the N tile of K2's grouped calls where no tile is asked for
+
+
+def rq_launch(x_shape, w_shape, strides, padding, blocks=None, sms: int = 132,
+              dilation=(1, 1), groups: int = 1):
     """((BM, BN), splits, steps per split) of one K2 call: `blocks`' tile, or
-    `rq_tile`'s, and `rq_split`'s split of K at that tile."""
-    oh, ow = _out_hw(x_shape, w_shape, strides, padding)
-    kh, kw, cin, cout = w_shape
+    `rq_tile`'s (with GROUPED_BN columns for a grouped conv: a super-group
+    of fewer groups wastes fewer zero products), and `rq_split`'s split of K
+    at that tile (a grouped conv's K is its super-group's, `_geometry`)."""
+    oh, ow = _out_hw(x_shape, w_shape, strides, padding, dilation)
+    cout = w_shape[3]
     m = x_shape[0] * oh * ow
-    tile = rq_tile(m, cout, sms) if blocks is None else (int(blocks[0]), int(blocks[1]))
-    return (tile, *rq_split(m, cout, kh * kw * cin, tile, sms))
+    if blocks is not None:
+        tile = (int(blocks[0]), int(blocks[1]))
+    elif groups != 1:
+        tile = (rq_tile(m, cout, sms)[0], GROUPED_BN)
+    else:
+        tile = rq_tile(m, cout, sms)
+    k, _ = _geometry(x_shape, w_shape, tile[1], groups)
+    return (tile, *rq_split(m, cout, k, tile, sms))
 
 
 def qconv_raw_plain(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0),
-                    izp=0) -> torch.Tensor:
+                    izp=0, dilation=(1, 1), groups=1) -> torch.Tensor:
     """Plain PyTorch version of K4's conv mode."""
-    acc = conv_acc_plain(x, w, strides, padding, izp)
+    acc = conv_acc_plain(x, w, strides, padding, izp, dilation, groups)
     return (acc.to(torch.int64) + bias.to(torch.int64)).to(torch.int32)
 
 
-def qconv_raw(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0) -> torch.Tensor:
+def qconv_raw(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0, dilation=(1, 1),
+              groups=1) -> torch.Tensor:
     """K4, conv mode: the int32 accumulator of qnn.conv2d, sum (x_pad - izp) *
-    w, plus bias in int32 wraparound.  x int8 NHWC, w int8 HWIO, bias int32
-    (COUT,); padding (top, left, bottom, right) -> int32 NHWC."""
+    w, plus bias in int32 wraparound.  x int8 NHWC, w int8 HWIO (KH, KW,
+    CIN / groups, COUT), bias int32 (COUT,); padding (top, left, bottom,
+    right); dilation (dh, dw) -> int32 NHWC.  A grouped conv runs as K2's
+    does, at the 64-column tile."""
+    dilation = tuple(dilation)
     if x.device.type == "cpu":
-        return qconv_raw_plain(x, w, bias, strides=strides, padding=padding, izp=izp)
+        return qconv_raw_plain(x, w, bias, strides=strides, padding=padding, izp=izp,
+                               dilation=dilation, groups=groups)
     if x.device.type != "cuda":
         raise ValueError(f"qconv_raw: no kernel for device {x.device}")
-    oh, ow = _out_hw(x.shape, w.shape, strides, padding)
+    oh, ow = _out_hw(x.shape, w.shape, strides, padding, dilation)
     kh, kw, cin, cout = w.shape
-    check_cuda_operands("qconv_raw", x.device, x=(x, torch.int8, (*x.shape[:3], cin)),
+    if groups < 1 or cout % groups:
+        raise ValueError(f"qconv_raw: groups {groups} do not divide COUT {cout}")
+    check_cuda_operands("qconv_raw", x.device, x=(x, torch.int8, (*x.shape[:3], cin * groups)),
                         w=(w, torch.int8, (kh, kw, cin, cout)),
                         bias=(bias, torch.int32, (cout,)))
     if x.ndim != 4 or min(oh, ow) <= 0:
         raise ValueError(f"qconv_raw: bad geometry {tuple(x.shape)} * {tuple(w.shape)}")
-    ks, kper = raw_split(x.shape[0] * oh * ow, cout, kh * kw * cin, sm_count(x.device.index))
+    k, span = _geometry(tuple(x.shape), tuple(w.shape), RAW_TILE[1], groups)
+    ks, kper = raw_split(x.shape[0] * oh * ow, cout, k, sm_count(x.device.index))
     # a split adds its partial sums into zeros
     out = (torch.zeros if ks > 1 else torch.empty)((x.shape[0], oh, ow, cout),
                                                    dtype=torch.int32, device=x.device)
     bias = fold_input_zero_point(bias, w, izp)
-    launch("tk_qconv_raw", [x, kmajor_weights(w), out, bias],
-           _conv_params(x, w, out, strides, padding, izp, 0, 0, "UPWARD", 0, 0)
+    launch("tk_qconv_raw", [x, _packed(w, groups, span), out, bias],
+           _conv_params(x, w, out, strides, padding, izp, 0, 0, "UPWARD", 0, 0, dilation,
+                        span * cin)
            | dict(ks=ks, kper=kper))
     LAUNCHES["qconv_raw"] += 1
     return out
@@ -311,20 +429,27 @@ def _conv1x1_matmul(x, w, bias, mult, shift, strides, padding, izp, rq_izp, out_
     return out.reshape(n, oh, ow, cout)
 
 
-def _conv_config(x_shape, w_shape, strides, padding, blocks, layout):
+def _conv_config(x_shape, w_shape, strides, padding, blocks, layout, dilation=(1, 1),
+                 groups: int = 1):
     """(blocks, layout) of a K2-family conv: explicit `blocks` and `layout`
     are checked (ValueError when the tile is not compiled, the layout unknown
     or its shared memory too small); with blocks None, the database's best
     record for the workload, ignored when its blocks are not a compiled tile
-    or its layout does not fit; else the 64 x 64 tile on K2."""
+    or its layout does not fit; else the 64 x 64 tile on K2.  A dilated or
+    grouped conv runs on K2 whatever the layout: the record for its own
+    workload (its dilation and groups in the key) gives the tile alone."""
     if layout is not None and layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r}: one of None, {LAYOUTS}")
+    dense = tuple(dilation) == (1, 1) and groups == 1
+    if not dense:
+        layout = None
     if blocks is None:
         n, h, wd, cin = x_shape
         kh, kw, _, cout = w_shape
-        cfg = lookup_config(flat_conv_workload(n, h, wd, cin, cout, kh, kw, strides, True))
+        cfg = lookup_config(flat_conv_workload(n, h, wd, cin, cout, kh, kw, strides, True,
+                                               groups, tuple(dilation)))
         if cfg and "blocks" in cfg and compiled_blocks(cfg["blocks"]):
-            lay = layout if layout is not None else cfg.get("layout")
+            lay = layout if layout is not None or not dense else cfg.get("layout")
             if lay in LAYOUTS and not layout_fits(lay, cfg["blocks"], x_shape, w_shape, strides,
                                                   padding):
                 return None, layout
@@ -344,31 +469,41 @@ def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1)
                  padding=(0, 0, 0, 0), groups: int = 1, input_zero_point: int = 0,
                  rq_input_zero_point: int = 0, out_zp: int = 0, rounding: str = "UPWARD",
                  out_dtype: str = "int8", qmin: int = -128, qmax: int = 127,
-                 blocks: tuple | None = None, layout: str | None = None):
+                 blocks: tuple | None = None, layout: str | None = None,
+                 dilation=(1, 1)):
     """NHWC int8 conv with the fused exact requantize: x (N,H,W,CIN) int8,
-    w (KH,KW,CIN/groups,COUT) int8, groups 1 or CIN (depthwise, COUT == CIN);
+    w (KH,KW,CIN/groups,COUT) int8, any groups dividing CIN and COUT;
     1x1 -> K1, depthwise -> K5, any other size -> K2 or, by `layout` ("t",
     "s", "w", "r"), K7-K10, at the tile `blocks` (BM, BN, 64).  blocks None
     reads the tuning database (the record's layout too, unless `layout` is
     given); explicit bad blocks or layouts raise ValueError.  1x1 convs ignore
     `blocks` and `layout` (their GEMM reads its own record), as the JAX
-    package's entry does.  Without a multiplier: the int32 accumulator of
-    sum (x_pad - izp) * w plus bias (the unfused qnn.conv2d + bias), on K4's
-    GEMM or conv mode, or K5's raw mode; a raw conv other than a 1x1 reads no
-    record and ignores `blocks` and `layout`."""
+    package's entry does.  A dilated conv (but a 1x1, whose dilation is a
+    no-op) or a grouped one other than depthwise runs on K2 and ignores
+    `layout`; a dilated depthwise conv is not ported.  Without a multiplier:
+    the int32 accumulator of sum (x_pad - izp) * w plus bias (the unfused
+    qnn.conv2d + bias), on K4's GEMM or conv mode, or K5's raw mode; a raw
+    conv other than a 1x1 reads no record and ignores `blocks` and
+    `layout`."""
     cin = x.shape[-1]
     depthwise = groups > 1 and groups == cin and w.shape[2] == 1 and w.shape[3] == cin
-    if groups != 1 and not depthwise:
-        raise NotImplementedError(
-            f"qconv2d_flat: groups {groups} with weight {tuple(w.shape)}: only groups 1 "
-            "and depthwise (groups == CIN == COUT) are supported (ROADMAP Queue 1 item 2)")
+    if groups < 1 or cin % groups or w.shape[3] % groups or w.shape[2] * groups != cin:
+        raise ValueError(f"qconv2d_flat: groups {groups} do not fit input channels {cin} "
+                         f"and weight {tuple(w.shape)}")
     if multiplier is not None and out_dtype != "int8":
-        raise NotImplementedError(f"qconv2d_flat: out_dtype {out_dtype} is not ported yet")
+        raise NotImplementedError(f"qconv2d_flat: out_dtype {out_dtype} is not ported yet "
+                                  "(ROADMAP Queue 1 item 2: fused outputs other than int8)")
     dev = x.device
     w = as_int8(w, dev)
     cout = w.shape[-1]
     b = as_int32_vector(bias, cout, dev)
     strides, padding = tuple(strides), tuple(padding)
+    pointwise = w.shape[0] == 1 and w.shape[1] == 1
+    dilation = (1, 1) if pointwise else tuple(int(d) for d in dilation)
+    if depthwise and dilation != (1, 1):
+        raise NotImplementedError(
+            f"qconv2d_flat: a dilated depthwise conv (dilation {dilation}) is not ported: "
+            "K5 takes no dilation (ROADMAP Queue 1 item 2: K5 with dilation)")
     if depthwise:
         if multiplier is None:
             return qdwconv_raw(x.contiguous(), w, b, strides=strides, padding=padding,
@@ -378,23 +513,25 @@ def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1)
                           padding=padding, izp=input_zero_point,
                           rq_izp=rq_input_zero_point, out_zp=out_zp, rounding=rounding,
                           qmin=qmin, qmax=qmax)
+    geometry = {} if (dilation, groups) == ((1, 1), 1) else dict(dilation=dilation,
+                                                                  groups=groups)
     if multiplier is None:
-        if w.shape[0] == 1 and w.shape[1] == 1:
+        if pointwise and groups == 1:
             return _conv1x1_matmul(x, w, b, None, None, strides, padding, input_zero_point,
                                    0, 0, "UPWARD", 0, 0)
         return qconv_raw(x.contiguous(), w, b, strides=strides, padding=padding,
-                         izp=input_zero_point)
+                         izp=input_zero_point, **geometry)
     m = channel_vector(multiplier, cout, dev)
     s = channel_vector(shift, cout, dev)
-    if w.shape[0] == 1 and w.shape[1] == 1:
+    if pointwise and groups == 1:
         return _conv1x1_matmul(x, w, b, m, s, strides, padding, input_zero_point,
                                rq_input_zero_point, out_zp, rounding, qmin, qmax)
     blocks, layout = _conv_config(tuple(x.shape), tuple(w.shape), strides, padding, blocks,
-                                  layout)
+                                  layout, dilation, groups)
     kernel = qconv_rq if layout is None else globals()[LAYOUT_KERNELS[layout]]
     return kernel(x.contiguous(), w, b, m, s, strides=strides, padding=padding,
                   izp=input_zero_point, rq_izp=rq_input_zero_point, out_zp=out_zp,
-                  rounding=rounding, qmin=qmin, qmax=qmax, blocks=blocks)
+                  rounding=rounding, qmin=qmin, qmax=qmax, blocks=blocks, **geometry)
 
 
 def _stage(cur, st: dict, residual=None, res_params=None, blocks=None):

@@ -93,15 +93,17 @@ def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
     512 contiguous bytes, and no mask; made once per weight tensor
     (`pack_once`): a (1, 1, K, N) conv weight and its (K, N) view pack
     alike."""
-    def make(w):
-        cout = w.shape[-1]
-        k = w.numel() // cout
-        steps = -(-k // KSTEP)
-        flat = torch.zeros((cout, steps * KSTEP), dtype=torch.int8, device=w.device)
-        flat[:, :k] = w.reshape(k, cout).t()
-        return flat.reshape(cout, steps, KSTEP).transpose(0, 1).contiguous()
+    return pack_once(_KMAJOR, w, kmajor_pack)
 
-    return pack_once(_KMAJOR, w, make)
+
+def kmajor_pack(w: torch.Tensor) -> torch.Tensor:
+    """`kmajor_weights`' packing, made anew on each call."""
+    cout = w.shape[-1]
+    k = w.numel() // cout
+    steps = -(-k // KSTEP)
+    flat = torch.zeros((cout, steps * KSTEP), dtype=torch.int8, device=w.device)
+    flat[:, :k] = w.reshape(k, cout).t()
+    return flat.reshape(cout, steps, KSTEP).transpose(0, 1).contiguous()
 
 
 def rq_split(m: int, cout: int, k: int, tile=(64, 64), sms: int = 132) -> tuple[int, int]:
@@ -410,7 +412,8 @@ def qmatmul_int8(x, w, bias=None, multiplier=None, shift=None, out_zp: int = 0,
     Without a multiplier: the int32 accumulator of (x - input_zero_point) @
     w, plus bias (K4's GEMM mode, its tile and record read alike)."""
     if multiplier is not None and out_dtype != "int8":
-        raise NotImplementedError(f"qmatmul_int8: out_dtype {out_dtype} is not ported yet")
+        raise NotImplementedError(f"qmatmul_int8: out_dtype {out_dtype} is not ported yet "
+                                  "(ROADMAP Queue 1 item 2: fused outputs other than int8)")
     n = w.shape[1]
     dev = x.device
     w = as_int8(w, dev)

@@ -82,8 +82,17 @@ def _is_depthwise(x_shape, w_shape, groups: int) -> bool:
     if groups != 1 and not depthwise:
         raise NotImplementedError(
             f"W8A16 conv: groups {groups} with weight {tuple(w_shape)}: only groups 1 and "
-            "depthwise (groups == CIN == COUT) are ported (ROADMAP Queue 1 item 2)")
+            f"depthwise (groups == CIN == COUT) are ported ({WIDE_ITEM})")
     return depthwise
+
+
+WIDE_ITEM = "ROADMAP Queue 1 item 2: qconv_wide / qdwconv_wide with dilation and groups"
+
+
+def _check_undilated(dilation) -> None:
+    if tuple(dilation) != (1, 1):
+        raise NotImplementedError(f"W8A16 conv: dilation {tuple(dilation)} is not ported "
+                                  f"({WIDE_ITEM})")
 
 
 def colsum_once(w: torch.Tensor) -> torch.Tensor:
@@ -239,12 +248,14 @@ def wide_conv_plain(x, w, *, strides=(1, 1), padding=(0, 0, 0, 0), groups=1,
 
 
 def wide_conv(x, w, *, strides=(1, 1), padding=(0, 0, 0, 0), groups=1,
-              izp=0) -> torch.Tensor:
+              izp=0, dilation=(1, 1)) -> torch.Tensor:
     """qnn.conv2d with out_dtype int64: x int8 or int16 NHWC, w int8 HWIO
-    (groups 1 or depthwise), padding (top, left, bottom, right) -> int64
-    NHWC.  int16 on the card: a depthwise conv on `qdwconv_wide`, a 1x1
+    (groups 1 or depthwise, undilated), padding (top, left, bottom, right) ->
+    int64 NHWC.  int16 on the card: a depthwise conv on `qdwconv_wide`, a 1x1
     stride-1 unpadded conv on `qgemm_wide`, any other on `qconv_wide`."""
     strides, padding = tuple(strides), tuple(padding)
+    if w.shape[0] * w.shape[1] > 1:  # a 1x1 conv's dilation is a no-op
+        _check_undilated(dilation)
     if x.device.type == "cpu":
         return wide_conv_plain(x, w, strides=strides, padding=padding, groups=groups, izp=izp)
     if x.device.type != "cuda":

@@ -224,11 +224,10 @@ def _qconv_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarray
 @torch_impl("qnn.conv2d")
 def _qconv_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
     izp = _check_raw_operands(node, data, weight)
-    if _nn._pair(node.attrs.get("dilation", (1, 1))) != (1, 1):
-        raise NotImplementedError(f"{node.name} (qnn.conv2d): dilation is not ported yet")
     geometry = dict(strides=_nn._pair(node.attrs.get("strides", (1, 1))),
                     padding=_nn._pad4(node.attrs.get("padding", (0, 0, 0, 0))),
-                    groups=int(node.attrs.get("groups", 1)))
+                    groups=int(node.attrs.get("groups", 1)),
+                    dilation=_nn._pair(node.attrs.get("dilation", (1, 1))))
     if node.attrs.get("out_dtype", "int32") == "int64":
         return _wide.wide_conv(data, weight, izp=izp, **geometry)
     return qconv2d_flat(data, weight, input_zero_point=izp, **geometry)

@@ -300,7 +300,8 @@ def _kernel_args(a) -> dict:
     """The requantize keyword arguments of the kernel entries."""
     lo, hi = _bounds(a)
     if np.any(np.asarray(a.get("kernel_zero_point", 0))):
-        raise NotImplementedError("a nonzero kernel zero point is not ported yet")
+        raise NotImplementedError("a nonzero kernel zero point is not ported yet (ROADMAP "
+                                  "Queue 1 item 2: the nonzero kernel zero point)")
     return dict(multiplier=a["multiplier"], shift=a["shift"],
                 input_zero_point=int(a.get("input_zero_point", 0)),
                 rq_input_zero_point=int(a.get("rq_input_zero_point", 0)),
@@ -326,12 +327,11 @@ def _conv_rq_np(*args, node: Node):
 def _conv_rq_torch(*args, node: Node):
     (data, weight), bias = _split_bias(node, args)
     a = dict(node.attrs)
-    if _nn._pair(a.get("dilation", (1, 1))) != (1, 1):
-        raise NotImplementedError("dilated convs are not ported yet")
     return qconv2d_flat(
         data, weight, bias, strides=_nn._pair(a.get("strides", (1, 1))),
         padding=_nn._pad4(a.get("padding", (0, 0, 0, 0))),
-        groups=int(a.get("groups", 1)), **_kernel_args(a))
+        groups=int(a.get("groups", 1)), dilation=_nn._pair(a.get("dilation", (1, 1))),
+        **_kernel_args(a))
 
 
 @infer_rule("tk.dense_rq")
@@ -375,7 +375,8 @@ def _bmm_rq_torch(*args, node: Node):
     at = dict(node.attrs)
     if at.get("out_dtype", "int8") != "int8":
         raise NotImplementedError(f"{node.name} (tk.bmm_rq): out_dtype {at['out_dtype']} is "
-                                  "not ported yet")
+                                  "not ported yet (ROADMAP Queue 1 item 2: fused outputs "
+                                  "other than int8)")
     lo, hi = _bounds(at)
     return qbmm_int8(a, c, bias, at["multiplier"], at["shift"],
                      lhs_zero_point=int(at.get("lhs_zero_point", 0)),

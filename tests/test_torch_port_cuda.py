@@ -1052,6 +1052,110 @@ def test_k4_conv_refuses_a_split_that_misses_k(rng, cuda, monkeypatch):
             qconv_raw(x, w, b, padding=(1, 1, 1, 1))
 
 
+# (x shape, k, stride, dilation, groups, cout): DeepLabV3-ResNet-50 b1 520^2's
+# dilated calls (65^2 maps; layer3 d2, layer4 d2 and d4, the ASPP at 12, 24
+# and 36) and ResNeXt-50 32x4d b8 224^2's grouped 3x3 calls (group widths 4,
+# 8, 16 and 32, the first of stages 2-4 at stride 2)
+K2_DILATED_CASES = [
+    ((1, 65, 65, 256), 3, 1, 2, 1, 256),
+    ((1, 65, 65, 512), 3, 1, 2, 1, 512),
+    ((1, 65, 65, 512), 3, 1, 4, 1, 512),
+    ((1, 65, 65, 2048), 3, 1, 12, 1, 256),
+    ((1, 65, 65, 2048), 3, 1, 24, 1, 256),
+    ((1, 65, 65, 2048), 3, 1, 36, 1, 256),
+]
+K2_GROUPED_CASES = [
+    ((8, 56, 56, 128), 3, 1, 1, 32, 128),
+    ((8, 56, 56, 256), 3, 2, 1, 32, 256),
+    ((8, 28, 28, 256), 3, 1, 1, 32, 256),
+    ((8, 28, 28, 512), 3, 2, 1, 32, 512),
+    ((8, 14, 14, 512), 3, 1, 1, 32, 512),
+    ((8, 14, 14, 1024), 3, 2, 1, 32, 1024),
+    ((8, 7, 7, 1024), 3, 1, 1, 32, 1024),
+]
+# ragged geometry: groups 2 with CIN / G != COUT / G and a super-group of all
+# the groups (the byte gather), groups with dilation, a 5x5 s2, groups 3
+K2_GEOMETRY_RAGGED = [
+    ((2, 9, 9, 12), 3, 1, 1, 2, 10),
+    ((2, 11, 13, 64), 3, 1, 3, 8, 64),
+    ((1, 17, 15, 96), 5, 2, 2, 4, 128),
+    ((3, 10, 10, 48), 3, 2, 1, 3, 24),
+    ((1, 20, 20, 32), 3, 1, 5, 1, 40),
+]
+
+
+def _geometry_case(rng, cuda, shape, k, s, d, g, cout, izp, blocks=None, raw=False):
+    x = _dev(rng, shape, cuda)
+    w = _dev(rng, (k, k, shape[3] // g, cout), cuda)
+    kw = dict(strides=(s, s), padding=(d * (k // 2),) * 4, izp=izp, dilation=(d, d), groups=g)
+    if raw:
+        b = torch.from_numpy(rng.integers(-5000, 5000, cout).astype(np.int32)).to(cuda)
+        before = _lib.LAUNCHES["qconv_raw"]
+        got = qconv_raw(x, w, b, **kw)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["qconv_raw"] == before + 1
+        want = qconv_raw_plain(x, w, b, **kw)
+    else:
+        b, mult, shift = _epilogue_args(rng, cout, cuda)
+        kw.update(rq_izp=-2, out_zp=1, rounding="TONEAREST", qmin=-120, qmax=126)
+        before = _lib.LAUNCHES["qconv_rq"]
+        got = qconv_rq(x, w, b, mult, shift, blocks=blocks, **kw)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["qconv_rq"] == before + 1
+        want = qconv_rq_plain(x, w, b, mult, shift, **kw)
+    assert torch.equal(got, want), int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_DILATED_CASES + K2_GROUPED_CASES)
+@pytest.mark.parametrize("izp", [0, -5])
+def test_k2_dilated_and_grouped_on_card(rng, cuda, case, izp):
+    """K2 at DeepLabV3 b1 520^2's dilated and ResNeXt-50 b8 224^2's grouped
+    calls == plain."""
+    _geometry_case(rng, cuda, *case, izp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_DILATED_CASES + K2_GROUPED_CASES)
+def test_k4_dilated_and_grouped_on_card(rng, cuda, case):
+    """K4's conv mode at the same calls, at b1 (the unfused traces)."""
+    shape = (1, *case[0][1:])
+    _geometry_case(rng, cuda, shape, *case[1:], -3, raw=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_GEOMETRY_RAGGED)
+@pytest.mark.parametrize("blocks", TILE_BLOCKS)
+def test_k2_geometry_ragged_on_card(rng, cuda, case, blocks):
+    _geometry_case(rng, cuda, *case, 7, blocks=blocks)
+    _geometry_case(rng, cuda, *case, 7, raw=True)
+
+
+@pytest.mark.cuda
+def test_dilated_and_grouped_convs_through_qconv2d_flat(rng, cuda):
+    """tk.conv2d_rq's and qnn.conv2d's entry on the card == the CPU path, on
+    K2 and K4's conv mode (no K7-K10 layout, no depthwise K5); a 1x1 conv's
+    dilation is a no-op and stays on K1; a dilated depthwise conv raises."""
+    m, s = plan_requantize(0.0004, 0.05)
+    for xs, ws, kw, kernel in (
+            ((1, 20, 20, 64), (3, 3, 64, 64), dict(dilation=(3, 3), padding=(3,) * 4,
+                                                   layout="t"), "qconv_rq"),
+            ((2, 12, 12, 64), (3, 3, 8, 64), dict(groups=8, padding=(1,) * 4), "qconv_rq"),
+            ((2, 12, 12, 64), (1, 1, 64, 32), dict(dilation=(2, 2)), "qgemm_rq")):
+        x, w = _dev(rng, xs, cuda), _i8(rng, ws)
+        before = dict(_lib.LAUNCHES)
+        got = qconv2d_flat(x, w, multiplier=m, shift=s, input_zero_point=3, **kw)
+        assert _lib.LAUNCHES[kernel] == before.get(kernel, 0) + 1
+        assert torch.equal(got.cpu(), qconv2d_flat(x.cpu(), w, multiplier=m, shift=s,
+                                                   input_zero_point=3, **kw))
+        kw.pop("layout", None)
+        raw = qconv2d_flat(x, w, input_zero_point=3, **kw)
+        assert torch.equal(raw.cpu(), qconv2d_flat(x.cpu(), w, input_zero_point=3, **kw))
+    with pytest.raises(NotImplementedError, match="item 2: K5 with dilation"):
+        qconv2d_flat(_dev(rng, (1, 9, 9, 16), cuda), _i8(rng, (3, 3, 1, 16)), groups=16,
+                     dilation=(2, 2), padding=(2,) * 4)
+
+
 @pytest.mark.cuda
 def test_tune_trial_with_a_wrong_answer_is_never_served(cuda, monkeypatch):
     """A trial whose output differs from the plain version is recorded as

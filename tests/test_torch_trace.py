@@ -165,10 +165,19 @@ def test_raw_wrappers_count_no_launch_on_cpu_and_refuse_other_devices(rng):
     with pytest.raises(ValueError, match="no kernel for device meta"):
         qconv_raw(meta.reshape(1, 2, 2, 32), w.reshape(1, 1, 32, 8).to("meta"),
                   torch.zeros(8, dtype=torch.int32, device="meta"))
-    # grouped convs other than depthwise have no kernel (nor in the reference)
-    with pytest.raises(NotImplementedError, match="groups 2"):
-        qconv2d_flat(torch.from_numpy(_i8(rng, (1, 4, 4, 8))), _i8(rng, (3, 3, 4, 8)),
-                     groups=2, padding=(1, 1, 1, 1))
+    # a grouped conv runs on K4's conv mode (its plain version here, no
+    # launch counted) == the reference's grouped qnn.conv2d; a dilated
+    # depthwise conv has no kernel yet
+    x8, w8 = _i8(rng, (1, 4, 4, 8)), _i8(rng, (3, 3, 4, 8))
+    node = JNode("c", "qnn.conv2d", ("d", "w"), {"padding": (1, 1, 1, 1), "groups": 2,
+                                                 "input_zero_point": 0, "kernel_zero_point": 0,
+                                                 "out_dtype": "int32"})
+    got = qconv2d_flat(torch.from_numpy(x8), w8, groups=2, padding=(1, 1, 1, 1))
+    np.testing.assert_array_equal(got.numpy(), j_get_op("qnn.conv2d").np_impl(x8, w8, node=node))
+    assert dict(_lib.LAUNCHES) == before
+    with pytest.raises(NotImplementedError, match="K5 with dilation"):
+        qconv2d_flat(torch.from_numpy(x8), _i8(rng, (3, 3, 1, 8)), groups=8, dilation=(2, 2),
+                     padding=(2, 2, 2, 2))
 
 
 # ---------------------------------------------------------------------------

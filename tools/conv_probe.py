@@ -2,6 +2,7 @@
 at the conv calls of ResNet-50 b8 and VGG-16 b8 (224^2):
 
     python3 tools/conv_probe.py [--quick] [--cuts[=NAME,...]] [OUT_JSON]
+    python3 tools/conv_probe.py --geometry [OUT_JSON]
 
   * K2 at each call shape: every tile of _lib.TILES at the wrapper's own
     split (`rq_split`), and at the 64 x 64 tile every split of K into
@@ -20,8 +21,15 @@ tiles.  `--cuts` instead times builds of the two sources with a part cut
 out or changed (CUTS: no wgmma, no A / window copies, no B / weight copies,
 no epilogue; the copies in L2 alone; a deeper ring), each in a process of
 its own, at a few calls, beside the whole kernel; a cut's outputs are wrong
-by design and are not compared.  `--cuts=NAME,...` builds those alone.  The card's name and power limit are printed; everything goes to
-OUT_JSON (default conv_probe.json in the working directory).
+by design and are not compared.  `--cuts=NAME,...` builds those alone.
+`--geometry` times K2 and K4's conv mode at the dilated calls of
+DeepLabV3-ResNet-50 b1 520^2 and the grouped calls of ResNeXt-50 32x4d b8
+224^2 (chip_smoke.py phase 27): K2 at every tile at the wrapper's split
+(a grouped call's super-group follows the tile's columns), at the
+wrapper's tile every split of K (forced), K4 at every split, each beside
+the fp16 cuDNN conv of the same shape, dilation and groups.  The card's
+name and power limit are printed; everything goes to OUT_JSON (default
+conv_probe.json in the working directory).
 """
 import json
 import os
@@ -45,6 +53,20 @@ K2_CALLS = {
                ((8, 56, 56, 128), 3, 1, 1, 256), ((8, 56, 56, 256), 3, 1, 1, 256),
                ((8, 28, 28, 256), 3, 1, 1, 512), ((8, 28, 28, 512), 3, 1, 1, 512),
                ((8, 14, 14, 512), 3, 1, 1, 512)],
+}
+# (x shape, k, stride, dilation, groups, cout): chip_smoke.py phase 27's
+# dilated and grouped calls (tests/test_torch_port_cuda.py K2_DILATED_CASES,
+# K2_GROUPED_CASES)
+GEOMETRY_CALLS = {
+    "DeepLabV3-ResNet-50 b1 520^2": [
+        ((1, 65, 65, 256), 3, 1, 2, 1, 256), ((1, 65, 65, 512), 3, 1, 2, 1, 512),
+        ((1, 65, 65, 512), 3, 1, 4, 1, 512), ((1, 65, 65, 2048), 3, 1, 12, 1, 256),
+        ((1, 65, 65, 2048), 3, 1, 36, 1, 256)],
+    "ResNeXt-50 32x4d b8 224^2": [
+        ((8, 56, 56, 128), 3, 1, 1, 32, 128), ((8, 56, 56, 256), 3, 2, 1, 32, 256),
+        ((8, 28, 28, 256), 3, 1, 1, 32, 256), ((8, 28, 28, 512), 3, 2, 1, 32, 512),
+        ((8, 14, 14, 512), 3, 1, 1, 32, 512), ((8, 14, 14, 1024), 3, 2, 1, 32, 1024),
+        ((8, 7, 7, 1024), 3, 1, 1, 32, 1024)],
 }
 K11_CALLS = K2_CALLS["VGG-16"] + [K2_CALLS["ResNet-50"][i] for i in (0, 2, 4, 6, 7)]
 SPLITS = (1, 2, 3, 4, 6, 8, 12)
@@ -168,8 +190,73 @@ def main() -> int:
             json.dump(res, f, indent=1)
         return 0
 
-    res = {"card": card, "k2": [], "k11": []}
     real_split = conv.rq_split
+    if "--geometry" in sys.argv:
+        res = {"card": card, "geometry": []}
+        real_raw = conv.raw_split
+
+        def fp16_conv(x, w, s, d, g):
+            x16 = x.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
+            w16 = w.permute(3, 2, 0, 1).half().contiguous(memory_format=torch.channels_last)
+            return lambda: torch.nn.functional.conv2d(x16, w16, stride=s, padding=d, dilation=d,
+                                                      groups=g)
+
+        for model, calls in GEOMETRY_CALLS.items():
+            for shape, k, s, d, g, cout in calls:
+                x = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).cuda()
+                w = torch.from_numpy(rng.integers(-127, 128, (k, k, shape[3] // g, cout))
+                                     .astype(np.int8)).cuda()
+                _, bias, mult, shift = operands((1, 1, 1, 1), 1, cout)[1:]
+                kw = dict(strides=(s, s), padding=(d,) * 4, dilation=(d, d), groups=g, out_zp=1)
+                plain = conv.qconv_rq_plain(x, w, bias, mult, shift, **kw)
+                oh = (shape[1] + 2 * d - 2 * d - 1) // s + 1
+                m = shape[0] * oh * oh
+                (tile, ks, kper) = conv.rq_launch(shape, tuple(w.shape), (s, s), (d,) * 4, None,
+                                                  sms, (d, d), g)
+                row = {"model": model, "shape": [shape, k, s, d, g, cout],
+                       "own": [tile, ks, kper], "tiles": {}, "splits": {}, "raw": {},
+                       "fp16_ms": call_seconds(fp16_conv(x, w, s, d, g), "cuda") * 1e3}
+                for bm, bn in _lib.TILES:
+                    kk, _ = conv._geometry(shape, tuple(w.shape), bn, g)
+                    row["tiles"][f"{bm}x{bn}"] = [real_split(m, cout, kk, (bm, bn), sms), timed(
+                        lambda: conv.qconv_rq(x, w, bias, mult, shift, blocks=(bm, bn, 64), **kw),
+                        plain)]
+                kk, _ = conv._geometry(shape, tuple(w.shape), tile[1], g)
+                steps = -(-kk // 64)
+                for n in SPLITS:
+                    kper_n = -(-steps // n)
+                    split = (-(-steps // kper_n), kper_n)
+                    if split[0] != n:
+                        continue
+                    conv.rq_split = lambda *a, _s=split, **k_: _s
+                    try:
+                        row["splits"][str(n)] = timed(
+                            lambda: conv.qconv_rq(x, w, bias, mult, shift, **kw), plain)
+                    finally:
+                        conv.rq_split = real_split
+                rkw = dict(strides=(s, s), padding=(d,) * 4, dilation=(d, d), groups=g)
+                raw_plain = conv.qconv_raw_plain(x, w, bias, **rkw)
+                kk, _ = conv._geometry(shape, tuple(w.shape), conv.RAW_TILE[1], g)
+                steps = -(-kk // 64)
+                row["raw_own"] = real_raw(m, cout, kk, sms)
+                for n in SPLITS:
+                    kper_n = -(-steps // n)
+                    split = (-(-steps // kper_n), kper_n)
+                    if split[0] != n:
+                        continue
+                    conv.raw_split = lambda *a, _s=split, **k_: _s
+                    try:
+                        row["raw"][str(n)] = timed(lambda: conv.qconv_raw(x, w, bias, **rkw),
+                                                   raw_plain)
+                    finally:
+                        conv.raw_split = real_raw
+                print(json.dumps(row), flush=True)
+                res["geometry"].append(row)
+        with open(out_path, "w") as f:
+            json.dump(res, f, indent=1)
+        return 0
+
+    res = {"card": card, "k2": [], "k11": []}
     for model, calls in K2_CALLS.items():
         for shape, k, s, p, cout in calls:
             ops = operands(shape, k, cout)

@@ -38,7 +38,11 @@ and the trace collector's merge byte-equal to the single card's; a
 two-stage pipeline; int8 ring attention on K1's batched mode; MoE on K4),
 and dilated and grouped int8 convs on K2 and K4's conv mode
 (DeepLabV3-ResNet-50 b1 520^2 at output stride 8 through ONNX, ResNeXt-50
-32x4d b8 224^2 through torch.fx, fused, unfused and traced).
+32x4d b8 224^2 through torch.fx, fused, unfused and traced), and legacy
+uint8 TFLite models (MobileNetV2 1.0 b8 224^2 laid out as TF1's converter
+writes it, uint8 data, weights and outputs at nonzero weight zero points, on
+K1, K2 and K5; its b1 trace on K4 and K5; K5 with dilation at
+DeepLab-MobileNetV2's atrous depthwise calls).
 
     python3 chip_smoke.py
 
@@ -84,7 +88,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      the CPU plain path;
   8. trace emission: the launch counts are set to 0, TraceEmitter(
      backend="torch", device="cuda").emit_to writes the b1 224^2 trace (one
-     warm call, five timed), the counts are read (both K4 modes must have
+     warm call, two timed), the counts are read (both K4 modes must have
      launched), no weight is packed K-major during the timed calls, the
      trace is held record by record against the CPU plain path's trace
      (integer records byte-equal, float records allclose), its CRCs checked
@@ -93,13 +97,13 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      weights from the seed): phases 3-6 again -- K5 qdwconv_rq at its 17
      calls (each printed with its tile, per call and per forward beside the
      first design's time) and K1/K2 at their MobileNetV2 shapes held == plain
-     and timed, 20 requests with every kernel of the path launched, every
+     and timed, 12 requests with every kernel of the path launched, every
      integer node == the CPU plain path, latency, images/s and the device's
      busy time a request beside the earlier tree's;
  10. MobileNetV2 b1 224^2 unfused: phases 7-8 again -- K5 qdwconv_raw (each
      call with its tile and the first design's time) and K4 held == plain and
      timed (each GEMM-mode call with its plan and the previous design's
-     time), the trace emitted on the card (1 warm + 5 timed) with both K4
+     time), the trace emitted on the card (1 warm + 2 timed) with both K4
      modes and qdwconv_raw launched and no weight packed during the timed
      traces, compared record by record with the CPU trace, CRC-checked and
      verify_trace'd;
@@ -172,12 +176,12 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      products of each layer) call held == plain and timed beside its bound
      and library call (an fp16 torch.matmul of the same batched shapes for
      qbmm, not exact), with its
-     plan; (c) 20 requests through TorchExecutor(fuse=True, device="cuda")
+     plan; (c) 12 requests through TorchExecutor(fuse=True, device="cuda")
      with the counts set to 0 and read, no weight packed during them, every
      integer node == the CPU path, the median latency and sequences/s; (d)
      device time by kernel and the busy share; (e) the trace path at b1
      s128, unfused: every K4 and qbmm_raw call == plain and timed, the
-     trace emitted on the card (1 warm, 5 timed, no weight packed during
+     trace emitted on the card (1 warm, 2 timed, no weight packed during
      them) and held record by record against the CPU's trace, CRCs and
      verify_trace; (f) GPT-2 small b1 s128 (causal) and ViT-B/16 b8 224^2
      quantized with TRANSFORMER_INT8, fused and run on the card: every
@@ -211,7 +215,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      generator b1, SSD-lite b1 320^2 (boxes, scores, NMS indices) and
      ResNet3D-18 b1 16 x 112^2: (19a-19k) built, calibrated, quantized and
      fused, the fused op counts printed; every K1/K2/K3/K5 call of a forward
-     == plain and timed beside its bound and library call; 20 requests
+     == plain and timed beside its bound and library call; 12 requests
      through TorchExecutor(device='cuda'), launches counted, the median
      latency and (3 requests, torch.profiler) the busy share; every integer
      node == the CPU path, except the nodes that a float op computed in
@@ -235,7 +239,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      and a dense, every one at a nonzero input zero point, -128 on 25;
      TFLite's stride-2 SAME padding (0, 0, 1, 1)) imported at b16 with
      integer_lut False and the default, fused: every K1/K2/K5 call == plain
-     and timed beside its bound and library call, 20 requests on the batch
+     and timed beside its bound and library call, 12 requests on the batch
      fixture's 16 images (launches counted), every integer node == the CPU
      path, the int8 output within one quantum of the TFLite interpreter's
      goldens and top-1 16 of 16, latency, images/s and the busy share; the
@@ -248,7 +252,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      qconv_wide for the others: one wgmma pass over the int16 activations'
      two byte planes, csrc/qconv_wide_hopper.cu) == its float64 plain
      version and timed beside its bound and the float64 cuBLAS / cuDNN call
-     of the same shapes, no K4 / K5 launch, 20 requests, every integer node
+     of the same shapes, no K4 / K5 launch, 12 requests, every integer node
      == the CPU path, the probabilities within phase 5's tolerance, latency
      and the busy share; (d) its b1 trace on the card, held against the
      CPU's trace, CRCs and verify_trace; (e) the 16x8 TFLite fixture on the
@@ -262,7 +266,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      with the port's encoder, imported with from_onnx, calibrated,
      quantized and fused, its fused op counts asserted (14 tk.conv2d_rq, 1
      tk.conv2d_chain, 4 tk.conv2d_block_stack, 1 tk.dense_rq: native
-     ResNet-50's); every K1/K2/K3 call == plain and timed, 20 requests with
+     ResNet-50's); every K1/K2/K3 call == plain and timed, 12 requests with
      the launches counted, every integer node == the CPU path, the median
      latency, images/s and the busy share; (b) the six exporters' fixtures
      (tests/fixtures/{paddle,oneflow,caffe,coreml,darknet}_route.onnx,
@@ -284,7 +288,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      imported at b8 224^2 with import_torch_quantized (the model's own scales
      and zero points: quint8's shifted by -128) and fused (14 / 1 / 4 / 1, as
      phase 21a), the stem's and a block stack's zero points printed; every
-     K1/K2/K3 call == plain and timed, 20 requests with the launches counted,
+     K1/K2/K3 call == plain and timed, 12 requests with the launches counted,
      every integer node and the logits == the CPU path, latency, images/s and
      the busy share; the largest difference from torch's eager quantized model
      (on the host) in output quanta, the top-1 agreement and the distinct
@@ -375,7 +379,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      batch at the stepped weights, its per-channel weight) forward and
      backward == the CPU's on identical inputs; qat_finalize from the
      card's stepped weights, fuse_qnn (14 / 1 / 4 / 1), every K1-K3 call of a forward ==
-     plain, 20 requests counted, every integer node == the CPU path.  The
+     plain, 12 requests counted, every integer node == the CPU path.  The
      phase's host seconds are printed;
  25. the TensorFlow and Keras import path: (a) keras.applications.ResNet50's
      frozen inference graph (Keras 3's layout: the stride on the 1x1 convs,
@@ -387,7 +391,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      batch and fused, the fused op counts printed beside native
      ResNet-50's and why they differ (53 tk.conv2d_rq, no chain: each batch
      norm stays a qnn.mul and a qnn.add, so K3 has no call), then every K1
-     and K2 call == plain and timed, 20 requests counted, every integer node
+     and K2 call == plain and timed, 12 requests counted, every integer node
      == the CPU path, the probabilities within FLOAT_RTOL / FLOAT_ATOL,
      latency and busy share; (b) the same .pb at b1 (input_specs),
      quantized and left unfused, traced on K4 as in phases 7-8, the records a
@@ -433,7 +437,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      call of a forward == plain and timed, its 11 dilated K2 calls asserted (the
      dilated K2 calls summed as a row of their own: launches, ms, the bound
      of their useful operations, plain, the fp16 cuDNN conv with their
-     dilation), 20 requests counted with no plain conv and no library conv
+     dilation), 12 requests counted with no plain conv and no library conv
      run (`conv_acc_exact`, `exact_int_matmul` and F.conv2d spied on), the
      nodes held to the CPU path as phase 19 holds them (hold_node_level:
      this graph has no float source, its pooling is integer and its
@@ -449,7 +453,28 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      from_torch, quantized and fused, then as (a), its 16 grouped K2 calls
      asserted and summed as a row; (e) its b1 224^2
      graph traced on K4 as in phases 7-8, its 16 grouped K4 calls as a row.
-     The phase's host seconds are printed.
+     The phase's host seconds are printed;
+ 28. legacy uint8 TFLite models: (a) MobileNetV2 1.0 b8 224^2 as TF1's
+     quantization-aware converter writes TF's hosted uint8 model (uint8
+     input at 1/128 and 128, uint8 weights per tensor at their own zero
+     points, uint8 activations and a uint8 softmax at 1/256), written by
+     models/tflite_mobilenet.py from the seed, from_tflite, fused (53
+     tk.conv2d_rq, each uint8 out at a weight zero point other than 0): every
+     K1 / K2 / K5 call of a forward == plain and timed beside its bound,
+     plain version and library call (torch._int_mm on the same bytes; cuDNN's
+     fp16 conv and depthwise conv), 12 requests counted with no plain
+     version and no library conv run (`no_plain_conv`), every integer
+     node == the CPU path, latency and busy share; (b) its b1 224^2 graph
+     unfused on K4 and K5's raw mode, every call == plain, traced on the
+     card (1 warm + 2 timed), the integer records byte-equal to the CPU
+     path's and verify_trace'd; (c) K5 with dilation, requantize and raw
+     modes, int8 and uint8 data (the latter at a weight zero point, a uint8
+     output), at DeepLab-MobileNetV2's ten atrous depthwise calls
+     (ATROUS_CALLS: b1 65^2 maps, 384 and 576 channels at dilation 2, 960
+     at 4), the calls counted, each == plain and timed beside cuDNN's fp16
+     dilated depthwise conv.  The phase's host seconds are printed.  To
+     make room for it, REQUESTS went from 20 to 12 and TRACE_TIMED from 5
+     to 2, in every phase.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -469,7 +494,7 @@ forward (phase 20e); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
 12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l, 20a-20e,
 21a, 21b, 22a-22d, 23a, 23b, 23d, 23e, 24a, 24b, 24d, 25a, 25b; 26a,
-26d, 26e, 26f summed over the ranks; 27a-27e; K11
+26d, 26e, 26f summed over the ranks; 27a-27e; 28a-28c; K11
 and K12 in 16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
@@ -493,7 +518,7 @@ import numpy as np
 import torch
 
 BATCH, IMAGE, SEED = 8, 224, 0
-REQUESTS = 20
+REQUESTS = 12                      # 20 until phase 28 came: its seconds came from here
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak, same source
 SOFTMAX_RTOL, SOFTMAX_ATOL = 1e-5, 1e-8
@@ -510,7 +535,7 @@ FA_SHAPES = ((2, 2, 128, 64, False), (1, 3, 256, 64, True), (2, 2, 200, 128, Fal
 
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-6  # float trace records (tests/test_trace.py's rule)
 TRACE_BATCH = 1
-TRACE_TIMED = 5
+TRACE_TIMED = 2                    # 5 until phase 28 came
 
 KERNELS = {
     "qgemm_rq": ("tachikoma_tpu_torch/csrc/qgemm_rq.cu",
@@ -837,6 +862,8 @@ def work(name, a, k) -> tuple[int, int, str]:
                 label + " int16")
     raw = name.endswith("_raw")
     out_b, vec_b = (4, 4) if raw else (1, 12)  # output bytes, per-channel vector bytes
+    if k.get("kzp") is not None:  # the weights' zero point, int32 a column
+        vec_b += 4
     if name in ("qgemm_rq", "qgemm_raw"):
         m, kk = x.shape
         return (m * kk + kk * cout + out_b * m * cout + vec_b * cout, 2 * m * kk * cout,
@@ -893,6 +920,8 @@ def library_call(name, a, k):
     if name in ("qgemm_rq", "qgemm_raw"):
         m, kk = x.shape
         n = w.shape[1]
+        if x.dtype == torch.uint8:  # the same bytes and shapes: _int_mm takes int8 alone
+            x = x.view(torch.int8)
         if m > 16 and kk % 8 == 0 and n % 8 == 0:
             try:
                 torch._int_mm(x, w)
@@ -1006,7 +1035,8 @@ def launch_plan(name, a, k) -> str:
         p = k.get("plan") or wide.wide_plan(x.shape[0] * oh * ow, kh * kw * cin, cout, sms)
         return f"tile {p['bm']}x{p['bn']} split {p['ks']} x {p['kper']}"
     if name.startswith("qdwconv"):
-        p = depthwise.dw_plan(x.shape[0], oh, ow, cout, kh, kw, sh, sw, x.element_size())
+        p = depthwise.dw_plan(x.shape[0], oh, ow, cout, kh, kw, sh, sw, x.element_size(),
+                              *dilation)
         return f"ct {p['ct']} tile {p['th']}x{p['tw']}, {p['blocks']} blocks"
     if name == "qconv_direct":
         plan = k.get("plan") or conv_direct.direct_plan(tuple(x.shape), tuple(w.shape),
@@ -5466,13 +5496,14 @@ RESNEXT_GROUPED = 16        # the grouped 3x3 of each bottleneck
 def no_plain_conv(what: str):
     """Spy on the plain versions' sums (ops/kernels/conv.py conv_acc_exact,
     under every plain K2-K4; matmul_int8.py exact_int_matmul, under K1's
-    and K4's GEMM mode's) and on the library's conv (F.conv2d) while the
-    block runs, and fail if any of them ran."""
-    from tachikoma_tpu_torch.ops.kernels import conv, matmul_int8
+    and K4's GEMM mode's; depthwise.py dw_acc_plain, under K5's) and on the
+    library's conv (F.conv2d) while the block runs, and fail if any of them
+    ran."""
+    from tachikoma_tpu_torch.ops.kernels import conv, depthwise, matmul_int8
 
     counts: Counter = Counter()
     spied = ((conv, "conv_acc_exact"), (matmul_int8, "exact_int_matmul"),
-             (torch.nn.functional, "conv2d"))
+             (depthwise, "dw_acc_plain"), (torch.nn.functional, "conv2d"))
     saved = [getattr(mod, attr) for mod, attr in spied]
 
     def spy(fn, key):
@@ -5490,7 +5521,7 @@ def no_plain_conv(what: str):
             setattr(mod, attr, fn)
     assert not counts, f"{what} ran a plain or library conv: {dict(counts)}"
     say(f"{what}: no plain version and no library conv ran (conv_acc_exact, exact_int_matmul, "
-        "F.conv2d spied on)")
+        "dw_acc_plain, F.conv2d spied on)")
 
 
 def geometry_rows(per_call: list, what: str, card: str) -> dict:
@@ -5667,6 +5698,172 @@ def geometry_path(card: str, r50_state: dict) -> tuple[dict, dict]:
     for k, n in more_launches.items():
         launches[k] = launches.get(k, 0) + n
     for k, e in more_errs.items():
+        errs[k] = max(errs.get(k, 0), e)
+    return launches, errs
+
+
+LEGACY_CLASSES = 1001
+# DeepLab-MobileNetV2's atrous depthwise calls (slim's mobilenet_v2 conv defs
+# at output stride 8, b1 513^2: 65^2 maps from the fourth stage on, which
+# keeps stride 1 and runs its later blocks at rate 2, the sixth at 4): (C,
+# dilation) a call, 3x3 s1, padding the dilation, in the network's order
+ATROUS_MAP = 65
+ATROUS_CALLS = ((384, 2),) * 4 + ((576, 2),) * 3 + ((960, 4),) * 3
+
+
+def legacy_fused_path(card: str) -> tuple[dict, dict, dict]:
+    """Phase 28a: the uint8 MobileNetV2 b8 224^2 written by
+    models/tflite_mobilenet.py, imported and fused: every K1 / K2 / K5 call
+    == plain and timed, REQUESTS requests under no_plain_conv with the
+    launches counted, every integer node == the CPU path, the busy share.
+    Returns the kernels' per-forward totals, the launches and the largest
+    |err| of each kernel."""
+    from tachikoma_tpu_torch.frontend import from_tflite
+    from tachikoma_tpu_torch.models.tflite_mobilenet import (mobilenet_v2_input,
+                                                            mobilenet_v2_tflite)
+    from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
+    from tachikoma_tpu_torch.runtime.fuse import fuse_qnn
+
+    model = f"uint8 MobileNetV2 b{BATCH} {IMAGE}^2"
+    phase(f"28a. {model} (legacy uint8 TFLite, models/tflite_mobilenet.py, seed {SEED}): "
+          f"write, from_tflite, fuse (host) [{card}]")
+    t0 = time.perf_counter()
+    blob = mobilenet_v2_tflite(BATCH, IMAGE, SEED)
+    t1 = time.perf_counter()
+    g = from_tflite(blob)
+    fused = fuse_qnn(g)
+    say(f"written: {len(blob)} bytes in {t1 - t0:.2f} s; import + fuse "
+        f"{time.perf_counter() - t1:.2f} s (host)")
+    ops = Counter(n.op for n in fused.nodes if n.op not in ("var", "const"))
+    say("fused graph: " + ", ".join(f"{v} {k}" for k, v in sorted(ops.items())))
+    heads = [n for n in fused.nodes if n.op == "tk.conv2d_rq"]
+    kzps = Counter(int(n.attrs["kernel_zero_point"]) for n in heads)
+    assert len(heads) == 53 and 0 not in kzps, kzps
+    assert all(n.attrs["out_dtype"] == "uint8" for n in heads)
+    say(f"53 tk.conv2d_rq, each uint8 out at a weight zero point other than 0 "
+        f"({len(kzps)} distinct, {min(kzps)} to {max(kzps)}); input zero points "
+        f"{sorted(Counter(int(n.attrs['input_zero_point']) for n in heads))[:6]} ...")
+    names = computational_nodes(fused)
+    ex = TorchExecutor(g, capture=names, fuse=True, device="cuda")
+    assert ex.graph.to_json() == fused.to_json()
+    requests = [mobilenet_v2_input(BATCH, IMAGE, SEED + i) for i in range(REQUESTS)]
+
+    phase(f"28a. {model}: K1, K2 and K5 at the forward's calls: == plain, time, bound, "
+          f"library [{card}]")
+    calls: list = []
+    with recording(calls):
+        ex.run_device(requests[0])
+    torch.cuda.synchronize()
+    counts = Counter(name for name, _, _ in calls)
+    assert counts == {"qgemm_rq": 35, "qconv_rq": 1, "qdwconv_rq": 17}, counts
+    totals = check_kernels(calls, TFLITE_KERNELS, model)
+    errs = {k: t["max_abs_err"] for k, t in totals.items()}
+
+    phase(f"28a. {model}: {REQUESTS} requests through TorchExecutor(fuse=True, "
+          f"device='cuda') [{card}]")
+    with no_plain_conv(f"the {model} requests"):
+        lat, first_out, launches = timed_requests(ex, requests, TFLITE_KERNELS,
+                                                  f"the {model} path")
+    t0 = time.perf_counter()
+    plain = TorchExecutor(g, capture=names, fuse=True, device="cpu").run(requests[0])
+    say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
+    n_int = hold_against_plain(names, first_out, plain, fused, FLOAT_RTOL, FLOAT_ATOL)
+    out = first_out[names.index(fused.outputs[0])]
+    assert out.dtype == np.uint8 and out.shape == (BATCH, LEGACY_CLASSES), (out.dtype, out.shape)
+    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; uint8 "
+        f"probabilities {out.shape}: per image {int((out > 0).sum(-1).min())} to "
+        f"{int((out > 0).sum(-1).max())} classes above 0, top-1 "
+        f"{out.argmax(-1).tolist()}")
+    med = say_latency(lat, BATCH)
+    kernel_ms = sum(t["ms"] for t in totals.values())
+    say(f"{'+'.join(TFLITE_KERNELS)} device ms per forward {kernel_ms:.4f} of {med:.3f} ms "
+        "end to end")
+    profile_requests(ex, requests[:3], med)
+    say("legacy rows " + json.dumps({"what": f"28a. {model}", "card": card, **{
+        k: {f: t[f] for f in ("calls", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
+        for k, t in totals.items()}, "median_ms": med}))
+    return totals, launches, errs
+
+
+def atrous_depthwise(card: str) -> tuple[dict, dict]:
+    """Phase 28c: K5 with dilation, requantize and raw modes, int8 data and
+    uint8 data with a weight zero point (a uint8 output), at DeepLab-
+    MobileNetV2's ten atrous depthwise calls (ATROUS_CALLS): the calls run
+    once with the counts from 0, then each is held == plain and timed
+    beside its bound, the plain version and cuDNN's fp16 dilated depthwise
+    conv.  Returns the launches and the largest |err| per kernel."""
+    from tachikoma_tpu_torch.ops.kernels.requantize import channel_vector, plan_requantize
+
+    phase(f"28c. K5 with dilation at DeepLab-MobileNetV2's {len(ATROUS_CALLS)} atrous "
+          f"depthwise calls (b1 {ATROUS_MAP}^2 maps, output stride 8) [{card}]")
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    calls = {"int8": [], "uint8": []}
+    for dtype, cs in calls.items():
+        for c, d in ATROUS_CALLS:
+            shape = (1, ATROUS_MAP, ATROUS_MAP, c)
+            if dtype == "uint8":  # a legacy model's: uint8 data, the weights' zero point
+                x = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)).to(dev)
+                kzp = channel_vector(rng.integers(-60, 60, c), c, dev)
+                izp, out = dict(izp=120), dict(out_zp=0, qmin=0, qmax=255, out_dtype="uint8")
+            else:
+                x = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).to(dev)
+                kzp, izp, out = None, dict(izp=-128), dict(out_zp=-128, qmin=-128, qmax=127)
+            w = torch.from_numpy(rng.integers(-128, 128, (3, 3, 1, c)).astype(np.int8)).to(dev)
+            b = torch.from_numpy(rng.integers(-20000, 20000, c).astype(np.int32)).to(dev)
+            m, s = plan_requantize(0.0008 * (0.5 + rng.random(c)), 1.0)
+            kw = dict(strides=(1, 1), padding=(d,) * 4, dilation=(d, d), kzp=kzp, **izp)
+            cs.append(("qdwconv_rq", (x, w, b, channel_vector(m, c, dev),
+                                      channel_vector(s, c, dev)),
+                       dict(kw, rq_izp=0, rounding="TONEAREST", **out)))
+            cs.append(("qdwconv_raw", (x, w, b), kw))
+    names = ("qdwconv_rq", "qdwconv_raw")
+    impl = kernel_impls()
+    reset(names)
+    for cs in calls.values():
+        for name, a, k in cs:
+            impl[name][0](*a, **k)
+    torch.cuda.synchronize()
+    launches = read_launches(names, "28c's calls")
+    say(", ".join(f"{k}: {n} launches" for k, n in launches.items()))
+    errs: dict = {}
+    rows: dict = {}
+    for dtype, cs in calls.items():
+        totals = check_kernels(cs, names, f"DeepLab-MobileNetV2 atrous {dtype}")
+        for name, t in totals.items():
+            errs[name] = max(errs.get(name, 0), t["max_abs_err"])
+            rows[f"{name} {dtype}"] = {f: t[f] for f in ("calls", "ms", "bound_ms", "bound_by",
+                                                          "plain_ms", "library_ms")}
+    for key, t in rows.items():
+        say(f"28c. {key}: {t['calls']} calls {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+            f"({t['ms'] / t['bound_ms']:.1f}x), plain {t['plain_ms']:.3f}, fp16 cuDNN "
+            f"{t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.2f}x) [{card}]")
+    say("atrous rows " + json.dumps({"card": card, **rows}))
+    return launches, errs
+
+
+def legacy_path(card: str) -> tuple[dict, dict]:
+    """Phase 28: legacy uint8 TFLite models on K1, K2, K4 and K5, and K5
+    with dilation.  Returns the launches and the largest |err| per
+    kernel."""
+    from tachikoma_tpu_torch.frontend import from_tflite
+    from tachikoma_tpu_torch.models.tflite_mobilenet import (mobilenet_v2_input,
+                                                            mobilenet_v2_tflite)
+
+    phase(f"28. legacy uint8 TFLite models: uint8 data, weight zero points, uint8 outputs; "
+          f"K5 with dilation [{card}]")
+    _, launches, errs = legacy_fused_path(card)
+    prepared = (from_tflite(mobilenet_v2_tflite(TRACE_BATCH, IMAGE, SEED)),
+                mobilenet_v2_input(TRACE_BATCH, IMAGE, SEED))
+    trace_totals, trace_launches = trace_path(
+        ("28b.", "28b."), "uint8 MobileNetV2", None, TFLITE_TRACE_KERNELS, prepared=prepared)
+    atrous_launches, atrous_errs = atrous_depthwise(card)
+    for part in (trace_launches, atrous_launches):
+        for k, n in part.items():
+            launches[k] = launches.get(k, 0) + n
+    for k, t in trace_totals.items():
+        errs[k] = max(errs.get(k, 0), t["max_abs_err"])
+    for k, e in atrous_errs.items():
         errs[k] = max(errs.get(k, 0), e)
     return launches, errs
 
@@ -5866,6 +6063,12 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), e)
     merge({}, geometry_launches)
     say(f"\nphase 27 seconds {time.perf_counter() - t27:.1f} (host clock) [{card}]")
+    t28 = time.perf_counter()
+    legacy_launches, legacy_errs = legacy_path(card)
+    for name, e in legacy_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    merge({}, legacy_launches)
+    say(f"\nphase 28 seconds {time.perf_counter() - t28:.1f} (host clock) [{card}]")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

@@ -4,6 +4,22 @@
 // persistent blocks over (M tile, N tile) items, a cp.async ring across
 // them, three epilogues (Mode), the exact split of K.  The design and its
 // measurements are in qconv_igemm_hopper.cu's notes.
+//
+// Legacy uint8 models (K1, K2, K4; not K3): the A operand may be uint8,
+// read as wgmma's .u8 operand (a_u8), and the weights may have a zero point
+// kzp[n] (a scalar arrives as a vector).  With the padding filled by izp,
+//   sum (x - izp)(w - kzp) = sum (x - izp) w - kzp[n] S[m],
+//   S[m] = rowsum(A_pad)[m] - K izp,
+// and the wrapper folds -izp colsum(w) + K izp kzp[n] into the bias
+// (matmul_int8.py fold_input_zero_point), so the kernel takes kzp[n] times
+// the row sums of the A tiles it staged off each sum: the row sums come from
+// one more wgmma a step, m64n8k32 against 8 rows of ones in shared memory,
+// whose fragment holds a row's sum at the rows of the product's.  A split of
+// K takes off its own steps' part, so the splits' sums add to the whole in
+// int32 wraparound, as the oracle's int32 does.  uint8 weights arrive as
+// int8 (w - 128, kzp - 128: the same differences), packed once.  These
+// calls run an instantiation of their own (LEG), so the int8 body's wgmma
+// loop stays as it was.
 #pragma once
 
 #include "epilogue_hopper.cuh"
@@ -56,6 +72,9 @@ struct Geo {
   bool a_vec;   // CIN % 16 == 0 and x 16-byte aligned
   bool a_vec8;  // K1's GEMM (1x1): CIN % 16 == 8 and x 8-byte aligned, 8-byte copies
   bool o_vec;  // K2, K3: COUT % 16 == 0, out (and K3's residual) 16-byte aligned
+  bool a_u8;   // x is uint8 (wgmma's .u8 A operand; K1, K2, K4)
+  bool kzp;    // the weights have a zero point: kzp[n] times the row sums taken off
+  int off_ones, off_kzp;  // kzp: 512 bytes of ones (the row sums' B), kzp of the N tile
   hop::FastDiv by_ohow, by_ow;
 };
 
@@ -106,7 +125,69 @@ void smem_layout(Geo& g) {
   g.off_tables = g.off_cols + (MODE != RAW ? BN * 16 : BN * 4);
   g.off_rtile = g.off_tables + (MODE == RES ? 2 * 256 * 4 : 0);
   g.off_flag = g.off_rtile + T::RSLOTS * BM * T::RS;
-  g.smem = g.off_flag + (MODE == RQ ? 16 : 0);
+  g.off_ones = g.off_flag + (MODE == RQ ? 16 : 0);
+  g.off_kzp = g.off_ones + (g.kzp ? 512 : 0);
+  g.smem = g.off_kzp + (g.kzp ? BN * 4 : 0);
+}
+
+// d (64 x BN, int32) += A (64 x 32 bytes, uint8) . B (BN x 32 bytes, int8)^T
+// (hop::wgmma_acc with a .u8 A operand); BN 8 is the row sums' product.
+#define TK_WGMMA_U8(N, REGS, ...)                                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #REGS ", 0;\n"                             \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.u8.s8 " __VA_ARGS__)
+template <int BN>
+__device__ __forceinline__ void wgmma_u8(int32_t (&d)[BN / 2], uint64_t da, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_u8<8>(int32_t (&d)[4], uint64_t da, uint64_t db) {
+  TK_WGMMA_U8(8, 6, "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+              : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+              : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_u8<64>(int32_t (&d)[32], uint64_t da, uint64_t db) {
+  TK_WGMMA_U8(64, 34,
+              "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+              "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+              "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+              : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+                "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+                "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+                "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+                "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+                "+r"(d[30]), "+r"(d[31])
+              : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_u8<128>(int32_t (&d)[64], uint64_t da, uint64_t db) {
+  TK_WGMMA_U8(128, 66,
+              "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+              "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+              "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+              "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+              "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+              "%60, %61, %62, %63}, %64, %65, p;\n}\n"
+              : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+                "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+                "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+                "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+                "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+                "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+                "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+                "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+                "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+                "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+                "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+              : "l"(da), "l"(db), "r"(1));
+}
+#undef TK_WGMMA_U8
+
+// d (64 x 8) += A (64 x 32 bytes, int8) . ones: the row sums' product on int8 A.
+__device__ __forceinline__ void wgmma_s8_n8(int32_t (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {%0, %1, %2, %3}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // A block of the grid (x: N tile + n_tiles * mb, z: split of K) walks the M
@@ -115,12 +196,13 @@ void smem_layout(Geo& g) {
 // to STAGES - 1 stages ahead of the products, and up to AHEAD items ahead,
 // so that the next items' copies (and K3's next residual tiles) are in
 // flight while this item's epilogue runs.  `ws` is K2's split workspace.
-template <int MODE, int BM, int BN>
+template <int MODE, int BM, int BN, bool LEG = false>
 __global__ void __launch_bounds__(2 * BM)
     igemm_hopper(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
                  void* __restrict__ out, const int8_t* __restrict__ residual,
                  const int32_t* __restrict__ bias, const int32_t* __restrict__ mult,
-                 const int32_t* __restrict__ shift, int32_t* __restrict__ ws, Epi e, Geo g) {
+                 const int32_t* __restrict__ shift, int32_t* __restrict__ ws,
+                 const int32_t* __restrict__ kzp, Epi e, Geo g) {
   using S = Tiles<MODE, BM, BN>;
   constexpr int NT = S::NT, ST = S::STAGES;
   constexpr bool RES_ = MODE == RES;
@@ -152,6 +234,9 @@ __global__ void __launch_bounds__(2 * BM)
   int32_t* const tr = tl + 256;
   int8_t* const rt = smem + g.off_rtile;
   int* const s_last = reinterpret_cast<int*>(smem + g.off_flag);  // K2's split: arrived last
+  int8_t* const ones = smem + g.off_ones;                            // kzp: the row sums' B
+  int32_t* const kz = reinterpret_cast<int32_t*>(smem + g.off_kzp);  // kzp: the N tile's
+  constexpr bool LEGACY = LEG && MODE != RES;  // uint8 A or kzp: K1, K2, K4
 
   // the producer: the item and step it stages next, its rows, its segment's
   // (ky, kx, ci)
@@ -293,6 +378,10 @@ __global__ void __launch_bounds__(2 * BM)
   else
     for (int i = tid; i < BN; i += NT)
       colb[i] = blockIdx.z == 0 && n0 + i < g.cout ? bias[n0 + i] : 0;
+  if (LEGACY && g.kzp) {  // read by the first step's wgmma, after its fence and barrier
+    for (int i = tid; i < 128; i += NT) reinterpret_cast<uint32_t*>(ones)[i] = 0x01010101u;
+    for (int i = tid; i < BN; i += NT) kz[i] = n0 + i < g.cout ? kzp[n0 + i] : 0;
+  }
   if constexpr (RES_) {
     for (int i = tid; i < 512; i += NT) {
       const int32_t v = (int8_t)(i & 255);
@@ -310,6 +399,7 @@ __global__ void __launch_bounds__(2 * BM)
   int32_t acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  int32_t rsum[4] = {0, 0, 0, 0};  // kzp: the staged rows' sums (rows rl0, rl0 + 8 in 0, 2)
   int consumed = 0, c_item = 0, c_step = 0;
   while (c_item < n_items) {
     produce(consumed, c_item);
@@ -319,14 +409,43 @@ __global__ void __launch_bounds__(2 * BM)
     const int8_t* const as = smem + (consumed % ST) * g.stage_bytes;
     const int8_t* const bs = g.b_res ? bres + c_step * BN * KSTEP : as + BM * KSTEP;
     wgmma_fence();
+    if constexpr (LEGACY) {
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-      wgmma_acc<BN>(acc, gmma_desc(as + wg * 4096 + kk * 256, 128, 512),
-                    gmma_desc(bs + kk * 256, 128, 512));
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t da = gmma_desc(as + wg * 4096 + kk * 256, 128, 512);
+        const uint64_t d1 = gmma_desc(ones + kk * 256, 128, 512);
+        if (g.a_u8) {
+          wgmma_u8<BN>(acc, da, gmma_desc(bs + kk * 256, 128, 512));
+          if (g.kzp) wgmma_u8<8>(rsum, da, d1);
+        } else {
+          wgmma_acc<BN>(acc, da, gmma_desc(bs + kk * 256, 128, 512));
+          if (g.kzp) wgmma_s8_n8(rsum, da, d1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        wgmma_acc<BN>(acc, gmma_desc(as + wg * 4096 + kk * 256, 128, 512),
+                      gmma_desc(bs + kk * 256, 128, 512));
+    }
     wgmma_commit();
     wgmma_wait0();
     ++consumed;
     if (++c_step < nst) continue;
+
+    if (LEGACY && g.kzp) {  // this split's part of -kzp[n] S[m], in int32 wraparound
+#pragma unroll
+      for (int jb = 0; jb < BN / 8; ++jb) {
+        const int cl = 8 * jb + 2 * (lane & 3);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[4 * jb + i] =
+              wrap_sub(acc[4 * jb + i], (int32_t)((uint32_t)kz[cl + (i & 1)] *
+                                                  (uint32_t)rsum[i & 2]));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) rsum[i] = 0;
+    }
 
     // the epilogue of item c_item
     const int mt_idx = mb + c_item * g.gm, m0 = mt_idx * BM;
@@ -489,6 +608,9 @@ inline bool make_geo(const int32_t* p, Geo& g) {
   g.a_vec = p[P_A_VEC] != 0 && g.cin % 16 == 0 && g.cspan % 16 == 0;
   g.a_vec8 = false;
   g.o_vec = false;
+  g.a_u8 = p[P_A_U8] != 0;
+  g.kzp = false;  // the entry sets it with its kzp vector
+  g.off_ones = g.off_kzp = 0;
   return true;
 }
 
@@ -510,12 +632,17 @@ inline bool split_ok(int ks, const Geo& g) {
 // each block walking every gm-th M tile of its N tile, with gm as large as
 // the card holds blocks at once (the occupancy API, once per kernel and
 // shared-memory size) and at most the M tiles.
-template <int MODE, int BM, int BN>
+template <int MODE, int BM, int BN, bool LEG = false>
 int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* residual,
                 const int32_t* bias, const int32_t* mult, const int32_t* shift, int32_t* ws,
-                const Epi& e, Geo g, int ks, cudaStream_t stream) {
+                const int32_t* kzp, const Epi& e, Geo g, int ks, cudaStream_t stream) {
   using T = Tiles<MODE, BM, BN>;
-  auto kern = igemm_hopper<MODE, BM, BN>;
+  if constexpr (MODE != RES && !LEG) {  // uint8 A or kzp: the instantiation that takes them
+    if (g.a_u8 || kzp != nullptr)
+      return launch_tile<MODE, BM, BN, true>(x, wk, out, residual, bias, mult, shift, ws, kzp,
+                                             e, g, ks, stream);
+  }
+  auto kern = igemm_hopper<MODE, BM, BN, LEG>;
   static int sms = 0;  // once per kernel: the SM count, the shared memory ceiling
   static int occ_smem[8], occ_blocks[8], n_occ = 0;  // blocks an SM, by shared memory
   if (sms == 0) {
@@ -527,6 +654,8 @@ int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* resi
       return (int)cudaGetLastError();
     sms = n;
   }
+  g.kzp = LEG && kzp != nullptr;
+  if (MODE == RES && g.a_u8) return (int)cudaErrorInvalidValue;
   smem_layout<MODE, BM, BN>(g);
   if (g.smem > (int)hop::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   // an N tile lies inside one super-group
@@ -550,7 +679,7 @@ int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* resi
   g.by_ohow = hop::FastDiv::make(g.oh * g.ow);
   g.by_ow = hop::FastDiv::make(g.ow);
   const dim3 grid(g.n_tiles * g.gm, 1, ks);
-  kern<<<grid, T::NT, g.smem, stream>>>(x, wk, out, residual, bias, mult, shift, ws, e, g);
+  kern<<<grid, T::NT, g.smem, stream>>>(x, wk, out, residual, bias, mult, shift, ws, kzp, e, g);
   return (int)cudaGetLastError();
 }
 
@@ -559,12 +688,14 @@ int launch_tile(const int8_t* x, const int8_t* wk, void* out, const int8_t* resi
 template <int MODE>
 int launch_tiled(const int8_t* x, const int8_t* wk, void* out, const int8_t* residual,
                  const int32_t* bias, const int32_t* mult, const int32_t* shift, int32_t* ws,
-                 const Epi& e, const Geo& g, int ks, const int32_t* p, cudaStream_t s) {
+                 const int32_t* kzp, const Epi& e, const Geo& g, int ks, const int32_t* p,
+                 cudaStream_t s) {
   if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
   const int bm = p[P_BM] ? p[P_BM] : 64, bn = p[P_BN] ? p[P_BN] : 64;
 #define TK_TILE(BM, BN)                                                                        \
   if (bm == BM && bn == BN)                                                                    \
-    return launch_tile<MODE, BM, BN>(x, wk, out, residual, bias, mult, shift, ws, e, g, ks, s);
+    return launch_tile<MODE, BM, BN>(x, wk, out, residual, bias, mult, shift, ws, kzp, e, g, ks, \
+                                     s);
   TK_TILE(64, 64)
   TK_TILE(64, 128)
   TK_TILE(128, 64)

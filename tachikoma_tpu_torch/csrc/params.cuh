@@ -47,6 +47,8 @@ enum Param {
   // the input channels of a super-group of a grouped conv, whose N tiles
   // read the contiguous run of that many channels (0 means CIN: dense)
   P_DH, P_DW, P_CSPAN,
+  // K1, K2, K4 and K5: the data operand is uint8 (legacy uint8 models)
+  P_A_U8,
   P_COUNT
 };
 

@@ -132,18 +132,22 @@
 // dilation (P_DH, P_DW).  K is split P_KS ways, P_KPER
 // steps of 64 each (every split non-empty); with P_KS > 1, ws is an int32
 // workspace of M * COUT sums and one counter per (BM, BN) tile, zeroed by
-// the caller.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
-// tile not built or a split that does not cover the steps).
+// the caller.  x is uint8 where P_A_U8 is set (read as wgmma's .u8
+// operand, izp 0..255); kzp, where not null, is the weights' zero point a
+// column (the bias carries -izp colsum(w) + K izp kzp: igemm_hopper.cuh);
+// a uint8 output is the same bytes at qmin 0, qmax 255.  Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a tile not built or a
+// split that does not cover the steps).
 extern "C" int tk_qconv_rq(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
                            const int32_t* mult, const int32_t* shift, int32_t* ws,
-                           const int32_t* p, void* stream) {
+                           const int32_t* kzp, const int32_t* p, void* stream) {
   using namespace tk;
   igemm::Geo g;
   if (!igemm::make_geo(p, g)) return (int)cudaErrorInvalidValue;
   const int ks = p[P_KS];
   if (!igemm::split_ok(ks, g) || (ks > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
   g.o_vec = g.cout % 16 == 0 && (uintptr_t)out % 16 == 0;
-  return igemm::launch_tiled<igemm::RQ>(x, wk, out, nullptr, bias, mult, shift, ws,
+  return igemm::launch_tiled<igemm::RQ>(x, wk, out, nullptr, bias, mult, shift, ws, kzp,
                                         igemm::make_epi(p), g, ks, p, (cudaStream_t)stream);
 }
 
@@ -155,7 +159,8 @@ extern "C" int tk_qconv_rq_res(const int8_t* x, const int8_t* wk, int8_t* out,
                                const int8_t* residual, const int32_t* p, void* stream) {
   using namespace tk;
   igemm::Geo g;
-  if (!igemm::make_geo(p, g) || g.sh != 1 || g.sw != 1) return (int)cudaErrorInvalidValue;
+  if (!igemm::make_geo(p, g) || g.sh != 1 || g.sw != 1 || g.a_u8)
+    return (int)cudaErrorInvalidValue;
   g.kper = g.steps;
   g.o_vec = g.cout % 16 == 0 && ((uintptr_t)residual | (uintptr_t)out) % 16 == 0;
   igemm::Epi e = igemm::make_epi(p);
@@ -171,16 +176,16 @@ extern "C" int tk_qconv_rq_res(const int8_t* x, const int8_t* wk, int8_t* out,
   e.zo = p[P_ZO];
   e.lo = p[P_LO];
   e.hi = p[P_HI];
-  return igemm::launch_tiled<igemm::RES>(x, wk, out, residual, bias, mult, shift, nullptr, e, g,
-                                         1, p, (cudaStream_t)stream);
+  return igemm::launch_tiled<igemm::RES>(x, wk, out, residual, bias, mult, shift, nullptr,
+                                         nullptr, e, g, 1, p, (cudaStream_t)stream);
 }
 
-// K4's conv mode.  wk, dilation and P_CSPAN as K2's; the tile is 64 x 64; K is split P_KS ways,
-// P_KPER steps of 64 each (every split non-empty), into an output the caller
+// K4's conv mode.  wk, dilation, P_CSPAN, P_A_U8 and kzp as K2's; the tile is 64 x 64; K is
+// split P_KS ways, P_KPER steps of 64 each (every split non-empty), into an output the caller
 // zeroed when P_KS > 1.  Returns cudaGetLastError() (cudaErrorInvalidValue
 // for a split that does not cover the steps).
 extern "C" int tk_qconv_raw(const int8_t* x, const int8_t* wk, int32_t* out, const int32_t* bias,
-                            const int32_t* p, void* stream) {
+                            const int32_t* kzp, const int32_t* p, void* stream) {
   using namespace tk;
   igemm::Geo g;
   if (!igemm::make_geo(p, g)) return (int)cudaErrorInvalidValue;
@@ -188,6 +193,6 @@ extern "C" int tk_qconv_raw(const int8_t* x, const int8_t* wk, int32_t* out, con
   if (!igemm::split_ok(ks, g)) return (int)cudaErrorInvalidValue;
   if (g.M <= 0 || g.cout <= 0) return (int)cudaGetLastError();
   return igemm::launch_tile<igemm::RAW, 64, 64>(x, wk, out, nullptr, bias, nullptr, nullptr,
-                                                nullptr, igemm::Epi{}, g, ks,
+                                                nullptr, kzp, igemm::Epi{}, g, ks,
                                                 (cudaStream_t)stream);
 }

@@ -1,9 +1,14 @@
-// K5 qdwconv_rq / qdwconv_raw: depthwise int8 convolution, NHWC, any kernel
-// size, stride and padding (top, left, bottom, right).
+// K5 qdwconv_rq / qdwconv_raw: depthwise int8 or uint8 convolution, NHWC,
+// any kernel size, stride, dilation and padding (top, left, bottom, right).
 //
-//   acc[n, oy, ox, c] = sum_{ky, kx} (x_pad[n, oy*sh + ky, ox*sw + kx, c] - izp) * w[ky, kx, 0, c]
+//   acc[n, oy, ox, c] = sum_{ky, kx} (x_pad[n, oy*sh + ky*dh, ox*sw + kx*dw, c] - izp)
+//                                    * (w[ky, kx, 0, c] - kzp[c])
 //
-// where taps outside the image read izp, so they add 0.
+// where taps outside the image read izp, so they add 0.  x is int8, or uint8
+// (P_A_U8: legacy uint8 models, izp 0..255); kzp, where not null, is the
+// weights' zero point a channel (uint8 weights arrive as int8 w - 128 with
+// kzp - 128, the same differences); a uint8 output is the same bytes at
+// qmin 0, qmax 255.
 //   * qdwconv_rq (RAW = false): the requantize.cuh epilogue of K1-K3 with
 //     per-channel multiplier and shift (ReLU6 arrives as qmin / qmax) -> int8.
 //   * qdwconv_raw (RAW = true): acc + bias[c] in int32 wraparound -> int32,
@@ -55,10 +60,19 @@
 // Depthwise has no reduction over channels, so there is no tensor-core form
 // to seek.
 //
-// Range: |x - izp| <= 255 and |w| <= 128, so a 3x3 tap sum stays below 2^19;
-// the accumulator is summed in uint32, so even a kernel deep enough to wrap
-// wraps as the oracle's int32 does.  izp is an int8 zero point (the window's
-// fill byte).
+// Range: |x - izp| <= 255 and |w - kzp| <= 255, so a 3x3 tap sum stays
+// below 2^20; the accumulator is summed in uint32, so even a kernel deep
+// enough to wrap wraps as the oracle's int32 does.  izp is a zero point of
+// x's type (the window's fill byte).  A tap is x times (w - kzp), the
+// weight less its zero point when the thread loads it, and izp * sum(w -
+// kzp) comes off once a channel, as at kzp 0.
+//
+// Dilation (DeepLab-MobileNetV2's atrous depthwise convs): tap (ky, kx)
+// reads window row ty sh + ky dh and column x sw + kx dw, the window spans
+// (TH - 1) sh + (KH - 1) dh + 1 rows (depthwise.py dw_plan sizes it alike),
+// and a dilated call runs the generic body (the weights in shared memory,
+// each tap read from the window); the 3x3 body reuses a row's columns
+// across the strip only undilated.
 //
 // qdwconv_wide (tk_qdwconv_wide: the body with T = int16_t) is W8A16's
 // depthwise qnn.conv2d into int64 (the JAX package's grouped qnn.conv2d on
@@ -73,6 +87,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "params.cuh"
 #include "requantize.cuh"
@@ -91,6 +106,7 @@ constexpr int DW_WIDE_TAPS = 256;  // (2^31 - 1) / (65535 * 128): qdwconv_wide's
 
 struct DwGeo {
   int n, h, w, c, kh, kw, oh, ow, sh, sw, pt, pl, izp;
+  int dh, dw;            // the dilation
   int ct, th, tw;        // a block's tile: channels, output rows, output columns
   int ih, iw, rp;        // its input window: rows, columns, row pitch in 4-byte words
   int tiles_x, tiles_y;  // output tiles along x and y (the grid's x is images x tiles)
@@ -127,10 +143,15 @@ __device__ __forceinline__ int32_t dw_requantize(uint32_t acc, const DwRq& r, co
   return min(max(q, p.qmin), p.qmax);
 }
 
-// 4 channels of the window at `p` (int8: one word; int16: two), sign-extended.
+// 4 channels of the window at `p` (int8: one word, sign-extended; uint8:
+// one word, zero-extended; int16: two, sign-extended).
 template <typename T>
 __device__ __forceinline__ void dw_load4(const uint32_t* p, int32_t (&v)[4]) {
-  if constexpr (sizeof(T) == 1) {
+  if constexpr (std::is_same_v<T, uint8_t>) {
+    const uint32_t word = *p;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = (int32_t)((word >> (8 * e)) & 255u);
+  } else if constexpr (sizeof(T) == 1) {
     const uint32_t word = *p;
 #pragma unroll
     for (int e = 0; e < 4; ++e) v[e] = sext_byte(word, e);
@@ -205,7 +226,8 @@ __device__ __forceinline__ uint32_t dw_weight_word(const int8_t* __restrict__ w,
 template <bool RAW, int K, int SW, typename T = int8_t>
 __global__ void __launch_bounds__(256)
     qdwconv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                   void* __restrict__ out, Requant rq, DwGeo g) {
+                   void* __restrict__ out, const int32_t* __restrict__ kzp, Requant rq,
+                   DwGeo g) {
   constexpr bool WIDE = sizeof(T) == 2;
   static_assert(!WIDE || RAW, "the int16 mode stores the raw sum");
   extern __shared__ __align__(16) uint32_t win[];
@@ -240,15 +262,20 @@ __global__ void __launch_bounds__(256)
   // window's copies are in flight
   int32_t wt[K ? K * K : 1][4];
   uint32_t wsum[4] = {0, 0, 0, 0};
+  int32_t wz[4] = {0, 0, 0, 0};  // the weights' zero point of each channel
   DwRq rc[4];
   if (live) {
+    if (kzp != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) wz[e] = c + e < g.c ? kzp[c + e] : 0;
+    }
     if (K) {
 #pragma unroll
       for (int tap = 0; tap < K * K; ++tap) {
         const uint32_t word = dw_weight_word(w, tap, c, g);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          wt[tap][e] = sext_byte(word, e);
+          wt[tap][e] = sext_byte(word, e) - wz[e];
           wsum[e] += (uint32_t)wt[tap][e];
         }
       }
@@ -300,13 +327,13 @@ __global__ void __launch_bounds__(256)
       int32_t wv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        wv[e] = sext_byte(wword, e);
+        wv[e] = sext_byte(wword, e) - wz[e];
         wsum[e] += (uint32_t)wv[e];
       }
 #pragma unroll
       for (int j = 0; j < DW_R; ++j) {
         int32_t xv[4];
-        dw_load4<T>(row0 + ky * g.rp + (j * sw + kx) * wp, xv);
+        dw_load4<T>(row0 + ky * g.dh * g.rp + (j * sw + kx * g.dw) * wp, xv);
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] += (uint32_t)(xv[e] * wv[e]);
       }
@@ -363,8 +390,8 @@ __global__ void __launch_bounds__(256)
 }
 
 template <bool RAW, int K, int SW, typename T>
-int launch_dw(const T* x, const int8_t* w, void* out, const Requant& rq, const DwGeo& g,
-              dim3 grid, int threads, size_t smem, cudaStream_t st) {
+int launch_dw(const T* x, const int8_t* w, void* out, const int32_t* kzp, const Requant& rq,
+              const DwGeo& g, dim3 grid, int threads, size_t smem, cudaStream_t st) {
   // once per instantiation (and so never inside a CUDA-graph capture, which
   // follows a warm-up call)
   static bool raised = false;
@@ -374,7 +401,7 @@ int launch_dw(const T* x, const int8_t* w, void* out, const Requant& rq, const D
     if (e != cudaSuccess) return (int)e;
     raised = true;
   }
-  qdwconv_kernel<RAW, K, SW, T><<<grid, threads, smem, st>>>(x, w, out, rq, g);
+  qdwconv_kernel<RAW, K, SW, T><<<grid, threads, smem, st>>>(x, w, out, kzp, rq, g);
   return (int)cudaGetLastError();
 }
 
@@ -386,9 +413,11 @@ int launch_dw(const T* x, const int8_t* w, void* out, const Requant& rq, const D
 // the window and weights above 227 KB), an izp outside T, more than
 // 2^31 output pixels, or (T = int16_t) more than DW_WIDE_TAPS taps.  With
 // RAW, `mult` and `shift` are not read; with T = int16_t, `bias` neither.
+// kzp: null, or the weights' zero point a channel.
 template <bool RAW, typename T = int8_t>
 int launch_qdwconv(const T* x, const int8_t* w, void* out, const int32_t* bias,
-                   const int32_t* mult, const int32_t* shift, const int32_t* p, void* stream) {
+                   const int32_t* mult, const int32_t* shift, const int32_t* kzp,
+                   const int32_t* p, void* stream) {
   constexpr bool WIDE = sizeof(T) == 2;
   DwGeo g;
   g.n = p[P_N];
@@ -403,6 +432,8 @@ int launch_qdwconv(const T* x, const int8_t* w, void* out, const int32_t* bias,
   g.sw = p[P_SW];
   g.pt = p[P_PT];
   g.pl = p[P_PL];
+  g.dh = p[P_DH] ? p[P_DH] : 1;
+  g.dw = p[P_DW] ? p[P_DW] : 1;
   g.izp = p[P_IZP];
   g.vec4 = p[P_A_VEC] != 0;
   g.vec16 = p[P_B_VEC] != 0;
@@ -413,21 +444,22 @@ int launch_qdwconv(const T* x, const int8_t* w, void* out, const int32_t* bias,
   const Requant rq{bias, mult, shift, p[P_RQ_IZP], p[P_OUT_ZP], p[P_QMIN], p[P_QMAX],
                    p[P_TONEAREST] != 0};
   const long long npix = (long long)g.n * g.oh * g.ow;
-  const int zmax = WIDE ? 32767 : 127;
-  if (npix >= (1LL << 31) || g.izp < -zmax - 1 || g.izp > zmax ||
+  constexpr int zlo = std::is_same_v<T, uint8_t> ? 0 : WIDE ? -32768 : -128;
+  constexpr int zhi = std::is_same_v<T, uint8_t> ? 255 : WIDE ? 32767 : 127;
+  if (npix >= (1LL << 31) || g.izp < zlo || g.izp > zhi || g.dh < 1 || g.dw < 1 ||
       (WIDE && (long long)g.kh * g.kw > DW_WIDE_TAPS))
     return (int)cudaErrorInvalidValue;
   if (npix == 0 || g.c == 0) return (int)cudaGetLastError();
   if ((g.ct != 16 && g.ct != 32 && g.ct != 48 && g.ct != 64) || g.th < 1 || g.tw < DW_R ||
       g.tw % DW_R || (g.vec16 && g.c * (int)sizeof(T) % 16))
     return (int)cudaErrorInvalidValue;
-  g.ih = (g.th - 1) * g.sh + g.kh;
-  g.iw = (g.tw - 1) * g.sw + g.kw;
+  g.ih = (g.th - 1) * g.sh + (g.kh - 1) * g.dh + 1;
+  g.iw = (g.tw - 1) * g.sw + (g.kw - 1) * g.dw + 1;
   g.tiles_y = (g.oh + g.th - 1) / g.th;
   g.tiles_x = (g.ow + g.tw - 1) / g.tw;
   const int threads = (g.ct / 4) * g.th * (g.tw / DW_R);
   const int wp = g.ct / 4 * (int)sizeof(T);  // window words a position
-  const bool k3 = g.kh == 3 && g.kw == 3 && (g.sw == 1 || g.sw == 2);
+  const bool k3 = g.kh == 3 && g.kw == 3 && (g.sw == 1 || g.sw == 2) && g.dh == 1 && g.dw == 1;
   const size_t smem =
       4 * ((size_t)g.ih * g.rp + (k3 ? 0 : (size_t)g.kh * g.kw * (g.ct / 4)));
   if (threads > 256 || g.rp < g.iw * wp || g.rp % 4 || smem > (size_t)DW_MAX_SMEM)
@@ -437,22 +469,31 @@ int launch_qdwconv(const T* x, const int8_t* w, void* out, const int32_t* bias,
   if (bx > 0x7fffffffLL || by > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)bx, (unsigned)by);
   cudaStream_t st = (cudaStream_t)stream;
-  if (k3 && g.sw == 1) return launch_dw<RAW, 3, 1, T>(x, w, out, rq, g, grid, threads, smem, st);
-  if (k3) return launch_dw<RAW, 3, 2, T>(x, w, out, rq, g, grid, threads, smem, st);
-  return launch_dw<RAW, 0, 0, T>(x, w, out, rq, g, grid, threads, smem, st);
+  if (k3 && g.sw == 1)
+    return launch_dw<RAW, 3, 1, T>(x, w, out, kzp, rq, g, grid, threads, smem, st);
+  if (k3) return launch_dw<RAW, 3, 2, T>(x, w, out, kzp, rq, g, grid, threads, smem, st);
+  return launch_dw<RAW, 0, 0, T>(x, w, out, kzp, rq, g, grid, threads, smem, st);
 }
 
 }  // namespace tk
 
+// K5's modes: x int8, or uint8 where P_A_U8 is set; kzp null or (C,).
 extern "C" int tk_qdwconv_rq(const int8_t* x, const int8_t* w, int8_t* out, const int32_t* bias,
-                             const int32_t* mult, const int32_t* shift, const int32_t* params,
-                             void* stream) {
-  return tk::launch_qdwconv<false>(x, w, out, bias, mult, shift, params, stream);
+                             const int32_t* mult, const int32_t* shift, const int32_t* kzp,
+                             const int32_t* params, void* stream) {
+  if (params[tk::P_A_U8])
+    return tk::launch_qdwconv<false, uint8_t>(reinterpret_cast<const uint8_t*>(x), w, out, bias,
+                                              mult, shift, kzp, params, stream);
+  return tk::launch_qdwconv<false>(x, w, out, bias, mult, shift, kzp, params, stream);
 }
 
 extern "C" int tk_qdwconv_raw(const int8_t* x, const int8_t* w, int32_t* out,
-                              const int32_t* bias, const int32_t* params, void* stream) {
-  return tk::launch_qdwconv<true>(x, w, out, bias, nullptr, nullptr, params, stream);
+                              const int32_t* bias, const int32_t* kzp, const int32_t* params,
+                              void* stream) {
+  if (params[tk::P_A_U8])
+    return tk::launch_qdwconv<true, uint8_t>(reinterpret_cast<const uint8_t*>(x), w, out, bias,
+                                             nullptr, nullptr, kzp, params, stream);
+  return tk::launch_qdwconv<true>(x, w, out, bias, nullptr, nullptr, kzp, params, stream);
 }
 
 // K12 qdwconv_direct: K5's requantize mode with rq_izp = 0, storing the low
@@ -465,7 +506,8 @@ extern "C" int tk_qdwconv_direct(const int8_t* x, const int8_t* w, uint8_t* out,
   int32_t p[tk::P_COUNT];
   for (int i = 0; i < tk::P_COUNT; ++i) p[i] = params[i];
   p[tk::P_RQ_IZP] = 0;
-  return tk::launch_qdwconv<false>(x, w, out, bias, mult, shift, p, stream);
+  p[tk::P_DH] = p[tk::P_DW] = 0;
+  return tk::launch_qdwconv<false>(x, w, out, bias, mult, shift, nullptr, p, stream);
 }
 
 // qdwconv_wide: int16 x (N, H, W, C), int8 w (KH, KW, 1, C) -> int64 (N, OH,
@@ -473,5 +515,9 @@ extern "C" int tk_qdwconv_direct(const int8_t* x, const int8_t* w, uint8_t* out,
 // most DW_WIDE_TAPS taps.
 extern "C" int tk_qdwconv_wide(const int16_t* x, const int8_t* w, int64_t* out,
                                const int32_t* params, void* stream) {
-  return tk::launch_qdwconv<true, int16_t>(x, w, out, nullptr, nullptr, nullptr, params, stream);
+  int32_t p[tk::P_COUNT];
+  for (int i = 0; i < tk::P_COUNT; ++i) p[i] = params[i];
+  p[tk::P_DH] = p[tk::P_DW] = 0;
+  return tk::launch_qdwconv<true, int16_t>(x, w, out, nullptr, nullptr, nullptr, nullptr, p,
+                                           stream);
 }

@@ -57,6 +57,16 @@
 // Integer sums wrap alike in any order, so every split gives the same
 // integers on every run.
 //
+// Legacy uint8 models: x may be uint8 (P_A_U8: the tiled path's .u8 A
+// operand, the skinny path's .u8 B operand of mma.sync) and the weights may
+// have a zero point a column (kzp, not null); each path takes kzp[n] times
+// the row sums of the x it staged off its sums (the tiled path as
+// igemm_hopper.cuh says; the skinny path with one more mma a product,
+// against ones), a split its own steps' part, each path in an
+// instantiation of its own (LEG), so the int8 loops stay as they were.  The
+// wrapper folds -izp colsum(w) + K izp kzp[n] into the bias.  A uint8 output
+// is the same bytes at qmin 0, qmax 255.
+//
 // K1's batched mode (tk_qbmm_rq, tk_qbmm_raw) is a kernel of its own:
 // qbmm_hopper.cu.
 #include "igemm_hopper.cuh"
@@ -81,7 +91,18 @@ constexpr int MAX_M = 64;          // matmul_int8.py SKINNY_M
 struct Geo {
   int M, K, N, steps, kper;
   bool x16, x8;  // x copied 16 (K % 16 == 0) or 8 (K % 8 == 0) bytes at a time, else by bytes
+  bool x_u8;     // x is uint8: mma.sync's .u8 B operand
 };
+
+// mma_s8 (qgemm.cuh) with a uint8 B operand.
+__device__ __forceinline__ void mma_s8u8(int32_t (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 template <int MT>
 __host__ __device__ constexpr int stage_bytes() {
@@ -131,12 +152,17 @@ __device__ __forceinline__ void stage(int8_t* st, const int8_t* __restrict__ x,
 // channels n0 + 16 w .. + 15; lane (gid, tig) = (lane / 4, lane % 4) holds
 // acc[mt] = channels (gid, gid + 8) x rows 8 mt + 2 tig + (0, 1).  `out` is
 // int8 (K1), or int32 with RAW (K4: mult, shift, ws and rq are not read).
-template <int MT, bool RAW>
+// LEG: the instantiation for legacy operands (uint8 x, kzp), so the int8
+// loop stays as it was; kzp, where not null, the weights' zero point a
+// channel (rs[mt] then holds the row sums of x at acc[mt]'s rows, from
+// products against ones).
+template <int MT, bool RAW, bool LEG>
 __global__ void __launch_bounds__(NT)
     qgemm_skinny(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
                  void* __restrict__ out, const int32_t* __restrict__ bias,
                  const int32_t* __restrict__ mult, const int32_t* __restrict__ shift,
-                 int32_t* __restrict__ ws, epi::RqConst rq, int32_t rq_izp, Geo g) {
+                 int32_t* __restrict__ ws, const int32_t* __restrict__ kzp, epi::RqConst rq,
+                 int32_t rq_izp, Geo g) {
   constexpr int ST = stage_bytes<MT>();
   extern __shared__ __align__(128) int8_t smem[];
   int4* const colc = reinterpret_cast<int4*>(smem + SK_STAGES * ST);
@@ -168,9 +194,12 @@ __global__ void __launch_bounds__(NT)
     }
   }
 
-  int32_t acc[MT][4];
+  int32_t acc[MT][4], rs[MT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[mt][e] = rs[mt][e] = 0;
+  const uint32_t ones[4] = {0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u};
   const int w_off = (16 * warp + gid) * KSTEP + 16 * tig;  // a lane's 16 bytes of its row
   const int x_off = SK_BN * KSTEP + gid * KSTEP + 16 * tig;
   for (int it = 0; it < nst; ++it) {
@@ -187,13 +216,39 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       const uint4 xv = *reinterpret_cast<const uint4*>(st + x_off + mt * 8 * KSTEP);
-      mma_s8(acc[mt], a0, xv.x, xv.y);
-      mma_s8(acc[mt], a1, xv.z, xv.w);
+      if (!LEG) {
+        mma_s8(acc[mt], a0, xv.x, xv.y);
+        mma_s8(acc[mt], a1, xv.z, xv.w);
+      } else if (g.x_u8) {
+        mma_s8u8(acc[mt], a0, xv.x, xv.y);
+        mma_s8u8(acc[mt], a1, xv.z, xv.w);
+        if (kzp != nullptr) {
+          mma_s8u8(rs[mt], ones, xv.x, xv.y);
+          mma_s8u8(rs[mt], ones, xv.z, xv.w);
+        }
+      } else {
+        mma_s8(acc[mt], a0, xv.x, xv.y);
+        mma_s8(acc[mt], a1, xv.z, xv.w);
+        if (kzp != nullptr) {
+          mma_s8(rs[mt], ones, xv.x, xv.y);
+          mma_s8(rs[mt], ones, xv.z, xv.w);
+        }
+      }
     }
   }
 
   // element e of acc[mt]: channel n0 + 16 warp + gid + 8 (e >> 1), row 8 mt + 2 tig + (e & 1)
   const int cl = 16 * warp + gid;
+  if (LEG && kzp != nullptr) {  // this split's part of -kzp[n] S[m], in int32 wraparound
+    int32_t z[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) z[h] = n0 + cl + 8 * h < g.N ? kzp[n0 + cl + 8 * h] : 0;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[mt][e] = wrap_sub(acc[mt][e], (int32_t)((uint32_t)z[e >> 1] * (uint32_t)rs[mt][e]));
+  }
   if constexpr (RAW) {  // acc + bias stored, or with a split added into the zeroed output
     if (!QG_EPILOGUE) return;
     int32_t* const o32 = static_cast<int32_t*>(out);
@@ -248,21 +303,22 @@ __global__ void __launch_bounds__(NT)
     }
 }
 
-template <int MT, bool RAW>
+template <int MT, bool RAW, bool LEG>
 int launch_mt(const int8_t* x, const int8_t* wk, void* out, const int32_t* bias,
-              const int32_t* mult, const int32_t* shift, int32_t* ws, const epi::RqConst& rq,
-              int32_t rq_izp, const Geo& g, int ks, cudaStream_t stream) {
+              const int32_t* mult, const int32_t* shift, int32_t* ws, const int32_t* kzp,
+              const epi::RqConst& rq, int32_t rq_izp, const Geo& g, int ks,
+              cudaStream_t stream) {
   constexpr size_t smem = SK_STAGES * stage_bytes<MT>() + SK_BN * 16 + 16;
   static bool raised = false;  // once per instantiation, before any graph capture
   if (!raised) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qgemm_skinny<MT, RAW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        qgemm_skinny<MT, RAW, LEG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     raised = true;
   }
   const dim3 grid((g.N + SK_BN - 1) / SK_BN, ks);
-  qgemm_skinny<MT, RAW>
-      <<<grid, NT, smem, stream>>>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g);
+  qgemm_skinny<MT, RAW, LEG>
+      <<<grid, NT, smem, stream>>>(x, wk, out, bias, mult, shift, ws, kzp, rq, rq_izp, g);
   return (int)cudaGetLastError();
 }
 
@@ -271,8 +327,8 @@ int launch_mt(const int8_t* x, const int8_t* wk, void* out, const int32_t* bias,
 // (RAW) adds into `out`, which the caller zeroed.
 template <bool RAW>
 int launch(const int8_t* x, const int8_t* wk, void* out, const int32_t* bias,
-           const int32_t* mult, const int32_t* shift, int32_t* ws, const int32_t* p,
-           cudaStream_t s) {
+           const int32_t* mult, const int32_t* shift, int32_t* ws, const int32_t* kzp,
+           const int32_t* p, cudaStream_t s) {
   Geo g;
   g.M = p[P_N];
   g.K = p[P_CIN];
@@ -282,16 +338,23 @@ int launch(const int8_t* x, const int8_t* wk, void* out, const int32_t* bias,
   const int ks = p[P_KS];
   g.x16 = p[P_A_VEC] != 0 && g.K % 16 == 0;
   g.x8 = p[P_B_VEC] != 0 && g.K % 8 == 0;
+  g.x_u8 = p[P_A_U8] != 0;
   if (g.M > MAX_M || ks < 1 || g.kper < 1 || (long long)ks * g.kper < g.steps ||
       (ks - 1) * g.kper >= g.steps || ks > 65535 || (!RAW && ks > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   if (g.M <= 0 || g.N <= 0) return (int)cudaGetLastError();
   const epi::RqConst rq{p[P_OUT_ZP], p[P_QMIN], p[P_QMAX], p[P_TONEAREST] != 0};
   const int rq_izp = p[P_RQ_IZP];
-  if (g.M <= 8) return launch_mt<1, RAW>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
-  if (g.M <= 16) return launch_mt<2, RAW>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
-  if (g.M <= 32) return launch_mt<4, RAW>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
-  return launch_mt<8, RAW>(x, wk, out, bias, mult, shift, ws, rq, rq_izp, g, ks, s);
+  const bool leg = g.x_u8 || kzp != nullptr;  // legacy operands: their own instantiation
+#define TK_MT(MT) (leg ? launch_mt<MT, RAW, true>(x, wk, out, bias, mult, shift, ws, kzp, rq,   \
+                                                  rq_izp, g, ks, s)                             \
+                       : launch_mt<MT, RAW, false>(x, wk, out, bias, mult, shift, ws, nullptr, \
+                                                   rq, rq_izp, g, ks, s))
+  if (g.M <= 8) return TK_MT(1);
+  if (g.M <= 16) return TK_MT(2);
+  if (g.M <= 32) return TK_MT(4);
+  return TK_MT(8);
+#undef TK_MT
 }
 
 }  // namespace skinny
@@ -316,32 +379,34 @@ inline bool tiled_geo(const int32_t* p, const void* out, igemm::Geo& g) {
 // counter a tile ((BM, BN) tiles on the tiled path, N / 64 on the skinny
 // one), zeroed by the caller.  P_A_VEC: x may be copied 16 bytes at a time
 // (K % 16 == 0, 16-byte aligned); P_B_VEC: 8 bytes (K % 8 == 0, 8-byte
-// aligned).  Returns cudaGetLastError() (cudaErrorInvalidValue for a path,
+// aligned).  P_A_U8: x is uint8; kzp, where not null, the weights' zero
+// point a column.  Returns cudaGetLastError() (cudaErrorInvalidValue for a path,
 // tile or split the kernel does not take).
 extern "C" int tk_qgemm_rq(const int8_t* x, const int8_t* wk, int8_t* out, const int32_t* bias,
                            const int32_t* mult, const int32_t* shift, int32_t* ws,
-                           const int32_t* p, void* stream) {
-  using namespace tk;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (p[P_QG_PATH] == 1) return skinny::launch<false>(x, wk, out, bias, mult, shift, ws, p, s);
-  igemm::Geo g;
-  if (!tiled_geo(p, out, g) || (p[P_KS] > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  return igemm::launch_tiled<igemm::RQ>(x, wk, out, nullptr, bias, mult, shift, ws,
-                                        igemm::make_epi(p), g, p[P_KS], p, s);
-}
-
-// K4's GEMM mode.  wk, the paths, tiles and splits as K1's; with P_KS > 1
-// the splits add into `out`, which the caller zeroed, and split 0 adds the
-// bias.  Returns cudaGetLastError() (cudaErrorInvalidValue for a path, tile
-// or split the kernel does not take).
-extern "C" int tk_qgemm_raw(const int8_t* x, const int8_t* wk, int32_t* out, const int32_t* bias,
-                            const int32_t* p, void* stream) {
+                           const int32_t* kzp, const int32_t* p, void* stream) {
   using namespace tk;
   const cudaStream_t s = (cudaStream_t)stream;
   if (p[P_QG_PATH] == 1)
-    return skinny::launch<true>(x, wk, out, bias, nullptr, nullptr, nullptr, p, s);
+    return skinny::launch<false>(x, wk, out, bias, mult, shift, ws, kzp, p, s);
+  igemm::Geo g;
+  if (!tiled_geo(p, out, g) || (p[P_KS] > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  return igemm::launch_tiled<igemm::RQ>(x, wk, out, nullptr, bias, mult, shift, ws, kzp,
+                                        igemm::make_epi(p), g, p[P_KS], p, s);
+}
+
+// K4's GEMM mode.  wk, the paths, tiles, splits, P_A_U8 and kzp as K1's;
+// with P_KS > 1 the splits add into `out`, which the caller zeroed, and split
+// 0 adds the bias.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
+// path, tile or split the kernel does not take).
+extern "C" int tk_qgemm_raw(const int8_t* x, const int8_t* wk, int32_t* out, const int32_t* bias,
+                            const int32_t* kzp, const int32_t* p, void* stream) {
+  using namespace tk;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (p[P_QG_PATH] == 1)
+    return skinny::launch<true>(x, wk, out, bias, nullptr, nullptr, nullptr, kzp, p, s);
   igemm::Geo g;
   if (!tiled_geo(p, out, g)) return (int)cudaErrorInvalidValue;
   return igemm::launch_tiled<igemm::RAW>(x, wk, out, nullptr, bias, nullptr, nullptr, nullptr,
-                                         igemm::Epi{}, g, p[P_KS], p, s);
+                                         kzp, igemm::Epi{}, g, p[P_KS], p, s);
 }

@@ -45,7 +45,7 @@ PARAMS = (
     "fa_w", "fa_dq", "fa_dv", "fa_cs", "fa_kg", "fa_vec", "dw_rp",
     "fa_stages", "fa_bk", "qg_path",
     "bmm_nb", "bmm_nb1", "a_mode", "b_mode", "a_sb0", "a_sb1", "a_sm", "a_sk", "b_sb0", "b_sb1",
-    "b_sn", "b_sk", "bmm_za", "bmm_zb", "bmm_path", "dh", "dw", "cspan",
+    "b_sn", "b_sk", "bmm_za", "bmm_zb", "bmm_path", "dh", "dw", "cspan", "a_u8",
 )
 
 # The block tiles (BM, BN) that the tiled paths of K1 and K4's GEMM mode, K2,
@@ -82,10 +82,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # source -> (C entry, number of tensor pointers it takes)
 SOURCES = {
-    "qgemm_rq.cu": (("tk_qgemm_rq", 7), ("tk_qgemm_raw", 4)),
+    "qgemm_rq.cu": (("tk_qgemm_rq", 8), ("tk_qgemm_raw", 5)),
     "qbmm_hopper.cu": (("tk_qbmm_rq", 6), ("tk_qbmm_raw", 4)),
-    "qconv_igemm_hopper.cu": (("tk_qconv_rq", 7), ("tk_qconv_rq_res", 7), ("tk_qconv_raw", 4)),
-    "qdwconv.cu": (("tk_qdwconv_rq", 6), ("tk_qdwconv_raw", 4), ("tk_qdwconv_direct", 6),
+    "qconv_igemm_hopper.cu": (("tk_qconv_rq", 8), ("tk_qconv_rq_res", 7), ("tk_qconv_raw", 5)),
+    "qdwconv.cu": (("tk_qdwconv_rq", 7), ("tk_qdwconv_raw", 5), ("tk_qdwconv_direct", 6),
                    ("tk_qdwconv_wide", 3)),
     "flash_attn.cu": (("tk_flash_attn", 4),),
     "qconv_layouts.cu": (("tk_qconv_rq_s", 6), ("tk_qconv_rq_r", 6)),
@@ -176,7 +176,8 @@ def float32_bits(x: float) -> int:
 
 def launch(name: str, tensors, params: dict) -> None:
     """Call C entry `name` on the current stream of the tensors' device and
-    raise if the launch failed."""
+    raise if the launch failed; a None among `tensors` passes a null
+    pointer (an operand the call does not have: K1-K5's kzp)."""
     unknown = set(params) - set(PARAMS)
     if unknown:
         raise KeyError(f"unknown kernel parameters {sorted(unknown)}")
@@ -185,7 +186,8 @@ def launch(name: str, tensors, params: dict) -> None:
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in tensors), ctypes.addressof(arr), stream)
+        rc = fn(*(None if t is None else t.data_ptr() for t in tensors), ctypes.addressof(arr),
+                stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
@@ -206,6 +208,29 @@ def check_cuda_operands(kernel: str, device: torch.device, contiguous: bool = Tr
             raise ValueError(f"{kernel}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{kernel}: {key} must be contiguous")
+
+
+LEGACY_ITEM = ("ROADMAP Queue 1 item 2: legacy uint8 operands (uint8 data, a weight zero "
+               "point, a uint8 output) run on K1, K2, K4 and K5 alone")
+
+
+def refuse_uint8(kernel: str, *xs) -> None:
+    """NotImplementedError, naming LEGACY_ITEM, where any of `xs` is uint8:
+    the kernels other than K1, K2, K4 and K5 take no legacy uint8 data."""
+    if any(isinstance(x, torch.Tensor) and x.dtype == torch.uint8 for x in xs):
+        raise NotImplementedError(f"{kernel}: uint8 data ({LEGACY_ITEM})")
+
+
+def check_fill(kernel: str, x: torch.Tensor, izp: int, padding, always: bool = False) -> None:
+    """NotImplementedError where the input zero point is not a value of x's
+    dtype and the kernel would fill a border with it (K2 / K4 where there
+    is padding; K5, whose window is filled at every tile's edge, always):
+    the kernels stage the border as izp's byte."""
+    lo, hi = (0, 255) if x.dtype == torch.uint8 else (-128, 127)
+    if (always or any(padding)) and not lo <= int(izp) <= hi:
+        raise NotImplementedError(f"{kernel}: input zero point {izp} pads a {x.dtype} image: "
+                                  "the kernels fill the border with its byte (ROADMAP Queue 1 "
+                                  "item 2)")
 
 
 def pack_once(cache: dict, w: torch.Tensor, make) -> torch.Tensor:

@@ -28,6 +28,13 @@ the conv entries of the int8 path (port of
     and run a grouped conv as one dense conv a super-group of its groups
     (`group_span`), its weights expanded block-diagonally (`grouped_weights`);
     they read no K7-K10 layout.
+  * Legacy uint8 models (TF1's quantization-aware converter): uint8 data,
+    weights with a nonzero zero point (uint8 ones arrive as int8 w - 128,
+    `legacy_weights`) and uint8 outputs run on K1 (1x1), K5 (depthwise) or
+    K2 / K4, which read the data unsigned and take kzp[n] times the row
+    sums of the staged data off their sums (`csrc/igemm_hopper.cuh`); like
+    a dilated conv they read no layout and no database record.  Any other
+    kernel refuses them (NotImplementedError, ROADMAP Queue 1 item 2).
   * `qconv2d_flat_chain` / `qconv2d_flat_block_stack` run a chain or a stack
     of residual blocks stage by stage: the last stage of each residual block
     launches K3, the others K1 (1x1) or K2.
@@ -51,16 +58,19 @@ from __future__ import annotations
 import torch
 
 from ...tune.database import lookup_config
-from ._lib import (BK, DEFAULT_BLOCKS, LAUNCHES, TILES, check_cuda_operands, compiled_blocks,
-                   launch, pack_once, sm_count, tile_params)
+from ._lib import (BK, DEFAULT_BLOCKS, LAUNCHES, LEGACY_ITEM, TILES, check_cuda_operands,
+                   check_fill, compiled_blocks, launch, pack_once, refuse_uint8, sm_count,
+                   tile_params)
 from .conv_layouts import LAYOUTS, layout_fits, qconv_rq_r, qconv_rq_s, qconv_rq_t, qconv_rq_w
 from .depthwise import qdwconv_raw, qdwconv_rq
 # the body's plan and weight packing, shared with K1's tiled path
 from .matmul_int8 import (_KMAJOR, _TONEAREST, KSTEP, RQ_FILL, RQ_MIN_STEPS,  # noqa: F401
-                          RQ_UNSPLIT_STEPS, RQ_WIDE_FILL, as_int8, as_int32_vector,
-                          fold_input_zero_point, kmajor_pack, kmajor_weights, qgemm_raw_tuned,
-                          qgemm_rq_tuned, rq_split, rq_tile)
-from .requantize import channel_vector, epilogue_plain, plan_res_add, res_add_plain
+                          RQ_UNSPLIT_STEPS, RQ_WIDE_FILL, as_int8, as_int32_vector, as_weight,
+                          check_data, fold_input_zero_point, kmajor_pack, kmajor_weights,
+                          legacy_weights, less_kzp, qgemm_raw_tuned, qgemm_rq_tuned, rq_split,
+                          rq_tile)
+from .requantize import (channel_vector, epilogue_plain, out_torch_dtype, plan_res_add,
+                         res_add_plain)
 
 
 def flat_conv_workload(n, h, w, cin, cout, kh, kw, strides, fuse, groups: int = 1,
@@ -105,18 +115,22 @@ def _out_hw(x_shape, w_shape, strides, padding, dilation=(1, 1)):
             (wd + pl + pr - (kw - 1) * dw - 1) // sw + 1)
 
 
-def conv_acc_plain(x, w, strides, padding, izp, dilation=(1, 1), groups=1) -> torch.Tensor:
-    """int32 accumulator of qnn.conv2d, sum (x_pad - izp) * w with the border
-    padded by izp, in float64 (exact, see `exact_int_matmul`)."""
-    return conv_acc_exact(x, w, strides, padding, izp, dilation, groups).to(torch.int32)
+def conv_acc_plain(x, w, strides, padding, izp, dilation=(1, 1), groups=1,
+                   kzp=None) -> torch.Tensor:
+    """int32 accumulator of qnn.conv2d, sum (x_pad - izp) * (w - kzp) with the
+    border padded by izp, in float64 (exact, see `exact_int_matmul`)."""
+    return conv_acc_exact(x, w, strides, padding, izp, dilation, groups, kzp).to(torch.int32)
 
 
-def conv_acc_exact(x, w, strides, padding, izp, dilation=(1, 1), groups=1) -> torch.Tensor:
+def conv_acc_exact(x, w, strides, padding, izp, dilation=(1, 1), groups=1,
+                   kzp=None) -> torch.Tensor:
     """`conv_acc_plain`'s sum in int64: exact while every partial sum stays
-    below 2^53 (int8 or int16 x, int8 w).  w is (KH, KW, CIN / groups, COUT),
-    group g's outputs COUT / groups channels from g * COUT / groups on."""
+    below 2^53 (int8, uint8 or int16 x, int8 w, less kzp: None or int32
+    (COUT,)).  w is (KH, KW, CIN / groups, COUT), group g's outputs COUT /
+    groups channels from g * COUT / groups on."""
     n = x.shape[0]
     kh, kw, cin, cout = w.shape
+    w = less_kzp(w, kzp)
     sh, sw = strides
     pt, pl, pb, pr = padding
     xp = torch.nn.functional.pad(x.to(torch.float64) - float(izp), (0, 0, pl, pr, pt, pb))
@@ -211,17 +225,20 @@ def _conv_params(x, w, out, strides, padding, izp, rq_izp, out_zp, rounding, qmi
                 qmax=qmax, tonearest=_TONEAREST[rounding],
                 a_vec=cin % 16 == 0 and a_span % 16 == 0 and x.data_ptr() % 16 == 0,
                 b_vec=cout % 4 == 0 and w.data_ptr() % 4 == 0, dh=dilation[0],
-                dw=dilation[1], cspan=cspan)
+                dw=dilation[1], cspan=cspan, a_u8=x.dtype == torch.uint8)
 
 
-def _check_conv(kernel, x, w, bias, mult, shift, out_shape, residual=None, groups=1):
+def _check_conv(kernel, x, w, bias, mult, shift, out_shape, residual=None, groups=1, kzp=None):
     i32 = torch.int32
     kh, kw, cin, cout = w.shape
     if groups < 1 or cout % groups:
         raise ValueError(f"{kernel}: groups {groups} do not divide COUT {cout}")
-    ops = dict(x=(x, torch.int8, (*x.shape[:3], cin * groups)),
+    x_dtype = x.dtype if x.dtype in (torch.int8, torch.uint8) and residual is None else torch.int8
+    ops = dict(x=(x, x_dtype, (*x.shape[:3], cin * groups)),
                w=(w, torch.int8, (kh, kw, cin, cout)),
                bias=(bias, i32, (cout,)), mult=(mult, i32, (cout,)), shift=(shift, i32, (cout,)))
+    if kzp is not None:
+        ops["kzp"] = (kzp, i32, (cout,))
     if residual is not None:
         ops["residual"] = (residual, torch.int8, out_shape)
     check_cuda_operands(kernel, x.device, **ops)
@@ -231,34 +248,49 @@ def _check_conv(kernel, x, w, bias, mult, shift, out_shape, residual=None, group
 
 def qconv_rq_plain(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0),
                    izp=0, rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127,
-                   blocks=None, dilation=(1, 1), groups=1):
+                   blocks=None, dilation=(1, 1), groups=1, kzp=None, out_dtype="int8"):
     """Plain PyTorch version of K2 (`blocks` is the kernel's tile: no effect)."""
-    acc = conv_acc_plain(x, w, strides, padding, izp, dilation, groups)
-    return epilogue_plain(acc, bias, mult, shift, rq_izp, out_zp, rounding, qmin, qmax)
+    acc = conv_acc_plain(x, w, strides, padding, izp, dilation, groups, kzp)
+    return epilogue_plain(acc, bias, mult, shift, rq_izp, out_zp, rounding, qmin, qmax,
+                          out_dtype)
+
+
+def _grouped_kzp(kernel: str, groups: int, kzp) -> None:
+    """A grouped conv with a weight zero point raises: K2 / K4 run it as a
+    dense conv of a super-group, whose row sums span its other groups'
+    channels too."""
+    if groups != 1 and kzp is not None:
+        raise NotImplementedError(f"{kernel}: a grouped conv with a weight zero point is not "
+                                  f"ported ({LEGACY_ITEM})")
 
 
 def qconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0,
              rq_izp=0, out_zp=0, rounding="UPWARD", qmin=-128, qmax=127,
-             blocks=None, dilation=(1, 1), groups=1) -> torch.Tensor:
-    """K2: x int8 NHWC, w int8 HWIO (KH, KW, CIN / groups, COUT), bias /
-    mult / shift int32 (COUT,); padding (top, left, bottom, right); dilation
-    (dh, dw); blocks (BM, BN, 64) a compiled tile, None for `rq_tile`'s ->
-    int8 NHWC.  K is split as `rq_split` says; a grouped conv runs a super-group
-    of `group_span` groups as one dense conv."""
+             blocks=None, dilation=(1, 1), groups=1, kzp=None, out_dtype="int8") -> torch.Tensor:
+    """K2: x int8 or uint8 NHWC, w int8 HWIO (KH, KW, CIN / groups, COUT),
+    bias / mult / shift int32 (COUT,); kzp None or the weights' zero point,
+    int32 (COUT,) (an undilated or dilated dense conv); padding (top, left,
+    bottom, right); dilation (dh, dw); blocks (BM, BN, 64) a compiled tile,
+    None for `rq_tile`'s -> int8 (or uint8, `out_dtype`) NHWC.  K is split
+    as `rq_split` says; a grouped conv runs a super-group of `group_span`
+    groups as one dense conv."""
     dilation = tuple(dilation)
     kw = dict(strides=strides, padding=padding, izp=izp, rq_izp=rq_izp, out_zp=out_zp,
-              rounding=rounding, qmin=qmin, qmax=qmax, dilation=dilation, groups=groups)
+              rounding=rounding, qmin=qmin, qmax=qmax, dilation=dilation, groups=groups,
+              kzp=kzp, out_dtype=out_dtype)
     if blocks is not None:
         tile_params(blocks)  # a tile that is not built raises on every device
+    _grouped_kzp("qconv_rq", groups, kzp)
+    check_fill("qconv_rq", x, izp, padding)
     if x.device.type == "cpu":
         return qconv_rq_plain(x, w, bias, mult, shift, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"qconv_rq: no kernel for device {x.device}")
     oh, ow = _out_hw(x.shape, w.shape, strides, padding, dilation)
     out_shape = (x.shape[0], oh, ow, w.shape[3])
-    _check_conv("qconv_rq", x, w, bias, mult, shift, out_shape, groups=groups)
-    out = torch.empty(out_shape, dtype=torch.int8, device=x.device)
-    bias = fold_input_zero_point(bias, w, izp)
+    _check_conv("qconv_rq", x, w, bias, mult, shift, out_shape, groups=groups, kzp=kzp)
+    out = torch.empty(out_shape, dtype=out_torch_dtype(out_dtype), device=x.device)
+    bias = fold_input_zero_point(bias, w, izp, kzp)
     (bm, bn), ks, kper = rq_launch(tuple(x.shape), tuple(w.shape), strides, padding, blocks,
                                    sm_count(x.device.index), dilation, groups)
     span = _geometry(tuple(x.shape), tuple(w.shape), bn, groups)[1]
@@ -267,7 +299,7 @@ def qconv_rq(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0), i
     # tile); unsplit, the kernel reads no workspace
     ws = (torch.zeros(m * cout + -(-m // bm) * -(-cout // bn), dtype=torch.int32,
                       device=x.device) if ks > 1 else out)
-    launch("tk_qconv_rq", [x, _packed(w, groups, span), out, bias, mult, shift, ws],
+    launch("tk_qconv_rq", [x, _packed(w, groups, span), out, bias, mult, shift, ws, kzp],
            _conv_params(x, w, out, strides, padding, izp, rq_izp, out_zp, rounding, qmin, qmax,
                         dilation, span * w.shape[2])
            | dict(bm=bm, bn=bn, ks=ks, kper=kper))
@@ -320,32 +352,37 @@ def rq_launch(x_shape, w_shape, strides, padding, blocks=None, sms: int = 132,
 
 
 def qconv_raw_plain(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0),
-                    izp=0, dilation=(1, 1), groups=1) -> torch.Tensor:
+                    izp=0, dilation=(1, 1), groups=1, kzp=None) -> torch.Tensor:
     """Plain PyTorch version of K4's conv mode."""
-    acc = conv_acc_plain(x, w, strides, padding, izp, dilation, groups)
+    acc = conv_acc_plain(x, w, strides, padding, izp, dilation, groups, kzp)
     return (acc.to(torch.int64) + bias.to(torch.int64)).to(torch.int32)
 
 
 def qconv_raw(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0, dilation=(1, 1),
-              groups=1) -> torch.Tensor:
+              groups=1, kzp=None) -> torch.Tensor:
     """K4, conv mode: the int32 accumulator of qnn.conv2d, sum (x_pad - izp) *
-    w, plus bias in int32 wraparound.  x int8 NHWC, w int8 HWIO (KH, KW,
-    CIN / groups, COUT), bias int32 (COUT,); padding (top, left, bottom,
-    right); dilation (dh, dw) -> int32 NHWC.  A grouped conv runs as K2's
-    does, at the 64-column tile."""
+    (w - kzp), plus bias in int32 wraparound.  x int8 or uint8 NHWC, w int8
+    HWIO (KH, KW, CIN / groups, COUT), bias int32 (COUT,), kzp as K2's;
+    padding (top, left, bottom, right); dilation (dh, dw) -> int32 NHWC.  A
+    grouped conv runs as K2's does, at the 64-column tile."""
     dilation = tuple(dilation)
+    _grouped_kzp("qconv_raw", groups, kzp)
+    check_fill("qconv_raw", x, izp, padding)
     if x.device.type == "cpu":
         return qconv_raw_plain(x, w, bias, strides=strides, padding=padding, izp=izp,
-                               dilation=dilation, groups=groups)
+                               dilation=dilation, groups=groups, kzp=kzp)
     if x.device.type != "cuda":
         raise ValueError(f"qconv_raw: no kernel for device {x.device}")
     oh, ow = _out_hw(x.shape, w.shape, strides, padding, dilation)
     kh, kw, cin, cout = w.shape
     if groups < 1 or cout % groups:
         raise ValueError(f"qconv_raw: groups {groups} do not divide COUT {cout}")
-    check_cuda_operands("qconv_raw", x.device, x=(x, torch.int8, (*x.shape[:3], cin * groups)),
+    check_cuda_operands("qconv_raw", x.device,
+                        x=(x, x.dtype if x.dtype == torch.uint8 else torch.int8,
+                           (*x.shape[:3], cin * groups)),
                         w=(w, torch.int8, (kh, kw, cin, cout)),
-                        bias=(bias, torch.int32, (cout,)))
+                        bias=(bias, torch.int32, (cout,)),
+                        **({} if kzp is None else {"kzp": (kzp, torch.int32, (cout,))}))
     if x.ndim != 4 or min(oh, ow) <= 0:
         raise ValueError(f"qconv_raw: bad geometry {tuple(x.shape)} * {tuple(w.shape)}")
     k, span = _geometry(tuple(x.shape), tuple(w.shape), RAW_TILE[1], groups)
@@ -353,8 +390,8 @@ def qconv_raw(x, w, bias, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0, dilati
     # a split adds its partial sums into zeros
     out = (torch.zeros if ks > 1 else torch.empty)((x.shape[0], oh, ow, cout),
                                                    dtype=torch.int32, device=x.device)
-    bias = fold_input_zero_point(bias, w, izp)
-    launch("tk_qconv_raw", [x, _packed(w, groups, span), out, bias],
+    bias = fold_input_zero_point(bias, w, izp, kzp)
+    launch("tk_qconv_raw", [x, _packed(w, groups, span), out, bias, kzp],
            _conv_params(x, w, out, strides, padding, izp, 0, 0, "UPWARD", 0, 0, dilation,
                         span * cin)
            | dict(ks=ks, kper=kper))
@@ -380,6 +417,7 @@ def qconv_rq_res(x, w, bias, mult, shift, residual, res_params: dict, *,
     kw = dict(padding=padding, izp=izp, rq_izp=rq_izp, out_zp=out_zp, rounding=rounding,
               qmin=qmin, qmax=qmax)
     tile = tile_params(blocks)
+    refuse_uint8("qconv_rq_res", x, residual)
     if x.device.type == "cpu":
         return qconv_rq_res_plain(x, w, bias, mult, shift, residual, res_params, **kw)
     if x.device.type != "cuda":
@@ -406,13 +444,14 @@ def qconv_rq_res(x, w, bias, mult, shift, residual, res_params: dict, *,
 # ---------------------------------------------------------------------------
 
 def _conv1x1_matmul(x, w, bias, mult, shift, strides, padding, izp, rq_izp, out_zp,
-                    rounding, qmin, qmax, blocks=None):
+                    rounding, qmin, qmax, blocks=None, kzp=None, out_dtype="int8"):
     """1x1 conv == GEMM on K1 (on K4's GEMM mode when `mult` is None);
     padding (with izp) and stride subsample first.  The tile: `blocks`, else
     the database's record for the GEMM's workload (`qgemm_rq_tuned`,
     `qgemm_raw_tuned`).  The GEMM packs the stable 4-D weight (`w_src`), not
     the view made here."""
     pt, pl, pb, pr = padding
+    check_fill("qconv2d_flat", x, izp, padding)
     if any(padding):
         x = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb), value=int(izp))
     if tuple(strides) != (1, 1):
@@ -420,12 +459,13 @@ def _conv1x1_matmul(x, w, bias, mult, shift, strides, padding, izp, rq_izp, out_
     n, oh, ow, cin = x.shape
     cout = w.shape[-1]
     x2, w2 = x.reshape(n * oh * ow, cin).contiguous(), w.reshape(cin, cout)
-    bias = fold_input_zero_point(bias, w, izp)
+    bias = fold_input_zero_point(bias, w, izp, kzp)
     if mult is None:
-        out = qgemm_raw_tuned(x2, w2, bias, blocks=blocks, w_src=w)
+        out = qgemm_raw_tuned(x2, w2, bias, blocks=blocks, w_src=w, kzp=kzp)
     else:
         out = qgemm_rq_tuned(x2, w2, bias, mult, shift, rq_izp=rq_izp, out_zp=out_zp,
-                             rounding=rounding, qmin=qmin, qmax=qmax, blocks=blocks, w_src=w)
+                             rounding=rounding, qmin=qmin, qmax=qmax, blocks=blocks, w_src=w,
+                             kzp=kzp, out_dtype=out_dtype)
     return out.reshape(n, oh, ow, cout)
 
 
@@ -470,18 +510,22 @@ def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1)
                  rq_input_zero_point: int = 0, out_zp: int = 0, rounding: str = "UPWARD",
                  out_dtype: str = "int8", qmin: int = -128, qmax: int = 127,
                  blocks: tuple | None = None, layout: str | None = None,
-                 dilation=(1, 1)):
-    """NHWC int8 conv with the fused exact requantize: x (N,H,W,CIN) int8,
-    w (KH,KW,CIN/groups,COUT) int8, any groups dividing CIN and COUT;
-    1x1 -> K1, depthwise -> K5, any other size -> K2 or, by `layout` ("t",
-    "s", "w", "r"), K7-K10, at the tile `blocks` (BM, BN, 64).  blocks None
-    reads the tuning database (the record's layout too, unless `layout` is
-    given); explicit bad blocks or layouts raise ValueError.  1x1 convs ignore
+                 dilation=(1, 1), kernel_zero_point=0):
+    """NHWC conv with the fused exact requantize: x (N,H,W,CIN) int8 or
+    uint8, w (KH,KW,CIN/groups,COUT) int8 or uint8 with its zero point
+    `kernel_zero_point` (a scalar or per-channel), any groups dividing CIN
+    and COUT; 1x1 -> K1, depthwise -> K5, any other size -> K2 or, by
+    `layout` ("t", "s", "w", "r"), K7-K10, at the tile `blocks` (BM, BN,
+    64); the output int8 or uint8 (`out_dtype`).  blocks None reads the
+    tuning database (the record's layout too, unless `layout` is given);
+    explicit bad blocks or layouts raise ValueError.  1x1 convs ignore
     `blocks` and `layout` (their GEMM reads its own record), as the JAX
     package's entry does.  A dilated conv (but a 1x1, whose dilation is a
-    no-op) or a grouped one other than depthwise runs on K2 and ignores
-    `layout`; a dilated depthwise conv is not ported.  Without a multiplier:
-    the int32 accumulator of sum (x_pad - izp) * w plus bias (the unfused
+    no-op), a grouped one other than depthwise, or one with legacy uint8
+    operands (uint8 data, a weight zero point, a uint8 output) runs on K2
+    (K1 for a 1x1, K5 for a depthwise conv) and ignores `layout`; the legacy
+    ones read no record either.  Without a multiplier: the int32
+    accumulator of sum (x_pad - izp) * (w - kzp) plus bias (the unfused
     qnn.conv2d + bias), on K4's GEMM or conv mode, or K5's raw mode; a raw
     conv other than a 1x1 reads no record and ignores `blocks` and
     `layout`."""
@@ -490,45 +534,53 @@ def qconv2d_flat(x, w, bias=None, multiplier=None, shift=None, *, strides=(1, 1)
     if groups < 1 or cin % groups or w.shape[3] % groups or w.shape[2] * groups != cin:
         raise ValueError(f"qconv2d_flat: groups {groups} do not fit input channels {cin} "
                          f"and weight {tuple(w.shape)}")
-    if multiplier is not None and out_dtype != "int8":
-        raise NotImplementedError(f"qconv2d_flat: out_dtype {out_dtype} is not ported yet "
-                                  "(ROADMAP Queue 1 item 2: fused outputs other than int8)")
+    if multiplier is not None:
+        out_torch_dtype(out_dtype)
+    check_data("qconv2d_flat", x)
     dev = x.device
-    w = as_int8(w, dev)
+    w, kzp = legacy_weights(as_weight(w, dev), kernel_zero_point, dev)
+    legacy = kzp is not None or x.dtype == torch.uint8 or (multiplier is not None
+                                                          and out_dtype != "int8")
     cout = w.shape[-1]
     b = as_int32_vector(bias, cout, dev)
     strides, padding = tuple(strides), tuple(padding)
     pointwise = w.shape[0] == 1 and w.shape[1] == 1
     dilation = (1, 1) if pointwise else tuple(int(d) for d in dilation)
-    if depthwise and dilation != (1, 1):
-        raise NotImplementedError(
-            f"qconv2d_flat: a dilated depthwise conv (dilation {dilation}) is not ported: "
-            "K5 takes no dilation (ROADMAP Queue 1 item 2: K5 with dilation)")
     if depthwise:
+        kw = dict(strides=strides, padding=padding, izp=input_zero_point, dilation=dilation,
+                  kzp=kzp)
         if multiplier is None:
-            return qdwconv_raw(x.contiguous(), w, b, strides=strides, padding=padding,
-                               izp=input_zero_point)
+            return qdwconv_raw(x.contiguous(), w, b, **kw)
         return qdwconv_rq(x.contiguous(), w, b, channel_vector(multiplier, cout, dev),
-                          channel_vector(shift, cout, dev), strides=strides,
-                          padding=padding, izp=input_zero_point,
-                          rq_izp=rq_input_zero_point, out_zp=out_zp, rounding=rounding,
-                          qmin=qmin, qmax=qmax)
+                          channel_vector(shift, cout, dev), rq_izp=rq_input_zero_point,
+                          out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax,
+                          out_dtype=out_dtype, **kw)
     geometry = {} if (dilation, groups) == ((1, 1), 1) else dict(dilation=dilation,
                                                                   groups=groups)
+    if kzp is not None:
+        geometry["kzp"] = kzp
     if multiplier is None:
         if pointwise and groups == 1:
             return _conv1x1_matmul(x, w, b, None, None, strides, padding, input_zero_point,
-                                   0, 0, "UPWARD", 0, 0)
+                                   0, 0, "UPWARD", 0, 0, kzp=kzp)
         return qconv_raw(x.contiguous(), w, b, strides=strides, padding=padding,
                          izp=input_zero_point, **geometry)
     m = channel_vector(multiplier, cout, dev)
     s = channel_vector(shift, cout, dev)
     if pointwise and groups == 1:
         return _conv1x1_matmul(x, w, b, m, s, strides, padding, input_zero_point,
-                               rq_input_zero_point, out_zp, rounding, qmin, qmax)
-    blocks, layout = _conv_config(tuple(x.shape), tuple(w.shape), strides, padding, blocks,
-                                  layout, dilation, groups)
+                               rq_input_zero_point, out_zp, rounding, qmin, qmax, kzp=kzp,
+                               out_dtype=out_dtype)
+    if legacy:
+        layout = None
+        if blocks is not None:
+            tile_params(blocks)
+    else:
+        blocks, layout = _conv_config(tuple(x.shape), tuple(w.shape), strides, padding, blocks,
+                                      layout, dilation, groups)
     kernel = qconv_rq if layout is None else globals()[LAYOUT_KERNELS[layout]]
+    if legacy:
+        geometry["out_dtype"] = out_dtype
     return kernel(x.contiguous(), w, b, m, s, strides=strides, padding=padding,
                   izp=input_zero_point, rq_izp=rq_input_zero_point, out_zp=out_zp,
                   rounding=rounding, qmin=qmin, qmax=qmax, blocks=blocks, **geometry)

@@ -45,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from ..nn import conv2d_out_hw
-from ._lib import LAUNCHES, check_cuda_operands, launch
+from ._lib import LAUNCHES, check_cuda_operands, launch, refuse_uint8
 from .conv import conv_acc_plain, sm_count
 from .conv_layouts import SMEM_LIMIT, _round_up, pack_once
 from .depthwise import dw_acc_plain, dw_launch, dw_plan
@@ -302,6 +302,7 @@ def qconv_direct(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0, 0
     shape."""
     kw_ = dict(strides=strides, padding=padding, izp=izp, out_zp=out_zp, rounding=rounding,
                qmin=qmin, qmax=qmax, out_dtype=out_dtype)
+    refuse_uint8("qconv_direct", x, w)
     if x.device.type == "cpu":
         return qconv_direct_plain(x, w, bias, mult, shift, **kw_)
     if x.device.type != "cuda":
@@ -324,6 +325,7 @@ def qdwconv_direct(x, w, bias, mult, shift, *, strides=(1, 1), padding=(0, 0, 0,
     C), bias / mult / shift int32 (C,) -> `out_dtype` (int8 or uint8) NHWC."""
     kw_ = dict(strides=strides, padding=padding, izp=izp, out_zp=out_zp, rounding=rounding,
                qmin=qmin, qmax=qmax, out_dtype=out_dtype)
+    refuse_uint8("qdwconv_direct", x, w)
     if x.device.type == "cpu":
         return qdwconv_direct_plain(x, w, bias, mult, shift, **kw_)
     if x.device.type != "cuda":

@@ -50,7 +50,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ._lib import LAUNCHES, check_cuda_operands, launch, pack_once, tile_params
+from ._lib import LAUNCHES, check_cuda_operands, launch, pack_once, refuse_uint8, tile_params
 from .matmul_int8 import _TONEAREST, exact_int_matmul, fold_input_zero_point
 from .requantize import epilogue_plain
 
@@ -327,6 +327,7 @@ def _layout_kernel(layout, x, w, bias, mult, shift, strides, padding, izp, rq_iz
     name = f"qconv_rq_{layout}"
     strides, padding = tuple(strides), tuple(padding)
     tile = tile_params(blocks)
+    refuse_uint8(name, x)
     if x.device.type == "cpu":
         return _layout_plain(layout, x, w, bias, mult, shift, strides, padding, izp, rq_izp,
                              out_zp, rounding, qmin, qmax)

@@ -35,9 +35,16 @@ route (`qgemm_library`, `qgemm_raw_library`: `torch._int_mm` on the card,
 then the exact epilogue or the bias in plain torch), chosen only by a record
 or by the caller, never as a fallback.
 
-Zero points: the quantizer always produces wzp = 0; a nonzero input zero point
-folds into the bias (acc(x - izp, w) = x.w - izp * colsum(w), exact in int32
-wraparound arithmetic), so the kernel is a pure int8 GEMM.
+Zero points: a nonzero input zero point folds into the bias (acc(x - izp,
+w) = x.w - izp * colsum(w), exact in int32 wraparound arithmetic).  The
+quantizer and FQ2I emit a weight zero point of 0; legacy uint8 TFLite models
+(TF1's quantization-aware converter) have uint8 data, uint8 weights with a
+nonzero zero point kzp and uint8 outputs.  K1 and K4 take them: x may be
+uint8 (the kernels read it unsigned), uint8 weights become int8 once per
+tensor (w - 128 with kzp - 128: the same differences; `legacy_weights`),
+and the kernel takes kzp[n] times each row's sum off its sums, the bias
+carrying -izp colsum(w) + K izp kzp[n] (`fold_input_zero_point`); the
+output may be uint8 (qmin 0, qmax 255, the same bytes).
 
 K1's batched mode (`qbmm_rq`, `qbmm_raw`; `qbmm_int8` is the entry of
 tk.bmm_rq and qnn.batch_matmul) runs a batch of products (a - za) @ (b - zb)
@@ -60,8 +67,8 @@ import torch
 
 from ...tune.database import lookup_config
 from ._lib import (BK, LAUNCHES, TILES, check_cuda_operands, compiled_blocks, launch,
-                   pack_once, sm_count, tile_params)
-from .requantize import channel_vector, epilogue_plain
+                   pack_once, refuse_uint8, sm_count, tile_params)
+from .requantize import channel_vector, epilogue_plain, out_torch_dtype
 
 _TONEAREST = {"UPWARD": 0, "TONEAREST": 1}
 
@@ -76,6 +83,8 @@ SKINNY_FILL = 4        # the skinny path's blocks: about this many per SM
 SKINNY_MIN_STEPS = 2   # the fewest K steps a skinny split walks
 PATHS = {"tiled": 0, "skinny": 1}
 _KMAJOR: dict = {}
+_UINT8_W: dict = {}    # uint8 weights as int8, w - 128, once per tensor
+DATA_DTYPES = (torch.int8, torch.uint8)  # K1-K5's data operand
 
 
 def matmul_workload(M: int, K: int, N: int, fused: bool) -> str:
@@ -208,35 +217,49 @@ def split_covers(ks: int, kper: int, steps: int) -> bool:
 
 
 def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int8 (M, K) @ int8 (K, N) -> the int32 accumulator, through float64:
-    every partial sum is an integer of magnitude <= K * 2^14 < 2^53, so the
-    float64 product is exact in any summation order (torch has no integer
-    matmul on CUDA, and on the CPU an int8 matmul wraps in int8)."""
-    if a.shape[-1] >= 1 << 39:
+    """integer (M, K) @ integer (K, N) -> the int32 accumulator, through
+    float64: with operands of at most 9 bits (int8, uint8, an int8 weight
+    less its zero point) every partial sum is an integer of magnitude <= K *
+    2^16 < 2^53, so the float64 product is exact in any summation order
+    (torch has no integer matmul on CUDA, and on the CPU an int8 matmul
+    wraps in int8)."""
+    if a.shape[-1] >= 1 << 37:
         raise ValueError("reduction too deep for an exact float64 accumulator")
     acc = a.to(torch.float64) @ b.to(torch.float64)
     return acc.to(torch.int64).to(torch.int32)
 
 
+def less_kzp(w: torch.Tensor, kzp) -> torch.Tensor:
+    """w (..., N) less its zero point kzp (None, or int32 (N,) along the last
+    axis) as int32: the weights the kernels' sums are of."""
+    return w.to(torch.int32) if kzp is None else w.to(torch.int32) - kzp.to(torch.int32)
+
+
 def qgemm_rq_plain(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPWARD",
-                   qmin=-128, qmax=127, blocks=None, plan=None, w_src=None) -> torch.Tensor:
+                   qmin=-128, qmax=127, blocks=None, plan=None, w_src=None, kzp=None,
+                   out_dtype="int8") -> torch.Tensor:
     """Plain PyTorch version of K1 (`blocks`, `plan` and `w_src` are the
     kernel's launch and weight cache: no effect)."""
-    return epilogue_plain(exact_int_matmul(x, w), bias, mult, shift, rq_izp, out_zp, rounding,
-                          qmin, qmax)
+    return epilogue_plain(exact_int_matmul(x, less_kzp(w, kzp)), bias, mult, shift, rq_izp,
+                          out_zp, rounding, qmin, qmax, out_dtype)
 
 
-def _gemm_launch(name: str, x: torch.Tensor, w: torch.Tensor, w_src, blocks, plan,
+def _gemm_launch(name: str, x: torch.Tensor, w: torch.Tensor, w_src, blocks, plan, kzp,
                  **vectors) -> tuple[dict, torch.Tensor, dict]:
     """The checks and launch parameters K1 and K4's GEMM mode share:
     the weight packed K-major once per tensor (w_src's where given), the
-    operands checked (`vectors`: the int32 (N,) bias, multiplier and
-    shift), the launch `plan` (`gemm_plan`'s where None) checked against K.
-    Returns (plan, packed weight, kernel parameters)."""
+    operands checked (x int8 or uint8; `vectors`: the int32 (N,) bias,
+    multiplier and shift, and kzp where given), the launch `plan`
+    (`gemm_plan`'s where None) checked against K.  Returns (plan, packed
+    weight, kernel parameters)."""
     m, k = x.shape
     n = w.shape[1]
     wk = kmajor_weights(w if w_src is None else w_src)
-    check_cuda_operands(name, x.device, x=(x, torch.int8, (m, k)), w=(w, torch.int8, (k, n)),
+    if kzp is not None:
+        vectors = dict(vectors, kzp=kzp)
+    x_dtype = x.dtype if x.dtype in DATA_DTYPES else torch.int8
+    check_cuda_operands(name, x.device, x=(x, x_dtype, (m, k)),
+                        w=(w, torch.int8, (k, n)),
                         wk=(wk, torch.int8, (-(-k // KSTEP), n, KSTEP)),
                         **{key: (v, torch.int32, (n,)) for key, v in vectors.items()})
     if plan is None:
@@ -249,7 +272,7 @@ def _gemm_launch(name: str, x: torch.Tensor, w: torch.Tensor, w_src, blocks, pla
                   a_vec=k % 16 == 0 and x.data_ptr() % 16 == 0,
                   b_vec=k % 8 == 0 and x.data_ptr() % 8 == 0,
                   qg_path=PATHS[plan["path"]], bm=plan.get("bm", 0), bn=plan.get("bn", 0),
-                  ks=plan["ks"], kper=plan["kper"])
+                  ks=plan["ks"], kper=plan["kper"], a_u8=x.dtype == torch.uint8)
     return plan, wk, params
 
 
@@ -257,31 +280,35 @@ def qgemm_rq(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
              mult: torch.Tensor, shift: torch.Tensor, *, rq_izp: int = 0,
              out_zp: int = 0, rounding: str = "UPWARD", qmin: int = -128,
              qmax: int = 127, blocks=None, plan: dict | None = None,
-             w_src: torch.Tensor | None = None) -> torch.Tensor:
-    """K1: clip(q_multiply_shift(x @ w + bias - rq_izp, mult, shift) + out_zp,
-    qmin, qmax) -> int8 (M, N).  x int8 (M, K), w int8 (K, N), bias / mult /
-    shift int32 (N,); blocks (BM, BN, 64) a compiled tile (the tiled path's),
-    None for `gemm_plan`'s; `plan` forces a launch as `gemm_plan` gives it;
-    `w_src`: the stable tensor w is a view of ((1, 1, K, N)), packed in w's
-    place (`kmajor_weights`, once per tensor); None packs w."""
-    kw = dict(rq_izp=rq_izp, out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax)
+             w_src: torch.Tensor | None = None, kzp: torch.Tensor | None = None,
+             out_dtype: str = "int8") -> torch.Tensor:
+    """K1: clip(q_multiply_shift(x @ (w - kzp) + bias - rq_izp, mult, shift)
+    + out_zp, qmin, qmax) -> int8 (M, N), or uint8 with `out_dtype` "uint8".
+    x int8 or uint8 (M, K), w int8 (K, N), bias / mult / shift int32 (N,);
+    kzp None or the weights' zero point, int32 (N,); blocks (BM, BN, 64) a
+    compiled tile (the tiled path's), None for `gemm_plan`'s; `plan` forces
+    a launch as `gemm_plan` gives it; `w_src`: the stable tensor w is a view
+    of ((1, 1, K, N)), packed in w's place (`kmajor_weights`, once per
+    tensor); None packs w."""
+    kw = dict(rq_izp=rq_izp, out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax, kzp=kzp,
+              out_dtype=out_dtype)
     if blocks is not None:
         tile_params(blocks)  # a tile that is not built raises on every device
     if x.device.type == "cpu":
         return qgemm_rq_plain(x, w, bias, mult, shift, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"qgemm_rq: no kernel for device {x.device}")
-    plan, wk, params = _gemm_launch("qgemm_rq", x, w, w_src, blocks, plan, bias=bias, mult=mult,
-                                    shift=shift)
+    plan, wk, params = _gemm_launch("qgemm_rq", x, w, w_src, blocks, plan, kzp, bias=bias,
+                                    mult=mult, shift=shift)
     m, n = x.shape[0], w.shape[1]
-    out = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    out = torch.empty((m, n), dtype=out_torch_dtype(out_dtype), device=x.device)
     # a split adds its partial sums into zeros (M x N, then a counter an N
     # tile, or an (M, N) tile on the tiled path); unsplit, no workspace
     tiles = (-(-n // SKINNY_BN) if plan["path"] == "skinny"
              else -(-m // plan["bm"]) * -(-n // plan["bn"]))
     ws = (torch.zeros(m * n + tiles, dtype=torch.int32, device=x.device) if plan["ks"] > 1
           else out)
-    launch("tk_qgemm_rq", [x, wk, out, bias, mult, shift, ws], params | dict(
+    launch("tk_qgemm_rq", [x, wk, out, bias, mult, shift, ws, kzp], params | dict(
         rq_izp=rq_izp, out_zp=out_zp, qmin=qmin, qmax=qmax, tonearest=_TONEAREST[rounding]))
     LAUNCHES["qgemm_rq"] += 1
     return out
@@ -311,24 +338,42 @@ def _library_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def qgemm_library(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPWARD",
-                  qmin=-128, qmax=127) -> torch.Tensor:
+                  qmin=-128, qmax=127, out_dtype="int8") -> torch.Tensor:
     """K1's function through the library route of the record `{"impl":
     "xla"}`: the library's int32 product, the exact epilogue in plain
     torch."""
     return epilogue_plain(_library_product(x, w), bias, mult, shift, rq_izp, out_zp, rounding,
-                          qmin, qmax)
+                          qmin, qmax, out_dtype)
+
+
+def _route(x, kzp, n: int, fused: bool, blocks):
+    """`_tuned`'s blocks for an int8 call.  A call with uint8 data or a
+    weight zero point reads no record and never takes the library route
+    (`torch._int_mm`: int8 x int8 alone): it runs on K1 / K4 at the
+    caller's tile, else `gemm_plan`'s; the caller's "xla" raises
+    NotImplementedError."""
+    if kzp is None and x.dtype == torch.int8:
+        return _tuned(x.shape[0], x.shape[1], n, fused, blocks)
+    if blocks == "xla":
+        raise NotImplementedError("the library route takes int8 x int8 alone: uint8 data or a "
+                                  "weight zero point runs on K1 / K4 (ROADMAP Queue 1 item 2)")
+    if isinstance(blocks, str):
+        raise ValueError(f"blocks {blocks!r}: a compiled tile or 'xla'")
+    return blocks
 
 
 def qgemm_rq_tuned(x, w, bias, mult, shift, *, rq_izp=0, out_zp=0, rounding="UPWARD",
-                   qmin=-128, qmax=127, blocks=None, w_src=None) -> torch.Tensor:
+                   qmin=-128, qmax=127, blocks=None, w_src=None, kzp=None,
+                   out_dtype="int8") -> torch.Tensor:
     """K1 at `blocks`, or the library route for blocks == "xla"; with blocks
     None, what the active database's best record for the workload names
-    (`_tuned`)."""
-    blocks = _tuned(x.shape[0], x.shape[1], w.shape[1], True, blocks)
-    kw = dict(rq_izp=rq_izp, out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax)
+    (`_tuned`; uint8 data or a weight zero point: `_route`)."""
+    blocks = _route(x, kzp, w.shape[1], True, blocks)
+    kw = dict(rq_izp=rq_izp, out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax,
+              out_dtype=out_dtype)
     if blocks == "xla":
         return qgemm_library(x, w, bias, mult, shift, **kw)
-    return qgemm_rq(x, w, bias, mult, shift, blocks=blocks, w_src=w_src, **kw)
+    return qgemm_rq(x, w, bias, mult, shift, blocks=blocks, w_src=w_src, kzp=kzp, **kw)
 
 
 def _add_bias(acc: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -336,28 +381,30 @@ def _add_bias(acc: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return (acc.to(torch.int64) + bias.to(torch.int64)).to(torch.int32)
 
 
-def qgemm_raw_plain(x, w, bias, *, blocks=None, plan=None, w_src=None) -> torch.Tensor:
+def qgemm_raw_plain(x, w, bias, *, blocks=None, plan=None, w_src=None,
+                    kzp=None) -> torch.Tensor:
     """Plain PyTorch version of K4's GEMM mode (`blocks`, `plan` and `w_src`
     are the kernel's launch and weight cache: no effect)."""
-    return _add_bias(exact_int_matmul(x, w), bias)
+    return _add_bias(exact_int_matmul(x, less_kzp(w, kzp)), bias)
 
 
 def qgemm_raw(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, blocks=None,
-              plan: dict | None = None, w_src: torch.Tensor | None = None) -> torch.Tensor:
-    """K4, GEMM mode: x @ w + bias in int32 wraparound -> int32 (M, N).
-    x int8 (M, K), w int8 (K, N), bias int32 (N,); blocks, plan and w_src as
-    `qgemm_rq`'s.  A split adds its partial sums into a zeroed output, the
-    bias with split 0."""
+              plan: dict | None = None, w_src: torch.Tensor | None = None,
+              kzp: torch.Tensor | None = None) -> torch.Tensor:
+    """K4, GEMM mode: x @ (w - kzp) + bias in int32 wraparound -> int32 (M,
+    N).  x int8 or uint8 (M, K), w int8 (K, N), bias int32 (N,); kzp,
+    blocks, plan and w_src as `qgemm_rq`'s.  A split adds its partial sums
+    into a zeroed output, the bias with split 0."""
     if blocks is not None:
         tile_params(blocks)
     if x.device.type == "cpu":
-        return qgemm_raw_plain(x, w, bias)
+        return qgemm_raw_plain(x, w, bias, kzp=kzp)
     if x.device.type != "cuda":
         raise ValueError(f"qgemm_raw: no kernel for device {x.device}")
-    plan, wk, params = _gemm_launch("qgemm_raw", x, w, w_src, blocks, plan, bias=bias)
+    plan, wk, params = _gemm_launch("qgemm_raw", x, w, w_src, blocks, plan, kzp, bias=bias)
     out = (torch.zeros if plan["ks"] > 1 else torch.empty)((x.shape[0], w.shape[1]),
                                                            dtype=torch.int32, device=x.device)
-    launch("tk_qgemm_raw", [x, wk, out, bias], params)
+    launch("tk_qgemm_raw", [x, wk, out, bias, kzp], params)
     LAUNCHES["qgemm_raw"] += 1
     return out
 
@@ -368,23 +415,49 @@ def qgemm_raw_library(x, w, bias) -> torch.Tensor:
     return _add_bias(_library_product(x, w), bias)
 
 
-def qgemm_raw_tuned(x, w, bias, *, blocks=None, w_src=None) -> torch.Tensor:
+def qgemm_raw_tuned(x, w, bias, *, blocks=None, w_src=None, kzp=None) -> torch.Tensor:
     """K4's GEMM mode at `blocks`, or the library route for blocks == "xla";
     with blocks None, what the active database's best record for the raw
     workload names (`_tuned`), as the JAX package's `qmatmul_int8` without a
-    multiplier reads it."""
-    blocks = _tuned(x.shape[0], x.shape[1], w.shape[1], False, blocks)
+    multiplier reads it (uint8 data or a weight zero point: `_route`)."""
+    blocks = _route(x, kzp, w.shape[1], False, blocks)
     if blocks == "xla":
         return qgemm_raw_library(x, w, bias)
-    return qgemm_raw(x, w, bias, blocks=blocks, w_src=w_src)
+    return qgemm_raw(x, w, bias, blocks=blocks, w_src=w_src, kzp=kzp)
 
 
-def fold_input_zero_point(bias: torch.Tensor, w: torch.Tensor, izp: int) -> torch.Tensor:
-    """bias - izp * colsum(w) over all but the last axis, in int32 wraparound."""
+def fold_input_zero_point(bias: torch.Tensor, w: torch.Tensor, izp: int,
+                          kzp: torch.Tensor | None = None) -> torch.Tensor:
+    """bias - izp * colsum(w) over all but the last axis, plus K * izp *
+    kzp[n] with a weight zero point (K the product of w's other axes), in
+    int32 wraparound: with the kernels' -kzp[n] rowsum(x_pad) the sum is
+    that of (x - izp)(w - kzp)."""
     if not izp:
         return bias
     colsum = w.to(torch.int64).reshape(-1, w.shape[-1]).sum(dim=0)
-    return (bias.to(torch.int64) - int(izp) * colsum).to(torch.int32)
+    b = bias.to(torch.int64) - int(izp) * colsum
+    if kzp is not None:
+        b = b + (w.numel() // w.shape[-1]) * int(izp) * kzp.to(torch.int64)
+    return b.to(torch.int32)
+
+
+def legacy_weights(w: torch.Tensor, kernel_zero_point, device) -> tuple[torch.Tensor, object]:
+    """(int8 weight, kzp) for the kernels from a weight w (..., N), int8 or
+    uint8, and its zero point (a scalar or an (N,) array): uint8 weights as
+    int8 w - 128, made once per tensor (`pack_once`), with kzp - 128 (the
+    same differences w - kzp); kzp an int32 (N,) vector on `device`
+    (`channel_vector`, cached), or None where it is 0 for every column."""
+    n = w.shape[-1]
+    zp = np.asarray(kernel_zero_point, np.int64).reshape(-1)
+    if w.dtype == torch.uint8:
+        w8 = pack_once(_UINT8_W, w, lambda t: (t.to(torch.int16) - 128).to(torch.int8))
+        zp = zp - 128
+    elif w.dtype == torch.int8:
+        w8 = w
+    else:
+        raise NotImplementedError(f"weights of dtype {w.dtype}: the kernels take int8 or uint8 "
+                                  "weights")
+    return w8, (channel_vector(zp, n, device) if zp.any() else None)
 
 
 def as_int32_vector(v, n: int, device) -> torch.Tensor:
@@ -399,31 +472,51 @@ def as_int8(v, device) -> torch.Tensor:
     return torch.as_tensor(v).to(device=device, dtype=torch.int8).contiguous()
 
 
+def as_weight(v, device) -> torch.Tensor:
+    """A weight argument (numpy or tensor) as a contiguous int8 or uint8
+    tensor (`legacy_weights` takes a uint8 one to int8)."""
+    t = torch.as_tensor(v)
+    if t.dtype == torch.uint8:
+        return t.to(device=device).contiguous()
+    return t.to(device=device, dtype=torch.int8).contiguous()
+
+
+def check_data(kernel: str, x: torch.Tensor) -> None:
+    """NotImplementedError unless x is int8 or uint8 (the kernels' data)."""
+    if x.dtype not in DATA_DTYPES:
+        raise NotImplementedError(f"{kernel}: data of dtype {x.dtype}: the kernels take int8 "
+                                  "or uint8 data")
+
+
 def qmatmul_int8(x, w, bias=None, multiplier=None, shift=None, out_zp: int = 0,
                  rounding: str = "UPWARD", out_dtype: str = "int8",
                  qmin: int = -128, qmax: int = 127, blocks=None, *,
-                 input_zero_point: int = 0, rq_input_zero_point: int = 0):
-    """x (M, K) int8 @ w (K, N) int8 -> requantized int8 (M, N),
-    bit-identical to the unfused qnn.dense + bias_add + qnn.requantize chain
-    (the JAX package's entry of the same name).  multiplier / shift: scalars
-    or per-column (N,) arrays; blocks: a compiled tile (BM, BN, 64), "xla"
-    (the library route) or None (the tuning database's record for the
-    workload, else `gemm_plan`'s tile); bad blocks raise ValueError.
-    Without a multiplier: the int32 accumulator of (x - input_zero_point) @
-    w, plus bias (K4's GEMM mode, its tile and record read alike)."""
-    if multiplier is not None and out_dtype != "int8":
-        raise NotImplementedError(f"qmatmul_int8: out_dtype {out_dtype} is not ported yet "
-                                  "(ROADMAP Queue 1 item 2: fused outputs other than int8)")
+                 input_zero_point: int = 0, rq_input_zero_point: int = 0,
+                 kernel_zero_point=0):
+    """x (M, K) int8 or uint8 @ w (K, N) int8 or uint8 -> requantized int8
+    or uint8 (`out_dtype`) (M, N), bit-identical to the unfused qnn.dense +
+    bias_add + qnn.requantize chain (the JAX package's entry of the same
+    name, which takes legacy uint8 operands on XLA).  kernel_zero_point: a
+    scalar or per-column (N,) array (`legacy_weights`); multiplier / shift:
+    scalars or per-column (N,) arrays; blocks: a compiled tile (BM, BN, 64),
+    "xla" (the library route: int8 operands with no weight zero point) or
+    None (the tuning database's record for the workload, else `gemm_plan`'s
+    tile); bad blocks raise ValueError.  Without a multiplier: the int32
+    accumulator of (x - input_zero_point) @ (w - kernel_zero_point), plus
+    bias (K4's GEMM mode, its tile and record read alike)."""
+    if multiplier is not None:
+        out_torch_dtype(out_dtype)
+    check_data("qmatmul_int8", x)
     n = w.shape[1]
     dev = x.device
-    w = as_int8(w, dev)
-    b = fold_input_zero_point(as_int32_vector(bias, n, dev), w, input_zero_point)
+    w, kzp = legacy_weights(as_weight(w, dev), kernel_zero_point, dev)
+    b = fold_input_zero_point(as_int32_vector(bias, n, dev), w, input_zero_point, kzp)
     if multiplier is None:
-        return qgemm_raw_tuned(x.contiguous(), w, b.contiguous(), blocks=blocks)
+        return qgemm_raw_tuned(x.contiguous(), w, b.contiguous(), blocks=blocks, kzp=kzp)
     return qgemm_rq_tuned(x.contiguous(), w, b.contiguous(), channel_vector(multiplier, n, dev),
                           channel_vector(shift, n, dev), rq_izp=rq_input_zero_point,
                           out_zp=out_zp, rounding=rounding, qmin=qmin, qmax=qmax,
-                          blocks=blocks)
+                          blocks=blocks, kzp=kzp, out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -650,6 +743,7 @@ def qbmm_rq(a: torch.Tensor, b: torch.Tensor, bias, mult: torch.Tensor, shift: t
     kw = dict(lhs_zero_point=lhs_zero_point, rhs_zero_point=rhs_zero_point,
               transpose_a=transpose_a, transpose_b=transpose_b, rq_izp=rq_izp, out_zp=out_zp,
               rounding=rounding, qmin=qmin, qmax=qmax)
+    refuse_uint8("qbmm_rq", a, b)
     if a.device.type == "cpu":
         return qbmm_rq_plain(a, b, bias, mult, shift, **kw)
     if a.device.type != "cuda":
@@ -675,6 +769,7 @@ def qbmm_raw(a: torch.Tensor, b: torch.Tensor, *, lhs_zero_point: int = 0,
     trace path); operands and `plan` as `qbmm_rq`'s."""
     kw = dict(lhs_zero_point=lhs_zero_point, rhs_zero_point=rhs_zero_point,
               transpose_a=transpose_a, transpose_b=transpose_b)
+    refuse_uint8("qbmm_raw", a, b)
     if a.device.type == "cpu":
         return qbmm_raw_plain(a, b, **kw)
     if a.device.type != "cuda":

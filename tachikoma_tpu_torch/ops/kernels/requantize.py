@@ -50,19 +50,32 @@ def channel_vector(values, n: int, device) -> torch.Tensor:
     return _cached_vector(key, int(n), str(torch.device(device)))
 
 
+OUT_DTYPES = {"int8": torch.int8, "uint8": torch.uint8}  # the fused outputs the kernels store
+
+
+def out_torch_dtype(out_dtype: str) -> torch.dtype:
+    """The torch dtype of a fused output (`OUT_DTYPES`); NotImplementedError
+    for another (ROADMAP Queue 1 item 2: fused outputs other than int8 and
+    uint8)."""
+    if out_dtype not in OUT_DTYPES:
+        raise NotImplementedError(f"out_dtype {out_dtype} is not ported yet (ROADMAP Queue 1 "
+                                  "item 2: fused outputs other than int8 and uint8)")
+    return OUT_DTYPES[out_dtype]
+
+
 def epilogue_plain(acc: torch.Tensor, bias, mult: torch.Tensor, shift: torch.Tensor,
                    rq_izp: int, out_zp: int, rounding: str,
-                   qmin: int, qmax: int) -> torch.Tensor:
+                   qmin: int, qmax: int, out_dtype: str = "int8") -> torch.Tensor:
     """clip(q_multiply_shift(acc + bias[c] - rq_izp, m[c], s[c]) + out_zp,
     qmin, qmax) per output channel c (the last axis), with the oracle's int32
-    wraparound; acc int32 -> int8."""
+    wraparound; acc int32 -> int8 (or uint8)."""
     v = acc.to(torch.int64)
     if bias is not None:
         v = v + bias.to(torch.int64)
     v = (v - int(rq_izp)).to(torch.int32)
     v = _qms_torch(v, mult.to(torch.int64), shift.to(torch.int64), rounding)
     v = (v.to(torch.int64) + int(out_zp)).to(torch.int32)
-    return v.clamp(int(qmin), int(qmax)).to(torch.int8)
+    return v.clamp(int(qmin), int(qmax)).to(out_torch_dtype(out_dtype))
 
 
 def plan_res_add(ra: dict) -> dict:

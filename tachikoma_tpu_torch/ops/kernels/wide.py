@@ -47,7 +47,7 @@ from __future__ import annotations
 import torch
 
 from ..nn import conv2d_out_hw
-from ._lib import LAUNCHES, check_cuda_operands, launch, pack_once, sm_count
+from ._lib import LAUNCHES, check_cuda_operands, launch, pack_once, refuse_uint8, sm_count
 from .conv import conv_acc_exact, qconv2d_flat
 from .depthwise import dw_acc_plain, dw_launch
 from .matmul_int8 import KSTEP, kmajor_weights, qmatmul_int8, split_covers
@@ -184,6 +184,7 @@ def qgemm_wide(x, w, *, izp=0, plan: dict | None = None,
     """(x - izp) @ w in int64: x int16 (M, K), w int8 (K, N) -> int64 (M, N).
     `plan` as `wide_plan` gives it; `w_src` the stable tensor whose packing
     and column sums stand for w (a 1x1 conv's 4-D weight)."""
+    refuse_uint8("qgemm_wide", x, w)
     if x.device.type == "cpu":
         return qgemm_wide_plain(x, w, izp=izp)
     if x.device.type != "cuda":
@@ -205,6 +206,7 @@ def qconv_wide(x, w, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0,
                plan: dict | None = None) -> torch.Tensor:
     """sum (x_pad - izp) * w in int64, the border padded by izp: x int16 NHWC,
     w int8 HWIO (groups 1), padding (top, left, bottom, right) -> int64 NHWC."""
+    refuse_uint8("qconv_wide", x, w)
     if x.device.type == "cpu":
         return qconv_wide_plain(x, w, strides=strides, padding=padding, izp=izp)
     if x.device.type != "cuda":
@@ -227,6 +229,7 @@ def qdwconv_wide_plain(x, w, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0) -> 
 def qdwconv_wide(x, w, *, strides=(1, 1), padding=(0, 0, 0, 0), izp=0) -> torch.Tensor:
     """The depthwise sum (x_pad - izp) * w in int64: x int16 NHWC, w int8
     (KH, KW, 1, C), at most DW_TAP_BOUND taps -> int64 NHWC."""
+    refuse_uint8("qdwconv_wide", x, w)
     if x.device.type == "cpu":
         return qdwconv_wide_plain(x, w, strides=strides, padding=padding, izp=izp)
     if x.device.type != "cuda":

@@ -51,6 +51,7 @@ from ..utils import dtypes as dt
 from . import nn as _nn
 from .fixed_point import fixed_point_multiplier_shift, requantize, requantize_np, torch_dtype
 from .kernels import wide as _wide
+from .kernels._lib import LEGACY_ITEM
 from .kernels.conv import qconv2d_flat
 from .kernels.matmul_int8 import qbmm_int8, qmatmul_int8
 
@@ -177,27 +178,32 @@ def _requantize_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
 
 # -- quantized conv / dense ---------------------------------------------------
 
-def _check_raw_operands(node: Node, data: torch.Tensor, weight: torch.Tensor) -> int:
-    """The input zero point of an unfused qnn.conv2d / qnn.dense that the
-    port's kernels can run: int8 weights with kernel zero point 0 (the
-    quantizer always emits 0), and int8 data into an int32 accumulator (K4,
-    K5) or int8 / int16 data into an int64 one (W8A16's own kernels,
-    `kernels/wide.py`; int8 data there runs K4 / K5 and casts)."""
-    kzp = np.asarray(node.attrs.get("kernel_zero_point", 0))
-    if (kzp != 0).any():
-        raise NotImplementedError(f"{node.name} ({node.op}): a nonzero kernel_zero_point "
-                                  "is not ported (the quantizer always emits 0; ROADMAP "
-                                  "Queue 1 item 2)")
+def _check_raw_operands(node: Node, data: torch.Tensor, weight: torch.Tensor) -> tuple:
+    """(input zero point, kernel zero point) of an unfused qnn.conv2d /
+    qnn.dense that the port's kernels can run: int8 or uint8 data and
+    weights, the weights with any zero point (legacy uint8 TFLite models),
+    into an int32 accumulator (K4, K5); or int8 / int16 data and int8
+    weights with zero point 0 into an int64 one (W8A16's own kernels,
+    `kernels/wide.py`)."""
+    kzp = node.attrs.get("kernel_zero_point", 0)
     out_dtype = node.attrs.get("out_dtype", "int32")
-    data_dtypes = {"int32": (torch.int8,), "int64": (torch.int8, torch.int16)}
+    u8 = (torch.int8, torch.uint8)
+    data_dtypes = {"int32": (u8, u8), "int64": ((torch.int8, torch.int16), (torch.int8,))}
     if out_dtype not in data_dtypes:
         raise NotImplementedError(f"{node.name} ({node.op}): out_dtype {out_dtype} is not "
                                   "ported: int32 or int64 accumulators only")
-    if data.dtype not in data_dtypes[out_dtype] or weight.dtype != torch.int8:
+    if data.dtype not in data_dtypes[out_dtype][0] or \
+            weight.dtype not in data_dtypes[out_dtype][1]:
+        legacy = f" ({LEGACY_ITEM})" if torch.uint8 in (data.dtype, weight.dtype) else ""
         raise NotImplementedError(f"{node.name} ({node.op}): operands {data.dtype} x "
                                   f"{weight.dtype} into {out_dtype}; the port's kernels take "
-                                  "int8 x int8 into int32, int8 or int16 x int8 into int64")
-    return int(node.attrs.get("input_zero_point", 0))
+                                  "int8 or uint8 x int8 or uint8 into int32, int8 or int16 x "
+                                  f"int8 into int64{legacy}")
+    if out_dtype == "int64" and np.asarray(kzp).any():
+        raise NotImplementedError(f"{node.name} ({node.op}): a nonzero kernel_zero_point into "
+                                  "int64 is not ported (ROADMAP Queue 1 item 2: W8A16's "
+                                  "kernels take weights with zero point 0)")
+    return int(node.attrs.get("input_zero_point", 0)), kzp
 
 
 @infer_rule("qnn.conv2d")
@@ -223,14 +229,14 @@ def _qconv_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarray
 
 @torch_impl("qnn.conv2d")
 def _qconv_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
-    izp = _check_raw_operands(node, data, weight)
+    izp, kzp = _check_raw_operands(node, data, weight)
     geometry = dict(strides=_nn._pair(node.attrs.get("strides", (1, 1))),
                     padding=_nn._pad4(node.attrs.get("padding", (0, 0, 0, 0))),
                     groups=int(node.attrs.get("groups", 1)),
                     dilation=_nn._pair(node.attrs.get("dilation", (1, 1))))
     if node.attrs.get("out_dtype", "int32") == "int64":
         return _wide.wide_conv(data, weight, izp=izp, **geometry)
-    return qconv2d_flat(data, weight, input_zero_point=izp, **geometry)
+    return qconv2d_flat(data, weight, input_zero_point=izp, kernel_zero_point=kzp, **geometry)
 
 
 @infer_rule("qnn.dense")
@@ -256,13 +262,13 @@ def _qdense_np(data: np.ndarray, weight: np.ndarray, *, node: Node) -> np.ndarra
 
 @torch_impl("qnn.dense")
 def _qdense_torch(data: torch.Tensor, weight: torch.Tensor, *, node: Node) -> torch.Tensor:
-    izp = _check_raw_operands(node, data, weight)
+    izp, kzp = _check_raw_operands(node, data, weight)
     lead = data.shape[:-1]
     x = data.reshape(-1, data.shape[-1])
     if node.attrs.get("out_dtype", "int32") == "int64":
         out = _wide.wide_dense(x, weight, izp=izp)
     else:
-        out = qmatmul_int8(x, weight, input_zero_point=izp)
+        out = qmatmul_int8(x, weight, input_zero_point=izp, kernel_zero_point=kzp)
     return out.reshape(*lead, weight.shape[-1])
 
 

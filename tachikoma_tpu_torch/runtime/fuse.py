@@ -297,12 +297,12 @@ def _head_shadow(node: Node) -> Node:
 
 
 def _kernel_args(a) -> dict:
-    """The requantize keyword arguments of the kernel entries."""
+    """The requantize keyword arguments of the kernel entries (a weight zero
+    point and a uint8 output: legacy uint8 TFLite models, on K1, K2 and
+    K5)."""
     lo, hi = _bounds(a)
-    if np.any(np.asarray(a.get("kernel_zero_point", 0))):
-        raise NotImplementedError("a nonzero kernel zero point is not ported yet (ROADMAP "
-                                  "Queue 1 item 2: the nonzero kernel zero point)")
     return dict(multiplier=a["multiplier"], shift=a["shift"],
+                kernel_zero_point=a.get("kernel_zero_point", 0),
                 input_zero_point=int(a.get("input_zero_point", 0)),
                 rq_input_zero_point=int(a.get("rq_input_zero_point", 0)),
                 out_zp=int(a.get("output_zero_point", 0)),

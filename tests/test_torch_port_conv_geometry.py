@@ -217,16 +217,22 @@ def test_what_stays_refused_names_its_roadmap_item(rng):
     x = torch.from_numpy(_i8(rng, (1, 9, 9, 16)))
     dw = _i8(rng, (3, 3, 1, 16))
     m, s = plan_requantize(0.0004, 0.05)
-    with pytest.raises(NotImplementedError, match="item 2: K5 with dilation"):
-        conv.qconv2d_flat(x, dw, groups=16, dilation=(2, 2), padding=(2,) * 4)
+    # a dilated depthwise conv is no longer refused: it runs on K5 (its
+    # plain version here) == the JAX package's oracle
     attrs = dict(groups=16, dilation=(2, 2), padding=(2,) * 4)
-    with pytest.raises(NotImplementedError, match="item 2: K5 with dilation"):
-        get_op("qnn.conv2d").torch_impl(x, torch.from_numpy(dw),
-                                        node=Node("c", "qnn.conv2d", ("d", "w"), attrs))
-    with pytest.raises(NotImplementedError, match="item 2: K5 with dilation"):
-        get_op("tk.conv2d_rq").torch_impl(
-            x, torch.from_numpy(dw), node=Node("c", "tk.conv2d_rq", ("d", "w"),
-                                               dict(attrs, multiplier=m, shift=s)))
+    jnode = JNode("c", "qnn.conv2d", ("d", "w"), dict(attrs, input_zero_point=0,
+                                                      kernel_zero_point=0, out_dtype="int32"))
+    want = j_get_op("qnn.conv2d").np_impl(x.numpy(), dw, node=jnode)
+    np.testing.assert_array_equal(conv.qconv2d_flat(x, dw, **attrs).numpy(), want)
+    got = get_op("qnn.conv2d").torch_impl(x, torch.from_numpy(dw),
+                                          node=Node("c", "qnn.conv2d", ("d", "w"), attrs))
+    np.testing.assert_array_equal(got.numpy(), want)
+    rq = dict(attrs, multiplier=m, shift=s)
+    got = get_op("tk.conv2d_rq").torch_impl(
+        x, torch.from_numpy(dw), node=Node("c", "tk.conv2d_rq", ("d", "w"), rq))
+    want = j_get_op("tk.conv2d_rq").np_impl(x.numpy(), dw,
+                                            node=JNode("c", "tk.conv2d_rq", ("d", "w"), rq))
+    np.testing.assert_array_equal(got.numpy(), want)
     x16 = torch.from_numpy(rng.integers(-2000, 2000, (1, 9, 9, 16)).astype(np.int16))
     for bad, match in ((dict(dilation=(2, 2), padding=(2,) * 4), "dilation.*item 2"),
                        (dict(groups=4, padding=(1,) * 4), "groups 4.*item 2")):

@@ -1151,9 +1151,13 @@ def test_dilated_and_grouped_convs_through_qconv2d_flat(rng, cuda):
         kw.pop("layout", None)
         raw = qconv2d_flat(x, w, input_zero_point=3, **kw)
         assert torch.equal(raw.cpu(), qconv2d_flat(x.cpu(), w, input_zero_point=3, **kw))
-    with pytest.raises(NotImplementedError, match="item 2: K5 with dilation"):
-        qconv2d_flat(_dev(rng, (1, 9, 9, 16), cuda), _i8(rng, (3, 3, 1, 16)), groups=16,
-                     dilation=(2, 2), padding=(2,) * 4)
+    # a dilated depthwise conv runs on K5
+    x, w = _dev(rng, (1, 9, 9, 16), cuda), _i8(rng, (3, 3, 1, 16))
+    before = _lib.LAUNCHES["qdwconv_raw"]
+    got = qconv2d_flat(x, w, groups=16, dilation=(2, 2), padding=(2,) * 4)
+    assert _lib.LAUNCHES["qdwconv_raw"] == before + 1
+    assert torch.equal(got.cpu(), qconv2d_flat(x.cpu(), w, groups=16, dilation=(2, 2),
+                                               padding=(2,) * 4))
 
 
 @pytest.mark.cuda
@@ -3152,3 +3156,173 @@ def test_pipeline_on_card_equals_single_card(cuda, num_stages, micro):
     spans = pe.intervals()
     assert len(spans) == len(pe.stages) * micro
     assert all(end >= start for _, _, start, end in spans)
+
+
+# ---------------------------------------------------------------------------
+# legacy uint8 models: uint8 data, a weight zero point, uint8 outputs, K5 with
+# dilation (K1, K2, K4, K5)
+# ---------------------------------------------------------------------------
+
+def _u8(rng, shape, device):
+    return torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)).to(device)
+
+
+def _data(rng, shape, device, dtype):
+    return _u8(rng, shape, device) if dtype == "uint8" else _dev(rng, shape, device)
+
+
+def _kzp(rng, n, device, kind):
+    """None, one zero point for every column (as a vector) or one a column,
+    in the int8 range the kernels take (uint8 weights' less 128)."""
+    if kind == "none":
+        return None
+    v = np.full(n, 15) if kind == "scalar" else rng.integers(-128, 128, n)
+    return channel_vector(v, n, device)
+
+
+# (M, K, N): the uint8 MobileNetV2 b8 224^2's 1x1 calls (K = 24: 8-byte
+# copies; the head; the classifier at M = 8, skinny), a split of K (M 392,
+# K 2048), M <= 64 at b1 (49 rows, the classifier at M = 1), a ragged call
+LEGACY_GEMM_CASES = [(25088, 24, 144), (3136, 320, 1280), (8, 1280, 1001), (392, 2048, 512),
+                     (49, 960, 160), (1, 1280, 1001), (37, 70, 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", LEGACY_GEMM_CASES)
+@pytest.mark.parametrize("dtype,kzp", [("uint8", "scalar"), ("uint8", "channel"),
+                                       ("int8", "channel"), ("uint8", "none")])
+def test_k1_k4_gemm_legacy_every_plan_on_card(rng, cuda, mkn, dtype, kzp):
+    """K1 (uint8 and int8 out) and K4's GEMM mode with uint8 or int8 data and
+    a weight zero point == plain at every launch they can make of the call
+    (`gemm_plans`: each tile unsplit and split, the skinny path at M <= 64
+    at several splits): each split takes its own steps' row sums off."""
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import gemm_plans
+
+    m, k, n = mkn
+    x, w = _data(rng, (m, k), cuda, dtype), _dev(rng, (k, n), cuda)
+    z = _kzp(rng, n, cuda, kzp)
+    b, mult, shift = _epilogue_args(rng, n, cuda)
+    raw_want = qgemm_raw_plain(x, w, b, kzp=z)
+    rq = dict(rq_izp=3, out_zp=100, rounding="TONEAREST", qmin=0, qmax=255, kzp=z,
+              out_dtype="uint8")
+    rq_want = qgemm_rq_plain(x, w, b, mult, shift, **rq)
+    i8 = dict(rq, out_zp=-5, qmin=-128, qmax=127, out_dtype="int8")
+    i8_want = qgemm_rq_plain(x, w, b, mult, shift, **i8)
+    for plan in gemm_plans(m, k, n):
+        got = qgemm_raw(x, w, b, plan=plan, kzp=z)
+        torch.cuda.synchronize()
+        assert torch.equal(got, raw_want), ("raw", plan)
+        got = qgemm_rq(x, w, b, mult, shift, plan=plan, **rq)
+        assert got.dtype == torch.uint8 and torch.equal(got, rq_want), ("rq", plan)
+        assert torch.equal(qgemm_rq(x, w, b, mult, shift, plan=plan, **i8), i8_want), plan
+
+
+# (x shape, k, stride, dilation, padding, cout): the uint8 MobileNetV2 b8
+# 224^2 stem (CIN 3, SAME: (0, 0, 1, 1), byte gather), 3x3 at CIN 64 (16-byte
+# copies) unsplit and at 7^2 x 512 (a split of K), dilated, a ragged one
+LEGACY_CONV_CASES = [((8, 224, 224, 3), 3, 2, 1, (0, 0, 1, 1), 32),
+                     ((2, 28, 28, 64), 3, 1, 1, (1, 1, 1, 1), 64),
+                     ((1, 7, 7, 512), 3, 1, 1, (1, 1, 1, 1), 512),
+                     ((1, 33, 33, 64), 3, 1, 4, (4, 4, 4, 4), 128),
+                     ((2, 11, 9, 20), 5, 2, 1, (2, 1, 2, 1), 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LEGACY_CONV_CASES)
+@pytest.mark.parametrize("dtype,kzp", [("uint8", "scalar"), ("uint8", "channel"),
+                                       ("int8", "channel"), ("uint8", "none")])
+def test_k2_k4_conv_legacy_on_card(rng, cuda, case, dtype, kzp):
+    """K2 (uint8 out, every tile) and K4's conv mode with uint8 or int8 data,
+    the padding filled with izp, and a weight zero point == plain."""
+    shape, k, s, d, pad, cout = case
+    x, w = _data(rng, shape, cuda, dtype), _dev(rng, (k, k, shape[3], cout), cuda)
+    z = _kzp(rng, cout, cuda, kzp)
+    izp = 128 if dtype == "uint8" else -7
+    kw = dict(strides=(s, s), padding=pad, izp=izp, dilation=(d, d), kzp=z)
+    b, mult, shift = _epilogue_args(rng, cout, cuda)
+    raw_want = qconv_raw_plain(x, w, b, **kw)
+    before = _lib.LAUNCHES["qconv_raw"]
+    got = qconv_raw(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["qconv_raw"] == before + 1 and torch.equal(got, raw_want)
+    kw.update(rq_izp=-2, out_zp=60, rounding="UPWARD", qmin=0, qmax=255, out_dtype="uint8")
+    want = qconv_rq_plain(x, w, b, mult, shift, **kw)
+    for blocks in [None] + TILE_BLOCKS:
+        got = qconv_rq(x, w, b, mult, shift, blocks=blocks, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint8 and torch.equal(got, want), blocks
+
+
+# DeepLab-MobileNetV2 (slim's mobilenet_v2 at output stride 8, b1 513^2)'s
+# atrous depthwise calls: 65^2 maps, 384 and 576 channels at dilation 2, 960
+# at 4; then MobileNetV2's undilated 3x3 s2, a 5x5 at dilation 3 and stride
+# 2, C off 16 (byte copies)
+LEGACY_DW_CASES = [((1, 65, 65, 384), 3, 1, 2), ((1, 65, 65, 576), 3, 1, 2),
+                   ((1, 65, 65, 960), 3, 1, 4), ((8, 112, 112, 96), 3, 2, 1),
+                   ((2, 23, 19, 40), 5, 2, 3), ((1, 14, 14, 24), 3, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LEGACY_DW_CASES)
+@pytest.mark.parametrize("dtype,kzp", [("uint8", "channel"), ("int8", "channel"),
+                                       ("uint8", "none"), ("int8", "none")])
+def test_k5_legacy_and_dilated_on_card(rng, cuda, case, dtype, kzp):
+    """K5's both modes with uint8 or int8 data, a weight zero point, a
+    dilation and (rq) a uint8 output == plain."""
+    shape, k, s, d = case
+    c = shape[3]
+    x, w = _data(rng, shape, cuda, dtype), _dev(rng, (k, k, 1, c), cuda)
+    z = _kzp(rng, c, cuda, kzp)
+    p = d * (k // 2)
+    kw = dict(strides=(s, s), padding=(p, p, p, p), izp=200 if dtype == "uint8" else -3,
+              dilation=(d, d), kzp=z)
+    b, mult, shift = _epilogue_args(rng, c, cuda)
+    before = dict(_lib.LAUNCHES)
+    got = qdwconv_raw(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qdwconv_raw_plain(x, w, b, **kw))
+    kw.update(rq_izp=1, out_zp=7, rounding="TONEAREST", qmin=0, qmax=255, out_dtype="uint8")
+    got = qdwconv_rq(x, w, b, mult, shift, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and torch.equal(got, qdwconv_rq_plain(x, w, b, mult, shift,
+                                                                          **kw))
+    assert _lib.LAUNCHES["qdwconv_raw"] == before.get("qdwconv_raw", 0) + 1
+    assert _lib.LAUNCHES["qdwconv_rq"] == before.get("qdwconv_rq", 0) + 1
+
+
+@pytest.mark.cuda
+def test_legacy_uint8_weights_through_the_entries_on_card(rng, cuda):
+    """uint8 weights with their zero point through qconv2d_flat and
+    qmatmul_int8 on the card == the CPU path, on K1, K2, K5 and K4; K3 and
+    the K7-K10 layouts take no uint8 data (a layout is ignored, K3 raises)."""
+    from tachikoma_tpu_torch.ops.kernels.matmul_int8 import qmatmul_int8
+
+    m, s = plan_requantize(0.0004, 0.05)
+    rq = dict(multiplier=m, shift=s, out_zp=90, out_dtype="uint8", qmin=0, qmax=255)
+    for xs, ws, kw, kernel in (
+            ((2, 16, 16, 8), (3, 3, 8, 32), dict(padding=(1,) * 4, layout="t"), "qconv_rq"),
+            ((2, 16, 16, 32), (1, 1, 32, 16), {}, "qgemm_rq"),
+            ((2, 16, 16, 32), (3, 3, 1, 32), dict(groups=32, padding=(2,) * 4,
+                                                  dilation=(2, 2)), "qdwconv_rq")):
+        x, w = _u8(rng, xs, cuda), rng.integers(0, 256, ws).astype(np.uint8)
+        kw = dict(kw, input_zero_point=128, kernel_zero_point=141)
+        before = dict(_lib.LAUNCHES)
+        got = qconv2d_flat(x, w, **rq, **kw)
+        assert _lib.LAUNCHES[kernel] == before.get(kernel, 0) + 1
+        assert torch.equal(got.cpu(), qconv2d_flat(x.cpu(), w, **rq, **kw))
+        kw.pop("layout", None)
+        raw = qconv2d_flat(x, w, **kw)
+        assert torch.equal(raw.cpu(), qconv2d_flat(x.cpu(), w, **kw))
+    x, w = _u8(rng, (8, 1280), cuda), rng.integers(0, 256, (1280, 1001)).astype(np.uint8)
+    kz = rng.integers(0, 256, 1001)
+    for mult in (m, None):
+        args = dict(multiplier=mult, shift=s if mult is not None else None,
+                    input_zero_point=3, kernel_zero_point=kz)
+        if mult is not None:
+            args.update(out_dtype="uint8", qmin=0, qmax=255)
+        got = qmatmul_int8(x, w, **args)
+        assert torch.equal(got.cpu(), qmatmul_int8(x.cpu(), w, **args))
+    with pytest.raises(NotImplementedError, match="item 2"):
+        qconv_rq_res(_u8(rng, (1, 8, 8, 16), cuda), _dev(rng, (3, 3, 16, 16), cuda),
+                     *_epilogue_args(rng, 16, cuda), _dev(rng, (1, 8, 8, 16), cuda),
+                     _res_params(0, 0, 0, "UPWARD"), padding=(1,) * 4)

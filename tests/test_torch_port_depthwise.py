@@ -137,8 +137,8 @@ def test_wrappers_on_cpu_count_no_launch_and_refuse_other_devices(rng):
                                            ((3, 3, 2, 8), 4)])      # grouped, not depthwise
 def test_qconv2d_flat_refuses_other_grouped_convs(rng, wshape, groups):
     """Grouped convs other than depthwise run on K2 / K4's conv mode now
-    (== the oracle's grouped qnn.conv2d); what K5 still refuses is a
-    dilated depthwise conv, and groups that do not fit the channels are an
+    (== the oracle's grouped qnn.conv2d), a dilated depthwise conv on K5
+    (== the oracle too); groups that do not fit the channels are an
     error."""
     x, w = _i8(rng, (1, 5, 5, 8)), _i8(rng, wshape)
     node = JNode("c", "qnn.conv2d", ("d", "w"),
@@ -148,8 +148,12 @@ def test_qconv2d_flat_refuses_other_grouped_convs(rng, wshape, groups):
     got = qconv2d_flat(torch.from_numpy(x), w, groups=groups, padding=(1, 1, 1, 1),
                        input_zero_point=3)
     np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="item 2: K5 with dilation"):
-        qconv2d_flat(torch.from_numpy(x), _i8(rng, (3, 3, 1, 8)), groups=8, dilation=(2, 2))
+    wd = _i8(rng, (3, 3, 1, 8))
+    dnode = JNode("c", "qnn.conv2d", ("d", "w"),
+                  {"groups": 8, "dilation": (2, 2), "input_zero_point": 3,
+                   "kernel_zero_point": 0, "out_dtype": "int32"})
+    got = qconv2d_flat(torch.from_numpy(x), wd, groups=8, dilation=(2, 2), input_zero_point=3)
+    np.testing.assert_array_equal(got.numpy(), j_get_op("qnn.conv2d").np_impl(x, wd, node=dnode))
     with pytest.raises(ValueError, match=f"groups {groups + 1} do not fit"):
         qconv2d_flat(torch.from_numpy(x), w, groups=groups + 1)
 

@@ -165,19 +165,22 @@ def test_raw_wrappers_count_no_launch_on_cpu_and_refuse_other_devices(rng):
     with pytest.raises(ValueError, match="no kernel for device meta"):
         qconv_raw(meta.reshape(1, 2, 2, 32), w.reshape(1, 1, 32, 8).to("meta"),
                   torch.zeros(8, dtype=torch.int32, device="meta"))
-    # a grouped conv runs on K4's conv mode (its plain version here, no
-    # launch counted) == the reference's grouped qnn.conv2d; a dilated
-    # depthwise conv has no kernel yet
+    # a grouped conv runs on K4's conv mode and a dilated depthwise conv on
+    # K5's raw mode (their plain versions here, no launch counted) == the
+    # reference's grouped qnn.conv2d
     x8, w8 = _i8(rng, (1, 4, 4, 8)), _i8(rng, (3, 3, 4, 8))
     node = JNode("c", "qnn.conv2d", ("d", "w"), {"padding": (1, 1, 1, 1), "groups": 2,
                                                  "input_zero_point": 0, "kernel_zero_point": 0,
                                                  "out_dtype": "int32"})
     got = qconv2d_flat(torch.from_numpy(x8), w8, groups=2, padding=(1, 1, 1, 1))
     np.testing.assert_array_equal(got.numpy(), j_get_op("qnn.conv2d").np_impl(x8, w8, node=node))
+    wd = _i8(rng, (3, 3, 1, 8))
+    dnode = JNode("c", "qnn.conv2d", ("d", "w"), {"padding": (2, 2, 2, 2), "groups": 8,
+                                                  "dilation": (2, 2), "input_zero_point": 0,
+                                                  "kernel_zero_point": 0, "out_dtype": "int32"})
+    got = qconv2d_flat(torch.from_numpy(x8), wd, groups=8, dilation=(2, 2), padding=(2, 2, 2, 2))
+    np.testing.assert_array_equal(got.numpy(), j_get_op("qnn.conv2d").np_impl(x8, wd, node=dnode))
     assert dict(_lib.LAUNCHES) == before
-    with pytest.raises(NotImplementedError, match="K5 with dilation"):
-        qconv2d_flat(torch.from_numpy(x8), _i8(rng, (3, 3, 1, 8)), groups=8, dilation=(2, 2),
-                     padding=(2, 2, 2, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -225,11 +228,18 @@ def test_qnn_dense_torch_matches_jax_and_oracle(rng, izp):
     (dict(kernel_zero_point=2), "kernel_zero_point"),
 ])
 def test_qnn_conv2d_and_dense_refuse_what_k4_cannot_run(rng, bad, match):
+    """A weight zero point into int32 runs on K4 (legacy uint8 models) ==
+    the JAX package's oracle; into int64 (W8A16's kernels) it is refused."""
     for op, x, w in [("qnn.conv2d", _i8(rng, (1, 4, 4, 8)), _i8(rng, (1, 1, 8, 4))),
                      ("qnn.dense", _i8(rng, (2, 8)), _i8(rng, (8, 4)))]:
         node = Node("layer3_conv", op, ("a", "b"), bad)
+        got = get_op(op).torch_impl(torch.from_numpy(x), torch.from_numpy(w), node=node)
+        want = j_get_op(op).np_impl(x, w, node=JNode("layer3_conv", op, ("a", "b"), bad))
+        np.testing.assert_array_equal(got.numpy(), want)
+        node = Node("layer3_conv", op, ("a", "b"), dict(bad, out_dtype="int64"))
         with pytest.raises(NotImplementedError, match=f"layer3_conv.*{match}"):
-            get_op(op).torch_impl(torch.from_numpy(x), torch.from_numpy(w), node=node)
+            get_op(op).torch_impl(torch.from_numpy(x.astype(np.int16)), torch.from_numpy(w),
+                                  node=node)
 
 
 @pytest.mark.parametrize("axis", [-1, 1])

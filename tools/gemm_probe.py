@@ -1,6 +1,7 @@
 """K1 (qgemm_rq) timed on one GPU at every call it gets in the int8 b8 224^2
-forwards of ResNet-50, MobileNetV2 and VGG-16, beside an earlier tree's K1
-in the same process; with `--raw`, K4's GEMM mode (qgemm_raw) at every call
+forwards of ResNet-50, MobileNetV2 and VGG-16, the int8 GPT-2 small decode
+step and the int8 LSTM b1 seq 16 (chip_smoke.py phases 18e and 19h: M = 1,
+the skinny path), beside an earlier tree's K1 in the same process; with `--raw`, K4's GEMM mode (qgemm_raw) at every call
 of the unfused b1 224^2 forwards of ResNet-50 (37) and MobileNetV2 (35),
 beside an earlier tree's K4:
 
@@ -39,7 +40,9 @@ Each call is an (M, K) x (K, N) GEMM with the exact requantize epilogue
     `csrc/igemm_hopper.cuh`, `csrc/epilogue_hopper.cuh` and
     `csrc/layouts_hopper.cuh`;
   * `--parent DIR` (a `csrc/` of the same design's C interface, e.g. a `git
-    archive` of the parent tree): the port's own wrapper launching DIR's
+    archive` of the parent tree, or of the one before the entries took a
+    weight zero point: the port's null `kzp` pointer is then not passed):
+    the port's own wrapper launching DIR's
     `qgemm_rq.cu` entries (`parent`, == plain first), timed in turns with
     its own (`port`, `parent`, `port_again`, `parent_again`); with `--k2`
     also K2 (`qconv_rq`) at ResNet-50 b8's eight 3x3 / 7x7 calls
@@ -78,6 +81,7 @@ call_seconds`, warm L2), per call and summed per forward with each call's
 repeats.  The card's name and power limit are printed; everything goes to
 OUT_JSON (default gemm_probe.json).
 """
+import contextlib
 import ctypes
 import json
 import os
@@ -148,6 +152,19 @@ def _vgg16(b):
     return [(b, 25088, 4096, 1), (b, 4096, 4096, 1), (b, 4096, 1000, 1)]
 
 
+def _gpt2_decode(b):
+    """The int8 GPT-2 small decode step's 36 tk.dense_rq calls (chip_smoke.py
+    phase 18e), one token of one sequence: M = 1 whatever `b`."""
+    return [(1, 768, 768, 12), (1, 768, 3072, 12), (1, 3072, 768, 12)]
+
+
+def _lstm(b):
+    """The int8 LSTM b1 seq 16's 32 calls (chip_smoke.py phase 19h): the
+    input and recurrent products of each step and the head, M = 1 whatever
+    `b`."""
+    return [(1, 64, 512, 16), (1, 128, 512, 15), (1, 128, 10, 1)]
+
+
 def _resnet50_unfused(b):
     """ResNet-50's K4 GEMM calls in an unfused forward (chip_smoke.py phase
     7): every 1x1 conv (each bottleneck's first and last, the four
@@ -166,7 +183,8 @@ def _resnet50_unfused(b):
     return calls
 
 
-MODELS = {"ResNet-50": _resnet50, "MobileNetV2": _mobilenet_v2, "VGG-16": _vgg16}
+MODELS = {"ResNet-50": _resnet50, "MobileNetV2": _mobilenet_v2, "VGG-16": _vgg16,
+          "GPT-2 decode": _gpt2_decode, "LSTM": _lstm}
 # K4's GEMM mode: the unfused forwards of the trace path (chip_smoke.py
 # phases 7 and 10a); MobileNetV2 unfused makes K1's fused calls
 RAW_MODELS = {"ResNet-50": _resnet50_unfused, "MobileNetV2": _mobilenet_v2}
@@ -375,7 +393,35 @@ def _applies(csrc: Path, src: str, cut) -> bool:
                for r in cut)
 
 
-def k2_turns(parent_lib: Path, rng) -> dict:
+def _signature(text: str, fn_name: str) -> str:
+    i = text.index(f'extern "C" int {fn_name}(')
+    return text[i:text.index("{", i)]
+
+
+@contextlib.contextmanager
+def parent_entries(lib_path: Path, parent: Path, src: str):
+    """entries_of(lib_path, src) for a build of DIR's `src`; an entry whose
+    C signature there takes no `kzp` while the port's does (the interface
+    before the weight zero point, the pointer before `p`) gets the port's
+    calls with that pointer dropped, which must be null."""
+    from tachikoma_tpu_torch.ops.kernels import _lib
+
+    theirs, ours = (parent / src).read_text(), (_lib.CSRC / src).read_text()
+    with entries_of(lib_path, src):
+        for fn_name, n_ptr in _lib.SOURCES[src]:
+            if "kzp" in _signature(theirs, fn_name) or "kzp" not in _signature(ours, fn_name):
+                continue
+            fn = _lib._entries[fn_name]
+            fn.argtypes = [ctypes.c_void_p] * (n_ptr + 1)
+
+            def call(*args, fn=fn, k=n_ptr - 1):
+                assert args[k] is None, "a weight zero point reached an entry without one"
+                return fn(*args[:k], *args[k + 1:])
+            _lib._entries[fn_name] = call
+        yield
+
+
+def k2_turns(parent_lib: Path, parent: Path, rng) -> dict:
     """K2 at ResNet-50 b8's 3x3 / 7x7 calls, the port's library and
     `parent_lib` (a build of another qconv_igemm_hopper.cu) in turns, each
     == plain first; ms a call and summed a forward."""
@@ -397,10 +443,10 @@ def k2_turns(parent_lib: Path, rng) -> dict:
 
         label = f"{'x'.join(map(str, shape))} k{k} s{stride} -> {cout}"
         row = {"call": label, "port": time_checked(fn, want, f"K2 {label}")}
-        with entries_of(parent_lib, src):
+        with parent_entries(parent_lib, parent, src):
             row["parent"] = time_checked(fn, want, f"K2 (parent) {label}")
         row["port_again"] = call_seconds(fn, "cuda") * 1e3
-        with entries_of(parent_lib, src):
+        with parent_entries(parent_lib, parent, src):
             row["parent_again"] = call_seconds(fn, "cuda") * 1e3
         rows.append(row)
         print(f"K2 {label:34s} " + " ".join(f"{key} {v:.4f}" for key, v in row.items()
@@ -462,10 +508,10 @@ def main() -> int:
 
                 row["port"] = time_checked(port_fn, want, f"port {kernel} {m}x{k}x{n}")
                 if parent_libs:  # in turns: port, parent, port, parent
-                    with entries_of(parent_libs[SRC], SRC):
+                    with parent_entries(parent_libs[SRC], parent, SRC):
                         row["parent"] = time_checked(port_fn, want, f"parent {kernel} {m}x{k}x{n}")
                     row["port_again"] = call_seconds(port_fn, "cuda") * 1e3
-                    with entries_of(parent_libs[SRC], SRC):
+                    with parent_entries(parent_libs[SRC], parent, SRC):
                         row["parent_again"] = call_seconds(port_fn, "cuda") * 1e3
                 for name, lib in port.items():
                     if name == "whole" or ("skinny" in name) != (plan["path"] == "skinny"):
@@ -511,7 +557,7 @@ def main() -> int:
                   + " ".join(f"{key} {v:.4f}" for key, v in total.items()), flush=True)
             res["models"][model] = {"calls": rows, "per_forward": total}
         if parent_libs and "--k2" in argv and not raw:
-            res["k2_parent"] = k2_turns(parent_libs["qconv_igemm_hopper.cu"], rng)
+            res["k2_parent"] = k2_turns(parent_libs["qconv_igemm_hopper.cu"], parent, rng)
         with open(out_path, "w") as f:
             json.dump(res, f, indent=1)
     finally:

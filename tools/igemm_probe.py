@@ -62,8 +62,8 @@ CUTS = {
         ("requant_wide(acc[4 * jb + 2 * h], c0, e)", "acc[4 * jb + 2 * h] + c0.x"),
         ("requant_wide(acc[4 * jb + 2 * h + 1], c1, e)", "acc[4 * jb + 2 * h + 1] + c1.x"),
     ]),
-    "no_mma": (None, [("for (int kk = 0; kk < 2; ++kk)\n      wgmma_acc<BN>",
-                       "for (int kk = 0; kk < 2 * (int)(g.M < 0); ++kk)\n      wgmma_acc<BN>")]),
+    "no_mma": (None, [("for (int kk = 0; kk < 2; ++kk)\n        wgmma_acc<BN>",
+                       "for (int kk = 0; kk < 2 * (int)(g.M < 0); ++kk)\n        wgmma_acc<BN>")]),
     "no_atomics": ("qconv_raw", [("if (split) {", "if (false) {")]),
     "no_res_load": ("qconv_rq_res", [("if (g.o_vec) {  // the item's residual tile",
                                       "if (g.M < 0) {  // the item's residual tile")]),
@@ -159,7 +159,7 @@ def main() -> int:
             assert proc.wait() == 0, f"nvcc failed on the {name} cut"
             lib = ctypes.CDLL(so)
             cuts[name] = {}
-            for entry, n_ptr in (("tk_qconv_rq_res", 7), ("tk_qconv_raw", 4)):
+            for entry, n_ptr in _lib.SOURCES["qconv_igemm_hopper.cu"]:
                 fn = getattr(lib, entry)
                 fn.argtypes = [ctypes.c_void_p] * (n_ptr + 2)
                 fn.restype = ctypes.c_int

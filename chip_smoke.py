@@ -474,7 +474,29 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
      at 4), the calls counted, each == plain and timed beside cuDNN's fp16
      dilated depthwise conv.  The phase's host seconds are printed.  To
      make room for it, REQUESTS went from 20 to 12 and TRACE_TIMED from 5
-     to 2, in every phase.
+     to 2, in every phase;
+ 29. W8A16 beyond the plain CNN (int16 activations, int64 accumulators,
+     unfused): (a) BERT-base b4 s128 quantized with W8A16, its 24
+     qnn.batch_matmul on qbmm_wide (csrc/qbmm_wide_hopper.cu: both int16
+     operands split into byte planes, four wgmma products into three int32
+     sums, int64 out) and its 50 denses on qgemm_wide, every call == its
+     float64 plain version and timed beside the bound and the float64
+     cuBLAS call, REQUESTS requests with no plain
+     version and no library product run (no_plain_conv, torch.matmul and
+     torch.bmm spied on too), every node held to the CPU path at node level
+     (hold_zoo_nodes: the card's float softmax and tanh round in their own
+     way, and a flipped int16 element grows through the reference's int16
+     layer norm, whose int32 sum of squares wraps, so the logits' distance
+     from the CPU's is printed, not held), latency and busy share; (b) its
+     b1 s128 trace on the card, the records no float op reaches byte-equal
+     to the CPU's, every record verify_trace'd; (c) ViT-B/16 b1 224^2 as
+     (a), its patch embedding on qconv_wide; (d) DeepLabV3-ResNet-50 b1
+     520^2 (phase 27's float graph, the Resize in float) as (a), its 11
+     dilated convs on qconv_wide summed as a row, every node held at 176^2;
+     (e) ResNeXt-50 32x4d b1 224^2 (phase 27's module) as (a), its 16
+     grouped convs on qconv_wide's super-groups as a row; (f) qdwconv_wide
+     dilated at the ten atrous calls of phase 28c at int16.  The phase's
+     host seconds are printed.
 
 In the kernels line, the times (ms, plain_ms, bound_ms, library_ms) of K1-K4
 are per ResNet-50 forward (b8 fused for K1-K3, b1 unfused for K4), those of
@@ -490,11 +512,12 @@ forward (phase 17), those of qgemm_wide and qconv_wide (the W8A16 int64
 products: their bound the int16 read, int8 weights and int64 write, or two
 int8 products; their library call the float64 product) per W8A16
 ResNet-50 b8 forward (phase 20c) and of qdwconv_wide per 16x8 fixture
-forward (phase 20e); `launches` sums each
+forward (phase 20e), those of qbmm_wide per W8A16 BERT-base b4 s128 forward
+(phase 29a); `launches` sums each
 kernel's launches over the paths' timed runs (phases 5, 8, 9, 10, 11,
 12c-14c, 15c, 16a, 16c, 17c, 17e, 17f, 18b, 18e, 18f, 19a-19k, 19l, 20a-20e,
 21a, 21b, 22a-22d, 23a, 23b, 23d, 23e, 24a, 24b, 24d, 25a, 25b; 26a,
-26d, 26e, 26f summed over the ranks; 27a-27e; 28a-28c; K11
+26d, 26e, 26f summed over the ranks; 27a-27e; 28a-28c; 29a-29f; K11
 and K12 in 16b's tune_conv run), each counted from 0 just before its run; max_abs_err is the largest over every check.  TF32 is off for matmuls and cuDNN (the float path's
 products are float32).  The line before the last is one JSON object
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
@@ -503,6 +526,7 @@ products are float32).  The line before the last is one JSON object
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -576,6 +600,9 @@ KERNELS = {
     "qconv_wide": ("tachikoma_tpu_torch/csrc/qconv_wide_hopper.cu",
                    "tachikoma_tpu/ops/jax_ops.py:103"),
     "qdwconv_wide": ("tachikoma_tpu_torch/csrc/qdwconv.cu", "tachikoma_tpu/ops/jax_ops.py:103"),
+    # no Pallas kernel: XLA runs qnn.batch_matmul into int64 in the JAX package
+    "qbmm_wide": ("tachikoma_tpu_torch/csrc/qbmm_wide_hopper.cu",
+                  "tachikoma_tpu/ops/jax_ops.py:249"),
 }
 LAYOUT_KERNELS = ("qconv_rq_t", "qconv_rq_s", "qconv_rq_w", "qconv_rq_r")
 WRAPPER_CALLS = 20                # host-clock repeats of the wrappers' own work
@@ -598,7 +625,8 @@ TFLITE_KERNELS = ("qgemm_rq", "qconv_rq", "qdwconv_rq")
 TFLITE_TRACE_KERNELS = ("qgemm_raw", "qconv_raw", "qdwconv_raw")
 W8A16_KERNELS = ("qgemm_wide", "qconv_wide")
 W8A16_16X8_KERNELS = ("qgemm_wide", "qconv_wide", "qdwconv_wide")
-WIDE_KERNELS = W8A16_16X8_KERNELS
+# every W8A16 int64 product: the three above and the batched product (phase 29)
+WIDE_KERNELS = W8A16_16X8_KERNELS + ("qbmm_wide",)
 # the plane route's ms per forward (wide_planes: K4 / K5 on two byte planes
 # and torch passes; this script on the tree before the W8A16 kernels, NVIDIA
 # H100 80GB HBM3, 700.00 W): phase 20c b8, 20d b1
@@ -750,7 +778,7 @@ EARLIER_CALL_MS = {
 # printed call by call with their plan
 PLAN_KERNELS = ("qgemm_rq", "qconv_rq", "qconv_rq_res", "qgemm_raw", "qconv_raw", "qdwconv_rq",
                 "qdwconv_raw", "flash_attn", "qbmm_rq", "qbmm_raw", "qgemm_wide", "qconv_wide",
-                "qdwconv_wide")
+                "qdwconv_wide", "qbmm_wide")
 BMM_KERNELS = ("qbmm_rq", "qbmm_raw")
 
 
@@ -841,6 +869,15 @@ def work(name, a, k) -> tuple[int, int, str]:
         out_b = 4 if name == "qbmm_raw" else 1
         return (A.numel() + B.numel() + out_b * nb * m * n, 2 * nb * m * kk * n,
                 f"{nb}x ({m}, {kk}) x ({kk}, {n})")
+    if name == "qbmm_wide":  # int16 operands (views read in place), int64 out, four
+        # int8 products (the byte planes of both operands)
+        from tachikoma_tpu_torch.ops.kernels.matmul_int8 import _logical
+
+        A, B = _logical(a[0], a[1], k.get("transpose_a", False), k.get("transpose_b", False))
+        m, kk, n = A.shape[-2], A.shape[-1], B.shape[-1]
+        nb = int(np.prod(np.broadcast_shapes(tuple(A.shape[:-2]), tuple(B.shape[:-2]))))
+        return (2 * (A.numel() + B.numel()) + 8 * nb * m * n, 4 * 2 * nb * m * kk * n,
+                f"{nb}x ({m}, {kk}) x ({kk}, {n}) int16")
     if name == "flash_attn":
         b, h, s, d = a[0].shape
         g = b * h
@@ -897,6 +934,12 @@ def library_call(name, a, k):
     <= 16 and, through cuBLASLt, some other shapes (M=784 K=32 N=192 on
     torch 2.11, CUDA 12.8); there an fp16 matmul of the same shape."""
     x, w = a[0], a[1]
+    if name == "qbmm_wide":  # the exact float64 product (cuBLAS) of the same operands
+        from tachikoma_tpu_torch.ops.kernels.matmul_int8 import _logical
+
+        A, B = _logical(x.to(torch.float64), w.to(torch.float64), k.get("transpose_a", False),
+                        k.get("transpose_b", False))
+        return lambda: torch.matmul(A, B)
     if name in WIDE_KERNELS:  # the exact float64 product (cuBLAS, cuDNN) of the same shapes
         xd, wd = x.to(torch.float64), w.to(torch.float64)
         if name == "qgemm_wide":
@@ -904,9 +947,10 @@ def library_call(name, a, k):
         pt, pl, pb, pr = k.get("padding", (0, 0, 0, 0))
         xd = torch.nn.functional.pad(xd, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2).contiguous()
         wd = wd.permute(3, 2, 0, 1).contiguous()
-        groups = x.shape[3] if name == "qdwconv_wide" else 1
+        groups = x.shape[3] if name == "qdwconv_wide" else k.get("groups", 1)
+        dilation = tuple(k.get("dilation", (1, 1)))
         return lambda: torch.nn.functional.conv2d(xd, wd, stride=tuple(k.get("strides", (1, 1))),
-                                                  groups=groups)
+                                                  dilation=dilation, groups=groups)
     if name in BMM_KERNELS:  # an fp16 product of the same shapes: not exact
         from tachikoma_tpu_torch.ops.kernels.matmul_int8 import _logical
 
@@ -1015,6 +1059,8 @@ def launch_plan(name, a, k) -> str:
         return f"tile {p['bm']}x{p['bn']} split {p['ks']} x {p['kper']}"
     if name in BMM_KERNELS:  # path, tile, chunks of K, staging modes, operands read as uint8
         return matmul_int8.launch_summary(name, x, w, **k)
+    if name == "qbmm_wide":  # products, staging modes
+        return wide.bmm_wide_summary(x, w, **k)
     if name in ("qgemm_rq", "qgemm_raw"):
         p = k.get("plan") or matmul_int8.gemm_plan(x.shape[0], x.shape[1], w.shape[1],
                                                    k.get("blocks"), conv.sm_count(x.device.index))
@@ -1032,8 +1078,11 @@ def launch_plan(name, a, k) -> str:
     (_, oh, ow, _), _ = conv_out(x, w, k)
     sms = conv.sm_count(x.device.index)
     if name == "qconv_wide":
-        p = k.get("plan") or wide.wide_plan(x.shape[0] * oh * ow, kh * kw * cin, cout, sms)
-        return f"tile {p['bm']}x{p['bn']} split {p['ks']} x {p['kper']}"
+        span = conv.group_span(groups, cout // groups, wide.GROUPED_BN) if groups != 1 else 1
+        p = k.get("plan") or wide.wide_plan(x.shape[0] * oh * ow, kh * kw * span * cin, cout,
+                                            sms, wide.GROUPED_BN if groups != 1 else None)
+        return (f"tile {p['bm']}x{p['bn']} split {p['ks']} x {p['kper']}"
+                + (f", {span} groups a tile" if groups != 1 else ""))
     if name.startswith("qdwconv"):
         p = depthwise.dw_plan(x.shape[0], oh, ow, cout, kh, kw, sh, sw, x.element_size(),
                               *dilation)
@@ -1076,19 +1125,39 @@ def check_call(name, a, k, impl) -> dict:
                 max_abs_err=err)
 
 
+def call_key(name, a, k) -> tuple:
+    """What sets a call's time: the kernel, each tensor argument's shape,
+    dtype and strides, every other argument."""
+    def arg(v):
+        if isinstance(v, torch.Tensor):
+            return ("tensor", tuple(v.shape), str(v.dtype), v.stride())
+        if isinstance(v, (list, tuple)):
+            return tuple(arg(u) for u in v)
+        return repr(v)
+    return name, tuple(arg(v) for v in a), tuple(sorted((kk, arg(v)) for kk, v in k.items()))
+
+
 def check_kernels(calls: list, names, model: str = "", keep: list | None = None) -> dict:
     """Hold every recorded call of the kernels `names` against its plain
     version (== for the integer kernels, allclose for K6), time it, and sum
     per kernel; K2-K4 are printed call by call with their launch plan and
     the previous design's time on `model`'s call.  `keep`, where given,
-    receives every call's record (its dilation and groups among them)."""
+    receives every call's record (its dilation and groups among them).
+    Every call is held, but timed once per distinct call (`call_key`: the
+    same kernel, shapes, strides and arguments): a repeat, a later layer's
+    call, takes the first one's times."""
     impl = kernel_impls()
-    per_call, totals = [], {}
+    per_call, totals, timed = [], {}, {}
     for name, a, k in calls:
-        per_call.append(check_call(name, a, k, impl))
+        key = call_key(name, a, k)
+        if key in timed:
+            per_call.append(dict(timed[key], max_abs_err=hold_call(name, a, k, impl)))
+        else:
+            per_call.append(timed.setdefault(key, check_call(name, a, k, impl)))
         per_call[-1]["geometry"] = (tuple(k.get("dilation", (1, 1))), k.get("groups", 1))
         if name in PLAN_KERNELS:
             per_call[-1]["plan"] = launch_plan(name, a, k)
+    say(f"{len(per_call)} calls held == plain, {len(timed)} distinct ones timed")
     if keep is not None:
         keep.extend(per_call)
 
@@ -1202,7 +1271,8 @@ def float_product_cone(graph) -> set:
 
 
 def compare_traces(path: str, ref_path: str, cone: set = frozenset(),
-                   counts: dict | None = None, sourced: set = frozenset()) -> tuple[int, int]:
+                   counts: dict | None = None, sourced: set = frozenset(),
+                   node_level: bool = False) -> tuple[int, int]:
     """Hold the trace at `path` record by record against `ref_path`: same
     header, names, op ids and attrs; integer records byte-equal, float
     records allclose at FLOAT_RTOL / FLOAT_ATOL, those of the nodes in `cone`
@@ -1210,20 +1280,29 @@ def compare_traces(path: str, ref_path: str, cone: set = frozenset(),
     GRAPH_ATOL.  An integer record of a node in `sourced` (the float source
     set, `runtime/crosscheck.py float_source_set`: a qnn.quantize of a float
     mean the card sums in another order) holds its integer tensors == and its
-    float input at FLOAT_RTOL / FLOAT_ATOL.  Returns (records, integer
-    records); `counts` gets the number of float records that are byte-equal
-    all the same."""
+    float input at FLOAT_RTOL / FLOAT_ATOL; with `node_level` (a float op
+    of the card's, softmax or tanh, inside the graph) every record of the
+    set, float or integer, is held only by verify_trace, its op re-run on
+    its own inputs, since an ulp there rounds a later qnn.quantize the
+    other way.  Returns (records,
+    integer records); `counts` gets the number of float records that are
+    byte-equal all the same and, with `node_level`, the number of sourced
+    integer records that differ from the CPU's."""
     from tachikoma_tpu_torch.trace.format import TraceReader, op_id
 
     with open(path, "rb") as f, open(ref_path, "rb") as g:
         got, want = TraceReader(f), TraceReader(g)
     assert got.graph_hash == want.graph_hash and len(got) == len(want) and got.meta == want.meta
-    n_int = n_float_equal = 0
+    n_int = n_float_equal = n_sourced_differ = 0
     for a, b in zip(got, want):
         assert (a.node_id, a.name, a.op_name, a.attrs) == (b.node_id, b.name, b.op_name, b.attrs)
         assert op_id(a.op_name) == op_id(b.op_name)
         if a.output.to_array().dtype.kind in "iu":
-            if a.name in sourced and a.encode() != b.encode():
+            if a.name in sourced and node_level:
+                for ta, tb in zip(a.tensors, b.tensors):
+                    assert (ta.role, ta.shape, ta.dtype) == (tb.role, tb.shape, tb.dtype)
+                n_sourced_differ += a.encode() != b.encode()
+            elif a.name in sourced and a.encode() != b.encode():
                 for ta, tb in zip(a.tensors, b.tensors):
                     assert ta.role == tb.role and ta.shape == tb.shape
                     x, y = ta.to_array(), tb.to_array()
@@ -1238,6 +1317,10 @@ def compare_traces(path: str, ref_path: str, cone: set = frozenset(),
             n_int += 1
             continue
         n_float_equal += a.encode() == b.encode()
+        if a.name in sourced and node_level:  # held by verify_trace on its own inputs
+            for ta, tb in zip(a.tensors, b.tensors):
+                assert (ta.role, ta.shape, ta.dtype) == (tb.role, tb.shape, tb.dtype)
+            continue
         rtol, atol = (GRAPH_RTOL, GRAPH_ATOL) if a.name in cone else (FLOAT_RTOL, FLOAT_ATOL)
         for ta, tb in zip(a.tensors, b.tensors):
             assert ta.role == tb.role and ta.shape == tb.shape
@@ -1245,6 +1328,7 @@ def compare_traces(path: str, ref_path: str, cone: set = frozenset(),
                                        err_msg=a.name)
     if counts is not None:
         counts["float_byte_equal"] = n_float_equal
+        counts["sourced_differ"] = n_sourced_differ
     return len(got), n_int
 
 
@@ -1385,7 +1469,7 @@ def packed_weights() -> set:
 
 def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
                size: str = f"{IMAGE}^2", prepared=None, keep: dict | None = None,
-               per_call: list | None = None) -> tuple[dict, dict]:
+               per_call: list | None = None, node_level: bool = False) -> tuple[dict, dict]:
     """The trace path of one model, two phases titled by `labels` (7-8 for
     ResNet-50; 10a-10b for MobileNetV2; 17e for int8 BERT-base; 20b and 20d
     for the TFLite MobileNetV2 and W8A16 ResNet-50): the unfused b1
@@ -1399,7 +1483,10 @@ def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
     where given, receives the integer graph, the input, the meta and the
     card trace's size and sha256 (phase 26c holds the sharded trace to
     them); `per_call`, where given, the unfused forward's call records
-    (check_kernels).  Returns the kernels' per-forward totals and their
+    (check_kernels).  `node_level` (a graph with float gelu / softmax /
+    tanh: W8A16's transformers): the nodes and trace records those reach
+    are held at node level (hold_zoo_nodes; verify_trace), the others ==
+    and byte-equal.  Returns the kernels' per-forward totals and their
     launches (the trace path's run)."""
     from tachikoma_tpu_torch.ops.kernels import _lib
     from tachikoma_tpu_torch.quantize.quantizer import quantize
@@ -1439,9 +1526,17 @@ def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
     assert len(calls) == ops["qnn.conv2d"] + ops["qnn.dense"] + ops["qnn.batch_matmul"]
     totals = check_kernels(calls, kernels, model, per_call)
     plain = TorchExecutor(q, capture=names, device="cpu", fuse=False).run(x)
-    n_int = hold_against_plain(names, outs, plain, q, FLOAT_RTOL, FLOAT_ATOL)
-    say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; "
-        f"float nodes within rtol {FLOAT_RTOL} atol {FLOAT_ATOL}")
+    if node_level:
+        counts = hold_zoo_nodes(q, names, outs, plain, {q.inputs[0].name: x})
+        say(f"{counts.get('int', 0)} integer nodes outside the float-source set == the CPU "
+            f"path; the set's {counts.get('cone_int', 0)} integer nodes each == its CPU impl "
+            f"on the card's inputs ({counts.get('cone_int_differing', 0)} differ from the CPU "
+            f"path end to end), its {counts.get('cone_float', 0)} float nodes within rtol "
+            f"{GRAPH_RTOL} atol {GRAPH_ATOL} of theirs")
+    else:
+        n_int = hold_against_plain(names, outs, plain, q, FLOAT_RTOL, FLOAT_ATOL)
+        say(f"{n_int} of {len(names)} captured nodes are integer and == the CPU plain path; "
+            f"float nodes within rtol {FLOAT_RTOL} atol {FLOAT_ATOL}")
 
     phase(f"{labels[1]} {model} trace emission: TraceEmitter(backend='torch', "
           f"device='cuda').emit_to, 1 warm + {TRACE_TIMED} timed")
@@ -1494,11 +1589,15 @@ def trace_path(labels, model: str, build, kernels, make_input=None, config=None,
         TraceEmitter(q, backend="torch", device="cpu", meta=meta).emit_to(x, ref_path)
         t1 = time.perf_counter()
         sourced = float_source_set(q)
-        n, n_int = compare_traces(path, ref_path, sourced=sourced)
+        tcounts: dict = {}
+        n, n_int = compare_traces(path, ref_path, sourced=sourced, counts=tcounts,
+                                  node_level=node_level)
         reached = sorted(nm for nm in sourced if not q[nm].dtype.startswith("float"))
         say(f"CPU plain trace {t1 - t0:.2f} s; card trace == CPU trace: {n} records, "
             f"{n_int} integer byte-equal"
-            + (f" but those a float source reaches ({', '.join(reached)}: their integer "
+            + (f" but the {len(reached)} a float source reaches, held by verify_trace below "
+               f"({tcounts['sourced_differ']} differ from the CPU's)" if node_level and reached
+               else f" but those a float source reaches ({', '.join(reached)}: their integer "
                f"tensors ==, float inputs within rtol {FLOAT_RTOL} atol {FLOAT_ATOL})"
                if reached else "")
             + f", {n - n_int} float within rtol {FLOAT_RTOL} atol {FLOAT_ATOL} "
@@ -2678,7 +2777,9 @@ def nms_versus_cpu(graph, names, card: list, cpu: list) -> str:
 
 def zoo_path(label: str, model: str, build, make_input, card: str,
              check_output=None, config=None, keep: dict | None = None,
-             only_kernels: bool = False) -> tuple[dict, dict, dict]:
+             only_kernels: bool = False, kernels=ZOO_KERNELS,
+             products: bool = False, end_to_end: bool = True,
+             hold=None) -> tuple[dict, dict, dict]:
     """Phase 19 for one builder at its published widths: build, calibrate
     and quantize from SEED, fuse; every recorded K1/K2/K3/K5 call == plain,
     timed, bound and library; REQUESTS requests through
@@ -2688,8 +2789,16 @@ def zoo_path(label: str, model: str, build, make_input, card: str,
     `config` is the QConfig (the default one by default); `keep` receives
     the integer graph, the requests and the forward's call records
     (check_kernels' "per_call"); `only_kernels` runs the requests under
-    no_plain_conv; `make_input` may make NCHW batches (an imported model's
-    input)."""
+    no_plain_conv (`products`: with the library's products spied on too);
+    `kernels` names the kernels held and counted (phase 29: the W8A16
+    ones); `end_to_end` False prints the float outputs' distance from the CPU path
+    inside the float-source set without holding it (W8A16 transformers: a
+    softmax ulp's flip grows through the reference's int16 layer norm,
+    whose int32 sum of squares wraps); `hold` = (integer graph, input), where
+    given, is where the nodes and outputs are held against the CPU path (a
+    smaller input of the same model: DeepLab's 176^2 in phase 29d), the
+    requests keeping their size; `make_input` may make NCHW batches (an
+    imported model's input)."""
     from tachikoma_tpu_torch.quantize.quantizer import quantize
     from tachikoma_tpu_torch.runtime.crosscheck import float_source_set
     from tachikoma_tpu_torch.runtime.executor import TorchExecutor, computational_nodes
@@ -2715,7 +2824,7 @@ def zoo_path(label: str, model: str, build, make_input, card: str,
     with recording(calls):
         ex.run_device(requests[0])
     torch.cuda.synchronize()
-    kernels = tuple(k for k in ZOO_KERNELS if any(c[0] == k for c in calls))
+    kernels = tuple(k for k in kernels if any(c[0] == k for c in calls))
     phase(f"{label} {model}: {', '.join(kernels) or 'no kernel'} at the forward's "
           f"{len(calls)} calls: == plain, time, bound, library [{card}]")
     if keep is not None:
@@ -2727,7 +2836,8 @@ def zoo_path(label: str, model: str, build, make_input, card: str,
           f"allowed for cuDNN and matmuls [{card}]")
     reset(kernels)
     lat, first = [], None
-    spy = no_plain_conv(f"the {model} requests") if only_kernels else contextlib.nullcontext()
+    spy = (no_plain_conv(f"the {model} requests", products) if only_kernels
+           else contextlib.nullcontext())
     with tf32_allowed(), spy:  # the port's float products must not take TF32
         for x in requests:
             t0 = time.perf_counter()
@@ -2740,11 +2850,17 @@ def zoo_path(label: str, model: str, build, make_input, card: str,
     say(", ".join(f"{k}: {n} launches, {n // REQUESTS} per request" for k, n in launches.items()))
     med = statistics.median(lat[1:])
     say(f"latency ms per request: median {med:.3f}, all " + " ".join(f"{v:.3f}" for v in lat))
+    x0 = requests[0]
+    if hold is not None:  # the nodes held at the smaller input
+        fused, x0 = fuse_qnn(hold[0]), hold[1]
+        names = computational_nodes(fused)
+        first = [_host(o) for o in
+                 TorchExecutor(fused, capture=names, device="cuda").run_device(x0)]
+        say(f"the nodes held at input {x0.shape}, the requests at {requests[0].shape}")
     t0 = time.perf_counter()
-    plain = [_host(o) for o in
-             TorchExecutor(fused, capture=names, device="cpu").run_device(requests[0])]
+    plain = [_host(o) for o in TorchExecutor(fused, capture=names, device="cpu").run_device(x0)]
     say(f"CPU plain forward {time.perf_counter() - t0:.2f} s (host)")
-    feeds = requests[0] if isinstance(requests[0], dict) else {fused.inputs[0].name: requests[0]}
+    feeds = x0 if isinstance(x0, dict) else {fused.inputs[0].name: x0}
     counts = hold_zoo_nodes(fused, names, first, plain, feeds)
     say(f"{counts.get('int', 0)} integer nodes outside the float-source set == the CPU path; "
         f"{counts.get('float', 0)} float nodes there within rtol {GRAPH_RTOL} atol {GRAPH_ATOL} "
@@ -2764,8 +2880,10 @@ def zoo_path(label: str, model: str, build, make_input, card: str,
             err = np.abs(a.astype(np.float64) - b).max()
             bad = int((~np.isclose(a, b, rtol=GRAPH_RTOL, atol=GRAPH_ATOL)).sum())
             say(f"  end to end: output {o} max |card - CPU| {err:.3g}, {bad} of {a.size} "
-                f"elements outside rtol {GRAPH_RTOL} atol {GRAPH_ATOL}; held at atol {atol}")
-            np.testing.assert_allclose(a, b, rtol=GRAPH_RTOL, atol=atol, err_msg=o)
+                f"elements outside rtol {GRAPH_RTOL} atol {GRAPH_ATOL}; "
+                + (f"held at atol {atol}" if end_to_end else "printed, not held"))
+            if end_to_end:
+                np.testing.assert_allclose(a, b, rtol=GRAPH_RTOL, atol=atol, err_msg=o)
     extra = check_output(fused, names, first, plain) if check_output else ""
     say(f"outputs: {', '.join(f'{o} {first[names.index(o)].shape}' for o in fused.outputs)}"
         + (f"; {extra}" if extra else ""))
@@ -3675,46 +3793,6 @@ BUCKETS, BUCKET_BATCHES = (1, 2, 4, 8), (1, 3, 8)
 CALIB_RTOL = 1e-4                 # "torch-cpu" scales vs the oracle's (tests/test_quantize.py:199-203)
 
 
-def check_distinct(calls: list, names, model: str) -> dict:
-    """Every recorded call held == its plain version; the first call of each
-    distinct (kernel, shape) also timed as check_call times it, and each
-    kernel's per-forward totals summed over its calls at their shape's
-    times (a 24-layer forward repeats six shapes)."""
-    impl = kernel_impls()
-    timed, errs, labels = {}, {}, []
-    for name, a, k in calls:
-        errs[name] = max(errs.get(name, 0), hold_call(name, a, k, impl))
-        label = work(name, a, k)[2]
-        labels.append((name, label))
-        if (name, label) not in timed:
-            timed[(name, label)] = check_call(name, a, k, impl)
-    totals = {}
-    for name in names:
-        recs = [timed[key] for key in labels if key[0] == name]
-        assert recs, f"the {model} forward made no call of {name}"
-        t = dict(calls=len(recs), max_abs_err=errs[name])
-        for key in ("ms", "plain_ms", "bound_ms"):
-            t[key] = sum(r[key] for r in recs)
-        libs = [r["library_ms"] for r in recs if r["library_ms"] is not None]
-        t["library_ms"] = sum(libs) if libs else None
-        by_bytes = sum(r["bound_ms"] for r in recs if r["bound_by"] == "bytes")
-        t["bound_by"] = "bytes" if 2 * by_bytes >= t["bound_ms"] else "operations"
-        totals[name] = t
-        phase(f"{name} ({KERNELS[name][0]}) at {model}: {len(recs)} calls per forward, all == "
-              f"plain; max |err| {t['max_abs_err']}")
-        say(f"{'shape':38s} {'calls':>5s} {'ms':>9s} {'bound_ms':>9s} {'by':>10s} "
-            f"{'plain_ms':>9s} {'library_ms':>10s}")
-        for (n, label), count in Counter(k for k in labels if k[0] == name).items():
-            r = timed[(n, label)]
-            lib = f"{r['library_ms']:10.4f}" if r["library_ms"] is not None else f"{'-':>10s}"
-            say(f"{label:38s} {count:5d} {r['ms']:9.4f} {r['bound_ms']:9.4f} "
-                f"{r['bound_by']:>10s} {r['plain_ms']:9.3f} {lib}")
-        lib = f"{t['library_ms']:.4f}" if t["library_ms"] is not None else "-"
-        say(f"per forward: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ({t['bound_by']}), "
-            f"plain {t['plain_ms']:.3f}, library {lib}")
-    return totals
-
-
 def median_requests(run, feeds) -> tuple[float, list]:
     """Each feed through run(), host clock around the run and a synchronize;
     the median with the first dropped, and every latency (ms)."""
@@ -3807,7 +3885,7 @@ def vitl_segmented_path(card: str) -> tuple[dict, dict, dict]:
     first = len(packed_weights() - before)
     say("kernel calls of one segmented forward: " + ", ".join(
         f"{n} {name}" for name, n in sorted(Counter(c[0] for c in calls).items())))
-    totals = check_distinct(calls, VITL_KERNELS, model)
+    totals = check_kernels(calls, VITL_KERNELS, model)
 
     phase(f"23a. {model}: {SEGMENTED_REQUESTS} requests through the segmented executor (the "
           f"scan) and through TorchExecutor (whole graph), counted; every node == [{card}]")
@@ -5493,17 +5571,22 @@ RESNEXT_GROUPED = 16        # the grouped 3x3 of each bottleneck
 
 
 @contextlib.contextmanager
-def no_plain_conv(what: str):
+def no_plain_conv(what: str, products: bool = False):
     """Spy on the plain versions' sums (ops/kernels/conv.py conv_acc_exact,
     under every plain K2-K4; matmul_int8.py exact_int_matmul, under K1's
-    and K4's GEMM mode's; depthwise.py dw_acc_plain, under K5's) and on the
-    library's conv (F.conv2d) while the block runs, and fail if any of them
-    ran."""
-    from tachikoma_tpu_torch.ops.kernels import conv, depthwise, matmul_int8
+    and K4's GEMM mode's; depthwise.py dw_acc_plain, under K5's; wide.py's
+    wide_conv_plain, wide_dense_plain and qbmm_wide_plain, under the W8A16
+    products') and on the library's conv (F.conv2d) while the block runs,
+    and fail if any of them ran; `products`: on the library's products too
+    (torch.matmul and torch.bmm: a path with no float product)."""
+    from tachikoma_tpu_torch.ops.kernels import conv, depthwise, matmul_int8, wide
 
     counts: Counter = Counter()
     spied = ((conv, "conv_acc_exact"), (matmul_int8, "exact_int_matmul"),
-             (depthwise, "dw_acc_plain"), (torch.nn.functional, "conv2d"))
+             (depthwise, "dw_acc_plain"), (wide, "wide_conv_plain"),
+             (wide, "wide_dense_plain"), (wide, "qbmm_wide_plain"),
+             (torch.nn.functional, "conv2d"),
+             *(((torch, "matmul"), (torch, "bmm")) if products else ()))
     saved = [getattr(mod, attr) for mod, attr in spied]
 
     def spy(fn, key):
@@ -5521,7 +5604,8 @@ def no_plain_conv(what: str):
             setattr(mod, attr, fn)
     assert not counts, f"{what} ran a plain or library conv: {dict(counts)}"
     say(f"{what}: no plain version and no library conv ran (conv_acc_exact, exact_int_matmul, "
-        "dw_acc_plain, F.conv2d spied on)")
+        "dw_acc_plain, wide_conv_plain, wide_dense_plain, qbmm_wide_plain, F.conv2d"
+        + (", torch.matmul, torch.bmm" if products else "") + " spied on)")
 
 
 def geometry_rows(per_call: list, what: str, card: str) -> dict:
@@ -5583,9 +5667,10 @@ def unfused_forward(label: str, model: str, q, x, card: str) -> tuple[dict, dict
     return launches, {k: t["max_abs_err"] for k, t in totals.items()}, rows
 
 
-def deeplab_path(card: str, r50_state: dict) -> tuple[dict, dict]:
+def deeplab_path(card: str, r50_state: dict, keep: dict) -> tuple[dict, dict]:
     """Phases 27a-27c on DeepLabV3-ResNet-50.  Returns the launches and the
-    largest |err| per kernel."""
+    largest |err| per kernel; `keep` receives the imported float graph
+    ("deeplab", phase 29's)."""
     from tachikoma_tpu_torch.frontend import from_onnx
     from tachikoma_tpu_torch.models.onnx_deeplab import deeplab_qconfig, deeplabv3_onnx
     from tachikoma_tpu_torch.quantize.quantizer import quantize
@@ -5598,22 +5683,23 @@ def deeplab_path(card: str, r50_state: dict) -> tuple[dict, dict]:
         blob = deeplabv3_onnx(1, side, DEEPLAB_CLASSES, seed=SEED)
         say(f"written by models/onnx_deeplab.py (seed {SEED}): {len(blob)} bytes in "
             f"{time.perf_counter() - t0:.2f} s")
-        return from_onnx(blob)
+        keep["deeplab"] = from_onnx(blob)
+        return keep["deeplab"]
 
-    keep: dict = {}
+    zoo: dict = {}
     totals, launches, summary = zoo_path(
         "27a.", model, build,
         lambda rng: rng.standard_normal((1, 3, side, side)).astype(np.float32), card,
-        check_output=segmentation(DEEPLAB_CLASSES, side), config=deeplab_qconfig(), keep=keep,
+        check_output=segmentation(DEEPLAB_CLASSES, side), config=deeplab_qconfig(), keep=zoo,
         only_kernels=True)
-    rows = geometry_rows(keep["per_call"], f"27a. {model} fused", card)
+    rows = geometry_rows(zoo["per_call"], f"27a. {model} fused", card)
     assert rows["qconv_rq"]["calls"] == DEEPLAB_DILATED, rows
     say(f"27a. {model}: median {summary['median_ms']:.3f} ms a request, device busy "
         f"{summary['busy_ms']} ms; ResNet-50 b{BATCH} {IMAGE}^2 (phase 5) "
         f"{r50_state['median_ms']:.3f} ms [{card}]")
     errs = {k: t["max_abs_err"] for k, t in totals.items()}
-    raw_launches, raw_errs, raw_rows = unfused_forward("27b.", model, keep["quantized"],
-                                                       keep["requests"][0], card)
+    raw_launches, raw_errs, raw_rows = unfused_forward("27b.", model, zoo["quantized"],
+                                                       zoo["requests"][0], card)
     assert raw_rows["qconv_raw"]["calls"] == DEEPLAB_DILATED, raw_rows
     for part in (raw_launches,):
         for k, n in part.items():
@@ -5642,16 +5728,17 @@ def deeplab_path(card: str, r50_state: dict) -> tuple[dict, dict]:
     return launches, errs
 
 
-def resnext_path(card: str, r50_state: dict) -> tuple[dict, dict]:
+def resnext_path(card: str, r50_state: dict, keep: dict) -> tuple[dict, dict]:
     """Phases 27d-27e on ResNeXt-50 32x4d.  Returns the launches and the
-    largest |err| per kernel."""
+    largest |err| per kernel; `keep` receives the module ("resnext", phase
+    29's)."""
     from tachikoma_tpu_torch.frontend.torch_fx import from_torch
     from tachikoma_tpu_torch.models.torch_resnet import resnext50_32x4d_torch
     from tachikoma_tpu_torch.quantize.quantizer import quantize
 
     model = f"ResNeXt-50 32x4d b{BATCH} {IMAGE}^2"
     t0 = time.perf_counter()
-    module = resnext50_32x4d_torch(seed=SEED)
+    module = keep["resnext"] = resnext50_32x4d_torch(seed=SEED)
     say(f"\n27d. models/torch_resnet.py resnext50_32x4d_torch (seed {SEED}) "
         f"{time.perf_counter() - t0:.2f} s (host)")
 
@@ -5689,12 +5776,13 @@ def resnext_path(card: str, r50_state: dict) -> tuple[dict, dict]:
     return launches, errs
 
 
-def geometry_path(card: str, r50_state: dict) -> tuple[dict, dict]:
+def geometry_path(card: str, r50_state: dict, keep: dict) -> tuple[dict, dict]:
     """Phase 27: DeepLabV3-ResNet-50 (dilated) and ResNeXt-50 32x4d
-    (grouped).  Returns the launches and the largest |err| per kernel."""
+    (grouped).  Returns the launches and the largest |err| per kernel;
+    `keep` receives the float DeepLab graph and the ResNeXt module."""
     phase(f"27. dilated and grouped convs on K2 and K4's conv mode [{card}]")
-    launches, errs = deeplab_path(card, r50_state)
-    more_launches, more_errs = resnext_path(card, r50_state)
+    launches, errs = deeplab_path(card, r50_state, keep)
+    more_launches, more_errs = resnext_path(card, r50_state, keep)
     for k, n in more_launches.items():
         launches[k] = launches.get(k, 0) + n
     for k, e in more_errs.items():
@@ -5868,6 +5956,153 @@ def legacy_path(card: str) -> tuple[dict, dict]:
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 29: W8A16 beyond the plain CNN: int16 attention products on
+# qbmm_wide, dilated and grouped int64 convs on qconv_wide / qdwconv_wide
+# ---------------------------------------------------------------------------
+
+W8A16_FAMILY_KERNELS = ("qbmm_wide", "qgemm_wide", "qconv_wide", "qdwconv_wide")
+W8A16_ATTENTION_BMM = 24    # BERT-base's and ViT-B/16's qnn.batch_matmul: 12 scores, 12 contexts
+
+
+def w8a16_logits(classes: int):
+    """A W8A16 transformer's or CNN's float logits: shape and finite; their
+    distance from the CPU path's and the argmax agreement printed (a float
+    softmax or tanh of the card's rounds a later qnn.quantize the other way
+    on a few elements: hold_zoo_nodes holds those nodes one by one)."""
+    def check(graph, names, card, cpu):
+        y, c = card[names.index(graph.outputs[0])], cpu[names.index(graph.outputs[0])]
+        assert y.shape[-1] == classes and np.isfinite(y).all(), y.shape
+        agree = int((y.argmax(-1) == c.argmax(-1)).sum())
+        return (f"logits {y.shape} finite, max |card - CPU| {np.abs(y - c).max():.3g}, argmax "
+                f"== the CPU's on {agree} of {y.shape[0]}")
+    return check
+
+
+def w8a16_model(label: str, model: str, build, make_input, card: str, check_output,
+                config, expect: dict, end_to_end: bool = True,
+                hold=None) -> tuple[dict, dict, dict]:
+    """One W8A16 configuration through zoo_path (quantize, every W8A16
+    product == plain and timed, REQUESTS requests with no plain version and
+    no library product run, every node held to the CPU path; `end_to_end`
+    and `hold` as zoo_path's); `expect`: the calls a forward of each kernel,
+    and of its dilated / grouped calls ("dilated / grouped qconv_wide": n).
+    Returns the per-forward totals, the launches and the dilated / grouped
+    rows."""
+    keep: dict = {}
+    totals, launches, summary = zoo_path(
+        label, model, build, make_input, card, check_output=check_output, config=config,
+        keep=keep, only_kernels=True, kernels=W8A16_FAMILY_KERNELS, products=True,
+        end_to_end=end_to_end, hold=hold)
+    rows = geometry_rows(keep["per_call"], f"{label} {model}", card)
+    got = {k: t["calls"] for k, t in totals.items()}
+    got.update((f"dilated / grouped {k}", t["calls"]) for k, t in rows.items())
+    for key, n in expect.items():
+        assert got.get(key) == n, f"{model}: {key} {got.get(key)} calls a forward, expected {n}"
+    say(f"{label} {model}: median {summary['median_ms']:.3f} ms a request, device busy "
+        f"{summary['busy_ms']} ms [{card}]")
+    return totals, launches, rows
+
+
+def atrous_wide(card: str) -> tuple[dict, dict]:
+    """Phase 29f: qdwconv_wide (K5's int16 mode) with dilation at DeepLab-
+    MobileNetV2's ten atrous depthwise calls (ATROUS_CALLS), int16 data at
+    the int16 extremes: the calls counted, each == plain and timed beside
+    its bound, the plain version and cuDNN's float64 dilated depthwise
+    conv.  Returns the launches and the totals."""
+    phase(f"29f. qdwconv_wide with dilation at DeepLab-MobileNetV2's {len(ATROUS_CALLS)} atrous "
+          f"depthwise calls at int16 (b1 {ATROUS_MAP}^2 maps) [{card}]")
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    calls = []
+    for c, d in ATROUS_CALLS:
+        x = torch.from_numpy(rng.integers(-2 ** 15, 2 ** 15, (1, ATROUS_MAP, ATROUS_MAP, c))
+                             .astype(np.int16)).to(dev)
+        w = torch.from_numpy(rng.integers(-128, 128, (3, 3, 1, c)).astype(np.int8)).to(dev)
+        calls.append(("qdwconv_wide", (x, w), dict(strides=(1, 1), padding=(d,) * 4,
+                                                   dilation=(d, d), izp=int(rng.integers(-300,
+                                                                                         300)))))
+    impl = kernel_impls()
+    reset(("qdwconv_wide",))
+    for name, a, k in calls:
+        impl[name][0](*a, **k)
+    torch.cuda.synchronize()
+    launches = read_launches(("qdwconv_wide",), "29f's calls")
+    assert launches["qdwconv_wide"] == len(ATROUS_CALLS), launches
+    totals = check_kernels(calls, ("qdwconv_wide",), "DeepLab-MobileNetV2 atrous int16")
+    t = totals["qdwconv_wide"]
+    say(f"29f. qdwconv_wide dilated: {t['calls']} calls {t['ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ({t['ms'] / t['bound_ms']:.1f}x), plain {t['plain_ms']:.3f}, "
+        f"float64 cuDNN {t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.2f}x) [{card}]")
+    return launches, totals
+
+
+def w8a16_families(card: str, keep: dict) -> tuple[dict, dict, dict]:
+    """Phase 29: W8A16 (int16 activations, int64 accumulators, unfused) on
+    the families the int8 path runs: BERT-base b4 s128 and ViT-B/16 b1 224^2
+    (their attention products on qbmm_wide), BERT-base's b1 s128 trace,
+    DeepLabV3-ResNet-50 b1 520^2 (11 dilated convs on qconv_wide; its nodes
+    held at 176^2) and
+    ResNeXt-50 32x4d b1 224^2 (16 grouped ones), and qdwconv_wide dilated.
+    `keep` holds phase 27's float DeepLab graph and ResNeXt module.
+    Returns qbmm_wide's per-forward totals (BERT-base b4), the launches and
+    the largest |err| of each kernel."""
+    from tachikoma_tpu_torch.frontend import from_onnx
+    from tachikoma_tpu_torch.frontend.torch_fx import from_torch
+    from tachikoma_tpu_torch.models.onnx_deeplab import FLOAT_OPS, deeplabv3_onnx
+    from tachikoma_tpu_torch.models.transformer import bert_base, vit_b16
+    from tachikoma_tpu_torch.quantize.config import W8A16
+    from tachikoma_tpu_torch.quantize.quantizer import quantize
+
+    phase(f"29. W8A16 families: int16 x int16 batched products into int64 (qbmm_wide), "
+          f"dilated and grouped int64 convs (qconv_wide, qdwconv_wide) [{card}]")
+    launches: dict = {}
+    errs: dict = {}
+
+    def merge(path_totals, path_launches):
+        for name, t in path_totals.items():
+            errs[name] = max(errs.get(name, 0), t["max_abs_err"])
+        for name, n in path_launches.items():
+            launches[name] = launches.get(name, 0) + n
+
+    bert_totals, bert_launches, _ = w8a16_model(
+        "29a.", f"W8A16 BERT-base b{BERT_BATCH} s{SEQ}",
+        lambda: bert_base(batch_size=BERT_BATCH, seq_len=SEQ, seed=SEED), bert_ids(BERT_BATCH),
+        card, w8a16_logits(2), W8A16, {"qbmm_wide": W8A16_ATTENTION_BMM}, end_to_end=False)
+    merge(bert_totals, bert_launches)
+    merge(*trace_path(("29b.", "29b."), "W8A16 BERT-base",
+                      lambda b: bert_base(batch_size=b, seq_len=SEQ, seed=SEED),
+                      ("qbmm_wide", "qgemm_wide"), make_input=bert_ids(TRACE_BATCH), config=W8A16,
+                      size=f"s{SEQ}", node_level=True))
+    merge(*w8a16_model(
+        "29c.", f"W8A16 ViT-B/16 b1 {IMAGE}^2", lambda: vit_b16(batch_size=1, image_size=IMAGE,
+                                                                  seed=SEED),
+        lambda rng: rng.standard_normal((1, IMAGE, IMAGE, 3)).astype(np.float32), card,
+        w8a16_logits(1000), W8A16, {"qbmm_wide": W8A16_ATTENTION_BMM, "qconv_wide": 1},
+        end_to_end=False)[:2])
+    # DeepLab: the requests at 520^2, every node held at phase 27c's 176^2
+    # (the CPU path's forward at 520^2 would take 17 s of host time)
+    config = dataclasses.replace(W8A16, float_ops=FLOAT_OPS)
+    tside, rng = DEEPLAB_TRACE_SIDE, np.random.default_rng(SEED)
+    calib, x = (rng.standard_normal((1, 3, tside, tside)).astype(np.float32) for _ in range(2))
+    small = quantize(from_onnx(deeplabv3_onnx(1, tside, DEEPLAB_CLASSES, seed=SEED)), [calib],
+                     config)
+    merge(*w8a16_model(
+        "29d.", f"W8A16 DeepLabV3-ResNet-50 b1 {DEEPLAB_SIDE}^2", lambda: keep["deeplab"],
+        lambda rng: rng.standard_normal((1, 3, DEEPLAB_SIDE, DEEPLAB_SIDE)).astype(np.float32),
+        card, segmentation(DEEPLAB_CLASSES, tside), config,
+        {"dilated / grouped qconv_wide": DEEPLAB_DILATED}, hold=(small, x))[:2])
+    shape = (1, 3, IMAGE, IMAGE)
+    merge(*w8a16_model(
+        "29e.", f"W8A16 ResNeXt-50 32x4d b1 {IMAGE}^2",
+        lambda: from_torch(keep["resnext"], {"x": shape}),
+        lambda rng: rng.standard_normal(shape).astype(np.float32), card, w8a16_logits(1000),
+        W8A16, {"dilated / grouped qconv_wide": RESNEXT_GROUPED})[:2])
+    atrous_launches, atrous_totals = atrous_wide(card)
+    merge(atrous_totals, atrous_launches)
+    return bert_totals["qbmm_wide"], launches, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6017,7 +6252,7 @@ def main() -> int:
     for part in (tflite_errs, wide_errs):
         for name, e in part.items():
             errs[name] = max(errs.get(name, 0), e)
-    for name in WIDE_KERNELS:
+    for name in W8A16_16X8_KERNELS:
         totals[name] = wide_totals[name]
         launches[name] = 0
     merge({}, tflite_launches)
@@ -6058,7 +6293,8 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), e)
     merge({}, parallel_launches)
     t27 = time.perf_counter()
-    geometry_launches, geometry_errs = geometry_path(card, r50_state)
+    geometry_keep: dict = {}
+    geometry_launches, geometry_errs = geometry_path(card, r50_state, geometry_keep)
     for name, e in geometry_errs.items():
         errs[name] = max(errs.get(name, 0), e)
     merge({}, geometry_launches)
@@ -6069,6 +6305,12 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), e)
     merge({}, legacy_launches)
     say(f"\nphase 28 seconds {time.perf_counter() - t28:.1f} (host clock) [{card}]")
+    t29 = time.perf_counter()
+    totals["qbmm_wide"], family_launches, family_errs = w8a16_families(card, geometry_keep)
+    for name, e in family_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    merge({}, family_launches)
+    say(f"\nphase 29 seconds {time.perf_counter() - t29:.1f} (host clock) [{card}]")
     say(f"card: {card}")
 
     print(json.dumps({"kernels": [

@@ -36,16 +36,18 @@ enum Param {
   P_FA_STAGES, P_FA_BK,
   // K1's path: 0 tiled (igemm_hopper.cuh), 1 skinny (qgemm_rq.cu)
   P_QG_PATH,
-  // K1's batched mode (qbmm_hopper.cu Opnd): the products, the inner batch
-  // dimension, each operand's staging mode and element strides (batch 0,
-  // batch 1, row, k), the zero points of A and B
+  // K1's batched mode (qbmm_hopper.cu Opnd) and qbmm_wide
+  // (qbmm_wide_hopper.cu): the products, the inner batch dimension, each
+  // operand's staging mode and element strides (batch 0, batch 1, row, k),
+  // the zero points of A and B
   P_BMM_NB, P_BMM_NB1, P_A_MODE, P_B_MODE, P_A_SB0, P_A_SB1, P_A_SM, P_A_SK, P_B_SB0, P_B_SB1,
   P_B_SN, P_B_SK, P_BMM_ZA, P_BMM_ZB,
   // its path (0 tiles, 1 M <= 16)
   P_BMM_PATH,
-  // K2 and K4's conv mode (igemm_hopper.cuh): the dilation (0 means 1), and
-  // the input channels of a super-group of a grouped conv, whose N tiles
-  // read the contiguous run of that many channels (0 means CIN: dense)
+  // K2 and K4's conv mode (igemm_hopper.cuh), qconv_wide
+  // (qconv_wide_hopper.cu): the dilation (0 means 1), and the input channels
+  // of a super-group of a grouped conv, whose N tiles read the contiguous run
+  // of that many channels (0 means CIN: dense); K5's dilation too
   P_DH, P_DW, P_CSPAN,
   // K1, K2, K4 and K5: the data operand is uint8 (legacy uint8 models)
   P_A_U8,

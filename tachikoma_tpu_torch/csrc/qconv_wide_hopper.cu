@@ -7,9 +7,14 @@
 // accumulator (tachikoma_tpu/ops/jax_ops.py _qconv2d_jax and _qdense_jax); no
 // Pallas kernel is replaced.  tk_qgemm_wide takes a GEMM (a dense layer, or a
 // 1x1 stride-1 unpadded conv as the (N*H*W, CIN) matrix it is);
-// tk_qconv_wide any kernel size, stride and padding, as an implicit GEMM
-// over the caller's NHWC image (a 1x1 stride-2 conv too: no subsampled copy).
-// Both launch one kernel, qwide_hopper.
+// tk_qconv_wide any kernel size, stride, padding and dilation, as an
+// implicit GEMM over the caller's NHWC image (a 1x1 stride-2 conv too: no
+// subsampled copy), and a grouped conv as K2 and K4's conv mode run it: a
+// super-group of groups as one dense conv on block-diagonal weights (the
+// wrapper packs them once, ops/kernels/conv.py grouped_weights), each N tile
+// reading the contiguous run of its super-group's P_CSPAN input channels.
+// Tap (ky, kx) reads input row oy sh - pt + ky dh (igemm_hopper.cuh's
+// dilation).  Both launch one kernel, qwide_hopper.
 //
 // The arithmetic.  The tensor cores take 8-bit operands.  An int16 x is 256
 // hi + lo with hi = x >> 8 signed and lo = x & 255 unsigned, so
@@ -22,7 +27,9 @@
 // is x w and the epilogue takes izp colsum[n] off once: colsum is the
 // weight's int64 column sum over all of K, made once per weight tensor by the
 // wrapper (ops/kernels/wide.py), and a padded cell adds izp w - izp w = 0, as
-// the oracle's int64 pad does.  |hi w| <= 2^14 and |lo w| <= 255 * 128, so
+// the oracle's int64 pad does, at any dilation (in a grouped conv the column
+// sum is the group's own; the block-diagonal zeros add nothing).  |hi w| <=
+// 2^14 and |lo w| <= 255 * 128, so
 // both sums are exact in int32 for K <= 65,793 (K_BOUND; the launch refuses
 // deeper K), and the int64 combine 256 acc_hi + acc_lo - izp colsum is exact.
 //
@@ -109,6 +116,10 @@ constexpr int K_BOUND = 65793;  // (2^31 - 1) / (255 * 128): the deepest exact l
 
 struct WGeo {
   int n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, pt, pl;
+  int dh, dw;   // the dilation
+  // a grouped conv: the N tile of column n0 reads the cspan input channels
+  // from (n0 / nspan) cspan on, K = KH KW cspan (dense: cspan CIN, nspan COUT)
+  int cspan, nspan;
   int M, K, steps, kper;     // steps = Kp / 64; a split walks kper of them
   int m_tiles, n_tiles, gm;  // a block walks M tiles mb, mb + gm, ... of one N tile
   // dynamic shared memory: the ring (STAGES x stage_bytes: raw A, then the
@@ -117,7 +128,7 @@ struct WGeo {
   int stage_bytes, off_planes, off_cols, off_otile, smem;
   int32_t izp;
   uint32_t izp2;  // izp's 16 bits in both halves of a word
-  bool a_vec;     // CIN % 8 == 0 and x 16-byte aligned: 16-byte copies of 8 elements
+  bool a_vec;     // CIN % 8 == 0, cspan % 8 == 0, x 16-byte aligned: 16-byte copies of 8
   bool o_vec;     // COUT even and out 16-byte aligned: 16-byte stores of two columns
   hop::FastDiv by_ohow, by_ow;
 };
@@ -207,14 +218,15 @@ __global__ void __launch_bounds__(2 * BM)
   const int tid = threadIdx.x, seg = tid & 3;
   const int nt_idx = blockIdx.x % g.n_tiles;
   const int n0 = nt_idx * BN, mb = blockIdx.x / g.n_tiles;
+  const int c0 = n0 / g.nspan * g.cspan;  // the first input channel the N tile reads
   const int n_items = mb < g.m_tiles ? (g.m_tiles - 1 - mb) / g.gm + 1 : 0;
   const int kbeg = blockIdx.z * g.kper;
   const int nst = min(g.steps, kbeg + g.kper) - kbeg;  // steps per item
   int ky0, kx0, ci0;  // this thread's segment at step kbeg
   {
     const int k = kbeg * KSTEP + seg * 16;
-    const int tap = k / g.cin;
-    ci0 = k - tap * g.cin;
+    const int tap = k / g.cspan;
+    ci0 = k - tap * g.cspan;
     ky0 = tap / g.kw;
     kx0 = tap - ky0 * g.kw;
   }
@@ -231,7 +243,7 @@ __global__ void __launch_bounds__(2 * BM)
       const int mm = a.ok[j] ? m : 0;
       const int img = g.by_ohow.div(mm), rem = mm - img * (g.oh * g.ow);
       const int oy = g.by_ow.div(rem), ox = rem - oy * g.ow;
-      a.base[j] = (long long)img * g.h * g.w * g.cin;
+      a.base[j] = (long long)img * g.h * g.w * g.cin + c0;
       a.iy[j] = oy * g.sh - g.pt;
       a.ix[j] = ox * g.sw - g.pl;
     }
@@ -241,8 +253,8 @@ __global__ void __launch_bounds__(2 * BM)
   };
   auto advance = [&](Rows<A_PER>& a) {  // the next step: 64 elements on
     a.ci += KSTEP;
-    while (a.ci >= g.cin && a.ky < g.kh) {
-      a.ci -= g.cin;
+    while (a.ci >= g.cspan && a.ky < g.kh) {
+      a.ci -= g.cspan;
       if (++a.kx == g.kw) {
         a.kx = 0;
         ++a.ky;
@@ -251,25 +263,25 @@ __global__ void __launch_bounds__(2 * BM)
   };
   // Where half h (elements 8h .. 8h + 7) of segment j of `a` starts: 1 and
   // `src` in the image, 2 outside it (izp), 0 past K or M (zeros: the weights
-  // there are zero, the rows are not stored).  CIN % 8 == 0: a half lies in
-  // one tap.
+  // there are zero, the rows are not stored).  CIN % 8 == 0 and cspan % 8
+  // == 0: a half lies in one tap.
   auto half_at = [&](const Rows<A_PER>& a, int j, int h, const int16_t*& src) -> int {
     int cy = a.ky, cx = a.kx, cc = a.ci + 8 * h;
-    if (cc >= g.cin) {
-      cc -= g.cin;
+    if (cc >= g.cspan) {
+      cc -= g.cspan;
       if (++cx == g.kw) {
         cx = 0;
         ++cy;
       }
     }
     if (!a.ok[j] || cy >= g.kh) return 0;
-    const int iy = a.iy[j] + cy, ix = a.ix[j] + cx;
+    const int iy = a.iy[j] + cy * g.dh, ix = a.ix[j] + cx * g.dw;
     if ((unsigned)iy >= (unsigned)g.h || (unsigned)ix >= (unsigned)g.w) return 2;
     src = x + a.base[j] + ((long long)iy * g.w + ix) * g.cin + cc;
     return 1;
   };
   // Segment j of `a` into registers: 16-byte loads, or element by element
-  // where CIN % 8 != 0.
+  // where CIN or cspan % 8 != 0.
   auto load_seg = [&](const Rows<A_PER>& a, int j, uint4 (&v)[2]) {
     if (g.a_vec) {
 #pragma unroll
@@ -280,13 +292,13 @@ __global__ void __launch_bounds__(2 * BM)
       }
       return;
     }
-    // Within one tap row the elements (kx, ci) are consecutive in memory
-    // (pixel ix + kx, channel ci), so the address steps by one element and
-    // only a new column (kx) or row (ky) is bounds-tested.
+    // Within one tap the elements (ci) are consecutive in memory, so the
+    // address steps by one element and only a new tap (kx, or ky) is
+    // bounds-tested and addressed anew (its pixel ix + kx dw, row iy + ky dh).
     uint32_t e[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     if (a.ok[j] && a.ky < g.kh) {
       int cy = a.ky, cx = a.kx, cc = a.ci;
-      int iy = a.iy[j] + cy, ix = a.ix[j] + cx;
+      int iy = a.iy[j] + cy * g.dh, ix = a.ix[j] + cx * g.dw;
       bool row_in = (unsigned)iy < (unsigned)g.h, in = row_in && (unsigned)ix < (unsigned)g.w;
       const int16_t* src = x + a.base[j] + ((long long)iy * g.w + ix) * g.cin + cc;
 #pragma unroll
@@ -294,18 +306,16 @@ __global__ void __launch_bounds__(2 * BM)
         const uint32_t val = in ? (uint16_t)*src : g.izp2 & 0xffffu;
         e[b >> 1] |= val << (16 * (b & 1));
         ++src;
-        if (++cc == g.cin) {
+        if (++cc == g.cspan) {
           cc = 0;
           if (++cx == g.kw) {  // the next tap row
             cx = 0;
             if (++cy >= g.kh) break;
-            ix = a.ix[j];
-            iy = a.iy[j] + cy;
+            iy = a.iy[j] + cy * g.dh;
             row_in = (unsigned)iy < (unsigned)g.h;
-            src = x + a.base[j] + ((long long)iy * g.w + ix) * g.cin;
-          } else {
-            ++ix;
           }
+          ix = a.ix[j] + cx * g.dw;
+          src = x + a.base[j] + ((long long)iy * g.w + ix) * g.cin;
           in = row_in && (unsigned)ix < (unsigned)g.w;
         }
       }
@@ -555,11 +565,17 @@ inline bool make_geo(const int32_t* p, WGeo& g, int& ks) {
   g.pt = p[P_PT];
   g.pl = p[P_PL];
   g.izp = p[P_IZP];
+  g.dh = p[P_DH] ? p[P_DH] : 1;
+  g.dw = p[P_DW] ? p[P_DW] : 1;
+  g.cspan = p[P_CSPAN] ? p[P_CSPAN] : g.cin;
   if (g.cin <= 0 || g.kh <= 0 || g.kw <= 0 || g.sh <= 0 || g.sw <= 0 || g.izp < -32768 ||
-      g.izp > 32767)
+      g.izp > 32767 || g.dh <= 0 || g.dw <= 0 || g.cspan <= 0 || g.cin % g.cspan != 0 ||
+      (long long)g.cout * g.cspan % g.cin != 0)
     return false;
+  g.nspan = (int)((long long)g.cout * g.cspan / g.cin);
+  if (g.nspan <= 0) g.nspan = 1;  // COUT 0: no tile
   g.M = g.n * g.oh * g.ow;
-  g.K = g.kh * g.kw * g.cin;
+  g.K = g.kh * g.kw * g.cspan;
   if (g.K > K_BOUND || (long long)g.n * g.oh * g.ow >= (1LL << 31)) return false;
   g.steps = (g.K + KSTEP - 1) / KSTEP;
   g.kper = p[P_KPER];
@@ -568,7 +584,7 @@ inline bool make_geo(const int32_t* p, WGeo& g, int& ks) {
         (ks - 1) * g.kper < g.steps))
     return false;
   g.izp2 = (uint32_t)(uint16_t)(int16_t)g.izp * 0x00010001u;
-  g.a_vec = p[P_A_VEC] != 0 && g.cin % 8 == 0;
+  g.a_vec = p[P_A_VEC] != 0 && g.cin % 8 == 0 && g.cspan % 8 == 0;
   return true;
 }
 
@@ -583,6 +599,8 @@ int launch_tile(const int16_t* x, const int8_t* wk, int64_t* out, const int64_t*
   auto kern = qwide_hopper<BM, BN>;
   smem_layout<BM, BN>(g);
   if (g.smem > (int)hop::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  // an N tile lies inside one super-group
+  if (g.nspan != g.cout && g.nspan % BN != 0) return (int)cudaErrorInvalidValue;
   static int sms = 0, per_sm = 0;
   if (sms == 0) {
     int dev = 0, n = 0, b = 0;
@@ -642,10 +660,13 @@ extern "C" int tk_qgemm_wide(const int16_t* x, const int8_t* wk, int64_t* out,
   return wide::launch(x, wk, out, colsum, g, ks, p, (cudaStream_t)stream);
 }
 
-// The conv: x int16 NHWC, wk the weight (KH, KW, CIN, COUT) packed (Kp / 64,
-// COUT, 64), colsum int64 (COUT,), out int64 (N, OH, OW, COUT), zeroed by the
-// caller when P_KS > 1; any stride and padding (top P_PT, left P_PL).
-// Returns as tk_qgemm_wide.
+// The conv: x int16 NHWC, wk the weight (KH, KW, P_CSPAN, COUT) packed (Kp /
+// 64, COUT, 64) (a grouped conv's block-diagonal weight: P_CSPAN the input
+// channels of a super-group; 0 for a dense conv), colsum int64 (COUT,), out
+// int64 (N, OH, OW, COUT), zeroed by the caller when P_KS > 1; any stride,
+// padding (top P_PT, left P_PL) and dilation (P_DH, P_DW; 0 means 1).
+// Returns as tk_qgemm_wide (cudaErrorInvalidValue too for a P_CSPAN that
+// does not divide CIN, or a super-group whose columns are not whole N tiles).
 extern "C" int tk_qconv_wide(const int16_t* x, const int8_t* wk, int64_t* out,
                              const int64_t* colsum, const int32_t* p, void* stream) {
   using namespace tk;

@@ -83,7 +83,9 @@
 // byte planes: |x - izp| <= 65535 and |w| <= 128, so each term is below
 // 2^23 and a sum of up to 256 taps (DW_WIDE_TAPS) is exact in int32; the
 // uint32 sum minus izp * sum(w) is that int32, stored sign-extended as
-// int64.  The launch refuses more taps.
+// int64.  The launch refuses more taps.  A dilated call (DeepLab-
+// MobileNetV2's atrous convs at W8A16) runs the generic body as K5's int8
+// modes do.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -512,12 +514,9 @@ extern "C" int tk_qdwconv_direct(const int8_t* x, const int8_t* w, uint8_t* out,
 
 // qdwconv_wide: int16 x (N, H, W, C), int8 w (KH, KW, 1, C) -> int64 (N, OH,
 // OW, C), sum (x_pad - izp) * w with izp an int16 zero point and no bias, at
-// most DW_WIDE_TAPS taps.
+// most DW_WIDE_TAPS taps, at the dilation (P_DH, P_DW; 0 means 1).
 extern "C" int tk_qdwconv_wide(const int16_t* x, const int8_t* w, int64_t* out,
                                const int32_t* params, void* stream) {
-  int32_t p[tk::P_COUNT];
-  for (int i = 0; i < tk::P_COUNT; ++i) p[i] = params[i];
-  p[tk::P_DH] = p[tk::P_DW] = 0;
-  return tk::launch_qdwconv<true, int16_t>(x, w, out, nullptr, nullptr, nullptr, nullptr, p,
-                                           stream);
+  return tk::launch_qdwconv<true, int16_t>(x, w, out, nullptr, nullptr, nullptr, nullptr,
+                                           params, stream);
 }

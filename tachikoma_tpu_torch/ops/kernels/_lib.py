@@ -84,6 +84,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "qgemm_rq.cu": (("tk_qgemm_rq", 8), ("tk_qgemm_raw", 5)),
     "qbmm_hopper.cu": (("tk_qbmm_rq", 6), ("tk_qbmm_raw", 4)),
+    "qbmm_wide_hopper.cu": (("tk_qbmm_wide", 3),),
     "qconv_igemm_hopper.cu": (("tk_qconv_rq", 8), ("tk_qconv_rq_res", 7), ("tk_qconv_raw", 5)),
     "qdwconv.cu": (("tk_qdwconv_rq", 7), ("tk_qdwconv_raw", 5), ("tk_qdwconv_direct", 6),
                    ("tk_qdwconv_wide", 3)),

@@ -8,7 +8,8 @@ raw int32 accumulator (port of `tachikoma_tpu/ops/pallas/conv_flat.py`
     accumulator plus bias, for the unfused grouped `qnn.conv2d` (the JAX
     package runs that through `lax.conv`, with no Pallas kernel).
   * `dw_launch` also launches the body's int16 mode, `tk_qdwconv_wide`
-    (W8A16's depthwise conv into int64; its wrapper is `wide.qdwconv_wide`).
+    (W8A16's depthwise conv into int64, at any dilation; its wrapper is
+    `wide.qdwconv_wide`).
 
 x is int8 or uint8 NHWC (N, H, W, C), w int8 HWIO (KH, KW, 1, C) with an
 optional zero point kzp (int32 (C,): legacy uint8 TFLite models, whose
@@ -194,9 +195,11 @@ def dw_launch(kernel, x, w, out_dtype, ptrs, strides, padding, izp, dilation=(1,
     x_dtype, eb = (torch.int16, 2) if kernel == "qdwconv_wide" else (torch.int8, 1)
     if legacy and x.dtype == torch.uint8:
         x_dtype = torch.uint8
-    if not legacy and (dilation != (1, 1) or kzp is not None):
-        raise NotImplementedError(f"{kernel}: a dilation or a weight zero point runs on K5's "
-                                  "qdwconv_rq / qdwconv_raw alone (ROADMAP Queue 1 item 2)")
+    if kernel == "qdwconv_direct" and dilation != (1, 1):
+        raise NotImplementedError(f"{kernel}: a dilation runs on K5's modes alone")
+    if not legacy and kzp is not None:
+        raise NotImplementedError(f"{kernel}: a weight zero point runs on K5's qdwconv_rq / "
+                                  "qdwconv_raw alone")
     lo, hi = (0, 256) if x_dtype == torch.uint8 else (-2 ** (8 * eb - 1), 2 ** (8 * eb - 1))
     if not lo <= int(izp) < hi:
         raise ValueError(f"{kernel}: input zero point {izp} is not a value of {x_dtype}")

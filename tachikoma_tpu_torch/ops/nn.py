@@ -849,8 +849,19 @@ def _gelu_np(x, *, node: Node):
 
 @torch_impl("nn.gelu")
 def _gelu_torch(x: torch.Tensor, *, node: Node) -> torch.Tensor:
-    approx = "tanh" if node.attrs.get("approximate", "none") == "tanh" else "none"
-    return torch.nn.functional.gelu(x.to(torch.float32), approximate=approx).to(x.dtype)
+    """The oracle's float32 sequence: x / sqrt(2) divided in float32 (by a
+    tensor: a CUDA division by a host scalar multiplies by its reciprocal),
+    erf in float64 rounded to float32 (scipy's float32 erf), 0.5 x (1 + erf)
+    in float32.  torch's own gelu differs from it by up to 2e-5 relative
+    near 0 on CUDA, and by an ulp on the CPU, which rounds a quantized
+    model's next qnn.quantize the other way."""
+    x32 = x.to(torch.float32)
+    if node.attrs.get("approximate", "none") == "tanh":
+        return torch.nn.functional.gelu(x32, approximate="tanh").to(x.dtype)
+    root2 = torch.full((), float(np.float32(math.sqrt(2.0))), dtype=torch.float32,
+                       device=x32.device)
+    e = torch.erf((x32 / root2).to(torch.float64)).to(torch.float32)
+    return (0.5 * x32 * (1.0 + e)).to(x.dtype)
 
 
 register_op("nn.silu", infer=_same_rel)

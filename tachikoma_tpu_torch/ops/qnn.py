@@ -14,7 +14,8 @@ equal the oracle's bit for bit on any device.
                      With out_dtype int64 (W8A16: int16 data), the sum is
                      int64, on qgemm_wide / qconv_wide / qdwconv_wide
                      (kernels/wide.py).
-  * qnn.batch_matmul — (a - za) @ (b - zb), int32; K1's batched mode.
+  * qnn.batch_matmul — (a - za) @ (b - zb), int32 on K1's batched mode; with
+                     out_dtype int64 (W8A16: int16 operands) on qbmm_wide.
   * qnn.add / qnn.subtract — requantize both sides to the output qparams
                      (int32), add (subtract), take one zp off (put it back).
   * qnn.mul        — (lhs - zp)(rhs - zp) in int32, requantized from the
@@ -492,16 +493,20 @@ def _qbmm_np(a: np.ndarray, b: np.ndarray, *, node: Node) -> np.ndarray:
 
 @torch_impl("qnn.batch_matmul")
 def _qbmm_torch(a: torch.Tensor, b: torch.Tensor, *, node: Node) -> torch.Tensor:
-    """K1's batched mode in its raw epilogue (the plain version on a CPU
-    tensor)."""
+    """K1's batched mode in its raw epilogue; into int64 (W8A16's int16
+    operands) `qbmm_wide` (each the plain version on a CPU tensor)."""
     out_dtype = node.attrs.get("out_dtype", "int32")
+    kw = dict(lhs_zero_point=int(node.attrs.get("lhs_zero_point", 0)),
+              rhs_zero_point=int(node.attrs.get("rhs_zero_point", 0)),
+              transpose_a=bool(node.attrs.get("transpose_a", False)),
+              transpose_b=bool(node.attrs.get("transpose_b", False)))
+    if out_dtype == "int64":
+        return _wide.qbmm_wide(a, b, **kw)
     if out_dtype != "int32":
         raise NotImplementedError(f"{node.name} (qnn.batch_matmul): out_dtype {out_dtype} is "
-                                  "not ported yet (W8A16: ROADMAP Queue 1 item 2)")
-    return qbmm_int8(a, b, lhs_zero_point=int(node.attrs.get("lhs_zero_point", 0)),
-                     rhs_zero_point=int(node.attrs.get("rhs_zero_point", 0)),
-                     transpose_a=bool(node.attrs.get("transpose_a", False)),
-                     transpose_b=bool(node.attrs.get("transpose_b", False)))
+                                  "not ported: int32 (K1's batched mode) or int64 (qbmm_wide) "
+                                  "accumulators only")
+    return qbmm_int8(a, b, **kw)
 
 
 register_op("qnn.batch_matmul", flops=_nn._bmm_flops)
@@ -695,7 +700,8 @@ def _qattn_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, node: Nod
     u @ v = (min(u, 255) - 128 with zero point -128) @ v + (u == 256) @ v,
     the two sums added in int32 wraparound."""
     if q.dtype != torch.int8 or k.dtype != torch.int8 or v.dtype != torch.int8:
-        raise NotImplementedError(f"{node.name} (qnn.attention): int8 q, k, v only")
+        raise NotImplementedError(f"{node.name} (qnn.attention): int8 q, k, v only (ROADMAP "
+                                  "Queue 1 item 2: int16 qnn.attention)")
     table = _exp_table_torch(float(node.attrs["scores_scale"]), q.device)
     s = qbmm_int8(q, k, transpose_b=True).to(torch.int64)
     d = (s.amax(dim=-1, keepdim=True) - s).clamp(0, LUT_SIZE - 1)

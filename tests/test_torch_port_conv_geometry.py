@@ -233,13 +233,19 @@ def test_what_stays_refused_names_its_roadmap_item(rng):
     want = j_get_op("tk.conv2d_rq").np_impl(x.numpy(), dw,
                                             node=JNode("c", "tk.conv2d_rq", ("d", "w"), rq))
     np.testing.assert_array_equal(got.numpy(), want)
-    x16 = torch.from_numpy(rng.integers(-2000, 2000, (1, 9, 9, 16)).astype(np.int16))
-    for bad, match in ((dict(dilation=(2, 2), padding=(2,) * 4), "dilation.*item 2"),
-                       (dict(groups=4, padding=(1,) * 4), "groups 4.*item 2")):
-        w = _i8(rng, (3, 3, 16 // bad.get("groups", 1), 16))
-        node = Node("c", "qnn.conv2d", ("d", "w"), dict(bad, out_dtype="int64"))
-        with pytest.raises(NotImplementedError, match=match):
-            get_op("qnn.conv2d").torch_impl(x16, torch.from_numpy(w), node=node)
+    # a dilated or grouped W8A16 conv into int64 is no longer refused: it
+    # runs on qconv_wide (its plain version here) == the JAX package's oracle
+    x16 = rng.integers(-2000, 2000, (1, 9, 9, 16)).astype(np.int16)
+    for more in (dict(dilation=(2, 2), padding=(2,) * 4), dict(groups=4, padding=(1,) * 4)):
+        w = _i8(rng, (3, 3, 16 // more.get("groups", 1), 16))
+        attrs = dict(more, out_dtype="int64")
+        jnode = JNode("c", "qnn.conv2d", ("d", "w"), dict(attrs, input_zero_point=0,
+                                                          kernel_zero_point=0))
+        want = j_get_op("qnn.conv2d").np_impl(x16, w, node=jnode)
+        got = get_op("qnn.conv2d").torch_impl(torch.from_numpy(x16), torch.from_numpy(w),
+                                              node=Node("c", "qnn.conv2d", ("d", "w"), attrs))
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
     # a 1x1 conv's dilation is a no-op: on K1's plain version, == undilated
     w1 = _i8(rng, (1, 1, 16, 8))
     assert torch.equal(conv.qconv2d_flat(x, w1, multiplier=m, shift=s, dilation=(3, 3)),

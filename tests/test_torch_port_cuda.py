@@ -2124,7 +2124,7 @@ def _i16(rng, shape):
 def _wide_kernel(xs, ws, strides, padding, groups) -> str:
     """The kernel `wide.wide_conv` launches for an int16 conv."""
     if groups > 1:
-        return "qdwconv_wide"
+        return "qdwconv_wide" if groups == xs[3] == ws[3] and ws[2] == 1 else "qconv_wide"
     one = ws[:2] == (1, 1) and tuple(strides) == (1, 1) and not any(padding)
     return "qgemm_wide" if one else "qconv_wide"
 
@@ -2295,6 +2295,203 @@ def test_w8a16_wide_requantize_on_card_equals_cpu(rng, cuda, per_channel, roundi
     got = fp.q_multiply_shift_wide_per_axis(torch.from_numpy(x).to(cuda), ms, shifts, 3, rounding)
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   fp.q_multiply_shift_wide_per_axis_np(x, ms, shifts, 3, rounding))
+
+
+# ---------------------------------------------------------------------------
+# W8A16 beyond the plain CNN: int16 x int16 batched products into int64 on
+# qbmm_wide (csrc/qbmm_wide_hopper.cu), qconv_wide dilated and grouped, and
+# qdwconv_wide dilated (`-k "w8a16_bmm or w8a16_geometry or w8a16_families"`)
+# ---------------------------------------------------------------------------
+
+# (B, S, H, D) of the attention's q / k / v views: BERT-base b4 s128, ViT-B/16
+# b1 224^2 (S 197: 394-byte rows), GPT-2 small b1 s128, a ragged one
+W8A16_ATTENTION = [(4, 128, 12, 64), (1, 197, 12, 64), (1, 128, 12, 64), (2, 37, 3, 40)]
+
+
+def _qkv16(rng, b, s, h, d, device):
+    """q, k, v as a fused projection's head-split views: (B, H, S, D), each
+    a strided view of one (B, S, 3, H, D) int16 tensor."""
+    qkv = torch.from_numpy(_i16(rng, (b, s, 3, h, d))).to(device)
+    return tuple(qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zps", [(0, 0), (-300, 12345), (-32768, 32767)])
+@pytest.mark.parametrize("shape", W8A16_ATTENTION, ids=["bert", "vit", "gpt2", "ragged"])
+def test_w8a16_bmm_on_card_equals_plain(rng, cuda, shape, zps):
+    """The scores q . k^T (k read in place, transpose_b) and the context p .
+    v (p contiguous, v N-major), each one qbmm_wide launch == the float64
+    plain version, no operand copied but ViT's (none: its 197-element rows
+    are read by element loads)."""
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    b, s, h, d = shape
+    q, k, v = _qkv16(rng, b, s, h, d, cuda)
+    p = torch.from_numpy(_i16(rng, (b, h, s, s))).to(cuda)
+    za, zb = zps
+    for a_, b_, tb in ((q, k, True), (p, v, False)):
+        kw = dict(lhs_zero_point=za, rhs_zero_point=zb, transpose_b=tb)
+        before = _lib.LAUNCHES["qbmm_wide"]
+        got = wide.qbmm_wide(a_, b_, **kw)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["qbmm_wide"] == before + 1
+        want = wide.qbmm_wide_plain(a_, b_, **kw)
+        assert got.dtype == torch.int64 and got.shape == want.shape
+        assert torch.equal(got, want), (shape, zps, tb)
+        assert torch.equal(got.cpu(), wide.qbmm_wide(a_.cpu(), b_.cpu(), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ((3, 5, 13), (3, 13, 7), False, False, "int16", "int16"),
+    ((2, 9, 70), (2, 9, 65), True, False, "int16", "int16"),
+    ((70, 9), (4, 65, 70), True, True, "int16", "int16"),
+    ((2, 1, 100, 64), (1, 3, 64, 129), False, False, "int16", "int16"),
+    ((2, 33, 200), (2, 200, 33), False, False, "int8", "int16"),
+    ((2, 33, 200), (2, 31, 200), False, True, "uint8", "int8"),
+], ids=["odd", "transpose_a", "both", "broadcast", "int8_int16", "uint8_int8"])
+def test_w8a16_bmm_layouts_on_card_equal_plain(rng, cuda, case):
+    """Transposes, broadcast batch axes, ragged tiles and int8 / uint8
+    operands (widened by the wrapper) == plain."""
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    ash, bsh, ta, tb, adt, bdt = case
+    lo = {"int8": (-128, 128), "uint8": (0, 256), "int16": (-2 ** 15, 2 ** 15)}
+    a = torch.from_numpy(rng.integers(*lo[adt], ash).astype(adt)).to(cuda)
+    b = torch.from_numpy(rng.integers(*lo[bdt], bsh).astype(bdt)).to(cuda)
+    for za, zb in ((0, 0), (17, -5), (-128 if adt == "int8" else 128, 0)):
+        kw = dict(lhs_zero_point=za, rhs_zero_point=zb, transpose_a=ta, transpose_b=tb)
+        got = wide.qbmm_wide(a, b, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, wide.qbmm_wide_plain(a, b, **kw)), (case, za, zb)
+
+
+@pytest.mark.cuda
+def test_w8a16_bmm_exact_at_the_k_bound_and_raise_past_it(cuda):
+    """At K = BMM_K_BOUND with a = b = -128 * 256 + 255 (hi -128, lo 255)
+    the middle int32 sum reaches -2^31 + 32,767 and the lo sum 2^31 -
+    8,421,247: the result is exact; with zero points 255 and -3 too; one k
+    more raises."""
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    k = wide.BMM_K_BOUND
+    val = -128 * 256 + 255
+    a = torch.full((2, 3, k), val, dtype=torch.int16, device=cuda)
+    b = torch.full((2, k, 5), val, dtype=torch.int16, device=cuda)
+    for za, zb in ((0, 0), (255, -3)):
+        got = wide.qbmm_wide(a, b, lhs_zero_point=za, rhs_zero_point=zb)
+        torch.cuda.synchronize()
+        assert bool((got == k * (val - za) * (val - zb)).all()), (za, zb)
+    with pytest.raises(ValueError, match="above 32896"):
+        wide.qbmm_wide(torch.zeros((1, 1, k + 1), dtype=torch.int16, device=cuda),
+                       torch.zeros((1, k + 1, 1), dtype=torch.int16, device=cuda))
+
+
+W8A16_GEOMETRY = [
+    # (x shape, weight shape, strides, padding, dilation, groups):
+    # DeepLabV3-ResNet-50 b1 520^2 at output stride 8 (65^2 maps): layer3's d2
+    # 3x3 at 256, layer4's d4 at 512, the ASPP's 2048 -> 256 at d12 / d36;
+    # ResNeXt-50 32x4d's grouped 3x3 (32 groups of 4 / 16 / 32 channels, s2
+    # on the first of a stage); the atrous depthwise calls of DeepLab-
+    # MobileNetV2 (384 at d2, 960 at d4); a ragged dilated grouped conv
+    ((1, 65, 65, 256), (3, 3, 256, 256), (1, 1), (2,) * 4, (2, 2), 1),
+    ((1, 65, 65, 512), (3, 3, 512, 512), (1, 1), (4,) * 4, (4, 4), 1),
+    ((1, 65, 65, 2048), (3, 3, 2048, 256), (1, 1), (12,) * 4, (12, 12), 1),
+    ((1, 65, 65, 2048), (3, 3, 2048, 256), (1, 1), (36,) * 4, (36, 36), 1),
+    ((2, 56, 56, 128), (3, 3, 4, 128), (1, 1), (1,) * 4, (1, 1), 32),
+    ((2, 56, 56, 512), (3, 3, 16, 512), (2, 2), (1,) * 4, (1, 1), 32),
+    ((2, 14, 14, 1024), (3, 3, 32, 1024), (1, 1), (1,) * 4, (1, 1), 32),
+    ((1, 65, 65, 384), (3, 3, 1, 384), (1, 1), (2,) * 4, (2, 2), 384),
+    ((1, 65, 65, 960), (3, 3, 1, 960), (1, 1), (4,) * 4, (4, 4), 960),
+    ((2, 19, 23, 24), (3, 3, 6, 64), (2, 1), (3, 2, 3, 2), (3, 2), 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("izp", [0, -32768, 1234])
+@pytest.mark.parametrize("case", W8A16_GEOMETRY,
+                         ids=[f"geometry{i}" for i in range(len(W8A16_GEOMETRY))])
+def test_w8a16_geometry_on_card_equals_plain(rng, cuda, case, izp):
+    """A dilated or grouped int16 conv runs on qconv_wide (a grouped one as
+    super-groups on block-diagonal weights), a dilated depthwise one on
+    qdwconv_wide; one launch, no K4 / K5 launch, == the float64 plain
+    version and the CPU path."""
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    xs, ws, strides, padding, dilation, groups = case
+    x = torch.from_numpy(_i16(rng, xs)).to(cuda)
+    w = _dev(rng, ws, cuda)
+    kw = dict(strides=strides, padding=padding, dilation=dilation, groups=groups, izp=izp)
+    name = _wide_kernel(xs, ws, strides, padding, groups)
+    before = dict(_lib.LAUNCHES)
+    got = wide.wide_conv(x, w, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES[name] == before.get(name, 0) + 1
+    assert all(_lib.LAUNCHES[k] == before.get(k, 0) for k in K4_K5)
+    assert got.dtype == torch.int64 and torch.equal(got, wide.wide_conv_plain(x, w, **kw))
+    if izp == 0 and xs[0] * xs[1] * xs[2] * ws[3] < 2 ** 18:  # the CPU path, where it is quick
+        assert torch.equal(got.cpu(), wide.wide_conv(x.cpu(), w.cpu(), **kw))
+
+
+@pytest.mark.cuda
+def test_w8a16_geometry_at_every_plan_on_card(rng, cuda):
+    """`qconv_wide` dilated and grouped at every tile and split of K that
+    keeps a tile in one super-group == plain; a 128-column tile on a
+    64-column super-group raises."""
+    from tachikoma_tpu_torch.ops.kernels import wide
+
+    for xs, ws, padding, dilation, groups in (
+            ((1, 9, 9, 512), (3, 3, 512, 128), (2,) * 4, (2, 2), 1),
+            ((1, 14, 14, 256), (3, 3, 8, 256), (1,) * 4, (1, 1), 32)):
+        x = torch.from_numpy(_i16(rng, xs)).to(cuda)
+        w = _dev(rng, ws, cuda)
+        kw = dict(padding=padding, dilation=dilation, groups=groups, izp=-99)
+        want = wide.qconv_wide_plain(x, w, **kw)
+        span = 64 // (ws[3] // groups) if groups > 1 else 1
+        for plan in wide.wide_plans(9 * ws[2] * span):
+            if groups > 1 and plan["bn"] != wide.GROUPED_BN:
+                with pytest.raises(ValueError, match="whole 128-column tiles"):
+                    wide.qconv_wide(x, w, plan=plan, **kw)
+                continue
+            got = wide.qconv_wide(x, w, plan=plan, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (xs, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["bert", "vit"])
+def test_w8a16_families_forward_on_card(rng, cuda, model):
+    """A tiny W8A16 BERT and ViT on the card: every qnn.batch_matmul on
+    qbmm_wide, every other product on qgemm_wide / qconv_wide, no K1 / K4
+    launch; every node held to the CPU path as runtime/crosscheck.py holds
+    a float op's cone (the card's softmax and tanh round in their own way),
+    floats within the card's rtol 1e-4, atol 1e-4."""
+    from tachikoma_tpu_torch.quantize.config import W8A16
+    from tachikoma_tpu_torch.runtime.crosscheck import hold_node_level
+
+    if model == "bert":
+        g = bert(batch_size=2, seq_len=32, hidden=64, layers=2, heads=4, ffn_dim=128,
+                 vocab=100, seed=3)
+        mk = lambda: rng.integers(0, 100, (2, 32)).astype(np.int32)  # noqa: E731
+    else:
+        g = vit(batch_size=2, image_size=32, patch=8, hidden=64, layers=2, heads=4,
+                ffn_dim=128, num_classes=10, seed=5)
+        mk = lambda: rng.standard_normal((2, 32, 32, 3)).astype(np.float32)  # noqa: E731
+    q = quantize(g, [mk()], W8A16)
+    x = mk()
+    names = computational_nodes(q)
+    kernels = ("qbmm_wide", "qgemm_wide", "qconv_wide", "qbmm_raw", "qgemm_raw", "qconv_raw")
+    for k in kernels:
+        _lib.LAUNCHES[k] = 0
+    card = TorchExecutor(q, capture=names, device="cuda").run(x)
+    ops = [q[n].op for n in names]
+    assert _lib.LAUNCHES["qbmm_wide"] == ops.count("qnn.batch_matmul") == 4
+    assert (_lib.LAUNCHES["qgemm_wide"] + _lib.LAUNCHES["qconv_wide"]
+            == ops.count("qnn.dense") + ops.count("qnn.conv2d"))
+    assert not any(_lib.LAUNCHES[k] for k in ("qbmm_raw", "qgemm_raw", "qconv_raw"))
+    cpu = TorchExecutor(q, capture=names, device="cpu").run(x)
+    counts, _ = hold_node_level(q, names, card, cpu, {q.inputs[0].name: x}, 1e-4, 1e-4)
+    assert counts["int"] > 10
 
 
 def _fixture(name):

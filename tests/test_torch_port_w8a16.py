@@ -240,12 +240,13 @@ def test_int8_data_into_int64_and_int16_into_int32_refusal(rng):
 
 @pytest.mark.parametrize("bad,match", [
     (dict(kernel_zero_point=3), "kernel_zero_point.*item 2"),
-    (dict(groups=2), "groups 2.*item 2"),
+    (dict(out_dtype="int8"), "out_dtype int8"),
     (dict(out_dtype="int16"), "out_dtype int16"),
 ])
 def test_wide_products_refuse_what_no_kernel_runs(rng, bad, match):
-    """A nonzero kernel zero point and grouped convs other than depthwise
-    raise for int64 accumulators as they do for int32."""
+    """A nonzero kernel zero point and accumulators other than int32 and
+    int64 raise (grouped and dilated convs into int64 run on qconv_wide /
+    qdwconv_wide since they came: tests/test_torch_port_w8a16_families.py)."""
     x, w = torch.from_numpy(_i16(rng, (1, 6, 6, 8))), torch.from_numpy(_w8(rng, (3, 3, 4, 8)))
     attrs = dict(out_dtype="int64", padding=(1, 1, 1, 1)) | bad
     with pytest.raises(NotImplementedError, match=match):

@@ -6,6 +6,7 @@ beside the yardsticks in the same process:
     python3 tools/wide_probe.py [--no-cuts | --cuts=A,B] [--plans] [--models=A,B]
                                 [--gemm-parent DIR] [OUT_JSON]
     python3 tools/wide_probe.py --lone [OUT_JSON]
+    python3 tools/wide_probe.py [--bmm] [--geometry] [OUT_JSON]
 
 The calls (`models`): ResNet-50 W8A16 b8 224^2 (20c: 24 distinct products
 of 54) and b1 224^2 (20d), their shapes read from the float graph; the 16x8
@@ -49,6 +50,22 @@ int8 weights, input zero point -3.  Per call, in turns (`port`, `planes`,
 and 72), whole and with parts cut out (`LONE_CUTS`: the switches above,
 alone and together, and two text cuts, `no_sync`: the step's proxy fence
 and barrier, `no_split`: the byte permutes), per step.
+
+`--bmm` and `--geometry` time, in one process, the calls of `chip_smoke.py`
+phase 29 (`--bmm`: `qbmm_wide` at W8A16 BERT-base b4 s128's and b1 s128's
+and ViT-B/16 b1 224^2's scores and contexts, q, k and v head-split views of
+one projection each, the softmax output contiguous; `--geometry`:
+`qconv_wide` at DeepLabV3-ResNet-50 b1 520^2's 11 dilated convs and
+ResNeXt-50 32x4d b1 224^2's 16 grouped ones, their shapes read from the
+float graphs, and `qdwconv_wide` at DeepLab-MobileNetV2's 10 atrous calls),
+each == its float64 plain version first, then in turns `port`, `library`
+(the float64 cuBLAS / cuDNN call, dilated and grouped as the call is),
+`port_again`, and `plain` (the plain version, eager, CUDA events, as
+`chip_smoke.py eager_ms` times it), beside `bound` (the bytes of the
+int16 inputs, the int8 weights and the int64 output, or the int8
+products: four a batched product (both operands' byte planes), two a
+conv, one a depthwise conv, counting only a grouped conv's products within
+its groups), summed per forward.
 
 `--gemm-parent DIR` (a `csrc/` of the parent tree, e.g. a `git archive`)
 then runs `tools/gemm_probe.py --parent DIR --no-cuts --k2` and `--raw
@@ -191,17 +208,18 @@ def planes_dense(x, w, *, izp):
     return _combine(lambda xp, zp: qmatmul_int8(xp, w, input_zero_point=zp), x, izp)
 
 
-def library(kind, x, w, strides, padding, groups):
+def library(kind, x, w, strides, padding, groups, dilation=(1, 1)):
     xd, wd = x.to(torch.float64), w.to(torch.float64)
     if kind == "dense":
         return lambda: xd @ wd
     pt, pl, pb, pr = padding
     xd = torch.nn.functional.pad(xd, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2).contiguous()
     wd = wd.permute(3, 2, 0, 1).contiguous()
-    return lambda: torch.nn.functional.conv2d(xd, wd, stride=strides, groups=groups)
+    return lambda: torch.nn.functional.conv2d(xd, wd, stride=strides, dilation=dilation,
+                                              groups=groups)
 
 
-def work(kind, x, w, strides, padding, groups) -> tuple[int, int]:
+def work(kind, x, w, strides, padding, groups, dilation=(1, 1)) -> tuple[int, int]:
     """(bytes, operations) of one product, as chip_smoke.py work counts them."""
     from tachikoma_tpu_torch.ops.nn import conv2d_out_hw
 
@@ -210,9 +228,9 @@ def work(kind, x, w, strides, padding, groups) -> tuple[int, int]:
         n = w.shape[1]
         return 2 * m * k + k * n + 8 * m * n, 2 * 2 * m * k * n
     oh, ow = conv2d_out_hw(x.shape[1], x.shape[2], w.shape[0], w.shape[1], strides, padding,
-                           (1, 1))
+                           dilation)
     out = x.shape[0] * oh * ow * w.shape[3]
-    products = 1 if groups > 1 else 2
+    products = 1 if groups > 1 and groups == x.shape[3] == w.shape[3] else 2
     return (2 * x.numel() + w.numel() + 8 * out,
             products * 2 * out * int(np.prod(w.shape[:3])))
 
@@ -309,6 +327,152 @@ def parent_turns(parent: Path, workdir: Path, out_prefix: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 29's calls: the batched products and the dilated / grouped convs
+# ---------------------------------------------------------------------------
+
+# (B, S, H, D, layers) of each W8A16 transformer of chip_smoke.py phase 29
+BMM_MODELS = {"BERT-base W8A16 b4 s128 (29a)": (4, 128, 12, 64, 12),
+              "BERT-base W8A16 b1 s128 trace (29b)": (1, 128, 12, 64, 12),
+              "ViT-B/16 W8A16 b1 224^2 (29c)": (1, 197, 12, 64, 12)}
+
+
+def bmm_calls(rng) -> dict:
+    """{model: [(label, a, b, transpose_b, repeats a forward)]}: each
+    transformer's scores q . k^T and context p . v, q, k and v (B, H, S, D)
+    views of (B, S, H, D) projections, the softmax output p contiguous."""
+    out = {}
+    for model, (b, s, h, d, layers) in BMM_MODELS.items():
+        q, k, v = (_i16(rng, (b, s, h, d)).permute(0, 2, 1, 3) for _ in range(3))
+        p = _i16(rng, (b, h, s, s))
+        out[model] = [(f"scores {b * h}x ({s}, {d}) x ({d}, {s})", q, k, True, layers),
+                      (f"context {b * h}x ({s}, {s}) x ({s}, {d})", p, v, False, layers)]
+    return out
+
+
+def geometry_calls() -> dict:
+    """{model: Counter((x shape, w shape, strides, padding, dilation, groups))}:
+    the dilated and grouped convs of DeepLabV3-ResNet-50 b1 520^2 and
+    ResNeXt-50 32x4d b1 224^2 (read from their float graphs), and DeepLab-
+    MobileNetV2's atrous depthwise calls (chip_smoke.py ATROUS_CALLS)."""
+    from chip_smoke import ATROUS_CALLS, ATROUS_MAP, DEEPLAB_CLASSES, DEEPLAB_SIDE
+    from tachikoma_tpu_torch.frontend import from_onnx
+    from tachikoma_tpu_torch.frontend.torch_fx import from_torch
+    from tachikoma_tpu_torch.models.onnx_deeplab import deeplabv3_onnx
+    from tachikoma_tpu_torch.models.torch_resnet import resnext50_32x4d_torch
+    from tachikoma_tpu_torch.ops import nn as tnn
+
+    def convs(g):
+        out = Counter()
+        for n in g.nodes:
+            if n.op != "nn.conv2d":
+                continue
+            dil, groups = tnn._pair(n.attrs.get("dilation", (1, 1))), int(n.attrs.get("groups", 1))
+            ws = tuple(g[n.inputs[1]].shape)
+            if (dil == (1, 1) or ws[:2] == (1, 1)) and groups == 1:
+                continue
+            out[(tuple(g[n.inputs[0]].shape), ws, tnn._pair(n.attrs.get("strides", (1, 1))),
+                 tnn._pad4(n.attrs.get("padding", (0, 0, 0, 0))), dil, groups)] += 1
+        return out
+
+    atrous = Counter(((1, ATROUS_MAP, ATROUS_MAP, c), (3, 3, 1, c), (1, 1), (d,) * 4, (d, d), c)
+                     for c, d in ATROUS_CALLS)
+    return {f"DeepLabV3-ResNet-50 W8A16 b1 {DEEPLAB_SIDE}^2 (29d)":
+            convs(from_onnx(deeplabv3_onnx(1, DEEPLAB_SIDE, DEEPLAB_CLASSES, seed=0))),
+            "ResNeXt-50 32x4d W8A16 b1 224^2 (29e)":
+            convs(from_torch(resnext50_32x4d_torch(seed=0), {"x": (1, 3, 224, 224)})),
+            "DeepLab-MobileNetV2 atrous int16 (29f)": atrous}
+
+
+def _turns(row, port, lib, plain) -> None:
+    from chip_smoke import eager_ms
+    from tachikoma_tpu_torch.utils.timing import call_seconds
+
+    for key, fn in (("port", port), ("library", lib), ("port_again", port)):
+        row[key] = call_seconds(fn, "cuda") * 1e3
+    row["plain"] = eager_ms(plain)
+
+
+def _summary(model: str, rows: list) -> dict:
+    total = Counter()
+    for r in rows:
+        for k in ("port", "library", "port_again", "plain", "bound_ms"):
+            total[k] += r[k] * r["reps"]
+    calls = sum(r["reps"] for r in rows)
+    print(f"{model} per forward ({calls} calls): " + " ".join(f"{k} {v:.4f}"
+                                                              for k, v in total.items()),
+          flush=True)
+    return {"calls": rows, "per_forward": dict(total), "n_calls": calls}
+
+
+def bmm_and_geometry(argv, out_path: str) -> int:
+    """`--bmm` and `--geometry`: phase 29's calls, each == plain, timed in
+    turns beside the float64 library call and the bound."""
+    from tachikoma_tpu_torch.ops.kernels import _lib, wide
+
+    the_card = card()
+    print(the_card, flush=True)
+    print(f"build {_lib.build()[0]:.1f} s", flush=True)
+    res = {"card": the_card, "models": {}}
+    rng = np.random.default_rng(0)
+    if "--bmm" in argv:
+        for model, calls in bmm_calls(rng).items():
+            rows = []
+            for label, a, b, tb, reps in calls:
+                want = wide.qbmm_wide_plain(a, b, transpose_b=tb)
+                got = wide.qbmm_wide(a, b, transpose_b=tb)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), f"{model} {label} != plain"
+                A, B = (a, b.transpose(-1, -2)) if tb else (a, b)
+                nb, m, kk, n = A.shape[0] * A.shape[1], A.shape[2], A.shape[3], B.shape[3]
+                nbytes, ops = 2 * (A.numel() + B.numel()) + 8 * nb * m * n, 4 * 2 * nb * m * kk * n
+                Ad, Bd = A.to(torch.float64), B.to(torch.float64)
+                row = {"kernel": "qbmm_wide", "shape": label, "reps": reps,
+                       "plan": wide.bmm_wide_summary(a, b, transpose_b=tb),
+                       "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3}
+                _turns(row, lambda: wide.qbmm_wide(a, b, transpose_b=tb),
+                       lambda: torch.matmul(Ad, Bd),
+                       lambda: wide.qbmm_wide_plain(a, b, transpose_b=tb))
+                rows.append(row)
+                print(f"{model:36s} {label:34s} x{reps} {row['plan']:34s} "
+                      + " ".join(f"{k} {row[k]:.4f}" for k in ("port", "library", "port_again",
+                                                               "plain", "bound_ms")), flush=True)
+            res["models"][model] = _summary(model, rows)
+    if "--geometry" in argv:
+        for model, products in geometry_calls().items():
+            rows = []
+            for (xs, ws, strides, padding, dilation, groups), reps in products.items():
+                x, w = _i16(rng, xs), _i8(rng, ws)
+                geo = dict(strides=strides, padding=padding, dilation=dilation, groups=groups,
+                           izp=IZP)
+                name = kernel_of("conv", ws, strides, padding, groups)
+                if name == "qdwconv_wide" and not (groups == xs[3] == ws[3] and ws[2] == 1):
+                    name = "qconv_wide"
+                want = wide.wide_conv_plain(x, w, **geo)
+                before = _lib.LAUNCHES[name]
+                got = wide.wide_conv(x, w, **geo)
+                torch.cuda.synchronize()
+                assert _lib.LAUNCHES[name] == before + 1 and torch.equal(got, want), \
+                    f"{model} {xs} x {ws} != plain"
+                nbytes, ops = work("conv", x, w, strides, padding, groups, dilation)
+                row = {"kernel": name, "reps": reps,
+                       "shape": f"{xs} x {ws} s{strides[0]} d{dilation[0]} g{groups}",
+                       "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3}
+                _turns(row, lambda: wide.wide_conv(x, w, **geo),
+                       library("conv", x, w, strides, padding, groups, dilation),
+                       lambda: wide.wide_conv_plain(x, w, **geo))
+                rows.append(row)
+                print(f"{model:40s} {name:12s} x{reps} {row['shape']:56s} "
+                      + " ".join(f"{k} {row[k]:.4f}" for k in ("port", "library", "port_again",
+                                                               "plain", "bound_ms")), flush=True)
+                del x, w, want, got
+                torch.cuda.empty_cache()
+            res["models"][model] = _summary(model, rows)
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -363,6 +527,8 @@ def main() -> int:
     out_path = args[0] if args else "wide_probe.json"
     if "--lone" in argv:
         return lone(out_path)
+    if "--bmm" in argv or "--geometry" in argv:
+        return bmm_and_geometry(argv, out_path)
     named = [a.split("=", 1)[1].split(",") for a in argv if a.startswith("--cuts=")]
     keep = (lambda name: name in named[0]) if named else (lambda name: True)
     cuts = {k: v for k, v in CUTS.items() if "--no-cuts" not in argv and keep(k)}
